@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Serve llama_1b through paddle_tpu_torch on one NVIDIA GPU, and hold each
-hand-written CUDA kernel against its plain PyTorch version.
+"""Serve llama_1b and train transformer-base through paddle_tpu_torch on one
+NVIDIA GPU, and hold each hand-written CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
 
 Phases, each printing JSON lines:
   card        nvidia-smi name and power limit; build the kernels (nvcc,
-              sm_90a) from paddle_tpu_torch/csrc and time the build
-  kernels     flash-attention forward and the embedding gather on the card
-              against their plain versions at the served shapes and at
-              ragged ones; kernel / plain / library times and the bound
+              sm_90a, one process per source) from paddle_tpu_torch/csrc
+              and time the build
+  kernels     every kernel on the card against its plain version at its
+              main path's shapes (timed: kernel / plain / library ms and the
+              bound) and at ragged ones: flash-attention forward and the
+              embedding gather at the served shapes; the flash backward
+              (dQ, dK/dV), LayerNorm and the multi-tensor Adam at the
+              training step's shapes
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -20,11 +25,22 @@ Phases, each printing JSON lines:
               one 4-row batch (device time by kernel group, idle share)
   gpu_vs_cpu  llama_1b width, 2 layers, max_len 512: one saved model through
               the port's Predictor on the card and on the CPU
+  training    transformer-base as bench.py builds it (full width, 6+6
+              layers, vocab 32000, B=32, T=256, bf16 AMP, flash attention,
+              dropout 0, random init from a seed) trained by
+              Executor.run: 3 warm-up and 10 timed steps (step ms, tokens/s,
+              losses, which must be finite), kernel launches per step read
+              around the timed steps, then torch.profiler over one step
+  train_gpu_vs_cpu
+              the same model at full width cut to 2 layers, B=4, T=256,
+              float32: 2 steps from the same weights on the card and on the
+              CPU; losses and parameters after the updates must agree
 The line before the last is the nvidia-smi line; the line before that
-lists every kernel.  The last line is {"ok": true, "device": ...}.  Any
-failed check raises, so the script exits non-zero and prints no result;
-it refuses to run without a CUDA device.  Float32 matrix products and
-convolutions run in full float32 (TF32 off), set below.
+lists every kernel, with its launches per step on the training path (per
+served run for the serving-only ones).  The last line is {"ok": true,
+"device": ...}.  Any failed check raises, so the script exits non-zero and
+prints no result; it refuses to run without a CUDA device.  Float32 matrix
+products and convolutions run in full float32 (TF32 off), set below.
 """
 import argparse
 import json
@@ -38,10 +54,16 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
-PHASES = ('card', 'kernels', 'serving', 'gpu_vs_cpu')
+PHASES = ('card', 'kernels', 'serving', 'gpu_vs_cpu', 'training',
+          'train_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 ALL_FETCHES = ('logits', 'last_logits', 'next_token')
+
+# the training configuration bench.py headlines (transformer-base)
+BENCH_CFG = dict(src_vocab=32000, trg_vocab=32000, max_len=256, n_layer=6,
+                 n_head=8, d_model=512, d_inner=2048, dropout=0.0,
+                 use_flash=True)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 HBM_BPS = 3.35e12
@@ -209,6 +231,245 @@ def gather_case(name, V, D, N, dtype, special=False, ids64=False,
     return res
 
 
+def _close(out, ref, rtol, atol):
+    """(max |out - ref|, all within atol + rtol |ref|), in float32."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def _bound(flops, nbytes, dtype):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
+                                 'operations')
+
+
+def _valid_pairs(B, H, Tq, Tk, causal, kl):
+    qpos = np.arange(Tq)
+    pairs = 0
+    for b in range(B):
+        vis = (np.minimum(kl[b], qpos + (Tk - Tq) + 1) if causal
+               else np.full(Tq, kl[b]))
+        pairs += int(np.clip(vis, 0, Tk).sum()) * H
+    return pairs
+
+
+def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
+                   timed=False):
+    """dQ and dK/dV kernels against flash_backward_reference on the same
+    q, k, v, dO and the kernel forward's out and LSE."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import attention as att
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn(B, H, Tq, D, generator=g, device='cuda').to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Tk, D, generator=g, device='cuda').to(dt)
+            for _ in range(2))
+    kl = [Tk] * B if klen is None else list(klen)
+    kl_t = torch.tensor(kl, dtype=torch.int32, device='cuda')
+    scale = D ** -0.5
+    out, lse = att.flash_forward(q, k, v, causal, scale, kl_t)
+    dq, dk, dv = att.flash_backward(q, k, v, kl_t, out, lse, do, causal,
+                                    scale)
+    rq, rk, rv = att.flash_backward_reference(q, k, v, kl_t, out, lse, do,
+                                              causal, scale)
+    torch.cuda.synchronize()
+    # float32: both sum in float32 in other orders, and dS = P (dP - delta)
+    # cancels, so the bound is relative to the largest gradient; bfloat16:
+    # both round an (almost equal) float32 result to bf16 once
+    rtol, arel = (1e-4, 1e-5) if dtype == 'float32' else (8e-3, 2e-3)
+    res = {}
+    for kname, outs, refs in (('flash_attention_bwd_dq', (dq,), (rq,)),
+                              ('flash_attention_bwd_dkv', (dk, dv),
+                               (rk, rv))):
+        errs = [_close(o, r, rtol, arel * float(r.float().abs().max()))
+                for o, r in zip(outs, refs)]
+        row = dict(phase='kernels', kernel=kname, case=name, B=B, H=H,
+                   Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal, dtype=dtype,
+                   k_len=kl, max_abs_err=max(e for e, _ in errs), rtol=rtol,
+                   atol_of_max=arel)
+        if 0 in kl:
+            zero = torch.tensor(kl, device='cuda') == 0
+            row['k_len0_max_abs'] = max(float(t[zero].float().abs().max())
+                                        for t in outs)
+            errs.append((row['k_len0_max_abs'],
+                         row['k_len0_max_abs'] == 0.0))
+        ok = all(o for _, o in errs)
+        res[kname] = (row, ok)
+    if timed:
+        itemsize = q.element_size()
+        pairs = _valid_pairs(B, H, Tq, Tk, causal, kl)
+        in_bytes = ((2 * B * H * Tq + 2 * B * Hkv * Tk) * D * itemsize
+                    + 8 * B * H * Tq + 4 * B)
+        delta = att._bwd_delta(out, do)
+        plain_ms = time_ms(lambda: att.flash_backward_reference(
+            q, k, v, kl_t, out, lse, do, causal, scale), 3)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        # the library yardstick: PyTorch's SDPA forward+backward minus its
+        # forward, bf16 (key padding and GQA given as they are here)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qs, ks, vs,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), do)
+        lib_ms = None
+        if klen is None:
+            lib_ms = time_ms(sdpa_fwd_bwd, 10) - time_ms(sdpa_fwd, 10)
+        for kname, fn, flops_per, out_bytes in (
+                ('flash_attention_bwd_dq',
+                 lambda: att._launch_bwd_dq(q, k, v, kl_t, lse, delta, do,
+                                            causal, scale), 6,
+                 B * H * Tq * D * itemsize),
+                ('flash_attention_bwd_dkv',
+                 lambda: att._launch_bwd_dkv(q, k, v, kl_t, lse, delta, do,
+                                             causal, scale), 8,
+                 2 * B * Hkv * Tk * D * itemsize)):
+            flops = float(flops_per * D * pairs)
+            nbytes = in_bytes + out_bytes
+            bound_ms, bound_by = _bound(flops, nbytes, dtype)
+            row = res[kname][0]
+            row.update(ms=time_ms(fn, 10), plain_ms=plain_ms,
+                       plain_is='the whole plain backward (dq, dk, dv)',
+                       library_ms=lib_ms,
+                       library_is='SDPA fwd+bwd minus fwd (dq, dk, dv)',
+                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                       bytes=nbytes)
+            row['tflops'] = flops / row['ms'] / 1e9
+    for kname, (row, ok) in res.items():
+        emit(**row)
+        require(ok, '%s disagrees with its plain version in case %s: %s'
+                % (kname, name, row))
+    return {k: r for k, (r, _) in res.items()}
+
+
+def layer_norm_case(name, rows, cols, dtype, affine=True, two_pass=False,
+                    offset=0.0, timed=False):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import nn as tnn
+    g = torch.Generator(device='cuda').manual_seed(SEED + 3)
+    x = (torch.randn(rows, cols, generator=g, device='cuda')
+         + offset).to(getattr(torch, dtype))
+    scale = bias = None
+    if affine:
+        scale = 1.0 + 0.1 * torch.randn(cols, generator=g, device='cuda')
+        bias = 0.1 * torch.randn(cols, generator=g, device='cuda')
+    eps = 1e-5
+    y, m, v = tnn.layer_norm_rows(x, scale, bias, eps, two_pass)
+    ry, rm, rv = tnn.layer_norm_reference(x, scale, bias, eps, two_pass)
+    torch.cuda.synchronize()
+    # float32 sums in other orders; bf16 Y: one rounding of ~equal floats
+    rtol, atol = (1e-5, 1e-5) if dtype == 'float32' else (8e-3, 8e-3)
+    e_y, ok_y = _close(y, ry, rtol, atol)
+    e_m, ok_m = _close(m, rm, 1e-5, 1e-5)
+    e_v, ok_v = _close(v, rv, 1e-4, 1e-6)
+    row = dict(phase='kernels', kernel='layer_norm', case=name, rows=rows,
+               cols=cols, dtype=dtype, affine=affine, two_pass=two_pass,
+               offset=offset, max_abs_err=e_y, mean_err=e_m, var_err=e_v,
+               rtol=rtol, atol=atol)
+    if timed:
+        nbytes = 2 * rows * cols * x.element_size() + 8 * rows + 8 * cols
+        bound_ms, bound_by = _bound(0.0, nbytes, dtype)
+        row.update(
+            ms=time_ms(lambda: tnn.layer_norm_rows(x, scale, bias, eps,
+                                                   two_pass), 50),
+            plain_ms=time_ms(lambda: tnn.layer_norm_reference(
+                x, scale, bias, eps, two_pass), 20),
+            library_ms=time_ms(lambda: F.layer_norm(x, (cols,), scale, bias,
+                                                    eps), 50),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        row['gbps'] = nbytes / row['ms'] / 1e6
+    emit(**row)
+    require(ok_y and ok_m and ok_v, 'layer_norm disagrees with its plain '
+            'version in case %s: %s' % (name, row))
+    return row
+
+
+def transformer_param_shapes():
+    """The 158 parameter shapes of the training program at the bench
+    configuration, from the port's layers (no weights are made)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        tr.build(**BENCH_CFG)
+    return [tuple(p.shape) for p in main.all_parameters()]
+
+
+def adam_case(name, shapes, steps=3, timed=False):
+    """adam_multi over the tensors of `shapes` against adam_reference on
+    copies, `steps` steps with an LR tensor on the device."""
+    import torch
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+    g = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    n = len(shapes)
+
+    def rand(shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device='cuda')
+    params = [rand(s, 0.05) for s in shapes]
+    m1s = [rand(s, 1e-3) for s in shapes]
+    m2s = [rand(s, 1e-3).square() for s in shapes]
+    b1, b2, eps = 0.9, 0.997, 1e-9
+    b1ps = [torch.full((1,), b1 ** 3, device='cuda') for _ in range(n)]
+    b2ps = [torch.full((1,), b2 ** 3, device='cuda') for _ in range(n)]
+    lr = [torch.full((1,), 1e-3, device='cuda')] * n
+    state = [params, m1s, m2s, b1ps, b2ps]
+    ref = [[t.clone() for t in col] for col in state]
+    cache = {}
+    for _ in range(steps):
+        grads = [rand(s, 1e-2) for s in shapes]
+        oo.adam_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, b1, b2, eps,
+                      cache=cache)
+        oo.adam_reference(ref[0], grads, ref[1], ref[2], ref[3], ref[4], lr,
+                          b1, b2, eps)
+    torch.cuda.synchronize()
+    # the kernel rounds each operation in the reference's order (IEEE
+    # multiply, add, divide and square root, no FMA contraction): equal up
+    # to the last bit of PyTorch's own elementwise kernels
+    errs = [_close(torch.cat([t.reshape(-1) for t in a]),
+                   torch.cat([t.reshape(-1) for t in r]), 2e-6, 1e-12)
+            for a, r in zip(state, ref)]
+    pows_ok = bool(torch.allclose(b1ps[0], torch.full_like(
+        b1ps[0], b1 ** (3 + steps)), rtol=1e-6))
+    row = dict(phase='kernels', kernel='adam_multi', case=name, tensors=n,
+               elements=int(sum(int(np.prod(s)) for s in shapes)),
+               steps=steps, max_abs_err=max(e for e, _ in errs),
+               rtol=2e-6, atol=1e-12, pows_advanced=pows_ok)
+    if timed:
+        grads = [rand(s, 1e-2) for s in shapes]
+        elems = row['elements']
+        nbytes = 28 * elems + 16 * n
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        lib_params = [p.clone().requires_grad_(True) for p in params]
+        for p, gr in zip(lib_params, grads):
+            p.grad = gr
+        lib = torch.optim.Adam(lib_params, lr=1e-3, betas=(b1, b2), eps=eps,
+                               fused=True)
+        row.update(
+            ms=time_ms(lambda: oo.adam_multi(params, grads, m1s, m2s, b1ps,
+                                             b2ps, lr, b1, b2, eps,
+                                             cache=cache), 20),
+            plain_ms=time_ms(lambda: oo.adam_reference(
+                ref[0], grads, ref[1], ref[2], ref[3], ref[4], lr, b1, b2,
+                eps), 5),
+            library_ms=time_ms(lib.step, 20),
+            library_is='torch.optim.Adam(fused=True).step(), eps placed '
+                       'otherwise: a timing yardstick only',
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            table_builds=cache.get('adam_multi_tables'))
+        row['gbps'] = nbytes / row['ms'] / 1e6
+    emit(**row)
+    require(all(o for _, o in errs) and pows_ok, 'adam_multi disagrees '
+            'with adam_reference in case %s: %s' % (name, row))
+    return row
+
+
 def phase_kernels():
     served = {}
     # the served shapes (llama_1b, 4 rows x 2048 tokens): timed
@@ -235,6 +496,36 @@ def phase_kernels():
                 special=True)
     gather_case('scalar_path_bf16_d100', 1000, 100, 777, 'bfloat16',
                 special=True)
+    # the training path's shapes (transformer-base, B=32, T=256, bf16
+    # attention under AMP, a float32 [32000, 512] table): timed; then
+    # ragged cases.  The kernels line keeps the served rows of the two
+    # kernels serving and training share.
+    flash_case('path_bf16', 32, 8, 8, 256, 256, 64, False, 'bfloat16',
+               timed=True)
+    gather_case('path_f32', 32000, 512, 8192, 'float32', timed=True)
+    bwd = flash_bwd_case('path_bf16', 32, 8, 8, 256, 256, 64, False,
+                         'bfloat16', timed=True)
+    served.update(bwd)
+    flash_bwd_case('path_bf16_causal', 32, 8, 8, 256, 256, 64, True,
+                   'bfloat16', timed=True)
+    flash_bwd_case('gqa_f32_d64', 2, 8, 2, 128, 128, 64, True, 'float32')
+    flash_bwd_case('klen_f32_d128', 3, 4, 2, 150, 150, 128, False, 'float32',
+                   klen=[150, 77, 1])
+    flash_bwd_case('klen0_bf16', 2, 4, 4, 70, 70, 64, True, 'bfloat16',
+                   klen=[0, 50])
+    flash_bwd_case('tq_lt_tk_f32', 2, 4, 1, 37, 161, 64, True, 'float32',
+                   klen=[161, 100])
+    flash_bwd_case('ragged_bf16_d128', 1, 2, 2, 97, 161, 128, False,
+                   'bfloat16', klen=[130])
+    served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
+                                           timed=True)
+    layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
+    layer_norm_case('bf16_no_affine', 257, 512, 'bfloat16', affine=False)
+    layer_norm_case('pilot_offset_f32', 64, 512, 'float32', offset=1e4)
+    layer_norm_case('two_pass_f32', 100, 77, 'float32', two_pass=True)
+    served['adam_multi'] = adam_case('transformer_158', 
+                                     transformer_param_shapes(), timed=True)
+    adam_case('ragged', [(1,), (7,), (32769,), (3, 33333), (5, 4)])
     return served
 
 
@@ -468,6 +759,205 @@ def phase_gpu_vs_cpu():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 5
+
+# launches per training step on the bench configuration: 18 attention
+# calls (6 encoder self, 6 decoder causal self, 6 cross) forward and
+# backward, 2 embedding gathers, 32 LayerNorms (2 per encoder layer, 3 per
+# decoder layer, 2 final), one multi-tensor Adam call for 158 parameters
+TRAIN_LAUNCHES = {'flash_attention_fwd': 18, 'flash_attention_bwd_dq': 18,
+                  'flash_attention_bwd_dkv': 18, 'embedding_gather': 2,
+                  'layer_norm': 32, 'adam_multi': 1}
+
+
+def _train_program(fluid, tr, amp, **overrides):
+    cfg = dict(BENCH_CFG, **overrides)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = tr.build(**cfg)
+    main.set_amp(amp)
+    return main, startup, out
+
+
+def _group(name):
+    low = name.lower()
+    if 'flash_bwd_dq_kernel' in name:
+        return 'flash_attention_bwd_dq'
+    if 'flash_bwd_dkv_kernel' in name:
+        return 'flash_attention_bwd_dkv'
+    if 'flash_fwd_kernel' in name:
+        return 'flash_attention_fwd'
+    if 'layer_norm_kernel' in name:
+        return 'layer_norm'
+    if 'adam_kernel' in name or 'adam_pows_kernel' in name:
+        return 'adam_multi'
+    if 'gather_rows' in name:
+        return 'embedding_gather'
+    if 'memcpy' in low or 'memset' in low:
+        return 'copies'
+    if any(t in low for t in ('gemm', 'cutlass', 'sm90_', 'xmma', 'cublas',
+                              'nvjet')):
+        return 'gemm'
+    return 'elementwise_and_other'
+
+
+def profile_step(exe, main, feed, fetch):
+    """torch.profiler over one training step: device time by kernel group
+    (device-side events only) and the device's idle share of the step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        ms = e.self_device_time_total / 1e3
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + ms
+        top.append((ms, e.key[:80], e.count))
+    top.sort(reverse=True)
+    busy = sum(groups.values())
+    emit(phase='training', step='profile', profiled_wall_ms=wall_ms,
+         device_ms_by_group=groups, device_busy_ms=busy,
+         device_idle_share=(1 - busy / wall_ms) if busy else None,
+         top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:15]])
+    require(busy > 0, 'the profiler saw no device time')
+
+
+def phase_training(smi):
+    """transformer-base (bench.py's step) trained through the port's
+    Executor on the card: AMP on, random init from a seed."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tr
+    main, startup, out = _train_program(fluid, tr, amp=True)
+    params = main.all_parameters()
+    n_params = sum(int(np.prod(p.shape)) for p in params)
+    mm_params = sum(int(np.prod(p.shape)) for p in params
+                    if len(p.shape) == 2 and not p.name.endswith('_emb'))
+    B, T = 32, BENCH_CFG['max_len']
+    feed = tr.synthetic_batch(np.random.RandomState(0), B, T,
+                              BENCH_CFG['trg_vocab'])
+    tokens = float(np.sum(1.0 - feed['trg_pad']))
+    # model math: 6 FLOPs per matrix-product weight per token (forward and
+    # backward, both token streams), plus attention: 4*D per (query, key)
+    # pair forward and twice that backward, 18 attention calls
+    dh = BENCH_CFG['d_model'] // BENCH_CFG['n_head']
+    attn = 3 * 18 * 4 * dh * B * BENCH_CFG['n_head'] * T * T
+    model_flops = 6.0 * mm_params * B * T + attn
+    scope, exe = fluid.Scope(), fluid.Executor()
+    fetch = [out['loss']]
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warm.append(float(exe.run(main, feed=feed,
+                                      fetch_list=fetch)[0][0]))
+            warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses, step_ms = [], []
+        t_all = time.perf_counter()
+        for _ in range(10):
+            t0 = time.perf_counter()
+            loss = exe.run(main, feed=feed, fetch_list=fetch)[0]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss[0]))
+        wall = time.perf_counter() - t_all
+        launches = dict(kernels.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v / 10 for k, v in launches.items()}
+        med = float(np.median(step_ms))
+        emit(phase='training', step='steps', config='transformer-base',
+             cfg=BENCH_CFG, amp=True, B=B, T=T, params=n_params,
+             param_tensors=len(params), startup_s=startup_s,
+             warmup_losses=warm, last_warmup_step_s=warm_s, losses=losses,
+             step_ms=step_ms, median_step_ms=med, wall_s=wall,
+             tokens_per_step=tokens, tokens_per_s=tokens * 10 / wall,
+             model_tflop_per_step=model_flops / 1e12,
+             model_tflops=model_flops / med / 1e9, peak_mem_gb=peak_gb,
+             launches_per_step=per_step,
+             adam_table_builds=exe._kernel_cache.get('adam_multi_tables'),
+             card=smi)
+        require(all(np.isfinite(losses + warm)), 'non-finite training loss')
+        for k, n in TRAIN_LAUNCHES.items():
+            require(per_step.get(k) == n, '%s: %s launches per step, expected '
+                    '%d' % (k, per_step.get(k), n))
+        profile_step(exe, main, feed, fetch)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_gpu_vs_cpu():
+    """Two float32 training steps of the full-width transformer, cut to 2
+    layers, B=4, T=256, from the same weights on the card and on the CPU."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    main, startup, out = _train_program(fluid, tr, amp=False, n_layer=2)
+    feed = tr.synthetic_batch(np.random.RandomState(1), 4, 256, 32000)
+    feed['trg_pad'][1, 200:] = 1.0    # ragged rows: k_len < T
+    feed['src_pad'][2, 150:] = 1.0
+    gpu, cpu = fluid.Scope(), fluid.Scope()
+    gexe, cexe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(gpu):
+        gexe.run(startup)
+    fluid.scope_from_numpy({n: t.cpu().numpy() for n, t in gpu.vars.items()},
+                           cpu, 'cpu')
+    watch = ['src_emb', 'enc_0_att_qkv_w', 'dec_1_xatt_kv_w',
+             'dec_post_ln_w', 'proj_w', 'proj_b']
+    res = {}
+    for name, scope, exe in (('gpu', gpu, gexe), ('cpu', cpu, cexe)):
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            losses = [float(exe.run(main, feed=feed,
+                                    fetch_list=[out['loss']])[0][0])
+                      for _ in range(2)]
+        res[name] = (losses, {w: scope.vars[w].cpu().numpy()
+                              for w in watch},
+                     time.perf_counter() - t0)
+    # losses: float32 sums in other orders on the two devices (~1e-7
+    # relative through 2 layers).  Parameters: an Adam update is at most
+    # about the scheduled lr in size (the bias correction makes the first
+    # exactly lr * sign(g), the second at most 1.002 lr), so an entry
+    # whose gradient is float noise may move the other way on the other
+    # device: allow 2.01 * sum(lr) plus 1e-6 relative.
+    lrs = [2.0 * 512 ** -0.5 * min(t ** -0.5, t * 8000 ** -1.5)
+           for t in (1, 2)]
+    p_atol = 2.01 * sum(lrs)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(res['gpu'][0], res['cpu'][0]))
+    p_err = {w: float(np.abs(res['gpu'][1][w] - res['cpu'][1][w]).max())
+             for w in watch}
+    p_ok = all(np.allclose(res['gpu'][1][w], res['cpu'][1][w], rtol=1e-6,
+                           atol=p_atol) for w in watch)
+    emit(phase='train_gpu_vs_cpu', config='transformer-base width, 2 layers',
+         B=4, T=256, dtype='float32', tf32=False,
+         gpu_losses=res['gpu'][0], cpu_losses=res['cpu'][0],
+         loss_rel_err=loss_err, loss_rtol=1e-5, param_max_abs_err=p_err,
+         param_atol=p_atol, param_rtol=1e-6, gpu_s=res['gpu'][2],
+         cpu_s=res['cpu'][2])
+    require(all(np.isfinite(res['gpu'][0])), 'non-finite GPU loss')
+    require(loss_err <= 1e-5, 'gpu vs cpu: losses differ by %g' % loss_err)
+    require(p_ok, 'gpu vs cpu: parameters differ after 2 steps: %s' % p_err)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- main
 
 _REPLACES = {
@@ -475,6 +965,14 @@ _REPLACES = {
                             'paddle_tpu/ops/attention.py:52'),
     'embedding_gather': ('paddle_tpu_torch/csrc/gather.cu',
                          'paddle_tpu/ops/gather.py:34'),
+    'flash_attention_bwd_dq': ('paddle_tpu_torch/csrc/flash_bwd.cu',
+                               'paddle_tpu/ops/attention.py:125'),
+    'flash_attention_bwd_dkv': ('paddle_tpu_torch/csrc/flash_bwd.cu',
+                                'paddle_tpu/ops/attention.py:167'),
+    'layer_norm': ('paddle_tpu_torch/csrc/layer_norm.cu',
+                   'paddle_tpu/ops/kernelgen/rules.py:336'),
+    'adam_multi': ('paddle_tpu_torch/csrc/adam.cu',
+                   'paddle_tpu/ops/kernelgen/builder.py:795'),
 }
 
 
@@ -503,9 +1001,18 @@ def main(argv=None):
          device_count=torch.cuda.device_count())
     smi = phase_card() if 'card' in phases else smi_line()
     served = phase_kernels() if 'kernels' in phases else {}
-    launches = phase_serving(smi) if 'serving' in phases else {}
+    served_launches = phase_serving(smi) if 'serving' in phases else {}
     if 'gpu_vs_cpu' in phases:
         phase_gpu_vs_cpu()
+    trained = phase_training(smi) if 'training' in phases else {}
+    if 'train_gpu_vs_cpu' in phases:
+        phase_train_gpu_vs_cpu()
+    # launches on each kernel's main path: per training step for the
+    # kernels the training step runs, per served run for the others
+    launches = {k: v // 10 if v % 10 == 0 else v / 10
+                for k, v in trained.items() if v}
+    for k, v in served_launches.items():
+        launches.setdefault(k, v)
     rows = []
     for name, res in served.items():
         src, replaces = _REPLACES[name]

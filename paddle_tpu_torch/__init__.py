@@ -11,7 +11,10 @@ card unless the caller asks for the CPU (`Executor(CPUPlace())`,
 
 Ported so far: the serving path — `models.llama.generation_program` ->
 `io.save_inference_model` -> `inference.Predictor` ->
-`serving.ServingEngine.from_predictor`.
+`serving.ServingEngine.from_predictor` — and the transformer training
+step — `models.transformer.build` (`append_backward`, Adam with
+`noam_decay`, bf16 AMP through `Program.set_amp`) run by
+`Executor.run(main, feed, fetch_list=[loss])`.
 """
 from .core import unique_name  # noqa: F401
 from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
@@ -21,5 +24,7 @@ from .core.executor import (Executor, Scope, scope_guard,  # noqa: F401
                             global_scope)
 from .param_attr import ParamAttr  # noqa: F401
 from .data_feeder import FeedBucketer  # noqa: F401
-from . import initializer, layers, io, inference, serving, models  # noqa: F401
-from .convert import scope_from_numpy  # noqa: F401
+from . import (initializer, layers, io, inference, serving,  # noqa: F401
+               optimizer, models)
+from .core.backward import append_backward  # noqa: F401
+from .convert import scope_from_numpy, persistable_names  # noqa: F401

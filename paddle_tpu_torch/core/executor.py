@@ -4,11 +4,22 @@ Counterpart of paddle_tpu/core/executor.py.  The JAX package traces a whole
 block into one jitted XLA executable (`_lower`); the port runs the block's
 ops one after another on the device, as the JAX package's
 `_exec_ops_plain` does inside its trace, each op's impl launching its
-kernels on the current stream.  The serving slice is forward only, so a
-run happens under `torch.inference_mode()`.  Not ported yet: AMP, control
-flow, backward, executables / CUDA graphs, compile caching, check_nan.
+kernels on the current stream.  Ops whose outputs nothing reads or keeps
+are skipped, as XLA's dead-code elimination drops them from the
+executable, and each intermediate is freed after its last reader.
+
+A program without `__backward__` runs under `torch.inference_mode()`.  A
+training program runs the ops before `__backward__` under autograd, with
+each differentiated parameter a leaf tensor sharing the scope's storage,
+takes `torch.autograd.grad` of the loss (the JAX package's `jax.vjp`), and
+runs the ops after it (the optimizer) under `torch.no_grad()`.  A maximal
+run of consecutive in-place `adam` ops goes to one multi-tensor kernel
+launch (ops/optimizer_ops.py::adam_multi), standing in for the JAX
+package's fuse pass, which turns them into one fused group.
+
+Not ported yet: control flow, executables / CUDA graphs (`run_steps`),
+compile caching, check_nan, recompute scopes.
 """
-import collections
 import contextlib
 import itertools
 
@@ -19,6 +30,19 @@ from . import registry
 from .dtypes import torch_dtype
 from .framework import (CPUPlace, CUDAPlace, Variable, default_main_program,
                         require_cuda)
+
+_BACKWARD_OP = '__backward__'
+
+# bf16 AMP, the JAX package's policy (paddle_tpu/core/executor.py:145-196):
+# matrix-product ops get their float32 inputs cast to bf16 and their
+# outputs cast back to float32 unless the op carries `amp_keep_bf16`; an
+# elementwise op with a bf16 input casts its float32 inputs down.  The
+# logits projection keeps bf16 and its bias add follows it through the
+# second rule, so the cross-entropy reads bf16 logits.
+_AMP_CAST_OPS = frozenset({'mul', 'matmul', 'flash_attention'})
+_AMP_MATCH = frozenset({'elementwise_add', 'elementwise_sub',
+                        'elementwise_mul', 'elementwise_div',
+                        'elementwise_max', 'elementwise_min'})
 
 __all__ = ['Executor', 'Scope', 'scope_guard', 'global_scope']
 
@@ -80,42 +104,162 @@ def to_numpy(t):
     return t.detach().cpu().numpy()
 
 
-def _dead_after(ops, keep):
-    """op index -> names whose last reader (or unread producer) it is, so
-    the interpreter frees each intermediate as soon as nothing needs it —
-    what XLA's buffer assignment does for the JAX package's executable."""
+def _plan(ops, keep):
+    """Which ops run and when each intermediate dies.
+
+    -> (live, wanted, dead): `live` lists the indices of the ops some
+    output of which is read by a later live op or kept (XLA's DCE);
+    `wanted` is every name a live op reads plus `keep`; `dead[i]` names
+    the values whose last reader is op i, freed right after it (XLA's
+    buffer assignment)."""
+    needed = set(keep)
+    live = []
+    for i in range(len(ops) - 1, -1, -1):
+        op = ops[i]
+        outs = op.output_names()
+        if not outs or any(n in needed for n in outs):
+            live.append(i)
+            needed.update(op.input_names())
+    live.reverse()
     last = {}
-    for i, op in enumerate(ops):
-        for n in op.input_names():
+    for i in live:
+        for n in ops[i].input_names():
             last[n] = i
-        for n in op.output_names():
+        for n in ops[i].output_names():
             last.setdefault(n, i)
-    dead = collections.defaultdict(list)
+    dead = {}
     for n, i in last.items():
         if n not in keep:
-            dead[i].append(n)
-    return dead
+            dead.setdefault(i, []).append(n)
+    return live, needed, dead
 
 
-def _exec_ops(ops, env, ectx, keep):
-    dead = _dead_after(ops, keep)
-    for i, op in enumerate(ops):
+def _amp_cast(v, to):
+    frm = torch.float32 if to == torch.bfloat16 else torch.bfloat16
+    if isinstance(v, torch.Tensor) and v.dtype == frm:
+        return v.to(to)
+    return v
+
+
+def _amp_ins(op_type, ins):
+    if op_type in _AMP_CAST_OPS:
+        ins = {s: ([_amp_cast(x, torch.bfloat16) for x in v]
+                   if isinstance(v, list) else _amp_cast(v, torch.bfloat16))
+               for s, v in ins.items()}
+    elif op_type in _AMP_MATCH and any(
+            not isinstance(v, list) and v.dtype == torch.bfloat16
+            for v in ins.values()):
+        ins = {s: v if isinstance(v, list) else _amp_cast(v, torch.bfloat16)
+               for s, v in ins.items()}
+    return ins
+
+
+def _amp_outs(op, outs):
+    if op.type not in _AMP_CAST_OPS or op.attrs.get('amp_keep_bf16'):
+        return outs
+    return {s: ([_amp_cast(x, torch.float32) for x in v]
+                if isinstance(v, (list, tuple))
+                else _amp_cast(v, torch.float32)) for s, v in outs.items()}
+
+
+def _adam_run(ops, live, k):
+    """End (exclusive, in `live`) of the run of consecutive in-place adam
+    ops starting at live[k] that share beta1/beta2/epsilon, or k when
+    live[k] is no in-place adam op."""
+    from ..ops.optimizer_ops import adam_group_key
+    key = adam_group_key(ops[live[k]])
+    if key is None:
+        return k
+    j = k
+    while j < len(live) and adam_group_key(ops[live[j]]) == key:
+        j += 1
+    return j
+
+
+def _exec_ops(ops, env, ectx, keep, amp=False):
+    live, wanted, dead = _plan(ops, keep)
+    grad_mode = torch.is_grad_enabled()
+    k = 0
+    while k < len(live):
+        i = live[k]
+        op = ops[i]
+        j = _adam_run(ops, live, k) if op.type == 'adam' else k
+        if j > k:
+            from ..ops.optimizer_ops import run_adam_group
+            run_adam_group([ops[live[x]] for x in range(k, j)], env, ectx)
+            for x in range(k, j):
+                for n in dead.get(live[x], ()):
+                    env.pop(n, None)
+            k = j
+            continue
         impl = registry.get_op(op.type)
         ins = {}
         for slot, names in op.inputs.items():
             vals = [env[n] for n in names]
             ins[slot] = vals if op.input_is_list[slot] else vals[0]
-        outs = impl(ectx.for_op(i, op), ins, op.attrs) or {}
+        if amp:
+            ins = _amp_ins(op.type, ins)
+        outs = impl(ectx.for_op(i, op, wanted), ins, op.attrs) or {}
+        if amp:
+            outs = _amp_outs(op, outs)
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
             if vals is None:
                 continue
             vals = vals if isinstance(vals, (list, tuple)) else [vals]
             for name, val in zip(names, vals):
-                if val is not None:
-                    env[name] = val
+                if val is None:
+                    continue
+                if grad_mode and val.requires_grad:
+                    # lax.stop_gradient on stop_gradient vars, as the
+                    # JAX package's trace loop does
+                    var = op.block._find_var_recursive(name)
+                    if var is not None and var.stop_gradient:
+                        val = val.detach()
+                env[name] = val
         for n in dead.get(i, ()):
             env.pop(n, None)
+        k += 1
+
+
+def _run_backward(ops, bw_idx, env, ectx, keep, amp):
+    """The training step: forward under autograd, `torch.autograd.grad`
+    of the loss w.r.t. the `__backward__` op's params, then the ops after
+    it under no_grad.  Parameters are leaf tensors that share storage
+    with the scope's, so the optimizer's in-place updates land there."""
+    bw_op = ops[bw_idx]
+    pnames = bw_op.attrs['params']
+    loss_name = bw_op.inputs['Loss'][0]
+    missing = [p for p in pnames if p not in env]
+    if missing:
+        raise ValueError(
+            '__backward__ wrt non-leaf vars %s not supported yet; '
+            'differentiate wrt parameters or feed vars' % missing)
+    originals = {p: env[p] for p in pnames}
+    leaves = {p: t.detach().requires_grad_(True)
+              for p, t in originals.items()}
+    post = ops[bw_idx + 1:]
+    fw_keep = set(keep) | {loss_name}
+    for op in post:
+        fw_keep.update(op.input_names())
+    with torch.enable_grad():
+        env.update(leaves)
+        _exec_ops(ops[:bw_idx], env, ectx, fw_keep, amp)
+        if loss_name not in env:
+            raise ValueError('loss var %s not produced before backward'
+                             % loss_name)
+        loss = env[loss_name]
+        grads = torch.autograd.grad(
+            loss, [leaves[p] for p in pnames],
+            grad_outputs=torch.ones_like(loss), allow_unused=True)
+    env.update(originals)
+    for p, gname, g in zip(pnames, bw_op.outputs.get('Grads', []), grads):
+        env[gname] = g if g is not None else torch.zeros_like(originals[p])
+    for name in bw_op.outputs.get('LossGrad', []):
+        env[name] = torch.ones_like(loss.detach())
+    env[loss_name] = loss.detach()
+    with torch.no_grad():
+        _exec_ops(post, env, ectx, keep, amp)
 
 
 class Executor(object):
@@ -134,6 +278,8 @@ class Executor(object):
         self.place = place
         self.device = place.device
         self._run_counter = itertools.count()
+        # device-side tables impls keep between runs (ops/optimizer_ops.py)
+        self._kernel_cache = {}
 
     def _feed_tensors(self, block, feed):
         out = {}
@@ -156,6 +302,9 @@ class Executor(object):
                        for f in (fetch_list or [])]
         persistable = {n for b in program.blocks for n, v in b.vars.items()
                        if v.persistable}
+        ops = block.ops
+        bw_idx = next((i for i, op in enumerate(ops)
+                       if op.type == _BACKWARD_OP), None)
         env = {}
         for name in persistable:
             if name in scope:
@@ -164,12 +313,22 @@ class Executor(object):
                     raise ValueError(
                         'scope var %s lives on %s, the executor runs on %s'
                         % (name, val.device, self.device))
+                if bw_idx is not None and val.is_inference():
+                    # written by an inference-mode run (a startup): autograd
+                    # and in-place updates outside that mode need a normal
+                    # tensor; copied once, then the scope holds the copy
+                    val = val.clone()
                 env[name] = val
         env.update(self._feed_tensors(block, feed))
         ectx = registry.ExecCtx(self.device, program.random_seed,
-                                next(self._run_counter))
-        with torch.inference_mode():
-            _exec_ops(block.ops, env, ectx, persistable | set(fetch_names))
+                                next(self._run_counter), self._kernel_cache)
+        keep = persistable | set(fetch_names)
+        amp = program._amp
+        if bw_idx is None:
+            with torch.inference_mode():
+                _exec_ops(ops, env, ectx, keep, amp)
+        else:
+            _run_backward(ops, bw_idx, env, ectx, keep, amp)
         for name in persistable:
             if name in env:
                 scope.vars[name] = env[name]

@@ -7,10 +7,11 @@ tensors with two trial batch sizes: output dims that differ between the two
 runs are batch dims (-1), exactly as the JAX package does with
 `jax.eval_shape`.
 
-The port carries what the serving slice needs: no imperative mode, no
-math-operator patching on Variable, no recompute scopes, and no lint.
-Sharding specs, the mesh, the device limit and the KV plan ride along as
-opaque JSON so a desc survives a round trip through the port.
+The port carries what the serving and training slices need: Variable's
+arithmetic operators (the LR schedules use them), op roles and bf16 AMP;
+no imperative mode, no recompute scopes, and no lint.  Sharding specs,
+the mesh, the device limit and the KV plan ride along as opaque JSON so a
+desc survives a round trip through the port.
 """
 import contextlib
 import copy
@@ -27,6 +28,7 @@ __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter', 'program_guard',
     'default_main_program', 'default_startup_program', 'switch_main_program',
     'switch_startup_program', 'CPUPlace', 'CUDAPlace', 'OpRole',
+    'op_role_guard',
 ]
 
 # ---------------------------------------------------------------- places
@@ -83,6 +85,15 @@ class OpRole(object):
 _current_role = [OpRole.Forward]
 
 
+@contextlib.contextmanager
+def op_role_guard(role):
+    _current_role.append(role)
+    try:
+        yield
+    finally:
+        _current_role.pop()
+
+
 # ---------------------------------------------------------------- Variable
 
 class Variable(object):
@@ -116,6 +127,79 @@ class Variable(object):
             ' persistable' if self.persistable else '')
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+    # -------- math operators (the JAX package's math-op patch) --------
+    def _cur_block(self):
+        # ops emit into the program's current block, not the var's home
+        return self.block.program.current_block()
+
+    def _binary(self, other, op_type, reverse=False):
+        block = self._cur_block()
+        if isinstance(other, Variable):
+            x, y = (other, self) if reverse else (self, other)
+            out = block.create_var(dtype=self.dtype)
+            block.append_op(type=op_type, inputs={'X': x, 'Y': y},
+                            outputs={'Out': out}, attrs={'axis': -1})
+            return out
+        # scalar: add, sub and mul become one scale op
+        v = float(other)
+        if op_type == 'elementwise_add':
+            return self._scale(1.0, v)
+        if op_type == 'elementwise_sub':
+            if reverse:
+                return self._scale(-1.0, v)
+            return self._scale(1.0, -v)
+        if op_type == 'elementwise_mul':
+            return self._scale(v, 0.0)
+        # div and pow materialize a [1] constant
+        out = block.create_var(dtype=self.dtype)
+        const = block.create_var(dtype=self.dtype)
+        block.append_op(type='fill_constant', inputs={},
+                        outputs={'Out': const},
+                        attrs={'shape': [1], 'value': v, 'dtype': self.dtype})
+        x, y = (const, self) if reverse else (self, const)
+        block.append_op(type=op_type, inputs={'X': x, 'Y': y},
+                        outputs={'Out': out}, attrs={'axis': -1})
+        return out
+
+    def _scale(self, scale, bias):
+        blk = self._cur_block()
+        out = blk.create_var(dtype=self.dtype)
+        blk.append_op(type='scale', inputs={'X': self}, outputs={'Out': out},
+                      attrs={'scale': float(scale), 'bias': float(bias),
+                             'bias_after_scale': True})
+        return out
+
+    def __add__(self, o):
+        return self._binary(o, 'elementwise_add')
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, 'elementwise_sub')
+
+    def __rsub__(self, o):
+        return self._binary(o, 'elementwise_sub', reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, 'elementwise_mul')
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, 'elementwise_div')
+
+    def __rtruediv__(self, o):
+        return self._binary(o, 'elementwise_div', reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, 'elementwise_pow')
+
+    def __rpow__(self, o):
+        return self._binary(o, 'elementwise_pow', reverse=True)
+
+    def __neg__(self):
+        return self._scale(-1.0, 0.0)
 
 
 class Parameter(Variable):
@@ -339,6 +423,13 @@ class Program(object):
         self._mesh_axes = None
         self._device_limit_bytes = None
         self._kv_plan = None
+        self._amp = False
+
+    def set_amp(self, flag=True):
+        """bf16 auto-mixed precision: matrix-product ops run on bfloat16
+        inputs, everything else stays float32 (core/executor.py has the
+        policy)."""
+        self._amp = bool(flag)
 
     def set_kv_plan(self, **cache_config_kwargs):
         """Declare the serving KV-cache pool this program runs against

@@ -97,6 +97,19 @@ class LayerHelper(object):
             name=unique_name.generate('.'.join([self.name, 'tmp'])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs)
+
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        gb = self.main_program.global_block()
+        if name in gb.vars:
+            return gb.vars[name]
+        return self.create_global_variable(*args, name=name, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        initializer(var)
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])
         bias_attr = self.bias_attr

@@ -13,6 +13,9 @@ Impl signature::
         return {'Out': ...}
 
 `ctx.device` is where outputs the op creates from nothing belong;
+`ctx.wants(slot)` says whether anything reads or keeps an output slot, so
+an impl can skip computing an auxiliary output nobody uses (shape
+inference wants every slot);
 `ctx.generator(seed)` is a `torch.Generator` on that device, seeded from the
 op's `seed` attr when it is non-zero, else from the program's
 `random_seed`, the run counter and the op's position in the block, so every
@@ -73,32 +76,46 @@ class InferCtx(object):
     def generator(self, seed=0):
         return None
 
+    def wants(self, slot):
+        return True
+
 
 class ExecCtx(object):
-    """Per-run context shared by all ops of one interpreted block."""
+    """Per-run context shared by all ops of one interpreted block.
+    `cache` is a dict the executor keeps across runs for impls that hold
+    device-side tables between steps (the multi-tensor Adam's)."""
 
-    def __init__(self, device, random_seed, counter):
+    def __init__(self, device, random_seed, counter, cache=None):
         self.device = torch.device(device)
         # the run counter is mixed into the program seed, so every run of
         # one program draws fresh streams while staying reproducible
         self.seed = (int(random_seed) * 0x9E3779B97F4A7C15
                      + int(counter)) & _MASK
+        self.cache = cache if cache is not None else {}
 
-    def for_op(self, op_index, op):
-        return OpCtx(self, op_index, op)
+    def for_op(self, op_index, op, wanted=None):
+        return OpCtx(self, op_index, op, wanted)
 
 
 class OpCtx(object):
     is_infer = False
 
-    def __init__(self, exec_ctx, op_index, op):
+    def __init__(self, exec_ctx, op_index, op, wanted=None):
         self._exec = exec_ctx
         self.op_index = op_index
         self.op = op
+        self._wanted = wanted
 
     @property
     def device(self):
         return self._exec.device
+
+    def wants(self, slot):
+        """True when a later op reads, or the run keeps, an output of
+        `slot` (always True when the executor gave no liveness)."""
+        if self._wanted is None:
+            return True
+        return any(n in self._wanted for n in self.op.outputs.get(slot, ()))
 
     def generator(self, seed=0):
         if seed:

@@ -1,0 +1,436 @@
+// Flash-attention backward for Hopper (sm_90a): dQ, and dK/dV, on CUDA cores.
+//
+// Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
+// :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
+// JAX package launches from _flash_backward (:401, pallas_call at :441 and
+// :503).  Both kernels rebuild the softmax tile P = exp(S - LSE) from the
+// forward's float32 logsumexp (read as csrc/flash_fwd.cu stores it, [B*H,
+// Tq], not the TPU's 8-lane layout), with S = (scale q) k^T summed in the
+// forward's order, under the forward's masks: k_pos < k_len, and when
+// causal k_pos <= q_pos + (Tk - Tq).  Masked entries get P = 0 explicitly,
+// as _masked_p_ds does, so a row with LSE -1e30 (no valid key) gets zero
+// gradients instead of exp(-1e30 - -1e30) = NaN.  dS = P (dO V^T - delta)
+// with delta = rowsum(dO O) computed by the wrapper in float32.
+//
+//   dQ  = scale * sum_k dS K                  (one block per (b*H, q tile))
+//   dV  = sum_q P^T dO,  dK = sum_q dS^T (scale Q)
+//                                             (one block per (b*Hkv, k tile))
+//
+// dQ comes out in q's dtype; dK and dV accumulate in float32 registers over
+// the g query heads of the GQA group and every q tile, and are written once
+// in k's dtype.  No atomics: a block owns its output tile, so the result is
+// deterministic.  This replaces the TPU's sequential "init at gi == 0, add
+// after" grid, which has no counterpart among parallel blocks.
+//
+// What bounds it on this card: at the transformer training shape (B=32,
+// H=8, T=256, D=64, bf16 under AMP) dQ does 3 and dK/dV 4 products of
+// 2*D FLOPs per valid (query, key) pair — ~6.4 and ~8.6 GFLOP without the
+// causal mask — against ~17 MB each of Q/K/V/dO/LSE traffic, so both are
+// bound by arithmetic: bf16 tensor-core work in the bound, float32 FMAs on
+// CUDA cores here (tiles are converted to float32 in shared memory).
+//
+// What the design does about it: the forward's tiling.  Tiles of 64 query
+// rows and 32 keys are staged as float32 in shared memory and reused by all
+// 128 threads; each thread keeps a 4x4 patch of S and dP, and an 8 x D/16
+// (dQ) or two 4 x D/16 (dK, dV) patches of its accumulators in registers.
+// Padded strides keep the column walks free of bank conflicts.  Key tiles
+// past k_len and query tiles before the causal frontier are skipped whole.
+// The tiles need up to 116 KB of shared memory at D=128, above the 48 KB
+// static limit, so they are dynamic and the launch raises the limit first.
+// Not yet used: tensor cores (wgmma), TMA and a pipelined ring of tiles.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int BQ = 64;    // query rows per tile
+constexpr int BK = 32;    // keys per tile
+constexpr int NT = 128;   // threads per block
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Q (pre-scaled), dO, LSE and delta of query rows q0..q0+BQ into shared
+// memory; rows past Tq are zero
+template <typename T, int D>
+__device__ __forceinline__ void load_q_tile(const T* qp, const T* dop,
+                                            const float* lsep,
+                                            const float* dlp, int q0, int Tq,
+                                            float scale, float* Qs,
+                                            float* dOs, float* lse_s,
+                                            float* dl_s) {
+  constexpr int QS = D + 1;
+  for (int e = threadIdx.x; e < BQ * D; e += NT) {
+    const int r = e / D, c = e % D, qi = q0 + r;
+    const bool in = qi < Tq;
+    Qs[r * QS + c] = in ? to_f(qp[(size_t)qi * D + c]) * scale : 0.f;
+    dOs[r * QS + c] = in ? to_f(dop[(size_t)qi * D + c]) : 0.f;
+  }
+  for (int r = threadIdx.x; r < BQ; r += NT) {
+    const bool in = q0 + r < Tq;
+    lse_s[r] = in ? lsep[q0 + r] : 0.f;
+    dl_s[r] = in ? dlp[q0 + r] : 0.f;
+  }
+}
+
+// K and V of keys k0..k0+BK into shared memory; keys past Tk are zero
+template <typename T, int D>
+__device__ __forceinline__ void load_k_tile(const T* kp, const T* vp, int k0,
+                                            int Tk, float* Ks, float* Vs) {
+  constexpr int KS = D + 1;
+  for (int e = threadIdx.x; e < BK * D; e += NT) {
+    const int r = e / D, c = e % D, ki = k0 + r;
+    const bool in = ki < Tk;
+    Ks[r * KS + c] = in ? to_f(kp[(size_t)ki * D + c]) : 0.f;
+    Vs[r * KS + c] = in ? to_f(vp[(size_t)ki * D + c]) : 0.f;
+  }
+}
+
+// P and dS of the (BQ x BK) tile at (q0, k0): each thread computes a 4x4
+// patch (query rows sr*4+i, keys sc+8j) of S = Qs Ks^T and dP = dOs Vs^T,
+// in the forward's summation order, and stores P (when Ps is given) and dS
+// with a row stride of BK+1
+template <int D>
+__device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs,
+                                          const float* Ks, const float* Vs,
+                                          const float* lse_s,
+                                          const float* dl_s, int q0, int k0,
+                                          int Tq, int kl, int causal,
+                                          int offset, float* Ps,
+                                          float* dSs) {
+  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
+  const int sr = threadIdx.x / 8, sc = threadIdx.x % 8;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = Qs[(sr * 4 + i) * QS + d];
+      da[i] = dOs[(sr * 4 + i) * QS + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kb[j] = Ks[(sc + 8 * j) * KS + d];
+      vb[j] = Vs[(sc + 8 * j) * KS + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = sr * 4 + i, qi = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = sc + 8 * j, ki = k0 + c;
+      const bool valid =
+          ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+      const float p = valid ? expf(s[i][j] - lse_s[r]) : 0.f;
+      if (Ps) Ps[r * SS + c] = p;
+      dSs[r * SS + c] = p * (dp[i][j] - dl_s[r]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_floats() {
+  return 2 * BQ * (D + 1)    // Q (scaled), dO
+         + 2 * BK * (D + 1)  // K, V
+         + BQ * (BK + 1)     // dS
+         + 2 * BQ;           // LSE, delta
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ klen,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const T* __restrict__ dout, T* __restrict__ dq, int H,
+                    int Hkv, int Tq, int Tk, int causal, float scale) {
+  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
+  constexpr int CPT = D / 16;  // accumulator columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * QS;
+  float* Ks = dOs + BQ * QS;
+  float* Vs = Ks + BK * KS;
+  float* dSs = Vs + BK * KS;
+  float* lse_s = dSs + BQ * SS;
+  float* dl_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+
+  load_q_tile<T, D>(q + (size_t)bh * Tq * D, dout + (size_t)bh * Tq * D,
+                    lse + (size_t)bh * Tq, delta + (size_t)bh * Tq, q0, Tq,
+                    scale, Qs, dOs, lse_s, dl_s);
+  const T* kp = k + (size_t)kvh * Tk * D;
+  const T* vp = v + (size_t)kvh * Tk * D;
+
+  // keys any row of this tile may see, as in the forward
+  int kend = kl;
+  if (causal) kend = min(kend, max(0, min(q0 + BQ, Tq) + offset));
+  const int ntiles = (kend + BK - 1) / BK;
+
+  const int pr = tid / 16, pc = tid % 16;  // dQ patch: rows pr*8+i, cols pc+16j
+  float acc[8][CPT];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // the previous tile's K and dS reads are done
+    load_k_tile<T, D>(kp, vp, k0, Tk, Ks, Vs);
+    __syncthreads();
+    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
+                 offset, nullptr, dSs);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[8], kv[CPT];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dsv[i] = dSs[(pr * 8 + i) * SS + kk];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) kv[j] = Ks[kk * KS + pc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qi = q0 + pr * 8 + i;
+    if (qi >= Tq) continue;
+    T* op = dq + ((size_t)bh * Tq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) op[pc + 16 * j] = from_f<T>(acc[i][j] * scale);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem_floats() {
+  return 2 * BK * (D + 1)    // K, V
+         + 2 * BQ * (D + 1)  // Q (scaled), dO
+         + 2 * BQ * (BK + 1) // P, dS
+         + 2 * BQ;           // LSE, delta
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ klen,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const T* __restrict__ dout, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                     int causal, float scale) {
+  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
+  constexpr int CPT = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BK * KS;
+  float* Qs = Vs + BK * KS;
+  float* dOs = Qs + BQ * QS;
+  float* Ps = dOs + BQ * QS;
+  float* dSs = Ps + BQ * SS;
+  float* lse_s = dSs + BQ * SS;
+  float* dl_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+
+  const int pr = tid / 16, pc = tid % 16;  // dK/dV patch: keys pr*4+i, cols pc+16j
+  float ak[4][CPT], av[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) ak[i][j] = av[i][j] = 0.f;
+
+  if (k0 < kl) {  // else every key of the tile is masked: zero gradients
+    load_k_tile<T, D>(k + (size_t)bkv * Tk * D, v + (size_t)bkv * Tk * D,
+                      k0, Tk, Ks, Vs);
+    // first query that sees this tile's first key (end-aligned causal)
+    const int q_first = causal ? max(0, k0 - offset) : 0;
+    for (int gi = 0; gi < g; ++gi) {
+      const int bh = b * H + hk * g + gi;
+      for (int q0 = (q_first / BQ) * BQ; q0 < Tq; q0 += BQ) {
+        __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
+        load_q_tile<T, D>(q + (size_t)bh * Tq * D,
+                          dout + (size_t)bh * Tq * D, lse + (size_t)bh * Tq,
+                          delta + (size_t)bh * Tq, q0, Tq, scale, Qs, dOs,
+                          lse_s, dl_s);
+        __syncthreads();
+        p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
+                     offset, Ps, dSs);
+        __syncthreads();
+#pragma unroll 4
+        for (int r = 0; r < BQ; ++r) {
+          float pv[4], dsv[4], dov[CPT], qv[CPT];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pv[i] = Ps[r * SS + pr * 4 + i];
+            dsv[i] = dSs[r * SS + pr * 4 + i];
+          }
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            dov[j] = dOs[r * QS + pc + 16 * j];
+            qv[j] = Qs[r * QS + pc + 16 * j];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) {
+              av[i][j] = fmaf(pv[i], dov[j], av[i][j]);
+              ak[i][j] = fmaf(dsv[i], qv[j], ak[i][j]);
+            }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ki = k0 + pr * 4 + i;
+    if (ki >= Tk) continue;
+    const size_t row = ((size_t)bkv * Tk + ki) * D;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      dk[row + pc + 16 * j] = from_f<T>(ak[i][j]);
+      dv[row + pc + 16 * j] = from_f<T>(av[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* klen,
+              const void* lse, const void* delta, const void* dout, void* dq,
+              int B, int H, int Hkv, int Tq, int Tk, int causal, float scale,
+              cudaStream_t stream) {
+  const size_t smem = dq_smem_floats<D>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)klen,
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dq, H, Hkv,
+      Tq, Tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* klen,
+               const void* lse, const void* delta, const void* dout, void* dk,
+               void* dv, int B, int H, int Hkv, int Tq, int Tk, int causal,
+               float scale, cudaStream_t stream) {
+  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hkv, (Tk + BK - 1) / BK);
+  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)klen,
+      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dk, (T*)dv,
+      H, Hkv, Tq, Tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
+  return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Tq >= 1 && Tk >= 1;
+}
+
+}  // namespace
+
+// q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
+// delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16.  Each returns
+// the CUDA error of its launch (0 on success), or -1 for arguments the
+// kernel does not take.
+extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* klen, const void* lse,
+                               const void* delta, const void* dout, void* dq,
+                               int B, int H, int Hkv, int Tq, int Tk, int D,
+                               int dtype, int causal, float scale,
+                               void* stream) {
+  if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == 64)
+    return launch_dq<float, 64>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                                Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_dq<float, 128>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                                 Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_dq<__nv_bfloat16, 64>(q, k, v, klen, lse, delta, dout, dq,
+                                        B, H, Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_dq<__nv_bfloat16, 128>(q, k, v, klen, lse, delta, dout, dq,
+                                         B, H, Hkv, Tq, Tk, causal, scale, s);
+  return -1;
+}
+
+extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* klen, const void* lse,
+                                const void* delta, const void* dout,
+                                void* dk, void* dv, int B, int H, int Hkv,
+                                int Tq, int Tk, int D, int dtype, int causal,
+                                float scale, void* stream) {
+  if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == 64)
+    return launch_dkv<float, 64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
+                                 H, Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_dkv<float, 128>(q, k, v, klen, lse, delta, dout, dk, dv, B,
+                                  H, Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_dkv<__nv_bfloat16, 64>(q, k, v, klen, lse, delta, dout, dk,
+                                         dv, B, H, Hkv, Tq, Tk, causal, scale,
+                                         s);
+  if (dtype == 1 && D == 128)
+    return launch_dkv<__nv_bfloat16, 128>(q, k, v, klen, lse, delta, dout,
+                                          dk, dv, B, H, Hkv, Tq, Tk, causal,
+                                          scale, s);
+  return -1;
+}

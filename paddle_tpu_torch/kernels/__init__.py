@@ -8,7 +8,9 @@ from .build import library
 
 __all__ = ['library', 'launches', 'reset_launches', 'check']
 
-launches = {'flash_attention_fwd': 0, 'embedding_gather': 0}
+launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
+            'flash_attention_bwd_dkv': 0, 'embedding_gather': 0,
+            'layer_norm': 0, 'adam_multi': 0}
 
 
 def reset_launches():

@@ -115,6 +115,15 @@ def _bind(lib):
     lib.pt_embedding_gather.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                         i, p]
     lib.pt_embedding_gather.restype = i
+    lib.pt_flash_bwd_dq.argtypes = [p] * 8 + [i] * 8 + [f, p]
+    lib.pt_flash_bwd_dq.restype = i
+    lib.pt_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 8 + [f, p]
+    lib.pt_flash_bwd_dkv.restype = i
+    lib.pt_layer_norm.argtypes = [p] * 6 + [ctypes.c_longlong, i, f, i, i,
+                                            p]
+    lib.pt_layer_norm.restype = i
+    lib.pt_adam_multi.argtypes = [p, p, i, i, f, f, f, f, f, p]
+    lib.pt_adam_multi.restype = i
     lib.pt_error_string.argtypes = [i]
     lib.pt_error_string.restype = ctypes.c_char_p
     return lib

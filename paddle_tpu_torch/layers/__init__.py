@@ -1,7 +1,13 @@
-"""fluid.layers surface of the port (the functions the serving slice uses)."""
+"""fluid.layers surface of the port (the functions the serving and
+training slices use)."""
 from . import nn
 from .nn import *  # noqa: F401,F403
 from . import io
 from .io import *  # noqa: F401,F403
+from . import tensor
+from .tensor import *  # noqa: F401,F403
+from . import learning_rate_scheduler
+from .learning_rate_scheduler import *  # noqa: F401,F403
 
-__all__ = nn.__all__ + io.__all__
+__all__ = nn.__all__ + io.__all__ + tensor.__all__ + \
+    learning_rate_scheduler.__all__

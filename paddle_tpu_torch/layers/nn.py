@@ -1,4 +1,5 @@
-"""fluid.layers.nn functions that the llama serving program uses.
+"""fluid.layers.nn functions that the llama serving program and the
+transformer training program use.
 
 Counterpart of paddle_tpu/layers/nn.py.  Each function emits the same op
 types, slots and attrs as the JAX package, so a model built through either
@@ -10,9 +11,13 @@ from ..core.layer_helper import LayerHelper
 from ..initializer import Constant, Xavier
 
 __all__ = [
-    'fc', 'embedding', 'transpose', 'reshape', 'squeeze', 'slice',
-    'elementwise_add', 'elementwise_mul', 'swish', 'flash_attention',
-    'rms_norm', 'rope', 'sample_tokens',
+    'fc', 'embedding', 'transpose', 'reshape', 'squeeze', 'unsqueeze',
+    'slice', 'split', 'scale', 'relu', 'reduce_sum', 'elementwise_add',
+    'elementwise_sub', 'elementwise_mul', 'elementwise_div',
+    'elementwise_min', 'elementwise_pow', 'swish', 'flash_attention',
+    'rms_norm', 'rope', 'sample_tokens', 'layer_norm',
+    'softmax_with_cross_entropy', 'add_position_encoding',
+    'autoincreased_step_counter',
 ]
 
 
@@ -90,6 +95,119 @@ def squeeze(input, axes, name=None):
     return _simple('squeeze', input, {'axes': list(axes)}, name)
 
 
+def unsqueeze(input, axes, name=None):
+    return _simple('unsqueeze', input, {'axes': list(axes)}, name)
+
+
+def relu(x, name=None):
+    return _simple('relu', x, name=name)
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    return _simple('add_position_encoding', input,
+                   {'alpha': float(alpha), 'beta': float(beta)}, name)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    if dim is None:
+        attrs = {'reduce_all': True, 'keep_dim': keep_dim}
+    else:
+        attrs = {'dim': [dim] if isinstance(dim, int) else list(dim),
+                 'keep_dim': keep_dim}
+    return _simple('reduce_sum', input, attrs, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper('scale', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='scale', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'scale': float(scale), 'bias': float(bias),
+                            'bias_after_scale': bias_after_scale})
+    return helper.append_activation(out, act)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper('split', name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(max(num, len(sections)) or 1)]
+    helper.append_op(type='split', inputs={'X': input}, outputs={'Out': outs},
+                     attrs={'axis': dim, 'num': num, 'sections': sections})
+    return outs
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-05, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """LayerNorm over the dims from `begin_norm_axis` on (the hand-written
+    CUDA kernel on the card, see ops/nn.py)."""
+    helper = LayerHelper('layer_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    param_shape = [_prod(input.shape[begin_norm_axis:])]
+    inputs = {'X': input}
+    if scale:
+        inputs['Scale'] = helper.create_parameter(
+            helper.param_attr, param_shape, dtype,
+            default_initializer=Constant(1.0))
+    if shift:
+        inputs['Bias'] = helper.create_parameter(
+            helper.bias_attr, param_shape, dtype, is_bias=True)
+    mean_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='layer_norm', inputs=inputs,
+                     outputs={'Y': out, 'Mean': mean_out,
+                              'Variance': var_out},
+                     attrs={'epsilon': epsilon,
+                            'begin_norm_axis': begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, label_smooth_eps=0.0):
+    """Hard-label cross-entropy over the last axis with a fused
+    `label_smooth_eps` (ops/loss.py)."""
+    if soft_label and label_smooth_eps:
+        raise ValueError(
+            'label_smooth_eps applies to hard labels only — with '
+            'soft_label=True smooth the labels yourself (label_smooth)')
+    helper = LayerHelper('softmax_with_cross_entropy')
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(type='softmax_with_cross_entropy',
+                     inputs={'Logits': logits, 'Label': label},
+                     outputs={'Loss': loss, 'Softmax': softmax_out},
+                     attrs={'soft_label': soft_label,
+                            'ignore_index': ignore_index,
+                            'label_smooth_eps': float(label_smooth_eps)})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    helper = LayerHelper('global_step_counter')
+    counter_name = counter_name or '@STEP_COUNTER@'
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype='int64', shape=[1], persistable=True)
+    if counter.op is None:
+        Constant(value=float(begin - 1))(counter)
+        helper.append_op(type='increment', inputs={'X': counter},
+                         outputs={'Out': counter},
+                         attrs={'step': float(step)})
+        counter.stop_gradient = True
+    return counter
+
+
 def _elementwise(op, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -102,8 +220,24 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_add', x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_sub', x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_mul', x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_div', x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_min', x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_pow', x, y, axis, act, name)
 
 
 def swish(x, beta=1.0, name=None):

@@ -1,2 +1,3 @@
 """Op implementations; importing this package registers them all."""
-from . import rand, tensor, math, nn, sampling, attention  # noqa: F401
+from . import (rand, tensor, math, nn, sampling, attention, loss,  # noqa: F401
+               optimizer_ops)

@@ -1,5 +1,5 @@
-"""Flash-attention forward: the hand-written CUDA kernel, its plain version
-and the `flash_attention` op.
+"""Flash attention: the hand-written CUDA kernels (forward, dQ, dK/dV),
+their plain versions and the differentiable `flash_attention` op.
 
 Counterpart of paddle_tpu/ops/attention.py.  `flash_forward` computes what
 the JAX package's `_flash_forward` / `_flash_kernel` compute: online-softmax
@@ -9,10 +9,17 @@ end-aligned at Tk - Tq, and the per-row float32 logsumexp (as [B*H, Tq]).
 On a CUDA tensor it launches csrc/flash_fwd.cu; on a CPU tensor it runs
 `_ref_attention`, the same function in plain PyTorch.
 
+`flash_attention` is a `torch.autograd.Function`: forward is
+`flash_forward`, which keeps q, k, v, k_len, out and lse as the JAX
+`_fwd` does; backward is `flash_backward`, which rebuilds P = exp(S - LSE)
+tile by tile under the same masks and runs csrc/flash_bwd.cu (dQ, and
+dK/dV with the GQA group summed into its KV head; they replace the TPU
+kernels `_flash_dq_kernel` and `_flash_dkv_kernel[_resident]`), or
+`flash_backward_reference` on a CPU tensor.
+
 There are no size gates: `_FWD_PALLAS_MIN_T` and `_BWD_PALLAS_SCORE_BYTES`
 were measured on a TPU and say nothing about this card, so every shape the
-kernel takes goes to the kernel.  The serving slice is forward only; the
-backward kernels arrive with the training slice.
+kernels take goes to the kernels.
 """
 import torch
 
@@ -36,16 +43,7 @@ def _ref_attention(q, k, v, causal, scale, k_len=None):
     g = H // Hkv
     qg = q.float().reshape(B, Hkv, g, Tq, D) * scale
     s = torch.einsum('bhgqd,bhkd->bhgqk', qg, k.float())
-    kpos = torch.arange(Tk, device=q.device)
-    if k_len is None:
-        valid = torch.ones((B, 1, 1, Tq, Tk), dtype=torch.bool,
-                           device=q.device)
-    else:
-        valid = (kpos[None, :] < k_len.reshape(B, 1).long())[:, None, None,
-                                                             None, :]
-    if causal:
-        qpos = torch.arange(Tq, device=q.device)
-        valid = valid & (kpos[None, :] <= qpos[:, None] + (Tk - Tq))
+    valid = _valid_mask(B, Tq, Tk, causal, k_len, q.device)
     m = torch.where(valid, s, torch.full_like(s, float('-inf'))).amax(
         dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.full_like(m, _NEG_INF))
@@ -59,7 +57,22 @@ def _ref_attention(q, k, v, causal, scale, k_len=None):
             lse.reshape(B * H, Tq))
 
 
-def _launch_flash(q, k, v, causal, scale, k_len):
+def _valid_mask(B, Tq, Tk, causal, k_len, device):
+    """[B, 1, 1, Tq, Tk] key validity: k_pos < k_len and, when causal,
+    k_pos <= q_pos + (Tk - Tq)."""
+    kpos = torch.arange(Tk, device=device)
+    if k_len is None:
+        valid = torch.ones((B, 1, 1, Tq, Tk), dtype=torch.bool, device=device)
+    else:
+        valid = (kpos[None, :] < k_len.reshape(B, 1).long())[:, None, None,
+                                                             None, :]
+    if causal:
+        qpos = torch.arange(Tq, device=device)
+        valid = valid & (kpos[None, :] <= qpos[:, None] + (Tk - Tq))
+    return valid
+
+
+def _check_qkv(q, k, v):
     B, H, Tq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
             k.shape[3] != D:
@@ -83,12 +96,23 @@ def _launch_flash(q, k, v, causal, scale, k_len):
         raise ValueError('flash attention kernel takes contiguous q/k/v')
     if min(B, Tq, Tk) < 1:
         raise ValueError('flash attention kernel takes non-empty q and k')
+
+
+def _check_k_len(k_len, B, Tk, device):
     if k_len is None:
-        k_len = torch.full((B,), Tk, dtype=torch.int32, device=q.device)
+        return torch.full((B,), Tk, dtype=torch.int32, device=device)
     if k_len.dtype != torch.int32 or tuple(k_len.shape) != (B,) or \
-            k_len.device != q.device or not k_len.is_contiguous():
+            k_len.device != device or not k_len.is_contiguous():
         raise ValueError('flash attention: k_len must be a contiguous int32 '
                          '[B] tensor on the device of q')
+    return k_len
+
+
+def _launch_flash(q, k, v, causal, scale, k_len):
+    _check_qkv(q, k, v)
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    k_len = _check_k_len(k_len, B, Tk, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -114,8 +138,133 @@ def flash_forward(q, k, v, causal=False, scale=None, k_len=None):
     raise RuntimeError('flash_attention: no kernel for device %s' % q.device)
 
 
+def flash_backward_reference(q, k, v, k_len, out, lse, dout, causal, scale):
+    """Plain version of the backward -> (dq, dk, dv) in q's / k's / v's
+    dtype.  P = exp(S - LSE) is rebuilt from the saved LSE under the masks
+    (P = 0 where masked, so rows with LSE -1e30 get zero gradients), dS =
+    P * (dO V^T - delta) with delta = rowsum(dO * O); products accumulate
+    in float32, as the JAX kernels' `_masked_p_ds`."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qg = q.float().reshape(B, Hkv, g, Tq, D) * scale
+    s = torch.einsum('bhgqd,bhkd->bhgqk', qg, k.float())
+    valid = _valid_mask(B, Tq, Tk, causal, k_len, q.device)
+    p = torch.where(valid, torch.exp(s - lse.reshape(B, Hkv, g, Tq, 1)),
+                    torch.zeros_like(s))
+    do = dout.float().reshape(B, Hkv, g, Tq, D)
+    delta = (do * out.float().reshape(B, Hkv, g, Tq, D)).sum(-1,
+                                                              keepdim=True)
+    dp = torch.einsum('bhgqd,bhkd->bhgqk', do, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum('bhgqk,bhkd->bhgqd', ds, k.float()) * scale
+    dk = torch.einsum('bhgqk,bhgqd->bhkd', ds, qg)
+    dv = torch.einsum('bhgqk,bhgqd->bhkd', p, do)
+    return (dq.reshape(B, H, Tq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
+    """csrc/flash_bwd.cu dQ on arguments _launch_flash_bwd checked."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = kernels.library().pt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(rc, 'flash_attention_bwd_dq')
+    kernels.launches['flash_attention_bwd_dq'] += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale):
+    """csrc/flash_bwd.cu dK/dV on arguments _launch_flash_bwd checked."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = kernels.library().pt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype],
+            int(bool(causal)), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(rc, 'flash_attention_bwd_dkv')
+    kernels.launches['flash_attention_bwd_dkv'] += 1
+    return dk, dv
+
+
+def _bwd_delta(out, dout):
+    """delta = rowsum(dO * O) in float32, [B*H, Tq]: one fused reduction,
+    outside the kernels as in the JAX package (attention.py:417-419)."""
+    return (dout.float() * out.float()).sum(-1).reshape(-1, out.shape[2])
+
+
+def _launch_flash_bwd(q, k, v, k_len, out, lse, dout, causal, scale):
+    _check_qkv(q, k, v)
+    B, H, Tq, D = q.shape
+    k_len = _check_k_len(k_len, B, k.shape[2], q.device)
+    for name, t in (('out', out), ('dout', dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError('flash attention backward: %s must be a '
+                             'contiguous tensor like q' % name)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, Tq) or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError('flash attention backward: lse must be a contiguous '
+                         'float32 [B*H, Tq] tensor on the device of q')
+    delta = _bwd_delta(out, dout)
+    dq = _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale)
+    dk, dv = _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale)
+    return dq, dk, dv
+
+
+def flash_backward(q, k, v, k_len, out, lse, dout, causal=False,
+                   scale=None):
+    """-> (dq, dk, dv).  The CUDA kernels for CUDA tensors, the plain
+    version for CPU (or shape-only `meta`) tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == 'cuda':
+        return _launch_flash_bwd(q, k, v, k_len, out, lse, dout, causal,
+                                 scale)
+    if q.device.type in ('cpu', 'meta'):
+        return flash_backward_reference(q, k, v, k_len, out, lse, dout,
+                                        causal, scale)
+    raise RuntimeError('flash_attention: no kernel for device %s' % q.device)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, k_len, causal, scale):
+        out, lse = flash_forward(q, k, v, causal, scale, k_len)
+        ctx.save_for_backward(q, k, v, k_len, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, k_len, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, k_len, out, lse,
+                                    dout.contiguous(), ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, scale=None, k_len=None):
-    """q: [B, H, Tq, D]; k/v: [B, Hkv, Tk, D]; k_len: optional int32 [B]."""
+    """q: [B, H, Tq, D]; k/v: [B, Hkv, Tk, D]; k_len: optional int32 [B].
+    Differentiable w.r.t. q, k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        if k_len is None:
+            k_len = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
+                               device=q.device)
+        return _FlashAttention.apply(q, k, v, k_len, causal, scale)
     return flash_forward(q, k, v, causal, scale, k_len)[0]
 
 

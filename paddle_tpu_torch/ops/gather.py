@@ -7,6 +7,11 @@ launches csrc/gather.cu (which replaces the TPU kernel `_gather_kernel`);
 on a CPU tensor it runs `embedding_gather_reference`, the same function
 in plain PyTorch.  There is no size gate: the JAX package's `_MIN_ROWS`
 was measured on a TPU and says nothing about this card.
+
+`lookup` is the differentiable form the `lookup_table` op uses: forward
+is the gather, backward is the scatter-add `dW = zeros.index_add_(0, ids,
+g)` in the table's dtype, as the JAX package's custom VJP does with XLA's
+scatter-add (paddle_tpu/ops/gather.py:117-120) — not a kernel.
 """
 import torch
 
@@ -68,3 +73,36 @@ def embedding_gather(w, idx):
     if w.device.type in ('cpu', 'meta'):
         return embedding_gather_reference(w, idx)
     raise RuntimeError('embedding_gather: no kernel for device %s' % w.device)
+
+
+def _safe_ids(idx, V):
+    """Flat ids wrapped once by +V and clamped, and the mask of those still
+    out of range (their forward rows are NaN; they get no gradient)."""
+    flat = idx.reshape(-1).long()
+    wrapped = torch.where(flat < 0, flat + V, flat)
+    oob = (wrapped < 0) | (wrapped >= V)
+    return wrapped.clamp(0, V - 1), oob
+
+
+class _Lookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = tuple(w.shape)
+        return embedding_gather(w, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        V, D = ctx.table_shape
+        safe, oob = _safe_ids(idx, V)
+        g = g.reshape(-1, D).masked_fill(oob[:, None], 0)
+        dw = torch.zeros((V, D), dtype=g.dtype, device=g.device)
+        return dw.index_add_(0, safe, g), None
+
+
+def lookup(w, idx):
+    """`embedding_gather` with the scatter-add gradient w.r.t. `w`."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Lookup.apply(w, idx)
+    return embedding_gather(w, idx)

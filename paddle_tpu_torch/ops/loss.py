@@ -1,0 +1,82 @@
+"""Loss ops: softmax_with_cross_entropy for hard labels over the last axis.
+
+Counterpart of paddle_tpu/ops/loss.py (`_make_hard_ce`, :43-93).  The
+loss is a `torch.autograd.Function` with the reference's own backward:
+
+- forward: the logsumexp in float32 whatever the logits' dtype, the target
+  logit taken from the unconverted logits, the label-smoothing closed form
+  `lse - (1 - eps) * tgt - eps * mean(x)`, zero on `ignore_index` rows;
+  it keeps (logits, label, lse) for the backward;
+- backward: `dlogits = g * (softmax - (1 - eps) * onehot - eps / V)` in
+  the logits' dtype (bf16 under AMP), with `ignore_index` rows zeroed.
+
+The `Softmax` output is computed only when a later op reads it or the run
+fetches it (`ctx.wants`): otherwise every training step would build a
+float32 [B, T, V] tensor that the JAX package's DCE never builds.
+"""
+import torch
+
+from ..core.registry import register
+
+
+def _ce_forward(logits, lab, eps, ignore):
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1, keepdim=True)
+    safe = torch.where(lab == ignore, torch.zeros_like(lab), lab).long()
+    tgt = logits.gather(-1, safe).float()
+    if eps:
+        loss = lse - (1.0 - eps) * tgt - eps * x.mean(dim=-1, keepdim=True)
+    else:
+        loss = lse - tgt
+    return torch.where(lab == ignore, torch.zeros_like(loss), loss), lse
+
+
+class _HardCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, lab, eps, ignore):
+        loss, lse = _ce_forward(logits, lab, eps, ignore)
+        ctx.save_for_backward(logits, lab, lse)
+        ctx.eps, ctx.ignore = eps, ignore
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lab, lse = ctx.saved_tensors
+        eps, ignore = ctx.eps, ctx.ignore
+        V = logits.shape[-1]
+        d = torch.exp(logits.float() - lse)
+        if eps:
+            d.sub_(eps / V)
+        ignored = lab == ignore
+        safe = torch.where(ignored, torch.zeros_like(lab), lab).long()
+        d.scatter_add_(-1, safe, torch.full(safe.shape, -(1.0 - eps),
+                                            device=d.device))
+        gz = torch.where(ignored, torch.zeros_like(g), g.float())
+        return (gz * d).to(logits.dtype), None, None, None
+
+
+def hard_cross_entropy(logits, lab, eps=0.0, ignore=-100):
+    """Per-row loss [..., 1] float32 of `logits` [..., V] against int
+    labels `lab` [..., 1]."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _HardCE.apply(logits, lab, float(eps), int(ignore))
+    return _ce_forward(logits, lab, float(eps), int(ignore))[0]
+
+
+@register('softmax_with_cross_entropy')
+def softmax_with_cross_entropy(ctx, ins, attrs):
+    logits, label = ins['Logits'], ins['Label']
+    ndim = logits.ndim
+    if attrs.get('soft_label', False) or \
+            attrs.get('axis', -1) not in (-1, ndim - 1):
+        raise NotImplementedError(
+            'paddle_tpu_torch: softmax_with_cross_entropy is ported for hard '
+            'labels over the last axis only')
+    lab = label if label.ndim == ndim else label.unsqueeze(-1)
+    loss = hard_cross_entropy(logits, lab.to(torch.int32),
+                              attrs.get('label_smooth_eps', 0.0),
+                              attrs.get('ignore_index', -100))
+    outs = {'Loss': loss}
+    if ctx.wants('Softmax'):
+        outs['Softmax'] = torch.softmax(logits.float(), dim=-1)
+    return outs

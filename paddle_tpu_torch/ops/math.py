@@ -1,13 +1,15 @@
 """Elementwise, activation and matrix-product ops.
 
-Counterpart of paddle_tpu/ops/math.py: elementwise_add / elementwise_mul
-with the fluid `axis` broadcast rule, swish, mul and matmul.  A large
+Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
+`axis` broadcast rule, relu, swish, scale, cast, increment, reduce_sum,
+mul and matmul, each with the JAX impl's semantics on tensors.  A large
 matrix product stays `torch.matmul`, as the JAX package left it to XLA;
 float32 products run in full float32 (TF32 off, PyTorch's default).
 """
 import numpy as np
 import torch
 
+from ..core.dtypes import torch_dtype
 from ..core.registry import register
 
 
@@ -33,7 +35,59 @@ def _ew(name, fn):
 
 
 _ew('elementwise_add', torch.add)
+_ew('elementwise_sub', torch.sub)
 _ew('elementwise_mul', torch.mul)
+_ew('elementwise_div', torch.div)
+_ew('elementwise_min', torch.minimum)
+_ew('elementwise_pow', torch.pow)
+
+
+@register('relu')
+def relu(ctx, ins, attrs):
+    return {'Out': torch.relu(ins['X'])}
+
+
+@register('scale')
+def scale(ctx, ins, attrs):
+    s = attrs.get('scale', 1.0)
+    b = attrs.get('bias', 0.0)
+    x = ins['X']
+    if attrs.get('bias_after_scale', True):
+        out = x * s + b
+    else:
+        out = (x + b) * s
+    # the dtype is preserved (an int counter stays int)
+    return {'Out': out.to(x.dtype)}
+
+
+@register('cast')
+def cast(ctx, ins, attrs):
+    return {'Out': ins['X'].to(torch_dtype(attrs['out_dtype']))}
+
+
+@register('increment')
+def increment(ctx, ins, attrs):
+    x = ins['X']
+    step = attrs.get('step', 1.0)
+    # the step converts to x's dtype first, as jnp.asarray(step, x.dtype)
+    return {'Out': x + (step if x.is_floating_point() else int(step))}
+
+
+@register('reduce_sum')
+def reduce_sum(ctx, ins, attrs):
+    x = ins['X']
+    keep = attrs.get('keep_dim', False)
+    if attrs.get('reduce_all', False):
+        out = x.sum()
+        if keep:
+            out = out.reshape([1] * x.ndim)
+    else:
+        dim = attrs.get('dim', [0])
+        dim = [dim] if isinstance(dim, int) else list(dim)
+        out = x.sum(dim=tuple(d % x.ndim for d in dim), keepdim=keep)
+    if out.ndim == 0:
+        out = out.reshape(1)
+    return {'Out': out}
 
 
 @register('swish')

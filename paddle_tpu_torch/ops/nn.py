@@ -1,11 +1,27 @@
-"""The LLaMA normalisation and position ops.
+"""Normalisation and position ops: rms_norm, rope, layer_norm and
+add_position_encoding.
 
-Counterpart of paddle_tpu/ops/nn.py: rms_norm and rope, both computed in
-float32 and returned in the input dtype.
+Counterpart of paddle_tpu/ops/nn.py.  rms_norm and rope compute in float32
+and return the input dtype.  `layer_norm` is the JAX op's function, rows x
+cols after `begin_norm_axis`: one-pass statistics shifted by each row's
+first element (`var = max(E[d^2] - E[d]^2, 0)`), or the exact two-pass
+form under PT_TWO_PASS_NORM=1, optional Scale and Bias, Y in the input
+dtype and float32 Mean / Variance.  On a CUDA tensor its forward launches
+csrc/layer_norm.cu (which replaces the TPU kernel `_layer_norm_step`); on a
+CPU tensor it runs `layer_norm_reference`.  Its backward is the analytic
+LayerNorm gradient in plain PyTorch: the JAX package has no backward
+kernel and differentiates the plain ops (the pilot shift is
+stop_gradient and cancels).
 """
+import os
+
+import numpy as np
 import torch
 
+from .. import kernels
 from ..core.registry import register
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @register('rms_norm')
@@ -40,3 +56,154 @@ def rope(ctx, ins, attrs):
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return {'Out': out.reshape(B, H, T, D).to(x.dtype)}
+
+
+# ------------------------------------------------------------ layer_norm
+
+def two_pass_norm():
+    """PT_TWO_PASS_NORM=1 selects the exact two-pass statistics, read at
+    each call as the JAX package's op and kernel step read it."""
+    return os.environ.get('PT_TWO_PASS_NORM', '0') == '1'
+
+
+def layer_norm_reference(x, scale, bias, eps, two_pass=False):
+    """Plain version on rows x cols: -> (y in x's dtype, mean f32 [rows],
+    variance f32 [rows])."""
+    xf = x.float()
+    if two_pass:
+        m = xf.mean(dim=1, keepdim=True)
+        v = (xf - m).square().mean(dim=1, keepdim=True)
+        y = (xf - m) * torch.rsqrt(v + eps)
+    else:
+        c = xf[:, :1]
+        d = xf - c
+        md = d.mean(dim=1, keepdim=True)
+        v = torch.clamp_min(d.square().mean(dim=1, keepdim=True)
+                            - md.square(), 0.0)
+        m = md + c
+        y = (d - md) * torch.rsqrt(v + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype), m.reshape(-1), v.reshape(-1)
+
+
+def _launch_layer_norm(x, scale, bias, eps, two_pass):
+    if x.dim() != 2:
+        raise ValueError('layer_norm kernel takes rows x cols, got %s'
+                         % (tuple(x.shape),))
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError('layer_norm kernel takes float32 or bfloat16 input, '
+                        'got %s' % x.dtype)
+    rows, cols = x.shape
+    if rows < 1 or cols < 1:
+        raise ValueError('layer_norm kernel takes non-empty rows')
+    if not x.is_contiguous():
+        raise ValueError('layer_norm kernel takes a contiguous input')
+    params = []
+    for name, p in (('Scale', scale), ('Bias', bias)):
+        if p is not None:
+            if p.numel() != cols or p.device != x.device:
+                raise ValueError('layer_norm %s must hold %d values on %s'
+                                 % (name, cols, x.device))
+            # float32 on the kernel side; an exact conversion of a bf16
+            # parameter, as float32 math promotes it in the JAX op
+            p = p.reshape(cols).float().contiguous()
+        params.append(p)
+    scale, bias = params
+    y = torch.empty_like(x)
+    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+    var = torch.empty(rows, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = kernels.library().pt_layer_norm(
+            x.data_ptr(), scale.data_ptr() if scale is not None else None,
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), rows, cols, float(eps),
+            _DTYPE_CODE[x.dtype], int(bool(two_pass)), stream)
+    kernels.check(rc, 'layer_norm')
+    kernels.launches['layer_norm'] += 1
+    return y, mean, var
+
+
+def layer_norm_rows(x, scale=None, bias=None, eps=1e-5, two_pass=None):
+    """(y, mean, variance) of rows x cols `x`: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU (or shape-only `meta`) tensor."""
+    if two_pass is None:
+        two_pass = two_pass_norm()
+    if x.device.type == 'cuda':
+        return _launch_layer_norm(x, scale, bias, eps, two_pass)
+    if x.device.type in ('cpu', 'meta'):
+        return layer_norm_reference(x, scale, bias, eps, two_pass)
+    raise RuntimeError('layer_norm: no kernel for device %s' % x.device)
+
+
+def layer_norm_backward(dy, x, scale, mean, rstd, has_bias):
+    """The analytic LayerNorm gradient on rows x cols, in float32: ->
+    (dx in x's dtype, dscale or None, dbias or None)."""
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    g = dyf * scale.float().reshape(1, -1) if scale is not None else dyf
+    dx = rstd[:, None] * (g - g.mean(dim=1, keepdim=True)
+                          - xhat * (g * xhat).mean(dim=1, keepdim=True))
+    dscale = (dyf * xhat).sum(dim=0).to(scale.dtype).reshape(scale.shape) \
+        if scale is not None else None
+    dbias = dyf.sum(dim=0) if has_bias else None
+    return dx.to(x.dtype), dscale, dbias
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, two_pass):
+        y, mean, var = layer_norm_rows(x, scale, bias, eps, two_pass)
+        ctx.save_for_backward(x, scale, mean, torch.rsqrt(var + eps))
+        ctx.bias_meta = (bias.dtype, bias.shape) if bias is not None \
+            else None
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, scale, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_backward(dy, x, scale, mean, rstd,
+                                                ctx.bias_meta is not None)
+        if dbias is not None:
+            dbias = dbias.to(ctx.bias_meta[0]).reshape(ctx.bias_meta[1])
+        return dx, dscale, dbias, None, None
+
+
+def layer_norm(x, scale=None, bias=None, eps=1e-5, two_pass=None):
+    """Differentiable LayerNorm over rows x cols: (y, mean, variance)."""
+    if two_pass is None:
+        two_pass = two_pass_norm()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, scale, bias)):
+        return _LayerNorm.apply(x, scale, bias, eps, two_pass)
+    return layer_norm_rows(x, scale, bias, eps, two_pass)
+
+
+@register('layer_norm')
+def layer_norm_op(ctx, ins, attrs):
+    x = ins['X']
+    begin = attrs.get('begin_norm_axis', 1)
+    lead = tuple(x.shape[:begin])
+    rows = int(np.prod(lead)) if lead else 1
+    y, m, v = layer_norm(x.reshape(rows, -1).contiguous(), ins.get('Scale'),
+                         ins.get('Bias'), attrs.get('epsilon', 1e-5))
+    return {'Y': y.reshape(x.shape), 'Mean': m.reshape(lead),
+            'Variance': v.reshape(lead)}
+
+
+@register('add_position_encoding')
+def add_position_encoding(ctx, ins, attrs):
+    x = ins['X']  # [B, T, D]
+    alpha = attrs.get('alpha', 1.0)
+    beta = attrs.get('beta', 1.0)
+    _, t, d = x.shape
+    pos = torch.arange(t, dtype=x.dtype, device=x.device)[:, None]
+    half = d // 2
+    div = torch.pow(10000.0, torch.arange(half, dtype=x.dtype,
+                                          device=x.device) / half)
+    pe = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], dim=1)
+    return {'Out': alpha * x + beta * pe[None, :, :]}

@@ -1,7 +1,8 @@
 """Shape/layout/indexing ops and fill_constant.
 
-Counterpart of paddle_tpu/ops/tensor.py: reshape, squeeze, transpose,
-slice, lookup_table and fill_constant.
+Counterpart of paddle_tpu/ops/tensor.py: reshape, squeeze, unsqueeze,
+transpose, split, slice, lookup_table, fill_constant,
+fill_constant_batch_size_like, assign and assign_value.
 """
 import numpy as np
 import torch
@@ -28,6 +29,30 @@ def squeeze(ctx, ins, attrs):
     return {'Out': torch.squeeze(x, dim=tuple(a % x.ndim for a in axes))}
 
 
+@register('unsqueeze')
+def unsqueeze(ctx, ins, attrs):
+    x = ins['X']
+    for a in sorted(attrs['axes']):
+        x = x.unsqueeze(a)
+    return {'Out': x}
+
+
+@register('split')
+def split(ctx, ins, attrs):
+    x = ins['X']
+    axis = attrs.get('axis', 0)
+    sections = attrs.get('sections', [])
+    if sections:
+        outs = torch.split(x, list(sections), dim=axis)
+    else:
+        num = attrs.get('num', 0)
+        if x.shape[axis] % num:
+            raise ValueError('split: dim %d of size %d does not divide into '
+                             '%d parts' % (axis, x.shape[axis], num))
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {'Out': list(outs)}
+
+
 @register('transpose')
 def transpose(ctx, ins, attrs):
     return {'Out': ins['X'].permute(*attrs['axis'])}
@@ -48,12 +73,13 @@ def slice_op(ctx, ins, attrs):
 @register('lookup_table')
 def lookup_table(ctx, ins, attrs):
     # ids [..., 1] int, W [V, D]; the row gather is the hand-written kernel
-    # on the card (ops/gather.py); padding_idx masking stays here
-    from .gather import embedding_gather
+    # on the card, differentiable through scatter-add (ops/gather.py);
+    # padding_idx masking stays here
+    from .gather import lookup
     w, ids = ins['W'], ins['Ids']
     padding_idx = attrs.get('padding_idx', -1)
     idx = ids[..., 0] if ids.ndim >= 2 and ids.shape[-1] == 1 else ids
-    out = embedding_gather(w, idx)
+    out = lookup(w, idx)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (idx != padding_idx)[..., None].to(out.dtype)
     return {'Out': out}
@@ -68,10 +94,36 @@ def _fill_value(value, dtype_name):
         return np.asarray(value).astype(convert_dtype(dtype_name)).item()
 
 
+def _full(shape, attrs, device):
+    name = dtype_str(attrs.get('dtype', 'float32'))
+    return torch.full(shape, _fill_value(attrs['value'],
+                                         NARROW.get(name, name)),
+                      dtype=torch_dtype(name), device=device)
+
+
 @register('fill_constant')
 def fill_constant(ctx, ins, attrs):
-    name = dtype_str(attrs.get('dtype', 'float32'))
+    return {'Out': _full([int(d) for d in attrs['shape']], attrs,
+                         ctx.device)}
+
+
+@register('fill_constant_batch_size_like')
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    ref = ins['Input']
     shape = [int(d) for d in attrs['shape']]
-    return {'Out': torch.full(shape, _fill_value(attrs['value'],
-                                                 NARROW.get(name, name)),
-                              dtype=torch_dtype(name), device=ctx.device)}
+    shape[attrs.get('output_dim_idx', 0)] = \
+        ref.shape[attrs.get('input_dim_idx', 0)]
+    return {'Out': _full(shape, attrs, ctx.device)}
+
+
+@register('assign_value')
+def assign_value(ctx, ins, attrs):
+    dtype = convert_dtype(attrs.get('dtype', 'float32'))
+    vals = np.array(attrs['values'], dtype=dtype).reshape(attrs['shape'])
+    return {'Out': torch.from_numpy(vals).to(
+        device=ctx.device, dtype=torch_dtype(dtype))}
+
+
+@register('assign')
+def assign(ctx, ins, attrs):
+    return {'Out': ins['X']}

@@ -14,6 +14,8 @@ import torch
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.ops import attention as att
 from paddle_tpu_torch.ops import gather as ga
+from paddle_tpu_torch.ops import nn as tnn
+from paddle_tpu_torch.ops import optimizer_ops as oo
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +80,102 @@ def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype):
     ref = ga.embedding_gather_reference(w, ids)
     torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
     assert torch.isnan(out[0, :3]).all()
+
+
+@pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
+    (torch.bfloat16, 64, False, 256, 256, 8, [256, 256]),
+    (torch.bfloat16, 64, True, 256, 256, 8, [256, 200]),
+    (torch.float32, 64, True, 128, 128, 2, [128, 128]),
+    (torch.float32, 128, False, 150, 150, 4, [150, 1]),
+    (torch.bfloat16, 128, True, 37, 161, 1, [161, 0]),
+])
+def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
+                                            Hkv, klen):
+    g = torch.Generator(device='cuda').manual_seed(2)
+    q = _randn(g, 2, 8, Tq, D, dtype=dtype)
+    do = _randn(g, 2, 8, Tq, D, dtype=dtype)
+    k = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
+    v = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
+    kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
+    out, lse = att.flash_forward(q, k, v, causal, None, kl)
+    before = dict(kernels.launches)
+    grads = att.flash_backward(q, k, v, kl, out, lse, do, causal)
+    torch.cuda.synchronize()
+    for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+        assert kernels.launches[name] == before[name] + 1
+    refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
+                                        D ** -0.5)
+    # f32: other summation orders, and dS = P (dP - delta) cancels, so the
+    # bound is relative to the largest gradient; bf16: one rounding
+    rtol, arel = (1e-4, 1e-5) if dtype == torch.float32 else (8e-3, 2e-3)
+    for a, r in zip(grads, refs):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol,
+                                   atol=arel * float(r.float().abs().max()))
+    if 0 in klen:
+        assert not grads[0][1].any() and not grads[1][1].any()
+    if dtype == torch.float32:
+        # an independent check: autograd through the plain forward (the
+        # kernels follow cuBLAS's summation order, and may match the plain
+        # backward bit for bit)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ref_out, _ = att._ref_attention(*leaves, causal, D ** -0.5, kl)
+        auto = torch.autograd.grad(ref_out, leaves, do)
+        for a, r in zip(grads, auto):
+            torch.testing.assert_close(
+                a, r, rtol=1e-4, atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize('rows,cols,dtype,affine,two_pass,offset', [
+    (8192, 512, torch.float32, True, False, 0.0),
+    (300, 1000, torch.float32, True, False, 0.0),
+    (257, 512, torch.bfloat16, False, False, 0.0),
+    (64, 512, torch.float32, True, False, 1e4),
+    (100, 77, torch.float32, True, True, 0.0),
+])
+def test_layer_norm_kernel_matches_plain(cuda, rows, cols, dtype, affine,
+                                         two_pass, offset):
+    g = torch.Generator(device='cuda').manual_seed(3)
+    x = (_randn(g, rows, cols) + offset).to(dtype)
+    scale = 1.0 + 0.1 * _randn(g, cols) if affine else None
+    bias = 0.1 * _randn(g, cols) if affine else None
+    before = kernels.launches['layer_norm']
+    y, m, v = tnn.layer_norm_rows(x, scale, bias, 1e-5, two_pass)
+    torch.cuda.synchronize()
+    assert kernels.launches['layer_norm'] == before + 1
+    ry, rm, rv = tnn.layer_norm_reference(x, scale, bias, 1e-5, two_pass)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=8e-3, atol=8e-3)
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-6)
+
+
+def test_adam_multi_kernel_matches_plain_over_three_steps(cuda):
+    g = torch.Generator(device='cuda').manual_seed(4)
+    shapes = [(1,), (7,), (oo._CHUNK + 1,), (3, 33333), (512, 2048)]
+    params = [0.05 * _randn(g, *s) for s in shapes]
+    m1s = [1e-3 * _randn(g, *s) for s in shapes]
+    m2s = [(1e-3 * _randn(g, *s)).square() for s in shapes]
+    b1ps = [torch.full((1,), 0.9, device='cuda') for _ in shapes]
+    b2ps = [torch.full((1,), 0.997, device='cuda') for _ in shapes]
+    lrs = [torch.full((1,), 1e-3, device='cuda')] * len(shapes)
+    state = [params, m1s, m2s, b1ps, b2ps]
+    ref = [[t.clone() for t in col] for col in state]
+    cache = {}
+    before = kernels.launches['adam_multi']
+    for _ in range(3):
+        grads = [1e-2 * _randn(g, *s) for s in shapes]
+        oo.adam_multi(params, grads, m1s, m2s, b1ps, b2ps, lrs, 0.9, 0.997,
+                      1e-9, cache=cache)
+        oo.adam_reference(ref[0], grads, ref[1], ref[2], ref[3], ref[4],
+                          lrs, 0.9, 0.997, 1e-9)
+    torch.cuda.synchronize()
+    assert kernels.launches['adam_multi'] == before + 3
+    # the state pointers held (in place): one state table for 3 steps
+    assert cache['adam_multi_tables'] == 1
+    # IEEE operations in the reference's order: equal up to the last bit
+    for col, rcol in zip(state, ref):
+        for a, r in zip(col, rcol):
+            torch.testing.assert_close(a, r, rtol=2e-6, atol=1e-12)
+    torch.testing.assert_close(b1ps[0], torch.full_like(b1ps[0], 0.9 ** 4))
