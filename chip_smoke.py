@@ -5,6 +5,11 @@ PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
+    python3 chip_smoke.py --phases card,kernels,training_composed
+
+Every program runs through the PT_OPT passes (on by default): their fused
+groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
+compiled by one nvcc call per program at its first run.
 
 Phases, each printing JSON lines:
   card        nvidia-smi name and power limit; build the kernels (nvcc,
@@ -15,7 +20,11 @@ Phases, each printing JSON lines:
               bound) and at ragged ones: flash-attention forward and the
               embedding gather at the served shapes; the flash backward
               (dQ, dK/dV), LayerNorm and the multi-tensor Adam at the
-              training step's shapes
+              training step's shapes; softmax rows (K5) at the composed
+              attention's scores and ragged shapes; every generated segment
+              of the three main paths (the served program at each bucket,
+              the flash and the composed training steps) against its
+              plain replay, all built by one nvcc call
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -35,12 +44,33 @@ Phases, each printing JSON lines:
               the same model at full width cut to 2 layers, B=4, T=256,
               float32: 2 steps from the same weights on the card and on the
               CPU; losses and parameters after the updates must agree
-The line before the last is the nvidia-smi line; the line before that
-lists every kernel, with its launches per step on the training path (per
-served run for the serving-only ones).  The last line is {"ok": true,
-"device": ...}.  Any failed check raises, so the script exits non-zero and
-prints no result; it refuses to run without a CUDA device.  Float32 matrix
-products and convolutions run in full float32 (TF32 off), set below.
+  training_composed
+              transformer-base at its own defaults (composed attention,
+              dropout 0.1, label smoothing 0.1; full width and depth, vocab
+              32000, B=32, T=256, bf16 AMP): 3 warm-up and 10 timed steps;
+              launches per step (18 softmax, no flash, the planned
+              generated segments, 32 LayerNorms, 2 gathers, 1 Adam), no
+              plain version called on the card, the generated build's nvcc
+              time, torch.profiler over one step
+  train_composed_gpu_vs_cpu
+              that model at full width cut to 2 layers, B=4, float32,
+              dropout 0: 2 steps on the card and on the CPU must agree
+  composed_opt_on_off
+              that model at full width cut to 2 layers, B=32, bf16 AMP,
+              dropout 0.1: 3 steps with PT_OPT=1 (generated kernels) and
+              with PT_OPT=0 (one eager op at a time) from the same seed;
+              losses within 1e-6 relative, and whether bit for bit
+The phases run in that order, except that the three that also compute on
+the CPU (gpu_vs_cpu, train_gpu_vs_cpu, train_composed_gpu_vs_cpu) run
+last.  The line before the last is the nvidia-smi line; the line before
+that lists every kernel, with its launches per step on its training path
+(the composed one for K5, its generated segments, K4, K6 and Adam; the
+flash one for K1-K3 and its own segments), per served run for the
+serving-only ones; with every phase run, a kernel launched on none of its
+paths fails the script.  The last line is {"ok": true, "device": ...}.
+Any failed check raises, so the script exits non-zero and prints no
+result; it refuses to run without a CUDA device.  Float32 matrix products
+and convolutions run in full float32 (TF32 off), set below.
 """
 import argparse
 import json
@@ -55,15 +85,19 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
 PHASES = ('card', 'kernels', 'serving', 'gpu_vs_cpu', 'training',
-          'train_gpu_vs_cpu')
+          'train_gpu_vs_cpu', 'training_composed', 'train_composed_gpu_vs_cpu',
+          'composed_opt_on_off')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
+BUCKETS = (1, 2, 4)
 ALL_FETCHES = ('logits', 'last_logits', 'next_token')
 
 # the training configuration bench.py headlines (transformer-base)
 BENCH_CFG = dict(src_vocab=32000, trg_vocab=32000, max_len=256, n_layer=6,
                  n_head=8, d_model=512, d_inner=2048, dropout=0.0,
                  use_flash=True)
+# transformer-base at models/transformer.py::build's own defaults
+COMPOSED_CFG = dict(BENCH_CFG, dropout=0.1, use_flash=False)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 HBM_BPS = 3.35e12
@@ -87,20 +121,29 @@ def smi_line():
 
 
 def time_ms(fn, iters):
-    """Mean ms per call on the card: CUDA events around `iters` calls
-    after a warm-up."""
+    """Mean device ms per call on the card: CUDA events around `iters`
+    calls after a warm-up.  The stream first runs a spin kernel long enough
+    for the host to queue all the calls behind it, so the events time the
+    calls back to back on the device, not the host's launch overhead
+    (tens of microseconds a call, which would bound a small kernel)."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles a second: cover the host's queueing of every call
+    torch.cuda._sleep(int(min(2.0 * host_s * iters + 1e-3, 0.5) * 2e9))
+    e0.record()
     for _ in range(iters):
         fn()
-    t1.record()
+    e1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return e0.elapsed_time(e1) / iters
 
 
 # ------------------------------------------------------------- phase 1
@@ -470,6 +513,163 @@ def adam_case(name, shapes, steps=3, timed=False):
     return row
 
 
+def softmax_case(name, rows, cols, dtype, neg_inf_rows=0, timed=False):
+    """K5 against softmax_reference on the same rows; timed at the
+    composed attention's scores (65,536 rows of 256, float32)."""
+    import torch
+    from paddle_tpu_torch.ops import nn as tnn
+    g = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    x = (3 * torch.randn(rows, cols, generator=g, device='cuda')).to(
+        getattr(torch, dtype))
+    x[:neg_inf_rows] = float('-inf')
+    y = tnn.softmax_rows(x)
+    ref = tnn.softmax_reference(x)
+    torch.cuda.synchronize()
+    # float32: the same operations, the row sums in other orders; bf16:
+    # one rounding of (almost) equal float32 results
+    rtol, atol = (1e-5, 1e-7) if dtype == 'float32' else (8e-3, 1e-3)
+    nan_same = bool(torch.equal(torch.isnan(y), torch.isnan(ref)))
+    err, ok = _close(y.nan_to_num(0.0), ref.nan_to_num(0.0), rtol, atol)
+    row = dict(phase='kernels', kernel='softmax', case=name, rows=rows,
+               cols=cols, dtype=dtype, neg_inf_rows=neg_inf_rows,
+               max_abs_err=err, rtol=rtol, atol=atol, nan_rows_equal=nan_same)
+    if timed:
+        nbytes = 2 * rows * cols * x.element_size()
+        # max, subtract, exp, sum and divide: 5 operations an element
+        bound_ms, bound_by = _bound(5.0 * rows * cols, nbytes, 'float32')
+        row.update(
+            ms=time_ms(lambda: tnn.softmax_rows(x), 50),
+            plain_ms=time_ms(lambda: tnn.softmax_reference(x), 20),
+            library_ms=time_ms(lambda: torch.softmax(x, -1), 50),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        row['gbps'] = nbytes / row['ms'] / 1e6
+    emit(**row)
+    require(ok and nan_same, 'softmax disagrees with its plain version in '
+            'case %s: %s' % (name, row))
+    return row
+
+
+def _meta_env(main, feed):
+    """Meta tensors for a program's persistables and a feed: enough for
+    the executor's planning pass, with no weights made."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import torch_dtype
+    env = {v.name: torch.empty(v.shape, dtype=torch_dtype(v.dtype),
+                               device='meta')
+           for v in main.list_vars() if v.persistable}
+    block = main.global_block()
+    for name, a in feed.items():
+        env[name] = torch.empty(a.shape, device='meta',
+                                dtype=torch_dtype(block.var(name).dtype))
+    return env
+
+
+def _planned_specs(main, feed, fetch_names, amp):
+    """The generated segments `main` runs at `feed`'s shapes, from the
+    executor's planning pass on meta tensors: name -> (spec, sub-op
+    types)."""
+    from paddle_tpu_torch.core import executor as ex, passes
+    from paddle_tpu_torch.ops import kernelgen
+    opt, _ = passes.maybe_optimize(main, fetch_names)
+    seen, real = [], kernelgen.plan_for
+
+    def spy(attrs, avals, amp_):
+        plan = real(attrs, avals, amp_)
+        seen.append(plan)
+        return plan
+    kernelgen.plan_for = spy
+    try:
+        ex._plan_kernels(opt.global_block().ops, _meta_env(main, feed), amp)
+    finally:
+        kernelgen.plan_for = real
+    specs = {}
+    for plan in seen:
+        for kind, *rest in plan.steps:
+            if kind == 'kernel':
+                spec = rest[0]
+                specs.setdefault(spec.name, (spec, '+'.join(
+                    op[0]['type'] for op in spec.ops)))
+    return specs
+
+
+def path_segments():
+    """Every generated segment the main paths run: the composed and the
+    flash training steps (B=32, T=256, bf16 AMP) and the served llama_1b
+    decode program at each bucket (1, 2, 4 rows x 2048 tokens, float32):
+    name -> (spec, sub-op types, paths)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models import transformer as tr
+    found = []
+    feed = tr.synthetic_batch(np.random.RandomState(0), 32,
+                              COMPOSED_CFG['max_len'],
+                              COMPOSED_CFG['trg_vocab'])
+    for path, cfg in (('training_composed', COMPOSED_CFG),
+                      ('training', BENCH_CFG)):
+        main, _, out = _train_program(fluid, tr, amp=True, **cfg)
+        found.append((path, _planned_specs(main, feed, [out['loss'].name],
+                                           True)))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = llama.generation_program('llama_1b', mode='decode',
+                                       temperature=0.0)
+    T = out['config']['max_len']
+    for rows in BUCKETS:
+        feed = {'tokens': np.zeros((rows, T, 1), 'int64')}
+        found.append(('serving', _planned_specs(
+            main, feed, [out[k].name for k in SERVED_FETCHES], False)))
+    specs = {}
+    for path, got in found:
+        for name, (spec, ops) in got.items():
+            paths = specs.setdefault(name, (spec, ops, []))[2]
+            if path not in paths:
+                paths.append(path)
+    return specs
+
+
+def segment_case(spec, ops, paths, timed=True):
+    """One generated segment against its plain replay (the sub-ops' eager
+    PyTorch impls) on the same positive random inputs."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import torch_dtype
+    from paddle_tpu_torch.ops import kernelgen
+    g = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    ents = []
+    for shape, dt in spec.entry_avals:
+        if dt == 'int32':
+            ents.append(torch.randint(1, 100, shape, generator=g,
+                                      device='cuda', dtype=torch.int32))
+        else:
+            ents.append((torch.rand(shape, generator=g, device='cuda')
+                         + 0.5).to(torch_dtype(dt)))
+    with torch.no_grad():
+        outs = kernelgen._launch(spec, ents)
+        refs = spec.replay(ents)
+        torch.cuda.synchronize()
+        # every operation rounds as PyTorch's eager kernel does: equal,
+        # up to exp / pow implementations (1e-6 relative)
+        errs = [_close(o, r, 1e-6, 0.0) for o, r in zip(outs, refs)]
+        row = dict(phase='kernels', kernel='kernelgen_segment',
+                   name=spec.name, ops=ops, paths=paths, groups=spec.groups,
+                   inputs=[list(s) for s, _ in spec.entry_avals],
+                   outputs=[list(s) for s, _ in spec.esc_aval],
+                   max_abs_err=max(e for e, _ in errs), rtol=1e-6, atol=0.0)
+        if timed:
+            nbytes = sum(int(np.prod(s)) * torch.empty(
+                (), dtype=torch_dtype(d)).element_size()
+                for s, d in list(spec.entry_avals) + list(spec.esc_aval))
+            bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+            row.update(ms=time_ms(lambda: kernelgen._launch(spec, ents), 50),
+                       plain_ms=time_ms(lambda: spec.replay(ents), 20),
+                       library_ms=None, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes)
+            row['gbps'] = nbytes / row['ms'] / 1e6
+    emit(**row)
+    require(all(o for _, o in errs), 'generated segment %s disagrees with '
+            'its plain replay: %s' % (spec.name, row))
+    return row
+
+
 def phase_kernels():
     served = {}
     # the served shapes (llama_1b, 4 rows x 2048 tokens): timed
@@ -526,6 +726,29 @@ def phase_kernels():
     served['adam_multi'] = adam_case('transformer_158', 
                                      transformer_param_shapes(), timed=True)
     adam_case('ragged', [(1,), (7,), (32769,), (3, 33333), (5, 4)])
+    # the composed attention's scores: [32, 8, 256, 256] float32
+    served['softmax'] = softmax_case('path_f32', 65536, 256, 'float32',
+                                     timed=True)
+    softmax_case('register_branch_1000', 300, 1000, 'float32',
+                 neg_inf_rows=3)
+    softmax_case('block_branch_3000', 7, 3000, 'float32', neg_inf_rows=1)
+    softmax_case('bf16_255', 257, 255, 'bfloat16')
+    softmax_case('cols_1', 33, 1, 'float32')
+    from paddle_tpu_torch.ops import kernelgen
+    t0 = time.perf_counter()
+    specs = path_segments()
+    kernelgen.ensure_built()
+    log = kernelgen.build_stats['log']
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'kernelgen_build.log'), 'w') as f:
+        f.write(log)
+    emit(phase='kernels', step='kernelgen_build', functions=len(specs),
+         plan_and_build_s=time.perf_counter() - t0,
+         nvcc_s=kernelgen.build_stats['nvcc_s'],
+         ptxas=sorted({ln.split(':', 1)[-1].strip() for ln in log.splitlines()
+                       if 'registers' in ln or 'spill' in ln}))
+    for name, (spec, ops, paths) in sorted(specs.items()):
+        served[name] = segment_case(spec, ops, paths)
     return served
 
 
@@ -647,6 +870,7 @@ def phase_serving(smi):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels, serving
     from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernelgen
     with _model_dir() as d:
         # what a serving client reads: the last position's logits and the
         # greedy next token (not the [B, T, V] logits of every position)
@@ -661,15 +885,26 @@ def phase_serving(smi):
          param_bytes=4 * n_params, startup_s=startup_s, save_s=save_s,
          load_s=load_s, fetches=pred.get_output_names())
     rng = np.random.RandomState(SEED)
-    rows = [1, 2, 2, 1, 1, 2]
+    # dispatched as buckets 1 (the first request alone), 4 (2 + 2), 4 (1 +
+    # 1 + 2) and 2, so every bucket's generated kernels run
+    rows = [1, 2, 2, 1, 1, 2, 2]
     feeds = [{'tokens': _tokens(rng, r, T, V)} for r in rows]
-    # warm the device (cuBLAS handles, allocator) outside the counted run
-    pred.run(feeds[0])
+    # warm the device (cuBLAS handles, allocator) and build the generated
+    # kernels of every bucket's shape (their shapes are compiled in; the
+    # kernels phase, when it ran, built them already) outside the counted
+    # run
+    nvcc0 = kernelgen.build_stats['nvcc_s']
+    for rows_ in BUCKETS:
+        pred.run({'tokens': _tokens(np.random.RandomState(SEED + rows_),
+                                    rows_, T, V)})
     torch.cuda.synchronize()
+    emit(phase='serving', step='warm', buckets=list(BUCKETS),
+         kernelgen_nvcc_s=kernelgen.build_stats['nvcc_s'] - nvcc0)
     eng = serving.ServingEngine.from_predictor(
-        pred, bucketer=fluid.FeedBucketer([1, 2, 4]),
+        pred, bucketer=fluid.FeedBucketer(list(BUCKETS)),
         config=serving.ServingConfig(max_queue=16, max_batch_rows=4))
     kernels.reset_launches()
+    kernelgen.launches.clear()
     t0 = time.perf_counter()
     with eng:
         futs = [eng.submit(feeds[0])]
@@ -682,6 +917,7 @@ def phase_serving(smi):
         results = [f.result(600) for f in futs]
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    seg = dict(kernelgen.launches)
     c = eng.counters
     batches = c.get('serving.batches')
     dispatched = c.histogram('serving.dispatched_rows')
@@ -715,7 +951,7 @@ def phase_serving(smi):
     emit(phase='serving', step='served', requests=len(results),
          statuses=statuses, batches=batches, rows=real_rows,
          dispatched_rows=dispatched, launches=launches,
-         wall_s=wall, batch_ms=batch_ms,
+         segment_launches=seg, wall_s=wall, batch_ms=batch_ms,
          tokens_per_s=real_rows * T / wall,
          alone_vs_batched=[dict(max_abs_err=e, tol=t, clear_rows=cl,
                                 rows=n) for e, t, cl, n in checks],
@@ -724,6 +960,7 @@ def phase_serving(smi):
         [f['tokens'] for f in feeds[1:3]])})
     del pred, eng
     torch.cuda.empty_cache()
+    launches.update(seg)
     return launches
 
 
@@ -790,6 +1027,10 @@ def _group(name):
         return 'flash_attention_fwd'
     if 'layer_norm_kernel' in name:
         return 'layer_norm'
+    if 'softmax_kernel' in name:
+        return 'softmax'
+    if 'kg_' in name:
+        return 'kernelgen_segment'
     if 'adam_kernel' in name or 'adam_pows_kernel' in name:
         return 'adam_multi'
     if 'gather_rows' in name:
@@ -802,7 +1043,7 @@ def _group(name):
     return 'elementwise_and_other'
 
 
-def profile_step(exe, main, feed, fetch):
+def profile_step(exe, main, feed, fetch, phase='training'):
     """torch.profiler over one training step: device time by kernel group
     (device-side events only) and the device's idle share of the step."""
     import torch
@@ -824,7 +1065,7 @@ def profile_step(exe, main, feed, fetch):
         top.append((ms, e.key[:80], e.count))
     top.sort(reverse=True)
     busy = sum(groups.values())
-    emit(phase='training', step='profile', profiled_wall_ms=wall_ms,
+    emit(phase=phase, step='profile', profiled_wall_ms=wall_ms,
          device_ms_by_group=groups, device_busy_ms=busy,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:15]])
@@ -838,6 +1079,7 @@ def phase_training(smi):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.ops import kernelgen
     main, startup, out = _train_program(fluid, tr, amp=True)
     params = main.all_parameters()
     n_params = sum(int(np.prod(p.shape)) for p in params)
@@ -869,6 +1111,7 @@ def phase_training(smi):
             warm_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         kernels.reset_launches()
+        kernelgen.launches.clear()
         losses, step_ms = [], []
         t_all = time.perf_counter()
         for _ in range(10):
@@ -878,8 +1121,10 @@ def phase_training(smi):
             losses.append(float(loss[0]))
         wall = time.perf_counter() - t_all
         launches = dict(kernels.launches)
+        seg = dict(kernelgen.launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         per_step = {k: v / 10 for k, v in launches.items()}
+        planned = planned_segments(main, [out['loss'].name])
         med = float(np.median(step_ms))
         emit(phase='training', step='steps', config='transformer-base',
              cfg=BENCH_CFG, amp=True, B=B, T=T, params=n_params,
@@ -889,26 +1134,35 @@ def phase_training(smi):
              tokens_per_step=tokens, tokens_per_s=tokens * 10 / wall,
              model_tflop_per_step=model_flops / 1e12,
              model_tflops=model_flops / med / 1e9, peak_mem_gb=peak_gb,
-             launches_per_step=per_step,
+             launches_per_step=per_step, planned_segments_per_step=planned,
+             segment_launches_per_step={k: v / 10 for k, v in seg.items()},
              adam_table_builds=exe._kernel_cache.get('adam_multi_tables'),
              card=smi)
         require(all(np.isfinite(losses + warm)), 'non-finite training loss')
         for k, n in TRAIN_LAUNCHES.items():
             require(per_step.get(k) == n, '%s: %s launches per step, expected '
                     '%d' % (k, per_step.get(k), n))
+        require(per_step.get('kernelgen_segment') == planned > 0,
+                'generated segments: %s launches per step, %d planned'
+                % (per_step.get('kernelgen_segment'), planned))
         profile_step(exe, main, feed, fetch)
     del scope, exe
     torch.cuda.empty_cache()
+    launches.update(seg)
     return launches
 
 
 def phase_train_gpu_vs_cpu():
     """Two float32 training steps of the full-width transformer, cut to 2
     layers, B=4, T=256, from the same weights on the card and on the CPU."""
+    _gpu_vs_cpu('train_gpu_vs_cpu', dict(BENCH_CFG, n_layer=2))
+
+
+def _gpu_vs_cpu(phase, cfg):
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer as tr
-    main, startup, out = _train_program(fluid, tr, amp=False, n_layer=2)
+    main, startup, out = _train_program(fluid, tr, amp=False, **cfg)
     feed = tr.synthetic_batch(np.random.RandomState(1), 4, 256, 32000)
     feed['trg_pad'][1, 200:] = 1.0    # ragged rows: k_len < T
     feed['src_pad'][2, 150:] = 1.0
@@ -945,8 +1199,8 @@ def phase_train_gpu_vs_cpu():
              for w in watch}
     p_ok = all(np.allclose(res['gpu'][1][w], res['cpu'][1][w], rtol=1e-6,
                            atol=p_atol) for w in watch)
-    emit(phase='train_gpu_vs_cpu', config='transformer-base width, 2 layers',
-         B=4, T=256, dtype='float32', tf32=False,
+    emit(phase=phase, config='transformer-base width, 2 layers',
+         use_flash=cfg['use_flash'], B=4, T=256, dtype='float32', tf32=False,
          gpu_losses=res['gpu'][0], cpu_losses=res['cpu'][0],
          loss_rel_err=loss_err, loss_rtol=1e-5, param_max_abs_err=p_err,
          param_atol=p_atol, param_rtol=1e-6, gpu_s=res['gpu'][2],
@@ -955,6 +1209,205 @@ def phase_train_gpu_vs_cpu():
     require(loss_err <= 1e-5, 'gpu vs cpu: losses differ by %g' % loss_err)
     require(p_ok, 'gpu vs cpu: parameters differ after 2 steps: %s' % p_err)
     del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase 7
+
+# launches per step of the composed training path: 18 softmax rows (6
+# encoder self, 6 decoder self, 6 cross attention), no flash kernel, 2
+# gathers, 32 LayerNorms, one Adam call; the generated segments as planned
+COMPOSED_LAUNCHES = {'softmax': 18, 'flash_attention_fwd': 0,
+                     'flash_attention_bwd_dq': 0,
+                     'flash_attention_bwd_dkv': 0, 'embedding_gather': 2,
+                     'layer_norm': 32, 'adam_multi': 1}
+
+
+class PlainCalls(object):
+    """Counts calls of the kernels' plain versions with a CUDA tensor
+    among their arguments, while installed."""
+    TARGETS = (('paddle_tpu_torch.ops.nn', 'softmax_reference'),
+               ('paddle_tpu_torch.ops.nn', 'layer_norm_reference'),
+               ('paddle_tpu_torch.ops.fused', 'replay'),
+               ('paddle_tpu_torch.ops.optimizer_ops', 'adam_reference'),
+               ('paddle_tpu_torch.ops.gather', 'embedding_gather_reference'),
+               ('paddle_tpu_torch.ops.attention', '_ref_attention'),
+               ('paddle_tpu_torch.ops.attention',
+                'flash_backward_reference'))
+
+    def __init__(self):
+        self.counts = {}
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        import torch
+
+        def on_cuda(args):
+            for a in args:
+                if isinstance(a, (list, tuple)) and on_cuda(a):
+                    return True
+                if isinstance(a, torch.Tensor) and a.is_cuda:
+                    return True
+            return False
+
+        for mod_name, fn_name in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            real = getattr(mod, fn_name)
+
+            def wrapper(*a, _real=real, _name=fn_name, **k):
+                if on_cuda(list(a) + list(k.values())):
+                    self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _real(*a, **k)
+            self._saved.append((mod, fn_name, real))
+            setattr(mod, fn_name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, real in self._saved:
+            setattr(mod, fn_name, real)
+
+
+def planned_segments(main, fetch_names):
+    """Generated-segment launches one run of `main` makes, from the plans
+    its fused ops used in their last run."""
+    from paddle_tpu_torch.core import passes
+    from paddle_tpu_torch.ops import kernelgen
+    opt, _ = passes.maybe_optimize(main, fetch_names)
+    n = 0
+    for op in opt.global_block().ops:
+        if op.type == 'fused_elementwise':
+            n += kernelgen.plan_of(op.attrs).n_kernels
+    return n
+
+
+def phase_training_composed(smi):
+    """transformer-base at its own defaults trained through the passes and
+    the generated kernels on the card: AMP on, random init from a seed."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.ops import kernelgen
+    main, startup, out = _train_program(fluid, tr, amp=True, **COMPOSED_CFG)
+    B, T = 32, COMPOSED_CFG['max_len']
+    feed = tr.synthetic_batch(np.random.RandomState(0), B, T,
+                              COMPOSED_CFG['trg_vocab'])
+    tokens = float(np.sum(1.0 - feed['trg_pad']))
+    scope, exe = fluid.Scope(), fluid.Executor()
+    fetch = [out['loss']]
+    nvcc0, builds0 = kernelgen.build_stats['nvcc_s'], \
+        kernelgen.build_stats['builds']
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        warm, warm_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warm.append(float(exe.run(main, feed=feed,
+                                      fetch_list=fetch)[0][0]))
+            warm_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        kernelgen.launches.clear()
+        losses, step_ms = [], []
+        with PlainCalls() as plain:
+            t_all = time.perf_counter()
+            for _ in range(10):
+                t0 = time.perf_counter()
+                loss = exe.run(main, feed=feed, fetch_list=fetch)[0]
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss[0]))
+            wall = time.perf_counter() - t_all
+        launches = dict(kernels.launches)
+        seg = dict(kernelgen.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_step = {k: v / 10 for k, v in launches.items()}
+        planned = planned_segments(main, [out['loss'].name])
+        med = float(np.median(step_ms))
+        emit(phase='training_composed', step='steps',
+             config='transformer-base defaults', cfg=COMPOSED_CFG, amp=True,
+             pt_opt=os.environ.get('PT_OPT', '1'), B=B, T=T,
+             startup_s=startup_s, warmup_losses=warm, warmup_step_s=warm_s,
+             losses=losses, step_ms=step_ms, median_step_ms=med,
+             wall_s=wall, tokens_per_step=tokens,
+             tokens_per_s=tokens * 10 / wall, peak_mem_gb=peak_gb,
+             launches_per_step=per_step, planned_segments_per_step=planned,
+             segment_functions=len(seg),
+             segment_launches_per_step={k: v / 10 for k, v in seg.items()},
+             plain_calls_on_cuda=plain.counts,
+             kernelgen_builds=kernelgen.build_stats['builds'] - builds0,
+             kernelgen_nvcc_s=kernelgen.build_stats['nvcc_s'] - nvcc0,
+             adam_table_builds=exe._kernel_cache.get('adam_multi_tables'),
+             card=smi)
+        require(all(np.isfinite(losses + warm)), 'non-finite training loss')
+        for k, n in COMPOSED_LAUNCHES.items():
+            require(per_step.get(k) == n, '%s: %s launches per step, '
+                    'expected %d' % (k, per_step.get(k), n))
+        require(per_step['kernelgen_segment'] == planned > 0,
+                'generated segments: %s launches per step, %d planned'
+                % (per_step['kernelgen_segment'], planned))
+        require(not plain.counts, 'plain versions ran on the card: %s'
+                % plain.counts)
+        profile_step(exe, main, feed, fetch, phase='training_composed')
+    del scope, exe
+    torch.cuda.empty_cache()
+    launches.update({k: v for k, v in seg.items()})
+    return launches
+
+
+def phase_train_composed_gpu_vs_cpu():
+    """Two float32 steps of the composed transformer at full width, cut
+    to 2 layers, B=4, dropout 0, from the same weights on the card and on
+    the CPU (the CPU runs the fused groups' plain replay)."""
+    _gpu_vs_cpu('train_composed_gpu_vs_cpu',
+                dict(COMPOSED_CFG, dropout=0.0, n_layer=2))
+
+
+def phase_composed_opt_on_off():
+    """PT_OPT=1 (generated kernels) against PT_OPT=0 (one eager op at a
+    time) on the card, dropout 0.1, from the same seed."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = dict(COMPOSED_CFG, n_layer=2)
+    feed = tr.synthetic_batch(np.random.RandomState(2), 32, 256, 32000)
+    watch = ['src_emb', 'enc_0_att_qkv_w', 'dec_1_xatt_kv_w',
+             'dec_post_ln_w', 'proj_w', 'proj_b']
+    res = {}
+    saved = os.environ.get('PT_OPT')
+    try:
+        for opt in ('1', '0'):
+            os.environ['PT_OPT'] = opt
+            main, startup, out = _train_program(fluid, tr, amp=True, **cfg)
+            scope, exe = fluid.Scope(), fluid.Executor()
+            with fluid.scope_guard(scope):
+                exe.run(startup)
+                init = {w: scope.vars[w].clone() for w in watch}
+                losses = [float(exe.run(main, feed=feed,
+                                        fetch_list=[out['loss']])[0][0])
+                          for _ in range(3)]
+            res[opt] = (losses, init, {w: scope.vars[w].clone()
+                                       for w in watch})
+            del scope, exe
+    finally:
+        if saved is None:
+            os.environ.pop('PT_OPT', None)
+        else:
+            os.environ['PT_OPT'] = saved
+    on, off = res['1'], res['0']
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on[0], off[0]))
+    same_init = all(torch.equal(on[1][w], off[1][w]) for w in watch)
+    bitwise = on[0] == off[0] and all(torch.equal(on[2][w], off[2][w])
+                                      for w in watch)
+    emit(phase='composed_opt_on_off', cfg=cfg, amp=True, B=32, T=256,
+         losses_opt_on=on[0], losses_opt_off=off[0], loss_rel_err=rel,
+         loss_rtol=1e-6, startup_equal=same_init, bitwise=bitwise)
+    require(all(np.isfinite(on[0])), 'non-finite loss with the passes on')
+    require(rel <= 1e-6, 'PT_OPT=1 vs 0: losses differ by %g' % rel)
     torch.cuda.empty_cache()
 
 
@@ -973,7 +1426,12 @@ _REPLACES = {
                    'paddle_tpu/ops/kernelgen/rules.py:336'),
     'adam_multi': ('paddle_tpu_torch/csrc/adam.cu',
                    'paddle_tpu/ops/kernelgen/builder.py:795'),
+    'softmax': ('paddle_tpu_torch/csrc/softmax.cu',
+                'paddle_tpu/ops/kernelgen/rules.py:291'),
 }
+# every generated segment: the generator's source, the TPU generator
+SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
+                  'paddle_tpu/ops/kernelgen/builder.py:795')
 
 
 def main(argv=None):
@@ -999,29 +1457,54 @@ def main(argv=None):
     emit(phase='env', python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
-    smi = phase_card() if 'card' in phases else smi_line()
-    served = phase_kernels() if 'kernels' in phases else {}
-    served_launches = phase_serving(smi) if 'serving' in phases else {}
-    if 'gpu_vs_cpu' in phases:
-        phase_gpu_vs_cpu()
-    trained = phase_training(smi) if 'training' in phases else {}
-    if 'train_gpu_vs_cpu' in phases:
-        phase_train_gpu_vs_cpu()
-    # launches on each kernel's main path: per training step for the
-    # kernels the training step runs, per served run for the others
-    launches = {k: v // 10 if v % 10 == 0 else v / 10
-                for k, v in trained.items() if v}
-    for k, v in served_launches.items():
-        launches.setdefault(k, v)
+    took = {}
+
+    def run(name, fn, *a):
+        """fn(*a) when phase `name` was asked for, else {}; timed."""
+        if name not in phases:
+            return {}
+        t0 = time.perf_counter()
+        res = fn(*a)
+        took[name] = time.perf_counter() - t0
+        return res
+
+    smi = run('card', phase_card) or smi_line()
+    served = run('kernels', phase_kernels)
+    # the timed phases first, the ones that also compute on the CPU last:
+    # CPU work left behind slows the host that issues the timed steps
+    served_launches = run('serving', phase_serving, smi)
+    trained = run('training', phase_training, smi)
+    composed = run('training_composed', phase_training_composed, smi)
+    run('composed_opt_on_off', phase_composed_opt_on_off)
+    run('gpu_vs_cpu', phase_gpu_vs_cpu)
+    run('train_gpu_vs_cpu', phase_train_gpu_vs_cpu)
+    run('train_composed_gpu_vs_cpu', phase_train_composed_gpu_vs_cpu)
+    emit(phase='script', seconds_by_phase=took)
+    # launches on each kernel's main path: per step of the composed
+    # training path for the kernels it runs, per step of the flash training
+    # path for K1-K3 and its own generated segments, per served run for the
+    # serving-only ones
+    launches = dict(served_launches)
+    for steps in (trained, composed):
+        launches.update({k: v // 10 if v % 10 == 0 else v / 10
+                         for k, v in steps.items() if v})
     rows = []
     for name, res in served.items():
-        src, replaces = _REPLACES[name]
-        rows.append(dict(
+        src, replaces = _REPLACES.get(name, SEGMENT_SOURCE)
+        row = dict(
             name=name, route='cuda', source=src, replaces=replaces,
             launches=launches.get(name), max_abs_err=res['max_abs_err'],
             ms=res['ms'], plain_ms=res['plain_ms'],
             bound_ms=res['bound_ms'], bound_by=res['bound_by'],
-            library_ms=res['library_ms']))
+            library_ms=res['library_ms'])
+        if name not in _REPLACES:
+            row.update(ops=res['ops'], paths=res['paths'])
+        rows.append(row)
+    if 'kernels' in phases and {'serving', 'training',
+                                'training_composed'} <= set(phases):
+        idle = [r['name'] for r in rows if not r['launches']]
+        require(not idle, 'kernels never launched on their main path: %s'
+                % idle)
     print(json.dumps({'kernels': rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -8,14 +8,24 @@ kernels on the current stream.  Ops whose outputs nothing reads or keeps
 are skipped, as XLA's dead-code elimination drops them from the
 executable, and each intermediate is freed after its last reader.
 
+`run` first hands the program to the rewriter (core/passes,
+`maybe_optimize`, on unless PT_OPT=0) and interprets the optimized twin,
+as the reference lowers it: dead ops go, constant chains fold, and runs
+of elementwise, layout, dropout, row-reduction and optimizer ops become
+`fused_elementwise` ops (ops/fused.py).  On the card, before a program's
+first run at a feed shape, a planning pass runs its ops on `meta` tensors
+so that every fused op builds its generated-kernel plan
+(ops/kernelgen), and the generated CUDA source of all of them compiles
+in one `nvcc` call at the first launch.
+
 A program without `__backward__` runs under `torch.inference_mode()`.  A
 training program runs the ops before `__backward__` under autograd, with
 each differentiated parameter a leaf tensor sharing the scope's storage,
 takes `torch.autograd.grad` of the loss (the JAX package's `jax.vjp`), and
-runs the ops after it (the optimizer) under `torch.no_grad()`.  A maximal
-run of consecutive in-place `adam` ops goes to one multi-tensor kernel
-launch (ops/optimizer_ops.py::adam_multi), standing in for the JAX
-package's fuse pass, which turns them into one fused group.
+runs the ops after it (the optimizer) under `torch.no_grad()`.  With the
+passes off (PT_OPT=0), a maximal run of consecutive in-place `adam` ops
+goes to one multi-tensor kernel launch (ops/optimizer_ops.py::adam_multi),
+standing in for the fuse pass, which turns them into one fused group.
 
 Not ported yet: control flow, executables / CUDA graphs (`run_steps`),
 compile caching, check_nan, recompute scopes.
@@ -26,23 +36,14 @@ import itertools
 import numpy as np
 import torch
 
-from . import registry
+from . import passes, registry
+from .amp import amp_sub_ins, amp_sub_outs
 from .dtypes import torch_dtype
 from .framework import (CPUPlace, CUDAPlace, Variable, default_main_program,
                         require_cuda)
 
 _BACKWARD_OP = '__backward__'
-
-# bf16 AMP, the JAX package's policy (paddle_tpu/core/executor.py:145-196):
-# matrix-product ops get their float32 inputs cast to bf16 and their
-# outputs cast back to float32 unless the op carries `amp_keep_bf16`; an
-# elementwise op with a bf16 input casts its float32 inputs down.  The
-# logits projection keeps bf16 and its bias add follows it through the
-# second rule, so the cross-entropy reads bf16 logits.
-_AMP_CAST_OPS = frozenset({'mul', 'matmul', 'flash_attention'})
-_AMP_MATCH = frozenset({'elementwise_add', 'elementwise_sub',
-                        'elementwise_mul', 'elementwise_div',
-                        'elementwise_max', 'elementwise_min'})
+_FUSED_OP = 'fused_elementwise'
 
 __all__ = ['Executor', 'Scope', 'scope_guard', 'global_scope']
 
@@ -134,34 +135,6 @@ def _plan(ops, keep):
     return live, needed, dead
 
 
-def _amp_cast(v, to):
-    frm = torch.float32 if to == torch.bfloat16 else torch.bfloat16
-    if isinstance(v, torch.Tensor) and v.dtype == frm:
-        return v.to(to)
-    return v
-
-
-def _amp_ins(op_type, ins):
-    if op_type in _AMP_CAST_OPS:
-        ins = {s: ([_amp_cast(x, torch.bfloat16) for x in v]
-                   if isinstance(v, list) else _amp_cast(v, torch.bfloat16))
-               for s, v in ins.items()}
-    elif op_type in _AMP_MATCH and any(
-            not isinstance(v, list) and v.dtype == torch.bfloat16
-            for v in ins.values()):
-        ins = {s: v if isinstance(v, list) else _amp_cast(v, torch.bfloat16)
-               for s, v in ins.items()}
-    return ins
-
-
-def _amp_outs(op, outs):
-    if op.type not in _AMP_CAST_OPS or op.attrs.get('amp_keep_bf16'):
-        return outs
-    return {s: ([_amp_cast(x, torch.float32) for x in v]
-                if isinstance(v, (list, tuple))
-                else _amp_cast(v, torch.float32)) for s, v in outs.items()}
-
-
 def _adam_run(ops, live, k):
     """End (exclusive, in `live`) of the run of consecutive in-place adam
     ops starting at live[k] that share beta1/beta2/epsilon, or k when
@@ -176,7 +149,8 @@ def _adam_run(ops, live, k):
     return j
 
 
-def _exec_ops(ops, env, ectx, keep, amp=False):
+def _exec_ops(ops, env, ectx, keep):
+    amp = ectx.amp
     live, wanted, dead = _plan(ops, keep)
     grad_mode = torch.is_grad_enabled()
     k = 0
@@ -197,11 +171,9 @@ def _exec_ops(ops, env, ectx, keep, amp=False):
         for slot, names in op.inputs.items():
             vals = [env[n] for n in names]
             ins[slot] = vals if op.input_is_list[slot] else vals[0]
-        if amp:
-            ins = _amp_ins(op.type, ins)
+        ins = amp_sub_ins(op.type, ins, amp)
         outs = impl(ectx.for_op(i, op, wanted), ins, op.attrs) or {}
-        if amp:
-            outs = _amp_outs(op, outs)
+        outs = amp_sub_outs(op.type, op.attrs, outs, amp)
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
             if vals is None:
@@ -222,7 +194,7 @@ def _exec_ops(ops, env, ectx, keep, amp=False):
         k += 1
 
 
-def _run_backward(ops, bw_idx, env, ectx, keep, amp):
+def _run_backward(ops, bw_idx, env, ectx, keep):
     """The training step: forward under autograd, `torch.autograd.grad`
     of the loss w.r.t. the `__backward__` op's params, then the ops after
     it under no_grad.  Parameters are leaf tensors that share storage
@@ -244,7 +216,7 @@ def _run_backward(ops, bw_idx, env, ectx, keep, amp):
         fw_keep.update(op.input_names())
     with torch.enable_grad():
         env.update(leaves)
-        _exec_ops(ops[:bw_idx], env, ectx, fw_keep, amp)
+        _exec_ops(ops[:bw_idx], env, ectx, fw_keep)
         if loss_name not in env:
             raise ValueError('loss var %s not produced before backward'
                              % loss_name)
@@ -259,7 +231,46 @@ def _run_backward(ops, bw_idx, env, ectx, keep, amp):
         env[name] = torch.ones_like(loss.detach())
     env[loss_name] = loss.detach()
     with torch.no_grad():
-        _exec_ops(post, env, ectx, keep, amp)
+        _exec_ops(post, env, ectx, keep)
+
+
+def _meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device='meta')
+
+
+def _plan_kernels(ops, env, amp):
+    """Run `ops` on `meta` tensors shaped like `env`'s, so that each
+    fused_elementwise op builds its generated-kernel plan for the card
+    (ops/fused.py): all of them are known before the first launch, which
+    compiles their sources in one nvcc call.  `__backward__` only gives
+    each gradient its parameter's shape."""
+    menv = {n: _meta(t) for n, t in env.items()}
+    for op in ops:
+        if op.type == _BACKWARD_OP:
+            for p, g in zip(op.attrs['params'], op.outputs.get('Grads', [])):
+                if p in menv:
+                    menv[g] = menv[p]
+            for n in op.outputs.get('LossGrad', []):
+                menv[n] = menv.get(op.inputs['Loss'][0])
+            continue
+        if any(n not in menv for n in op.input_names()):
+            continue
+        ins = {}
+        for slot, names in op.inputs.items():
+            vals = [menv[n] for n in names]
+            ins[slot] = vals if op.input_is_list[slot] else vals[0]
+        ctx = registry.InferCtx(op, amp=amp, plan_device='cuda')
+        outs = registry.get_op(op.type)(ctx, amp_sub_ins(op.type, ins, amp),
+                                        op.attrs) or {}
+        outs = amp_sub_outs(op.type, op.attrs, outs, amp)
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot)
+            if vals is None:
+                continue
+            vals = vals if isinstance(vals, (list, tuple)) else [vals]
+            for name, val in zip(names, vals):
+                if val is not None:
+                    menv[name] = val
 
 
 class Executor(object):
@@ -280,6 +291,8 @@ class Executor(object):
         self._run_counter = itertools.count()
         # device-side tables impls keep between runs (ops/optimizer_ops.py)
         self._kernel_cache = {}
+        # (program, feed signature) pairs whose kernels are planned
+        self._planned = set()
 
     def _feed_tensors(self, block, feed):
         out = {}
@@ -302,7 +315,8 @@ class Executor(object):
                        for f in (fetch_list or [])]
         persistable = {n for b in program.blocks for n, v in b.vars.items()
                        if v.persistable}
-        ops = block.ops
+        opt_program, _ = passes.maybe_optimize(program, fetch_names)
+        ops = opt_program.global_block().ops
         bw_idx = next((i for i, op in enumerate(ops)
                        if op.type == _BACKWARD_OP), None)
         env = {}
@@ -319,16 +333,26 @@ class Executor(object):
                     # tensor; copied once, then the scope holds the copy
                     val = val.clone()
                 env[name] = val
-        env.update(self._feed_tensors(block, feed))
-        ectx = registry.ExecCtx(self.device, program.random_seed,
-                                next(self._run_counter), self._kernel_cache)
-        keep = persistable | set(fetch_names)
+        feeds = self._feed_tensors(block, feed)
+        env.update(feeds)
         amp = program._amp
+        if self.device.type == 'cuda' and any(op.type == _FUSED_OP
+                                              for op in ops):
+            sig = (id(opt_program), opt_program._version, amp,
+                   tuple((n, tuple(t.shape), t.dtype)
+                         for n, t in sorted(feeds.items())))
+            if sig not in self._planned:
+                _plan_kernels(ops, env, amp)
+                self._planned.add(sig)
+        ectx = registry.ExecCtx(self.device, program.random_seed,
+                                next(self._run_counter), self._kernel_cache,
+                                amp)
+        keep = persistable | set(fetch_names)
         if bw_idx is None:
             with torch.inference_mode():
-                _exec_ops(ops, env, ectx, keep, amp)
+                _exec_ops(ops, env, ectx, keep)
         else:
-            _run_backward(ops, bw_idx, env, ectx, keep, amp)
+            _run_backward(ops, bw_idx, env, ectx, keep)
         for name in persistable:
             if name in env:
                 scope.vars[name] = env[name]

@@ -8,7 +8,9 @@ runs are batch dims (-1), exactly as the JAX package does with
 `jax.eval_shape`.
 
 The port carries what the serving and training slices need: Variable's
-arithmetic operators (the LR schedules use them), op roles and bf16 AMP;
+arithmetic operators (the LR schedules use them), op roles, bf16 AMP and
+the version counter the rewriter's memo keys on (`Program._version`,
+bumped by `append_op`, `create_var`, `create_parameter` and `set_amp`);
 no imperative mode, no recompute scopes, and no lint.  Sharding specs,
 the mesh, the device limit and the KV plan ride along as opaque JSON so a
 desc survives a round trip through the port.
@@ -334,6 +336,7 @@ class Block(object):
             return self.vars[name]
         v = Variable(self, name=name, **kwargs)
         self.vars[name] = v
+        self.program._bump()
         return v
 
     def create_parameter(self, name=None, shape=None, dtype='float32', **kw):
@@ -343,6 +346,7 @@ class Block(object):
         root = self.program.blocks[0]
         p = Parameter(root, shape=shape, dtype=dtype, name=name, **kw)
         root.vars[name] = p
+        self.program._bump()
         return p
 
     def all_parameters(self):
@@ -352,6 +356,7 @@ class Block(object):
                   infer_shape=True):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
+        self.program._bump()
         for n in op.output_names():
             ov = self._find_var_recursive(n)
             if ov is not None:
@@ -424,12 +429,19 @@ class Program(object):
         self._device_limit_bytes = None
         self._kv_plan = None
         self._amp = False
+        # bumped on every change made through the builder API; the
+        # rewriter's memo (core/passes) keys on it
+        self._version = 0
+
+    def _bump(self):
+        self._version += 1
 
     def set_amp(self, flag=True):
         """bf16 auto-mixed precision: matrix-product ops run on bfloat16
         inputs, everything else stays float32 (core/executor.py has the
         policy)."""
         self._amp = bool(flag)
+        self._bump()
 
     def set_kv_plan(self, **cache_config_kwargs):
         """Declare the serving KV-cache pool this program runs against

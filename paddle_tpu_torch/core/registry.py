@@ -18,8 +18,13 @@ an impl can skip computing an auxiliary output nobody uses (shape
 inference wants every slot);
 `ctx.generator(seed)` is a `torch.Generator` on that device, seeded from the
 op's `seed` attr when it is non-zero, else from the program's
-`random_seed`, the run counter and the op's position in the block, so every
-op and every run draws its own stream.  The streams are not JAX's threefry
+`random_seed`, the run counter and the op's stream: its `rng_stream` attr,
+which the rewriter (core/passes) stamps with the op's ORIGINAL position so
+that deleting or fusing ops never shifts a later draw, else its live
+position in the block.  Every op and every run draws its own stream.
+`ctx.sub_ctx(sub)` is the context of one sub-op of a `fused_elementwise`
+op: it draws from that sub-op's own pinned stream.  `ctx.amp` says whether
+the program runs under bf16 AMP.  The streams are not JAX's threefry
 streams: the two packages agree on everything but random draws.
 """
 import torch
@@ -64,14 +69,18 @@ def _ensure_ops_loaded():
 
 
 class InferCtx(object):
-    """Context for build-time shape inference: impls see `meta` tensors
-    and must not draw random numbers."""
+    """Context for shape-only runs: impls see `meta` tensors and must not
+    draw random numbers.  `plan_device` set to 'cuda' asks a
+    `fused_elementwise` impl to build its generated-kernel plan as well
+    (the executor's planning pass, core/executor.py)."""
 
     is_infer = True
     device = torch.device('meta')
 
-    def __init__(self, op=None):
+    def __init__(self, op=None, amp=False, plan_device=None):
         self.op = op
+        self.amp = amp
+        self.plan_device = plan_device
 
     def generator(self, seed=0):
         return None
@@ -79,14 +88,18 @@ class InferCtx(object):
     def wants(self, slot):
         return True
 
+    def sub_ctx(self, sub):
+        return self
+
 
 class ExecCtx(object):
     """Per-run context shared by all ops of one interpreted block.
     `cache` is a dict the executor keeps across runs for impls that hold
     device-side tables between steps (the multi-tensor Adam's)."""
 
-    def __init__(self, device, random_seed, counter, cache=None):
+    def __init__(self, device, random_seed, counter, cache=None, amp=False):
         self.device = torch.device(device)
+        self.amp = bool(amp)
         # the run counter is mixed into the program seed, so every run of
         # one program draws fresh streams while staying reproducible
         self.seed = (int(random_seed) * 0x9E3779B97F4A7C15
@@ -95,6 +108,16 @@ class ExecCtx(object):
 
     def for_op(self, op_index, op, wanted=None):
         return OpCtx(self, op_index, op, wanted)
+
+
+class _SubOpShim(object):
+    """Op stand-in for one serialized sub-op of a fused_elementwise op:
+    its type and attrs, all OpCtx reads."""
+    __slots__ = ('type', 'attrs')
+
+    def __init__(self, type, attrs):
+        self.type = type
+        self.attrs = attrs
 
 
 class OpCtx(object):
@@ -110,6 +133,19 @@ class OpCtx(object):
     def device(self):
         return self._exec.device
 
+    @property
+    def amp(self):
+        return self._exec.amp
+
+    @property
+    def cache(self):
+        return self._exec.cache
+
+    def sub_ctx(self, sub):
+        """Context for one replayed sub-op of a fused_elementwise op."""
+        return OpCtx(self._exec, self.op_index,
+                     _SubOpShim(sub['type'], sub['attrs']))
+
     def wants(self, slot):
         """True when a later op reads, or the run keeps, an output of
         `slot` (always True when the executor gave no liveness)."""
@@ -121,7 +157,10 @@ class OpCtx(object):
         if seed:
             s = int(seed) & _MASK
         else:
-            s = (self._exec.seed ^ ((self.op_index + 1) * 1009
+            idx = self.op.attrs.get('rng_stream')
+            if idx is None:
+                idx = self.op_index
+            s = (self._exec.seed ^ ((int(idx) + 1) * 1009
                                     * 0xBF58476D1CE4E5B9)) & _MASK
         g = torch.Generator(device=self.device)
         g.manual_seed(s)

@@ -3,11 +3,13 @@
 Counterpart of paddle_tpu/inference.py (AnalysisConfig, Predictor).  The
 JAX Predictor lowers the pruned program to one XLA executable per feed
 shape; the port's Predictor runs it through the op-by-op Executor on its
-device, so the hand-written kernels run inside each `run`.  It runs on
-CUDA unless `AnalysisConfig.disable_gpu()` was called (the fluid API's own
-switch, a no-op in the JAX package); with no CUDA device and no such call
-it raises.  Not ported yet: the PT_OPT rewriter, the lint policy, bf16
-parameters, AOT export and the compile cache.
+device, so the hand-written kernels run inside each `run`; the Executor
+hands the program to the PT_OPT rewriter first (core/passes), as the
+reference's Predictor does before lowering.  It runs on CUDA unless
+`AnalysisConfig.disable_gpu()` was called (the fluid API's own switch, a
+no-op in the JAX package); with no CUDA device and no such call it
+raises.  Not ported yet: the lint policy, bf16 parameters, AOT export and
+the compile cache.
 """
 import threading
 

@@ -3,6 +3,8 @@
 `launches` counts, per kernel, the launches its wrapper made: each wrapper
 adds one where it launches its kernel and nowhere else, so a run can show
 that its path went through the kernels (chip_smoke.py reads it).
+`kernelgen_segment` counts the launches of every generated segment
+(ops/kernelgen); `ops.kernelgen.launches` has them by function.
 """
 from .build import library
 
@@ -10,7 +12,8 @@ __all__ = ['library', 'launches', 'reset_launches', 'check']
 
 launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'embedding_gather': 0,
-            'layer_norm': 0, 'adam_multi': 0}
+            'layer_norm': 0, 'adam_multi': 0, 'softmax': 0,
+            'kernelgen_segment': 0}
 
 
 def reset_launches():

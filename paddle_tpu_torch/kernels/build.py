@@ -7,6 +7,12 @@ so a changed source rebuilds and an unchanged one loads at once.  The
 sources compile in parallel, one `nvcc` per file, and link once.  A
 failing `nvcc` raises with its output.
 
+`build_generated(source)` is the second path: the CUDA C++ the kernel
+generator (ops/kernelgen) wrote for one program's fused segments, one
+file under `_build/kernelgen/`, compiled and linked by one `nvcc` call
+with the same ARCH and FLAGS, named by a hash of the source, the flags
+and the `csrc` digest.
+
     python -m paddle_tpu_torch.kernels.build     # build, print the log
 """
 import ctypes
@@ -19,7 +25,7 @@ import tempfile
 import threading
 import time
 
-__all__ = ['library', 'build', 'build_log']
+__all__ = ['library', 'build', 'build_log', 'build_generated']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -101,6 +107,37 @@ def build():
     return lib_path
 
 
+def build_generated(source):
+    """Compile one generated CUDA source into a shared library (one nvcc
+    call, cached by hash); -> (library path, nvcc output, seconds spent
+    compiling, 0.0 when the library was there)."""
+    h = hashlib.sha256(source.encode())
+    h.update(_digest().encode())
+    tag = h.hexdigest()[:16]
+    out_dir = os.path.join(BUILD_DIR, 'kernelgen')
+    lib_path = os.path.join(out_dir, 'libpt_kernelgen_%s.so' % tag)
+    if os.path.exists(lib_path):
+        return lib_path, '', 0.0
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, 'kernelgen_%s.cu' % tag)
+    with open(src + '.tmp', 'w') as f:
+        f.write(source)
+    os.replace(src + '.tmp', src)
+    tmp_lib = lib_path + '.%d.tmp' % os.getpid()
+    t0 = time.time()
+    res = subprocess.run([nvcc] + ARCH + FLAGS + ['-shared', '-o', tmp_lib,
+                                                  src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    seconds = time.time() - t0
+    log = res.stdout.decode(errors='replace')
+    if res.returncode != 0:
+        raise RuntimeError('nvcc failed on the generated kernels %s:\n%s'
+                           % (src, log))
+    os.replace(tmp_lib, lib_path)
+    return lib_path, log, seconds
+
+
 def build_log():
     """nvcc's output from this process's build ('' when it loaded a
     library built earlier)."""
@@ -124,6 +161,8 @@ def _bind(lib):
     lib.pt_layer_norm.restype = i
     lib.pt_adam_multi.argtypes = [p, p, i, i, f, f, f, f, f, p]
     lib.pt_adam_multi.restype = i
+    lib.pt_softmax.argtypes = [p, p, ctypes.c_longlong, i, i, p]
+    lib.pt_softmax.restype = i
     lib.pt_error_string.argtypes = [i]
     lib.pt_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,7 +17,7 @@ __all__ = [
     'elementwise_min', 'elementwise_pow', 'swish', 'flash_attention',
     'rms_norm', 'rope', 'sample_tokens', 'layer_norm',
     'softmax_with_cross_entropy', 'add_position_encoding',
-    'autoincreased_step_counter',
+    'autoincreased_step_counter', 'softmax', 'dropout', 'matmul',
 ]
 
 
@@ -71,12 +71,19 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
-def _simple(op_type, x, attrs=None, name=None):
+def _simple(op_type, x, attrs=None, name=None, outs=('Out',),
+            extra_ins=None):
     helper = LayerHelper(op_type, name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type=op_type, inputs={'X': x}, outputs={'Out': out},
+    out_vars = {o: helper.create_variable_for_type_inference(x.dtype)
+                for o in outs}
+    ins = {'X': x}
+    if extra_ins:
+        ins.update(extra_ins)
+    helper.append_op(type=op_type, inputs=ins, outputs=out_vars,
                      attrs=attrs or {})
-    return out
+    if len(outs) == 1:
+        return out_vars[outs[0]]
+    return tuple(out_vars[o] for o in outs)
 
 
 def transpose(x, perm, name=None):
@@ -101,6 +108,30 @@ def unsqueeze(input, axes, name=None):
 
 def relu(x, name=None):
     return _simple('relu', x, name=name)
+
+
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    """Softmax over `axis` (the hand-written CUDA row kernel on the card,
+    see ops/nn.py)."""
+    return _simple('softmax', input, {'axis': axis}, name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
+           amp_keep_bf16=False):
+    return _simple('matmul', x, {'transpose_X': transpose_x,
+                                 'transpose_Y': transpose_y,
+                                 'alpha': float(alpha),
+                                 'amp_keep_bf16': amp_keep_bf16}, name,
+                   extra_ins={'Y': y})
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation='downgrade_in_infer'):
+    return _simple('dropout', x,
+                   {'dropout_prob': dropout_prob, 'is_test': is_test,
+                    'seed': seed if seed is not None else 0,
+                    'dropout_implementation': dropout_implementation},
+                   name, outs=('Out', 'Mask'))[0]
 
 
 def add_position_encoding(input, alpha, beta, name=None):

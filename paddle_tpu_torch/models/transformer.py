@@ -4,14 +4,12 @@ Counterpart of paddle_tpu/models/transformer.py: `transformer`, `build`,
 `synthetic_batch` and `make_batch` with the JAX package's names, ops and
 parameter names, so both packages build the same program.  Fixed max_len
 padded batches with suffix-padding lengths, pre-norm residual blocks, the
-fused QKV / KV projections, attention through `flash_attention` (the
-hand-written CUDA kernels on the card, forward and backward), the logits
-projection kept bf16 under AMP, and the fused label-smoothed
-cross-entropy.
-
-Not ported yet: the composed attention path (`use_flash=False`, which
-needs softmax, the kernelgen K5 row kernel) and dropout (a Philox kernel);
-both raise NotImplementedError.
+fused QKV / KV projections, attention either composed (scale, matmul,
+mask add, softmax, dropout, matmul: `build`'s default, and the only path
+with attention dropout) or through `flash_attention` (`use_flash=True`
+with dropout 0), dropout after the embeddings, attention weights and FFN
+activations, the logits projection kept bf16 under AMP, and the fused
+label-smoothed cross-entropy.
 """
 import numpy as np
 
@@ -53,33 +51,38 @@ def multi_head_attention(q_in, kv_in, mask, d_model, n_head, dropout,
         return layers.transpose(x, perm=[0, 2, 1, 3])  # [B, H, T, Dh]
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    # the fused kernel has no attention-weight dropout: use it only when
+    # dropout is off; else compose the ops
     if use_flash and dropout and is_train:
         use_flash = False
-    if not use_flash:
-        raise NotImplementedError(
-            'paddle_tpu_torch: only the flash attention path is ported '
-            '(use_flash=True with dropout 0); the composed path needs '
-            'softmax and dropout')
-    if mask is not None and kv_lengths is None:
-        raise ValueError('use_flash with a padding mask requires kv_lengths '
-                         '(suffix-padding lengths); got None')
-    ctx = layers.flash_attention(q, k, v, causal=causal,
-                                 k_lengths=kv_lengths)
+    if use_flash:
+        if mask is not None and kv_lengths is None:
+            raise ValueError('use_flash with a padding mask requires '
+                             'kv_lengths (suffix-padding lengths); got None')
+        ctx = layers.flash_attention(q, k, v, causal=causal,
+                                     k_lengths=kv_lengths)
+    else:
+        q = layers.scale(q, scale=d_head ** -0.5)
+        scores = layers.matmul(q, k, transpose_y=True)  # [B, H, Tq, Tk]
+        if mask is not None:
+            scores = layers.elementwise_add(scores, mask)
+        weights = layers.softmax(scores)
+        if dropout and is_train:
+            weights = layers.dropout(
+                weights, dropout, is_test=not is_train,
+                dropout_implementation='upscale_in_train')
+        ctx = layers.matmul(weights, v)  # [B, H, Tq, Dh]
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = layers.reshape(ctx, [0, 0, d_model])
     return _linear(ctx, d_model, name + '_o', bias=False)
 
 
-def _no_dropout(dropout, is_train):
-    if dropout and is_train:
-        raise NotImplementedError('paddle_tpu_torch: dropout is not ported '
-                                  'yet (a Philox kernel)')
-
-
 def ffn(x, d_model, d_inner, dropout, is_train, name):
     h = _linear(x, d_inner, name + '_fc1')
     h = layers.relu(h)
-    _no_dropout(dropout, is_train)
+    if dropout and is_train:
+        h = layers.dropout(h, dropout, is_test=not is_train,
+                           dropout_implementation='upscale_in_train')
     return _linear(h, d_model, name + '_fc2')
 
 
@@ -124,7 +127,9 @@ def _embed(ids, vocab, d_model, max_len, dropout, is_train, name):
                              initializer=Normal(0., d_model ** -0.5)))
     emb = layers.scale(emb, scale=d_model ** 0.5)
     emb = layers.add_position_encoding(emb, alpha=1.0, beta=1.0)
-    _no_dropout(dropout, is_train)
+    if dropout and is_train:
+        emb = layers.dropout(emb, dropout, is_test=not is_train,
+                             dropout_implementation='upscale_in_train')
     return emb
 
 

@@ -1,0 +1,356 @@
+"""The kernel generator: fused_elementwise groups as generated CUDA kernels.
+
+Counterpart of paddle_tpu/ops/kernelgen/__init__.py.  On a CUDA tensor,
+ops/fused.py hands each fused group to `run_fused`, which runs its plan
+(builder.py): random draws, views and transposes, the dedicated kernels
+K5 / K6 / K1, `adam_multi`, and one generated kernel per segment.  There
+is no fallback on the card: a sub-op without a rule, or a shape a
+template cannot take, raises `KernelgenUnsupported` naming it, and a
+failing nvcc or launch raises.  The port has no `PT_KERNELGEN` switch;
+`PT_OPT=0` (no fusion) is the only way to run unfused.
+
+The generated functions of every plan made so far that are not built yet
+compile together, in one nvcc call, at the first launch that needs one
+of them (`ensure_built`); the executor's planning pass makes all of a
+program's plans before its first launch.  `launches` counts the
+launches of each generated function; `build_stats` the builds.
+
+Entry points: `run_fused`, `plan_for`, `clear_plan_cache`,
+`unsupported_sub_ops`, `ensure_built`, `generated_source`.
+"""
+import ctypes
+import threading
+
+import torch
+
+from ... import kernels
+from ...core.amp import amp_sub_ins, amp_sub_outs
+from ...core.dtypes import torch_dtype
+from ...core.registry import get_op
+from .rules import KERNEL_RULES
+from .builder import (SOURCES, KernelgenUnsupported, avals_of, clear_plans,
+                      plan_for)
+
+__all__ = ['KERNEL_RULES', 'KernelgenUnsupported', 'run_fused', 'plan_for',
+           'clear_plan_cache', 'avals_of', 'unsupported_sub_ops',
+           'ensure_built', 'generated_source', 'launches', 'build_stats',
+           'plan_of']
+
+# launches of each generated function, by name
+launches = {}
+# builds of generated sources: count, functions, nvcc seconds
+build_stats = {'builds': 0, 'functions': 0, 'nvcc_s': 0.0, 'log': ''}
+
+_PRELUDE = r'''// Generated by paddle_tpu_torch/ops/kernelgen from fused_elementwise
+// groups (see builder.py): one __global__ function and one extern "C"
+// launcher per segment.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+__device__ __forceinline__ float kg_rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float kg_nanmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float kg_relu(float a) {
+  return a != a ? a : fmaxf(a, 0.f);
+}
+
+__device__ __forceinline__ float kg_ld(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float kg_ld(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ int kg_ld(const int* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ void kg_st(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void kg_st(__nv_bfloat16* p, long long i,
+                                      float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void kg_st(int* p, long long i, int v) {
+  p[i] = v;
+}
+
+// V consecutive elements from i: one 128-bit access for four float32 or
+// int32 values, 64 bits for four bfloat16 (the launcher checks alignment)
+template <int V, typename M, typename R>
+__device__ __forceinline__ void kg_ldv(R (&d)[V], const M* p, long long i) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) d[j] = kg_ld(p, i + j);
+}
+template <>
+__device__ __forceinline__ void kg_ldv<4, float, float>(float (&d)[4],
+                                                        const float* p,
+                                                        long long i) {
+  const float4 t = *reinterpret_cast<const float4*>(p + i);
+  d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+}
+template <>
+__device__ __forceinline__ void kg_ldv<4, int, int>(int (&d)[4],
+                                                    const int* p,
+                                                    long long i) {
+  const int4 t = *reinterpret_cast<const int4*>(p + i);
+  d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+}
+template <>
+__device__ __forceinline__ void kg_ldv<4, __nv_bfloat16, float>(
+    float (&d)[4], const __nv_bfloat16* p, long long i) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p + i);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
+  d[0] = __bfloat162float(h[0]); d[1] = __bfloat162float(h[1]);
+  d[2] = __bfloat162float(h[2]); d[3] = __bfloat162float(h[3]);
+}
+
+template <int V, typename M, typename R>
+__device__ __forceinline__ void kg_stv(M* p, long long i, const R (&v)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) kg_st(p, i + j, v[j]);
+}
+template <>
+__device__ __forceinline__ void kg_stv<4, float, float>(float* p,
+                                                        long long i,
+                                                        const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void kg_stv<4, int, int>(int* p, long long i,
+                                                    const int (&v)[4]) {
+  *reinterpret_cast<int4*>(p + i) = make_int4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void kg_stv<4, __nv_bfloat16, float>(
+    __nv_bfloat16* p, long long i, const float (&v)[4]) {
+  uint2 t;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
+  h[0] = __float2bfloat16_rn(v[0]); h[1] = __float2bfloat16_rn(v[1]);
+  h[2] = __float2bfloat16_rn(v[2]); h[3] = __float2bfloat16_rn(v[3]);
+  *reinterpret_cast<uint2*>(p + i) = t;
+}
+
+}  // namespace
+
+'''
+
+_lock = threading.Lock()
+_FUNCS = {}            # name -> bound ctypes launcher
+_LIBS = []             # loaded libraries (kept alive)
+_LAST_PLAN = {}        # id(fused attrs) -> the plan its last run used
+# (id(attrs), input shapes and dtypes, amp) -> (attrs, plan): a run finds
+# its plan without canonicalizing the sub-program again
+_FAST = {}
+
+
+def clear_plan_cache():
+    clear_plans()
+    _FAST.clear()
+
+
+def unsupported_sub_ops(attrs):
+    """Sub-op types of one fused_elementwise op with no KERNEL_RULES entry
+    (deduped, first-seen order)."""
+    out, seen = [], set()
+    for sub in attrs.get('sub_ops') or ():
+        t = sub['type']
+        if t not in KERNEL_RULES and t not in seen:
+            seen.add(t)
+            out.append(t)
+    return out
+
+
+def generated_source(names=None):
+    """The CUDA C++ file of the generated functions `names` (default:
+    every one planned so far), in name order."""
+    names = sorted(SOURCES if names is None else names)
+    return _PRELUDE + '\n'.join(SOURCES[n] for n in names)
+
+
+def ensure_built():
+    """Compile every planned generated function not built yet (one nvcc
+    call) and bind its launcher."""
+    with _lock:
+        pending = sorted(n for n in SOURCES if n not in _FUNCS)
+        if not pending:
+            return
+        from ...kernels.build import build_generated
+        path, log, seconds = build_generated(generated_source(pending))
+        lib = ctypes.CDLL(path)
+        _LIBS.append(lib)
+        for n in pending:
+            fn = getattr(lib, n + '_launch')
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _FUNCS[n] = fn
+        build_stats['builds'] += 1
+        build_stats['functions'] += len(pending)
+        build_stats['nvcc_s'] += seconds
+        build_stats['log'] += log
+
+
+def _launch(spec, ents):
+    """One generated segment on the card: outputs allocated here."""
+    dev = ents[0].device if ents else torch.device(
+        'cuda', torch.cuda.current_device())
+    if spec.name not in _FUNCS:
+        ensure_built()
+    out_dt = [torch_dtype(dt) for _, dt in spec.esc_aval]
+    outs = [torch.empty(shape, dtype=d, device=dev)
+            for (shape, _), d in zip(spec.esc_aval, out_dt)]
+    for e, (_, dt) in zip(ents, spec.entry_avals):
+        if e.device != dev or e.dtype != torch_dtype(dt) or \
+                not e.is_contiguous():
+            raise ValueError('generated kernel %s takes contiguous %s on %s, '
+                             'got %s on %s' % (spec.name, dt, dev, e.dtype,
+                                               e.device))
+    ptrs = [t.data_ptr() for t in ents] + [o.data_ptr() for o in outs]
+    vec = 4 if spec.vec4_sizes and all(
+        ptrs[ix] % (4 * ents[ix].element_size()) == 0
+        for ix in spec.direct) and all(
+        ptrs[len(ents) + j] % (4 * outs[j].element_size()) == 0
+        for j in spec.out_flat) else 1
+    arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            rc = _call(spec, arr, vec, dev)
+    else:
+        rc = _call(spec, arr, vec, dev)
+    kernels.check(rc, spec.name)
+    kernels.launches['kernelgen_segment'] += 1
+    launches[spec.name] = launches.get(spec.name, 0) + 1
+    return outs
+
+
+def _call(spec, arr, vec, dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _FUNCS[spec.name](ctypes.cast(arr, ctypes.c_void_p), spec.n_max,
+                             vec, stream)
+
+
+class _SegmentFn(torch.autograd.Function):
+    """A generated segment under autograd: its backward replays the
+    segment's sub-ops with their plain impls and differentiates them."""
+
+    @staticmethod
+    def forward(ctx, spec, *ents):
+        outs = _launch(spec, ents)
+        ctx.spec = spec
+        ctx.save_for_backward(*ents)
+        fixed = [o for o in outs if not o.is_floating_point()]
+        if fixed:
+            ctx.mark_non_differentiable(*fixed)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        ents = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            xs = [e.detach().requires_grad_(n) for e, n in zip(ents, need)]
+            outs = ctx.spec.replay(xs)
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if g is not None and o.requires_grad]
+        wrt = [x for x, n in zip(xs, need) if n]
+        grads = list(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True)) if pairs else [None] * len(wrt)
+        return (None,) + tuple(grads.pop(0) if n else None for n in need)
+
+
+def _run_kernel(spec, mats):
+    ents = [mats[e[0]].contiguous() for e in spec.entries]
+    if torch.is_grad_enabled() and any(e.requires_grad for e in ents):
+        outs = _SegmentFn.apply(spec, *ents)
+    else:
+        outs = _launch(spec, ents)
+    for mid, o in zip(spec.out_mids, outs):
+        mats[mid] = o
+
+
+def _run_adam(st, mats, ctx):
+    from ..optimizer_ops import adam_multi
+    _, gkey, ins, outs, in_place = st
+    cols = {slot: [mats[d[slot]] for d in ins]
+            for slot in ('Param', 'Grad', 'Moment1', 'Moment2', 'Beta1Pow',
+                         'Beta2Pow', 'LearningRate')}
+    for slot in ('Param', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow'):
+        cols[slot] = [t if ip else t.clone()
+                      for t, ip in zip(cols[slot], in_place)]
+    adam_multi(cols['Param'], cols['Grad'], cols['Moment1'], cols['Moment2'],
+               cols['Beta1Pow'], cols['Beta2Pow'], cols['LearningRate'],
+               *gkey, cache=getattr(ctx, 'cache', None))
+    for k, ob in enumerate(outs):
+        for oslot, mid in ob.items():
+            mats[mid] = cols[oslot[:-3]][k]
+
+
+def plan_of(attrs):
+    """The plan the last `run_fused` of this fused op used."""
+    return _LAST_PLAN.get(id(attrs))
+
+
+def run_fused(ctx, xs, attrs, amp):
+    """Run one fused group's plan on the card -> its `Out` list."""
+    from ..nn import dropout_mask
+    key = (id(attrs), tuple((x.shape, x.dtype) for x in xs), amp)
+    hit = _FAST.get(key)
+    if hit is not None and hit[0] is attrs:
+        plan = hit[1]
+    else:
+        plan = plan_for(attrs, avals_of(xs), amp)
+        _FAST[key] = (attrs, plan)
+    _LAST_PLAN[id(attrs)] = plan
+    device = xs[0].device if xs else ctx.device
+    mats = dict(enumerate(xs))
+    for st in plan.steps:
+        kind = st[0]
+        if kind == 'kernel':
+            _run_kernel(st[1], mats)
+        elif kind == 'draw':
+            _, mid, si, x_aval = st
+            sub = attrs['sub_ops'][si]
+            sctx = ctx.sub_ctx(sub)
+            if x_aval is None:      # the whole op is the draw
+                mats[mid] = get_op(sub['type'])(sctx, {},
+                                                sub['attrs'])['Out']
+            else:
+                a = sub['attrs']
+                mats[mid] = dropout_mask(
+                    x_aval[0], torch_dtype(x_aval[1]), device,
+                    a.get('dropout_prob', 0.5),
+                    sctx.generator(a.get('seed', 0)))
+        elif kind == 'glue':
+            _, mid, src, perm, shape = st
+            x = mats[src]
+            mats[mid] = x.reshape(shape) if perm is None else \
+                x.permute(*perm).contiguous()
+        elif kind == 'dstep':
+            _, si, in_mids, out_bind = st
+            sub = attrs['sub_ops'][si]
+            ins = {}
+            for slot, mids in in_mids.items():
+                vals = [mats[m] for m in mids]
+                ins[slot] = vals if sub['input_is_list'].get(slot) \
+                    else vals[0]
+            ins = amp_sub_ins(sub['type'], ins, amp)
+            outs = get_op(sub['type'])(ctx.sub_ctx(sub), ins,
+                                       sub['attrs']) or {}
+            outs = amp_sub_outs(sub['type'], sub['attrs'], outs, amp)
+            for slot, binds in out_bind.items():
+                vals = outs.get(slot)
+                vals = vals if isinstance(vals, (list, tuple)) else [vals]
+                for mid, v in zip(binds, vals):
+                    if mid is not None:
+                        mats[mid] = v
+        else:
+            _run_adam(st, mats, ctx)
+    return [mats[m].detach() if stop and mats[m].requires_grad else mats[m]
+            for m, stop in zip(plan.finals, plan.final_stop)]

@@ -1,5 +1,5 @@
-"""Normalisation and position ops: rms_norm, rope, layer_norm and
-add_position_encoding.
+"""Normalisation, position, softmax and dropout ops: rms_norm, rope,
+layer_norm, add_position_encoding, softmax and dropout.
 
 Counterpart of paddle_tpu/ops/nn.py.  rms_norm and rope compute in float32
 and return the input dtype.  `layer_norm` is the JAX op's function, rows x
@@ -12,6 +12,21 @@ CPU tensor it runs `layer_norm_reference`.  Its backward is the analytic
 LayerNorm gradient in plain PyTorch: the JAX package has no backward
 kernel and differentiates the plain ops (the pilot shift is
 stop_gradient and cancels).
+
+`softmax` is the JAX op's function, `jax.nn.softmax(x.astype(f32))` cast
+back to x's dtype, over any axis.  The axis moves to the end around rows
+x cols; on a CUDA tensor the rows go to csrc/softmax.cu (which replaces
+the TPU kernel `_softmax_step`), on a CPU tensor to `softmax_reference`.
+Its backward is plain PyTorch, y * (g - sum(g * y)) in float32: the JAX
+package has no backward kernel and differentiates the plain op.
+
+`dropout` has the JAX op's semantics: at test time x * (1 - p) for
+`downgrade_in_infer` (x for `upscale_in_train`) and a mask of ones; in
+training a keep mask drawn with probability 1 - p, out = x * mask, divided
+by 1 - p for `upscale_in_train`.  The mask is drawn as the JAX package
+draws it, outside any kernel (`jax.random.bernoulli` there, `bernoulli_`
+on the op's own `torch.Generator` here, on the device); the two packages'
+draws differ, as their generators do.
 """
 import os
 
@@ -207,3 +222,118 @@ def add_position_encoding(ctx, ins, attrs):
                                           device=x.device) / half)
     pe = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], dim=1)
     return {'Out': alpha * x + beta * pe[None, :, :]}
+
+
+# --------------------------------------------------------------- softmax
+
+def softmax_reference(x):
+    """Plain version on rows x cols: float32 max-subtract, exp and
+    sum-normalize over the last axis, in x's dtype."""
+    xf = x.float()
+    u = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (u / u.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def _launch_softmax(x):
+    if x.dim() != 2:
+        raise ValueError('softmax kernel takes rows x cols, got %s'
+                         % (tuple(x.shape),))
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError('softmax kernel takes float32 or bfloat16 input, '
+                        'got %s' % x.dtype)
+    rows, cols = x.shape
+    if rows < 1 or cols < 1:
+        raise ValueError('softmax kernel takes non-empty rows')
+    if not x.is_contiguous():
+        raise ValueError('softmax kernel takes a contiguous input')
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = kernels.library().pt_softmax(x.data_ptr(), y.data_ptr(), rows,
+                                          cols, _DTYPE_CODE[x.dtype], stream)
+    kernels.check(rc, 'softmax')
+    kernels.launches['softmax'] += 1
+    return y
+
+
+def softmax_rows(x):
+    """Softmax of rows x cols `x` over its last axis: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU (or shape-only `meta`)
+    tensor."""
+    if x.device.type == 'cuda':
+        return _launch_softmax(x)
+    if x.device.type in ('cpu', 'meta'):
+        return softmax_reference(x)
+    raise RuntimeError('softmax: no kernel for device %s' % x.device)
+
+
+def softmax_backward(g, y):
+    """The softmax gradient on rows x cols, in float32, in y's dtype."""
+    yf, gf = y.float(), g.float()
+    return (yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))).to(y.dtype)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = softmax_rows(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return softmax_backward(g, y)
+
+
+def softmax(x, axis=-1):
+    """Differentiable softmax of `x` (at least 1-D, non-empty) over
+    `axis`; a non-trailing axis moves to the end around the rows."""
+    axis = axis % x.dim()
+    xt = x.movedim(axis, -1)
+    x2 = xt.reshape(-1, xt.shape[-1]).contiguous()
+    if torch.is_grad_enabled() and x2.requires_grad:
+        y2 = _Softmax.apply(x2)
+    else:
+        y2 = softmax_rows(x2)
+    return y2.reshape(xt.shape).movedim(-1, axis)
+
+
+@register('softmax')
+def softmax_op(ctx, ins, attrs):
+    return {'Out': softmax(ins['X'], attrs.get('axis', -1))}
+
+
+# --------------------------------------------------------------- dropout
+
+def dropout_mask(shape, dtype, device, p, generator):
+    """The keep mask of a training dropout: 1 with probability 1 - p,
+    drawn in float32 on `device` from `generator`, in `dtype` (a
+    shape-only `meta` run, with no generator, draws nothing)."""
+    m = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if generator is not None:
+        m.bernoulli_(1.0 - p, generator=generator)
+    return m.to(dtype)
+
+
+def dropout_apply(x, mask, attrs):
+    """Out of a training dropout from its drawn mask."""
+    p = attrs.get('dropout_prob', 0.5)
+    out = x * mask
+    if attrs.get('dropout_implementation',
+                 'downgrade_in_infer') == 'upscale_in_train' and p < 1.0:
+        out = out / (1.0 - p)
+    return out
+
+
+@register('dropout')
+def dropout(ctx, ins, attrs):
+    x = ins['X']
+    p = attrs.get('dropout_prob', 0.5)
+    if attrs.get('is_test', False):
+        impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
+        out = x * (1.0 - p) if impl == 'downgrade_in_infer' else x
+        return {'Out': out, 'Mask': torch.ones_like(x)}
+    mask = dropout_mask(x.shape, x.dtype, x.device, p,
+                        ctx.generator(attrs.get('seed', 0)))
+    return {'Out': dropout_apply(x, mask, attrs), 'Mask': mask}

@@ -8,12 +8,16 @@ and its test conftest are not installed, run:
         tests/test_torch_cuda_kernels.py
 
 This file imports neither jax nor paddle_tpu."""
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.ops import attention as att
+from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch.ops import gather as ga
+from paddle_tpu_torch.ops import kernelgen
 from paddle_tpu_torch.ops import nn as tnn
 from paddle_tpu_torch.ops import optimizer_ops as oo
 
@@ -179,3 +183,122 @@ def test_adam_multi_kernel_matches_plain_over_three_steps(cuda):
         for a, r in zip(col, rcol):
             torch.testing.assert_close(a, r, rtol=2e-6, atol=1e-12)
     torch.testing.assert_close(b1ps[0], torch.full_like(b1ps[0], 0.9 ** 4))
+
+
+@pytest.mark.parametrize('rows,cols,dtype,neg_inf_rows', [
+    (65536, 256, torch.float32, 0),
+    (300, 1000, torch.float32, 3),
+    (7, 3000, torch.float32, 1),
+    (257, 255, torch.bfloat16, 0),
+    (33, 1, torch.float32, 0),
+])
+def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype, neg_inf_rows):
+    g = torch.Generator(device='cuda').manual_seed(5)
+    x = (3 * _randn(g, rows, cols)).to(dtype)
+    x[:neg_inf_rows] = float('-inf')
+    before = kernels.launches['softmax']
+    y = tnn.softmax_rows(x)
+    torch.cuda.synchronize()
+    assert kernels.launches['softmax'] == before + 1
+    ref = tnn.softmax_reference(x)
+    # f32: the same operations, the row sums in other orders; bf16: one
+    # rounding of (almost) equal float32 results
+    tol = dict(rtol=1e-5, atol=1e-7) if dtype == torch.float32 else \
+        dict(rtol=8e-3, atol=1e-3)
+    torch.testing.assert_close(y.float(), ref.float(), equal_nan=True, **tol)
+    assert torch.isnan(y[:neg_inf_rows]).all()
+
+
+def _sub(type, inputs, outputs, attrs=None):
+    return {'type': type, 'inputs': inputs, 'outputs': outputs,
+            'input_is_list': {k: False for k in inputs},
+            'output_is_list': {k: False for k in outputs},
+            'attrs': dict(attrs or {}), 'stop_grad': []}
+
+
+# fused groups of the training program's kinds, on the card: (sub-ops,
+# argument shapes, outputs, AMP)
+SEGMENTS = {
+    'bias_relu_dropout': ([
+        _sub('elementwise_add', {'X': ['x'], 'Y': ['b']}, {'Out': ['h']},
+             {'axis': 2, 'rng_stream': 1}),
+        _sub('relu', {'X': ['h']}, {'Out': ['r']}, {'rng_stream': 2}),
+        _sub('dropout', {'X': ['r']}, {'Out': ['o'], 'Mask': ['m']},
+             {'dropout_prob': 0.1, 'rng_stream': 3,
+              'dropout_implementation': 'upscale_in_train'})],
+        {'x': (8, 33, 2048), 'b': (2048,)}, ['o'], False),
+    'mask_softmax_dropout': ([
+        _sub('elementwise_add', {'X': ['s'], 'Y': ['m']}, {'Out': ['a']},
+             {'axis': -1}),
+        _sub('softmax', {'X': ['a']}, {'Out': ['p']}, {'axis': -1}),
+        _sub('dropout', {'X': ['p']}, {'Out': ['o'], 'Mask': ['k']},
+             {'dropout_prob': 0.1, 'rng_stream': 9,
+              'dropout_implementation': 'upscale_in_train'})],
+        {'s': (4, 8, 64, 64), 'm': (4, 1, 1, 64)}, ['o'], False),
+    'residual_bf16_amp': ([
+        _sub('elementwise_add', {'X': ['x'], 'Y': ['b']}, {'Out': ['h']},
+             {'axis': -1}),
+        _sub('scale', {'X': ['h']}, {'Out': ['o']},
+             {'scale': 0.125, 'bias': 1.0})],
+        {'x': (5, 7, 9), 'b': (9,)}, ['o', 'h'], True),
+}
+
+
+@pytest.mark.parametrize('name', sorted(SEGMENTS))
+def test_generated_segments_match_plain(cuda, name):
+    """run_fused (generated kernels, K5, draws) against the plain replay
+    of the same group on the card: the kernels round every operation as
+    PyTorch's eager kernels do, so equal bit for bit; the gradients
+    through the segments' autograd Functions too."""
+    subs, shapes, outs, amp = SEGMENTS[name]
+    attrs = {'sub_ops': subs, 'arg_names': list(shapes), 'out_names': outs}
+    g = torch.Generator(device='cuda').manual_seed(6)
+    xs = [_randn(g, *s) for s in shapes.values()]
+    if amp:
+        xs[0] = xs[0].to(torch.bfloat16)
+    leaves = [x.clone().requires_grad_(x.is_floating_point()) for x in xs]
+    ectx = treg.ExecCtx('cuda', 7, 0, amp=amp)
+    ctx = ectx.for_op(0, treg._SubOpShim('fused_elementwise', {}))
+    before = kernels.launches['kernelgen_segment']
+    got = kernelgen.run_fused(ctx, leaves, attrs, amp)
+    torch.cuda.synchronize()
+    plan = kernelgen.plan_of(attrs)
+    assert kernels.launches['kernelgen_segment'] == before + plan.n_kernels
+    ref_leaves = [x.clone().requires_grad_(x.is_floating_point())
+                  for x in xs]
+    ref = tfused.replay(ctx, ref_leaves, attrs, amp)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert torch.equal(a, r)
+    w = [torch.randn(r.shape, generator=g, device='cuda').to(r.dtype)
+         for r in ref]
+    ga_ = torch.autograd.grad(got, leaves, w, allow_unused=True)
+    gr_ = torch.autograd.grad(ref, ref_leaves, w, allow_unused=True)
+    for a, r in zip(ga_, gr_):
+        assert (a is None) == (r is None)
+        if a is not None:
+            torch.testing.assert_close(a, r, rtol=1e-6, atol=1e-7)
+
+
+def test_composed_transformer_passes_on_and_off_on_the_card(cuda,
+                                                            monkeypatch):
+    """2 layers at small width, dropout 0.1: PT_OPT=1 (generated kernels)
+    and PT_OPT=0 (eager ops) within 1e-6 relative over 3 steps."""
+    import paddle_tpu_torch as tf
+    from paddle_tpu_torch.models import transformer as ttr
+    losses = {}
+    for opt in ('1', '0'):
+        monkeypatch.setenv('PT_OPT', opt)
+        main, startup = tf.Program(), tf.Program()
+        main.random_seed = startup.random_seed = 3
+        with tf.program_guard(main, startup), tf.unique_name.guard():
+            out = ttr.build(src_vocab=128, trg_vocab=128, max_len=16,
+                            n_layer=2, n_head=4, d_model=64, d_inner=128)
+        scope, exe = tf.Scope(), tf.Executor()
+        feed = ttr.synthetic_batch(np.random.RandomState(0), 4, 16, 128)
+        with tf.scope_guard(scope):
+            exe.run(startup)
+            losses[opt] = [float(exe.run(main, feed=feed,
+                                         fetch_list=[out['loss']])[0][0])
+                           for _ in range(3)]
+    np.testing.assert_allclose(losses['1'], losses['0'], rtol=1e-6)

@@ -41,6 +41,13 @@ def test_scan_covers_the_package():
     srcs = _sources()
     assert 'chip_smoke.py' in srcs
     assert os.path.join('paddle_tpu_torch', 'ops', 'attention.py') in srcs
+    for mod in ('core/passes/__init__.py', 'core/passes/walker.py',
+                'core/passes/dce.py', 'core/passes/const_fold.py',
+                'core/passes/cse.py', 'core/passes/fuse.py',
+                'core/passes/canon.py', 'core/amp.py', 'ops/fused.py',
+                'ops/kernelgen/__init__.py', 'ops/kernelgen/rules.py',
+                'ops/kernelgen/builder.py'):
+        assert os.path.join('paddle_tpu_torch', *mod.split('/')) in srcs
     assert len(srcs) > 20
 
 
