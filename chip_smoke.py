@@ -39,7 +39,9 @@ Phases, each printing JSON lines:
               dropout 0, random init from a seed) trained by
               Executor.run: 3 warm-up and 10 timed steps (step ms, tokens/s,
               losses, which must be finite), kernel launches per step read
-              around the timed steps, then torch.profiler over one step
+              around the timed steps, then torch.profiler over one step,
+              whose 18 bf16 flash forwards and 18 dK/dV launches must all
+              be the tensor-core (wgmma) kernels
   train_gpu_vs_cpu
               the same model at full width cut to 2 layers, B=4, T=256,
               float32: 2 steps from the same weights on the card and on the
@@ -66,9 +68,10 @@ last.  The line before the last is the nvidia-smi line; the line before
 that lists every kernel, with its launches per step on its training path
 (the composed one for K5, its generated segments, K4, K6 and Adam; the
 flash one for K1-K3 and its own segments), per served run for the
-serving-only ones; with every phase run, a kernel launched on none of its
-paths fails the script.  The last line is {"ok": true, "device": ...}.
-Any failed check raises, so the script exits non-zero and prints no
+serving-only ones; K1 and K3 also list their two instances, bf16 on
+tensor cores and float32 on CUDA cores, each timed; with every phase run,
+a kernel launched on none of its paths fails the script.  The last line
+is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
 and convolutions run in full float32 (TF32 off), set below.
 """
@@ -671,9 +674,14 @@ def segment_case(spec, ops, paths, timed=True):
 
 
 def phase_kernels():
+    """-> {'rows': kernel name -> its timed row at its main path's shape,
+    'instances': K1 and K3 by dtype -> the timed row of that instance}.
+    K1 and K3 have two designs: bf16 on tensor cores (the training path),
+    float32 on CUDA cores (serving; the float32 checks)."""
     served = {}
+    inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dkv': {}}
     # the served shapes (llama_1b, 4 rows x 2048 tokens): timed
-    served['flash_attention_fwd'] = flash_case(
+    inst['flash_attention_fwd']['float32'] = flash_case(
         'served_f32', 4, 16, 8, 2048, 2048, 128, True, 'float32',
         timed=True)
     flash_case('served_bf16', 4, 16, 8, 2048, 2048, 128, True, 'bfloat16',
@@ -686,6 +694,11 @@ def phase_kernels():
     flash_case('ragged_bf16_d64', 1, 2, 2, 97, 161, 64, False, 'bfloat16',
                klen=[130])
     flash_case('klen0', 2, 4, 4, 70, 70, 64, True, 'float32', klen=[0, 50])
+    flash_case('klen0_bf16', 2, 4, 4, 70, 70, 64, True, 'bfloat16',
+               klen=[0, 50])
+    # Tq = 200: the last query tile is ragged
+    flash_case('gqa_causal_bf16_d128', 2, 8, 2, 200, 200, 128, True,
+               'bfloat16')
     served['embedding_gather'] = gather_case(
         'served_f32', 32000, 2048, 8192, 'float32', timed=True)
     gather_case('wrap_nan_f32_ids64', 32000, 2048, 4096, 'float32',
@@ -700,15 +713,30 @@ def phase_kernels():
     # attention under AMP, a float32 [32000, 512] table): timed; then
     # ragged cases.  The kernels line keeps the served rows of the two
     # kernels serving and training share.
-    flash_case('path_bf16', 32, 8, 8, 256, 256, 64, False, 'bfloat16',
+    served['flash_attention_fwd'] = inst['flash_attention_fwd'][
+        'bfloat16'] = flash_case('path_bf16', 32, 8, 8, 256, 256, 64, False,
+                                 'bfloat16', timed=True)
+    flash_case('path_bf16_causal', 32, 8, 8, 256, 256, 64, True, 'bfloat16',
                timed=True)
     gather_case('path_f32', 32000, 512, 8192, 'float32', timed=True)
     bwd = flash_bwd_case('path_bf16', 32, 8, 8, 256, 256, 64, False,
                          'bfloat16', timed=True)
     served.update(bwd)
+    inst['flash_attention_bwd_dkv']['bfloat16'] = bwd[
+        'flash_attention_bwd_dkv']
     flash_bwd_case('path_bf16_causal', 32, 8, 8, 256, 256, 64, True,
                    'bfloat16', timed=True)
+    # the float32 instance at the training path's shape (float32 steps run
+    # it in train_gpu_vs_cpu)
+    inst['flash_attention_bwd_dkv']['float32'] = flash_bwd_case(
+        'path_f32', 32, 8, 8, 256, 256, 64, False, 'float32',
+        timed=True)['flash_attention_bwd_dkv']
     flash_bwd_case('gqa_f32_d64', 2, 8, 2, 128, 128, 64, True, 'float32')
+    flash_bwd_case('gqa_bf16_d64', 2, 8, 2, 128, 128, 64, True, 'bfloat16')
+    flash_bwd_case('tq_lt_tk_bf16', 2, 4, 1, 37, 161, 64, True, 'bfloat16',
+                   klen=[161, 100])
+    flash_bwd_case('klen_bf16_d128', 3, 4, 2, 150, 150, 128, False,
+                   'bfloat16', klen=[150, 77, 1])
     flash_bwd_case('klen_f32_d128', 3, 4, 2, 150, 150, 128, False, 'float32',
                    klen=[150, 77, 1])
     flash_bwd_case('klen0_bf16', 2, 4, 4, 70, 70, 64, True, 'bfloat16',
@@ -749,7 +777,7 @@ def phase_kernels():
                        if 'registers' in ln or 'spill' in ln}))
     for name, (spec, ops, paths) in sorted(specs.items()):
         served[name] = segment_case(spec, ops, paths)
-    return served
+    return {'rows': served, 'instances': inst}
 
 
 # ------------------------------------------------------------- phase 3
@@ -846,7 +874,7 @@ def profile_batch(pred, feed):
             continue
         name = e.key
         low = name.lower()
-        group = ('flash_attention_fwd' if 'flash_fwd_kernel' in name else
+        group = ('flash_attention_fwd' if 'flash_fwd' in name else
                  'embedding_gather' if 'gather_rows' in name else
                  'memcpy' if 'memcpy' in low else
                  'matmul' if any(s in low for s in ('gemm', 'cutlass',
@@ -1021,9 +1049,9 @@ def _group(name):
     low = name.lower()
     if 'flash_bwd_dq_kernel' in name:
         return 'flash_attention_bwd_dq'
-    if 'flash_bwd_dkv_kernel' in name:
+    if 'flash_bwd_dkv' in name:   # flash_bwd_dkv_[wgmma_]kernel
         return 'flash_attention_bwd_dkv'
-    if 'flash_fwd_kernel' in name:
+    if 'flash_fwd' in name:       # flash_fwd_[wgmma_]kernel
         return 'flash_attention_fwd'
     if 'layer_norm_kernel' in name:
         return 'layer_norm'
@@ -1043,9 +1071,23 @@ def _group(name):
     return 'elementwise_and_other'
 
 
+def _flash_design(name):
+    """The flash kernel a profiler key names, by design and dtype:
+    'fwd_wgmma', 'fwd_f32', 'bwd_dkv_wgmma', 'bwd_dkv_f32', 'bwd_dq_f32'
+    or 'bwd_dq_bf16'; None for any other kernel."""
+    for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
+                        ('flash_bwd_dq', 'bwd_dq')):
+        if stem in name:
+            if 'wgmma' in name:
+                return short + '_wgmma'
+            return short + ('_bf16' if 'bfloat16' in name else '_f32')
+    return None
+
+
 def profile_step(exe, main, feed, fetch, phase='training'):
     """torch.profiler over one training step: device time by kernel group
-    (device-side events only) and the device's idle share of the step."""
+    (device-side events only) and the device's idle share of the step;
+    returns the flash kernels' {design: [device ms, launches]}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1055,7 +1097,7 @@ def profile_step(exe, main, feed, fetch, phase='training'):
         exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = {}, []
+    groups, top, flash = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
             continue
@@ -1063,13 +1105,20 @@ def profile_step(exe, main, feed, fetch, phase='training'):
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, e.key[:80], e.count))
+        design = _flash_design(e.key)
+        if design:
+            acc = flash.setdefault(design, [0.0, 0])
+            acc[0] += ms
+            acc[1] += e.count
     top.sort(reverse=True)
     busy = sum(groups.values())
     emit(phase=phase, step='profile', profiled_wall_ms=wall_ms,
          device_ms_by_group=groups, device_busy_ms=busy,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
+         flash_by_design=flash,
          top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:15]])
     require(busy > 0, 'the profiler saw no device time')
+    return flash
 
 
 def phase_training(smi):
@@ -1145,7 +1194,13 @@ def phase_training(smi):
         require(per_step.get('kernelgen_segment') == planned > 0,
                 'generated segments: %s launches per step, %d planned'
                 % (per_step.get('kernelgen_segment'), planned))
-        profile_step(exe, main, feed, fetch)
+        flash = profile_step(exe, main, feed, fetch)
+        # the step's bf16 flash forward and dK/dV run on the tensor-core
+        # designs only: 18 launches each, none of the CUDA-core kernels
+        want = {'fwd_wgmma': 18, 'bwd_dkv_wgmma': 18, 'bwd_dq_bf16': 18}
+        got = {k: c for k, (_, c) in flash.items()}
+        require(got == want, 'flash kernels in the profiled step: %s, '
+                'expected %s' % (got, want))
     del scope, exe
     torch.cuda.empty_cache()
     launches.update(seg)
@@ -1469,7 +1524,7 @@ def main(argv=None):
         return res
 
     smi = run('card', phase_card) or smi_line()
-    served = run('kernels', phase_kernels)
+    kern = run('kernels', phase_kernels) or {'rows': {}, 'instances': {}}
     # the timed phases first, the ones that also compute on the CPU last:
     # CPU work left behind slows the host that issues the timed steps
     served_launches = run('serving', phase_serving, smi)
@@ -1488,8 +1543,12 @@ def main(argv=None):
     for steps in (trained, composed):
         launches.update({k: v // 10 if v % 10 == 0 else v / 10
                          for k, v in steps.items() if v})
+    # the float32 instances of K1 and K3: K1 per served run (serving),
+    # K3 on no timed path (the float32 check phases run it)
+    f32_launches = {'flash_attention_fwd': served_launches.get(
+        'flash_attention_fwd'), 'flash_attention_bwd_dkv': None}
     rows = []
-    for name, res in served.items():
+    for name, res in kern['rows'].items():
         src, replaces = _REPLACES.get(name, SEGMENT_SOURCE)
         row = dict(
             name=name, route='cuda', source=src, replaces=replaces,
@@ -1499,6 +1558,17 @@ def main(argv=None):
             library_ms=res['library_ms'])
         if name not in _REPLACES:
             row.update(ops=res['ops'], paths=res['paths'])
+        if name in kern['instances']:
+            row['instances'] = [dict(
+                dtype=dt, design=('wgmma, tensor cores' if dt == 'bfloat16'
+                                  else 'CUDA cores'),
+                case=r['case'], launches=(launches.get(name)
+                                          if dt == 'bfloat16'
+                                          else f32_launches[name]),
+                max_abs_err=r['max_abs_err'], ms=r['ms'],
+                plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                bound_by=r['bound_by'], library_ms=r['library_ms'])
+                for dt, r in sorted(kern['instances'][name].items())]
         rows.append(row)
     if 'kernels' in phases and {'serving', 'training',
                                 'training_composed'} <= set(phases):

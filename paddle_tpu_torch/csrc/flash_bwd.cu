@@ -1,19 +1,20 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, and dK/dV, on CUDA cores.
+// Flash-attention backward for Hopper (sm_90a): dQ on CUDA cores; dK/dV on
+// tensor cores (wgmma) for bf16, on CUDA cores for float32.
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
 // JAX package launches from _flash_backward (:401, pallas_call at :441 and
 // :503).  Both kernels rebuild the softmax tile P = exp(S - LSE) from the
 // forward's float32 logsumexp (read as csrc/flash_fwd.cu stores it, [B*H,
-// Tq], not the TPU's 8-lane layout), with S = (scale q) k^T summed in the
-// forward's order, under the forward's masks: k_pos < k_len, and when
-// causal k_pos <= q_pos + (Tk - Tq).  Masked entries get P = 0 explicitly,
-// as _masked_p_ds does, so a row with LSE -1e30 (no valid key) gets zero
-// gradients instead of exp(-1e30 - -1e30) = NaN.  dS = P (dO V^T - delta)
-// with delta = rowsum(dO O) computed by the wrapper in float32.
+// Tq], not the TPU's 8-lane layout), with S = (scale q) k^T, under the
+// forward's masks: k_pos < k_len, and when causal k_pos <= q_pos +
+// (Tk - Tq).  Masked entries get P = 0 explicitly, as _masked_p_ds does,
+// so a row with LSE -1e30 (no valid key) gets zero gradients instead of
+// exp(-1e30 - -1e30) = NaN.  dS = P (dO V^T - delta) with delta =
+// rowsum(dO O) computed by the wrapper in float32.
 //
 //   dQ  = scale * sum_k dS K                  (one block per (b*H, q tile))
-//   dV  = sum_q P^T dO,  dK = sum_q dS^T (scale Q)
+//   dV  = sum_q P^T dO,  dK = scale * sum_q dS^T Q
 //                                             (one block per (b*Hkv, k tile))
 //
 // dQ comes out in q's dtype; dK and dV accumulate in float32 registers over
@@ -24,24 +25,42 @@
 //
 // What bounds it on this card: at the transformer training shape (B=32,
 // H=8, T=256, D=64, bf16 under AMP) dQ does 3 and dK/dV 4 products of
-// 2*D FLOPs per valid (query, key) pair — ~6.4 and ~8.6 GFLOP without the
-// causal mask — against ~17 MB each of Q/K/V/dO/LSE traffic, so both are
-// bound by arithmetic: bf16 tensor-core work in the bound, float32 FMAs on
-// CUDA cores here (tiles are converted to float32 in shared memory).
+// 2*D FLOPs per valid (query, key) pair (~6.4 and ~8.6 GFLOP without the
+// causal mask) against 42 and 51 MB of traffic (Q, K, V, dO, LSE and delta
+// read once, the gradients written once): on the bf16 tensor cores that
+// is 6.5 and 8.7 us of work against 12.7 and 15.2 us of bytes, so both
+// are bound by bytes; on CUDA cores (float32 FMAs, 67 TFLOP/s) they are
+// bound by arithmetic.
 //
-// What the design does about it: the forward's tiling.  Tiles of 64 query
-// rows and 32 keys are staged as float32 in shared memory and reused by all
-// 128 threads; each thread keeps a 4x4 patch of S and dP, and an 8 x D/16
-// (dQ) or two 4 x D/16 (dK, dV) patches of its accumulators in registers.
+// dK/dV, bf16, flash_bwd_dkv_wgmma_kernel<D>: one warpgroup of 128 threads per
+// (b*Hkv, 64-key tile).  K and V stay resident in shared memory (one TMA copy
+// each); Q/dO tiles of WQ query rows (TMA) with their LSE and delta (loaded by
+// warp 0) flow through a 2-stage ring under mbarriers, over the g query heads
+// of the GQA group and the q tiles from the causal frontier on.  The products
+// run transposed, so that the keys are the 64-row M dimension: S^T = K Q^T and
+// dP^T = V dO^T by wgmma with every operand K-major in shared memory; P^T and
+// dS^T are formed on the float32 fragments in registers, rounded to bf16 there,
+// and dV += P^T dO and dK += dS^T Q run with A from registers and B = dO or Q
+// MN-major (tnspB = 1); dK x scale once in the epilogue.  The two D-wide
+// float32 accumulators take D registers a thread (128 at D=128) besides S^T and
+// dP^T (WQ each): ptxas gives 181 registers at D=64 and 242 at D=128, no
+// spills, so the 64-row ring tile stays at D=128, and two blocks (8 warps) fit
+// an SM at D=64.  Not yet used: warp specialisation, setmaxnreg, two consumer
+// warpgroups sharing K/V, overlapping one ring tile's elementwise work with the
+// next tile's products, a persistent grid.
+//
+// dQ (all dtypes) and dK/dV float32, flash_bwd_dq_kernel<T, D> and
+// flash_bwd_dkv_kernel<D> (the CUDA-core design): tiles of 64 query rows
+// and 32 keys are staged as float32 in shared memory and reused by all 128
+// threads; each thread keeps a 4x4 patch of S and dP, and an 8 x D/16 (dQ)
+// or two 4 x D/16 (dK, dV) patches of its accumulators in registers.
 // Padded strides keep the column walks free of bank conflicts.  Key tiles
 // past k_len and query tiles before the causal frontier are skipped whole.
 // The tiles need up to 116 KB of shared memory at D=128, above the 48 KB
 // static limit, so they are dynamic and the launch raises the limit first.
-// Not yet used: tensor cores (wgmma), TMA and a pipelined ring of tiles.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper_mma.cuh"
+
 #include <math.h>
-#include <stddef.h>
 
 namespace {
 
@@ -251,14 +270,16 @@ constexpr size_t dkv_smem_floats() {
          + 2 * BQ;           // LSE, delta
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ klen,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ klen,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const T* __restrict__ dout, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
+                     const float* __restrict__ dout, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
                      int causal, float scale) {
   constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
   constexpr int CPT = D / 16;
@@ -287,18 +308,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < CPT; ++j) ak[i][j] = av[i][j] = 0.f;
 
   if (k0 < kl) {  // else every key of the tile is masked: zero gradients
-    load_k_tile<T, D>(k + (size_t)bkv * Tk * D, v + (size_t)bkv * Tk * D,
-                      k0, Tk, Ks, Vs);
+    load_k_tile<float, D>(k + (size_t)bkv * Tk * D,
+                          v + (size_t)bkv * Tk * D, k0, Tk, Ks, Vs);
     // first query that sees this tile's first key (end-aligned causal)
     const int q_first = causal ? max(0, k0 - offset) : 0;
     for (int gi = 0; gi < g; ++gi) {
       const int bh = b * H + hk * g + gi;
       for (int q0 = (q_first / BQ) * BQ; q0 < Tq; q0 += BQ) {
         __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-        load_q_tile<T, D>(q + (size_t)bh * Tq * D,
-                          dout + (size_t)bh * Tq * D, lse + (size_t)bh * Tq,
-                          delta + (size_t)bh * Tq, q0, Tq, scale, Qs, dOs,
-                          lse_s, dl_s);
+        load_q_tile<float, D>(q + (size_t)bh * Tq * D,
+                              dout + (size_t)bh * Tq * D,
+                              lse + (size_t)bh * Tq, delta + (size_t)bh * Tq,
+                              q0, Tq, scale, Qs, dOs, lse_s, dl_s);
         __syncthreads();
         p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
                      offset, Ps, dSs);
@@ -335,8 +356,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = ((size_t)bkv * Tk + ki) * D;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      dk[row + pc + 16 * j] = from_f<T>(ak[i][j]);
-      dv[row + pc + 16 * j] = from_f<T>(av[i][j]);
+      dk[row + pc + 16 * j] = ak[i][j];
+      dv[row + pc + 16 * j] = av[i][j];
     }
   }
 }
@@ -359,21 +380,261 @@ int launch_dq(const void* q, const void* k, const void* v, const void* klen,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* klen,
-               const void* lse, const void* delta, const void* dout, void* dk,
-               void* dv, int B, int H, int Hkv, int Tq, int Tk, int causal,
-               float scale, cudaStream_t stream) {
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* klen, const void* lse, const void* delta,
+                   const void* dout, void* dk, void* dv, int B, int H,
+                   int Hkv, int Tq, int Tk, int causal, float scale,
+                   cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * Hkv, (Tk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)klen,
-      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dk, (T*)dv,
-      H, Hkv, Tq, Tk, causal, scale);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)klen,
+      (const float*)lse, (const float*)delta, (const float*)dout,
+      (float*)dk, (float*)dv, H, Hkv, Tq, Tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- dK/dV, bf16, tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WK = 64;       // keys per block (the wgmma M dimension)
+constexpr int WQ = 64;       // query rows per ring tile (the N of S^T and
+                             // dP^T, the reduction depth of dV and dK)
+constexpr int STAGES = 2;    // Q/dO ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+
+// one [rows x 64] bf16 region of a tile in the 128-byte swizzle
+template <int ROWS>
+using Chunk = bf16[ROWS * 64];
+
+template <int D>
+struct DkvSmem {
+  Chunk<WK> k[D / 64];
+  Chunk<WK> v[D / 64];
+  Chunk<WQ> q[STAGES][D / 64];
+  Chunk<WQ> dout[STAGES][D / 64];
+  float lse[STAGES][WQ];
+  float delta[STAGES][WQ];
+  uint64_t kvbar, full[STAGES], empty[STAGES];
+};
+
+// the ring tile `it` of a block: query head gi of the GQA group and query
+// tile qt0 + it % nq
+struct RingPos {
+  int bh, q0;
+};
+
+__device__ __forceinline__ RingPos ring_pos(int it, int b, int H, int hk,
+                                            int g, int qt0, int nq) {
+  return {b * H + hk * g + it / nq, (qt0 + it % nq) * WQ};
+}
+
+// warp 0: Q and dO of ring tile `pos` into stage s by TMA (lane 0), LSE
+// and delta by plain loads (rows past Tq read 0; a ring tile's rows start
+// at any float of the flat [B*H*Tq] vectors, which a TMA box does not
+// take); every lane arrives on the stage's full barrier after its stores
+template <int D>
+__device__ __forceinline__ void load_ring(DkvSmem<D>& sm,
+                                          const CUtensorMap* tq,
+                                          const CUtensorMap* tdo,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          RingPos pos, int Tq, int s) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    hopper::mbar_expect_tx(&sm.full[s], 2 * WQ * D * sizeof(bf16));
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load_3d(sm.q[s][c], tq, &sm.full[s], 64 * c, pos.q0,
+                          pos.bh);
+      hopper::tma_load_3d(sm.dout[s][c], tdo, &sm.full[s], 64 * c, pos.q0,
+                          pos.bh);
+    }
+  }
+  const size_t row0 = (size_t)pos.bh * Tq + pos.q0;
+  for (int r = lane; r < WQ; r += 32) {
+    const bool in = pos.q0 + r < Tq;
+    sm.lse[s][r] = in ? lse[row0 + r] : 0.f;
+    sm.delta[s][r] = in ? delta[row0 + r] : 0.f;
+  }
+  hopper::mbar_arrive(&sm.full[s]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ klen,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int Hkv, int Tq, int Tk, int causal,
+                           float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * WK;
+  const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  // the first query tile that sees this tile's first key (end-aligned
+  // causal); no work when every key of the tile is past k_len
+  const int qt0 = causal ? max(0, k0 - offset) / WQ : 0;
+  const int nq = (Tq + WQ - 1) / WQ - qt0;
+  const int total = (k0 < kl && nq > 0) ? g * nq : 0;
+
+  if (tid < 32) {  // warp 0 produces: barriers, K/V, the first stages
+    if (tid == 0) {
+      mbar_init(&sm.kvbar, 1);
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&sm.full[s], 1 + 32);  // TMA bytes + warp 0's stores
+        mbar_init(&sm.empty[s], NT);
+      }
+      mbar_fence_init();
+      if (total > 0) {
+        mbar_expect_tx(&sm.kvbar, 2 * WK * D * sizeof(bf16));
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(sm.k[c], &tk, &sm.kvbar, 64 * c, k0, bkv);
+          tma_load_3d(sm.v[c], &tv, &sm.kvbar, 64 * c, k0, bkv);
+        }
+      }
+    }
+    __syncwarp();
+    for (int s = 0; s < STAGES && s < total; ++s)
+      load_ring(sm, &tq, &tdo, lse, delta,
+                ring_pos(s, b, H, hk, g, qt0, nq), Tq, s);
+  }
+  __syncthreads();
+
+  const float sl2 = scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (total > 0) mbar_wait(&sm.kvbar, 0);
+  for (int it = 0; it < total; ++it) {
+    const int s = it % STAGES, ph = (it / STAGES) & 1;
+    const int q0 = ring_pos(it, b, H, hk, g, qt0, nq).q0;
+    mbar_wait(&sm.full[s], ph);
+
+    // S^T = K Q^T and dP^T = V dO^T: keys are the 64 rows, queries the
+    // WQ columns; all operands K-major (D contiguous)
+    float st[WQ / 2], dpt[WQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 16;
+      wgmma_ss<0>(st, make_desc(sm.k[c] + off, 16, 1024),
+                  make_desc(sm.q[s][c] + off, 16, 1024), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 16;
+      wgmma_ss<0>(dpt, make_desc(sm.v[c] + off, 16, 1024),
+                  make_desc(sm.dout[s][c] + off, 16, 1024), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
+    // under the masks, P = 0 where masked (a row with LSE -1e30 has no
+    // valid key); interior tiles skip the mask
+    const bool interior = k0 + WK <= kl && q0 + WQ <= Tq &&
+                          (!causal || k0 + WK - 1 <= q0 + offset);
+#pragma unroll
+    for (int i = 0; i < WQ / 2; ++i) {
+      const int qc = acc_col(i);
+      bool valid = true;
+      if (!interior) {
+        const int ki = k0 + acc_row(i), qi = q0 + qc;
+        valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+      }
+      const float p =
+          valid ? exp2f(st[i] * sl2 - sm.lse[s][qc] * LOG2E) : 0.f;
+      dpt[i] = valid ? p * (dpt[i] - sm.delta[s][qc]) : 0.f;
+      st[i] = p;
+    }
+    uint32_t pa[WQ / 16][4], dsa[WQ / 16][4];
+    acc_to_a(st, pa);
+    acc_to_a(dpt, dsa);
+
+    // dV += P^T dO and dK += dS^T Q: B = dO or Q, the query rows being
+    // the reduction (MN-major, tnspB = 1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WQ / 16; ++kk)
+      wgmma_rs<1>(dva, pa[kk],
+                  make_desc(sm.dout[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < WQ / 16; ++kk)
+      wgmma_rs<1>(dka, dsa[kk],
+                  make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    mbar_arrive(&sm.empty[s]);
+    if (tid < 32 && it + STAGES < total) {  // warp 0 refills the stage
+      mbar_wait(&sm.empty[s], ph);
+      load_ring(sm, &tq, &tdo, lse, delta,
+                ring_pos(it + STAGES, b, H, hk, g, qt0, nq), Tq, s);
+    }
+  }
+
+  // dK x scale once; each is written once, in k's dtype
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ki = k0 + acc_row(0) + 8 * h;
+    if (ki >= Tk) continue;
+    const size_t row = ((size_t)bkv * Tk + ki) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j + cq) =
+          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j + cq) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* klen, const void* lse, const void* delta,
+                    const void* dout, void* dk, void* dv, int B, int H,
+                    int Hkv, int Tq, int Tk, int causal, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, D, WK);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, D, WK);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(DkvSmem<D>) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+      (const int*)klen, (bf16*)dk, (bf16*)dv, H, Hkv, Tq, Tk, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -385,8 +646,8 @@ bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
 
 // q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
 // delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16.  Each returns
-// the CUDA error of its launch (0 on success), or -1 for arguments the
-// kernel does not take.
+// the CUDA error of its launch (0 on success), -1 for arguments the kernel
+// does not take, or -2 when the CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* klen, const void* lse,
                                const void* delta, const void* dout, void* dq,
@@ -419,18 +680,16 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
-                                 H, Hkv, Tq, Tk, causal, scale, s);
+    return launch_dkv_f32<64>(q, k, v, klen, lse, delta, dout, dk, dv, B, H,
+                              Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, klen, lse, delta, dout, dk, dv, B,
-                                  H, Hkv, Tq, Tk, causal, scale, s);
+    return launch_dkv_f32<128>(q, k, v, klen, lse, delta, dout, dk, dv, B, H,
+                               Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, klen, lse, delta, dout, dk,
-                                         dv, B, H, Hkv, Tq, Tk, causal, scale,
-                                         s);
+    return launch_dkv_bf16<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
+                               H, Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, klen, lse, delta, dout,
-                                          dk, dv, B, H, Hkv, Tq, Tk, causal,
-                                          scale, s);
+    return launch_dkv_bf16<128>(q, k, v, klen, lse, delta, dout, dk, dv, B,
+                                H, Hkv, Tq, Tk, causal, scale, s);
   return -1;
 }

@@ -106,5 +106,6 @@ extern "C" int pt_embedding_gather(const void* table, const void* ids,
 // Message for a code returned by the entry points above.
 extern "C" const char* pt_error_string(int code) {
   if (code == -1) return "arguments the kernel does not take";
+  if (code == -2) return "no TMA tensor map (cuTensorMapEncodeTiled)";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,0 +1,339 @@
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): wgmma on bf16 tiles with float32
+// accumulators, mbarriers, and TMA tile copies.
+//
+// Tiles live in shared memory in the 128-byte swizzle (B128): a row of a
+// tile is 64 bf16 values (128 bytes), rows are 128 bytes apart, and 8 rows
+// form a 1024-byte swizzle atom.  A head dimension of 128 is two such
+// 64-column chunks, each stored as its own [rows x 64] region.  Every
+// region starts on a 1024-byte boundary, so the hardware's address-based
+// swizzle, the TMA writes and the wgmma reads agree.
+//
+// The tile copy is TMA (`cp.async.bulk.tensor`), not `cp.async`: one thread
+// asks for a whole [rows x 64] box, the hardware writes it in the B128 swizzle,
+// zero-fills rows past the tensor's end (ragged Tq and Tk need no padding by
+// the caller and no bounds checks in the copy), and reports the bytes to an
+// mbarrier.  The threads spend no registers or instructions on addresses, which
+// the wgmma accumulators need.  The tensor map is encoded on the host through
+// cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so the library links
+// against the runtime alone (no -lcuda), and passed to the kernel as a `const
+// __grid_constant__ CUtensorMap`.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no driver link)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled, looked up once through the
+// runtime
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// Error codes of the map builders, beside the CUDA errors the entry points
+// return: -1 arguments the kernels do not take (a pointer not 16-byte
+// aligned), -2 the CUDA driver refused or lacks cuTensorMapEncodeTiled.
+constexpr int kBadArgs = -1;
+constexpr int kNoTensorMap = -2;
+
+// 3-D map over a contiguous bf16 [heads, rows, D] tensor: boxes of 64
+// columns x box_rows rows x 1 head, written in the 128-byte swizzle; rows
+// past `rows` read as zero
+static inline int map_bf16_3d(CUtensorMap* map, const void* base, int heads,
+                              int rows, int D, int box_rows) {
+  if ((uintptr_t)base % 16) return kBadArgs;
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoTensorMap;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(base), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kNoTensorMap;
+}
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the first 1024-byte boundary at or after p (dynamic shared memory is
+// allocated with 1024 bytes to spare)
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// mbarrier: init (one thread), then fence before any other thread uses it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transfers to come
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed.  A wait that
+// never ends (a copy that never lands) traps after ~2^26 polls, seconds
+// of waiting, so the launch fails with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// TMA: one box of a 3-D map at coordinates (c0 innermost, c1, c2) into
+// shared memory, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a B128 tile region starting at p:
+// start address, leading byte offset (LBO), stride byte offset (SBO), all
+// in 16-byte units, and the 128-byte swizzle mode.
+//   K-major operand (the reduction dimension contiguous, as K for Q K^T):
+//     rows of 128 bytes, 8-row groups SBO = 1024 bytes apart; LBO unused.
+//     A k16 step moves p by 16 values (32 bytes) inside the row; the next
+//     64 values of the reduction are the next chunk region.
+//   MN-major operand (the output dimension contiguous, as V for P V, with
+//     tnspB = 1): 8 reduction rows of 128 bytes form an atom, atoms SBO =
+//     1024 bytes apart; LBO = the bytes between two 64-column chunk
+//     regions (used when N = 128).  A k16 step moves p by 16 rows.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  return d;
+}
+
+// wgmma ordering: fence before a batch of products whose accumulator or A
+// registers were touched by other instructions; commit the batch as one
+// group; wait until at most N groups are in flight
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, float32 accumulators.
+// wgmma_ss: A and B from shared memory, A K-major.  wgmma_rs: A from
+// registers (4 x 32 bits a thread, see acc_to_a).  tnspB = 0 when B is
+// K-major, 1 when MN-major.  accumulate = 0 overwrites D.
+// Accumulator element i of thread t holds row 16 (t / 32) + (t % 32) / 4 +
+// 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2 (acc_row, acc_col).
+template <int tnspB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(tnspB));
+}
+
+template <int tnspB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(tnspB));
+}
+
+template <int tnspB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(tnspB));
+}
+
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x % 128;
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i >> 1) & 1);
+}
+
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x % 4) + (i & 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A float32 accumulator of an m64nN product, rounded to bf16, as the
+// register A fragments of the next product, one per k16 slice of its N
+// columns: the accumulator's (row, column) layout is the A fragment's, so
+// slice kk takes elements 8 kk .. 8 kk + 7 in order, two to a register.
+template <int NACC>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[NACC],
+                                         uint32_t (&a)[NACC / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NACC / 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+}
+
+// The same in two terms, hi = bf16(x) and lo = bf16(x - hi): hi + lo keeps
+// x to ~2^-17 relative, so two products (hi, then lo) with one B give a
+// float32-accurate x B at twice the tensor-core work of one.
+template <int NACC>
+__device__ __forceinline__ void acc_to_a_split(const float (&acc)[NACC],
+                                               uint32_t (&hi)[NACC / 8][4],
+                                               uint32_t (&lo)[NACC / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NACC / 8; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = acc[8 * kk + 2 * j], x1 = acc[8 * kk + 2 * j + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][j] = *reinterpret_cast<uint32_t*>(&h);
+      lo[kk][j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+}
+
+}  // namespace hopper
