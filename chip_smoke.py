@@ -40,8 +40,8 @@ Phases, each printing JSON lines:
               Executor.run: 3 warm-up and 10 timed steps (step ms, tokens/s,
               losses, which must be finite), kernel launches per step read
               around the timed steps, then torch.profiler over one step,
-              whose 18 bf16 flash forwards and 18 dK/dV launches must all
-              be the tensor-core (wgmma) kernels
+              whose 18 bf16 flash forwards, 18 dQ and 18 dK/dV launches
+              must all be the tensor-core (wgmma) kernels
   train_gpu_vs_cpu
               the same model at full width cut to 2 layers, B=4, T=256,
               float32: 2 steps from the same weights on the card and on the
@@ -68,7 +68,7 @@ last.  The line before the last is the nvidia-smi line; the line before
 that lists every kernel, with its launches per step on its training path
 (the composed one for K5, its generated segments, K4, K6 and Adam; the
 flash one for K1-K3 and its own segments), per served run for the
-serving-only ones; K1 and K3 also list their two instances, bf16 on
+serving-only ones; K1, K2 and K3 also list their two instances, bf16 on
 tensor cores and float32 on CUDA cores, each timed; with every phase run,
 a kernel launched on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
@@ -675,11 +675,12 @@ def segment_case(spec, ops, paths, timed=True):
 
 def phase_kernels():
     """-> {'rows': kernel name -> its timed row at its main path's shape,
-    'instances': K1 and K3 by dtype -> the timed row of that instance}.
-    K1 and K3 have two designs: bf16 on tensor cores (the training path),
-    float32 on CUDA cores (serving; the float32 checks)."""
+    'instances': K1-K3 by dtype -> the timed row of that instance}.
+    K1, K2 and K3 have two designs: bf16 on tensor cores (the training
+    path), float32 on CUDA cores (serving; the float32 checks)."""
     served = {}
-    inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dkv': {}}
+    inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dq': {},
+            'flash_attention_bwd_dkv': {}}
     # the served shapes (llama_1b, 4 rows x 2048 tokens): timed
     inst['flash_attention_fwd']['float32'] = flash_case(
         'served_f32', 4, 16, 8, 2048, 2048, 128, True, 'float32',
@@ -722,15 +723,16 @@ def phase_kernels():
     bwd = flash_bwd_case('path_bf16', 32, 8, 8, 256, 256, 64, False,
                          'bfloat16', timed=True)
     served.update(bwd)
-    inst['flash_attention_bwd_dkv']['bfloat16'] = bwd[
-        'flash_attention_bwd_dkv']
+    for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+        inst[kname]['bfloat16'] = bwd[kname]
     flash_bwd_case('path_bf16_causal', 32, 8, 8, 256, 256, 64, True,
                    'bfloat16', timed=True)
-    # the float32 instance at the training path's shape (float32 steps run
-    # it in train_gpu_vs_cpu)
-    inst['flash_attention_bwd_dkv']['float32'] = flash_bwd_case(
-        'path_f32', 32, 8, 8, 256, 256, 64, False, 'float32',
-        timed=True)['flash_attention_bwd_dkv']
+    # the float32 instances at the training path's shape (float32 steps
+    # run them in train_gpu_vs_cpu)
+    bwd_f32 = flash_bwd_case('path_f32', 32, 8, 8, 256, 256, 64, False,
+                             'float32', timed=True)
+    for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+        inst[kname]['float32'] = bwd_f32[kname]
     flash_bwd_case('gqa_f32_d64', 2, 8, 2, 128, 128, 64, True, 'float32')
     flash_bwd_case('gqa_bf16_d64', 2, 8, 2, 128, 128, 64, True, 'bfloat16')
     flash_bwd_case('tq_lt_tk_bf16', 2, 4, 1, 37, 161, 64, True, 'bfloat16',
@@ -762,6 +764,10 @@ def phase_kernels():
     softmax_case('block_branch_3000', 7, 3000, 'float32', neg_inf_rows=1)
     softmax_case('bf16_255', 257, 255, 'bfloat16')
     softmax_case('cols_1', 33, 1, 'float32')
+    # the 16-byte vector branch in bf16 (a block's last rows empty), and a
+    # float32 column count off the 4-value vectors (the scalar branch)
+    softmax_case('vec_bf16_256', 4099, 256, 'bfloat16', neg_inf_rows=1)
+    softmax_case('scalar_f32_258', 1000, 258, 'float32', neg_inf_rows=2)
     from paddle_tpu_torch.ops import kernelgen
     t0 = time.perf_counter()
     specs = path_segments()
@@ -1047,7 +1053,7 @@ def _train_program(fluid, tr, amp, **overrides):
 
 def _group(name):
     low = name.lower()
-    if 'flash_bwd_dq_kernel' in name:
+    if 'flash_bwd_dq' in name:    # flash_bwd_dq_[wgmma_]kernel
         return 'flash_attention_bwd_dq'
     if 'flash_bwd_dkv' in name:   # flash_bwd_dkv_[wgmma_]kernel
         return 'flash_attention_bwd_dkv'
@@ -1072,15 +1078,14 @@ def _group(name):
 
 
 def _flash_design(name):
-    """The flash kernel a profiler key names, by design and dtype:
-    'fwd_wgmma', 'fwd_f32', 'bwd_dkv_wgmma', 'bwd_dkv_f32', 'bwd_dq_f32'
-    or 'bwd_dq_bf16'; None for any other kernel."""
+    """The flash kernel a profiler key names, by design: 'fwd_wgmma',
+    'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_f32',
+    'bwd_dq_f32' and 'bwd_dkv_f32' (float32, CUDA cores); None for any
+    other kernel."""
     for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
                         ('flash_bwd_dq', 'bwd_dq')):
         if stem in name:
-            if 'wgmma' in name:
-                return short + '_wgmma'
-            return short + ('_bf16' if 'bfloat16' in name else '_f32')
+            return short + ('_wgmma' if 'wgmma' in name else '_f32')
     return None
 
 
@@ -1195,9 +1200,10 @@ def phase_training(smi):
                 'generated segments: %s launches per step, %d planned'
                 % (per_step.get('kernelgen_segment'), planned))
         flash = profile_step(exe, main, feed, fetch)
-        # the step's bf16 flash forward and dK/dV run on the tensor-core
-        # designs only: 18 launches each, none of the CUDA-core kernels
-        want = {'fwd_wgmma': 18, 'bwd_dkv_wgmma': 18, 'bwd_dq_bf16': 18}
+        # the step's bf16 flash forward, dQ and dK/dV run on the
+        # tensor-core designs only: 18 launches each, none of the CUDA-core
+        # kernels
+        want = {'fwd_wgmma': 18, 'bwd_dkv_wgmma': 18, 'bwd_dq_wgmma': 18}
         got = {k: c for k, (_, c) in flash.items()}
         require(got == want, 'flash kernels in the profiled step: %s, '
                 'expected %s' % (got, want))
@@ -1543,10 +1549,11 @@ def main(argv=None):
     for steps in (trained, composed):
         launches.update({k: v // 10 if v % 10 == 0 else v / 10
                          for k, v in steps.items() if v})
-    # the float32 instances of K1 and K3: K1 per served run (serving),
-    # K3 on no timed path (the float32 check phases run it)
+    # the float32 instances of K1-K3: K1 per served run (serving), K2 and
+    # K3 on no timed path (the float32 check phases run them)
     f32_launches = {'flash_attention_fwd': served_launches.get(
-        'flash_attention_fwd'), 'flash_attention_bwd_dkv': None}
+        'flash_attention_fwd'), 'flash_attention_bwd_dq': None,
+        'flash_attention_bwd_dkv': None}
     rows = []
     for name, res in kern['rows'].items():
         src, replaces = _REPLACES.get(name, SEGMENT_SOURCE)

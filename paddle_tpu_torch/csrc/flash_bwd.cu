@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): dQ on CUDA cores; dK/dV on
-// tensor cores (wgmma) for bf16, on CUDA cores for float32.
+// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
+// cores (wgmma) for bf16, on CUDA cores for float32.
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -32,6 +32,27 @@
 // are bound by bytes; on CUDA cores (float32 FMAs, 67 TFLOP/s) they are
 // bound by arithmetic.
 //
+// dQ, bf16, flash_bwd_dq_wgmma_kernel<D>: one warpgroup of 128 threads per
+// (b*H, 64-row query tile), heaviest causal tiles first.  Q and dO stay
+// resident in shared memory (one TMA copy each); LSE and delta of the
+// tile's rows are plain loads by warp 0 (a TMA box does not take rows that
+// start off a 16-byte boundary) and then sit in registers, two rows a
+// thread.  K/V tiles of 64 keys flow through a 2-stage ring under mbarriers
+// (full: the bytes arrived; empty: all 128 threads are done with the
+// stage) from key 0 to the tile's end, min(k_len, causal frontier); later
+// tiles are never loaded.  S = Q K^T and dP = dO V^T are wgmma with every
+// operand K-major (64 query rows x 64 keys, reduced over D); P and dS are
+// formed on the float32 fragments in registers, dS rounded to bf16 there
+// once (as dK/dV rounds dS^T), and dQ += dS K runs with A = dS from
+// registers and B = K MN-major (tnspB = 1; N = D, both 64-column chunk
+// regions at D=128).  dQ x scale once in the epilogue, written in bf16 up
+// to row Tq.  One D-wide float32 accumulator (D/2 registers a thread) beside
+// the S and dP fragments (32 each): ptxas gives 122 registers at D=64 and
+// 154 at D=128, no spills; with 50 KB of shared memory at D=64, four blocks
+// (16 warps) fit an SM.  Not yet used: warp specialisation, setmaxnreg,
+// overlapping one tile's elementwise work with the next tile's products, a
+// persistent grid.
+//
 // dK/dV, bf16, flash_bwd_dkv_wgmma_kernel<D>: one warpgroup of 128 threads per
 // (b*Hkv, 64-key tile).  K and V stay resident in shared memory (one TMA copy
 // each); Q/dO tiles of WQ query rows (TMA) with their LSE and delta (loaded by
@@ -49,15 +70,15 @@
 // warpgroups sharing K/V, overlapping one ring tile's elementwise work with the
 // next tile's products, a persistent grid.
 //
-// dQ (all dtypes) and dK/dV float32, flash_bwd_dq_kernel<T, D> and
-// flash_bwd_dkv_kernel<D> (the CUDA-core design): tiles of 64 query rows
-// and 32 keys are staged as float32 in shared memory and reused by all 128
-// threads; each thread keeps a 4x4 patch of S and dP, and an 8 x D/16 (dQ)
-// or two 4 x D/16 (dK, dV) patches of its accumulators in registers.
-// Padded strides keep the column walks free of bank conflicts.  Key tiles
-// past k_len and query tiles before the causal frontier are skipped whole.
-// The tiles need up to 116 KB of shared memory at D=128, above the 48 KB
-// static limit, so they are dynamic and the launch raises the limit first.
+// float32, flash_bwd_dq_kernel<D> and flash_bwd_dkv_kernel<D> (the CUDA-core
+// design): tiles of 64 query rows and 32 keys are staged as float32 in shared
+// memory and reused by all 128 threads; each thread keeps a 4x4 patch of S and
+// dP, and an 8 x D/16 (dQ) or two 4 x D/16 (dK, dV) patches of its
+// accumulators in registers.  Padded strides keep the column walks free of
+// bank conflicts.  Key tiles past k_len and query tiles before the causal
+// frontier are skipped whole.  The tiles need up to 116 KB of shared memory at
+// D=128, above the 48 KB static limit, so they are dynamic and the launch
+// raises the limit first.
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -68,28 +89,10 @@ constexpr int BQ = 64;    // query rows per tile
 constexpr int BK = 32;    // keys per tile
 constexpr int NT = 128;   // threads per block
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Q (pre-scaled), dO, LSE and delta of query rows q0..q0+BQ into shared
 // memory; rows past Tq are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_q_tile(const T* qp, const T* dop,
+template <int D>
+__device__ __forceinline__ void load_q_tile(const float* qp, const float* dop,
                                             const float* lsep,
                                             const float* dlp, int q0, int Tq,
                                             float scale, float* Qs,
@@ -99,8 +102,8 @@ __device__ __forceinline__ void load_q_tile(const T* qp, const T* dop,
   for (int e = threadIdx.x; e < BQ * D; e += NT) {
     const int r = e / D, c = e % D, qi = q0 + r;
     const bool in = qi < Tq;
-    Qs[r * QS + c] = in ? to_f(qp[(size_t)qi * D + c]) * scale : 0.f;
-    dOs[r * QS + c] = in ? to_f(dop[(size_t)qi * D + c]) : 0.f;
+    Qs[r * QS + c] = in ? qp[(size_t)qi * D + c] * scale : 0.f;
+    dOs[r * QS + c] = in ? dop[(size_t)qi * D + c] : 0.f;
   }
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const bool in = q0 + r < Tq;
@@ -110,15 +113,16 @@ __device__ __forceinline__ void load_q_tile(const T* qp, const T* dop,
 }
 
 // K and V of keys k0..k0+BK into shared memory; keys past Tk are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_k_tile(const T* kp, const T* vp, int k0,
-                                            int Tk, float* Ks, float* Vs) {
+template <int D>
+__device__ __forceinline__ void load_k_tile(const float* kp, const float* vp,
+                                            int k0, int Tk, float* Ks,
+                                            float* Vs) {
   constexpr int KS = D + 1;
   for (int e = threadIdx.x; e < BK * D; e += NT) {
     const int r = e / D, c = e % D, ki = k0 + r;
     const bool in = ki < Tk;
-    Ks[r * KS + c] = in ? to_f(kp[(size_t)ki * D + c]) : 0.f;
-    Vs[r * KS + c] = in ? to_f(vp[(size_t)ki * D + c]) : 0.f;
+    Ks[r * KS + c] = in ? kp[(size_t)ki * D + c] : 0.f;
+    Vs[r * KS + c] = in ? vp[(size_t)ki * D + c] : 0.f;
   }
 }
 
@@ -185,14 +189,14 @@ constexpr size_t dq_smem_floats() {
          + 2 * BQ;           // LSE, delta
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ klen,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ klen,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const T* __restrict__ dout, T* __restrict__ dq, int H,
-                    int Hkv, int Tq, int Tk, int causal, float scale) {
+                    const float* __restrict__ dout, float* __restrict__ dq,
+                    int H, int Hkv, int Tq, int Tk, int causal, float scale) {
   constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
   constexpr int CPT = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -212,11 +216,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kl = min(klen[b], Tk);
   const int offset = Tk - Tq;
 
-  load_q_tile<T, D>(q + (size_t)bh * Tq * D, dout + (size_t)bh * Tq * D,
+  load_q_tile<D>(q + (size_t)bh * Tq * D, dout + (size_t)bh * Tq * D,
                     lse + (size_t)bh * Tq, delta + (size_t)bh * Tq, q0, Tq,
                     scale, Qs, dOs, lse_s, dl_s);
-  const T* kp = k + (size_t)kvh * Tk * D;
-  const T* vp = v + (size_t)kvh * Tk * D;
+  const float* kp = k + (size_t)kvh * Tk * D;
+  const float* vp = v + (size_t)kvh * Tk * D;
 
   // keys any row of this tile may see, as in the forward
   int kend = kl;
@@ -233,7 +237,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's K and dS reads are done
-    load_k_tile<T, D>(kp, vp, k0, Tk, Ks, Vs);
+    load_k_tile<D>(kp, vp, k0, Tk, Ks, Vs);
     __syncthreads();
     p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
                  offset, nullptr, dSs);
@@ -256,9 +260,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 8; ++i) {
     const int qi = q0 + pr * 8 + i;
     if (qi >= Tq) continue;
-    T* op = dq + ((size_t)bh * Tq + qi) * D;
+    float* op = dq + ((size_t)bh * Tq + qi) * D;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) op[pc + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < CPT; ++j) op[pc + 16 * j] = acc[i][j] * scale;
   }
 }
 
@@ -308,7 +312,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     for (int j = 0; j < CPT; ++j) ak[i][j] = av[i][j] = 0.f;
 
   if (k0 < kl) {  // else every key of the tile is masked: zero gradients
-    load_k_tile<float, D>(k + (size_t)bkv * Tk * D,
+    load_k_tile<D>(k + (size_t)bkv * Tk * D,
                           v + (size_t)bkv * Tk * D, k0, Tk, Ks, Vs);
     // first query that sees this tile's first key (end-aligned causal)
     const int q_first = causal ? max(0, k0 - offset) : 0;
@@ -316,7 +320,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
       const int bh = b * H + hk * g + gi;
       for (int q0 = (q_first / BQ) * BQ; q0 < Tq; q0 += BQ) {
         __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-        load_q_tile<float, D>(q + (size_t)bh * Tq * D,
+        load_q_tile<D>(q + (size_t)bh * Tq * D,
                               dout + (size_t)bh * Tq * D,
                               lse + (size_t)bh * Tq, delta + (size_t)bh * Tq,
                               q0, Tq, scale, Qs, dOs, lse_s, dl_s);
@@ -362,21 +366,21 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* klen,
-              const void* lse, const void* delta, const void* dout, void* dq,
-              int B, int H, int Hkv, int Tq, int Tk, int causal, float scale,
-              cudaStream_t stream) {
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* klen, const void* lse, const void* delta,
+                  const void* dout, void* dq, int B, int H, int Hkv, int Tq,
+                  int Tk, int causal, float scale, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)klen,
-      (const float*)lse, (const float*)delta, (const T*)dout, (T*)dq, H, Hkv,
-      Tq, Tk, causal, scale);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)klen,
+      (const float*)lse, (const float*)delta, (const float*)dout,
+      (float*)dq, H, Hkv, Tq, Tk, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -399,19 +403,22 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------- dK/dV, bf16, tensor cores
+// ------------------------------------------------- bf16, tensor cores
 
 using bf16 = __nv_bfloat16;
 
-constexpr int WK = 64;       // keys per block (the wgmma M dimension)
-constexpr int WQ = 64;       // query rows per ring tile (the N of S^T and
-                             // dP^T, the reduction depth of dV and dK)
-constexpr int STAGES = 2;    // Q/dO ring depth
+constexpr int WK = 64;       // keys per tile: a dK/dV block's (the wgmma M
+                             // dimension), a dQ ring tile's
+constexpr int WQ = 64;       // query rows per tile: a dQ block's (M), a
+                             // dK/dV ring tile's
+constexpr int STAGES = 2;    // ring depth (Q/dO for dK/dV, K/V for dQ)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // one [rows x 64] bf16 region of a tile in the 128-byte swizzle
 template <int ROWS>
 using Chunk = bf16[ROWS * 64];
+
+// ---------------------------------------------------------------- dK/dV
 
 template <int D>
 struct DkvSmem {
@@ -638,6 +645,202 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- dQ
+
+template <int D>
+struct DqSmem {
+  Chunk<WQ> q[D / 64];
+  Chunk<WQ> dout[D / 64];
+  Chunk<WK> k[STAGES][D / 64];
+  Chunk<WK> v[STAGES][D / 64];
+  float lse[WQ];
+  float delta[WQ];
+  uint64_t qbar, full[STAGES], empty[STAGES];
+};
+
+// thread 0: K/V tile t of head kvh into stage s
+template <int D>
+__device__ __forceinline__ void load_kv(DqSmem<D>& sm, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int kvh, int t,
+                                        int s) {
+  hopper::mbar_expect_tx(&sm.full[s], 2 * WK * D * sizeof(bf16));
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    hopper::tma_load_3d(sm.k[s][c], tk, &sm.full[s], 64 * c, t * WK, kvh);
+    hopper::tma_load_3d(sm.v[s][c], tv, &sm.full[s], 64 * c, t * WK, kvh);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ klen, bf16* __restrict__ dq,
+                          int H, int Hkv, int Tq, int Tk, int causal,
+                          float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align_1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  // keys any row of this tile may see, as in the forward
+  int kend = kl;
+  if (causal) kend = min(kend, max(0, min(q0 + WQ, Tq) + offset));
+  const int ntiles = (kend + WK - 1) / WK;
+
+  if (tid < 32) {  // warp 0: barriers, Q/dO, the first K/V stages, LSE/delta
+    if (tid == 0) {
+      mbar_init(&sm.qbar, 1);
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&sm.full[s], 1);
+        mbar_init(&sm.empty[s], NT);
+      }
+      mbar_fence_init();
+      if (ntiles > 0) {
+        mbar_expect_tx(&sm.qbar, 2 * WQ * D * sizeof(bf16));
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(sm.q[c], &tq, &sm.qbar, 64 * c, q0, bh);
+          tma_load_3d(sm.dout[c], &tdo, &sm.qbar, 64 * c, q0, bh);
+        }
+        for (int s = 0; s < STAGES && s < ntiles; ++s)
+          load_kv(sm, &tk, &tv, kvh, s, s);
+      }
+    }
+    // rows past Tq read 0
+    const size_t row0 = (size_t)bh * Tq + q0;
+    for (int r = tid; r < WQ; r += 32) {
+      const bool in = q0 + r < Tq;
+      sm.lse[r] = in ? lse[row0 + r] : 0.f;
+      sm.delta[r] = in ? delta[row0 + r] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // this thread's two rows of the tile: acc_row(i) is r0 + 8 ((i >> 1) & 1)
+  const int r0 = acc_row(0);
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = sm.lse[r0 + 8 * h] * LOG2E;
+    dl[h] = sm.delta[r0 + 8 * h];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (ntiles > 0) mbar_wait(&sm.qbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES, ph = (t / STAGES) & 1;
+    const int k0 = t * WK;
+    mbar_wait(&sm.full[s], ph);
+
+    // S = Q K^T and dP = dO V^T: query rows x keys, all operands K-major
+    float sacc[WK / 2], dp[WK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 16;
+      wgmma_ss<0>(sacc, make_desc(sm.q[c] + off, 16, 1024),
+                  make_desc(sm.k[s][c] + off, 16, 1024), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 16;
+      wgmma_ss<0>(dp, make_desc(sm.dout[c] + off, 16, 1024),
+                  make_desc(sm.v[s][c] + off, 16, 1024), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(dp);
+
+    // P = exp(scale S - LSE) and dS = P (dP - delta) under the masks, P = 0
+    // where masked (a row with LSE -1e30 has no valid key; rows past Tq
+    // read zeros and are never stored); interior tiles skip the mask
+    const bool interior = k0 + WK <= kl && q0 + WQ <= Tq &&
+                          (!causal || k0 + WK - 1 <= q0 + offset);
+#pragma unroll
+    for (int i = 0; i < WK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      bool valid = true;
+      if (!interior) {
+        const int ki = k0 + acc_col(i), qi = q0 + acc_row(i);
+        valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+      }
+      const float p = valid ? exp2f(sacc[i] * sl2 - lse2[h]) : 0.f;
+      dp[i] = valid ? p * (dp[i] - dl[h]) : 0.f;
+    }
+    uint32_t dsa[WK / 16][4];
+    acc_to_a(dp, dsa);
+
+    // dQ += dS K: B = K, the keys being the reduction (MN-major, tnspB = 1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk)
+      wgmma_rs<1>(acc, dsa[kk],
+                  make_desc(sm.k[s][0] + kk * 16 * 64, WK * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    mbar_arrive(&sm.empty[s]);
+    if (tid == 0 && t + STAGES < ntiles) {
+      mbar_wait(&sm.empty[s], ph);
+      load_kv(sm, &tk, &tv, kvh, t + STAGES, s);
+    }
+  }
+
+  // dQ x scale once, in q's dtype; TMA bounds its reads at Tq, not these
+  // stores
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + 8 * h;
+    if (qi >= Tq) continue;
+    bf16* op = dq + ((size_t)bh * Tq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + cq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale,
+                                acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* klen, const void* lse, const void* delta,
+                   const void* dout, void* dq, int B, int H, int Hkv, int Tq,
+                   int Tk, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, D, WK);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, D, WK);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(DqSmem<D>) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+      (const int*)klen, (bf16*)dq, H, Hkv, Tq, Tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Tq >= 1 && Tk >= 1;
 }
@@ -657,17 +860,17 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                                Hkv, Tq, Tk, causal, scale, s);
+    return launch_dq_f32<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
+                             Tq, Tk, causal, scale, s);
   if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                                 Hkv, Tq, Tk, causal, scale, s);
+    return launch_dq_f32<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                              Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, klen, lse, delta, dout, dq,
-                                        B, H, Hkv, Tq, Tk, causal, scale, s);
+    return launch_dq_bf16<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
+                              Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, klen, lse, delta, dout, dq,
-                                         B, H, Hkv, Tq, Tk, causal, scale, s);
+    return launch_dq_bf16<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                               Hkv, Tq, Tk, causal, scale, s);
   return -1;
 }
 

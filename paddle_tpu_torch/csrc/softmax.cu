@@ -11,28 +11,54 @@
 //
 // What bounds it on this card: it moves bytes.  At the transformer's
 // attention scores (65,536 rows x 256 cols, float32) it reads 67 MB and
-// writes 67 MB, about 40 us at 3.35 TB/s; the 3 operations an element
-// (exp, subtract, divide) are far below the arithmetic bound.
+// writes 67 MB, about 40 us at 3.35 TB/s; the 5 operations an element
+// (max, subtract, exp, sum, divide) are far below the arithmetic bound.
 //
-// What the design does about it: one warp per row, four rows per block.
-// A row of up to 32 * MAXK columns stays in registers (MAXK values a
-// lane, MAXK the next power of two of cols / 32, a template argument), so
-// X is read from device memory once and Y written once; the lanes stride
-// over the row, so neighbouring lanes read neighbouring addresses and any
-// column count works with a bound check.  The max and the sum reduce with
-// warp shuffles, with no shared memory or barriers.  A row longer than 32
-// * 32 columns takes the block-per-row branch of the same kernel (one
-// block of four warps per row, reductions through shared memory, X read
-// three times); the launcher picks the branch's grid.
+// The vector branch, softmax_kernel_vec<T, VPL, ROWS>, takes rows of up to
+// 1024 columns whose column count is a multiple of 16 bytes (4 float32 or
+// 8 bf16 values) on 16-byte aligned tensors: one warp per ROWS rows, the
+// rows held in registers, so X is read from device memory once and Y
+// written once, as 16-byte accesses with streaming cache hints (ld.global.cs
+// / st.global.cs: each byte is touched once, so it should not displace
+// anything from L1 or L2).  Lane l holds the 16-byte vectors l, l + 32, ...
+// of its rows (VPL a row, the next power of two of cols / 32 / values a
+// vector), so a warp's access covers 512 consecutive bytes.  The max and
+// the sum reduce with warp shuffles, with no shared memory or barriers.
+// There is no grid-stride loop: the grid has one warp per ROWS rows.
+//
+// Bytes in flight (Little's law): 3.35 TB/s x ~0.8 us of loaded HBM3
+// latency is ~2.7 MB across the card, ~20 KB per SM of its 132.  A lane
+// issues all ROWS x VPL of its 16-byte loads before its first reduction;
+// ROWS = max(1, 4 / VPL) makes that at least 4 loads, 2 KB a warp.  At the
+// scores' 256 float32 columns VPL = 2 and ROWS = 2: 16 values a lane,
+// 40 registers a thread (ptxas), 48 resident warps (6 blocks of 8) an SM,
+// so up to 96 KB an SM in flight, about 5x the need; the grid of 4,096
+// blocks is 5.2 waves of 792.
+//
+// The row sum is taken in another order than the plain version's (each
+// lane sums its own values in order, then a butterfly over the 32 lanes):
+// with 256 terms of u <= 1 that moves y by a few float32 units in the last
+// place, inside the float32 check (rtol 1e-5, atol 1e-7); max, exp (expf)
+// and the division (__fdiv_rn) are the plain version's operations.
+//
+// The scalar branch (softmax_kernel, register part) takes the other column
+// counts up to 1024: one warp per row, the lanes stride over the row with
+// 4-byte (or 2-byte) accesses and a bound check.  A row longer than 32 *
+// 32 columns takes the block-per-row branch of the same kernel (one block
+// of four warps per row, reductions through shared memory, X read three
+// times); the launcher picks the branch's grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_REG_K = 32;  // the register branch holds <= 1024 cols
+constexpr int MAX_REG_K = 32;  // the register branches hold <= 1024 cols
+constexpr int VEC_WARPS = 8;   // warps a block of the vector branch
+constexpr int VEC_THREADS = 32 * VEC_WARPS;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -158,6 +184,133 @@ softmax_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows,
   }
 }
 
+// 16 bytes of T: 4 float32 or 8 bf16 values, loaded and stored with the
+// streaming (evict-first) cache hint
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* v) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+};
+
+template <typename T, int VPL, int ROWS>
+__global__ void __launch_bounds__(VEC_THREADS)
+softmax_kernel_vec(const T* __restrict__ x, T* __restrict__ y, long long rows,
+                   int cols) {
+  constexpr int N = Vec16<T>::N;
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      ((long long)blockIdx.x * VEC_WARPS + threadIdx.x / 32) * ROWS;
+  const int nvec = cols / N;  // 16-byte vectors a row
+  // every load first: ROWS x VPL 16-byte loads in flight a lane
+  float v[ROWS][VPL * N];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int j = k * 32 + lane;
+      if (row0 + r < rows && j < nvec) {
+        Vec16<T>::load(x + (row0 + r) * cols + j * N, &v[r][k * N]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) v[r][k * N + e] = -INFINITY;
+      }
+    }
+  float m[ROWS], s[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < VPL * N; ++e) m[r] = nan_max(m[r], v[r][e]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      m[r] = nan_max(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    s[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const bool in = k * 32 + lane < nvec;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        float& u = v[r][k * N + e];
+        u = expf(__fsub_rn(u, m[r]));
+        if (in) s[r] = __fadd_rn(s[r], u);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      s[r] = __fadd_rn(s[r], __shfl_xor_sync(0xffffffffu, s[r], o));
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (row0 + r >= rows) break;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int j = k * 32 + lane;
+      if (j >= nvec) continue;
+      float w[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) w[e] = __fdiv_rn(v[r][k * N + e], s[r]);
+      Vec16<T>::store(y + (row0 + r) * cols + j * N, w);
+    }
+  }
+}
+
+template <typename T, int VPL>
+int launch_vec(const void* x, void* y, long long rows, int cols,
+               cudaStream_t stream) {
+  constexpr int ROWS = VPL >= 4 ? 1 : 4 / VPL;
+  const long long per_block = (long long)VEC_WARPS * ROWS;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return -1;
+  softmax_kernel_vec<T, VPL, ROWS><<<(unsigned)blocks, VEC_THREADS, 0,
+                                     stream>>>((const T*)x, (T*)y, rows,
+                                               cols);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int MAXK>
 int launch_k(const void* x, void* y, long long rows, int cols,
              cudaStream_t stream) {
@@ -172,6 +325,16 @@ int launch_k(const void* x, void* y, long long rows, int cols,
 template <typename T>
 int launch(const void* x, void* y, long long rows, int cols,
            cudaStream_t stream) {
+  constexpr int N = Vec16<T>::N;
+  if (cols <= 32 * MAX_REG_K && cols % N == 0 && (uintptr_t)x % 16 == 0 &&
+      (uintptr_t)y % 16 == 0) {
+    constexpr int MAXV = MAX_REG_K / N;    // vectors a lane at 1024 cols
+    const int vpl = (cols / N + 31) / 32;  // 16-byte vectors a lane
+    if (vpl <= 1) return launch_vec<T, 1>(x, y, rows, cols, stream);
+    if (vpl <= 2) return launch_vec<T, 2>(x, y, rows, cols, stream);
+    if (vpl <= 4) return launch_vec<T, 4>(x, y, rows, cols, stream);
+    return launch_vec<T, MAXV>(x, y, rows, cols, stream);
+  }
   const int k = (cols + 31) / 32;
   if (k <= 1) return launch_k<T, 1>(x, y, rows, cols, stream);
   if (k <= 2) return launch_k<T, 2>(x, y, rows, cols, stream);

@@ -101,6 +101,12 @@ def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype):
     (torch.bfloat16, 64, True, 128, 128, 2, [128, 128]),
     (torch.bfloat16, 64, True, 37, 161, 1, [161, 100]),
     (torch.bfloat16, 128, False, 150, 150, 2, [150, 77]),
+    # the tensor-core (wgmma) dQ kernel's: GQA 8/2, causal, D=128 with a
+    # last query tile of 200 - 192 = 8 rows; a k_len 0 row; Tq < Tk
+    # without the causal mask
+    (torch.bfloat16, 128, True, 200, 200, 2, [200, 200]),
+    (torch.bfloat16, 64, True, 70, 70, 4, [0, 50]),
+    (torch.bfloat16, 64, False, 50, 300, 2, [300, 299]),
 ])
 def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                                             Hkv, klen):
@@ -125,8 +131,9 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), r.float(), rtol=rtol,
                                    atol=arel * float(r.float().abs().max()))
-    if 0 in klen:
-        assert not grads[0][1].any() and not grads[1][1].any()
+    if 0 in klen:   # batch rows with no valid key: zero gradients
+        zero = torch.tensor(klen, device='cuda') == 0
+        assert not any(t[zero].any() for t in grads)
     if dtype == torch.float32:
         # an independent check: autograd through the plain forward (the
         # kernels follow cuBLAS's summation order, and may match the plain
@@ -235,6 +242,12 @@ def test_adam_multi_kernel_matches_plain_over_three_steps(cuda):
     (7, 3000, torch.float32, 1),
     (257, 255, torch.bfloat16, 0),
     (33, 1, torch.float32, 0),
+    # the 16-byte vector branch beside the scalar one: a column count that
+    # is not a multiple of 4 (scalar), bf16 rows of 8-value vectors, a
+    # row count that leaves a block's last rows empty
+    (1000, 258, torch.float32, 2),
+    (4099, 256, torch.bfloat16, 1),
+    (37, 64, torch.float32, 1),
 ])
 def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype, neg_inf_rows):
     g = torch.Generator(device='cuda').manual_seed(5)
@@ -251,6 +264,18 @@ def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype, neg_inf_rows):
         dict(rtol=8e-3, atol=1e-3)
     torch.testing.assert_close(y.float(), ref.float(), equal_nan=True, **tol)
     assert torch.isnan(y[:neg_inf_rows]).all()
+
+
+def test_softmax_kernel_takes_rows_off_16_bytes(cuda):
+    """A contiguous view that starts 4 bytes into its storage goes to the
+    scalar branch (the vector branch needs 16-byte aligned rows)."""
+    g = torch.Generator(device='cuda').manual_seed(6)
+    x = (3 * _randn(g, 1 + 300 * 256))[1:].view(300, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    y = tnn.softmax_rows(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, tnn.softmax_reference(x), rtol=1e-5,
+                               atol=1e-7)
 
 
 def _sub(type, inputs, outputs, attrs=None):

@@ -2,26 +2,29 @@
 CPU, against the port's plain versions and the JAX package.
 
 csrc/flash_fwd.cu `flash_fwd_wgmma_kernel` and csrc/flash_bwd.cu
-`flash_bwd_dkv_wgmma_kernel` run only on the card.  Their rounding is
-repeated here in plain PyTorch, tile by tile at the kernels' sizes (64
-query rows and 64 keys; the backward's ring tiles of 64 query rows over
-the GQA group): bf16 inputs multiplied exactly and summed in float32 (the
-wgmma accumulators); `scale` applied to the float32 S; the forward's
-online softmax in base 2, with P handed to P V as two bf16 terms (hi =
-bf16(P), lo = bf16(P - hi)); the backward's P^T and dS^T rounded to bf16
-once before dV += P^T dO and dK += dS^T Q, dK scaled once at the end.
+`flash_bwd_dkv_wgmma_kernel` and `flash_bwd_dq_wgmma_kernel` run only on
+the card.  Their rounding is repeated here in plain PyTorch, tile by tile
+at the kernels' sizes (64 query rows and 64 keys; dK/dV's ring tiles of 64
+query rows over the GQA group, dQ's ring tiles of 64 keys): bf16 inputs
+multiplied exactly and summed in float32 (the wgmma accumulators); `scale`
+applied to the float32 S; the forward's online softmax in base 2, with P
+handed to P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)); the
+backward's P^T and dS^T rounded to bf16 once before dV += P^T dO and dK +=
+dS^T Q, dK scaled once at the end; dQ's dS rounded to bf16 once before dQ
++= dS K, dQ scaled once at the end.
 
 The emulation must hold against the port's `_ref_attention` /
 `flash_backward_reference` and against the JAX package (its Pallas
 kernels in interpret mode, and its composed `_ref_attention`) within the
 bf16 tolerances the card check (`chip_smoke.py`, and
 `tests/test_torch_cuda_kernels.py`) holds the kernels to: forward rtol
-8e-3 / atol 1e-3 and LSE atol 1e-4; dK/dV rtol 8e-3 / atol 2e-3 of the
-largest gradient.  Against the JAX `_ref_attention` the bound also holds
-that reference's own one bf16 rounding of the softmax weights.  One more
-test shows why P goes in as two terms: a single bf16 rounding of P misses
-the forward's atol on early causal rows, which have few keys to average
-the rounding over."""
+8e-3 / atol 1e-3 and LSE atol 1e-4; dQ, dK and dV rtol 8e-3 / atol 2e-3
+of the largest gradient.  Against the JAX `_ref_attention` the bound also
+holds that reference's own one bf16 rounding of the softmax weights.  One
+more test shows why P goes in as two terms: a single bf16 rounding of P
+misses the forward's atol on early causal rows, which have few keys to
+average the rounding over.  dQ needs no such split: one rounding of dS
+holds the check on every case."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -220,6 +223,33 @@ def test_one_bf16_rounding_of_p_would_miss_the_card_tolerance():
     assert not bool((err <= bound).all())
 
 
+def emulate_dq(q, k, v, kl, out, lse, do, causal, scale):
+    """flash_bwd_dq_wgmma_kernel -> dq in bf16: S and dP in float32 per
+    64-key ring tile, P = exp2(scale log2(e) S - log2(e) LSE) under the
+    masks, dS = P (dP - delta) rounded to bf16 once, dQ summed in float32
+    over the key tiles in the kernel's order, scaled once at the end."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qf = q.float().reshape(B, Hkv, g, Tq, D)
+    dof = do.float().reshape(B, Hkv, g, Tq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    delta = tatt._bwd_delta(out, do).reshape(B, Hkv, g, Tq, 1)
+    lse2 = lse.reshape(B, Hkv, g, Tq, 1) * LOG2E
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    valid = _valid(B, Tq, Tk, causal, kl)                   # [B,1,1,Tq,Tk]
+    dq = torch.zeros((B, Hkv, g, Tq, D))
+    for k0 in range(0, Tk, WK):
+        kt, vt = kf[..., k0:k0 + WK, :], vf[..., k0:k0 + WK, :]
+        s = qf @ kt.transpose(-1, -2)                        # [.., Tq, wk]
+        dp = dof @ vt.transpose(-1, -2)
+        ok = valid[..., k0:k0 + WK]
+        p = torch.where(ok, torch.exp2(s * sl2 - lse2), torch.zeros_like(s))
+        ds = torch.where(ok, p * (dp - delta), torch.zeros_like(s))
+        dq = dq + _bf16(ds) @ kt
+    return (dq * scale).reshape(B, H, Tq, D).to(torch.bfloat16)
+
+
 BWD_CASES = [
     # B, H, Hkv, Tq, Tk, D, causal, k_len (None: Tk)
     (2, 4, 4, 256, 256, 64, False, None),            # the training shape's
@@ -254,3 +284,25 @@ def test_dkv_emulation_within_the_card_tolerance(case):
                    '%s %s' % (name, what))
         if 0 in (klen or []):
             assert not a[torch.tensor(klen) == 0].float().any()
+
+
+@pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
+def test_dq_emulation_within_the_card_tolerance(case):
+    B, H, Hkv, Tq, Tk, D, causal, klen = case
+    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, 1)
+    scale = D ** -0.5
+    out, lse = emulate_forward(q, k, v, kl, causal, scale)
+    dq = emulate_dq(q, k, v, kl, out, lse, do, causal, scale)
+    rq, _, _ = tatt.flash_backward_reference(q, k, v, kl, out, lse, do,
+                                             causal, scale)
+    jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
+                            lse.shape + (8,))
+    jdq, _, _ = jatt._flash_backward(
+        _jnp(q), _jnp(k), _jnp(v), jnp.asarray(kl.numpy()), _jnp(out), jlse,
+        _jnp(do), causal, scale, _block(Tq), _block(Tk), interpret=True)
+    jdq = torch.from_numpy(np.array(jdq.astype(jnp.float32)))
+    for what, ref in (('plain', rq.float()), ('jax', jdq)):
+        _close(dq, ref, BWD_RTOL, BWD_AREL * float(ref.abs().max()),
+               'dq %s' % what)
+    if 0 in (klen or []):
+        assert not dq[torch.tensor(klen) == 0].float().any()
