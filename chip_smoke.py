@@ -18,7 +18,9 @@ Phases, each printing JSON lines:
   kernels     every kernel on the card against its plain version at its
               main path's shapes (timed: kernel / plain / library ms and the
               bound) and at ragged ones: flash-attention forward and the
-              embedding gather at the served shapes; the flash backward
+              embedding gather at the served shapes (the gather also with
+              L2 flushed before each call, beside F.embedding timed the
+              same way); the flash backward
               (dQ, dK/dV), LayerNorm and the multi-tensor Adam at the
               training step's shapes; softmax rows (K5) at the composed
               attention's scores and ragged shapes; every generated segment
@@ -31,7 +33,8 @@ Phases, each printing JSON lines:
               ServingEngine.from_predictor with FeedBucketer([1, 2, 4]);
               seeded requests of 1-2 rows x 2048 tokens; launch counts
               read around the served requests; then torch.profiler over
-              one 4-row batch (device time by kernel group, idle share)
+              one 4-row batch (device time by kernel group, idle share),
+              whose 16 flash forwards must all be the 3xTF32 kernel
   gpu_vs_cpu  llama_1b width, 2 layers, max_len 512: one saved model through
               the port's Predictor on the card and on the CPU
   training    transformer-base as bench.py builds it (full width, 6+6
@@ -69,7 +72,8 @@ that lists every kernel, with its launches per step on its training path
 (the composed one for K5, its generated segments, K4, K6 and Adam; the
 flash one for K1-K3 and its own segments), per served run for the
 serving-only ones; K1, K2 and K3 also list their two instances, bf16 on
-tensor cores and float32 on CUDA cores, each timed; with every phase run,
+tensor cores and float32 (K1 as 3xTF32 on tensor cores, K2 and K3 on CUDA
+cores), each timed; with every phase run,
 a kernel launched on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
@@ -102,9 +106,14 @@ BENCH_CFG = dict(src_vocab=32000, trg_vocab=32000, max_len=256, n_layer=6,
 # transformer-base at models/transformer.py::build's own defaults
 COMPOSED_CFG = dict(BENCH_CFG, dropout=0.1, use_flash=False)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type;
+# 'tf32x3' is a float32 product as three TF32 tensor-core products (the
+# float32 flash forward's design), 495 TFLOP/s / 3
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12, 'tf32x3': 495e12 / 3}
+# bytes written between launches to push a kernel's inputs and outputs out
+# of the 50 MB L2
+FLUSH_BYTES = 128 << 20
 
 
 def emit(**obj):
@@ -149,6 +158,33 @@ def time_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
+def time_ms_flushed(fn, iters):
+    """Mean device ms per call with the L2 flushed before each call (a
+    FLUSH_BYTES write, outside the timed interval): CUDA events around each
+    call, all queued behind a spin kernel as in time_ms."""
+    import torch
+    junk = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device='cuda')
+    for _ in range(2):
+        junk.zero_()
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    junk.zero_()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(int(min(2.0 * host_s * iters + 1e-3, 0.5) * 2e9))
+    for e0, e1 in ev:
+        junk.zero_()
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
+
+
 # ------------------------------------------------------------- phase 1
 
 def phase_card():
@@ -166,8 +202,26 @@ def phase_card():
     ptxas = [ln.strip() for ln in log.splitlines()
              if 'registers' in ln or 'spill' in ln]
     emit(phase='card', nvidia_smi=smi, library=os.path.relpath(path, ROOT),
-         build_s=round(build_s, 2), ptxas=ptxas)
+         build_s=round(build_s, 2), ptxas=ptxas,
+         flash_fwd_occupancy=flash_fwd_occupancy(build.library()))
     return smi
+
+
+def flash_fwd_occupancy(lib):
+    """The flash forward's shared memory a block and blocks an SM, by
+    instance, as the CUDA runtime reports them."""
+    import ctypes
+    res = {}
+    for dtype, code in (('float32', 0), ('bfloat16', 1)):
+        for D in (64, 128):
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            rc = lib.pt_flash_fwd_occupancy(D, code, ctypes.byref(smem),
+                                            ctypes.byref(blocks))
+            require(rc == 0, 'pt_flash_fwd_occupancy(%d, %s): %d'
+                    % (D, dtype, rc))
+            res['%s_d%d' % (dtype, D)] = dict(smem_bytes=smem.value,
+                                              blocks_per_sm=blocks.value)
+    return res
 
 
 # ------------------------------------------------------------- phase 2
@@ -221,7 +275,13 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
         nbytes = ((2 * B * H * Tq + 2 * B * Hkv * Tk) * D * itemsize
                   + 4 * B * H * Tq + 4 * B)
         t_bytes = nbytes / HBM_BPS * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        # float32 runs as 3xTF32 on the tensor cores: that rate bounds it;
+        # the CUDA cores' float32 rate is printed beside it
+        t_ops = flops / PEAK_FLOPS[
+            'tf32x3' if dtype == 'float32' else dtype] * 1e3
+        if dtype == 'float32':
+            res['bound_cuda_cores_ms'] = max(
+                t_bytes, flops / PEAK_FLOPS['float32'] * 1e3)
         res.update(
             ms=time_ms(lambda: att.flash_forward(q, k, v, causal, scale,
                                                  kl_t), 10),
@@ -233,6 +293,7 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
             bound_by='bytes' if t_bytes > t_ops else 'operations',
             flops=flops, bytes=nbytes)
         res['tflops'] = flops / res['ms'] / 1e9
+        res['bound_share'] = res['bound_ms'] / res['ms']
     emit(**res)
     require(ok and lse_ok, 'flash_attention_fwd disagrees with its plain '
             'version in case %s: %s' % (name, res))
@@ -263,14 +324,29 @@ def gather_case(name, V, D, N, dtype, special=False, ids64=False,
                nan_rows=int(torch.isnan(out[:, 0]).sum()), max_abs_err=err,
                atol=0.0)
     if timed:
+        # warm: the same ids again and again, so rows and output that fit
+        # in L2 stay there; flushed: L2 emptied before each call
         nbytes = 2 * N * D * w.element_size() + N * ids.element_size()
         res.update(
             ms=time_ms(lambda: ga.embedding_gather(w, ids), 50),
             plain_ms=time_ms(lambda: ga.embedding_gather_reference(w, ids),
                              20),
             library_ms=time_ms(lambda: F.embedding(ids, w), 50),
+            flushed_ms=time_ms_flushed(lambda: ga.embedding_gather(w, ids),
+                                       20),
+            library_flushed_ms=time_ms_flushed(lambda: F.embedding(ids, w),
+                                               20),
             bound_ms=nbytes / HBM_BPS * 1e3, bound_by='bytes', bytes=nbytes)
+        # what the card reaches on these bytes without a gather: a plain
+        # contiguous copy of a tensor the size of the output
+        src, dst = ref.clone(), torch.empty_like(ref)
+        res.update(copy_ms=time_ms(lambda: dst.copy_(src), 50),
+                   copy_flushed_ms=time_ms_flushed(lambda: dst.copy_(src),
+                                                   20))
         res['gbps'] = nbytes / res['ms'] / 1e6
+        res['bound_share'] = res['bound_ms'] / res['ms']
+        res['flushed_bound_share'] = res['bound_ms'] / res['flushed_ms']
+        res['copy_bound_share'] = res['bound_ms'] / res['copy_ms']
     emit(**res)
     require(nan_same and err == 0.0, 'embedding_gather disagrees with its '
             'plain version in case %s: %s' % (name, res))
@@ -676,8 +752,9 @@ def segment_case(spec, ops, paths, timed=True):
 def phase_kernels():
     """-> {'rows': kernel name -> its timed row at its main path's shape,
     'instances': K1-K3 by dtype -> the timed row of that instance}.
-    K1, K2 and K3 have two designs: bf16 on tensor cores (the training
-    path), float32 on CUDA cores (serving; the float32 checks)."""
+    K1, K2 and K3 have two instances: bf16 on tensor cores (the training
+    path) and float32 (serving, for K1; the float32 checks): K1 as 3xTF32
+    on tensor cores, K2 and K3 on CUDA cores."""
     served = {}
     inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dq': {},
             'flash_attention_bwd_dkv': {}}
@@ -692,6 +769,10 @@ def phase_kernels():
                klen=[300, 77, 1])
     flash_case('decode_tq_lt_tk', 2, 8, 2, 5, 333, 128, True, 'bfloat16',
                klen=[333, 100])
+    flash_case('decode_tq_lt_tk_f32', 2, 8, 2, 5, 333, 128, True, 'float32',
+               klen=[333, 100])
+    flash_case('ragged_f32_d64', 1, 2, 2, 97, 161, 64, False, 'float32',
+               klen=[130])
     flash_case('ragged_bf16_d64', 1, 2, 2, 97, 161, 64, False, 'bfloat16',
                klen=[130])
     flash_case('klen0', 2, 4, 4, 70, 70, 64, True, 'float32', klen=[0, 50])
@@ -850,10 +931,10 @@ def _clear(logits, tol):
     return (top2[..., 1] - top2[..., 0]) > 2 * tol
 
 
-def profile_batch(pred, feed):
+def profile_batch(pred, feed, n_layer):
     """Where one dispatched batch spends its time: torch.profiler over one
-    Predictor.run (device time by kernel, grouped), beside the host wall
-    time of three unprofiled runs."""
+    Predictor.run (device time by kernel, grouped; the flash kernels by
+    design), beside the host wall time of three unprofiled runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -890,13 +971,19 @@ def profile_batch(pred, feed):
         top.append((us / 1e3, name[:80], e.count))
     top.sort(reverse=True)
     busy = sum(groups.values())
+    flash = _flash_by_design(prof)
     emit(phase='serving', step='profile',
          rows=int(feed['tokens'].shape[0]),
          run_wall_ms=[w * 1e3 for w in walls],
          profiled_wall_ms=prof_wall * 1e3, device_ms_by_group=groups,
          device_busy_ms=busy,
          device_idle_share=(1 - busy / (prof_wall * 1e3)) if busy else None,
+         flash_by_design=flash,
          top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:12]])
+    # one batch: a float32 flash forward a layer, all the 3xTF32 design
+    require(set(flash) == {'fwd_tf32x3'} and flash['fwd_tf32x3'][1] ==
+            n_layer, 'the served batch ran flash kernels %s, not %d '
+            'fwd_tf32x3' % (flash, n_layer))
 
 
 def phase_serving(smi):
@@ -991,7 +1078,7 @@ def phase_serving(smi):
                                 rows=n) for e, t, cl, n in checks],
          card=smi)
     profile_batch(pred, {'tokens': np.concatenate(
-        [f['tokens'] for f in feeds[1:3]])})
+        [f['tokens'] for f in feeds[1:3]])}, cfg['n_layer'])
     del pred, eng
     torch.cuda.empty_cache()
     launches.update(seg)
@@ -1079,14 +1166,30 @@ def _group(name):
 
 def _flash_design(name):
     """The flash kernel a profiler key names, by design: 'fwd_wgmma',
-    'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_f32',
-    'bwd_dq_f32' and 'bwd_dkv_f32' (float32, CUDA cores); None for any
-    other kernel."""
+    'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_tf32x3'
+    (float32 as 3xTF32, tensor cores), 'bwd_dq_f32' and 'bwd_dkv_f32'
+    (float32, CUDA cores); None for any other kernel."""
     for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
                         ('flash_bwd_dq', 'bwd_dq')):
         if stem in name:
-            return short + ('_wgmma' if 'wgmma' in name else '_f32')
+            return short + ('_wgmma' if 'wgmma' in name else
+                            '_tf32x3' if 'tf32x3' in name else '_f32')
     return None
+
+
+def _flash_by_design(prof):
+    """{design: [device ms, launches]} of the flash kernels a profile saw."""
+    from torch.autograd import DeviceType
+    flash = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        design = _flash_design(e.key)
+        if design:
+            acc = flash.setdefault(design, [0.0, 0])
+            acc[0] += e.self_device_time_total / 1e3
+            acc[1] += e.count
+    return flash
 
 
 def profile_step(exe, main, feed, fetch, phase='training'):
@@ -1102,7 +1205,7 @@ def profile_step(exe, main, feed, fetch, phase='training'):
         exe.run(main, feed=feed, fetch_list=fetch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top, flash = {}, [], {}
+    groups, top = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
             continue
@@ -1110,11 +1213,7 @@ def profile_step(exe, main, feed, fetch, phase='training'):
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, e.key[:80], e.count))
-        design = _flash_design(e.key)
-        if design:
-            acc = flash.setdefault(design, [0.0, 0])
-            acc[0] += ms
-            acc[1] += e.count
+    flash = _flash_by_design(prof)
     top.sort(reverse=True)
     busy = sum(groups.values())
     emit(phase=phase, step='profile', profiled_wall_ms=wall_ms,
@@ -1490,6 +1589,15 @@ _REPLACES = {
     'softmax': ('paddle_tpu_torch/csrc/softmax.cu',
                 'paddle_tpu/ops/kernelgen/rules.py:291'),
 }
+# the two instances of K1-K3: each dtype's design
+_DESIGNS = {
+    ('flash_attention_fwd', 'bfloat16'): 'wgmma, tensor cores',
+    ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
+    ('flash_attention_bwd_dq', 'bfloat16'): 'wgmma, tensor cores',
+    ('flash_attention_bwd_dq', 'float32'): 'CUDA cores',
+    ('flash_attention_bwd_dkv', 'bfloat16'): 'wgmma, tensor cores',
+    ('flash_attention_bwd_dkv', 'float32'): 'CUDA cores',
+}
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
                   'paddle_tpu/ops/kernelgen/builder.py:795')
@@ -1567,8 +1675,7 @@ def main(argv=None):
             row.update(ops=res['ops'], paths=res['paths'])
         if name in kern['instances']:
             row['instances'] = [dict(
-                dtype=dt, design=('wgmma, tensor cores' if dt == 'bfloat16'
-                                  else 'CUDA cores'),
+                dtype=dt, design=_DESIGNS[name, dt],
                 case=r['case'], launches=(launches.get(name)
                                           if dt == 'bfloat16'
                                           else f32_launches[name]),

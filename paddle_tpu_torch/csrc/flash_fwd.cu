@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 on tensor cores
-// (wgmma), float32 on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a) on tensor cores: bf16 through
+// bf16 wgmma, float32 through TF32 wgmma in a 3xTF32 split.
 //
 // Replaces paddle_tpu/ops/attention.py:52 _flash_kernel, which the JAX
 // package launches from _flash_forward (:356, pallas_call at :390).  It
@@ -18,9 +18,10 @@
 // T=256, D=64, bf16 under AMP) moves ~34 MB for ~4.3 GFLOP, so it is bound
 // by bytes (10 us at 3.35 TB/s) once the products run on the bf16 tensor
 // cores (4.3 us at 989 TFLOP/s); the served llama_1b shape (B=4, H=16,
-// Hkv=8, T=2048, D=128, causal) does ~69 GFLOP on ~200 MB and is bound by
-// operations: bf16 tensor cores, or float32 FMAs on CUDA cores (67 TFLOP/s)
-// for float32 inputs.
+// Hkv=8, T=2048, D=128, causal, float32) does ~69 GFLOP on ~200 MB and is
+// bound by operations: 3xTF32 runs three TF32 products for each float32
+// one, 3 x 68.75 GFLOP at 495 TFLOP/s = 0.417 ms (float32 FMAs on CUDA
+// cores, 67 TFLOP/s, would take 1.026 ms).
 //
 // bf16, flash_fwd_wgmma_kernel<D> (D = 64, 128): one warpgroup of 128
 // threads per (64-row query tile, b*h).  Thread 0 issues TMA copies: the Q
@@ -43,17 +44,50 @@
 // setmaxnreg, overlapping the softmax of one tile with the next tile's
 // Q K^T, a persistent grid, and a TMA store of O.
 //
-// float32, flash_fwd_kernel<D> (the CUDA-core design): one block of 128 threads
-// per (64-row query tile, b*h); K/V tiles of 32 keys are staged in shared
-// memory as float32 and reused by all 64 query rows, and each thread keeps a
-// 4x4 patch of S and an 8 x D/16 patch of the output accumulator in registers
-// (2 and 4 FMAs per shared-memory load).  Padded shared-memory strides keep the
-// column walks free of bank conflicts.  Query tiles are issued heaviest first,
-// so causal blocks finish together.  The tiles need 75 KB of shared memory at
-// D=128, above the 48 KB static limit, so they are dynamic and the launch
-// raises the kernel's limit first.  A tensor-core float32 design (TF32 or a
-// 3xTF32 split) would change the float32 parity gates, and is not attempted
-// here.
+// float32, flash_fwd_tf32x3_kernel<D> (D = 64, 128): the same block shape,
+// order of query tiles, masks and online softmax, with every product on
+// the TF32 tensor cores as three: x y ~ x_hi y_hi + x_hi y_lo + x_lo y_hi,
+// where x_hi = tf32(x) and x_lo = tf32(x - x_hi), both rounded to nearest
+// (cvt.rna; the tensor cores would truncate an unrounded float32, and a
+// lo taken from a rounded hi would then be off by up to a TF32 unit).
+// hi + lo keeps x to ~2^-22 and the dropped lo x lo term is ~2^-22 of x y,
+// so S and O keep float32's order of error and the float32 gates (rtol
+// 1e-4, atol 1e-5 against the plain version; served logits within 1e-4
+// of max |logit| of the CPU's) hold unchanged; one TF32 product (~2^-11)
+// would miss them (tests/test_torch_flash_tf32x3_numerics.py emulates
+// both).  What float32 forces:
+//  - both wgmma operands K-major (no transpose for .tf32): Q K^T reads Q
+//    and K as they are; for P V the block stages V^T, keys contiguous;
+//  - the split: TMA lands Q and each K/V tile as float32 (32 values to a
+//    128-byte swizzle row, k8 products); the 128 threads round Q once into
+//    Q_hi in place and Q_lo, and each tile's K into K_hi, K_lo and its V
+//    into V^T_hi, V^T_lo (lane = key, so a warp writes whole V^T rows
+//    without bank conflicts), then fence.proxy.async before wgmma reads
+//    them (a tile's K and V are split once per query tile that reads them,
+//    as the bf16 kernel copies them once per query tile);
+//  - P from registers: the S fragment holds keys 2c, 2c+1 of each 8-key
+//    group where the TF32 A fragment takes depth columns c, c+4, so V^T
+//    is written with key 2c + e at position c + 4e of its group and the
+//    split P_hi, P_lo feed wgmma without shuffles;
+//  - shared memory: a float32 tile is twice a bf16 one and every operand
+//    is held twice, so key tiles are 32 keys (S is m64n32), the raw K/V
+//    ring (2 stages, TMA) is separate from the split copies, and V^T has
+//    two split buffers: at D = 128, Q 64 KB + ring 64 KB + K 32 KB + V^T
+//    64 KB = 224 KB, one block an SM (112 KB at D = 64, which also leaves
+//    one block an SM: two would need 48 bytes more than the SM has);
+//  - the split is work the bf16 kernel does not have, and the largest
+//    cost beside the products when it ran between a tile's copy and its
+//    products.  Each thread
+//    loads all its words of a split before it rounds and stores any, and
+//    tile t+1's K and V are split while tile t's P V runs on the tensor
+//    cores (V^T double-buffered, so tile t's stays whole under it); the
+//    ring stage a split has read is refilled at the top of the next pass.
+//    Splitting V under Q K^T instead crashes ptxas (CUDA 12.9).
+// Each tile runs 6 products: Q_lo K_hi, Q_hi K_lo, Q_hi K_hi, then P_lo
+// V_hi, P_hi V_lo, P_hi V_hi (small terms first).  ptxas gives 128
+// registers at D = 64 and 221 at D = 128, no spills.  Not yet used: a
+// producer warp, two consumer warpgroups (no room for a second Q at
+// D = 128), the softmax under the next tile's Q K^T, a persistent grid.
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -63,199 +97,72 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 32;    // keys per shared-memory tile (float32 kernel)
-constexpr int NT = 128;   // threads per block
+constexpr int NT = 128;   // threads per block: one warpgroup
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// ------------------------------------------------- float32, CUDA cores
-
-template <int D>
-constexpr size_t smem_floats() {
-  return BQ * (D + 1)      // Q, scaled
-         + BK * (D + 1)    // K
-         + BK * D          // V
-         + BQ * (BK + 1)   // S, then P
-         + 3 * BQ;         // running max, running sum, rescale factor
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ klen,
-                 float* __restrict__ out, float* __restrict__ lse, int H,
-                 int Hkv, int Tq, int Tk, int causal, float scale) {
-  constexpr int QS = D + 1, KS = D + 1, VS = D, SS = BK + 1;
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * KS;
-  float* Ss = Vs + BK * VS;
-  float* m_s = Ss + BQ * SS;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  const int b = bh / H;
-  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
-  const int kl = min(klen[b], Tk);
-  const int offset = Tk - Tq;
-
-  const float* qp = q + (size_t)bh * Tq * D;
-  const float* kp = k + (size_t)kvh * Tk * D;
-  const float* vp = v + (size_t)kvh * Tk * D;
-
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, c = e % D, qi = q0 + r;
-    Qs[r * QS + c] = qi < Tq ? qp[(size_t)qi * D + c] * scale : 0.f;
+// Scale, mask and exponentiate (base 2) one key tile's S fragment in place
+// (NS = keys / 2 values a thread), and advance this thread's two rows'
+// running max m and partial sum l; alpha gets the factors that rescale the
+// rows of the output accumulator.  Tiles that straddle k_len or the
+// causal frontier of the tile's first row are masked; rows past Tq read
+// zeros and are never stored.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[NS], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2], int q0,
+                                             int k0, int kl, int causal,
+                                             int offset, float sl2) {
+  using hopper::acc_col;
+  using hopper::acc_row;
+  constexpr int KEYS = 2 * NS;
+  const bool interior =
+      k0 + KEYS <= kl && (!causal || k0 + KEYS - 1 <= q0 + offset);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float x = sacc[i] * sl2;
+    if (!interior) {
+      const int ki = k0 + acc_col(i), qi = q0 + acc_row(i);
+      if (!(ki < kl && (!causal || ki <= qi + offset))) x = -INFINITY;
+    }
+    sacc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
   }
-  if (tid < BQ) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);  // finite: m >= NEG
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
   }
-
-  // keys any row of this tile may see: below k_len and, when causal, at
-  // or before the last row's end-aligned frontier
-  int kend = kl;
-  if (causal) kend = min(kend, max(0, min(q0 + BQ, Tq) + offset));
-  const int ntiles = (kend + BK - 1) / BK;
-
-  const int sr = tid / 8, sc = tid % 8;    // S patch: rows sr*4+i, cols sc+8j
-  const int pr = tid / 16, pc = tid % 16;  // O patch: rows pr*8+i, cols pc+16j
-  float acc[8][CPT];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K/V/P reads are done
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, c = e % D, ki = k0 + r;
-      const bool in = ki < Tk;
-      Ks[r * KS + c] = in ? kp[(size_t)ki * D + c] : 0.f;
-      Vs[r * VS + c] = in ? vp[(size_t)ki * D + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(sr * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(sc + 8 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = sr * 4 + i, qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = sc + 8 * j, ki = k0 + c;
-        const bool valid =
-            ki < kl && qi < Tq && (!causal || ki <= qi + offset);
-        Ss[r * SS + c] = valid ? s[i][j] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    {  // online softmax update: two threads per row, 16 columns each
-      const int r = tid >> 1, half = tid & 1;
-      float* row = Ss + r * SS + half * 16;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mt = fmaxf(mt, row[c]);
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mt);  // finite: m_old >= NEG
-      float ls = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = expf(row[c] - m_new);  // masked: exp(-inf) = 0
-        row[c] = p;
-        ls += p;
-      }
-      ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-      if (half == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + ls;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = a_s[pr * 8 + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[8], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = Ss[(pr * 8 + i) * SS + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) vv[j] = Vs[kk * VS + pc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = pr * 8 + i, qi = q0 + r;
-    if (qi >= Tq) continue;
-    const float l = l_s[r];
-    float* op = out + ((size_t)bh * Tq + qi) * D;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      op[pc + 16 * j] = l > 0.f ? acc[i][j] / l : 0.f;
-  }
-  if (tid < BQ && q0 + tid < Tq) {
-    const float l = l_s[tid];
-    lse[(size_t)bh * Tq + q0 + tid] = l > 0.f ? m_s[tid] + logf(l) : NEG;
+  for (int i = 0; i < NS; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = exp2f(sacc[i] - m[h]);  // masked: exp2(-inf) = 0
+    sacc[i] = p;
+    l[h] += p;
   }
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const void* klen,
-               void* out, void* lse, int B, int H, int Hkv, int Tq, int Tk,
-               int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)klen,
-      (float*)out, (float*)lse, H, Hkv, Tq, Tk, causal, scale);
-  return (int)cudaGetLastError();
+// a row's sum over the 4 threads that hold it
+__device__ __forceinline__ float row_sum(float l) {
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  return l + __shfl_xor_sync(0xffffffffu, l, 2);
+}
+
+// a row's logsumexp (natural log) from its base-2 max and sum
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : NEG;
 }
 
 // --------------------------------------------------- bf16, tensor cores
 
 constexpr int WK = 64;       // keys per tile (wgmma kernel)
 constexpr int STAGES = 2;    // K/V ring depth
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // one [rows x 64] bf16 region of a tile in the 128-byte swizzle
 template <int ROWS>
@@ -350,39 +257,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(sacc);
 
-    // scale, mask (tiles that straddle k_len or the causal frontier of
-    // the tile's first row; rows past Tq read zeros and are never
-    // stored), row max over the 4 threads of a row
-    const bool interior =
-        k0 + WK <= kl && (!causal || k0 + WK - 1 <= q0 + offset);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < WK / 2; ++i) {
-      float x = sacc[i] * sl2;
-      if (!interior) {
-        const int ki = k0 + acc_col(i), qi = q0 + acc_row(i);
-        if (!(ki < kl && (!causal || ki <= qi + offset))) x = -INFINITY;
-      }
-      sacc[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-    }
     float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);  // finite: m >= NEG
-      alpha[h] = exp2f(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int i = 0; i < WK / 2; ++i) {
-      const int h = (i >> 1) & 1;
-      const float p = exp2f(sacc[i] - m[h]);  // masked: exp2(-inf) = 0
-      sacc[i] = p;
-      l[h] += p;
-    }
+    softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     // O += P V with P in two bf16 terms (hi + lo)
@@ -411,8 +287,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (tid % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = row_sum(l[h]);
     const int qi = q0 + r0 + 8 * h;
     if (qi >= Tq) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
@@ -422,9 +297,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + cq) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
                                 o[4 * j + 2 * h + 1] * inv);
-    if (tid % 4 == 0)
-      lse[(size_t)bh * Tq + qi] =
-          l[h] > 0.f ? (m[h] + log2f(l[h])) * LN2 : NEG;
+    if (tid % 4 == 0) lse[(size_t)bh * Tq + qi] = row_lse(m[h], l[h]);
   }
 }
 
@@ -450,7 +323,312 @@ int launch_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------- float32, 3xTF32 tensor cores
+
+constexpr int TK = 32;       // keys per tile (3xTF32 kernel)
+constexpr int TSTAGES = 2;   // raw K/V ring depth
+
+// one [rows x 32] float32 region of a tile in the 128-byte swizzle
+template <int ROWS>
+using FChunk = float[ROWS * 32];
+
+template <int D>
+struct Tf32Smem {
+  FChunk<BQ> qhi[D / 32], qlo[D / 32];   // Q as TF32 hi + lo terms
+  FChunk<TK> kraw[TSTAGES][D / 32];      // the TMA ring: K, V as loaded
+  FChunk<TK> vraw[TSTAGES][D / 32];
+  FChunk<TK> khi[D / 32], klo[D / 32];   // the next product's K, split
+  FChunk<D> vthi[2][TK / 32], vtlo[2][TK / 32];  // V^T of tiles t, t+1
+  uint64_t qbar, full[TSTAGES];
+};
+
+// thread 0: K/V tile t of head kvh into ring stage s
+template <int D>
+__device__ __forceinline__ void load_kv_f32(Tf32Smem<D>& sm,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv, int kvh,
+                                            int t, int s) {
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TK * D * sizeof(float));
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], 32 * c, t * TK, kvh);
+    hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], 32 * c, t * TK, kvh);
+  }
+}
+
+// src -> (hi, lo) = (tf32(x), tf32(x - hi)) over N float4s, all threads;
+// hi may be src.  The regions share one swizzled layout, so the split is
+// element by element.  Each thread loads all its words before it rounds
+// and stores any.
+template <int N>
+__device__ __forceinline__ void split_tf32(const float4* src, float4* hi,
+                                           float4* lo) {
+  static_assert(N % NT == 0, "whole float4s a thread");
+  float4 x[N / NT];
+#pragma unroll
+  for (int j = 0; j < N / NT; ++j) x[j] = src[threadIdx.x + j * NT];
+#pragma unroll
+  for (int j = 0; j < N / NT; ++j) {
+    const float xs[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+    float h[4], r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __uint_as_float(hopper::tf32_rna(xs[e]));
+      r[e] = __uint_as_float(hopper::tf32_rna(xs[e] - h[e]));
+    }
+    hi[threadIdx.x + j * NT] = make_float4(h[0], h[1], h[2], h[3]);
+    lo[threadIdx.x + j * NT] = make_float4(r[0], r[1], r[2], r[3]);
+  }
+}
+
+// The V tile, D / 32 regions of [TK keys x 32 columns], as V^T hi and lo:
+// [D rows x TK keys], keys contiguous (the K-major B of P V).  Lane = key,
+// so a warp's stores fill whole V^T rows, one bank each; key 8a + 2c + e
+// lands at position 8a + c + 4e, the depth column where the P fragment
+// holds it.  Warp w takes columns 4 (w + 4 i) .. + 3.
+template <int D>
+__device__ __forceinline__ void split_vt(const float* vraw, float* vthi,
+                                         float* vtlo) {
+  static_assert(TK == 32, "one key a lane");
+  constexpr int IT = D / 16;  // 4-column groups a warp
+  const int j = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int pos = (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+  float4 x[IT];
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int d4 = warp + 4 * i;
+    const int c = d4 / 8, w = d4 % 8;  // region, 16-byte word of its row
+    x[i] = *reinterpret_cast<const float4*>(vraw + c * TK * 32 + j * 32 +
+                                            ((w ^ (j & 7)) << 2));
+  }
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (warp + 4 * i) + e;
+      const int at = d * 32 + ((((pos >> 2) ^ (d & 7)) << 2) | (pos & 3));
+      const float h = __uint_as_float(hopper::tf32_rna(xs[e]));
+      vthi[at] = h;
+      vtlo[at] = __uint_as_float(hopper::tf32_rna(xs[e] - h));
+    }
+  }
+}
+
+// ring stage s: K into K_hi, K_lo and V into V^T buffer vb
+template <int D>
+__device__ __forceinline__ void split_kv(Tf32Smem<D>& sm, int s, int vb) {
+  split_tf32<TK * D / 4>(reinterpret_cast<const float4*>(sm.kraw[s][0]),
+                         reinterpret_cast<float4*>(sm.khi[0]),
+                         reinterpret_cast<float4*>(sm.klo[0]));
+  split_vt<D>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0]);
+}
+
+// keep register A fragments unchanged until the product that reads them
+// has been waited for
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const int* __restrict__ klen,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        int H, int Hkv, int Tq, int Tk, int causal,
+                        float scale) {
+  using namespace hopper;
+  constexpr int NC = D / 32;  // 32-column regions of a row
+  extern __shared__ uint8_t smem_raw[];
+  Tf32Smem<D>& sm = *reinterpret_cast<Tf32Smem<D>*>(align_1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  int kend = kl;
+  if (causal) kend = min(kend, max(0, min(q0 + BQ, Tq) + offset));
+  const int ntiles = (kend + TK - 1) / TK;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+    if (ntiles > 0) {
+      mbar_expect_tx(&sm.qbar, BQ * D * sizeof(float));
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
+      for (int s = 0; s < TSTAGES && s < ntiles; ++s)
+        load_kv_f32(sm, &tk, &tv, kvh, s, s);
+    }
+  }
+  __syncthreads();
+
+  const int r0 = acc_row(0);
+  const float sl2 = scale * LOG2E;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  // Q and tile 0 are split before the loop; tile t+1's K and V are split
+  // while tile t's P V runs on the tensor cores
+  if (ntiles > 0) {
+    mbar_wait(&sm.qbar, 0);
+    split_tf32<BQ * D / 4>(reinterpret_cast<const float4*>(sm.qhi[0]),
+                           reinterpret_cast<float4*>(sm.qhi[0]),
+                           reinterpret_cast<float4*>(sm.qlo[0]));
+    mbar_wait(&sm.full[0], 0);
+    split_kv<D>(sm, 0, 0);
+    fence_proxy_async();  // the split copies are read by wgmma
+  }
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * TK, vb = t % 2;
+    // tile t's stage was split in the last pass: refill it
+    if (tid == 0 && t + TSTAGES < ntiles)
+      load_kv_f32(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+
+    float sacc[TK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 8; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 8;
+      const uint64_t qh = make_desc(sm.qhi[c] + off, 16, 1024);
+      const uint64_t kh = make_desc(sm.khi[c] + off, 16, 1024);
+      wgmma_ss_tf32(sacc, make_desc(sm.qlo[c] + off, 16, 1024), kh, kc > 0);
+      wgmma_ss_tf32(sacc, qh, make_desc(sm.klo[c] + off, 16, 1024), 1);
+      wgmma_ss_tf32(sacc, qh, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    __syncthreads();  // every warp is done with K_hi, K_lo
+
+    float alpha[2];
+    softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P as TF32 A fragments, hi and lo: 8-key group kk of this thread's
+    // fragment holds keys 2c, 2c+1 (c = tid % 4) of rows r0, r0 + 8, which
+    // are depth columns c, c + 4 of the A fragment (see split_vt)
+    uint32_t phi[TK / 8][4], plo[TK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk) {
+      const int at[4] = {4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = sacc[at[j]];
+        phi[kk][j] = tf32_rna(x);
+        plo[kk][j] = tf32_rna(x - __uint_as_float(phi[kk][j]));
+      }
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 8;
+      const uint64_t vh = make_desc(sm.vthi[vb][c] + off, 16, 1024);
+      wgmma_rs_tf32(o, plo[kk], vh, 1);
+      wgmma_rs_tf32(o, phi[kk], make_desc(sm.vtlo[vb][c] + off, 16, 1024),
+                    1);
+      wgmma_rs_tf32(o, phi[kk], vh, 1);
+    }
+    wgmma_commit();
+    if (t + 1 < ntiles) {
+      // V^T buffer 1 - vb was read by tile t-1's P V, waited for by all
+      const int s1 = (t + 1) % TSTAGES;
+      mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
+      split_kv<D>(sm, s1, 1 - vb);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    keep_regs(phi);
+    keep_regs(plo);
+    __syncthreads();  // tile t+1 split; every warp is done with V^T vb
+  }
+
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = row_sum(l[h]);
+    const int qi = q0 + r0 + 8 * h;
+    if (qi >= Tq) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    float* op = out + ((size_t)bh * Tq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j + cq) =
+          make_float2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    if (tid % 4 == 0) lse[(size_t)bh * Tq + qi] = row_lse(m[h], l[h]);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* klen,
+               void* out, void* lse, int B, int H, int Hkv, int Tq, int Tk,
+               int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, BQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, TK);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, TK);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(Tf32Smem<D>) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  flash_fwd_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, (const int*)klen, (float*)out, (float*)lse, H, Hkv, Tq, Tk,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of a launch at D, and the blocks an SM holds
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int* smem_out, int* blocks) {
+  *smem_out = (int)smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
+                                                      smem);
+  return (int)e;
+}
+
 }  // namespace
+
+// The shared memory a forward launch asks for at head dimension D and
+// dtype (as in pt_flash_fwd) and how many such blocks an SM holds, as the
+// CUDA runtime reports them; 0 on success.
+extern "C" int pt_flash_fwd_occupancy(int D, int dtype, int* smem,
+                                      int* blocks) {
+  if (dtype == 0 && D == 64)
+    return occupancy(flash_fwd_tf32x3_kernel<64>,
+                     sizeof(Tf32Smem<64>) + 1024, smem, blocks);
+  if (dtype == 0 && D == 128)
+    return occupancy(flash_fwd_tf32x3_kernel<128>,
+                     sizeof(Tf32Smem<128>) + 1024, smem, blocks);
+  if (dtype == 1 && D == 64)
+    return occupancy(flash_fwd_wgmma_kernel<64>, sizeof(FwdSmem<64>) + 1024,
+                     smem, blocks);
+  if (dtype == 1 && D == 128)
+    return occupancy(flash_fwd_wgmma_kernel<128>,
+                     sizeof(FwdSmem<128>) + 1024, smem, blocks);
+  return -1;
+}
 
 // q [B*H, Tq, D], k/v [B*Hkv, Tk, D], klen int32 [B], out like q,
 // lse float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16.  Returns the

@@ -1,19 +1,21 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): wgmma on bf16 tiles with float32
-// accumulators, mbarriers, and TMA tile copies.
+// (csrc/flash_fwd.cu, csrc/flash_bwd.cu): wgmma on bf16 and on TF32 tiles
+// with float32 accumulators, mbarriers, and TMA tile copies.
 //
 // Tiles live in shared memory in the 128-byte swizzle (B128): a row of a
 // tile is 64 bf16 values (128 bytes), rows are 128 bytes apart, and 8 rows
 // form a 1024-byte swizzle atom.  A head dimension of 128 is two such
 // 64-column chunks, each stored as its own [rows x 64] region.  Every
 // region starts on a 1024-byte boundary, so the hardware's address-based
-// swizzle, the TMA writes and the wgmma reads agree.
+// swizzle, the TMA writes and the wgmma reads agree.  A float32 (TF32)
+// tile has the same byte geometry with 32 values to a 128-byte row, so a
+// head dimension of 128 is four [rows x 32] regions.
 //
 // The tile copy is TMA (`cp.async.bulk.tensor`), not `cp.async`: one thread
-// asks for a whole [rows x 64] box, the hardware writes it in the B128 swizzle,
-// zero-fills rows past the tensor's end (ragged Tq and Tk need no padding by
-// the caller and no bounds checks in the copy), and reports the bytes to an
-// mbarrier.  The threads spend no registers or instructions on addresses, which
+// asks for a whole box of 128-byte rows, the hardware writes it in the B128
+// swizzle, zero-fills rows past the tensor's end (ragged Tq and Tk need no
+// padding by the caller and no bounds checks in the copy), and reports the
+// bytes to an mbarrier.  The threads spend no registers or instructions on addresses, which
 // the wgmma accumulators need.  The tensor map is encoded on the host through
 // cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"), so the library links
 // against the runtime alone (no -lcuda), and passed to the kernel as a `const
@@ -64,26 +66,42 @@ static inline EncodeTiledFn encode_tiled() {
 constexpr int kBadArgs = -1;
 constexpr int kNoTensorMap = -2;
 
-// 3-D map over a contiguous bf16 [heads, rows, D] tensor: boxes of 64
-// columns x box_rows rows x 1 head, written in the 128-byte swizzle; rows
-// past `rows` read as zero
-static inline int map_bf16_3d(CUtensorMap* map, const void* base, int heads,
-                              int rows, int D, int box_rows) {
+// 3-D map over a contiguous [heads, rows, D] tensor of `elem`-byte values:
+// boxes of 128 bytes of columns x box_rows rows x 1 head, written in the
+// 128-byte swizzle; rows past `rows` read as zero
+static inline int map_3d(CUtensorMap* map, const void* base,
+                         CUtensorMapDataType type, int elem, int heads,
+                         int rows, int D, int box_rows) {
   if ((uintptr_t)base % 16) return kBadArgs;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kNoTensorMap;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elem,
+                                 (cuuint64_t)rows * D * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(base), dims, strides, box, elem_strides,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kNoTensorMap;
+}
+
+// bf16 [heads, rows, D]: boxes of 64 columns
+static inline int map_bf16_3d(CUtensorMap* map, const void* base, int heads,
+                              int rows, int D, int box_rows) {
+  return map_3d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, heads, rows,
+                D, box_rows);
+}
+
+// float32 [heads, rows, D]: boxes of 32 columns
+static inline int map_f32_3d(CUtensorMap* map, const void* base, int heads,
+                             int rows, int D, int box_rows) {
+  return map_3d(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, heads, rows,
+                D, box_rows);
 }
 
 // ---------------------------------------------------------------- device
@@ -334,6 +352,110 @@ __device__ __forceinline__ void acc_to_a_split(const float (&acc)[NACC],
       hi[kk][j] = *reinterpret_cast<uint32_t*>(&h);
       lo[kk][j] = pack_bf16(x0 - hf.x, x1 - hf.y);
     }
+}
+
+// ------------------------------------------------------------------ TF32
+//
+// wgmma on float32 data read as TF32 (10 mantissa bits): 8 values of depth
+// a product (k8: 32 bytes, the byte depth of a bf16 k16), float32
+// accumulators in the layout above (acc_row, acc_col).  Both operands are
+// K-major: the PTX ISA gives .tf32 no transpose flags, so a B whose
+// reduction dimension is not contiguous (V in P V) is staged transposed.
+// A k8 step moves a K-major descriptor's start by 32 bytes, as a bf16 k16
+// step does.  The tensor cores read a float32 as TF32 by dropping its low
+// 13 bits; tf32_rna rounds to nearest instead, so a value handed over as
+// tf32_rna(x) is read exactly.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// order this thread's generic-proxy shared-memory writes (and reads)
+// before later async-proxy accesses (wgmma operand reads, TMA writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x 32] (+)= A[64 x 8] B[8 x 32], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x N] (+)= A[64 x 8] B[8 x N] (N = 64, 128), A from registers: thread
+// t holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8 at the depth
+// columns c = t % 4 and c + 4, as {(r, c), (r + 8, c), (r, c + 4),
+// (r + 8, c + 4)}, each a tf32_rna value
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 }  // namespace hopper

@@ -149,6 +149,8 @@ def _bind(lib):
     lib.pt_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                  f, p]
     lib.pt_flash_fwd.restype = i
+    lib.pt_flash_fwd_occupancy.argtypes = [i, i, p, p]
+    lib.pt_flash_fwd_occupancy.restype = i
     lib.pt_embedding_gather.argtypes = [p, p, p, ctypes.c_longlong, i, i, i,
                                         i, p]
     lib.pt_embedding_gather.restype = i

@@ -44,6 +44,14 @@ def _randn(gen, *shape, dtype=torch.float32):
     # causal, D=128 with a last query tile of 200 - 192 = 8 rows
     (torch.bfloat16, 64, True, 70, 70, [0, 50]),
     (torch.bfloat16, 128, True, 200, 200, [200, 200]),
+    # the float32 (3xTF32 wgmma) kernel's: k_len 0 and 1 rows, a ragged
+    # last query tile and key tile (Tq 97, Tk 161), decode Tq < Tk, D=128
+    # causal with a last query tile of 8 rows
+    (torch.float32, 64, True, 70, 70, [0, 50]),
+    (torch.float32, 128, True, 150, 150, [150, 1]),
+    (torch.float32, 64, False, 97, 161, [130, 161]),
+    (torch.float32, 128, True, 5, 333, [333, 100]),
+    (torch.float32, 128, True, 200, 200, [200, 200]),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, D, causal, Tq, Tk, klen):
     g = torch.Generator(device='cuda').manual_seed(0)
@@ -63,21 +71,49 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, causal, Tq, Tk, klen):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
+def test_float32_flash_at_the_served_shape_runs_the_tf32x3_kernel(cuda):
+    """llama_1b's attention (B=4, H=16, Hkv=8, T=2048, D=128, causal,
+    float32) within the float32 check, through flash_fwd_tf32x3_kernel and
+    no other flash kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device='cuda').manual_seed(3)
+    q = _randn(g, 4, 16, 2048, 128)
+    k = _randn(g, 4, 8, 2048, 128)
+    v = _randn(g, 4, 8, 2048, 128)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = att.flash_forward(q, k, v, True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if 'flash' in e.key]
+    assert len(names) == 1 and 'flash_fwd_tf32x3_kernel' in names[0], names
+    ref, ref_lse = att._ref_attention(q, k, v, True, 128 ** -0.5)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
 def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
     q = torch.zeros(1, 2, 8, 96, device='cuda')
     with pytest.raises(ValueError, match='head dims'):
         att.flash_forward(q, q, q, True)
 
 
-@pytest.mark.parametrize('dtype,D,ids_dtype', [
-    (torch.float32, 2048, torch.int32),
-    (torch.bfloat16, 100, torch.int64),
-    (torch.float16, 99, torch.int32),
+@pytest.mark.parametrize('dtype,D,ids_dtype,misalign', [
+    (torch.float32, 2048, torch.int32, 0),
+    (torch.bfloat16, 100, torch.int64, 0),
+    (torch.float16, 99, torch.int32, 0),
+    # 16-byte rows in segments of 128 words: 4 whole, then 4 + 1 word
+    (torch.float32, 2048, torch.int64, 0),
+    (torch.float32, 2052, torch.int32, 0),
+    # the scalar branch: float32 rows of 99 words; a table that starts
+    # off a 16-byte boundary (float32 and bf16 rows of whole 16-byte words)
+    (torch.float32, 99, torch.int64, 0),
+    (torch.float32, 512, torch.int32, 1),
+    (torch.bfloat16, 512, torch.int64, 1),
 ])
-def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype):
+def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype, misalign):
     g = torch.Generator(device='cuda').manual_seed(1)
     V = 500
-    w = _randn(g, V, D, dtype=dtype)
+    w = _randn(g, V * D + misalign, dtype=dtype)[misalign:].view(V, D)
+    assert (w.data_ptr() % 16 != 0) == bool(misalign)
     ids = torch.randint(-V, V, (3, 77), generator=g, device='cuda')
     ids[0, :3] = torch.tensor([V, -V - 1, 10 ** 6])
     ids = ids.to(ids_dtype)
