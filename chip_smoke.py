@@ -45,6 +45,11 @@ Phases, each printing JSON lines:
               around the timed steps, then torch.profiler over one step,
               whose 18 bf16 flash forwards, 18 dQ and 18 dK/dV launches
               must all be the tensor-core (wgmma) kernels
+  training_f32
+              the same step in float32 (AMP off, the reference's default
+              precision; float32 GEMMs in full float32): the same counts,
+              and its 18 flash forwards, 18 dQ and 18 dK/dV launches must
+              all be the 3xTF32 tensor-core kernels
   train_gpu_vs_cpu
               the same model at full width cut to 2 layers, B=4, T=256,
               float32: 2 steps from the same weights on the card and on the
@@ -72,9 +77,9 @@ that lists every kernel, with its launches per step on its training path
 (the composed one for K5, its generated segments, K4, K6 and Adam; the
 flash one for K1-K3 and its own segments), per served run for the
 serving-only ones; K1, K2 and K3 also list their two instances, bf16 on
-tensor cores and float32 (K1 as 3xTF32 on tensor cores, K2 and K3 on CUDA
-cores), each timed; with every phase run,
-a kernel launched on none of its paths fails the script.  The last line
+tensor cores and float32 (3xTF32 on tensor cores; launches per served run
+for K1, per float32 step for K2 and K3), each timed; with every phase run,
+a kernel or instance launched on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
 and convolutions run in full float32 (TF32 off), set below.
@@ -92,8 +97,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
 PHASES = ('card', 'kernels', 'serving', 'gpu_vs_cpu', 'training',
-          'train_gpu_vs_cpu', 'training_composed', 'train_composed_gpu_vs_cpu',
-          'composed_opt_on_off')
+          'training_f32', 'train_gpu_vs_cpu', 'training_composed',
+          'train_composed_gpu_vs_cpu', 'composed_opt_on_off')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -203,7 +208,8 @@ def phase_card():
              if 'registers' in ln or 'spill' in ln]
     emit(phase='card', nvidia_smi=smi, library=os.path.relpath(path, ROOT),
          build_s=round(build_s, 2), ptxas=ptxas,
-         flash_fwd_occupancy=flash_fwd_occupancy(build.library()))
+         flash_fwd_occupancy=flash_fwd_occupancy(build.library()),
+         flash_bwd_occupancy=flash_bwd_occupancy(build.library()))
     return smi
 
 
@@ -221,6 +227,26 @@ def flash_fwd_occupancy(lib):
                     % (D, dtype, rc))
             res['%s_d%d' % (dtype, D)] = dict(smem_bytes=smem.value,
                                               blocks_per_sm=blocks.value)
+    return res
+
+
+def flash_bwd_occupancy(lib):
+    """The flash backward's shared memory a block and blocks an SM, for
+    the dQ and the dK/dV kernel of each instance, as the CUDA runtime
+    reports them."""
+    import ctypes
+    res = {}
+    for kind, kname in ((0, 'dq'), (1, 'dkv')):
+        for dtype, code in (('float32', 0), ('bfloat16', 1)):
+            for D in (64, 128):
+                smem, blocks = ctypes.c_int(), ctypes.c_int()
+                rc = lib.pt_flash_bwd_occupancy(D, code, kind,
+                                                ctypes.byref(smem),
+                                                ctypes.byref(blocks))
+                require(rc == 0, 'pt_flash_bwd_occupancy(%d, %s, %s): %d'
+                        % (D, dtype, kname, rc))
+                res['%s_%s_d%d' % (kname, dtype, D)] = dict(
+                    smem_bytes=smem.value, blocks_per_sm=blocks.value)
     return res
 
 
@@ -377,6 +403,14 @@ def _valid_pairs(B, H, Tq, Tk, causal, kl):
     return pairs
 
 
+def _bwd_rate(dtype, D):
+    """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
+    float32 runs as 3xTF32 at D = 64 and on CUDA cores at D = 128."""
+    if dtype != 'float32':
+        return dtype
+    return 'tf32x3' if D == 64 else 'float32'
+
+
 def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                    timed=False):
     """dQ and dK/dV kernels against flash_backward_reference on the same
@@ -454,8 +488,13 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                  2 * B * Hkv * Tk * D * itemsize)):
             flops = float(flops_per * D * pairs)
             nbytes = in_bytes + out_bytes
-            bound_ms, bound_by = _bound(flops, nbytes, dtype)
+            # float32 at D = 64 runs as 3xTF32 on the tensor cores: that
+            # rate bounds it; the CUDA cores' float32 rate is printed beside
+            bound_ms, bound_by = _bound(flops, nbytes, _bwd_rate(dtype, D))
             row = res[kname][0]
+            if dtype == 'float32':
+                row['bound_cuda_cores_ms'] = _bound(flops, nbytes,
+                                                    'float32')[0]
             row.update(ms=time_ms(fn, 10), plain_ms=plain_ms,
                        plain_is='the whole plain backward (dq, dk, dv)',
                        library_ms=lib_ms,
@@ -673,7 +712,8 @@ def _planned_specs(main, feed, fetch_names, amp):
 
 def path_segments():
     """Every generated segment the main paths run: the composed and the
-    flash training steps (B=32, T=256, bf16 AMP) and the served llama_1b
+    flash training steps (B=32, T=256, bf16 AMP), the flash step in
+    float32, and the served llama_1b
     decode program at each bucket (1, 2, 4 rows x 2048 tokens, float32):
     name -> (spec, sub-op types, paths)."""
     import paddle_tpu_torch as fluid
@@ -683,11 +723,12 @@ def path_segments():
     feed = tr.synthetic_batch(np.random.RandomState(0), 32,
                               COMPOSED_CFG['max_len'],
                               COMPOSED_CFG['trg_vocab'])
-    for path, cfg in (('training_composed', COMPOSED_CFG),
-                      ('training', BENCH_CFG)):
-        main, _, out = _train_program(fluid, tr, amp=True, **cfg)
+    for path, cfg, amp in (('training_composed', COMPOSED_CFG, True),
+                           ('training', BENCH_CFG, True),
+                           ('training_f32', BENCH_CFG, False)):
+        main, _, out = _train_program(fluid, tr, amp=amp, **cfg)
         found.append((path, _planned_specs(main, feed, [out['loss'].name],
-                                           True)))
+                                           amp)))
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         out = llama.generation_program('llama_1b', mode='decode',
@@ -753,8 +794,9 @@ def phase_kernels():
     """-> {'rows': kernel name -> its timed row at its main path's shape,
     'instances': K1-K3 by dtype -> the timed row of that instance}.
     K1, K2 and K3 have two instances: bf16 on tensor cores (the training
-    path) and float32 (serving, for K1; the float32 checks): K1 as 3xTF32
-    on tensor cores, K2 and K3 on CUDA cores."""
+    path) and float32 (serving, for K1; the float32 training path): all
+    three as 3xTF32 on tensor cores (K2 and K3 on CUDA cores at D =
+    128)."""
     served = {}
     inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dq': {},
             'flash_attention_bwd_dkv': {}}
@@ -808,8 +850,8 @@ def phase_kernels():
         inst[kname]['bfloat16'] = bwd[kname]
     flash_bwd_case('path_bf16_causal', 32, 8, 8, 256, 256, 64, True,
                    'bfloat16', timed=True)
-    # the float32 instances at the training path's shape (float32 steps
-    # run them in train_gpu_vs_cpu)
+    # the float32 instances at the training path's shape (the float32
+    # step, training_f32, runs them)
     bwd_f32 = flash_bwd_case('path_f32', 32, 8, 8, 256, 256, 64, False,
                              'float32', timed=True)
     for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
@@ -1166,9 +1208,10 @@ def _group(name):
 
 def _flash_design(name):
     """The flash kernel a profiler key names, by design: 'fwd_wgmma',
-    'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_tf32x3'
-    (float32 as 3xTF32, tensor cores), 'bwd_dq_f32' and 'bwd_dkv_f32'
-    (float32, CUDA cores); None for any other kernel."""
+    'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_tf32x3',
+    'bwd_dq_tf32x3' and 'bwd_dkv_tf32x3' (float32 as 3xTF32, tensor cores,
+    D = 64 for the backward), 'bwd_dq_f32' and 'bwd_dkv_f32' (float32 at
+    D = 128, CUDA cores); None for any other kernel."""
     for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
                         ('flash_bwd_dq', 'bwd_dq')):
         if stem in name:
@@ -1225,15 +1268,35 @@ def profile_step(exe, main, feed, fetch, phase='training'):
     return flash
 
 
+# the flash kernels of one training step, by design (profile_step): bf16
+# under AMP on the bf16 tensor-core kernels, float32 on the 3xTF32 ones;
+# neither runs a CUDA-core flash kernel
+TRAIN_FLASH = {
+    True: {'fwd_wgmma': 18, 'bwd_dq_wgmma': 18, 'bwd_dkv_wgmma': 18},
+    False: {'fwd_tf32x3': 18, 'bwd_dq_tf32x3': 18, 'bwd_dkv_tf32x3': 18}}
+
+
 def phase_training(smi):
     """transformer-base (bench.py's step) trained through the port's
     Executor on the card: AMP on, random init from a seed."""
+    return _train_flash('training', smi, amp=True)
+
+
+def phase_training_f32(smi):
+    """The same step in float32, the reference's default precision (no
+    set_amp): its flash forward, dQ and dK/dV run as 3xTF32 on the tensor
+    cores; the other float32 matrix products stay full float32 (TF32 off,
+    set in main)."""
+    return _train_flash('training_f32', smi, amp=False)
+
+
+def _train_flash(phase, smi, amp):
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import transformer as tr
     from paddle_tpu_torch.ops import kernelgen
-    main, startup, out = _train_program(fluid, tr, amp=True)
+    main, startup, out = _train_program(fluid, tr, amp=amp)
     params = main.all_parameters()
     n_params = sum(int(np.prod(p.shape)) for p in params)
     mm_params = sum(int(np.prod(p.shape)) for p in params
@@ -1279,8 +1342,8 @@ def phase_training(smi):
         per_step = {k: v / 10 for k, v in launches.items()}
         planned = planned_segments(main, [out['loss'].name])
         med = float(np.median(step_ms))
-        emit(phase='training', step='steps', config='transformer-base',
-             cfg=BENCH_CFG, amp=True, B=B, T=T, params=n_params,
+        emit(phase=phase, step='steps', config='transformer-base',
+             cfg=BENCH_CFG, amp=amp, B=B, T=T, params=n_params,
              param_tensors=len(params), startup_s=startup_s,
              warmup_losses=warm, last_warmup_step_s=warm_s, losses=losses,
              step_ms=step_ms, median_step_ms=med, wall_s=wall,
@@ -1298,11 +1361,11 @@ def phase_training(smi):
         require(per_step.get('kernelgen_segment') == planned > 0,
                 'generated segments: %s launches per step, %d planned'
                 % (per_step.get('kernelgen_segment'), planned))
-        flash = profile_step(exe, main, feed, fetch)
-        # the step's bf16 flash forward, dQ and dK/dV run on the
-        # tensor-core designs only: 18 launches each, none of the CUDA-core
-        # kernels
-        want = {'fwd_wgmma': 18, 'bwd_dkv_wgmma': 18, 'bwd_dq_wgmma': 18}
+        flash = profile_step(exe, main, feed, fetch, phase=phase)
+        # the step's flash forward, dQ and dK/dV run on the tensor-core
+        # designs of its dtype only: 18 launches each, none of the
+        # CUDA-core kernels
+        want = TRAIN_FLASH[amp]
         got = {k: c for k, (_, c) in flash.items()}
         require(got == want, 'flash kernels in the profiled step: %s, '
                 'expected %s' % (got, want))
@@ -1594,9 +1657,11 @@ _DESIGNS = {
     ('flash_attention_fwd', 'bfloat16'): 'wgmma, tensor cores',
     ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
     ('flash_attention_bwd_dq', 'bfloat16'): 'wgmma, tensor cores',
-    ('flash_attention_bwd_dq', 'float32'): 'CUDA cores',
+    ('flash_attention_bwd_dq', 'float32'):
+        '3xTF32 wgmma, tensor cores (D = 64; CUDA cores at D = 128)',
     ('flash_attention_bwd_dkv', 'bfloat16'): 'wgmma, tensor cores',
-    ('flash_attention_bwd_dkv', 'float32'): 'CUDA cores',
+    ('flash_attention_bwd_dkv', 'float32'):
+        '3xTF32 wgmma, tensor cores (D = 64; CUDA cores at D = 128)',
 }
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
@@ -1622,6 +1687,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     import paddle_tpu_torch  # noqa: F401 - fails outside the repository
+    from paddle_tpu_torch import kernels as kernels_py
 
     emit(phase='env', python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -1643,6 +1709,7 @@ def main(argv=None):
     # CPU work left behind slows the host that issues the timed steps
     served_launches = run('serving', phase_serving, smi)
     trained = run('training', phase_training, smi)
+    trained_f32 = run('training_f32', phase_training_f32, smi)
     composed = run('training_composed', phase_training_composed, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -1653,15 +1720,23 @@ def main(argv=None):
     # training path for the kernels it runs, per step of the flash training
     # path for K1-K3 and its own generated segments, per served run for the
     # serving-only ones
+    def per_step(steps):
+        return {k: v // 10 if v % 10 == 0 else v / 10
+                for k, v in steps.items() if v}
     launches = dict(served_launches)
+    # the float32 step's own generated segments (its flash kernels are the
+    # float32 instances, below)
+    launches.update({k: v for k, v in per_step(trained_f32).items()
+                     if k not in kernels_py.launches})
     for steps in (trained, composed):
-        launches.update({k: v // 10 if v % 10 == 0 else v / 10
-                         for k, v in steps.items() if v})
+        launches.update(per_step(steps))
     # the float32 instances of K1-K3: K1 per served run (serving), K2 and
-    # K3 on no timed path (the float32 check phases run them)
+    # K3 per step of the float32 flash training path
+    f32_steps = per_step(trained_f32)
     f32_launches = {'flash_attention_fwd': served_launches.get(
-        'flash_attention_fwd'), 'flash_attention_bwd_dq': None,
-        'flash_attention_bwd_dkv': None}
+        'flash_attention_fwd'), 'flash_attention_bwd_dq': f32_steps.get(
+        'flash_attention_bwd_dq'), 'flash_attention_bwd_dkv': f32_steps.get(
+        'flash_attention_bwd_dkv')}
     rows = []
     for name, res in kern['rows'].items():
         src, replaces = _REPLACES.get(name, SEGMENT_SOURCE)
@@ -1684,9 +1759,11 @@ def main(argv=None):
                 bound_by=r['bound_by'], library_ms=r['library_ms'])
                 for dt, r in sorted(kern['instances'][name].items())]
         rows.append(row)
-    if 'kernels' in phases and {'serving', 'training',
+    if 'kernels' in phases and {'serving', 'training', 'training_f32',
                                 'training_composed'} <= set(phases):
-        idle = [r['name'] for r in rows if not r['launches']]
+        idle = [r['name'] for r in rows if not r['launches']] + [
+            '%s/%s' % (r['name'], i['dtype']) for r in rows
+            for i in r.get('instances', ()) if not i['launches']]
         require(not idle, 'kernels never launched on their main path: %s'
                 % idle)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
-// cores (wgmma) for bf16, on CUDA cores for float32.
+// cores (wgmma), bf16 directly and float32 as 3xTF32 (D = 64); float32 at
+// D = 128 on CUDA cores.
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -24,13 +25,15 @@
 // after" grid, which has no counterpart among parallel blocks.
 //
 // What bounds it on this card: at the transformer training shape (B=32,
-// H=8, T=256, D=64, bf16 under AMP) dQ does 3 and dK/dV 4 products of
-// 2*D FLOPs per valid (query, key) pair (~6.4 and ~8.6 GFLOP without the
-// causal mask) against 42 and 51 MB of traffic (Q, K, V, dO, LSE and delta
-// read once, the gradients written once): on the bf16 tensor cores that
-// is 6.5 and 8.7 us of work against 12.7 and 15.2 us of bytes, so both
-// are bound by bytes; on CUDA cores (float32 FMAs, 67 TFLOP/s) they are
-// bound by arithmetic.
+// H=8, T=256, D=64) dQ does 3 and dK/dV 4 products of 2*D FLOPs per valid
+// (query, key) pair (~6.4 and ~8.6 GFLOP without the causal mask) against
+// 42 and 51 MB of traffic in bf16 (84 and 101 MB in float32: Q, K, V, dO,
+// LSE and delta read once, the gradients written once).  In bf16 that is
+// 6.5 and 8.7 us of tensor-core work against 12.7 and 15.2 us of bytes:
+// bound by bytes.  In float32 every product runs as three TF32 products,
+// 165 TFLOP/s in effect (495 / 3): 39.0 and 52.1 us of work against 25
+// and 30 us of bytes, bound by operations (float32 FMAs on CUDA cores, 67
+// TFLOP/s, would take 96 and 128 us).
 //
 // dQ, bf16, flash_bwd_dq_wgmma_kernel<D>: one warpgroup of 128 threads per
 // (b*H, 64-row query tile), heaviest causal tiles first.  Q and dO stay
@@ -70,13 +73,51 @@
 // warpgroups sharing K/V, overlapping one ring tile's elementwise work with the
 // next tile's products, a persistent grid.
 //
-// float32, flash_bwd_dq_kernel<D> and flash_bwd_dkv_kernel<D> (the CUDA-core
-// design): tiles of 64 query rows and 32 keys are staged as float32 in shared
-// memory and reused by all 128 threads; each thread keeps a 4x4 patch of S and
-// dP, and an 8 x D/16 (dQ) or two 4 x D/16 (dK, dV) patches of its
+// float32, flash_bwd_dq_tf32x3_kernel<D> and flash_bwd_dkv_tf32x3_kernel<D>
+// (D = 64): the bf16 kernels' block shapes, order of tiles, masks and
+// skipping, with every product on the TF32 tensor cores as three, x y ~
+// x_lo y_hi + x_hi y_lo + x_hi y_hi (small terms first), x_hi =
+// tf32_rna(x), x_lo = tf32_rna(x - x_hi) (hopper_mma.cuh; one TF32
+// product would miss the float32 check: the CPU emulation in
+// tests/test_torch_flash_bwd_tf32x3_numerics.py shows both).  What float32
+// forces, as in csrc/flash_fwd.cu's flash_fwd_tf32x3_kernel:
+//  - both wgmma operands K-major (.tf32 has no transpose), so the product
+//    that reduces over a ring tile's rows reads that tile transposed:
+//    K^T for dQ += dS K, dO^T and Q^T for dV += P^T dO and dK += dS^T Q,
+//    written rows contiguous by split_t32 with the 8-row permutation that
+//    lets the S / S^T accumulator feed wgmma as the A fragment (dS, P^T,
+//    dS^T as hi + lo) without shuffles;
+//  - ring tiles of 32 rows (keys for dQ, query rows for dK/dV; S is
+//    m64n32), since every operand is held twice and a float32 tile is
+//    twice a bf16 one.  dQ: Q, dO hi + lo 64 KB, the raw K/V ring (2
+//    stages, TMA) 32 KB, this tile's K, V split 32 KB, K^T of tiles t and
+//    t+1 32 KB: 160 KB.  dK/dV: K, V hi + lo 64 KB, the raw Q/dO ring 32
+//    KB, this tile's Q, dO split 32 KB, Q^T and dO^T of tiles it and it+1
+//    64 KB, and their LSE and delta: 192 KB.  One block (4 warps) an SM;
+//  - the split: tile t+1 is split while tile t's last products (dS K, or
+//    P^T dO and dS^T Q) run on the tensor cores, which is why the
+//    transposed copies are double-buffered; the ring stage a split has
+//    read is refilled at the top of the next pass.  The dK/dV split also
+//    loads the next tile's LSE and delta (plain loads, first warp).
+// Each key tile of dQ runs 3 x 2 x D/8 products for S and dP and 3 x 4
+// for dS K; each ring tile of dK/dV 3 x 2 x D/8 for S^T and dP^T and 3 x 8
+// for dV and dK.  S and dP keep their big and small terms in separate
+// accumulators, dP's big terms in four (product_x3 says why).  ptxas: 170
+// registers (dQ) and 202 (dK/dV), no spills; 164,888 and 198,168 bytes
+// of shared memory a block, one block an SM, as the CUDA runtime reports
+// them.  At D = 128 the same layouts need 320 and 384 KB, above the 227
+// KB a block may have.  Not yet used: a producer warp, 64-row ring tiles
+// (N = 64 products read their A tile half as often, for more registers),
+// a persistent grid.
+//
+// float32, D = 128, flash_bwd_dq_kernel<D> and flash_bwd_dkv_kernel<D> (the
+// CUDA-core design, kept for D = 128 until a 3xTF32 layout fits there):
+// tiles of 64 query rows and 32 keys are staged as float32 in shared
+// memory and reused by all 128 threads; each thread keeps a 4x4 patch of S
+// and dP, and an 8 x D/16 (dQ) or two 4 x D/16 (dK, dV) patches of its
 // accumulators in registers.  Padded strides keep the column walks free of
 // bank conflicts.  Key tiles past k_len and query tiles before the causal
-// frontier are skipped whole.  The tiles need up to 116 KB of shared memory at
+// frontier are skipped whole.  The tiles need 116 KB of shared memory at
 // D=128, above the 48 KB static limit, so they are dynamic and the launch
 // raises the limit first.
 #include "hopper_mma.cuh"
@@ -432,14 +473,15 @@ struct DkvSmem {
 };
 
 // the ring tile `it` of a block: query head gi of the GQA group and query
-// tile qt0 + it % nq
+// tile qt0 + it % nq, of `rows` query rows
 struct RingPos {
   int bh, q0;
 };
 
 __device__ __forceinline__ RingPos ring_pos(int it, int b, int H, int hk,
-                                            int g, int qt0, int nq) {
-  return {b * H + hk * g + it / nq, (qt0 + it % nq) * WQ};
+                                            int g, int qt0, int nq,
+                                            int rows) {
+  return {b * H + hk * g + it / nq, (qt0 + it % nq) * rows};
 }
 
 // warp 0: Q and dO of ring tile `pos` into stage s by TMA (lane 0), LSE
@@ -521,7 +563,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     __syncwarp();
     for (int s = 0; s < STAGES && s < total; ++s)
       load_ring(sm, &tq, &tdo, lse, delta,
-                ring_pos(s, b, H, hk, g, qt0, nq), Tq, s);
+                ring_pos(s, b, H, hk, g, qt0, nq, WQ), Tq, s);
   }
   __syncthreads();
 
@@ -533,7 +575,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (total > 0) mbar_wait(&sm.kvbar, 0);
   for (int it = 0; it < total; ++it) {
     const int s = it % STAGES, ph = (it / STAGES) & 1;
-    const int q0 = ring_pos(it, b, H, hk, g, qt0, nq).q0;
+    const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, WQ).q0;
     mbar_wait(&sm.full[s], ph);
 
     // S^T = K Q^T and dP^T = V dO^T: keys are the 64 rows, queries the
@@ -599,7 +641,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid < 32 && it + STAGES < total) {  // warp 0 refills the stage
       mbar_wait(&sm.empty[s], ph);
       load_ring(sm, &tq, &tdo, lse, delta,
-                ring_pos(it + STAGES, b, H, hk, g, qt0, nq), Tq, s);
+                ring_pos(it + STAGES, b, H, hk, g, qt0, nq, WQ), Tq, s);
     }
   }
 
@@ -841,6 +883,541 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------- float32, 3xTF32 tensor cores
+
+constexpr int TT = 32;       // rows of a ring tile: keys (dQ), query rows
+                             // (dK/dV); one a lane in split_t32
+constexpr int TSTAGES = 2;   // raw ring depth
+
+// one [rows x 32] float32 region of a tile in the 128-byte swizzle
+template <int ROWS>
+using FChunk = float[ROWS * 32];
+
+__device__ __forceinline__ const float4* f4(const float* p) {
+  return reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4* f4(float* p) {
+  return reinterpret_cast<float4*>(p);
+}
+
+// A B^T [64 x 32] over D as three TF32 products a k8 step (A: 64 rows,
+// B: 32 rows, both K-major hi + lo regions of 32 columns), into NB + 1
+// accumulators: the big terms A_hi B_hi of k8 step kc into big[kc % NB],
+// the small ones A_lo B_hi + A_hi B_lo into small; sum_terms adds them
+// once the products are done.  The tensor cores add each k8 step's
+// products into the accumulator truncating toward zero, not rounding to
+// nearest.  Added into the big terms' accumulator, the small terms lose
+// their low bits at the big terms' scale: dS = P (dP - delta) of a row
+// with one valid key (dP = delta exactly, so dS is all rounding) came out
+// 2.3x past the float32 check on an H100.  In their own accumulator they
+// keep them at their own, 2^-11 smaller, scale; the truncations of one
+// long chain of big terms still added up past the check there, so dP
+// spreads its k8 steps over NB = 4 accumulators, which holds it
+// (tests/test_torch_flash_bwd_tf32x3_numerics.py models the first design
+// and this one).
+template <int D, int AROWS, int NB>
+__device__ __forceinline__ void product_x3(float (&big)[NB][16],
+                                           float (&small)[16],
+                                           const FChunk<AROWS>* ahi,
+                                           const FChunk<AROWS>* alo,
+                                           const FChunk<TT>* bhi,
+                                           const FChunk<TT>* blo) {
+  using namespace hopper;
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) {
+    const int c = kc / 4, off = (kc % 4) * 8;
+    const uint64_t ah = make_desc(ahi[c] + off, 16, 1024);
+    const uint64_t bh = make_desc(bhi[c] + off, 16, 1024);
+    wgmma_ss_tf32(small, make_desc(alo[c] + off, 16, 1024), bh, kc > 0);
+    wgmma_ss_tf32(small, ah, make_desc(blo[c] + off, 16, 1024), 1);
+    wgmma_ss_tf32(big[kc % NB], ah, bh, kc >= NB);
+  }
+}
+
+// out = the big accumulators, summed pairwise, + small (float32, rounded
+// to nearest), once the products into them have been waited for
+template <int NB>
+__device__ __forceinline__ void sum_terms(float (&big)[NB][16],
+                                          float (&small)[16],
+                                          float (&out)[16]) {
+  static_assert(NB == 1 || NB == 2 || NB == 4, "pairwise sum");
+#pragma unroll
+  for (int b = 0; b < NB; ++b) hopper::fence_regs(big[b]);
+  hopper::fence_regs(small);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float x = big[0][i];
+    if constexpr (NB == 2) x += big[1][i];
+    if constexpr (NB == 4) x = (x + big[1][i]) + (big[2][i] + big[3][i]);
+    out[i] = x + small[i];
+  }
+}
+
+// acc[64 x D] += A B over the TT rows of a ring tile: A = hi + lo register
+// fragments of an accumulator, B = the tile transposed (split_t32)
+template <int NACC>
+__device__ __forceinline__ void product_rs_x3(float (&acc)[NACC],
+                                              uint32_t (&ahi)[TT / 8][4],
+                                              uint32_t (&alo)[TT / 8][4],
+                                              const float* bthi,
+                                              const float* btlo) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < TT / 8; ++kk) {
+    const uint64_t bh = make_desc(bthi + kk * 8, 16, 1024);
+    wgmma_rs_tf32(acc, alo[kk], bh, 1);
+    wgmma_rs_tf32(acc, ahi[kk], make_desc(btlo + kk * 8, 16, 1024), 1);
+    wgmma_rs_tf32(acc, ahi[kk], bh, 1);
+  }
+}
+
+// ------------------------------------------------------------ dQ, float32
+
+template <int D>
+struct DqTf32Smem {
+  FChunk<WQ> qhi[D / 32], qlo[D / 32];    // Q, dO as TF32 hi + lo
+  FChunk<WQ> dohi[D / 32], dolo[D / 32];
+  FChunk<TT> kraw[TSTAGES][D / 32];       // the TMA ring: K, V as loaded
+  FChunk<TT> vraw[TSTAGES][D / 32];
+  FChunk<TT> khi[D / 32], klo[D / 32];    // this tile's K, V (S, dP)
+  FChunk<TT> vhi[D / 32], vlo[D / 32];
+  FChunk<D> kthi[2][TT / 32], ktlo[2][TT / 32];  // K^T of tiles t, t+1
+  uint64_t qbar, full[TSTAGES];
+};
+
+// thread 0: K/V tile t of head kvh into ring stage s
+template <int D>
+__device__ __forceinline__ void load_kv_f32(DqTf32Smem<D>& sm,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv, int kvh,
+                                            int t, int s) {
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], 32 * c, t * TT, kvh);
+    hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], 32 * c, t * TT, kvh);
+  }
+}
+
+// ring stage s: K into K_hi, K_lo and K^T buffer vb, V into V_hi, V_lo
+template <int D>
+__device__ __forceinline__ void split_kv_tile(DqTf32Smem<D>& sm, int s,
+                                              int vb) {
+  hopper::split_tf32<TT * D / 4>(f4(sm.kraw[s][0]), f4(sm.khi[0]),
+                                 f4(sm.klo[0]));
+  hopper::split_tf32<TT * D / 4>(f4(sm.vraw[s][0]), f4(sm.vhi[0]),
+                                 f4(sm.vlo[0]));
+  hopper::split_t32<D>(sm.kraw[s][0], sm.kthi[vb][0], sm.ktlo[vb][0]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ klen,
+                           float* __restrict__ dq, int H, int Hkv, int Tq,
+                           int Tk, int causal, float scale) {
+  using namespace hopper;
+  constexpr int NC = D / 32;  // 32-column regions of a row
+  extern __shared__ uint8_t smem_raw[];
+  DqTf32Smem<D>& sm = *reinterpret_cast<DqTf32Smem<D>*>(align_1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  // keys any row of this tile may see, as in the forward
+  int kend = kl;
+  if (causal) kend = min(kend, max(0, min(q0 + WQ, Tq) + offset));
+  const int ntiles = (kend + TT - 1) / TT;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+    if (ntiles > 0) {
+      mbar_expect_tx(&sm.qbar, 2 * WQ * D * sizeof(float));
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
+        tma_load_3d(sm.dohi[c], &tdo, &sm.qbar, 32 * c, q0, bh);
+      }
+      for (int s = 0; s < TSTAGES && s < ntiles; ++s)
+        load_kv_f32(sm, &tk, &tv, kvh, s, s);
+    }
+  }
+  // this thread's two rows of the tile (acc_row(i) is r0 + 8 ((i >> 1) &
+  // 1)): LSE in base 2 and delta, 0 past Tq
+  const int r0 = acc_row(0);
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + 8 * h;
+    const size_t row = (size_t)bh * Tq + qi;
+    lse2[h] = qi < Tq ? lse[row] * LOG2E : 0.f;
+    dl[h] = qi < Tq ? delta[row] : 0.f;
+  }
+  __syncthreads();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // Q, dO and tile 0 are split before the loop; tile t+1 is split while
+  // tile t's dS K runs on the tensor cores
+  if (ntiles > 0) {
+    mbar_wait(&sm.qbar, 0);
+    split_tf32<WQ * D / 4>(f4(sm.qhi[0]), f4(sm.qhi[0]), f4(sm.qlo[0]));
+    split_tf32<WQ * D / 4>(f4(sm.dohi[0]), f4(sm.dohi[0]), f4(sm.dolo[0]));
+    mbar_wait(&sm.full[0], 0);
+    split_kv_tile(sm, 0, 0);
+    fence_proxy_async();  // the split copies are read by wgmma
+  }
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * TT, vb = t % 2;
+    // tile t's stage was split in the last pass: refill it
+    if (tid == 0 && t + TSTAGES < ntiles)
+      load_kv_f32(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+
+    // S = Q K^T and dP = dO V^T: 64 query rows x 32 keys
+    float sbig[1][TT / 2], ssm[TT / 2], dpbig[4][TT / 2], dpsm[TT / 2];
+    wgmma_fence();
+    product_x3<D, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi, sm.klo);
+    product_x3<D, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi, sm.vlo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    float sacc[TT / 2], dp[TT / 2];
+    sum_terms(sbig, ssm, sacc);
+    sum_terms(dpbig, dpsm, dp);
+    __syncthreads();  // every warp is done with K and V split
+
+    // P = exp(scale S - LSE) and dS = P (dP - delta) under the masks, P =
+    // 0 where masked; interior tiles skip the mask
+    const bool interior = k0 + TT <= kl && q0 + WQ <= Tq &&
+                          (!causal || k0 + TT - 1 <= q0 + offset);
+#pragma unroll
+    for (int i = 0; i < TT / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      bool valid = true;
+      if (!interior) {
+        const int ki = k0 + acc_col(i), qi = q0 + acc_row(i);
+        valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+      }
+      const float p = valid ? exp2f(sacc[i] * sl2 - lse2[h]) : 0.f;
+      dp[i] = valid ? p * (dp[i] - dl[h]) : 0.f;
+    }
+    uint32_t dshi[TT / 8][4], dslo[TT / 8][4];
+    acc_to_tf32_split(dp, dshi, dslo);
+
+    // dQ += dS K, K^T staged keys contiguous
+    wgmma_fence();
+    product_rs_x3(acc, dshi, dslo, sm.kthi[vb][0], sm.ktlo[vb][0]);
+    wgmma_commit();
+    if (t + 1 < ntiles) {
+      // K^T buffer 1 - vb was read by tile t-1's dS K, waited for by all
+      const int s1 = (t + 1) % TSTAGES;
+      mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
+      split_kv_tile(sm, s1, 1 - vb);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    keep_regs(dshi);
+    keep_regs(dslo);
+    __syncthreads();  // tile t+1 split; every warp is done with K^T vb
+  }
+
+  // dQ x scale once
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + 8 * h;
+    if (qi >= Tq) continue;
+    float* op = dq + ((size_t)bh * Tq + qi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j + cq) =
+          make_float2(acc[4 * j + 2 * h] * scale,
+                      acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_dq_tf32x3(const void* q, const void* k, const void* v,
+                     const void* klen, const void* lse, const void* delta,
+                     const void* dout, void* dq, int B, int H, int Hkv,
+                     int Tq, int Tk, int causal, float scale,
+                     cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, WQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, TT);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(DqTf32Smem<D>) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+      (const int*)klen, (float*)dq, H, Hkv, Tq, Tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------- dK/dV, float32
+
+template <int D>
+struct DkvTf32Smem {
+  FChunk<WK> khi[D / 32], klo[D / 32];    // K, V as TF32 hi + lo
+  FChunk<WK> vhi[D / 32], vlo[D / 32];
+  FChunk<TT> qraw[TSTAGES][D / 32];       // the TMA ring: Q, dO as loaded
+  FChunk<TT> doraw[TSTAGES][D / 32];
+  FChunk<TT> qhi[D / 32], qlo[D / 32];    // this tile's Q, dO (S^T, dP^T)
+  FChunk<TT> dohi[D / 32], dolo[D / 32];
+  FChunk<D> qthi[2][TT / 32], qtlo[2][TT / 32];    // Q^T, dO^T of ring
+  FChunk<D> dothi[2][TT / 32], dotlo[2][TT / 32];  // tiles it, it+1
+  float lse2[2][TT], delta[2][TT];        // their LSE (base 2) and delta
+  uint64_t kvbar, full[TSTAGES];
+};
+
+// thread 0: Q and dO of ring tile `pos` into stage s
+template <int D>
+__device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
+                                             const CUtensorMap* tq,
+                                             const CUtensorMap* tdo,
+                                             RingPos pos, int s) {
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    hopper::tma_load_3d(sm.qraw[s][c], tq, &sm.full[s], 32 * c, pos.q0,
+                        pos.bh);
+    hopper::tma_load_3d(sm.doraw[s][c], tdo, &sm.full[s], 32 * c, pos.q0,
+                        pos.bh);
+  }
+}
+
+// ring stage s (tile `pos`): Q into Q_hi, Q_lo and Q^T buffer vb, dO into
+// dO_hi, dO_lo and dO^T buffer vb; the first warp loads the tile's LSE and
+// delta into buffer vb, 0 past Tq (plain loads: a tile's rows start at any
+// float of the flat [B*H*Tq] vectors, which a TMA box does not take)
+template <int D>
+__device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
+                                               int vb, RingPos pos,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               int Tq) {
+  const int r = threadIdx.x;
+  if (r < TT) {
+    const bool in = pos.q0 + r < Tq;
+    const size_t row = (size_t)pos.bh * Tq + pos.q0 + r;
+    sm.lse2[vb][r] = in ? lse[row] * LOG2E : 0.f;
+    sm.delta[vb][r] = in ? delta[row] : 0.f;
+  }
+  hopper::split_tf32<TT * D / 4>(f4(sm.qraw[s][0]), f4(sm.qhi[0]),
+                                 f4(sm.qlo[0]));
+  hopper::split_tf32<TT * D / 4>(f4(sm.doraw[s][0]), f4(sm.dohi[0]),
+                                 f4(sm.dolo[0]));
+  hopper::split_t32<D>(sm.qraw[s][0], sm.qthi[vb][0], sm.qtlo[vb][0]);
+  hopper::split_t32<D>(sm.doraw[s][0], sm.dothi[vb][0], sm.dotlo[vb][0]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ klen,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Hkv, int Tq, int Tk, int causal,
+                            float scale) {
+  using namespace hopper;
+  constexpr int NC = D / 32;
+  extern __shared__ uint8_t smem_raw[];
+  DkvTf32Smem<D>& sm =
+      *reinterpret_cast<DkvTf32Smem<D>*>(align_1024(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * WK;
+  const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  // the first query tile that sees this tile's first key (end-aligned
+  // causal); no work when every key of the tile is past k_len
+  const int qt0 = causal ? max(0, k0 - offset) / TT : 0;
+  const int nq = (Tq + TT - 1) / TT - qt0;
+  const int total = (k0 < kl && nq > 0) ? g * nq : 0;
+
+  if (tid == 0) {
+    mbar_init(&sm.kvbar, 1);
+    for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+    if (total > 0) {
+      mbar_expect_tx(&sm.kvbar, 2 * WK * D * sizeof(float));
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load_3d(sm.khi[c], &tk, &sm.kvbar, 32 * c, k0, bkv);
+        tma_load_3d(sm.vhi[c], &tv, &sm.kvbar, 32 * c, k0, bkv);
+      }
+      for (int s = 0; s < TSTAGES && s < total; ++s)
+        load_qdo_f32(sm, &tq, &tdo, ring_pos(s, b, H, hk, g, qt0, nq, TT),
+                     s);
+    }
+  }
+  __syncthreads();
+
+  const float sl2 = scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  // K, V and ring tile 0 are split before the loop; tile it+1 is split
+  // while tile it's dV and dK products run on the tensor cores
+  if (total > 0) {
+    mbar_wait(&sm.kvbar, 0);
+    split_tf32<WK * D / 4>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
+    split_tf32<WK * D / 4>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
+    mbar_wait(&sm.full[0], 0);
+    split_qdo_tile(sm, 0, 0, ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
+                   delta, Tq);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  for (int it = 0; it < total; ++it) {
+    const int vb = it % 2;
+    const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, TT).q0;
+    if (tid == 0 && it + TSTAGES < total)
+      load_qdo_f32(sm, &tq, &tdo,
+                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT),
+                   it % TSTAGES);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 query rows
+    float stbig[1][TT / 2], stsm[TT / 2], dptbig[4][TT / 2], dptsm[TT / 2];
+    wgmma_fence();
+    product_x3<D, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi, sm.qlo);
+    product_x3<D, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi, sm.dolo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    float st[TT / 2], dpt[TT / 2];
+    sum_terms(stbig, stsm, st);
+    sum_terms(dptbig, dptsm, dpt);
+    __syncthreads();  // every warp is done with Q and dO split
+
+    // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
+    // under the masks, P = 0 where masked; interior tiles skip the mask
+    const bool interior = k0 + WK <= kl && q0 + TT <= Tq &&
+                          (!causal || k0 + WK - 1 <= q0 + offset);
+#pragma unroll
+    for (int i = 0; i < TT / 2; ++i) {
+      const int qc = acc_col(i);
+      bool valid = true;
+      if (!interior) {
+        const int ki = k0 + acc_row(i), qi = q0 + qc;
+        valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+      }
+      const float p = valid ? exp2f(st[i] * sl2 - sm.lse2[vb][qc]) : 0.f;
+      dpt[i] = valid ? p * (dpt[i] - sm.delta[vb][qc]) : 0.f;
+      st[i] = p;
+    }
+    uint32_t phi[TT / 8][4], plo[TT / 8][4], dshi[TT / 8][4],
+        dslo[TT / 8][4];
+    acc_to_tf32_split(st, phi, plo);
+    acc_to_tf32_split(dpt, dshi, dslo);
+
+    // dV += P^T dO and dK += dS^T Q, dO^T and Q^T staged rows contiguous
+    wgmma_fence();
+    product_rs_x3(dva, phi, plo, sm.dothi[vb][0], sm.dotlo[vb][0]);
+    product_rs_x3(dka, dshi, dslo, sm.qthi[vb][0], sm.qtlo[vb][0]);
+    wgmma_commit();
+    if (it + 1 < total) {
+      // buffers 1 - vb were read by tile it-1's products, waited for
+      const int s1 = (it + 1) % TSTAGES;
+      mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
+      split_qdo_tile(sm, s1, 1 - vb,
+                     ring_pos(it + 1, b, H, hk, g, qt0, nq, TT), lse, delta,
+                     Tq);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    keep_regs(phi);
+    keep_regs(plo);
+    keep_regs(dshi);
+    keep_regs(dslo);
+    __syncthreads();  // tile it+1 split; every warp is done with buffers vb
+  }
+
+  // dK x scale once
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ki = k0 + acc_row(0) + 8 * h;
+    if (ki >= Tk) continue;
+    const size_t row = ((size_t)bkv * Tk + ki) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(dk + row + 8 * j + cq) =
+          make_float2(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + row + 8 * j + cq) =
+          make_float2(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_tf32x3(const void* q, const void* k, const void* v,
+                      const void* klen, const void* lse, const void* delta,
+                      const void* dout, void* dk, void* dv, int B, int H,
+                      int Hkv, int Tq, int Tk, int causal, float scale,
+                      cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, WK);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, WK);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(DkvTf32Smem<D>) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+      (const int*)klen, (float*)dk, (float*)dv, H, Hkv, Tq, Tk, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of a launch, and the blocks an SM holds
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int* smem_out, int* blocks) {
+  *smem_out = (int)smem;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
+                                                      smem);
+  return (int)e;
+}
+
 bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Tq >= 1 && Tk >= 1;
 }
@@ -860,8 +1437,8 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch_dq_f32<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
-                             Tq, Tk, causal, scale, s);
+    return launch_dq_tf32x3<64>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                                Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 0 && D == 128)
     return launch_dq_f32<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
                               Hkv, Tq, Tk, causal, scale, s);
@@ -883,8 +1460,8 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch_dkv_f32<64>(q, k, v, klen, lse, delta, dout, dk, dv, B, H,
-                              Hkv, Tq, Tk, causal, scale, s);
+    return launch_dkv_tf32x3<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
+                                 H, Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 0 && D == 128)
     return launch_dkv_f32<128>(q, k, v, klen, lse, delta, dout, dk, dv, B, H,
                                Hkv, Tq, Tk, causal, scale, s);
@@ -894,5 +1471,37 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128)
     return launch_dkv_bf16<128>(q, k, v, klen, lse, delta, dout, dk, dv, B,
                                 H, Hkv, Tq, Tk, causal, scale, s);
+  return -1;
+}
+
+// The shared memory a backward launch asks for at head dimension D and
+// dtype (as in pt_flash_bwd_dq), for the dQ kernel (kind 0) or the dK/dV
+// kernel (kind 1), and how many such blocks an SM holds, as the CUDA
+// runtime reports them; 0 on success.
+extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
+                                      int* blocks) {
+  if (dtype == 0 && D == 64)
+    return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<64>,
+                                 sizeof(DqTf32Smem<64>) + 1024, smem, blocks)
+                     : occupancy(flash_bwd_dkv_tf32x3_kernel<64>,
+                                 sizeof(DkvTf32Smem<64>) + 1024, smem,
+                                 blocks);
+  if (dtype == 0 && D == 128)
+    return kind == 0 ? occupancy(flash_bwd_dq_kernel<128>,
+                                 dq_smem_floats<128>() * sizeof(float), smem,
+                                 blocks)
+                     : occupancy(flash_bwd_dkv_kernel<128>,
+                                 dkv_smem_floats<128>() * sizeof(float), smem,
+                                 blocks);
+  if (dtype == 1 && D == 64)
+    return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<64>,
+                                 sizeof(DqSmem<64>) + 1024, smem, blocks)
+                     : occupancy(flash_bwd_dkv_wgmma_kernel<64>,
+                                 sizeof(DkvSmem<64>) + 1024, smem, blocks);
+  if (dtype == 1 && D == 128)
+    return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<128>,
+                                 sizeof(DqSmem<128>) + 1024, smem, blocks)
+                     : occupancy(flash_bwd_dkv_wgmma_kernel<128>,
+                                 sizeof(DkvSmem<128>) + 1024, smem, blocks);
   return -1;
 }

@@ -68,7 +68,9 @@
 //  - P from registers: the S fragment holds keys 2c, 2c+1 of each 8-key
 //    group where the TF32 A fragment takes depth columns c, c+4, so V^T
 //    is written with key 2c + e at position c + 4e of its group and the
-//    split P_hi, P_lo feed wgmma without shuffles;
+//    split P_hi, P_lo feed wgmma without shuffles (the split helpers,
+//    split_tf32, split_t32 and acc_to_tf32_split, are in hopper_mma.cuh,
+//    shared with the float32 backward);
 //  - shared memory: a float32 tile is twice a bf16 one and every operand
 //    is held twice, so key tiles are 32 keys (S is m64n32), the raw K/V
 //    ring (2 stages, TMA) is separate from the split copies, and V^T has
@@ -356,82 +358,15 @@ __device__ __forceinline__ void load_kv_f32(Tf32Smem<D>& sm,
   }
 }
 
-// src -> (hi, lo) = (tf32(x), tf32(x - hi)) over N float4s, all threads;
-// hi may be src.  The regions share one swizzled layout, so the split is
-// element by element.  Each thread loads all its words before it rounds
-// and stores any.
-template <int N>
-__device__ __forceinline__ void split_tf32(const float4* src, float4* hi,
-                                           float4* lo) {
-  static_assert(N % NT == 0, "whole float4s a thread");
-  float4 x[N / NT];
-#pragma unroll
-  for (int j = 0; j < N / NT; ++j) x[j] = src[threadIdx.x + j * NT];
-#pragma unroll
-  for (int j = 0; j < N / NT; ++j) {
-    const float xs[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
-    float h[4], r[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      h[e] = __uint_as_float(hopper::tf32_rna(xs[e]));
-      r[e] = __uint_as_float(hopper::tf32_rna(xs[e] - h[e]));
-    }
-    hi[threadIdx.x + j * NT] = make_float4(h[0], h[1], h[2], h[3]);
-    lo[threadIdx.x + j * NT] = make_float4(r[0], r[1], r[2], r[3]);
-  }
-}
-
-// The V tile, D / 32 regions of [TK keys x 32 columns], as V^T hi and lo:
-// [D rows x TK keys], keys contiguous (the K-major B of P V).  Lane = key,
-// so a warp's stores fill whole V^T rows, one bank each; key 8a + 2c + e
-// lands at position 8a + c + 4e, the depth column where the P fragment
-// holds it.  Warp w takes columns 4 (w + 4 i) .. + 3.
-template <int D>
-__device__ __forceinline__ void split_vt(const float* vraw, float* vthi,
-                                         float* vtlo) {
-  static_assert(TK == 32, "one key a lane");
-  constexpr int IT = D / 16;  // 4-column groups a warp
-  const int j = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int pos = (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
-  float4 x[IT];
-#pragma unroll
-  for (int i = 0; i < IT; ++i) {
-    const int d4 = warp + 4 * i;
-    const int c = d4 / 8, w = d4 % 8;  // region, 16-byte word of its row
-    x[i] = *reinterpret_cast<const float4*>(vraw + c * TK * 32 + j * 32 +
-                                            ((w ^ (j & 7)) << 2));
-  }
-#pragma unroll
-  for (int i = 0; i < IT; ++i) {
-    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (warp + 4 * i) + e;
-      const int at = d * 32 + ((((pos >> 2) ^ (d & 7)) << 2) | (pos & 3));
-      const float h = __uint_as_float(hopper::tf32_rna(xs[e]));
-      vthi[at] = h;
-      vtlo[at] = __uint_as_float(hopper::tf32_rna(xs[e] - h));
-    }
-  }
-}
-
 // ring stage s: K into K_hi, K_lo and V into V^T buffer vb
 template <int D>
 __device__ __forceinline__ void split_kv(Tf32Smem<D>& sm, int s, int vb) {
-  split_tf32<TK * D / 4>(reinterpret_cast<const float4*>(sm.kraw[s][0]),
-                         reinterpret_cast<float4*>(sm.khi[0]),
-                         reinterpret_cast<float4*>(sm.klo[0]));
-  split_vt<D>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0]);
-}
-
-// keep register A fragments unchanged until the product that reads them
-// has been waited for
-template <int N>
-__device__ __forceinline__ void keep_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  static_assert(TK == 32, "split_t32 takes one key a lane");
+  hopper::split_tf32<TK * D / 4>(
+      reinterpret_cast<const float4*>(sm.kraw[s][0]),
+      reinterpret_cast<float4*>(sm.khi[0]),
+      reinterpret_cast<float4*>(sm.klo[0]));
+  hopper::split_t32<D>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0]);
 }
 
 template <int D>
@@ -519,20 +454,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P as TF32 A fragments, hi and lo: 8-key group kk of this thread's
-    // fragment holds keys 2c, 2c+1 (c = tid % 4) of rows r0, r0 + 8, which
-    // are depth columns c, c + 4 of the A fragment (see split_vt)
+    // P as TF32 A fragments, hi and lo (V^T is permuted to match)
     uint32_t phi[TK / 8][4], plo[TK / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < TK / 8; ++kk) {
-      const int at[4] = {4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = sacc[at[j]];
-        phi[kk][j] = tf32_rna(x);
-        plo[kk][j] = tf32_rna(x - __uint_as_float(phi[kk][j]));
-      }
-    }
+    acc_to_tf32_split(sacc, phi, plo);
 
     wgmma_fence();
 #pragma unroll

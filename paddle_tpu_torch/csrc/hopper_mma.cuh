@@ -458,4 +458,110 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64],
         "r"(accumulate));
 }
 
+// ------------------------------------------------------- 3xTF32 splits
+//
+// A float32 product as three TF32 ones: x y ~ x_hi y_hi + x_hi y_lo +
+// x_lo y_hi, with x_hi = tf32_rna(x) and x_lo = tf32_rna(x - x_hi).  hi +
+// lo keeps x to ~2^-22, and the dropped lo x lo term is ~2^-22 of x y, so
+// the sum keeps float32's order of error where one TF32 product (~2^-11)
+// would not.  The helpers below are run by all 128 threads of a
+// warpgroup-sized block.
+
+constexpr int kWarpgroup = 128;
+
+// src -> (hi, lo) over N float4s; hi may be src.  The regions share one
+// swizzled layout, so the split is element by element.  Each thread loads
+// all its words before it rounds and stores any.
+template <int N>
+__device__ __forceinline__ void split_tf32(const float4* src, float4* hi,
+                                           float4* lo) {
+  static_assert(N % kWarpgroup == 0, "whole float4s a thread");
+  constexpr int PER = N / kWarpgroup;
+  const int t = threadIdx.x % kWarpgroup;
+  float4 x[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) x[j] = src[t + j * kWarpgroup];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float xs[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+    float h[4], r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __uint_as_float(tf32_rna(xs[e]));
+      r[e] = __uint_as_float(tf32_rna(xs[e] - h[e]));
+    }
+    hi[t + j * kWarpgroup] = make_float4(h[0], h[1], h[2], h[3]);
+    lo[t + j * kWarpgroup] = make_float4(r[0], r[1], r[2], r[3]);
+  }
+}
+
+// A tile of 32 rows x D float32 columns, as TMA lands it (D / 32 regions
+// of [32 rows x 32 columns] in the 128-byte swizzle), transposed into hi
+// and lo: [D x 32 rows], rows contiguous, the K-major B operand of a
+// product that reduces over the tile's rows (V in P V, K in dS K, dO in
+// P^T dO, Q in dS^T Q).  Lane = row, so a warp's stores fill whole
+// transposed rows, one bank each; row 8a + 2c + e lands at position 8a +
+// c + 4e, the depth column where an accumulator turned A fragment holds
+// it (acc_to_tf32_split).  Warp w takes columns 4 (w + 4 i) .. + 3.
+template <int D>
+__device__ __forceinline__ void split_t32(const float* raw, float* thi,
+                                          float* tlo) {
+  constexpr int IT = D / 16;  // 4-column groups a warp
+  const int j = threadIdx.x % 32, warp = (threadIdx.x % kWarpgroup) / 32;
+  const int pos = (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+  float4 x[IT];
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int d4 = warp + 4 * i;
+    const int c = d4 / 8, w = d4 % 8;  // region, 16-byte word of its row
+    x[i] = *reinterpret_cast<const float4*>(raw + c * 32 * 32 + j * 32 +
+                                            ((w ^ (j & 7)) << 2));
+  }
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (warp + 4 * i) + e;
+      const int at = d * 32 + ((((pos >> 2) ^ (d & 7)) << 2) | (pos & 3));
+      const float h = __uint_as_float(tf32_rna(xs[e]));
+      thi[at] = h;
+      tlo[at] = __uint_as_float(tf32_rna(xs[e] - h));
+    }
+  }
+}
+
+// A float32 accumulator of an m64nN product (NACC = N / 2 values a
+// thread) as
+// the TF32 A fragments, hi and lo, of the next product that reduces over
+// those N columns: 8-column group kk of the accumulator holds columns 2c,
+// 2c + 1 (c = thread % 4) of rows r, r + 8, which are depth columns c,
+// c + 4 of the A fragment, so the B operand is staged with the
+// permutation of split_t32 and no shuffles are needed.
+template <int NACC>
+__device__ __forceinline__ void acc_to_tf32_split(
+    const float (&acc)[NACC], uint32_t (&hi)[NACC / 4][4],
+    uint32_t (&lo)[NACC / 4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NACC / 4; ++kk) {
+    const int at[4] = {4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = acc[at[j]];
+      hi[kk][j] = tf32_rna(x);
+      lo[kk][j] = tf32_rna(x - __uint_as_float(hi[kk][j]));
+    }
+  }
+}
+
+// keep register A fragments unchanged until the product that reads them
+// has been waited for
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 }  // namespace hopper

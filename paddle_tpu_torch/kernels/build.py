@@ -158,6 +158,8 @@ def _bind(lib):
     lib.pt_flash_bwd_dq.restype = i
     lib.pt_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 8 + [f, p]
     lib.pt_flash_bwd_dkv.restype = i
+    lib.pt_flash_bwd_occupancy.argtypes = [i, i, i, p, p]
+    lib.pt_flash_bwd_occupancy.restype = i
     lib.pt_layer_norm.argtypes = [p] * 6 + [ctypes.c_longlong, i, f, i, i,
                                             p]
     lib.pt_layer_norm.restype = i

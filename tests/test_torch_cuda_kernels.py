@@ -8,6 +8,8 @@ and its test conftest are not installed, run:
         tests/test_torch_cuda_kernels.py
 
 This file imports neither jax nor paddle_tpu."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -143,6 +145,14 @@ def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype, misalign):
     (torch.bfloat16, 128, True, 200, 200, 2, [200, 200]),
     (torch.bfloat16, 64, True, 70, 70, 4, [0, 50]),
     (torch.bfloat16, 64, False, 50, 300, 2, [300, 299]),
+    # the float32 (3xTF32 wgmma, D = 64) kernels': a partial k_len on the
+    # training shape's tiles, k_len 0 and 1 rows, Tq < Tk with and without
+    # the causal mask, ragged query and key tiles
+    (torch.float32, 64, True, 256, 256, 8, [256, 200]),
+    (torch.float32, 64, True, 70, 70, 4, [0, 50]),
+    (torch.float32, 64, False, 150, 150, 2, [150, 1]),
+    (torch.float32, 64, True, 37, 161, 1, [161, 100]),
+    (torch.float32, 64, False, 50, 300, 2, [300, 299]),
 ])
 def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                                             Hkv, klen):
@@ -154,10 +164,21 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
     kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
     out, lse = att.flash_forward(q, k, v, causal, None, kl)
     before = dict(kernels.launches)
-    grads = att.flash_backward(q, k, v, kl, out, lse, do, causal)
-    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        grads = att.flash_backward(q, k, v, kl, out, lse, do, causal)
+        torch.cuda.synchronize()
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + 1
+    # the design each dtype and D runs: bf16 on wgmma, float32 as 3xTF32
+    # wgmma at D = 64 and on CUDA cores at D = 128
+    design = ('wgmma' if dtype == torch.bfloat16 else
+              'tf32x3' if D == 64 else None)
+    names = {m.group(0) for m in (re.search(r'flash_bwd_\w+', e.key)
+                                  for e in prof.key_averages()) if m}
+    stem = design + '_' if design else ''
+    assert names == {'flash_bwd_dq_%skernel' % stem,
+                     'flash_bwd_dkv_%skernel' % stem}, names
     refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
                                         D ** -0.5)
     # f32: other summation orders, and dS = P (dP - delta) cancels, so the
@@ -181,13 +202,18 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         # dS^T Q, whatever the kernel does: the bound adds 4 eps x that
         # size to the relative and max-relative terms, and the plain
         # backward is held to it as the kernel is.
+        # (batch rows with k_len = 0, checked to be zero above, are left
+        # out: autograd through the plain forward's torch.where gives NaN
+        # there, from exp(s - m) with m = -1e30 in the branch not taken)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         ref_out, _ = att._ref_attention(*leaves, causal, D ** -0.5, kl)
         auto = torch.autograd.grad(ref_out, leaves, do)
         cancel = _cancel_size(q, k, v, kl, out, lse, do, causal, D ** -0.5)
         eps = torch.finfo(torch.float32).eps
+        has_key = kl > 0
         for who, got in (('kernel', grads), ('plain', refs)):
             for a, r, c, n in zip(got, auto, cancel, ('dq', 'dk', 'dv')):
+                a, r, c = a[has_key], r[has_key], c[has_key]
                 err = (a - r).abs()
                 bound = (1e-4 * r.abs() + 1e-5 * float(r.abs().max())
                          + 4 * eps * c)

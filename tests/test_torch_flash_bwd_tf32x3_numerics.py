@@ -1,0 +1,301 @@
+"""The arithmetic of the port's float32 flash backward, emulated on the CPU,
+against the port's plain version and the JAX package.
+
+csrc/flash_bwd.cu `flash_bwd_dq_tf32x3_kernel` and
+`flash_bwd_dkv_tf32x3_kernel` run only on the card.  They run every
+float32 product on the TF32 tensor cores as three: x y ~ x_lo y_hi + x_hi
+y_lo + x_hi y_hi with x_hi = tf32(x) and x_lo = tf32(x - x_hi), each
+rounded to nearest (ties away: `cvt.rna.tf32.f32`).  The tensor cores
+form each k8 step's products exactly and add them into a float32
+accumulator truncating toward zero; that model is repeated here (float64
+partial sums, rounded toward zero), tile by tile at the kernels' sizes:
+
+- dQ, a block of 64 query rows, key tiles of 32: S = Q K^T and dP = dO
+  V^T (Q, K, dO, V split; the small terms in one accumulator, the big
+  ones in one for S and round robin in four for dP, added in float32),
+  P = exp2(S scale log2(e) - LSE log2(e)) and dS = P (dP - delta) under
+  the masks (P = 0 where masked), dQ += dS K (dS and K split, one
+  accumulator), dQ x scale at the end;
+- dK/dV, a block of 64 keys, ring tiles of 32 query rows over the GQA
+  group's heads: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as above,
+  dV += P^T dO and dK += dS^T Q, dK x scale.
+
+Rows are independent within a block, so a whole tensor stands for all
+blocks; tiles a kernel skips (past k_len or the causal frontier) are fully
+masked here and add exact zeros.
+
+The emulation must hold the card's unchanged float32 check (chip_smoke.py
+`flash_bwd_case`, tests/test_torch_cuda_kernels.py): rtol 1e-4 and atol
+1e-5 x max|grad| against the port's `flash_backward_reference`; and, at
+the same tolerance, the JAX package's Pallas backward in interpret mode
+(run as tests/test_torch_flash_backward.py runs it), both on the JAX
+forward's out and LSE.  The float32 autograd check of the card test, with
+its derived allowance where dS cancels (k_len = 1), holds it too.  Two
+cheaper designs miss the first check: one TF32 product, and the three
+products of S and dP in one accumulator (the kernels' first version,
+which missed it on an H100 by 2.3x).  D = 128
+emulates the same arithmetic; on the card float32 at D = 128 runs the
+CUDA-core kernels (csrc/flash_bwd.cu says why)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import attention as jatt
+from paddle_tpu_torch.ops import attention as tatt
+from test_torch_cuda_kernels import _cancel_size
+
+TT = 32      # rows of a ring tile: keys (dQ), query rows (dK/dV)
+LOG2E = 1.4426950408889634
+RTOL, AREL = 1e-4, 1e-5
+
+
+def tf32_rna(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away
+    from zero, as cvt.rna.tf32.f32."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def rz(x):
+    """float64 -> float32, toward zero: how the tensor cores round a sum."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def k8_sums(a, b):
+    """a [..., M, K] @ b [..., K, N] as its K / 8 exact partial sums, one a
+    k8 step (products of TF32 values are exact), float64 [K/8, ..., M, N]."""
+    K = a.shape[-1]
+    a8 = a.double().unflatten(-1, (K // 8, 8)).movedim(-2, 0)
+    b8 = b.double().unflatten(-2, (K // 8, 8)).movedim(-3, 0)
+    return a8 @ b8
+
+
+def chain(acc, steps):
+    """Each step added into the float32 accumulator, rounded toward zero;
+    acc None: the first step overwrites it."""
+    for st in steps:
+        acc = rz(st if acc is None else acc.double() + st)
+    return acc
+
+
+def tc_product(acc, a, b, mode, nbig=1):
+    """acc (+)= a @ b as the kernels run it on the TF32 tensor cores.
+    'one': one TF32 product.  'x3': three a k8 step into one accumulator,
+    small terms first (lo hi, hi lo, hi hi).  'split' (acc None: S and dP):
+    the small terms into one accumulator, the big terms' k8 steps round
+    robin into `nbig`, summed pairwise and added to the small one in
+    float32, rounded to nearest."""
+    if mode == 'one':
+        return chain(acc, k8_sums(tf32_rna(a), tf32_rna(b)))
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    lh, hl, hh = k8_sums(al, bh), k8_sums(ah, bl), k8_sums(ah, bh)
+    if mode == 'x3':
+        return chain(acc, [t for kc in range(len(hh))
+                           for t in (lh[kc], hl[kc], hh[kc])])
+    assert acc is None
+    small = chain(None, [t for kc in range(len(hh)) for t in (lh[kc],
+                                                              hl[kc])])
+    big = [chain(None, hh[i::nbig]) for i in range(nbig)]
+    while len(big) > 1:
+        big = [big[i] + big[i + 1] for i in range(0, len(big), 2)]
+    return big[0] + small
+
+
+# how each design forms S and dP: (mode, big accumulators of S, of dP);
+# the products that accumulate (dQ, dK, dV) run 'x3', or 'one'
+DESIGNS = {'x3': ('split', 1, 4),           # the kernels
+           'single_acc': ('x3', 1, 1),     # their first version
+           'one': ('one', 1, 1)}           # one TF32 product
+
+
+def _pad_rows(t):
+    """A ring tile of fewer than TT rows, zero-filled to TT."""
+    return torch.nn.functional.pad(t, (0, 0, 0, TT - t.shape[-2]))
+
+
+def emulate_backward(q, k, v, do, kl, out, lse, causal, scale,
+                     design='x3'):
+    """The two kernels on float32 q/do [B, H, Tq, D], k/v [B, Hkv, Tk, D],
+    out, lse [B*H, Tq] -> (dq, dk, dv)."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    sp_mode, s_big, dp_big = DESIGNS[design]
+    acc_mode = 'one' if design == 'one' else 'x3'
+
+    def sp(a, b, nbig):
+        return tc_product(None, a, b, sp_mode, nbig)
+
+    qg = q.reshape(B, Hkv, g, Tq, D)
+    dog = do.reshape(B, Hkv, g, Tq, D)
+    delta = tatt._bwd_delta(out, do).reshape(B, Hkv, g, Tq, 1)
+    lse2 = lse.reshape(B, Hkv, g, Tq, 1) * LOG2E
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    valid = tatt._valid_mask(B, Tq, Tk, causal, kl, 'cpu').expand(
+        B, Hkv, g, Tq, Tk)
+    zero = torch.zeros(())
+
+    # dQ: key tiles of TT in order
+    dq = torch.zeros(B, Hkv, g, Tq, D)
+    for k0 in range(0, Tk, TT):
+        n = min(TT, Tk - k0)   # keys past Tk: TMA fills zeros
+        kt, vt = (_pad_rows(t[:, :, None, k0:k0 + n]) for t in (k, v))
+        vm = torch.zeros(B, Hkv, g, Tq, TT, dtype=torch.bool)
+        vm[..., :n] = valid[..., k0:k0 + n]
+        s = sp(qg, kt.transpose(-1, -2), s_big)
+        dp = sp(dog, vt.transpose(-1, -2), dp_big)
+        p = torch.where(vm, torch.exp2(s * sl2 - lse2), zero)
+        ds = torch.where(vm, p * (dp - delta), zero)
+        dq = tc_product(dq, ds, kt.expand(B, Hkv, g, -1, D), acc_mode)
+    dq = dq * scale
+
+    # dK/dV: ring tiles of TT query rows, the group's heads outer
+    dk = torch.zeros(B, Hkv, Tk, D)
+    dv = torch.zeros(B, Hkv, Tk, D)
+    for gi in range(g):
+        for q0 in range(0, Tq, TT):
+            n = min(TT, Tq - q0)   # rows past Tq: TMA fills zeros
+            qt, dot = (_pad_rows(t[:, :, gi, q0:q0 + n]) for t in (qg, dog))
+            vm = torch.zeros(B, Hkv, Tk, TT, dtype=torch.bool)
+            vm[..., :n] = valid[:, :, gi, q0:q0 + n].transpose(-1, -2)
+            lt = torch.zeros(B, Hkv, 1, TT)
+            lt[..., :n] = lse2[:, :, gi, q0:q0 + n].transpose(-1, -2)
+            dlt = torch.zeros(B, Hkv, 1, TT)
+            dlt[..., :n] = delta[:, :, gi, q0:q0 + n].transpose(-1, -2)
+            st = sp(k, qt.transpose(-1, -2), s_big)
+            dpt = sp(v, dot.transpose(-1, -2), dp_big)
+            pt = torch.where(vm, torch.exp2(st * sl2 - lt), zero)
+            dst = torch.where(vm, pt * (dpt - dlt), zero)
+            dv = tc_product(dv, pt, dot, acc_mode)
+            dk = tc_product(dk, dst, qt, acc_mode)
+    return dq.reshape(B, H, Tq, D), dk * scale, dv
+
+
+CASES = [
+    # B, H, Hkv, Tq, Tk, D, causal, k_len (None: Tk)
+    (2, 4, 4, 256, 256, 64, False, None),            # the training tiles
+    (2, 4, 4, 256, 256, 64, True, [256, 200]),       # causal, k_len
+    (2, 8, 2, 128, 128, 64, True, None),             # GQA 8/2
+    (3, 4, 2, 150, 150, 64, False, [150, 77, 1]),    # k_len 1, ragged
+    (2, 8, 2, 150, 150, 64, False, [150, 1]),        # k_len 1, GQA 8/2
+    (2, 4, 4, 70, 70, 64, True, [0, 50]),            # k_len 0 rows
+    (2, 4, 1, 37, 161, 64, True, [161, 100]),        # Tq < Tk, k_len
+    (2, 4, 2, 50, 300, 64, False, [300, 299]),       # Tq < Tk
+    (3, 4, 2, 150, 150, 128, True, [150, 77, 1]),    # D = 128
+]
+IDS = ['path_d64', 'causal_klen', 'gqa', 'klen1', 'klen1_gqa', 'klen0',
+       'tq_lt_tk', 'tq_lt_tk_noncausal', 'd128_klen1']
+
+
+def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed=0):
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(B, H, Tq, D).astype('float32') for _ in range(2))
+    k, v = (rng.randn(B, Hkv, Tk, D).astype('float32') for _ in range(2))
+    kl = np.asarray([Tk] * B if klen is None else klen, np.int32)
+    return q, k, v, do, kl
+
+
+def _block(n):
+    """The JAX kernels' grid needs tiles that divide T: the largest
+    divisor of n up to 64."""
+    return max(b for b in range(1, min(n, 64) + 1) if n % b == 0)
+
+
+def _jax_backward(q, k, v, do, kl, causal, scale):
+    """The JAX Pallas forward and backward kernels in interpret mode ->
+    (out, lse [B*H, Tq], dq, dk, dv) as torch tensors."""
+    bq, bk = _block(q.shape[2]), _block(k.shape[2])
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    out, lse = jatt._flash_forward(*args, jnp.asarray(kl), causal, scale,
+                                   bq, bk, interpret=True)
+    grads = jatt._flash_backward(*args, jnp.asarray(kl), out, lse,
+                                 jnp.asarray(do), causal, scale, bq, bk,
+                                 interpret=True)
+    return [torch.from_numpy(np.array(a))
+            for a in (out, lse[..., 0]) + tuple(grads)]
+
+
+def _within(got, ref):
+    """Every element within the card's float32 check."""
+    atol = AREL * float(ref.abs().max())
+    return bool(((got - ref).abs() <= atol + RTOL * ref.abs()).all())
+
+
+def _run(case, design='x3'):
+    B, H, Hkv, Tq, Tk, D, causal, klen = case
+    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen)
+    scale = D ** -0.5
+    out, lse, *jgrads = _jax_backward(q, k, v, do, kl, causal, scale)
+    t = [torch.from_numpy(a) for a in (q, k, v, do, kl)]
+    grads = emulate_backward(*t, out, lse, causal, scale, design)
+    refs = tatt.flash_backward_reference(t[0], t[1], t[2], t[4], out, lse,
+                                         t[3], causal, scale)
+    return t, out, lse, grads, refs, jgrads
+
+
+def test_tf32_split_keeps_float32():
+    """hi + lo keeps x to 2^-22; hi alone to 2^-11."""
+    r = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(
+        'float32'))
+    hi = tf32_rna(r)
+    lo = tf32_rna(r - hi)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi - r).abs() / r.abs()).max()) <= 2.0 ** -11
+    assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize('case', CASES, ids=IDS)
+def test_backward_emulation_within_the_float32_check(case):
+    t, _, _, grads, refs, jgrads = _run(case)
+    for got, ref, jref, n in zip(grads, refs, jgrads, ('dq', 'dk', 'dv')):
+        assert _within(got, ref), (n, float((got - ref).abs().max()))
+        assert _within(got, jref), (n, float((got - jref).abs().max()))
+    klen = case[-1]
+    if klen is not None and 0 in klen:   # no valid key: zero gradients
+        zero = t[4] == 0
+        assert not any(g[zero].any() for g in grads)
+
+
+@pytest.mark.parametrize('case', [CASES[3], CASES[4], CASES[8]],
+                         ids=['klen1', 'klen1_gqa', 'd128_klen1'])
+def test_emulation_within_the_autograd_check_where_ds_cancels(case):
+    """The card test's independent float32 check (autograd through the
+    plain forward), with its derived allowance of 4 eps x the size of the
+    terms that cancel in dS = P (dP - delta): a row with k_len = 1 has dP
+    = delta exactly, and 3xTF32 stays inside that allowance."""
+    t, out, lse, grads, _, _ = _run(case)
+    q, k, v, do, kl = t
+    causal, scale = case[6], case[5] ** -0.5
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    ref_out, _ = tatt._ref_attention(*leaves, causal, scale, kl)
+    auto = torch.autograd.grad(ref_out, leaves, do)
+    cancel = _cancel_size(q, k, v, kl, out, lse, do, causal, scale)
+    eps = torch.finfo(torch.float32).eps
+    for a, r, c, n in zip(grads, auto, cancel, ('dq', 'dk', 'dv')):
+        bound = 1e-4 * r.abs() + 1e-5 * float(r.abs().max()) + 4 * eps * c
+        assert bool(((a - r).abs() <= bound).all()), (
+            n, float(((a - r).abs() / bound).max()))
+
+
+def test_one_tf32_product_would_miss_the_float32_check():
+    """One TF32 product keeps ~2^-11 of each operand: the gradients miss
+    rtol 1e-4 / atol 1e-5 x max|grad| that the 3xTF32 split holds."""
+    _, _, _, grads, refs, _ = _run(CASES[0], design='one')
+    assert not any(_within(g, r) for g, r in zip(grads, refs))
+
+
+def test_one_accumulator_for_s_and_dp_would_miss_the_float32_check():
+    """The kernels' first version added all three products of S and dP
+    into one accumulator: truncated at the big terms' scale, the small
+    terms' low bits are lost, and dK of a GQA group whose batch row has one
+    valid key (every dS there is rounding; 600 of them sum into it) misses
+    the check (on an H100 by 2.3x), which the kernels' own
+    accumulators hold (the test above, case klen1_gqa)."""
+    case = CASES[IDS.index('klen1_gqa')]
+    _, _, _, grads, refs, _ = _run(case, design='single_acc')
+    assert not _within(grads[1], refs[1])
