@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Serve llama_1b and train transformer-base through paddle_tpu_torch on one
-NVIDIA GPU, and hold each hand-written CUDA kernel against its plain
-PyTorch version.
+"""Serve llama_1b (float32 and bf16, and as a streaming generation server)
+and train transformer-base through paddle_tpu_torch on one NVIDIA GPU, and
+hold each hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
     python3 chip_smoke.py --phases card,kernels,training_composed
+    python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -35,8 +36,36 @@ Phases, each printing JSON lines:
               read around the served requests; then torch.profiler over
               one 4-row batch (device time by kernel group, idle share),
               whose 16 flash forwards must all be the 3xTF32 kernel
+  serving_bf16
+              the same model, feeds and buckets through a Predictor with
+              AnalysisConfig.enable_bf16 (bf16 parameters): every request
+              ok, served rows within the bf16 bound of pred.run alone and
+              of the float32 Predictor's logits on the same feeds, and two
+              faults made in a third bf16 Predictor's parameters (the
+              last layer's attention dropped; fp8 precision) outside it;
+              one profiled 4-row batch, whose 16 flash forwards must all be
+              the bf16 wgmma kernel
+  generation  llama_1b (full width and depth, float32, TF32 off, weights
+              from its program's startup) through make_streaming_runtime
+              (8 slots, prefill chunks of 256) and GenerationEngine
+              (decode windows of 4): 8 concurrent requests of 128-1024
+              prompt tokens and 64 new tokens, greedy and seeded top-k;
+              TTFT and ITL p50 / p99, decode tokens/s, window ms, KV pool
+              bytes and peak memory; every stream terminal once, K4 one
+              launch a prefill chunk and a decode step, no plain version on
+              the card; two greedy streams against dense_reference on the
+              card, a seeded and a greedy stream of the batch bitwise
+              equal to the same request run alone, a seeded stream bitwise
+              at windows of 1 and 4; one profiled window of 8 decoding
+              slots (device time by aten op group, idle share); the
+              plain cached_attention against one
+              SDPA call with the same mask at the decode and prefill
+              shapes (timed only)
   gpu_vs_cpu  llama_1b width, 2 layers, max_len 512: one saved model through
               the port's Predictor on the card and on the CPU
+  generation_gpu_vs_cpu
+              llama_1b width, 2 layers: a 64-token prompt and 16 greedy
+              tokens through the paged runtime on the card and on the CPU
   training    transformer-base as bench.py builds it (full width, 6+6
               layers, vocab 32000, B=32, T=256, bf16 AMP, flash attention,
               dropout 0, random init from a seed) trained by
@@ -70,16 +99,20 @@ Phases, each printing JSON lines:
               dropout 0.1: 3 steps with PT_OPT=1 (generated kernels) and
               with PT_OPT=0 (one eager op at a time) from the same seed;
               losses within 1e-6 relative, and whether bit for bit
-The phases run in that order, except that the three that also compute on
-the CPU (gpu_vs_cpu, train_gpu_vs_cpu, train_composed_gpu_vs_cpu) run
-last.  The line before the last is the nvidia-smi line; the line before
-that lists every kernel, with its launches per step on its training path
-(the composed one for K5, its generated segments, K4, K6 and Adam; the
-flash one for K1-K3 and its own segments), per served run for the
-serving-only ones; K1, K2 and K3 also list their two instances, bf16 on
-tensor cores and float32 (3xTF32 on tensor cores; launches per served run
-for K1, per float32 step for K2 and K3), each timed; with every phase run,
-a kernel or instance launched on none of its paths fails the script.  The last line
+The phases run in that order, except that the four that also compute on
+the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
+train_composed_gpu_vs_cpu) run last.  No phase is cut in depth for time.
+The line before the last is the nvidia-smi line; the line before that
+lists every kernel, with its launches per step on its training path (the
+composed one for K5, its generated segments, K4, K6 and Adam; the flash
+one for K1-K3 and its own segments), per served run for the serving-only
+ones, and `launches_by_path` (per served run for serving and
+serving_bf16, per decode step for generation, per step for each training
+path); K1, K2 and K3 also list their two instances, bf16 on tensor cores
+(the flash step; K1 also the bf16 served run) and float32 (3xTF32 on
+tensor cores; launches per served run for K1, per float32 step for K2
+and K3), each timed; with every phase run, a kernel or instance launched
+on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
 and convolutions run in full float32 (TF32 off), set below.
@@ -96,8 +129,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
-PHASES = ('card', 'kernels', 'serving', 'gpu_vs_cpu', 'training',
-          'training_f32', 'train_gpu_vs_cpu', 'training_composed',
+PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'generation',
+          'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
+          'train_gpu_vs_cpu', 'training_composed',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
@@ -667,13 +701,18 @@ def softmax_case(name, rows, cols, dtype, neg_inf_rows=0, timed=False):
     return row
 
 
-def _meta_env(main, feed):
+def _meta_env(main, feed, bf16=False):
     """Meta tensors for a program's persistables and a feed: enough for
-    the executor's planning pass, with no weights made."""
+    the executor's planning pass, with no weights made; with `bf16` the
+    float32 persistables are bf16, as a Predictor with enable_bf16 holds
+    them."""
     import torch
     from paddle_tpu_torch.core.dtypes import torch_dtype
-    env = {v.name: torch.empty(v.shape, dtype=torch_dtype(v.dtype),
-                               device='meta')
+
+    def dt(v):
+        d = torch_dtype(v.dtype)
+        return torch.bfloat16 if bf16 and d == torch.float32 else d
+    env = {v.name: torch.empty(v.shape, dtype=dt(v), device='meta')
            for v in main.list_vars() if v.persistable}
     block = main.global_block()
     for name, a in feed.items():
@@ -682,10 +721,10 @@ def _meta_env(main, feed):
     return env
 
 
-def _planned_specs(main, feed, fetch_names, amp):
+def _planned_specs(main, feed, fetch_names, amp, bf16=False):
     """The generated segments `main` runs at `feed`'s shapes, from the
     executor's planning pass on meta tensors: name -> (spec, sub-op
-    types)."""
+    types).  `bf16`: with bf16 parameters (enable_bf16)."""
     from paddle_tpu_torch.core import executor as ex, passes
     from paddle_tpu_torch.ops import kernelgen
     opt, _ = passes.maybe_optimize(main, fetch_names)
@@ -697,7 +736,8 @@ def _planned_specs(main, feed, fetch_names, amp):
         return plan
     kernelgen.plan_for = spy
     try:
-        ex._plan_kernels(opt.global_block().ops, _meta_env(main, feed), amp)
+        ex._plan_kernels(opt.global_block().ops,
+                         _meta_env(main, feed, bf16), amp)
     finally:
         kernelgen.plan_for = real
     specs = {}
@@ -713,9 +753,9 @@ def _planned_specs(main, feed, fetch_names, amp):
 def path_segments():
     """Every generated segment the main paths run: the composed and the
     flash training steps (B=32, T=256, bf16 AMP), the flash step in
-    float32, and the served llama_1b
-    decode program at each bucket (1, 2, 4 rows x 2048 tokens, float32):
-    name -> (spec, sub-op types, paths)."""
+    float32, and the served llama_1b decode program at each bucket (1, 2,
+    4 rows x 2048 tokens) in float32 and with bf16 parameters: name ->
+    (spec, sub-op types, paths)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models import transformer as tr
@@ -736,8 +776,10 @@ def path_segments():
     T = out['config']['max_len']
     for rows in BUCKETS:
         feed = {'tokens': np.zeros((rows, T, 1), 'int64')}
-        found.append(('serving', _planned_specs(
-            main, feed, [out[k].name for k in SERVED_FETCHES], False)))
+        for path, bf16 in (('serving', False), ('serving_bf16', True)):
+            found.append((path, _planned_specs(
+                main, feed, [out[k].name for k in SERVED_FETCHES], False,
+                bf16)))
     specs = {}
     for path, got in found:
         for name, (spec, ops) in got.items():
@@ -825,6 +867,13 @@ def phase_kernels():
                'bfloat16')
     served['embedding_gather'] = gather_case(
         'served_f32', 32000, 2048, 8192, 'float32', timed=True)
+    # the bf16 served lookup, and the generation embedding: a prefill
+    # chunk and a decode step of 8 slots, float32
+    gather_case('served_bf16', 32000, 2048, 8192, 'bfloat16', timed=True)
+    gather_case('gen_prefill_chunk_f32', 32000, 2048, 256, 'float32',
+                timed=True)
+    gather_case('gen_decode_step_f32', 32000, 2048, 8, 'float32',
+                timed=True)
     gather_case('wrap_nan_f32_ids64', 32000, 2048, 4096, 'float32',
                 special=True, ids64=True)
     gather_case('wrap_nan_bf16', 32000, 2048, 4096, 'bfloat16',
@@ -973,10 +1022,12 @@ def _clear(logits, tol):
     return (top2[..., 1] - top2[..., 0]) > 2 * tol
 
 
-def profile_batch(pred, feed, n_layer):
+def profile_batch(pred, feed, n_layer, phase='serving',
+                  design='fwd_tf32x3'):
     """Where one dispatched batch spends its time: torch.profiler over one
     Predictor.run (device time by kernel, grouped; the flash kernels by
-    design), beside the host wall time of three unprofiled runs."""
+    design), beside the host wall time of three unprofiled runs; every
+    flash forward of the batch must be `design`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1005,16 +1056,18 @@ def profile_batch(pred, feed, n_layer):
         low = name.lower()
         group = ('flash_attention_fwd' if 'flash_fwd' in name else
                  'embedding_gather' if 'gather_rows' in name else
+                 'kernelgen_segment' if 'kg_' in name else
                  'memcpy' if 'memcpy' in low else
                  'matmul' if any(s in low for s in ('gemm', 'cutlass',
-                                                    'sm90_', 'xmma')) else
+                                                    'sm90_', 'xmma',
+                                                    'nvjet')) else
                  'other')
         groups[group] = groups.get(group, 0.0) + us / 1e3
         top.append((us / 1e3, name[:80], e.count))
     top.sort(reverse=True)
     busy = sum(groups.values())
     flash = _flash_by_design(prof)
-    emit(phase='serving', step='profile',
+    emit(phase=phase, step='profile',
          rows=int(feed['tokens'].shape[0]),
          run_wall_ms=[w * 1e3 for w in walls],
          profiled_wall_ms=prof_wall * 1e3, device_ms_by_group=groups,
@@ -1022,18 +1075,108 @@ def profile_batch(pred, feed, n_layer):
          device_idle_share=(1 - busy / (prof_wall * 1e3)) if busy else None,
          flash_by_design=flash,
          top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:12]])
-    # one batch: a float32 flash forward a layer, all the 3xTF32 design
-    require(set(flash) == {'fwd_tf32x3'} and flash['fwd_tf32x3'][1] ==
-            n_layer, 'the served batch ran flash kernels %s, not %d '
-            'fwd_tf32x3' % (flash, n_layer))
+    # one batch: a flash forward a layer, all of the dtype's design
+    require(set(flash) == {design} and flash[design][1] == n_layer,
+            'the served batch ran flash kernels %s, not %d %s'
+            % (flash, n_layer, design))
+
+
+# bf16 bound: a logit passes R = 12 L + 2 bf16 roundings (unit roundoff
+# u = 2^-8; tests/test_torch_inference_bf16.py lists them); as independent
+# draws uniform in +-u the logits of two bf16 runs differ with standard
+# deviation sqrt(2 R / 3) u max|logit|, and a bf16 run and a float32 one
+# (only one side rounds) with sqrt(R / 3) u max|logit|.  The checks allow
+# one such deviation, set from readings on llama_1b (L = 16, 0.0314
+# max|logit| against float32): sound bf16 runs differ from float32 by
+# 0.0113-0.0136 max|logit| and the faults of `bf16_controls` by
+# 0.116-0.265 (PERF.md), and every fault must fail the check
+def bf16_tol(M, n_layer, runs=2):
+    return np.sqrt(runs * (12 * n_layer + 2) / 3.0) * 2.0 ** -8 * M
+
+
+def _round_significand(x, bits):
+    """x rounded to `bits` significant bits (fp8 e4m3 keeps 4), in x's
+    dtype; the exponent range is x's own."""
+    import torch
+    m, e = torch.frexp(x.float())
+    return torch.ldexp(torch.round(m * 2.0 ** bits) / 2.0 ** bits,
+                       e).to(x.dtype)
+
+
+def bf16_controls(pred, feeds, refs, n_layer):
+    """Faults the bf16 check must catch, made in place in a bf16
+    Predictor's parameters and undone after: the last layer's attention
+    dropped (its output projection zeroed) and every parameter at fp8
+    (e4m3) precision.  Each is held to the float32 logits `refs` of
+    `feeds` under the bf16-vs-float32 bound; returns its readings."""
+    import torch
+    params = pred._scope.vars
+    att = 'layer_%d_att_o_w' % (n_layer - 1)
+    with torch.inference_mode():
+        saved = {n: v.clone() for n, v in params.items()}
+
+    def drop_attention():
+        params[att].zero_()
+
+    def fp8_precision():
+        for v in params.values():
+            if v.is_floating_point():
+                v.copy_(_round_significand(v, 4))
+    out = {}
+    for name, fault in (('attention_dropped', drop_attention),
+                        ('fp8_precision', fp8_precision)):
+        with torch.inference_mode():
+            fault()
+        errs = []
+        for f, ref in zip(feeds, refs):
+            a = np.asarray(pred.run(f)[0], np.float32)
+            M = float(np.abs(ref).max())
+            errs.append(dict(max_abs_err=float(np.abs(a - ref).max()),
+                             tol=bf16_tol(M, n_layer, runs=1), max_logit=M))
+        with torch.inference_mode():
+            for n, v in params.items():
+                v.copy_(saved[n])
+        out[name] = errs
+    torch.cuda.synchronize()
+    caught = [e['max_abs_err'] > e['tol'] for v in out.values() for e in v]
+    require(all(caught), 'a bf16 fault passes the bf16 bound: %s' % out)
+    return out
+
+
+def _agree_bf16(a, b, n_layer, what, runs=2):
+    """bf16 logits `a` within the bf16 bound of `b` (bf16, runs=2, or
+    float32, runs=1); greedy tokens equal wherever the top-two gap exceeds
+    twice the bound."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    tol = bf16_tol(float(np.abs(b).max()), n_layer, runs)
+    err = float(np.abs(a - b).max())
+    require(err <= tol, '%s: logits differ by %g > %g' % (what, err, tol))
+    clear = _clear(b, tol)
+    same = np.argmax(a, -1) == np.argmax(b, -1)
+    require(bool(same[clear].all()), '%s: greedy tokens differ where the '
+            'top-two gap exceeds the tolerance' % what)
+    return err, tol, int(clear.sum()), int(clear.size)
 
 
 def phase_serving(smi):
+    """llama_1b served in float32, the reference's default."""
+    return _serve('serving', smi, bf16=False)
+
+
+def phase_serving_bf16(smi):
+    """llama_1b served with AnalysisConfig.enable_bf16: bf16 parameters,
+    bf16 GEMMs and K1's bf16 wgmma kernel; logits held to the bf16 bound
+    of the float32 Predictor's on the same feeds."""
+    return _serve('serving_bf16', smi, bf16=True)
+
+
+def _serve(phase, smi, bf16):
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels, serving
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops import kernelgen
+    f32 = ctl = None
     with _model_dir() as d:
         # what a serving client reads: the last position's logits and the
         # greedy next token (not the [B, T, V] logits of every position)
@@ -1041,12 +1184,22 @@ def phase_serving(smi):
             fluid, llama, d, SERVED_FETCHES)
         T, V = cfg['max_len'], cfg['vocab']
         t0 = time.perf_counter()
-        pred = fluid.inference.Predictor(d)
+        conf = fluid.inference.AnalysisConfig(d)
+        if bf16:
+            conf.enable_bf16()
+        pred = fluid.inference.Predictor(conf)
         load_s = time.perf_counter() - t0
-    emit(phase='serving', step='model', config='llama_1b',
+        if bf16:
+            f32 = fluid.inference.Predictor(d)
+            ctl = fluid.inference.Predictor(conf)
+    dtypes = sorted({str(v.dtype) for v in pred._scope.vars.values()})
+    emit(phase=phase, step='model', config='llama_1b',
          n_layer=cfg['n_layer'], params=n_params,
-         param_bytes=4 * n_params, startup_s=startup_s, save_s=save_s,
-         load_s=load_s, fetches=pred.get_output_names())
+         param_bytes=(2 if bf16 else 4) * n_params, param_dtypes=dtypes,
+         startup_s=startup_s, save_s=save_s, load_s=load_s,
+         fetches=pred.get_output_names())
+    require(dtypes == (['torch.bfloat16'] if bf16 else ['torch.float32']),
+            'parameter dtypes %s' % dtypes)
     rng = np.random.RandomState(SEED)
     # dispatched as buckets 1 (the first request alone), 4 (2 + 2), 4 (1 +
     # 1 + 2) and 2, so every bucket's generated kernels run
@@ -1061,7 +1214,7 @@ def phase_serving(smi):
         pred.run({'tokens': _tokens(np.random.RandomState(SEED + rows_),
                                     rows_, T, V)})
     torch.cuda.synchronize()
-    emit(phase='serving', step='warm', buckets=list(BUCKETS),
+    emit(phase=phase, step='warm', buckets=list(BUCKETS),
          kernelgen_nvcc_s=kernelgen.build_stats['nvcc_s'] - nvcc0)
     eng = serving.ServingEngine.from_predictor(
         pred, bucketer=fluid.FeedBucketer(list(BUCKETS)),
@@ -1096,32 +1249,51 @@ def phase_serving(smi):
     require(launches['embedding_gather'] == batches,
             'gather launches %d != %d batches'
             % (launches['embedding_gather'], batches))
-    checks = []
+    checks, vs_f32, f32_logits = [], [], []
     for f, r in zip(feeds, results):
         last, tok = r.outputs
         n = f['tokens'].shape[0]
         require(last.shape == (n, V) and tok.shape == (n,),
                 'bad output shapes')
+        require(str(last.dtype) == ('bfloat16' if bf16 else 'float32'),
+                'fetched logits of dtype %s' % last.dtype)
+        last = np.asarray(last, np.float32)
         require(bool(np.isfinite(last).all()), 'non-finite logits')
         require(bool(((tok >= 0) & (tok < V)).all()), 'token out of range')
         require(bool((tok == np.argmax(last, -1)).all()),
                 'greedy token is not the argmax of the last logits')
         a_last, a_tok = pred.run(f)
-        checks.append(_agree(last, a_last, 'served vs alone'))
+        a_last = np.asarray(a_last, np.float32)
+        if bf16:
+            # batched against alone: two bf16 runs (other GEMM shapes)
+            checks.append(_agree_bf16(last, a_last, cfg['n_layer'],
+                                      'served vs alone'))
+            f32_logits.append(f32.run(f)[0])
+            vs_f32.append(_agree_bf16(last, f32_logits[-1], cfg['n_layer'],
+                                      'bf16 vs float32', runs=1))
+        else:
+            checks.append(_agree(last, a_last, 'served vs alone'))
         require(bool((a_tok == tok)[_clear(a_last, checks[-1][1])].all()),
                 'served vs alone: next tokens differ')
     real_rows = sum(rows)
-    emit(phase='serving', step='served', requests=len(results),
-         statuses=statuses, batches=batches, rows=real_rows,
-         dispatched_rows=dispatched, launches=launches,
-         segment_launches=seg, wall_s=wall, batch_ms=batch_ms,
-         tokens_per_s=real_rows * T / wall,
-         alone_vs_batched=[dict(max_abs_err=e, tol=t, clear_rows=cl,
-                                rows=n) for e, t, cl, n in checks],
-         card=smi)
+    res = dict(phase=phase, step='served', requests=len(results),
+               statuses=statuses, batches=batches, rows=real_rows,
+               dispatched_rows=dispatched, launches=launches,
+               segment_launches=seg, wall_s=wall, batch_ms=batch_ms,
+               tokens_per_s=real_rows * T / wall,
+               alone_vs_batched=[dict(max_abs_err=e, tol=t, clear_rows=cl,
+                                      rows=n) for e, t, cl, n in checks],
+               card=smi)
+    if bf16:
+        res['bf16_vs_float32'] = [dict(max_abs_err=e, tol=t, clear_rows=cl,
+                                       rows=n) for e, t, cl, n in vs_f32]
+        res['controls'] = bf16_controls(ctl, feeds[:3], f32_logits[:3],
+                                        cfg['n_layer'])
+    emit(**res)
     profile_batch(pred, {'tokens': np.concatenate(
-        [f['tokens'] for f in feeds[1:3]])}, cfg['n_layer'])
-    del pred, eng
+        [f['tokens'] for f in feeds[1:3]])}, cfg['n_layer'], phase,
+        'fwd_wgmma' if bf16 else 'fwd_tf32x3')
+    del pred, eng, f32, ctl
     torch.cuda.empty_cache()
     launches.update(seg)
     return launches
@@ -1157,6 +1329,328 @@ def phase_gpu_vs_cpu():
          cpu_tokens=c_tok.tolist(), gpu_s=t1 - t0, cpu_s=t2 - t1)
     del gpu, cpu
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase 4b
+
+# the streaming decode server: 8 slots, prefill chunks of 256 tokens (a
+# 1024-token prompt prefills in 4 rounds, interleaved with decode windows;
+# the reference's default of 8 would take 128), decode windows of 4
+GEN_SLOTS, GEN_CHUNK, GEN_WINDOW, GEN_MAX_NEW = 8, 256, 4, 64
+GEN_PROMPTS = (128, 1024, 256, 768, 384, 512, 640, 896)
+
+
+def _llama_scope(fluid, llama, **overrides):
+    """llama_1b's weights (full width; `overrides` may cut depth) from its
+    program's startup on the card, random from SEED."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = llama.generation_program('llama_1b', mode='prefill',
+                                       **overrides)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor().run(startup)
+    return scope, out['config']
+
+
+def _stream_vs_dense(gen, w, cfg, prompt, stream, what):
+    """Token for token against `dense_reference` (on the weights' device)
+    while its top-two gap exceeds 4x the float32 tolerance (1e-4 of the
+    largest |logit|: the paged runtime and the dense reference sum in
+    other orders); returns the tokens compared."""
+    n = 0
+    for t in range(len(stream)):
+        _, _, lref = gen.dense_reference(w, cfg, list(prompt) +
+                                         list(stream[:t]))
+        tol = 1e-4 * float(np.abs(lref).max())
+        top2 = np.sort(lref)[-2:]
+        if top2[1] - top2[0] <= 4 * tol:
+            break
+        require(int(stream[t]) == int(np.argmax(lref)),
+                '%s: token %d is %d, the dense reference says %d'
+                % (what, t, stream[t], int(np.argmax(lref))))
+        n += 1
+    return n
+
+
+def _op_group(key):
+    """A decode window's aten op -> where its device time goes."""
+    if key in ('aten::mm', 'aten::addmm'):
+        return 'gemm_weights'
+    if key == 'aten::bmm':
+        return 'attention_products'
+    if key in ('aten::_softmax', 'aten::softmax'):
+        return 'attention_softmax'
+    if key in ('aten::index', 'aten::index_select'):
+        return 'logical_row_gathers'
+    if key in ('aten::copy_', 'aten::clone', 'aten::contiguous',
+               'aten::_reshape_alias', 'aten::reshape'):
+        return 'copies'
+    if key in ('aten::index_put_', 'aten::_index_put_impl_'):
+        return 'kv_writes'
+    if key in ('aten::sort', 'aten::argmax', 'aten::gather'):
+        return 'sampling'
+    return 'elementwise_and_other'
+
+
+def profile_decode_window(rt, active, phase='generation'):
+    """torch.profiler over one decode window: device time by kernel and by
+    the aten op that launched it, device busy and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    S = rt.slots
+    zi, zf = np.zeros(S, np.int64), np.zeros(S, np.float32)
+    rt.decode_window(GEN_WINDOW, active, zi, zf, zi)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.decode_window(GEN_WINDOW, active, zi, zf, zi)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_op, top, launched = 0.0, {}, [], 0
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if not ms:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            busy += ms
+            launched += e.count
+            top.append((ms, e.key[:80], e.count))
+        else:
+            g = _op_group(e.key)
+            by_op[g] = by_op.get(g, 0.0) + ms
+    top.sort(reverse=True)
+    res = dict(phase=phase, step='decode_window_profile', steps=GEN_WINDOW,
+               active_slots=int(np.sum(active)),
+               key_positions=[int(x) for x in rt.host_len],
+               profiled_wall_ms=wall_ms, device_busy_ms=busy,
+               device_idle_share=1 - busy / wall_ms if busy else None,
+               device_ms_by_op_group=by_op,
+               device_events_per_step=launched / GEN_WINDOW,
+               top_kernels=[dict(ms=t, name=n, count=c)
+                            for t, n, c in top[:12]])
+    emit(**res)
+    require(busy > 0, 'the profiler saw no device time')
+    return res
+
+
+def cached_attention_case(name, S, Tq, Tk, offset, H=16, Hkv=8, D=128):
+    """The plain cached_attention (float32) against one SDPA call with the
+    same positional mask, timed only: the decision on a decode-attention
+    kernel waits on it."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import attention as att
+    g = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    q = torch.randn(S, H, Tq, D, generator=g, device='cuda')
+    k = torch.randn(S, Hkv, Tk, D, generator=g, device='cuda')
+    v = torch.randn(S, Hkv, Tk, D, generator=g, device='cuda')
+    # each slot at its own length: slot s sees keys [0, offset - 3 s + t]
+    qpos = (offset + torch.arange(Tq, device='cuda')[None, :]
+            - 3 * torch.arange(S, device='cuda')[:, None]).clamp(0, Tk - 1)
+    mask = (torch.arange(Tk, device='cuda')[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    out = att.cached_attention(q, k, v, qpos)
+    ref = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         enable_gqa=True)
+    torch.cuda.synchronize()
+    pairs = int(mask.sum()) * H
+    nbytes = 4 * (2 * S * H * Tq * D + 2 * S * Hkv * Tk * D) + 8 * S * Tq
+    bound_ms, bound_by = _bound(4.0 * D * pairs, nbytes, 'float32')
+    res = dict(phase='generation', step='cached_attention', case=name, S=S,
+               H=H, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, dtype='float32',
+               max_abs_err_vs_sdpa=float((out - ref).abs().max()),
+               ms=time_ms(lambda: att.cached_attention(q, k, v, qpos), 20),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, enable_gqa=True), 20),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=4.0 * D * pairs)
+    emit(**res)
+    require(res['max_abs_err_vs_sdpa'] <= 1e-4, 'cached_attention and SDPA '
+            'disagree in case %s: %s' % (name, res))
+    return res
+
+
+def phase_generation(smi):
+    """Streaming generation of llama_1b (full width and depth, float32,
+    TF32 off) through GenerationEngine over make_streaming_runtime."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels, serving
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import generation as gen
+    t0 = time.perf_counter()
+    scope, cfg = _llama_scope(fluid, llama)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt = llama.make_streaming_runtime(scope, 'llama_1b', slots=GEN_SLOTS,
+                                      prefill_chunk=GEN_CHUNK)
+    del scope
+    setup_s = time.perf_counter() - t0
+    V = cfg['vocab']
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in GEN_PROMPTS]
+    # greedy and seeded top-k, alternating
+    sampling = [(0.0, 0, 0) if i % 2 == 0 else (0.8, 40, 100 + i)
+                for i in range(len(prompts))]
+    # warm the device (cuBLAS handles, the allocator) outside the counts
+    rt.generate(prompts[0][:64], 8)
+    rt.reset()
+    torch.cuda.synchronize()
+    eng = gen.GenerationEngine(
+        rt, config=serving.ServingConfig(max_queue=16),
+        gen_config=gen.GenerationConfig(decode_window=GEN_WINDOW))
+    kernels.reset_launches()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        with eng:
+            streams = [eng.generate(p, max_new=GEN_MAX_NEW, temperature=t,
+                                    top_k=k, seed=s)
+                       for p, (t, k, s) in zip(prompts, sampling)]
+            results = [st.result(900) for st in streams]
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    c = eng.counters
+    statuses = [r.status for r in results]
+    require(all(r.ok and r.reason == 'max_tokens' for r in results),
+            'streams not ok: %s' % statuses)
+    outs = [np.asarray(r.outputs[0]) for r in results]
+    require(all(o.shape == (GEN_MAX_NEW,) and ((o >= 0) & (o < V)).all()
+                for o in outs), 'bad generated ids')
+    require(all(st.tokens_so_far() == list(o)
+                for st, o in zip(streams, outs)), 'streamed tokens differ '
+            'from the terminal reply')
+    done = sum(c.get('serving.' + k) for k in (
+        'completed', 'shed', 'deadline_exceeded', 'errors', 'rejected'))
+    require(done == c.get('serving.submitted') == len(prompts) and
+            c.get('serving.deadlocks') == 0, 'terminal replies %d of %d'
+            % (done, c.get('serving.submitted')))
+    chunks = c.get('generation.prefill_chunks')
+    windows = c.get('generation.decode_windows')
+    require(chunks == sum(-(-n // GEN_CHUNK) for n in GEN_PROMPTS),
+            'prefill chunks %d' % chunks)
+    # K4 embeds every prefill chunk and every decode step; nothing else
+    per_step = (launches['embedding_gather'] - chunks) / (windows *
+                                                          GEN_WINDOW)
+    require(per_step == 1, 'gather launches %d != %d chunks + %d steps'
+            % (launches['embedding_gather'], chunks, windows * GEN_WINDOW))
+    require(not plain.counts, 'plain versions ran on the card: %s'
+            % plain.counts)
+    win = c.histogram('generation.decode_window_ms')
+    pre = c.histogram('generation.prefill_chunk_ms')
+    decode_tokens = c.get('generation.tokens') - len(prompts)
+    res = dict(
+        phase='generation', step='served', config='llama_1b',
+        n_layer=cfg['n_layer'], dtype='float32', tf32=False,
+        slots=GEN_SLOTS, prefill_chunk=GEN_CHUNK, decode_window=GEN_WINDOW,
+        page_len=rt.cache.page_len,
+        prompts=list(GEN_PROMPTS), max_new=GEN_MAX_NEW, sampling=sampling,
+        statuses=statuses, wall_s=wall, setup_s=setup_s,
+        ttft_ms_p50=c.quantile('serving.ttft_ms', 0.5),
+        ttft_ms_p99=c.quantile('serving.ttft_ms', 0.99),
+        itl_ms_p50=c.quantile('serving.itl_ms', 0.5),
+        itl_ms_p99=c.quantile('serving.itl_ms', 0.99),
+        decode_window_ms=win, decode_window_ms_p50=c.quantile(
+            'generation.decode_window_ms', 0.5),
+        prefill_chunk_ms=pre, prefill_chunks=chunks, decode_windows=windows,
+        mixed_rounds=c.get('generation.mixed_dispatches'),
+        decode_tokens_per_s=decode_tokens / (win['sum'] / 1e3),
+        output_tokens_per_s=c.get('generation.tokens') / wall,
+        prompt_tokens_per_s=sum(GEN_PROMPTS) / (pre['sum'] / 1e3),
+        kv_pool_bytes=rt.cache.bytes(), kv_pages=rt.cache.pages,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, card=smi)
+    emit(**res)
+    # two greedy streams against the page-free dense reference, on the card
+    compared = [_stream_vs_dense(gen, rt.w, cfg, prompts[i], outs[i],
+                                 'greedy stream %d' % i) for i in (0, 2)]
+    # a stream of the batch against the same request alone (the longest
+    # prompt, seeded, and the shortest, greedy): bitwise
+    alone = {}
+    for i in (1, 0):
+        rt.reset()
+        alone[i] = rt.generate(prompts[i], GEN_MAX_NEW,
+                               gen.SamplingParams(*sampling[i]),
+                               steps_per_window=GEN_WINDOW)
+    # a seeded stream at windows of 1 and 4: bitwise
+    sp = gen.SamplingParams(0.8, 40, 7)
+    one = rt.generate(prompts[1][:250], 24, sp, steps_per_window=1)
+    four = rt.generate(prompts[1][:250], 24, sp, steps_per_window=4)
+    batch_equal = {i: alone[i] == [int(t) for t in outs[i]] for i in alone}
+    emit(phase='generation', step='checks', greedy_vs_dense_compared=compared,
+         alone_equals_batched=batch_equal, seeded_k1=one, seeded_k4=four,
+         seeded_equal=one == four)
+    require(min(compared) >= 8, 'greedy streams held to the dense reference '
+            'for only %s tokens' % compared)
+    require(all(batch_equal.values()), 'a stream run alone differs from the '
+            'same request in the batch: %s' % batch_equal)
+    require(one == four, 'a seeded stream differs between windows of 1 and 4')
+    # one decode window with all 8 slots decoding, profiled
+    rt.reset()
+    zero = gen.SamplingParams()
+    for p in prompts:
+        slot = rt.alloc_slot()
+        # pages for the four windows profiled below
+        require(rt.try_begin(slot, p, 4 * GEN_WINDOW) == 0, 'no pages')
+        for off in range(0, p.size, GEN_CHUNK):
+            rt.prefill(slot, p[off:off + GEN_CHUNK], off, zero)
+    profile_decode_window(rt, np.ones(GEN_SLOTS, bool))
+    for case in (('decode_tk128', 8, 1, 128, 127),
+                 ('decode_tk512', 8, 1, 512, 511),
+                 ('decode_tk1152', 8, 1, 1152, 1151),
+                 ('decode_tk2048', 8, 1, 2048, 2047),
+                 ('prefill_chunk256_tk1024', 1, 256, 1024, 768)):
+        cached_attention_case(*case)
+    del rt, eng
+    torch.cuda.empty_cache()
+    return {'embedding_gather': per_step}
+
+
+def phase_generation_gpu_vs_cpu():
+    """llama_1b width cut to 2 layers (random_weights from SEED): a 64-token
+    prompt and 16 greedy tokens through the paged runtime on the card and
+    on the CPU."""
+    import torch
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.serving import generation as gen
+    cfg = dict(llama.CONFIGS['llama_1b'], n_layer=2)
+    w = gen.random_weights(cfg, seed=SEED)
+    prompt = np.random.RandomState(SEED + 9).randint(0, cfg['vocab'], 64)
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        rt = gen.DecodeRuntime(w, cfg, slots=1, prefill_chunk=64,
+                               device=dev)
+        slot = rt.alloc_slot()
+        require(rt.try_begin(slot, prompt, 16) == 0, 'no pages')
+        first, logits = rt.prefill(slot, prompt, 0, gen.SamplingParams())
+        toks = rt.decode_window(15, np.ones(1, bool), np.zeros(1, np.int64),
+                                np.zeros(1, np.float32),
+                                np.zeros(1, np.int64))[0]
+        res[dev] = ([int(first)] + [int(t) for t in toks], logits,
+                    time.perf_counter() - t0)
+        del rt
+    torch.cuda.empty_cache()
+    (g_stream, g_logits, g_s), (c_stream, c_logits, c_s) = \
+        res['cuda'], res['cpu']
+    tol = 1e-4 * float(np.abs(c_logits).max())
+    err = float(np.abs(g_logits - c_logits).max())
+    # the CPU stream held to the dense reference while the margin clears;
+    # the card's stream must equal it there
+    compared = _stream_vs_dense(gen, w, cfg, prompt, c_stream, 'cpu stream')
+    same = g_stream[:compared] == c_stream[:compared]
+    emit(phase='generation_gpu_vs_cpu', config='llama_1b width, 2 layers',
+         dtype='float32', tf32=False, prompt_tokens=64, new_tokens=16,
+         prefill_max_abs_err=err, tol=tol, gpu_stream=g_stream,
+         cpu_stream=c_stream, compared=compared, equal_where_clear=same,
+         equal=g_stream == c_stream, gpu_s=g_s, cpu_s=c_s)
+    require(err <= tol, 'gpu vs cpu: prefill logits differ by %g > %g'
+            % (err, tol))
+    require(compared >= 8 and same, 'gpu vs cpu: streams differ where the '
+            'margin clears (%d compared)' % compared)
 
 
 # ------------------------------------------------------------- phase 5
@@ -1708,35 +2202,54 @@ def main(argv=None):
     # the timed phases first, the ones that also compute on the CPU last:
     # CPU work left behind slows the host that issues the timed steps
     served_launches = run('serving', phase_serving, smi)
+    served_bf16 = run('serving_bf16', phase_serving_bf16, smi)
+    generated = run('generation', phase_generation, smi)
     trained = run('training', phase_training, smi)
     trained_f32 = run('training_f32', phase_training_f32, smi)
     composed = run('training_composed', phase_training_composed, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
+    run('generation_gpu_vs_cpu', phase_generation_gpu_vs_cpu)
     run('train_gpu_vs_cpu', phase_train_gpu_vs_cpu)
     run('train_composed_gpu_vs_cpu', phase_train_composed_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took)
-    # launches on each kernel's main path: per step of the composed
-    # training path for the kernels it runs, per step of the flash training
-    # path for K1-K3 and its own generated segments, per served run for the
-    # serving-only ones
+
     def per_step(steps):
         return {k: v // 10 if v % 10 == 0 else v / 10
                 for k, v in steps.items() if v}
+    # launches by path: per served run (serving, serving_bf16), per decode
+    # step (generation: K4), per step of each training path
+    by_path = {'serving': served_launches, 'serving_bf16': served_bf16,
+               'generation': generated, 'training': per_step(trained),
+               'training_f32': per_step(trained_f32),
+               'training_composed': per_step(composed)}
+    # the main path's launches: per step of the composed training path for
+    # the kernels it runs, per step of the flash training path for K1-K3
+    # and its own generated segments, per served run for the serving-only
+    # ones (the float32 step adds only its own segments: its flash kernels
+    # are the float32 instances, below)
     launches = dict(served_launches)
-    # the float32 step's own generated segments (its flash kernels are the
-    # float32 instances, below)
-    launches.update({k: v for k, v in per_step(trained_f32).items()
+    launches.update({k: v for k, v in served_bf16.items()
                      if k not in kernels_py.launches})
-    for steps in (trained, composed):
-        launches.update(per_step(steps))
+    launches.update({k: v for k, v in by_path['training_f32'].items()
+                     if k not in kernels_py.launches})
+    for path in ('training', 'training_composed'):
+        launches.update(by_path[path])
     # the float32 instances of K1-K3: K1 per served run (serving), K2 and
     # K3 per step of the float32 flash training path
-    f32_steps = per_step(trained_f32)
+    f32_steps = by_path['training_f32']
     f32_launches = {'flash_attention_fwd': served_launches.get(
         'flash_attention_fwd'), 'flash_attention_bwd_dq': f32_steps.get(
         'flash_attention_bwd_dq'), 'flash_attention_bwd_dkv': f32_steps.get(
         'flash_attention_bwd_dkv')}
+    # the paths that run each instance's dtype
+    dtype_paths = {'bfloat16': ('training', 'serving_bf16'),
+                   'float32': ('serving', 'training_f32')}
+
+    def path_counts(name, paths=tuple(by_path)):
+        return {p: by_path[p][name] for p in paths
+                if by_path[p].get(name)}
+
     rows = []
     for name, res in kern['rows'].items():
         src, replaces = _REPLACES.get(name, SEGMENT_SOURCE)
@@ -1745,7 +2258,8 @@ def main(argv=None):
             launches=launches.get(name), max_abs_err=res['max_abs_err'],
             ms=res['ms'], plain_ms=res['plain_ms'],
             bound_ms=res['bound_ms'], bound_by=res['bound_by'],
-            library_ms=res['library_ms'])
+            library_ms=res['library_ms'],
+            launches_by_path=path_counts(name))
         if name not in _REPLACES:
             row.update(ops=res['ops'], paths=res['paths'])
         if name in kern['instances']:
@@ -1754,18 +2268,18 @@ def main(argv=None):
                 case=r['case'], launches=(launches.get(name)
                                           if dt == 'bfloat16'
                                           else f32_launches[name]),
+                launches_by_path=path_counts(name, dtype_paths[dt]),
                 max_abs_err=r['max_abs_err'], ms=r['ms'],
                 plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                 bound_by=r['bound_by'], library_ms=r['library_ms'])
                 for dt, r in sorted(kern['instances'][name].items())]
         rows.append(row)
-    if 'kernels' in phases and {'serving', 'training', 'training_f32',
-                                'training_composed'} <= set(phases):
-        idle = [r['name'] for r in rows if not r['launches']] + [
+    if 'kernels' in phases and set(by_path) <= set(phases):
+        idle = [r['name'] for r in rows if not r['launches_by_path']] + [
             '%s/%s' % (r['name'], i['dtype']) for r in rows
-            for i in r.get('instances', ()) if not i['launches']]
-        require(not idle, 'kernels never launched on their main path: %s'
-                % idle)
+            for i in r.get('instances', ()) if not i['launches_by_path']]
+        require(not idle, 'kernels never launched on any of their paths: '
+                '%s' % idle)
     print(json.dumps({'kernels': rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

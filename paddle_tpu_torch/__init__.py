@@ -10,8 +10,10 @@ card unless the caller asks for the CPU (`Executor(CPUPlace())`,
 `AnalysisConfig.disable_gpu()`); with no card they raise.
 
 Ported so far: the serving path — `models.llama.generation_program` ->
-`io.save_inference_model` -> `inference.Predictor` ->
-`serving.ServingEngine.from_predictor` — and the transformer training
+`io.save_inference_model` -> `inference.Predictor` (float32, or bf16
+with `AnalysisConfig.enable_bf16`) -> `serving.ServingEngine.from_predictor`
+— streaming generation over a paged KV cache (`serving.generation`,
+`models.llama.make_streaming_runtime`), and the transformer training
 step — `models.transformer.build` (`append_backward`, Adam with
 `noam_decay`, bf16 AMP through `Program.set_amp`) run by
 `Executor.run(main, feed, fetch_list=[loss])`.

@@ -8,10 +8,18 @@ hands the program to the PT_OPT rewriter first (core/passes), as the
 reference's Predictor does before lowering.  It runs on CUDA unless
 `AnalysisConfig.disable_gpu()` was called (the fluid API's own switch, a
 no-op in the JAX package); with no CUDA device and no such call it
-raises.  Not ported yet: the lint policy, bf16 parameters, AOT export and
-the compile cache.
+raises.  `AnalysisConfig.enable_bf16()` casts every float32 tensor of the
+Predictor's scope to bfloat16 before the first run, as the reference's
+`_cast_params_bf16` does: the program's ops then compute in bf16 (rms
+norm and rope in float32 inside, as in the reference), its matrix
+products run on the bf16 tensor cores and its attention on K1's bf16
+wgmma kernel, and bf16 fetches come back as numpy arrays of
+`ml_dtypes.bfloat16`, the dtype the JAX Predictor returns.  Not ported
+yet: the lint policy, AOT export and the compile cache.
 """
 import threading
+
+import torch
 
 from . import io as fluid_io
 from .core.executor import Executor, Scope, scope_guard, to_device, to_numpy
@@ -27,6 +35,10 @@ class AnalysisConfig(object):
         self.params_file = params_file
         self.use_gpu = True
         self.device_id = 0
+        self.use_bf16 = False
+
+    def enable_bf16(self):
+        self.use_bf16 = True
 
     def enable_use_gpu(self, memory_pool_init_size_mb=0, device_id=0):
         self.use_gpu = True
@@ -58,9 +70,16 @@ class Predictor(object):
         self._program = program
         self._feed_names = list(feed_names)
         self._fetch_names = [v.name for v in fetch_vars]
+        if config.use_bf16:
+            self._cast_params_bf16()
         # the serving dispatch thread and direct callers share one scope
         # and one device stream: one run at a time
         self._run_lock = threading.Lock()
+
+    def _cast_params_bf16(self):
+        for name, val in list(self._scope.vars.items()):
+            if val.dtype == torch.float32:
+                self._scope.vars[name] = val.to(torch.bfloat16)
 
     @property
     def device(self):
@@ -85,7 +104,17 @@ class Predictor(object):
             out = self._exe.run(self._program, feed=feeds,
                                 fetch_list=self._fetch_names,
                                 scope=self._scope, return_numpy=False)
-        return [to_numpy(o) for o in out] if return_numpy else out
+        return [_fetch_numpy(o) for o in out] if return_numpy else out
 
     __call__ = run
 
+
+
+def _fetch_numpy(t):
+    """A fetch as the JAX Predictor returns it: bf16 as ml_dtypes.bfloat16
+    (its bits unchanged), every other dtype as to_numpy gives it."""
+    if t.dtype != torch.bfloat16:
+        return to_numpy(t)
+    import ml_dtypes
+    return t.detach().view(torch.int16).cpu().numpy().view(
+        ml_dtypes.bfloat16)

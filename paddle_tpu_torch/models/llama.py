@@ -5,15 +5,20 @@ functions and parameter names, so `generation_program` builds the same
 program desc in both packages and a scope trained or initialized by one
 serves in the other.  RMSNorm pre-norm, rotary position embeddings,
 grouped-query attention (flash_attention, the hand-written CUDA kernel on
-the card), SwiGLU FFN, no biases.  Not ported yet: the training `llama` /
-`build`, `make_decoder`, `make_streaming_runtime` and `shard`.
+the card), SwiGLU FFN, no biases.  `make_decoder`, `generation_weights`
+and `make_streaming_runtime` decode over the weights a llama program left
+in the port's scope (serving/generation).  Not ported yet: the training
+`llama` / `build` and `shard`.
 """
+import torch
+
 from .. import layers
 from ..initializer import Normal
 from ..param_attr import ParamAttr
 
 __all__ = ['CONFIGS', 'generation_program', 'decoder_layer', 'attention',
-           'swiglu_ffn']
+           'swiglu_ffn', 'make_decoder', 'generation_weights',
+           'make_streaming_runtime']
 
 CONFIGS = {
     'llama3_8b': dict(vocab=128256, d_model=4096, n_layer=32, n_head=32,
@@ -108,3 +113,116 @@ def generation_program(config='tiny', mode='decode', temperature=0.0,
             kv_heads=cfg['n_kv_head'], max_len=T,
             head_dim=D // cfg['n_head'])
     return out
+
+
+# ----------------------------------------------------------- decoding
+
+def _config(config, overrides):
+    cfg = dict(CONFIGS[config] if isinstance(config, str) else config)
+    cfg.update(overrides)
+    return cfg
+
+
+def make_decoder(scope, config='tiny', temperature=0.0, **overrides):
+    """A KV-cache autoregressive decoder over the weights a llama program
+    left in `scope` (same parameter names), on the device the scope's
+    tensors live on.
+
+    The graph program is the scoring path; decode is a separate torch path
+    because its structure differs (a per-step KV cache, not teacher
+    forcing).  The cache is dense, [n_layer, B, Hkv, Tmax, Dh], and
+    attention masks by position.  Greedy decode (temperature 0) is the
+    reference's; with temperature > 0 each token is drawn for (seed,
+    absolute position) by ops/sampling.py, which cannot match the JAX
+    package's split keys.
+
+    Returns generate(prompt_ids [B, Tp] int, max_new, seed=0) -> numpy
+    [B, Tp + max_new]."""
+    import numpy as np
+    from ..ops.attention import cached_attention
+    from ..ops.sampling import sample_tokens_at
+    from ..serving.generation.decode import (_embed, _ffn, _qkv, _rms,
+                                             _rope_at, weight_names)
+
+    cfg = _config(config, overrides)
+    L, H, Hkv = cfg['n_layer'], cfg['n_head'], cfg['n_kv_head']
+    D, theta, Tmax = cfg['d_model'], float(cfg['theta']), cfg['max_len']
+    dh = D // H
+    w = {n: scope.vars[n] for n in weight_names(cfg)}
+    dev = w['tok_emb'].device
+
+    def forward(tokens, kc, vc, start):
+        """tokens [B, T] at positions start.. -> logits [B, T, V]; writes
+        the new K/V into the caches in place."""
+        B, T = tokens.shape
+        pos = (start + torch.arange(T, device=dev))[None].expand(B, T)
+        x = _embed(w, tokens)
+        for i in range(L):
+            q, k, v = _qkv(w, cfg, _rms(x, w['layer_%d_att_norm' % i]), i)
+            q = _rope_at(q, pos, theta)
+            kc[i, :, :, start:start + T] = _rope_at(k, pos, theta)
+            vc[i, :, :, start:start + T] = v
+            att = cached_attention(q, kc[i], vc[i], pos)
+            x = x + att.transpose(1, 2).reshape(B, T, D) @ \
+                w['layer_%d_att_o_w' % i]
+            x = _ffn(w, x, i)
+        return _rms(x, w['final_norm']) @ w['lm_proj_w']
+
+    def pick(logits, seed, position):
+        B = logits.shape[0]
+        if not temperature or temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        full = lambda v: torch.full((B,), v, device=dev)  # noqa: E731
+        return sample_tokens_at(logits, full(int(seed)), full(int(position)),
+                                full(float(temperature)), full(0)).long()
+
+    def run(prompt_ids, max_new, seed=0):
+        prompt = np.asarray(prompt_ids)
+        if max_new <= 0:
+            # prefill would still emit one token; zero requested: no-op
+            return prompt
+        B, Tp = prompt.shape
+        if Tp + max_new > Tmax:
+            raise ValueError('prompt+max_new exceeds max_len=%d' % Tmax)
+        with torch.inference_mode():
+            tokens = torch.as_tensor(prompt.astype(np.int64), device=dev)
+            kc = torch.zeros((L, B, Hkv, Tmax, dh), dtype=w['tok_emb'].dtype,
+                             device=dev)
+            vc = torch.zeros_like(kc)
+            nxt = pick(forward(tokens, kc, vc, 0)[:, -1], seed, Tp)
+            out = [nxt]
+            for t in range(max_new - 1):
+                logits = forward(nxt[:, None], kc, vc, Tp + t)
+                nxt = pick(logits[:, 0], seed, Tp + t + 1)
+                out.append(nxt)
+            gen = torch.stack(out, dim=1).cpu().numpy()
+        return np.concatenate([prompt, gen.astype(prompt.dtype)], axis=1)
+
+    return run
+
+
+# ------------------------------------------------- streaming generation
+
+def generation_weights(scope, config='tiny', **overrides):
+    """The decode-side weights a llama program left in `scope` (tensors,
+    on the scope's device, by llama parameter name): the input of
+    serving.generation.DecodeRuntime."""
+    from ..serving.generation.decode import weight_names
+    return {n: scope.vars[n] for n in weight_names(_config(config,
+                                                           overrides))}
+
+
+def make_streaming_runtime(scope, config='tiny', slots=4, prefill_chunk=8,
+                           device=None, **overrides):
+    """A serving.generation.DecodeRuntime over a llama scope: the streaming
+    counterpart of `make_decoder` (same weights, but a slotted paged KV
+    cache, K-token decode windows and chunked prefill: the device half of
+    GenerationEngine).  ``device`` defaults to CUDA, as DecodeRuntime's.
+
+        rt = llama.make_streaming_runtime(scope, 'tiny', slots=8)
+        engine = GenerationEngine(rt).start()
+    """
+    from ..serving.generation.decode import DecodeRuntime
+    cfg = _config(config, overrides)
+    return DecodeRuntime(generation_weights(scope, cfg), cfg, slots=slots,
+                         prefill_chunk=prefill_chunk, device=device)

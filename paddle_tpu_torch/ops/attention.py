@@ -17,6 +17,10 @@ dK/dV with the GQA group summed into its KV head; they replace the TPU
 kernels `_flash_dq_kernel` and `_flash_dkv_kernel[_resident]`), or
 `flash_backward_reference` on a CPU tensor.
 
+`cached_attention` and `write_cache`, the KV-cache read and write of
+streaming generation (serving/generation), are plain torch, as the
+reference computes them in jnp outside any Pallas kernel.
+
 There are no size gates: `_FWD_PALLAS_MIN_T` and `_BWD_PALLAS_SCORE_BYTES`
 were measured on a TPU and say nothing about this card, so every shape the
 kernels take goes to the kernels.
@@ -279,3 +283,58 @@ def flash_attention_op(ctx, ins, attrs):
     return {'Out': flash_attention(
         q, k, v, causal=attrs.get('causal', False),
         scale=attrs.get('scale', None), k_len=k_len)}
+
+
+# --------------------------------------------------- KV-cache read path
+#
+# Counterparts of paddle_tpu/ops/attention.py's cached_attention and
+# write_cache.  The reference computes both in jnp outside any Pallas
+# kernel, so they stay plain torch here.
+
+def cached_attention(q, kcache, vcache, qpos, scale=None):
+    """Attention of new-position queries against KV cache rows.
+
+    q: [B, H, Tq, D], the Tq new positions (a prefill chunk, or Tq = 1 for
+    a decode step); kcache/vcache: [B, Hkv, Tk, D] with the new positions'
+    K/V already written; qpos: [B, Tq] integer ABSOLUTE positions of the
+    queries.  Masking is positional: key position kpos is visible iff
+    ``kpos <= qpos``, so chunk offsets and per-slot decode lengths share
+    one rule and rows past a slot's length are never attended.  GQA by
+    head groups (no copies of K/V heads); products accumulate in float32
+    and the output returns in q's dtype."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = kcache.shape[1], kcache.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    g = H // Hkv
+    qg = q.reshape(B, Hkv, g, Tq, D).float()
+    s = torch.einsum('bhgqd,bhkd->bhgqk', qg, kcache.float()) * scale
+    kpos = torch.arange(Tk, device=q.device)
+    mask = kpos[None, None, :] <= qpos.long()[:, :, None]     # [B, Tq, Tk]
+    s = torch.where(mask[:, None, None], s,
+                    torch.full((), _NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('bhgqk,bhkd->bhgqd', p.to(vcache.dtype).float(),
+                       vcache.float())
+    return out.reshape(B, H, Tq, D).to(q.dtype)
+
+
+def write_cache(kcache, vcache, k, v, slot, layer, offset):
+    """Write one layer's new K/V for one slot at a position offset, in
+    place (the JAX function returns updated copies; torch tensors are
+    updated where they lie), and return the two caches.
+
+    kcache/vcache: [S, L, Hkv, Tmax, D] slot-major; k/v: [Hkv, C, D] for
+    the C new positions of layer ``layer``.  ``offset`` is an int or a
+    0-d integer tensor; like `dynamic_update_slice` it is clamped so that
+    the C rows stay inside Tmax."""
+    C, Tmax = k.shape[1], kcache.shape[3]
+    if isinstance(offset, torch.Tensor):
+        start = offset.to(device=kcache.device, dtype=torch.long).clamp(
+            0, Tmax - C)
+    else:
+        start = min(max(int(offset), 0), Tmax - C)
+    idx = start + torch.arange(C, device=kcache.device)
+    kcache[int(slot), int(layer)].index_copy_(1, idx, k.to(kcache.dtype))
+    vcache[int(slot), int(layer)].index_copy_(1, idx, v.to(vcache.dtype))
+    return kcache, vcache

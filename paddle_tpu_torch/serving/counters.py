@@ -3,11 +3,17 @@
 Stands in for the `serving.*` metrics the JAX package keeps in its global
 observability registry: here each engine owns one `Counters`, so two
 engines (or two tests) never share numbers.  Histograms keep count, sum,
-min and max.
+min and max, and the last `SAMPLES` values for quantiles (the
+generation engine's TTFT and ITL p50 / p99).
 """
+import collections
 import threading
 
+import numpy as np
+
 __all__ = ['Counters']
+
+SAMPLES = 65536
 
 
 class Counters(object):
@@ -15,6 +21,7 @@ class Counters(object):
         self._lock = threading.Lock()
         self._values = {}
         self._hists = {}
+        self._samples = {}
 
     def inc(self, name, n=1):
         with self._lock:
@@ -27,6 +34,8 @@ class Counters(object):
     def observe(self, name, value):
         value = float(value)
         with self._lock:
+            self._samples.setdefault(
+                name, collections.deque(maxlen=SAMPLES)).append(value)
             h = self._hists.get(name)
             if h is None:
                 self._hists[name] = {'count': 1, 'sum': value, 'min': value,
@@ -46,3 +55,10 @@ class Counters(object):
         with self._lock:
             h = self._hists.get(name)
             return dict(h) if h is not None else None
+
+    def quantile(self, name, q):
+        """The q-quantile (0..1, linear interpolation) of the last `SAMPLES`
+        observed values, or None before the first observation."""
+        with self._lock:
+            vals = list(self._samples.get(name, ()))
+        return float(np.quantile(vals, q)) if vals else None

@@ -150,15 +150,17 @@ class _Request(object):
 class ServingEngine(object):
     """See module docstring.  ``backend`` is any callable ``feed_dict ->
     list of per-row output arrays``, usually a Predictor's ``run``; a
-    plain function works too."""
+    plain function works too.  ``counters`` is the Counters the engine
+    writes to (a new one when None; the generation engine passes its
+    runtime's)."""
 
     def __init__(self, backend, bucketer=None, config=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, counters=None):
         self._backend = backend
         self._bucketer = bucketer
         self._cfg = config or ServingConfig()
         self._clock = clock
-        self.counters = Counters()
+        self.counters = counters if counters is not None else Counters()
         self._cond = threading.Condition()
         self._queue = collections.deque()
         self._state = STARTING

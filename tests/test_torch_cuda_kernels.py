@@ -433,3 +433,104 @@ def test_composed_transformer_passes_on_and_off_on_the_card(cuda,
                                          fetch_list=[out['loss']])[0][0])
                            for _ in range(3)]
     np.testing.assert_allclose(losses['1'], losses['0'], rtol=1e-6)
+
+
+# ------------------------------------------- bf16 serving, generation
+
+def _bf16_llama_dir(tmp_path):
+    """A llama decode program with head dim 128 (the flash kernels' width),
+    2 layers, saved from the CPU."""
+    import paddle_tpu_torch as tf
+    from paddle_tpu_torch.models import llama
+    main, startup = tf.Program(), tf.Program()
+    main.random_seed = startup.random_seed = 5
+    with tf.program_guard(main, startup), tf.unique_name.guard():
+        out = llama.generation_program('tiny', d_model=256, n_head=2,
+                                       n_kv_head=1, d_ffn=512, max_len=256)
+    scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
+    with tf.scope_guard(scope):
+        exe.run(startup)
+        tf.io.save_inference_model(str(tmp_path), ['tokens'],
+                                   [out['logits'], out['next_token']], exe,
+                                   main)
+    return out['config']
+
+
+def test_bf16_predictor_runs_the_wgmma_flash_kernel(cuda, tmp_path):
+    """enable_bf16 on the card: bf16 parameters, one flash launch a layer,
+    all of it K1's bf16 tensor-core kernel, and logits within the bf16
+    bound of tests/test_torch_inference_bf16.py (4 sqrt(2 R / 3) 2^-8
+    max|logit|, R = 12 L + 2) of the CPU's bf16 Predictor."""
+    import paddle_tpu_torch as tf
+    from torch.profiler import ProfilerActivity, profile
+    cfg = _bf16_llama_dir(tmp_path)
+    preds = {}
+    for dev in ('cuda', 'cpu'):
+        conf = tf.inference.AnalysisConfig(str(tmp_path))
+        conf.enable_bf16()
+        if dev == 'cpu':
+            conf.disable_gpu()
+        preds[dev] = tf.inference.Predictor(conf)
+    assert all(v.dtype == torch.bfloat16 and v.device.type == 'cuda'
+               for v in preds['cuda']._scope.vars.values())
+    rng = np.random.RandomState(0)
+    feed = {'tokens': rng.randint(0, cfg['vocab'],
+                                  (2, cfg['max_len'], 1)).astype('int64')}
+    preds['cuda'].run(feed)                     # builds its segments
+    before = kernels.launches['flash_attention_fwd']
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, tok = preds['cuda'].run(feed)
+        torch.cuda.synchronize()
+    assert kernels.launches['flash_attention_fwd'] == before + cfg['n_layer']
+    names = {e.key for e in prof.key_averages() if 'flash' in e.key}
+    assert names and all('flash_fwd_wgmma_kernel' in n for n in names), \
+        names
+    ref, ref_tok = preds['cpu'].run(feed)
+    assert str(logits.dtype) == str(ref.dtype) == 'bfloat16'
+    assert tok.dtype == ref_tok.dtype == np.int32
+    got, ref = logits.astype(np.float32), ref.astype(np.float32)
+    M = float(np.abs(ref).max())
+    tol = 4 * np.sqrt(2 * (12 * cfg['n_layer'] + 2) / 3.0) * 2 ** -8 * M
+    assert float(np.abs(got - ref).max()) <= tol
+
+
+def test_decode_window_on_the_card_matches_the_cpu_port(cuda):
+    """One prefill and one decode window of the paged runtime on the card
+    against the same on the CPU: prefill logits within 1e-4 of
+    max|logit| (float32, other summation orders), the greedy tokens equal,
+    and the token embedding through K4 (one launch a chunk and a step)."""
+    from paddle_tpu_torch.serving import generation as gen
+    cfg = dict(vocab=512, d_model=256, n_layer=2, n_head=2, n_kv_head=1,
+               d_ffn=512, theta=10000.0, max_len=256)
+    w = gen.random_weights(cfg, seed=1)
+    prompt = np.random.RandomState(2).randint(0, 512, 40)
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        rt = gen.DecodeRuntime(w, cfg, slots=2, prefill_chunk=16,
+                               device=dev)
+        slot = rt.alloc_slot()
+        assert rt.try_begin(slot, prompt, 8) == 0
+        before = kernels.launches['embedding_gather']
+        for off in range(0, 40, 16):
+            first, logits = rt.prefill(slot, prompt[off:off + 16], off,
+                                       gen.SamplingParams())
+        act = np.asarray([True, False])
+        toks = rt.decode_window(8, act, np.zeros(2, np.int64),
+                                np.zeros(2, np.float32),
+                                np.zeros(2, np.int64))
+        res[dev] = (first, logits, toks[0])
+        if dev == 'cuda':
+            assert kernels.launches['embedding_gather'] == before + 3 + 8
+    (gf, gl, gt), (cf, cl, ct) = res['cuda'], res['cpu']
+    tol = 1e-4 * float(np.abs(cl).max())
+    assert float(np.abs(gl - cl).max()) <= tol
+    # token for token while the CPU's dense reference clears the margin
+    stream_g, stream_c = [gf] + list(gt), [cf] + list(ct)
+    for t in range(len(stream_c)):
+        _, _, lref = gen.dense_reference(w, cfg, list(prompt) +
+                                         stream_c[:t])
+        top2 = np.sort(lref)[-2:]
+        if top2[1] - top2[0] <= 4 * tol:
+            break
+        assert stream_g[t] == stream_c[t], (t, stream_g, stream_c)
+    assert t >= 4
