@@ -7,10 +7,14 @@ hold each hand-written CUDA kernel against its plain PyTorch version.
     python3 chip_smoke.py --phases card,kernels
     python3 chip_smoke.py --phases card,kernels,training_composed
     python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
+    python3 chip_smoke.py --phases card,training,nan_trip
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
-compiled by one nvcc call per program at its first run.
+compiled by one nvcc call per program at its first run.  Executor.run and
+Predictor.run replay each launch signature as a captured CUDA graph from
+its second run (paddle_tpu_torch/core/graphs.py); use_program_cache=False
+is the interpreter, which the graph phases time beside it.
 
 Phases, each printing JSON lines:
   card        nvidia-smi name and power limit; build the kernels (nvcc,
@@ -45,6 +49,11 @@ Phases, each printing JSON lines:
               last layer's attention dropped; fp8 precision) outside it;
               one profiled 4-row batch, whose 16 flash forwards must all be
               the bf16 wgmma kernel
+              (serving and serving_bf16 both end with serve_modes: the
+              4-row batch through the interpreter and through its CUDA
+              graph in turns, eager, graph, graph, eager; median ms,
+              tokens/s, device busy and idle share, peak memory; the
+              served rows bit for bit equal)
   generation  llama_1b (full width and depth, float32, TF32 off, weights
               from its program's startup) through make_streaming_runtime
               (8 slots, prefill chunks of 256) and GenerationEngine
@@ -73,7 +82,16 @@ Phases, each printing JSON lines:
               losses, which must be finite), kernel launches per step read
               around the timed steps, then torch.profiler over one step,
               whose 18 bf16 flash forwards, 18 dQ and 18 dK/dV launches
-              must all be the tensor-core (wgmma) kernels
+              must all be the tensor-core (wgmma) kernels; then
+              graph_modes: the interpreter (use_program_cache=False), the
+              graph, run_steps(K=8) and Executor(check_nan=True,
+              nan_poll=8), in turns (ABCDDCBA), each with median step
+              ms, tokens/s, launches per step (equal in every mode),
+              peak memory, a profiled window's device busy and idle share,
+              and the captures' seconds; then bitwise_paths: 3 steps from
+              one scope state and one set of run counters through the
+              interpreter, the graph and run_steps must agree bit for bit
+              in the losses and every scope tensor
   training_f32
               the same step in float32 (AMP off, the reference's default
               precision; float32 GEMMs in full float32): the same counts,
@@ -90,7 +108,8 @@ Phases, each printing JSON lines:
               launches per step (18 softmax, no flash, the planned
               generated segments, 32 LayerNorms, 2 gathers, 1 Adam), no
               plain version called on the card, the generated build's nvcc
-              time, torch.profiler over one step
+              time, torch.profiler over one step; graph_modes and
+              bitwise_paths as in training (dropout 0.1: the masks too)
   train_composed_gpu_vs_cpu
               that model at full width cut to 2 layers, B=4, float32,
               dropout 0: 2 steps on the card and on the CPU must agree
@@ -99,6 +118,10 @@ Phases, each printing JSON lines:
               dropout 0.1: 3 steps with PT_OPT=1 (generated kernels) and
               with PT_OPT=0 (one eager op at a time) from the same seed;
               losses within 1e-6 relative, and whether bit for bit
+  nan_trip    check_nan through the graph: that model at full width, 2
+              layers, float32, dropout 0; after three clean steps a NaN
+              in one target pad entry must raise naming the loss at
+              nan_poll=1, and with nan_window_steps=8 at nan_poll=8
 The phases run in that order, except that the four that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu) run last.  No phase is cut in depth for time.
@@ -132,7 +155,7 @@ OUT_DIR = os.path.join(ROOT, 'chiprun_out')
 PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'generation',
           'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
           'train_gpu_vs_cpu', 'training_composed',
-          'train_composed_gpu_vs_cpu', 'composed_opt_on_off')
+          'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -1022,24 +1045,41 @@ def _clear(logits, tol):
     return (top2[..., 1] - top2[..., 0]) > 2 * tol
 
 
+def _interpreted(pred):
+    """Predictor.run through the interpreter: the same program, scope and
+    fetches, with use_program_cache=False (no CUDA graph)."""
+    from paddle_tpu_torch.inference import _fetch_numpy
+
+    def run(feed):
+        with pred._run_lock:
+            out = pred._exe.run(pred._program, feed=feed,
+                                fetch_list=pred._fetch_names,
+                                scope=pred._scope, return_numpy=False,
+                                use_program_cache=False)
+        return [_fetch_numpy(o) for o in out]
+    return run
+
+
 def profile_batch(pred, feed, n_layer, phase='serving',
                   design='fwd_tf32x3'):
     """Where one dispatched batch spends its time: torch.profiler over one
-    Predictor.run (device time by kernel, grouped; the flash kernels by
-    design), beside the host wall time of three unprofiled runs; every
-    flash forward of the batch must be `design`."""
+    interpreted Predictor.run (device time by kernel, grouped; the flash
+    kernels by design), beside the host wall time of three unprofiled
+    runs; every flash forward of the batch must be `design`.  serve_modes
+    times and profiles the graph replays."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    run = _interpreted(pred)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        pred.run(feed)
+        run(feed)
         walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.run(feed)
+        run(feed)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     groups = {}
@@ -1066,7 +1106,7 @@ def profile_batch(pred, feed, n_layer, phase='serving',
         top.append((us / 1e3, name[:80], e.count))
     top.sort(reverse=True)
     busy = sum(groups.values())
-    flash = _flash_by_design(prof)
+    flash = _flash_by_design(prof.key_averages())
     emit(phase=phase, step='profile',
          rows=int(feed['tokens'].shape[0]),
          run_wall_ms=[w * 1e3 for w in walls],
@@ -1079,6 +1119,64 @@ def profile_batch(pred, feed, n_layer, phase='serving',
     require(set(flash) == {design} and flash[design][1] == n_layer,
             'the served batch ran flash kernels %s, not %d %s'
             % (flash, n_layer, design))
+
+
+def serve_modes(phase, smi, pred, feed, n_layer, design):
+    """The 4-row batch through Predictor.run in turns (eager, graph, graph,
+    eager): `eager` the interpreter (use_program_cache=False), `graph` a
+    replay of its signature's CUDA graph.  3 runs a reading; median batch
+    ms, prompt tokens/s, peak memory; one profiled run each (device busy,
+    idle share, the flash kernels by design, the device launches of the
+    hand-written and generated kernels beside the counted ones);
+    the served rows must agree bit for bit."""
+    import torch
+    T = feed['tokens'].shape[1]
+    rows = feed['tokens'].shape[0]
+    runs = {'eager': _interpreted(pred), 'graph': pred.run}
+    outs = {m: fn(feed) for m, fn in runs.items()}   # the graph is warm
+    readings = {m: [] for m in runs}
+    for mode in ('eager', 'graph', 'graph', 'eager'):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs[mode](feed)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        readings[mode].append(dict(batch_ms=ms, **_peak_memory()))
+    out = {}
+    for mode, rs in readings.items():
+        med = [float(np.median(r['batch_ms'])) for r in rs]
+        (wall, busy, flash, seen, groups), counted, tries = \
+            _profiled_launches(lambda: runs[mode](feed))
+        out[mode] = dict(median_batch_ms=med,
+                         prompt_tokens_per_s=[rows * T / (m / 1e3)
+                                              for m in med],
+                         readings=rs, profiled_wall_ms=wall,
+                         device_busy_ms=busy,
+                         device_idle_share=(1 - busy / wall) if busy
+                         else None, profiled_device_events=seen,
+                         flash_by_design=flash, device_launches=groups,
+                         counted_device_launches=counted,
+                         profile_tries=tries)
+    same = all(a.tobytes() == b.tobytes()
+               for a, b in zip(outs['eager'], outs['graph']))
+    entries = [e for e in pred._exe._graphs.entries.values()
+               if e.capture_s is not None]
+    emit(phase=phase, step='serve_modes', rows=rows, modes=out,
+         rows_bitwise_equal=same, graphs=len(entries),
+         capture_s=[e.capture_s for e in entries], card=smi)
+    require(same, 'served rows: the graph replay and the interpreter differ')
+    # the device launches are not held to the counted ones here: after
+    # the float32 served phase the profiler shows no gather_rows event in
+    # the bf16 batch's windows, interpreted and replayed alike, though the
+    # wrapper launched it (PERF.md §7)
+    seen_flash = out['graph']['flash_by_design']
+    require(not seen_flash or (set(seen_flash) == {design} and
+                               seen_flash[design][1] == n_layer),
+            'the replayed batch ran flash kernels %s, not %d %s'
+            % (seen_flash, n_layer, design))
 
 
 # bf16 bound: a logit passes R = 12 L + 2 bf16 roundings (unit roundoff
@@ -1239,7 +1337,9 @@ def _serve(phase, smi, bf16):
     dispatched = c.histogram('serving.dispatched_rows')
     batch_ms = c.histogram('serving.batch_ms')
     statuses = [r.status for r in results]
-    require(all(r.ok for r in results), 'requests not ok: %s' % statuses)
+    require(all(r.ok for r in results), 'requests not ok: %s (first '
+            'error: %r)' % (statuses, next((r.error for r in results
+                                             if not r.ok), None)))
     require(c.get('serving.deadlocks') == 0, 'serving.deadlocks != 0')
     require(dispatched['max'] == 4, 'no dispatched batch had 4 rows: %s'
             % dispatched)
@@ -1290,9 +1390,10 @@ def _serve(phase, smi, bf16):
         res['controls'] = bf16_controls(ctl, feeds[:3], f32_logits[:3],
                                         cfg['n_layer'])
     emit(**res)
-    profile_batch(pred, {'tokens': np.concatenate(
-        [f['tokens'] for f in feeds[1:3]])}, cfg['n_layer'], phase,
-        'fwd_wgmma' if bf16 else 'fwd_tf32x3')
+    four = {'tokens': np.concatenate([f['tokens'] for f in feeds[1:3]])}
+    design = 'fwd_wgmma' if bf16 else 'fwd_tf32x3'
+    profile_batch(pred, four, cfg['n_layer'], phase, design)
+    serve_modes(phase, smi, pred, four, cfg['n_layer'], design)
     del pred, eng, f32, ctl
     torch.cuda.empty_cache()
     launches.update(seg)
@@ -1714,11 +1815,12 @@ def _flash_design(name):
     return None
 
 
-def _flash_by_design(prof):
-    """{design: [device ms, launches]} of the flash kernels a profile saw."""
+def _flash_by_design(averages):
+    """{design: [device ms, launches]} of the flash kernels in a profile's
+    key_averages()."""
     from torch.autograd import DeviceType
     flash = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
             continue
         design = _flash_design(e.key)
@@ -1730,16 +1832,18 @@ def _flash_by_design(prof):
 
 
 def profile_step(exe, main, feed, fetch, phase='training'):
-    """torch.profiler over one training step: device time by kernel group
-    (device-side events only) and the device's idle share of the step;
-    returns the flash kernels' {design: [device ms, launches]}."""
+    """torch.profiler over one interpreted training step
+    (use_program_cache=False): device time by kernel group (device-side
+    events only) and the device's idle share of the step; returns the
+    flash kernels' {design: [device ms, launches]}.  graph_modes profiles
+    the graph replays."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=fetch)
+        exe.run(main, feed=feed, fetch_list=fetch, use_program_cache=False)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, top = {}, []
@@ -1750,7 +1854,7 @@ def profile_step(exe, main, feed, fetch, phase='training'):
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
         top.append((ms, e.key[:80], e.count))
-    flash = _flash_by_design(prof)
+    flash = _flash_by_design(prof.key_averages())
     top.sort(reverse=True)
     busy = sum(groups.values())
     emit(phase=phase, step='profile', profiled_wall_ms=wall_ms,
@@ -1760,6 +1864,256 @@ def profile_step(exe, main, feed, fetch, phase='training'):
          top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:15]])
     require(busy > 0, 'the profiler saw no device time')
     return flash
+
+
+# the kernel groups (_group) of the hand-written and generated kernels: a
+# profile counts their device launches beside the wrappers' counts
+KERNEL_GROUPS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv', 'layer_norm', 'softmax',
+                 'kernelgen_segment', 'adam_multi', 'embedding_gather')
+
+
+def _profiled(fn):
+    """torch.profiler over fn(): (host wall ms, device busy ms, the flash
+    kernels by design, device kernels seen, {KERNEL_GROUPS group: device
+    launches}); a CUDA graph's kernels show as device events of their
+    own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, seen, groups = 0.0, 0, {}
+    averages = prof.key_averages()
+    for e in averages:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        g = _group(e.key)
+        if g in KERNEL_GROUPS:
+            groups[g] = groups.get(g, 0) + e.count
+        if e.self_device_time_total:
+            busy += e.self_device_time_total / 1e3
+            seen += e.count
+    return wall_ms, busy, _flash_by_design(averages), seen, groups
+
+
+# device kernels one counted launch runs: adam_multi's update and its
+# beta-power kernel; every other wrapper launches one
+DEVICE_KERNELS = {'adam_multi': 2}
+PROFILE_TRIES = 3
+
+
+def _profiled_launches(fn):
+    """_profiled(fn) with the wrappers' counts over the same window, as
+    device kernels (DEVICE_KERNELS) of each KERNEL_GROUPS group; a CUDA
+    graph's replay adds what its capture counted.  The profiler drops
+    kernel events now and then (card runs saw 90 of a window's 92
+    generated-segment launches, and 141 of 144 flash forwards in a
+    run_steps window), so a window whose device launches differ from the
+    counted ones is profiled again, at most PROFILE_TRIES times in all.
+    -> (_profiled's tuple, counted, tries)."""
+    from paddle_tpu_torch import kernels
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = dict(kernels.launches)
+        res = _profiled(fn)
+        counted = {k: (v - before.get(k, 0)) * DEVICE_KERNELS.get(k, 1)
+                   for k, v in kernels.launches.items()
+                   if k in KERNEL_GROUPS and v != before.get(k, 0)}
+        if res[4] == counted:
+            break
+    return res, counted, tries
+
+
+def _seen_on_device(what, device, counted):
+    """Every kernel group the wrappers counted in a window shows on the
+    device, and none more than counted (the profiler may drop an event,
+    never add one)."""
+    for g in set(device) | set(counted):
+        require(0 < device.get(g, 0) <= counted.get(g, 0),
+                '%s: %s device launches of %s, %s counted'
+                % (what, device.get(g, 0), g, counted.get(g, 0)))
+
+
+def _peak_memory():
+    """Peak device memory since the last reset, in GB: `peak_mem_gb`
+    counts live tensors only, which leaves out the blocks a CUDA graph's
+    private pool keeps for its intermediates between replays;
+    `peak_reserved_gb` counts every block the allocator holds (emptied of
+    unused cached blocks before the reading), the graph pools included."""
+    import torch
+    return dict(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+
+K_STEPS = 8      # run_steps' K, as bench.py headlines it
+MODE_STEPS = 10  # steps a reading of run, the graph and check_nan
+
+
+def graph_modes(phase, smi, exe, main, feed, fetch, tokens, flash_want):
+    """The step through four paths, in turns (ABCDDCBA): `eager` is
+    Executor.run with use_program_cache=False (the interpreter), `graph`
+    Executor.run (a replay of the signature's CUDA graph), `run_steps`
+    run_steps(K=8), two launches with return_numpy=False and one sync,
+    then two with return_numpy=True, and `check_nan` an
+    Executor(check_nan=True, nan_poll=8) on the same scope.  Per mode:
+    median step ms, tokens/s, launches per step, peak memory; one
+    profiled window (two steps, one run_steps call) for device busy and
+    idle share; the capture seconds of each signature.  Launches per step
+    must agree across the modes as the wrappers count them (a replay adds
+    what its capture counted); on the device, each mode's profiled window
+    must show exactly the flash kernels of `flash_want` ({design:
+    launches a step}) and every kernel group the wrappers counted in it
+    (`_profiled_launches`, `_seen_on_device`)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    stacked = {k: np.stack([v] * K_STEPS) for k, v in feed.items()}
+    nan_exe = fluid.Executor(check_nan=True, nan_poll=8)
+    for _ in range(2):          # its own signature: warm-up, capture
+        nan_exe.run(main, feed=feed, fetch_list=fetch)
+    losses = []
+
+    def steps(ex, **kw):
+        ms = []
+        for _ in range(MODE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(ex.run(main, feed=feed, fetch_list=fetch,
+                                       **kw)[0][0]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return dict(step_ms=ms, steps=MODE_STEPS, wall_ms=sum(ms))
+
+    def run_steps():
+        t0 = time.perf_counter()
+        outs = [exe.run_steps(main, feed_list=stacked, steps=K_STEPS,
+                              fetch_list=fetch, return_numpy=False)[0]
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        losses.extend(float(v) for o in outs for v in o.reshape(-1).cpu())
+        t0 = time.perf_counter()
+        for _ in range(2):
+            out = exe.run_steps(main, feed_list=stacked, steps=K_STEPS,
+                                fetch_list=fetch)[0]
+            losses.extend(float(v) for v in out.reshape(-1))
+        np_ms = (time.perf_counter() - t0) * 1e3
+        per = dev_ms / (2 * K_STEPS)
+        return dict(step_ms=[per], steps=4 * K_STEPS, wall_ms=dev_ms + np_ms,
+                    step_ms_return_numpy=np_ms / (2 * K_STEPS))
+
+    runs = {'eager': lambda: steps(exe, use_program_cache=False),
+            'graph': lambda: steps(exe), 'run_steps': run_steps,
+            'check_nan': lambda: steps(nan_exe)}
+    readings = {m: [] for m in runs}
+    for mode in ('eager', 'graph', 'run_steps', 'check_nan', 'check_nan',
+                 'run_steps', 'graph', 'eager'):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = (dict(kernels.launches), dict(kernelgen.launches))
+        r = runs[mode]()
+        torch.cuda.synchronize()
+        n = r.pop('steps')
+        r['launches_per_step'] = {
+            k: (v - before[0].get(k, 0)) / n
+            for k, v in kernels.launches.items() if v - before[0].get(k, 0)}
+        r['segment_launches_per_step'] = sum(
+            v - before[1].get(k, 0) for k, v in kernelgen.launches.items()
+            ) / n
+        r.update(_peak_memory())
+        readings[mode].append(r)
+    windows = {
+        'eager': lambda: [exe.run(main, feed=feed, fetch_list=fetch,
+                                  use_program_cache=False)
+                          for _ in range(2)],
+        'graph': lambda: [exe.run(main, feed=feed, fetch_list=fetch)
+                          for _ in range(2)],
+        'run_steps': lambda: exe.run_steps(main, feed_list=stacked,
+                                           steps=K_STEPS, fetch_list=fetch,
+                                           return_numpy=False),
+        'check_nan': lambda: [nan_exe.run(main, feed=feed, fetch_list=fetch)
+                              for _ in range(2)]}
+    out = {}
+    for mode, rs in readings.items():
+        med = [float(np.median(r['step_ms'])) for r in rs]
+        (wall, busy, flash, seen, groups), counted, tries = \
+            _profiled_launches(windows[mode])
+        n = K_STEPS if mode == 'run_steps' else 2
+        out[mode] = dict(
+            median_step_ms=med, tokens_per_s=[tokens / (m / 1e3)
+                                              for m in med],
+            readings=rs, profiled_wall_ms=wall, device_busy_ms=busy,
+            device_idle_share=(1 - busy / wall) if busy else None,
+            profiled_steps=n, profiled_device_events=seen,
+            flash_by_design=flash, profile_tries=tries,
+            device_launches_per_step={g: c / n for g, c in groups.items()},
+            counted_device_launches_per_step={g: c / n
+                                              for g, c in counted.items()})
+    captures = {'run': [e.capture_s for e in exe._graphs.entries.values()
+                        if e.capture_s is not None],
+                'check_nan': [e.capture_s for e in
+                              nan_exe._graphs.entries.values()
+                              if e.capture_s is not None]}
+    emit(phase=phase, step='graph_modes', k=K_STEPS, modes=out,
+         capture_s=captures, card=smi)
+    require(all(np.isfinite(losses)), 'non-finite loss in graph_modes')
+    ref = readings['eager'][0]['launches_per_step']
+    for mode, rs in readings.items():
+        for r in rs:
+            require(r['launches_per_step'] == ref,
+                    '%s: launches per step %s, the interpreter %s'
+                    % (mode, r['launches_per_step'], ref))
+    for mode, o in out.items():
+        n = o['profiled_steps']
+        got = {k: c for k, (_, c) in o['flash_by_design'].items()}
+        want = {k: v * n for k, v in flash_want.items()}
+        require(got == want, '%s: flash kernels in the profiled window of '
+                '%d steps: %s, expected %s' % (mode, n, got, want))
+        _seen_on_device(mode, o['device_launches_per_step'],
+                        o['counted_device_launches_per_step'])
+    nan_exe.poll_nan()
+    return out
+
+
+def bitwise_paths(phase, exe, main, scope, feed, fetch, n=3):
+    """From one scope state and one set of run counters, n steps through
+    the interpreter, through the graph and through run_steps(n): the
+    losses and every scope tensor must agree bit for bit."""
+    snap = {k: t.clone() for k, t in scope.vars.items()}
+    state = exe.rng_state()
+    res = {}
+    for mode in ('eager', 'graph', 'run_steps'):
+        for k, t in snap.items():
+            scope.vars[k].copy_(t)
+        exe.set_rng_state(state)
+        if mode == 'run_steps':
+            losses = exe.run_steps(main, feed_list=[feed] * n,
+                                   fetch_list=fetch)[0]
+        else:
+            losses = np.stack([exe.run(
+                main, feed=feed, fetch_list=fetch,
+                use_program_cache=mode == 'graph')[0] for _ in range(n)])
+        res[mode] = (losses.reshape(n), {k: t.clone()
+                                         for k, t in scope.vars.items()})
+    import torch
+    eager = res['eager']
+    differ = {m: sorted(k for k, t in eager[1].items()
+                        if not torch.equal(res[m][1][k], t))
+              for m in ('graph', 'run_steps')}
+    same_losses = {m: res[m][0].tobytes() == eager[0].tobytes()
+                   for m in differ}
+    emit(phase=phase, step='bitwise', steps=n, tensors=len(snap),
+         losses={m: r[0].tolist() for m, r in res.items()},
+         losses_equal=same_losses, tensors_differing=differ)
+    require(all(same_losses.values()) and not any(differ.values()),
+            'graph / run_steps against the interpreter: losses equal %s, '
+            'tensors differing %s' % (same_losses, differ))
+    del snap, res
 
 
 # the flash kernels of one training step, by design (profile_step): bf16
@@ -1863,6 +2217,8 @@ def _train_flash(phase, smi, amp):
         got = {k: c for k, (_, c) in flash.items()}
         require(got == want, 'flash kernels in the profiled step: %s, '
                 'expected %s' % (got, want))
+        graph_modes(phase, smi, exe, main, feed, fetch, tokens, want)
+        bitwise_paths(phase, exe, main, scope, feed, fetch)
     del scope, exe
     torch.cuda.empty_cache()
     launches.update(seg)
@@ -2021,17 +2377,19 @@ def phase_training_composed(smi):
         torch.cuda.synchronize()
         startup_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        warm, warm_s = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            warm.append(float(exe.run(main, feed=feed,
-                                      fetch_list=fetch)[0][0]))
-            warm_s.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        kernelgen.launches.clear()
-        losses, step_ms = [], []
+        # installed from the first run of main to the last: the
+        # interpreted warm-up and the captures run Python, a replay none
         with PlainCalls() as plain:
+            warm, warm_s = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                warm.append(float(exe.run(main, feed=feed,
+                                          fetch_list=fetch)[0][0]))
+                warm_s.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            kernelgen.launches.clear()
+            losses, step_ms = [], []
             t_all = time.perf_counter()
             for _ in range(10):
                 t0 = time.perf_counter()
@@ -2039,37 +2397,51 @@ def phase_training_composed(smi):
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(loss[0]))
             wall = time.perf_counter() - t_all
-        launches = dict(kernels.launches)
-        seg = dict(kernelgen.launches)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        per_step = {k: v / 10 for k, v in launches.items()}
-        planned = planned_segments(main, [out['loss'].name])
-        med = float(np.median(step_ms))
-        emit(phase='training_composed', step='steps',
-             config='transformer-base defaults', cfg=COMPOSED_CFG, amp=True,
-             pt_opt=os.environ.get('PT_OPT', '1'), B=B, T=T,
-             startup_s=startup_s, warmup_losses=warm, warmup_step_s=warm_s,
-             losses=losses, step_ms=step_ms, median_step_ms=med,
-             wall_s=wall, tokens_per_step=tokens,
-             tokens_per_s=tokens * 10 / wall, peak_mem_gb=peak_gb,
-             launches_per_step=per_step, planned_segments_per_step=planned,
-             segment_functions=len(seg),
-             segment_launches_per_step={k: v / 10 for k, v in seg.items()},
-             plain_calls_on_cuda=plain.counts,
-             kernelgen_builds=kernelgen.build_stats['builds'] - builds0,
-             kernelgen_nvcc_s=kernelgen.build_stats['nvcc_s'] - nvcc0,
-             adam_table_builds=exe._kernel_cache.get('adam_multi_tables'),
-             card=smi)
-        require(all(np.isfinite(losses + warm)), 'non-finite training loss')
-        for k, n in COMPOSED_LAUNCHES.items():
-            require(per_step.get(k) == n, '%s: %s launches per step, '
-                    'expected %d' % (k, per_step.get(k), n))
-        require(per_step['kernelgen_segment'] == planned > 0,
-                'generated segments: %s launches per step, %d planned'
-                % (per_step['kernelgen_segment'], planned))
-        require(not plain.counts, 'plain versions ran on the card: %s'
+            launches = dict(kernels.launches)
+            seg = dict(kernelgen.launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            per_step = {k: v / 10 for k, v in launches.items()}
+            planned = planned_segments(main, [out['loss'].name])
+            med = float(np.median(step_ms))
+            emit(phase='training_composed', step='steps',
+                 config='transformer-base defaults', cfg=COMPOSED_CFG,
+                 amp=True,
+                 pt_opt=os.environ.get('PT_OPT', '1'), B=B, T=T,
+                 startup_s=startup_s, warmup_losses=warm,
+                 warmup_step_s=warm_s,
+                 losses=losses, step_ms=step_ms, median_step_ms=med,
+                 wall_s=wall, tokens_per_step=tokens,
+                 tokens_per_s=tokens * 10 / wall, peak_mem_gb=peak_gb,
+                 launches_per_step=per_step,
+                 planned_segments_per_step=planned,
+                 segment_functions=len(seg),
+                 segment_launches_per_step={k: v / 10
+                                            for k, v in seg.items()},
+                 plain_calls_on_cuda=plain.counts,
+                 kernelgen_builds=kernelgen.build_stats['builds'] - builds0,
+                 kernelgen_nvcc_s=kernelgen.build_stats['nvcc_s'] - nvcc0,
+                 adam_table_builds=exe._kernel_cache.get(
+                     'adam_multi_tables'),
+                 card=smi)
+            require(all(np.isfinite(losses + warm)),
+                    'non-finite training loss')
+            for k, n in COMPOSED_LAUNCHES.items():
+                require(per_step.get(k) == n, '%s: %s launches per step, '
+                        'expected %d' % (k, per_step.get(k), n))
+            require(per_step['kernelgen_segment'] == planned > 0,
+                    'generated segments: %s launches per step, %d planned'
+                    % (per_step['kernelgen_segment'], planned))
+            require(not plain.counts, 'plain versions ran on the card: %s'
+                    % plain.counts)
+            profile_step(exe, main, feed, fetch,
+                         phase='training_composed')
+            graph_modes('training_composed', smi, exe, main, feed, fetch,
+                        tokens, {})
+            bitwise_paths('training_composed', exe, main, scope, feed,
+                          fetch)
+        require(not plain.counts, 'plain versions ran on the card in '
+                'the profile, graph_modes or bitwise_paths: %s'
                 % plain.counts)
-        profile_step(exe, main, feed, fetch, phase='training_composed')
     del scope, exe
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in seg.items()})
@@ -2125,6 +2497,65 @@ def phase_composed_opt_on_off():
          loss_rtol=1e-6, startup_equal=same_init, bitwise=bitwise)
     require(all(np.isfinite(on[0])), 'non-finite loss with the passes on')
     require(rel <= 1e-6, 'PT_OPT=1 vs 0: losses differ by %g' % rel)
+    torch.cuda.empty_cache()
+
+
+def phase_nan_trip(smi):
+    """check_nan on the card through the graph: transformer-base at full
+    width cut to 2 layers, composed attention (the pads reach only the
+    loss weights and the additive masks), B=4, T=256, float32; after
+    three clean steps (warm-up, capture, replay) one NaN in a target pad
+    entry.  nan_poll=1 must raise naming the loss at that step; nan_poll=8
+    must raise with nan_window_steps=8 at the poll."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    main, startup, out = _train_program(
+        fluid, tr, amp=False, **dict(COMPOSED_CFG, dropout=0.0, n_layer=2))
+    feed = tr.synthetic_batch(np.random.RandomState(3), 4, 256, 32000)
+    bad = dict(feed, trg_pad=feed['trg_pad'].copy())
+    bad['trg_pad'][0, -1] = np.nan
+    fetch = [out['loss']]
+    res = {}
+    for poll in (1, 8):
+        scope, exe = fluid.Scope(), fluid.Executor(check_nan=True,
+                                                   nan_poll=poll)
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            exe.poll_nan()
+            clean = [float(exe.run(main, feed=feed, fetch_list=fetch)[0][0])
+                     for _ in range(3)]
+            err, bad_steps = None, 0
+            try:
+                for _ in range(poll):
+                    bad_steps += 1
+                    exe.run(main, feed=bad, fetch_list=fetch)
+            except RuntimeError as e:
+                err = e
+        captured = sum(e.graph is not None
+                       for e in exe._graphs.entries.values())
+        res[poll] = dict(clean_losses=clean, bad_steps=bad_steps,
+                         raised=err is not None,
+                         names_loss=out['loss'].name in str(err),
+                         message=str(err)[:300] if err else None,
+                         nan_window_steps=getattr(err, 'nan_window_steps',
+                                                  None),
+                         graphs_captured=captured)
+        del scope, exe
+    emit(phase='nan_trip', config='transformer-base width, 2 layers, '
+         'composed, float32', B=4, T=256, by_nan_poll=res, card=smi)
+    one, eight = res[1], res[8]
+    require(all(np.isfinite(one['clean_losses'] + eight['clean_losses'])),
+            'non-finite loss before the poisoned feed')
+    require(one['raised'] and one['bad_steps'] == 1 and
+            one['message'].startswith('check_nan') and one['names_loss'],
+            'nan_poll=1: no raise naming %s at the poisoned step: %s'
+            % (out['loss'].name, one))
+    require(eight['raised'] and eight['bad_steps'] == 5 and
+            eight['nan_window_steps'] == 8,
+            'nan_poll=8: no raise with a window of 8: %s' % eight)
+    require(one['graphs_captured'] >= 1 and eight['graphs_captured'] >= 1,
+            'the check ran without a captured graph')
     torch.cuda.empty_cache()
 
 
@@ -2208,6 +2639,7 @@ def main(argv=None):
     trained_f32 = run('training_f32', phase_training_f32, smi)
     composed = run('training_composed', phase_training_composed, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
+    run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
     run('generation_gpu_vs_cpu', phase_generation_gpu_vs_cpu)
     run('train_gpu_vs_cpu', phase_train_gpu_vs_cpu)

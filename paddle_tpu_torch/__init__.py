@@ -16,7 +16,10 @@ with `AnalysisConfig.enable_bf16`) -> `serving.ServingEngine.from_predictor`
 `models.llama.make_streaming_runtime`), and the transformer training
 step — `models.transformer.build` (`append_backward`, Adam with
 `noam_decay`, bf16 AMP through `Program.set_amp`) run by
-`Executor.run(main, feed, fetch_list=[loss])`.
+`Executor.run(main, feed, fetch_list=[loss])` — and the executor's
+runtime: `Executor.run_steps`, `check_nan` with its deferred verdict,
+`as_futures`, `CompiledProgram` and `FeedPrefetcher`, each launch
+signature on the card replayed as a captured CUDA graph.
 """
 from .core import unique_name  # noqa: F401
 from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
@@ -25,7 +28,9 @@ from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
 from .core.executor import (Executor, Scope, scope_guard,  # noqa: F401
                             global_scope)
 from .param_attr import ParamAttr  # noqa: F401
-from .data_feeder import FeedBucketer  # noqa: F401
+from .data_feeder import FeedBucketer, FeedPrefetcher  # noqa: F401
+from .compiler import (CompiledProgram, BuildStrategy,  # noqa: F401
+                       ExecutionStrategy)
 from . import (initializer, layers, io, inference, serving,  # noqa: F401
                optimizer, models)
 from .core.backward import append_backward  # noqa: F401

@@ -22,6 +22,8 @@ op's `seed` attr when it is non-zero, else from the program's
 which the rewriter (core/passes) stamps with the op's ORIGINAL position so
 that deleting or fusing ops never shifts a later draw, else its live
 position in the block.  Every op and every run draws its own stream.
+`ctx.upload(array)` puts a host constant on that device (through a CUDA
+graph entry's recorder, `ctx.recorder`, core/graphs.py).
 `ctx.sub_ctx(sub)` is the context of one sub-op of a `fused_elementwise`
 op: it draws from that sub-op's own pinned stream.  `ctx.amp` says whether
 the program runs under bf16 AMP.  The streams are not JAX's threefry
@@ -31,9 +33,26 @@ import torch
 
 _REGISTRY = {}
 
-__all__ = ['register', 'has_op', 'get_op', 'InferCtx', 'ExecCtx']
+__all__ = ['register', 'has_op', 'get_op', 'InferCtx', 'ExecCtx',
+           'run_seed', 'stream_seed']
 
 _MASK = (1 << 63) - 1
+
+
+def run_seed(random_seed, counter):
+    """The seed of one run: the run counter mixed into the program seed,
+    so every run of one program draws fresh streams while staying
+    reproducible."""
+    return (int(random_seed) * 0x9E3779B97F4A7C15 + int(counter)) & _MASK
+
+
+def stream_seed(run_seed_, seed, stream):
+    """The seed of one op stream in a run: a non-zero op `seed` as is,
+    else the stream index mixed into the run's seed."""
+    if seed:
+        return int(seed) & _MASK
+    return (run_seed_ ^ ((int(stream) + 1) * 1009
+                         * 0xBF58476D1CE4E5B9)) & _MASK
 
 
 def register(name):
@@ -76,6 +95,7 @@ class InferCtx(object):
 
     is_infer = True
     device = torch.device('meta')
+    recorder = None
 
     def __init__(self, op=None, amp=False, plan_device=None):
         self.op = op
@@ -84,6 +104,9 @@ class InferCtx(object):
 
     def generator(self, seed=0):
         return None
+
+    def upload(self, host):
+        return torch.from_numpy(host).to(self.device)
 
     def wants(self, slot):
         return True
@@ -97,14 +120,33 @@ class ExecCtx(object):
     `cache` is a dict the executor keeps across runs for impls that hold
     device-side tables between steps (the multi-tensor Adam's)."""
 
-    def __init__(self, device, random_seed, counter, cache=None, amp=False):
+    def __init__(self, device, random_seed, counter, cache=None, amp=False,
+                 recorder=None):
         self.device = torch.device(device)
         self.amp = bool(amp)
-        # the run counter is mixed into the program seed, so every run of
-        # one program draws fresh streams while staying reproducible
-        self.seed = (int(random_seed) * 0x9E3779B97F4A7C15
-                     + int(counter)) & _MASK
+        self.seed = run_seed(random_seed, counter)
         self.cache = cache if cache is not None else {}
+        # None, or a CUDA graph entry's recorder (core/graphs.py): it hands
+        # out the generators a capture registers and makes the host uploads
+        self.recorder = recorder
+
+    def upload(self, host):
+        """A host numpy array as a tensor on the device: through the CUDA
+        graph entry's recorder when one is set (core/graphs.py: a capture
+        may not copy from pageable memory), else a plain copy."""
+        if self.recorder is not None:
+            return self.recorder.upload(host, self.device)
+        return torch.from_numpy(host).to(self.device)
+
+    def generator(self, seed, stream):
+        """The generator of one op stream: fixed `seed`, or `stream` (the
+        op's rng_stream) mixed into this run's seed."""
+        s = stream_seed(self.seed, seed, stream)
+        if self.recorder is not None:
+            return self.recorder.generator(self.device, (seed, stream), s)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(s)
+        return g
 
     def for_op(self, op_index, op, wanted=None):
         return OpCtx(self, op_index, op, wanted)
@@ -141,6 +183,13 @@ class OpCtx(object):
     def cache(self):
         return self._exec.cache
 
+    @property
+    def recorder(self):
+        return self._exec.recorder
+
+    def upload(self, host):
+        return self._exec.upload(host)
+
     def sub_ctx(self, sub):
         """Context for one replayed sub-op of a fused_elementwise op."""
         return OpCtx(self._exec, self.op_index,
@@ -154,14 +203,9 @@ class OpCtx(object):
         return any(n in self._wanted for n in self.op.outputs.get(slot, ()))
 
     def generator(self, seed=0):
-        if seed:
-            s = int(seed) & _MASK
-        else:
-            idx = self.op.attrs.get('rng_stream')
-            if idx is None:
-                idx = self.op_index
-            s = (self._exec.seed ^ ((int(idx) + 1) * 1009
-                                    * 0xBF58476D1CE4E5B9)) & _MASK
-        g = torch.Generator(device=self.device)
-        g.manual_seed(s)
-        return g
+        stream = None
+        if not seed:
+            stream = self.op.attrs.get('rng_stream')
+            if stream is None:
+                stream = self.op_index
+        return self._exec.generator(seed, stream)

@@ -14,8 +14,13 @@ Predictor's scope to bfloat16 before the first run, as the reference's
 norm and rope in float32 inside, as in the reference), its matrix
 products run on the bf16 tensor cores and its attention on K1's bf16
 wgmma kernel, and bf16 fetches come back as numpy arrays of
-`ml_dtypes.bfloat16`, the dtype the JAX Predictor returns.  Not ported
-yet: the lint policy, AOT export and the compile cache.
+`ml_dtypes.bfloat16`, the dtype the JAX Predictor returns.  On the card each feed shape (each bucket of
+a ServingEngine) is one launch signature of the Executor, so from its
+second run `Predictor.run` replays a captured CUDA graph (core/graphs.py):
+the reference's one executable per feed shape.  `_cast_params_bf16`
+replaces the scope's tensors, and their dtypes are part of the
+signature, so a cast after a run captures anew.  Not ported yet: the
+lint policy, AOT export and the compile cache's disk tier.
 """
 import threading
 

@@ -4,7 +4,10 @@
 adds one where it launches its kernel and nowhere else, so a run can show
 that its path went through the kernels (chip_smoke.py reads it).
 `kernelgen_segment` counts the launches of every generated segment
-(ops/kernelgen); `ops.kernelgen.launches` has them by function.
+(ops/kernelgen); `ops.kernelgen.launches` has them by function.  A CUDA
+graph's replay runs no Python: core/graphs.py takes back the counts its
+capture made and adds them once a replay, so the counts stay the
+launches the device ran.
 """
 from .build import library
 

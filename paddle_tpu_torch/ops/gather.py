@@ -9,9 +9,17 @@ in plain PyTorch.  There is no size gate: the JAX package's `_MIN_ROWS`
 was measured on a TPU and says nothing about this card.
 
 `lookup` is the differentiable form the `lookup_table` op uses: forward
-is the gather, backward is the scatter-add `dW = zeros.index_add_(0, ids,
-g)` in the table's dtype, as the JAX package's custom VJP does with XLA's
-scatter-add (paddle_tpu/ops/gather.py:117-120) — not a kernel.
+is the gather, backward is the scatter-add of the rows' gradients into a
+zero table in the table's dtype, as the JAX package's custom VJP does
+with XLA's scatter-add (paddle_tpu/ops/gather.py:117-120) — not a
+kernel.  On the card it is `index_put_(..., accumulate=True)`, which
+sorts the ids and sums each row's contributions in their order: the same
+sum on every run, equal bit for bit to the CPU's `index_add_`, a serial
+loop in that order.  `index_add_` on the card adds them with float
+atomics in whatever order the threads arrive, so two runs of one step
+(and an interpreted step against its CUDA graph) differed in the
+embedding gradients' last bits; the CPU's `index_put_` sums in yet
+another order.
 """
 import torch
 
@@ -98,6 +106,8 @@ class _Lookup(torch.autograd.Function):
         safe, oob = _safe_ids(idx, V)
         g = g.reshape(-1, D).masked_fill(oob[:, None], 0)
         dw = torch.zeros((V, D), dtype=g.dtype, device=g.device)
+        if dw.is_cuda:
+            return dw.index_put_((safe,), g, accumulate=True), None
         return dw.index_add_(0, safe, g), None
 
 

@@ -212,6 +212,8 @@ def _launch(spec, ents):
                              'got %s on %s' % (spec.name, dt, dev, e.dtype,
                                                e.device))
     ptrs = [t.data_ptr() for t in ents] + [o.data_ptr() for o in outs]
+    # the vector width follows the pointers' alignment: a CUDA graph
+    # (core/graphs.py) fixes both at its capture
     vec = 4 if spec.vec4_sizes and all(
         ptrs[ix] % (4 * ents[ix].element_size()) == 0
         for ix in spec.direct) and all(
@@ -224,6 +226,8 @@ def _launch(spec, ents):
     else:
         rc = _call(spec, arr, vec, dev)
     kernels.check(rc, spec.name)
+    # a replay runs none of this: core/graphs.py credits its capture's
+    # counts once a replay
     kernels.launches['kernelgen_segment'] += 1
     launches[spec.name] = launches.get(spec.name, 0) + 1
     return outs
@@ -281,12 +285,16 @@ def _run_adam(st, mats, ctx):
     cols = {slot: [mats[d[slot]] for d in ins]
             for slot in ('Param', 'Grad', 'Moment1', 'Moment2', 'Beta1Pow',
                          'Beta2Pow', 'LearningRate')}
+    # a column that is not in place gets a new tensor each run; a CUDA
+    # graph copies it into the scope's tensor at the end of its step
+    # (core/graphs.py)
     for slot in ('Param', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow'):
         cols[slot] = [t if ip else t.clone()
                       for t, ip in zip(cols[slot], in_place)]
     adam_multi(cols['Param'], cols['Grad'], cols['Moment1'], cols['Moment2'],
                cols['Beta1Pow'], cols['Beta2Pow'], cols['LearningRate'],
-               *gkey, cache=getattr(ctx, 'cache', None))
+               *gkey, cache=getattr(ctx, 'cache', None),
+               recorder=getattr(ctx, 'recorder', None))
     for k, ob in enumerate(outs):
         for oslot, mid in ob.items():
             mats[mid] = cols[oslot[:-3]][k]

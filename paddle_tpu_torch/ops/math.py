@@ -69,7 +69,9 @@ def cast(ctx, ins, attrs):
 def increment(ctx, ins, attrs):
     x = ins['X']
     step = attrs.get('step', 1.0)
-    # the step converts to x's dtype first, as jnp.asarray(step, x.dtype)
+    # the step converts to x's dtype first, as jnp.asarray(step, x.dtype);
+    # a new tensor each run, which a CUDA graph copies into the scope's
+    # tensor at the end of its step (core/graphs.py)
     return {'Out': x + (step if x.is_floating_point() else int(step))}
 
 

@@ -334,6 +334,8 @@ def dropout(ctx, ins, attrs):
         impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
         out = x * (1.0 - p) if impl == 'downgrade_in_infer' else x
         return {'Out': out, 'Mask': torch.ones_like(x)}
+    # under a CUDA graph ctx.generator is one the capture registered,
+    # seeded before each replay as this run would seed it (core/graphs.py)
     mask = dropout_mask(x.shape, x.dtype, x.device, p,
                         ctx.generator(attrs.get('seed', 0)))
     return {'Out': dropout_apply(x, mask, attrs), 'Mask': mask}

@@ -48,43 +48,64 @@ def adam_reference(params, grads, moment1s, moment2s, beta1_pows,
         b2p.mul_(beta2)
 
 
-def _tables(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
-            lrs, cache):
-    """The kernel's two device tables, int64.  The state table holds per
-    tensor 6 entries (param, m1, m2, beta1_pow and beta2_pow pointers and
-    the element count), then one entry per chunk, (tensor index << 32) |
-    chunk index; in-place updates keep its pointers, so it is cached while
-    they hold.  The step table holds per tensor the grad and LR pointers,
-    new every step (autograd allocates the grads): it goes up from pinned
-    memory without a host sync."""
+def _state_host(params, moment1s, moment2s, beta1_pows, beta2_pows):
+    """The state table on the host: per tensor 6 entries (param, m1, m2,
+    beta1_pow and beta2_pow pointers and the element count), then one
+    entry per chunk, (tensor index << 32) | chunk index."""
     state = (params, moment1s, moment2s, beta1_pows, beta2_pows)
-    key = tuple(t.data_ptr() for col in state for t in col) + \
-        tuple(p.numel() for p in params)
+    head = np.empty((len(params), 6), np.int64)
+    for c, col in enumerate(state):
+        head[:, c] = [t.data_ptr() for t in col]
+    head[:, 5] = [p.numel() for p in params]
+    chunks = [(i << 32) | c for i, p in enumerate(params)
+              for c in range((p.numel() + _CHUNK - 1) // _CHUNK)]
+    return np.concatenate([head.reshape(-1), np.asarray(chunks, np.int64)])
+
+
+def _tables(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
+            lrs, cache, recorder):
+    """The kernel's two device tables, int64: the state table
+    (`_state_host`), whose pointers in-place updates keep, so it is cached
+    while they hold, and the step table, per tensor the grad and LR
+    pointers, new every step (autograd allocates the grads): it goes up
+    from pinned memory without a host sync.
+
+    Inside a CUDA graph entry (core/graphs.py) its `recorder` takes both
+    tables: a capture may not copy from pageable memory, and a
+    captured copy from a pinned buffer would keep a host address that the
+    caching host allocator reuses.  Under the graph the grads sit at
+    fixed addresses, so both tables are constant: the entry fills device
+    buffers it owns, outside the capture."""
     dev = params[0].device
+    step_host = np.asarray([t.data_ptr() for pair in zip(grads, lrs)
+                            for t in pair], np.int64)
+    if recorder is not None:
+        state = _state_host(params, moment1s, moment2s, beta1_pows,
+                            beta2_pows)
+        n_chunks = state.size - 6 * len(params)
+        return recorder.upload(state, dev), recorder.upload(step_host, dev), \
+            n_chunks
+    key = tuple(t.data_ptr() for col in (params, moment1s, moment2s,
+                                         beta1_pows, beta2_pows)
+                for t in col) + tuple(p.numel() for p in params)
     hit = cache.get('adam_multi') if cache is not None else None
     if hit is not None and hit[0] == key:
         table, n_chunks = hit[1], hit[2]
     else:
-        head = np.empty((len(params), 6), np.int64)
-        for c, col in enumerate(state):
-            head[:, c] = [t.data_ptr() for t in col]
-        head[:, 5] = [p.numel() for p in params]
-        chunks = [(i << 32) | c for i, p in enumerate(params)
-                  for c in range((p.numel() + _CHUNK - 1) // _CHUNK)]
-        host = np.concatenate([head.reshape(-1),
-                               np.asarray(chunks, np.int64)])
-        table, n_chunks = torch.from_numpy(host).to(dev), len(chunks)
+        host = _state_host(params, moment1s, moment2s, beta1_pows,
+                           beta2_pows)
+        table, n_chunks = torch.from_numpy(host).to(dev), \
+            host.size - 6 * len(params)
         if cache is not None:
             cache['adam_multi'] = (key, table, n_chunks)
             cache['adam_multi_tables'] = \
                 cache.get('adam_multi_tables', 0) + 1
-    step = torch.tensor([t.data_ptr() for pair in zip(grads, lrs)
-                         for t in pair], dtype=torch.int64).pin_memory()
+    step = torch.from_numpy(step_host).pin_memory()
     return table, step.to(dev, non_blocking=True), n_chunks
 
 
 def _launch_adam(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
-                 lrs, beta1, beta2, epsilon, cache):
+                 lrs, beta1, beta2, epsilon, cache, recorder):
     dev = params[0].device
     for p, g, m1, m2 in zip(params, grads, moment1s, moment2s):
         for t in (p, g, m1, m2):
@@ -98,7 +119,8 @@ def _launch_adam(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
             raise ValueError('adam_multi kernel takes float32 [1] beta '
                              'powers and learning rates on the device')
     table, step, n_chunks = _tables(params, grads, moment1s, moment2s,
-                                    beta1_pows, beta2_pows, lrs, cache)
+                                    beta1_pows, beta2_pows, lrs, cache,
+                                    recorder)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = kernels.library().pt_adam_multi(
@@ -111,9 +133,10 @@ def _launch_adam(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
 
 
 def adam_multi(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
-               lrs, beta1, beta2, epsilon, cache=None):
+               lrs, beta1, beta2, epsilon, cache=None, recorder=None):
     """Adam over lists of tensors, in place.  `cache` (a dict kept across
-    steps) holds the kernel's state table."""
+    steps) holds the kernel's state table; `recorder`, a CUDA graph
+    entry's (core/graphs.py), makes its host uploads."""
     if not params:
         return
     lists = (grads, moment1s, moment2s, beta1_pows, beta2_pows, lrs)
@@ -122,7 +145,8 @@ def adam_multi(params, grads, moment1s, moment2s, beta1_pows, beta2_pows,
     dev = params[0].device
     if dev.type == 'cuda':
         return _launch_adam(params, grads, moment1s, moment2s, beta1_pows,
-                            beta2_pows, lrs, beta1, beta2, epsilon, cache)
+                            beta2_pows, lrs, beta1, beta2, epsilon, cache,
+                            recorder)
     if dev.type in ('cpu', 'meta'):
         return adam_reference(params, grads, moment1s, moment2s, beta1_pows,
                               beta2_pows, lrs, beta1, beta2, epsilon)
@@ -149,7 +173,8 @@ def run_adam_group(ops, env, ectx):
     cols = [[env[op.input(slot)[0]] for op in ops] for slot in (
         'Param', 'Grad', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow',
         'LearningRate')]
-    adam_multi(*cols, *_attrs(ops[0].attrs), cache=ectx.cache)
+    adam_multi(*cols, *_attrs(ops[0].attrs), cache=ectx.cache,
+               recorder=ectx.recorder)
 
 
 @register('adam')
@@ -158,6 +183,7 @@ def adam(ctx, ins, attrs):
     p, m1, m2, b1p, b2p = (ins[s].clone() for s in (
         'Param', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow'))
     adam_multi([p], [ins['Grad']], [m1], [m2], [b1p], [b2p],
-               [ins['LearningRate']], *_attrs(attrs))
+               [ins['LearningRate']], *_attrs(attrs),
+               recorder=getattr(ctx, 'recorder', None))
     return {'ParamOut': p, 'Moment1Out': m1, 'Moment2Out': m2,
             'Beta1PowOut': b1p, 'Beta2PowOut': b2p}

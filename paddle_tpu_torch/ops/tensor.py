@@ -120,8 +120,7 @@ def fill_constant_batch_size_like(ctx, ins, attrs):
 def assign_value(ctx, ins, attrs):
     dtype = convert_dtype(attrs.get('dtype', 'float32'))
     vals = np.array(attrs['values'], dtype=dtype).reshape(attrs['shape'])
-    return {'Out': torch.from_numpy(vals).to(
-        device=ctx.device, dtype=torch_dtype(dtype))}
+    return {'Out': ctx.upload(vals).to(torch_dtype(dtype))}
 
 
 @register('assign')
