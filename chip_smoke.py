@@ -57,16 +57,28 @@ Phases, each printing JSON lines:
   generation  llama_1b (full width and depth, float32, TF32 off, weights
               from its program's startup) through make_streaming_runtime
               (8 slots, prefill chunks of 256) and GenerationEngine
-              (decode windows of 4): 8 concurrent requests of 128-1024
-              prompt tokens and 64 new tokens, greedy and seeded top-k;
+              (decode windows of 4), after DecodeRuntime.warmup(4) built
+              the prefill chunk's and the decode window's CUDA graphs
+              (capture seconds by key, reserved memory; warmup changes no
+              state outside page 0): 8 concurrent requests of 128-1024
+              prompt tokens and 64 new tokens, greedy and seeded top-k,
+              every chunk and window a graph replay;
               TTFT and ITL p50 / p99, decode tokens/s, window ms, KV pool
               bytes and peak memory; every stream terminal once, K4 one
               launch a prefill chunk and a decode step, no plain version on
               the card; two greedy streams against dense_reference on the
               card, a seeded and a greedy stream of the batch bitwise
               equal to the same request run alone, a seeded stream bitwise
-              at windows of 1 and 4; one profiled window of 8 decoding
-              slots (device time by aten op group, idle share); the
+              at windows of 1 and 4; graph_vs_eager: from one state, a
+              prefill chunk, a decode and a verify window through the
+              graph and the private eager body, bit for bit (tokens,
+              logits, lengths, tok, every page but page 0), in float32 and
+              with int8 KV; window_modes: 8 decoding slots' windows eager
+              and graph in turns (median ms), one profiled window of each
+              (device busy, idle share, kernels a step split by group,
+              equal in both modes); a decode_step fault (testing/faults)
+              errors its window's stream and frees its slot, and a seeded
+              stream after it equals the same request alone; the
               plain cached_attention against one
               SDPA call with the same mask at the decode and prefill
               shapes (timed only)
@@ -1495,46 +1507,263 @@ def _op_group(key):
     return 'elementwise_and_other'
 
 
-def profile_decode_window(rt, active, phase='generation'):
-    """torch.profiler over one decode window: device time by kernel and by
-    the aten op that launched it, device busy and idle share."""
+def _decode_kernel_group(name):
+    """A decode step's device event -> what launched it (the kernel's
+    name: graphs replay no aten ops to attribute it to)."""
+    low = name.lower()
+    if 'gather_rows' in name:
+        return 'embedding_gather'
+    if 'memcpy' in low or 'memset' in low:
+        return 'memcpy_memset'
+    if any(t in low for t in ('gemm', 'gemv', 'cutlass', 'sm90_', 'xmma',
+                              'cublas', 'nvjet', 'splitk')):
+        return 'gemm'
+    if 'index' in low:
+        return 'index_gather_scatter'
+    if 'sort' in low or 'radix' in low or 'cub::' in low:
+        return 'sort'
+    if 'softmax' in low:
+        return 'softmax'
+    if 'reduce' in low:
+        return 'reduce'
+    if 'catarray' in low:
+        return 'cat'
+    if 'elementwise' in low:
+        return 'elementwise'
+    return 'other'
+
+
+def profile_window(rt, window, phase='generation'):
+    """torch.profiler over `window()` (one decode window of GEN_WINDOW
+    steps, eager or replayed): device busy ms and idle share, device
+    events and kernels (memcpy / memset left out) a step, both split by
+    _decode_kernel_group, and for an eager window the device ms by aten
+    op group and the kernels each aten op launched a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    S = rt.slots
-    zi, zf = np.zeros(S, np.int64), np.zeros(S, np.float32)
-    rt.decode_window(GEN_WINDOW, active, zi, zf, zi)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt.decode_window(GEN_WINDOW, active, zi, zf, zi)
+        window()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, by_op, top, launched = 0.0, {}, [], 0
+    busy, events, kernels, by_op = 0.0, 0, 0, {}
+    groups, top = {}, []
     for e in prof.key_averages():
-        ms = e.self_device_time_total / 1e3
-        if not ms:
-            continue
         if e.device_type == DeviceType.CUDA:
-            busy += ms
-            launched += e.count
-            top.append((ms, e.key[:80], e.count))
-        else:
+            g = _decode_kernel_group(e.key)
+            n_ms = groups.setdefault(g, [0, 0.0])
+            n_ms[0] += e.count
+            n_ms[1] += e.self_device_time_total / 1e3
+            events += e.count
+            if g != 'memcpy_memset':
+                kernels += e.count
+            busy += e.self_device_time_total / 1e3
+            top.append((e.self_device_time_total / 1e3, e.key[:80], e.count))
+        elif e.self_device_time_total:
             g = _op_group(e.key)
-            by_op[g] = by_op.get(g, 0.0) + ms
+            by_op[g] = by_op.get(g, 0.0) + e.self_device_time_total / 1e3
+    by_aten = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA and getattr(e, 'kernels', None):
+            by_aten[e.name] = by_aten.get(e.name, 0) + len(e.kernels)
     top.sort(reverse=True)
-    res = dict(phase=phase, step='decode_window_profile', steps=GEN_WINDOW,
-               active_slots=int(np.sum(active)),
-               key_positions=[int(x) for x in rt.host_len],
-               profiled_wall_ms=wall_ms, device_busy_ms=busy,
-               device_idle_share=1 - busy / wall_ms if busy else None,
-               device_ms_by_op_group=by_op,
-               device_events_per_step=launched / GEN_WINDOW,
-               top_kernels=[dict(ms=t, name=n, count=c)
-                            for t, n, c in top[:12]])
+    K = GEN_WINDOW
+    return dict(
+        phase=phase, steps=K, profiled_wall_ms=wall_ms,
+        device_busy_ms=busy,
+        device_idle_share=1 - busy / wall_ms if busy else None,
+        device_events_per_step=events / K, kernels_per_step=kernels / K,
+        kernels_per_step_by_group={g: v[0] / K for g, v in groups.items()},
+        device_ms_by_group={g: v[1] for g, v in groups.items()},
+        device_ms_by_op_group=by_op,
+        kernels_per_step_by_aten_op={k: v / K for k, v in sorted(
+            by_aten.items(), key=lambda kv: -kv[1])[:20]},
+        top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:12]])
+
+
+def _state_clone(rt):
+    return {n: t.clone() for n, t in rt.state.items()}
+
+
+def _state_restore(rt, snap):
+    for n, t in snap.items():
+        rt.state[n].copy_(t)
+
+
+def _states_equal(a, b):
+    """lengths, tok and every page but the garbage page 0 (inactive slots
+    all write it, in no fixed order), bit for bit, by state tensor."""
+    import torch
+    return {n: bool(torch.equal(a[n][1:], b[n][1:]) if a[n].dim() > 1
+                    else torch.equal(a[n], b[n])) for n in a}
+
+
+def graph_vs_eager(rt, gen, prompts, sampling, what):
+    """From one state, a prefill chunk, a decode window and a verify window
+    of all GEN_SLOTS slots through the runtime's CUDA graphs and through
+    the private eager bodies: the tokens, the prefill's logits, lengths,
+    tok and every page but page 0 bit for bit."""
+    import torch
+    rt.reset()
+    S, K, C = rt.slots, GEN_WINDOW, rt.prefill_chunk
+    params = [gen.SamplingParams(*sp) for sp in sampling]
+    # the compared chunk: the short last chunk of a prompt of several
+    hold = next(i for i, p in enumerate(prompts) if p.size > C and p.size % C)
+    for slot, p in enumerate(prompts):
+        require(rt.alloc_slot() == slot, 'slots out of order')
+        require(rt.try_begin(slot, p, 4 * K) == 0, 'no pages')
+        offs = list(range(0, p.size, C))
+        for off in offs[:-1] if slot == hold else offs:
+            rt.prefill(slot, p[off:off + C], off, params[slot])
+    act = np.ones(S, bool)
+    seeds = np.asarray([sp.seed for sp in params], np.int64)
+    temps = np.asarray([sp.temperature for sp in params], np.float32)
+    topks = np.asarray([sp.top_k for sp in params], np.int64)
+    res = {}
+
+    def both(name, call):
+        snap = _state_clone(rt)
+        g = call(False)
+        g_state = _state_clone(rt)
+        _state_restore(rt, snap)
+        e = call(True)
+        torch.cuda.synchronize()
+        same_out = all(np.array_equal(np.asarray(x), np.asarray(y))
+                       for x, y in zip(g, e)) if isinstance(g, tuple) \
+            else np.array_equal(g, e)
+        res[name] = dict(outputs=same_out, state=_states_equal(g_state,
+                                                               rt.state))
+        return e
+
+    p, off = prompts[hold], (prompts[hold].size - 1) // C * C
+    tok, _ = both('prefill', lambda eager: rt._prefill(
+        hold, p[off:off + C], off, params[hold], eager=eager))
+    rt.host_len[hold], rt.host_tok[hold] = p.size, tok
+    out = both('decode', lambda eager: rt._window(
+        'decode', K, None, act, seeds, temps, topks, eager=eager))
+    rt.host_len[:] += K
+    rt.host_tok[:] = out[:, -1]
+    fed = np.zeros((S, K), np.int64)
+    for slot, p in enumerate(prompts):
+        fed[slot, 0] = rt.host_tok[slot]
+        fed[slot, 1:] = gen.draft_ngram(p, K - 1)
+    both('verify', lambda eager: rt._window(
+        'verify', K, fed, act, seeds, temps, topks, eager=eager))
+    line = dict(phase='generation', step='graph_vs_eager', kv=what,
+                keys=sorted('%s_%d' % k for k in rt._execs), checks=res)
+    emit(**line)
+    bad = {k: v for k, v in res.items()
+           if not (v['outputs'] and all(v['state'].values()))}
+    require(not bad, '%s: graph and eager differ: %s' % (what, bad))
+    rt.reset()
+    return line
+
+
+def window_modes(rt, gen, prompts, smi):
+    """GEN_SLOTS slots decoding: decode windows through the private eager
+    body and through the CUDA graph, in turns (eager, graph, graph,
+    eager), WINDOW_READS windows each: median window ms; then one window
+    of each profiled (device busy, idle share, kernels a step split by
+    group), re-profiled up to PROFILE_TRIES times while the two modes'
+    kernels a step differ (the profiler drops events now and then)."""
+    import torch
+    rt.reset()
+    K = GEN_WINDOW
+    for slot, p in enumerate(prompts):
+        require(rt.alloc_slot() == slot, 'slots out of order')
+        # pages for every window below
+        require(rt.try_begin(slot, p, 32 * K) == 0, 'no pages')
+        for off in range(0, p.size, GEN_CHUNK):
+            rt.prefill(slot, p[off:off + GEN_CHUNK], off,
+                       gen.SamplingParams())
+    S = rt.slots
+    act = np.ones(S, bool)
+    zi, zf = np.zeros(S, np.int64), np.zeros(S, np.float32)
+
+    def window(eager):
+        return lambda: rt._window('decode', K, None, act, zi, zf, zi,
+                                  eager=eager)
+
+    ms = {'eager': [], 'graph': []}
+    for mode in ('eager', 'graph', 'graph', 'eager'):
+        for _ in range(WINDOW_READS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window(mode == 'eager')()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+    for tries in range(1, PROFILE_TRIES + 1):
+        prof = {m: profile_window(rt, window(m == 'eager'))
+                for m in ('eager', 'graph')}
+        if prof['eager']['kernels_per_step'] == \
+                prof['graph']['kernels_per_step']:
+            break
+    med = {m: float(np.median(v)) for m, v in ms.items()}
+    res = dict(phase='generation', step='window_modes', steps=K,
+               active_slots=S, key_positions=[int(x) for x in
+                                              rt.state['lengths'].cpu()],
+               window_ms=med,
+               # the profiled window's device busy time over the median
+               # unprofiled window (the profiler slows the host)
+               device_idle_share={m: 1 - prof[m]['device_busy_ms'] / med[m]
+                                  for m in med},
+               window_ms_readings=ms, profile_tries=tries, profiles=prof,
+               card=smi)
     emit(**res)
-    require(busy > 0, 'the profiler saw no device time')
+    for m, pr in prof.items():
+        require(pr['device_busy_ms'] > 0, 'the profiler saw no device time '
+                'in the %s window' % m)
+    require(prof['eager']['kernels_per_step'] ==
+            prof['graph']['kernels_per_step'], 'kernels a step differ: '
+            'eager %s, graph %s' % (prof['eager']['kernels_per_step'],
+                                    prof['graph']['kernels_per_step']))
+    rt.reset()
+    return res
+
+
+WINDOW_READS = 5   # decode windows a reading of window_modes
+
+
+def fault_then_alone(rt, gen, serving, prompts):
+    """A decode_step fault through the real site (testing/faults.py): the
+    faulted window's streams get error replies and free their slots; a
+    seeded stream after it equals the same request run alone."""
+    from paddle_tpu_torch.testing import faults
+    rt.reset()
+    eng = gen.GenerationEngine(
+        rt, config=serving.ServingConfig(max_queue=16),
+        gen_config=gen.GenerationConfig(decode_window=GEN_WINDOW))
+    sp = (0.8, 40, 21)
+    try:
+        faults.configure('decode_step:at=1')
+        with eng:
+            hit = [eng.generate(p[:128], max_new=8).result(300)
+                   for p in prompts[:2]]
+            after = eng.generate(prompts[2][:200], max_new=16,
+                                 temperature=sp[0], top_k=sp[1],
+                                 seed=sp[2]).result(300)
+    finally:
+        faults.reset()
+    # every page still held is one the prefix cache keeps
+    free = rt.free_slots() == rt.slots and rt.pool.in_use() == (
+        len(rt.prefix) if rt.prefix is not None else 0)
+    rt.reset()
+    alone = rt.generate(prompts[2][:200], 16, gen.SamplingParams(*sp),
+                        steps_per_window=GEN_WINDOW)
+    res = dict(phase='generation', step='decode_step_fault',
+               statuses=[(r.status, r.reason) for r in hit],
+               after=(after.status, after.reason), slots_freed=free,
+               after_equals_alone=after.ok and
+               [int(t) for t in after.outputs[0]] == alone)
+    emit(**res)
+    require(any(r.status == 'error' and r.reason == 'decode_step'
+                for r in hit), 'the decode_step fault errored no stream')
+    require(free, 'the fault left slots or pages held')
+    require(res['after_equals_alone'], 'a stream after the fault differs '
+            'from the same request alone')
+    rt.reset()
     return res
 
 
@@ -1577,7 +1806,8 @@ def cached_attention_case(name, S, Tq, Tk, offset, H=16, Hkv=8, D=128):
 
 def phase_generation(smi):
     """Streaming generation of llama_1b (full width and depth, float32,
-    TF32 off) through GenerationEngine over make_streaming_runtime."""
+    TF32 off) through GenerationEngine over make_streaming_runtime, whose
+    prefill chunks and decode windows replay CUDA graphs."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels, serving
@@ -1591,16 +1821,34 @@ def phase_generation(smi):
                                       prefill_chunk=GEN_CHUNK)
     del scope
     setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    # build the served keys before the first request: nvcc for K4 and the
+    # warm-up run on the side stream, then the captures; no state changes
+    # outside the garbage page 0
+    t0 = time.perf_counter()
+    rt.warmup(GEN_WINDOW)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the graphs' private pool keeps its blocks through empty_cache
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    graphs = dict(warmup_s=warmup_s, warm_up_s={
+        '%s_%d' % k: e.warm_up_s for k, e in rt._execs.items()}, capture_s={
+        '%s_%d' % k: e.capture_s for k, e in rt._execs.items()},
+        reserved_gb_before=reserved0 / 1e9,
+        reserved_gb_after=reserved1 / 1e9,
+        graph_pool_gb=(reserved1 - reserved0) / 1e9)
+    require(not rt.state['lengths'].any() and not rt.state['tok'].any() and
+            not any(t[1:].any() for t in rt.state.values() if t.dim() > 1),
+            'warmup changed state outside page 0')
     V = cfg['vocab']
     rng = np.random.RandomState(SEED + 7)
     prompts = [rng.randint(0, V, n).astype(np.int32) for n in GEN_PROMPTS]
     # greedy and seeded top-k, alternating
     sampling = [(0.0, 0, 0) if i % 2 == 0 else (0.8, 40, 100 + i)
                 for i in range(len(prompts))]
-    # warm the device (cuBLAS handles, the allocator) outside the counts
-    rt.generate(prompts[0][:64], 8)
-    rt.reset()
-    torch.cuda.synchronize()
     eng = gen.GenerationEngine(
         rt, config=serving.ServingConfig(max_queue=16),
         gen_config=gen.GenerationConfig(decode_window=GEN_WINDOW))
@@ -1618,6 +1866,9 @@ def phase_generation(smi):
     statuses = [r.status for r in results]
     require(all(r.ok and r.reason == 'max_tokens' for r in results),
             'streams not ok: %s' % statuses)
+    require(set(rt._execs) == {('prefill', GEN_CHUNK),
+                               ('decode', GEN_WINDOW)},
+            'the served run built keys past warmup: %s' % sorted(rt._execs))
     outs = [np.asarray(r.outputs[0]) for r in results]
     require(all(o.shape == (GEN_MAX_NEW,) and ((o >= 0) & (o < V)).all()
                 for o in outs), 'bad generated ids')
@@ -1634,6 +1885,7 @@ def phase_generation(smi):
     require(chunks == sum(-(-n // GEN_CHUNK) for n in GEN_PROMPTS),
             'prefill chunks %d' % chunks)
     # K4 embeds every prefill chunk and every decode step; nothing else
+    # (credited once a replay with what its capture launched)
     per_step = (launches['embedding_gather'] - chunks) / (windows *
                                                           GEN_WINDOW)
     require(per_step == 1, 'gather launches %d != %d chunks + %d steps'
@@ -1649,19 +1901,22 @@ def phase_generation(smi):
         slots=GEN_SLOTS, prefill_chunk=GEN_CHUNK, decode_window=GEN_WINDOW,
         page_len=rt.cache.page_len,
         prompts=list(GEN_PROMPTS), max_new=GEN_MAX_NEW, sampling=sampling,
-        statuses=statuses, wall_s=wall, setup_s=setup_s,
+        statuses=statuses, wall_s=wall, setup_s=setup_s, graphs=graphs,
         ttft_ms_p50=c.quantile('serving.ttft_ms', 0.5),
         ttft_ms_p99=c.quantile('serving.ttft_ms', 0.99),
         itl_ms_p50=c.quantile('serving.itl_ms', 0.5),
         itl_ms_p99=c.quantile('serving.itl_ms', 0.99),
         decode_window_ms=win, decode_window_ms_p50=c.quantile(
             'generation.decode_window_ms', 0.5),
-        prefill_chunk_ms=pre, prefill_chunks=chunks, decode_windows=windows,
+        prefill_chunk_ms=pre, prefill_chunk_ms_p50=c.quantile(
+            'generation.prefill_chunk_ms', 0.5),
+        prefill_chunks=chunks, decode_windows=windows,
         mixed_rounds=c.get('generation.mixed_dispatches'),
         decode_tokens_per_s=decode_tokens / (win['sum'] / 1e3),
         output_tokens_per_s=c.get('generation.tokens') / wall,
         prompt_tokens_per_s=sum(GEN_PROMPTS) / (pre['sum'] / 1e3),
         kv_pool_bytes=rt.cache.bytes(), kv_pages=rt.cache.pages,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches, card=smi)
     emit(**res)
@@ -1689,16 +1944,15 @@ def phase_generation(smi):
     require(all(batch_equal.values()), 'a stream run alone differs from the '
             'same request in the batch: %s' % batch_equal)
     require(one == four, 'a seeded stream differs between windows of 1 and 4')
-    # one decode window with all 8 slots decoding, profiled
-    rt.reset()
-    zero = gen.SamplingParams()
-    for p in prompts:
-        slot = rt.alloc_slot()
-        # pages for the four windows profiled below
-        require(rt.try_begin(slot, p, 4 * GEN_WINDOW) == 0, 'no pages')
-        for off in range(0, p.size, GEN_CHUNK):
-            rt.prefill(slot, p[off:off + GEN_CHUNK], off, zero)
-    profile_decode_window(rt, np.ones(GEN_SLOTS, bool))
+    # graph against the private eager body, float32 then int8 KV
+    graph_vs_eager(rt, gen, prompts, sampling, 'float32')
+    window_modes(rt, gen, prompts, smi)
+    fault_then_alone(rt, gen, serving, prompts)
+    rt8 = gen.DecodeRuntime(rt.w, cfg, slots=GEN_SLOTS,
+                            prefill_chunk=GEN_CHUNK, kv_quant='int8')
+    rt8.warmup(GEN_WINDOW, speculative=True)
+    graph_vs_eager(rt8, gen, prompts, sampling, 'int8')
+    del rt8
     for case in (('decode_tk128', 8, 1, 128, 127),
                  ('decode_tk512', 8, 1, 512, 511),
                  ('decode_tk1152', 8, 1, 1152, 1151),

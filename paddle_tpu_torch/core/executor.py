@@ -187,7 +187,8 @@ def _raise_if_capturing(ectx, what, e):
     falls back to eager runs (core/graphs.py)."""
     if ectx.device.type == 'cuda' and \
             torch.cuda.is_current_stream_capturing():
-        raise RuntimeError('CUDA graph capture failed at op %s: %s: %s'
+        from .graphs import CaptureError
+        raise CaptureError('CUDA graph capture failed at op %s: %s: %s'
                            % (what, type(e).__name__, e)) from e
 
 

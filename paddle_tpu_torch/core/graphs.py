@@ -56,12 +56,17 @@ capture needs of the code it runs, where it is handled:
   creating one under capture fails (CUBLAS_STATUS_NOT_INITIALIZED): a
   thread that captures before it ran a step of this executor first runs
   a few small matrix products on the capture stream
-  (`GraphCache.warm_thread`), as a ServingEngine's dispatch thread does
+  (`GraphPool.warm_thread`), as a ServingEngine's dispatch thread does
   after a warm-up on the main thread.
 - A capture that fails leaves the caching allocator recording into the
   pool, and later captures in the process fail too: so a failure raises
   naming the op and is not retried.
 - Per-call host work: a replay skips the rewriter and the planning pass.
+
+`GraphPool` holds what every graph of one owner shares (the pool, the
+side stream, warm threads, the capture itself and its launch counts);
+generation's compiled windows (serving/generation/decode.py) capture
+through it as the executor's entries do.
 """
 import threading
 import time
@@ -71,20 +76,23 @@ import torch
 
 from . import registry
 
-__all__ = ['GraphCache', 'GraphEntry']
+__all__ = ['GraphPool', 'GraphCache', 'GraphEntry', 'CaptureError',
+           'credit_launches']
 
 
-class GraphCache(object):
-    """The graph entries of one executor, with their shared pool and side
-    stream."""
+class GraphPool(object):
+    """What every captured graph of one owner shares: a private memory
+    pool, a side stream for warm-ups and captures, and the threads whose
+    cuBLAS handles exist.  The Executor's `GraphCache` and generation's
+    compiled windows (serving/generation/decode.py) are built on it.  The
+    graphs of one pool never run at once, and each caller copies what it
+    keeps of a graph's outputs before another graph of the pool replays."""
 
-    def __init__(self, exe):
-        self.exe = exe
-        self.entries = {}
-        self._last = {}
+    def __init__(self, device):
+        self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(exe.device)
-        # threads that ran a step on the side stream: their cuBLAS handles
+        self.stream = torch.cuda.Stream(self.device)
+        # threads that ran work on the side stream: their cuBLAS handles
         # and workspaces exist
         self.warm_threads = set()
 
@@ -96,11 +104,98 @@ class GraphCache(object):
             return
         with torch.cuda.stream(self.stream):
             for dt in (torch.float32, torch.bfloat16):
-                a = torch.ones((16, 16), dtype=dt, device=self.exe.device)
+                a = torch.ones((16, 16), dtype=dt, device=self.device)
                 torch.mm(a, a)
                 torch.addmm(a[0], a, a)
                 torch.bmm(a[None], a[None])
         self.warm_threads.add(ident)
+
+    def run_on_side(self, fn):
+        """fn() on the side stream, ordered after the current stream's
+        work and before its later work: the warm-up whole-network capture
+        asks for (it builds every kernel: nvcc never runs under capture)."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        self.warm_threads.add(threading.get_ident())
+        return out
+
+    def capture(self, graph, fn, what):
+        """Capture fn() into `graph` on the side stream, in this pool.
+        -> (fn's outputs, the launch counts a replay adds).  The launch
+        counters are left as they were.  An error raises naming the code
+        of the port it came from; nothing falls back to eager runs."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        self.warm_thread()
+        cur.wait_stream(self.stream)
+        before = _launch_counts()
+        err, out = None, None
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode='thread_local'):
+                try:
+                    out = fn()
+                except Exception as e:   # re-raised below, once capture ends
+                    err = e
+        except Exception as e:
+            if err is None:
+                raise RuntimeError('CUDA graph capture of %s failed: %s'
+                                   % (what, e)) from e
+        if err is not None:
+            _set_launch_counts(before)
+            if isinstance(err, CaptureError):
+                raise err
+            raise CaptureError('CUDA graph capture of %s failed at %s: %s: '
+                               '%s' % (what, _port_frame(err),
+                                       type(err).__name__, err)) from err
+        after = _launch_counts()
+        _set_launch_counts(before)
+        return out, ({k: v - before[0].get(k, 0) for k, v in after[0].items()},
+                     {k: v - before[1].get(k, 0) for k, v in after[1].items()})
+
+
+class CaptureError(RuntimeError):
+    """A CUDA graph capture that failed, naming where."""
+
+
+def _port_frame(err):
+    """The innermost frame of the port's own code in err's traceback, as
+    'file:line in function: source', naming the op that failed."""
+    import os
+    import traceback
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if os.path.abspath(f.filename).startswith(root)]
+    if not frames:
+        return 'an unknown op'
+    f = frames[-1]
+    return '%s:%d in %s: %s' % (os.path.relpath(f.filename, root), f.lineno,
+                                f.name, (f.line or '').strip())
+
+
+def credit_launches(per_replay):
+    """Add what one replay launched (`GraphPool.capture`'s counts) to the
+    launch counters: a replay runs no Python."""
+    from .. import kernels
+    from ..ops import kernelgen
+    per, seg = per_replay
+    for k, v in per.items():
+        kernels.launches[k] = kernels.launches.get(k, 0) + v
+    for k, v in seg.items():
+        kernelgen.launches[k] = kernelgen.launches.get(k, 0) + v
+
+
+class GraphCache(GraphPool):
+    """The graph entries of one executor, in the executor's `GraphPool`."""
+
+    def __init__(self, exe):
+        GraphPool.__init__(self, exe.device)
+        self.exe = exe
+        self.entries = {}
+        self._last = {}
 
     def entry(self, step, feed_sig, scope):
         base = (id(step), feed_sig, self.exe.check_nan, scope._serial)
@@ -212,26 +307,16 @@ class GraphEntry(object):
         return self._replay(feeds, counter, scope)
 
     def _warm_up(self, feeds, counter, scope):
-        exe = self.cache.exe
         res = _Resources()
-        side = self.cache.stream
-        cur = torch.cuda.current_stream(exe.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = exe._interpret(self.step, feeds, scope, counter, res)
-        cur.wait_stream(side)
+        out = self.cache.run_on_side(lambda: self.cache.exe._interpret(
+            self.step, feeds, scope, counter, res))
         self._warm = res
-        self.cache.warm_threads.add(threading.get_ident())
         return out
 
     def _capture(self, feeds, scope):
-        exe, step = self.cache.exe, self.step
-        dev = exe.device
+        step = self.step
+        dev = self.cache.device
         t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(dev)
-        self.cache.stream.wait_stream(cur)
-        self.cache.warm_thread()
-        cur.wait_stream(self.cache.stream)
         statics = {}
         for n in sorted(step.persistable):
             if n in scope:
@@ -249,29 +334,11 @@ class GraphEntry(object):
         bufs = [torch.empty(shape, dtype=dtype, device=dev)
                 for shape, dtype in self._warm.uploads]
         res = _Resources(gens, bufs)
-        before = _launch_counts()
         env = dict(statics)
         env.update(self._feeds)
-        err, out = None, None
-        try:
-            with torch.cuda.graph(graph, pool=self.cache.pool,
-                                  stream=self.cache.stream,
-                                  capture_error_mode='thread_local'):
-                try:
-                    out = self._captured_step(env, statics, res)
-                except Exception as e:   # re-raised below, once capture ends
-                    err = e
-        except Exception as e:
-            if err is None:
-                raise RuntimeError('CUDA graph capture failed: %s' % e) from e
-        if err is not None:
-            _set_launch_counts(before)
-            raise err
-        after = _launch_counts()
-        self.launches_per_replay = (
-            {k: v - before[0].get(k, 0) for k, v in after[0].items()},
-            {k: v - before[1].get(k, 0) for k, v in after[1].items()})
-        _set_launch_counts(before)
+        out, self.launches_per_replay = self.cache.capture(
+            graph, lambda: self._captured_step(env, statics, res),
+            'a program step')
         for buf, host in res.fills:
             buf.copy_(host)
         self._fetches, self._updates, self._ok = out
@@ -307,8 +374,6 @@ class GraphEntry(object):
         return fetches, updates, ok
 
     def _replay(self, feeds, counter, scope):
-        from .. import kernels
-        from ..ops import kernelgen
         step = self.step
         with torch.inference_mode(step.bw_idx is None):
             for n, t in self._statics.items():
@@ -322,9 +387,5 @@ class GraphEntry(object):
         for g, (seed, stream) in self._generators:
             g.manual_seed(registry.stream_seed(rs, seed, stream))
         self.graph.replay()
-        per, seg = self.launches_per_replay
-        for k, v in per.items():
-            kernels.launches[k] = kernels.launches.get(k, 0) + v
-        for k, v in seg.items():
-            kernelgen.launches[k] = kernelgen.launches.get(k, 0) + v
+        credit_launches(self.launches_per_replay)
         return self._fetches, self._updates, self._ok

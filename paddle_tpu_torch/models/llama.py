@@ -142,7 +142,8 @@ def make_decoder(scope, config='tiny', temperature=0.0, **overrides):
     from ..ops.attention import cached_attention
     from ..ops.sampling import sample_tokens_at
     from ..serving.generation.decode import (_embed, _ffn, _qkv, _rms,
-                                             _rope_at, weight_names)
+                                             _rope, _rope_freqs,
+                                             _rope_tables, weight_names)
 
     cfg = _config(config, overrides)
     L, H, Hkv = cfg['n_layer'], cfg['n_head'], cfg['n_kv_head']
@@ -150,17 +151,19 @@ def make_decoder(scope, config='tiny', temperature=0.0, **overrides):
     dh = D // H
     w = {n: scope.vars[n] for n in weight_names(cfg)}
     dev = w['tok_emb'].device
+    freqs = _rope_freqs(dh, theta, dev)
 
     def forward(tokens, kc, vc, start):
         """tokens [B, T] at positions start.. -> logits [B, T, V]; writes
         the new K/V into the caches in place."""
         B, T = tokens.shape
         pos = (start + torch.arange(T, device=dev))[None].expand(B, T)
+        cos, sin = _rope_tables(pos, freqs)
         x = _embed(w, tokens)
         for i in range(L):
             q, k, v = _qkv(w, cfg, _rms(x, w['layer_%d_att_norm' % i]), i)
-            q = _rope_at(q, pos, theta)
-            kc[i, :, :, start:start + T] = _rope_at(k, pos, theta)
+            q = _rope(q, cos, sin)
+            kc[i, :, :, start:start + T] = _rope(k, cos, sin)
             vc[i, :, :, start:start + T] = v
             att = cached_attention(q, kc[i], vc[i], pos)
             x = x + att.transpose(1, 2).reshape(B, T, D) @ \

@@ -1,13 +1,43 @@
 """Prefill, decode and verify over the PAGED KV pool, in torch.
 
 Counterpart of paddle_tpu/serving/generation/decode.py.  The reference
-compiles each window into one AOT executable (a `lax.scan` with the page
-pools as donated carry); the port runs the same step body as a Python
-loop of K steps whose carry (the pools and the per-slot ``lengths`` /
-``tok`` vectors) stays on the device and is updated in place: nothing is
-read back to the host until the window ends.  K/V live in a shared page
-pool (kv_cache.py); every read and write goes through a per-slot BLOCK
-TABLE, plain ``[slots, max_pages]`` int32 data uploaded once a launch.
+compiles one executable for each ``(kind, shape)`` key, ``('prefill',
+C)``, ``('decode', K)`` and ``('verify', K)`` (a `lax.scan` of K steps
+with the page pools as donated carry).  The port captures one CUDA graph
+for each of those keys (`DecodeRuntime._compiled`, through
+core/graphs.py's `GraphPool`): the whole K-step window, or one prefill
+chunk, replayed with no Python between its kernels.  K/V live in a
+shared page pool (kv_cache.py); every read and write goes through a
+per-slot BLOCK TABLE, plain ``[slots, max_pages]`` data.
+
+What a capture needs of the step, and where it is done:
+
+- The state is updated IN PLACE: the pools by `index_put_`, ``lengths``
+  and ``tok`` by `copy_` / `index_copy_`, `reset` zeroes them and
+  `commit_speculation` copies its host vectors into them, so every
+  tensor `init_state` made keeps its address for the runtime's life.
+- Host inputs (block tables, the per-slot active / seed / temperature /
+  top-k vectors, verify's fed tokens, prefill's tokens and its slot,
+  offset, count, seed, temperature and top-k) are STATIC device buffers
+  of the key's entry, each filled by one host copy before the replay;
+  prefill takes its scalars as device values, so one graph a chunk width
+  serves every chunk.
+- Building an entry on the card runs its body once on a side stream
+  with every input zero (`_Compiled.warm_up`: every slot inactive, a
+  prefill of no tokens), which builds K4 and writes only to the garbage
+  page 0, then captures it.  `warmup` builds the keys a server will use
+  before its first request and changes no state outside page 0.
+- Sampling stays on the device (ops/sampling.py: a sort, the hash and
+  Gumbel noise, no generator and no host sync), so a replay depends only
+  on its inputs.  A window's only device-to-host copy is its ``[S, K]``
+  token matrix.
+- K4's launch counter is credited once a replay with what the capture
+  launched.
+
+On the CPU the same entry points run the body eagerly on the same
+static buffers (the Executor's CPU interprets too); the eager body on the
+card stays reachable as the ``eager=True`` of the private `_window` and
+`_prefill`, which the tests and chip_smoke.py compare the graphs with.
 
 Inactive slots ride along under a mask with their write target forced to
 the GARBAGE page 0; active slots past their reservation fall through to
@@ -15,7 +45,10 @@ page 0 as well (unmapped block-table entries are 0).
 
 Token embedding goes through K4 (ops/gather.py::embedding_gather), after
 the ids are normalised exactly as JAX indexing does (a negative id gets
-+V once, then the id is clamped to [0, V-1]).
++V once, then the id is clamped to [0, V-1]).  Each layer makes q, k and
+v in one product against a concatenated ``[D, (H + 2 Hkv) dh]`` weight
+(``self.w``'s q, k and v entries are column views of it), and rope's
+cos / sin tables are made once a step for every layer.
 
 Prefill is chunked: each chunk scatters its K/V rows into the pages its
 block table maps and attends (ops/attention.py::cached_attention, plain
@@ -34,17 +67,20 @@ samples.  The position-keyed sampling (ops/sampling.py) makes a verified
 prefix bitwise what sequential decode produces.  `dense_reference` is the
 independent, page-free oracle.
 
-Not ported: the ring prefill (`prefill_ring`, `ring_pad`), the AOT
-executables and their disk cache, the flight recorder and trace spans,
-and the fault hooks.
+Not ported: the ring prefill (`prefill_ring`, `ring_pad`), the compile
+cache's disk tier (a CUDA graph cannot be persisted; the kernels' nvcc
+builds are cached as before), and the flight recorder and trace spans.
 """
 import os
+import threading
+import time
 
 import numpy as np
 import torch
 
 from ...core.executor import to_device
 from ...core.framework import require_cuda
+from ...core.graphs import GraphPool, credit_launches
 from ...ops.attention import cached_attention
 from ...ops.gather import embedding_gather
 from ...ops.sampling import sample_logits, sample_tokens_at, token_key
@@ -100,21 +136,31 @@ def _rms(x, scale):
     return x * torch.rsqrt(var + 1e-6) * scale
 
 
-def _rope_at(x, pos, theta):
-    """x: [B, h, T, dh]; pos: [B, T] absolute positions (per row: decode
-    slots all sit at different lengths)."""
-    dh = x.shape[-1]
-    half = torch.arange(0, dh // 2, dtype=torch.float32, device=x.device)
-    freqs = torch.pow(theta, -half * 2.0 / dh)
+def _rope_freqs(dh, theta, device):
+    """Rope's inverse frequencies [dh / 2], as the reference computes
+    them."""
+    half = torch.arange(0, dh // 2, dtype=torch.float32, device=device)
+    return torch.pow(theta, -half * 2.0 / dh)
+
+
+def _rope_tables(pos, freqs):
+    """pos: [B, T] absolute positions (per row: decode slots all sit at
+    different lengths) -> (cos, sin) [B, 1, T, dh / 2], made once a step
+    and shared by every layer's q and k."""
     ang = pos[:, None, :, None].float() * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope(x, cos, sin):
+    """x: [B, h, T, dh] rotated by `_rope_tables`' cos and sin."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
     return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                        dim=-1).reshape(x.shape)
 
 
 def _qkv(w, cfg, h, i):
-    """h: [B, T, D] -> q [B, H, T, dh], k/v [B, Hkv, T, dh] (pre-rope)."""
+    """h: [B, T, D] -> q [B, H, T, dh], k/v [B, Hkv, T, dh] (pre-rope), as
+    three products (dense_reference's)."""
     B, T = h.shape[0], h.shape[1]
     H, Hkv = int(cfg['n_head']), int(cfg['n_kv_head'])
     dh = int(cfg['d_model']) // H
@@ -123,6 +169,16 @@ def _qkv(w, cfg, h, i):
     k = (h @ w[p + 'att_k_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
     v = (h @ w[p + 'att_v_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
     return q, k, v
+
+
+def _qkv_fused(wqkv, cfg, h):
+    """h: [B, T, D] times the concatenated [D, (H + 2 Hkv) dh] weight, one
+    product -> q [B, H, T, dh], k/v [B, Hkv, T, dh] (pre-rope)."""
+    B, T = h.shape[0], h.shape[1]
+    H, Hkv = int(cfg['n_head']), int(cfg['n_kv_head'])
+    dh = int(cfg['d_model']) // H
+    y = (h @ wqkv).reshape(B, T, H + 2 * Hkv, dh).transpose(1, 2)
+    return y[:, :H], y[:, H:H + Hkv], y[:, H + Hkv:]
 
 
 def _ffn(w, x, i):
@@ -199,41 +255,6 @@ def _logical_rows(st, bt, i, cache):
     return assemble(st['k'], None), assemble(st['v'], None)
 
 
-def _step(w, cfg, cache, st, bt, fed, active, seeds, temps, topks):
-    """One decode/verify step over ALL slots, in place on ``st``: write the
-    fed token's K/V through the block table, attend against the gathered
-    logical rows, sample each slot's next token with the position-keyed
-    stream, and advance ACTIVE slots only.  Inactive slots compute masked
-    garbage routed to page 0.  Returns the [S] int32 samples."""
-    L = int(cfg['n_layer'])
-    theta = float(cfg['theta'])
-    M, PL = cache.max_pages, cache.page_len
-    quant = cache.quant == 'int8'
-    S = bt.shape[0]
-    pos = st['lengths'].long()                                # [S]
-    pg = bt[torch.arange(S, device=bt.device), (pos // PL).clamp(0, M - 1)]
-    pg = torch.where(active, pg, torch.zeros_like(pg))
-    rw = pos % PL
-    x = _embed(w, fed)[:, None, :]                            # [S, 1, D]
-    for i in range(L):
-        h = _rms(x, w['layer_%d_att_norm' % i])
-        q, k, v = _qkv(w, cfg, h, i)
-        q = _rope_at(q, pos[:, None], theta)
-        k = _rope_at(k, pos[:, None], theta)
-        _write_rows(st, i, pg, rw, k[:, :, 0, :], v[:, :, 0, :], quant)
-        kl, vl = _logical_rows(st, bt, i, cache)
-        att = cached_attention(q, kl, vl, pos[:, None])
-        att = att.transpose(1, 2).reshape(S, 1, -1)
-        x = x + att @ w['layer_%d_att_o_w' % i]
-        x = _ffn(w, x, i)
-    x = _rms(x, w['final_norm'])
-    logits = x[:, 0] @ w['lm_proj_w']                         # [S, V]
-    nxt = sample_tokens_at(logits, seeds, pos + 1, temps, topks)
-    st['tok'] = torch.where(active, nxt, st['tok'])
-    st['lengths'] = torch.where(active, pos + 1, pos).to(torch.int32)
-    return nxt
-
-
 def dense_reference(weights, cfg, prompt):
     """Independent prefill reference: ordinary dense causal attention over
     the whole prompt, with no cache pages, no positional masking and no
@@ -251,6 +272,9 @@ def dense_reference(weights, cfg, prompt):
                           device=dev)
     P = ids.shape[0]
     pos = torch.arange(P, device=dev)[None]
+    H = int(cfg['n_head'])
+    cos, sin = _rope_tables(pos, _rope_freqs(int(cfg['d_model']) // H, theta,
+                                             dev))
     with torch.inference_mode():
         x = torch.index_select(w['tok_emb'], 0, jax_index_ids(
             ids, w['tok_emb'].shape[0]))[None]
@@ -259,8 +283,7 @@ def dense_reference(weights, cfg, prompt):
         for i in range(L):
             h = _rms(x, w['layer_%d_att_norm' % i])
             q, k, v = _qkv(w, cfg, h, i)
-            q = _rope_at(q, pos, theta)
-            k = _rope_at(k, pos, theta)
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
             ks.append(k[0])
             vs.append(v[0])
             H, Hkv, dh = q.shape[1], k.shape[1], q.shape[-1]
@@ -293,6 +316,65 @@ def _env_prefix(prefix_cache):
         '0', 'off', 'false', '')
 
 
+class _Compiled(object):
+    """One ``(kind, shape)`` key of a DecodeRuntime: its static inputs
+    (name -> device tensor), its body over them and the runtime's state,
+    and on the card (``graphs``, the runtime's core.graphs.GraphPool) the
+    body's captured CUDA graph.
+
+    On the card the entry is built by `warm_up` on the side stream (its
+    seconds `warm_up_s`, the kernels' builds included), then a capture
+    (`capture_s`; `launches_per_replay` is what a replay adds to the
+    launch counters).  A call fills each static input with
+    one host copy, then replays the graph (its outputs are static: the
+    caller copies them out before the next replay of the runtime's pool)
+    or, on the CPU or with ``eager``, runs the body."""
+
+    def __init__(self, graphs, key, inputs, body):
+        self.inputs = inputs
+        self._body = body
+        self._graphs = graphs
+        self.graph = None
+        self.out = None
+        self.warm_up_s = self.capture_s = None
+        self.launches_per_replay = None
+        if self._graphs is not None:
+            t0 = time.perf_counter()
+            self.warm_up()
+            torch.cuda.synchronize(self._graphs.device)
+            self.warm_up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            self.out, self.launches_per_replay = self._graphs.capture(
+                graph, self._run, 'generation %r' % (key,))
+            self.graph = graph
+            self.capture_s = time.perf_counter() - t0
+
+    def _run(self):
+        with torch.inference_mode():
+            return self._body(self.inputs)
+
+    def warm_up(self):
+        """The body once with every input zero: every slot inactive, or a
+        prefill of no tokens.  It writes only to the garbage page 0 and
+        leaves lengths and tok as they were; on the card it runs on the
+        side stream and builds every kernel the body launches."""
+        for t in self.inputs.values():
+            t.zero_()
+        if self._graphs is None:
+            return self._run()
+        return self._graphs.run_on_side(self._run)
+
+    def __call__(self, values, eager=False):
+        for n, v in values.items():
+            self.inputs[n].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+        if self.graph is None or eager:
+            return self._run()
+        self.graph.replay()
+        credit_launches(self.launches_per_replay)
+        return self.out
+
+
 class DecodeRuntime(object):
     """The device half of the streaming decode server: the paged KV pool,
     block tables and the prefill / decode / verify steps over one weight
@@ -302,6 +384,11 @@ class DecodeRuntime(object):
     scope via models.llama.generation_weights, or `random_weights`);
     ``cfg`` is the model config dict.  ``device`` defaults to CUDA: with
     no card the runtime raises unless ``device='cpu'`` is passed.
+
+    On the card `prefill`, `decode_window` and `verify_window` replay one
+    captured CUDA graph per key (``('prefill', C)``, ``('decode', K)``,
+    ``('verify', K)``, built at the key's first use or by `warmup`); on
+    the CPU they run the same body eagerly.
 
     Paging knobs: ``page_len`` (default: largest divisor of max_len <= 8),
     ``pages`` (pool depth incl. the garbage page; default dense-equivalent
@@ -347,7 +434,27 @@ class DecodeRuntime(object):
         self.prefill_chunk = int(prefill_chunk)
         if not 0 < self.prefill_chunk <= self.cache.max_len:
             raise ValueError('prefill_chunk must be in (0, max_len]')
+        self._wqkv = [self._fuse_qkv(i) for i in range(self.cache.layers)]
+        self._freqs = _rope_freqs(self.cache.head_dim, float(cfg['theta']),
+                                  self.device)
+        self._graphs = (GraphPool(self.device)
+                        if self.device.type == 'cuda' else None)
+        self._execs = {}
+        self._lock = threading.Lock()
         self.counters.set('generation.kv_cache_bytes', self.cache.bytes())
+
+    def _fuse_qkv(self, i):
+        """Layer i's q, k and v weights as one [D, (H + 2 Hkv) dh] tensor;
+        ``self.w`` keeps column views of it, so the weights take no more
+        memory."""
+        names = ['layer_%d_att_%s_w' % (i, x) for x in 'qkv']
+        wqkv = torch.cat([self.w[n] for n in names], dim=1)
+        at = 0
+        for n in names:
+            width = self.w[n].shape[1]
+            self.w[n] = wqkv[:, at:at + width]
+            at += width
+        return wqkv
 
     # ------------------------------------------------------- geometry
     @property
@@ -378,7 +485,8 @@ class DecodeRuntime(object):
         self.allocator.free(slot)
 
     def reset(self):
-        """Fresh state and allocators (the weights stay)."""
+        """Fresh state and allocators (the weights and compiled windows
+        stay): the state tensors are zeroed in place."""
         for s in range(self.cache.slots):
             self.owned[s] = []
         if self.prefix is not None:
@@ -388,7 +496,8 @@ class DecodeRuntime(object):
         self.block_tables[:] = 0
         self.host_len[:] = 0
         self.host_tok[:] = 0
-        self.state = init_state(self.cache, self.device)
+        for t in self.state.values():
+            t.zero_()
 
     # ------------------------------------------------ page accounting
     def never_fits(self, prompt_len, max_new):
@@ -465,6 +574,150 @@ class DecodeRuntime(object):
     def _ints(self, a):
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
 
+    # --------------------------------------------------- compiled keys
+    def _compiled(self, key, build):
+        """One entry per (kind, shape) key, built at its first use: on the
+        card a captured CUDA graph (a failed capture raises naming the
+        op; nothing falls back to eager runs), on the CPU the eager
+        body."""
+        with self._lock:
+            entry = self._execs.get(key)
+            if entry is None:
+                entry = self._execs[key] = build()
+        return entry
+
+    def _zeros(self, shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _prefill_exec(self, chunk):
+        def build():
+            inputs = {'bt': self._zeros((self.cache.max_pages,), torch.int64),
+                      'toks': self._zeros((chunk,), torch.int64),
+                      # slot, offset, true count, seed, top_k
+                      'ints': self._zeros((5,), torch.int64),
+                      'temp': self._zeros((1,), torch.float32)}
+            return _Compiled(self._graphs, ('prefill', chunk), inputs,
+                             self._prefill_body)
+
+        return self._compiled(('prefill', chunk), build)
+
+    def _window_exec(self, kind, steps):
+        def build():
+            S, M = self.cache.slots, self.cache.max_pages
+            inputs = {'bt': self._zeros((S, M), torch.int64),
+                      'active': self._zeros((S,), torch.bool),
+                      'seeds': self._zeros((S,), torch.int64),
+                      'temps': self._zeros((S,), torch.float32),
+                      'topks': self._zeros((S,), torch.int64)}
+            if kind == 'verify':
+                inputs['fed'] = self._zeros((S, steps), torch.int64)
+            return _Compiled(self._graphs, (kind, steps), inputs,
+                             lambda inp: self._window_body(steps, inp))
+
+        return self._compiled((kind, steps), build)
+
+    def _decode_exec(self, steps):
+        return self._window_exec('decode', steps)
+
+    def _verify_exec(self, steps):
+        return self._window_exec('verify', steps)
+
+    def warmup(self, steps=None, speculative=False):
+        """Build the steady-state keys before the first request: the
+        prefill chunk, and with ``steps`` the decode window (and with
+        ``speculative`` the verify window) of that many steps.  On the
+        card each is captured after one run with every slot inactive, so
+        no state changes outside the garbage page 0."""
+        self._prefill_exec(self.prefill_chunk)
+        if steps:
+            self._decode_exec(int(steps))
+            if speculative:
+                self._verify_exec(int(steps))
+
+    # ------------------------------------------------------ the bodies
+    def _layer(self, x, i, cos, sin, pg, rw, bt, qpos):
+        """Decoder layer i over x [B, T, D] at positions qpos [B, T]: K/V
+        rows written to pages pg [B T] at rows rw, attention against the
+        logical rows that block tables bt [B, max_pages] gather."""
+        w, cache = self.w, self.cache
+        B, T = x.shape[0], x.shape[1]
+        h = _rms(x, w['layer_%d_att_norm' % i])
+        q, k, v = _qkv_fused(self._wqkv[i], self.cfg, h)
+        q, k = _rope(q, cos, sin), _rope(k, cos, sin)
+        rows = (B * T, cache.kv_heads, cache.head_dim)
+        _write_rows(self.state, i, pg, rw, k.transpose(1, 2).reshape(rows),
+                    v.transpose(1, 2).reshape(rows), cache.quant == 'int8')
+        kl, vl = _logical_rows(self.state, bt, i, cache)
+        att = cached_attention(q, kl, vl, qpos)
+        att = att.transpose(1, 2).reshape(B, T, -1)
+        x = x + att @ w['layer_%d_att_o_w' % i]
+        return _ffn(w, x, i)
+
+    def _prefill_body(self, inp):
+        """One prefill chunk: its K/V rows into the pages ``inp['bt']``
+        maps (rows past the true count to page 0), the logits of its last
+        true row, the token sampled at its position, and lengths / tok of
+        the slot SET (left as they were for a chunk of no tokens).
+        -> (token, logits [V])."""
+        st, M, PL = self.state, self.cache.max_pages, self.cache.page_len
+        C = inp['toks'].shape[0]
+        ints, bt = inp['ints'], inp['bt']
+        slot, offset, n = ints[0:1], ints[1], ints[2]
+        ar = torch.arange(C, device=self.device)
+        p_abs = offset + ar
+        pg = torch.where(ar < n, bt[(p_abs // PL).clamp(0, M - 1)],
+                         torch.zeros_like(p_abs))
+        pos = p_abs[None]                                     # [1, C]
+        cos, sin = _rope_tables(pos, self._freqs)
+        x = _embed(self.w, inp['toks'])[None]                 # [1, C, D]
+        for i in range(self.cache.layers):
+            x = self._layer(x, i, cos, sin, pg, p_abs % PL, bt[None], pos)
+        last = (n - 1).clamp(min=0).reshape(1)
+        x = _rms(x[0].index_select(0, last)[0], self.w['final_norm'])
+        logits = x @ self.w['lm_proj_w']                      # [V]
+        new_len = offset + n
+        nxt = sample_logits(logits, token_key(ints[3], new_len, self.device),
+                            inp['temp'][0], ints[4])
+        live = n > 0
+        st['lengths'].index_copy_(0, slot, torch.where(
+            live, new_len, st['lengths'].index_select(0, slot)).int())
+        st['tok'].index_copy_(0, slot, torch.where(
+            live, nxt, st['tok'].index_select(0, slot)))
+        return nxt, logits
+
+    def _step(self, bt, fed, active, seeds, temps, topks):
+        """One decode/verify step over ALL slots, in place on the state:
+        write the fed token's K/V through the block table, attend against
+        the gathered logical rows, sample each slot's next token with the
+        position-keyed stream, and advance ACTIVE slots only.  Inactive
+        slots compute masked garbage routed to page 0.  -> [S] int32."""
+        st, M, PL = self.state, self.cache.max_pages, self.cache.page_len
+        S = bt.shape[0]
+        pos = st['lengths'].long()                                # [S]
+        pg = bt[torch.arange(S, device=bt.device), (pos // PL).clamp(0, M - 1)]
+        pg = torch.where(active, pg, torch.zeros_like(pg))
+        cos, sin = _rope_tables(pos[:, None], self._freqs)
+        x = _embed(self.w, fed)[:, None, :]                       # [S, 1, D]
+        for i in range(self.cache.layers):
+            x = self._layer(x, i, cos, sin, pg, pos % PL, bt, pos[:, None])
+        x = _rms(x, self.w['final_norm'])
+        logits = x[:, 0] @ self.w['lm_proj_w']                    # [S, V]
+        nxt = sample_tokens_at(logits, seeds, pos + 1, temps, topks)
+        st['tok'].copy_(torch.where(active, nxt, st['tok']))
+        st['lengths'].copy_(torch.where(active, pos + 1, pos))
+        return nxt
+
+    def _window_body(self, steps, inp):
+        """K steps over every slot; each feeds the carry token, or verify's
+        ``inp['fed'][:, j]``.  -> the [S, K] samples."""
+        fed = inp.get('fed')
+        out = []
+        for j in range(steps):
+            tok = self.state['tok'] if fed is None else fed[:, j]
+            out.append(self._step(inp['bt'], tok, inp['active'],
+                                  inp['seeds'], inp['temps'], inp['topks']))
+        return torch.stack(out, dim=1)
+
     # -------------------------------------------------------- prefill
     def prefill(self, slot, tokens, offset, params):
         """Run ONE prefill chunk for ``slot``: tokens[offset:offset+C] of
@@ -473,6 +726,12 @@ class DecodeRuntime(object):
         [V] numpy), meaningful on the final chunk.  ``params`` is a
         SamplingParams.  The slot's block table must already cover the
         chunk (`try_begin` / `ensure_capacity`)."""
+        nxt, logits = self._prefill(slot, tokens, offset, params)
+        self.host_len[slot] = offset + np.size(tokens)
+        self.host_tok[slot] = nxt
+        return nxt, logits
+
+    def _prefill(self, slot, tokens, offset, params, eager=False):
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         n, C = tokens.shape[0], self.prefill_chunk
         if not 0 < n <= C:
@@ -480,65 +739,31 @@ class DecodeRuntime(object):
                              'prefill' % (n, C))
         if offset + n > self.cache.max_len:
             raise ValueError('prefill past max_len=%d' % self.cache.max_len)
-        cfg, cache, w, st = self.cfg, self.cache, self.w, self.state
-        L, theta = int(cfg['n_layer']), float(cfg['theta'])
-        M, PL = cache.max_pages, cache.page_len
         buf = np.zeros(C, np.int64)
         buf[:n] = tokens
-        with torch.inference_mode():
-            bt_row = self._ints(self.block_tables[slot])
-            p_abs = offset + torch.arange(C, device=self.device)
-            valid = torch.arange(C, device=self.device) < n
-            pg = torch.where(valid, bt_row[(p_abs // PL).clamp(0, M - 1)],
-                             torch.zeros_like(bt_row[:1]))
-            rw = p_abs % PL
-            pos = p_abs[None]                                 # [1, C]
-            x = _embed(w, self._ints(buf))[None]              # [1, C, D]
-            for i in range(L):
-                h = _rms(x, w['layer_%d_att_norm' % i])
-                q, k, v = _qkv(w, cfg, h, i)
-                q = _rope_at(q, pos, theta)
-                k = _rope_at(k, pos, theta)
-                _write_rows(st, i, pg, rw, k[0].transpose(0, 1),
-                            v[0].transpose(0, 1), cache.quant == 'int8')
-                kl, vl = _logical_rows(st, bt_row[None], i, cache)
-                att = cached_attention(q, kl, vl, pos)
-                att = att.transpose(1, 2).reshape(1, C, -1)
-                x = x + att @ w['layer_%d_att_o_w' % i]
-                x = _ffn(w, x, i)
-            x = _rms(x[0, n - 1], w['final_norm'])
-            logits = x @ w['lm_proj_w']                       # [V]
-            new_len = offset + n
-            nxt = sample_logits(logits, token_key(params.seed, new_len,
-                                                  self.device),
-                                params.temperature, params.top_k)
-            st['lengths'][slot] = new_len
-            st['tok'][slot] = nxt
-            nxt, logits = int(nxt), logits.cpu().numpy()
-        self.host_len[slot] = new_len
-        self.host_tok[slot] = nxt
-        return nxt, logits
+        nxt, logits = self._prefill_exec(C)({
+            'bt': self.block_tables[slot].astype(np.int64), 'toks': buf,
+            'ints': np.asarray([slot, offset, n, params.seed, params.top_k],
+                               np.int64),
+            'temp': np.asarray([params.temperature], np.float32)}, eager)
+        return int(nxt), logits.cpu().numpy()
 
     # --------------------------------------------------------- decode
-    def _window(self, steps, fed, active, seeds, temps, topks):
-        """K steps over every slot; ``fed`` is None (each step feeds the
-        carry token) or [S, K] host tokens.  Returns the [S, K] samples."""
+    def _window(self, kind, steps, fed, active, seeds, temps, topks,
+                eager=False):
+        """The (kind, steps) window over every slot; ``fed`` is None
+        (decode: each step feeds the carry token) or [S, K] host tokens.
+        Returns the [S, K] samples."""
         S = self.cache.slots
-        with torch.inference_mode():
-            bt = self._ints(self.block_tables)
-            act_d = torch.as_tensor(np.asarray(active, bool).reshape(S),
-                                    device=self.device)
-            seeds_d = self._ints(np.asarray(seeds).reshape(S))
-            temps_d = torch.as_tensor(np.asarray(temps, np.float32)
-                                      .reshape(S), device=self.device)
-            topks_d = self._ints(np.asarray(topks).reshape(S))
-            fed_d = None if fed is None else self._ints(fed)
-            out = []
-            for j in range(int(steps)):
-                tok = self.state['tok'] if fed_d is None else fed_d[:, j]
-                out.append(_step(self.w, self.cfg, self.cache, self.state,
-                                 bt, tok, act_d, seeds_d, temps_d, topks_d))
-            return torch.stack(out, dim=1).cpu().numpy()
+        values = {'bt': self.block_tables.astype(np.int64),
+                  'active': np.asarray(active, bool).reshape(S),
+                  'seeds': np.asarray(seeds, np.int64).reshape(S),
+                  'temps': np.asarray(temps, np.float32).reshape(S),
+                  'topks': np.asarray(topks, np.int64).reshape(S)}
+        if fed is not None:
+            values['fed'] = np.asarray(fed, np.int64).reshape(S, steps)
+        out = self._window_exec(kind, int(steps))(values, eager)
+        return out.cpu().numpy()
 
     def decode_window(self, steps, active, seeds, temps, topks):
         """Advance every ACTIVE slot ``steps`` tokens, each step feeding the
@@ -547,7 +772,7 @@ class DecodeRuntime(object):
         table.  Returns the [slots, steps] token matrix; inactive rows are
         garbage."""
         act = np.asarray(active, bool).reshape(self.cache.slots)
-        out = self._window(steps, None, act, seeds, temps, topks)
+        out = self._window('decode', steps, None, act, seeds, temps, topks)
         self.host_len[act] = np.minimum(
             self.host_len[act] + int(steps), np.iinfo(np.int32).max)
         self.host_tok[act] = out[act, -1]
@@ -559,9 +784,8 @@ class DecodeRuntime(object):
         return the [slots, steps] TARGET samples g_0..g_{K-1}.  Device
         lengths advance K for active slots: the caller MUST follow with
         `commit_speculation` before any other launch."""
-        fed = np.asarray(fed, np.int64).reshape(self.cache.slots,
-                                                int(steps))
-        return self._window(steps, fed, active, seeds, temps, topks)
+        return self._window('verify', steps, fed, active, seeds, temps,
+                            topks)
 
     def commit_speculation(self, accepted):
         """Roll the post-verify state back to the accepted prefix.
@@ -571,15 +795,13 @@ class DecodeRuntime(object):
         token to feed.  Every ACTIVE slot of the verify window must appear.
         Rejected positions' K/V rows stay in the pool at or past the
         committed length, unreachable under the positional mask and
-        overwritten by the next window.  Host metadata only: the [slots]
-        lengths / tok vectors are uploaded again."""
+        overwritten by the next window.  Host metadata, then the [slots]
+        lengths / tok vectors copied into the state's tensors."""
         for slot, (m, last_tok) in accepted.items():
             self.host_len[int(slot)] += int(m)
             self.host_tok[int(slot)] = int(last_tok)
-        self.state['lengths'] = torch.as_tensor(
-            self.host_len.astype(np.int32), device=self.device)
-        self.state['tok'] = torch.as_tensor(
-            self.host_tok.astype(np.int32), device=self.device)
+        self.state['lengths'].copy_(torch.from_numpy(self.host_len))
+        self.state['tok'].copy_(torch.from_numpy(self.host_tok))
 
     # ----------------------------------------------- test conveniences
     def cache_row(self, slot):

@@ -30,7 +30,8 @@ request's own writes always land in freshly allocated pages.
 The gauges and counters (``generation.kv_pages_in_use``,
 ``generation.prefix_hits``, ...) go to a `serving.counters.Counters`
 passed in by the owner (the DecodeRuntime's), not to a global registry.
-The reference's ``kv_oom`` fault site is not ported.
+`PagePool.alloc` is the ``kv_oom`` fault site (testing/faults.py), as in
+the reference: an armed fire reports the pool exhausted.
 """
 import hashlib
 import threading
@@ -39,6 +40,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ...testing import faults as _faults
 from ..counters import Counters
 
 __all__ = ['CacheConfig', 'SlotAllocator', 'PagePool', 'PrefixCache',
@@ -269,6 +271,8 @@ class PagePool(object):
         if n <= 0:
             return []
         with self._lock:
+            if _faults.any_active() and _faults.fire('kv_oom'):
+                return None
             while len(self._free) < n and evict is not None:
                 if not evict():
                     break

@@ -41,13 +41,16 @@ Metrics go to the engine's `Counters` (the runtime's, shared with its
 page pool): ``serving.ttft_ms`` (submit to first token) and
 ``serving.itl_ms`` (the amortized inter-token gap) histograms with
 quantiles, ``generation.tokens``, ``generation.kv_pages_in_use``,
-``generation.prefix_hits`` and the round counters below.  Not ported: the
-flight recorder, trace spans and the ``decode_step`` fault site.
+``generation.prefix_hits`` and the round counters below.  The decode step
+is the ``decode_step`` fault site (testing/faults.py), checked on the host
+before the window runs, so a fault never fires inside a CUDA graph's
+capture or replay.  Not ported: the flight recorder and trace spans.
 """
 import time
 
 import numpy as np
 
+from ...testing import faults as _faults
 from ..engine import (DEADLINE_EXCEEDED, DRAINING, ERROR, OK, REJECTED,
                       SHED, ServeResult, ServingEngine, _Request)
 from .sampling import SamplingParams, draft_ngram
@@ -371,6 +374,8 @@ class GenerationEngine(ServingEngine):
         speculative = self._gen.speculative and K > 1
         t0 = time.perf_counter()
         try:
+            if _faults.any_active():
+                _faults.maybe_fail('decode_step')
             if speculative:
                 emitted = self._verify_step(dec, K, active, seeds, temps,
                                             topks)

@@ -233,3 +233,101 @@ def test_embedding_backward_sums_in_a_fixed_order(cuda):
     for _ in range(4):
         assert torch.equal(grad(w, ids, dout), first)
     assert torch.equal(grad(w.cpu(), ids.cpu(), dout.cpu()), first.cpu())
+
+
+# ------------------------------------------- generation's compiled windows
+
+GEN_CFG = dict(vocab=256, d_model=256, n_layer=2, n_head=2, n_kv_head=1,
+               d_ffn=512, theta=10000.0, max_len=64)
+
+
+def _gen_runtime(**kw):
+    from paddle_tpu_torch.serving import generation as gen
+    from paddle_tpu_torch.serving.generation import decode
+    return gen.DecodeRuntime(decode.random_weights(GEN_CFG, seed=0),
+                             GEN_CFG, slots=3, prefill_chunk=8,
+                             device='cuda', **kw)
+
+
+@pytest.mark.parametrize('kv_quant', [None, 'int8'])
+def test_generation_windows_replay_graphs_equal_to_eager(cuda, kv_quant):
+    """`warmup` captures the reference's keys and changes no state outside
+    page 0; from one state a prefill chunk, a decode window and a verify
+    window through the graphs equal the eager bodies bit for bit (tokens,
+    logits, lengths, tok, every page but page 0); K4 counts one launch a
+    chunk and a step through the replays; the state keeps its addresses."""
+    from paddle_tpu_torch.serving import generation as gen
+    rt = _gen_runtime(kv_quant=kv_quant, page_len=8)
+    ptrs = {n: t.data_ptr() for n, t in rt.state.items()}
+    rt.warmup(4, speculative=True)
+    assert set(rt._execs) == {('prefill', 8), ('decode', 4), ('verify', 4)}
+    assert all(e.graph is not None and e.capture_s > 0
+               for e in rt._execs.values())
+    assert not any(t[1:].any() for t in rt.state.values()), \
+        'warmup wrote outside page 0'
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, n) for n in (13, 5)]
+    kernels.reset_launches()
+    for slot, p in enumerate(prompts):
+        assert rt.alloc_slot() == slot and rt.try_begin(slot, p, 8) == 0
+        # prompt 0's last chunk (5 tokens of an 8-wide chunk) waits
+        rt.prefill(slot, p[:8], 0, gen.SamplingParams())
+    act = np.asarray([True, True, False])
+    seeds, temps = np.asarray([0, 7, 0]), np.asarray([0.0, 0.9, 0.0])
+    topks = np.asarray([0, 5, 0])
+    fed = rng.randint(0, 256, (3, 4))
+
+    def both(call):
+        snap = {n: t.clone() for n, t in rt.state.items()}
+        g = call(False)
+        after = {n: t.clone() for n, t in rt.state.items()}
+        for n, t in snap.items():
+            rt.state[n].copy_(t)
+        e = call(True)
+        torch.cuda.synchronize()
+        for n, t in after.items():
+            got = rt.state[n]
+            assert torch.equal(got[1:], t[1:]) if got.dim() > 1 else \
+                torch.equal(got, t), n
+        return g, e
+
+    g, e = both(lambda eager: rt._prefill(0, prompts[0][8:], 8,
+                                          gen.SamplingParams(0.9, 5, 3),
+                                          eager=eager))
+    assert g[0] == e[0] and g[1].tobytes() == e[1].tobytes()
+    g, e = both(lambda eager: rt._window('decode', 4, None, act, seeds,
+                                         temps, topks, eager=eager))
+    assert g.tobytes() == e.tobytes()
+    g, e = both(lambda eager: rt._window('verify', 4, fed, act, seeds,
+                                         temps, topks, eager=eager))
+    assert g.tobytes() == e.tobytes()
+    # two public chunks, then a chunk and two windows of 4 steps, each
+    # replayed and run eagerly
+    assert kernels.launches['embedding_gather'] == 2 + 2 * (1 + 4 + 4)
+    assert {n: t.data_ptr() for n, t in rt.state.items()} == ptrs
+    rt.reset()
+    assert {n: t.data_ptr() for n, t in rt.state.items()} == ptrs
+
+
+def test_generation_engine_captures_on_its_own_thread(cuda):
+    """A runtime never warmed: its keys are captured on the
+    GenerationEngine's dispatch thread (which makes its cuBLAS handles
+    first); a seeded stream equals the same request on a runtime warmed
+    on this thread."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving import generation as gen
+    prompt = np.random.RandomState(1).randint(0, 256, 20)
+    warm = _gen_runtime()
+    warm.warmup(4)
+    alone = warm.generate(prompt, 12, gen.SamplingParams(0.8, 8, 4),
+                          steps_per_window=4)
+    rt = _gen_runtime()
+    eng = gen.GenerationEngine(rt, config=serving.ServingConfig(),
+                               gen_config=gen.GenerationConfig(
+                                   decode_window=4))
+    with eng:
+        r = eng.generate(prompt, max_new=12, temperature=0.8, top_k=8,
+                         seed=4).result(300)
+    assert r.ok, (r.status, r.error)
+    assert [int(t) for t in r.outputs[0]] == alone
+    assert set(rt._execs) == {('prefill', 8), ('decode', 4)}

@@ -498,7 +498,9 @@ def test_decode_window_on_the_card_matches_the_cpu_port(cuda):
     """One prefill and one decode window of the paged runtime on the card
     against the same on the CPU: prefill logits within 1e-4 of
     max|logit| (float32, other summation orders), the greedy tokens equal,
-    and the token embedding through K4 (one launch a chunk and a step)."""
+    and the token embedding through K4 (one launch a chunk and a step; on
+    the card through the CUDA graphs `warmup` built, whose warm-up runs
+    launch K4 too)."""
     from paddle_tpu_torch.serving import generation as gen
     cfg = dict(vocab=512, d_model=256, n_layer=2, n_head=2, n_kv_head=1,
                d_ffn=512, theta=10000.0, max_len=256)
@@ -508,6 +510,7 @@ def test_decode_window_on_the_card_matches_the_cpu_port(cuda):
     for dev in ('cuda', 'cpu'):
         rt = gen.DecodeRuntime(w, cfg, slots=2, prefill_chunk=16,
                                device=dev)
+        rt.warmup(8)
         slot = rt.alloc_slot()
         assert rt.try_begin(slot, prompt, 8) == 0
         before = kernels.launches['embedding_gather']
