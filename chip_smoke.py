@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Serve llama_1b (float32 and bf16, and as a streaming generation server)
-and train transformer-base through paddle_tpu_torch on one NVIDIA GPU, and
-hold each hand-written CUDA kernel against its plain PyTorch version.
+"""Serve llama_1b (float32 and bf16, and as a streaming generation server),
+train transformer-base and llama_1b through paddle_tpu_torch on one NVIDIA
+GPU, and hold each hand-written CUDA kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
+    python3 chip_smoke.py --phases training_llama,train_llama_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,training_composed
     python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
     python3 chip_smoke.py --phases card,training,nan_trip
@@ -29,9 +31,13 @@ Phases, each printing JSON lines:
               (dQ, dK/dV), LayerNorm and the multi-tensor Adam at the
               training step's shapes; softmax rows (K5) at the composed
               attention's scores and ragged shapes; every generated segment
-              of the three main paths (the served program at each bucket,
-              the flash and the composed training steps) against its
-              plain replay, all built by one nvcc call
+              of the main paths (the served program at each bucket, the
+              flash and the composed training steps, the training llama)
+              against its plain replay, all built by one nvcc call; K1-K3
+              at the training llama's shape (B=2, H=16 / 8, T=2048,
+              D=128, causal) in float32 and bf16, beside SDPA; the
+              CUDA-core kernels of the other head dims (D = 16, 32, 96);
+              Adam's bf16 instance at the llama's 147 tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -134,9 +140,39 @@ Phases, each printing JSON lines:
               layers, float32, dropout 0; after three clean steps a NaN
               in one target pad entry must raise naming the loss at
               nan_poll=1, and with nan_window_steps=8 at nan_poll=8
-The phases run in that order, except that the four that also compute on
+  training_llama
+              llama_1b as models/llama.py::build makes it (full width and
+              depth: d_model 2048, 16 layers, 16 / 8 heads, D = 128, vocab
+              32000, 0.87 B parameters, float32, gradient clip by global
+              norm 1.0, Adam), B = 2 rows of 2048 tokens from make_batch,
+              random weights from SEED: the interpreter, the CUDA graph
+              and run_steps(8) on one repeated batch (step ms, tokens/s,
+              losses finite and falling over 8 steps, launches a step:
+              16 of each flash kernel, one Adam, one K4), profiles of an
+              interpreted step (device ms by group, idle share; 16
+              fwd_tf32x3, 16 bwd_dq_cc, 16 bwd_dkv_cc) and of two graph
+              steps, peak memory, no plain version on the card; then the
+              device kernels a step with the clip on and off
+  training_llama_bf16
+              the same step from build(dtype='bfloat16'): the bf16 step
+              (interpreted, three times from one state; profiled: 16 of
+              each bf16 wgmma flash kernel, Adam's bf16 instance), the
+              dtypes it leaves (float32 parameters and moments, bf16 beta
+              powers, as the JAX package's Adam returns them), then seven
+              float32 steps through the graph
+  train_llama_gpu_vs_cpu
+              two steps from the same weights on the card and on the CPU:
+              llama_1b widths cut to 2 layers, B = 2, T = 256, float32
+              (losses within 1e-5 relative, parameters within 2.01 x the
+              summed lr, the clip's global norm within 1e-5 relative);
+              the tiny config (D = 16: the CUDA-core flash kernels) in
+              float32 and from build(dtype='bfloat16') (within the bf16
+              bounds tests/test_torch_llama_train.py derives)
+The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
-train_composed_gpu_vs_cpu) run last.  No phase is cut in depth for time.
+train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu) run last, and that
+training_llama and training_llama_bf16 run after training_composed.  No
+phase is cut in depth for time.
 The line before the last is the nvidia-smi line; the line before that
 lists every kernel, with its launches per step on its training path (the
 composed one for K5, its generated segments, K4, K6 and Adam; the flash
@@ -167,7 +203,8 @@ OUT_DIR = os.path.join(ROOT, 'chiprun_out')
 PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'generation',
           'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
           'train_gpu_vs_cpu', 'training_composed',
-          'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip')
+          'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
+          'training_llama', 'training_llama_bf16', 'train_llama_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -323,6 +360,9 @@ def flash_bwd_occupancy(lib):
 
 def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                timed=False):
+    """K1 against `_ref_attention`; the design's rate bounds it: bf16 and
+    float32 tensor cores (3xTF32) at D = 64 and 128, CUDA cores (float32
+    FMAs, both dtypes) at the other head dims (csrc/flash_cc.cu)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import attention as att
@@ -372,11 +412,12 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
         t_bytes = nbytes / HBM_BPS * 1e3
         # float32 runs as 3xTF32 on the tensor cores: that rate bounds it;
         # the CUDA cores' float32 rate is printed beside it
-        t_ops = flops / PEAK_FLOPS[
-            'tf32x3' if dtype == 'float32' else dtype] * 1e3
+        t_ops = flops / PEAK_FLOPS[_fwd_rate(dtype, D)] * 1e3
         if dtype == 'float32':
             res['bound_cuda_cores_ms'] = max(
                 t_bytes, flops / PEAK_FLOPS['float32'] * 1e3)
+            res['bound_tf32x3_ms'] = max(
+                t_bytes, flops / PEAK_FLOPS['tf32x3'] * 1e3)
         res.update(
             ms=time_ms(lambda: att.flash_forward(q, k, v, causal, scale,
                                                  kl_t), 10),
@@ -472,9 +513,21 @@ def _valid_pairs(B, H, Tq, Tk, causal, kl):
     return pairs
 
 
+def _fwd_rate(dtype, D):
+    """The PEAK_FLOPS key of the flash forward's design at (dtype, D):
+    tensor cores at D = 64 and 128 (float32 as 3xTF32), CUDA cores at
+    every other head dim (csrc/flash_cc.cu)."""
+    if D not in (64, 128):
+        return 'float32'
+    return 'tf32x3' if dtype == 'float32' else dtype
+
+
 def _bwd_rate(dtype, D):
     """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
-    float32 runs as 3xTF32 at D = 64 and on CUDA cores at D = 128."""
+    float32 runs as 3xTF32 at D = 64 and on CUDA cores at D = 128; every
+    other head dim runs on CUDA cores (csrc/flash_cc.cu)."""
+    if D not in (64, 128):
+        return 'float32'
     if dtype != 'float32':
         return dtype
     return 'tf32x3' if D == 64 else 'float32'
@@ -564,6 +617,7 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
             if dtype == 'float32':
                 row['bound_cuda_cores_ms'] = _bound(flops, nbytes,
                                                     'float32')[0]
+                row['bound_tf32x3_ms'] = _bound(flops, nbytes, 'tf32x3')[0]
             row.update(ms=time_ms(fn, 10), plain_ms=plain_ms,
                        plain_is='the whole plain backward (dq, dk, dv)',
                        library_ms=lib_ms,
@@ -700,6 +754,96 @@ def adam_case(name, shapes, steps=3, timed=False):
     return row
 
 
+def llama_param_shapes():
+    """The 147 parameter shapes of the training llama_1b program (no
+    weights are made)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import llama
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        llama.build('llama_1b')
+    return [tuple(p.shape) for p in main.all_parameters()]
+
+
+def adam_bf16_case(name, shapes, timed=False, state='bfloat16'):
+    """adam_multi's bf16 instance against adam_reference on copies, one
+    step as the bf16 llama build takes it: its first with `state`
+    bfloat16 (bf16 parameters, moments and beta powers), its later ones
+    with `state` float32 (float32 parameters and moments, the beta powers
+    still bf16); the clip's float32 gradients; float32 parameters and
+    moments out."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+    g = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    st = getattr(torch, state)
+    n = len(shapes)
+
+    def rand(shape, s, dt=st):
+        return (s * torch.randn(shape, generator=g, device='cuda')).to(dt)
+    params = [rand(s, 0.02) for s in shapes]
+    m1s = [rand(s, 1e-3) for s in shapes]
+    m2s = [rand(s, 1e-3).square() for s in shapes]
+    b1ps = [torch.full((1,), 0.9, device='cuda').to(bf) for _ in range(n)]
+    b2ps = [torch.full((1,), 0.95, device='cuda').to(bf) for _ in range(n)]
+    lr = [torch.full((1,), 3e-4, device='cuda')] * n
+    grads = [rand(s, 1e-4, torch.float32) for s in shapes]
+    ref = [[t.clone() for t in col] for col in (params, m1s, m2s, b1ps,
+                                                  b2ps)]
+    before = kernels.launches['adam_multi_bf16']
+    got = oo.adam_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, 0.9, 0.95,
+                        1e-8)
+    bf16_instance = kernels.launches['adam_multi_bf16'] == before + 1
+    want = oo.adam_reference(ref[0], grads, ref[1], ref[2], ref[3], ref[4],
+                             lr, 0.9, 0.95, 1e-8)
+    torch.cuda.synchronize()
+    # the same IEEE operations and bf16 roundings in the same order
+    errs = [_close(torch.cat([t.reshape(-1) for t in a]),
+                   torch.cat([t.reshape(-1) for t in r]), 2e-6, 1e-12)
+            for a, r in zip(got, want)]
+    dtypes_ok = all(a.dtype == r.dtype == torch.float32
+                    for col, rcol in zip(got, want) for a, r in zip(col, rcol))
+    pows_ok = all(torch.equal(a, r) and a.dtype == bf for a, r in
+                  zip(b1ps + b2ps, ref[3] + ref[4]))
+    elems = int(sum(int(np.prod(s)) for s in shapes))
+    row = dict(phase='kernels', kernel='adam_multi_bf16', case=name,
+               state=state, tensors=n, elements=elems,
+               max_abs_err=max(e for e, _ in errs), rtol=2e-6, atol=1e-12,
+               dtypes_out='float32', pows_exact=pows_ok,
+               bf16_instance=bf16_instance)
+    del got, want, ref
+    if timed:
+        # reads p, m1, m2 (bf16) and g (float32), writes p, m1, m2 (float32)
+        nbytes = (3 * 2 + 4 + 3 * 4) * elems + 4 * n
+        bound_ms, bound_by = _bound(0.0, nbytes, 'bfloat16')
+        lib_params = [p.clone().requires_grad_(True) for p in params]
+        for p, gr in zip(lib_params, grads):
+            p.grad = gr.to(bf)
+        lib = torch.optim.Adam(lib_params, lr=3e-4, betas=(0.9, 0.95),
+                               eps=1e-8, fused=True)
+        row.update(
+            ms=time_ms(lambda: oo.adam_multi(params, grads, m1s, m2s, b1ps,
+                                             b2ps, lr, 0.9, 0.95, 1e-8), 10),
+            plain_ms=time_ms(lambda: oo.adam_reference(
+                [p.clone() for p in params], grads, [m.clone() for m in m1s],
+                [m.clone() for m in m2s], b1ps, b2ps, lr, 0.9, 0.95, 1e-8),
+                2),
+            library_ms=time_ms(lib.step, 10),
+            library_is='torch.optim.Adam(fused=True).step() over bf16 '
+                       'parameters and grads, in place: a timing yardstick '
+                       'only',
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        row['gbps'] = nbytes / row['ms'] / 1e6
+        del lib, lib_params
+    emit(**row)
+    require(all(o for _, o in errs) and dtypes_ok and pows_ok and
+            bf16_instance,
+            'adam_multi_bf16 disagrees with adam_reference in case %s: %s'
+            % (name, row))
+    return row
+
+
 def softmax_case(name, rows, cols, dtype, neg_inf_rows=0, timed=False):
     """K5 against softmax_reference on the same rows; timed at the
     composed attention's scores (65,536 rows of 256, float32)."""
@@ -756,13 +900,23 @@ def _meta_env(main, feed, bf16=False):
     return env
 
 
-def _planned_specs(main, feed, fetch_names, amp, bf16=False):
+def _planned_specs(main, feed, fetch_names, amp, bf16=False,
+                   promoted=False):
     """The generated segments `main` runs at `feed`'s shapes, from the
     executor's planning pass on meta tensors: name -> (spec, sub-op
-    types).  `bf16`: with bf16 parameters (enable_bf16)."""
+    types).  `bf16`: with bf16 parameters (enable_bf16).  `promoted`:
+    the bf16 llama build after its first step, every bf16 persistable
+    float32 but the beta powers."""
+    import torch
     from paddle_tpu_torch.core import executor as ex, passes
     from paddle_tpu_torch.ops import kernelgen
     opt, _ = passes.maybe_optimize(main, fetch_names)
+    env = _meta_env(main, feed, bf16)
+    if promoted:
+        for n, t in env.items():
+            if t.dtype == torch.bfloat16 and '_pow_acc' not in n:
+                env[n] = torch.empty(t.shape, dtype=torch.float32,
+                                     device='meta')
     seen, real = [], kernelgen.plan_for
 
     def spy(attrs, avals, amp_):
@@ -771,8 +925,7 @@ def _planned_specs(main, feed, fetch_names, amp, bf16=False):
         return plan
     kernelgen.plan_for = spy
     try:
-        ex._plan_kernels(opt.global_block().ops,
-                         _meta_env(main, feed, bf16), amp)
+        ex._plan_kernels(opt.global_block().ops, env, amp)
     finally:
         kernelgen.plan_for = real
     specs = {}
@@ -788,9 +941,10 @@ def _planned_specs(main, feed, fetch_names, amp, bf16=False):
 def path_segments():
     """Every generated segment the main paths run: the composed and the
     flash training steps (B=32, T=256, bf16 AMP), the flash step in
-    float32, and the served llama_1b decode program at each bucket (1, 2,
-    4 rows x 2048 tokens) in float32 and with bf16 parameters: name ->
-    (spec, sub-op types, paths)."""
+    float32, the training llama_1b (B=2, T=2048; float32, and the bf16
+    build before and after its first step), and the served llama_1b
+    decode program at each bucket (1, 2, 4 rows x 2048 tokens) in float32
+    and with bf16 parameters: name -> (spec, sub-op types, paths)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.models import transformer as tr
@@ -804,6 +958,15 @@ def path_segments():
         main, _, out = _train_program(fluid, tr, amp=amp, **cfg)
         found.append((path, _planned_specs(main, feed, [out['loss'].name],
                                            amp)))
+    # the training llama at full size, float32 and the bf16 build (its
+    # bf16 first step and its later steps on float32 state)
+    lfeed = _llama_batch(llama, LLAMA_B, 2048, 32000)
+    for path, dtype, promoted in (('training_llama', 'float32', False),
+                                  ('training_llama_bf16', 'bfloat16', False),
+                                  ('training_llama_bf16', 'bfloat16', True)):
+        main, _, out = _llama_program(fluid, llama, dtype=dtype)
+        found.append((path, _planned_specs(main, lfeed, [out['loss'].name],
+                                           False, promoted=promoted)))
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         out = llama.generation_program('llama_1b', mode='decode',
@@ -822,6 +985,21 @@ def path_segments():
             if path not in paths:
                 paths.append(path)
     return specs
+
+
+def _segment_library(spec, ents):
+    """One PyTorch call that does the bulk of a segment, where there is
+    one: a global-norm clip's rescale (every op of a flat group an
+    elementwise_mul by one scalar) is torch._foreach_mul of the gradients
+    by a device scalar.  -> a callable, or None."""
+    import torch
+    flat = [op for op in spec.ops if op[4] > 1]
+    if len(flat) < 2 or any(op[0]['type'] != 'elementwise_mul'
+                            for op in flat):
+        return None
+    grads = [t for t, e in zip(ents, spec.entries) if e[1] == 'tile']
+    scale = torch.full((), 0.5, device='cuda')
+    return lambda: torch._foreach_mul(grads, scale)
 
 
 def segment_case(spec, ops, paths, timed=True):
@@ -856,10 +1034,14 @@ def segment_case(spec, ops, paths, timed=True):
                 (), dtype=torch_dtype(d)).element_size()
                 for s, d in list(spec.entry_avals) + list(spec.esc_aval))
             bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+            lib = _segment_library(spec, ents)
             row.update(ms=time_ms(lambda: kernelgen._launch(spec, ents), 50),
                        plain_ms=time_ms(lambda: spec.replay(ents), 20),
-                       library_ms=None, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes)
+                       library_ms=lib and time_ms(lib, 50),
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+            if lib:
+                row['library_is'] = ('torch._foreach_mul of the segment\'s '
+                                     'flat inputs by one device scalar')
             row['gbps'] = nbytes / row['ms'] / 1e6
     emit(**row)
     require(all(o for _, o in errs), 'generated segment %s disagrees with '
@@ -954,6 +1136,34 @@ def phase_kernels():
                    klen=[161, 100])
     flash_bwd_case('ragged_bf16_d128', 1, 2, 2, 97, 161, 128, False,
                    'bfloat16', klen=[130])
+    # the training llama's attention (llama_1b, B=2, T=2048, D=128,
+    # causal): K1-K3 in float32 (K2 and K3 on CUDA cores at D = 128) and
+    # in bf16 (tensor cores), timed beside SDPA at the same dtype
+    for dt in ('float32', 'bfloat16'):
+        key = dt + '_d128'
+        inst['flash_attention_fwd'][key] = flash_case(
+            'llama_' + dt, 2, 16, 8, 2048, 2048, 128, True, dt, timed=True)
+        bwd = flash_bwd_case('llama_' + dt, 2, 16, 8, 2048, 2048, 128, True,
+                             dt, timed=True)
+        for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+            inst[kname][key] = bwd[kname]
+    # the CUDA-core kernels of the other head dims (csrc/flash_cc.cu):
+    # timed at D = 96, checked at the tiny llama's D = 16 and at D = 32
+    # with a k_len 0 row
+    for dt in ('float32', 'bfloat16'):
+        key = dt + '_cc'
+        inst['flash_attention_fwd'][key] = flash_case(
+            'cc_d96_' + dt, 2, 16, 8, 1024, 1024, 96, True, dt, timed=True)
+        bwd = flash_bwd_case('cc_d96_' + dt, 2, 16, 8, 1024, 1024, 96, True,
+                             dt, timed=True)
+        for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+            inst[kname][key] = bwd[kname]
+        flash_case('cc_d16_' + dt, 2, 4, 2, 32, 32, 16, True, dt)
+        flash_bwd_case('cc_d16_' + dt, 2, 4, 2, 32, 32, 16, True, dt)
+        flash_case('cc_d32_klen0_' + dt, 2, 8, 2, 100, 133, 32, False, dt,
+                   klen=[133, 0])
+        flash_bwd_case('cc_d32_klen_' + dt, 2, 8, 2, 100, 133, 32, True, dt,
+                       klen=[133, 40])
     served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
                                            timed=True)
     layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
@@ -963,6 +1173,13 @@ def phase_kernels():
     served['adam_multi'] = adam_case('transformer_158', 
                                      transformer_param_shapes(), timed=True)
     adam_case('ragged', [(1,), (7,), (32769,), (3, 33333), (5, 4)])
+    # the bf16 instance at the bf16 llama_1b step's 147 tensors
+    served['adam_multi_bf16'] = adam_bf16_case('llama_147',
+                                               llama_param_shapes(),
+                                               timed=True)
+    # and at its later steps: float32 state, the beta powers bf16
+    adam_bf16_case('llama_147_later', llama_param_shapes(), state='float32')
+    adam_bf16_case('ragged', [(1,), (7,), (32769,), (3, 33333)])
     # the composed attention's scores: [32, 8, 256, 256] float32
     served['softmax'] = softmax_case('path_f32', 65536, 256, 'float32',
                                      timed=True)
@@ -2043,6 +2260,8 @@ def _group(name):
         return 'softmax'
     if 'kg_' in name:
         return 'kernelgen_segment'
+    if 'adam_bf16' in name:
+        return 'adam_multi_bf16'
     if 'adam_kernel' in name or 'adam_pows_kernel' in name:
         return 'adam_multi'
     if 'gather_rows' in name:
@@ -2059,13 +2278,14 @@ def _flash_design(name):
     """The flash kernel a profiler key names, by design: 'fwd_wgmma',
     'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_tf32x3',
     'bwd_dq_tf32x3' and 'bwd_dkv_tf32x3' (float32 as 3xTF32, tensor cores,
-    D = 64 for the backward), 'bwd_dq_f32' and 'bwd_dkv_f32' (float32 at
-    D = 128, CUDA cores); None for any other kernel."""
+    D = 64 for the backward), 'fwd_cc', 'bwd_dq_cc' and 'bwd_dkv_cc' (CUDA
+    cores, csrc/flash_cc.cu: the other head dims, and the float32 backward
+    at D = 128); None for any other kernel."""
     for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
                         ('flash_bwd_dq', 'bwd_dq')):
         if stem in name:
             return short + ('_wgmma' if 'wgmma' in name else
-                            '_tf32x3' if 'tf32x3' in name else '_f32')
+                            '_tf32x3' if 'tf32x3' in name else '_cc')
     return None
 
 
@@ -2124,7 +2344,8 @@ def profile_step(exe, main, feed, fetch, phase='training'):
 # profile counts their device launches beside the wrappers' counts
 KERNEL_GROUPS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'layer_norm', 'softmax',
-                 'kernelgen_segment', 'adam_multi', 'embedding_gather')
+                 'kernelgen_segment', 'adam_multi', 'adam_multi_bf16',
+                 'embedding_gather')
 
 
 def _profiled(fn):
@@ -2156,9 +2377,9 @@ def _profiled(fn):
     return wall_ms, busy, _flash_by_design(averages), seen, groups
 
 
-# device kernels one counted launch runs: adam_multi's update and its
-# beta-power kernel; every other wrapper launches one
-DEVICE_KERNELS = {'adam_multi': 2}
+# device kernels one counted launch runs: each Adam instance's update and
+# its beta-power kernel; every other wrapper launches one
+DEVICE_KERNELS = {'adam_multi': 2, 'adam_multi_bf16': 2}
 PROFILE_TRIES = 3
 
 
@@ -2813,6 +3034,399 @@ def phase_nan_trip(smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ training llama
+
+LLAMA_B = 2
+# the flash kernels of one llama_1b step (16 layers, D = 128), by design
+LLAMA_FLASH = {
+    'float32': {'fwd_tf32x3': 16, 'bwd_dq_cc': 16, 'bwd_dkv_cc': 16},
+    'bfloat16': {'fwd_wgmma': 16, 'bwd_dq_wgmma': 16, 'bwd_dkv_wgmma': 16}}
+LLAMA_STEPS = 16   # steps on one repeated batch in training_llama
+
+
+def _llama_program(fluid, llama, config='llama_1b', dtype='float32',
+                   grad_clip=1.0, **overrides):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = llama.build(config, dtype=dtype, grad_clip=grad_clip,
+                          **overrides)
+    return main, startup, out
+
+
+def _llama_batch(llama, B, T, V, seed=SEED):
+    """B rows of T + 1 random token ids packed by make_batch."""
+    rng = np.random.RandomState(seed)
+    return llama.make_batch([rng.randint(1, V, T + 1) for _ in range(B)], T)
+
+
+def _llama_flops(cfg, B, T):
+    """Model FLOPs of one training step: 6 per matrix-product weight per
+    token, and attention's 4 D per valid (query, key) pair forward, 14 D
+    backward (dQ 6 D, dK/dV 8 D), causal."""
+    d, L, V = cfg['d_model'], cfg['n_layer'], cfg['vocab']
+    H, Hkv, F = cfg['n_head'], cfg['n_kv_head'], cfg['d_ffn']
+    dh = d // H
+    mm = L * (d * d * 2 + 2 * d * Hkv * dh + 3 * d * F) + d * V
+    pairs = B * H * T * (T + 1) // 2
+    return 6.0 * mm * B * T + L * 18.0 * dh * pairs
+
+
+def phase_training_llama(smi):
+    """llama_1b at full width and depth (float32, global-norm clip 1.0,
+    Adam) trained through the port's entry points on the card: the
+    interpreter, the CUDA graph and run_steps(8) on one repeated batch;
+    profiles of an interpreted step and of two graph steps; the device
+    kernels a step with the clip on and off."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernelgen
+    main, startup, out = _llama_program(fluid, llama)
+    cfg = out['config']
+    B, T = LLAMA_B, cfg['max_len']
+    feed = _llama_batch(llama, B, T, cfg['vocab'])
+    tokens = float(feed['loss_mask'].sum())
+    params = main.all_parameters()
+    flops = _llama_flops(cfg, B, T)
+    fetch = [out['loss']]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainCalls() as plain:
+            losses = []
+
+            def step(**kw):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=fetch,
+                                            **kw)[0][0]))
+                return (time.perf_counter() - t0) * 1e3
+            first_ms = step()                  # the graph's warm-up
+            eager_ms = [step(use_program_cache=False) for _ in range(2)]
+            capture_ms = step()                # capture, then replay
+            kernels.reset_launches()
+            kernelgen.launches.clear()
+            graph_ms = [step() for _ in range(3)]
+            launches = {k: v / 3 for k, v in kernels.launches.items() if v}
+            seg = {k: v / 3 for k, v in kernelgen.launches.items()}
+            stacked = {k: np.stack([v] * K_STEPS) for k, v in feed.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = exe.run_steps(main, feed_list=stacked, steps=K_STEPS,
+                               fetch_list=fetch)[0]
+            run_steps_ms = (time.perf_counter() - t0) * 1e3 / K_STEPS
+            losses.extend(float(v) for v in rs.reshape(-1))
+            mem = _peak_memory()
+            flash = profile_step(exe, main, feed, fetch,
+                                 phase='training_llama')
+            (wall, busy, flash_g, seen, groups), counted, tries = \
+                _profiled_launches(lambda: [exe.run(main, feed=feed,
+                                                    fetch_list=fetch)
+                                            for _ in range(2)])
+            _, busy_on, _, events_on, _ = _profiled(
+                lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                use_program_cache=False))
+        med = float(np.median(graph_ms))
+        emit(phase='training_llama', step='steps', config='llama_1b',
+             cfg=cfg, dtype='float32', grad_clip=1.0, B=B, T=T,
+             params=sum(int(np.prod(p.shape)) for p in params),
+             param_tensors=len(params), losses=losses,
+             first_step_ms=first_ms, eager_step_ms=eager_ms,
+             capture_step_ms=capture_ms, graph_step_ms=graph_ms,
+             run_steps_step_ms=run_steps_ms, median_graph_step_ms=med,
+             tokens_per_step=tokens, tokens_per_s=tokens / med * 1e3,
+             run_steps_tokens_per_s=tokens / run_steps_ms * 1e3,
+             model_tflop_per_step=flops / 1e12,
+             model_tflops=flops / med / 1e9, launches_per_step=launches,
+             segment_launches_per_step=sum(seg.values()),
+             plain_calls_on_cuda=plain.counts, card=smi, **mem)
+        emit(phase='training_llama', step='graph_profile', steps=2,
+             profiled_wall_ms=wall, device_busy_ms=busy,
+             device_idle_share=(1 - busy / wall) if busy else None,
+             flash_by_design=flash_g, device_events=seen,
+             device_launches=groups, counted_device_launches=counted,
+             profile_tries=tries)
+        require(all(np.isfinite(losses)), 'non-finite llama loss')
+        require(losses[7] < losses[0], 'the llama loss did not fall over 8 '
+                'steps on one batch: %s' % losses[:8])
+        require(not plain.counts, 'plain versions ran on the card: %s'
+                % plain.counts)
+        got = {k: c for k, (_, c) in flash.items()}
+        require(got == LLAMA_FLASH['float32'], 'flash kernels in the '
+                'profiled llama step: %s, expected %s'
+                % (got, LLAMA_FLASH['float32']))
+        got = {k: c for k, (_, c) in flash_g.items()}
+        want = {k: 2 * v for k, v in LLAMA_FLASH['float32'].items()}
+        require(got == want, 'flash kernels in two profiled graph steps: '
+                '%s, expected %s' % (got, want))
+        _seen_on_device('training_llama graph', groups, counted)
+        for k in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                  'flash_attention_bwd_dkv'):
+            require(launches.get(k) == 16, '%s: %s launches a step, expected '
+                    '16' % (k, launches.get(k)))
+        require(launches.get('adam_multi') == 1 and
+                launches.get('embedding_gather') == 1,
+                'Adam and K4 launches a step: %s' % launches)
+    del scope, exe
+    torch.cuda.empty_cache()
+    # the same step with the clip off: the device kernels a step (its
+    # device ms by group in the 'training_llama_clip_off' profile line)
+    main0, startup0, out0 = _llama_program(fluid, llama, grad_clip=0)
+    fetch0 = [out0['loss']]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope):
+        exe.run(startup0)
+        exe.run(main0, feed=feed, fetch_list=fetch0, use_program_cache=False)
+        kernels.reset_launches()
+        _, busy_off, _, events_off, _ = _profiled(
+            lambda: exe.run(main0, feed=feed, fetch_list=fetch0,
+                            use_program_cache=False))
+        off = {k: v for k, v in kernels.launches.items() if v}
+        profile_step(exe, main0, feed, fetch0,
+                     phase='training_llama_clip_off')
+    emit(phase='training_llama', step='clip_on_off',
+         device_events_a_step={'clip_on': events_on,
+                               'clip_off': events_off},
+         device_busy_ms={'clip_on': busy_on, 'clip_off': busy_off},
+         launches_clip_off=off)
+    del scope, exe
+    torch.cuda.empty_cache()
+    launches.update(seg)
+    return launches
+
+
+def phase_training_llama_bf16(smi):
+    """The same step from build(dtype='bfloat16'): the first step runs on
+    bf16 parameters (the bf16 tensor-core flash kernels, Adam's bf16
+    instance), and the JAX package's Adam returns float32 parameters and
+    moments, so the later steps are float32 ones with bf16 beta powers
+    (the bf16 instance again).  The bf16 step changes the scope's dtypes,
+    so no CUDA graph can hold it: it is timed through the interpreter,
+    three times from one saved state; the later steps through the graph."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernelgen
+    main, startup, out = _llama_program(fluid, llama, dtype='bfloat16')
+    cfg = out['config']
+    B, T = LLAMA_B, cfg['max_len']
+    feed = _llama_batch(llama, B, T, cfg['vocab'])
+    tokens = float(feed['loss_mask'].sum())
+    fetch = [out['loss']]
+    pnames = [p.name for p in main.all_parameters()]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        require(all(scope.vars[p].dtype == torch.bfloat16 for p in pnames),
+                'the bf16 build made non-bf16 parameters')
+        torch.cuda.reset_peak_memory_stats()
+        with PlainCalls() as plain:
+            exe.prepare(main, feed=feed, fetch_list=fetch)
+            snap = {k: v.clone() for k, v in scope.vars.items()}
+
+            def restore():
+                scope.vars.clear()
+                scope.vars.update({k: v.clone() for k, v in snap.items()})
+            bf16_ms, first = [], []
+            for _ in range(3):
+                restore()
+                kernels.reset_launches()
+                kernelgen.launches.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first.append(float(exe.run(main, feed=feed, fetch_list=fetch,
+                                           use_program_cache=False)[0][0]))
+                bf16_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: v for k, v in kernels.launches.items() if v}
+            seg = dict(kernelgen.launches)
+
+            def bf16_step():
+                # from the saved bf16 state each time: a profile that drops
+                # an event runs again (_profiled_launches)
+                restore()
+                exe.run(main, feed=feed, fetch_list=fetch,
+                        use_program_cache=False)
+            (wall, busy, flash, seen, groups), counted, tries = \
+                _profiled_launches(bf16_step)
+            dtypes = sorted({(n.split('_')[-2] if '_pow_' in n or
+                              '_moment' in n else 'param',
+                              str(scope.vars[n].dtype))
+                             for n in scope.vars
+                             if n.startswith(tuple(pnames))})
+            del snap
+            losses, later_ms = [first[-1]], []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=fetch)[0][0]))
+                later_ms.append((time.perf_counter() - t0) * 1e3)
+            kernels.reset_launches()
+            exe.run(main, feed=feed, fetch_list=fetch)
+            later_launches = {k: v for k, v in kernels.launches.items() if v}
+        mem = _peak_memory()
+        med = float(np.median(bf16_ms))
+        emit(phase='training_llama_bf16', step='steps', config='llama_1b',
+             dtype='bfloat16', B=B, T=T, bf16_step_ms=bf16_ms,
+             median_bf16_step_ms=med, tokens_per_s=tokens / med * 1e3,
+             bf16_step_losses=first, losses=losses,
+             later_step_ms=later_ms,
+             later_graph_step_ms=float(np.median(later_ms[3:])),
+             dtypes_after_step_1=dtypes, launches_bf16_step=launches,
+             segment_launches_bf16_step=sum(seg.values()),
+             launches_later_step=later_launches,
+             plain_calls_on_cuda=plain.counts, card=smi, **mem)
+        emit(phase='training_llama_bf16', step='profile',
+             profiled_wall_ms=wall, device_busy_ms=busy,
+             device_idle_share=(1 - busy / wall) if busy else None,
+             flash_by_design=flash, device_events=seen,
+             device_launches=groups, counted_device_launches=counted,
+             profile_tries=tries)
+        require(all(np.isfinite(losses + first)), 'non-finite bf16 loss')
+        require(losses[-1] < losses[0], 'the bf16 build\'s loss did not '
+                'fall over 8 steps: %s' % losses)
+        require(dtypes == [('acc', 'torch.bfloat16'),
+                           ('moment1', 'torch.float32'),
+                           ('moment2', 'torch.float32'),
+                           ('param', 'torch.float32')],
+                'dtypes after the bf16 step: %s' % dtypes)
+        require(not plain.counts, 'plain versions ran on the card: %s'
+                % plain.counts)
+        got = {k: c for k, (_, c) in flash.items()}
+        require(got == LLAMA_FLASH['bfloat16'], 'flash kernels in the '
+                'profiled bf16 step: %s, expected %s'
+                % (got, LLAMA_FLASH['bfloat16']))
+        _seen_on_device('training_llama_bf16', groups, counted)
+        require(launches.get('adam_multi_bf16') == 1 and
+                'adam_multi' not in launches,
+                'Adam instances in the bf16 step: %s' % launches)
+        require(later_launches.get('adam_multi_bf16') == 1,
+                'Adam instances in a later step: %s' % later_launches)
+    del scope, exe
+    torch.cuda.empty_cache()
+    launches.update(seg)
+    return launches
+
+
+def phase_train_llama_gpu_vs_cpu():
+    """Two steps from the same weights on the card and on the CPU: the
+    llama_1b widths cut to 2 layers (D = 128, GQA 16 / 8), B = 2, T = 256,
+    float32; and the tiny config (D = 16: csrc/flash_cc.cu on the card) in
+    float32 and from build(dtype='bfloat16').  -> {path: launches a step
+    on the card} for the tiny runs."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import llama
+    paths = {}
+    for name, config, over, dtype in (
+            ('llama_1b_2l', 'llama_1b', dict(n_layer=2, max_len=256),
+             'float32'),
+            ('tiny_f32', 'tiny', {}, 'float32'),
+            ('tiny_bf16', 'tiny', {}, 'bfloat16')):
+        main, startup, out = _llama_program(fluid, llama, config, dtype,
+                                            **over)
+        cfg = out['config']
+        feed = _llama_batch(llama, LLAMA_B, cfg['max_len'], cfg['vocab'],
+                            seed=SEED + 1)
+        gnorm = next(op.output('Out')[0] for op in main.global_block().ops
+                     if op.type == 'sqrt')
+        watch = ['tok_emb', 'layer_0_att_q_w', 'layer_1_ffn_fc2_w',
+                 'final_norm', 'lm_proj_w']
+        gpu, cpu = fluid.Scope(), fluid.Scope()
+        gexe, cexe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(gpu):
+            gexe.run(startup)
+        fluid.scope_from_numpy({n: t.cpu() for n, t in gpu.vars.items()},
+                               cpu, 'cpu')
+        res = {}
+        for dev, scope, exe in (('gpu', gpu, gexe), ('cpu', cpu, cexe)):
+            t0 = time.perf_counter()
+            if dev == 'gpu':
+                kernels.reset_launches()
+            with fluid.scope_guard(scope):
+                runs = [exe.run(main, feed=feed,
+                                fetch_list=[out['loss'], gnorm,
+                                            out['logits']])
+                        for _ in range(2)]
+            if dev == 'gpu':
+                paths['train_llama_' + name] = {
+                    k: v / 2 for k, v in kernels.launches.items() if v}
+            if dev == 'cpu':
+                max_logit = float(np.abs(runs[0][2]).max())
+            res[dev] = ([float(r[0][0]) for r in runs],
+                        [float(r[1][0]) for r in runs],
+                        {w: scope.vars[w].float().cpu().numpy()
+                         for w in watch},
+                        time.perf_counter() - t0)
+        lr = 3e-4
+        p_atol = 2.01 * 2 * lr
+        loss_err = [abs(a - b) / abs(b)
+                    for a, b in zip(res['gpu'][0], res['cpu'][0])]
+        norm_err = [abs(a - b) / abs(b)
+                    for a, b in zip(res['gpu'][1], res['cpu'][1])]
+        p_err = {w: float(np.abs(res['gpu'][2][w] - res['cpu'][2][w]).max())
+                 for w in watch}
+        p_ok = all(np.allclose(res['gpu'][2][w], res['cpu'][2][w],
+                               rtol=1e-6, atol=p_atol) for w in watch)
+        row = dict(phase='train_llama_gpu_vs_cpu', config=name, cfg=cfg,
+                   dtype=dtype, B=LLAMA_B, T=cfg['max_len'],
+                   gpu_losses=res['gpu'][0], cpu_losses=res['cpu'][0],
+                   loss_rel_err=loss_err, gpu_global_norm=res['gpu'][1],
+                   cpu_global_norm=res['cpu'][1], global_norm_rel_err=norm_err,
+                   param_max_abs_err=p_err, param_atol=p_atol,
+                   param_rtol=1e-6, gpu_s=res['gpu'][3], cpu_s=res['cpu'][3],
+                   launches_per_step=paths.get('train_llama_' + name))
+        if dtype == 'float32':
+            # float32 sums in other orders (~1e-7 relative through the
+            # layers); an Adam step moves an entry by at most ~lr, and
+            # an entry whose gradient is float noise may move the other
+            # way on the other device: 2.01 x the summed lr
+            row.update(loss_rtol=1e-5, global_norm_rtol=1e-5)
+            ok = max(loss_err) <= 1e-5 and max(norm_err) <= 1e-5 and p_ok
+        else:
+            # the first step on bf16 parameters.  Two packages that round
+            # each operation to bf16 (u = 2^-8) from float32 values
+            # differing in the last bits give logits 4 sqrt(2 R / 3) u
+            # max|logit| apart, R = 12 L + 2 roundings
+            # (tests/test_torch_llama_train.py derives it), gradients
+            # 4 sqrt(4 R / 3) u.  Here one program runs on two devices:
+            # an operation's float32 values differ only by summation
+            # order, delta = 2^-24 sqrt(K) relative for sums of K terms
+            # (K the longest: d_model, d_ffn, T or the vocabulary), and
+            # their bf16 roundings differ, by one unit, only for the
+            # share f = delta / u of values that lie within delta of a
+            # rounding boundary.  One-unit differences in a share f have
+            # sqrt(f) times the spread of independent roundings: the
+            # loss within sqrt(f) 2 x 4 sqrt(2 R / 3) u max|logit|, the
+            # first step's global norm within sqrt(f) 4 sqrt(4 R / 3) u
+            R = 12 * cfg['n_layer'] + 2
+            K = max(cfg['d_model'], cfg['d_ffn'], cfg['max_len'],
+                    cfg['vocab'])
+            shrink = np.sqrt(min(1.0, 2.0 ** -24 * np.sqrt(K) / 2.0 ** -8))
+            loss_tol = shrink * 2 * 4 * np.sqrt(2 * R / 3.0) * 2.0 ** -8 * \
+                max_logit
+            norm_rtol = shrink * 4 * np.sqrt(4 * R / 3.0) * 2.0 ** -8
+            abs_err = [abs(a - b) for a, b in zip(res['gpu'][0],
+                                                  res['cpu'][0])]
+            row.update(loss_atol=loss_tol, global_norm_rtol=norm_rtol,
+                       loss_abs_err=abs_err)
+            ok = max(abs_err) <= loss_tol and norm_err[0] <= norm_rtol and p_ok
+        emit(**row)
+        require(all(np.isfinite(res['gpu'][0])), 'non-finite GPU loss')
+        require(ok, 'gpu vs cpu (%s): %s' % (name, row))
+        del gpu, cpu, gexe, cexe
+        torch.cuda.empty_cache()
+    require(paths['train_llama_tiny_f32'].get('flash_attention_fwd') == 2,
+            'the tiny llama did not run the flash kernels on the card: %s'
+            % paths)
+    return paths
+
+
 # ------------------------------------------------------------- main
 
 _REPLACES = {
@@ -2828,20 +3442,42 @@ _REPLACES = {
                    'paddle_tpu/ops/kernelgen/rules.py:336'),
     'adam_multi': ('paddle_tpu_torch/csrc/adam.cu',
                    'paddle_tpu/ops/kernelgen/builder.py:795'),
+    'adam_multi_bf16': ('paddle_tpu_torch/csrc/adam.cu',
+                        'paddle_tpu/ops/kernelgen/builder.py:795'),
     'softmax': ('paddle_tpu_torch/csrc/softmax.cu',
                 'paddle_tpu/ops/kernelgen/rules.py:291'),
 }
-# the two instances of K1-K3: each dtype's design
-_DESIGNS = {
-    ('flash_attention_fwd', 'bfloat16'): 'wgmma, tensor cores',
-    ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
-    ('flash_attention_bwd_dq', 'bfloat16'): 'wgmma, tensor cores',
-    ('flash_attention_bwd_dq', 'float32'):
-        '3xTF32 wgmma, tensor cores (D = 64; CUDA cores at D = 128)',
-    ('flash_attention_bwd_dkv', 'bfloat16'): 'wgmma, tensor cores',
-    ('flash_attention_bwd_dkv', 'float32'):
-        '3xTF32 wgmma, tensor cores (D = 64; CUDA cores at D = 128)',
+# the instances of K1-K3, by the key phase_kernels files them under:
+# (dtype, design, source, the paths that run it)
+_CC = ('CUDA cores, padded width DP, D % 8 == 0 but not 64 or 128 '
+       '(ROADMAP C3)', 'paddle_tpu_torch/csrc/flash_cc.cu')
+_INSTANCES = {
+    'bfloat16': ('bfloat16', 'wgmma, tensor cores', None,
+                 ('training', 'serving_bf16')),
+    'float32': ('float32', None, None, ('serving', 'training_f32')),
+    'float32_d128': ('float32', None, None, ('training_llama',)),
+    'bfloat16_d128': ('bfloat16', 'wgmma, tensor cores, D = 128', None,
+                      ('training_llama_bf16',)),
+    'float32_cc': ('float32',) + _CC + (('train_llama_tiny_f32',),),
+    'bfloat16_cc': ('bfloat16',) + _CC + (('train_llama_tiny_bf16',),),
 }
+# the float32 designs of K1-K3 at each head dim
+_F32_DESIGNS = {
+    ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
+    ('flash_attention_fwd', 'float32_d128'):
+        '3xTF32 wgmma, tensor cores, D = 128',
+    ('flash_attention_bwd_dq', 'float32'): '3xTF32 wgmma, tensor cores, '
+                                           'D = 64',
+    ('flash_attention_bwd_dq', 'float32_d128'):
+        'CUDA cores, D = 128 (flash_bwd_dq_cc_kernel, DP = 128)',
+    ('flash_attention_bwd_dkv', 'float32'): '3xTF32 wgmma, tensor cores, '
+                                            'D = 64',
+    ('flash_attention_bwd_dkv', 'float32_d128'):
+        'CUDA cores, D = 128 (flash_bwd_dkv_cc_kernel, DP = 128)',
+}
+# the float32 backward at D = 128 runs csrc/flash_cc.cu
+_F32_SOURCES = {(name, 'float32_d128'): _CC[1] for name in (
+    'flash_attention_bwd_dq', 'flash_attention_bwd_dkv')}
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
                   'paddle_tpu/ops/kernelgen/builder.py:795')
@@ -2892,13 +3528,17 @@ def main(argv=None):
     trained = run('training', phase_training, smi)
     trained_f32 = run('training_f32', phase_training_f32, smi)
     composed = run('training_composed', phase_training_composed, smi)
+    llama_f32 = run('training_llama', phase_training_llama, smi)
+    llama_bf16 = run('training_llama_bf16', phase_training_llama_bf16, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
     run('generation_gpu_vs_cpu', phase_generation_gpu_vs_cpu)
     run('train_gpu_vs_cpu', phase_train_gpu_vs_cpu)
     run('train_composed_gpu_vs_cpu', phase_train_composed_gpu_vs_cpu)
-    emit(phase='script', seconds_by_phase=took)
+    llama_tiny = run('train_llama_gpu_vs_cpu', phase_train_llama_gpu_vs_cpu)
+    emit(phase='script', seconds_by_phase=took,
+         seconds=sum(took.values()))
 
     def per_step(steps):
         return {k: v // 10 if v % 10 == 0 else v / 10
@@ -2908,7 +3548,14 @@ def main(argv=None):
     by_path = {'serving': served_launches, 'serving_bf16': served_bf16,
                'generation': generated, 'training': per_step(trained),
                'training_f32': per_step(trained_f32),
-               'training_composed': per_step(composed)}
+               'training_composed': per_step(composed),
+               # per step (graph replays), per bf16 step, per tiny step
+               'training_llama': llama_f32,
+               'training_llama_bf16': llama_bf16,
+               'train_llama_tiny_f32': llama_tiny.get(
+                   'train_llama_tiny_f32', {}),
+               'train_llama_tiny_bf16': llama_tiny.get(
+                   'train_llama_tiny_bf16', {})}
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -2921,6 +3568,13 @@ def main(argv=None):
                      if k not in kernels_py.launches})
     for path in ('training', 'training_composed'):
         launches.update(by_path[path])
+    # the kernels only the training llama runs (Adam's bf16 instance, the
+    # clip's segments): per step of the float32 llama path, else of the
+    # bf16 llama step
+    for path in ('training_llama', 'training_llama_bf16'):
+        for k, v in by_path[path].items():
+            if v and not launches.get(k):
+                launches[k] = v
     # the float32 instances of K1-K3: K1 per served run (serving), K2 and
     # K3 per step of the float32 flash training path
     f32_steps = by_path['training_f32']
@@ -2928,13 +3582,19 @@ def main(argv=None):
         'flash_attention_fwd'), 'flash_attention_bwd_dq': f32_steps.get(
         'flash_attention_bwd_dq'), 'flash_attention_bwd_dkv': f32_steps.get(
         'flash_attention_bwd_dkv')}
-    # the paths that run each instance's dtype
-    dtype_paths = {'bfloat16': ('training', 'serving_bf16'),
-                   'float32': ('serving', 'training_f32')}
-
     def path_counts(name, paths=tuple(by_path)):
         return {p: by_path[p][name] for p in paths
                 if by_path[p].get(name)}
+
+    def instance_launches(name, key):
+        """An instance's launches on its main path: the flash step for
+        bf16, the served run (K1) or the float32 step (K2, K3) for
+        float32, else per step of its own path."""
+        if key == 'bfloat16':
+            return launches.get(name)
+        if key == 'float32':
+            return f32_launches[name]
+        return by_path[_INSTANCES[key][3][0]].get(name)
 
     rows = []
     for name, res in kern['rows'].items():
@@ -2949,18 +3609,25 @@ def main(argv=None):
         if name not in _REPLACES:
             row.update(ops=res['ops'], paths=res['paths'])
         if name in kern['instances']:
-            row['instances'] = [dict(
-                dtype=dt, design=_DESIGNS[name, dt],
-                case=r['case'], launches=(launches.get(name)
-                                          if dt == 'bfloat16'
-                                          else f32_launches[name]),
-                launches_by_path=path_counts(name, dtype_paths[dt]),
-                max_abs_err=r['max_abs_err'], ms=r['ms'],
-                plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-                bound_by=r['bound_by'], library_ms=r['library_ms'])
-                for dt, r in sorted(kern['instances'][name].items())]
+            row['instances'] = []
+            for key, r in sorted(kern['instances'][name].items()):
+                dt, design, isrc, ipaths = _INSTANCES[key]
+                inst = dict(
+                    key=key, dtype=dt,
+                    design=design or _F32_DESIGNS[name, key],
+                    source=isrc or _F32_SOURCES.get((name, key), src),
+                    case=r['case'], D=r['D'],
+                    launches=instance_launches(name, key),
+                    launches_by_path=path_counts(name, ipaths),
+                    max_abs_err=r['max_abs_err'], ms=r['ms'],
+                    plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                    bound_by=r['bound_by'], library_ms=r['library_ms'])
+                for extra in ('bound_cuda_cores_ms', 'bound_tf32x3_ms'):
+                    if extra in r:
+                        inst[extra] = r[extra]
+                row['instances'].append(inst)
         rows.append(row)
-    if 'kernels' in phases and set(by_path) <= set(phases):
+    if set(PHASES) <= set(phases):
         idle = [r['name'] for r in rows if not r['launches_by_path']] + [
             '%s/%s' % (r['name'], i['dtype']) for r in rows
             for i in r.get('instances', ()) if not i['launches_by_path']]

@@ -33,5 +33,7 @@ from .compiler import (CompiledProgram, BuildStrategy,  # noqa: F401
                        ExecutionStrategy)
 from . import (initializer, layers, io, inference, serving,  # noqa: F401
                optimizer, models)
+from . import regularizer, clip  # noqa: F401
+from .clip import set_gradient_clip  # noqa: F401
 from .core.backward import append_backward  # noqa: F401
 from .convert import scope_from_numpy, persistable_names  # noqa: F401

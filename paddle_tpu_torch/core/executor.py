@@ -127,7 +127,10 @@ def to_device(value, dtype_name, device):
         a = np.ascontiguousarray(np.asarray(value))
         if not a.flags.writeable:   # e.g. a view of a JAX array
             a = a.copy()
-        t = torch.from_numpy(a)
+        if a.dtype.name == 'bfloat16':  # ml_dtypes: numpy has no bf16
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     dt = torch_dtype(dtype_name if dtype_name is not None else t.dtype)
     return t.to(device=device, dtype=dt)
 

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
-// cores (wgmma), bf16 directly and float32 as 3xTF32 (D = 64); float32 at
-// D = 128 on CUDA cores.
+// cores (wgmma), bf16 directly and float32 as 3xTF32 (D = 64).  Float32
+// at D = 128 runs on CUDA cores in csrc/flash_cc.cu (pt_flash_cc_bwd_dq,
+// pt_flash_cc_bwd_dkv at DP = 128), which ops/attention.py routes to.
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -106,343 +107,16 @@
 // registers (dQ) and 202 (dK/dV), no spills; 164,888 and 198,168 bytes
 // of shared memory a block, one block an SM, as the CUDA runtime reports
 // them.  At D = 128 the same layouts need 320 and 384 KB, above the 227
-// KB a block may have.  Not yet used: a producer warp, 64-row ring tiles
-// (N = 64 products read their A tile half as often, for more registers),
-// a persistent grid.
-//
-// float32, D = 128, flash_bwd_dq_kernel<D> and flash_bwd_dkv_kernel<D> (the
-// CUDA-core design, kept for D = 128 until a 3xTF32 layout fits there):
-// tiles of 64 query rows and 32 keys are staged as float32 in shared
-// memory and reused by all 128 threads; each thread keeps a 4x4 patch of S
-// and dP, and an 8 x D/16 (dQ) or two 4 x D/16 (dK, dV) patches of its
-// accumulators in registers.  Padded strides keep the column walks free of
-// bank conflicts.  Key tiles past k_len and query tiles before the causal
-// frontier are skipped whole.  The tiles need 116 KB of shared memory at
-// D=128, above the 48 KB static limit, so they are dynamic and the launch
-// raises the limit first.
+// KB a block may have (float32 at D = 128 therefore runs csrc/flash_cc.cu).
+// Not yet used: a producer warp, 64-row ring tiles (N = 64 products read
+// their A tile half as often, for more registers), a persistent grid.
 #include "hopper_mma.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 32;    // keys per tile
 constexpr int NT = 128;   // threads per block
-
-// Q (pre-scaled), dO, LSE and delta of query rows q0..q0+BQ into shared
-// memory; rows past Tq are zero
-template <int D>
-__device__ __forceinline__ void load_q_tile(const float* qp, const float* dop,
-                                            const float* lsep,
-                                            const float* dlp, int q0, int Tq,
-                                            float scale, float* Qs,
-                                            float* dOs, float* lse_s,
-                                            float* dl_s) {
-  constexpr int QS = D + 1;
-  for (int e = threadIdx.x; e < BQ * D; e += NT) {
-    const int r = e / D, c = e % D, qi = q0 + r;
-    const bool in = qi < Tq;
-    Qs[r * QS + c] = in ? qp[(size_t)qi * D + c] * scale : 0.f;
-    dOs[r * QS + c] = in ? dop[(size_t)qi * D + c] : 0.f;
-  }
-  for (int r = threadIdx.x; r < BQ; r += NT) {
-    const bool in = q0 + r < Tq;
-    lse_s[r] = in ? lsep[q0 + r] : 0.f;
-    dl_s[r] = in ? dlp[q0 + r] : 0.f;
-  }
-}
-
-// K and V of keys k0..k0+BK into shared memory; keys past Tk are zero
-template <int D>
-__device__ __forceinline__ void load_k_tile(const float* kp, const float* vp,
-                                            int k0, int Tk, float* Ks,
-                                            float* Vs) {
-  constexpr int KS = D + 1;
-  for (int e = threadIdx.x; e < BK * D; e += NT) {
-    const int r = e / D, c = e % D, ki = k0 + r;
-    const bool in = ki < Tk;
-    Ks[r * KS + c] = in ? kp[(size_t)ki * D + c] : 0.f;
-    Vs[r * KS + c] = in ? vp[(size_t)ki * D + c] : 0.f;
-  }
-}
-
-// P and dS of the (BQ x BK) tile at (q0, k0): each thread computes a 4x4
-// patch (query rows sr*4+i, keys sc+8j) of S = Qs Ks^T and dP = dOs Vs^T,
-// in the forward's summation order, and stores P (when Ps is given) and dS
-// with a row stride of BK+1
-template <int D>
-__device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs,
-                                          const float* Ks, const float* Vs,
-                                          const float* lse_s,
-                                          const float* dl_s, int q0, int k0,
-                                          int Tq, int kl, int causal,
-                                          int offset, float* Ps,
-                                          float* dSs) {
-  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
-  const int sr = threadIdx.x / 8, sc = threadIdx.x % 8;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = Qs[(sr * 4 + i) * QS + d];
-      da[i] = dOs[(sr * 4 + i) * QS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = Ks[(sc + 8 * j) * KS + d];
-      vb[j] = Vs[(sc + 8 * j) * KS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = sr * 4 + i, qi = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = sc + 8 * j, ki = k0 + c;
-      const bool valid =
-          ki < kl && qi < Tq && (!causal || ki <= qi + offset);
-      const float p = valid ? expf(s[i][j] - lse_s[r]) : 0.f;
-      if (Ps) Ps[r * SS + c] = p;
-      dSs[r * SS + c] = p * (dp[i][j] - dl_s[r]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 2 * BQ * (D + 1)    // Q (scaled), dO
-         + 2 * BK * (D + 1)  // K, V
-         + BQ * (BK + 1)     // dS
-         + 2 * BQ;           // LSE, delta
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ klen,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ dout, float* __restrict__ dq,
-                    int H, int Hkv, int Tq, int Tk, int causal, float scale) {
-  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
-  constexpr int CPT = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * QS;
-  float* Ks = dOs + BQ * QS;
-  float* Vs = Ks + BK * KS;
-  float* dSs = Vs + BK * KS;
-  float* lse_s = dSs + BQ * SS;
-  float* dl_s = lse_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
-  const int b = bh / H;
-  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
-  const int kl = min(klen[b], Tk);
-  const int offset = Tk - Tq;
-
-  load_q_tile<D>(q + (size_t)bh * Tq * D, dout + (size_t)bh * Tq * D,
-                    lse + (size_t)bh * Tq, delta + (size_t)bh * Tq, q0, Tq,
-                    scale, Qs, dOs, lse_s, dl_s);
-  const float* kp = k + (size_t)kvh * Tk * D;
-  const float* vp = v + (size_t)kvh * Tk * D;
-
-  // keys any row of this tile may see, as in the forward
-  int kend = kl;
-  if (causal) kend = min(kend, max(0, min(q0 + BQ, Tq) + offset));
-  const int ntiles = (kend + BK - 1) / BK;
-
-  const int pr = tid / 16, pc = tid % 16;  // dQ patch: rows pr*8+i, cols pc+16j
-  float acc[8][CPT];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K and dS reads are done
-    load_k_tile<D>(kp, vp, k0, Tk, Ks, Vs);
-    __syncthreads();
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
-                 offset, nullptr, dSs);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[8], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dsv[i] = dSs[(pr * 8 + i) * SS + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Ks[kk * KS + pc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int qi = q0 + pr * 8 + i;
-    if (qi >= Tq) continue;
-    float* op = dq + ((size_t)bh * Tq + qi) * D;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) op[pc + 16 * j] = acc[i][j] * scale;
-  }
-}
-
-template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 2 * BK * (D + 1)    // K, V
-         + 2 * BQ * (D + 1)  // Q (scaled), dO
-         + 2 * BQ * (BK + 1) // P, dS
-         + 2 * BQ;           // LSE, delta
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const int* __restrict__ klen,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ dout, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Hkv, int Tq, int Tk,
-                     int causal, float scale) {
-  constexpr int QS = D + 1, KS = D + 1, SS = BK + 1;
-  constexpr int CPT = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * KS;
-  float* Qs = Vs + BK * KS;
-  float* dOs = Qs + BQ * QS;
-  float* Ps = dOs + BQ * QS;
-  float* dSs = Ps + BQ * SS;
-  float* lse_s = dSs + BQ * SS;
-  float* dl_s = lse_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int bkv = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
-  const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
-  const int kl = min(klen[b], Tk);
-  const int offset = Tk - Tq;
-
-  const int pr = tid / 16, pc = tid % 16;  // dK/dV patch: keys pr*4+i, cols pc+16j
-  float ak[4][CPT], av[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) ak[i][j] = av[i][j] = 0.f;
-
-  if (k0 < kl) {  // else every key of the tile is masked: zero gradients
-    load_k_tile<D>(k + (size_t)bkv * Tk * D,
-                          v + (size_t)bkv * Tk * D, k0, Tk, Ks, Vs);
-    // first query that sees this tile's first key (end-aligned causal)
-    const int q_first = causal ? max(0, k0 - offset) : 0;
-    for (int gi = 0; gi < g; ++gi) {
-      const int bh = b * H + hk * g + gi;
-      for (int q0 = (q_first / BQ) * BQ; q0 < Tq; q0 += BQ) {
-        __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-        load_q_tile<D>(q + (size_t)bh * Tq * D,
-                              dout + (size_t)bh * Tq * D,
-                              lse + (size_t)bh * Tq, delta + (size_t)bh * Tq,
-                              q0, Tq, scale, Qs, dOs, lse_s, dl_s);
-        __syncthreads();
-        p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, q0, k0, Tq, kl, causal,
-                     offset, Ps, dSs);
-        __syncthreads();
-#pragma unroll 4
-        for (int r = 0; r < BQ; ++r) {
-          float pv[4], dsv[4], dov[CPT], qv[CPT];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pv[i] = Ps[r * SS + pr * 4 + i];
-            dsv[i] = dSs[r * SS + pr * 4 + i];
-          }
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            dov[j] = dOs[r * QS + pc + 16 * j];
-            qv[j] = Qs[r * QS + pc + 16 * j];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-              av[i][j] = fmaf(pv[i], dov[j], av[i][j]);
-              ak[i][j] = fmaf(dsv[i], qv[j], ak[i][j]);
-            }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ki = k0 + pr * 4 + i;
-    if (ki >= Tk) continue;
-    const size_t row = ((size_t)bkv * Tk + ki) * D;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      dk[row + pc + 16 * j] = ak[i][j];
-      dv[row + pc + 16 * j] = av[i][j];
-    }
-  }
-}
-
-template <int D>
-int launch_dq_f32(const void* q, const void* k, const void* v,
-                  const void* klen, const void* lse, const void* delta,
-                  const void* dout, void* dq, int B, int H, int Hkv, int Tq,
-                  int Tk, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)klen,
-      (const float*)lse, (const float*)delta, (const float*)dout,
-      (float*)dq, H, Hkv, Tq, Tk, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv_f32(const void* q, const void* k, const void* v,
-                   const void* klen, const void* lse, const void* delta,
-                   const void* dout, void* dk, void* dv, int B, int H,
-                   int Hkv, int Tq, int Tk, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * Hkv, (Tk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)klen,
-      (const float*)lse, (const float*)delta, (const float*)dout,
-      (float*)dk, (float*)dv, H, Hkv, Tq, Tk, causal, scale);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------- bf16, tensor cores
 
@@ -1439,9 +1113,6 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dq_tf32x3<64>(q, k, v, klen, lse, delta, dout, dq, B, H,
                                 Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq_f32<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                              Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
     return launch_dq_bf16<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
                               Tq, Tk, causal, scale, s);
@@ -1462,9 +1133,6 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dkv_tf32x3<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
                                  H, Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_dkv_f32<128>(q, k, v, klen, lse, delta, dout, dk, dv, B, H,
-                               Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
     return launch_dkv_bf16<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
                                H, Hkv, Tq, Tk, causal, scale, s);
@@ -1474,10 +1142,14 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return -1;
 }
 
+extern "C" int pt_flash_cc_occupancy(int D, int dtype, int kind, int* smem,
+                                     int* blocks);
+
 // The shared memory a backward launch asks for at head dimension D and
 // dtype (as in pt_flash_bwd_dq), for the dQ kernel (kind 0) or the dK/dV
 // kernel (kind 1), and how many such blocks an SM holds, as the CUDA
-// runtime reports them; 0 on success.
+// runtime reports them; 0 on success.  Float32 at D = 128 gives
+// csrc/flash_cc.cu's instances, which run it.
 extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                       int* blocks) {
   if (dtype == 0 && D == 64)
@@ -1487,12 +1159,7 @@ extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                  sizeof(DkvTf32Smem<64>) + 1024, smem,
                                  blocks);
   if (dtype == 0 && D == 128)
-    return kind == 0 ? occupancy(flash_bwd_dq_kernel<128>,
-                                 dq_smem_floats<128>() * sizeof(float), smem,
-                                 blocks)
-                     : occupancy(flash_bwd_dkv_kernel<128>,
-                                 dkv_smem_floats<128>() * sizeof(float), smem,
-                                 blocks);
+    return pt_flash_cc_occupancy(D, dtype, kind, smem, blocks);
   if (dtype == 1 && D == 64)
     return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<64>,
                                  sizeof(DqSmem<64>) + 1024, smem, blocks)

@@ -30,7 +30,7 @@ from . import io as fluid_io
 from .core.executor import Executor, Scope, scope_guard, to_device, to_numpy
 from .core.framework import CPUPlace, CUDAPlace, require_cuda
 
-__all__ = ['AnalysisConfig', 'Predictor']
+__all__ = ['AnalysisConfig', 'Predictor', 'create_paddle_predictor']
 
 
 class AnalysisConfig(object):
@@ -113,6 +113,11 @@ class Predictor(object):
 
     __call__ = run
 
+
+
+def create_paddle_predictor(config):
+    """A Predictor over `config` (the fluid CreatePaddlePredictor)."""
+    return Predictor(config)
 
 
 def _fetch_numpy(t):

@@ -4,7 +4,10 @@
 adds one where it launches its kernel and nowhere else, so a run can show
 that its path went through the kernels (chip_smoke.py reads it).
 `kernelgen_segment` counts the launches of every generated segment
-(ops/kernelgen); `ops.kernelgen.launches` has them by function.  A CUDA
+(ops/kernelgen); `ops.kernelgen.launches` has them by function.
+`flash_attention_composed` counts the calls that route a head dim no
+flash kernel tiles to the composed attention (ops/attention.py), on any
+device: a route, not a kernel.  A CUDA
 graph's replay runs no Python: core/graphs.py takes back the counts its
 capture made and adds them once a replay, so the counts stay the
 launches the device ran.
@@ -15,8 +18,9 @@ __all__ = ['library', 'launches', 'reset_launches', 'check']
 
 launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'embedding_gather': 0,
-            'layer_norm': 0, 'adam_multi': 0, 'softmax': 0,
-            'kernelgen_segment': 0}
+            'layer_norm': 0, 'adam_multi': 0, 'adam_multi_bf16': 0,
+            'softmax': 0,
+            'kernelgen_segment': 0, 'flash_attention_composed': 0}
 
 
 def reset_launches():

@@ -158,13 +158,24 @@ def _bind(lib):
     lib.pt_flash_bwd_dq.restype = i
     lib.pt_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 8 + [f, p]
     lib.pt_flash_bwd_dkv.restype = i
+    lib.pt_flash_cc_fwd.argtypes = lib.pt_flash_fwd.argtypes
+    lib.pt_flash_cc_fwd.restype = i
+    lib.pt_flash_cc_bwd_dq.argtypes = lib.pt_flash_bwd_dq.argtypes
+    lib.pt_flash_cc_bwd_dq.restype = i
+    lib.pt_flash_cc_bwd_dkv.argtypes = lib.pt_flash_bwd_dkv.argtypes
+    lib.pt_flash_cc_bwd_dkv.restype = i
     lib.pt_flash_bwd_occupancy.argtypes = [i, i, i, p, p]
     lib.pt_flash_bwd_occupancy.restype = i
+    lib.pt_flash_cc_occupancy.argtypes = [i, i, i, p, p]
+    lib.pt_flash_cc_occupancy.restype = i
     lib.pt_layer_norm.argtypes = [p] * 6 + [ctypes.c_longlong, i, f, i, i,
                                             p]
     lib.pt_layer_norm.restype = i
     lib.pt_adam_multi.argtypes = [p, p, i, i, f, f, f, f, f, p]
     lib.pt_adam_multi.restype = i
+    lib.pt_adam_multi_bf16.argtypes = [p, p, i, i, f, f, f, f, f, i, i, i,
+                                       i, p]
+    lib.pt_adam_multi_bf16.restype = i
     lib.pt_softmax.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.pt_softmax.restype = i
     lib.pt_error_string.argtypes = [i]

@@ -6,8 +6,10 @@ from . import io
 from .io import *  # noqa: F401,F403
 from . import tensor
 from .tensor import *  # noqa: F401,F403
+from . import ops
+from .ops import *  # noqa: F401,F403
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *  # noqa: F401,F403
 
-__all__ = nn.__all__ + io.__all__ + tensor.__all__ + \
+__all__ = nn.__all__ + io.__all__ + tensor.__all__ + ops.__all__ + \
     learning_rate_scheduler.__all__

@@ -14,7 +14,8 @@ __all__ = [
     'fc', 'embedding', 'transpose', 'reshape', 'squeeze', 'unsqueeze',
     'slice', 'split', 'scale', 'relu', 'reduce_sum', 'elementwise_add',
     'elementwise_sub', 'elementwise_mul', 'elementwise_div',
-    'elementwise_min', 'elementwise_pow', 'swish', 'flash_attention',
+    'elementwise_min', 'elementwise_pow', 'elementwise_max', 'clip',
+    'clip_by_norm', 'swish', 'flash_attention',
     'rms_norm', 'rope', 'sample_tokens', 'layer_norm',
     'softmax_with_cross_entropy', 'add_position_encoding',
     'autoincreased_step_counter', 'softmax', 'dropout', 'matmul',
@@ -269,6 +270,18 @@ def elementwise_min(x, y, axis=-1, act=None, name=None):
 
 def elementwise_pow(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_pow', x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_max', x, y, axis, act, name)
+
+
+def clip(x, min, max, name=None):
+    return _simple('clip', x, {'min': float(min), 'max': float(max)}, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _simple('clip_by_norm', x, {'max_norm': float(max_norm)}, name)
 
 
 def swish(x, beta=1.0, name=None):

@@ -1,7 +1,7 @@
 """Tensor creation layers the training slice uses.
 
 Counterpart of paddle_tpu/layers/tensor.py: create_global_var, cast,
-assign (of a Variable, or of a numpy array as `assign_value`),
+sums, assign (of a Variable, or of a numpy array as `assign_value`),
 fill_constant and fill_constant_batch_size_like.
 """
 import numpy as np
@@ -11,7 +11,7 @@ from ..core.dtypes import dtype_str
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 
-__all__ = ['create_global_var', 'cast', 'assign', 'fill_constant',
+__all__ = ['create_global_var', 'cast', 'sums', 'assign', 'fill_constant',
            'fill_constant_batch_size_like']
 
 
@@ -32,6 +32,15 @@ def cast(x, dtype):
     helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
                      attrs={'in_dtype': x.dtype,
                             'out_dtype': dtype_str(dtype)})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper('sum')
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type='sum', inputs={'X': input}, outputs={'Out': out},
+                     attrs={})
     return out
 
 

@@ -5,20 +5,27 @@ functions and parameter names, so `generation_program` builds the same
 program desc in both packages and a scope trained or initialized by one
 serves in the other.  RMSNorm pre-norm, rotary position embeddings,
 grouped-query attention (flash_attention, the hand-written CUDA kernel on
-the card), SwiGLU FFN, no biases.  `make_decoder`, `generation_weights`
-and `make_streaming_runtime` decode over the weights a llama program left
-in the port's scope (serving/generation).  Not ported yet: the training
-`llama` / `build` and `shard`.
+the card), SwiGLU FFN, no biases.  `llama` builds the training forward and
+loss, `build` adds Adam behind a global-norm gradient clip (1.0 by default),
+`make_batch` packs next-token batches.  `make_decoder`,
+`generation_weights` and `make_streaming_runtime` decode over the weights
+a llama program left in the port's scope (serving/generation), so a scope
+the training program wrote serves unchanged.  Single device only: the
+ring attention (`use_ring=True`) and `shard`'s tensor-parallel layout
+raise (ROADMAP A7).
 """
+import numpy as np
 import torch
 
 from .. import layers
 from ..initializer import Normal
 from ..param_attr import ParamAttr
 
-__all__ = ['CONFIGS', 'generation_program', 'decoder_layer', 'attention',
-           'swiglu_ffn', 'make_decoder', 'generation_weights',
-           'make_streaming_runtime']
+__all__ = ['CONFIGS', 'llama', 'build', 'make_batch', 'shard',
+           'generation_program', 'decoder_layer', 'attention', 'swiglu_ffn',
+           'make_decoder', 'generation_weights', 'make_streaming_runtime']
+
+_ROADMAP_A7 = 'the parallel stack is not ported yet: ROADMAP A7'
 
 CONFIGS = {
     'llama3_8b': dict(vocab=128256, d_model=4096, n_layer=32, n_head=32,
@@ -73,6 +80,80 @@ def decoder_layer(x, cfg, name):
     x = layers.elementwise_add(x, attention(h, cfg, name + '_att'))
     h = layers.rms_norm(x, param_attr=ParamAttr(name=name + '_ffn_norm'))
     return layers.elementwise_add(x, swiglu_ffn(h, cfg, name + '_ffn'))
+
+
+def llama(config='tiny', use_ring=False, dtype='float32', **overrides):
+    """Build the forward + loss.  Feeds: tokens [B, T, 1] int64 (inputs),
+    labels [B, T, 1] int64 (shifted targets), loss_mask [B, T] float32.
+    `dtype='bfloat16'` makes every parameter bf16 (the embedding table's
+    dtype flows through the layers); the logits are cast to float32 for
+    the loss."""
+    if use_ring:
+        raise NotImplementedError('llama(use_ring=True): ' + _ROADMAP_A7)
+    cfg = _config(config, overrides)
+    T, V, D = cfg['max_len'], cfg['vocab'], cfg['d_model']
+
+    tokens = layers.data('tokens', shape=[T, 1], dtype='int64')
+    labels = layers.data('labels', shape=[T, 1], dtype='int64')
+    loss_mask = layers.data('loss_mask', shape=[T], dtype='float32')
+
+    x = layers.embedding(
+        tokens, size=[V, D],
+        param_attr=ParamAttr(name='tok_emb', initializer=Normal(0., 0.02)),
+        dtype=dtype)
+    for i in range(cfg['n_layer']):
+        x = decoder_layer(x, cfg, 'layer_%d' % i)
+    x = layers.rms_norm(x, param_attr=ParamAttr(name='final_norm'))
+    logits = _linear(x, V, 'lm_proj')                    # [B, T, V]
+    if dtype != 'float32':
+        logits = layers.cast(logits, 'float32')
+
+    per_tok = layers.softmax_with_cross_entropy(logits, labels)  # [B,T,1]
+    per_tok = layers.elementwise_mul(
+        layers.squeeze(per_tok, axes=[2]), loss_mask)
+    sum_cost = layers.reduce_sum(per_tok)
+    token_num = layers.reduce_sum(loss_mask)
+    loss = layers.elementwise_div(sum_cost, token_num)
+    return {'loss': loss, 'logits': logits, 'sum_cost': sum_cost,
+            'token_num': token_num,
+            'feeds': [tokens, labels, loss_mask], 'config': cfg}
+
+
+def build(config='tiny', use_ring=False, dtype='float32', lr=3e-4,
+          grad_clip=1.0, is_train=True, **overrides):
+    """`llama` plus, when training, Adam (beta2 0.95) behind a gradient
+    clip by global norm `grad_clip` (none when 0)."""
+    from .. import clip
+    from ..optimizer import Adam
+    out = llama(config, use_ring, dtype, **overrides)
+    opt = None
+    if is_train:
+        if grad_clip:
+            clip.set_gradient_clip(clip.GradientClipByGlobalNorm(grad_clip))
+        opt = Adam(learning_rate=lr, beta1=0.9, beta2=0.95, epsilon=1e-8)
+        opt.minimize(out['loss'])
+    out['optimizer'] = opt
+    return out
+
+
+def shard(main_program):
+    """The tensor-parallel layout of the JAX package's `shard`."""
+    raise NotImplementedError('llama.shard: ' + _ROADMAP_A7)
+
+
+def make_batch(token_rows, max_len):
+    """Pack next-token-prediction batches from rows of token ids."""
+    B = len(token_rows)
+    toks = np.zeros((B, max_len, 1), 'int64')
+    lbls = np.zeros((B, max_len, 1), 'int64')
+    mask = np.zeros((B, max_len), 'float32')
+    for i, row in enumerate(token_rows):
+        row = np.asarray(row)[:max_len + 1]
+        n = len(row) - 1
+        toks[i, :n, 0] = row[:-1]
+        lbls[i, :n, 0] = row[1:]
+        mask[i, :n] = 1.0
+    return {'tokens': toks, 'labels': lbls, 'loss_mask': mask}
 
 
 def generation_program(config='tiny', mode='decode', temperature=0.0,
@@ -141,7 +222,7 @@ def make_decoder(scope, config='tiny', temperature=0.0, **overrides):
     import numpy as np
     from ..ops.attention import cached_attention
     from ..ops.sampling import sample_tokens_at
-    from ..serving.generation.decode import (_embed, _ffn, _qkv, _rms,
+    from ..serving.generation.decode import (_embed, _ffn, _mm, _qkv, _rms,
                                              _rope, _rope_freqs,
                                              _rope_tables, weight_names)
 
@@ -166,10 +247,10 @@ def make_decoder(scope, config='tiny', temperature=0.0, **overrides):
             kc[i, :, :, start:start + T] = _rope(k, cos, sin)
             vc[i, :, :, start:start + T] = v
             att = cached_attention(q, kc[i], vc[i], pos)
-            x = x + att.transpose(1, 2).reshape(B, T, D) @ \
-                w['layer_%d_att_o_w' % i]
+            x = x + _mm(att.transpose(1, 2).reshape(B, T, D),
+                        w['layer_%d_att_o_w' % i])
             x = _ffn(w, x, i)
-        return _rms(x, w['final_norm']) @ w['lm_proj_w']
+        return _mm(_rms(x, w['final_norm']), w['lm_proj_w'])
 
     def pick(logits, seed, position):
         B = logits.shape[0]

@@ -23,7 +23,13 @@ reference computes them in jnp outside any Pallas kernel.
 
 There are no size gates: `_FWD_PALLAS_MIN_T` and `_BWD_PALLAS_SCORE_BYTES`
 were measured on a TPU and say nothing about this card, so every shape the
-kernels take goes to the kernels.
+kernels take goes to the kernels.  The head dim picks the kernels: D = 64
+and 128 run the tensor-core kernels (but the float32 backward at D = 128,
+which runs on CUDA cores), every other multiple of 8 up to 256 the
+CUDA-core kernels of csrc/flash_cc.cu (same wrappers, same launch
+counts); a head dim off the multiples of 8 takes `composed_attention`,
+the reference's composed path, on purpose and counted
+(`flash_attention`).
 """
 import torch
 
@@ -32,6 +38,17 @@ from ..core.registry import register
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# head dims of the tensor-core kernels (csrc/flash_fwd.cu, flash_bwd.cu);
+# every other multiple of 8 up to _MAX_D runs csrc/flash_cc.cu
+_WGMMA_D = (64, 128)
+_MAX_D = 256
+
+
+def _tensor_core_bwd(D, dtype):
+    """Whether csrc/flash_bwd.cu takes the backward: its 3xTF32 float32
+    layout fits a block's shared memory at D = 64 only, so float32 at
+    D = 128 runs csrc/flash_cc.cu's CUDA-core instance."""
+    return D == 64 or (D == 128 and dtype == torch.bfloat16)
 
 
 def _ref_attention(q, k, v, causal, scale, k_len=None):
@@ -86,9 +103,10 @@ def _check_qkv(q, k, v):
     if H % Hkv:
         raise ValueError('flash attention: H=%d is not a multiple of Hkv=%d'
                          % (H, Hkv))
-    if D not in (64, 128):
-        raise ValueError('flash attention kernel takes head dims 64 and 128, '
-                         'got %d' % D)
+    if D % 8 or D > _MAX_D:
+        raise ValueError('flash attention kernels take head dims that are '
+                         'multiples of 8 up to %d, got %d (ROADMAP C3)'
+                         % (_MAX_D, D))
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError('flash attention kernel takes float32 or bfloat16 '
@@ -121,7 +139,9 @@ def _launch_flash(q, k, v, causal, scale, k_len):
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernels.library().pt_flash_fwd(
+        entry = kernels.library().pt_flash_fwd if D in _WGMMA_D else \
+            kernels.library().pt_flash_cc_fwd
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
             _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale), stream)
@@ -169,12 +189,14 @@ def flash_backward_reference(q, k, v, k_len, out, lse, dout, causal, scale):
 
 
 def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
-    """csrc/flash_bwd.cu dQ on arguments _launch_flash_bwd checked."""
+    """The dQ kernel on arguments _launch_flash_bwd checked."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = kernels.library().pt_flash_bwd_dq(
+        entry = kernels.library().pt_flash_bwd_dq if _tensor_core_bwd(
+            D, q.dtype) else kernels.library().pt_flash_cc_bwd_dq
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
             B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
@@ -185,13 +207,15 @@ def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
 
 
 def _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale):
-    """csrc/flash_bwd.cu dK/dV on arguments _launch_flash_bwd checked."""
+    """The dK/dV kernel on arguments _launch_flash_bwd checked."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        rc = kernels.library().pt_flash_bwd_dkv(
+        entry = kernels.library().pt_flash_bwd_dkv if _tensor_core_bwd(
+            D, q.dtype) else kernels.library().pt_flash_cc_bwd_dkv
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype],
@@ -258,11 +282,43 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def composed_attention(q, k, v, causal, scale, k_len=None):
+    """The JAX package's composed `_ref_attention`, differentiated by
+    autograd: the route of the head dims no flash kernel tiles (D % 8 !=
+    0), as the reference routes them.  Scores in float32, masked with
+    -1e30 (a row with no valid key averages V, as the reference's does),
+    the softmax weights in v's dtype for the product, the output in q's."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, Tq, D)
+    s = torch.einsum('bhgqd,bhkd->bhgqk', qg.float(), k.float()) * scale
+    valid = _valid_mask(B, Tq, Tk, causal, k_len, q.device)
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum('bhgqk,bhkd->bhgqd', w.float(), v.float())
+    return out.reshape(B, H, Tq, D).to(q.dtype)
+
+
 def flash_attention(q, k, v, causal=False, scale=None, k_len=None):
     """q: [B, H, Tq, D]; k/v: [B, Hkv, Tk, D]; k_len: optional int32 [B].
-    Differentiable w.r.t. q, k and v."""
+    Differentiable w.r.t. q, k and v.
+
+    The route by head dim, on every device: D = 64 or 128, the tensor-core
+    kernels; any other multiple of 8 up to 256, the CUDA-core kernels
+    (csrc/flash_cc.cu); D % 8 != 0, `composed_attention`, counted as
+    `kernels.launches['flash_attention_composed']`, as the JAX package
+    routes the shapes its Pallas kernel does not tile; a larger multiple
+    of 8 raises (ROADMAP C3).  On the CPU the kernels' plain versions
+    run."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    D = q.shape[-1]
+    if D % 8:
+        kernels.launches['flash_attention_composed'] += 1
+        return composed_attention(q, k, v, causal, scale, k_len)
+    if D > _MAX_D:
+        raise ValueError('flash attention: head dim %d is above the %d the '
+                         'kernels take (ROADMAP C3)' % (D, _MAX_D))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
         if k_len is None:

@@ -56,6 +56,15 @@ __device__ __forceinline__ float kg_rbf(float x) {
 __device__ __forceinline__ float kg_nanmin(float a, float b) {
   return a != a ? a : (b != b ? b : fminf(a, b));
 }
+__device__ __forceinline__ float kg_nanmax(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float kg_clamp(float a, float lo, float hi) {
+  return a != a ? a : fminf(fmaxf(a, lo), hi);
+}
+__device__ __forceinline__ float kg_sign(float a) {
+  return (a != a || a == 0.f) ? a : (a > 0.f ? 1.f : -1.f);
+}
 __device__ __forceinline__ float kg_relu(float a) {
   return a != a ? a : fmaxf(a, 0.f);
 }
@@ -291,10 +300,11 @@ def _run_adam(st, mats, ctx):
     for slot in ('Param', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow'):
         cols[slot] = [t if ip else t.clone()
                       for t, ip in zip(cols[slot], in_place)]
-    adam_multi(cols['Param'], cols['Grad'], cols['Moment1'], cols['Moment2'],
-               cols['Beta1Pow'], cols['Beta2Pow'], cols['LearningRate'],
-               *gkey, cache=getattr(ctx, 'cache', None),
-               recorder=getattr(ctx, 'recorder', None))
+    (cols['Param'], cols['Moment1'], cols['Moment2']) = adam_multi(
+        cols['Param'], cols['Grad'], cols['Moment1'], cols['Moment2'],
+        cols['Beta1Pow'], cols['Beta2Pow'], cols['LearningRate'],
+        *gkey, cache=getattr(ctx, 'cache', None),
+        recorder=getattr(ctx, 'recorder', None))
     for k, ob in enumerate(outs):
         for oslot, mid in ob.items():
             mats[mid] = cols[oslot[:-3]][k]

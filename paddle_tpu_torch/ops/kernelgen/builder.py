@@ -30,18 +30,23 @@ A generated kernel, for Hopper:
 * one thread per output element (V = 4 consecutive elements per thread,
   with 128-bit loads and stores of float32, when every flat-indexed
   operand and output is 16-byte aligned and every size divides by 4;
-  else V = 1), grid-stride;
+  else V = 1), one pass over the largest group, no grid-stride loop (a
+  loop keeps every pointer live across it: a global-norm clip's segment
+  holds ~300 and spilled them);
 * values are grouped by flat element count N_g; an op of group g runs
-  under `i < N_g`; size-1 values are computed by every thread and stored
-  by thread 0, so a scalar chain (the noam learning rate) costs nothing
-  to broadcast;
+  under `i < N_g`; size-1 values are computed first by every thread
+  and stored by thread 0, so a scalar chain (the noam learning rate, a
+  clip's global norm) costs nothing to broadcast;
 * a broadcast operand (the (2048,) FFN bias, the [B, 1, 1, T] padding
   mask against [B, H, T, T] scores) is read at an index computed from
   the output's multi-index, with shapes and strides baked into the
   source as constants; the reference had to materialize the non-suffix
   case as glue (`_flat_compatible`);
 * intermediates live in registers; only values read after the segment,
-  or returned, are stored;
+  or returned, are stored; an op loads its flat operands where it first
+  reads them and stores what escapes right after it, so a thread holds
+  about one op's registers at a time (a global-norm clip is one op per
+  parameter: 147 in llama_1b's segment);
 * each sub-op's result is rounded to the dtype its plain version
   produces before the next sub-op reads it (rules.py), so a generated
   kernel computes what the unfused ops compute.
@@ -58,6 +63,7 @@ attention are not recomputed.  Per-output stop_gradient applies as on
 the replay path.
 """
 import hashlib
+import re
 
 import torch
 
@@ -667,14 +673,44 @@ def _emit_segment(s, esc):
     ptrs = [(e[2], True) for e in s.entries] + \
         [(s.key_aval[k][1], False) for k in esc]
     reg = {}                   # root key -> register array name
+    esc_of = {}                # root key -> positions in esc
+    for j, k in enumerate(esc):
+        esc_of.setdefault(s.keys[k], []).append(j)
 
     def reg_of(k):
         if k not in reg:
             reg[k] = 'R%d' % len(reg)
         return reg[k]
 
-    body = []
+    # One pass, no grid-stride loop (a loop would keep every pointer live
+    # across it).  Size-1 ops come first; then each group under one
+    # `base < N_g` test, the largest first.  Groups are independent: an op
+    # reads values of its own size or of size 1 (_build_plan flushes
+    # before any other read).  In a group every element a thread holds is
+    # in range (V = 4 only when every N_g divides by 4).  Each op takes
+    # its pointers and loads its flat operands where it first reads them
+    # and stores what escapes right after it, so a thread holds about one
+    # op's registers at a time.
+    pre, by_g, named, loaded = [], {}, {}, set()
+
+    def ptr(k, dst, ind):
+        # declared where first used in its block: outputs are new tensors
+        # (kernelgen._launch), so no pointer aliases one that is written
+        seen = named.setdefault(id(dst), set())
+        if k not in seen:
+            seen.add(k)
+            c = _c_ptr(*ptrs[k])
+            dst.append('%s%s __restrict__ P%d = (%s)a.p[%d];'
+                       % (ind, c, k, c, k))
+        return 'P%d' % k
+
+    for ix, (mid, kind, dt, idx) in enumerate(s.entries):
+        if kind == 'scalar':
+            pre.append('  const %s S%d = kg_ld(%s, 0);'
+                       % (_C_VAL[dt], ix, ptr(ix, pre, '  ')))
     for sub, rule, in_ops, out_keys, g, _ in s.ops:
+        dst = pre if g == 1 else by_g.setdefault(g, [])
+        ind = '  ' if g == 1 else '    '
         ins = {}
         for slot, ods in in_ops.items():
             exprs = []
@@ -687,10 +723,16 @@ def _emit_segment(s, esc):
                     _, kind, frm, idx = s.entries[ix]
                     if kind == 'tile':
                         e = 'E%d[j]' % ix
+                        if ix not in loaded:
+                            loaded.add(ix)
+                            p = ptr(ix, dst, ind)
+                            dst += ['%s%s E%d[V];' % (ind, _C_VAL[frm], ix),
+                                    '%skg_ldv<V>(E%d, %s, base);'
+                                    % (ind, ix, p)]
                     elif kind == 'scalar':
-                        e = 'kg_ld(P%d, 0)' % ix
+                        e = 'S%d' % ix
                     else:
-                        e = 'kg_ld(P%d, %s)' % (ix, idx)
+                        e = 'kg_ld(%s, %s)' % (ptr(ix, dst, ind), idx)
                 if frm != dt:
                     # the AMP match policy casts this operand first
                     e = to_dtype(e, frm, dt)
@@ -702,53 +744,40 @@ def _emit_segment(s, esc):
             res = rule.emit(ins, sub['attrs'], outs)
         except Unsupported as e:
             raise KernelgenUnsupported(sub['type'], str(e))
-        guard = '' if g == 1 else 'if (i < %dLL) ' % g
         stmts = []
         for slot, ks in out_keys.items():
             for k, e in zip(ks, res[slot]):
+                dst.append('%s%s %s[V];' % (ind, _C_VAL[s.key_aval[k][1]],
+                                            reg_of(k)))
                 stmts.append('%s[j] = %s;' % (reg_of(k), e))
-        body.append('      %s{ %s }  // %s' % (guard, ' '.join(stmts),
-                                              sub['type']))
+        dst += ['#pragma unroll', '%sfor (int j = 0; j < V; ++j) {' % ind]
+        if re.search(r'\bi\b', ' '.join(stmts)):
+            # the flat index a broadcast operand's index expression reads
+            dst.append('%s  const long long i = base + j;' % ind)
+        dst += ['%s  %s  // %s' % (ind, ' '.join(stmts), sub['type']),
+                '%s}' % ind]
+        for ks in out_keys.values():
+            for k in ks:
+                for j in esc_of.get(k, ()):
+                    p = ptr(n_in + j, dst, ind)
+                    if g > 1:
+                        dst.append('%skg_stv<V>(%s, base, %s);'
+                                   % (ind, p, reg_of(k)))
+                    else:
+                        dst.append('  if (blockIdx.x == 0 && threadIdx.x == '
+                                   '0) kg_st(%s, 0, %s[0]);' % (p, reg_of(k)))
 
     lines = ['struct @NAME@_args { void* p[%d]; };' % max(len(ptrs), 1),
              'template <int V>',
              '__global__ void __launch_bounds__(%d)' % THREADS,
-             '@NAME@(@NAME@_args a, long long n_max) {',
-             '  const long long stride = (long long)gridDim.x * '
-             'blockDim.x * V;',
-             '  for (long long base = ((long long)blockIdx.x * blockDim.x'
+             '@NAME@(@NAME@_args a) {',
+             '  const long long base = ((long long)blockIdx.x * blockDim.x'
              ' + threadIdx.x) * V;',
-             '       base < n_max; base += stride) {']
-    for k, (dt, const) in enumerate(ptrs):
-        lines.append('    %s P%d = (%s)a.p[%d];'
-                     % (_c_ptr(dt, const), k, _c_ptr(dt, const), k))
-    for ix, (mid, kind, dt, idx) in enumerate(s.entries):
-        if kind != 'tile':
-            continue
-        n = _entry_group(s, ix)
-        lines.append('    %s E%d[V];' % (_C_VAL[dt], ix))
-        lines.append('    if (base < %dLL) kg_ldv<V>(E%d, P%d, base);'
-                     % (n, ix, ix))
-    for k, name in sorted(reg.items(), key=lambda kv: int(kv[1][1:])):
-        lines.append('    %s %s[V];' % (_C_VAL[s.key_aval[k][1]], name))
-    lines.append('#pragma unroll')
-    lines.append('    for (int j = 0; j < V; ++j) {')
-    lines.append('      const long long i = base + j;')
-    lines.append('      (void)i;')
-    lines += body
-    lines.append('    }')
-    for j, k in enumerate(esc):
-        shape, dt = s.key_aval[k]
-        n = _size(shape)
-        p = n_in + j
-        r = reg_of(s.keys[k])
-        if n > 1:
-            lines.append('    if (base < %dLL) kg_stv<V>(P%d, base, %s);'
-                         % (n, p, r))
-        else:
-            lines.append('    if (base == 0) kg_st(P%d, 0, %s[0]);'
-                         % (p, r))
-    lines += ['  }', '}', '',
+             '  (void)base;']
+    lines += pre
+    for g in sorted(by_g, reverse=True):
+        lines += ['  if (base < %dLL) {' % g] + by_g[g] + ['  }']
+    lines += ['}', '',
               'extern "C" int @NAME@_launch(void* const* ptrs, '
               'long long n_max, int vec, void* stream) {',
               '  @NAME@_args a;',
@@ -756,25 +785,14 @@ def _emit_segment(s, esc):
               '  const long long per = (long long)%d * (vec == 4 ? 4 : 1);'
               % THREADS,
               '  long long blocks = (n_max + per - 1) / per;',
-              '  if (blocks > 132 * 64) blocks = 132 * 64;',
               '  if (blocks < 1) blocks = 1;',
               '  cudaStream_t s = (cudaStream_t)stream;',
               '  if (vec == 4)',
-              '    @NAME@<4><<<(unsigned)blocks, %d, 0, s>>>(a, n_max);'
+              '    @NAME@<4><<<(unsigned)blocks, %d, 0, s>>>(a);'
               % THREADS,
               '  else',
-              '    @NAME@<1><<<(unsigned)blocks, %d, 0, s>>>(a, n_max);'
+              '    @NAME@<1><<<(unsigned)blocks, %d, 0, s>>>(a);'
               % THREADS,
               '  return (int)cudaGetLastError();',
               '}', '']
     return '\n'.join(lines)
-
-
-def _entry_group(s, ix):
-    """Flat size of the group a 'tile' entry is read in."""
-    for sub, rule, in_ops, out_keys, g, _ in s.ops:
-        for ods in in_ops.values():
-            for od, _, _ in ods:
-                if od[0] == 'ref' and od[1] == ix:
-                    return g
-    raise AssertionError('unread entry')

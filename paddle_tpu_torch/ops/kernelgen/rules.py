@@ -139,11 +139,13 @@ _F_BIN = {'elementwise_add': '__fadd_rn(%s, %s)',
           'elementwise_mul': '__fmul_rn(%s, %s)',
           'elementwise_div': '__fdiv_rn(%s, %s)',
           'elementwise_pow': 'powf(%s, %s)',
-          'elementwise_min': 'kg_nanmin(%s, %s)'}
+          'elementwise_min': 'kg_nanmin(%s, %s)',
+          'elementwise_max': 'kg_nanmax(%s, %s)'}
 _I_BIN = {'elementwise_add': '(%s + %s)',
           'elementwise_sub': '(%s - %s)',
           'elementwise_mul': '(%s * %s)',
-          'elementwise_min': 'min(%s, %s)'}
+          'elementwise_min': 'min(%s, %s)',
+          'elementwise_max': 'max(%s, %s)'}
 
 
 def _binary(name):
@@ -163,11 +165,13 @@ for _name in _F_BIN:
 
 
 def _scale(ins, attrs, outs):
-    # ops/math.py scale: x * s + b (or (x + b) * s), then .to(x.dtype)
+    # ops/math.py scale: the bias in x's dtype first, x * s + b (or
+    # (x + b) * s), then .to(x.dtype)
     x, dx = ins['X'][0]
     md = _scalar_dt(dx)
     s = float_lit(attrs.get('scale', 1.0))
-    b = float_lit(attrs.get('bias', 0.0))
+    b = float_lit(torch.tensor(attrs.get('bias', 0.0)).to(
+        getattr(torch, dx)).item())
     xf = _f(x, dx)
     if attrs.get('bias_after_scale', True):
         t = _rnd('__fmul_rn(%s, %s)' % (xf, s), md)
@@ -211,6 +215,25 @@ def _swish(ins, attrs, outs):
     return {'Out': [_rnd('__fmul_rn(%s, %s)' % (x, sg), dx)]}
 
 
+def _unary_float(fn):
+    # one PyTorch operation of a float tensor: float32 math, rounded to
+    # the output's dtype
+    def emit(ins, attrs, outs):
+        x, dx = ins['X'][0]
+        if dx not in FLOAT_DTYPES:
+            raise Unsupported('float op on %s' % dx)
+        return {'Out': [_rnd(fn(x, attrs), outs['Out'][0])]}
+    return emit
+
+
+def _sign(ins, attrs, outs):
+    # ops/math.py _sign: NaN and zeros pass through, else +-1
+    x, dx = ins['X'][0]
+    if dx == 'int32':
+        return {'Out': ['((%s) > 0) - ((%s) < 0)' % (x, x)]}
+    return {'Out': ['kg_sign(%s)' % _f(x, dx)]}
+
+
 def _assign(ins, attrs, outs):
     return {'Out': [ins['X'][0][0]]}
 
@@ -245,6 +268,12 @@ _r('scale', emit=_scale)
 _r('cast', emit=_cast)
 _r('increment', emit=_increment)
 _r('relu', emit=_relu)
+_r('square', emit=_unary_float(lambda x, a: '__fmul_rn(%s, %s)' % (x, x)))
+_r('sqrt', emit=_unary_float(lambda x, a: '__fsqrt_rn(%s)' % x))
+_r('sign', emit=_sign)
+# torch.clamp with Python bounds: float32 bounds, NaN passes through
+_r('clip', emit=_unary_float(lambda x, a: 'kg_clamp(%s, %s, %s)' % (
+    x, float_lit(a['min']), float_lit(a['max']))))
 _r('swish', emit=_swish)
 _r('assign', emit=_assign)
 _r('fill_constant', emit=_fill)

@@ -19,11 +19,22 @@ import torch
 from ..core.registry import register
 
 
+def _target(logits, lab):
+    """The label's logit as `take_along_axis` reads it: a negative label
+    wraps once, a label still out of range gives NaN.  The gather's index
+    is clamped first, so no device-side assert fires on the card."""
+    V = logits.shape[-1]
+    lab = lab.long()
+    wrapped = torch.where(lab < 0, lab + V, lab)
+    inside = (wrapped >= 0) & (wrapped < V)
+    tgt = logits.gather(-1, wrapped.clamp(0, V - 1)).float()
+    return torch.where(inside, tgt, torch.full_like(tgt, float('nan')))
+
+
 def _ce_forward(logits, lab, eps, ignore):
     x = logits.float()
     lse = torch.logsumexp(x, dim=-1, keepdim=True)
-    safe = torch.where(lab == ignore, torch.zeros_like(lab), lab).long()
-    tgt = logits.gather(-1, safe).float()
+    tgt = _target(logits, lab)
     if eps:
         loss = lse - (1.0 - eps) * tgt - eps * x.mean(dim=-1, keepdim=True)
     else:
@@ -47,11 +58,13 @@ class _HardCE(torch.autograd.Function):
         d = torch.exp(logits.float() - lse)
         if eps:
             d.sub_(eps / V)
-        ignored = lab == ignore
-        safe = torch.where(ignored, torch.zeros_like(lab), lab).long()
-        d.scatter_add_(-1, safe, torch.full(safe.shape, -(1.0 - eps),
-                                            device=d.device))
-        gz = torch.where(ignored, torch.zeros_like(g), g.float())
+        # the reference's one-hot is arange(V) == label: a label outside
+        # [0, V) (wrapped in the forward or not) subtracts nothing
+        inside = (lab >= 0) & (lab < V)
+        d.scatter_add_(-1, torch.where(inside, lab, torch.zeros_like(lab))
+                       .long(), torch.where(inside, -(1.0 - eps), 0.0)
+                       .to(d.dtype))
+        gz = torch.where(lab == ignore, torch.zeros_like(g), g.float())
         return (gz * d).to(logits.dtype), None, None, None
 
 

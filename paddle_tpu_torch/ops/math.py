@@ -1,8 +1,9 @@
 """Elementwise, activation and matrix-product ops.
 
 Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
-`axis` broadcast rule, relu, swish, scale, cast, increment, reduce_sum,
-mul and matmul, each with the JAX impl's semantics on tensors.  A large
+`axis` broadcast rule, relu, square, sqrt, sign, swish, scale, clip,
+clip_by_norm, cast, increment, reduce_sum, sum, mul and matmul, each with
+the JAX impl's semantics on tensors.  A large
 matrix product stays `torch.matmul`, as the JAX package left it to XLA;
 float32 products run in full float32 (TF32 off, PyTorch's default).
 """
@@ -38,8 +39,26 @@ _ew('elementwise_add', torch.add)
 _ew('elementwise_sub', torch.sub)
 _ew('elementwise_mul', torch.mul)
 _ew('elementwise_div', torch.div)
+_ew('elementwise_max', torch.maximum)
 _ew('elementwise_min', torch.minimum)
 _ew('elementwise_pow', torch.pow)
+
+
+def _unary(name, fn):
+    @register(name)
+    def impl(ctx, ins, attrs):
+        return {'Out': fn(ins['X'])}
+    return impl
+
+
+def _sign(x):
+    # jnp.sign: NaN stays NaN and a zero keeps its sign (torch.sign gives 0)
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
+
+_unary('square', torch.square)
+_unary('sqrt', torch.sqrt)
+_unary('sign', _sign)
 
 
 @register('relu')
@@ -52,12 +71,36 @@ def scale(ctx, ins, attrs):
     s = attrs.get('scale', 1.0)
     b = attrs.get('bias', 0.0)
     x = ins['X']
+    # the bias takes x's dtype first, as jnp.asarray(b, x.dtype) does: an
+    # int32 x with bias 1.5 adds 1
+    b = torch.tensor(b).to(x.dtype).item()
     if attrs.get('bias_after_scale', True):
         out = x * s + b
     else:
         out = (x + b) * s
     # the dtype is preserved (an int counter stays int)
     return {'Out': out.to(x.dtype)}
+
+
+@register('clip')
+def clip(ctx, ins, attrs):
+    return {'Out': torch.clamp(ins['X'], attrs['min'], attrs['max'])}
+
+
+@register('clip_by_norm')
+def clip_by_norm(ctx, ins, attrs):
+    # x * min(max_norm / max(||x||, 1e-12), 1), in x's dtype, each Python
+    # scalar first in x's dtype as jnp takes it (a 0-d host tensor, which
+    # a CUDA op reads as a scalar: no copy, so a graph capture takes it)
+    x = ins['X']
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.minimum(c(attrs['max_norm']) / torch.maximum(norm,
+                                                               c(1e-12)),
+                          c(1.0))
+    return {'Out': x * scale}
 
 
 @register('cast')
@@ -92,10 +135,28 @@ def reduce_sum(ctx, ins, attrs):
     return {'Out': out}
 
 
+@register('sum')
+def sum_op(ctx, ins, attrs):
+    # left to right, each add promoting as jnp's `+` does
+    xs = ins['X']
+    xs = xs if isinstance(xs, (list, tuple)) else [xs]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {'Out': out}
+
+
 @register('swish')
 def swish(ctx, ins, attrs):
     x = ins['X']
     return {'Out': x * torch.sigmoid(attrs.get('beta', 1.0) * x)}
+
+
+def _promote(x, y):
+    """Both operands of a product in their common dtype, as jnp promotes
+    them (a float32 feed times a bf16 weight is a float32 product)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
 
 
 @register('matmul')
@@ -109,6 +170,7 @@ def matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get('transpose_Y', False):
         y = y.transpose(-1, -2)
+    x, y = _promote(x, y)
     out = torch.matmul(x, y)
     alpha = attrs.get('alpha', 1.0)
     if alpha != 1.0:
@@ -124,6 +186,6 @@ def mul(ctx, ins, attrs):
     xn = attrs.get('x_num_col_dims', 1)
     yn = attrs.get('y_num_col_dims', 1)
     xs, ys = tuple(x.shape), tuple(y.shape)
-    x2 = x.reshape(int(np.prod(xs[:xn])), -1)
-    y2 = y.reshape(int(np.prod(ys[:yn])), -1)
+    x2, y2 = _promote(x.reshape(int(np.prod(xs[:xn])), -1),
+                      y.reshape(int(np.prod(ys[:yn])), -1))
     return {'Out': torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}

@@ -26,7 +26,13 @@ def squeeze(ctx, ins, attrs):
     axes = attrs.get('axes', [])
     if not axes:
         return {'Out': torch.squeeze(x)}
-    return {'Out': torch.squeeze(x, dim=tuple(a % x.ndim for a in axes))}
+    axes = tuple(a % x.ndim for a in axes)
+    big = [a for a in axes if x.shape[a] != 1]
+    if big:
+        # jnp.squeeze raises here; torch.squeeze would keep the axis
+        raise ValueError('squeeze: axes %s of shape %s are not of size 1'
+                         % (big, tuple(x.shape)))
+    return {'Out': torch.squeeze(x, dim=axes)}
 
 
 @register('unsqueeze')
@@ -43,7 +49,15 @@ def split(ctx, ins, attrs):
     axis = attrs.get('axis', 0)
     sections = attrs.get('sections', [])
     if sections:
-        outs = torch.split(x, list(sections), dim=axis)
+        # split at the running sums of the sections, as the JAX package
+        # does: a -1 section takes what is left before the next cut
+        cuts = np.cumsum(sections)[:-1].tolist()
+        sizes = np.diff([0] + cuts + [x.shape[axis]]).tolist()
+        if min(sizes) < 0:
+            raise ValueError('split: sections %s cut dim %d of size %d into '
+                             'negative sizes %s' % (list(sections), axis,
+                                                    x.shape[axis], sizes))
+        outs = torch.split(x, sizes, dim=axis)
     else:
         num = attrs.get('num', 0)
         if x.shape[axis] % num:

@@ -2,17 +2,19 @@
 
 Counterpart of paddle_tpu/optimizer.py; the training slice ports
 `Optimizer` and `AdamOptimizer` / `Adam`.  `minimize(loss)` appends the
-`__backward__` op (core/backward.py) and one `adam` op per parameter,
-with the same accumulators, names and attrs as the JAX package.  The
-executor runs the consecutive `adam` ops as one multi-tensor kernel
-launch (ops/optimizer_ops.py).  Gradient clipping and regularization are
-not ported yet: `apply_gradients` raises when either is set.
+`__backward__` op (core/backward.py), the gradient clips (clip.py), the
+weight decay (regularizer.py) and one `adam` op per parameter, with the
+same accumulators, names and attrs as the JAX package.  The executor runs
+the consecutive `adam` ops as one multi-tensor kernel launch
+(ops/optimizer_ops.py).
 """
 from .core import unique_name
 from .core.backward import append_backward
 from .core.framework import (Variable, default_main_program, op_role_guard,
                              OpRole)
+from .clip import append_gradient_clip_ops
 from .initializer import Constant
+from .regularizer import append_regularization_ops
 
 __all__ = ['Optimizer', 'Adam', 'AdamOptimizer']
 
@@ -97,13 +99,10 @@ class Optimizer(object):
     def apply_gradients(self, params_grads):
         if not params_grads:
             return []
-        if self.regularization is not None or any(
-                getattr(p, 'regularizer', None) is not None or
-                getattr(p, 'gradient_clip_attr', None) is not None
-                for p, _ in params_grads):
-            raise NotImplementedError(
-                'paddle_tpu_torch: gradient clipping and regularization are '
-                'not ported yet')
+        # clip, then decay, then the updates: the reference's order
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         block = params_grads[0][0].block
         with op_role_guard(OpRole.Optimize):
             self._create_global_learning_rate()

@@ -83,6 +83,7 @@ from ...core.framework import require_cuda
 from ...core.graphs import GraphPool, credit_launches
 from ...ops.attention import cached_attention
 from ...ops.gather import embedding_gather
+from ...ops.math import _promote
 from ...ops.sampling import sample_logits, sample_tokens_at, token_key
 from ..counters import Counters
 from .kv_cache import (CacheConfig, PagePool, PrefixCache, SlotAllocator,
@@ -131,6 +132,13 @@ def random_weights(cfg, seed=0, scale=0.08):
 
 # ------------------------------------------------------- forward pieces
 
+def _mm(a, b):
+    """a @ b in the operands' common dtype, as jnp promotes them: bf16
+    weights meet the float32 attention output and rope's float32 q/k."""
+    a, b = _promote(a, b)
+    return a @ b
+
+
 def _rms(x, scale):
     var = x.square().mean(dim=-1, keepdim=True)
     return x * torch.rsqrt(var + 1e-6) * scale
@@ -165,9 +173,9 @@ def _qkv(w, cfg, h, i):
     H, Hkv = int(cfg['n_head']), int(cfg['n_kv_head'])
     dh = int(cfg['d_model']) // H
     p = 'layer_%d_' % i
-    q = (h @ w[p + 'att_q_w']).reshape(B, T, H, dh).transpose(1, 2)
-    k = (h @ w[p + 'att_k_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
-    v = (h @ w[p + 'att_v_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
+    q = _mm(h, w[p + 'att_q_w']).reshape(B, T, H, dh).transpose(1, 2)
+    k = _mm(h, w[p + 'att_k_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
+    v = _mm(h, w[p + 'att_v_w']).reshape(B, T, Hkv, dh).transpose(1, 2)
     return q, k, v
 
 
@@ -177,15 +185,15 @@ def _qkv_fused(wqkv, cfg, h):
     B, T = h.shape[0], h.shape[1]
     H, Hkv = int(cfg['n_head']), int(cfg['n_kv_head'])
     dh = int(cfg['d_model']) // H
-    y = (h @ wqkv).reshape(B, T, H + 2 * Hkv, dh).transpose(1, 2)
+    y = _mm(h, wqkv).reshape(B, T, H + 2 * Hkv, dh).transpose(1, 2)
     return y[:, :H], y[:, H:H + Hkv], y[:, H + Hkv:]
 
 
 def _ffn(w, x, i):
     p = 'layer_%d_' % i
     hh = _rms(x, w[p + 'ffn_norm'])
-    gate = torch.nn.functional.silu(hh @ w[p + 'ffn_fc1_w'])
-    return x + (gate * (hh @ w[p + 'ffn_fc3_w'])) @ w[p + 'ffn_fc2_w']
+    gate = torch.nn.functional.silu(_mm(hh, w[p + 'ffn_fc1_w']))
+    return x + _mm(gate * _mm(hh, w[p + 'ffn_fc3_w']), w[p + 'ffn_fc2_w'])
 
 
 def jax_index_ids(ids, V):
@@ -292,10 +300,10 @@ def dense_reference(weights, cfg, prompt):
             s = torch.where(mask, s, torch.full((), -1e30, device=dev))
             att = torch.einsum('bhgqk,bhkd->bhgqd', torch.softmax(s, -1), v)
             att = att.reshape(1, H, P, dh).transpose(1, 2)
-            x = x + att.reshape(1, P, H * dh) @ w['layer_%d_att_o_w' % i]
+            x = x + _mm(att.reshape(1, P, H * dh), w['layer_%d_att_o_w' % i])
             x = _ffn(w, x, i)
         x = _rms(x, w['final_norm'])
-        logits = x[0, P - 1] @ w['lm_proj_w']
+        logits = _mm(x[0, P - 1], w['lm_proj_w'])
         return (torch.stack(ks).cpu().numpy(), torch.stack(vs).cpu().numpy(),
                 logits.cpu().numpy())
 
@@ -650,7 +658,7 @@ class DecodeRuntime(object):
         kl, vl = _logical_rows(self.state, bt, i, cache)
         att = cached_attention(q, kl, vl, qpos)
         att = att.transpose(1, 2).reshape(B, T, -1)
-        x = x + att @ w['layer_%d_att_o_w' % i]
+        x = x + _mm(att, w['layer_%d_att_o_w' % i])
         return _ffn(w, x, i)
 
     def _prefill_body(self, inp):
@@ -674,7 +682,7 @@ class DecodeRuntime(object):
             x = self._layer(x, i, cos, sin, pg, p_abs % PL, bt[None], pos)
         last = (n - 1).clamp(min=0).reshape(1)
         x = _rms(x[0].index_select(0, last)[0], self.w['final_norm'])
-        logits = x @ self.w['lm_proj_w']                      # [V]
+        logits = _mm(x, self.w['lm_proj_w'])                      # [V]
         new_len = offset + n
         nxt = sample_logits(logits, token_key(ints[3], new_len, self.device),
                             inp['temp'][0], ints[4])
@@ -701,7 +709,7 @@ class DecodeRuntime(object):
         for i in range(self.cache.layers):
             x = self._layer(x, i, cos, sin, pg, pos % PL, bt, pos[:, None])
         x = _rms(x, self.w['final_norm'])
-        logits = x[:, 0] @ self.w['lm_proj_w']                    # [S, V]
+        logits = _mm(x[:, 0], self.w['lm_proj_w'])                    # [S, V]
         nxt = sample_tokens_at(logits, seeds, pos + 1, temps, topks)
         st['tok'].copy_(torch.where(active, nxt, st['tok']))
         st['lengths'].copy_(torch.where(active, pos + 1, pos))

@@ -46,6 +46,10 @@ from ..counters import Counters
 __all__ = ['CacheConfig', 'SlotAllocator', 'PagePool', 'PrefixCache',
            'init_state', 'default_page_len']
 
+# bytes an element of a pool dtype takes, by dtype name (numpy has no
+# bfloat16)
+ITEMSIZE = {'float32': 4, 'bfloat16': 2, 'int8': 1}
+
 
 def default_page_len(max_len, want=8):
     """Largest divisor of ``max_len`` that is <= ``want`` (page length
@@ -123,7 +127,7 @@ class CacheConfig(object):
     def page_bytes(self):
         """Bytes ONE page costs across both pools (K+V, plus the scale
         rows when quantized): the unit of the kv_bytes gauges."""
-        per = int(np.dtype(self.store_dtype).itemsize)
+        per = ITEMSIZE[self.store_dtype]
         elems = self.layers * self.kv_heads * self.page_len * self.head_dim
         b = 2 * per * elems
         if self.quant == 'int8':
@@ -136,7 +140,7 @@ class CacheConfig(object):
 
     def dense_slot_bytes(self):
         """What ONE slot would reserve as a dense float32 max_len strip."""
-        per = int(np.dtype(self.dtype).itemsize)
+        per = ITEMSIZE[self.dtype]
         return 2 * per * (self.layers * self.kv_heads * self.max_len *
                           self.head_dim)
 

@@ -130,10 +130,10 @@ def test_bf16_plain_accumulates_in_float32():
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     """The launch wrapper validates before it touches the device: shapes,
     head dims and dtypes the CUDA kernel has no path for raise."""
-    q = torch.zeros(1, 4, 8, 96)
+    q = torch.zeros(1, 4, 8, 100)
     with pytest.raises(ValueError, match='head dims'):
-        tatt._launch_flash(q, torch.zeros(1, 2, 8, 96),
-                           torch.zeros(1, 2, 8, 96), True, 1.0, None)
+        tatt._launch_flash(q, torch.zeros(1, 2, 8, 100),
+                           torch.zeros(1, 2, 8, 100), True, 1.0, None)
     with pytest.raises(ValueError, match='multiple of Hkv'):
         tatt._launch_flash(torch.zeros(1, 3, 8, 64),
                            torch.zeros(1, 2, 8, 64),

@@ -93,7 +93,7 @@ def test_float32_flash_at_the_served_shape_runs_the_tf32x3_kernel(cuda):
 
 
 def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
-    q = torch.zeros(1, 2, 8, 96, device='cuda')
+    q = torch.zeros(1, 2, 8, 100, device='cuda')
     with pytest.raises(ValueError, match='head dims'):
         att.flash_forward(q, q, q, True)
 
@@ -126,6 +126,23 @@ def test_gather_kernel_matches_plain(cuda, dtype, D, ids_dtype, misalign):
     ref = ga.embedding_gather_reference(w, ids)
     torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
     assert torch.isnan(out[0, :3]).all()
+
+
+def _profiled(fn, pattern):
+    """fn() under torch.profiler -> (its result, the names of the kernels
+    matching `pattern` in the trace, the runs it took).  The profiler drops
+    a trace's kernel events now and then: a trace that names none is taken
+    again, running fn again, up to 3 runs."""
+    for runs in (1, 2, 3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = fn()
+            torch.cuda.synchronize()
+        names = {m.group(0) for m in (re.search(pattern, e.key)
+                                      for e in prof.key_averages()) if m}
+        if names:
+            break
+    return res, names, runs
 
 
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
@@ -164,21 +181,17 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
     kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
     out, lse = att.flash_forward(q, k, v, causal, None, kl)
     before = dict(kernels.launches)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        grads = att.flash_backward(q, k, v, kl, out, lse, do, causal)
-        torch.cuda.synchronize()
+    grads, names, runs = _profiled(
+        lambda: att.flash_backward(q, k, v, kl, out, lse, do, causal),
+        r'flash_bwd_\w+')
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
-        assert kernels.launches[name] == before[name] + 1
+        assert kernels.launches[name] == before[name] + runs
     # the design each dtype and D runs: bf16 on wgmma, float32 as 3xTF32
-    # wgmma at D = 64 and on CUDA cores at D = 128
+    # wgmma at D = 64 and on CUDA cores (csrc/flash_cc.cu) at D = 128
     design = ('wgmma' if dtype == torch.bfloat16 else
-              'tf32x3' if D == 64 else None)
-    names = {m.group(0) for m in (re.search(r'flash_bwd_\w+', e.key)
-                                  for e in prof.key_averages()) if m}
-    stem = design + '_' if design else ''
-    assert names == {'flash_bwd_dq_%skernel' % stem,
-                     'flash_bwd_dkv_%skernel' % stem}, names
+              'tf32x3' if D == 64 else 'cc')
+    assert names == {'flash_bwd_dq_%s_kernel' % design,
+                     'flash_bwd_dkv_%s_kernel' % design}, names
     refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
                                         D ** -0.5)
     # f32: other summation orders, and dS = P (dP - delta) cancels, so the
@@ -241,6 +254,108 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
     dq = scale * torch.einsum('bhgqk,bhkd->bhgqd', size, k.abs())
     dk = scale * torch.einsum('bhgqk,bhgqd->bhkd', size, qg.abs())
     return dq.reshape(B, H, Tq, D), dk, torch.zeros_like(v)
+
+
+# the CUDA-core kernels (csrc/flash_cc.cu) of the head dims the tensor-core
+# kernels do not take: D = 16, 32 (padded width 32) and 96 (padded 128),
+# causal and not, ragged k_len with a k_len 0 row, GQA, Tq < Tk
+@pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
+    (torch.float32, 16, True, 100, 100, 2, [100, 37]),
+    (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
+    (torch.float32, 32, False, 65, 65, 1, [65, 64]),
+    (torch.bfloat16, 32, True, 37, 161, 2, [161, 100]),
+    (torch.float32, 96, True, 129, 129, 2, [0, 90]),
+    (torch.bfloat16, 96, False, 64, 200, 8, [200, 1]),
+    (torch.float32, 256, True, 70, 70, 2, [70, 33]),
+])
+def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
+                                             Hkv, klen):
+    g = torch.Generator(device='cuda').manual_seed(5)
+    q = _randn(g, 2, 8, Tq, D, dtype=dtype)
+    do = _randn(g, 2, 8, Tq, D, dtype=dtype)
+    k = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
+    v = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
+    kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
+    def both():
+        out, lse = att.flash_forward(q, k, v, causal, None, kl)
+        return out, lse, att.flash_backward(q, k, v, kl, out, lse, do, causal)
+    before = dict(kernels.launches)
+    (out, lse, grads), names, runs = _profiled(both, r'flash_\w+?_kernel')
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        assert kernels.launches[name] == before[name] + runs
+    assert names == {'flash_fwd_cc_kernel', 'flash_bwd_dq_cc_kernel',
+                     'flash_bwd_dkv_cc_kernel'}, names
+    ref, ref_lse = att._ref_attention(q, k, v, causal, D ** -0.5, kl)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=8e-3, atol=1e-3)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
+                                        D ** -0.5)
+    rtol, arel = (1e-4, 1e-5) if dtype == torch.float32 else (8e-3, 2e-3)
+    for a, r in zip(grads, refs):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), rtol=rtol,
+                                   atol=arel * float(r.float().abs().max()))
+    if 0 in klen:
+        zero = torch.tensor(klen, device='cuda') == 0
+        assert not out[zero].any()
+        assert not any(t[zero].any() for t in grads)
+
+
+def test_head_dim_off_the_tiling_takes_the_composed_route_on_the_card(cuda):
+    g = torch.Generator(device='cuda').manual_seed(6)
+    q = _randn(g, 2, 4, 40, 12).requires_grad_(True)
+    k = _randn(g, 2, 2, 40, 12).requires_grad_(True)
+    before = dict(kernels.launches)
+    out = att.flash_attention(q, k, k, causal=True)
+    out.sum().backward()
+    assert kernels.launches['flash_attention_composed'] == \
+        before['flash_attention_composed'] + 1
+    assert kernels.launches['flash_attention_fwd'] == \
+        before['flash_attention_fwd']
+    ref = att.composed_attention(q.detach().cpu(), k.detach().cpu(),
+                                 k.detach().cpu(), True, 12 ** -0.5)
+    torch.testing.assert_close(out.detach().cpu(), ref, rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('p_dt,g_dt,m_dt,w_dt', [
+    # the bf16 build's first step (bf16 state, the clip's float32 grads),
+    # its later steps (float32 state, bf16 beta powers), no clip (all bf16)
+    (torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+])
+def test_adam_bf16_instance_matches_plain(cuda, p_dt, g_dt, m_dt, w_dt):
+    """The bf16 instance rounds where jnp rounds: the plain version's
+    results, in its dtypes, equal to the last bit but for a float32
+    parameter step (one division's rounding)."""
+    g = torch.Generator(device='cuda').manual_seed(8)
+    shapes = [(1,), (7,), (oo._CHUNK + 3,), (300, 257)]
+    params = [(0.05 * _randn(g, *s)).to(p_dt) for s in shapes]
+    m1s = [(1e-3 * _randn(g, *s)).to(m_dt) for s in shapes]
+    m2s = [(1e-3 * _randn(g, *s)).square().to(m_dt) for s in shapes]
+    b1ps = [torch.full((1,), 0.9, device='cuda').to(w_dt) for _ in shapes]
+    b2ps = [torch.full((1,), 0.95, device='cuda').to(w_dt) for _ in shapes]
+    lrs = [torch.full((1,), 1e-3, device='cuda')] * len(shapes)
+    grads = [(1e-2 * _randn(g, *s)).to(g_dt) for s in shapes]
+    ref = [[t.clone() for t in col] for col in (params, m1s, m2s, b1ps,
+                                                  b2ps)]
+    before = kernels.launches['adam_multi_bf16']
+    got = oo.adam_multi(params, grads, m1s, m2s, b1ps, b2ps, lrs, 0.9,
+                        0.95, 1e-8)
+    want = oo.adam_reference(ref[0], grads, ref[1], ref[2], ref[3], ref[4],
+                             lrs, 0.9, 0.95, 1e-8)
+    torch.cuda.synchronize()
+    assert kernels.launches['adam_multi_bf16'] == before + 1
+    for col, wcol in zip(got, want):
+        for a, r in zip(col, wcol):
+            assert a.dtype == r.dtype
+            torch.testing.assert_close(a, r, rtol=2e-6, atol=1e-12)
+    for a, r in zip(b1ps + b2ps, ref[3] + ref[4]):
+        assert a.dtype == w_dt and torch.equal(a, r)
 
 
 @pytest.mark.parametrize('rows,cols,dtype,affine,two_pass,offset', [
@@ -372,6 +487,18 @@ SEGMENTS = {
         _sub('scale', {'X': ['h']}, {'Out': ['o']},
              {'scale': 0.125, 'bias': 1.0})],
         {'x': (5, 7, 9), 'b': (9,)}, ['o', 'h'], True),
+    # the gradient clip's elementwise ops: square, sqrt, max, clip, sign
+    'clip_chain': ([
+        _sub('square', {'X': ['x']}, {'Out': ['s']}),
+        _sub('sqrt', {'X': ['s']}, {'Out': ['r']}),
+        _sub('elementwise_max', {'X': ['r'], 'Y': ['c']}, {'Out': ['m']},
+             {'axis': -1}),
+        _sub('clip', {'X': ['x']}, {'Out': ['k']}, {'min': -0.3,
+                                                   'max': 0.5}),
+        _sub('sign', {'X': ['k']}, {'Out': ['n']}),
+        _sub('elementwise_mul', {'X': ['n'], 'Y': ['m']}, {'Out': ['o']},
+             {'axis': -1})],
+        {'x': (6, 33, 129), 'c': (129,)}, ['o', 'm'], False),
 }
 
 

@@ -139,7 +139,7 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match='lse must be'):
         tatt._launch_flash_bwd(q, k, k, None, q, lse[:1], q, True, 0.125)
     with pytest.raises(ValueError, match='head dims'):
-        tatt._launch_flash_bwd(torch.zeros(1, 2, 8, 96),
-                               torch.zeros(1, 2, 8, 96),
-                               torch.zeros(1, 2, 8, 96), None, q, lse, q,
+        tatt._launch_flash_bwd(torch.zeros(1, 2, 8, 100),
+                               torch.zeros(1, 2, 8, 100),
+                               torch.zeros(1, 2, 8, 100), None, q, lse, q,
                                True, 0.125)

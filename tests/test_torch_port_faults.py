@@ -1,0 +1,336 @@
+"""Faults of the port against the JAX package, each held on the CPU to the
+JAX package's own result: mixed float32 x bf16 products (C1), bf16
+generation (C2), the flash-attention route for head dims the kernels do
+not tile (C3), out-of-range hard labels (C4), `scale` on an integer
+tensor (C5), `create_paddle_predictor` (C6), and `squeeze` / `split`.
+
+C3's kernels (head dims 16, 32 and 96 on CUDA cores) are checked on the
+card in tests/test_torch_cuda_kernels.py; here the route of a head dim
+that is not a multiple of 8 is checked, which is the same on both
+devices."""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jf
+import paddle_tpu_torch as tf
+from paddle_tpu.models import llama as jllama
+from paddle_tpu_torch.models import llama as tllama
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_programs(monkeypatch):
+    """Fresh default programs, scope and name generator for the port (the
+    root conftest does the same for the JAX package), and the JAX side's
+    compile cache off."""
+    monkeypatch.setenv('PT_CACHE', '0')
+    from paddle_tpu_torch.core import executor, framework, unique_name
+    main, startup = framework.Program(), framework.Program()
+    old_main = framework.switch_main_program(main)
+    old_startup = framework.switch_startup_program(startup)
+    old_gen = unique_name.switch()
+    old_scope = executor._global_scope
+    executor._global_scope = executor.Scope()
+    yield
+    framework.switch_main_program(old_main)
+    framework.switch_startup_program(old_startup)
+    unique_name.switch(old_gen)
+    executor._global_scope = old_scope
+
+
+def registry_shim(op_type, attrs):
+    from paddle_tpu_torch.core.registry import _SubOpShim
+    return _SubOpShim(op_type, attrs)
+
+
+def _run_op(fluid, op_type, ins, attrs, outs=('Out',)):
+    """One op of either package on numpy inputs -> {slot: numpy}."""
+    from paddle_tpu_torch.core import registry as treg
+    if fluid is tf:
+        impl = treg.get_op(op_type)
+        ctx = treg.ExecCtx(torch.device('cpu'), 0, 0).for_op(
+            0, registry_shim(op_type, attrs))
+        got = impl(ctx, {k: torch.from_numpy(np.asarray(v))
+                         for k, v in ins.items()}, attrs)
+        return {k: got[k].numpy() if not isinstance(got[k], list)
+                else [t.numpy() for t in got[k]] for k in outs}
+    import jax.numpy as jnp
+    from paddle_tpu.core import registry as jreg
+    got = jreg.get_op(op_type).impl(None, {k: jnp.asarray(v)
+                                           for k, v in ins.items()}, attrs)
+    return {k: np.asarray(got[k]) if not isinstance(got[k], list)
+            else [np.asarray(t) for t in got[k]] for k in outs}
+
+
+# ---------------------------------------------------------------- C1
+
+def _save_fc(path):
+    main, startup = tf.Program(), tf.Program()
+    with tf.program_guard(main, startup), tf.unique_name.guard():
+        x = tf.layers.data('x', shape=[8], dtype='float32')
+        h = tf.layers.fc(x, 16, act='relu')
+        y = tf.layers.fc(h, 4)
+    scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
+    with tf.scope_guard(scope):
+        exe.run(startup)
+        tf.io.save_inference_model(str(path), ['x'], [y], exe, main)
+
+
+def test_c1_bf16_predictor_takes_a_float32_feed(tmp_path):
+    """A float32 feed meets bf16 weights in both products: jnp promotes
+    them to float32, so the port must too.  Both packages then compute
+    float32 products of the same bf16-rounded weights, so they agree to
+    float32 accuracy."""
+    _save_fc(tmp_path)
+    feed = {'x': np.random.RandomState(0).randn(4, 8).astype('float32')}
+    jc = jf.inference.AnalysisConfig(str(tmp_path))
+    jc.enable_bf16()
+    tc = tf.inference.AnalysisConfig(str(tmp_path))
+    tc.enable_bf16()
+    tc.disable_gpu()
+    ref = np.asarray(jf.inference.Predictor(jc).run(feed)[0])
+    got = tf.inference.Predictor(tc).run(feed)[0]
+    assert ref.dtype == got.dtype == np.float32
+    assert got.shape == ref.shape == (4, 4)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize('op_type,ins,attrs', [
+    ('mul', {'X': (3, 8), 'Y': (8, 5)}, {}),
+    ('matmul', {'X': (2, 3, 8), 'Y': (8, 5)}, {}),
+])
+def test_c1_products_promote(op_type, ins, attrs):
+    rng = np.random.RandomState(1)
+    x = rng.randn(*ins['X']).astype(np.float32)
+    y = torch.from_numpy(rng.randn(*ins['Y']).astype(np.float32)).to(
+        torch.bfloat16)
+    from paddle_tpu_torch.core import registry as treg
+    ctx = treg.ExecCtx(torch.device('cpu'), 0, 0, {}, False, None)
+    out = treg.get_op(op_type)(ctx, {'X': torch.from_numpy(x), 'Y': y},
+                               attrs)['Out']
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), x @ y.float().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- C2
+
+def _prompt():
+    return np.arange(1, 9)
+
+
+def test_c2_bf16_weights_generate_the_references_tokens():
+    from paddle_tpu.serving.generation.decode import DecodeRuntime as JRT
+    from paddle_tpu_torch.serving.generation.decode import (
+        DecodeRuntime, random_weights)
+    import jax.numpy as jnp
+    cfg = tllama.CONFIGS['tiny']
+    w = random_weights(cfg)
+    ref = JRT({n: jnp.asarray(a, jnp.bfloat16) for n, a in w.items()},
+              cfg).generate(_prompt(), 6)
+    rt = DecodeRuntime({n: torch.from_numpy(a).to(torch.bfloat16)
+                        for n, a in w.items()}, cfg, device='cpu')
+    assert list(rt.generate(_prompt(), 6)) == list(ref)
+
+
+def test_c2_bf16_pages_generate_the_references_tokens():
+    from paddle_tpu.serving.generation.decode import DecodeRuntime as JRT
+    from paddle_tpu_torch.serving.generation.decode import (
+        DecodeRuntime, random_weights)
+    cfg = tllama.CONFIGS['tiny']
+    w = random_weights(cfg)
+    ref = JRT(w, cfg, cache_dtype='bfloat16').generate(_prompt(), 6)
+    rt = DecodeRuntime(w, cfg, device='cpu', cache_dtype='bfloat16')
+    assert rt.cache.page_bytes() == JRT(
+        w, cfg, cache_dtype='bfloat16').cache.page_bytes()
+    assert list(rt.generate(_prompt(), 6)) == list(ref)
+
+
+def test_c2_page_bytes_of_a_bf16_pool_without_ml_dtypes():
+    """The port's own itemsize table: in a process that never imports
+    JAX (so numpy knows no 'bfloat16'), a bf16 pool's page costs 2 bytes
+    an element."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'from paddle_tpu_torch.serving.generation.kv_cache import '
+            'CacheConfig\n'
+            'c = CacheConfig(2, 3, 2, 32, 16, dtype="bfloat16", page_len=8)\n'
+            'assert "ml_dtypes" not in sys.modules\n'
+            'print(c.page_bytes(), c.dense_slot_bytes())\n')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    elems = 3 * 2 * 8 * 16
+    assert out.stdout.split() == [str(2 * 2 * elems),
+                                  str(2 * 2 * 3 * 2 * 32 * 16)]
+
+
+def test_c2_streaming_runtime_over_a_bf16_predictor_scope(tmp_path):
+    main, startup = tf.Program(), tf.Program()
+    with tf.program_guard(main, startup), tf.unique_name.guard():
+        out = tllama.generation_program('tiny', mode='decode')
+    scope, exe = tf.Scope(), tf.Executor(tf.CPUPlace())
+    with tf.scope_guard(scope):
+        exe.run(startup)
+        tf.io.save_inference_model(str(tmp_path), ['tokens'],
+                                   [out['next_token']], exe, main)
+    jc = jf.inference.AnalysisConfig(str(tmp_path))
+    jc.enable_bf16()
+    tc = tf.inference.AnalysisConfig(str(tmp_path))
+    tc.enable_bf16()
+    tc.disable_gpu()
+    jpred, tpred = jf.inference.Predictor(jc), tf.inference.Predictor(tc)
+    assert all(v.dtype == torch.bfloat16 for v in tpred._scope.vars.values())
+    ref = jllama.make_streaming_runtime(jpred._scope, 'tiny').generate(
+        _prompt(), 6)
+    rt = tllama.make_streaming_runtime(tpred._scope, 'tiny', device='cpu')
+    assert list(rt.generate(_prompt(), 6)) == list(ref)
+
+
+# ---------------------------------------------------------------- C3
+
+def test_c3_head_dim_off_the_tiling_takes_the_counted_composed_route():
+    """D = 12 (not a multiple of 8): the reference computes its composed
+    attention; the port routes there on purpose and counts the route,
+    forward and gradients matching the JAX package's."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.ops import attention as jatt
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import attention as tatt
+    rng = np.random.RandomState(3)
+    B, H, Hkv, T, D = 2, 4, 2, 16, 12
+    q = rng.randn(B, H, T, D).astype(np.float32)
+    k = rng.randn(B, Hkv, T, D).astype(np.float32)
+    v = rng.randn(B, Hkv, T, D).astype(np.float32)
+    klen = np.array([16, 9], np.int32)
+    g = rng.randn(B, H, T, D).astype(np.float32)
+
+    def jloss(q, k, v):
+        o = jatt.flash_attention(q, k, v, causal=True,
+                                 k_len=jnp.asarray(klen), interpret=True)
+        return jnp.sum(o * g), o
+    (_, jo), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                         has_aux=True)(q, k, v)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    kernels.reset_launches()
+    to = tatt.flash_attention(tq, tk, tv, causal=True,
+                              k_len=torch.from_numpy(klen))
+    (to * torch.from_numpy(g)).sum().backward()
+    assert kernels.launches['flash_attention_composed'] == 1
+    assert kernels.launches['flash_attention_fwd'] == 0
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
+                               rtol=1e-5, atol=1e-5)
+    for t, ref in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_c3_head_dim_above_256_raises_naming_the_roadmap():
+    from paddle_tpu_torch.ops import attention as tatt
+    q = torch.zeros(1, 1, 4, 264)
+    with pytest.raises(ValueError, match='ROADMAP C3'):
+        tatt.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------- C4
+
+def test_c4_out_of_range_labels_follow_take_along_axis():
+    """Logits [1, 4, 6], labels [0, -100, 6, -1] with ignore_index -100:
+    the ignored row gives 0, label 6 is out of range (NaN), label -1 wraps
+    to 5; the gradient is the reference's custom vjp's."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.ops.loss import _make_hard_ce
+    from paddle_tpu_torch.ops.loss import hard_cross_entropy
+    rng = np.random.RandomState(4)
+    logits = rng.randn(1, 4, 6).astype(np.float32)
+    lab = np.array([0, -100, 6, -1], np.int32).reshape(1, 4, 1)
+    ce = _make_hard_ce(6, 0.0, -100)
+    ref, vjp = jax.vjp(lambda x: ce(x, jnp.asarray(lab)), logits)
+    ref_grad, = vjp(jnp.ones_like(ref))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = hard_cross_entropy(x, torch.from_numpy(lab))
+    got.sum().backward()
+    got = got.detach().numpy().reshape(-1)
+    np.testing.assert_allclose(got, np.asarray(ref).reshape(-1), rtol=1e-6,
+                               atol=1e-6)
+    assert got[1] == 0 and np.isnan(got[2])
+    assert np.isfinite(got[[0, 3]]).all()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(ref_grad),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_c4_the_op_takes_the_labels_too():
+    rng = np.random.RandomState(5)
+    ins = {'Logits': rng.randn(1, 4, 6).astype(np.float32),
+           'Label': np.array([0, -100, 6, -1], np.int64).reshape(1, 4, 1)}
+    got = _run_op(tf, 'softmax_with_cross_entropy', ins, {}, ('Loss',))
+    ref = _run_op(jf, 'softmax_with_cross_entropy', ins, {}, ('Loss',))
+    np.testing.assert_allclose(got['Loss'], ref['Loss'], rtol=1e-6)
+
+
+# ---------------------------------------------------------------- C5
+
+@pytest.mark.parametrize('after', [True, False])
+def test_c5_scale_casts_the_bias_to_an_int_dtype(after):
+    ins = {'X': np.array([1, -3, 4], np.int32)}
+    attrs = {'scale': 2.5, 'bias': 1.5, 'bias_after_scale': after}
+    got = _run_op(tf, 'scale', ins, attrs)['Out']
+    ref = _run_op(jf, 'scale', ins, attrs)['Out']
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+    if after:
+        assert got[0] == 3
+
+
+# ---------------------------------------------------------------- C6
+
+def test_c6_create_paddle_predictor(tmp_path):
+    _save_fc(tmp_path)
+    conf = tf.inference.AnalysisConfig(str(tmp_path))
+    conf.disable_gpu()
+    pred = tf.inference.create_paddle_predictor(conf)
+    assert isinstance(pred, tf.inference.Predictor)
+    feed = {'x': np.ones((2, 8), np.float32)}
+    np.testing.assert_array_equal(pred.run(feed)[0],
+                                  tf.inference.Predictor(conf).run(feed)[0])
+    with pytest.raises(NotImplementedError,
+                       match='create_paddle_predictor'):
+        tf.CompiledProgram(tf.Program()).with_inference_optimize(conf)
+
+
+# ------------------------------------------------------ squeeze, split
+
+def test_squeeze_of_an_axis_not_of_size_one_raises():
+    ins = {'X': np.zeros((2, 3, 1), np.float32)}
+    with pytest.raises(ValueError):
+        _run_op(jf, 'squeeze', ins, {'axes': [1]})
+    with pytest.raises(ValueError, match='size 1'):
+        _run_op(tf, 'squeeze', ins, {'axes': [1]})
+    assert _run_op(tf, 'squeeze', ins, {'axes': [2]})['Out'].shape == (2, 3)
+
+
+@pytest.mark.parametrize('sections,axis', [([2, -1], 1), ([3, -1], 1),
+                                           ([1, 3, 1], -1), ([3, 2], 1)])
+def test_split_takes_a_minus_one_section(sections, axis):
+    ins = {'X': np.arange(20, dtype=np.float32).reshape(4, 5)}
+    attrs = {'axis': axis, 'sections': sections}
+    got = _run_op(tf, 'split', ins, attrs)['Out']
+    ref = _run_op(jf, 'split', ins, attrs)['Out']
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_split_into_negative_sizes_raises_in_both():
+    """A leading -1 makes the JAX package's first cut negative: both
+    packages refuse it."""
+    ins = {'X': np.arange(20, dtype=np.float32).reshape(4, 5)}
+    attrs = {'axis': 1, 'sections': [-1, 2]}
+    for fluid in (jf, tf):
+        with pytest.raises(ValueError):
+            _run_op(fluid, 'split', ins, attrs)
