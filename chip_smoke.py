@@ -35,7 +35,9 @@ Phases, each printing JSON lines:
               flash and the composed training steps, the training llama)
               against its plain replay, all built by one nvcc call; K1-K3
               at the training llama's shape (B=2, H=16 / 8, T=2048,
-              D=128, causal) in float32 and bf16, beside SDPA; the
+              D=128, causal) in float32 and bf16, beside SDPA, and
+              float32 K2 and K3 also in the CUDA-core design
+              (csrc/flash_cc.cu, llama_f32_bwd_designs); the
               CUDA-core kernels of the other head dims (D = 16, 32, 96);
               Adam's bf16 instance at the llama's 147 tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
@@ -150,7 +152,8 @@ Phases, each printing JSON lines:
               losses finite and falling over 8 steps, launches a step:
               16 of each flash kernel, one Adam, one K4), profiles of an
               interpreted step (device ms by group, idle share; 16
-              fwd_tf32x3, 16 bwd_dq_cc, 16 bwd_dkv_cc) and of two graph
+              fwd_tf32x3, 16 bwd_dq_tf32x3, 16 bwd_dkv_tf32x3, no CUDA-core
+              backward) and of two graph
               steps, peak memory, no plain version on the card; then the
               device kernels a step with the clip on and off
   training_llama_bf16
@@ -522,21 +525,40 @@ def _fwd_rate(dtype, D):
     return 'tf32x3' if dtype == 'float32' else dtype
 
 
-def _bwd_rate(dtype, D):
+def _bwd_rate(dtype, D, design='port'):
     """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
-    float32 runs as 3xTF32 at D = 64 and on CUDA cores at D = 128; every
-    other head dim runs on CUDA cores (csrc/flash_cc.cu)."""
-    if D not in (64, 128):
-        return 'float32'
-    if dtype != 'float32':
-        return dtype
-    return 'tf32x3' if D == 64 else 'float32'
+    the port's, which is the forward's (float32 as 3xTF32 at D = 64 and
+    128), or the CUDA-core kernels (design 'cc', csrc/flash_cc.cu)."""
+    return 'float32' if design == 'cc' else _fwd_rate(dtype, D)
+
+
+def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
+                   outs):
+    """The CUDA-core design of K2 (`entry` pt_flash_cc_bwd_dq) or K3
+    (pt_flash_cc_bwd_dkv) of csrc/flash_cc.cu, called directly into
+    `outs`: the port routes D = 64 and 128 to csrc/flash_bwd.cu, so this
+    times the design the 3xTF32 kernels replaced, uncounted."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import attention as att
+    B, H, Tq, D = q.shape
+    lib = kernels.library()
+    rc = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kl_t.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), do.data_ptr(),
+        *[o.data_ptr() for o in outs], B, H, k.shape[1], Tq, k.shape[2], D,
+        att._DTYPE_CODE[q.dtype], int(bool(causal)), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, entry)
+    return outs
 
 
 def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
-                   timed=False):
+                   timed=False, design='port'):
     """dQ and dK/dV kernels against flash_backward_reference on the same
-    q, k, v, dO and the kernel forward's out and LSE."""
+    q, k, v, dO and the kernel forward's out and LSE: the port's
+    (flash_backward, its wrappers), or with design 'cc' the CUDA-core
+    kernels called directly (_cc_bwd_launch)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import attention as att
@@ -550,8 +572,28 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
     kl_t = torch.tensor(kl, dtype=torch.int32, device='cuda')
     scale = D ** -0.5
     out, lse = att.flash_forward(q, k, v, causal, scale, kl_t)
-    dq, dk, dv = att.flash_backward(q, k, v, kl_t, out, lse, do, causal,
-                                    scale)
+    delta = att._bwd_delta(out, do)
+    if design == 'cc':
+        def run_dq():
+            return _cc_bwd_launch('pt_flash_cc_bwd_dq', q, k, v, kl_t, lse,
+                                  delta, do, causal, scale,
+                                  (torch.empty_like(q),))
+
+        def run_dkv():
+            return _cc_bwd_launch('pt_flash_cc_bwd_dkv', q, k, v, kl_t, lse,
+                                  delta, do, causal, scale,
+                                  (torch.empty_like(k), torch.empty_like(v)))
+        (dq,), (dk, dv) = run_dq(), run_dkv()
+    else:
+        def run_dq():
+            return att._launch_bwd_dq(q, k, v, kl_t, lse, delta, do, causal,
+                                      scale)
+
+        def run_dkv():
+            return att._launch_bwd_dkv(q, k, v, kl_t, lse, delta, do,
+                                       causal, scale)
+        dq, dk, dv = att.flash_backward(q, k, v, kl_t, out, lse, do, causal,
+                                        scale)
     rq, rk, rv = att.flash_backward_reference(q, k, v, kl_t, out, lse, do,
                                               causal, scale)
     torch.cuda.synchronize()
@@ -567,7 +609,8 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                 for o, r in zip(outs, refs)]
         row = dict(phase='kernels', kernel=kname, case=name, B=B, H=H,
                    Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal, dtype=dtype,
-                   k_len=kl, max_abs_err=max(e for e, _ in errs), rtol=rtol,
+                   design=design, k_len=kl,
+                   max_abs_err=max(e for e, _ in errs), rtol=rtol,
                    atol_of_max=arel)
         if 0 in kl:
             zero = torch.tensor(kl, device='cuda') == 0
@@ -582,7 +625,6 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
         pairs = _valid_pairs(B, H, Tq, Tk, causal, kl)
         in_bytes = ((2 * B * H * Tq + 2 * B * Hkv * Tk) * D * itemsize
                     + 8 * B * H * Tq + 4 * B)
-        delta = att._bwd_delta(out, do)
         plain_ms = time_ms(lambda: att.flash_backward_reference(
             q, k, v, kl_t, out, lse, do, causal, scale), 3)
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -600,19 +642,17 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
         if klen is None:
             lib_ms = time_ms(sdpa_fwd_bwd, 10) - time_ms(sdpa_fwd, 10)
         for kname, fn, flops_per, out_bytes in (
-                ('flash_attention_bwd_dq',
-                 lambda: att._launch_bwd_dq(q, k, v, kl_t, lse, delta, do,
-                                            causal, scale), 6,
+                ('flash_attention_bwd_dq', run_dq, 6,
                  B * H * Tq * D * itemsize),
-                ('flash_attention_bwd_dkv',
-                 lambda: att._launch_bwd_dkv(q, k, v, kl_t, lse, delta, do,
-                                             causal, scale), 8,
+                ('flash_attention_bwd_dkv', run_dkv, 8,
                  2 * B * Hkv * Tk * D * itemsize)):
             flops = float(flops_per * D * pairs)
             nbytes = in_bytes + out_bytes
-            # float32 at D = 64 runs as 3xTF32 on the tensor cores: that
-            # rate bounds it; the CUDA cores' float32 rate is printed beside
-            bound_ms, bound_by = _bound(flops, nbytes, _bwd_rate(dtype, D))
+            # float32 at D = 64 and 128 runs as 3xTF32 on the tensor cores:
+            # that rate bounds it; the CUDA cores' float32 rate is printed
+            # beside
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        _bwd_rate(dtype, D, design))
             row = res[kname][0]
             if dtype == 'float32':
                 row['bound_cuda_cores_ms'] = _bound(flops, nbytes,
@@ -1054,8 +1094,7 @@ def phase_kernels():
     'instances': K1-K3 by dtype -> the timed row of that instance}.
     K1, K2 and K3 have two instances: bf16 on tensor cores (the training
     path) and float32 (serving, for K1; the float32 training path): all
-    three as 3xTF32 on tensor cores (K2 and K3 on CUDA cores at D =
-    128)."""
+    three as 3xTF32 on tensor cores."""
     served = {}
     inst = {'flash_attention_fwd': {}, 'flash_attention_bwd_dq': {},
             'flash_attention_bwd_dkv': {}}
@@ -1136,9 +1175,19 @@ def phase_kernels():
                    klen=[161, 100])
     flash_bwd_case('ragged_bf16_d128', 1, 2, 2, 97, 161, 128, False,
                    'bfloat16', klen=[130])
+    # the float32 D = 128 kernels' ragged edges: k_len 0 and 1 rows, GQA,
+    # Tq < Tk causal, partial last query and key tiles
+    flash_bwd_case('klen01_f32_d128', 3, 8, 4, 150, 150, 128, True,
+                   'float32', klen=[150, 0, 1])
+    flash_bwd_case('tq_lt_tk_f32_d128', 2, 16, 8, 37, 161, 128, True,
+                   'float32', klen=[161, 100])
+    flash_bwd_case('ragged_f32_d128', 1, 2, 2, 97, 161, 128, False,
+                   'float32', klen=[130])
     # the training llama's attention (llama_1b, B=2, T=2048, D=128,
-    # causal): K1-K3 in float32 (K2 and K3 on CUDA cores at D = 128) and
-    # in bf16 (tensor cores), timed beside SDPA at the same dtype
+    # causal): K1-K3 in float32 (3xTF32) and in bf16 (tensor cores),
+    # timed beside SDPA at the same dtype; float32 K2 and K3 also in the
+    # CUDA-core design (csrc/flash_cc.cu), which the 3xTF32 kernels
+    # replaced, in this call
     for dt in ('float32', 'bfloat16'):
         key = dt + '_d128'
         inst['flash_attention_fwd'][key] = flash_case(
@@ -1147,6 +1196,22 @@ def phase_kernels():
                              dt, timed=True)
         for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
             inst[kname][key] = bwd[kname]
+        if dt == 'float32':
+            cc = flash_bwd_case('llama_float32_cc', 2, 16, 8, 2048, 2048,
+                                128, True, dt, timed=True, design='cc')
+            dq, dkv = (bwd[n]['ms'] for n in ('flash_attention_bwd_dq',
+                                              'flash_attention_bwd_dkv'))
+            cdq, cdkv = (cc[n]['ms'] for n in ('flash_attention_bwd_dq',
+                                               'flash_attention_bwd_dkv'))
+            for kname in cc:
+                bwd[kname]['cuda_core_ms'] = cc[kname]['ms']
+            emit(phase='kernels', step='llama_f32_bwd_designs',
+                 tf32x3_dq_ms=dq, tf32x3_dkv_ms=dkv, tf32x3_pair_ms=dq + dkv,
+                 cuda_core_dq_ms=cdq, cuda_core_dkv_ms=cdkv,
+                 cuda_core_pair_ms=cdq + cdkv,
+                 sdpa_f32_whole_bwd_ms=bwd['flash_attention_bwd_dq'][
+                     'library_ms'],
+                 speedup_dq=cdq / dq, speedup_dkv=cdkv / dkv)
     # the CUDA-core kernels of the other head dims (csrc/flash_cc.cu):
     # timed at D = 96, checked at the tiny llama's D = 16 and at D = 32
     # with a k_len 0 row
@@ -2277,10 +2342,9 @@ def _group(name):
 def _flash_design(name):
     """The flash kernel a profiler key names, by design: 'fwd_wgmma',
     'bwd_dq_wgmma' and 'bwd_dkv_wgmma' (bf16, tensor cores), 'fwd_tf32x3',
-    'bwd_dq_tf32x3' and 'bwd_dkv_tf32x3' (float32 as 3xTF32, tensor cores,
-    D = 64 for the backward), 'fwd_cc', 'bwd_dq_cc' and 'bwd_dkv_cc' (CUDA
-    cores, csrc/flash_cc.cu: the other head dims, and the float32 backward
-    at D = 128); None for any other kernel."""
+    'bwd_dq_tf32x3' and 'bwd_dkv_tf32x3' (float32 as 3xTF32, tensor cores),
+    'fwd_cc', 'bwd_dq_cc' and 'bwd_dkv_cc' (CUDA cores, csrc/flash_cc.cu:
+    the other head dims); None for any other kernel."""
     for stem, short in (('flash_fwd', 'fwd'), ('flash_bwd_dkv', 'bwd_dkv'),
                         ('flash_bwd_dq', 'bwd_dq')):
         if stem in name:
@@ -3039,7 +3103,8 @@ def phase_nan_trip(smi):
 LLAMA_B = 2
 # the flash kernels of one llama_1b step (16 layers, D = 128), by design
 LLAMA_FLASH = {
-    'float32': {'fwd_tf32x3': 16, 'bwd_dq_cc': 16, 'bwd_dkv_cc': 16},
+    'float32': {'fwd_tf32x3': 16, 'bwd_dq_tf32x3': 16,
+                'bwd_dkv_tf32x3': 16},
     'bfloat16': {'fwd_wgmma': 16, 'bwd_dq_wgmma': 16, 'bwd_dkv_wgmma': 16}}
 LLAMA_STEPS = 16   # steps on one repeated batch in training_llama
 
@@ -3469,15 +3534,12 @@ _F32_DESIGNS = {
     ('flash_attention_bwd_dq', 'float32'): '3xTF32 wgmma, tensor cores, '
                                            'D = 64',
     ('flash_attention_bwd_dq', 'float32_d128'):
-        'CUDA cores, D = 128 (flash_bwd_dq_cc_kernel, DP = 128)',
+        '3xTF32 wgmma, tensor cores, D = 128, 16-key ring tiles',
     ('flash_attention_bwd_dkv', 'float32'): '3xTF32 wgmma, tensor cores, '
                                             'D = 64',
     ('flash_attention_bwd_dkv', 'float32_d128'):
-        'CUDA cores, D = 128 (flash_bwd_dkv_cc_kernel, DP = 128)',
+        '3xTF32 wgmma, tensor cores, D = 128, 16-row ring tiles',
 }
-# the float32 backward at D = 128 runs csrc/flash_cc.cu
-_F32_SOURCES = {(name, 'float32_d128'): _CC[1] for name in (
-    'flash_attention_bwd_dq', 'flash_attention_bwd_dkv')}
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
                   'paddle_tpu/ops/kernelgen/builder.py:795')
@@ -3615,14 +3677,15 @@ def main(argv=None):
                 inst = dict(
                     key=key, dtype=dt,
                     design=design or _F32_DESIGNS[name, key],
-                    source=isrc or _F32_SOURCES.get((name, key), src),
+                    source=isrc or src,
                     case=r['case'], D=r['D'],
                     launches=instance_launches(name, key),
                     launches_by_path=path_counts(name, ipaths),
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'])
-                for extra in ('bound_cuda_cores_ms', 'bound_tf32x3_ms'):
+                for extra in ('bound_cuda_cores_ms', 'bound_tf32x3_ms',
+                              'cuda_core_ms'):
                     if extra in r:
                         inst[extra] = r[extra]
                 row['instances'].append(inst)

@@ -58,6 +58,11 @@ capture needs of the code it runs, where it is handled:
   a few small matrix products on the capture stream
   (`GraphPool.warm_thread`), as a ServingEngine's dispatch thread does
   after a warm-up on the main thread.
+- Garbage collection: a collection that runs inside a capture may free
+  an old graph, whose teardown a capture does not permit ("operation not
+  permitted when stream is capturing"; the capture then fails).
+  `GraphPool.capture` turns the collector off while it captures
+  (`torch.cuda.graph` collects once before the capture begins).
 - A capture that fails leaves the caching allocator recording into the
   pool, and later captures in the process fail too: so a failure raises
   naming the op and is not retried.
@@ -68,6 +73,7 @@ side stream, warm threads, the capture itself and its launch counts);
 generation's compiled windows (serving/generation/decode.py) capture
 through it as the executor's entries do.
 """
+import gc
 import threading
 import time
 
@@ -133,6 +139,8 @@ class GraphPool(object):
         cur.wait_stream(self.stream)
         before = _launch_counts()
         err, out = None, None
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode='thread_local'):
@@ -144,6 +152,9 @@ class GraphPool(object):
             if err is None:
                 raise RuntimeError('CUDA graph capture of %s failed: %s'
                                    % (what, e)) from e
+        finally:
+            if collecting:
+                gc.enable()
         if err is not None:
             _set_launch_counts(before)
             if isinstance(err, CaptureError):

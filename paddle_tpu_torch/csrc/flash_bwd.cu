@@ -1,7 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
-// cores (wgmma), bf16 directly and float32 as 3xTF32 (D = 64).  Float32
-// at D = 128 runs on CUDA cores in csrc/flash_cc.cu (pt_flash_cc_bwd_dq,
-// pt_flash_cc_bwd_dkv at DP = 128), which ops/attention.py routes to.
+// cores (wgmma), bf16 directly and float32 as 3xTF32, at D = 64 and 128.
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -75,7 +73,7 @@
 // next tile's products, a persistent grid.
 //
 // float32, flash_bwd_dq_tf32x3_kernel<D> and flash_bwd_dkv_tf32x3_kernel<D>
-// (D = 64): the bf16 kernels' block shapes, order of tiles, masks and
+// (D = 64, 128): the bf16 kernels' block shapes, order of tiles, masks and
 // skipping, with every product on the TF32 tensor cores as three, x y ~
 // x_lo y_hi + x_hi y_lo + x_hi y_hi (small terms first), x_hi =
 // tf32_rna(x), x_lo = tf32_rna(x - x_hi) (hopper_mma.cuh; one TF32
@@ -85,31 +83,51 @@
 //  - both wgmma operands K-major (.tf32 has no transpose), so the product
 //    that reduces over a ring tile's rows reads that tile transposed:
 //    K^T for dQ += dS K, dO^T and Q^T for dV += P^T dO and dK += dS^T Q,
-//    written rows contiguous by split_t32 with the 8-row permutation that
+//    written rows contiguous by split_t with the 8-row permutation that
 //    lets the S / S^T accumulator feed wgmma as the A fragment (dS, P^T,
 //    dS^T as hi + lo) without shuffles;
-//  - ring tiles of 32 rows (keys for dQ, query rows for dK/dV; S is
-//    m64n32), since every operand is held twice and a float32 tile is
-//    twice a bf16 one.  dQ: Q, dO hi + lo 64 KB, the raw K/V ring (2
-//    stages, TMA) 32 KB, this tile's K, V split 32 KB, K^T of tiles t and
-//    t+1 32 KB: 160 KB.  dK/dV: K, V hi + lo 64 KB, the raw Q/dO ring 32
-//    KB, this tile's Q, dO split 32 KB, Q^T and dO^T of tiles it and it+1
-//    64 KB, and their LSE and delta: 192 KB.  One block (4 warps) an SM;
+//  - ring tiles of TT rows (keys for dQ, query rows for dK/dV; S is
+//    m64nTT), since every operand is held twice and a float32 tile is
+//    twice a bf16 one.  At D = 64, TT = 32.  dQ: Q, dO hi + lo 64 KB, the
+//    raw K/V ring (2 stages, TMA) 32 KB, this tile's K, V split 32 KB,
+//    K^T of tiles t and t+1 32 KB: 160 KB.  dK/dV: K, V hi + lo 64 KB, the
+//    raw Q/dO ring 32 KB, this tile's Q, dO split 32 KB, Q^T and dO^T of
+//    tiles it and it+1 64 KB, and their LSE and delta: 192 KB;
+//  - at D = 128 those layouts need 320 and 384 KB, above the 227 KB a
+//    block may have, so TT = 16 (ring_rows): every tile buffer halves and
+//    two 16-row transposed tiles share one [D x 32] region, at columns 0
+//    and 16 (tregion, tcol).  dQ: Q, dO hi + lo 128 KB, ring 32 KB, split
+//    32 KB, K^T of tiles t and t+1 in one region pair 32 KB: 224 KB.
+//    dK/dV: K, V hi + lo 128 KB, ring 32 KB, split 32 KB, and one slot of
+//    Q^T beside dO^T in one region pair 32 KB: 224 KB (two slots would
+//    need 256);
 //  - the split: tile t+1 is split while tile t's last products (dS K, or
 //    P^T dO and dS^T Q) run on the tensor cores, which is why the
-//    transposed copies are double-buffered; the ring stage a split has
-//    read is refilled at the top of the next pass.  The dK/dV split also
-//    loads the next tile's LSE and delta (plain loads, first warp).
-// Each key tile of dQ runs 3 x 2 x D/8 products for S and dP and 3 x 4
-// for dS K; each ring tile of dK/dV 3 x 2 x D/8 for S^T and dP^T and 3 x 8
-// for dV and dK.  S and dP keep their big and small terms in separate
-// accumulators, dP's big terms in four (product_x3 says why).  ptxas: 170
-// registers (dQ) and 202 (dK/dV), no spills; 164,888 and 198,168 bytes
-// of shared memory a block, one block an SM, as the CUDA runtime reports
-// them.  At D = 128 the same layouts need 320 and 384 KB, above the 227
-// KB a block may have (float32 at D = 128 therefore runs csrc/flash_cc.cu).
-// Not yet used: a producer warp, 64-row ring tiles (N = 64 products read
-// their A tile half as often, for more registers), a persistent grid.
+//    transposed copies have two slots; the ring stage a split has read is
+//    refilled at the top of the next pass.  The dK/dV split also loads
+//    the next tile's LSE and delta (plain loads, first warp).  With one
+//    transposed slot (dK/dV at D = 128) a tile's Q^T and dO^T are written
+//    while its own S^T and dP^T run (they read Q and dO, not the
+//    transposes), and its ring stage is refilled after that.  One block
+//    (4 warps) an SM;
+//  - the sums: a block adds dQ, or dK and dV, from its registers into its
+//    output tile at every 256th row of the reduction and starts them
+//    again from zero (flush_acc says why), so no chain of truncating
+//    tensor-core adds is longer than 256 rows.
+// Each key tile of dQ runs 3 x 2 x D/8 products for S and dP and 3 x TT/8
+// for dS K; each ring tile of dK/dV 3 x 2 x D/8 for S^T and dP^T and 3 x
+// TT/4 for dV and dK.  S and dP keep their big and small terms in
+// separate accumulators, dP's big terms in four (product_x3 says why).
+// What bounds D = 128: the m64n16 products of S and dP read their A tile
+// (the resident Q or K, hi and lo) from shared memory once every 16 rows,
+// about 2.5 KB a k8 product for 16 K FLOPs, so shared-memory reads, not
+// the tensor cores, bound them.  ptxas: 170 registers (dQ) and 202
+// (dK/dV) at D = 64, 155 and 253 at D = 128, no spills; 164,888 and
+// 198,168 bytes of shared memory a block at D = 64, 230,424 and 230,680
+// at D = 128, one block an SM, as the CUDA runtime reports them.  Not yet used: a producer warp, a
+// cluster of two blocks splitting D (each keeps the D = 64 layout and
+// adds partial S and dP through distributed shared memory), the second
+// products in transposed form (no transposed copies), a persistent grid.
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -559,8 +577,13 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 // --------------------------------------- float32, 3xTF32 tensor cores
 
-constexpr int TT = 32;       // rows of a ring tile: keys (dQ), query rows
-                             // (dK/dV); one a lane in split_t32
+// rows of a ring tile: keys (dQ), query rows (dK/dV).  32 at D = 64, 16 at
+// D = 128, where the 32-row layouts need more shared memory than a block
+// may have
+template <int D>
+__host__ __device__ constexpr int ring_rows() {
+  return D == 64 ? 32 : 16;
+}
 constexpr int TSTAGES = 2;   // raw ring depth
 
 // one [rows x 32] float32 region of a tile in the 128-byte swizzle
@@ -575,52 +598,68 @@ __device__ __forceinline__ float4* f4(float* p) {
   return reinterpret_cast<float4*>(p);
 }
 
-// A B^T [64 x 32] over D as three TF32 products a k8 step (A: 64 rows,
-// B: 32 rows, both K-major hi + lo regions of 32 columns), into NB + 1
-// accumulators: the big terms A_hi B_hi of k8 step kc into big[kc % NB],
-// the small ones A_lo B_hi + A_hi B_lo into small; sum_terms adds them
-// once the products are done.  The tensor cores add each k8 step's
-// products into the accumulator truncating toward zero, not rounding to
-// nearest.  Added into the big terms' accumulator, the small terms lose
-// their low bits at the big terms' scale: dS = P (dP - delta) of a row
-// with one valid key (dP = delta exactly, so dS is all rounding) came out
-// 2.3x past the float32 check on an H100.  In their own accumulator they
-// keep them at their own, 2^-11 smaller, scale; the truncations of one
-// long chain of big terms still added up past the check there, so dP
-// spreads its k8 steps over NB = 4 accumulators, which holds it
+// Where transposed slot vb (0, 1) of TT-row tiles lies among [D x 32]
+// regions: a 32-row tile fills region vb; two 16-row tiles share region 0,
+// at columns 0 and 16 (split_t writes there, the B descriptor starts there)
+template <int TT>
+__device__ __forceinline__ int tregion(int vb) {
+  return TT == 32 ? vb : 0;
+}
+
+template <int TT>
+__device__ __forceinline__ int tcol(int vb) {
+  return TT == 32 ? 0 : 16 * vb;
+}
+
+// A B^T [64 x N] over D as three TF32 products a k8 step (A: 64 rows, B:
+// N = 2 NR rows, both K-major hi + lo regions of 32 columns; NR
+// accumulator values a thread), into NB + 1 accumulators: the big terms
+// A_hi B_hi of k8 step kc into big[kc % NB], the small ones A_lo B_hi +
+// A_hi B_lo into small; sum_terms adds them once the products are done.
+// The tensor cores add each k8 step's products into the accumulator
+// truncating toward zero, not rounding to nearest.  Added into the big
+// terms' accumulator, the small terms lose their low bits at the big
+// terms' scale: dS = P (dP - delta) of a row with one valid key (dP =
+// delta exactly, so dS is all rounding) came out 2.3x past the float32
+// check on an H100.  In their own accumulator they keep them at their
+// own, 2^-11 smaller, scale; the truncations of one long chain of big
+// terms still added up past the check there, so dP spreads its k8 steps
+// over NB = 4 accumulators, which holds it
 // (tests/test_torch_flash_bwd_tf32x3_numerics.py models the first design
 // and this one).
-template <int D, int AROWS, int NB>
-__device__ __forceinline__ void product_x3(float (&big)[NB][16],
-                                           float (&small)[16],
+template <int D, int AROWS, int NB, int NR>
+__device__ __forceinline__ void product_x3(float (&big)[NB][NR],
+                                           float (&small)[NR],
                                            const FChunk<AROWS>* ahi,
                                            const FChunk<AROWS>* alo,
-                                           const FChunk<TT>* bhi,
-                                           const FChunk<TT>* blo) {
+                                           const float* bhi,
+                                           const float* blo) {
   using namespace hopper;
+  constexpr int BREGION = 2 * NR * 32;  // floats of a B region
 #pragma unroll
   for (int kc = 0; kc < D / 8; ++kc) {
     const int c = kc / 4, off = (kc % 4) * 8;
     const uint64_t ah = make_desc(ahi[c] + off, 16, 1024);
-    const uint64_t bh = make_desc(bhi[c] + off, 16, 1024);
+    const uint64_t bh = make_desc(bhi + c * BREGION + off, 16, 1024);
     wgmma_ss_tf32(small, make_desc(alo[c] + off, 16, 1024), bh, kc > 0);
-    wgmma_ss_tf32(small, ah, make_desc(blo[c] + off, 16, 1024), 1);
+    wgmma_ss_tf32(small, ah, make_desc(blo + c * BREGION + off, 16, 1024),
+                  1);
     wgmma_ss_tf32(big[kc % NB], ah, bh, kc >= NB);
   }
 }
 
 // out = the big accumulators, summed pairwise, + small (float32, rounded
 // to nearest), once the products into them have been waited for
-template <int NB>
-__device__ __forceinline__ void sum_terms(float (&big)[NB][16],
-                                          float (&small)[16],
-                                          float (&out)[16]) {
+template <int NB, int NR>
+__device__ __forceinline__ void sum_terms(float (&big)[NB][NR],
+                                          float (&small)[NR],
+                                          float (&out)[NR]) {
   static_assert(NB == 1 || NB == 2 || NB == 4, "pairwise sum");
 #pragma unroll
   for (int b = 0; b < NB; ++b) hopper::fence_regs(big[b]);
   hopper::fence_regs(small);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < NR; ++i) {
     float x = big[0][i];
     if constexpr (NB == 2) x += big[1][i];
     if constexpr (NB == 4) x = (x + big[1][i]) + (big[2][i] + big[3][i]);
@@ -628,17 +667,58 @@ __device__ __forceinline__ void sum_terms(float (&big)[NB][16],
   }
 }
 
-// acc[64 x D] += A B over the TT rows of a ring tile: A = hi + lo register
-// fragments of an accumulator, B = the tile transposed (split_t32)
+// The tensor cores add into an accumulator truncating toward zero, so a
+// long chain of adds drifts toward zero: dK/dV at the training llama's
+// shape (4,096 query rows a key) missed the float32 check on an H100, as
+// the CPU emulation predicts.  So a block adds its register
+// sums into its own output tile, rounded to nearest, at every
+// FLUSH_ROWS-th row of the reduction (keys for dQ, query rows of a head
+// for dK/dV, also where the head changes), and starts them again from
+// zero; the output is read back only by the thread that wrote it.
+constexpr int FLUSH_ROWS = 256;
+
+// out rows row0 .. row0 + 63 (below `rows`) of a [rows x 2 NACC] float32
+// tensor = (the first flush) or += acc x mul, in the accumulator layout;
+// then acc = 0
 template <int NACC>
+__device__ __forceinline__ void flush_acc(float* __restrict__ out, int row0,
+                                          int rows, float (&acc)[NACC],
+                                          float mul, bool first) {
+  constexpr int D = 2 * NACC;
+  const int cq = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + hopper::acc_row(0) + 8 * h;
+    if (r >= rows) continue;
+    float* op = out + (size_t)r * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float2* p = reinterpret_cast<float2*>(op + 8 * j + cq);
+      float2 x = make_float2(acc[4 * j + 2 * h] * mul,
+                             acc[4 * j + 2 * h + 1] * mul);
+      if (!first) {
+        const float2 o = *p;
+        x = make_float2(o.x + x.x, o.y + x.y);
+      }
+      *p = x;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+}
+
+// acc[64 x D] += A B over the 8 K8 rows of a ring tile: A = hi + lo
+// register fragments of an accumulator, B = the tile transposed (split_t),
+// bthi / btlo at its first column
+template <int NACC, int K8>
 __device__ __forceinline__ void product_rs_x3(float (&acc)[NACC],
-                                              uint32_t (&ahi)[TT / 8][4],
-                                              uint32_t (&alo)[TT / 8][4],
+                                              uint32_t (&ahi)[K8][4],
+                                              uint32_t (&alo)[K8][4],
                                               const float* bthi,
                                               const float* btlo) {
   using namespace hopper;
 #pragma unroll
-  for (int kk = 0; kk < TT / 8; ++kk) {
+  for (int kk = 0; kk < K8; ++kk) {
     const uint64_t bh = make_desc(bthi + kk * 8, 16, 1024);
     wgmma_rs_tf32(acc, alo[kk], bh, 1);
     wgmma_rs_tf32(acc, ahi[kk], make_desc(btlo + kk * 8, 16, 1024), 1);
@@ -650,13 +730,14 @@ __device__ __forceinline__ void product_rs_x3(float (&acc)[NACC],
 
 template <int D>
 struct DqTf32Smem {
+  static constexpr int TT = ring_rows<D>();
   FChunk<WQ> qhi[D / 32], qlo[D / 32];    // Q, dO as TF32 hi + lo
   FChunk<WQ> dohi[D / 32], dolo[D / 32];
   FChunk<TT> kraw[TSTAGES][D / 32];       // the TMA ring: K, V as loaded
   FChunk<TT> vraw[TSTAGES][D / 32];
   FChunk<TT> khi[D / 32], klo[D / 32];    // this tile's K, V (S, dP)
   FChunk<TT> vhi[D / 32], vlo[D / 32];
-  FChunk<D> kthi[2][TT / 32], ktlo[2][TT / 32];  // K^T of tiles t, t+1
+  FChunk<D> kthi[TT / 16], ktlo[TT / 16];  // K^T of tiles t, t+1 (tregion)
   uint64_t qbar, full[TSTAGES];
 };
 
@@ -666,6 +747,7 @@ __device__ __forceinline__ void load_kv_f32(DqTf32Smem<D>& sm,
                                             const CUtensorMap* tk,
                                             const CUtensorMap* tv, int kvh,
                                             int t, int s) {
+  constexpr int TT = ring_rows<D>();
   hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
 #pragma unroll
   for (int c = 0; c < D / 32; ++c) {
@@ -674,15 +756,17 @@ __device__ __forceinline__ void load_kv_f32(DqTf32Smem<D>& sm,
   }
 }
 
-// ring stage s: K into K_hi, K_lo and K^T buffer vb, V into V_hi, V_lo
+// ring stage s: K into K_hi, K_lo and K^T slot vb, V into V_hi, V_lo
 template <int D>
 __device__ __forceinline__ void split_kv_tile(DqTf32Smem<D>& sm, int s,
                                               int vb) {
+  constexpr int TT = ring_rows<D>();
   hopper::split_tf32<TT * D / 4>(f4(sm.kraw[s][0]), f4(sm.khi[0]),
                                  f4(sm.klo[0]));
   hopper::split_tf32<TT * D / 4>(f4(sm.vraw[s][0]), f4(sm.vhi[0]),
                                  f4(sm.vlo[0]));
-  hopper::split_t32<D>(sm.kraw[s][0], sm.kthi[vb][0], sm.ktlo[vb][0]);
+  hopper::split_t<D, TT>(sm.kraw[s][0], sm.kthi[tregion<TT>(vb)],
+                         sm.ktlo[tregion<TT>(vb)], tcol<TT>(vb));
 }
 
 template <int D>
@@ -698,6 +782,7 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                            int Tk, int causal, float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;  // 32-column regions of a row
+  constexpr int TT = ring_rows<D>();
   extern __shared__ uint8_t smem_raw[];
   DqTf32Smem<D>& sm = *reinterpret_cast<DqTf32Smem<D>*>(align_1024(smem_raw));
 
@@ -745,6 +830,7 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  bool first = true;  // no chain added into dq yet
 
   // Q, dO and tile 0 are split before the loop; tile t+1 is split while
   // tile t's dS K runs on the tensor cores
@@ -763,11 +849,11 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0 && t + TSTAGES < ntiles)
       load_kv_f32(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
 
-    // S = Q K^T and dP = dO V^T: 64 query rows x 32 keys
+    // S = Q K^T and dP = dO V^T: 64 query rows x TT keys
     float sbig[1][TT / 2], ssm[TT / 2], dpbig[4][TT / 2], dpsm[TT / 2];
     wgmma_fence();
-    product_x3<D, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi, sm.klo);
-    product_x3<D, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi, sm.vlo);
+    product_x3<D, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi[0], sm.klo[0]);
+    product_x3<D, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi[0], sm.vlo[0]);
     wgmma_commit();
     wgmma_wait<0>();
     float sacc[TT / 2], dp[TT / 2];
@@ -795,10 +881,11 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dQ += dS K, K^T staged keys contiguous
     wgmma_fence();
-    product_rs_x3(acc, dshi, dslo, sm.kthi[vb][0], sm.ktlo[vb][0]);
+    product_rs_x3(acc, dshi, dslo, sm.kthi[tregion<TT>(vb)] + tcol<TT>(vb),
+                  sm.ktlo[tregion<TT>(vb)] + tcol<TT>(vb));
     wgmma_commit();
     if (t + 1 < ntiles) {
-      // K^T buffer 1 - vb was read by tile t-1's dS K, waited for by all
+      // K^T slot 1 - vb was read by tile t-1's dS K, waited for by all
       const int s1 = (t + 1) % TSTAGES;
       mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
       split_kv_tile(sm, s1, 1 - vb);
@@ -808,22 +895,15 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(acc);
     keep_regs(dshi);
     keep_regs(dslo);
+    if ((k0 + TT) % FLUSH_ROWS == 0 && t + 1 < ntiles) {
+      flush_acc(dq + (size_t)bh * Tq * D, q0, Tq, acc, scale, first);
+      first = false;
+    }
     __syncthreads();  // tile t+1 split; every warp is done with K^T vb
   }
 
-  // dQ x scale once
-  const int cq = 2 * (tid % 4);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + r0 + 8 * h;
-    if (qi >= Tq) continue;
-    float* op = dq + ((size_t)bh * Tq + qi) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(op + 8 * j + cq) =
-          make_float2(acc[4 * j + 2 * h] * scale,
-                      acc[4 * j + 2 * h + 1] * scale);
-  }
+  // the last chain, x scale (a tile without keys writes zeros)
+  flush_acc(dq + (size_t)bh * Tq * D, q0, Tq, acc, scale, first);
 }
 
 template <int D>
@@ -832,6 +912,7 @@ int launch_dq_tf32x3(const void* q, const void* k, const void* v,
                      const void* dout, void* dq, int B, int H, int Hkv,
                      int Tq, int Tk, int causal, float scale,
                      cudaStream_t stream) {
+  constexpr int TT = ring_rows<D>();
   CUtensorMap mq, mk, mv, mdo;
   int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, WQ);
   if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, WQ);
@@ -852,19 +933,32 @@ int launch_dq_tf32x3(const void* q, const void* k, const void* v,
 
 // --------------------------------------------------------- dK/dV, float32
 
+// Q^T and dO^T: 32-row tiles keep two slots of each (Q^T slots 0, 1, dO^T
+// 2, 3), so tile it+1's are written while tile it's dV and dK products
+// read tile it's; 16-row tiles (D = 128) keep one slot of each, Q^T and
+// dO^T side by side in one region (qt_slot)
 template <int D>
 struct DkvTf32Smem {
+  static constexpr int TT = ring_rows<D>();
+  static constexpr int T_REGIONS = TT == 32 ? 4 : 1;
   FChunk<WK> khi[D / 32], klo[D / 32];    // K, V as TF32 hi + lo
   FChunk<WK> vhi[D / 32], vlo[D / 32];
   FChunk<TT> qraw[TSTAGES][D / 32];       // the TMA ring: Q, dO as loaded
   FChunk<TT> doraw[TSTAGES][D / 32];
   FChunk<TT> qhi[D / 32], qlo[D / 32];    // this tile's Q, dO (S^T, dP^T)
   FChunk<TT> dohi[D / 32], dolo[D / 32];
-  FChunk<D> qthi[2][TT / 32], qtlo[2][TT / 32];    // Q^T, dO^T of ring
-  FChunk<D> dothi[2][TT / 32], dotlo[2][TT / 32];  // tiles it, it+1
-  float lse2[2][TT], delta[2][TT];        // their LSE (base 2) and delta
+  FChunk<D> thi[T_REGIONS], tlo[T_REGIONS];  // Q^T, dO^T
+  float lse2[2][TT], delta[2][TT];        // LSE (base 2) and delta of
+                                          // ring tiles it, it+1
   uint64_t kvbar, full[TSTAGES];
 };
+
+// the transposed slot (tregion, tcol) of Q^T (which = 0) or dO^T (which
+// = 1) for tiles of parity vb
+template <int TT>
+__device__ __forceinline__ int qt_slot(int which, int vb) {
+  return TT == 32 ? 2 * which + vb : which;
+}
 
 // thread 0: Q and dO of ring tile `pos` into stage s
 template <int D>
@@ -872,6 +966,7 @@ __device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
                                              const CUtensorMap* tq,
                                              const CUtensorMap* tdo,
                                              RingPos pos, int s) {
+  constexpr int TT = ring_rows<D>();
   hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
 #pragma unroll
   for (int c = 0; c < D / 32; ++c) {
@@ -882,16 +977,30 @@ __device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
   }
 }
 
-// ring stage s (tile `pos`): Q into Q_hi, Q_lo and Q^T buffer vb, dO into
-// dO_hi, dO_lo and dO^T buffer vb; the first warp loads the tile's LSE and
-// delta into buffer vb, 0 past Tq (plain loads: a tile's rows start at any
-// float of the flat [B*H*Tq] vectors, which a TMA box does not take)
+// ring stage s: Q^T and dO^T into transposed slot vb
 template <int D>
+__device__ __forceinline__ void split_qdo_t(DkvTf32Smem<D>& sm, int s,
+                                            int vb) {
+  constexpr int TT = ring_rows<D>();
+  const int sq = qt_slot<TT>(0, vb), sdo = qt_slot<TT>(1, vb);
+  hopper::split_t<D, TT>(sm.qraw[s][0], sm.thi[tregion<TT>(sq)],
+                         sm.tlo[tregion<TT>(sq)], tcol<TT>(sq));
+  hopper::split_t<D, TT>(sm.doraw[s][0], sm.thi[tregion<TT>(sdo)],
+                         sm.tlo[tregion<TT>(sdo)], tcol<TT>(sdo));
+}
+
+// ring stage s (tile `pos`): Q into Q_hi, Q_lo and dO into dO_hi, dO_lo,
+// and with WITH_T Q^T and dO^T into transposed slot vb; the first warp
+// loads the tile's LSE and delta into buffer vb, 0 past Tq (plain loads: a
+// tile's rows start at any float of the flat [B*H*Tq] vectors, which a TMA
+// box does not take)
+template <int D, bool WITH_T>
 __device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
                                                int vb, RingPos pos,
                                                const float* __restrict__ lse,
                                                const float* __restrict__ delta,
                                                int Tq) {
+  constexpr int TT = ring_rows<D>();
   const int r = threadIdx.x;
   if (r < TT) {
     const bool in = pos.q0 + r < Tq;
@@ -903,8 +1012,7 @@ __device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
                                  f4(sm.qlo[0]));
   hopper::split_tf32<TT * D / 4>(f4(sm.doraw[s][0]), f4(sm.dohi[0]),
                                  f4(sm.dolo[0]));
-  hopper::split_t32<D>(sm.qraw[s][0], sm.qthi[vb][0], sm.qtlo[vb][0]);
-  hopper::split_t32<D>(sm.doraw[s][0], sm.dothi[vb][0], sm.dotlo[vb][0]);
+  if constexpr (WITH_T) split_qdo_t(sm, s, vb);
 }
 
 template <int D>
@@ -921,6 +1029,11 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                             float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;
+  constexpr int TT = ring_rows<D>();
+  // two transposed slots: tile it+1's Q^T, dO^T are written beside tile
+  // it's dV and dK products; one slot (D = 128): tile it's are written
+  // beside its own S^T and dP^T products, which do not read them
+  constexpr bool TWO_T = TT == 32;
   extern __shared__ uint8_t smem_raw[];
   DkvTf32Smem<D>& sm =
       *reinterpret_cast<DkvTf32Smem<D>*>(align_1024(smem_raw));
@@ -959,6 +1072,9 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   float dka[D / 2], dva[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  bool first = true;  // no chain added into dk, dv yet
+  float* const dkb = dk + (size_t)bkv * Tk * D;
+  float* const dvb = dv + (size_t)bkv * Tk * D;
 
   // K, V and ring tile 0 are split before the loop; tile it+1 is split
   // while tile it's dV and dK products run on the tensor cores
@@ -967,30 +1083,41 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     split_tf32<WK * D / 4>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
     split_tf32<WK * D / 4>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
     mbar_wait(&sm.full[0], 0);
-    split_qdo_tile(sm, 0, 0, ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
-                   delta, Tq);
+    split_qdo_tile<D, TWO_T>(sm, 0, 0,
+                             ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
+                             delta, Tq);
     fence_proxy_async();
   }
   __syncthreads();
   for (int it = 0; it < total; ++it) {
-    const int vb = it % 2;
+    const int vb = it % 2, s = it % TSTAGES;
     const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, TT).q0;
-    if (tid == 0 && it + TSTAGES < total)
+    // with two transposed slots, tile it's stage was read in the last pass
+    if (TWO_T && tid == 0 && it + TSTAGES < total)
       load_qdo_f32(sm, &tq, &tdo,
-                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT),
-                   it % TSTAGES);
+                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 query rows
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x TT query rows
     float stbig[1][TT / 2], stsm[TT / 2], dptbig[4][TT / 2], dptsm[TT / 2];
     wgmma_fence();
-    product_x3<D, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi, sm.qlo);
-    product_x3<D, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi, sm.dolo);
+    product_x3<D, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi[0], sm.qlo[0]);
+    product_x3<D, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi[0],
+                      sm.dolo[0]);
     wgmma_commit();
+    if constexpr (!TWO_T) {
+      // tile it-1's dV and dK, which read the one slot, were waited for
+      split_qdo_t(sm, s, 0);
+      fence_proxy_async();
+    }
     wgmma_wait<0>();
     float st[TT / 2], dpt[TT / 2];
     sum_terms(stbig, stsm, st);
     sum_terms(dptbig, dptsm, dpt);
-    __syncthreads();  // every warp is done with Q and dO split
+    __syncthreads();  // every warp is done with Q and dO split (one slot:
+                      // and has written Q^T and dO^T)
+    if (!TWO_T && tid == 0 && it + TSTAGES < total)
+      load_qdo_f32(sm, &tq, &tdo,
+                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
 
     // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
     // under the masks, P = 0 where masked; interior tiles skip the mask
@@ -1014,17 +1141,21 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     acc_to_tf32_split(dpt, dshi, dslo);
 
     // dV += P^T dO and dK += dS^T Q, dO^T and Q^T staged rows contiguous
+    const int sq = qt_slot<TT>(0, vb), sdo = qt_slot<TT>(1, vb);
     wgmma_fence();
-    product_rs_x3(dva, phi, plo, sm.dothi[vb][0], sm.dotlo[vb][0]);
-    product_rs_x3(dka, dshi, dslo, sm.qthi[vb][0], sm.qtlo[vb][0]);
+    product_rs_x3(dva, phi, plo, sm.thi[tregion<TT>(sdo)] + tcol<TT>(sdo),
+                  sm.tlo[tregion<TT>(sdo)] + tcol<TT>(sdo));
+    product_rs_x3(dka, dshi, dslo, sm.thi[tregion<TT>(sq)] + tcol<TT>(sq),
+                  sm.tlo[tregion<TT>(sq)] + tcol<TT>(sq));
     wgmma_commit();
     if (it + 1 < total) {
-      // buffers 1 - vb were read by tile it-1's products, waited for
+      // Q and dO split were read by tile it's S^T and dP^T, waited for;
+      // with two slots, slot 1 - vb by tile it-1's products, waited for
       const int s1 = (it + 1) % TSTAGES;
       mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
-      split_qdo_tile(sm, s1, 1 - vb,
-                     ring_pos(it + 1, b, H, hk, g, qt0, nq, TT), lse, delta,
-                     Tq);
+      split_qdo_tile<D, TWO_T>(sm, s1, 1 - vb,
+                               ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
+                               lse, delta, Tq);
       fence_proxy_async();
     }
     wgmma_wait<0>();
@@ -1034,25 +1165,18 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     keep_regs(plo);
     keep_regs(dshi);
     keep_regs(dslo);
-    __syncthreads();  // tile it+1 split; every warp is done with buffers vb
+    // a chain ends at every FLUSH_ROWS-th query row and with each head
+    if (((q0 + TT) % FLUSH_ROWS == 0 || q0 + TT >= Tq) && it + 1 < total) {
+      flush_acc(dkb, k0, Tk, dka, scale, first);
+      flush_acc(dvb, k0, Tk, dva, 1.f, first);
+      first = false;
+    }
+    __syncthreads();  // tile it+1 split; every warp is done with slots vb
   }
 
-  // dK x scale once
-  const int cq = 2 * (tid % 4);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int ki = k0 + acc_row(0) + 8 * h;
-    if (ki >= Tk) continue;
-    const size_t row = ((size_t)bkv * Tk + ki) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int i = 4 * j + 2 * h;
-      *reinterpret_cast<float2*>(dk + row + 8 * j + cq) =
-          make_float2(dka[i] * scale, dka[i + 1] * scale);
-      *reinterpret_cast<float2*>(dv + row + 8 * j + cq) =
-          make_float2(dva[i], dva[i + 1]);
-    }
-  }
+  // the last chain, dK x scale (a tile without work writes zeros)
+  flush_acc(dkb, k0, Tk, dka, scale, first);
+  flush_acc(dvb, k0, Tk, dva, 1.f, first);
 }
 
 template <int D>
@@ -1061,6 +1185,7 @@ int launch_dkv_tf32x3(const void* q, const void* k, const void* v,
                       const void* dout, void* dk, void* dv, int B, int H,
                       int Hkv, int Tq, int Tk, int causal, float scale,
                       cudaStream_t stream) {
+  constexpr int TT = ring_rows<D>();
   CUtensorMap mq, mk, mv, mdo;
   int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, TT);
   if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, TT);
@@ -1113,6 +1238,9 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dq_tf32x3<64>(q, k, v, klen, lse, delta, dout, dq, B, H,
                                 Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_dq_tf32x3<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
+                                 Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
     return launch_dq_bf16<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
                               Tq, Tk, causal, scale, s);
@@ -1133,6 +1261,9 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64)
     return launch_dkv_tf32x3<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
                                  H, Hkv, Tq, Tk, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_dkv_tf32x3<128>(q, k, v, klen, lse, delta, dout, dk, dv,
+                                  B, H, Hkv, Tq, Tk, causal, scale, s);
   if (dtype == 1 && D == 64)
     return launch_dkv_bf16<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
                                H, Hkv, Tq, Tk, causal, scale, s);
@@ -1142,14 +1273,10 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return -1;
 }
 
-extern "C" int pt_flash_cc_occupancy(int D, int dtype, int kind, int* smem,
-                                     int* blocks);
-
 // The shared memory a backward launch asks for at head dimension D and
 // dtype (as in pt_flash_bwd_dq), for the dQ kernel (kind 0) or the dK/dV
 // kernel (kind 1), and how many such blocks an SM holds, as the CUDA
-// runtime reports them; 0 on success.  Float32 at D = 128 gives
-// csrc/flash_cc.cu's instances, which run it.
+// runtime reports them; 0 on success.
 extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                       int* blocks) {
   if (dtype == 0 && D == 64)
@@ -1159,7 +1286,12 @@ extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                  sizeof(DkvTf32Smem<64>) + 1024, smem,
                                  blocks);
   if (dtype == 0 && D == 128)
-    return pt_flash_cc_occupancy(D, dtype, kind, smem, blocks);
+    return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<128>,
+                                 sizeof(DqTf32Smem<128>) + 1024, smem,
+                                 blocks)
+                     : occupancy(flash_bwd_dkv_tf32x3_kernel<128>,
+                                 sizeof(DkvTf32Smem<128>) + 1024, smem,
+                                 blocks);
   if (dtype == 1 && D == 64)
     return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<64>,
                                  sizeof(DqSmem<64>) + 1024, smem, blocks)

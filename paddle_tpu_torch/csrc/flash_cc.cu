@@ -1,8 +1,10 @@
 // Flash attention on CUDA cores for the head dims the tensor-core kernels
 // do not take: forward (out, LSE), dQ and dK/dV, bf16 and float32, any
-// D % 8 == 0 up to 256; and the float32 backward at D = 128, where the
-// 3xTF32 layout of csrc/flash_bwd.cu needs more shared memory than a
-// block may have.
+// D % 8 == 0 up to 256.  The port routes D = 64 and 128 to the tensor-core
+// kernels; pt_flash_cc_bwd_dq and pt_flash_cc_bwd_dkv still take them
+// (the DP = 128 instance is the float32 backward's earlier design at
+// D = 128), so chip_smoke.py times that design beside the 3xTF32 kernels
+// of csrc/flash_bwd.cu that replaced it.
 //
 // The JAX package tiles every D % 8 == 0 in Pallas (paddle_tpu/ops/
 // attention.py:304-307): _flash_kernel (:52, K1), _flash_dq_kernel (:125,

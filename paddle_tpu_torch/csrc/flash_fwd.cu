@@ -69,7 +69,7 @@
 //    group where the TF32 A fragment takes depth columns c, c+4, so V^T
 //    is written with key 2c + e at position c + 4e of its group and the
 //    split P_hi, P_lo feed wgmma without shuffles (the split helpers,
-//    split_tf32, split_t32 and acc_to_tf32_split, are in hopper_mma.cuh,
+//    split_tf32, split_t and acc_to_tf32_split, are in hopper_mma.cuh,
 //    shared with the float32 backward);
 //  - shared memory: a float32 tile is twice a bf16 one and every operand
 //    is held twice, so key tiles are 32 keys (S is m64n32), the raw K/V
@@ -361,12 +361,12 @@ __device__ __forceinline__ void load_kv_f32(Tf32Smem<D>& sm,
 // ring stage s: K into K_hi, K_lo and V into V^T buffer vb
 template <int D>
 __device__ __forceinline__ void split_kv(Tf32Smem<D>& sm, int s, int vb) {
-  static_assert(TK == 32, "split_t32 takes one key a lane");
+  static_assert(TK == 32, "split_t takes one key a lane");
   hopper::split_tf32<TK * D / 4>(
       reinterpret_cast<const float4*>(sm.kraw[s][0]),
       reinterpret_cast<float4*>(sm.khi[0]),
       reinterpret_cast<float4*>(sm.klo[0]));
-  hopper::split_t32<D>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0]);
+  hopper::split_t<D, TK>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0], 0);
 }
 
 template <int D>

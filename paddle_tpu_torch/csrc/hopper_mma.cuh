@@ -394,6 +394,18 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 16] (+)= A[64 x 8] B[8 x 16], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x N] (+)= A[64 x 8] B[8 x N] (N = 64, 128), A from registers: thread
 // t holds rows r = 16 (t / 32) + (t % 32) / 4 and r + 8 at the depth
 // columns c = t % 4 and c + 4, as {(r, c), (r + 8, c), (r, c + 4),
@@ -495,26 +507,32 @@ __device__ __forceinline__ void split_tf32(const float4* src, float4* hi,
   }
 }
 
-// A tile of 32 rows x D float32 columns, as TMA lands it (D / 32 regions
-// of [32 rows x 32 columns] in the 128-byte swizzle), transposed into hi
-// and lo: [D x 32 rows], rows contiguous, the K-major B operand of a
-// product that reduces over the tile's rows (V in P V, K in dS K, dO in
-// P^T dO, Q in dS^T Q).  Lane = row, so a warp's stores fill whole
-// transposed rows, one bank each; row 8a + 2c + e lands at position 8a +
-// c + 4e, the depth column where an accumulator turned A fragment holds
-// it (acc_to_tf32_split).  Warp w takes columns 4 (w + 4 i) .. + 3.
-template <int D>
-__device__ __forceinline__ void split_t32(const float* raw, float* thi,
-                                          float* tlo) {
-  constexpr int IT = D / 16;  // 4-column groups a warp
-  const int j = threadIdx.x % 32, warp = (threadIdx.x % kWarpgroup) / 32;
-  const int pos = (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+// A tile of ROWS (32 or 16) rows x D float32 columns, as TMA lands it (D /
+// 32 regions of [ROWS x 32 columns] in the 128-byte swizzle), transposed
+// into hi and lo: [D x 32] regions, rows contiguous, the K-major B operand
+// of a product that reduces over the tile's rows (V in P V, K in dS K, dO
+// in P^T dO, Q in dS^T Q).  The tile's rows land at columns col0 .. col0 +
+// ROWS - 1 of the region (col0 = 0 or 16 when ROWS = 16: two tiles share
+// a region).  Thread t takes row j = t % ROWS, so a warp's stores fill
+// whole transposed rows, one bank each; row 8a + 2c + e lands at position
+// 8a + c + 4e, the depth column where an accumulator turned A fragment
+// holds it (acc_to_tf32_split).  The 128 / ROWS thread groups of ROWS
+// take the 4-column groups round robin.
+template <int D, int ROWS>
+__device__ __forceinline__ void split_t(const float* raw, float* thi,
+                                        float* tlo, int col0) {
+  static_assert(ROWS == 32 || ROWS == 16, "one row a thread of a group");
+  constexpr int NG = kWarpgroup / ROWS;  // thread groups
+  constexpr int IT = D / 4 / NG;         // 4-column groups a thread group
+  const int t = threadIdx.x % kWarpgroup;
+  const int j = t % ROWS, grp = t / ROWS;
+  const int col = col0 + ((j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2));
   float4 x[IT];
 #pragma unroll
   for (int i = 0; i < IT; ++i) {
-    const int d4 = warp + 4 * i;
+    const int d4 = grp + NG * i;
     const int c = d4 / 8, w = d4 % 8;  // region, 16-byte word of its row
-    x[i] = *reinterpret_cast<const float4*>(raw + c * 32 * 32 + j * 32 +
+    x[i] = *reinterpret_cast<const float4*>(raw + c * ROWS * 32 + j * 32 +
                                             ((w ^ (j & 7)) << 2));
   }
 #pragma unroll
@@ -522,8 +540,8 @@ __device__ __forceinline__ void split_t32(const float* raw, float* thi,
     const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (warp + 4 * i) + e;
-      const int at = d * 32 + ((((pos >> 2) ^ (d & 7)) << 2) | (pos & 3));
+      const int d = 4 * (grp + NG * i) + e;
+      const int at = d * 32 + ((((col >> 2) ^ (d & 7)) << 2) | (col & 3));
       const float h = __uint_as_float(tf32_rna(xs[e]));
       thi[at] = h;
       tlo[at] = __uint_as_float(tf32_rna(xs[e] - h));
@@ -537,7 +555,7 @@ __device__ __forceinline__ void split_t32(const float* raw, float* thi,
 // those N columns: 8-column group kk of the accumulator holds columns 2c,
 // 2c + 1 (c = thread % 4) of rows r, r + 8, which are depth columns c,
 // c + 4 of the A fragment, so the B operand is staged with the
-// permutation of split_t32 and no shuffles are needed.
+// permutation of split_t and no shuffles are needed.
 template <int NACC>
 __device__ __forceinline__ void acc_to_tf32_split(
     const float (&acc)[NACC], uint32_t (&hi)[NACC / 4][4],

@@ -24,12 +24,11 @@ reference computes them in jnp outside any Pallas kernel.
 There are no size gates: `_FWD_PALLAS_MIN_T` and `_BWD_PALLAS_SCORE_BYTES`
 were measured on a TPU and say nothing about this card, so every shape the
 kernels take goes to the kernels.  The head dim picks the kernels: D = 64
-and 128 run the tensor-core kernels (but the float32 backward at D = 128,
-which runs on CUDA cores), every other multiple of 8 up to 256 the
-CUDA-core kernels of csrc/flash_cc.cu (same wrappers, same launch
-counts); a head dim off the multiples of 8 takes `composed_attention`,
-the reference's composed path, on purpose and counted
-(`flash_attention`).
+and 128 run the tensor-core kernels, forward and backward, bf16 and
+float32 (as 3xTF32), every other multiple of 8 up to 256 the CUDA-core
+kernels of csrc/flash_cc.cu (same wrappers, same launch counts); a head
+dim off the multiples of 8 takes `composed_attention`, the reference's
+composed path, on purpose and counted (`flash_attention`).
 """
 import torch
 
@@ -42,13 +41,6 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # every other multiple of 8 up to _MAX_D runs csrc/flash_cc.cu
 _WGMMA_D = (64, 128)
 _MAX_D = 256
-
-
-def _tensor_core_bwd(D, dtype):
-    """Whether csrc/flash_bwd.cu takes the backward: its 3xTF32 float32
-    layout fits a block's shared memory at D = 64 only, so float32 at
-    D = 128 runs csrc/flash_cc.cu's CUDA-core instance."""
-    return D == 64 or (D == 128 and dtype == torch.bfloat16)
 
 
 def _ref_attention(q, k, v, causal, scale, k_len=None):
@@ -167,21 +159,24 @@ def flash_backward_reference(q, k, v, k_len, out, lse, dout, causal, scale):
     dtype.  P = exp(S - LSE) is rebuilt from the saved LSE under the masks
     (P = 0 where masked, so rows with LSE -1e30 get zero gradients), dS =
     P * (dO V^T - delta) with delta = rowsum(dO * O); products accumulate
-    in float32, as the JAX kernels' `_masked_p_ds`."""
+    in float32, as the JAX kernels' `_masked_p_ds` (in float64 for float64
+    inputs: the exact gradients a float32 check is held to)."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
-    qg = q.float().reshape(B, Hkv, g, Tq, D) * scale
-    s = torch.einsum('bhgqd,bhkd->bhgqk', qg, k.float())
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.to(acc).reshape(B, Hkv, g, Tq, D) * scale
+    s = torch.einsum('bhgqd,bhkd->bhgqk', qg, k.to(acc))
     valid = _valid_mask(B, Tq, Tk, causal, k_len, q.device)
-    p = torch.where(valid, torch.exp(s - lse.reshape(B, Hkv, g, Tq, 1)),
+    p = torch.where(valid, torch.exp(s - lse.to(acc).reshape(B, Hkv, g, Tq,
+                                                             1)),
                     torch.zeros_like(s))
-    do = dout.float().reshape(B, Hkv, g, Tq, D)
-    delta = (do * out.float().reshape(B, Hkv, g, Tq, D)).sum(-1,
-                                                              keepdim=True)
-    dp = torch.einsum('bhgqd,bhkd->bhgqk', do, v.float())
+    do = dout.to(acc).reshape(B, Hkv, g, Tq, D)
+    delta = (do * out.to(acc).reshape(B, Hkv, g, Tq, D)).sum(-1,
+                                                             keepdim=True)
+    dp = torch.einsum('bhgqd,bhkd->bhgqk', do, v.to(acc))
     ds = p * (dp - delta)
-    dq = torch.einsum('bhgqk,bhkd->bhgqd', ds, k.float()) * scale
+    dq = torch.einsum('bhgqk,bhkd->bhgqd', ds, k.to(acc)) * scale
     dk = torch.einsum('bhgqk,bhgqd->bhkd', ds, qg)
     dv = torch.einsum('bhgqk,bhgqd->bhkd', p, do)
     return (dq.reshape(B, H, Tq, D).to(q.dtype), dk.to(k.dtype),
@@ -194,8 +189,8 @@ def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
     Hkv, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dq if _tensor_core_bwd(
-            D, q.dtype) else kernels.library().pt_flash_cc_bwd_dq
+        entry = kernels.library().pt_flash_bwd_dq if D in _WGMMA_D \
+            else kernels.library().pt_flash_cc_bwd_dq
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
@@ -213,8 +208,8 @@ def _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dkv if _tensor_core_bwd(
-            D, q.dtype) else kernels.library().pt_flash_cc_bwd_dkv
+        entry = kernels.library().pt_flash_bwd_dkv if D in _WGMMA_D \
+            else kernels.library().pt_flash_cc_bwd_dkv
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dk.data_ptr(),

@@ -170,12 +170,35 @@ def _profiled(fn, pattern):
     (torch.float32, 64, False, 150, 150, 2, [150, 1]),
     (torch.float32, 64, True, 37, 161, 1, [161, 100]),
     (torch.float32, 64, False, 50, 300, 2, [300, 299]),
+    # float32 at D = 96 still runs the CUDA-core kernels (csrc/flash_cc.cu)
+    (torch.float32, 96, True, 129, 129, 2, [129, 90]),
 ])
 def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                                             Hkv, klen):
+    _check_backward_kernels(dtype, D, causal, Tq, Tk, 8, Hkv, klen)
+
+
+# the float32 (3xTF32 wgmma, D = 128) kernels' ragged edges: the training
+# llama's GQA 16/8 causal tiles, k_len 0 and 1 rows, Tq < Tk with and
+# without the causal mask, partial last query and key tiles (Tq 97, Tk 161)
+@pytest.mark.parametrize('causal,Tq,Tk,H,Hkv,klen', [
+    (True, 256, 256, 16, 8, [256, 256]),
+    (True, 150, 150, 8, 4, [0, 150]),
+    (False, 150, 150, 8, 2, [1, 150]),
+    (True, 37, 161, 8, 2, [161, 100]),
+    (False, 50, 300, 8, 4, [300, 299]),
+    (False, 97, 161, 8, 4, [161, 130]),
+    (True, 97, 161, 16, 8, [161, 161]),
+])
+def test_float32_d128_backward_kernels_match_plain(cuda, causal, Tq, Tk, H,
+                                                   Hkv, klen):
+    _check_backward_kernels(torch.float32, 128, causal, Tq, Tk, H, Hkv, klen)
+
+
+def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
     g = torch.Generator(device='cuda').manual_seed(2)
-    q = _randn(g, 2, 8, Tq, D, dtype=dtype)
-    do = _randn(g, 2, 8, Tq, D, dtype=dtype)
+    q = _randn(g, 2, H, Tq, D, dtype=dtype)
+    do = _randn(g, 2, H, Tq, D, dtype=dtype)
     k = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
     v = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
     kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
@@ -186,21 +209,33 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         r'flash_bwd_\w+')
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    # the design each dtype and D runs: bf16 on wgmma, float32 as 3xTF32
-    # wgmma at D = 64 and on CUDA cores (csrc/flash_cc.cu) at D = 128
-    design = ('wgmma' if dtype == torch.bfloat16 else
-              'tf32x3' if D == 64 else 'cc')
+    # the design each dtype and D runs: at D = 64 and 128 bf16 on wgmma,
+    # float32 as 3xTF32 wgmma; other head dims on CUDA cores
+    # (csrc/flash_cc.cu)
+    design = ('cc' if D not in (64, 128) else
+              'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
     assert names == {'flash_bwd_dq_%s_kernel' % design,
                      'flash_bwd_dkv_%s_kernel' % design}, names
     refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
                                         D ** -0.5)
     # f32: other summation orders, and dS = P (dP - delta) cancels, so the
-    # bound is relative to the largest gradient; bf16: one rounding
+    # bound is relative to the largest gradient; bf16: one rounding.  The
+    # float32 kernels are held to the plain version evaluated in float64
+    # on the same inputs (the exact gradients): at a row with k_len = 1 in
+    # a GQA group, dK sums g x Tq products of a dS that is all rounding,
+    # and the plain version's own float32 rounding misses this check
+    # there (tests/test_torch_flash_bwd_tf32x3_numerics.py), so only the
+    # CUDA-core kernels, which round as the plain version does, could
+    # match it
+    exact = refs if dtype != torch.float32 else \
+        att.flash_backward_reference(
+            *(t.double() for t in (q, k, v)), kl, out.double(),
+            lse.double(), do.double(), causal, D ** -0.5)
     rtol, arel = (1e-4, 1e-5) if dtype == torch.float32 else (8e-3, 2e-3)
-    for a, r in zip(grads, refs):
+    for a, r in zip(grads, exact):
         assert a.dtype == dtype
-        torch.testing.assert_close(a.float(), r.float(), rtol=rtol,
-                                   atol=arel * float(r.float().abs().max()))
+        torch.testing.assert_close(a.double(), r.double(), rtol=rtol,
+                                   atol=arel * float(r.abs().max()))
     if 0 in klen:   # batch rows with no valid key: zero gradients
         zero = torch.tensor(klen, device='cuda') == 0
         assert not any(t[zero].any() for t in grads)

@@ -8,17 +8,24 @@ y_lo + x_hi y_hi with x_hi = tf32(x) and x_lo = tf32(x - x_hi), each
 rounded to nearest (ties away: `cvt.rna.tf32.f32`).  The tensor cores
 form each k8 step's products exactly and add them into a float32
 accumulator truncating toward zero; that model is repeated here (float64
-partial sums, rounded toward zero), tile by tile at the kernels' sizes:
+partial sums, rounded toward zero), tile by tile at the kernels' sizes,
+with ring tiles of TT = 32 rows at D = 64 and 16 at D = 128 (`ring_rows`;
+the 32-row layouts need more shared memory than a block may have there):
 
-- dQ, a block of 64 query rows, key tiles of 32: S = Q K^T and dP = dO
+- dQ, a block of 64 query rows, key tiles of TT: S = Q K^T and dP = dO
   V^T (Q, K, dO, V split; the small terms in one accumulator, the big
   ones in one for S and round robin in four for dP, added in float32),
   P = exp2(S scale log2(e) - LSE log2(e)) and dS = P (dP - delta) under
   the masks (P = 0 where masked), dQ += dS K (dS and K split, one
-  accumulator), dQ x scale at the end;
-- dK/dV, a block of 64 keys, ring tiles of 32 query rows over the GQA
-  group's heads: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as above,
-  dV += P^T dO and dK += dS^T Q, dK x scale.
+  accumulator), dQ x scale;
+- dK/dV, a block of 64 keys, ring tiles of TT query rows over the GQA
+  group's heads from the causal frontier on: S^T = K Q^T and dP^T = V
+  dO^T, P^T and dS^T as above, dV += P^T dO and dK += dS^T Q, dK x scale;
+- both add their register sums into their output, rounded to nearest,
+  at every FLUSH_ROWS-th row of the reduction (keys; query rows of a
+  head), at each head's end and at the end, and start them again from
+  zero (a chain of truncating adds over the training llama's 4,096 query
+  rows a key misses the check: the test below).
 
 Rows are independent within a block, so a whole tensor stands for all
 blocks; tiles a kernel skips (past k_len or the causal frontier) are fully
@@ -30,12 +37,13 @@ The emulation must hold the card's unchanged float32 check (chip_smoke.py
 the same tolerance, the JAX package's Pallas backward in interpret mode
 (run as tests/test_torch_flash_backward.py runs it), both on the JAX
 forward's out and LSE.  The float32 autograd check of the card test, with
-its derived allowance where dS cancels (k_len = 1), holds it too.  Two
+its derived allowance where dS cancels (k_len = 1), holds it too.  Three
 cheaper designs miss the first check: one TF32 product, and the three
 products of S and dP in one accumulator (the kernels' first version,
-which missed it on an H100 by 2.3x).  D = 128
-emulates the same arithmetic; on the card float32 at D = 128 runs the
-CUDA-core kernels (csrc/flash_bwd.cu says why)."""
+which missed it on an H100 by 2.3x), at both head dims; and dK/dV in one
+chain over the training llama's rows (the first D = 128 version, which
+missed it on an H100).  The D = 128 cases include the training llama's
+GQA 16/8 causal tiles."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,8 +53,9 @@ from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
 from test_torch_cuda_kernels import _cancel_size
 
-TT = 32      # rows of a ring tile: keys (dQ), query rows (dK/dV)
 LOG2E = 1.4426950408889634
+FLUSH_ROWS = 256   # rows of the reduction a chain of register sums takes
+                   # before the kernels add it into their output
 RTOL, AREL = 1e-4, 1e-5
 
 
@@ -112,16 +121,26 @@ DESIGNS = {'x3': ('split', 1, 4),           # the kernels
            'one': ('one', 1, 1)}           # one TF32 product
 
 
-def _pad_rows(t):
+def ring_rows(D):
+    """Rows of a ring tile (keys for dQ, query rows for dK/dV), as
+    csrc/flash_bwd.cu's ring_rows."""
+    return 32 if D == 64 else 16
+
+
+def _pad_rows(t, TT):
     """A ring tile of fewer than TT rows, zero-filled to TT."""
     return torch.nn.functional.pad(t, (0, 0, 0, TT - t.shape[-2]))
 
 
 def emulate_backward(q, k, v, do, kl, out, lse, causal, scale,
-                     design='x3'):
+                     design='x3', TT=None, flush_rows=FLUSH_ROWS):
     """The two kernels on float32 q/do [B, H, Tq, D], k/v [B, Hkv, Tk, D],
-    out, lse [B*H, Tq] -> (dq, dk, dv)."""
+    out, lse [B*H, Tq] -> (dq, dk, dv), with ring tiles of TT rows
+    (default: the kernels' ring_rows(D)); flush_rows None: one chain over
+    all rows, as the kernels' first D = 128 version ran."""
     B, H, Tq, D = q.shape
+    TT = TT or ring_rows(D)
+    FR = flush_rows or 1 << 30
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
     sp_mode, s_big, dp_big = DESIGNS[design]
@@ -139,27 +158,38 @@ def emulate_backward(q, k, v, do, kl, out, lse, causal, scale,
         B, Hkv, g, Tq, Tk)
     zero = torch.zeros(())
 
-    # dQ: key tiles of TT in order
-    dq = torch.zeros(B, Hkv, g, Tq, D)
-    for k0 in range(0, Tk, TT):
+    def flush(total, acc, mul=1.0):
+        """The block adds a chain into its output, rounded to nearest."""
+        part = acc * mul
+        return part if total is None else total + part
+
+    # dQ: key tiles of TT in order; a chain ends at every FLUSH_ROWS-th key
+    dq, acc = None, torch.zeros(B, Hkv, g, Tq, D)
+    nt = -(-Tk // TT)
+    for t in range(nt):
+        k0 = t * TT
         n = min(TT, Tk - k0)   # keys past Tk: TMA fills zeros
-        kt, vt = (_pad_rows(t[:, :, None, k0:k0 + n]) for t in (k, v))
+        kt, vt = (_pad_rows(x[:, :, None, k0:k0 + n], TT) for x in (k, v))
         vm = torch.zeros(B, Hkv, g, Tq, TT, dtype=torch.bool)
         vm[..., :n] = valid[..., k0:k0 + n]
         s = sp(qg, kt.transpose(-1, -2), s_big)
         dp = sp(dog, vt.transpose(-1, -2), dp_big)
         p = torch.where(vm, torch.exp2(s * sl2 - lse2), zero)
         ds = torch.where(vm, p * (dp - delta), zero)
-        dq = tc_product(dq, ds, kt.expand(B, Hkv, g, -1, D), acc_mode)
-    dq = dq * scale
+        acc = tc_product(acc, ds, kt.expand(B, Hkv, g, -1, D), acc_mode)
+        if (k0 + TT) % FR == 0 or t + 1 == nt:
+            dq, acc = flush(dq, acc, scale), torch.zeros_like(acc)
 
-    # dK/dV: ring tiles of TT query rows, the group's heads outer
-    dk = torch.zeros(B, Hkv, Tk, D)
-    dv = torch.zeros(B, Hkv, Tk, D)
+    # dK/dV: ring tiles of TT query rows, the group's heads outer; a
+    # chain ends with a head and at every FLUSH_ROWS-th query row (tiles a
+    # block skips before its causal frontier add zeros to its chain)
+    dk = dv = None
+    dka, dva = torch.zeros(B, Hkv, Tk, D), torch.zeros(B, Hkv, Tk, D)
     for gi in range(g):
         for q0 in range(0, Tq, TT):
             n = min(TT, Tq - q0)   # rows past Tq: TMA fills zeros
-            qt, dot = (_pad_rows(t[:, :, gi, q0:q0 + n]) for t in (qg, dog))
+            qt, dot = (_pad_rows(x[:, :, gi, q0:q0 + n], TT)
+                       for x in (qg, dog))
             vm = torch.zeros(B, Hkv, Tk, TT, dtype=torch.bool)
             vm[..., :n] = valid[:, :, gi, q0:q0 + n].transpose(-1, -2)
             lt = torch.zeros(B, Hkv, 1, TT)
@@ -170,9 +200,13 @@ def emulate_backward(q, k, v, do, kl, out, lse, causal, scale,
             dpt = sp(v, dot.transpose(-1, -2), dp_big)
             pt = torch.where(vm, torch.exp2(st * sl2 - lt), zero)
             dst = torch.where(vm, pt * (dpt - dlt), zero)
-            dv = tc_product(dv, pt, dot, acc_mode)
-            dk = tc_product(dk, dst, qt, acc_mode)
-    return dq.reshape(B, H, Tq, D), dk * scale, dv
+            dva = tc_product(dva, pt, dot, acc_mode)
+            dka = tc_product(dka, dst, qt, acc_mode)
+            head_end = q0 + TT >= Tq and (flush_rows or gi == g - 1)
+            if (q0 + TT) % FR == 0 or head_end:
+                dk, dv = flush(dk, dka, scale), flush(dv, dva)
+                dka, dva = torch.zeros_like(dka), torch.zeros_like(dva)
+    return dq.reshape(B, H, Tq, D), dk, dv
 
 
 CASES = [
@@ -186,9 +220,17 @@ CASES = [
     (2, 4, 1, 37, 161, 64, True, [161, 100]),        # Tq < Tk, k_len
     (2, 4, 2, 50, 300, 64, False, [300, 299]),       # Tq < Tk
     (3, 4, 2, 150, 150, 128, True, [150, 77, 1]),    # D = 128
+    (1, 16, 8, 128, 128, 128, True, None),           # llama's GQA 16/8
+    (3, 8, 4, 70, 70, 128, True, [70, 0, 1]),        # k_len 0 and 1 rows
+    (2, 8, 4, 100, 100, 128, False, [100, 1]),       # k_len 1, GQA 8/4
+    (2, 4, 2, 37, 161, 128, True, [161, 100]),       # Tq < Tk, k_len
+    (2, 4, 2, 50, 200, 128, False, [200, 199]),      # Tq < Tk
+    (1, 4, 2, 97, 161, 128, False, [130]),           # ragged q, k tiles
 ]
 IDS = ['path_d64', 'causal_klen', 'gqa', 'klen1', 'klen1_gqa', 'klen0',
-       'tq_lt_tk', 'tq_lt_tk_noncausal', 'd128_klen1']
+       'tq_lt_tk', 'tq_lt_tk_noncausal', 'd128_klen1', 'd128_gqa_causal',
+       'd128_klen01', 'd128_klen1_gqa', 'd128_tq_lt_tk',
+       'd128_tq_lt_tk_noncausal', 'd128_ragged']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed=0):
@@ -261,8 +303,11 @@ def test_backward_emulation_within_the_float32_check(case):
         assert not any(g[zero].any() for g in grads)
 
 
-@pytest.mark.parametrize('case', [CASES[3], CASES[4], CASES[8]],
-                         ids=['klen1', 'klen1_gqa', 'd128_klen1'])
+AUTOGRAD_IDS = ['klen1', 'klen1_gqa', 'd128_klen1', 'd128_klen1_gqa']
+
+
+@pytest.mark.parametrize('case', [CASES[IDS.index(i)] for i in AUTOGRAD_IDS],
+                         ids=AUTOGRAD_IDS)
 def test_emulation_within_the_autograd_check_where_ds_cancels(case):
     """The card test's independent float32 check (autograd through the
     plain forward), with its derived allowance of 4 eps x the size of the
@@ -282,20 +327,67 @@ def test_emulation_within_the_autograd_check_where_ds_cancels(case):
             n, float(((a - r).abs() / bound).max()))
 
 
-def test_one_tf32_product_would_miss_the_float32_check():
+@pytest.mark.parametrize('name', ['path_d64', 'd128_gqa_causal'])
+def test_one_tf32_product_would_miss_the_float32_check(name):
     """One TF32 product keeps ~2^-11 of each operand: the gradients miss
     rtol 1e-4 / atol 1e-5 x max|grad| that the 3xTF32 split holds."""
-    _, _, _, grads, refs, _ = _run(CASES[0], design='one')
+    _, _, _, grads, refs, _ = _run(CASES[IDS.index(name)], design='one')
     assert not any(_within(g, r) for g, r in zip(grads, refs))
 
 
-def test_one_accumulator_for_s_and_dp_would_miss_the_float32_check():
+@pytest.mark.parametrize('name', ['klen1_gqa', 'd128_klen1_gqa'])
+def test_one_accumulator_for_s_and_dp_would_miss_the_float32_check(name):
     """The kernels' first version added all three products of S and dP
     into one accumulator: truncated at the big terms' scale, the small
     terms' low bits are lost, and dK of a GQA group whose batch row has one
     valid key (every dS there is rounding; 600 of them sum into it) misses
     the check (on an H100 by 2.3x), which the kernels' own
-    accumulators hold (the test above, case klen1_gqa)."""
-    case = CASES[IDS.index('klen1_gqa')]
+    accumulators hold (the test above, the same cases)."""
+    case = CASES[IDS.index(name)]
     _, _, _, grads, refs, _ = _run(case, design='single_acc')
     assert not _within(grads[1], refs[1])
+
+
+@pytest.mark.parametrize('flush_rows', [FLUSH_ROWS, None],
+                         ids=['kernels', 'one_chain'])
+def test_dkv_chain_over_the_llama_rows_needs_the_flush(flush_rows):
+    """A key of the training llama sums over 2 heads x 2048 query rows.
+    In one chain of truncating adds (3 a k8 step: 1,536) dK and dV drift
+    toward zero past the float32 check (the kernels' first D = 128
+    version missed it on an H100); chains of FLUSH_ROWS rows, added into
+    the output rounded to nearest, hold it.  A llama key block's rows at
+    their width, against the port's plain version (non-causal, so every
+    key sees all rows)."""
+    B, H, Hkv, Tq, Tk, D = 1, 2, 1, 2048, 64, 128
+    q, k, v, do, kl = (torch.from_numpy(a) for a in _inputs(
+        B, H, Hkv, Tq, Tk, D, None))
+    scale = D ** -0.5
+    out, lse = tatt._ref_attention(q, k, v, False, scale, kl)
+    grads = emulate_backward(q, k, v, do, kl, out, lse, False, scale,
+                             flush_rows=flush_rows)
+    refs = tatt.flash_backward_reference(q, k, v, kl, out, lse, do, False,
+                                         scale)
+    held = [_within(got, ref) for got, ref in zip(grads, refs)]
+    assert held == ([True] * 3 if flush_rows else [True, False, False]), held
+
+
+def test_float32_plain_misses_the_check_where_a_gqa_group_cancels():
+    """At a batch row with k_len = 1, dS = P (dP - delta) is all rounding,
+    and dK of its key sums g x Tq such terms (8 x 150 here).  Held to the
+    exact gradients (the plain version evaluated in float64 on the same
+    inputs), the plain version's own float32 rounding misses the float32
+    check there, and the kernels' arithmetic holds it: the card test holds
+    the float32 kernels to the float64 evaluation for that reason."""
+    B, H, Hkv, Tq, Tk, D = 2, 8, 1, 150, 150, 128
+    q, k, v, do, kl = (torch.from_numpy(a) for a in _inputs(
+        B, H, Hkv, Tq, Tk, D, [1, 150], seed=5))
+    scale = D ** -0.5
+    out, lse = tatt._ref_attention(q, k, v, False, scale, kl)
+    exact = tatt.flash_backward_reference(
+        *(t.double() for t in (q, k, v)), kl, out.double(), lse.double(),
+        do.double(), False, scale)
+    plain = tatt.flash_backward_reference(q, k, v, kl, out, lse, do, False,
+                                          scale)
+    grads = emulate_backward(q, k, v, do, kl, out, lse, False, scale)
+    assert not _within(plain[1].double(), exact[1])
+    assert all(_within(g.double(), e) for g, e in zip(grads, exact))
