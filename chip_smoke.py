@@ -37,8 +37,12 @@ Phases, each printing JSON lines:
               at the training llama's shape (B=2, H=16 / 8, T=2048,
               D=128, causal) in float32 and bf16, beside SDPA, and
               float32 K2 and K3 also in the CUDA-core design
-              (csrc/flash_cc.cu, llama_f32_bwd_designs); the
-              CUDA-core kernels of the other head dims (D = 16, 32, 96);
+              (csrc/flash_cc.cu, llama_f32_bwd_designs); the other head
+              dims (D = 8-120): K1 on the CUDA cores, K2 and K3 in the
+              tensor-core kernels' padded instances, timed at D = 96
+              beside the CUDA-core pair they replaced and SDPA
+              (d96_bwd_designs), checked at D = 16 (the tiny llama's),
+              32, 40 and 120;
               Adam's bf16 instance at the llama's 147 tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
@@ -168,7 +172,8 @@ Phases, each printing JSON lines:
               llama_1b widths cut to 2 layers, B = 2, T = 256, float32
               (losses within 1e-5 relative, parameters within 2.01 x the
               summed lr, the clip's global norm within 1e-5 relative);
-              the tiny config (D = 16: the CUDA-core flash kernels) in
+              the tiny config (D = 16: the CUDA-core flash forward, the
+              tensor-core backward's padded instance of width 64) in
               float32 and from build(dtype='bfloat16') (within the bf16
               bounds tests/test_torch_llama_train.py derives)
 The phases run in that order, except that the ones that also compute on
@@ -317,6 +322,7 @@ def phase_card():
              if 'registers' in ln or 'spill' in ln]
     emit(phase='card', nvidia_smi=smi, library=os.path.relpath(path, ROOT),
          build_s=round(build_s, 2), ptxas=ptxas,
+         ptxas_by_kernel=ptxas_by_kernel(log),
          flash_fwd_occupancy=flash_fwd_occupancy(build.library()),
          flash_bwd_occupancy=flash_bwd_occupancy(build.library()))
     return smi
@@ -341,22 +347,51 @@ def flash_fwd_occupancy(lib):
 
 def flash_bwd_occupancy(lib):
     """The flash backward's shared memory a block and blocks an SM, for
-    the dQ and the dK/dV kernel of each instance, as the CUDA runtime
-    reports them."""
+    the dQ and the dK/dV kernel of each instance (D = 64, 128, and the
+    padded ones of width 64 and 128, asked for at D = 40 and 96), as the
+    CUDA runtime reports them."""
     import ctypes
     res = {}
     for kind, kname in ((0, 'dq'), (1, 'dkv')):
         for dtype, code in (('float32', 0), ('bfloat16', 1)):
-            for D in (64, 128):
+            for D, inst in ((64, 'd64'), (128, 'd128'),
+                            (40, 'dp64_padded'), (96, 'dp128_padded')):
                 smem, blocks = ctypes.c_int(), ctypes.c_int()
                 rc = lib.pt_flash_bwd_occupancy(D, code, kind,
                                                 ctypes.byref(smem),
                                                 ctypes.byref(blocks))
                 require(rc == 0, 'pt_flash_bwd_occupancy(%d, %s, %s): %d'
                         % (D, dtype, kname, rc))
-                res['%s_%s_d%d' % (kname, dtype, D)] = dict(
+                res['%s_%s_%s' % (kname, dtype, inst)] = dict(
                     smem_bytes=smem.value, blocks_per_sm=blocks.value)
     return res
+
+
+def ptxas_by_kernel(log):
+    """{kernel, demangled where c++filt is there: 'N registers, S bytes
+    spill stores, L bytes spill loads'} from nvcc's -Xptxas -v output."""
+    import re
+    names, res, cur = [], {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            names.append(cur)
+            res[cur] = []
+        elif cur and ('registers' in ln or 'spill' in ln):
+            res[cur].append(ln.split(':', 1)[-1].strip())
+    try:
+        out = subprocess.run(['c++filt'], input='\n'.join(names),
+                             capture_output=True, text=True, timeout=30)
+        plain = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = []
+    if len(plain) != len(names):
+        plain = names
+    short = [p.replace('(anonymous namespace)::', '').split('(')[0]
+             for p in plain]
+    return {p[5:] if p.startswith('void ') else p: '; '.join(res[n])
+            for n, p in zip(names, short)}
 
 
 # ------------------------------------------------------------- phase 2
@@ -527,17 +562,27 @@ def _fwd_rate(dtype, D):
 
 def _bwd_rate(dtype, D, design='port'):
     """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
-    the port's, which is the forward's (float32 as 3xTF32 at D = 64 and
-    128), or the CUDA-core kernels (design 'cc', csrc/flash_cc.cu)."""
-    return 'float32' if design == 'cc' else _fwd_rate(dtype, D)
+    the port's, tensor cores at every D up to 128 (float32 as 3xTF32; D
+    other than 64 and 128 padded) and CUDA cores above, or the CUDA-core
+    kernels (design 'cc', csrc/flash_cc.cu)."""
+    from paddle_tpu_torch.ops import attention as att
+    if design == 'cc' or not att.tensor_core_bwd(D):
+        return 'float32'
+    return 'tf32x3' if dtype == 'float32' else dtype
+
+
+def _padded_width(D):
+    """The width of the tensor-core backward's instance that runs head
+    dim D (csrc/flash_bwd.cu with_instance): 64 up to 64, else 128."""
+    return 64 if D <= 64 else 128
 
 
 def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
                    outs):
     """The CUDA-core design of K2 (`entry` pt_flash_cc_bwd_dq) or K3
     (pt_flash_cc_bwd_dkv) of csrc/flash_cc.cu, called directly into
-    `outs`: the port routes D = 64 and 128 to csrc/flash_bwd.cu, so this
-    times the design the 3xTF32 kernels replaced, uncounted."""
+    `outs`: the port routes every D up to 128 to csrc/flash_bwd.cu, so
+    this times the design the tensor-core kernels replaced, uncounted."""
     import torch
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.ops import attention as att
@@ -551,6 +596,35 @@ def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
         torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, entry)
     return outs
+
+
+def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
+    """The flash backward kernels one port backward at (B, H, Hkv, T, D,
+    causal) launches, by design, from the profiler: the tensor-core pair
+    of its dtype at every D up to 128, the CUDA-core pair above.  The
+    profiler drops events now and then: a trace without both is taken
+    again, up to PROFILE_TRIES times."""
+    import torch
+    from paddle_tpu_torch.ops import attention as att
+    g = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn(B, H, T, D, generator=g, device='cuda').to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, T, D, generator=g, device='cuda').to(dt)
+            for _ in range(2))
+    out, lse = att.flash_forward(q, k, v, True)
+    tc = ('cc' if not att.tensor_core_bwd(D) else
+          'tf32x3' if dtype == 'float32' else 'wgmma')
+    want = {'bwd_dq_' + tc: 1, 'bwd_dkv_' + tc: 1}
+    for _ in range(PROFILE_TRIES):
+        got = {name: c for name, (_, c) in _profiled(
+            lambda: att.flash_backward(q, k, v, None, out, lse, do,
+                                       True))[2].items()}
+        if got == want:
+            break
+    require(got == want, 'flash backward at D = %d, %s: profiled %s, '
+            'expected %s' % (D, dtype, got, want))
+    return got
 
 
 def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
@@ -648,12 +722,17 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                  2 * B * Hkv * Tk * D * itemsize)):
             flops = float(flops_per * D * pairs)
             nbytes = in_bytes + out_bytes
-            # float32 at D = 64 and 128 runs as 3xTF32 on the tensor cores:
+            # float32 up to D = 128 runs as 3xTF32 on the tensor cores:
             # that rate bounds it; the CUDA cores' float32 rate is printed
-            # beside
+            # beside.  The work is the true D's (a padded instance does
+            # D / DP of its products' work usefully)
             bound_ms, bound_by = _bound(flops, nbytes,
                                         _bwd_rate(dtype, D, design))
             row = res[kname][0]
+            if design == 'port' and att.tensor_core_bwd(D) and \
+                    D not in (64, 128):
+                row.update(DP=_padded_width(D),
+                           useful_share=D / _padded_width(D))
             if dtype == 'float32':
                 row['bound_cuda_cores_ms'] = _bound(flops, nbytes,
                                                     'float32')[0]
@@ -665,6 +744,7 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                        bytes=nbytes)
             row['tflops'] = flops / row['ms'] / 1e9
+            row['bound_share'] = bound_ms / row['ms']
     for kname, (row, ok) in res.items():
         emit(**row)
         require(ok, '%s disagrees with its plain version in case %s: %s'
@@ -1212,23 +1292,51 @@ def phase_kernels():
                  sdpa_f32_whole_bwd_ms=bwd['flash_attention_bwd_dq'][
                      'library_ms'],
                  speedup_dq=cdq / dq, speedup_dkv=cdkv / dkv)
-    # the CUDA-core kernels of the other head dims (csrc/flash_cc.cu):
-    # timed at D = 96, checked at the tiny llama's D = 16 and at D = 32
-    # with a k_len 0 row
+    # the other head dims: K1 on the CUDA cores (csrc/flash_cc.cu), K2 and
+    # K3 in the tensor-core kernels' padded instances (csrc/flash_bwd.cu).
+    # Timed at D = 96 (the 128 instance) beside the CUDA-core pair they
+    # replaced and SDPA, in this call (d96_bwd_designs); checked at the
+    # tiny llama's D = 16 and at D = 32 (the 64 instance; float32 with a
+    # 32-column region wholly past D), and at D = 40 and 120 (bf16's last
+    # k16 step half zeros) with k_len 0 and 1 rows in a GQA group
     for dt in ('float32', 'bfloat16'):
-        key = dt + '_cc'
+        key = dt + '_other_d'
         inst['flash_attention_fwd'][key] = flash_case(
-            'cc_d96_' + dt, 2, 16, 8, 1024, 1024, 96, True, dt, timed=True)
-        bwd = flash_bwd_case('cc_d96_' + dt, 2, 16, 8, 1024, 1024, 96, True,
+            'd96_' + dt, 2, 16, 8, 1024, 1024, 96, True, dt, timed=True)
+        bwd = flash_bwd_case('d96_' + dt, 2, 16, 8, 1024, 1024, 96, True,
                              dt, timed=True)
+        cc = flash_bwd_case('d96_cc_' + dt, 2, 16, 8, 1024, 1024, 96, True,
+                            dt, timed=True, design='cc')
         for kname in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+            bwd[kname]['cuda_core_ms'] = cc[kname]['ms']
             inst[kname][key] = bwd[kname]
-        flash_case('cc_d16_' + dt, 2, 4, 2, 32, 32, 16, True, dt)
-        flash_bwd_case('cc_d16_' + dt, 2, 4, 2, 32, 32, 16, True, dt)
-        flash_case('cc_d32_klen0_' + dt, 2, 8, 2, 100, 133, 32, False, dt,
+        designs = bwd_designs_profiled(2, 16, 8, 1024, 96, dt)
+        dq, dkv = (bwd[n] for n in ('flash_attention_bwd_dq',
+                                    'flash_attention_bwd_dkv'))
+        cdq, cdkv = (cc[n]['ms'] for n in ('flash_attention_bwd_dq',
+                                           'flash_attention_bwd_dkv'))
+        pair, sdpa = dq['ms'] + dkv['ms'], dq['library_ms']
+        emit(phase='kernels', step='d96_bwd_designs', dtype=dt, D=96,
+             DP=dq['DP'], useful_share=dq['useful_share'],
+             tensor_core_dq_ms=dq['ms'], tensor_core_dkv_ms=dkv['ms'],
+             tensor_core_pair_ms=pair, cuda_core_dq_ms=cdq,
+             cuda_core_dkv_ms=cdkv, cuda_core_pair_ms=cdq + cdkv,
+             sdpa_whole_bwd_ms=sdpa, pair_over_sdpa=pair / sdpa,
+             speedup_pair=(cdq + cdkv) / pair,
+             bound_share_dq=dq['bound_share'],
+             bound_share_dkv=dkv['bound_share'],
+             profiled_designs=designs)
+        for D in (16, 32):
+            flash_case('d%d_%s' % (D, dt), 2, 4, 2, 32, 32, D, True, dt)
+            flash_bwd_case('d%d_%s' % (D, dt), 2, 4, 2, 32, 32, D, True, dt)
+        flash_case('d32_klen0_' + dt, 2, 8, 2, 100, 133, 32, False, dt,
                    klen=[133, 0])
-        flash_bwd_case('cc_d32_klen_' + dt, 2, 8, 2, 100, 133, 32, True, dt,
+        flash_bwd_case('d32_klen_' + dt, 2, 8, 2, 100, 133, 32, True, dt,
                        klen=[133, 40])
+        flash_bwd_case('d40_klen01_' + dt, 3, 8, 2, 150, 150, 40, True, dt,
+                       klen=[150, 0, 1])
+        flash_bwd_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True,
+                       dt, klen=[161, 100, 1])
     served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
                                            timed=True)
     layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
@@ -2453,19 +2561,29 @@ def _profiled_launches(fn):
     graph's replay adds what its capture counted.  The profiler drops
     kernel events now and then (card runs saw 90 of a window's 92
     generated-segment launches, and 141 of 144 flash forwards in a
-    run_steps window), so a window whose device launches differ from the
+    run_steps window; one call lost a flash forward, and more, in each of
+    three tries), so a window whose device launches differ from the
     counted ones is profiled again, at most PROFILE_TRIES times in all.
-    -> (_profiled's tuple, counted, tries)."""
+    Every try runs the same kernels and the profiler never adds an event,
+    so each kernel group and flash design keeps the most launches any try
+    saw (its device ms from that try); wall, busy and events are the last
+    try's.  -> (_profiled's tuple so merged, counted, tries)."""
     from paddle_tpu_torch import kernels
+    groups, flash = {}, {}
     for tries in range(1, PROFILE_TRIES + 1):
         before = dict(kernels.launches)
         res = _profiled(fn)
         counted = {k: (v - before.get(k, 0)) * DEVICE_KERNELS.get(k, 1)
                    for k, v in kernels.launches.items()
                    if k in KERNEL_GROUPS and v != before.get(k, 0)}
-        if res[4] == counted:
+        for g, c in res[4].items():
+            groups[g] = max(groups.get(g, 0), c)
+        for d, (ms, c) in res[2].items():
+            if c >= flash.get(d, (0.0, 0))[1]:
+                flash[d] = [ms, c]
+        if groups == counted:
             break
-    return res, counted, tries
+    return (res[0], res[1], flash, res[3], groups), counted, tries
 
 
 def _seen_on_device(what, device, counted):
@@ -3380,7 +3498,8 @@ def phase_training_llama_bf16(smi):
 def phase_train_llama_gpu_vs_cpu():
     """Two steps from the same weights on the card and on the CPU: the
     llama_1b widths cut to 2 layers (D = 128, GQA 16 / 8), B = 2, T = 256,
-    float32; and the tiny config (D = 16: csrc/flash_cc.cu on the card) in
+    float32; and the tiny config (D = 16: the CUDA-core forward of
+    csrc/flash_cc.cu and the padded tensor-core backward on the card) in
     float32 and from build(dtype='bfloat16').  -> {path: launches a step
     on the card} for the tiny runs."""
     import torch
@@ -3514,8 +3633,16 @@ _REPLACES = {
 }
 # the instances of K1-K3, by the key phase_kernels files them under:
 # (dtype, design, source, the paths that run it)
-_CC = ('CUDA cores, padded width DP, D % 8 == 0 but not 64 or 128 '
-       '(ROADMAP C3)', 'paddle_tpu_torch/csrc/flash_cc.cu')
+_OTHER_D = {
+    'flash_attention_fwd': (
+        'CUDA cores, padded width DP, D % 8 == 0 but not 64 or 128 '
+        '(ROADMAP C3); timed at D = 96', 'paddle_tpu_torch/csrc/flash_cc.cu'),
+    'flash_attention_bwd_dq': (
+        'tensor cores (bf16 wgmma, float32 3xTF32), the padded instances '
+        'DP = 64 (D < 64) and 128 (64 < D < 128); timed at D = 96 (DP = '
+        '128), launched on its path at D = 16 (DP = 64)',
+        'paddle_tpu_torch/csrc/flash_bwd.cu')}
+_OTHER_D['flash_attention_bwd_dkv'] = _OTHER_D['flash_attention_bwd_dq']
 _INSTANCES = {
     'bfloat16': ('bfloat16', 'wgmma, tensor cores', None,
                  ('training', 'serving_bf16')),
@@ -3523,8 +3650,9 @@ _INSTANCES = {
     'float32_d128': ('float32', None, None, ('training_llama',)),
     'bfloat16_d128': ('bfloat16', 'wgmma, tensor cores, D = 128', None,
                       ('training_llama_bf16',)),
-    'float32_cc': ('float32',) + _CC + (('train_llama_tiny_f32',),),
-    'bfloat16_cc': ('bfloat16',) + _CC + (('train_llama_tiny_bf16',),),
+    'float32_other_d': ('float32', None, None, ('train_llama_tiny_f32',)),
+    'bfloat16_other_d': ('bfloat16', None, None,
+                         ('train_llama_tiny_bf16',)),
 }
 # the float32 designs of K1-K3 at each head dim
 _F32_DESIGNS = {
@@ -3674,6 +3802,8 @@ def main(argv=None):
             row['instances'] = []
             for key, r in sorted(kern['instances'][name].items()):
                 dt, design, isrc, ipaths = _INSTANCES[key]
+                if key.endswith('_other_d'):
+                    design, isrc = _OTHER_D[name]
                 inst = dict(
                     key=key, dtype=dt,
                     design=design or _F32_DESIGNS[name, key],
@@ -3685,7 +3815,8 @@ def main(argv=None):
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'])
                 for extra in ('bound_cuda_cores_ms', 'bound_tf32x3_ms',
-                              'cuda_core_ms'):
+                              'cuda_core_ms', 'DP', 'useful_share',
+                              'bound_share'):
                     if extra in r:
                         inst[extra] = r[extra]
                 row['instances'].append(inst)

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
-// cores (wgmma), bf16 directly and float32 as 3xTF32, at D = 64 and 128.
+// cores (wgmma), bf16 directly and float32 as 3xTF32, at every head dim D
+// with D % 8 == 0 up to 128 (instances of width 64 and 128).
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -128,6 +129,41 @@
 // cluster of two blocks splitting D (each keeps the D = 64 layout and
 // adds partial S and dP through distributed shared memory), the second
 // products in transposed form (no transposed copies), a persistent grid.
+//
+// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the
+// instance of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128),
+// the kernels' PADDED = true instances, with the true D (Dt, dd) at run
+// time; D = 64 and 128 are the PADDED = false instances, which compile
+// as they did before (dd is the constant D there).  Each launcher builds
+// its TMA maps with the true D, so the box columns at or past D arrive as
+// zeros (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), and count their full bytes
+// on the mbarrier, as rows past Tq and Tk do.  The products over D (S and
+// dP, S^T and dP^T) stop where the columns below D end: bf16 at the k16
+// step that holds column D - 1 (a run-time count; at D % 16 == 8 that
+// step is half zeros, which add nothing), float32 at the last 32-column
+// region that holds it (KC = ceil(D / 32), a template argument: a
+// run-time count of k8 steps put control flow between the 3xTF32
+// products, and ptxas serialized them, C7515: the D = 96 float32 pair
+// took 1.57 ms on an H100 against 1.69 for the CUDA-core pair).  A
+// float32 region wholly past D is neither loaded nor split, and the
+// expected bytes count the loaded regions only.  The products over rows
+// (dS K, P^T dO, dS^T Q) run at the full width DP; their accumulator
+// columns past D (from zero columns of their B operand, or from the
+// transposed rows past 32 KC, which a float32 split never writes) are
+// never stored: every store takes the true D as its
+// row stride and stops at column D (D % 8 == 0 keeps each thread's pair
+// of columns whole).  The useful work is D / DP of the padded products
+// over rows, and D / (32 KC) of float32's products over D: 3/4 and 1 at
+// D = 96.  The bf16 padded instances also hand dS to dQ and dK as hi + lo
+// terms (SplitDs).  ptxas (sm_90a, -O3), registers a thread, no
+// spills in any instance: bf16 dQ 157 (<64, true>) and 186 (<128,
+// true>), dK/dV 204 and 254; float32 dQ 175, 173, 151, 157 and dK/dV
+// 204, 208, 251, 254 (KC = 1, 2 at width 64; 3, 4 at 128); the
+// unpadded D = 64 and 128 instances as listed above (122 / 154, 181 /
+// 242; 170 / 155, 202 / 253).  Shared memory a block as the unpadded
+// instance of the same width (the same structs): bf16 dQ 50,728 bytes at
+// width 64 (3 blocks an SM, 4 unpadded) and 99,880 at 128 (2), dK/dV
+// 51,240 and 100,392 (2 each); float32 as above, one block an SM.
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -150,6 +186,18 @@ constexpr float LOG2E = 1.4426950408889634f;
 // one [rows x 64] bf16 region of a tile in the 128-byte swizzle
 template <int ROWS>
 using Chunk = bf16[ROWS * 64];
+
+// SplitDs: dS = P (dP - delta) sums to zero over a row's keys, so dQ =
+// scale dS K and dK = scale dS^T Q cancel, and one bf16 rounding of dS
+// (2^-9 of each term) can leave more error than the bf16 check (8e-3
+// relative, 2e-3 of max|grad|) allows on an element the sum cancels: the
+// CPU emulation (tests/test_torch_flash_wgmma_numerics.py) finds inputs
+// where it reaches 1.34x of the check at D = 128 (dQ) and at D = 16 (dK).
+// The padded instances hand dS (dQ) and dS^T (dK) to their products as hi
+// = bf16(x) and lo = bf16(x - hi), small terms first: one more product a
+// tile (dQ 4 products of the 3 a pair would need, dK/dV 5 of 4), and
+// within 0.52 of the check on those inputs.  P^T stays one rounding (P >=
+// 0: dV does not cancel).  D = 64 and 128 keep one rounding (ROADMAP C7).
 
 // ---------------------------------------------------------------- dK/dV
 
@@ -207,7 +255,7 @@ __device__ __forceinline__ void load_ring(DkvSmem<D>& sm,
   hopper::mbar_arrive(&sm.full[s]);
 }
 
-template <int D>
+template <int D, bool PADDED>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -217,13 +265,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ delta,
                            const int* __restrict__ klen,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int H, int Hkv, int Tq, int Tk, int causal,
-                           float scale) {
+                           int H, int Hkv, int Tq, int Tk, int Dt,
+                           int causal, float scale) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(smem_raw));
 
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
+  const int nk16 = (dd + 15) / 16;      // k16 steps of the products over D
   const int bkv = blockIdx.x;
   const int k0 = blockIdx.y * WK;
   const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
@@ -276,12 +326,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      if (kc >= nk16) break;
       const int c = kc / 4, off = (kc % 4) * 16;
       wgmma_ss<0>(st, make_desc(sm.k[c] + off, 16, 1024),
                   make_desc(sm.q[s][c] + off, 16, 1024), kc > 0);
     }
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      if (kc >= nk16) break;
       const int c = kc / 4, off = (kc % 4) * 16;
       wgmma_ss<0>(dpt, make_desc(sm.v[c] + off, 16, 1024),
                   make_desc(sm.dout[s][c] + off, 16, 1024), kc > 0);
@@ -309,9 +361,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       dpt[i] = valid ? p * (dpt[i] - sm.delta[s][qc]) : 0.f;
       st[i] = p;
     }
-    uint32_t pa[WQ / 16][4], dsa[WQ / 16][4];
+    // the padded instances hand dS^T to dK as two bf16 terms (hi, lo:
+    // SplitDs says why)
+    uint32_t pa[WQ / 16][4], dsa[WQ / 16][4], dsl[PADDED ? WQ / 16 : 1][4];
     acc_to_a(st, pa);
-    acc_to_a(dpt, dsa);
+    if constexpr (PADDED)
+      acc_to_a_split(dpt, dsa, dsl);
+    else
+      acc_to_a(dpt, dsa);
 
     // dV += P^T dO and dK += dS^T Q: B = dO or Q, the query rows being
     // the reduction (MN-major, tnspB = 1)
@@ -320,6 +377,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < WQ / 16; ++kk)
       wgmma_rs<1>(dva, pa[kk],
                   make_desc(sm.dout[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+    if constexpr (PADDED) {
+#pragma unroll
+      for (int kk = 0; kk < WQ / 16; ++kk)
+        wgmma_rs<1>(dka, dsl[kk],
+                    make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+    }
 #pragma unroll
     for (int kk = 0; kk < WQ / 16; ++kk)
       wgmma_rs<1>(dka, dsa[kk],
@@ -337,15 +400,18 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // dK x scale once; each is written once, in k's dtype
+  // dK x scale once; each is written once, in k's dtype, columns below
+  // dd only (a thread's pair of columns 8 j + cq, + 1 lies below dd
+  // whenever 8 j does, as dd % 8 == 0)
   const int cq = 2 * (tid % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int ki = k0 + acc_row(0) + 8 * h;
     if (ki >= Tk) continue;
-    const size_t row = ((size_t)bkv * Tk + ki) * D;
+    const size_t row = ((size_t)bkv * Tk + ki) * dd;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (j >= dd / 8) break;
       const int i = 4 * j + 2 * h;
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j + cq) =
           __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
@@ -355,27 +421,30 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+// The launchers build their maps with the true head dim Dt, so TMA reads
+// columns Dt .. D-1 of the padded width D as zeros
+template <int D, bool PADDED>
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* klen, const void* lse, const void* delta,
                     const void* dout, void* dk, void* dv, int B, int H,
-                    int Hkv, int Tq, int Tk, int causal, float scale,
+                    int Hkv, int Tq, int Tk, int Dt, int causal, float scale,
                     cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, D, WK);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, D, WK);
+  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, Dt, WK);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, Dt, WK);
   if (rc != 0) return rc;
   const size_t smem = sizeof(DkvSmem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
+      flash_bwd_dkv_wgmma_kernel<D, PADDED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<D, PADDED><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (bf16*)dk, (bf16*)dv, H, Hkv, Tq, Tk, causal, scale);
+      (const int*)klen, (bf16*)dk, (bf16*)dv, H, Hkv, Tq, Tk, Dt, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -405,7 +474,7 @@ __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const CUtensorMap* tk,
   }
 }
 
-template <int D>
+template <int D, bool PADDED>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -414,13 +483,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const int* __restrict__ klen, bf16* __restrict__ dq,
-                          int H, int Hkv, int Tq, int Tk, int causal,
+                          int H, int Hkv, int Tq, int Tk, int Dt, int causal,
                           float scale) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(align_1024(smem_raw));
 
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
+  const int nk16 = (dd + 15) / 16;      // k16 steps of the products over D
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
   const int b = bh / H;
@@ -485,12 +556,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      if (kc >= nk16) break;
       const int c = kc / 4, off = (kc % 4) * 16;
       wgmma_ss<0>(sacc, make_desc(sm.q[c] + off, 16, 1024),
                   make_desc(sm.k[s][c] + off, 16, 1024), kc > 0);
     }
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
+      if (kc >= nk16) break;
       const int c = kc / 4, off = (kc % 4) * 16;
       wgmma_ss<0>(dp, make_desc(sm.dout[c] + off, 16, 1024),
                   make_desc(sm.v[s][c] + off, 16, 1024), kc > 0);
@@ -516,11 +589,22 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float p = valid ? exp2f(sacc[i] * sl2 - lse2[h]) : 0.f;
       dp[i] = valid ? p * (dp[i] - dl[h]) : 0.f;
     }
-    uint32_t dsa[WK / 16][4];
-    acc_to_a(dp, dsa);
+    // the padded instances hand dS to dQ as two bf16 terms (hi, lo:
+    // SplitDs says why)
+    uint32_t dsa[WK / 16][4], dsl[PADDED ? WK / 16 : 1][4];
+    if constexpr (PADDED)
+      acc_to_a_split(dp, dsa, dsl);
+    else
+      acc_to_a(dp, dsa);
 
     // dQ += dS K: B = K, the keys being the reduction (MN-major, tnspB = 1)
     wgmma_fence();
+    if constexpr (PADDED) {
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk)
+        wgmma_rs<1>(acc, dsl[kk],
+                    make_desc(sm.k[s][0] + kk * 16 * 64, WK * 128, 1024), 1);
+    }
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk)
       wgmma_rs<1>(acc, dsa[kk],
@@ -536,42 +620,45 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
-  // dQ x scale once, in q's dtype; TMA bounds its reads at Tq, not these
-  // stores
+  // dQ x scale once, in q's dtype, columns below dd only; TMA bounds its
+  // reads at Tq and dd, not these stores
   const int cq = 2 * (tid % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = q0 + r0 + 8 * h;
     if (qi >= Tq) continue;
-    bf16* op = dq + ((size_t)bh * Tq + qi) * D;
+    bf16* op = dq + ((size_t)bh * Tq + qi) * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      if (j >= dd / 8) break;
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + cq) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale,
                                 acc[4 * j + 2 * h + 1] * scale);
+    }
   }
 }
 
-template <int D>
+template <int D, bool PADDED>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* klen, const void* lse, const void* delta,
                    const void* dout, void* dq, int B, int H, int Hkv, int Tq,
-                   int Tk, int causal, float scale, cudaStream_t stream) {
+                   int Tk, int Dt, int causal, float scale,
+                   cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, D, WK);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, D, WK);
+  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mdo, dout, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, Dt, WK);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, Dt, WK);
   if (rc != 0) return rc;
   const size_t smem = sizeof(DqSmem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>,
+      flash_bwd_dq_wgmma_kernel<D, PADDED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D, PADDED><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (bf16*)dq, H, Hkv, Tq, Tk, causal, scale);
+      (const int*)klen, (bf16*)dq, H, Hkv, Tq, Tk, Dt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -626,7 +713,9 @@ __device__ __forceinline__ int tcol(int vb) {
 // terms still added up past the check there, so dP spreads its k8 steps
 // over NB = 4 accumulators, which holds it
 // (tests/test_torch_flash_bwd_tf32x3_numerics.py models the first design
-// and this one).
+// and this one).  D is the width reduced: the padded instances' KC
+// regions, 32 KC (a compile-time count: a run-time one puts control flow
+// between the products, and ptxas then serializes them).
 template <int D, int AROWS, int NB, int NR>
 __device__ __forceinline__ void product_x3(float (&big)[NB][NR],
                                            float (&small)[NR],
@@ -677,22 +766,25 @@ __device__ __forceinline__ void sum_terms(float (&big)[NB][NR],
 // zero; the output is read back only by the thread that wrote it.
 constexpr int FLUSH_ROWS = 256;
 
-// out rows row0 .. row0 + 63 (below `rows`) of a [rows x 2 NACC] float32
-// tensor = (the first flush) or += acc x mul, in the accumulator layout;
+// out rows row0 .. row0 + 63 (below `rows`) of a [rows x dd] float32
+// tensor = (the first flush) or += acc x mul, in the accumulator layout
+// (2 NACC columns, of which the first dd, a multiple of 8, are stored);
 // then acc = 0
 template <int NACC>
 __device__ __forceinline__ void flush_acc(float* __restrict__ out, int row0,
                                           int rows, float (&acc)[NACC],
-                                          float mul, bool first) {
+                                          float mul, bool first,
+                                          int dd = 2 * NACC) {
   constexpr int D = 2 * NACC;
   const int cq = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + hopper::acc_row(0) + 8 * h;
     if (r >= rows) continue;
-    float* op = out + (size_t)r * D;
+    float* op = out + (size_t)r * dd;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (dd < D && j >= dd / 8) break;
       float2* p = reinterpret_cast<float2*>(op + 8 * j + cq);
       float2 x = make_float2(acc[4 * j + 2 * h] * mul,
                              acc[4 * j + 2 * h + 1] * mul);
@@ -741,35 +833,41 @@ struct DqTf32Smem {
   uint64_t qbar, full[TSTAGES];
 };
 
-// thread 0: K/V tile t of head kvh into ring stage s
-template <int D>
+// thread 0: K/V tile t of head kvh into ring stage s, its first KC
+// 32-column regions (a region wholly past the true head dim is not
+// loaded: no product reads it)
+template <int KC, int D>
 __device__ __forceinline__ void load_kv_f32(DqTf32Smem<D>& sm,
                                             const CUtensorMap* tk,
                                             const CUtensorMap* tv, int kvh,
                                             int t, int s) {
   constexpr int TT = ring_rows<D>();
-  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * 32 * KC * sizeof(float));
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < KC; ++c) {
     hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], 32 * c, t * TT, kvh);
     hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], 32 * c, t * TT, kvh);
   }
 }
 
-// ring stage s: K into K_hi, K_lo and K^T slot vb, V into V_hi, V_lo
-template <int D>
+// ring stage s: K into K_hi, K_lo and K^T slot vb, V into V_hi, V_lo;
+// the first KC regions (the loaded ones)
+template <int KC, int D>
 __device__ __forceinline__ void split_kv_tile(DqTf32Smem<D>& sm, int s,
                                               int vb) {
   constexpr int TT = ring_rows<D>();
-  hopper::split_tf32<TT * D / 4>(f4(sm.kraw[s][0]), f4(sm.khi[0]),
-                                 f4(sm.klo[0]));
-  hopper::split_tf32<TT * D / 4>(f4(sm.vraw[s][0]), f4(sm.vhi[0]),
-                                 f4(sm.vlo[0]));
-  hopper::split_t<D, TT>(sm.kraw[s][0], sm.kthi[tregion<TT>(vb)],
-                         sm.ktlo[tregion<TT>(vb)], tcol<TT>(vb));
+  hopper::split_tf32<TT * 8 * KC>(f4(sm.kraw[s][0]), f4(sm.khi[0]),
+                                  f4(sm.klo[0]));
+  hopper::split_tf32<TT * 8 * KC>(f4(sm.vraw[s][0]), f4(sm.vhi[0]),
+                                  f4(sm.vlo[0]));
+  hopper::split_t<32 * KC, TT>(sm.kraw[s][0], sm.kthi[tregion<TT>(vb)],
+                               sm.ktlo[tregion<TT>(vb)], tcol<TT>(vb));
 }
 
-template <int D>
+// KC: the 32-column regions the products over D reduce, a compile-time
+// count (D / 32 unpadded; in the padded instances the regions that hold
+// columns below the true head dim, whose columns past it are TMA's zeros)
+template <int D, bool PADDED, int KC>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -779,14 +877,16 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ delta,
                            const int* __restrict__ klen,
                            float* __restrict__ dq, int H, int Hkv, int Tq,
-                           int Tk, int causal, float scale) {
+                           int Tk, int Dt, int causal, float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;  // 32-column regions of a row
   constexpr int TT = ring_rows<D>();
   extern __shared__ uint8_t smem_raw[];
   DqTf32Smem<D>& sm = *reinterpret_cast<DqTf32Smem<D>*>(align_1024(smem_raw));
 
+  static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
   const int b = bh / H;
@@ -803,14 +903,14 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
     mbar_fence_init();
     if (ntiles > 0) {
-      mbar_expect_tx(&sm.qbar, 2 * WQ * D * sizeof(float));
+      mbar_expect_tx(&sm.qbar, 2 * WQ * 32 * KC * sizeof(float));
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      for (int c = 0; c < KC; ++c) {
         tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
         tma_load_3d(sm.dohi[c], &tdo, &sm.qbar, 32 * c, q0, bh);
       }
       for (int s = 0; s < TSTAGES && s < ntiles; ++s)
-        load_kv_f32(sm, &tk, &tv, kvh, s, s);
+        load_kv_f32<KC>(sm, &tk, &tv, kvh, s, s);
     }
   }
   // this thread's two rows of the tile (acc_row(i) is r0 + 8 ((i >> 1) &
@@ -836,10 +936,10 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   // tile t's dS K runs on the tensor cores
   if (ntiles > 0) {
     mbar_wait(&sm.qbar, 0);
-    split_tf32<WQ * D / 4>(f4(sm.qhi[0]), f4(sm.qhi[0]), f4(sm.qlo[0]));
-    split_tf32<WQ * D / 4>(f4(sm.dohi[0]), f4(sm.dohi[0]), f4(sm.dolo[0]));
+    split_tf32<WQ * 8 * KC>(f4(sm.qhi[0]), f4(sm.qhi[0]), f4(sm.qlo[0]));
+    split_tf32<WQ * 8 * KC>(f4(sm.dohi[0]), f4(sm.dohi[0]), f4(sm.dolo[0]));
     mbar_wait(&sm.full[0], 0);
-    split_kv_tile(sm, 0, 0);
+    split_kv_tile<KC>(sm, 0, 0);
     fence_proxy_async();  // the split copies are read by wgmma
   }
   __syncthreads();
@@ -847,13 +947,15 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = t * TT, vb = t % 2;
     // tile t's stage was split in the last pass: refill it
     if (tid == 0 && t + TSTAGES < ntiles)
-      load_kv_f32(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+      load_kv_f32<KC>(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
 
     // S = Q K^T and dP = dO V^T: 64 query rows x TT keys
     float sbig[1][TT / 2], ssm[TT / 2], dpbig[4][TT / 2], dpsm[TT / 2];
     wgmma_fence();
-    product_x3<D, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi[0], sm.klo[0]);
-    product_x3<D, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi[0], sm.vlo[0]);
+    product_x3<32 * KC, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi[0],
+                            sm.klo[0]);
+    product_x3<32 * KC, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi[0],
+                            sm.vlo[0]);
     wgmma_commit();
     wgmma_wait<0>();
     float sacc[TT / 2], dp[TT / 2];
@@ -888,7 +990,7 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       // K^T slot 1 - vb was read by tile t-1's dS K, waited for by all
       const int s1 = (t + 1) % TSTAGES;
       mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
-      split_kv_tile(sm, s1, 1 - vb);
+      split_kv_tile<KC>(sm, s1, 1 - vb);
       fence_proxy_async();
     }
     wgmma_wait<0>();
@@ -896,38 +998,38 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     keep_regs(dshi);
     keep_regs(dslo);
     if ((k0 + TT) % FLUSH_ROWS == 0 && t + 1 < ntiles) {
-      flush_acc(dq + (size_t)bh * Tq * D, q0, Tq, acc, scale, first);
+      flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
       first = false;
     }
     __syncthreads();  // tile t+1 split; every warp is done with K^T vb
   }
 
   // the last chain, x scale (a tile without keys writes zeros)
-  flush_acc(dq + (size_t)bh * Tq * D, q0, Tq, acc, scale, first);
+  flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
 }
 
-template <int D>
+template <int D, bool PADDED, int KC>
 int launch_dq_tf32x3(const void* q, const void* k, const void* v,
                      const void* klen, const void* lse, const void* delta,
                      const void* dout, void* dq, int B, int H, int Hkv,
-                     int Tq, int Tk, int causal, float scale,
+                     int Tq, int Tk, int Dt, int causal, float scale,
                      cudaStream_t stream) {
   constexpr int TT = ring_rows<D>();
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, WQ);
-  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, TT);
-  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, TT);
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, Dt, WQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, TT);
   if (rc != 0) return rc;
   const size_t smem = sizeof(DqTf32Smem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_tf32x3_kernel<D>,
+      flash_bwd_dq_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
-  flash_bwd_dq_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (float*)dq, H, Hkv, Tq, Tk, causal, scale);
+      (const int*)klen, (float*)dq, H, Hkv, Tq, Tk, Dt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -960,16 +1062,17 @@ __device__ __forceinline__ int qt_slot(int which, int vb) {
   return TT == 32 ? 2 * which + vb : which;
 }
 
-// thread 0: Q and dO of ring tile `pos` into stage s
-template <int D>
+// thread 0: Q and dO of ring tile `pos` into stage s, their first KC
+// 32-column regions (as load_kv_f32)
+template <int KC, int D>
 __device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
                                              const CUtensorMap* tq,
                                              const CUtensorMap* tdo,
                                              RingPos pos, int s) {
   constexpr int TT = ring_rows<D>();
-  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * D * sizeof(float));
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TT * 32 * KC * sizeof(float));
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < KC; ++c) {
     hopper::tma_load_3d(sm.qraw[s][c], tq, &sm.full[s], 32 * c, pos.q0,
                         pos.bh);
     hopper::tma_load_3d(sm.doraw[s][c], tdo, &sm.full[s], 32 * c, pos.q0,
@@ -977,24 +1080,25 @@ __device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
   }
 }
 
-// ring stage s: Q^T and dO^T into transposed slot vb
-template <int D>
+// ring stage s: Q^T and dO^T into transposed slot vb, their first 32 KC
+// rows
+template <int KC, int D>
 __device__ __forceinline__ void split_qdo_t(DkvTf32Smem<D>& sm, int s,
                                             int vb) {
   constexpr int TT = ring_rows<D>();
   const int sq = qt_slot<TT>(0, vb), sdo = qt_slot<TT>(1, vb);
-  hopper::split_t<D, TT>(sm.qraw[s][0], sm.thi[tregion<TT>(sq)],
-                         sm.tlo[tregion<TT>(sq)], tcol<TT>(sq));
-  hopper::split_t<D, TT>(sm.doraw[s][0], sm.thi[tregion<TT>(sdo)],
-                         sm.tlo[tregion<TT>(sdo)], tcol<TT>(sdo));
+  hopper::split_t<32 * KC, TT>(sm.qraw[s][0], sm.thi[tregion<TT>(sq)],
+                               sm.tlo[tregion<TT>(sq)], tcol<TT>(sq));
+  hopper::split_t<32 * KC, TT>(sm.doraw[s][0], sm.thi[tregion<TT>(sdo)],
+                               sm.tlo[tregion<TT>(sdo)], tcol<TT>(sdo));
 }
 
 // ring stage s (tile `pos`): Q into Q_hi, Q_lo and dO into dO_hi, dO_lo,
 // and with WITH_T Q^T and dO^T into transposed slot vb; the first warp
 // loads the tile's LSE and delta into buffer vb, 0 past Tq (plain loads: a
 // tile's rows start at any float of the flat [B*H*Tq] vectors, which a TMA
-// box does not take)
-template <int D, bool WITH_T>
+// box does not take); the first KC regions (the loaded ones)
+template <int KC, bool WITH_T, int D>
 __device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
                                                int vb, RingPos pos,
                                                const float* __restrict__ lse,
@@ -1008,14 +1112,15 @@ __device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
     sm.lse2[vb][r] = in ? lse[row] * LOG2E : 0.f;
     sm.delta[vb][r] = in ? delta[row] : 0.f;
   }
-  hopper::split_tf32<TT * D / 4>(f4(sm.qraw[s][0]), f4(sm.qhi[0]),
-                                 f4(sm.qlo[0]));
-  hopper::split_tf32<TT * D / 4>(f4(sm.doraw[s][0]), f4(sm.dohi[0]),
-                                 f4(sm.dolo[0]));
-  if constexpr (WITH_T) split_qdo_t(sm, s, vb);
+  hopper::split_tf32<TT * 8 * KC>(f4(sm.qraw[s][0]), f4(sm.qhi[0]),
+                                  f4(sm.qlo[0]));
+  hopper::split_tf32<TT * 8 * KC>(f4(sm.doraw[s][0]), f4(sm.dohi[0]),
+                                  f4(sm.dolo[0]));
+  if constexpr (WITH_T) split_qdo_t<KC>(sm, s, vb);
 }
 
-template <int D>
+// KC as in flash_bwd_dq_tf32x3_kernel
+template <int D, bool PADDED, int KC>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -1025,8 +1130,8 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ delta,
                             const int* __restrict__ klen,
                             float* __restrict__ dk, float* __restrict__ dv,
-                            int H, int Hkv, int Tq, int Tk, int causal,
-                            float scale) {
+                            int H, int Hkv, int Tq, int Tk, int Dt,
+                            int causal, float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;
   constexpr int TT = ring_rows<D>();
@@ -1038,7 +1143,9 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   DkvTf32Smem<D>& sm =
       *reinterpret_cast<DkvTf32Smem<D>*>(align_1024(smem_raw));
 
+  static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int bkv = blockIdx.x;
   const int k0 = blockIdx.y * WK;
   const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
@@ -1055,15 +1162,15 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
     mbar_fence_init();
     if (total > 0) {
-      mbar_expect_tx(&sm.kvbar, 2 * WK * D * sizeof(float));
+      mbar_expect_tx(&sm.kvbar, 2 * WK * 32 * KC * sizeof(float));
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      for (int c = 0; c < KC; ++c) {
         tma_load_3d(sm.khi[c], &tk, &sm.kvbar, 32 * c, k0, bkv);
         tma_load_3d(sm.vhi[c], &tv, &sm.kvbar, 32 * c, k0, bkv);
       }
       for (int s = 0; s < TSTAGES && s < total; ++s)
-        load_qdo_f32(sm, &tq, &tdo, ring_pos(s, b, H, hk, g, qt0, nq, TT),
-                     s);
+        load_qdo_f32<KC>(sm, &tq, &tdo,
+                         ring_pos(s, b, H, hk, g, qt0, nq, TT), s);
     }
   }
   __syncthreads();
@@ -1073,19 +1180,19 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
   bool first = true;  // no chain added into dk, dv yet
-  float* const dkb = dk + (size_t)bkv * Tk * D;
-  float* const dvb = dv + (size_t)bkv * Tk * D;
+  float* const dkb = dk + (size_t)bkv * Tk * dd;
+  float* const dvb = dv + (size_t)bkv * Tk * dd;
 
   // K, V and ring tile 0 are split before the loop; tile it+1 is split
   // while tile it's dV and dK products run on the tensor cores
   if (total > 0) {
     mbar_wait(&sm.kvbar, 0);
-    split_tf32<WK * D / 4>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
-    split_tf32<WK * D / 4>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
+    split_tf32<WK * 8 * KC>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
+    split_tf32<WK * 8 * KC>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
     mbar_wait(&sm.full[0], 0);
-    split_qdo_tile<D, TWO_T>(sm, 0, 0,
-                             ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
-                             delta, Tq);
+    split_qdo_tile<KC, TWO_T>(sm, 0, 0,
+                              ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
+                              delta, Tq);
     fence_proxy_async();
   }
   __syncthreads();
@@ -1094,19 +1201,20 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, TT).q0;
     // with two transposed slots, tile it's stage was read in the last pass
     if (TWO_T && tid == 0 && it + TSTAGES < total)
-      load_qdo_f32(sm, &tq, &tdo,
-                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
+      load_qdo_f32<KC>(sm, &tq, &tdo,
+                       ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
 
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x TT query rows
     float stbig[1][TT / 2], stsm[TT / 2], dptbig[4][TT / 2], dptsm[TT / 2];
     wgmma_fence();
-    product_x3<D, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi[0], sm.qlo[0]);
-    product_x3<D, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi[0],
-                      sm.dolo[0]);
+    product_x3<32 * KC, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi[0],
+                            sm.qlo[0]);
+    product_x3<32 * KC, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi[0],
+                            sm.dolo[0]);
     wgmma_commit();
     if constexpr (!TWO_T) {
       // tile it-1's dV and dK, which read the one slot, were waited for
-      split_qdo_t(sm, s, 0);
+      split_qdo_t<KC>(sm, s, 0);
       fence_proxy_async();
     }
     wgmma_wait<0>();
@@ -1116,8 +1224,8 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     __syncthreads();  // every warp is done with Q and dO split (one slot:
                       // and has written Q^T and dO^T)
     if (!TWO_T && tid == 0 && it + TSTAGES < total)
-      load_qdo_f32(sm, &tq, &tdo,
-                   ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
+      load_qdo_f32<KC>(sm, &tq, &tdo,
+                       ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
 
     // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
     // under the masks, P = 0 where masked; interior tiles skip the mask
@@ -1153,9 +1261,9 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       // with two slots, slot 1 - vb by tile it-1's products, waited for
       const int s1 = (it + 1) % TSTAGES;
       mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
-      split_qdo_tile<D, TWO_T>(sm, s1, 1 - vb,
-                               ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
-                               lse, delta, Tq);
+      split_qdo_tile<KC, TWO_T>(sm, s1, 1 - vb,
+                                ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
+                                lse, delta, Tq);
       fence_proxy_async();
     }
     wgmma_wait<0>();
@@ -1167,40 +1275,40 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     keep_regs(dslo);
     // a chain ends at every FLUSH_ROWS-th query row and with each head
     if (((q0 + TT) % FLUSH_ROWS == 0 || q0 + TT >= Tq) && it + 1 < total) {
-      flush_acc(dkb, k0, Tk, dka, scale, first);
-      flush_acc(dvb, k0, Tk, dva, 1.f, first);
+      flush_acc(dkb, k0, Tk, dka, scale, first, dd);
+      flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
       first = false;
     }
     __syncthreads();  // tile it+1 split; every warp is done with slots vb
   }
 
   // the last chain, dK x scale (a tile without work writes zeros)
-  flush_acc(dkb, k0, Tk, dka, scale, first);
-  flush_acc(dvb, k0, Tk, dva, 1.f, first);
+  flush_acc(dkb, k0, Tk, dka, scale, first, dd);
+  flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
 }
 
-template <int D>
+template <int D, bool PADDED, int KC>
 int launch_dkv_tf32x3(const void* q, const void* k, const void* v,
                       const void* klen, const void* lse, const void* delta,
                       const void* dout, void* dk, void* dv, int B, int H,
-                      int Hkv, int Tq, int Tk, int causal, float scale,
-                      cudaStream_t stream) {
+                      int Hkv, int Tq, int Tk, int Dt, int causal,
+                      float scale, cudaStream_t stream) {
   constexpr int TT = ring_rows<D>();
   CUtensorMap mq, mk, mv, mdo;
-  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, TT);
-  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, D, TT);
-  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, WK);
-  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, WK);
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, Dt, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mdo, dout, B * H, Tq, Dt, TT);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, WK);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, WK);
   if (rc != 0) return rc;
   const size_t smem = sizeof(DkvTf32Smem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_tf32x3_kernel<D>,
+      flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
-  flash_bwd_dkv_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (float*)dk, (float*)dv, H, Hkv, Tq, Tk, causal,
+      (const int*)klen, (float*)dk, (float*)dv, H, Hkv, Tq, Tk, Dt, causal,
       scale);
   return (int)cudaGetLastError();
 }
@@ -1221,33 +1329,57 @@ bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Tq >= 1 && Tk >= 1;
 }
 
+// The instance a head dim D runs: padded width DP = 64 for D <= 64 and
+// 128 for 64 < D <= 128, PADDED unless D == DP (so D = 64 and 128 compile
+// as they did before the padded instances), and for float32 the KC =
+// ceil(D / 32) regions its products over D reduce; f(Inst<DP, PADDED,
+// KC>{}), or -1 for a D the kernels do not take (D % 8 != 0, or above
+// 128)
+template <int DP, bool PAD, int NKC>
+struct Inst {
+  static constexpr int kDP = DP;
+  static constexpr bool kPadded = PAD;
+  static constexpr int kKC = NKC;
+};
+
+template <typename F>
+int with_instance(int D, F&& f) {
+  if (D < 8 || D % 8 != 0 || D > 128) return -1;
+  if (D == 64) return f(Inst<64, false, 2>{});
+  if (D == 128) return f(Inst<128, false, 4>{});
+  switch ((D + 31) / 32) {
+    case 1: return f(Inst<64, true, 1>{});
+    case 2: return f(Inst<64, true, 2>{});
+    case 3: return f(Inst<128, true, 3>{});
+    default: return f(Inst<128, true, 4>{});
+  }
+}
+
 }  // namespace
 
 // q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
-// delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16.  Each returns
-// the CUDA error of its launch (0 on success), -1 for arguments the kernel
-// does not take, or -2 when the CUDA driver gives no TMA tensor map.
+// delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 ==
+// 0 up to 128 (with_instance).  Each returns the CUDA error of its launch
+// (0 on success), -1 for arguments the kernel does not take, or -2 when
+// the CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* klen, const void* lse,
                                const void* delta, const void* dout, void* dq,
                                int B, int H, int Hkv, int Tq, int Tk, int D,
                                int dtype, int causal, float scale,
                                void* stream) {
-  if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
+  if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_dq_tf32x3<64>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                                Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq_tf32x3<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                                 Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_dq_bf16<64>(q, k, v, klen, lse, delta, dout, dq, B, H, Hkv,
-                              Tq, Tk, causal, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_dq_bf16<128>(q, k, v, klen, lse, delta, dout, dq, B, H,
-                               Hkv, Tq, Tk, causal, scale, s);
-  return -1;
+  return with_instance(D, [&](auto in) {
+    using I = decltype(in);
+    return dtype == 0
+               ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
+                     D, causal, scale, s)
+               : launch_dq_bf16<I::kDP, I::kPadded>(
+                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
+                     D, causal, scale, s);
+  });
 }
 
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1256,51 +1388,41 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 void* dk, void* dv, int B, int H, int Hkv,
                                 int Tq, int Tk, int D, int dtype, int causal,
                                 float scale, void* stream) {
-  if (!args_ok(B, H, Hkv, Tq, Tk)) return -1;
+  if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_dkv_tf32x3<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
-                                 H, Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_dkv_tf32x3<128>(q, k, v, klen, lse, delta, dout, dk, dv,
-                                  B, H, Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_dkv_bf16<64>(q, k, v, klen, lse, delta, dout, dk, dv, B,
-                               H, Hkv, Tq, Tk, causal, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_dkv_bf16<128>(q, k, v, klen, lse, delta, dout, dk, dv, B,
-                                H, Hkv, Tq, Tk, causal, scale, s);
-  return -1;
+  return with_instance(D, [&](auto in) {
+    using I = decltype(in);
+    return dtype == 0
+               ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
+                     Tk, D, causal, scale, s)
+               : launch_dkv_bf16<I::kDP, I::kPadded>(
+                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
+                     Tk, D, causal, scale, s);
+  });
 }
 
 // The shared memory a backward launch asks for at head dimension D and
 // dtype (as in pt_flash_bwd_dq), for the dQ kernel (kind 0) or the dK/dV
-// kernel (kind 1), and how many such blocks an SM holds, as the CUDA
-// runtime reports them; 0 on success.
+// kernel (kind 1) of the instance D runs, and how many such blocks an SM
+// holds, as the CUDA runtime reports them; 0 on success.
 extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                       int* blocks) {
-  if (dtype == 0 && D == 64)
-    return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<64>,
-                                 sizeof(DqTf32Smem<64>) + 1024, smem, blocks)
-                     : occupancy(flash_bwd_dkv_tf32x3_kernel<64>,
-                                 sizeof(DkvTf32Smem<64>) + 1024, smem,
-                                 blocks);
-  if (dtype == 0 && D == 128)
-    return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<128>,
-                                 sizeof(DqTf32Smem<128>) + 1024, smem,
-                                 blocks)
-                     : occupancy(flash_bwd_dkv_tf32x3_kernel<128>,
-                                 sizeof(DkvTf32Smem<128>) + 1024, smem,
-                                 blocks);
-  if (dtype == 1 && D == 64)
-    return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<64>,
-                                 sizeof(DqSmem<64>) + 1024, smem, blocks)
-                     : occupancy(flash_bwd_dkv_wgmma_kernel<64>,
-                                 sizeof(DkvSmem<64>) + 1024, smem, blocks);
-  if (dtype == 1 && D == 128)
-    return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<128>,
-                                 sizeof(DqSmem<128>) + 1024, smem, blocks)
-                     : occupancy(flash_bwd_dkv_wgmma_kernel<128>,
-                                 sizeof(DkvSmem<128>) + 1024, smem, blocks);
-  return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return with_instance(D, [&](auto in) {
+    using I = decltype(in);
+    constexpr int DP = I::kDP, KC = I::kKC;
+    constexpr bool P = I::kPadded;
+    if (dtype == 0)
+      return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<DP, P, KC>,
+                                   sizeof(DqTf32Smem<DP>) + 1024, smem,
+                                   blocks)
+                       : occupancy(flash_bwd_dkv_tf32x3_kernel<DP, P, KC>,
+                                   sizeof(DkvTf32Smem<DP>) + 1024, smem,
+                                   blocks);
+    return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<DP, P>,
+                                 sizeof(DqSmem<DP>) + 1024, smem, blocks)
+                     : occupancy(flash_bwd_dkv_wgmma_kernel<DP, P>,
+                                 sizeof(DkvSmem<DP>) + 1024, smem, blocks);
+  });
 }

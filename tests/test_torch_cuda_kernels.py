@@ -170,7 +170,7 @@ def _profiled(fn, pattern):
     (torch.float32, 64, False, 150, 150, 2, [150, 1]),
     (torch.float32, 64, True, 37, 161, 1, [161, 100]),
     (torch.float32, 64, False, 50, 300, 2, [300, 299]),
-    # float32 at D = 96 still runs the CUDA-core kernels (csrc/flash_cc.cu)
+    # float32 at D = 96 runs the 3xTF32 kernels' padded 128 instance
     (torch.float32, 96, True, 129, 129, 2, [129, 90]),
 ])
 def test_flash_backward_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
@@ -195,12 +195,35 @@ def test_float32_d128_backward_kernels_match_plain(cuda, causal, Tq, Tk, H,
     _check_backward_kernels(torch.float32, 128, causal, Tq, Tk, H, Hkv, klen)
 
 
+# the other head dims up to 128 on the tensor-core backward, padded into
+# the instance of width 64 (D < 64) or 128: the smallest D, a float32 tile
+# with a 32-column region wholly past D (D <= 32 in the 64 instance, 64 <
+# D <= 96 in the 128 one), bf16 at D % 16 == 8 (the last k16 step half
+# zeros: 8, 40, 72, 120); ragged Tq / Tk, k_len 0 and 1 rows in a GQA
+# group, Tq < Tk with and without the causal mask
+_PADDED_SHAPES = {
+    'gqa_klen01': (True, 150, 150, 8, 2, [150, 0, 1]),
+    'tq_lt_tk_klen1': (True, 37, 161, 8, 4, [161, 100, 1]),
+    'ragged_noncausal': (False, 97, 161, 4, 4, [130, 161]),
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('D,shape', [
+    (D, name) for D in (16, 40, 96, 120) for name in _PADDED_SHAPES] + [
+    (8, 'gqa_klen01'), (32, 'gqa_klen01'), (72, 'gqa_klen01')])
+def test_padded_backward_kernels_match_plain(cuda, dtype, D, shape):
+    _check_backward_kernels(dtype, D, *_PADDED_SHAPES[shape])
+
+
 def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
     g = torch.Generator(device='cuda').manual_seed(2)
-    q = _randn(g, 2, H, Tq, D, dtype=dtype)
-    do = _randn(g, 2, H, Tq, D, dtype=dtype)
-    k = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
-    v = _randn(g, 2, Hkv, Tk, D, dtype=dtype)
+    B = len(klen)
+    q = _randn(g, B, H, Tq, D, dtype=dtype)
+    do = _randn(g, B, H, Tq, D, dtype=dtype)
+    k = _randn(g, B, Hkv, Tk, D, dtype=dtype)
+    v = _randn(g, B, Hkv, Tk, D, dtype=dtype)
     kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
     out, lse = att.flash_forward(q, k, v, causal, None, kl)
     before = dict(kernels.launches)
@@ -209,10 +232,10 @@ def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
         r'flash_bwd_\w+')
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    # the design each dtype and D runs: at D = 64 and 128 bf16 on wgmma,
-    # float32 as 3xTF32 wgmma; other head dims on CUDA cores
-    # (csrc/flash_cc.cu)
-    design = ('cc' if D not in (64, 128) else
+    # the design each dtype and D runs: at every D up to 128 bf16 on
+    # wgmma, float32 as 3xTF32 wgmma (other D than 64 and 128 padded);
+    # above 128 on CUDA cores (csrc/flash_cc.cu)
+    design = ('cc' if D > 128 else
               'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
     assert names == {'flash_bwd_dq_%s_kernel' % design,
                      'flash_bwd_dkv_%s_kernel' % design}, names
@@ -292,8 +315,10 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
 
 
 # the CUDA-core kernels (csrc/flash_cc.cu) of the head dims the tensor-core
-# kernels do not take: D = 16, 32 (padded width 32) and 96 (padded 128),
-# causal and not, ragged k_len with a k_len 0 row, GQA, Tq < Tk
+# kernels do not take: the forward at D = 16, 32 (padded width 32) and 96
+# (padded 128), whose backward runs the tensor-core kernels (padded to 64
+# and 128), and the forward and backward at D = 136 and 256; causal and
+# not, ragged k_len with a k_len 0 row, GQA, Tq < Tk
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
     (torch.float32, 16, True, 100, 100, 2, [100, 37]),
     (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
@@ -302,6 +327,7 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
     (torch.float32, 96, True, 129, 129, 2, [0, 90]),
     (torch.bfloat16, 96, False, 64, 200, 8, [200, 1]),
     (torch.float32, 256, True, 70, 70, 2, [70, 33]),
+    (torch.bfloat16, 136, False, 70, 90, 2, [90, 45]),
 ])
 def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                                              Hkv, klen):
@@ -319,8 +345,10 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
     for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    assert names == {'flash_fwd_cc_kernel', 'flash_bwd_dq_cc_kernel',
-                     'flash_bwd_dkv_cc_kernel'}, names
+    bwd = ('cc' if D > 128 else
+           'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
+    assert names == {'flash_fwd_cc_kernel', 'flash_bwd_dq_%s_kernel' % bwd,
+                     'flash_bwd_dkv_%s_kernel' % bwd}, names
     ref, ref_lse = att._ref_attention(q, k, v, causal, D ** -0.5, kl)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=8e-3, atol=1e-3)
@@ -337,6 +365,50 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         zero = torch.tensor(klen, device='cuda') == 0
         assert not out[zero].any()
         assert not any(t[zero].any() for t in grads)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('D', [16, 40, 96, 120])
+def test_padded_backward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
+    """The padded instances write dQ, dK and dV at the true row stride D
+    and no column past it: computed into views at the head of larger
+    buffers filled with a sentinel, each equals the wrapper's result bit
+    for bit, and the sentinel past it is untouched (a store at the padded
+    stride, or past column D, would land there)."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    B, H, Hkv, Tq, Tk = 2, 8, 2, 150, 130
+    q, do = (_randn(g, B, H, Tq, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, B, Hkv, Tk, D, dtype=dtype) for _ in range(2))
+    kl = torch.tensor([Tk, 77], dtype=torch.int32, device='cuda')
+    scale = D ** -0.5
+    out, lse = att.flash_forward(q, k, v, True, scale, kl)
+    want = att.flash_backward(q, k, v, kl, out, lse, do, True, scale)
+    delta = att._bwd_delta(out, do)
+    sentinel = 1024.0   # exact in bf16 and float32, far from any gradient
+
+    def view(like):
+        # room for every row at the padded width 128, and more
+        buf = torch.full((like.numel() // D * 128 + 4096,), sentinel,
+                         dtype=dtype, device='cuda')
+        return buf, buf[:like.numel()].view(like.shape)
+    (bq, dq), (bk, dk), (bv, dv) = view(q), view(k), view(v)
+    lib = kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), do.data_ptr())
+    code = att._DTYPE_CODE[dtype]
+    kernels.check(lib.pt_flash_bwd_dq(*args, dq.data_ptr(), B, H, Hkv, Tq,
+                                      Tk, D, code, 1, scale, stream),
+                  'pt_flash_bwd_dq')
+    kernels.check(lib.pt_flash_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(),
+                                       B, H, Hkv, Tq, Tk, D, code, 1, scale,
+                                       stream), 'pt_flash_bwd_dkv')
+    torch.cuda.synchronize()
+    for buf, got, ref, n in ((bq, dq, want[0], 'dq'), (bk, dk, want[1], 'dk'),
+                             (bv, dv, want[2], 'dv')):
+        assert torch.equal(got, ref), n
+        assert bool((buf[got.numel():] == sentinel).all()), n
 
 
 def test_head_dim_off_the_tiling_takes_the_composed_route_on_the_card(cuda):

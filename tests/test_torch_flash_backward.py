@@ -20,15 +20,19 @@ ATOL = 5e-4
 
 # the cases of tests/test_attention.py's backward-kernel parity test:
 # plain, causal + k_len, GQA 8/2, Tq < Tk; D 32 there, and D 64 as the
-# transformer uses
+# transformer uses; D 40 and 96, which the card runs in the tensor-core
+# backward's padded instances (widths 64 and 128), GQA, causal, k_len
 CASES = [
     dict(B=2, H=4, Hkv=4, Tq=128, Tk=128, D=32, causal=False, klen=False),
     dict(B=2, H=4, Hkv=4, Tq=128, Tk=128, D=32, causal=True, klen=True),
     dict(B=2, H=8, Hkv=2, Tq=128, Tk=128, D=32, causal=True, klen=False),
     dict(B=2, H=8, Hkv=2, Tq=128, Tk=256, D=32, causal=True, klen=True),
     dict(B=1, H=2, Hkv=1, Tq=64, Tk=64, D=64, causal=False, klen=True),
+    dict(B=2, H=8, Hkv=2, Tq=128, Tk=128, D=40, causal=True, klen=True),
+    dict(B=2, H=8, Hkv=2, Tq=64, Tk=128, D=96, causal=True, klen=True),
 ]
-IDS = ['plain', 'causal_klen', 'gqa', 'tq_lt_tk_klen', 'd64_gqa_klen']
+IDS = ['plain', 'causal_klen', 'gqa', 'tq_lt_tk_klen', 'd64_gqa_klen',
+       'd40_gqa_causal_klen', 'd96_gqa_tq_lt_tk_klen']
 
 
 def _inputs(cfg, seed):
@@ -143,3 +147,53 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take():
                                torch.zeros(1, 2, 8, 100),
                                torch.zeros(1, 2, 8, 100), None, q, lse, q,
                                True, 0.125)
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records which entry point a
+    wrapper called, launches nothing."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize('D', [8, 16, 40, 64, 96, 120, 128, 136, 256])
+def test_backward_routing_by_head_dim(D, monkeypatch):
+    """The backward runs the tensor-core kernels (pt_flash_bwd_*) at every
+    multiple of 8 up to 128, D other than 64 and 128 in their padded
+    instances, and the CUDA-core kernels (pt_flash_cc_bwd_*) above; the
+    forward runs its tensor-core kernel at 64 and 128 only.  The wrappers
+    are driven with the library and the CUDA stream stood in for."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import build
+    assert tatt.tensor_core_bwd(D) == (D <= 128)
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, 'library', lambda: fake)
+    monkeypatch.setattr(kernels, 'library', lambda: fake)
+    monkeypatch.setattr(torch.cuda, 'device', lambda dev: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev=None: type('S', (), {'cuda_stream': 0}))
+    q = torch.zeros(1, 2, 8, D)
+    kl = torch.full((1,), 8, dtype=torch.int32)
+    lse = torch.zeros(2, 8)
+    tatt._launch_flash(q, q, q, True, 0.1, kl)
+    tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
+    tc = tatt.tensor_core_bwd(D)
+    assert fake.called == [
+        'pt_flash_fwd' if D in (64, 128) else 'pt_flash_cc_fwd',
+        'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
+        'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv']
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False

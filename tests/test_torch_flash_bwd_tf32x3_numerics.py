@@ -123,8 +123,9 @@ DESIGNS = {'x3': ('split', 1, 4),           # the kernels
 
 def ring_rows(D):
     """Rows of a ring tile (keys for dQ, query rows for dK/dV), as
-    csrc/flash_bwd.cu's ring_rows."""
-    return 32 if D == 64 else 16
+    csrc/flash_bwd.cu's ring_rows of the instance D runs: width 64 up to
+    D = 64, 128 above."""
+    return 32 if D <= 64 else 16
 
 
 def _pad_rows(t, TT):
@@ -226,11 +227,15 @@ CASES = [
     (2, 4, 2, 37, 161, 128, True, [161, 100]),       # Tq < Tk, k_len
     (2, 4, 2, 50, 200, 128, False, [200, 199]),      # Tq < Tk
     (1, 4, 2, 97, 161, 128, False, [130]),           # ragged q, k tiles
+    # the padded instances: D = 40 in the 64 one, 96 in the 128 one
+    (3, 8, 2, 100, 100, 40, True, [100, 0, 1]),      # k_len 0, 1, GQA
+    (3, 8, 4, 70, 130, 96, True, [130, 1, 77]),      # Tq < Tk, k_len 1
 ]
 IDS = ['path_d64', 'causal_klen', 'gqa', 'klen1', 'klen1_gqa', 'klen0',
        'tq_lt_tk', 'tq_lt_tk_noncausal', 'd128_klen1', 'd128_gqa_causal',
        'd128_klen01', 'd128_klen1_gqa', 'd128_tq_lt_tk',
-       'd128_tq_lt_tk_noncausal', 'd128_ragged']
+       'd128_tq_lt_tk_noncausal', 'd128_ragged', 'd40_klen01_gqa',
+       'd96_tq_lt_tk_klen1']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed=0):
@@ -303,7 +308,8 @@ def test_backward_emulation_within_the_float32_check(case):
         assert not any(g[zero].any() for g in grads)
 
 
-AUTOGRAD_IDS = ['klen1', 'klen1_gqa', 'd128_klen1', 'd128_klen1_gqa']
+AUTOGRAD_IDS = ['klen1', 'klen1_gqa', 'd128_klen1', 'd128_klen1_gqa',
+                'd96_tq_lt_tk_klen1']
 
 
 @pytest.mark.parametrize('case', [CASES[IDS.index(i)] for i in AUTOGRAD_IDS],
@@ -325,6 +331,45 @@ def test_emulation_within_the_autograd_check_where_ds_cancels(case):
         bound = 1e-4 * r.abs() + 1e-5 * float(r.abs().max()) + 4 * eps * c
         assert bool(((a - r).abs() <= bound).all()), (
             n, float(((a - r).abs() / bound).max()))
+
+
+@pytest.mark.parametrize('D,DP', [(96, 128), (40, 64)])
+def test_padding_to_the_instance_width_changes_no_bit(D, DP):
+    """The kernels run D = 96 in the instance of width 128 (40 in the 64
+    one), TMA reading columns D .. DP-1 as zeros, with the products over D
+    stopped at the k8 step that holds column D - 1.  Emulated over all DP
+    columns instead, the zero columns add exact zeros to each truncating
+    chain: S and dP (each of their accumulators), and the gradients'
+    first D columns, are bit for bit those of the unpadded emulation, the
+    columns past D are zero, and the result holds the float32 check."""
+    B, H, Hkv, Tq, Tk = 2, 8, 2, 70, 100
+    q, k, v, do, kl = (torch.from_numpy(a) for a in _inputs(
+        B, H, Hkv, Tq, Tk, D, [100, 1], seed=3))
+    scale = D ** -0.5
+    pad = [torch.nn.functional.pad(t, (0, DP - D)) for t in (q, k, v, do)]
+    qg = q.reshape(B, Hkv, H // Hkv, Tq, D)
+    pqg = pad[0].reshape(B, Hkv, H // Hkv, Tq, DP)
+    for a, b, pa, pb in ((qg, k, pqg, pad[1]),
+                         (do.reshape(qg.shape), v,
+                          pad[3].reshape(pqg.shape), pad[2])):
+        for nbig in (1, 4):
+            assert torch.equal(
+                tc_product(None, a, b[:, :, None].transpose(-1, -2),
+                           'split', nbig),
+                tc_product(None, pa, pb[:, :, None].transpose(-1, -2),
+                           'split', nbig))
+    out, lse = tatt._ref_attention(q, k, v, True, scale, kl)
+    grads = emulate_backward(q, k, v, do, kl, out, lse, True, scale,
+                             TT=ring_rows(DP))
+    padded = emulate_backward(*pad[:3], pad[3], kl,
+                              torch.nn.functional.pad(out, (0, DP - D)),
+                              lse, True, scale, TT=ring_rows(DP))
+    refs = tatt.flash_backward_reference(q, k, v, kl, out, lse, do, True,
+                                         scale)
+    for g, p, r, n in zip(grads, padded, refs, ('dq', 'dk', 'dv')):
+        assert torch.equal(p[..., :D], g), n
+        assert not p[..., D:].any(), n
+        assert _within(g, r), (n, float((g - r).abs().max()))
 
 
 @pytest.mark.parametrize('name', ['path_d64', 'd128_gqa_causal'])

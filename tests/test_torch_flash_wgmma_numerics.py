@@ -11,7 +11,9 @@ applied to the float32 S; the forward's online softmax in base 2, with P
 handed to P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)); the
 backward's P^T and dS^T rounded to bf16 once before dV += P^T dO and dK +=
 dS^T Q, dK scaled once at the end; dQ's dS rounded to bf16 once before dQ
-+= dS K, dQ scaled once at the end.
++= dS K, dQ scaled once at the end.  The backward's padded instances (head
+dims other than 64 and 128, up to 128) hand dS and dS^T to dQ and dK as
+two bf16 terms too; padding itself adds exact zeros.
 
 The emulation must hold against the port's `_ref_attention` /
 `flash_backward_reference` and against the JAX package (its Pallas
@@ -23,8 +25,10 @@ of the largest gradient.  Against the JAX `_ref_attention` the bound also
 holds that reference's own one bf16 rounding of the softmax weights.  One
 more test shows why P goes in as two terms: a single bf16 rounding of P
 misses the forward's atol on early causal rows, which have few keys to
-average the rounding over.  dQ needs no such split: one rounding of dS
-holds the check on every case."""
+average the rounding over.  And one more shows why the padded backward
+instances split dS: dS sums to zero over a row, so dQ and dK cancel, and
+one rounding of dS misses the check on some inputs, at D = 128 (dQ) and
+at D = 16 (dK); D = 64 and 128 keep that one rounding (ROADMAP C7)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,12 +98,22 @@ def emulate_forward(q, k, v, kl, causal, scale, split_p=True):
             lse.reshape(B * H, Tq))
 
 
-def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale):
+def _ds_terms(ds, split_ds, D):
+    """dS as the kernels hand it to dQ and dK: rounded to bf16 once, or,
+    in the padded instances (split_ds None: D not 64 or 128), as hi + lo
+    bf16 terms, summed in float32 as the two products' accumulators are."""
+    if split_ds is None:
+        split_ds = D not in (64, 128)
+    hi = _bf16(ds)
+    return hi + _bf16(ds - hi) if split_ds else hi
+
+
+def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
     """flash_bwd_dkv_wgmma_kernel -> (dk, dv) in bf16: S^T and dP^T in
     float32, P^T = exp2(scale log2(e) S^T - log2(e) LSE) under the masks,
-    dS^T = P^T (dP^T - delta), both rounded to bf16 once, dV and dK summed
-    in float32 over the GQA group's heads and the 64-row query tiles in the
-    kernel's order."""
+    dS^T = P^T (dP^T - delta), P^T rounded to bf16 once and dS^T as
+    _ds_terms, dV and dK summed in float32 over the GQA group's heads and
+    the 64-row query tiles in the kernel's order."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -124,7 +138,7 @@ def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale):
             ds = torch.where(ok, p * (dpt - delta[:, :, gi, :, q0:q0 + BQ]),
                              torch.zeros_like(st))
             dv = dv + _bf16(p) @ dot
-            dk = dk + _bf16(ds) @ qt
+            dk = dk + _ds_terms(ds, split_ds, D) @ qt
     return (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
@@ -223,11 +237,11 @@ def test_one_bf16_rounding_of_p_would_miss_the_card_tolerance():
     assert not bool((err <= bound).all())
 
 
-def emulate_dq(q, k, v, kl, out, lse, do, causal, scale):
+def emulate_dq(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
     """flash_bwd_dq_wgmma_kernel -> dq in bf16: S and dP in float32 per
     64-key ring tile, P = exp2(scale log2(e) S - log2(e) LSE) under the
-    masks, dS = P (dP - delta) rounded to bf16 once, dQ summed in float32
-    over the key tiles in the kernel's order, scaled once at the end."""
+    masks, dS = P (dP - delta) as _ds_terms, dQ summed in float32 over the
+    key tiles in the kernel's order, scaled once at the end."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -246,7 +260,7 @@ def emulate_dq(q, k, v, kl, out, lse, do, causal, scale):
         ok = valid[..., k0:k0 + WK]
         p = torch.where(ok, torch.exp2(s * sl2 - lse2), torch.zeros_like(s))
         ds = torch.where(ok, p * (dp - delta), torch.zeros_like(s))
-        dq = dq + _bf16(ds) @ kt
+        dq = dq + _ds_terms(ds, split_ds, D) @ kt
     return (dq * scale).reshape(B, H, Tq, D).to(torch.bfloat16)
 
 
@@ -258,8 +272,14 @@ BWD_CASES = [
     (2, 4, 1, 37, 161, 64, True, [161, 100]),        # Tq < Tk, k_len
     (2, 4, 2, 150, 150, 128, False, [150, 77]),      # k_len, D=128
     (2, 4, 4, 70, 70, 64, True, [0, 50]),            # k_len 0 rows
+    # the padded instances: D = 16, 40 in the 64 one, 96, 120 in the 128
+    (3, 8, 2, 100, 100, 16, True, [100, 0, 1]),      # k_len 0, 1, GQA
+    (2, 8, 4, 37, 161, 40, True, [161, 100]),        # Tq < Tk
+    (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
+    (1, 4, 2, 97, 161, 120, False, [130]),           # ragged q, k tiles
 ]
-BWD_IDS = ['path', 'causal_klen', 'gqa', 'tq_lt_tk', 'klen_d128', 'klen0']
+BWD_IDS = ['path', 'causal_klen', 'gqa', 'tq_lt_tk', 'klen_d128', 'klen0',
+           'd16_klen01', 'd40_tq_lt_tk', 'd96_gqa', 'd120_ragged']
 
 
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
@@ -306,3 +326,30 @@ def test_dq_emulation_within_the_card_tolerance(case):
                'dq %s' % what)
     if 0 in (klen or []):
         assert not dq[torch.tensor(klen) == 0].float().any()
+
+
+@pytest.mark.parametrize('D,seed,grad', [(128, 3, 'dq'), (16, 0, 'dk')])
+def test_one_bf16_rounding_of_ds_can_miss_the_card_tolerance(D, seed, grad):
+    """dS = P (dP - delta) sums to zero over a row, so dQ = scale dS K and
+    dK = scale dS^T Q cancel: on these inputs (GQA 8/2, causal, k_len
+    [150, 77]) one bf16 rounding of dS leaves dQ at D = 128, and dK at D =
+    16, past the card's bf16 check (1.34x of it), and the padded
+    instances' hi + lo terms hold it.  At D = 128 the kernel keeps the one
+    rounding (ROADMAP C7)."""
+    q, k, v, do, kl = _inputs(2, 8, 2, 150, 150, D, [150, 77], seed)
+    scale = D ** -0.5
+    out, lse = emulate_forward(q, k, v, kl, True, scale)
+    refs = dict(zip(('dq', 'dk', 'dv'), tatt.flash_backward_reference(
+        q, k, v, kl, out, lse, do, True, scale)))
+
+    def grad_of(split_ds):
+        if grad == 'dq':
+            return emulate_dq(q, k, v, kl, out, lse, do, True, scale,
+                              split_ds)
+        return emulate_dkv(q, k, v, kl, out, lse, do, True, scale,
+                           split_ds)[0]
+    ref = refs[grad].float()
+    atol = BWD_AREL * float(ref.abs().max())
+    one = (grad_of(False).float() - ref).abs()
+    assert not bool((one <= atol + BWD_RTOL * ref.abs()).all())
+    _close(grad_of(True), ref, BWD_RTOL, atol, grad)
