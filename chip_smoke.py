@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Serve llama_1b (float32 and bf16, and as a streaming generation server),
-train transformer-base and llama_1b through paddle_tpu_torch on one NVIDIA
-GPU, and hold each hand-written CUDA kernel against its plain PyTorch
-version.
+"""Serve llama_1b (float32 and bf16, and as a streaming generation server)
+and a llama at Phi-3-mini's widths (head dim 96), train transformer-base
+and llama_1b through paddle_tpu_torch on one NVIDIA GPU, and hold each
+hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
     python3 chip_smoke.py --phases training_llama,train_llama_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,training_composed
     python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
+    python3 chip_smoke.py --phases card,kernels,serving_d96
     python3 chip_smoke.py --phases card,training,nan_trip
 
 Every program runs through the PT_OPT passes (on by default): their fused
@@ -37,13 +38,20 @@ Phases, each printing JSON lines:
               at the training llama's shape (B=2, H=16 / 8, T=2048,
               D=128, causal) in float32 and bf16, beside SDPA, and
               float32 K2 and K3 also in the CUDA-core design
-              (csrc/flash_cc.cu, llama_f32_bwd_designs); the other head
-              dims (D = 8-120): K1 on the CUDA cores, K2 and K3 in the
-              tensor-core kernels' padded instances, timed at D = 96
-              beside the CUDA-core pair they replaced and SDPA
-              (d96_bwd_designs), checked at D = 16 (the tiny llama's),
-              32, 40 and 120;
-              Adam's bf16 instance at the llama's 147 tensors
+              (csrc/flash_cc.cu, llama_f32_bwd_designs), and the bf16 K2
+              and K3 at the flash step's and the llama's shapes
+              (c7_bwd_bf16: dS as hi + lo terms at D = 64 and 128 too);
+              the other head dims up to 128: K1, K2 and K3 in the
+              tensor-core kernels' padded instances, K1 checked and timed
+              at serving_d96's shape (B=4, H=32 / 32, T=2048, D=96,
+              causal), all three timed at D = 96 (B=2, H=16 / 8, T=1024)
+              beside the CUDA-core designs they replaced and SDPA
+              (d96_fwd_designs, d96_bwd_designs),
+              checked at D = 16 (the tiny llama's), 32, 40, 72 and 120, the
+              forward's kernel and instance read from the profiler; the
+              CUDA-core kernels of D 136-256 timed at D = 256 beside SDPA
+              (d256_cc_designs); Adam's bf16 instance at the llama's 147
+              tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -66,6 +74,16 @@ Phases, each printing JSON lines:
               graph in turns, eager, graph, graph, eager; median ms,
               tokens/s, device busy and idle share, peak memory; the
               served rows bit for bit equal)
+  serving_d96 a llama at Phi-3-mini's widths (d_model 3072, 32 heads
+              and 32 KV heads, so D = 96, FFN 8192, vocab 32064, rope
+              theta 10000; microsoft/Phi-3-mini-4k-instruct), max_len
+              2048, cut to 8 of its 32 layers (1.1 B parameters, random
+              weights from a seed), built, saved and loaded by Predictor
+              in float32 and with enable_bf16: one profiled 4-row batch
+              of 2048 tokens in each (batch ms, flash ms), whose 8 flash
+              forwards must all be the padded tensor-core kernel of width
+              128 (fwd_tf32x3, fwd_wgmma); bf16 within the bf16 bound of
+              float32
   generation  llama_1b (full width and depth, float32, TF32 off, weights
               from its program's startup) through make_streaming_runtime
               (8 slots, prefill chunks of 256) and GenerationEngine
@@ -94,8 +112,9 @@ Phases, each printing JSON lines:
               plain cached_attention against one
               SDPA call with the same mask at the decode and prefill
               shapes (timed only)
-  gpu_vs_cpu  llama_1b width, 2 layers, max_len 512: one saved model through
-              the port's Predictor on the card and on the CPU
+  gpu_vs_cpu  llama_1b widths and Phi-3-mini's (D = 96), 2 layers,
+              max_len 512: one saved model each through the port's
+              Predictor on the card and on the CPU
   generation_gpu_vs_cpu
               llama_1b width, 2 layers: a 64-token prompt and 16 greedy
               tokens through the paged runtime on the card and on the CPU
@@ -172,10 +191,10 @@ Phases, each printing JSON lines:
               llama_1b widths cut to 2 layers, B = 2, T = 256, float32
               (losses within 1e-5 relative, parameters within 2.01 x the
               summed lr, the clip's global norm within 1e-5 relative);
-              the tiny config (D = 16: the CUDA-core flash forward, the
-              tensor-core backward's padded instance of width 64) in
-              float32 and from build(dtype='bfloat16') (within the bf16
-              bounds tests/test_torch_llama_train.py derives)
+              the tiny config (D = 16: the tensor-core forward's and
+              backward's padded instances of width 64) in float32 and
+              from build(dtype='bfloat16') (within the bf16 bounds
+              tests/test_torch_llama_train.py derives)
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu) run last, and that
@@ -208,7 +227,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
-PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'generation',
+PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
+          'generation',
           'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
           'train_gpu_vs_cpu', 'training_composed',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
@@ -330,18 +350,20 @@ def phase_card():
 
 def flash_fwd_occupancy(lib):
     """The flash forward's shared memory a block and blocks an SM, by
-    instance, as the CUDA runtime reports them."""
+    instance (D = 64, 128, and the padded ones of width 64 and 128, asked
+    for at D = 40 and 96), as the CUDA runtime reports them."""
     import ctypes
     res = {}
     for dtype, code in (('float32', 0), ('bfloat16', 1)):
-        for D in (64, 128):
+        for D, inst in ((64, 'd64'), (128, 'd128'), (40, 'dp64_padded'),
+                        (96, 'dp128_padded')):
             smem, blocks = ctypes.c_int(), ctypes.c_int()
             rc = lib.pt_flash_fwd_occupancy(D, code, ctypes.byref(smem),
                                             ctypes.byref(blocks))
             require(rc == 0, 'pt_flash_fwd_occupancy(%d, %s): %d'
                     % (D, dtype, rc))
-            res['%s_d%d' % (dtype, D)] = dict(smem_bytes=smem.value,
-                                              blocks_per_sm=blocks.value)
+            res['%s_%s' % (dtype, inst)] = dict(smem_bytes=smem.value,
+                                                blocks_per_sm=blocks.value)
     return res
 
 
@@ -397,10 +419,14 @@ def ptxas_by_kernel(log):
 # ------------------------------------------------------------- phase 2
 
 def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
-               timed=False):
-    """K1 against `_ref_attention`; the design's rate bounds it: bf16 and
-    float32 tensor cores (3xTF32) at D = 64 and 128, CUDA cores (float32
-    FMAs, both dtypes) at the other head dims (csrc/flash_cc.cu)."""
+               timed=False, design='port', profiled=False):
+    """K1 against `_ref_attention`: the port's (flash_forward, its
+    wrapper), or with design 'cc' the CUDA-core kernel called directly
+    (_cc_fwd_launch); the design's rate bounds it: bf16 and float32
+    tensor cores (3xTF32) at every D up to 128 (D other than 64 and 128
+    padded), CUDA cores (float32 FMAs, both dtypes) above and for design
+    'cc'.  `profiled`: the kernel one port forward launches, from the
+    profiler, must be its dtype's tensor-core design at D up to 128."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import attention as att
@@ -412,7 +438,13 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
     kl = [Tk] * B if klen is None else list(klen)
     kl_t = torch.tensor(kl, dtype=torch.int32, device='cuda')
     scale = D ** -0.5
-    out, lse = att.flash_forward(q, k, v, causal, scale, kl_t)
+    if design == 'cc':
+        def run():
+            return _cc_fwd_launch(q, k, v, kl_t, causal, scale)
+    else:
+        def run():
+            return att.flash_forward(q, k, v, causal, scale, kl_t)
+    out, lse = run()
     ref, ref_lse = att._ref_attention(q, k, v, causal, scale, kl_t)
     torch.cuda.synchronize()
     # float32: both sum in float32 in other orders; bfloat16: both round an
@@ -428,8 +460,12 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
     lse_ok = bool(torch.equal(lse > -1e29, valid_rows)) and lse_err <= 1e-4
     res = dict(phase='kernels', kernel='flash_attention_fwd', case=name,
                B=B, H=H, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal,
-               dtype=dtype, k_len=kl, max_abs_err=err, rtol=rtol, atol=atol,
-               lse_max_abs_err=lse_err, lse_atol=1e-4)
+               dtype=dtype, design=design, k_len=kl, max_abs_err=err,
+               rtol=rtol, atol=atol, lse_max_abs_err=lse_err, lse_atol=1e-4)
+    if design == 'port' and att.tensor_core(D) and D not in (64, 128):
+        res.update(DP=_padded_width(D), useful_share=D / _padded_width(D))
+    if profiled:
+        res['profiled_kernels'] = fwd_kernels_profiled(run, dtype, D)
     if 0 in kl:
         zero_rows = out[torch.tensor(kl) == 0].float().abs().max()
         res['k_len0_rows_max_abs'] = float(zero_rows)
@@ -449,16 +485,16 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                   + 4 * B * H * Tq + 4 * B)
         t_bytes = nbytes / HBM_BPS * 1e3
         # float32 runs as 3xTF32 on the tensor cores: that rate bounds it;
-        # the CUDA cores' float32 rate is printed beside it
-        t_ops = flops / PEAK_FLOPS[_fwd_rate(dtype, D)] * 1e3
+        # the CUDA cores' float32 rate is printed beside it.  The work is
+        # the true D's (a padded instance does D / DP of P V usefully)
+        t_ops = flops / PEAK_FLOPS[_fwd_rate(dtype, D, design)] * 1e3
         if dtype == 'float32':
             res['bound_cuda_cores_ms'] = max(
                 t_bytes, flops / PEAK_FLOPS['float32'] * 1e3)
             res['bound_tf32x3_ms'] = max(
                 t_bytes, flops / PEAK_FLOPS['tf32x3'] * 1e3)
         res.update(
-            ms=time_ms(lambda: att.flash_forward(q, k, v, causal, scale,
-                                                 kl_t), 10),
+            ms=time_ms(run, 10),
             plain_ms=time_ms(lambda: att._ref_attention(q, k, v, causal,
                                                         scale, kl_t), 3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -551,11 +587,13 @@ def _valid_pairs(B, H, Tq, Tk, causal, kl):
     return pairs
 
 
-def _fwd_rate(dtype, D):
-    """The PEAK_FLOPS key of the flash forward's design at (dtype, D):
-    tensor cores at D = 64 and 128 (float32 as 3xTF32), CUDA cores at
-    every other head dim (csrc/flash_cc.cu)."""
-    if D not in (64, 128):
+def _fwd_rate(dtype, D, design='port'):
+    """The PEAK_FLOPS key of the flash forward's design at (dtype, D): the
+    port's, tensor cores at every D up to 128 (float32 as 3xTF32; D other
+    than 64 and 128 padded) and CUDA cores above, or the CUDA-core kernel
+    (design 'cc', csrc/flash_cc.cu)."""
+    from paddle_tpu_torch.ops import attention as att
+    if design == 'cc' or not att.tensor_core(D):
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
 
@@ -566,15 +604,78 @@ def _bwd_rate(dtype, D, design='port'):
     other than 64 and 128 padded) and CUDA cores above, or the CUDA-core
     kernels (design 'cc', csrc/flash_cc.cu)."""
     from paddle_tpu_torch.ops import attention as att
-    if design == 'cc' or not att.tensor_core_bwd(D):
+    if design == 'cc' or not att.tensor_core(D):
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
 
 
 def _padded_width(D):
-    """The width of the tensor-core backward's instance that runs head
-    dim D (csrc/flash_bwd.cu with_instance): 64 up to 64, else 128."""
+    """The width of the tensor-core kernels' instance that runs head dim D
+    (csrc/hopper_mma.cuh with_instance): 64 up to 64, else 128."""
     return 64 if D <= 64 else 128
+
+
+def _cc_fwd_launch(q, k, v, kl_t, causal, scale):
+    """The CUDA-core design of K1 (pt_flash_cc_fwd, csrc/flash_cc.cu),
+    called directly -> (out, lse): the port routes every D up to 128 to
+    csrc/flash_fwd.cu, so this times the design the tensor-core kernels
+    replaced, uncounted."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import attention as att
+    B, H, Tq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    rc = kernels.library().pt_flash_cc_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kl_t.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, k.shape[1], Tq, k.shape[2], D,
+        att._DTYPE_CODE[q.dtype], int(bool(causal)), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, 'pt_flash_cc_fwd')
+    return out, lse
+
+
+def _fwd_instance(name):
+    """(padded width, padded) of the tensor-core flash forward kernel a
+    profiler key names; None for another kernel."""
+    import re
+    m = re.search(r'flash_fwd_\w+?_kernel<(\d+), (true|false)', name)
+    return (int(m.group(1)), m.group(2) == 'true') if m else None
+
+
+def fwd_kernels_profiled(run, dtype, D):
+    """{kernel: launches} of the flash forward kernels one run() launches,
+    from the profiler (names up to their arguments, template arguments
+    included): one launch of the design the port routes (dtype, D) to, a
+    tensor-core kernel in the instance of D's width.  A trace without it
+    is taken again, up to PROFILE_TRIES times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import attention as att
+    got = {}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and 'flash_fwd' in e.key:
+                key = e.key.replace('(anonymous namespace)::', '').replace(
+                    'void ', '').split('(')[0]
+                got[key] = got.get(key, 0) + e.count
+        if got:
+            break
+    tc = att.tensor_core(D)
+    want = 'fwd_' + ('cc' if not tc else
+                     'tf32x3' if dtype == 'float32' else 'wgmma')
+    ok = list(got.values()) == [1] and _flash_design(next(iter(got))) == \
+        want
+    if ok and tc:
+        ok = _fwd_instance(next(iter(got))) == (_padded_width(D),
+                                                 D not in (64, 128))
+    require(ok, 'flash forward at D = %d, %s: profiled %s, expected one %s'
+            % (D, dtype, got, want))
+    return got
 
 
 def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
@@ -613,7 +714,7 @@ def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     k, v = (torch.randn(B, Hkv, T, D, generator=g, device='cuda').to(dt)
             for _ in range(2))
     out, lse = att.flash_forward(q, k, v, True)
-    tc = ('cc' if not att.tensor_core_bwd(D) else
+    tc = ('cc' if not att.tensor_core(D) else
           'tf32x3' if dtype == 'float32' else 'wgmma')
     want = {'bwd_dq_' + tc: 1, 'bwd_dkv_' + tc: 1}
     for _ in range(PROFILE_TRIES):
@@ -729,7 +830,7 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
             bound_ms, bound_by = _bound(flops, nbytes,
                                         _bwd_rate(dtype, D, design))
             row = res[kname][0]
-            if design == 'port' and att.tensor_core_bwd(D) and \
+            if design == 'port' and att.tensor_core(D) and \
                     D not in (64, 128):
                 row.update(DP=_padded_width(D),
                            useful_share=D / _padded_width(D))
@@ -1292,17 +1393,47 @@ def phase_kernels():
                  sdpa_f32_whole_bwd_ms=bwd['flash_attention_bwd_dq'][
                      'library_ms'],
                  speedup_dq=cdq / dq, speedup_dkv=cdkv / dkv)
-    # the other head dims: K1 on the CUDA cores (csrc/flash_cc.cu), K2 and
-    # K3 in the tensor-core kernels' padded instances (csrc/flash_bwd.cu).
-    # Timed at D = 96 (the 128 instance) beside the CUDA-core pair they
-    # replaced and SDPA, in this call (d96_bwd_designs); checked at the
-    # tiny llama's D = 16 and at D = 32 (the 64 instance; float32 with a
-    # 32-column region wholly past D), and at D = 40 and 120 (bf16's last
-    # k16 step half zeros) with k_len 0 and 1 rows in a GQA group
+    # C7: the bf16 backward splits dS into hi + lo terms at D = 64 and 128
+    # too (one more product a tile): K2 / K3 at the flash step's shape and
+    # the bf16 llama's.  tools/pt_flash_ab.py times them against another
+    # tree in one call
+    llama_bf16 = {n: inst[n]['bfloat16_d128'] for n in (
+        'flash_attention_bwd_dq', 'flash_attention_bwd_dkv')}
+    path_bf16 = {n: inst[n]['bfloat16'] for n in llama_bf16}
+    emit(phase='kernels', step='c7_bwd_bf16',
+         flash_step_dq_ms=path_bf16['flash_attention_bwd_dq']['ms'],
+         flash_step_dkv_ms=path_bf16['flash_attention_bwd_dkv']['ms'],
+         llama_dq_ms=llama_bf16['flash_attention_bwd_dq']['ms'],
+         llama_dkv_ms=llama_bf16['flash_attention_bwd_dkv']['ms'])
+    # the other head dims up to 128: K1, K2 and K3 in the tensor-core
+    # kernels' padded instances (csrc/flash_fwd.cu, csrc/flash_bwd.cu).
+    # K1's instance row is its main path's shape, serving_d96's batch (4
+    # rows x 2048 tokens, 32 heads, D = 96).  All three are timed at D = 96
+    # (the 128 instance, B 2, H 16 / 8, T 1024) beside the CUDA-core
+    # designs they replaced and SDPA, in this call (d96_fwd_designs,
+    # d96_bwd_designs); checked at the tiny llama's D = 16, at D = 32 (the
+    # 64 instance; float32 with a 32-column region wholly past D), and at
+    # D = 40, 72 and 120 (a 32-column region partly past D; the bf16
+    # backward's last k16 step half zeros) with k_len 0 and 1 rows in a
+    # GQA group and Tq < Tk, the forward's kernel read from the profiler
     for dt in ('float32', 'bfloat16'):
         key = dt + '_other_d'
         inst['flash_attention_fwd'][key] = flash_case(
-            'd96_' + dt, 2, 16, 8, 1024, 1024, 96, True, dt, timed=True)
+            'served_d96_' + dt, 4, 32, 32, 2048, 2048, 96, True, dt,
+            timed=True, profiled=True)
+        fwd = flash_case('d96_' + dt, 2, 16, 8, 1024, 1024, 96, True, dt,
+                         timed=True, profiled=True)
+        cc_fwd = flash_case('d96_cc_' + dt, 2, 16, 8, 1024, 1024, 96, True,
+                            dt, timed=True, design='cc')
+        emit(phase='kernels', step='d96_fwd_designs', dtype=dt, D=96,
+             DP=fwd['DP'], useful_share=fwd['useful_share'],
+             tensor_core_ms=fwd['ms'], cuda_core_ms=cc_fwd['ms'],
+             sdpa_ms=fwd['library_ms'],
+             over_sdpa=fwd['ms'] / fwd['library_ms'],
+             speedup=cc_fwd['ms'] / fwd['ms'], bound_ms=fwd['bound_ms'],
+             bound_share=fwd['bound_share'],
+             cuda_core_bound_share=cc_fwd['bound_share'],
+             profiled_kernels=fwd['profiled_kernels'])
         bwd = flash_bwd_case('d96_' + dt, 2, 16, 8, 1024, 1024, 96, True,
                              dt, timed=True)
         cc = flash_bwd_case('d96_cc_' + dt, 2, 16, 8, 1024, 1024, 96, True,
@@ -1327,16 +1458,42 @@ def phase_kernels():
              bound_share_dkv=dkv['bound_share'],
              profiled_designs=designs)
         for D in (16, 32):
-            flash_case('d%d_%s' % (D, dt), 2, 4, 2, 32, 32, D, True, dt)
+            flash_case('d%d_%s' % (D, dt), 2, 4, 2, 32, 32, D, True, dt,
+                       profiled=True)
             flash_bwd_case('d%d_%s' % (D, dt), 2, 4, 2, 32, 32, D, True, dt)
+        flash_case('d16_klen01_' + dt, 3, 8, 2, 100, 100, 16, True, dt,
+                   klen=[100, 0, 1], profiled=True)
         flash_case('d32_klen0_' + dt, 2, 8, 2, 100, 133, 32, False, dt,
-                   klen=[133, 0])
+                   klen=[133, 0], profiled=True)
+        flash_case('d40_klen01_' + dt, 3, 8, 2, 150, 150, 40, True, dt,
+                   klen=[150, 0, 1], profiled=True)
+        flash_case('d72_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 72, True, dt,
+                   klen=[161, 100, 1], profiled=True)
+        flash_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True, dt,
+                   klen=[161, 0, 1], profiled=True)
         flash_bwd_case('d32_klen_' + dt, 2, 8, 2, 100, 133, 32, True, dt,
                        klen=[133, 40])
         flash_bwd_case('d40_klen01_' + dt, 3, 8, 2, 150, 150, 40, True, dt,
                        klen=[150, 0, 1])
         flash_bwd_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True,
                        dt, klen=[161, 100, 1])
+        # the head dims above 128 keep the CUDA-core kernels
+        # (csrc/flash_cc.cu): timed at D = 256 beside SDPA
+        cc_fwd = flash_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True,
+                            dt, timed=True, profiled=True)
+        cc = flash_bwd_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True,
+                            dt, timed=True)
+        dq, dkv = (cc[n] for n in ('flash_attention_bwd_dq',
+                                   'flash_attention_bwd_dkv'))
+        emit(phase='kernels', step='d256_cc_designs', dtype=dt, D=256,
+             fwd_ms=cc_fwd['ms'], fwd_bound_ms=cc_fwd['bound_ms'],
+             fwd_plain_ms=cc_fwd['plain_ms'], sdpa_ms=cc_fwd['library_ms'],
+             dq_ms=dq['ms'], dq_bound_ms=dq['bound_ms'], dkv_ms=dkv['ms'],
+             dkv_bound_ms=dkv['bound_ms'], bwd_plain_ms=dq['plain_ms'],
+             sdpa_whole_bwd_ms=dq['library_ms'],
+             fwd_over_sdpa=cc_fwd['ms'] / cc_fwd['library_ms'],
+             pair_over_sdpa=(dq['ms'] + dkv['ms']) / dq['library_ms'],
+             profiled_kernels=cc_fwd['profiled_kernels'])
     served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
                                            timed=True)
     layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
@@ -1463,12 +1620,13 @@ def _interpreted(pred):
 
 
 def profile_batch(pred, feed, n_layer, phase='serving',
-                  design='fwd_tf32x3'):
+                  design='fwd_tf32x3', instance=None):
     """Where one dispatched batch spends its time: torch.profiler over one
     interpreted Predictor.run (device time by kernel, grouped; the flash
     kernels by design), beside the host wall time of three unprofiled
-    runs; every flash forward of the batch must be `design`.  serve_modes
-    times and profiles the graph replays."""
+    runs; every flash forward of the batch must be `design`, and with
+    `instance` (padded width, padded) that instance of it.  serve_modes
+    times and profiles the graph replays.  -> the emitted line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1484,7 +1642,7 @@ def profile_batch(pred, feed, n_layer, phase='serving',
         run(feed)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    groups = {}
+    groups, instances = {}, {}
     top = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): an aten op's device
@@ -1495,6 +1653,9 @@ def profile_batch(pred, feed, n_layer, phase='serving',
         if not us:
             continue
         name = e.key
+        if _fwd_instance(name):
+            inst = '%d, %s' % _fwd_instance(name)
+            instances[inst] = instances.get(inst, 0) + e.count
         low = name.lower()
         group = ('flash_attention_fwd' if 'flash_fwd' in name else
                  'embedding_gather' if 'gather_rows' in name else
@@ -1509,18 +1670,26 @@ def profile_batch(pred, feed, n_layer, phase='serving',
     top.sort(reverse=True)
     busy = sum(groups.values())
     flash = _flash_by_design(prof.key_averages())
-    emit(phase=phase, step='profile',
-         rows=int(feed['tokens'].shape[0]),
-         run_wall_ms=[w * 1e3 for w in walls],
-         profiled_wall_ms=prof_wall * 1e3, device_ms_by_group=groups,
-         device_busy_ms=busy,
-         device_idle_share=(1 - busy / (prof_wall * 1e3)) if busy else None,
-         flash_by_design=flash,
-         top_kernels=[dict(ms=t, name=n, count=c) for t, n, c in top[:12]])
+    res = dict(phase=phase, step='profile',
+               rows=int(feed['tokens'].shape[0]),
+               run_wall_ms=[w * 1e3 for w in walls],
+               profiled_wall_ms=prof_wall * 1e3, device_ms_by_group=groups,
+               device_busy_ms=busy,
+               device_idle_share=(1 - busy / (prof_wall * 1e3)) if busy
+               else None, flash_by_design=flash,
+               flash_fwd_instances=instances,
+               top_kernels=[dict(ms=t, name=n, count=c)
+                            for t, n, c in top[:12]])
+    emit(**res)
     # one batch: a flash forward a layer, all of the dtype's design
     require(set(flash) == {design} and flash[design][1] == n_layer,
             'the served batch ran flash kernels %s, not %d %s'
             % (flash, n_layer, design))
+    if instance:
+        want = {'%d, %s' % instance: n_layer}
+        require(instances == want, 'the served batch ran flash forward '
+                'instances %s, not %s' % (instances, want))
+    return res
 
 
 def serve_modes(phase, smi, pred, feed, n_layer, design):
@@ -1802,36 +1971,114 @@ def _serve(phase, smi, bf16):
     return launches
 
 
+# Phi-3-mini's widths (microsoft/Phi-3-mini-4k-instruct config.json:
+# hidden 3072, 32 heads and 32 KV heads, so D = 96, FFN 8192, vocab 32064,
+# rope theta 10000) on the llama architecture, cut to 8 of its 32 layers
+D96_CFG = dict(vocab=32064, d_model=3072, n_layer=8, n_head=32,
+               n_kv_head=32, d_ffn=8192, theta=10000.0, max_len=2048)
+
+
+def phase_serving_d96(smi):
+    """The served llama at a head dim other than 64 and 128 (Phi-3-mini's
+    widths, D = 96), float32 and enable_bf16: one profiled 4-row batch of
+    2048 tokens each, whose 8 flash forwards must be the padded
+    tensor-core kernel of width 128; bf16 within the bf16 bound of
+    float32.  -> {path: launches a batch}."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import llama
+    with _model_dir() as d:
+        cfg, n_params, startup_s, save_s = _build_and_save(
+            fluid, llama, d, SERVED_FETCHES, **D96_CFG)
+        t0 = time.perf_counter()
+        f32 = fluid.inference.Predictor(d)
+        t1 = time.perf_counter()
+        conf = fluid.inference.AnalysisConfig(d)
+        conf.enable_bf16()
+        bf16 = fluid.inference.Predictor(conf)
+        t2 = time.perf_counter()
+    T, V, L = cfg['max_len'], cfg['vocab'], cfg['n_layer']
+    emit(phase='serving_d96', step='model', config='phi3_mini_widths',
+         cfg=cfg, head_dim=cfg['d_model'] // cfg['n_head'],
+         reduced='n_layer 32 -> 8 (the save, the load and the script '
+         'within the time limit)', params=n_params,
+         param_bytes=4 * n_params, startup_s=startup_s, save_s=save_s,
+         load_s=t1 - t0, load_bf16_s=t2 - t1)
+    feed = {'tokens': _tokens(np.random.RandomState(SEED + 2), 4, T, V)}
+    paths, last, rows = {}, {}, {}
+    for dtype, pred, design in (('float32', f32, 'fwd_tf32x3'),
+                                ('bfloat16', bf16, 'fwd_wgmma')):
+        pred.run(feed)       # builds the generated kernels of the shape
+        kernels.reset_launches()
+        out = pred.run(feed)
+        torch.cuda.synchronize()
+        path = 'serving_d96_' + ('f32' if dtype == 'float32' else 'bf16')
+        paths[path] = {k: v for k, v in kernels.launches.items() if v}
+        require(paths[path].get('flash_attention_fwd') == L,
+                '%s: flash launches %s, not one a layer' % (path,
+                                                            paths[path]))
+        last[dtype] = np.asarray(out[0], np.float32)
+        require(last[dtype].shape == (4, V) and
+                bool(np.isfinite(last[dtype]).all()),
+                'serving_d96 %s: logits of shape %s, finite %s'
+                % (dtype, last[dtype].shape, np.isfinite(last[dtype]).all()))
+        prof = profile_batch(pred, feed, L, 'serving_d96', design,
+                             instance=(_padded_width(96), True))
+        rows[dtype] = dict(
+            batch_ms=prof['run_wall_ms'],
+            flash_ms=prof['device_ms_by_group'].get('flash_attention_fwd'),
+            device_busy_ms=prof['device_busy_ms'],
+            flash_fwd_instances=prof['flash_fwd_instances'])
+    err, tol, clear, n = _agree_bf16(last['bfloat16'], last['float32'], L,
+                                     'serving_d96 bf16 vs float32', runs=1)
+    emit(phase='serving_d96', step='served', rows=4, T=T, by_dtype=rows,
+         launches=paths, bf16_vs_float32=dict(max_abs_err=err, tol=tol,
+                                              clear_rows=clear, rows=n),
+         card=smi)
+    del f32, bf16
+    torch.cuda.empty_cache()
+    return paths
+
+
 # ------------------------------------------------------------- phase 4
 
 def phase_gpu_vs_cpu():
+    """One saved model through the port's Predictor on the card and on
+    the CPU, at 2 layers and max_len 512: llama_1b's widths (D = 128) and
+    Phi-3-mini's (D = 96: the padded tensor-core forward on the card)."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import llama
-    with _model_dir() as d:
-        cfg, n_params, _, _ = _build_and_save(fluid, llama, d,
-                                              ALL_FETCHES, n_layer=2,
-                                              max_len=512)
-        gpu = fluid.inference.Predictor(d)
-        conf = fluid.inference.AnalysisConfig(d)
-        conf.disable_gpu()
-        cpu = fluid.inference.Predictor(conf)
-    rng = np.random.RandomState(SEED + 1)
-    feed = {'tokens': _tokens(rng, 2, cfg['max_len'], cfg['vocab'])}
-    t0 = time.perf_counter()
-    g_logits, g_last, g_tok = gpu.run(feed)
-    t1 = time.perf_counter()
-    c_logits, c_last, c_tok = cpu.run(feed)
-    t2 = time.perf_counter()
-    err, tol, clear, n = _agree(g_logits, c_logits, 'gpu vs cpu')
-    require(bool((g_tok == c_tok)[_clear(c_last, tol)].all()),
-            'gpu vs cpu: next tokens differ')
-    emit(phase='gpu_vs_cpu', config='llama_1b', n_layer=cfg['n_layer'],
-         max_len=cfg['max_len'], params=n_params, max_abs_err=err, tol=tol,
-         clear_positions=clear, positions=n, gpu_tokens=g_tok.tolist(),
-         cpu_tokens=c_tok.tolist(), gpu_s=t1 - t0, cpu_s=t2 - t1)
-    del gpu, cpu
-    torch.cuda.empty_cache()
+    for config, over in (('llama_1b', {}),
+                         ('phi3_mini_widths', D96_CFG)):
+        with _model_dir() as d:
+            cfg, n_params, _, _ = _build_and_save(
+                fluid, llama, d, ALL_FETCHES,
+                **dict(over, n_layer=2, max_len=512))
+            gpu = fluid.inference.Predictor(d)
+            conf = fluid.inference.AnalysisConfig(d)
+            conf.disable_gpu()
+            cpu = fluid.inference.Predictor(conf)
+        rng = np.random.RandomState(SEED + 1)
+        feed = {'tokens': _tokens(rng, 2, cfg['max_len'], cfg['vocab'])}
+        t0 = time.perf_counter()
+        g_logits, g_last, g_tok = gpu.run(feed)
+        t1 = time.perf_counter()
+        c_logits, c_last, c_tok = cpu.run(feed)
+        t2 = time.perf_counter()
+        err, tol, clear, n = _agree(g_logits, c_logits,
+                                    'gpu vs cpu (%s)' % config)
+        require(bool((g_tok == c_tok)[_clear(c_last, tol)].all()),
+                'gpu vs cpu (%s): next tokens differ' % config)
+        emit(phase='gpu_vs_cpu', config=config, n_layer=cfg['n_layer'],
+             max_len=cfg['max_len'],
+             head_dim=cfg['d_model'] // cfg['n_head'], params=n_params,
+             max_abs_err=err, tol=tol, clear_positions=clear, positions=n,
+             gpu_tokens=g_tok.tolist(), cpu_tokens=c_tok.tolist(),
+             gpu_s=t1 - t0, cpu_s=t2 - t1)
+        del gpu, cpu
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- phase 4b
@@ -3498,9 +3745,9 @@ def phase_training_llama_bf16(smi):
 def phase_train_llama_gpu_vs_cpu():
     """Two steps from the same weights on the card and on the CPU: the
     llama_1b widths cut to 2 layers (D = 128, GQA 16 / 8), B = 2, T = 256,
-    float32; and the tiny config (D = 16: the CUDA-core forward of
-    csrc/flash_cc.cu and the padded tensor-core backward on the card) in
-    float32 and from build(dtype='bfloat16').  -> {path: launches a step
+    float32; and the tiny config (D = 16: the tensor-core forward and
+    backward's padded instances of width 64 on the card) in float32 and
+    from build(dtype='bfloat16').  -> {path: launches a step
     on the card} for the tiny runs."""
     import torch
     import paddle_tpu_torch as fluid
@@ -3633,15 +3880,17 @@ _REPLACES = {
 }
 # the instances of K1-K3, by the key phase_kernels files them under:
 # (dtype, design, source, the paths that run it)
+_PADDED_DESIGN = (
+    'tensor cores (bf16 wgmma, float32 3xTF32), the padded instances DP = '
+    '64 (D < 64) and 128 (64 < D < 128); ')
 _OTHER_D = {
     'flash_attention_fwd': (
-        'CUDA cores, padded width DP, D % 8 == 0 but not 64 or 128 '
-        '(ROADMAP C3); timed at D = 96', 'paddle_tpu_torch/csrc/flash_cc.cu'),
+        _PADDED_DESIGN + 'timed at the served D = 96 batch (DP = 128), '
+        'launched there and at the tiny llama\'s D = 16 (DP = 64)',
+        'paddle_tpu_torch/csrc/flash_fwd.cu'),
     'flash_attention_bwd_dq': (
-        'tensor cores (bf16 wgmma, float32 3xTF32), the padded instances '
-        'DP = 64 (D < 64) and 128 (64 < D < 128); timed at D = 96 (DP = '
-        '128), launched on its path at D = 16 (DP = 64)',
-        'paddle_tpu_torch/csrc/flash_bwd.cu')}
+        _PADDED_DESIGN + 'timed at D = 96 (DP = 128), launched on its path '
+        'at D = 16 (DP = 64)', 'paddle_tpu_torch/csrc/flash_bwd.cu')}
 _OTHER_D['flash_attention_bwd_dkv'] = _OTHER_D['flash_attention_bwd_dq']
 _INSTANCES = {
     'bfloat16': ('bfloat16', 'wgmma, tensor cores', None,
@@ -3650,9 +3899,10 @@ _INSTANCES = {
     'float32_d128': ('float32', None, None, ('training_llama',)),
     'bfloat16_d128': ('bfloat16', 'wgmma, tensor cores, D = 128', None,
                       ('training_llama_bf16',)),
-    'float32_other_d': ('float32', None, None, ('train_llama_tiny_f32',)),
+    'float32_other_d': ('float32', None, None,
+                        ('serving_d96_f32', 'train_llama_tiny_f32')),
     'bfloat16_other_d': ('bfloat16', None, None,
-                         ('train_llama_tiny_bf16',)),
+                         ('serving_d96_bf16', 'train_llama_tiny_bf16')),
 }
 # the float32 designs of K1-K3 at each head dim
 _F32_DESIGNS = {
@@ -3714,6 +3964,7 @@ def main(argv=None):
     # CPU work left behind slows the host that issues the timed steps
     served_launches = run('serving', phase_serving, smi)
     served_bf16 = run('serving_bf16', phase_serving_bf16, smi)
+    served_d96 = run('serving_d96', phase_serving_d96, smi)
     generated = run('generation', phase_generation, smi)
     trained = run('training', phase_training, smi)
     trained_f32 = run('training_f32', phase_training_f32, smi)
@@ -3745,7 +3996,10 @@ def main(argv=None):
                'train_llama_tiny_f32': llama_tiny.get(
                    'train_llama_tiny_f32', {}),
                'train_llama_tiny_bf16': llama_tiny.get(
-                   'train_llama_tiny_bf16', {})}
+                   'train_llama_tiny_bf16', {}),
+               # per 4-row batch of the Phi-3-mini-width llama (D = 96)
+               'serving_d96_f32': served_d96.get('serving_d96_f32', {}),
+               'serving_d96_bf16': served_d96.get('serving_d96_bf16', {})}
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -3779,12 +4033,14 @@ def main(argv=None):
     def instance_launches(name, key):
         """An instance's launches on its main path: the flash step for
         bf16, the served run (K1) or the float32 step (K2, K3) for
-        float32, else per step of its own path."""
+        float32, else on the first of its own paths that launches it (the
+        served D = 96 batch for K1, a step of the tiny llama for K2, K3)."""
         if key == 'bfloat16':
             return launches.get(name)
         if key == 'float32':
             return f32_launches[name]
-        return by_path[_INSTANCES[key][3][0]].get(name)
+        return next((by_path[p][name] for p in _INSTANCES[key][3]
+                     if by_path[p].get(name)), None)
 
     rows = []
     for name, res in kern['rows'].items():

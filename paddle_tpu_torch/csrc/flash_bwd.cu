@@ -37,24 +37,23 @@
 //
 // dQ, bf16, flash_bwd_dq_wgmma_kernel<D>: one warpgroup of 128 threads per
 // (b*H, 64-row query tile), heaviest causal tiles first.  Q and dO stay
-// resident in shared memory (one TMA copy each); LSE and delta of the
-// tile's rows are plain loads by warp 0 (a TMA box does not take rows that
-// start off a 16-byte boundary) and then sit in registers, two rows a
-// thread.  K/V tiles of 64 keys flow through a 2-stage ring under mbarriers
-// (full: the bytes arrived; empty: all 128 threads are done with the
-// stage) from key 0 to the tile's end, min(k_len, causal frontier); later
-// tiles are never loaded.  S = Q K^T and dP = dO V^T are wgmma with every
-// operand K-major (64 query rows x 64 keys, reduced over D); P and dS are
-// formed on the float32 fragments in registers, dS rounded to bf16 there
-// once (as dK/dV rounds dS^T), and dQ += dS K runs with A = dS from
-// registers and B = K MN-major (tnspB = 1; N = D, both 64-column chunk
-// regions at D=128).  dQ x scale once in the epilogue, written in bf16 up
-// to row Tq.  One D-wide float32 accumulator (D/2 registers a thread) beside
-// the S and dP fragments (32 each): ptxas gives 122 registers at D=64 and
-// 154 at D=128, no spills; with 50 KB of shared memory at D=64, four blocks
-// (16 warps) fit an SM.  Not yet used: warp specialisation, setmaxnreg,
-// overlapping one tile's elementwise work with the next tile's products, a
-// persistent grid.
+// resident in shared memory (one TMA copy each); LSE and delta of the tile's
+// rows are plain loads by warp 0 (a TMA box does not take rows that start off a
+// 16-byte boundary) and then sit in registers, two rows a thread.  K/V tiles of
+// 64 keys flow through a 2-stage ring under mbarriers (full: the bytes arrived;
+// empty: all 128 threads are done with the stage) from key 0 to the tile's end,
+// min(k_len, causal frontier); later tiles are never loaded.  S = Q K^T and dP
+// = dO V^T are wgmma with every operand K-major (64 query rows x 64 keys,
+// reduced over D); P and dS are formed on the float32 fragments in registers,
+// dS split there into two bf16 terms (SplitDs), and dQ += dS K runs as two
+// products with A = dS_lo, then dS_hi, from registers and B = K MN-major (tnspB
+// = 1; N = D, both 64-column chunk regions at D=128).  dQ x scale once in the
+// epilogue, written in bf16 up to row Tq.  One D-wide float32 accumulator (D/2
+// registers a thread) beside the S and dP fragments (32 each): ptxas gives 124
+// registers at D=64 and 156 at D=128, no spills; with 50 KB of shared memory at
+// D=64, four blocks (16 warps) fit an SM.  Not yet used: warp specialisation,
+// setmaxnreg, overlapping one tile's elementwise work with the next tile's
+// products, a persistent grid.
 //
 // dK/dV, bf16, flash_bwd_dkv_wgmma_kernel<D>: one warpgroup of 128 threads per
 // (b*Hkv, 64-key tile).  K and V stay resident in shared memory (one TMA copy
@@ -63,11 +62,12 @@
 // of the GQA group and the q tiles from the causal frontier on.  The products
 // run transposed, so that the keys are the 64-row M dimension: S^T = K Q^T and
 // dP^T = V dO^T by wgmma with every operand K-major in shared memory; P^T and
-// dS^T are formed on the float32 fragments in registers, rounded to bf16 there,
-// and dV += P^T dO and dK += dS^T Q run with A from registers and B = dO or Q
-// MN-major (tnspB = 1); dK x scale once in the epilogue.  The two D-wide
+// dS^T are formed on the float32 fragments in registers, P^T rounded to bf16
+// there once and dS^T split into two bf16 terms (SplitDs), and dV += P^T dO and
+// dK += dS^T Q (two products, lo first) run with A from registers and B = dO or
+// Q MN-major (tnspB = 1); dK x scale once in the epilogue.  The two D-wide
 // float32 accumulators take D registers a thread (128 at D=128) besides S^T and
-// dP^T (WQ each): ptxas gives 181 registers at D=64 and 242 at D=128, no
+// dP^T (WQ each): ptxas gives 176 registers at D=64 and 234 at D=128, no
 // spills, so the 64-row ring tile stays at D=128, and two blocks (8 warps) fit
 // an SM at D=64.  Not yet used: warp specialisation, setmaxnreg, two consumer
 // warpgroups sharing K/V, overlapping one ring tile's elementwise work with the
@@ -130,40 +130,37 @@
 // adds partial S and dP through distributed shared memory), the second
 // products in transposed form (no transposed copies), a persistent grid.
 //
-// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the
-// instance of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128),
-// the kernels' PADDED = true instances, with the true D (Dt, dd) at run
-// time; D = 64 and 128 are the PADDED = false instances, which compile
-// as they did before (dd is the constant D there).  Each launcher builds
-// its TMA maps with the true D, so the box columns at or past D arrive as
-// zeros (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), and count their full bytes
-// on the mbarrier, as rows past Tq and Tk do.  The products over D (S and
-// dP, S^T and dP^T) stop where the columns below D end: bf16 at the k16
-// step that holds column D - 1 (a run-time count; at D % 16 == 8 that
-// step is half zeros, which add nothing), float32 at the last 32-column
-// region that holds it (KC = ceil(D / 32), a template argument: a
-// run-time count of k8 steps put control flow between the 3xTF32
-// products, and ptxas serialized them, C7515: the D = 96 float32 pair
-// took 1.57 ms on an H100 against 1.69 for the CUDA-core pair).  A
-// float32 region wholly past D is neither loaded nor split, and the
-// expected bytes count the loaded regions only.  The products over rows
-// (dS K, P^T dO, dS^T Q) run at the full width DP; their accumulator
-// columns past D (from zero columns of their B operand, or from the
-// transposed rows past 32 KC, which a float32 split never writes) are
-// never stored: every store takes the true D as its
-// row stride and stops at column D (D % 8 == 0 keeps each thread's pair
-// of columns whole).  The useful work is D / DP of the padded products
-// over rows, and D / (32 KC) of float32's products over D: 3/4 and 1 at
-// D = 96.  The bf16 padded instances also hand dS to dQ and dK as hi + lo
-// terms (SplitDs).  ptxas (sm_90a, -O3), registers a thread, no
-// spills in any instance: bf16 dQ 157 (<64, true>) and 186 (<128,
-// true>), dK/dV 204 and 254; float32 dQ 175, 173, 151, 157 and dK/dV
-// 204, 208, 251, 254 (KC = 1, 2 at width 64; 3, 4 at 128); the
-// unpadded D = 64 and 128 instances as listed above (122 / 154, 181 /
-// 242; 170 / 155, 202 / 253).  Shared memory a block as the unpadded
-// instance of the same width (the same structs): bf16 dQ 50,728 bytes at
-// width 64 (3 blocks an SM, 4 unpadded) and 99,880 at 128 (2), dK/dV
-// 51,240 and 100,392 (2 each); float32 as above, one block an SM.
+// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the instance
+// of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128), the kernels'
+// PADDED = true instances, with the true D (Dt, dd) at run time; D = 64 and
+// 128 are the PADDED = false instances, which compile as they did before (dd
+// is the constant D there).  Each launcher builds its TMA maps with the true
+// D, so the box columns at or past D arrive as zeros
+// (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), and count their full bytes on the
+// mbarrier, as rows past Tq and Tk do.  The products over D (S and dP, S^T and
+// dP^T) stop where the columns below D end: bf16 at the k16 step that holds
+// column D - 1 (a run-time count; at D % 16 == 8 that step is half zeros,
+// which add nothing), float32 at the last 32-column region that holds it (KC =
+// ceil(D / 32), a template argument: a run-time count of k8 steps put control
+// flow between the 3xTF32 products, and ptxas serialized them, C7515: the D =
+// 96 float32 pair took 1.57 ms on an H100 against 1.69 for the CUDA-core
+// pair).  A float32 region wholly past D is neither loaded nor split, and the
+// expected bytes count the loaded regions only.  The products over rows (dS K,
+// P^T dO, dS^T Q) run at the full width DP; their accumulator columns past D
+// (from zero columns of their B operand, or from the transposed rows past 32
+// KC, which a float32 split never writes) are never stored: every store takes
+// the true D as its row stride and stops at column D (D % 8 == 0 keeps each
+// thread's pair of columns whole).  The useful work is D / DP of the padded
+// products over rows, and D / (32 KC) of float32's products over D: 3/4 and 1
+// at D = 96.  ptxas (sm_90a, -O3), registers a thread, no spills in any
+// instance: bf16 dQ 157 (<64, true>) and 186 (<128, true>), dK/dV 204 and 254;
+// float32 dQ 175, 173, 151, 157 and dK/dV 204, 208, 251, 254 (KC = 1, 2 at
+// width 64; 3, 4 at 128); the unpadded D = 64 and 128 instances as listed
+// above (124 / 156, 176 / 234 since they split dS too; 170 / 155, 202 / 253).
+// Shared memory a block as the unpadded instance of the same width (the same
+// structs): bf16 dQ 50,728 bytes at width 64 (3 blocks an SM, 4 unpadded) and
+// 99,880 at 128 (2), dK/dV 51,240 and 100,392 (2 each); float32 as above, one
+// block an SM.
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -193,11 +190,12 @@ using Chunk = bf16[ROWS * 64];
 // relative, 2e-3 of max|grad|) allows on an element the sum cancels: the
 // CPU emulation (tests/test_torch_flash_wgmma_numerics.py) finds inputs
 // where it reaches 1.34x of the check at D = 128 (dQ) and at D = 16 (dK).
-// The padded instances hand dS (dQ) and dS^T (dK) to their products as hi
-// = bf16(x) and lo = bf16(x - hi), small terms first: one more product a
+// So every instance hands dS (dQ) and dS^T (dK) to its products as hi =
+// bf16(x) and lo = bf16(x - hi), small terms first: one more product a
 // tile (dQ 4 products of the 3 a pair would need, dK/dV 5 of 4), and
 // within 0.52 of the check on those inputs.  P^T stays one rounding (P >=
-// 0: dV does not cancel).  D = 64 and 128 keep one rounding (ROADMAP C7).
+// 0: dV does not cancel).  The reference keeps dS in float32 for both
+// products (paddle_tpu/ops/attention.py:151, :201, :260).
 
 // ---------------------------------------------------------------- dK/dV
 
@@ -361,14 +359,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       dpt[i] = valid ? p * (dpt[i] - sm.delta[s][qc]) : 0.f;
       st[i] = p;
     }
-    // the padded instances hand dS^T to dK as two bf16 terms (hi, lo:
-    // SplitDs says why)
-    uint32_t pa[WQ / 16][4], dsa[WQ / 16][4], dsl[PADDED ? WQ / 16 : 1][4];
+    // dS^T goes to dK as two bf16 terms (hi, lo: SplitDs says why)
+    uint32_t pa[WQ / 16][4], dsa[WQ / 16][4], dsl[WQ / 16][4];
     acc_to_a(st, pa);
-    if constexpr (PADDED)
-      acc_to_a_split(dpt, dsa, dsl);
-    else
-      acc_to_a(dpt, dsa);
+    acc_to_a_split(dpt, dsa, dsl);
 
     // dV += P^T dO and dK += dS^T Q: B = dO or Q, the query rows being
     // the reduction (MN-major, tnspB = 1)
@@ -377,12 +371,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < WQ / 16; ++kk)
       wgmma_rs<1>(dva, pa[kk],
                   make_desc(sm.dout[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
-    if constexpr (PADDED) {
 #pragma unroll
-      for (int kk = 0; kk < WQ / 16; ++kk)
-        wgmma_rs<1>(dka, dsl[kk],
-                    make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
-    }
+    for (int kk = 0; kk < WQ / 16; ++kk)
+      wgmma_rs<1>(dka, dsl[kk],
+                  make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
 #pragma unroll
     for (int kk = 0; kk < WQ / 16; ++kk)
       wgmma_rs<1>(dka, dsa[kk],
@@ -589,22 +581,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float p = valid ? exp2f(sacc[i] * sl2 - lse2[h]) : 0.f;
       dp[i] = valid ? p * (dp[i] - dl[h]) : 0.f;
     }
-    // the padded instances hand dS to dQ as two bf16 terms (hi, lo:
-    // SplitDs says why)
-    uint32_t dsa[WK / 16][4], dsl[PADDED ? WK / 16 : 1][4];
-    if constexpr (PADDED)
-      acc_to_a_split(dp, dsa, dsl);
-    else
-      acc_to_a(dp, dsa);
+    // dS goes to dQ as two bf16 terms (hi, lo: SplitDs says why)
+    uint32_t dsa[WK / 16][4], dsl[WK / 16][4];
+    acc_to_a_split(dp, dsa, dsl);
 
     // dQ += dS K: B = K, the keys being the reduction (MN-major, tnspB = 1)
     wgmma_fence();
-    if constexpr (PADDED) {
 #pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk)
-        wgmma_rs<1>(acc, dsl[kk],
-                    make_desc(sm.k[s][0] + kk * 16 * 64, WK * 128, 1024), 1);
-    }
+    for (int kk = 0; kk < WK / 16; ++kk)
+      wgmma_rs<1>(acc, dsl[kk],
+                  make_desc(sm.k[s][0] + kk * 16 * 64, WK * 128, 1024), 1);
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk)
       wgmma_rs<1>(acc, dsa[kk],
@@ -1329,37 +1315,12 @@ bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && Tq >= 1 && Tk >= 1;
 }
 
-// The instance a head dim D runs: padded width DP = 64 for D <= 64 and
-// 128 for 64 < D <= 128, PADDED unless D == DP (so D = 64 and 128 compile
-// as they did before the padded instances), and for float32 the KC =
-// ceil(D / 32) regions its products over D reduce; f(Inst<DP, PADDED,
-// KC>{}), or -1 for a D the kernels do not take (D % 8 != 0, or above
-// 128)
-template <int DP, bool PAD, int NKC>
-struct Inst {
-  static constexpr int kDP = DP;
-  static constexpr bool kPadded = PAD;
-  static constexpr int kKC = NKC;
-};
-
-template <typename F>
-int with_instance(int D, F&& f) {
-  if (D < 8 || D % 8 != 0 || D > 128) return -1;
-  if (D == 64) return f(Inst<64, false, 2>{});
-  if (D == 128) return f(Inst<128, false, 4>{});
-  switch ((D + 31) / 32) {
-    case 1: return f(Inst<64, true, 1>{});
-    case 2: return f(Inst<64, true, 2>{});
-    case 3: return f(Inst<128, true, 3>{});
-    default: return f(Inst<128, true, 4>{});
-  }
-}
-
 }  // namespace
 
 // q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
 // delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 ==
-// 0 up to 128 (with_instance).  Each returns the CUDA error of its launch
+// 0 up to 128 (hopper::with_instance).  Each returns the CUDA error of its
+// launch
 // (0 on success), -1 for arguments the kernel does not take, or -2 when
 // the CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1370,7 +1331,7 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                void* stream) {
   if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  return with_instance(D, [&](auto in) {
+  return hopper::with_instance(D, [&](auto in) {
     using I = decltype(in);
     return dtype == 0
                ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
@@ -1390,7 +1351,7 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  return with_instance(D, [&](auto in) {
+  return hopper::with_instance(D, [&](auto in) {
     using I = decltype(in);
     return dtype == 0
                ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
@@ -1409,7 +1370,7 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                       int* blocks) {
   if (dtype != 0 && dtype != 1) return -1;
-  return with_instance(D, [&](auto in) {
+  return hopper::with_instance(D, [&](auto in) {
     using I = decltype(in);
     constexpr int DP = I::kDP, KC = I::kKC;
     constexpr bool P = I::kPadded;

@@ -1,17 +1,16 @@
 // Flash attention on CUDA cores for the head dims the tensor-core kernels
 // do not take: forward (out, LSE), dQ and dK/dV, bf16 and float32, any
-// D % 8 == 0 up to 256.  The port runs the forward here at every such D
-// but 64 and 128, and the backward only at 128 < D <= 256: every D % 8 ==
-// 0 up to 128 runs the tensor-core backward of csrc/flash_bwd.cu.  The
-// entry points take every D all the same, so chip_smoke.py times this
-// backward (the earlier design there) beside the tensor-core kernels that
-// replaced it, at D = 96 and at the training llama's D = 128.
+// D % 8 == 0 up to 256.  The port runs them only at 128 < D <= 256: every
+// D % 8 == 0 up to 128 runs the tensor-core forward of csrc/flash_fwd.cu
+// and backward of csrc/flash_bwd.cu (padded to 64 or 128).  The entry
+// points take every D all the same, so chip_smoke.py times these kernels
+// (the earlier design there) beside the tensor-core kernels that replaced
+// them, at D = 96 and at the training llama's D = 128.
 //
 // The JAX package tiles every D % 8 == 0 in Pallas (paddle_tpu/ops/
 // attention.py:304-307): _flash_kernel (:52, K1), _flash_dq_kernel (:125,
 // K2) and _flash_dkv_kernel (:220, K3) take any such D.  The port's
-// tensor-core forward (csrc/flash_fwd.cu) is laid out for D = 64 and 128
-// only, its tensor-core backward for D up to 128 (padded to 64 or 128).
+// tensor-core kernels are laid out for D up to 128 (padded to 64 or 128).
 // Each is templated on a padded width DP in {32, 64, 128, 256} and takes
 // the true D at run time: the tiles hold DP columns, columns >= D are
 // loaded as zeros (so they add nothing to Q K^T or dO V^T) and never

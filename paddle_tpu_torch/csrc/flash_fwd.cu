@@ -23,39 +23,38 @@
 // one, 3 x 68.75 GFLOP at 495 TFLOP/s = 0.417 ms (float32 FMAs on CUDA
 // cores, 67 TFLOP/s, would take 1.026 ms).
 //
-// bf16, flash_fwd_wgmma_kernel<D> (D = 64, 128): one warpgroup of 128
-// threads per (64-row query tile, b*h).  Thread 0 issues TMA copies: the Q
-// tile once, K/V tiles of 64 keys into a 2-stage ring under mbarriers
-// (full: the bytes arrived; empty: all 128 threads are done with the
-// stage), so the next tile's copy runs under this tile's products.
-// S = Q K^T is wgmma with both operands K-major in shared memory; scale
-// and the masks apply to the float32 accumulator fragment in registers;
-// the online softmax reduces each row over the 4 threads that hold it
-// (exp2 with log2(e) folded into the scale); O += P V is wgmma with A = P
-// from registers and B = V MN-major (tnspB = 1).  P goes in as two bf16
-// terms, hi = bf16(P) and lo = bf16(P - hi), one product each: a single
-// bf16 rounding of P leaves rows with few valid keys (early causal rows)
-// unaveraged, and there misses the float32 reference by more than the
-// bf16 check's atol of 1e-3 (tests/test_torch_flash_wgmma_numerics.py
-// shows it on the emulated arithmetic); hi + lo keeps P to ~2^-17 for a
-// third more tensor-core work.  Interior tiles skip the mask.  ptxas
-// gives 106 registers at D=64 and 153 at D=128, no spills.  Not yet used:
-// warp specialisation (a producer warp and two consumer warpgroups),
-// setmaxnreg, overlapping the softmax of one tile with the next tile's
-// Q K^T, a persistent grid, and a TMA store of O.
+// bf16, flash_fwd_wgmma_kernel<D, PADDED, KC> (D = 64, 128): one warpgroup of
+// 128 threads per (64-row query tile, b*h).  Thread 0 issues TMA copies: the Q
+// tile once, K/V tiles of 64 keys into a 2-stage ring under mbarriers (full:
+// the bytes arrived; empty: all 128 threads are done with the stage), so the
+// next tile's copy runs under this tile's products. S = Q K^T is wgmma with
+// both operands K-major in shared memory; scale and the masks apply to the
+// float32 accumulator fragment in registers; the online softmax reduces each
+// row over the 4 threads that hold it (exp2 with log2(e) folded into the
+// scale); O += P V is wgmma with A = P from registers and B = V MN-major
+// (tnspB = 1).  P goes in as two bf16 terms, hi = bf16(P) and lo = bf16(P -
+// hi), one product each: a single bf16 rounding of P leaves rows with few
+// valid keys (early causal rows) unaveraged, and there misses the float32
+// reference by more than the bf16 check's atol of 1e-3
+// (tests/test_torch_flash_wgmma_numerics.py shows it on the emulated
+// arithmetic); hi + lo keeps P to ~2^-17 for a third more tensor-core work.
+// Interior tiles skip the mask.  ptxas gives 106 registers at D=64 and 153 at
+// D=128, no spills.  Not yet used: warp specialisation (a producer warp and
+// two consumer warpgroups), setmaxnreg, overlapping the softmax of one tile
+// with the next tile's Q K^T, a persistent grid, and a TMA store of O.
 //
-// float32, flash_fwd_tf32x3_kernel<D> (D = 64, 128): the same block shape,
-// order of query tiles, masks and online softmax, with every product on
+// float32, flash_fwd_tf32x3_kernel<D, PADDED, KC> (D = 64, 128): the same block
+// shape, order of query tiles, masks and online softmax, with every product on
 // the TF32 tensor cores as three: x y ~ x_hi y_hi + x_hi y_lo + x_lo y_hi,
 // where x_hi = tf32(x) and x_lo = tf32(x - x_hi), both rounded to nearest
-// (cvt.rna; the tensor cores would truncate an unrounded float32, and a
-// lo taken from a rounded hi would then be off by up to a TF32 unit).
-// hi + lo keeps x to ~2^-22 and the dropped lo x lo term is ~2^-22 of x y,
-// so S and O keep float32's order of error and the float32 gates (rtol
-// 1e-4, atol 1e-5 against the plain version; served logits within 1e-4
-// of max |logit| of the CPU's) hold unchanged; one TF32 product (~2^-11)
-// would miss them (tests/test_torch_flash_tf32x3_numerics.py emulates
-// both).  What float32 forces:
+// (cvt.rna; the tensor cores would truncate an unrounded float32, and a lo
+// taken from a rounded hi would then be off by up to a TF32 unit). hi + lo
+// keeps x to ~2^-22 and the dropped lo x lo term is ~2^-22 of x y, so S and O
+// keep float32's order of error and the float32 gates (rtol 1e-4, atol 1e-5
+// against the plain version; served logits within 1e-4 of max |logit| of the
+// CPU's) hold unchanged; one TF32 product (~2^-11) would miss them
+// (tests/test_torch_flash_tf32x3_numerics.py emulates both).  What float32
+// forces:
 //  - both wgmma operands K-major (no transpose for .tf32): Q K^T reads Q
 //    and K as they are; for P V the block stages V^T, keys contiguous;
 //  - the split: TMA lands Q and each K/V tile as float32 (32 values to a
@@ -86,10 +85,37 @@
 //    ring stage a split has read is refilled at the top of the next pass.
 //    Splitting V under Q K^T instead crashes ptxas (CUDA 12.9).
 // Each tile runs 6 products: Q_lo K_hi, Q_hi K_lo, Q_hi K_hi, then P_lo
-// V_hi, P_hi V_lo, P_hi V_hi (small terms first).  ptxas gives 128
-// registers at D = 64 and 221 at D = 128, no spills.  Not yet used: a
+// V_hi, P_hi V_lo, P_hi V_hi (small terms first).  ptxas gives 127
+// registers at D = 64 and 214 at D = 128 (CUDA 12.9; the same source gave
+// 128 and 221 in an earlier build), no spills.  Not yet used: a
 // producer warp, two consumer warpgroups (no room for a second Q at
 // D = 128), the softmax under the next tile's Q K^T, a persistent grid.
+//
+// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the instance
+// of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128), the kernels'
+// PADDED = true instances, with the true D (Dt, dd) at run time, as
+// csrc/flash_bwd.cu pads the backward; D = 64 and 128 are the PADDED = false
+// instances, which compile as they did before (dd is the constant D there).
+// Each launcher builds its TMA maps with the true D, so the box columns at or
+// past D arrive as zeros, and counts their full bytes on the mbarrier, as rows
+// past Tq and Tk do.  Q K^T stops at the last 32-column region that holds
+// column D - 1 (KC = ceil(D / 32), a template argument; 2 KC k16 steps in
+// bf16, 4 KC k8 steps in float32, of which the columns past D are TMA's
+// zeros).  A run-time count put control flow among the products, which ptxas
+// then serializes (C7515: the bf16 instances' first build, with a run-time k16
+// count, drew it).  A float32 region wholly past D is neither loaded nor split
+// (Q, K, and V^T's rows from 32 KC on), and the expected bytes count the
+// loaded regions only. P V runs at the full width DP; its accumulator columns
+// at or past D (from V's zero columns, or from V^T rows no split wrote) are
+// never stored: the stores take the true D as row stride and stop at column D
+// (D % 8 == 0 keeps each thread's pair of columns whole).  The useful work is
+// D / DP of P V, and D / (32 KC) of Q K^T: 3/4 and 1 at D = 96. ptxas (sm_90a,
+// -O3, CUDA 12.9), registers a thread, no spills in any instance: bf16 106
+// (<64, true, 1 or 2>) and 153 (<128, true, 3 or 4>), as the unpadded
+// instances; float32 124, 127 (KC = 1, 2 at width 64), 168, 214 (KC = 3, 4 at
+// 128).  Shared memory a block as the unpadded instance of the same width (the
+// same structs): bf16 42,024 bytes at width 64 (4 blocks an SM) and 82,984 at
+// 128 (2), float32 115,736 and 230,424 (1).
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -191,20 +217,27 @@ __device__ __forceinline__ void load_kv(FwdSmem<D>& sm, const CUtensorMap* tk,
   }
 }
 
-template <int D>
+// KC: Q K^T runs 2 KC k16 steps, a compile-time count (D / 16 unpadded;
+// in the padded instances the steps of the 32-column regions that hold
+// columns below the true head dim, whose columns past it are TMA's zeros:
+// a run-time count made ptxas serialize the products, C7515)
+template <int D, bool PADDED, int KC>
 __global__ void __launch_bounds__(NT)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const int* __restrict__ klen, bf16* __restrict__ out,
                        float* __restrict__ lse, int H, int Hkv, int Tq,
-                       int Tk, int causal, float scale) {
+                       int Tk, int Dt, int causal, float scale) {
   using namespace hopper;
   constexpr int NC = D / 64;  // 64-column chunks of a row
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align_1024(smem_raw));
 
+  static_assert(PADDED ? 2 * KC <= D / 16 : 2 * KC == D / 16,
+                "k16 steps of Q K^T");
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const int b = bh / H;
@@ -250,7 +283,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float sacc[WK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
+    for (int kc = 0; kc < 2 * KC; ++kc) {
       const int c = kc / 4, off = (kc % 4) * 16;
       wgmma_ss<0>(sacc, make_desc(sm.q[c] + off, 16, 1024),
                   make_desc(sm.k[s][c] + off, 16, 1024), kc > 0);
@@ -286,6 +319,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 
+  // columns below dd only (a thread's pair of columns 8 j + cq, + 1 lies
+  // below dd whenever 8 j does, as dd % 8 == 0)
   const int cq = 2 * (tid % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -293,35 +328,39 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qi = q0 + r0 + 8 * h;
     if (qi >= Tq) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    bf16* op = out + ((size_t)bh * Tq + qi) * D;
+    bf16* op = out + ((size_t)bh * Tq + qi) * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      if (j >= dd / 8) break;
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + cq) =
           __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
                                 o[4 * j + 2 * h + 1] * inv);
+    }
     if (tid % 4 == 0) lse[(size_t)bh * Tq + qi] = row_lse(m[h], l[h]);
   }
 }
 
-template <int D>
+// The launchers build their maps with the true head dim Dt, so TMA reads
+// columns Dt .. D-1 of the padded width D as zeros
+template <int D, bool PADDED, int KC>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* klen, void* out, void* lse, int B, int H,
-                int Hkv, int Tq, int Tk, int causal, float scale,
+                int Hkv, int Tq, int Tk, int Dt, int causal, float scale,
                 cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, D, BQ);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, D, WK);
-  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, D, WK);
+  int rc = hopper::map_bf16_3d(&mq, q, B * H, Tq, Dt, BQ);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mk, k, B * Hkv, Tk, Dt, WK);
+  if (rc == 0) rc = hopper::map_bf16_3d(&mv, v, B * Hkv, Tk, Dt, WK);
   if (rc != 0) return rc;
   const size_t smem = sizeof(FwdSmem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_wgmma_kernel<D, PADDED, KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_wgmma_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_wgmma_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
       mq, mk, mv, (const int*)klen, (bf16*)out, (float*)lse, H, Hkv, Tq, Tk,
-      causal, scale);
+      Dt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -344,46 +383,55 @@ struct Tf32Smem {
   uint64_t qbar, full[TSTAGES];
 };
 
-// thread 0: K/V tile t of head kvh into ring stage s
-template <int D>
+// thread 0: K/V tile t of head kvh into ring stage s, its first KC
+// 32-column regions (a region wholly past the true head dim is not
+// loaded: no product reads it)
+template <int KC, int D>
 __device__ __forceinline__ void load_kv_f32(Tf32Smem<D>& sm,
                                             const CUtensorMap* tk,
                                             const CUtensorMap* tv, int kvh,
                                             int t, int s) {
-  hopper::mbar_expect_tx(&sm.full[s], 2 * TK * D * sizeof(float));
+  hopper::mbar_expect_tx(&sm.full[s], 2 * TK * 32 * KC * sizeof(float));
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < KC; ++c) {
     hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], 32 * c, t * TK, kvh);
     hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], 32 * c, t * TK, kvh);
   }
 }
 
-// ring stage s: K into K_hi, K_lo and V into V^T buffer vb
-template <int D>
+// ring stage s: K into K_hi, K_lo and V into V^T buffer vb; the first KC
+// regions (the loaded ones), so V^T rows from 32 KC on are never written
+template <int KC, int D>
 __device__ __forceinline__ void split_kv(Tf32Smem<D>& sm, int s, int vb) {
   static_assert(TK == 32, "split_t takes one key a lane");
-  hopper::split_tf32<TK * D / 4>(
+  hopper::split_tf32<TK * 8 * KC>(
       reinterpret_cast<const float4*>(sm.kraw[s][0]),
       reinterpret_cast<float4*>(sm.khi[0]),
       reinterpret_cast<float4*>(sm.klo[0]));
-  hopper::split_t<D, TK>(sm.vraw[s][0], sm.vthi[vb][0], sm.vtlo[vb][0], 0);
+  hopper::split_t<32 * KC, TK>(sm.vraw[s][0], sm.vthi[vb][0],
+                               sm.vtlo[vb][0], 0);
 }
 
-template <int D>
+// KC: the 32-column regions Q K^T reduces, a compile-time count (D / 32
+// unpadded; in the padded instances the regions that hold columns below
+// the true head dim, whose columns past it are TMA's zeros)
+template <int D, bool PADDED, int KC>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const int* __restrict__ klen,
                         float* __restrict__ out, float* __restrict__ lse,
-                        int H, int Hkv, int Tq, int Tk, int causal,
+                        int H, int Hkv, int Tq, int Tk, int Dt, int causal,
                         float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;  // 32-column regions of a row
   extern __shared__ uint8_t smem_raw[];
   Tf32Smem<D>& sm = *reinterpret_cast<Tf32Smem<D>*>(align_1024(smem_raw));
 
+  static_assert(PADDED ? KC <= NC : KC == NC, "regions of Q K^T");
   const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
   const int b = bh / H;
@@ -399,12 +447,12 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
     mbar_fence_init();
     if (ntiles > 0) {
-      mbar_expect_tx(&sm.qbar, BQ * D * sizeof(float));
+      mbar_expect_tx(&sm.qbar, BQ * 32 * KC * sizeof(float));
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < KC; ++c)
         tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
       for (int s = 0; s < TSTAGES && s < ntiles; ++s)
-        load_kv_f32(sm, &tk, &tv, kvh, s, s);
+        load_kv_f32<KC>(sm, &tk, &tv, kvh, s, s);
     }
   }
   __syncthreads();
@@ -420,11 +468,11 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   // while tile t's P V runs on the tensor cores
   if (ntiles > 0) {
     mbar_wait(&sm.qbar, 0);
-    split_tf32<BQ * D / 4>(reinterpret_cast<const float4*>(sm.qhi[0]),
-                           reinterpret_cast<float4*>(sm.qhi[0]),
-                           reinterpret_cast<float4*>(sm.qlo[0]));
+    split_tf32<BQ * 8 * KC>(reinterpret_cast<const float4*>(sm.qhi[0]),
+                            reinterpret_cast<float4*>(sm.qhi[0]),
+                            reinterpret_cast<float4*>(sm.qlo[0]));
     mbar_wait(&sm.full[0], 0);
-    split_kv<D>(sm, 0, 0);
+    split_kv<KC>(sm, 0, 0);
     fence_proxy_async();  // the split copies are read by wgmma
   }
   __syncthreads();
@@ -432,12 +480,12 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = t * TK, vb = t % 2;
     // tile t's stage was split in the last pass: refill it
     if (tid == 0 && t + TSTAGES < ntiles)
-      load_kv_f32(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+      load_kv_f32<KC>(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
 
     float sacc[TK / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < D / 8; ++kc) {
+    for (int kc = 0; kc < 4 * KC; ++kc) {
       const int c = kc / 4, off = (kc % 4) * 8;
       const uint64_t qh = make_desc(sm.qhi[c] + off, 16, 1024);
       const uint64_t kh = make_desc(sm.khi[c] + off, 16, 1024);
@@ -454,7 +502,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P as TF32 A fragments, hi and lo (V^T is permuted to match)
+    // P as TF32 A fragments, hi and lo (V^T is permuted to match).  P V
+    // runs at the full width D: its columns from 32 KC on read V^T rows
+    // no split wrote, and are never stored
     uint32_t phi[TK / 8][4], plo[TK / 8][4];
     acc_to_tf32_split(sacc, phi, plo);
 
@@ -473,7 +523,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       // V^T buffer 1 - vb was read by tile t-1's P V, waited for by all
       const int s1 = (t + 1) % TSTAGES;
       mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
-      split_kv<D>(sm, s1, 1 - vb);
+      split_kv<KC>(sm, s1, 1 - vb);
       fence_proxy_async();
     }
     wgmma_wait<0>();
@@ -483,6 +533,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     __syncthreads();  // tile t+1 split; every warp is done with V^T vb
   }
 
+  // columns below dd only, as in the bf16 kernel
   const int cq = 2 * (tid % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -490,33 +541,35 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const int qi = q0 + r0 + 8 * h;
     if (qi >= Tq) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-    float* op = out + ((size_t)bh * Tq + qi) * D;
+    float* op = out + ((size_t)bh * Tq + qi) * dd;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      if (j >= dd / 8) break;
       *reinterpret_cast<float2*>(op + 8 * j + cq) =
           make_float2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
     if (tid % 4 == 0) lse[(size_t)bh * Tq + qi] = row_lse(m[h], l[h]);
   }
 }
 
-template <int D>
+template <int D, bool PADDED, int KC>
 int launch_f32(const void* q, const void* k, const void* v, const void* klen,
                void* out, void* lse, int B, int H, int Hkv, int Tq, int Tk,
-               int causal, float scale, cudaStream_t stream) {
+               int Dt, int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, D, BQ);
-  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, D, TK);
-  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, D, TK);
+  int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, Dt, BQ);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, TK);
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, TK);
   if (rc != 0) return rc;
   const size_t smem = sizeof(Tf32Smem<D>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tf32x3_kernel<D>,
+      flash_fwd_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
       mq, mk, mv, (const int*)klen, (float*)out, (float*)lse, H, Hkv, Tq, Tk,
-      causal, scale);
+      Dt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -535,47 +588,44 @@ int occupancy(Kernel kernel, size_t smem, int* smem_out, int* blocks) {
 }  // namespace
 
 // The shared memory a forward launch asks for at head dimension D and
-// dtype (as in pt_flash_fwd) and how many such blocks an SM holds, as the
-// CUDA runtime reports them; 0 on success.
+// dtype (as in pt_flash_fwd), for the instance D runs, and how many such
+// blocks an SM holds, as the CUDA runtime reports them; 0 on success.
 extern "C" int pt_flash_fwd_occupancy(int D, int dtype, int* smem,
                                       int* blocks) {
-  if (dtype == 0 && D == 64)
-    return occupancy(flash_fwd_tf32x3_kernel<64>,
-                     sizeof(Tf32Smem<64>) + 1024, smem, blocks);
-  if (dtype == 0 && D == 128)
-    return occupancy(flash_fwd_tf32x3_kernel<128>,
-                     sizeof(Tf32Smem<128>) + 1024, smem, blocks);
-  if (dtype == 1 && D == 64)
-    return occupancy(flash_fwd_wgmma_kernel<64>, sizeof(FwdSmem<64>) + 1024,
-                     smem, blocks);
-  if (dtype == 1 && D == 128)
-    return occupancy(flash_fwd_wgmma_kernel<128>,
-                     sizeof(FwdSmem<128>) + 1024, smem, blocks);
-  return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return hopper::with_instance(D, [&](auto in) {
+    using I = decltype(in);
+    constexpr int DP = I::kDP, KC = I::kKC;
+    constexpr bool P = I::kPadded;
+    return dtype == 0
+               ? occupancy(flash_fwd_tf32x3_kernel<DP, P, KC>,
+                           sizeof(Tf32Smem<DP>) + 1024, smem, blocks)
+               : occupancy(flash_fwd_wgmma_kernel<DP, P, KC>,
+                           sizeof(FwdSmem<DP>) + 1024, smem, blocks);
+  });
 }
 
 // q [B*H, Tq, D], k/v [B*Hkv, Tk, D], klen int32 [B], out like q,
-// lse float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16.  Returns the
-// CUDA error of the launch (0 on success), -1 for arguments the kernel
-// does not take, or -2 when the CUDA driver gives no TMA tensor map.
+// lse float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 == 0
+// up to 128 (hopper::with_instance).  Returns the CUDA error of the
+// launch (0 on success), -1 for arguments the kernel does not take, or -2
+// when the CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             const void* klen, void* out, void* lse, int B,
                             int H, int Hkv, int Tq, int Tk, int D, int dtype,
                             int causal, float scale, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Tq < 1 || Tk < 1)
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Tq < 1 || Tk < 1 ||
+      (dtype != 0 && dtype != 1))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk,
-                          causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk,
-                           causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk,
-                           causal, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk,
-                            causal, scale, s);
-  return -1;
+  return hopper::with_instance(D, [&](auto in) {
+    using I = decltype(in);
+    return dtype == 0
+               ? launch_f32<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk, D, causal,
+                     scale, s)
+               : launch_bf16<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, out, lse, B, H, Hkv, Tq, Tk, D, causal,
+                     scale, s);
+  });
 }

@@ -104,6 +104,32 @@ static inline int map_f32_3d(CUtensorMap* map, const void* base, int heads,
                 D, box_rows);
 }
 
+// The instance of a flash kernel (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+// that head dim D runs: padded width DP = 64 for D <= 64 and 128 for 64 <
+// D <= 128, PADDED unless D == DP (so D = 64 and 128 compile as they did
+// before the padded instances), and for float32 the KC = ceil(D / 32)
+// regions its products over D reduce; f(Inst<DP, PADDED, KC>{}), or -1
+// for a D the kernels do not take (D % 8 != 0, or above 128)
+template <int DP, bool PAD, int NKC>
+struct Inst {
+  static constexpr int kDP = DP;
+  static constexpr bool kPadded = PAD;
+  static constexpr int kKC = NKC;
+};
+
+template <typename F>
+int with_instance(int D, F&& f) {
+  if (D < 8 || D % 8 != 0 || D > 128) return -1;
+  if (D == 64) return f(Inst<64, false, 2>{});
+  if (D == 128) return f(Inst<128, false, 4>{});
+  switch ((D + 31) / 32) {
+    case 1: return f(Inst<64, true, 1>{});
+    case 2: return f(Inst<64, true, 2>{});
+    case 3: return f(Inst<128, true, 3>{});
+    default: return f(Inst<128, true, 4>{});
+  }
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -314,11 +314,11 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
     return dq.reshape(B, H, Tq, D), dk, torch.zeros_like(v)
 
 
-# the CUDA-core kernels (csrc/flash_cc.cu) of the head dims the tensor-core
-# kernels do not take: the forward at D = 16, 32 (padded width 32) and 96
-# (padded 128), whose backward runs the tensor-core kernels (padded to 64
-# and 128), and the forward and backward at D = 136 and 256; causal and
-# not, ragged k_len with a k_len 0 row, GQA, Tq < Tk
+# the head dims other than 64 and 128: up to 128 the tensor-core forward
+# and backward in their padded instances (D = 16 and 32 in the one of
+# width 64, 96 in the one of width 128), and the CUDA-core kernels of
+# csrc/flash_cc.cu at D = 136 and 256; causal and not, ragged k_len with a
+# k_len 0 row, GQA, Tq < Tk
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
     (torch.float32, 16, True, 100, 100, 2, [100, 37]),
     (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
@@ -345,10 +345,11 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
     for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    bwd = ('cc' if D > 128 else
-           'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
-    assert names == {'flash_fwd_cc_kernel', 'flash_bwd_dq_%s_kernel' % bwd,
-                     'flash_bwd_dkv_%s_kernel' % bwd}, names
+    design = ('cc' if D > 128 else
+              'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
+    assert names == {'flash_fwd_%s_kernel' % design,
+                     'flash_bwd_dq_%s_kernel' % design,
+                     'flash_bwd_dkv_%s_kernel' % design}, names
     ref, ref_lse = att._ref_attention(q, k, v, causal, D ** -0.5, kl)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=8e-3, atol=1e-3)
@@ -409,6 +410,70 @@ def test_padded_backward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
                              (bv, dv, want[2], 'dv')):
         assert torch.equal(got, ref), n
         assert bool((buf[got.numel():] == sentinel).all()), n
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('D', [16, 40, 96, 120])
+def test_padded_forward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
+    """The padded forward instances write the output at the true row
+    stride D and no column past it: computed into views at the head of
+    larger buffers filled with a sentinel, the output and the LSE equal
+    the wrapper's bit for bit, and the sentinel past them is untouched."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    B, H, Hkv, Tq, Tk = 2, 8, 2, 150, 130
+    q = _randn(g, B, H, Tq, D, dtype=dtype)
+    k, v = (_randn(g, B, Hkv, Tk, D, dtype=dtype) for _ in range(2))
+    kl = torch.tensor([Tk, 77], dtype=torch.int32, device='cuda')
+    scale = D ** -0.5
+    want = att.flash_forward(q, k, v, True, scale, kl)
+    sentinel = 1024.0   # exact in bf16 and float32, far from any output
+
+    def view(like):
+        # room for every row at the padded width 128, and more
+        buf = torch.full((like.numel() // like.shape[-1] * 128 + 4096,),
+                         sentinel, dtype=like.dtype, device='cuda')
+        return buf, buf[:like.numel()].view(like.shape)
+    (bo, out), (bl, lse) = view(want[0]), view(want[1])
+    kernels.check(kernels.library().pt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
+        att._DTYPE_CODE[dtype], 1, scale,
+        torch.cuda.current_stream().cuda_stream), 'pt_flash_fwd')
+    torch.cuda.synchronize()
+    for buf, got, ref, n in ((bo, out, want[0], 'out'),
+                             (bl, lse, want[1], 'lse')):
+        assert torch.equal(got, ref), n
+        assert bool((buf[got.numel():] == sentinel).all()), n
+
+
+@pytest.mark.parametrize('seed', [0, 3])
+@pytest.mark.parametrize('D', [64, 128])
+def test_bf16_backward_on_the_inputs_one_ds_rounding_misses(cuda, D, seed):
+    """ROADMAP C7: on these inputs (numpy seeds 0 and 3, GQA 8/2, causal,
+    k_len [150, 77]) one bf16 rounding of dS, which sums to zero over a
+    row, leaves dQ or dK past the bf16 check on the CPU emulation
+    (tests/test_torch_flash_wgmma_numerics.py); the kernels hand dS to dQ
+    and dK as hi + lo bf16 terms at every D, so the gradients hold the
+    check against the plain backward evaluated in float64."""
+    rng = np.random.RandomState(seed)
+    B, H, Hkv, T = 2, 8, 2, 150
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype('float32')).to(
+            device='cuda', dtype=torch.bfloat16)
+    q, do = randn(B, H, T, D), randn(B, H, T, D)
+    k, v = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
+    kl = torch.tensor([150, 77], dtype=torch.int32, device='cuda')
+    out, lse = att.flash_forward(q, k, v, True, None, kl)
+    grads = att.flash_backward(q, k, v, kl, out, lse, do, True)
+    exact = att.flash_backward_reference(
+        *(t.double() for t in (q, k, v)), kl, out.double(), lse.double(),
+        do.double(), True, D ** -0.5)
+    for a, r, n in zip(grads, exact, ('dq', 'dk', 'dv')):
+        assert a.dtype == torch.bfloat16, n
+        torch.testing.assert_close(a.double(), r, rtol=8e-3,
+                                   atol=2e-3 * float(r.abs().max()))
 
 
 def test_head_dim_off_the_tiling_takes_the_composed_route_on_the_card(cuda):

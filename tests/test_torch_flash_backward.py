@@ -163,16 +163,24 @@ class _FakeLibrary:
         return entry
 
 
+def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
+    """The forward and the backward route alike: the tensor-core kernels at
+    exactly the multiples of 8 from 8 to 128 (D other than 64 and 128 in
+    their padded instances), the CUDA-core ones above."""
+    want = [D for D in range(1, 300) if D % 8 == 0 and D <= 128]
+    assert [D for D in range(1, 300) if tatt.tensor_core(D)] == want
+
+
 @pytest.mark.parametrize('D', [8, 16, 40, 64, 96, 120, 128, 136, 256])
 def test_backward_routing_by_head_dim(D, monkeypatch):
-    """The backward runs the tensor-core kernels (pt_flash_bwd_*) at every
-    multiple of 8 up to 128, D other than 64 and 128 in their padded
-    instances, and the CUDA-core kernels (pt_flash_cc_bwd_*) above; the
-    forward runs its tensor-core kernel at 64 and 128 only.  The wrappers
-    are driven with the library and the CUDA stream stood in for."""
+    """The forward and the backward run the tensor-core kernels
+    (pt_flash_fwd, pt_flash_bwd_*) at every multiple of 8 up to 128, D
+    other than 64 and 128 in their padded instances, and the CUDA-core
+    kernels (pt_flash_cc_*) above.  The wrappers are driven with the
+    library and the CUDA stream stood in for."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import build
-    assert tatt.tensor_core_bwd(D) == (D <= 128)
+    assert tatt.tensor_core(D) == (D <= 128)
     fake = _FakeLibrary()
     monkeypatch.setattr(build, 'library', lambda: fake)
     monkeypatch.setattr(kernels, 'library', lambda: fake)
@@ -184,9 +192,9 @@ def test_backward_routing_by_head_dim(D, monkeypatch):
     lse = torch.zeros(2, 8)
     tatt._launch_flash(q, q, q, True, 0.1, kl)
     tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
-    tc = tatt.tensor_core_bwd(D)
+    tc = tatt.tensor_core(D)
     assert fake.called == [
-        'pt_flash_fwd' if D in (64, 128) else 'pt_flash_cc_fwd',
+        'pt_flash_fwd' if tc else 'pt_flash_cc_fwd',
         'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
         'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv']
 

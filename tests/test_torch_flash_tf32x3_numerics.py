@@ -10,7 +10,10 @@ sizes (64 query rows, 32 keys): Q, K, V and P split into TF32 hi and lo;
 S = Q_lo K_hi^T + Q_hi K_lo^T + Q_hi K_hi^T and O += P_lo V_hi + P_hi V_lo
 + P_hi V_hi, summed in float32 in that order (products of TF32 values are
 exact in float32); `scale` applied to the float32 S; the online softmax in
-base 2.
+base 2.  Head dims other than 64 and 128, up to 128, run the kernel's
+padded instances (width 64 or 128): q, k and v padded with zero columns to
+that width, Q K^T over the KC = ceil(D / 32) 32-column regions that hold
+the columns below D, P V over the padded width, as the kernel runs them.
 
 The emulation must hold the card's unchanged float32 check (chip_smoke.py,
 tests/test_torch_cuda_kernels.py): rtol 1e-4, atol 1e-5 against the
@@ -72,22 +75,29 @@ def product(a, bt, mode):
 
 def emulate_forward(q, k, v, kl, causal, scale, mode='x3'):
     """flash_fwd_tf32x3_kernel on float32 q [B, H, Tq, D], k/v [B, Hkv,
-    Tk, D] -> (out, lse [B*H, Tq]).  Key tiles past a row's frontier are
-    all masked here, which leaves m, l and O exactly as the kernel's skip
-    does (alpha = 1, P = 0)."""
+    Tk, D] -> (out, lse [B*H, Tq]), in the instance of width DP (64 up to
+    D = 64, else 128): Q K^T over the first 32 KC columns, P V over DP, the
+    columns below D returned.  Key tiles past a row's frontier are all
+    masked here, which leaves m, l and O exactly as the kernel's skip does
+    (alpha = 1, P = 0)."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
-    qf = q.reshape(B, Hkv, g, Tq, D)
+    DP, nk = (64 if D <= 64 else 128), -(-D // 32) * 32
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, DP - D))
+    qf = pad(q).reshape(B, Hkv, g, Tq, DP)[..., :nk]
+    k, v = pad(k), pad(v)
     sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
     valid = tatt._valid_mask(B, Tq, Tk, causal, kl, 'cpu').expand(
         B, 1, 1, Tq, Tk)
     m = torch.full((B, Hkv, g, Tq, 1), NEG)
     l = torch.zeros((B, Hkv, g, Tq, 1))
-    o = torch.zeros((B, Hkv, g, Tq, D))
+    o = torch.zeros((B, Hkv, g, Tq, DP))
     for k0 in range(0, Tk, TK):
         kt, vt = k[:, :, None, k0:k0 + TK], v[:, :, None, k0:k0 + TK]
-        x = product(qf, kt.transpose(-1, -2), mode) * sl2
+        x = product(qf, kt[..., :nk].transpose(-1, -2), mode) * sl2
         x = torch.where(valid[..., k0:k0 + TK], x,
                         torch.tensor(float('-inf')))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
@@ -97,7 +107,7 @@ def emulate_forward(q, k, v, kl, causal, scale, mode='x3'):
         o = o * alpha + product(p, vt, mode)
         m = m_new
     safe = torch.where(l > 0, l, torch.ones_like(l))
-    out = torch.where(l > 0, o / safe, torch.zeros_like(o))
+    out = torch.where(l > 0, o / safe, torch.zeros_like(o))[..., :D]
     lse = torch.where(l > 0, (m + torch.log2(safe)) * LN2,
                       torch.full_like(l, NEG))
     return out.reshape(B, H, Tq, D), lse.reshape(B * H, Tq)
@@ -112,9 +122,17 @@ CASES = [
     (2, 4, 1, 5, 333, 128, True, [333, 100]),        # decode, Tq < Tk
     (2, 4, 2, 37, 161, 64, True, [161, 100]),        # Tq < Tk, k_len
     (1, 2, 2, 97, 161, 64, False, [130]),            # ragged, D=64
+    # the padded instances: D = 16, 40 in the 64 one (KC = 1, 2), 72, 96,
+    # 120 in the 128 one (KC = 3, 3, 4)
+    (3, 8, 2, 37, 161, 16, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
+    (3, 8, 4, 100, 100, 40, True, [100, 1, 0]),      # GQA, ragged, k_len
+    (3, 8, 2, 37, 161, 72, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
+    (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
+    (3, 4, 2, 97, 161, 120, True, [130, 0, 1]),      # ragged q, k tiles
 ]
 IDS = ['served_like', 'path_d64', 'causal_klen1', 'klen0', 'decode',
-       'tq_lt_tk', 'ragged_d64']
+       'tq_lt_tk', 'ragged_d64', 'd16_tq_lt_tk_klen01', 'd40_klen01',
+       'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed=0):

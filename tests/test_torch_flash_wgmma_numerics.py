@@ -9,11 +9,13 @@ query rows over the GQA group, dQ's ring tiles of 64 keys): bf16 inputs
 multiplied exactly and summed in float32 (the wgmma accumulators); `scale`
 applied to the float32 S; the forward's online softmax in base 2, with P
 handed to P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)); the
-backward's P^T and dS^T rounded to bf16 once before dV += P^T dO and dK +=
-dS^T Q, dK scaled once at the end; dQ's dS rounded to bf16 once before dQ
-+= dS K, dQ scaled once at the end.  The backward's padded instances (head
-dims other than 64 and 128, up to 128) hand dS and dS^T to dQ and dK as
-two bf16 terms too; padding itself adds exact zeros.
+backward's P^T rounded to bf16 once before dV += P^T dO, and dS^T and dS
+handed to dK += dS^T Q and dQ += dS K as two bf16 terms, dK and dQ scaled
+once at the end.  Head dims other than 64 and 128, up to 128, run the
+kernels' padded instances (width 64 or 128): the forward's emulation
+pads q, k and v with zero columns to that width, stops Q K^T at the end
+of the 32-column region that holds column D - 1 and runs P V over the
+padded width, as the kernel does (padding itself adds exact zeros).
 
 The emulation must hold against the port's `_ref_attention` /
 `flash_backward_reference` and against the JAX package (its Pallas
@@ -25,10 +27,10 @@ of the largest gradient.  Against the JAX `_ref_attention` the bound also
 holds that reference's own one bf16 rounding of the softmax weights.  One
 more test shows why P goes in as two terms: a single bf16 rounding of P
 misses the forward's atol on early causal rows, which have few keys to
-average the rounding over.  And one more shows why the padded backward
-instances split dS: dS sums to zero over a row, so dQ and dK cancel, and
-one rounding of dS misses the check on some inputs, at D = 128 (dQ) and
-at D = 16 (dK); D = 64 and 128 keep that one rounding (ROADMAP C7)."""
+average the rounding over.  And one more shows why the backward splits
+dS: dS sums to zero over a row, so dQ and dK cancel, and one rounding of
+dS misses the check on some inputs, at D = 128 (dQ) and at D = 16 (dK);
+the split holds them, at D = 64 and 128 too (ROADMAP C7)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,24 +60,39 @@ def _valid(B, Tq, Tk, causal, kl):
         B, 1, 1, Tq, Tk)
 
 
+def padded_width(D):
+    """The width of the kernels' instance that runs head dim D: 64 up to
+    64, else 128 (D other than 64 and 128 padded with zero columns)."""
+    return 64 if D <= 64 else 128
+
+
+def _pad(x, DP):
+    """x [..., D] with zero columns up to DP, as TMA lands its tiles."""
+    return torch.nn.functional.pad(x, (0, DP - x.shape[-1]))
+
+
 def emulate_forward(q, k, v, kl, causal, scale, split_p=True):
     """flash_fwd_wgmma_kernel on bf16 q [B, H, Tq, D], k/v [B, Hkv, Tk,
-    D] -> (out bf16, lse float32 [B*H, Tq]).  Key tiles past a row's
-    frontier are all masked here, which leaves m, l and O exactly as the
-    kernel's skip does (alpha = 1, P = 0)."""
+    D] -> (out bf16, lse float32 [B*H, Tq]), in the instance of width DP
+    (padded_width): Q K^T over the 32-column regions that hold the columns
+    below D (2 k16 steps each), P V over DP, the columns below D
+    returned.  Key tiles past a row's frontier are all
+    masked here, which leaves m, l and O exactly as the kernel's skip does
+    (alpha = 1, P = 0)."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
-    qf = q.float().reshape(B, Hkv, g, Tq, D)
-    kf, vf = k.float(), v.float()
+    DP, n16 = padded_width(D), -(-D // 32) * 32
+    qf = _pad(q.float(), DP).reshape(B, Hkv, g, Tq, DP)
+    kf, vf = _pad(k.float(), DP), _pad(v.float(), DP)
     sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
     valid = _valid(B, Tq, Tk, causal, kl)
     m = torch.full((B, Hkv, g, Tq, 1), NEG)
     l = torch.zeros((B, Hkv, g, Tq, 1))
-    o = torch.zeros((B, Hkv, g, Tq, D))
+    o = torch.zeros((B, Hkv, g, Tq, DP))
     for k0 in range(0, Tk, WK):
         kt, vt = kf[:, :, None, k0:k0 + WK], vf[:, :, None, k0:k0 + WK]
-        x = (qf @ kt.transpose(-1, -2)) * sl2
+        x = (qf[..., :n16] @ kt[..., :n16].transpose(-1, -2)) * sl2
         x = torch.where(valid[..., k0:k0 + WK], x,
                         torch.tensor(float('-inf')))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
@@ -94,21 +111,19 @@ def emulate_forward(q, k, v, kl, causal, scale, split_p=True):
     lse = torch.where(l > 0, (m + torch.log2(torch.where(l > 0, l,
                                                          torch.ones_like(l))))
                       * LN2, torch.full_like(l, NEG))
-    return ((o * inv).reshape(B, H, Tq, D).to(torch.bfloat16),
+    return ((o * inv)[..., :D].reshape(B, H, Tq, D).to(torch.bfloat16),
             lse.reshape(B * H, Tq))
 
 
-def _ds_terms(ds, split_ds, D):
-    """dS as the kernels hand it to dQ and dK: rounded to bf16 once, or,
-    in the padded instances (split_ds None: D not 64 or 128), as hi + lo
-    bf16 terms, summed in float32 as the two products' accumulators are."""
-    if split_ds is None:
-        split_ds = D not in (64, 128)
+def _ds_terms(ds, split_ds):
+    """dS as the kernels hand it to dQ and dK: as hi + lo bf16 terms,
+    summed in float32 as the two products' accumulators are; with
+    split_ds False, rounded to bf16 once (the counterfactual)."""
     hi = _bf16(ds)
     return hi + _bf16(ds - hi) if split_ds else hi
 
 
-def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
+def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale, split_ds=True):
     """flash_bwd_dkv_wgmma_kernel -> (dk, dv) in bf16: S^T and dP^T in
     float32, P^T = exp2(scale log2(e) S^T - log2(e) LSE) under the masks,
     dS^T = P^T (dP^T - delta), P^T rounded to bf16 once and dS^T as
@@ -138,7 +153,7 @@ def emulate_dkv(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
             ds = torch.where(ok, p * (dpt - delta[:, :, gi, :, q0:q0 + BQ]),
                              torch.zeros_like(st))
             dv = dv + _bf16(p) @ dot
-            dk = dk + _ds_terms(ds, split_ds, D) @ qt
+            dk = dk + _ds_terms(ds, split_ds) @ qt
     return (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
@@ -150,9 +165,17 @@ FWD_CASES = [
     (2, 4, 4, 70, 70, 64, True, [0, 50]),            # k_len 0 rows
     (2, 4, 1, 37, 161, 64, True, [161, 100]),        # Tq < Tk
     (1, 2, 2, 97, 161, 128, False, [130]),           # ragged, D=128
+    # the padded instances: D = 16, 40 in the 64 one, 72, 96, 120 in the
+    # 128 one (a 32-column region partly past D at all but 96)
+    (3, 8, 2, 37, 161, 16, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
+    (3, 8, 4, 100, 100, 40, True, [100, 1, 0]),      # GQA, ragged, k_len
+    (3, 8, 2, 37, 161, 72, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
+    (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
+    (3, 4, 2, 97, 161, 120, True, [130, 0, 1]),      # ragged q, k tiles
 ]
 FWD_IDS = ['path', 'gqa_causal_klen', 'causal_d128_ragged', 'klen0',
-           'tq_lt_tk', 'ragged_d128']
+           'tq_lt_tk', 'ragged_d128', 'd16_tq_lt_tk_klen01', 'd40_klen01',
+           'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed):
@@ -237,7 +260,7 @@ def test_one_bf16_rounding_of_p_would_miss_the_card_tolerance():
     assert not bool((err <= bound).all())
 
 
-def emulate_dq(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
+def emulate_dq(q, k, v, kl, out, lse, do, causal, scale, split_ds=True):
     """flash_bwd_dq_wgmma_kernel -> dq in bf16: S and dP in float32 per
     64-key ring tile, P = exp2(scale log2(e) S - log2(e) LSE) under the
     masks, dS = P (dP - delta) as _ds_terms, dQ summed in float32 over the
@@ -260,32 +283,39 @@ def emulate_dq(q, k, v, kl, out, lse, do, causal, scale, split_ds=None):
         ok = valid[..., k0:k0 + WK]
         p = torch.where(ok, torch.exp2(s * sl2 - lse2), torch.zeros_like(s))
         ds = torch.where(ok, p * (dp - delta), torch.zeros_like(s))
-        dq = dq + _ds_terms(ds, split_ds, D) @ kt
+        dq = dq + _ds_terms(ds, split_ds) @ kt
     return (dq * scale).reshape(B, H, Tq, D).to(torch.bfloat16)
 
 
 BWD_CASES = [
-    # B, H, Hkv, Tq, Tk, D, causal, k_len (None: Tk)
-    (2, 4, 4, 256, 256, 64, False, None),            # the training shape's
-    (2, 4, 4, 256, 256, 64, True, [256, 200]),       # causal, k_len
-    (2, 8, 2, 128, 128, 64, True, None),             # GQA 8/2
-    (2, 4, 1, 37, 161, 64, True, [161, 100]),        # Tq < Tk, k_len
-    (2, 4, 2, 150, 150, 128, False, [150, 77]),      # k_len, D=128
-    (2, 4, 4, 70, 70, 64, True, [0, 50]),            # k_len 0 rows
+    # B, H, Hkv, Tq, Tk, D, causal, k_len (None: Tk), seed
+    (2, 4, 4, 256, 256, 64, False, None, 1),         # the training shape's
+    (2, 4, 4, 256, 256, 64, True, [256, 200], 1),    # causal, k_len
+    (2, 8, 2, 128, 128, 64, True, None, 1),          # GQA 8/2
+    (2, 4, 1, 37, 161, 64, True, [161, 100], 1),     # Tq < Tk, k_len
+    (2, 4, 2, 150, 150, 128, False, [150, 77], 1),   # k_len, D=128
+    (2, 4, 4, 70, 70, 64, True, [0, 50], 1),         # k_len 0 rows
     # the padded instances: D = 16, 40 in the 64 one, 96, 120 in the 128
-    (3, 8, 2, 100, 100, 16, True, [100, 0, 1]),      # k_len 0, 1, GQA
-    (2, 8, 4, 37, 161, 40, True, [161, 100]),        # Tq < Tk
-    (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
-    (1, 4, 2, 97, 161, 120, False, [130]),           # ragged q, k tiles
+    (3, 8, 2, 100, 100, 16, True, [100, 0, 1], 1),   # k_len 0, 1, GQA
+    (2, 8, 4, 37, 161, 40, True, [161, 100], 1),     # Tq < Tk
+    (2, 8, 2, 150, 150, 96, True, [150, 77], 1),     # GQA, causal
+    (1, 4, 2, 97, 161, 120, False, [130], 1),        # ragged q, k tiles
+    # the inputs on which one rounding of dS misses the check (C7: seed 3
+    # for dQ at D = 128, seed 0 for dK at D = 16), at D = 64 and 128
+    (2, 8, 2, 150, 150, 128, True, [150, 77], 3),
+    (2, 8, 2, 150, 150, 64, True, [150, 77], 3),
+    (2, 8, 2, 150, 150, 128, True, [150, 77], 0),
+    (2, 8, 2, 150, 150, 64, True, [150, 77], 0),
 ]
 BWD_IDS = ['path', 'causal_klen', 'gqa', 'tq_lt_tk', 'klen_d128', 'klen0',
-           'd16_klen01', 'd40_tq_lt_tk', 'd96_gqa', 'd120_ragged']
+           'd16_klen01', 'd40_tq_lt_tk', 'd96_gqa', 'd120_ragged',
+           'c7_d128_seed3', 'c7_d64_seed3', 'c7_d128_seed0', 'c7_d64_seed0']
 
 
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
 def test_dkv_emulation_within_the_card_tolerance(case):
-    B, H, Hkv, Tq, Tk, D, causal, klen = case
-    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, 1)
+    B, H, Hkv, Tq, Tk, D, causal, klen, seed = case
+    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, seed)
     scale = D ** -0.5
     # the forward's out and LSE, as the kernels see them
     out, lse = emulate_forward(q, k, v, kl, causal, scale)
@@ -308,8 +338,8 @@ def test_dkv_emulation_within_the_card_tolerance(case):
 
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
 def test_dq_emulation_within_the_card_tolerance(case):
-    B, H, Hkv, Tq, Tk, D, causal, klen = case
-    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, 1)
+    B, H, Hkv, Tq, Tk, D, causal, klen, seed = case
+    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, seed)
     scale = D ** -0.5
     out, lse = emulate_forward(q, k, v, kl, causal, scale)
     dq = emulate_dq(q, k, v, kl, out, lse, do, causal, scale)
@@ -333,9 +363,9 @@ def test_one_bf16_rounding_of_ds_can_miss_the_card_tolerance(D, seed, grad):
     """dS = P (dP - delta) sums to zero over a row, so dQ = scale dS K and
     dK = scale dS^T Q cancel: on these inputs (GQA 8/2, causal, k_len
     [150, 77]) one bf16 rounding of dS leaves dQ at D = 128, and dK at D =
-    16, past the card's bf16 check (1.34x of it), and the padded
-    instances' hi + lo terms hold it.  At D = 128 the kernel keeps the one
-    rounding (ROADMAP C7)."""
+    16, past the card's bf16 check (1.34x of it), and the kernels' hi + lo
+    terms hold it (since the C7 repair at D = 64 and 128 too: the cases
+    c7_* above)."""
     q, k, v, do, kl = _inputs(2, 8, 2, 150, 150, D, [150, 77], seed)
     scale = D ** -0.5
     out, lse = emulate_forward(q, k, v, kl, True, scale)

@@ -1,19 +1,24 @@
-"""The flash backward's gradients of one tree, saved, and two trees'
-compared bit for bit, on the card.
+"""The flash kernels' outputs of one tree, saved, and two trees' compared
+bit for bit, on the card.
 
     python3 tools/pt_flash_bwd_bitwise.py --root tmp/parent --save a.pt
     python3 tools/pt_flash_bwd_bitwise.py --root . --save b.pt
     python3 tools/pt_flash_bwd_bitwise.py --compare a.pt b.pt
 
 `--save` imports `paddle_tpu_torch` from ROOT (so it builds and runs that
-tree's kernels), runs its flash forward and backward (`flash_backward`,
-the wrappers the training paths call) on the cases below, inputs from a
-CUDA generator seeded 11, and saves dq, dk and dv by case.  `--compare`
-prints one JSON line: for each case and gradient, whether the two files
-hold the same bits, and `all_equal`; it exits non-zero when any differ.
-The cases are the head dims 64 and 128 in both dtypes, at the paths'
-shapes (the flash training step's, the training llama's) and at ragged
-ones.  Needs a CUDA card for `--save`.
+tree's kernels) and runs, on the cases below, inputs from a CUDA
+generator seeded 11: its flash forward (`flash_forward`), and its flash
+backward (`flash_backward`, the wrappers the training paths call) on the
+output and LSE of the plain forward (`_ref_attention`, the same in both
+trees, so a forward that changes does not move the backward's inputs);
+it saves out, lse, dq, dk and dv by case.  `--compare` prints one JSON
+line: for each case and tensor, whether the two files hold the same bits;
+`held`, the tensors that must not move (`is_held`), and `all_held_equal`;
+`changed`, the others that moved.  It exits non-zero when a held tensor
+differs.  The cases are the head dims 64 and 128 in both dtypes, at the
+paths' shapes (the flash training step's, the training llama's) and at
+ragged ones, and the other head dims (padded instances up to 128, the
+CUDA-core kernels above).  Needs a CUDA card for `--save`.
 """
 import argparse
 import json
@@ -32,7 +37,30 @@ CASES = {
     'ragged_bf16_d128': (2, 8, 4, 37, 161, 128, True, [161, 100],
                          'bfloat16'),
     'ragged_f32_d128': (2, 8, 4, 97, 161, 128, False, [161, 1], 'float32'),
+    'pad_f32_d16': (3, 8, 2, 100, 100, 16, True, [100, 0, 1], 'float32'),
+    'pad_f32_d40': (2, 8, 4, 37, 161, 40, True, [161, 100], 'float32'),
+    'pad_f32_d96': (2, 16, 8, 1024, 1024, 96, True, None, 'float32'),
+    'pad_f32_d120': (1, 4, 2, 97, 161, 120, False, [130], 'float32'),
+    'pad_bf16_d16': (3, 8, 2, 100, 100, 16, True, [100, 0, 1], 'bfloat16'),
+    'pad_bf16_d96': (2, 16, 8, 1024, 1024, 96, True, None, 'bfloat16'),
+    'cc_f32_d136': (2, 8, 2, 70, 90, 136, False, [90, 45], 'float32'),
+    'cc_f32_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'float32'),
 }
+NAMES = ('out', 'lse', 'dq', 'dk', 'dv')
+
+
+def is_held(case, tensor):
+    """Whether `tensor` of `case` must keep its bits: the forward at D =
+    64 and 128 and above 128 (the kernels it runs there are unchanged),
+    the float32 backward at every D, the bf16 backward of the padded
+    instances.  What may move: the forward of the padded instances (new
+    kernels), and the bf16 backward at D = 64 and 128, whose dS is split
+    into hi + lo terms (ROADMAP C7), which the card checks hold to the
+    plain version instead."""
+    D, dtype = CASES[case][5], CASES[case][8]
+    if tensor in ('out', 'lse'):
+        return D in (64, 128) or D > 128
+    return dtype == 'float32' or D not in (64, 128)
 
 
 def save(root, path):
@@ -49,8 +77,11 @@ def save(root, path):
         k, v = randn(B, Hkv, Tk, D), randn(B, Hkv, Tk, D)
         kl = torch.tensor([Tk] * B if klen is None else klen,
                           dtype=torch.int32, device='cuda')
-        out, lse = att.flash_forward(q, k, v, causal, None, kl)
-        grads = att.flash_backward(q, k, v, kl, out, lse, do, causal)
+        scale = D ** -0.5
+        out, lse = att.flash_forward(q, k, v, causal, scale, kl)
+        pout, plse = att._ref_attention(q, k, v, causal, scale, kl)
+        grads = att.flash_backward(q, k, v, kl, pout.contiguous(), plse, do,
+                                   causal, scale)
         res[name] = [t.cpu() for t in (out, lse) + tuple(grads)]
     torch.save(res, path)
     print(json.dumps({'saved': path, 'root': root,
@@ -60,10 +91,15 @@ def save(root, path):
 def compare(a_path, b_path):
     a, b = torch.load(a_path), torch.load(b_path)
     equal = {name: {n: bool(torch.equal(x, y)) for n, x, y in zip(
-        ('out', 'lse', 'dq', 'dk', 'dv'), a[name], b[name])} for name in a}
-    ok = all(all(v.values()) for v in equal.values()) and set(a) == set(b)
+        NAMES, a[name], b[name])} for name in a}
+    held = {name: [n for n in NAMES if is_held(name, n)] for name in equal}
+    ok = set(a) == set(b) == set(CASES) and all(
+        equal[c][n] for c in equal for n in held[c])
+    changed = {c: [n for n in NAMES if not equal[c][n]] for c in equal}
     print(json.dumps({'compare': [a_path, b_path], 'equal': equal,
-                      'all_equal': ok}), flush=True)
+                      'held': held, 'all_held_equal': ok,
+                      'changed': {c: v for c, v in changed.items() if v}}),
+          flush=True)
     return 0 if ok else 1
 
 
