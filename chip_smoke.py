@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Serve llama_1b (float32 and bf16, and as a streaming generation server)
-and a llama at Phi-3-mini's widths (head dim 96), train transformer-base
-and llama_1b through paddle_tpu_torch on one NVIDIA GPU, and hold each
-hand-written CUDA kernel against its plain PyTorch version.
+and llamas at Phi-3-mini's widths (head dim 96) and GPT-J-6B's (head dim
+256), train transformer-base and llama_1b through paddle_tpu_torch on one
+NVIDIA GPU, and hold each hand-written CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
@@ -10,6 +11,7 @@ hand-written CUDA kernel against its plain PyTorch version.
     python3 chip_smoke.py --phases card,kernels,training_composed
     python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,serving_d96
+    python3 chip_smoke.py --phases card,kernels,serving_d256
     python3 chip_smoke.py --phases card,training,nan_trip
 
 Every program runs through the PT_OPT passes (on by default): their fused
@@ -49,9 +51,14 @@ Phases, each printing JSON lines:
               (d96_fwd_designs, d96_bwd_designs),
               checked at D = 16 (the tiny llama's), 32, 40, 72 and 120, the
               forward's kernel and instance read from the profiler; the
-              CUDA-core kernels of D 136-256 timed at D = 256 beside SDPA
-              (d256_cc_designs); Adam's bf16 instance at the llama's 147
-              tensors
+              head dims 136-256: K1 in the tensor-core instance of width
+              256 checked and timed at serving_d256's shape (B=4, H=16 /
+              16, T=2048, D=256, causal), timed at D = 256 (B=2, H=16 / 8,
+              T=1024) beside the CUDA-core kernel it replaced and SDPA,
+              and the CUDA-core K2 and K3 there (d256_fwd_designs),
+              checked at D = 256, 136, 200 (MQA) and 248 with k_len 0 and
+              1 rows, Tq < Tk and ragged tiles; Adam's bf16 instance at
+              the llama's 147 tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -84,6 +91,13 @@ Phases, each printing JSON lines:
               forwards must all be the padded tensor-core kernel of width
               128 (fwd_tf32x3, fwd_wgmma); bf16 within the bf16 bound of
               float32
+  serving_d256
+              the same at GPT-J-6B's widths (d_model 4096, 16 heads and 16
+              KV heads, so D = 256, FFN 16384, vocab 50400, rope theta
+              10000; EleutherAI/gpt-j-6b) on the llama architecture,
+              max_len 2048, cut to 4 of its 28 layers (1.49 B parameters):
+              its 4 flash forwards a batch must be the tensor-core kernel
+              of width 256, unpadded (<256, false, 8>)
   generation  llama_1b (full width and depth, float32, TF32 off, weights
               from its program's startup) through make_streaming_runtime
               (8 slots, prefill chunks of 256) and GenerationEngine
@@ -112,9 +126,9 @@ Phases, each printing JSON lines:
               plain cached_attention against one
               SDPA call with the same mask at the decode and prefill
               shapes (timed only)
-  gpu_vs_cpu  llama_1b widths and Phi-3-mini's (D = 96), 2 layers,
-              max_len 512: one saved model each through the port's
-              Predictor on the card and on the CPU
+  gpu_vs_cpu  llama_1b widths, Phi-3-mini's (D = 96) and GPT-J-6B's (D =
+              256), 2 layers, max_len 512: one saved model each through
+              the port's Predictor on the card and on the CPU
   generation_gpu_vs_cpu
               llama_1b width, 2 layers: a 64-token prompt and 16 greedy
               tokens through the paged runtime on the card and on the CPU
@@ -206,10 +220,12 @@ composed one for K5, its generated segments, K4, K6 and Adam; the flash
 one for K1-K3 and its own segments), per served run for the serving-only
 ones, and `launches_by_path` (per served run for serving and
 serving_bf16, per decode step for generation, per step for each training
-path); K1, K2 and K3 also list their two instances, bf16 on tensor cores
-(the flash step; K1 also the bf16 served run) and float32 (3xTF32 on
-tensor cores; launches per served run for K1, per float32 step for K2
-and K3), each timed; with every phase run, a kernel or instance launched
+path); K1, K2 and K3 also list their instances, each timed at its path's
+shape: bf16 on tensor cores (the flash step; K1 also the bf16 served
+run) and float32 (3xTF32 on tensor cores; launches per served run for
+K1, per float32 step for K2 and K3), both also at the llama's D = 128
+and at the other head dims up to 128, and K1 at width 256 (a
+serving_d256 batch); with every phase run, a kernel or instance launched
 on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
@@ -228,7 +244,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
 PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
-          'generation',
+          'serving_d256', 'generation',
           'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
           'train_gpu_vs_cpu', 'training_composed',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
@@ -350,13 +366,15 @@ def phase_card():
 
 def flash_fwd_occupancy(lib):
     """The flash forward's shared memory a block and blocks an SM, by
-    instance (D = 64, 128, and the padded ones of width 64 and 128, asked
-    for at D = 40 and 96), as the CUDA runtime reports them."""
+    instance (D = 64, 128, 256, and the padded ones of width 64, 128 and
+    256, asked for at D = 40, 96 and 200), as the CUDA runtime reports
+    them."""
     import ctypes
     res = {}
     for dtype, code in (('float32', 0), ('bfloat16', 1)):
-        for D, inst in ((64, 'd64'), (128, 'd128'), (40, 'dp64_padded'),
-                        (96, 'dp128_padded')):
+        for D, inst in ((64, 'd64'), (128, 'd128'), (256, 'd256'),
+                        (40, 'dp64_padded'), (96, 'dp128_padded'),
+                        (200, 'dp256_padded')):
             smem, blocks = ctypes.c_int(), ctypes.c_int()
             rc = lib.pt_flash_fwd_occupancy(D, code, ctypes.byref(smem),
                                             ctypes.byref(blocks))
@@ -423,10 +441,11 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
     """K1 against `_ref_attention`: the port's (flash_forward, its
     wrapper), or with design 'cc' the CUDA-core kernel called directly
     (_cc_fwd_launch); the design's rate bounds it: bf16 and float32
-    tensor cores (3xTF32) at every D up to 128 (D other than 64 and 128
-    padded), CUDA cores (float32 FMAs, both dtypes) above and for design
-    'cc'.  `profiled`: the kernel one port forward launches, from the
-    profiler, must be its dtype's tensor-core design at D up to 128."""
+    tensor cores (3xTF32) at every D up to 256 (D other than 64, 128 and
+    256 padded), CUDA cores (float32 FMAs, both dtypes) for design 'cc'.
+    `profiled`: the kernel one port forward launches, from the profiler,
+    must be its dtype's tensor-core design in the instance of D's
+    width."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import attention as att
@@ -462,7 +481,7 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                B=B, H=H, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal,
                dtype=dtype, design=design, k_len=kl, max_abs_err=err,
                rtol=rtol, atol=atol, lse_max_abs_err=lse_err, lse_atol=1e-4)
-    if design == 'port' and att.tensor_core(D) and D not in (64, 128):
+    if design == 'port' and D not in (64, 128, 256):
         res.update(DP=_padded_width(D), useful_share=D / _padded_width(D))
     if profiled:
         res['profiled_kernels'] = fwd_kernels_profiled(run, dtype, D)
@@ -487,7 +506,7 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
         # float32 runs as 3xTF32 on the tensor cores: that rate bounds it;
         # the CUDA cores' float32 rate is printed beside it.  The work is
         # the true D's (a padded instance does D / DP of P V usefully)
-        t_ops = flops / PEAK_FLOPS[_fwd_rate(dtype, D, design)] * 1e3
+        t_ops = flops / PEAK_FLOPS[_fwd_rate(dtype, design)] * 1e3
         if dtype == 'float32':
             res['bound_cuda_cores_ms'] = max(
                 t_bytes, flops / PEAK_FLOPS['float32'] * 1e3)
@@ -587,13 +606,12 @@ def _valid_pairs(B, H, Tq, Tk, causal, kl):
     return pairs
 
 
-def _fwd_rate(dtype, D, design='port'):
-    """The PEAK_FLOPS key of the flash forward's design at (dtype, D): the
-    port's, tensor cores at every D up to 128 (float32 as 3xTF32; D other
-    than 64 and 128 padded) and CUDA cores above, or the CUDA-core kernel
-    (design 'cc', csrc/flash_cc.cu)."""
-    from paddle_tpu_torch.ops import attention as att
-    if design == 'cc' or not att.tensor_core(D):
+def _fwd_rate(dtype, design='port'):
+    """The PEAK_FLOPS key of the flash forward's design in `dtype`: the
+    port's, tensor cores at every D (float32 as 3xTF32; D other than 64,
+    128 and 256 padded), or the CUDA-core kernel (design 'cc',
+    csrc/flash_cc.cu)."""
+    if design == 'cc':
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
 
@@ -604,20 +622,21 @@ def _bwd_rate(dtype, D, design='port'):
     other than 64 and 128 padded) and CUDA cores above, or the CUDA-core
     kernels (design 'cc', csrc/flash_cc.cu)."""
     from paddle_tpu_torch.ops import attention as att
-    if design == 'cc' or not att.tensor_core(D):
+    if design == 'cc' or not att.bwd_tensor_core(D):
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
 
 
 def _padded_width(D):
     """The width of the tensor-core kernels' instance that runs head dim D
-    (csrc/hopper_mma.cuh with_instance): 64 up to 64, else 128."""
-    return 64 if D <= 64 else 128
+    (csrc/hopper_mma.cuh with_instance, with_fwd_instance): 64 up to 64,
+    128 up to 128, else 256 (the forward's alone)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
 def _cc_fwd_launch(q, k, v, kl_t, causal, scale):
     """The CUDA-core design of K1 (pt_flash_cc_fwd, csrc/flash_cc.cu),
-    called directly -> (out, lse): the port routes every D up to 128 to
+    called directly -> (out, lse): the port routes every D up to 256 to
     csrc/flash_fwd.cu, so this times the design the tensor-core kernels
     replaced, uncounted."""
     import torch
@@ -652,7 +671,6 @@ def fwd_kernels_profiled(run, dtype, D):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.ops import attention as att
     got = {}
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -665,14 +683,10 @@ def fwd_kernels_profiled(run, dtype, D):
                 got[key] = got.get(key, 0) + e.count
         if got:
             break
-    tc = att.tensor_core(D)
-    want = 'fwd_' + ('cc' if not tc else
-                     'tf32x3' if dtype == 'float32' else 'wgmma')
+    want = 'fwd_' + ('tf32x3' if dtype == 'float32' else 'wgmma')
     ok = list(got.values()) == [1] and _flash_design(next(iter(got))) == \
-        want
-    if ok and tc:
-        ok = _fwd_instance(next(iter(got))) == (_padded_width(D),
-                                                 D not in (64, 128))
+        want and _fwd_instance(next(iter(got))) == (
+            _padded_width(D), D not in (64, 128, 256))
     require(ok, 'flash forward at D = %d, %s: profiled %s, expected one %s'
             % (D, dtype, got, want))
     return got
@@ -714,7 +728,7 @@ def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     k, v = (torch.randn(B, Hkv, T, D, generator=g, device='cuda').to(dt)
             for _ in range(2))
     out, lse = att.flash_forward(q, k, v, True)
-    tc = ('cc' if not att.tensor_core(D) else
+    tc = ('cc' if not att.bwd_tensor_core(D) else
           'tf32x3' if dtype == 'float32' else 'wgmma')
     want = {'bwd_dq_' + tc: 1, 'bwd_dkv_' + tc: 1}
     for _ in range(PROFILE_TRIES):
@@ -830,7 +844,7 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
             bound_ms, bound_by = _bound(flops, nbytes,
                                         _bwd_rate(dtype, D, design))
             row = res[kname][0]
-            if design == 'port' and att.tensor_core(D) and \
+            if design == 'port' and att.bwd_tensor_core(D) and \
                     D not in (64, 128):
                 row.update(DP=_padded_width(D),
                            useful_share=D / _padded_width(D))
@@ -1477,23 +1491,52 @@ def phase_kernels():
                        klen=[150, 0, 1])
         flash_bwd_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True,
                        dt, klen=[161, 100, 1])
-        # the head dims above 128 keep the CUDA-core kernels
-        # (csrc/flash_cc.cu): timed at D = 256 beside SDPA
-        cc_fwd = flash_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True,
-                            dt, timed=True, profiled=True)
+        # the head dims above 128: K1 on the tensor cores in the instance
+        # of width 256 (csrc/flash_fwd.cu), K2 and K3 on the CUDA cores
+        # (csrc/flash_cc.cu).  K1's instance row is its main path's shape,
+        # serving_d256's batch (4 rows x 2048 tokens, 16 / 16 heads, D =
+        # 256); at B 2, H 16 / 8, T 1024, D = 256 K1 is timed beside the
+        # CUDA-core kernel it replaced and SDPA, in this call
+        # (d256_fwd_designs), and so is the CUDA-core backward.  Checked
+        # at D = 256 and the padded 136, 200 (MQA) and 248 with k_len 0
+        # and 1 rows, Tq < Tk and ragged last query and key tiles, the
+        # kernel and instance read from the profiler
+        key = dt + '_d256'
+        inst['flash_attention_fwd'][key] = flash_case(
+            'served_d256_' + dt, 4, 16, 16, 2048, 2048, 256, True, dt,
+            timed=True, profiled=True)
+        fwd = flash_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True, dt,
+                         timed=True, profiled=True)
+        cc_fwd = flash_case('d256_cc_' + dt, 2, 16, 8, 1024, 1024, 256,
+                            True, dt, timed=True, design='cc')
         cc = flash_bwd_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True,
                             dt, timed=True)
         dq, dkv = (cc[n] for n in ('flash_attention_bwd_dq',
                                    'flash_attention_bwd_dkv'))
-        emit(phase='kernels', step='d256_cc_designs', dtype=dt, D=256,
-             fwd_ms=cc_fwd['ms'], fwd_bound_ms=cc_fwd['bound_ms'],
-             fwd_plain_ms=cc_fwd['plain_ms'], sdpa_ms=cc_fwd['library_ms'],
-             dq_ms=dq['ms'], dq_bound_ms=dq['bound_ms'], dkv_ms=dkv['ms'],
-             dkv_bound_ms=dkv['bound_ms'], bwd_plain_ms=dq['plain_ms'],
-             sdpa_whole_bwd_ms=dq['library_ms'],
-             fwd_over_sdpa=cc_fwd['ms'] / cc_fwd['library_ms'],
-             pair_over_sdpa=(dq['ms'] + dkv['ms']) / dq['library_ms'],
-             profiled_kernels=cc_fwd['profiled_kernels'])
+        emit(phase='kernels', step='d256_fwd_designs', dtype=dt, D=256,
+             tensor_core_ms=fwd['ms'], cuda_core_ms=cc_fwd['ms'],
+             sdpa_ms=fwd['library_ms'],
+             over_sdpa=fwd['ms'] / fwd['library_ms'],
+             speedup=cc_fwd['ms'] / fwd['ms'], bound_ms=fwd['bound_ms'],
+             bound_share=fwd['bound_share'],
+             cuda_core_bound_ms=cc_fwd['bound_ms'],
+             cuda_core_bound_share=cc_fwd['bound_share'],
+             plain_ms=fwd['plain_ms'],
+             profiled_kernels=fwd['profiled_kernels'],
+             cuda_core_dq_ms=dq['ms'], dq_bound_ms=dq['bound_ms'],
+             cuda_core_dkv_ms=dkv['ms'], dkv_bound_ms=dkv['bound_ms'],
+             bwd_plain_ms=dq['plain_ms'], sdpa_whole_bwd_ms=dq['library_ms'],
+             pair_over_sdpa=(dq['ms'] + dkv['ms']) / dq['library_ms'])
+        flash_case('d256_klen01_' + dt, 3, 8, 2, 150, 150, 256, True, dt,
+                   klen=[150, 0, 1], profiled=True)
+        flash_case('d256_tq_lt_tk_' + dt, 2, 8, 2, 37, 161, 256, True, dt,
+                   klen=[161, 100], profiled=True)
+        flash_case('d136_tq_lt_tk_klen01_' + dt, 3, 8, 2, 37, 161, 136,
+                   True, dt, klen=[161, 0, 1], profiled=True)
+        flash_case('d200_mqa_ragged_' + dt, 2, 8, 1, 97, 161, 200, True,
+                   dt, klen=[130, 1], profiled=True)
+        flash_case('d248_gqa_klen0_' + dt, 2, 8, 2, 150, 150, 248, False,
+                   dt, klen=[150, 0], profiled=True)
     served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
                                            timed=True)
     layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
@@ -1976,6 +2019,19 @@ def _serve(phase, smi, bf16):
 # rope theta 10000) on the llama architecture, cut to 8 of its 32 layers
 D96_CFG = dict(vocab=32064, d_model=3072, n_layer=8, n_head=32,
                n_kv_head=32, d_ffn=8192, theta=10000.0, max_len=2048)
+# GPT-J-6B's widths (EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head
+# 16, so D = 256; n_inner null, so the FFN is 4 x 4096; vocab_size 50400,
+# n_positions 2048, rotary base 10000) on the llama architecture, cut to
+# 4 of its 28 layers
+GPTJ_CFG = dict(vocab=50400, d_model=4096, n_layer=4, n_head=16,
+                n_kv_head=16, d_ffn=16384, theta=10000.0, max_len=2048)
+GPTJ_REDUCED = [
+    'n_layer 28 -> 4 (the save, the load and the script within the time '
+    'limit)',
+    'the llama architecture where GPT-J has a parallel residual, '
+    'LayerNorm, a two-matrix GELU MLP (here SwiGLU, three matrices of '
+    'the same width) and rotary on 64 of 256 dims (here on all); theta '
+    '10000, GPT-J\'s rotary base']
 
 
 def phase_serving_d96(smi):
@@ -1984,13 +2040,35 @@ def phase_serving_d96(smi):
     2048 tokens each, whose 8 flash forwards must be the padded
     tensor-core kernel of width 128; bf16 within the bf16 bound of
     float32.  -> {path: launches a batch}."""
+    return _serve_widths(
+        'serving_d96', smi, D96_CFG, 'phi3_mini_widths',
+        'n_layer 32 -> 8 (the save, the load and the script within the '
+        'time limit)', (_padded_width(96), True))
+
+
+def phase_serving_d256(smi):
+    """The served llama at GPT-J-6B's widths (D = 256), float32 and
+    enable_bf16: one profiled 4-row batch of 2048 tokens each, whose 4
+    flash forwards must be the tensor-core kernel of width 256, unpadded;
+    bf16 within the bf16 bound of float32.  -> {path: launches a batch}."""
+    return _serve_widths('serving_d256', smi, GPTJ_CFG, 'gptj_6b_widths',
+                         GPTJ_REDUCED, (256, False))
+
+
+def _serve_widths(phase, smi, config, name, reduced, instance):
+    """A llama at a public model's widths (`config`), built, saved and
+    loaded by Predictor in float32 and with enable_bf16: one profiled
+    4-row batch of max_len tokens in each (batch ms, flash ms, device
+    busy), whose flash forwards (one a layer) must all be the tensor-core
+    kernel's `instance` (padded width, padded); bf16 within the bf16
+    bound of float32.  -> {path: launches a batch}."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import llama
     with _model_dir() as d:
         cfg, n_params, startup_s, save_s = _build_and_save(
-            fluid, llama, d, SERVED_FETCHES, **D96_CFG)
+            fluid, llama, d, SERVED_FETCHES, **config)
         t0 = time.perf_counter()
         f32 = fluid.inference.Predictor(d)
         t1 = time.perf_counter()
@@ -1999,12 +2077,10 @@ def phase_serving_d96(smi):
         bf16 = fluid.inference.Predictor(conf)
         t2 = time.perf_counter()
     T, V, L = cfg['max_len'], cfg['vocab'], cfg['n_layer']
-    emit(phase='serving_d96', step='model', config='phi3_mini_widths',
-         cfg=cfg, head_dim=cfg['d_model'] // cfg['n_head'],
-         reduced='n_layer 32 -> 8 (the save, the load and the script '
-         'within the time limit)', params=n_params,
-         param_bytes=4 * n_params, startup_s=startup_s, save_s=save_s,
-         load_s=t1 - t0, load_bf16_s=t2 - t1)
+    emit(phase=phase, step='model', config=name, cfg=cfg,
+         head_dim=cfg['d_model'] // cfg['n_head'], reduced=reduced,
+         params=n_params, param_bytes=4 * n_params, startup_s=startup_s,
+         save_s=save_s, load_s=t1 - t0, load_bf16_s=t2 - t1)
     feed = {'tokens': _tokens(np.random.RandomState(SEED + 2), 4, T, V)}
     paths, last, rows = {}, {}, {}
     for dtype, pred, design in (('float32', f32, 'fwd_tf32x3'),
@@ -2013,7 +2089,7 @@ def phase_serving_d96(smi):
         kernels.reset_launches()
         out = pred.run(feed)
         torch.cuda.synchronize()
-        path = 'serving_d96_' + ('f32' if dtype == 'float32' else 'bf16')
+        path = phase + ('_f32' if dtype == 'float32' else '_bf16')
         paths[path] = {k: v for k, v in kernels.launches.items() if v}
         require(paths[path].get('flash_attention_fwd') == L,
                 '%s: flash launches %s, not one a layer' % (path,
@@ -2021,18 +2097,18 @@ def phase_serving_d96(smi):
         last[dtype] = np.asarray(out[0], np.float32)
         require(last[dtype].shape == (4, V) and
                 bool(np.isfinite(last[dtype]).all()),
-                'serving_d96 %s: logits of shape %s, finite %s'
-                % (dtype, last[dtype].shape, np.isfinite(last[dtype]).all()))
-        prof = profile_batch(pred, feed, L, 'serving_d96', design,
-                             instance=(_padded_width(96), True))
+                '%s %s: logits of shape %s, finite %s'
+                % (phase, dtype, last[dtype].shape,
+                   np.isfinite(last[dtype]).all()))
+        prof = profile_batch(pred, feed, L, phase, design, instance=instance)
         rows[dtype] = dict(
             batch_ms=prof['run_wall_ms'],
             flash_ms=prof['device_ms_by_group'].get('flash_attention_fwd'),
             device_busy_ms=prof['device_busy_ms'],
             flash_fwd_instances=prof['flash_fwd_instances'])
     err, tol, clear, n = _agree_bf16(last['bfloat16'], last['float32'], L,
-                                     'serving_d96 bf16 vs float32', runs=1)
-    emit(phase='serving_d96', step='served', rows=4, T=T, by_dtype=rows,
+                                     '%s bf16 vs float32' % phase, runs=1)
+    emit(phase=phase, step='served', rows=4, T=T, by_dtype=rows,
          launches=paths, bf16_vs_float32=dict(max_abs_err=err, tol=tol,
                                               clear_rows=clear, rows=n),
          card=smi)
@@ -2045,13 +2121,15 @@ def phase_serving_d96(smi):
 
 def phase_gpu_vs_cpu():
     """One saved model through the port's Predictor on the card and on
-    the CPU, at 2 layers and max_len 512: llama_1b's widths (D = 128) and
-    Phi-3-mini's (D = 96: the padded tensor-core forward on the card)."""
+    the CPU, at 2 layers and max_len 512: llama_1b's widths (D = 128),
+    Phi-3-mini's (D = 96: the padded tensor-core forward on the card) and
+    GPT-J-6B's (D = 256: the forward's instance of width 256)."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import llama
     for config, over in (('llama_1b', {}),
-                         ('phi3_mini_widths', D96_CFG)):
+                         ('phi3_mini_widths', D96_CFG),
+                         ('gptj_6b_widths', GPTJ_CFG)):
         with _model_dir() as d:
             cfg, n_params, _, _ = _build_and_save(
                 fluid, llama, d, ALL_FETCHES,
@@ -3903,6 +3981,10 @@ _INSTANCES = {
                         ('serving_d96_f32', 'train_llama_tiny_f32')),
     'bfloat16_other_d': ('bfloat16', None, None,
                          ('serving_d96_bf16', 'train_llama_tiny_bf16')),
+    'float32_d256': ('float32', None, None, ('serving_d256_f32',)),
+    'bfloat16_d256': ('bfloat16', 'wgmma, tensor cores, the instance of '
+                      'width 256 (D 136-256; P V m64n256k16)', None,
+                      ('serving_d256_bf16',)),
 }
 # the float32 designs of K1-K3 at each head dim
 _F32_DESIGNS = {
@@ -3917,6 +3999,9 @@ _F32_DESIGNS = {
                                             'D = 64',
     ('flash_attention_bwd_dkv', 'float32_d128'):
         '3xTF32 wgmma, tensor cores, D = 128, 16-row ring tiles',
+    ('flash_attention_fwd', 'float32_d256'):
+        '3xTF32 wgmma, tensor cores, the instance of width 256 (D 136-256; '
+        '16-key tiles, V^T split from registers)',
 }
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
@@ -3965,6 +4050,7 @@ def main(argv=None):
     served_launches = run('serving', phase_serving, smi)
     served_bf16 = run('serving_bf16', phase_serving_bf16, smi)
     served_d96 = run('serving_d96', phase_serving_d96, smi)
+    served_d256 = run('serving_d256', phase_serving_d256, smi)
     generated = run('generation', phase_generation, smi)
     trained = run('training', phase_training, smi)
     trained_f32 = run('training_f32', phase_training_f32, smi)
@@ -3999,7 +4085,11 @@ def main(argv=None):
                    'train_llama_tiny_bf16', {}),
                # per 4-row batch of the Phi-3-mini-width llama (D = 96)
                'serving_d96_f32': served_d96.get('serving_d96_f32', {}),
-               'serving_d96_bf16': served_d96.get('serving_d96_bf16', {})}
+               'serving_d96_bf16': served_d96.get('serving_d96_bf16', {}),
+               # per 4-row batch of the GPT-J-width llama (D = 256)
+               'serving_d256_f32': served_d256.get('serving_d256_f32', {}),
+               'serving_d256_bf16': served_d256.get('serving_d256_bf16',
+                                                    {})}
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only

@@ -21,10 +21,13 @@
 // Hkv=8, T=2048, D=128, causal, float32) does ~69 GFLOP on ~200 MB and is
 // bound by operations: 3xTF32 runs three TF32 products for each float32
 // one, 3 x 68.75 GFLOP at 495 TFLOP/s = 0.417 ms (float32 FMAs on CUDA
-// cores, 67 TFLOP/s, would take 1.026 ms).
+// cores, 67 TFLOP/s, would take 1.026 ms).  The served llama at GPT-J-6B's
+// widths (B=4, H=16 / 16, T=2048, D=256, causal) does 137.5 GFLOP: 0.139 ms
+// on the bf16 tensor cores, 0.833 ms as 3xTF32.
 //
-// bf16, flash_fwd_wgmma_kernel<D, PADDED, KC> (D = 64, 128): one warpgroup of
-// 128 threads per (64-row query tile, b*h).  Thread 0 issues TMA copies: the Q
+// bf16, flash_fwd_wgmma_kernel<D, PADDED, KC> (D = 64, 128, 256): one
+// warpgroup of 128 threads per (64-row query tile, b*h).  Thread 0 issues
+// TMA copies: the Q
 // tile once, K/V tiles of 64 keys into a 2-stage ring under mbarriers (full:
 // the bytes arrived; empty: all 128 threads are done with the stage), so the
 // next tile's copy runs under this tile's products. S = Q K^T is wgmma with
@@ -38,8 +41,12 @@
 // reference by more than the bf16 check's atol of 1e-3
 // (tests/test_torch_flash_wgmma_numerics.py shows it on the emulated
 // arithmetic); hi + lo keeps P to ~2^-17 for a third more tensor-core work.
-// Interior tiles skip the mask.  ptxas gives 106 registers at D=64 and 153 at
-// D=128, no spills.  Not yet used: warp specialisation (a producer warp and
+// Interior tiles skip the mask.  ptxas gives 106 registers at D=64, 153 at
+// D=128 and 218 at D = 256, no spills.  At D = 256 the output accumulator
+// is 128 registers a thread and P V one m64n256k16 product a k16 slice and
+// term (V's four 64-column chunks LBO apart); Q 32 KB and the K/V ring 128
+// KB make 164,904 bytes a block, one block an SM (82,984 and two at D =
+// 128).  Not yet used: warp specialisation (a producer warp and
 // two consumer warpgroups), setmaxnreg, overlapping the softmax of one tile
 // with the next tile's Q K^T, a persistent grid, and a TMA store of O.
 //
@@ -91,11 +98,26 @@
 // producer warp, two consumer warpgroups (no room for a second Q at
 // D = 128), the softmax under the next tile's Q K^T, a persistent grid.
 //
-// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the instance
-// of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128), the kernels'
-// PADDED = true instances, with the true D (Dt, dd) at run time, as
-// csrc/flash_bwd.cu pads the backward; D = 64 and 128 are the PADDED = false
-// instances, which compile as they did before (dd is the constant D there).
+// float32 at width 256 (tf32x3_wide): Q's hi + lo terms alone are 128 KB,
+// and the layout above would need 448 KB, so keys come in tiles of 16
+// (S is m64n16k8, P V two k8 steps of m64n256k8 a term).  TMA lands K in
+// K_hi, split in place into K_hi, K_lo (no raw K); the threads read the
+// next tile's V rows from global memory (zeros past Tk and past D) under
+// this tile's Q K^T and write them split and transposed into V^T, whose
+// 32-column region pair holds two tiles (double-buffered in 64 KB); the
+// next K lands under the softmax and P V and is split during P V.  Q
+// 128 KB + K 32 KB + V^T 64 KB = 230,416 bytes a block, one block an SM.
+// Chosen over a cluster of two blocks splitting D (partial S through
+// distributed shared memory), which is more work; this one ran first and
+// met the float32 check.  ptxas: 254 registers at KC = 7, 8 (D = 256
+// included), 236-237 at KC = 5, 6, no spills.
+//
+// The other head dims (D % 8 == 0 up to 256, not 64, 128 or 256) run the
+// instance of padded width DP = 64 (D < 64), DP = 128 (64 < D < 128) or
+// DP = 256 (128 < D < 256; hopper::with_fwd_instance), the kernels' PADDED =
+// true instances, with the true D (Dt, dd) at run time, as
+// csrc/flash_bwd.cu pads the backward up to 128; D = 64, 128 and 256 are the
+// PADDED = false instances (dd is the constant D there).
 // Each launcher builds its TMA maps with the true D, so the box columns at or
 // past D arrive as zeros, and counts their full bytes on the mbarrier, as rows
 // past Tq and Tk do.  Q K^T stops at the last 32-column region that holds
@@ -104,18 +126,21 @@
 // zeros).  A run-time count put control flow among the products, which ptxas
 // then serializes (C7515: the bf16 instances' first build, with a run-time k16
 // count, drew it).  A float32 region wholly past D is neither loaded nor split
-// (Q, K, and V^T's rows from 32 KC on), and the expected bytes count the
-// loaded regions only. P V runs at the full width DP; its accumulator columns
+// (Q, K, and V^T's rows from 32 KC on), nor a bf16 64-column chunk wholly
+// past 32 KC (the last chunk of width 256 at D = 136 .. 184), and the
+// expected bytes count the loaded ones only. P V runs at the full width DP
+// (at D = 136, 136 / 256 of it is useful work); its accumulator columns
 // at or past D (from V's zero columns, or from V^T rows no split wrote) are
 // never stored: the stores take the true D as row stride and stop at column D
 // (D % 8 == 0 keeps each thread's pair of columns whole).  The useful work is
 // D / DP of P V, and D / (32 KC) of Q K^T: 3/4 and 1 at D = 96. ptxas (sm_90a,
 // -O3, CUDA 12.9), registers a thread, no spills in any instance: bf16 106
-// (<64, true, 1 or 2>) and 153 (<128, true, 3 or 4>), as the unpadded
-// instances; float32 124, 127 (KC = 1, 2 at width 64), 168, 214 (KC = 3, 4 at
-// 128).  Shared memory a block as the unpadded instance of the same width (the
-// same structs): bf16 42,024 bytes at width 64 (4 blocks an SM) and 82,984 at
-// 128 (2), float32 115,736 and 230,424 (1).
+// (<64, true, 1 or 2>), 153 (<128, true, 3 or 4>) and 218 (<256, true, 5 ..
+// 8>), as the unpadded instances; float32 124, 127 (KC = 1, 2 at width 64),
+// 168, 214 (KC = 3, 4 at 128), 237, 236, 254, 254 (KC = 5 .. 8 at 256).
+// Shared memory a block as the unpadded instance of the same width (the same
+// structs): bf16 42,024 bytes at width 64 (4 blocks an SM), 82,984 at 128 (2)
+// and 164,904 at 256 (1), float32 115,736, 230,424 and 230,416 (1).
 #include "hopper_mma.cuh"
 
 #include <math.h>
@@ -204,14 +229,16 @@ struct FwdSmem {
   uint64_t qbar, full[STAGES], empty[STAGES];
 };
 
-// thread 0: K/V tile t of head kvh into stage s
-template <int D>
+// thread 0: K/V tile t of head kvh into stage s, its first NL 64-column
+// chunks (a chunk wholly past the true head dim is not loaded: Q K^T does
+// not read it, and P V's columns from it are never stored)
+template <int NL, int D>
 __device__ __forceinline__ void load_kv(FwdSmem<D>& sm, const CUtensorMap* tk,
                                         const CUtensorMap* tv, int kvh, int t,
                                         int s) {
-  hopper::mbar_expect_tx(&sm.full[s], 2 * WK * D * sizeof(bf16));
+  hopper::mbar_expect_tx(&sm.full[s], 2 * WK * 64 * NL * sizeof(bf16));
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
+  for (int c = 0; c < NL; ++c) {
     hopper::tma_load_3d(sm.k[s][c], tk, &sm.full[s], 64 * c, t * WK, kvh);
     hopper::tma_load_3d(sm.v[s][c], tv, &sm.full[s], 64 * c, t * WK, kvh);
   }
@@ -230,7 +257,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        float* __restrict__ lse, int H, int Hkv, int Tq,
                        int Tk, int Dt, int causal, float scale) {
   using namespace hopper;
-  constexpr int NC = D / 64;  // 64-column chunks of a row
+  // 64-column chunks loaded: those holding a column below 32 KC (all of
+  // them but at D = 136 .. 184, whose last chunk of width 256 is zeros)
+  constexpr int NL = (KC + 1) / 2;
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(align_1024(smem_raw));
 
@@ -256,12 +285,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     mbar_fence_init();
     if (ntiles > 0) {
-      mbar_expect_tx(&sm.qbar, BQ * D * sizeof(bf16));
+      mbar_expect_tx(&sm.qbar, BQ * 64 * NL * sizeof(bf16));
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NL; ++c)
         tma_load_3d(sm.q[c], &tq, &sm.qbar, 64 * c, q0, bh);
       for (int s = 0; s < STAGES && s < ntiles; ++s)
-        load_kv(sm, &tk, &tv, kvh, s, s);
+        load_kv<NL>(sm, &tk, &tv, kvh, s, s);
     }
   }
   __syncthreads();
@@ -296,7 +325,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // O += P V with P in two bf16 terms (hi + lo)
+    // O += P V with P in two bf16 terms (hi + lo); N = D (m64n256k16 at
+    // width 256, V's four chunks LBO apart)
     uint32_t phi[WK / 16][4], plo[WK / 16][4];
     acc_to_a_split(sacc, phi, plo);
 
@@ -315,7 +345,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(&sm.empty[s]);
     if (tid == 0 && t + STAGES < ntiles) {
       mbar_wait(&sm.empty[s], ph);
-      load_kv(sm, &tk, &tv, kvh, t + STAGES, s);
+      load_kv<NL>(sm, &tk, &tv, kvh, t + STAGES, s);
     }
   }
 
@@ -366,7 +396,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
 
 // ---------------------------------------- float32, 3xTF32 tensor cores
 
-constexpr int TK = 32;       // keys per tile (3xTF32 kernel)
+constexpr int TK = 32;       // keys per tile (3xTF32 kernel, D <= 128)
 constexpr int TSTAGES = 2;   // raw K/V ring depth
 
 // one [rows x 32] float32 region of a tile in the 128-byte swizzle
@@ -412,18 +442,17 @@ __device__ __forceinline__ void split_kv(Tf32Smem<D>& sm, int s, int vb) {
                                sm.vtlo[vb][0], 0);
 }
 
-// KC: the 32-column regions Q K^T reduces, a compile-time count (D / 32
-// unpadded; in the padded instances the regions that hold columns below
-// the true head dim, whose columns past it are TMA's zeros)
+// The body of flash_fwd_tf32x3_kernel at D <= 128: 32-key tiles through
+// the raw TMA ring.  KC: the 32-column regions Q K^T reduces, a
+// compile-time count (D / 32 unpadded; in the padded instances the
+// regions that hold columns below the true head dim, whose columns past
+// it are TMA's zeros)
 template <int D, bool PADDED, int KC>
-__global__ void __launch_bounds__(NT, 1)
-flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const int* __restrict__ klen,
-                        float* __restrict__ out, float* __restrict__ lse,
-                        int H, int Hkv, int Tq, int Tk, int Dt, int causal,
-                        float scale) {
+__device__ __forceinline__ void tf32x3_ring(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const int* __restrict__ klen, float* __restrict__ out,
+    float* __restrict__ lse, int H, int Hkv, int Tq, int Tk, int Dt,
+    int causal, float scale) {
   using namespace hopper;
   constexpr int NC = D / 32;  // 32-column regions of a row
   extern __shared__ uint8_t smem_raw[];
@@ -450,9 +479,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(&sm.qbar, BQ * 32 * KC * sizeof(float));
 #pragma unroll
       for (int c = 0; c < KC; ++c)
-        tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
+        tma_load_3d(sm.qhi[c], tq, &sm.qbar, 32 * c, q0, bh);
       for (int s = 0; s < TSTAGES && s < ntiles; ++s)
-        load_kv_f32<KC>(sm, &tk, &tv, kvh, s, s);
+        load_kv_f32<KC>(sm, tk, tv, kvh, s, s);
     }
   }
   __syncthreads();
@@ -480,7 +509,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = t * TK, vb = t % 2;
     // tile t's stage was split in the last pass: refill it
     if (tid == 0 && t + TSTAGES < ntiles)
-      load_kv_f32<KC>(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+      load_kv_f32<KC>(sm, tk, tv, kvh, t + TSTAGES, t % TSTAGES);
 
     float sacc[TK / 2];
     wgmma_fence();
@@ -552,24 +581,274 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------- float32 at width 256: 16-key tiles
+//
+// Q as hi + lo alone takes 128 KB of the block's 227 KB at D = 256, so the
+// D <= 128 layout (a raw ring beside the split copies, 448 KB here) does
+// not fit.  Keys come in tiles of 16: TMA lands K in K_hi and the threads
+// split it in place (no raw K), and each thread reads its words of the
+// next tile's V from global memory into registers under this tile's
+// Q K^T and writes them split and transposed into V^T, whose 32-column
+// region holds two tiles (even tiles in columns 0-15, odd in 16-31), so
+// V^T is double-buffered in one region pair.  Q 128 KB + K 32 KB + V^T
+// 64 KB = 224 KB, one block an SM.
+
+constexpr int WTK = 16;      // keys per tile (3xTF32 kernel, width 256)
+
+template <int D>
+struct Tf32WideSmem {
+  FChunk<BQ> qhi[D / 32], qlo[D / 32];    // Q as TF32 hi + lo terms
+  FChunk<WTK> khi[D / 32], klo[D / 32];   // K: TMA into K_hi, split in place
+  FChunk<D> vthi, vtlo;                   // V^T of tiles t, t+1
+  uint64_t qbar, kbar;
+};
+
+// thread 0: K tile t of head kvh into K_hi, its first KC regions
+template <int KC, int D>
+__device__ __forceinline__ void load_k_wide(Tf32WideSmem<D>& sm,
+                                            const CUtensorMap* tk, int kvh,
+                                            int t) {
+  hopper::mbar_expect_tx(&sm.kbar, WTK * 32 * KC * sizeof(float));
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+    hopper::tma_load_3d(sm.khi[c], tk, &sm.kbar, 32 * c, t * WTK, kvh);
+}
+
+// This thread's words of the V tile from key k0: key k0 + tid % 16, the
+// 4-column group tid / 16 + 8 i of region i < KC (store_vt's order);
+// zeros past Tk and past the true head dim dd
+template <int KC>
+__device__ __forceinline__ void load_v_rows(float4 (&x)[KC],
+                                            const float* __restrict__ vh,
+                                            int k0, int Tk, int dd) {
+  const int t = threadIdx.x % hopper::kWarpgroup;
+  const int key = k0 + t % WTK, grp = t / WTK;
+#pragma unroll
+  for (int i = 0; i < KC; ++i) {
+    const int d = 4 * (grp + 8 * i);
+    x[i] = key < Tk && d < dd
+               ? __ldg(reinterpret_cast<const float4*>(
+                     vh + (size_t)key * dd + d))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Those words split into V^T_hi, V^T_lo (rows d, 32-column regions of the
+// 128-byte swizzle) at columns col0 .. col0 + 15, key 8a + 2c + e at
+// column col0 + 8a + c + 4e, as hopper::split_t lays out a 16-row tile
+template <int KC>
+__device__ __forceinline__ void store_vt(const float4 (&x)[KC], float* thi,
+                                         float* tlo, int col0) {
+  const int t = threadIdx.x % hopper::kWarpgroup;
+  const int j = t % WTK, grp = t / WTK;
+  const int col = col0 + ((j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2));
+#pragma unroll
+  for (int i = 0; i < KC; ++i) {
+    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (grp + 8 * i) + e;
+      const int at = d * 32 + ((((col >> 2) ^ (d & 7)) << 2) | (col & 3));
+      const float h = __uint_as_float(hopper::tf32_rna(xs[e]));
+      thi[at] = h;
+      tlo[at] = __uint_as_float(hopper::tf32_rna(xs[e] - h));
+    }
+  }
+}
+
+// The body of flash_fwd_tf32x3_kernel at width 256: the masks, online
+// softmax, products (small terms first) and stores of tf32x3_ring, over
+// 16-key tiles.  Tile t+1's K lands by TMA under tile t's softmax and P V
+// and is split during P V; its V rows are read before tile t's Q K^T and
+// split into the other V^T columns during P V
+template <int D, bool PADDED, int KC>
+__device__ __forceinline__ void tf32x3_wide(
+    const CUtensorMap* tq, const CUtensorMap* tk, const float* __restrict__ v,
+    const int* __restrict__ klen, float* __restrict__ out,
+    float* __restrict__ lse, int H, int Hkv, int Tq, int Tk, int Dt,
+    int causal, float scale) {
+  using namespace hopper;
+  constexpr int NC = D / 32;  // 32-column regions of a row
+  extern __shared__ uint8_t smem_raw[];
+  Tf32WideSmem<D>& sm =
+      *reinterpret_cast<Tf32WideSmem<D>*>(align_1024(smem_raw));
+
+  static_assert(PADDED ? KC <= NC : KC == NC, "regions of Q K^T");
+  const int tid = threadIdx.x;
+  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int b = bh / H;
+  const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+  const int kl = min(klen[b], Tk);
+  const int offset = Tk - Tq;
+  int kend = kl;
+  if (causal) kend = min(kend, max(0, min(q0 + BQ, Tq) + offset));
+  const int ntiles = (kend + WTK - 1) / WTK;
+  const float* vh = v + (size_t)kvh * Tk * dd;
+
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+    mbar_init(&sm.kbar, 1);
+    mbar_fence_init();
+    if (ntiles > 0) {
+      mbar_expect_tx(&sm.qbar, BQ * 32 * KC * sizeof(float));
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        tma_load_3d(sm.qhi[c], tq, &sm.qbar, 32 * c, q0, bh);
+      load_k_wide<KC>(sm, tk, kvh, 0);
+    }
+  }
+  __syncthreads();
+
+  const int r0 = acc_row(0);
+  const float sl2 = scale * LOG2E;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  float4 vx[KC];
+  if (ntiles > 0) {
+    load_v_rows(vx, vh, 0, Tk, dd);
+    mbar_wait(&sm.qbar, 0);
+    split_tf32<BQ * 8 * KC>(reinterpret_cast<const float4*>(sm.qhi[0]),
+                            reinterpret_cast<float4*>(sm.qhi[0]),
+                            reinterpret_cast<float4*>(sm.qlo[0]));
+    store_vt(vx, sm.vthi, sm.vtlo, 0);
+    mbar_wait(&sm.kbar, 0);
+    split_tf32<WTK * 8 * KC>(reinterpret_cast<const float4*>(sm.khi[0]),
+                             reinterpret_cast<float4*>(sm.khi[0]),
+                             reinterpret_cast<float4*>(sm.klo[0]));
+    fence_proxy_async();  // the split copies are read by wgmma
+  }
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * WTK, col0 = (t % 2) * WTK;
+    const bool more = t + 1 < ntiles;
+    if (more) load_v_rows(vx, vh, k0 + WTK, Tk, dd);
+
+    float sacc[WTK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4 * KC; ++kc) {
+      const int c = kc / 4, off = (kc % 4) * 8;
+      const uint64_t qh = make_desc(sm.qhi[c] + off, 16, 1024);
+      const uint64_t kh = make_desc(sm.khi[c] + off, 16, 1024);
+      wgmma_ss_tf32(sacc, make_desc(sm.qlo[c] + off, 16, 1024), kh, kc > 0);
+      wgmma_ss_tf32(sacc, qh, make_desc(sm.klo[c] + off, 16, 1024), 1);
+      wgmma_ss_tf32(sacc, qh, kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    __syncthreads();  // every warp is done with K_hi, K_lo: refill them
+    if (tid == 0 && more) load_k_wide<KC>(sm, tk, kvh, t + 1);
+
+    float alpha[2];
+    softmax_tile(sacc, m, l, alpha, q0, k0, kl, causal, offset, sl2);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P V at the full width D (m64n256k8): its columns from 32 KC on read
+    // V^T rows no split wrote, and are never stored
+    uint32_t phi[WTK / 8][4], plo[WTK / 8][4];
+    acc_to_tf32_split(sacc, phi, plo);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WTK / 8; ++kk) {
+      const int off = col0 + kk * 8;
+      const uint64_t vhd = make_desc(sm.vthi + off, 16, 1024);
+      wgmma_rs_tf32(o, plo[kk], vhd, 1);
+      wgmma_rs_tf32(o, phi[kk], make_desc(sm.vtlo + off, 16, 1024), 1);
+      wgmma_rs_tf32(o, phi[kk], vhd, 1);
+    }
+    wgmma_commit();
+    if (more) {
+      // tile t+1: V into the other V^T columns (read by tile t-1's P V,
+      // waited for by all), K split in place once it has landed
+      store_vt(vx, sm.vthi, sm.vtlo, WTK - col0);
+      mbar_wait(&sm.kbar, (t + 1) & 1);
+      split_tf32<WTK * 8 * KC>(reinterpret_cast<const float4*>(sm.khi[0]),
+                               reinterpret_cast<float4*>(sm.khi[0]),
+                               reinterpret_cast<float4*>(sm.klo[0]));
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    keep_regs(phi);
+    keep_regs(plo);
+    __syncthreads();  // tile t+1 split; every warp is done with tile t's V^T
+  }
+
+  // columns below dd only, as in the bf16 kernel
+  const int cq = 2 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = row_sum(l[h]);
+    const int qi = q0 + r0 + 8 * h;
+    if (qi >= Tq) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    float* op = out + ((size_t)bh * Tq + qi) * dd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (j >= dd / 8) break;
+      *reinterpret_cast<float2*>(op + 8 * j + cq) =
+          make_float2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
+    if (tid % 4 == 0) lse[(size_t)bh * Tq + qi] = row_lse(m[h], l[h]);
+  }
+}
+
+// The float32 forward: the 32-key ring design up to D = 128, the 16-key
+// one at width 256 (v: V itself, which only the latter reads)
+template <int D, bool PADDED, int KC>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const float* __restrict__ v,
+                        const int* __restrict__ klen,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        int H, int Hkv, int Tq, int Tk, int Dt, int causal,
+                        float scale) {
+  if constexpr (D <= 128)
+    tf32x3_ring<D, PADDED, KC>(&tq, &tk, &tv, klen, out, lse, H, Hkv, Tq,
+                               Tk, Dt, causal, scale);
+  else
+    tf32x3_wide<D, PADDED, KC>(&tq, &tk, v, klen, out, lse, H, Hkv, Tq, Tk,
+                               Dt, causal, scale);
+}
+
+// the dynamic shared memory a float32 launch at width D asks for
+template <int D>
+constexpr size_t f32_smem() {
+  if constexpr (D <= 128)
+    return sizeof(Tf32Smem<D>) + 1024;
+  else
+    return sizeof(Tf32WideSmem<D>) + 1024;
+}
+
 template <int D, bool PADDED, int KC>
 int launch_f32(const void* q, const void* k, const void* v, const void* klen,
                void* out, void* lse, int B, int H, int Hkv, int Tq, int Tk,
                int Dt, int causal, float scale, cudaStream_t stream) {
+  constexpr int KT = D <= 128 ? TK : WTK;  // keys per tile
   CUtensorMap mq, mk, mv;
   int rc = hopper::map_f32_3d(&mq, q, B * H, Tq, Dt, BQ);
-  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, TK);
-  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, TK);
+  if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, KT);
+  // (at width 256 the threads read V; its map checks its alignment)
+  if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, KT);
   if (rc != 0) return rc;
-  const size_t smem = sizeof(Tf32Smem<D>) + 1024;
+  const size_t smem = f32_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
   flash_fwd_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, (const int*)klen, (float*)out, (float*)lse, H, Hkv, Tq, Tk,
-      Dt, causal, scale);
+      mq, mk, mv, (const float*)v, (const int*)klen, (float*)out,
+      (float*)lse, H, Hkv, Tq, Tk, Dt, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -593,13 +872,13 @@ int occupancy(Kernel kernel, size_t smem, int* smem_out, int* blocks) {
 extern "C" int pt_flash_fwd_occupancy(int D, int dtype, int* smem,
                                       int* blocks) {
   if (dtype != 0 && dtype != 1) return -1;
-  return hopper::with_instance(D, [&](auto in) {
+  return hopper::with_fwd_instance(D, [&](auto in) {
     using I = decltype(in);
     constexpr int DP = I::kDP, KC = I::kKC;
     constexpr bool P = I::kPadded;
     return dtype == 0
-               ? occupancy(flash_fwd_tf32x3_kernel<DP, P, KC>,
-                           sizeof(Tf32Smem<DP>) + 1024, smem, blocks)
+               ? occupancy(flash_fwd_tf32x3_kernel<DP, P, KC>, f32_smem<DP>(),
+                           smem, blocks)
                : occupancy(flash_fwd_wgmma_kernel<DP, P, KC>,
                            sizeof(FwdSmem<DP>) + 1024, smem, blocks);
   });
@@ -607,7 +886,7 @@ extern "C" int pt_flash_fwd_occupancy(int D, int dtype, int* smem,
 
 // q [B*H, Tq, D], k/v [B*Hkv, Tk, D], klen int32 [B], out like q,
 // lse float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 == 0
-// up to 128 (hopper::with_instance).  Returns the CUDA error of the
+// up to 256 (hopper::with_fwd_instance).  Returns the CUDA error of the
 // launch (0 on success), -1 for arguments the kernel does not take, or -2
 // when the CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
@@ -618,7 +897,7 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
       (dtype != 0 && dtype != 1))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  return hopper::with_instance(D, [&](auto in) {
+  return hopper::with_fwd_instance(D, [&](auto in) {
     using I = decltype(in);
     return dtype == 0
                ? launch_f32<I::kDP, I::kPadded, I::kKC>(

@@ -25,10 +25,12 @@ There are no size gates: `_FWD_PALLAS_MIN_T` and `_BWD_PALLAS_SCORE_BYTES`
 were measured on a TPU and say nothing about this card, so every shape the
 kernels take goes to the kernels.  The head dim picks the kernels (same
 wrappers, same launch counts), bf16 and float32 (as 3xTF32) alike: the
-forward and the backward run the tensor-core kernels at every multiple
-of 8 up to 128 (`tensor_core`; D other than 64 and 128 in the instance
-of padded width 64 or 128, TMA reading the columns past D as zeros) and
-the CUDA-core kernels of csrc/flash_cc.cu above that, up to 256; a head dim off the multiples of 8 takes
+forward runs the tensor-core kernel at every multiple of 8 up to 256 (D
+other than 64, 128 and 256 in the instance of padded width 64, 128 or
+256, TMA reading the columns past D as zeros), the backward the
+tensor-core kernels at every multiple of 8 up to 128 (`bwd_tensor_core`)
+and the CUDA-core kernels of csrc/flash_cc.cu above that, up to 256; a
+head dim off the multiples of 8 takes
 `composed_attention`, the reference's composed path, on purpose and
 counted (`flash_attention`).
 """
@@ -40,20 +42,18 @@ from ..core.registry import register
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
-# the widest head dim of the tensor-core kernels (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu); every multiple of 8 above it up to _MAX_D runs
-# csrc/flash_cc.cu's
-_WGMMA_MAX_D = 128
+# the widest head dim of the tensor-core backward (csrc/flash_bwd.cu); every
+# multiple of 8 above it up to _MAX_D runs csrc/flash_cc.cu's backward
+_WGMMA_BWD_MAX_D = 128
 
 
-def tensor_core(D):
-    """Whether the flash kernels at head dim D, forward and backward, are
-    the tensor-core kernels of csrc/flash_fwd.cu and csrc/flash_bwd.cu
-    (bf16 on wgmma, float32 as 3xTF32): every multiple of 8 up to 128, D
-    other than 64 and 128 in the instance of padded width 64 (D < 64) or
-    128.  Any other multiple of 8 up to _MAX_D runs the CUDA-core kernels
-    of csrc/flash_cc.cu."""
-    return D % 8 == 0 and 8 <= D <= _WGMMA_MAX_D
+def bwd_tensor_core(D):
+    """Whether the flash backward (dQ, dK/dV) at head dim D is the
+    tensor-core pair of csrc/flash_bwd.cu: every multiple of 8 up to 128,
+    D other than 64 and 128 in the instance of padded width 64 or 128.
+    Any other multiple of 8 up to _MAX_D runs the CUDA-core kernels of
+    csrc/flash_cc.cu."""
+    return D % 8 == 0 and 8 <= D <= _WGMMA_BWD_MAX_D
 
 
 def _ref_attention(q, k, v, causal, scale, k_len=None):
@@ -144,9 +144,7 @@ def _launch_flash(q, k, v, causal, scale, k_len):
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        entry = kernels.library().pt_flash_fwd if tensor_core(D) else \
-            kernels.library().pt_flash_cc_fwd
-        rc = entry(
+        rc = kernels.library().pt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, H, Hkv, Tq, Tk, D,
             _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale), stream)
@@ -202,7 +200,7 @@ def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
     Hkv, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dq if tensor_core(D) \
+        entry = kernels.library().pt_flash_bwd_dq if bwd_tensor_core(D) \
             else kernels.library().pt_flash_cc_bwd_dq
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
@@ -221,7 +219,7 @@ def _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dkv if tensor_core(D) \
+        entry = kernels.library().pt_flash_bwd_dkv if bwd_tensor_core(D) \
             else kernels.library().pt_flash_cc_bwd_dkv
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
@@ -311,10 +309,10 @@ def flash_attention(q, k, v, causal=False, scale=None, k_len=None):
     """q: [B, H, Tq, D]; k/v: [B, Hkv, Tk, D]; k_len: optional int32 [B].
     Differentiable w.r.t. q, k and v.
 
-    The route by head dim, on every device: the forward and the backward
-    on the tensor cores at every multiple of 8 up to 128 (`tensor_core`)
-    and on the CUDA cores
-    (csrc/flash_cc.cu) above, up to 256; D % 8 != 0,
+    The route by head dim, on every device: the forward on the tensor
+    cores at every multiple of 8 up to 256 (csrc/flash_fwd.cu), the
+    backward at every multiple of 8 up to 128 (`bwd_tensor_core`) and on
+    the CUDA cores (csrc/flash_cc.cu) above, up to 256; D % 8 != 0,
     `composed_attention`, counted as
     `kernels.launches['flash_attention_composed']`, as the JAX package
     routes the shapes its Pallas kernel does not tile; a larger multiple

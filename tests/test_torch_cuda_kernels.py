@@ -54,6 +54,12 @@ def _randn(gen, *shape, dtype=torch.float32):
     (torch.float32, 64, False, 97, 161, [130, 161]),
     (torch.float32, 128, True, 5, 333, [333, 100]),
     (torch.float32, 128, True, 200, 200, [200, 200]),
+    # the instance of width 256: D = 256 unpadded and 200 padded, k_len 0
+    # and 1 rows, ragged last query and key tiles, Tq < Tk
+    (torch.float32, 256, True, 150, 150, [150, 0]),
+    (torch.bfloat16, 256, True, 97, 161, [161, 1]),
+    (torch.float32, 200, False, 97, 161, [130, 1]),
+    (torch.bfloat16, 200, True, 37, 161, [161, 0]),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, D, causal, Tq, Tk, klen):
     g = torch.Generator(device='cuda').manual_seed(0)
@@ -96,6 +102,24 @@ def test_flash_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
     q = torch.zeros(1, 2, 8, 100, device='cuda')
     with pytest.raises(ValueError, match='head dims'):
         att.flash_forward(q, q, q, True)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_d256_forward_raises_when_its_launch_fails(cuda, dtype):
+    """A D = 256 forward whose launch the entry point refuses (q two
+    elements off the 16-byte alignment TMA needs: no tensor map) raises,
+    and counts no launch: no fallback to another kernel or the plain
+    version."""
+    n = 2 * 16 * 256
+    q = torch.zeros(n + 8, dtype=dtype, device='cuda')[2:n + 2].view(
+        1, 2, 16, 256)
+    k = torch.zeros(1, 2, 16, 256, dtype=dtype, device='cuda')
+    before = kernels.launches['flash_attention_fwd']
+    with pytest.raises(RuntimeError, match='flash_attention_fwd kernel '
+                       'launch failed'):
+        att.flash_forward(q, k, k, True)
+    assert kernels.launches['flash_attention_fwd'] == before
 
 
 @pytest.mark.parametrize('dtype,D,ids_dtype,misalign', [
@@ -316,9 +340,10 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
 
 # the head dims other than 64 and 128: up to 128 the tensor-core forward
 # and backward in their padded instances (D = 16 and 32 in the one of
-# width 64, 96 in the one of width 128), and the CUDA-core kernels of
-# csrc/flash_cc.cu at D = 136 and 256; causal and not, ragged k_len with a
-# k_len 0 row, GQA, Tq < Tk
+# width 64, 96 in the one of width 128), and at D = 136 and 256 the
+# forward's tensor-core instance of width 256 beside the CUDA-core
+# backward of csrc/flash_cc.cu; causal and not, ragged k_len with a k_len
+# 0 row, GQA, Tq < Tk
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
     (torch.float32, 16, True, 100, 100, 2, [100, 37]),
     (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
@@ -345,11 +370,11 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
     for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    design = ('cc' if D > 128 else
-              'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
-    assert names == {'flash_fwd_%s_kernel' % design,
-                     'flash_bwd_dq_%s_kernel' % design,
-                     'flash_bwd_dkv_%s_kernel' % design}, names
+    fwd = 'wgmma' if dtype == torch.bfloat16 else 'tf32x3'
+    bwd = 'cc' if D > 128 else fwd
+    assert names == {'flash_fwd_%s_kernel' % fwd,
+                     'flash_bwd_dq_%s_kernel' % bwd,
+                     'flash_bwd_dkv_%s_kernel' % bwd}, names
     ref, ref_lse = att._ref_attention(q, k, v, causal, D ** -0.5, kl)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else \
         dict(rtol=8e-3, atol=1e-3)
@@ -414,7 +439,7 @@ def test_padded_backward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-@pytest.mark.parametrize('D', [16, 40, 96, 120])
+@pytest.mark.parametrize('D', [16, 40, 96, 120, 136, 248])
 def test_padded_forward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
     """The padded forward instances write the output at the true row
     stride D and no column past it: computed into views at the head of
@@ -430,8 +455,8 @@ def test_padded_forward_stores_stop_at_the_true_head_dim(cuda, dtype, D):
     sentinel = 1024.0   # exact in bf16 and float32, far from any output
 
     def view(like):
-        # room for every row at the padded width 128, and more
-        buf = torch.full((like.numel() // like.shape[-1] * 128 + 4096,),
+        # room for every row at the padded width 256, and more
+        buf = torch.full((like.numel() // like.shape[-1] * 256 + 4096,),
                          sentinel, dtype=like.dtype, device='cuda')
         return buf, buf[:like.numel()].view(like.shape)
     (bo, out), (bl, lse) = view(want[0]), view(want[1])

@@ -164,23 +164,25 @@ class _FakeLibrary:
 
 
 def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
-    """The forward and the backward route alike: the tensor-core kernels at
-    exactly the multiples of 8 from 8 to 128 (D other than 64 and 128 in
-    their padded instances), the CUDA-core ones above."""
+    """The backward's tensor-core kernels take exactly the multiples of 8
+    from 8 to 128 (D other than 64 and 128 in their padded instances), the
+    CUDA-core ones the multiples of 8 above, up to 256."""
     want = [D for D in range(1, 300) if D % 8 == 0 and D <= 128]
-    assert [D for D in range(1, 300) if tatt.tensor_core(D)] == want
+    assert [D for D in range(1, 300) if tatt.bwd_tensor_core(D)] == want
 
 
-@pytest.mark.parametrize('D', [8, 16, 40, 64, 96, 120, 128, 136, 256])
+@pytest.mark.parametrize('D', [8, 16, 40, 64, 96, 120, 128, 136, 200, 248,
+                               256])
 def test_backward_routing_by_head_dim(D, monkeypatch):
-    """The forward and the backward run the tensor-core kernels
-    (pt_flash_fwd, pt_flash_bwd_*) at every multiple of 8 up to 128, D
-    other than 64 and 128 in their padded instances, and the CUDA-core
-    kernels (pt_flash_cc_*) above.  The wrappers are driven with the
-    library and the CUDA stream stood in for."""
+    """The forward runs the tensor-core kernel (pt_flash_fwd) at every
+    multiple of 8 up to 256, the backward the tensor-core kernels
+    (pt_flash_bwd_*) up to 128 and the CUDA-core kernels
+    (pt_flash_cc_bwd_*) above; D other than 64, 128 and 256 in their
+    padded instances.  The wrappers are driven with the library and the
+    CUDA stream stood in for."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import build
-    assert tatt.tensor_core(D) == (D <= 128)
+    assert tatt.bwd_tensor_core(D) == (D <= 128)
     fake = _FakeLibrary()
     monkeypatch.setattr(build, 'library', lambda: fake)
     monkeypatch.setattr(kernels, 'library', lambda: fake)
@@ -192,9 +194,9 @@ def test_backward_routing_by_head_dim(D, monkeypatch):
     lse = torch.zeros(2, 8)
     tatt._launch_flash(q, q, q, True, 0.1, kl)
     tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
-    tc = tatt.tensor_core(D)
+    tc = tatt.bwd_tensor_core(D)
     assert fake.called == [
-        'pt_flash_fwd' if tc else 'pt_flash_cc_fwd',
+        'pt_flash_fwd',
         'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
         'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv']
 

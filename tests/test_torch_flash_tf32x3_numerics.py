@@ -6,12 +6,14 @@ runs every float32 product on the TF32 tensor cores as three: x y ~
 x_hi y_hi + x_hi y_lo + x_lo y_hi with x_hi = tf32(x) and x_lo = tf32(x -
 x_hi), each rounded to nearest (ties away: `cvt.rna.tf32.f32`).  Its
 rounding is repeated here in plain PyTorch, tile by tile at the kernel's
-sizes (64 query rows, 32 keys): Q, K, V and P split into TF32 hi and lo;
+sizes (64 query rows; 32 keys up to D = 128, 16 at width 256, where Q's
+hi + lo leave no room for wider key tiles): Q, K, V and P split into
+TF32 hi and lo;
 S = Q_lo K_hi^T + Q_hi K_lo^T + Q_hi K_hi^T and O += P_lo V_hi + P_hi V_lo
 + P_hi V_hi, summed in float32 in that order (products of TF32 values are
 exact in float32); `scale` applied to the float32 S; the online softmax in
-base 2.  Head dims other than 64 and 128, up to 128, run the kernel's
-padded instances (width 64 or 128): q, k and v padded with zero columns to
+base 2.  Head dims other than 64, 128 and 256 run the kernel's padded
+instances (width 64, 128 or 256): q, k and v padded with zero columns to
 that width, Q K^T over the KC = ceil(D / 32) 32-column regions that hold
 the columns below D, P V over the padded width, as the kernel runs them.
 
@@ -32,7 +34,8 @@ import torch
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
 
-TK = 32      # keys per tile
+TK = 32      # keys per tile up to D = 128
+WIDE_TK = 16  # keys per tile at width 256
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG = -1e30
@@ -76,14 +79,15 @@ def product(a, bt, mode):
 def emulate_forward(q, k, v, kl, causal, scale, mode='x3'):
     """flash_fwd_tf32x3_kernel on float32 q [B, H, Tq, D], k/v [B, Hkv,
     Tk, D] -> (out, lse [B*H, Tq]), in the instance of width DP (64 up to
-    D = 64, else 128): Q K^T over the first 32 KC columns, P V over DP, the
-    columns below D returned.  Key tiles past a row's frontier are all
-    masked here, which leaves m, l and O exactly as the kernel's skip does
-    (alpha = 1, P = 0)."""
+    D = 64, 128 up to 128, else 256, in tiles of 16 keys): Q K^T over the
+    first 32 KC columns, P V over DP, the columns below D returned.  Key
+    tiles past a row's frontier are all masked here, which leaves m, l and
+    O exactly as the kernel's skip does (alpha = 1, P = 0)."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
-    DP, nk = (64 if D <= 64 else 128), -(-D // 32) * 32
+    DP = 64 if D <= 64 else 128 if D <= 128 else 256
+    nk, tk = -(-D // 32) * 32, (WIDE_TK if DP == 256 else TK)
 
     def pad(x):
         return torch.nn.functional.pad(x, (0, DP - D))
@@ -95,10 +99,10 @@ def emulate_forward(q, k, v, kl, causal, scale, mode='x3'):
     m = torch.full((B, Hkv, g, Tq, 1), NEG)
     l = torch.zeros((B, Hkv, g, Tq, 1))
     o = torch.zeros((B, Hkv, g, Tq, DP))
-    for k0 in range(0, Tk, TK):
-        kt, vt = k[:, :, None, k0:k0 + TK], v[:, :, None, k0:k0 + TK]
+    for k0 in range(0, Tk, tk):
+        kt, vt = k[:, :, None, k0:k0 + tk], v[:, :, None, k0:k0 + tk]
         x = product(qf, kt[..., :nk].transpose(-1, -2), mode) * sl2
-        x = torch.where(valid[..., k0:k0 + TK], x,
+        x = torch.where(valid[..., k0:k0 + tk], x,
                         torch.tensor(float('-inf')))
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
@@ -129,10 +133,18 @@ CASES = [
     (3, 8, 2, 37, 161, 72, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
     (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
     (3, 4, 2, 97, 161, 120, True, [130, 0, 1]),      # ragged q, k tiles
+    # the instance of width 256 (16-key tiles): D = 256 unpadded, 136, 200
+    # and 248 padded (KC 5, 7, 8)
+    (3, 4, 2, 150, 150, 256, True, [150, 0, 1]),     # GQA, k_len 0, 1
+    (3, 8, 2, 37, 161, 136, True, [161, 0, 1]),      # Tq < Tk, k_len 0, 1
+    (2, 8, 1, 97, 161, 200, True, [130, 1]),         # MQA, ragged tiles
+    (2, 4, 2, 100, 100, 248, False, [100, 77]),      # GQA, ragged
 ]
 IDS = ['served_like', 'path_d64', 'causal_klen1', 'klen0', 'decode',
        'tq_lt_tk', 'ragged_d64', 'd16_tq_lt_tk_klen01', 'd40_klen01',
-       'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01']
+       'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01',
+       'd256_gqa_klen01', 'd136_tq_lt_tk_klen01', 'd200_mqa_ragged',
+       'd248_gqa_ragged']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed=0):

@@ -12,10 +12,12 @@ handed to P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)); the
 backward's P^T rounded to bf16 once before dV += P^T dO, and dS^T and dS
 handed to dK += dS^T Q and dQ += dS K as two bf16 terms, dK and dQ scaled
 once at the end.  Head dims other than 64 and 128, up to 128, run the
-kernels' padded instances (width 64 or 128): the forward's emulation
-pads q, k and v with zero columns to that width, stops Q K^T at the end
-of the 32-column region that holds column D - 1 and runs P V over the
-padded width, as the kernel does (padding itself adds exact zeros).
+kernels' padded instances (width 64 or 128), and the forward's head dims
+136 .. 248 its instance of width 256 (D = 256 the unpadded one, P V as
+m64n256k16 over the same 64-key tiles): the forward's emulation pads q,
+k and v with zero columns to that width, stops Q K^T at the end of the
+32-column region that holds column D - 1 and runs P V over the padded
+width, as the kernel does (padding itself adds exact zeros).
 
 The emulation must hold against the port's `_ref_attention` /
 `flash_backward_reference` and against the JAX package (its Pallas
@@ -62,8 +64,9 @@ def _valid(B, Tq, Tk, causal, kl):
 
 def padded_width(D):
     """The width of the kernels' instance that runs head dim D: 64 up to
-    64, else 128 (D other than 64 and 128 padded with zero columns)."""
-    return 64 if D <= 64 else 128
+    64, 128 up to 128, else 256 (the forward's; D other than 64, 128 and
+    256 padded with zero columns)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
 def _pad(x, DP):
@@ -172,10 +175,18 @@ FWD_CASES = [
     (3, 8, 2, 37, 161, 72, True, [161, 0, 1]),       # Tq < Tk, k_len 0, 1
     (2, 8, 2, 150, 150, 96, True, [150, 77]),        # GQA, causal
     (3, 4, 2, 97, 161, 120, True, [130, 0, 1]),      # ragged q, k tiles
+    # the instance of width 256: D = 256 unpadded, 136, 200 and 248 padded
+    # (KC 5, 7, 8; at 136 the last 64-column chunk is not loaded)
+    (3, 4, 2, 150, 150, 256, True, [150, 0, 1]),     # GQA, k_len 0, 1
+    (3, 8, 2, 37, 161, 136, True, [161, 0, 1]),      # Tq < Tk, k_len 0, 1
+    (2, 8, 1, 97, 161, 200, True, [130, 1]),         # MQA, ragged tiles
+    (2, 4, 2, 100, 100, 248, False, [100, 77]),      # GQA, ragged
 ]
 FWD_IDS = ['path', 'gqa_causal_klen', 'causal_d128_ragged', 'klen0',
            'tq_lt_tk', 'ragged_d128', 'd16_tq_lt_tk_klen01', 'd40_klen01',
-           'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01']
+           'd72_tq_lt_tk_klen01', 'd96_gqa', 'd120_ragged_klen01',
+           'd256_gqa_klen01', 'd136_tq_lt_tk_klen01', 'd200_mqa_ragged',
+           'd248_gqa_ragged']
 
 
 def _inputs(B, H, Hkv, Tq, Tk, D, klen, seed):

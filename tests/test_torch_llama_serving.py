@@ -161,6 +161,45 @@ def test_same_model_dir_through_jax_pallas_flash_kernel(tmp_path,
     _assert_agree(logits, jlogits, tok, jtok)
 
 
+# ------------------------- (c') a head dim of 256, GPT-J-6B's (4096 / 16)
+
+# d_model 512 over 2 heads: the head dim the forward's tensor-core
+# instance of width 256 runs on the card (unpadded); GQA 2 / 1
+D256 = dict(d_model=512, n_head=2, n_kv_head=1)
+
+
+def test_port_serves_a_d256_jax_model_dir(tmp_path):
+    cfg, _ = _jax_model_dir(tmp_path, **D256)
+    assert cfg['d_model'] // cfg['n_head'] == 256
+    feed = _feed(cfg, 3, seed=4)
+    jlogits, jtok = jf.inference.Predictor(str(tmp_path)).run(feed)
+    logits, tok = _port_predictor(tmp_path).run(feed)
+    assert logits.shape == (3, cfg['max_len'], cfg['vocab'])
+    _assert_agree(logits, jlogits, tok, jtok)
+
+
+def test_d256_model_dir_through_jax_pallas_flash_kernel(tmp_path,
+                                                        monkeypatch):
+    """max_len 512 meets the JAX package's _FWD_PALLAS_MIN_T, so at head
+    dim 256 its flash_attention op runs the Pallas kernel (interpret mode
+    on the CPU); the spy proves it did."""
+    from paddle_tpu.ops import attention as jatt
+    calls = []
+    real = jatt._flash_forward
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(jatt, '_flash_forward', spy)
+    cfg, _ = _jax_model_dir(tmp_path, n_layer=1, max_len=512, **D256)
+    feed = _feed(cfg, 2, seed=5)
+    jlogits, jtok = jf.inference.Predictor(str(tmp_path)).run(feed)
+    assert calls and calls[0][-1] == 256, calls
+    logits, tok = _port_predictor(tmp_path).run(feed)
+    _assert_agree(logits, jlogits, tok, jtok)
+
+
 # ------------------------------------------ (d) weights carried in memory
 
 def test_scope_from_numpy_carries_jax_weights(tmp_path):

@@ -17,8 +17,9 @@ line: for each case and tensor, whether the two files hold the same bits;
 `changed`, the others that moved.  It exits non-zero when a held tensor
 differs.  The cases are the head dims 64 and 128 in both dtypes, at the
 paths' shapes (the flash training step's, the training llama's) and at
-ragged ones, and the other head dims (padded instances up to 128, the
-CUDA-core kernels above).  Needs a CUDA card for `--save`.
+ragged ones, and the other head dims (padded instances up to 128; above
+it the forward's instance of width 256 and the CUDA-core backward).
+Needs a CUDA card for `--save`.
 """
 import argparse
 import json
@@ -45,22 +46,19 @@ CASES = {
     'pad_bf16_d96': (2, 16, 8, 1024, 1024, 96, True, None, 'bfloat16'),
     'cc_f32_d136': (2, 8, 2, 70, 90, 136, False, [90, 45], 'float32'),
     'cc_f32_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'float32'),
+    'cc_bf16_d200': (2, 8, 1, 70, 90, 200, True, [90, 45], 'bfloat16'),
 }
 NAMES = ('out', 'lse', 'dq', 'dk', 'dv')
 
 
 def is_held(case, tensor):
-    """Whether `tensor` of `case` must keep its bits: the forward at D =
-    64 and 128 and above 128 (the kernels it runs there are unchanged),
-    the float32 backward at every D, the bf16 backward of the padded
-    instances.  What may move: the forward of the padded instances (new
-    kernels), and the bf16 backward at D = 64 and 128, whose dS is split
-    into hi + lo terms (ROADMAP C7), which the card checks hold to the
-    plain version instead."""
-    D, dtype = CASES[case][5], CASES[case][8]
-    if tensor in ('out', 'lse'):
-        return D in (64, 128) or D > 128
-    return dtype == 'float32' or D not in (64, 128)
+    """Whether `tensor` of `case` must keep its bits: the forward up to D
+    = 128 and the backward at every D (the kernels they run are
+    unchanged).  What may move: the forward above 128, which runs a new
+    kernel (the tensor-core instance of width 256 in place of the
+    CUDA-core one), and which the card checks hold to the plain version
+    instead."""
+    return tensor not in ('out', 'lse') or CASES[case][5] <= 128
 
 
 def save(root, path):
