@@ -12,6 +12,7 @@ PyTorch version.
     python3 chip_smoke.py --phases serving_bf16,generation,generation_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,serving_d96
     python3 chip_smoke.py --phases card,kernels,serving_d256
+    python3 chip_smoke.py --phases card,kernels,training_llama_d256
     python3 chip_smoke.py --phases card,training,nan_trip
 
 Every program runs through the PT_OPT passes (on by default): their fused
@@ -54,11 +55,15 @@ Phases, each printing JSON lines:
               head dims 136-256: K1 in the tensor-core instance of width
               256 checked and timed at serving_d256's shape (B=4, H=16 /
               16, T=2048, D=256, causal), timed at D = 256 (B=2, H=16 / 8,
-              T=1024) beside the CUDA-core kernel it replaced and SDPA,
-              and the CUDA-core K2 and K3 there (d256_fwd_designs),
-              checked at D = 256, 136, 200 (MQA) and 248 with k_len 0 and
-              1 rows, Tq < Tk and ragged tiles; Adam's bf16 instance at
-              the llama's 147 tensors
+              T=1024) beside the CUDA-core kernel it replaced and SDPA
+              (d256_fwd_designs); K2 and K3 (bf16: the tensor-core
+              instances of width 256; float32: the CUDA-core kernels) timed
+              there and at the AMP step's shape (B=2, H=16 / 16, T=2048)
+              beside SDPA's whole backward, and in bf16 the CUDA-core pair
+              they replaced (d256_bwd_designs); all three checked at D =
+              256, 136, 200 (MQA) and 248 with k_len 0 and 1 rows, Tq < Tk
+              and ragged tiles; Adam's bf16 instance at the llama's 147
+              tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -200,6 +205,20 @@ Phases, each printing JSON lines:
               dtypes it leaves (float32 parameters and moments, bf16 beta
               powers, as the JAX package's Adam returns them), then seven
               float32 steps through the graph
+  training_llama_d256
+              a llama at GPT-J-6B's widths (GPTJ_CFG as serving_d256 has
+              it, 4 of 28 layers, 1.49 B parameters) built by
+              models/llama.py::build and trained under bf16 AMP
+              (Program.set_amp(True): Adam behind clip by global norm 1.0,
+              B = 2 rows of 2048 tokens from make_batch, one repeated
+              batch): an interpreted step, the capture, 3 graph steps
+              (step ms, tokens/s, losses finite, launches a step: 4 of each
+              flash kernel, one Adam, one K4), a profile of two graph
+              steps (device busy by group, idle share; every flash launch
+              the tensor-core instance of width 256, the 4 dQ and 4 dK/dV
+              a step included), peak memory, no plain version on the card;
+              then the same in float32 in a fresh scope (2 graph steps;
+              the backward the CUDA-core pair)
   train_llama_gpu_vs_cpu
               two steps from the same weights on the card and on the CPU:
               llama_1b widths cut to 2 layers, B = 2, T = 256, float32
@@ -207,13 +226,16 @@ Phases, each printing JSON lines:
               summed lr, the clip's global norm within 1e-5 relative);
               the tiny config (D = 16: the tensor-core forward's and
               backward's padded instances of width 64) in float32 and
-              from build(dtype='bfloat16') (within the bf16 bounds
-              tests/test_torch_llama_train.py derives)
+              from build(dtype='bfloat16'), and GPT-J-6B's widths cut to
+              1 layer at T = 128 under bf16 AMP (gptj_amp: D = 256, the
+              instances of width 256), each within the bf16 bounds
+              tests/test_torch_llama_train.py derives
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu) run last, and that
-training_llama and training_llama_bf16 run after training_composed.  No
-phase is cut in depth for time.
+training_llama, training_llama_bf16 and training_llama_d256 run after
+training_composed.  No phase is cut in depth for time (the models at
+public widths are cut in depth, each as its phase says).
 The line before the last is the nvidia-smi line; the line before that
 lists every kernel, with its launches per step on its training path (the
 composed one for K5, its generated segments, K4, K6 and Adam; the flash
@@ -224,8 +246,10 @@ path); K1, K2 and K3 also list their instances, each timed at its path's
 shape: bf16 on tensor cores (the flash step; K1 also the bf16 served
 run) and float32 (3xTF32 on tensor cores; launches per served run for
 K1, per float32 step for K2 and K3), both also at the llama's D = 128
-and at the other head dims up to 128, and K1 at width 256 (a
-serving_d256 batch); with every phase run, a kernel or instance launched
+and at the other head dims up to 128, and at width 256 (K1 per
+serving_d256 batch, K2 and K3 per step of training_llama_d256, bf16 on
+the tensor cores, float32 on the CUDA cores); with every phase run, a
+kernel or instance launched
 on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
@@ -248,7 +272,8 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'gpu_vs_cpu', 'generation_gpu_vs_cpu', 'training', 'training_f32',
           'train_gpu_vs_cpu', 'training_composed',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
-          'training_llama', 'training_llama_bf16', 'train_llama_gpu_vs_cpu')
+          'training_llama', 'training_llama_bf16', 'training_llama_d256',
+          'train_llama_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -388,14 +413,17 @@ def flash_fwd_occupancy(lib):
 def flash_bwd_occupancy(lib):
     """The flash backward's shared memory a block and blocks an SM, for
     the dQ and the dK/dV kernel of each instance (D = 64, 128, and the
-    padded ones of width 64 and 128, asked for at D = 40 and 96), as the
+    padded ones of width 64 and 128, asked for at D = 40 and 96; in bf16
+    also D = 256 and the padded width 256, asked for at D = 200), as the
     CUDA runtime reports them."""
     import ctypes
     res = {}
     for kind, kname in ((0, 'dq'), (1, 'dkv')):
         for dtype, code in (('float32', 0), ('bfloat16', 1)):
+            wide = ((256, 'd256'), (200, 'dp256_padded')) if code else ()
             for D, inst in ((64, 'd64'), (128, 'd128'),
-                            (40, 'dp64_padded'), (96, 'dp128_padded')):
+                            (40, 'dp64_padded'),
+                            (96, 'dp128_padded')) + wide:
                 smem, blocks = ctypes.c_int(), ctypes.c_int()
                 rc = lib.pt_flash_bwd_occupancy(D, code, kind,
                                                 ctypes.byref(smem),
@@ -616,13 +644,21 @@ def _fwd_rate(dtype, design='port'):
     return 'tf32x3' if dtype == 'float32' else dtype
 
 
+def _bwd_tc(D, dtype):
+    """Whether the port's flash backward at (D, dtype name) is the
+    tensor-core pair (ops/attention.py bwd_tensor_core)."""
+    import torch
+    from paddle_tpu_torch.ops import attention as att
+    return att.bwd_tensor_core(D, getattr(torch, dtype))
+
+
 def _bwd_rate(dtype, D, design='port'):
     """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
-    the port's, tensor cores at every D up to 128 (float32 as 3xTF32; D
-    other than 64 and 128 padded) and CUDA cores above, or the CUDA-core
-    kernels (design 'cc', csrc/flash_cc.cu)."""
-    from paddle_tpu_torch.ops import attention as att
-    if design == 'cc' or not att.bwd_tensor_core(D):
+    the port's, tensor cores at every D up to 256 in bf16 and up to 128
+    in float32 (as 3xTF32; D other than 64, 128 and 256 padded) and CUDA
+    cores above, or the CUDA-core kernels (design 'cc',
+    csrc/flash_cc.cu)."""
+    if design == 'cc' or not _bwd_tc(D, dtype):
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
 
@@ -662,6 +698,12 @@ def _fwd_instance(name):
     return (int(m.group(1)), m.group(2) == 'true') if m else None
 
 
+def _kernel_key(name):
+    """A profiler key up to its arguments, template arguments kept."""
+    return name.replace('(anonymous namespace)::', '').replace(
+        'void ', '').split('(')[0]
+
+
 def fwd_kernels_profiled(run, dtype, D):
     """{kernel: launches} of the flash forward kernels one run() launches,
     from the profiler (names up to their arguments, template arguments
@@ -678,8 +720,7 @@ def fwd_kernels_profiled(run, dtype, D):
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and 'flash_fwd' in e.key:
-                key = e.key.replace('(anonymous namespace)::', '').replace(
-                    'void ', '').split('(')[0]
+                key = _kernel_key(e.key)
                 got[key] = got.get(key, 0) + e.count
         if got:
             break
@@ -716,7 +757,8 @@ def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
 def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     """The flash backward kernels one port backward at (B, H, Hkv, T, D,
     causal) launches, by design, from the profiler: the tensor-core pair
-    of its dtype at every D up to 128, the CUDA-core pair above.  The
+    of its dtype where bwd_tensor_core takes (D, dtype), else the
+    CUDA-core pair.  The
     profiler drops events now and then: a trace without both is taken
     again, up to PROFILE_TRIES times."""
     import torch
@@ -728,7 +770,7 @@ def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     k, v = (torch.randn(B, Hkv, T, D, generator=g, device='cuda').to(dt)
             for _ in range(2))
     out, lse = att.flash_forward(q, k, v, True)
-    tc = ('cc' if not att.bwd_tensor_core(D) else
+    tc = ('cc' if not _bwd_tc(D, dtype) else
           'tf32x3' if dtype == 'float32' else 'wgmma')
     want = {'bwd_dq_' + tc: 1, 'bwd_dkv_' + tc: 1}
     for _ in range(PROFILE_TRIES):
@@ -844,8 +886,8 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
             bound_ms, bound_by = _bound(flops, nbytes,
                                         _bwd_rate(dtype, D, design))
             row = res[kname][0]
-            if design == 'port' and att.bwd_tensor_core(D) and \
-                    D not in (64, 128):
+            if design == 'port' and _bwd_tc(D, dtype) and \
+                    D not in (64, 128, 256):
                 row.update(DP=_padded_width(D),
                            useful_share=D / _padded_width(D))
             if dtype == 'float32':
@@ -1492,15 +1534,19 @@ def phase_kernels():
         flash_bwd_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True,
                        dt, klen=[161, 100, 1])
         # the head dims above 128: K1 on the tensor cores in the instance
-        # of width 256 (csrc/flash_fwd.cu), K2 and K3 on the CUDA cores
+        # of width 256 (csrc/flash_fwd.cu); K2 and K3 there too in bf16
+        # (csrc/flash_bwd.cu), on the CUDA cores in float32
         # (csrc/flash_cc.cu).  K1's instance row is its main path's shape,
         # serving_d256's batch (4 rows x 2048 tokens, 16 / 16 heads, D =
-        # 256); at B 2, H 16 / 8, T 1024, D = 256 K1 is timed beside the
-        # CUDA-core kernel it replaced and SDPA, in this call
-        # (d256_fwd_designs), and so is the CUDA-core backward.  Checked
-        # at D = 256 and the padded 136, 200 (MQA) and 248 with k_len 0
-        # and 1 rows, Tq < Tk and ragged last query and key tiles, the
-        # kernel and instance read from the profiler
+        # 256), K2's and K3's the AMP step's of training_llama_d256 (2
+        # rows x 2048, 16 / 16 heads); at B 2, H 16 / 8, T 1024, D = 256
+        # K1 is timed beside the CUDA-core kernel it replaced and SDPA
+        # (d256_fwd_designs), and K2 / K3 at that shape and the AMP
+        # step's beside the CUDA-core pair and SDPA's whole backward
+        # (d256_bwd_designs), in this call.  Checked at D = 256 and the
+        # padded 136, 200 (MQA) and 248 with k_len 0 and 1 rows, Tq < Tk
+        # and ragged last query and key tiles, the kernel and instance
+        # read from the profiler
         key = dt + '_d256'
         inst['flash_attention_fwd'][key] = flash_case(
             'served_d256_' + dt, 4, 16, 16, 2048, 2048, 256, True, dt,
@@ -1509,10 +1555,6 @@ def phase_kernels():
                          timed=True, profiled=True)
         cc_fwd = flash_case('d256_cc_' + dt, 2, 16, 8, 1024, 1024, 256,
                             True, dt, timed=True, design='cc')
-        cc = flash_bwd_case('d256_' + dt, 2, 16, 8, 1024, 1024, 256, True,
-                            dt, timed=True)
-        dq, dkv = (cc[n] for n in ('flash_attention_bwd_dq',
-                                   'flash_attention_bwd_dkv'))
         emit(phase='kernels', step='d256_fwd_designs', dtype=dt, D=256,
              tensor_core_ms=fwd['ms'], cuda_core_ms=cc_fwd['ms'],
              sdpa_ms=fwd['library_ms'],
@@ -1522,11 +1564,49 @@ def phase_kernels():
              cuda_core_bound_ms=cc_fwd['bound_ms'],
              cuda_core_bound_share=cc_fwd['bound_share'],
              plain_ms=fwd['plain_ms'],
-             profiled_kernels=fwd['profiled_kernels'],
-             cuda_core_dq_ms=dq['ms'], dq_bound_ms=dq['bound_ms'],
-             cuda_core_dkv_ms=dkv['ms'], dkv_bound_ms=dkv['bound_ms'],
-             bwd_plain_ms=dq['plain_ms'], sdpa_whole_bwd_ms=dq['library_ms'],
-             pair_over_sdpa=(dq['ms'] + dkv['ms']) / dq['library_ms'])
+             profiled_kernels=fwd['profiled_kernels'])
+        shapes = {}
+        for shape, (B, H, Hkv, T) in (('d256', (2, 16, 8, 1024)),
+                                      ('amp_step', (2, 16, 16, 2048))):
+            name = '%s_%s' % (shape, dt)
+            bwd = flash_bwd_case(name, B, H, Hkv, T, T, 256, True, dt,
+                                 timed=True)
+            dq, dkv = (bwd[n] for n in ('flash_attention_bwd_dq',
+                                        'flash_attention_bwd_dkv'))
+            pair, sdpa = dq['ms'] + dkv['ms'], dq['library_ms']
+            row = dict(B=B, H=H, Hkv=Hkv, T=T, port_dq_ms=dq['ms'],
+                       port_dkv_ms=dkv['ms'], port_pair_ms=pair,
+                       sdpa_whole_bwd_ms=sdpa, pair_over_sdpa=pair / sdpa,
+                       dq_bound_ms=dq['bound_ms'],
+                       dkv_bound_ms=dkv['bound_ms'],
+                       bound_share_dq=dq['bound_share'],
+                       bound_share_dkv=dkv['bound_share'],
+                       bwd_plain_ms=dq['plain_ms'])
+            if dt == 'bfloat16':
+                # the CUDA-core pair the tensor-core one replaced; the dV
+                # and dK blocks compute S^T both (10 D FLOPs a valid pair
+                # where the function needs 8 D: the bound counts 8)
+                cc = flash_bwd_case(name + '_cc', B, H, Hkv, T, T, 256,
+                                    True, dt, timed=True, design='cc')
+                cdq, cdkv = (cc[n]['ms'] for n in (
+                    'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'))
+                for kname in cc:
+                    bwd[kname]['cuda_core_ms'] = cc[kname]['ms']
+                row.update(design='tensor cores (wgmma, width 256)',
+                           cuda_core_dq_ms=cdq, cuda_core_dkv_ms=cdkv,
+                           cuda_core_pair_ms=cdq + cdkv,
+                           speedup_pair=(cdq + cdkv) / pair,
+                           dkv_design_flops=dkv['flops'] * 10 / 8)
+            else:
+                row.update(design='CUDA cores (csrc/flash_cc.cu)')
+            shapes[shape] = row
+            if shape == 'amp_step':
+                for kname in ('flash_attention_bwd_dq',
+                              'flash_attention_bwd_dkv'):
+                    inst[kname][key] = bwd[kname]
+        designs = bwd_designs_profiled(2, 16, 8, 1024, 256, dt)
+        emit(phase='kernels', step='d256_bwd_designs', dtype=dt, D=256,
+             causal=True, shapes=shapes, profiled_designs=designs)
         flash_case('d256_klen01_' + dt, 3, 8, 2, 150, 150, 256, True, dt,
                    klen=[150, 0, 1], profiled=True)
         flash_case('d256_tq_lt_tk_' + dt, 2, 8, 2, 37, 161, 256, True, dt,
@@ -1537,6 +1617,16 @@ def phase_kernels():
                    dt, klen=[130, 1], profiled=True)
         flash_case('d248_gqa_klen0_' + dt, 2, 8, 2, 150, 150, 248, False,
                    dt, klen=[150, 0], profiled=True)
+        flash_bwd_case('d256_klen01_' + dt, 3, 8, 2, 150, 150, 256, True,
+                       dt, klen=[150, 0, 1])
+        flash_bwd_case('d256_mqa_noncausal_' + dt, 2, 8, 1, 97, 161, 256,
+                       False, dt, klen=[161, 1])
+        flash_bwd_case('d136_tq_lt_tk_klen01_' + dt, 3, 8, 2, 37, 161, 136,
+                       True, dt, klen=[161, 0, 1])
+        flash_bwd_case('d200_mqa_ragged_' + dt, 2, 8, 1, 97, 161, 200, True,
+                       dt, klen=[130, 1])
+        flash_bwd_case('d248_gqa_klen0_' + dt, 2, 8, 2, 150, 150, 248,
+                       False, dt, klen=[150, 0])
     served['layer_norm'] = layer_norm_case('path_f32', 8192, 512, 'float32',
                                            timed=True)
     layer_norm_case('ragged_cols_f32', 300, 1000, 'float32')
@@ -3820,32 +3910,200 @@ def phase_training_llama_bf16(smi):
     return launches
 
 
+# the GPT-J-width llama trained under bf16 AMP (training_llama_d256)
+GPTJ_TRAIN_REDUCED = GPTJ_REDUCED + [
+    'trained as the reference\'s models/llama.py::build makes it, under '
+    'bf16 AMP (Program.set_amp(True)): Adam (beta2 0.95, lr 3e-4) behind '
+    'clip by global norm 1.0, B 2 rows of 2048 tokens from make_batch, '
+    'one repeated batch']
+# the flash kernels of one step of it (4 layers, D = 256): by design, and
+# under AMP by instance (the profiler's names, template arguments kept)
+GPTJ_FLASH = {
+    'bfloat16': {'fwd_wgmma': 4, 'bwd_dq_wgmma': 4, 'bwd_dkv_wgmma': 4},
+    'float32': {'fwd_tf32x3': 4, 'bwd_dq_cc': 4, 'bwd_dkv_cc': 4}}
+GPTJ_AMP_INSTANCES = {'flash_fwd_wgmma_kernel<256, false, 8>': 4,
+                      'flash_bwd_dq_wgmma_kernel<256, false>': 4,
+                      'flash_bwd_dkv_wgmma_kernel<256, false>': 4}
+
+
+def step_breakdown(fn, want=None):
+    """torch.profiler over fn(): (host wall ms, device busy ms, {_group:
+    device ms}, {flash kernel (_kernel_key): launches}).  With `want`
+    ({flash kernel: launches}) a trace whose flash kernels differ is taken
+    again, up to PROFILE_TRIES times (the profiler drops events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        groups, flash = {}, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if e.self_device_time_total:
+                g = _group(e.key)
+                groups[g] = groups.get(g, 0.0) + \
+                    e.self_device_time_total / 1e3
+            if 'flash_' in e.key:
+                k = _kernel_key(e.key)
+                flash[k] = flash.get(k, 0) + e.count
+        if want is None or flash == want:
+            break
+    return wall, sum(groups.values()), groups, flash
+
+
+def phase_training_llama_d256(smi):
+    """The llama at GPT-J-6B's widths (GPTJ_CFG: D = 256, 4 of 28
+    layers, 1.49 B parameters) trained through the port's entry points
+    under bf16 AMP, and then in float32 in a fresh scope: an interpreted
+    step, the capture, 3 graph steps (2 in float32), profiles of two graph
+    steps (device busy by group, idle share, the flash kernels by design
+    and instance), peak memory, launches a step, no plain version on the
+    card.  Under AMP every flash launch must be the tensor-core instance
+    of width 256, the backward's 4 dQ and 4 dK/dV a step included; in
+    float32 the backward is the CUDA-core pair.  -> {path: launches a
+    step}."""
+    import gc
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import kernelgen
+    paths = {}
+    for amp in (True, False):
+        dtype = 'bfloat16' if amp else 'float32'
+        path = 'training_llama_d256' + ('' if amp else '_f32')
+        main, startup, out = _llama_program(fluid, llama, 'tiny',
+                                            **GPTJ_CFG)
+        main.set_amp(amp)
+        cfg = out['config']
+        B, T = LLAMA_B, cfg['max_len']
+        feed = _llama_batch(llama, B, T, cfg['vocab'])
+        tokens = float(feed['loss_mask'].sum())
+        params = main.all_parameters()
+        flops = _llama_flops(cfg, B, T)
+        fetch = [out['loss']]
+        n_graph = 3 if amp else 2
+        scope, exe = fluid.Scope(), fluid.Executor()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with PlainCalls() as plain:
+                losses = []
+
+                def step():
+                    t0 = time.perf_counter()
+                    losses.append(float(exe.run(main, feed=feed,
+                                                fetch_list=fetch)[0][0]))
+                    return (time.perf_counter() - t0) * 1e3
+
+                def two_steps():
+                    for _ in range(2):
+                        exe.run(main, feed=feed, fetch_list=fetch)
+                first_ms = step()       # interpreted: builds the kernels
+                capture_ms = step()     # capture, then replay
+                kernels.reset_launches()
+                kernelgen.launches.clear()
+                graph_ms = [step() for _ in range(n_graph)]
+                launches = {k: v / n_graph
+                            for k, v in kernels.launches.items() if v}
+                seg = {k: v / n_graph for k, v in kernelgen.launches.items()}
+                mem = _peak_memory()
+                (_, _, flash_g, seen, groups), counted, tries = \
+                    _profiled_launches(two_steps)
+                want = ({k: 2 * v for k, v in GPTJ_AMP_INSTANCES.items()}
+                        if amp else None)
+                wall, busy, by_group, flash_kernels = step_breakdown(
+                    two_steps, want)
+            med = float(np.median(graph_ms))
+            emit(phase='training_llama_d256', step='steps',
+                 config='gptj_6b_widths', cfg=cfg, reduced=GPTJ_TRAIN_REDUCED,
+                 amp=amp, dtype=dtype, B=B, T=T,
+                 params=sum(int(np.prod(p.shape)) for p in params),
+                 losses=losses, first_step_ms=first_ms,
+                 capture_step_ms=capture_ms, graph_step_ms=graph_ms,
+                 median_graph_step_ms=med, tokens_per_step=tokens,
+                 tokens_per_s=tokens / med * 1e3,
+                 model_tflop_per_step=flops / 1e12,
+                 model_tflops=flops / med / 1e9, launches_per_step=launches,
+                 segment_launches_per_step=sum(seg.values()),
+                 plain_calls_on_cuda=plain.counts, card=smi, **mem)
+            emit(phase='training_llama_d256', step='graph_profile',
+                 dtype=dtype, steps=2, profiled_wall_ms=wall,
+                 device_busy_ms=busy,
+                 device_idle_share=(1 - busy / wall) if busy else None,
+                 device_ms_by_group=by_group, flash_by_design=flash_g,
+                 flash_kernels=flash_kernels, device_events=seen,
+                 device_launches=groups, counted_device_launches=counted,
+                 profile_tries=tries)
+            require(all(np.isfinite(losses)), 'non-finite %s loss: %s'
+                    % (path, losses))
+            require(not plain.counts, 'plain versions ran on the card: %s'
+                    % plain.counts)
+            for k in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                      'flash_attention_bwd_dkv'):
+                require(launches.get(k) == cfg['n_layer'],
+                        '%s: %s %s launches a step, expected one a layer'
+                        % (path, launches.get(k), k))
+            require(launches.get('adam_multi') == 1 and
+                    launches.get('embedding_gather') == 1,
+                    '%s: Adam and K4 launches a step: %s' % (path, launches))
+            got = {k: c for k, (_, c) in flash_g.items()}
+            want_design = {k: 2 * v for k, v in GPTJ_FLASH[dtype].items()}
+            require(got == want_design, '%s: flash kernels in two profiled '
+                    'graph steps: %s, expected %s' % (path, got, want_design))
+            _seen_on_device(path + ' graph', groups, counted)
+            if amp:
+                require(flash_kernels == want, '%s: flash kernels by '
+                        'instance in two graph steps: %s, expected %s'
+                        % (path, flash_kernels, want))
+        launches.update(seg)
+        paths[path] = launches
+        del scope, exe, main, startup, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def phase_train_llama_gpu_vs_cpu():
     """Two steps from the same weights on the card and on the CPU: the
     llama_1b widths cut to 2 layers (D = 128, GQA 16 / 8), B = 2, T = 256,
-    float32; and the tiny config (D = 16: the tensor-core forward and
+    float32; the tiny config (D = 16: the tensor-core forward and
     backward's padded instances of width 64 on the card) in float32 and
-    from build(dtype='bfloat16').  -> {path: launches a step
-    on the card} for the tiny runs."""
+    from build(dtype='bfloat16'); and GPT-J-6B's widths (D = 256) cut to
+    1 layer at T = 128 under bf16 AMP (gptj_amp: the instances of width
+    256 on the card).  -> {path: launches a step on the card} for the
+    runs but llama_1b_2l."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import llama
     paths = {}
-    for name, config, over, dtype in (
+    for name, config, over, dtype, amp in (
             ('llama_1b_2l', 'llama_1b', dict(n_layer=2, max_len=256),
-             'float32'),
-            ('tiny_f32', 'tiny', {}, 'float32'),
-            ('tiny_bf16', 'tiny', {}, 'bfloat16')):
+             'float32', False),
+            ('tiny_f32', 'tiny', {}, 'float32', False),
+            ('tiny_bf16', 'tiny', {}, 'bfloat16', False),
+            ('gptj_amp', 'tiny', dict(GPTJ_CFG, n_layer=1, max_len=128),
+             'float32', True)):
         main, startup, out = _llama_program(fluid, llama, config, dtype,
                                             **over)
+        main.set_amp(amp)
         cfg = out['config']
         feed = _llama_batch(llama, LLAMA_B, cfg['max_len'], cfg['vocab'],
                             seed=SEED + 1)
         gnorm = next(op.output('Out')[0] for op in main.global_block().ops
                      if op.type == 'sqrt')
-        watch = ['tok_emb', 'layer_0_att_q_w', 'layer_1_ffn_fc2_w',
-                 'final_norm', 'lm_proj_w']
+        watch = ['tok_emb', 'layer_0_att_q_w',
+                 'layer_%d_ffn_fc2_w' % (cfg['n_layer'] - 1), 'final_norm',
+                 'lm_proj_w']
         gpu, cpu = fluid.Scope(), fluid.Scope()
         gexe, cexe = fluid.Executor(), fluid.Executor(fluid.CPUPlace())
         with fluid.scope_guard(gpu):
@@ -3883,14 +4141,14 @@ def phase_train_llama_gpu_vs_cpu():
         p_ok = all(np.allclose(res['gpu'][2][w], res['cpu'][2][w],
                                rtol=1e-6, atol=p_atol) for w in watch)
         row = dict(phase='train_llama_gpu_vs_cpu', config=name, cfg=cfg,
-                   dtype=dtype, B=LLAMA_B, T=cfg['max_len'],
+                   dtype=dtype, amp=amp, B=LLAMA_B, T=cfg['max_len'],
                    gpu_losses=res['gpu'][0], cpu_losses=res['cpu'][0],
                    loss_rel_err=loss_err, gpu_global_norm=res['gpu'][1],
                    cpu_global_norm=res['cpu'][1], global_norm_rel_err=norm_err,
                    param_max_abs_err=p_err, param_atol=p_atol,
                    param_rtol=1e-6, gpu_s=res['gpu'][3], cpu_s=res['cpu'][3],
                    launches_per_step=paths.get('train_llama_' + name))
-        if dtype == 'float32':
+        if dtype == 'float32' and not amp:
             # float32 sums in other orders (~1e-7 relative through the
             # layers); an Adam step moves an entry by at most ~lr, and
             # an entry whose gradient is float noise may move the other
@@ -3898,7 +4156,12 @@ def phase_train_llama_gpu_vs_cpu():
             row.update(loss_rtol=1e-5, global_norm_rtol=1e-5)
             ok = max(loss_err) <= 1e-5 and max(norm_err) <= 1e-5 and p_ok
         else:
-            # the first step on bf16 parameters.  Two packages that round
+            # the first step on bf16 parameters, or under AMP (bf16
+            # inputs to mul, matmul and the flash attention: every bf16
+            # rounding of that step is one the bf16 build also makes, so
+            # its R bounds it; both steps are AMP steps, from parameters
+            # that differ by at most the first step's 2.01 lr on entries
+            # whose gradients are noise).  Two packages that round
             # each operation to bf16 (u = 2^-8) from float32 values
             # differing in the last bits give logits 4 sqrt(2 R / 3) u
             # max|logit| apart, R = 12 L + 2 roundings
@@ -3933,6 +4196,9 @@ def phase_train_llama_gpu_vs_cpu():
     require(paths['train_llama_tiny_f32'].get('flash_attention_fwd') == 2,
             'the tiny llama did not run the flash kernels on the card: %s'
             % paths)
+    require(paths['train_llama_gptj_amp'].get('flash_attention_bwd_dkv') == 1,
+            'the GPT-J-width llama did not run the flash backward on the '
+            'card: %s' % paths)
     return paths
 
 
@@ -3981,11 +4247,21 @@ _INSTANCES = {
                         ('serving_d96_f32', 'train_llama_tiny_f32')),
     'bfloat16_other_d': ('bfloat16', None, None,
                          ('serving_d96_bf16', 'train_llama_tiny_bf16')),
-    'float32_d256': ('float32', None, None, ('serving_d256_f32',)),
-    'bfloat16_d256': ('bfloat16', 'wgmma, tensor cores, the instance of '
-                      'width 256 (D 136-256; P V m64n256k16)', None,
-                      ('serving_d256_bf16',)),
+    'float32_d256': ('float32', None, None,
+                     ('serving_d256_f32', 'training_llama_d256_f32')),
+    'bfloat16_d256': ('bfloat16', 'wgmma, tensor cores, the instances of '
+                      'width 256 (D 136-256; the products over rows '
+                      'm64n256k16; dK/dV as dV and dK blocks)', None,
+                      ('serving_d256_bf16', 'training_llama_d256',
+                       'train_llama_gptj_amp')),
 }
+# instances whose source is not their kernel's: the float32 backward
+# above 128, the CUDA-core kernels
+_INSTANCE_SOURCES = {
+    ('flash_attention_bwd_dq', 'float32_d256'):
+        'paddle_tpu_torch/csrc/flash_cc.cu',
+    ('flash_attention_bwd_dkv', 'float32_d256'):
+        'paddle_tpu_torch/csrc/flash_cc.cu'}
 # the float32 designs of K1-K3 at each head dim
 _F32_DESIGNS = {
     ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
@@ -4002,6 +4278,10 @@ _F32_DESIGNS = {
     ('flash_attention_fwd', 'float32_d256'):
         '3xTF32 wgmma, tensor cores, the instance of width 256 (D 136-256; '
         '16-key tiles, V^T split from registers)',
+    ('flash_attention_bwd_dq', 'float32_d256'):
+        'CUDA cores (float32 FMAs), D 136-256',
+    ('flash_attention_bwd_dkv', 'float32_d256'):
+        'CUDA cores (float32 FMAs), D 136-256',
 }
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
@@ -4057,6 +4337,7 @@ def main(argv=None):
     composed = run('training_composed', phase_training_composed, smi)
     llama_f32 = run('training_llama', phase_training_llama, smi)
     llama_bf16 = run('training_llama_bf16', phase_training_llama_bf16, smi)
+    llama_d256 = run('training_llama_d256', phase_training_llama_d256, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -4083,6 +4364,14 @@ def main(argv=None):
                    'train_llama_tiny_f32', {}),
                'train_llama_tiny_bf16': llama_tiny.get(
                    'train_llama_tiny_bf16', {}),
+               # per step of the GPT-J-width llama (D = 256): bf16 AMP
+               # (graph replays), float32, and its 1-layer check
+               'training_llama_d256': llama_d256.get('training_llama_d256',
+                                                     {}),
+               'training_llama_d256_f32': llama_d256.get(
+                   'training_llama_d256_f32', {}),
+               'train_llama_gptj_amp': llama_tiny.get(
+                   'train_llama_gptj_amp', {}),
                # per 4-row batch of the Phi-3-mini-width llama (D = 96)
                'serving_d96_f32': served_d96.get('serving_d96_f32', {}),
                'serving_d96_bf16': served_d96.get('serving_d96_bf16', {}),
@@ -4102,10 +4391,12 @@ def main(argv=None):
                      if k not in kernels_py.launches})
     for path in ('training', 'training_composed'):
         launches.update(by_path[path])
-    # the kernels only the training llama runs (Adam's bf16 instance, the
-    # clip's segments): per step of the float32 llama path, else of the
-    # bf16 llama step
-    for path in ('training_llama', 'training_llama_bf16'):
+    # the kernels only the training llamas run (Adam's bf16 instance, the
+    # clip's segments, the AMP step's segments): per step of the float32
+    # llama path, else of the bf16 llama step, else of the GPT-J-width
+    # AMP step
+    for path in ('training_llama', 'training_llama_bf16',
+                 'training_llama_d256'):
         for k, v in by_path[path].items():
             if v and not launches.get(k):
                 launches[k] = v
@@ -4124,7 +4415,8 @@ def main(argv=None):
         """An instance's launches on its main path: the flash step for
         bf16, the served run (K1) or the float32 step (K2, K3) for
         float32, else on the first of its own paths that launches it (the
-        served D = 96 batch for K1, a step of the tiny llama for K2, K3)."""
+        served D = 96 or 256 batch for K1; a step of the tiny llama, or
+        of the GPT-J-width llama at width 256, for K2, K3)."""
         if key == 'bfloat16':
             return launches.get(name)
         if key == 'float32':
@@ -4153,7 +4445,8 @@ def main(argv=None):
                 inst = dict(
                     key=key, dtype=dt,
                     design=design or _F32_DESIGNS[name, key],
-                    source=isrc or src,
+                    source=_INSTANCE_SOURCES.get((name, key),
+                                                 isrc or src),
                     case=r['case'], D=r['D'],
                     launches=instance_launches(name, key),
                     launches_by_path=path_counts(name, ipaths),

@@ -1,6 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
 // cores (wgmma), bf16 directly and float32 as 3xTF32, at every head dim D
-// with D % 8 == 0 up to 128 (instances of width 64 and 128).
+// with D % 8 == 0 up to 128 (instances of width 64 and 128), and bf16 up
+// to 256 (instances of width 256; float32 above 128 runs
+// csrc/flash_cc.cu).
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -73,6 +75,35 @@
 // warpgroups sharing K/V, overlapping one ring tile's elementwise work with the
 // next tile's products, a persistent grid.
 //
+// bf16 at width 256 (D = 136 .. 256), the same two kernels, <256, PADDED>.
+// What rules the design is registers.  dQ keeps its shape: one warpgroup a
+// 64-row query tile, its accumulator 128 float32 registers a thread beside
+// S and dP (32 each); Q and dO resident (64 KB) and a K/V ring of two
+// 64-key stages (128 KB), 198,184 bytes a block; dQ += dS K is m64n256k16
+// with K's four 64-column chunks LBO apart.  dK/dV cannot: one warpgroup a
+// 64-key tile would hold dK and dV in 256 registers a thread, past the 255
+// a thread may have (at width 128, where the two take 128, ptxas gives
+// 234-254).  So a block computes one of the two outputs, picked by the
+// grid's z (dkv_block<.., OUT>): the dV block S^T = K Q^T, P^T, dV += P^T
+// dO (K resident, V not loaded); the dK block S^T, dP^T = V dO^T, dS^T
+// as hi + lo, dK += dS^T Q (K and V resident); both over the same Q/dO
+// ring, 64 KB resident beside 128 KB of ring, 198,696 bytes a block.
+// Each keeps one accumulator of 128 registers beside S^T and dP^T.  S^T
+// is computed twice, 10 D FLOPs a valid pair where the function needs 8
+// D; everything else, and the rounding (P^T once, dS^T as hi + lo), is
+// the width-128 kernel's.  Both blocks are one launch, so a dK/dV call is
+// one kernel, and the lighter dV blocks are scheduled first.  Left for a
+// redesign: two consumer warpgroups in one block, each holding half of D
+// of both accumulators and adding their partial S^T and dP^T through
+// shared memory (S^T once, the Q/dO tile read once for both outputs);
+// and a cluster of two blocks splitting D, adding the partial products
+// through distributed shared memory.  At D = 136 .. 184 the last
+// 64-column chunk lies wholly past D and is not loaded (loaded_chunks):
+// the products over D stop before it, and the accumulator columns the
+// products over rows make from it are never stored.  ptxas (sm_90a, -O3),
+// no spills: dQ 224 registers unpadded and 250 padded, dK/dV 219 and 248
+// (one block an SM: ~194 KB of shared memory each).
+//
 // float32, flash_bwd_dq_tf32x3_kernel<D> and flash_bwd_dkv_tf32x3_kernel<D>
 // (D = 64, 128): the bf16 kernels' block shapes, order of tiles, masks and
 // skipping, with every product on the TF32 tensor cores as three, x y ~
@@ -130,11 +161,12 @@
 // adds partial S and dP through distributed shared memory), the second
 // products in transposed form (no transposed copies), a persistent grid.
 //
-// The other head dims (D % 8 == 0 up to 128, not 64 or 128) run the instance
-// of padded width DP = 64 (D < 64) or DP = 128 (64 < D < 128), the kernels'
-// PADDED = true instances, with the true D (Dt, dd) at run time; D = 64 and
-// 128 are the PADDED = false instances, which compile as they did before (dd
-// is the constant D there).  Each launcher builds its TMA maps with the true
+// The other head dims (D % 8 == 0 up to 128, not 64 or 128; in bf16 also 136
+// .. 248) run the instance of padded width DP = 64 (D < 64), DP = 128 (64 <
+// D < 128) or DP = 256, the kernels' PADDED = true instances, with the true D
+// (Dt, dd) at run time; D = 64, 128 and 256 are the PADDED = false
+// instances, which compile as they did before (dd is the constant D
+// there).  Each launcher builds its TMA maps with the true
 // D, so the box columns at or past D arrive as zeros
 // (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), and count their full bytes on the
 // mbarrier, as rows past Tq and Tk do.  The products over D (S and dP, S^T and
@@ -184,6 +216,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int ROWS>
 using Chunk = bf16[ROWS * 64];
 
+// The 64-column chunks of a row that TMA loads: every one, except at width
+// 256 for D = 136 .. 184, whose last chunk lies wholly past the true head
+// dim dd: the products over D stop before it, and the accumulator columns
+// that the products over rows make from it are never stored
+template <int D, bool PADDED>
+__device__ __forceinline__ int loaded_chunks(int dd) {
+  return D == 256 && PADDED ? (dd + 63) / 64 : D / 64;
+}
+
 // SplitDs: dS = P (dP - delta) sums to zero over a row's keys, so dQ =
 // scale dS K and dK = scale dS^T Q cancel, and one bf16 rounding of dS
 // (2^-9 of each term) can leave more error than the bf16 check (8e-3
@@ -222,22 +263,25 @@ __device__ __forceinline__ RingPos ring_pos(int it, int b, int H, int hk,
   return {b * H + hk * g + it / nq, (qt0 + it % nq) * rows};
 }
 
-// warp 0: Q and dO of ring tile `pos` into stage s by TMA (lane 0), LSE
-// and delta by plain loads (rows past Tq read 0; a ring tile's rows start
-// at any float of the flat [B*H*Tq] vectors, which a TMA box does not
-// take); every lane arrives on the stage's full barrier after its stores
+// warp 0: Q and dO of ring tile `pos` into stage s by TMA (lane 0; their
+// first nl chunks, loaded_chunks), LSE and delta by plain loads (rows past
+// Tq read 0; a ring tile's rows start at any float of the flat [B*H*Tq]
+// vectors, which a TMA box does not take); every lane arrives on the
+// stage's full barrier after its stores
 template <int D>
 __device__ __forceinline__ void load_ring(DkvSmem<D>& sm,
                                           const CUtensorMap* tq,
                                           const CUtensorMap* tdo,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta,
-                                          RingPos pos, int Tq, int s) {
+                                          RingPos pos, int Tq, int s,
+                                          int nl) {
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
-    hopper::mbar_expect_tx(&sm.full[s], 2 * WQ * D * sizeof(bf16));
+    hopper::mbar_expect_tx(&sm.full[s], 2 * WQ * 64 * nl * sizeof(bf16));
 #pragma unroll
     for (int c = 0; c < D / 64; ++c) {
+      if (c >= nl) break;
       hopper::tma_load_3d(sm.q[s][c], tq, &sm.full[s], 64 * c, pos.q0,
                           pos.bh);
       hopper::tma_load_3d(sm.dout[s][c], tdo, &sm.full[s], 64 * c, pos.q0,
@@ -253,25 +297,30 @@ __device__ __forceinline__ void load_ring(DkvSmem<D>& sm,
   hopper::mbar_arrive(&sm.full[s]);
 }
 
-template <int D, bool PADDED>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           const int* __restrict__ klen,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int H, int Hkv, int Tq, int Tk, int Dt,
-                           int causal, float scale) {
+// What a dK/dV block computes: both outputs (widths 64 and 128), or at
+// width 256 one of them, dV or dK (flash_bwd_dkv_wgmma_kernel says why)
+enum DkvOut { kDv = 1, kDk = 2, kDkv = 3 };
+
+// One block's (b*Hkv, 64-key tile) work, OUT of its outputs; the block's
+// key tile is blockIdx.y.  The shared memory is taken here, not passed in:
+// through a reference parameter the compiler lost that it is shared memory
+// (generic accesses; at width 128, 5 registers more and the kernel 2%
+// slower on an H100)
+template <int D, bool PADDED, int OUT>
+__device__ __forceinline__ void dkv_block(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ klen,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int Tq,
+    int Tk, int Dt, int causal, float scale) {
   using namespace hopper;
+  constexpr bool DV = OUT & kDv, DK = OUT & kDk;
   extern __shared__ uint8_t smem_raw[];
   DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(smem_raw));
-
   const int tid = threadIdx.x;
   const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int nk16 = (dd + 15) / 16;      // k16 steps of the products over D
+  const int nl = loaded_chunks<D, PADDED>(dd);
   const int bkv = blockIdx.x;
   const int k0 = blockIdx.y * WK;
   const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
@@ -283,7 +332,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int nq = (Tq + WQ - 1) / WQ - qt0;
   const int total = (k0 < kl && nq > 0) ? g * nq : 0;
 
-  if (tid < 32) {  // warp 0 produces: barriers, K/V, the first stages
+  if (tid < 32) {  // warp 0 produces: barriers, K (and V), the first stages
     if (tid == 0) {
       mbar_init(&sm.kvbar, 1);
       for (int s = 0; s < STAGES; ++s) {
@@ -292,25 +341,30 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       mbar_fence_init();
       if (total > 0) {
-        mbar_expect_tx(&sm.kvbar, 2 * WK * D * sizeof(bf16));
+        // the dV pass reads no V (dP^T is dK's alone)
+        mbar_expect_tx(&sm.kvbar, (DK ? 2 : 1) * WK * 64 * nl * sizeof(bf16));
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
-          tma_load_3d(sm.k[c], &tk, &sm.kvbar, 64 * c, k0, bkv);
-          tma_load_3d(sm.v[c], &tv, &sm.kvbar, 64 * c, k0, bkv);
+          if (c >= nl) break;
+          tma_load_3d(sm.k[c], tk, &sm.kvbar, 64 * c, k0, bkv);
+          if constexpr (DK) tma_load_3d(sm.v[c], tv, &sm.kvbar, 64 * c, k0,
+                                        bkv);
         }
       }
     }
     __syncwarp();
     for (int s = 0; s < STAGES && s < total; ++s)
-      load_ring(sm, &tq, &tdo, lse, delta,
-                ring_pos(s, b, H, hk, g, qt0, nq, WQ), Tq, s);
+      load_ring(sm, tq, tdo, lse, delta,
+                ring_pos(s, b, H, hk, g, qt0, nq, WQ), Tq, s, nl);
   }
   __syncthreads();
 
   const float sl2 = scale * LOG2E;
-  float dka[D / 2], dva[D / 2];
+  float dka[DK ? D / 2 : 1], dva[DV ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < (DK ? D / 2 : 1); ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DV ? D / 2 : 1); ++i) dva[i] = 0.f;
 
   if (total > 0) mbar_wait(&sm.kvbar, 0);
   for (int it = 0; it < total; ++it) {
@@ -329,17 +383,19 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_ss<0>(st, make_desc(sm.k[c] + off, 16, 1024),
                   make_desc(sm.q[s][c] + off, 16, 1024), kc > 0);
     }
+    if constexpr (DK) {
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      if (kc >= nk16) break;
-      const int c = kc / 4, off = (kc % 4) * 16;
-      wgmma_ss<0>(dpt, make_desc(sm.v[c] + off, 16, 1024),
-                  make_desc(sm.dout[s][c] + off, 16, 1024), kc > 0);
+      for (int kc = 0; kc < D / 16; ++kc) {
+        if (kc >= nk16) break;
+        const int c = kc / 4, off = (kc % 4) * 16;
+        wgmma_ss<0>(dpt, make_desc(sm.v[c] + off, 16, 1024),
+                    make_desc(sm.dout[s][c] + off, 16, 1024), kc > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
-    fence_regs(dpt);
+    if constexpr (DK) fence_regs(dpt);
 
     // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
     // under the masks, P = 0 where masked (a row with LSE -1e30 has no
@@ -356,39 +412,46 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       const float p =
           valid ? exp2f(st[i] * sl2 - sm.lse[s][qc] * LOG2E) : 0.f;
-      dpt[i] = valid ? p * (dpt[i] - sm.delta[s][qc]) : 0.f;
+      if constexpr (DK) dpt[i] = valid ? p * (dpt[i] - sm.delta[s][qc]) : 0.f;
       st[i] = p;
     }
-    // dS^T goes to dK as two bf16 terms (hi, lo: SplitDs says why)
+    // P^T rounded once; dS^T goes to dK as two bf16 terms (hi, lo:
+    // SplitDs says why)
     uint32_t pa[WQ / 16][4], dsa[WQ / 16][4], dsl[WQ / 16][4];
-    acc_to_a(st, pa);
-    acc_to_a_split(dpt, dsa, dsl);
+    if constexpr (DV) acc_to_a(st, pa);
+    if constexpr (DK) acc_to_a_split(dpt, dsa, dsl);
 
     // dV += P^T dO and dK += dS^T Q: B = dO or Q, the query rows being
-    // the reduction (MN-major, tnspB = 1)
+    // the reduction (MN-major, tnspB = 1; N = D, the chunk regions LBO
+    // apart)
     wgmma_fence();
+    if constexpr (DV) {
 #pragma unroll
-    for (int kk = 0; kk < WQ / 16; ++kk)
-      wgmma_rs<1>(dva, pa[kk],
-                  make_desc(sm.dout[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+      for (int kk = 0; kk < WQ / 16; ++kk)
+        wgmma_rs<1>(dva, pa[kk],
+                    make_desc(sm.dout[s][0] + kk * 16 * 64, WQ * 128, 1024),
+                    1);
+    }
+    if constexpr (DK) {
 #pragma unroll
-    for (int kk = 0; kk < WQ / 16; ++kk)
-      wgmma_rs<1>(dka, dsl[kk],
-                  make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+      for (int kk = 0; kk < WQ / 16; ++kk)
+        wgmma_rs<1>(dka, dsl[kk],
+                    make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
 #pragma unroll
-    for (int kk = 0; kk < WQ / 16; ++kk)
-      wgmma_rs<1>(dka, dsa[kk],
-                  make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+      for (int kk = 0; kk < WQ / 16; ++kk)
+        wgmma_rs<1>(dka, dsa[kk],
+                    make_desc(sm.q[s][0] + kk * 16 * 64, WQ * 128, 1024), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dva);
-    fence_regs(dka);
+    if constexpr (DV) fence_regs(dva);
+    if constexpr (DK) fence_regs(dka);
 
     mbar_arrive(&sm.empty[s]);
     if (tid < 32 && it + STAGES < total) {  // warp 0 refills the stage
       mbar_wait(&sm.empty[s], ph);
-      load_ring(sm, &tq, &tdo, lse, delta,
-                ring_pos(it + STAGES, b, H, hk, g, qt0, nq, WQ), Tq, s);
+      load_ring(sm, tq, tdo, lse, delta,
+                ring_pos(it + STAGES, b, H, hk, g, qt0, nq, WQ), Tq, s, nl);
     }
   }
 
@@ -405,11 +468,40 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < D / 8; ++j) {
       if (j >= dd / 8) break;
       const int i = 4 * j + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j + cq) =
-          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j + cq) =
-          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+      if constexpr (DK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j + cq) =
+            __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      if constexpr (DV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j + cq) =
+            __floats2bfloat162_rn(dva[i], dva[i + 1]);
     }
+  }
+}
+
+// Widths 64 and 128: one block a (b*Hkv, key tile), both outputs.  Width
+// 256: the grid's z picks the output, dV (z = 0) or dK (z = 1); see the
+// file's note on the width-256 instances
+template <int D, bool PADDED>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ klen,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int Hkv, int Tq, int Tk, int Dt,
+                           int causal, float scale) {
+  if constexpr (D <= 128) {
+    dkv_block<D, PADDED, kDkv>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk,
+                               dv, H, Hkv, Tq, Tk, Dt, causal, scale);
+  } else if (blockIdx.z == 0) {
+    dkv_block<D, PADDED, kDv>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk, dv,
+                              H, Hkv, Tq, Tk, Dt, causal, scale);
+  } else {
+    dkv_block<D, PADDED, kDk>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk, dv,
+                              H, Hkv, Tq, Tk, Dt, causal, scale);
   }
 }
 
@@ -432,7 +524,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
       flash_bwd_dkv_wgmma_kernel<D, PADDED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
+  const dim3 grid(B * Hkv, (Tk + WK - 1) / WK, D <= 128 ? 1 : 2);
   flash_bwd_dkv_wgmma_kernel<D, PADDED><<<grid, NT, smem, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
       (const int*)klen, (bf16*)dk, (bf16*)dv, H, Hkv, Tq, Tk, Dt, causal,
@@ -453,14 +545,16 @@ struct DqSmem {
   uint64_t qbar, full[STAGES], empty[STAGES];
 };
 
-// thread 0: K/V tile t of head kvh into stage s
+// thread 0: K/V tile t of head kvh into stage s, their first nl chunks
+// (loaded_chunks)
 template <int D>
 __device__ __forceinline__ void load_kv(DqSmem<D>& sm, const CUtensorMap* tk,
                                         const CUtensorMap* tv, int kvh, int t,
-                                        int s) {
-  hopper::mbar_expect_tx(&sm.full[s], 2 * WK * D * sizeof(bf16));
+                                        int s, int nl) {
+  hopper::mbar_expect_tx(&sm.full[s], 2 * WK * 64 * nl * sizeof(bf16));
 #pragma unroll
   for (int c = 0; c < D / 64; ++c) {
+    if (c >= nl) break;
     hopper::tma_load_3d(sm.k[s][c], tk, &sm.full[s], 64 * c, t * WK, kvh);
     hopper::tma_load_3d(sm.v[s][c], tv, &sm.full[s], 64 * c, t * WK, kvh);
   }
@@ -484,6 +578,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
   const int nk16 = (dd + 15) / 16;      // k16 steps of the products over D
+  const int nl = loaded_chunks<D, PADDED>(dd);
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
   const int b = bh / H;
@@ -504,14 +599,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       mbar_fence_init();
       if (ntiles > 0) {
-        mbar_expect_tx(&sm.qbar, 2 * WQ * D * sizeof(bf16));
+        mbar_expect_tx(&sm.qbar, 2 * WQ * 64 * nl * sizeof(bf16));
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
+          if (c >= nl) break;
           tma_load_3d(sm.q[c], &tq, &sm.qbar, 64 * c, q0, bh);
           tma_load_3d(sm.dout[c], &tdo, &sm.qbar, 64 * c, q0, bh);
         }
         for (int s = 0; s < STAGES && s < ntiles; ++s)
-          load_kv(sm, &tk, &tv, kvh, s, s);
+          load_kv(sm, &tk, &tv, kvh, s, s, nl);
       }
     }
     // rows past Tq read 0
@@ -585,7 +681,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t dsa[WK / 16][4], dsl[WK / 16][4];
     acc_to_a_split(dp, dsa, dsl);
 
-    // dQ += dS K: B = K, the keys being the reduction (MN-major, tnspB = 1)
+    // dQ += dS K: B = K, the keys being the reduction (MN-major, tnspB = 1;
+    // N = D, the chunk regions LBO apart)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk)
@@ -602,7 +699,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(&sm.empty[s]);
     if (tid == 0 && t + STAGES < ntiles) {
       mbar_wait(&sm.empty[s], ph);
-      load_kv(sm, &tk, &tv, kvh, t + STAGES, s);
+      load_kv(sm, &tk, &tv, kvh, t + STAGES, s, nl);
     }
   }
 
@@ -1319,10 +1416,10 @@ bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
 
 // q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
 // delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 ==
-// 0 up to 128 (hopper::with_instance).  Each returns the CUDA error of its
-// launch
-// (0 on success), -1 for arguments the kernel does not take, or -2 when
-// the CUDA driver gives no TMA tensor map.
+// 0 up to 128, and in bf16 up to 256 (hopper::with_bwd_instance).  Each
+// returns the CUDA error of its launch (0 on success), -1 for arguments
+// the kernel does not take (float32 above 128 among them), or -2 when the
+// CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* klen, const void* lse,
                                const void* delta, const void* dout, void* dq,
@@ -1331,15 +1428,20 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                void* stream) {
   if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  return hopper::with_instance(D, [&](auto in) {
+  return hopper::with_bwd_instance(D, dtype, [&](auto in) {
     using I = decltype(in);
-    return dtype == 0
-               ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
-                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
-                     D, causal, scale, s)
-               : launch_dq_bf16<I::kDP, I::kPadded>(
-                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
-                     D, causal, scale, s);
+    if constexpr (I::kDP == 256)
+      return launch_dq_bf16<256, I::kPadded>(q, k, v, klen, lse, delta, dout,
+                                             dq, B, H, Hkv, Tq, Tk, D,
+                                             causal, scale, s);
+    else
+      return dtype == 0
+                 ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                       q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq,
+                       Tk, D, causal, scale, s)
+                 : launch_dq_bf16<I::kDP, I::kPadded>(
+                       q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq,
+                       Tk, D, causal, scale, s);
   });
 }
 
@@ -1351,15 +1453,20 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   if (!args_ok(B, H, Hkv, Tq, Tk) || (dtype != 0 && dtype != 1)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  return hopper::with_instance(D, [&](auto in) {
+  return hopper::with_bwd_instance(D, dtype, [&](auto in) {
     using I = decltype(in);
-    return dtype == 0
-               ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
-                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
-                     Tk, D, causal, scale, s)
-               : launch_dkv_bf16<I::kDP, I::kPadded>(
-                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
-                     Tk, D, causal, scale, s);
+    if constexpr (I::kDP == 256)
+      return launch_dkv_bf16<256, I::kPadded>(q, k, v, klen, lse, delta,
+                                              dout, dk, dv, B, H, Hkv, Tq,
+                                              Tk, D, causal, scale, s);
+    else
+      return dtype == 0
+                 ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                       q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv,
+                       Tq, Tk, D, causal, scale, s)
+                 : launch_dkv_bf16<I::kDP, I::kPadded>(
+                       q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv,
+                       Tq, Tk, D, causal, scale, s);
   });
 }
 
@@ -1370,17 +1477,19 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
                                       int* blocks) {
   if (dtype != 0 && dtype != 1) return -1;
-  return hopper::with_instance(D, [&](auto in) {
+  return hopper::with_bwd_instance(D, dtype, [&](auto in) {
     using I = decltype(in);
     constexpr int DP = I::kDP, KC = I::kKC;
     constexpr bool P = I::kPadded;
-    if (dtype == 0)
-      return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<DP, P, KC>,
-                                   sizeof(DqTf32Smem<DP>) + 1024, smem,
-                                   blocks)
-                       : occupancy(flash_bwd_dkv_tf32x3_kernel<DP, P, KC>,
-                                   sizeof(DkvTf32Smem<DP>) + 1024, smem,
-                                   blocks);
+    if constexpr (DP != 256) {
+      if (dtype == 0)
+        return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<DP, P, KC>,
+                                     sizeof(DqTf32Smem<DP>) + 1024, smem,
+                                     blocks)
+                         : occupancy(flash_bwd_dkv_tf32x3_kernel<DP, P, KC>,
+                                     sizeof(DkvTf32Smem<DP>) + 1024, smem,
+                                     blocks);
+    }
     return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<DP, P>,
                                  sizeof(DqSmem<DP>) + 1024, smem, blocks)
                      : occupancy(flash_bwd_dkv_wgmma_kernel<DP, P>,

@@ -109,9 +109,9 @@ static inline int map_f32_3d(CUtensorMap* map, const void* base, int heads,
 // D <= 128, PADDED unless D == DP (so D = 64 and 128 compile as they did
 // before the padded instances), and the KC = ceil(D / 32) 32-column
 // regions its products over D reduce; f(Inst<DP, PADDED, KC>{}), or -1
-// for a D the kernels do not take (D % 8 != 0, or above 128).  The
-// backward's dispatch; the forward's is with_fwd_instance, which adds the
-// width 256
+// for a D the kernels do not take (D % 8 != 0, or above 128).
+// with_bwd_instance (the backward's dispatch) and with_fwd_instance (the
+// forward's) add the width 256
 template <int DP, bool PAD, int NKC>
 struct Inst {
   static constexpr int kDP = DP;
@@ -146,6 +146,20 @@ int with_fwd_instance(int D, F&& f) {
     case 7: return f(Inst<256, true, 7>{});
     default: return f(Inst<256, true, 8>{});
   }
+}
+
+// The backward's instances (csrc/flash_bwd.cu): with_instance's up to
+// 128, and above it, up to 256, the width DP = 256 in bf16 (dtype 1) only,
+// unpadded at D = 256 and padded at D = 136 .. 248 (the bf16 backward
+// stops its products over D at a run-time k16 step, so KC is not read);
+// -1 for a D or dtype the backward does not take (float32 above 128 runs
+// csrc/flash_cc.cu)
+template <typename F>
+int with_bwd_instance(int D, int dtype, F&& f) {
+  if (D <= 128 || D > 256 || D % 8 != 0) return with_instance(D, f);
+  if (dtype != 1) return -1;
+  if (D == 256) return f(Inst<256, false, 8>{});
+  return f(Inst<256, true, 8>{});
 }
 
 // ---------------------------------------------------------------- device

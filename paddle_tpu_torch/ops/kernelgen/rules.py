@@ -88,7 +88,9 @@ def _f(e, dt):
 
 def to_dtype(e, frm, to):
     """A value of dtype `frm` converted to `to`, as a PyTorch conversion
-    of a tensor does (bfloat16 values live in float32 registers)."""
+    of a tensor does (bfloat16 values live in float32 registers); a float
+    to int32 as the cast op (ops/math.py) does: the card's conversion
+    (cvt.rzi) saturates and takes NaN to 0."""
     if to == frm:
         return e
     if to == 'int32':

@@ -103,9 +103,24 @@ def clip_by_norm(ctx, ins, attrs):
     return {'Out': x * scale}
 
 
+# the integer dtypes a float converts into by saturating, as XLA's convert
+# (the reference's astype) does
+_SATURATED = (torch.int8, torch.int16, torch.int32, torch.uint8)
+
+
 @register('cast')
 def cast(ctx, ins, attrs):
-    return {'Out': ins['X'].to(torch_dtype(attrs['out_dtype']))}
+    x, dt = ins['X'], torch_dtype(attrs['out_dtype'])
+    if not (x.is_floating_point() and dt in _SATURATED):
+        return {'Out': x.to(dt)}
+    # NaN -> 0 and every value clamped to the target's range, on every
+    # device (Tensor.to wraps there, or gives the minimum).  The limits
+    # compare in x's dtype, where int32's maximum rounds up to 2^31 (and
+    # int16's in bf16 to 2^15), one past the range: what reaches it is
+    # the maximum
+    info = torch.iinfo(dt)
+    x = torch.nan_to_num(x, nan=0.0).clamp(info.min, info.max)
+    return {'Out': torch.where(x >= info.max, info.max, x.to(dt))}
 
 
 @register('increment')
@@ -122,14 +137,18 @@ def increment(ctx, ins, attrs):
 def reduce_sum(ctx, ins, attrs):
     x = ins['X']
     keep = attrs.get('keep_dim', False)
+    # integers and bools sum in int32, as jnp.sum does (torch.sum widens
+    # them to int64; jnp's uint32 for a uint8 input has no torch sum)
+    dt = None if x.is_floating_point() or x.is_complex() else torch.int32
     if attrs.get('reduce_all', False):
-        out = x.sum()
+        out = x.sum(dtype=dt)
         if keep:
             out = out.reshape([1] * x.ndim)
     else:
         dim = attrs.get('dim', [0])
         dim = [dim] if isinstance(dim, int) else list(dim)
-        out = x.sum(dim=tuple(d % x.ndim for d in dim), keepdim=keep)
+        out = x.sum(dim=tuple(d % x.ndim for d in dim), keepdim=keep,
+                    dtype=dt)
     if out.ndim == 0:
         out = out.reshape(1)
     return {'Out': out}

@@ -241,7 +241,71 @@ def test_padded_backward_kernels_match_plain(cuda, dtype, D, shape):
     _check_backward_kernels(dtype, D, *_PADDED_SHAPES[shape])
 
 
-def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
+def _bwd_width(D):
+    """The width of the tensor-core backward's instance that runs head dim
+    D (csrc/hopper_mma.cuh with_bwd_instance): 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+# bf16 at the head dims above 128 on the tensor-core backward's instances
+# of width 256: D = 256 unpadded, 136 (the last 64-column chunk wholly past
+# D, not loaded), 200 and 248 padded; causal and not, GQA and MQA, k_len 0
+# and 1 rows, Tq < Tk, ragged last query and key tiles; against the plain
+# backward in float64
+_WIDE_SHAPES = {
+    'gqa_klen01': (True, 150, 150, 8, 2, [150, 0, 1]),
+    'mqa_tq_lt_tk': (True, 37, 161, 8, 1, [161, 100, 1]),
+    'noncausal_mqa': (False, 97, 161, 8, 1, [130, 0, 161]),
+    'noncausal_gqa': (False, 150, 130, 16, 4, [130, 1]),
+}
+
+
+@pytest.mark.parametrize('D,shape', [
+    (D, name) for D in (256, 136, 200, 248) for name in _WIDE_SHAPES])
+def test_wide_bf16_backward_kernels_match_plain(cuda, D, shape):
+    _check_backward_kernels(torch.bfloat16, D, *_WIDE_SHAPES[shape],
+                            exact64=True)
+
+
+@pytest.mark.parametrize('D', [136, 256])
+def test_wide_backward_raises_when_its_launch_fails(cuda, D):
+    """A bf16 backward at D > 128 whose launch the entry point refuses (q
+    two elements off the 16-byte alignment TMA needs: no tensor map)
+    raises and counts no launch, and float32 there is not the
+    tensor-core entry point's to take (it returns -1): no fallback to
+    another kernel or the plain version."""
+    g = torch.Generator(device='cuda').manual_seed(3)
+    B, H, T = 1, 2, 16
+    n = B * H * T * D
+    q = torch.zeros(n + 8, dtype=torch.bfloat16, device='cuda')[2:n + 2].view(
+        B, H, T, D)
+    k = _randn(g, B, H, T, D, dtype=torch.bfloat16)
+    out, lse = att.flash_forward(k, k, k, True)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match='flash_attention_bwd_dq kernel '
+                       'launch failed'):
+        att.flash_backward(q, k, k, None, out, lse, out, True)
+    for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+        assert kernels.launches[name] == before[name]
+    f = k.float()
+    lse32 = att.flash_forward(f, f, f, True)[1]
+    kl = torch.full((B,), T, dtype=torch.int32, device='cuda')
+    dq = torch.empty_like(f)
+    rc = kernels.library().pt_flash_bwd_dq(
+        f.data_ptr(), f.data_ptr(), f.data_ptr(), kl.data_ptr(),
+        lse32.data_ptr(), lse32.data_ptr(), f.data_ptr(), dq.data_ptr(), B,
+        H, H, T, T, D, 0, 1, D ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == -1
+    with pytest.raises(RuntimeError, match='launch failed'):
+        kernels.check(rc, 'pt_flash_bwd_dq')
+
+
+def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen,
+                            exact64=False):
+    """The port's backward against the plain one (float32 kernels, and
+    with `exact64` any dtype, against it in float64), the kernels and the
+    tensor-core instance it ran read from the profiler."""
     g = torch.Generator(device='cuda').manual_seed(2)
     B = len(klen)
     q = _randn(g, B, H, Tq, D, dtype=dtype)
@@ -251,18 +315,23 @@ def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
     kl = torch.tensor(klen, dtype=torch.int32, device='cuda')
     out, lse = att.flash_forward(q, k, v, causal, None, kl)
     before = dict(kernels.launches)
-    grads, names, runs = _profiled(
+    grads, full, runs = _profiled(
         lambda: att.flash_backward(q, k, v, kl, out, lse, do, causal),
-        r'flash_bwd_\w+')
+        r'flash_bwd_\w+?_kernel(<[^>(]*>)?')
+    names = {n.split('<')[0] for n in full}
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    # the design each dtype and D runs: at every D up to 128 bf16 on
-    # wgmma, float32 as 3xTF32 wgmma (other D than 64 and 128 padded);
-    # above 128 on CUDA cores (csrc/flash_cc.cu)
-    design = ('cc' if D > 128 else
+    # the design each dtype and D runs: bf16 on wgmma at every D up to
+    # 256, float32 as 3xTF32 wgmma up to 128 (other D than 64, 128 and
+    # 256 padded) and on CUDA cores above (csrc/flash_cc.cu)
+    tc = att.bwd_tensor_core(D, dtype)
+    design = ('cc' if not tc else
               'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
     assert names == {'flash_bwd_dq_%s_kernel' % design,
                      'flash_bwd_dkv_%s_kernel' % design}, names
+    if tc and dtype == torch.bfloat16:
+        inst = '<%d, %s>' % (_bwd_width(D), str(D != _bwd_width(D)).lower())
+        assert full == {n + inst for n in names}, full
     refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
                                         D ** -0.5)
     # f32: other summation orders, and dS = P (dP - delta) cancels, so the
@@ -274,7 +343,7 @@ def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen):
     # there (tests/test_torch_flash_bwd_tf32x3_numerics.py), so only the
     # CUDA-core kernels, which round as the plain version does, could
     # match it
-    exact = refs if dtype != torch.float32 else \
+    exact = refs if dtype != torch.float32 and not exact64 else \
         att.flash_backward_reference(
             *(t.double() for t in (q, k, v)), kl, out.double(),
             lse.double(), do.double(), causal, D ** -0.5)
@@ -341,9 +410,10 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
 # the head dims other than 64 and 128: up to 128 the tensor-core forward
 # and backward in their padded instances (D = 16 and 32 in the one of
 # width 64, 96 in the one of width 128), and at D = 136 and 256 the
-# forward's tensor-core instance of width 256 beside the CUDA-core
-# backward of csrc/flash_cc.cu; causal and not, ragged k_len with a k_len
-# 0 row, GQA, Tq < Tk
+# tensor-core instances of width 256, beside the CUDA-core backward of
+# csrc/flash_cc.cu in float32; causal and not, ragged k_len with a k_len
+# 0 row, GQA, Tq < Tk.  The CUDA-core backward, off the bf16 path above
+# 128, is driven through design='cc' (chip_smoke.py's _cc_bwd_launch)
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
     (torch.float32, 16, True, 100, 100, 2, [100, 37]),
     (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
@@ -353,6 +423,7 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
     (torch.bfloat16, 96, False, 64, 200, 8, [200, 1]),
     (torch.float32, 256, True, 70, 70, 2, [70, 33]),
     (torch.bfloat16, 136, False, 70, 90, 2, [90, 45]),
+    (torch.bfloat16, 256, True, 70, 70, 2, [70, 33]),
 ])
 def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                                              Hkv, klen):
@@ -371,7 +442,7 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
                  'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
     fwd = 'wgmma' if dtype == torch.bfloat16 else 'tf32x3'
-    bwd = 'cc' if D > 128 else fwd
+    bwd = fwd if att.bwd_tensor_core(D, dtype) else 'cc'
     assert names == {'flash_fwd_%s_kernel' % fwd,
                      'flash_bwd_dq_%s_kernel' % bwd,
                      'flash_bwd_dkv_%s_kernel' % bwd}, names
@@ -391,6 +462,26 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         zero = torch.tensor(klen, device='cuda') == 0
         assert not out[zero].any()
         assert not any(t[zero].any() for t in grads)
+    if D > 128:
+        # the CUDA-core backward itself, driven directly (in bf16 the port
+        # routes these head dims to the tensor-core instances of width 256)
+        cc = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        lib = kernels.library()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),
+                lse.data_ptr(), att._bwd_delta(out, do).data_ptr(),
+                do.data_ptr())
+        tail = (2, 8, Hkv, Tq, Tk, D, att._DTYPE_CODE[dtype], int(causal),
+                D ** -0.5, torch.cuda.current_stream().cuda_stream)
+        kernels.check(lib.pt_flash_cc_bwd_dq(*args, cc[0].data_ptr(), *tail),
+                      'pt_flash_cc_bwd_dq')
+        kernels.check(lib.pt_flash_cc_bwd_dkv(*args, cc[1].data_ptr(),
+                                              cc[2].data_ptr(), *tail),
+                      'pt_flash_cc_bwd_dkv')
+        torch.cuda.synchronize()
+        for a, r in zip(cc, refs):
+            torch.testing.assert_close(
+                a.float(), r.float(), rtol=rtol,
+                atol=arel * float(r.float().abs().max()))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],

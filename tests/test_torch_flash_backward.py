@@ -165,10 +165,13 @@ class _FakeLibrary:
 
 def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
     """The backward's tensor-core kernels take exactly the multiples of 8
-    from 8 to 128 (D other than 64 and 128 in their padded instances), the
-    CUDA-core ones the multiples of 8 above, up to 256."""
-    want = [D for D in range(1, 300) if D % 8 == 0 and D <= 128]
-    assert [D for D in range(1, 300) if tatt.bwd_tensor_core(D)] == want
+    from 8 to 128 in float32 and to 256 in bf16 (D other than 64, 128 and
+    256 in their padded instances); float32 runs the CUDA-core ones at the
+    multiples of 8 above 128, up to 256."""
+    for dtype, top in ((torch.float32, 128), (torch.bfloat16, 256)):
+        want = [D for D in range(1, 300) if D % 8 == 0 and D <= top]
+        assert [D for D in range(1, 300)
+                if tatt.bwd_tensor_core(D, dtype)] == want
 
 
 @pytest.mark.parametrize('D', [8, 16, 40, 64, 96, 120, 128, 136, 200, 248,
@@ -176,29 +179,30 @@ def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
 def test_backward_routing_by_head_dim(D, monkeypatch):
     """The forward runs the tensor-core kernel (pt_flash_fwd) at every
     multiple of 8 up to 256, the backward the tensor-core kernels
-    (pt_flash_bwd_*) up to 128 and the CUDA-core kernels
-    (pt_flash_cc_bwd_*) above; D other than 64, 128 and 256 in their
-    padded instances.  The wrappers are driven with the library and the
-    CUDA stream stood in for."""
+    (pt_flash_bwd_*) there too in bf16, in float32 up to 128 and the
+    CUDA-core kernels (pt_flash_cc_bwd_*) above; D other than 64, 128 and
+    256 in their padded instances.  The wrappers are driven with the
+    library and the CUDA stream stood in for."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import build
-    assert tatt.bwd_tensor_core(D) == (D <= 128)
-    fake = _FakeLibrary()
-    monkeypatch.setattr(build, 'library', lambda: fake)
-    monkeypatch.setattr(kernels, 'library', lambda: fake)
+    monkeypatch.setattr(build, 'library', lambda: _FakeLibrary())
     monkeypatch.setattr(torch.cuda, 'device', lambda dev: _Null())
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda dev=None: type('S', (), {'cuda_stream': 0}))
-    q = torch.zeros(1, 2, 8, D)
-    kl = torch.full((1,), 8, dtype=torch.int32)
-    lse = torch.zeros(2, 8)
-    tatt._launch_flash(q, q, q, True, 0.1, kl)
-    tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
-    tc = tatt.bwd_tensor_core(D)
-    assert fake.called == [
-        'pt_flash_fwd',
-        'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
-        'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv']
+    for dtype in (torch.float32, torch.bfloat16):
+        tc = tatt.bwd_tensor_core(D, dtype)
+        assert tc == (D <= 128 or dtype == torch.bfloat16)
+        fake = _FakeLibrary()
+        monkeypatch.setattr(kernels, 'library', lambda: fake)
+        q = torch.zeros(1, 2, 8, D, dtype=dtype)
+        kl = torch.full((1,), 8, dtype=torch.int32)
+        lse = torch.zeros(2, 8)
+        tatt._launch_flash(q, q, q, True, 0.1, kl)
+        tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
+        assert fake.called == [
+            'pt_flash_fwd',
+            'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
+            'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv'], dtype
 
 
 class _Null:

@@ -12,9 +12,11 @@ handed to P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)); the
 backward's P^T rounded to bf16 once before dV += P^T dO, and dS^T and dS
 handed to dK += dS^T Q and dQ += dS K as two bf16 terms, dK and dQ scaled
 once at the end.  Head dims other than 64 and 128, up to 128, run the
-kernels' padded instances (width 64 or 128), and the forward's head dims
-136 .. 248 its instance of width 256 (D = 256 the unpadded one, P V as
-m64n256k16 over the same 64-key tiles): the forward's emulation pads q,
+kernels' padded instances (width 64 or 128), and head dims 136 .. 248
+their instances of width 256 (D = 256 the unpadded one; the forward's P
+V and the backward's products over rows as m64n256k16 over the same
+64-row tiles, the dK/dV kernel's dV and dK in blocks of their own, each
+computing S^T as before): the forward's emulation pads q,
 k and v with zero columns to that width, stops Q K^T at the end of the
 32-column region that holds column D - 1 and runs P V over the padded
 width, as the kernel does (padding itself adds exact zeros).
@@ -317,10 +319,17 @@ BWD_CASES = [
     (2, 8, 2, 150, 150, 64, True, [150, 77], 3),
     (2, 8, 2, 150, 150, 128, True, [150, 77], 0),
     (2, 8, 2, 150, 150, 64, True, [150, 77], 0),
+    # the instances of width 256: D = 256 unpadded, 136 and 200 padded
+    # (the dK/dV kernel's dV and dK blocks each recompute S^T in the same
+    # order, so the arithmetic is the one emulated)
+    (3, 4, 2, 150, 150, 256, True, [150, 0, 1], 1),  # GQA, k_len 0, 1
+    (3, 4, 2, 37, 161, 136, True, [161, 0, 1], 1),   # Tq < Tk, k_len 0, 1
+    (2, 8, 1, 97, 161, 200, True, [130, 1], 1),      # MQA, ragged tiles
 ]
 BWD_IDS = ['path', 'causal_klen', 'gqa', 'tq_lt_tk', 'klen_d128', 'klen0',
            'd16_klen01', 'd40_tq_lt_tk', 'd96_gqa', 'd120_ragged',
-           'c7_d128_seed3', 'c7_d64_seed3', 'c7_d128_seed0', 'c7_d64_seed0']
+           'c7_d128_seed3', 'c7_d64_seed3', 'c7_d128_seed0', 'c7_d64_seed0',
+           'd256_gqa_klen01', 'd136_tq_lt_tk_klen01', 'd200_mqa_ragged']
 
 
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)

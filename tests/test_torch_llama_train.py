@@ -68,7 +68,14 @@ from paddle_tpu_torch.models import llama as tllama
 
 D64 = dict(vocab=256, d_model=256, n_layer=2, n_head=4, n_kv_head=2,
            d_ffn=512, theta=10000.0, max_len=32)
-CONFIGS = {'tiny': dict(jllama.CONFIGS['tiny']), 'd64': D64}
+# head dims 136 (MQA) and 256 at one layer: the bf16 AMP step's flash
+# backward at the widths above 128 (the instances of width 256 on the card)
+D136 = dict(vocab=256, d_model=272, n_layer=1, n_head=2, n_kv_head=1,
+            d_ffn=544, theta=10000.0, max_len=32)
+D256 = dict(vocab=256, d_model=512, n_layer=1, n_head=2, n_kv_head=2,
+            d_ffn=1024, theta=10000.0, max_len=32)
+CONFIGS = {'tiny': dict(jllama.CONFIGS['tiny']), 'd64': D64, 'd136': D136,
+           'd256': D256}
 LR = 1e-3
 U = 2.0 ** -8
 
@@ -128,11 +135,14 @@ def _f32(v):
     return np.asarray(v).astype(np.float32)
 
 
-def _both(cfg, dtype='float32'):
-    """Both programs, the JAX startup run, and the JAX scope (parameters
-    and optimizer state) carried into a port scope."""
+def _both(cfg, dtype='float32', amp=False):
+    """Both programs (under bf16 AMP with `amp`), the JAX startup run, and
+    the JAX scope (parameters and optimizer state) carried into a port
+    scope."""
     jmain, jstart, jout = _build(jf, jllama, cfg, dtype)
     tmain, _, tout = _build(tf, tllama, cfg, dtype)
+    jmain.set_amp(amp)
+    tmain.set_amp(amp)
     jscope = jf.Scope()
     with jf.scope_guard(jscope):
         jf.Executor().run(jstart)
@@ -318,6 +328,51 @@ def test_three_bf16_steps_match_the_jax_package(config):
                 assert tscope.vars[name + pw].dtype == torch.bfloat16
                 np.testing.assert_array_equal(_f32(tscope.vars[name + pw]),
                                               _f32(jscope.vars[name + pw]))
+
+
+@pytest.mark.parametrize('config', ['d136', 'd256'])
+def test_three_amp_steps_match_the_jax_package(config):
+    """float32 parameters under `set_amp(True)`: mul, matmul and the flash
+    attention take bf16 inputs and return float32 (core/amp.py).  Every
+    bf16 rounding of this step is one the bf16 build also makes (a
+    product's inputs are the outputs the bf16 build rounds, its output
+    the one it rounds), so a logit depends on at most R = 12 L + 2
+    roundings and the bf16 bounds hold at each step from one state: the
+    loss within 2 tol_logit, each clipped gradient within tol_grad of
+    its tensor's largest entry.  Adam then runs in float32 on those
+    gradients: m1 = 0.9 m1' + 0.1 g moves by 0.1 of a gradient's
+    difference, m2 = 0.95 m2' + 0.05 g^2 by 0.05 |g_a - g_b| |g_a + g_b|
+    (G = the largest |g|: within 0.05 tol_grad G (2 + tol_grad) G), and
+    a parameter whose gradient lies within the bound may step the other
+    way: 2.01 lr."""
+    cfg = CONFIGS[config]
+    L = cfg['n_layer']
+    jax_side, port_side = _both(cfg, amp=True)
+    jscope, tscope = jax_side[2], port_side[2]
+    tmain = port_side[0]
+    params = [p.name for p in tmain.all_parameters()]
+    grads = [p + '@GRAD' for p in params]
+    tg = _tol_grad(L)
+    for step, tres, jres in _steps(jax_side, port_side, _batch(cfg, 8), 3,
+                                   grads):
+        assert all(tscope.vars[p].dtype == torch.float32 for p in params)
+        loss_tol = 2 * _tol_logit(float(np.abs(_f32(jres[1])).max()), L)
+        assert np.isfinite(tres[0]).all()
+        assert abs(float(tres[0][0]) - float(jres[0][0])) <= loss_tol, step
+        for name, a, b in zip(params, tres[2:], jres[2:]):
+            b = _f32(b)
+            G = float(np.abs(b).max())
+            what = '%s at step %d' % (name, step)
+            _close_to_max(a, b, tg, what + '@GRAD')
+            np.testing.assert_allclose(
+                _f32(tscope.vars[name]), _f32(jscope.vars[name]), rtol=1e-5,
+                atol=2.01 * LR, err_msg=what)
+            for mom, atol in (('_moment1_0', 0.1 * tg * G),
+                              ('_moment2_0', 0.05 * tg * G * (2 + tg) * G)):
+                np.testing.assert_allclose(
+                    _f32(tscope.vars[name + mom]),
+                    _f32(jscope.vars[name + mom]), rtol=1e-5, atol=atol,
+                    err_msg=what + mom)
 
 
 # ------------------------------------------ the port's runtime, alone

@@ -2,7 +2,9 @@
 JAX package's own result: mixed float32 x bf16 products (C1), bf16
 generation (C2), the flash-attention route for head dims the kernels do
 not tile (C3), out-of-range hard labels (C4), `scale` on an integer
-tensor (C5), `create_paddle_predictor` (C6), and `squeeze` / `split`.
+tensor (C5), `create_paddle_predictor` (C6), `reduce_sum` over integers
+and bools (C8), a float-to-integer `cast` of NaN, infinities and values
+out of range (C9), and `squeeze` / `split`.
 
 C3's kernels (head dims 16, 32 and 96 on CUDA cores) are checked on the
 card in tests/test_torch_cuda_kernels.py; here the route of a head dim
@@ -301,6 +303,67 @@ def test_c6_create_paddle_predictor(tmp_path):
     with pytest.raises(NotImplementedError,
                        match='create_paddle_predictor'):
         tf.CompiledProgram(tf.Program()).with_inference_optimize(conf)
+
+
+# ---------------------------------------------------------------- C8
+
+@pytest.mark.parametrize('x', [
+    np.array([[1, -2, 3], [4, 5, -6]], np.int32),
+    np.array([[True, False, True], [True, True, False]]),
+    np.array([[1, -2, 3], [100, 120, -128]], np.int8),
+    np.array([[1, -2, 3], [30000, 30000, -7]], np.int16),
+], ids=['int32', 'bool', 'int8', 'int16'])
+@pytest.mark.parametrize('attrs', [
+    {'dim': [1]}, {'dim': [0], 'keep_dim': True}, {'reduce_all': True},
+    {'reduce_all': True, 'keep_dim': True}, {'dim': [-1, 0]},
+], ids=['dim1', 'dim0_keep', 'all', 'all_keep', 'both'])
+def test_c8_reduce_sum_of_integers_and_bools_is_int32(x, attrs):
+    """jnp.sum sums integers and bools into int32 (x64 off); torch.sum
+    widened them to int64."""
+    got = _run_op(tf, 'reduce_sum', {'X': x}, attrs)['Out']
+    ref = _run_op(jf, 'reduce_sum', {'X': x}, attrs)['Out']
+    assert got.dtype == ref.dtype == np.int32
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------- C9
+
+_C9_X = np.array([np.nan, np.inf, -np.inf, 3e10, -3e10, 2147483520.0,
+                  -1.7, 300.2, -200.5, 127.9, -128.9, 0.5], np.float32)
+
+
+@pytest.mark.parametrize('out_dtype', ['int32', 'int64', 'int16', 'int8',
+                                       'uint8'])
+@pytest.mark.parametrize('in_dtype', ['float32', 'bfloat16'])
+def test_c9_float_to_integer_cast_saturates(out_dtype, in_dtype):
+    """XLA's convert maps NaN to 0 and clamps every value to the target's
+    range (int64 computes as int32 in both packages); Tensor.to gave
+    INT32_MIN for NaN, the infinities and 3e10, and wrapped int8, int16
+    and uint8 (300.2 -> 44, -1.7 -> 255 as uint8).  bf16 inputs round
+    int16's limit up to 2^15, past its range."""
+    attrs = {'out_dtype': out_dtype}
+    if in_dtype == 'float32':
+        got = _run_op(tf, 'cast', {'X': _C9_X}, attrs)['Out']
+        ref = _run_op(jf, 'cast', {'X': _C9_X}, attrs)['Out']
+    else:
+        import jax.numpy as jnp
+        from paddle_tpu.core import registry as jreg
+        from paddle_tpu_torch.core import registry as treg
+        xt = torch.from_numpy(_C9_X).to(torch.bfloat16)
+        ctx = treg.ExecCtx(torch.device('cpu'), 0, 0).for_op(
+            0, registry_shim('cast', attrs))
+        got = treg.get_op('cast')(ctx, {'X': xt}, attrs)['Out'].numpy()
+        ref = np.asarray(jreg.get_op('cast').impl(
+            None, {'X': jnp.asarray(_C9_X).astype(jnp.bfloat16)},
+            attrs)['Out'])
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+    if out_dtype in ('int32', 'int64'):
+        np.testing.assert_array_equal(
+            got[:4], [0, 2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1])
+    if out_dtype == 'uint8':
+        np.testing.assert_array_equal(got[6:8], [0, 255])
 
 
 # ------------------------------------------------------ squeeze, split

@@ -18,7 +18,8 @@ line: for each case and tensor, whether the two files hold the same bits;
 differs.  The cases are the head dims 64 and 128 in both dtypes, at the
 paths' shapes (the flash training step's, the training llama's) and at
 ragged ones, and the other head dims (padded instances up to 128; above
-it the forward's instance of width 256 and the CUDA-core backward).
+it the instances of width 256, and the float32 backward's CUDA-core
+kernels).
 Needs a CUDA card for `--save`.
 """
 import argparse
@@ -47,18 +48,20 @@ CASES = {
     'cc_f32_d136': (2, 8, 2, 70, 90, 136, False, [90, 45], 'float32'),
     'cc_f32_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'float32'),
     'cc_bf16_d200': (2, 8, 1, 70, 90, 200, True, [90, 45], 'bfloat16'),
+    'wide_bf16_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'bfloat16'),
 }
 NAMES = ('out', 'lse', 'dq', 'dk', 'dv')
 
 
 def is_held(case, tensor):
-    """Whether `tensor` of `case` must keep its bits: the forward up to D
-    = 128 and the backward at every D (the kernels they run are
-    unchanged).  What may move: the forward above 128, which runs a new
-    kernel (the tensor-core instance of width 256 in place of the
-    CUDA-core one), and which the card checks hold to the plain version
-    instead."""
-    return tensor not in ('out', 'lse') or CASES[case][5] <= 128
+    """Whether `tensor` of `case` must keep its bits: the forward at every
+    D, the float32 backward at every D and the bf16 backward up to D = 128
+    (the kernels they run are unchanged).  What may move: the bf16
+    backward above 128, which runs new kernels (the tensor-core instances
+    of width 256 in place of the CUDA-core ones), and which the card
+    checks hold to the plain version instead."""
+    _, _, _, _, _, D, _, _, dtype = CASES[case]
+    return tensor in ('out', 'lse') or D <= 128 or dtype == 'float32'
 
 
 def save(root, path):
