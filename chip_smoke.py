@@ -56,14 +56,14 @@ Phases, each printing JSON lines:
               256 checked and timed at serving_d256's shape (B=4, H=16 /
               16, T=2048, D=256, causal), timed at D = 256 (B=2, H=16 / 8,
               T=1024) beside the CUDA-core kernel it replaced and SDPA
-              (d256_fwd_designs); K2 and K3 (bf16: the tensor-core
-              instances of width 256; float32: the CUDA-core kernels) timed
-              there and at the AMP step's shape (B=2, H=16 / 16, T=2048)
-              beside SDPA's whole backward, and in bf16 the CUDA-core pair
-              they replaced (d256_bwd_designs); all three checked at D =
-              256, 136, 200 (MQA) and 248 with k_len 0 and 1 rows, Tq < Tk
-              and ragged tiles; Adam's bf16 instance at the llama's 147
-              tensors
+              (d256_fwd_designs); K2 and K3 in the tensor-core instances
+              of width 256 (bf16; float32 as 3xTF32 in clusters of two
+              blocks splitting D) timed there and at the AMP step's shape
+              (B=2, H=16 / 16, T=2048) beside SDPA's whole backward and
+              the CUDA-core pair they replaced (d256_bwd_designs); all
+              three checked at D = 256, 136, 200 (MQA) and 248 with k_len
+              0 and 1 rows, Tq < Tk and ragged tiles; Adam's bf16
+              instance at the llama's 147 tensors
   serving     llama_1b (full width, 16 layers, random weights from a seed)
               built through the port's layers, saved with
               save_inference_model, loaded by Predictor behind
@@ -218,7 +218,8 @@ Phases, each printing JSON lines:
               the tensor-core instance of width 256, the 4 dQ and 4 dK/dV
               a step included), peak memory, no plain version on the card;
               then the same in float32 in a fresh scope (2 graph steps;
-              the backward the CUDA-core pair)
+              every flash launch the 3xTF32 instance of width 256, the
+              backward as clusters of two blocks)
   train_llama_gpu_vs_cpu
               two steps from the same weights on the card and on the CPU:
               llama_1b widths cut to 2 layers, B = 2, T = 256, float32
@@ -229,7 +230,10 @@ Phases, each printing JSON lines:
               from build(dtype='bfloat16'), and GPT-J-6B's widths cut to
               1 layer at T = 128 under bf16 AMP (gptj_amp: D = 256, the
               instances of width 256), each within the bf16 bounds
-              tests/test_torch_llama_train.py derives
+              tests/test_torch_llama_train.py derives, and in float32
+              (gptj_f32: within the float32 bounds above; a profiled step
+              must run the width-256 3xTF32 dQ and dK/dV, no CUDA-core
+              kernel)
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu) run last, and that
@@ -247,9 +251,8 @@ shape: bf16 on tensor cores (the flash step; K1 also the bf16 served
 run) and float32 (3xTF32 on tensor cores; launches per served run for
 K1, per float32 step for K2 and K3), both also at the llama's D = 128
 and at the other head dims up to 128, and at width 256 (K1 per
-serving_d256 batch, K2 and K3 per step of training_llama_d256, bf16 on
-the tensor cores, float32 on the CUDA cores); with every phase run, a
-kernel or instance launched
+serving_d256 batch, K2 and K3 per step of training_llama_d256, all on
+the tensor cores); with every phase run, a kernel or instance launched
 on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
@@ -412,18 +415,17 @@ def flash_fwd_occupancy(lib):
 
 def flash_bwd_occupancy(lib):
     """The flash backward's shared memory a block and blocks an SM, for
-    the dQ and the dK/dV kernel of each instance (D = 64, 128, and the
-    padded ones of width 64 and 128, asked for at D = 40 and 96; in bf16
-    also D = 256 and the padded width 256, asked for at D = 200), as the
+    the dQ and the dK/dV kernel of each instance (D = 64, 128, 256, and
+    the padded ones of width 64, 128 and 256, asked for at D = 40, 96 and
+    200; float32 at width 256 a block of a two-block cluster), as the
     CUDA runtime reports them."""
     import ctypes
     res = {}
     for kind, kname in ((0, 'dq'), (1, 'dkv')):
         for dtype, code in (('float32', 0), ('bfloat16', 1)):
-            wide = ((256, 'd256'), (200, 'dp256_padded')) if code else ()
-            for D, inst in ((64, 'd64'), (128, 'd128'),
-                            (40, 'dp64_padded'),
-                            (96, 'dp128_padded')) + wide:
+            for D, inst in ((64, 'd64'), (128, 'd128'), (256, 'd256'),
+                            (40, 'dp64_padded'), (96, 'dp128_padded'),
+                            (200, 'dp256_padded')):
                 smem, blocks = ctypes.c_int(), ctypes.c_int()
                 rc = lib.pt_flash_bwd_occupancy(D, code, kind,
                                                 ctypes.byref(smem),
@@ -512,7 +514,8 @@ def flash_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
     if design == 'port' and D not in (64, 128, 256):
         res.update(DP=_padded_width(D), useful_share=D / _padded_width(D))
     if profiled:
-        res['profiled_kernels'] = fwd_kernels_profiled(run, dtype, D)
+        res['profiled_kernels'], res['profile_tries'] = \
+            fwd_kernels_profiled(run, dtype, D)
     if 0 in kl:
         zero_rows = out[torch.tensor(kl) == 0].float().abs().max()
         res['k_len0_rows_max_abs'] = float(zero_rows)
@@ -654,10 +657,9 @@ def _bwd_tc(D, dtype):
 
 def _bwd_rate(dtype, D, design='port'):
     """The PEAK_FLOPS key of the flash backward's design at (dtype, D):
-    the port's, tensor cores at every D up to 256 in bf16 and up to 128
-    in float32 (as 3xTF32; D other than 64, 128 and 256 padded) and CUDA
-    cores above, or the CUDA-core kernels (design 'cc',
-    csrc/flash_cc.cu)."""
+    the port's, tensor cores at every D up to 256 (float32 as 3xTF32; D
+    other than 64, 128 and 256 padded), or the CUDA-core kernels (design
+    'cc', csrc/flash_cc.cu, on no path)."""
     if design == 'cc' or not _bwd_tc(D, dtype):
         return 'float32'
     return 'tf32x3' if dtype == 'float32' else dtype
@@ -709,13 +711,17 @@ def fwd_kernels_profiled(run, dtype, D):
     from the profiler (names up to their arguments, template arguments
     included): one launch of the design the port routes (dtype, D) to, a
     tensor-core kernel in the instance of D's width.  A trace without it
-    is taken again, up to PROFILE_TRIES times."""
+    is taken again, up to PROFILE_TRIES times.  Each trace runs a short
+    spin kernel ahead of run(): in two card runs a lone short forward
+    (Tq 37 x Tk 161) left three traces in a row without it.  -> (kernels,
+    the traces taken)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     got = {}
-    for _ in range(PROFILE_TRIES):
+    for tries in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100000)
             run()
             torch.cuda.synchronize()
         for e in prof.key_averages():
@@ -730,14 +736,14 @@ def fwd_kernels_profiled(run, dtype, D):
             _padded_width(D), D not in (64, 128, 256))
     require(ok, 'flash forward at D = %d, %s: profiled %s, expected one %s'
             % (D, dtype, got, want))
-    return got
+    return got, tries
 
 
 def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
                    outs):
     """The CUDA-core design of K2 (`entry` pt_flash_cc_bwd_dq) or K3
     (pt_flash_cc_bwd_dkv) of csrc/flash_cc.cu, called directly into
-    `outs`: the port routes every D up to 128 to csrc/flash_bwd.cu, so
+    `outs`: the port routes every D up to 256 to csrc/flash_bwd.cu, so
     this times the design the tensor-core kernels replaced, uncounted."""
     import torch
     from paddle_tpu_torch import kernels
@@ -757,8 +763,7 @@ def _cc_bwd_launch(entry, q, k, v, kl_t, lse, delta, do, causal, scale,
 def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     """The flash backward kernels one port backward at (B, H, Hkv, T, D,
     causal) launches, by design, from the profiler: the tensor-core pair
-    of its dtype where bwd_tensor_core takes (D, dtype), else the
-    CUDA-core pair.  The
+    of its dtype (bwd_tensor_core), never the CUDA-core pair.  The
     profiler drops events now and then: a trace without both is taken
     again, up to PROFILE_TRIES times."""
     import torch
@@ -770,8 +775,9 @@ def bwd_designs_profiled(B, H, Hkv, T, D, dtype):
     k, v = (torch.randn(B, Hkv, T, D, generator=g, device='cuda').to(dt)
             for _ in range(2))
     out, lse = att.flash_forward(q, k, v, True)
-    tc = ('cc' if not _bwd_tc(D, dtype) else
-          'tf32x3' if dtype == 'float32' else 'wgmma')
+    require(_bwd_tc(D, dtype), 'no tensor-core backward at D = %d, %s'
+            % (D, dtype))
+    tc = 'tf32x3' if dtype == 'float32' else 'wgmma'
     want = {'bwd_dq_' + tc: 1, 'bwd_dkv_' + tc: 1}
     for _ in range(PROFILE_TRIES):
         got = {name: c for name, (_, c) in _profiled(
@@ -825,12 +831,21 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                                        causal, scale)
         dq, dk, dv = att.flash_backward(q, k, v, kl_t, out, lse, do, causal,
                                         scale)
-    rq, rk, rv = att.flash_backward_reference(q, k, v, kl_t, out, lse, do,
-                                              causal, scale)
+    # float32 is held to the plain backward evaluated in float64 on the
+    # same inputs (the exact gradients), as the card tests hold it: where a
+    # k_len = 1 row of a GQA or MQA group cancels dS = P (dP - delta), the
+    # plain version's own float32 rounding misses the float32 check (1.17x
+    # at d256_mqa_noncausal on an H100), so only kernels that round as it
+    # does could match it
+    exact = (q, k, v, out, lse, do) if dtype != 'float32' else \
+        tuple(t.double() for t in (q, k, v, out, lse, do))
+    rq, rk, rv = att.flash_backward_reference(
+        exact[0], exact[1], exact[2], kl_t, exact[3], exact[4], exact[5],
+        causal, scale)
     torch.cuda.synchronize()
-    # float32: both sum in float32 in other orders, and dS = P (dP - delta)
-    # cancels, so the bound is relative to the largest gradient; bfloat16:
-    # both round an (almost equal) float32 result to bf16 once
+    # float32: sums in other orders, and dS = P (dP - delta) cancels, so
+    # the bound is relative to the largest gradient; bfloat16: both round
+    # an (almost equal) float32 result to bf16 once
     rtol, arel = (1e-4, 1e-5) if dtype == 'float32' else (8e-3, 2e-3)
     res = {}
     for kname, outs, refs in (('flash_attention_bwd_dq', (dq,), (rq,)),
@@ -842,7 +857,8 @@ def flash_bwd_case(name, B, H, Hkv, Tq, Tk, D, causal, dtype, klen=None,
                    Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal, dtype=dtype,
                    design=design, k_len=kl,
                    max_abs_err=max(e for e, _ in errs), rtol=rtol,
-                   atol_of_max=arel)
+                   atol_of_max=arel, reference='the plain backward in ' + (
+                       'float64' if dtype == 'float32' else dtype))
         if 0 in kl:
             zero = torch.tensor(kl, device='cuda') == 0
             row['k_len0_max_abs'] = max(float(t[zero].float().abs().max())
@@ -1264,19 +1280,43 @@ def path_segments():
     return specs
 
 
-def _segment_library(spec, ents):
-    """One PyTorch call that does the bulk of a segment, where there is
-    one: a global-norm clip's rescale (every op of a flat group an
-    elementwise_mul by one scalar) is torch._foreach_mul of the gradients
-    by a device scalar.  -> a callable, or None."""
+# one-op segments whose function one PyTorch call computes, by op type
+_ONE_CALL = {'elementwise_add': 'add', 'elementwise_sub': 'sub',
+             'elementwise_mul': 'mul', 'elementwise_div': 'div',
+             'relu': 'relu', 'sigmoid': 'sigmoid', 'tanh': 'tanh',
+             'exp': 'exp', 'sqrt': 'sqrt'}
+
+
+def _segment_library(spec, ents, refs):
+    """One PyTorch call that computes a segment's function, where there is
+    one: a one-op segment whose op is one torch call on its inputs (as
+    broadcast by torch, checked against the segment's replay `refs`), or a
+    global-norm clip's rescale (every op of a flat group an
+    elementwise_mul by one scalar), the bulk of which is torch._foreach_mul
+    of the gradients by a device scalar.  -> (callable, what it is), or
+    None for a fused chain of ops, which no one call computes."""
     import torch
+    if len(spec.ops) == 1 and len(refs) == 1:
+        name = _ONE_CALL.get(spec.ops[0][0]['type'])
+        fn = name and getattr(torch, name)
+        try:
+            got = fn and fn(*ents)
+        except (RuntimeError, TypeError):
+            got = None
+        if got is not None and got.shape == refs[0].reshape(
+                got.shape).shape and _close(got, refs[0].reshape(
+                    got.shape), 1e-6, 0.0)[1]:
+            return (lambda: fn(*ents),
+                    'torch.%s of the segment\'s inputs' % name)
     flat = [op for op in spec.ops if op[4] > 1]
     if len(flat) < 2 or any(op[0]['type'] != 'elementwise_mul'
                             for op in flat):
         return None
     grads = [t for t, e in zip(ents, spec.entries) if e[1] == 'tile']
     scale = torch.full((), 0.5, device='cuda')
-    return lambda: torch._foreach_mul(grads, scale)
+    return (lambda: torch._foreach_mul(grads, scale),
+            'torch._foreach_mul of the segment\'s flat inputs by one '
+            'device scalar')
 
 
 def segment_case(spec, ops, paths, timed=True):
@@ -1311,14 +1351,13 @@ def segment_case(spec, ops, paths, timed=True):
                 (), dtype=torch_dtype(d)).element_size()
                 for s, d in list(spec.entry_avals) + list(spec.esc_aval))
             bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
-            lib = _segment_library(spec, ents)
+            lib = _segment_library(spec, ents, refs)
             row.update(ms=time_ms(lambda: kernelgen._launch(spec, ents), 50),
                        plain_ms=time_ms(lambda: spec.replay(ents), 20),
-                       library_ms=lib and time_ms(lib, 50),
+                       library_ms=lib and time_ms(lib[0], 50),
+                       library_is=lib[1] if lib else 'none: a fused chain '
+                       'of ops, which no one PyTorch call computes',
                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
-            if lib:
-                row['library_is'] = ('torch._foreach_mul of the segment\'s '
-                                     'flat inputs by one device scalar')
             row['gbps'] = nbytes / row['ms'] / 1e6
     emit(**row)
     require(all(o for _, o in errs), 'generated segment %s disagrees with '
@@ -1533,17 +1572,18 @@ def phase_kernels():
                        klen=[150, 0, 1])
         flash_bwd_case('d120_tq_lt_tk_' + dt, 3, 8, 4, 37, 161, 120, True,
                        dt, klen=[161, 100, 1])
-        # the head dims above 128: K1 on the tensor cores in the instance
-        # of width 256 (csrc/flash_fwd.cu); K2 and K3 there too in bf16
-        # (csrc/flash_bwd.cu), on the CUDA cores in float32
-        # (csrc/flash_cc.cu).  K1's instance row is its main path's shape,
+        # the head dims above 128: K1, K2 and K3 on the tensor cores in
+        # the instances of width 256 (csrc/flash_fwd.cu, csrc/flash_bwd.cu;
+        # the float32 backward as clusters of two blocks splitting D).
+        # K1's instance row is its main path's shape,
         # serving_d256's batch (4 rows x 2048 tokens, 16 / 16 heads, D =
         # 256), K2's and K3's the AMP step's of training_llama_d256 (2
         # rows x 2048, 16 / 16 heads); at B 2, H 16 / 8, T 1024, D = 256
         # K1 is timed beside the CUDA-core kernel it replaced and SDPA
         # (d256_fwd_designs), and K2 / K3 at that shape and the AMP
-        # step's beside the CUDA-core pair and SDPA's whole backward
-        # (d256_bwd_designs), in this call.  Checked at D = 256 and the
+        # step's beside the CUDA-core pair they replaced and SDPA's whole
+        # backward (d256_bwd_designs), in this call.  Checked at D = 256
+        # and the
         # padded 136, 200 (MQA) and 248 with k_len 0 and 1 rows, Tq < Tk
         # and ragged last query and key tiles, the kernel and instance
         # read from the profiler
@@ -1582,23 +1622,29 @@ def phase_kernels():
                        bound_share_dq=dq['bound_share'],
                        bound_share_dkv=dkv['bound_share'],
                        bwd_plain_ms=dq['plain_ms'])
+            # the CUDA-core pair the tensor-core one replaced
+            cc = flash_bwd_case(name + '_cc', B, H, Hkv, T, T, 256, True,
+                                dt, timed=True, design='cc')
+            cdq, cdkv = (cc[n]['ms'] for n in (
+                'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'))
+            for kname in cc:
+                bwd[kname]['cuda_core_ms'] = cc[kname]['ms']
+            row.update(cuda_core_dq_ms=cdq, cuda_core_dkv_ms=cdkv,
+                       cuda_core_pair_ms=cdq + cdkv,
+                       speedup_pair=(cdq + cdkv) / pair,
+                       cuda_core_bound_share_dq=cc[
+                           'flash_attention_bwd_dq']['bound_share'],
+                       cuda_core_bound_share_dkv=cc[
+                           'flash_attention_bwd_dkv']['bound_share'])
             if dt == 'bfloat16':
-                # the CUDA-core pair the tensor-core one replaced; the dV
-                # and dK blocks compute S^T both (10 D FLOPs a valid pair
-                # where the function needs 8 D: the bound counts 8)
-                cc = flash_bwd_case(name + '_cc', B, H, Hkv, T, T, 256,
-                                    True, dt, timed=True, design='cc')
-                cdq, cdkv = (cc[n]['ms'] for n in (
-                    'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'))
-                for kname in cc:
-                    bwd[kname]['cuda_core_ms'] = cc[kname]['ms']
+                # the dV and dK blocks compute S^T both (10 D FLOPs a
+                # valid pair where the function needs 8 D: the bound
+                # counts 8)
                 row.update(design='tensor cores (wgmma, width 256)',
-                           cuda_core_dq_ms=cdq, cuda_core_dkv_ms=cdkv,
-                           cuda_core_pair_ms=cdq + cdkv,
-                           speedup_pair=(cdq + cdkv) / pair,
                            dkv_design_flops=dkv['flops'] * 10 / 8)
             else:
-                row.update(design='CUDA cores (csrc/flash_cc.cu)')
+                row.update(design='tensor cores (3xTF32 wgmma, width 256, '
+                           'clusters of two blocks splitting D)')
             shapes[shape] = row
             if shape == 'amp_step':
                 for kname in ('flash_attention_bwd_dq',
@@ -3916,14 +3962,19 @@ GPTJ_TRAIN_REDUCED = GPTJ_REDUCED + [
     'bf16 AMP (Program.set_amp(True)): Adam (beta2 0.95, lr 3e-4) behind '
     'clip by global norm 1.0, B 2 rows of 2048 tokens from make_batch, '
     'one repeated batch']
-# the flash kernels of one step of it (4 layers, D = 256): by design, and
-# under AMP by instance (the profiler's names, template arguments kept)
+# the flash kernels of one step of it (4 layers, D = 256), under AMP and
+# in float32: by design, and by instance (the profiler's names, template
+# arguments kept)
 GPTJ_FLASH = {
     'bfloat16': {'fwd_wgmma': 4, 'bwd_dq_wgmma': 4, 'bwd_dkv_wgmma': 4},
-    'float32': {'fwd_tf32x3': 4, 'bwd_dq_cc': 4, 'bwd_dkv_cc': 4}}
-GPTJ_AMP_INSTANCES = {'flash_fwd_wgmma_kernel<256, false, 8>': 4,
-                      'flash_bwd_dq_wgmma_kernel<256, false>': 4,
-                      'flash_bwd_dkv_wgmma_kernel<256, false>': 4}
+    'float32': {'fwd_tf32x3': 4, 'bwd_dq_tf32x3': 4, 'bwd_dkv_tf32x3': 4}}
+GPTJ_INSTANCES = {
+    'bfloat16': {'flash_fwd_wgmma_kernel<256, false, 8>': 4,
+                 'flash_bwd_dq_wgmma_kernel<256, false>': 4,
+                 'flash_bwd_dkv_wgmma_kernel<256, false>': 4},
+    'float32': {'flash_fwd_tf32x3_kernel<256, false, 8>': 4,
+                'flash_bwd_dq_tf32x3_kernel<256, false, 8>': 4,
+                'flash_bwd_dkv_tf32x3_kernel<256, false, 8>': 4}}
 
 
 def step_breakdown(fn, want=None):
@@ -3965,9 +4016,9 @@ def phase_training_llama_d256(smi):
     step, the capture, 3 graph steps (2 in float32), profiles of two graph
     steps (device busy by group, idle share, the flash kernels by design
     and instance), peak memory, launches a step, no plain version on the
-    card.  Under AMP every flash launch must be the tensor-core instance
-    of width 256, the backward's 4 dQ and 4 dK/dV a step included; in
-    float32 the backward is the CUDA-core pair.  -> {path: launches a
+    card.  Every flash launch must be the tensor-core instance of width
+    256, the backward's 4 dQ and 4 dK/dV a step included (in float32 the
+    3xTF32 pair in clusters of two blocks).  -> {path: launches a
     step}."""
     import gc
     import torch
@@ -4018,8 +4069,7 @@ def phase_training_llama_d256(smi):
                 mem = _peak_memory()
                 (_, _, flash_g, seen, groups), counted, tries = \
                     _profiled_launches(two_steps)
-                want = ({k: 2 * v for k, v in GPTJ_AMP_INSTANCES.items()}
-                        if amp else None)
+                want = {k: 2 * v for k, v in GPTJ_INSTANCES[dtype].items()}
                 wall, busy, by_group, flash_kernels = step_breakdown(
                     two_steps, want)
             med = float(np.median(graph_ms))
@@ -4060,10 +4110,9 @@ def phase_training_llama_d256(smi):
             require(got == want_design, '%s: flash kernels in two profiled '
                     'graph steps: %s, expected %s' % (path, got, want_design))
             _seen_on_device(path + ' graph', groups, counted)
-            if amp:
-                require(flash_kernels == want, '%s: flash kernels by '
-                        'instance in two graph steps: %s, expected %s'
-                        % (path, flash_kernels, want))
+            require(flash_kernels == want, '%s: flash kernels by instance '
+                    'in two graph steps: %s, expected %s'
+                    % (path, flash_kernels, want))
         launches.update(seg)
         paths[path] = launches
         del scope, exe, main, startup, out
@@ -4079,8 +4128,10 @@ def phase_train_llama_gpu_vs_cpu():
     backward's padded instances of width 64 on the card) in float32 and
     from build(dtype='bfloat16'); and GPT-J-6B's widths (D = 256) cut to
     1 layer at T = 128 under bf16 AMP (gptj_amp: the instances of width
-    256 on the card).  -> {path: launches a step on the card} for the
-    runs but llama_1b_2l."""
+    256 on the card) and in float32 (gptj_f32: a third step on the card,
+    profiled, must launch the width-256 3xTF32 dQ and dK/dV, the
+    clusters of two blocks, and no CUDA-core kernel).  -> {path:
+    launches a step on the card} for the runs but llama_1b_2l."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
@@ -4092,7 +4143,9 @@ def phase_train_llama_gpu_vs_cpu():
             ('tiny_f32', 'tiny', {}, 'float32', False),
             ('tiny_bf16', 'tiny', {}, 'bfloat16', False),
             ('gptj_amp', 'tiny', dict(GPTJ_CFG, n_layer=1, max_len=128),
-             'float32', True)):
+             'float32', True),
+            ('gptj_f32', 'tiny', dict(GPTJ_CFG, n_layer=1, max_len=128),
+             'float32', False)):
         main, startup, out = _llama_program(fluid, llama, config, dtype,
                                             **over)
         main.set_amp(amp)
@@ -4188,6 +4241,15 @@ def phase_train_llama_gpu_vs_cpu():
             row.update(loss_atol=loss_tol, global_norm_rtol=norm_rtol,
                        loss_abs_err=abs_err)
             ok = max(abs_err) <= loss_tol and norm_err[0] <= norm_rtol and p_ok
+        if name == 'gptj_f32':
+            # the kernels of a third step on the card, after the compared
+            # two: the float32 flash at width 256, all on tensor cores
+            want = {k: 1 for k in GPTJ_INSTANCES['float32']}
+            with fluid.scope_guard(gpu):
+                flash = step_breakdown(lambda: gexe.run(
+                    main, feed=feed, fetch_list=[out['loss']]), want)[3]
+            row['profiled_flash_kernels'] = flash
+            ok = ok and flash == want
         emit(**row)
         require(all(np.isfinite(res['gpu'][0])), 'non-finite GPU loss')
         require(ok, 'gpu vs cpu (%s): %s' % (name, row))
@@ -4196,9 +4258,10 @@ def phase_train_llama_gpu_vs_cpu():
     require(paths['train_llama_tiny_f32'].get('flash_attention_fwd') == 2,
             'the tiny llama did not run the flash kernels on the card: %s'
             % paths)
-    require(paths['train_llama_gptj_amp'].get('flash_attention_bwd_dkv') == 1,
-            'the GPT-J-width llama did not run the flash backward on the '
-            'card: %s' % paths)
+    for name in ('train_llama_gptj_amp', 'train_llama_gptj_f32'):
+        require(paths[name].get('flash_attention_bwd_dkv') == 1,
+                'the GPT-J-width llama did not run the flash backward on '
+                'the card (%s): %s' % (name, paths))
     return paths
 
 
@@ -4248,20 +4311,14 @@ _INSTANCES = {
     'bfloat16_other_d': ('bfloat16', None, None,
                          ('serving_d96_bf16', 'train_llama_tiny_bf16')),
     'float32_d256': ('float32', None, None,
-                     ('serving_d256_f32', 'training_llama_d256_f32')),
+                     ('serving_d256_f32', 'training_llama_d256_f32',
+                      'train_llama_gptj_f32')),
     'bfloat16_d256': ('bfloat16', 'wgmma, tensor cores, the instances of '
                       'width 256 (D 136-256; the products over rows '
                       'm64n256k16; dK/dV as dV and dK blocks)', None,
                       ('serving_d256_bf16', 'training_llama_d256',
                        'train_llama_gptj_amp')),
 }
-# instances whose source is not their kernel's: the float32 backward
-# above 128, the CUDA-core kernels
-_INSTANCE_SOURCES = {
-    ('flash_attention_bwd_dq', 'float32_d256'):
-        'paddle_tpu_torch/csrc/flash_cc.cu',
-    ('flash_attention_bwd_dkv', 'float32_d256'):
-        'paddle_tpu_torch/csrc/flash_cc.cu'}
 # the float32 designs of K1-K3 at each head dim
 _F32_DESIGNS = {
     ('flash_attention_fwd', 'float32'): '3xTF32 wgmma, tensor cores',
@@ -4279,9 +4336,13 @@ _F32_DESIGNS = {
         '3xTF32 wgmma, tensor cores, the instance of width 256 (D 136-256; '
         '16-key tiles, V^T split from registers)',
     ('flash_attention_bwd_dq', 'float32_d256'):
-        'CUDA cores (float32 FMAs), D 136-256',
+        '3xTF32 wgmma, tensor cores, the instance of width 256 (D 136-256; '
+        'clusters of two blocks splitting D, each 16-key ring tiles, partial '
+        'S and dP exchanged through distributed shared memory)',
     ('flash_attention_bwd_dkv', 'float32_d256'):
-        'CUDA cores (float32 FMAs), D 136-256',
+        '3xTF32 wgmma, tensor cores, the instance of width 256 (D 136-256; '
+        'clusters of two blocks splitting D, each 16-row ring tiles, partial '
+        'S^T and dP^T exchanged through distributed shared memory)',
 }
 # every generated segment: the generator's source, the TPU generator
 SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
@@ -4372,6 +4433,8 @@ def main(argv=None):
                    'training_llama_d256_f32', {}),
                'train_llama_gptj_amp': llama_tiny.get(
                    'train_llama_gptj_amp', {}),
+               'train_llama_gptj_f32': llama_tiny.get(
+                   'train_llama_gptj_f32', {}),
                # per 4-row batch of the Phi-3-mini-width llama (D = 96)
                'serving_d96_f32': served_d96.get('serving_d96_f32', {}),
                'serving_d96_bf16': served_d96.get('serving_d96_bf16', {}),
@@ -4445,8 +4508,7 @@ def main(argv=None):
                 inst = dict(
                     key=key, dtype=dt,
                     design=design or _F32_DESIGNS[name, key],
-                    source=_INSTANCE_SOURCES.get((name, key),
-                                                 isrc or src),
+                    source=isrc or src,
                     case=r['case'], D=r['D'],
                     launches=instance_launches(name, key),
                     launches_by_path=path_counts(name, ipaths),

@@ -1,8 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV on tensor
 // cores (wgmma), bf16 directly and float32 as 3xTF32, at every head dim D
-// with D % 8 == 0 up to 128 (instances of width 64 and 128), and bf16 up
-// to 256 (instances of width 256; float32 above 128 runs
-// csrc/flash_cc.cu).
+// with D % 8 == 0 up to 256 (instances of width 64, 128 and 256; float32
+// at width 256 as clusters of two blocks that split D).
 //
 // Replaces paddle_tpu/ops/attention.py:125 _flash_dq_kernel (K2) and
 // :167 _flash_dkv_kernel_resident / :220 _flash_dkv_kernel (K3), which the
@@ -156,10 +155,50 @@
 // the tensor cores, bound them.  ptxas: 170 registers (dQ) and 202
 // (dK/dV) at D = 64, 155 and 253 at D = 128, no spills; 164,888 and
 // 198,168 bytes of shared memory a block at D = 64, 230,424 and 230,680
-// at D = 128, one block an SM, as the CUDA runtime reports them.  Not yet used: a producer warp, a
-// cluster of two blocks splitting D (each keeps the D = 64 layout and
-// adds partial S and dP through distributed shared memory), the second
-// products in transposed form (no transposed copies), a persistent grid.
+// at D = 128, one block an SM, as the CUDA runtime reports them.  Not
+// yet used: a producer warp, the second products in transposed form (no
+// transposed copies), a persistent grid.
+//
+// float32 at width 256 (D = 136 .. 256), flash_bwd_dq_tf32x3_kernel<256,
+// PADDED, KC> and flash_bwd_dkv_tf32x3_kernel<256, PADDED, KC>: a cluster
+// of two blocks (cudaLaunchKernelEx, cluster dims (2, 1, 1), the grid's x
+// doubled) that split D.  What rules the design is shared memory: the D =
+// 128 layouts above keep two operands resident as hi + lo, 128 KB at
+// width 128 and 256 KB at 256, past the 227 KB a block may have, and they
+// leave about 2 KB free.  So each block of the pair runs the D = 128
+// layout and loop on its half of D: rank 0 on columns 0-127 (KC 4), rank
+// 1 on the KC - 4 regions from column 128 (one to four; its TMA boxes
+// start at column 128 of the same maps, so the columns at or past D
+// arrive as zeros, and a region wholly past D is neither loaded nor
+// split).  Each block reduces its partial S and dP (dQ) or S^T and dP^T
+// (dK/dV) for a ring tile with product_x3 as at D = 128, and the two add
+// their partial sums (exchange_partials): 8 KB a tile, written by st.async
+// into the ring stage of that tile in the peer, which both blocks split
+// in the pass before (no room for a buffer of its own), completing their
+// bytes on the peer's mbarrier; each block adds own + peer in float32,
+// which is commutative, so both hold the same S and dP bit for bit and
+// take the same masks, P and dS.  The products over rows (dS K; P^T dO
+// and dS^T Q) stay per block at width 128, and each block stores its own
+// columns of dQ, or dK and dV, at the true D.  dK/dV computes S^T once (8
+// D FLOPs a pair, not the 10 D of the bf16 width-256 dK/dV), with 64 + 64
+// accumulator registers a thread as at D = 128.  A pass splits the next
+// tile before the exchange (the peer writes only stages split before its
+// last exchange); in dK/dV a tile's Q^T and dO^T are transposed from its
+// split (transpose_t) beside its S^T and dP^T products, so a ring stage
+// is read by one split only.  Both blocks walk the same tiles, decided
+// from (b, h, tile) alone: a block that skipped a tile its peer exchanges
+// would wait on its barrier until the trap.  The rank picks one of two
+// fully unrolled bodies (KC a template argument in each: a run-time count
+// of k8 steps serializes the 3xTF32 products, C7515), one body at KC 8.
+// Two other forms timed slower on an H100: one barrier a tile with 128
+// remote arrivals (st.shared::cluster and mbarrier.arrive.release), and
+// a second barrier a stage to keep the split beside the products over
+// rows.  ptxas (sm_90a, -O3), no spills: dQ 193-197
+// registers, dK/dV 248-255; 230,440 and 230,696 bytes of shared memory a
+// block, one block an SM.  The rounding changes in one place, S = S0 +
+// S1 (and dP), which tests/test_torch_flash_bwd_tf32x3_numerics.py
+// models.  Not yet used: the exchange overlapped with the next tile's
+// products, TMA multicast of the shared rows, a producer warp.
 //
 // The other head dims (D % 8 == 0 up to 128, not 64 or 128; in bf16 also 136
 // .. 248) run the instance of padded width DP = 64 (D < 64), DP = 128 (64 <
@@ -196,6 +235,8 @@
 #include "hopper_mma.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -852,19 +893,20 @@ constexpr int FLUSH_ROWS = 256;
 // out rows row0 .. row0 + 63 (below `rows`) of a [rows x dd] float32
 // tensor = (the first flush) or += acc x mul, in the accumulator layout
 // (2 NACC columns, of which the first dd, a multiple of 8, are stored);
-// then acc = 0
+// then acc = 0.  ld >= 0: the rows are ld apart (a cluster's block stores
+// its dd columns of a wider row)
 template <int NACC>
 __device__ __forceinline__ void flush_acc(float* __restrict__ out, int row0,
                                           int rows, float (&acc)[NACC],
                                           float mul, bool first,
-                                          int dd = 2 * NACC) {
+                                          int dd = 2 * NACC, int ld = -1) {
   constexpr int D = 2 * NACC;
   const int cq = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + hopper::acc_row(0) + 8 * h;
     if (r >= rows) continue;
-    float* op = out + (size_t)r * dd;
+    float* op = out + (size_t)r * (ld < 0 ? dd : ld);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       if (dd < D && j >= dd / 8) break;
@@ -901,6 +943,58 @@ __device__ __forceinline__ void product_rs_x3(float (&acc)[NACC],
   }
 }
 
+// The width-256 instances run as a cluster of two blocks that split D:
+// each block reduces S and dP (S^T and dP^T) over its 128 columns, and
+// the two add their partial sums.  exchange_partials writes this block's
+// partials a[NR], b[NR] into the peer's copy of `buf` (8 KB: float4 j of
+// thread t at j NT + t, so the thread that holds the same (row, column)
+// in the peer reads it) by st.async, each store completing its bytes on
+// the peer's xfull, then waits for the peer's bytes on its own xfull
+// (phase `parity`; thread 0 arrives expecting them) and adds them: a =
+// own + peer, rounded to nearest, which is peer + own, so both blocks
+// hold the same sums bit for bit.  `buf` is the ring stage of the tile
+// the pass works on, which both blocks split in the pass before, ahead of
+// that pass's exchange: so the peer, which writes here only after it
+// received this block's partials of the pass before, finds it free.  The
+// caller does not reuse `buf` before a __syncthreads after.  xfull[2]
+// alternates by pass (parity (t / 2) & 1): the peer's bytes of the next
+// pass may land before this block has waited for this one's.
+template <int NR>
+__device__ __forceinline__ void exchange_partials(float (&a)[NR],
+                                                  float (&b)[NR], float* buf,
+                                                  uint64_t* xfull,
+                                                  int parity,
+                                                  uint32_t peer) {
+  using namespace hopper;
+  static_assert(NR % 4 == 0, "whole float4s");
+  const int t = threadIdx.x;
+  const uint32_t rbuf = peer_addr(buf, peer), rbar = peer_addr(xfull, peer);
+#pragma unroll
+  for (int j = 0; j < NR / 4; ++j) {
+    st_async(rbuf + 16 * (j * NT + t),
+             make_float4(a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]),
+             rbar);
+    st_async(rbuf + 16 * ((NR / 4 + j) * NT + t),
+             make_float4(b[4 * j], b[4 * j + 1], b[4 * j + 2], b[4 * j + 3]),
+             rbar);
+  }
+  if (t == 0) mbar_expect_tx(xfull, 2 * NR * NT * sizeof(float));
+  mbar_wait_cluster(xfull, parity);
+  const float4* x = f4(buf);
+#pragma unroll
+  for (int j = 0; j < NR / 4; ++j) {
+    const float4 u = x[j * NT + t], w = x[(NR / 4 + j) * NT + t];
+    a[4 * j] += u.x;
+    a[4 * j + 1] += u.y;
+    a[4 * j + 2] += u.z;
+    a[4 * j + 3] += u.w;
+    b[4 * j] += w.x;
+    b[4 * j + 1] += w.y;
+    b[4 * j + 2] += w.z;
+    b[4 * j + 3] += w.w;
+  }
+}
+
 // ------------------------------------------------------------ dQ, float32
 
 template <int D>
@@ -918,18 +1012,20 @@ struct DqTf32Smem {
 
 // thread 0: K/V tile t of head kvh into ring stage s, its first KC
 // 32-column regions (a region wholly past the true head dim is not
-// loaded: no product reads it)
+// loaded: no product reads it), from column col0 on
 template <int KC, int D>
 __device__ __forceinline__ void load_kv_f32(DqTf32Smem<D>& sm,
                                             const CUtensorMap* tk,
                                             const CUtensorMap* tv, int kvh,
-                                            int t, int s) {
+                                            int t, int s, int col0 = 0) {
   constexpr int TT = ring_rows<D>();
   hopper::mbar_expect_tx(&sm.full[s], 2 * TT * 32 * KC * sizeof(float));
 #pragma unroll
   for (int c = 0; c < KC; ++c) {
-    hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], 32 * c, t * TT, kvh);
-    hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], 32 * c, t * TT, kvh);
+    hopper::tma_load_3d(sm.kraw[s][c], tk, &sm.full[s], col0 + 32 * c,
+                        t * TT, kvh);
+    hopper::tma_load_3d(sm.vraw[s][c], tv, &sm.full[s], col0 + 32 * c,
+                        t * TT, kvh);
   }
 }
 
@@ -947,57 +1043,65 @@ __device__ __forceinline__ void split_kv_tile(DqTf32Smem<D>& sm, int s,
                                sm.ktlo[tregion<TT>(vb)], tcol<TT>(vb));
 }
 
-// KC: the 32-column regions the products over D reduce, a compile-time
-// count (D / 32 unpadded; in the padded instances the regions that hold
-// columns below the true head dim, whose columns past it are TMA's zeros)
-template <int D, bool PADDED, int KC>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           const int* __restrict__ klen,
-                           float* __restrict__ dq, int H, int Hkv, int Tq,
-                           int Tk, int Dt, int causal, float scale) {
-  using namespace hopper;
-  constexpr int NC = D / 32;  // 32-column regions of a row
-  constexpr int TT = ring_rows<D>();
-  extern __shared__ uint8_t smem_raw[];
-  DqTf32Smem<D>& sm = *reinterpret_cast<DqTf32Smem<D>*>(align_1024(smem_raw));
+// The width-256 dQ: one block of a two-block cluster, rank r taking
+// columns col0 = 128 r on (KC of their 32-column regions), with the D =
+// 128 layout (DqTf32Smem<128>) and the peer's arrivals (xfull, one
+// barrier a pass parity: the peer's arrivals of the next pass may land
+// before this block has seen this one's).  A pass of tile t: S and dP
+// over this block's columns, tile t+1 split (its ring stage is then free),
+// the partials exchanged through ring stage t % 2 (split in the last
+// pass), that stage refilled, then P, dS and dQ += dS K on this block's
+// columns.  The peer writes stage t % 2 only after this block's arrival of
+// pass t-1, which comes after its split of tile t; both blocks walk the
+// same tiles, decided from (b, h, q tile) alone.
+struct DqClusterSmem : DqTf32Smem<128> {
+  uint64_t xfull[2];
+};
 
-  static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
+template <int KC>
+__device__ __forceinline__ void dq_cluster_half(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ klen,
+    float* __restrict__ dq, int H, int Hkv, int Tq, int Tk, int dd,
+    int causal, float scale, uint32_t rank) {
+  using namespace hopper;
+  constexpr int TT = ring_rows<128>();
+  extern __shared__ uint8_t smem_raw[];
+  DqClusterSmem& sm =
+      *reinterpret_cast<DqClusterSmem*>(align_1024(smem_raw));
   const int tid = threadIdx.x;
-  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
-  const int bh = blockIdx.x;
+  const int col0 = 128 * rank;
+  const int cols = min(128, dd - col0);  // this block's columns of dQ
+  const uint32_t peer = rank ^ 1;
+  const int bh = blockIdx.x / 2;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
   const int b = bh / H;
   const int kvh = b * Hkv + (bh % H) / (H / Hkv);
   const int kl = min(klen[b], Tk);
   const int offset = Tk - Tq;
-  // keys any row of this tile may see, as in the forward
   int kend = kl;
   if (causal) kend = min(kend, max(0, min(q0 + WQ, Tq) + offset));
   const int ntiles = (kend + TT - 1) / TT;
 
   if (tid == 0) {
     mbar_init(&sm.qbar, 1);
-    for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+    for (int s = 0; s < TSTAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.xfull[s], 1);  // thread 0, with the peer's bytes
+    }
     mbar_fence_init();
     if (ntiles > 0) {
       mbar_expect_tx(&sm.qbar, 2 * WQ * 32 * KC * sizeof(float));
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
-        tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
-        tma_load_3d(sm.dohi[c], &tdo, &sm.qbar, 32 * c, q0, bh);
+        tma_load_3d(sm.qhi[c], tq, &sm.qbar, col0 + 32 * c, q0, bh);
+        tma_load_3d(sm.dohi[c], tdo, &sm.qbar, col0 + 32 * c, q0, bh);
       }
       for (int s = 0; s < TSTAGES && s < ntiles; ++s)
-        load_kv_f32<KC>(sm, &tk, &tv, kvh, s, s);
+        load_kv_f32<KC>(sm, tk, tv, kvh, s, s, col0);
     }
   }
-  // this thread's two rows of the tile (acc_row(i) is r0 + 8 ((i >> 1) &
-  // 1)): LSE in base 2 and delta, 0 past Tq
   const int r0 = acc_row(0);
   const float sl2 = scale * LOG2E;
   float lse2[2], dl[2];
@@ -1010,29 +1114,27 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  float acc[D / 2];
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  bool first = true;  // no chain added into dq yet
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  bool first = true;
+  float* const out = dq + (size_t)bh * Tq * dd + col0;
 
-  // Q, dO and tile 0 are split before the loop; tile t+1 is split while
-  // tile t's dS K runs on the tensor cores
   if (ntiles > 0) {
     mbar_wait(&sm.qbar, 0);
     split_tf32<WQ * 8 * KC>(f4(sm.qhi[0]), f4(sm.qhi[0]), f4(sm.qlo[0]));
     split_tf32<WQ * 8 * KC>(f4(sm.dohi[0]), f4(sm.dohi[0]), f4(sm.dolo[0]));
     mbar_wait(&sm.full[0], 0);
     split_kv_tile<KC>(sm, 0, 0);
-    fence_proxy_async();  // the split copies are read by wgmma
+    fence_proxy_async();
   }
-  __syncthreads();
+  // both blocks run, their barriers are set up, tile 0 is split in both
+  // (the peer may write its stage)
+  cluster_sync();
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * TT, vb = t % 2;
-    // tile t's stage was split in the last pass: refill it
-    if (tid == 0 && t + TSTAGES < ntiles)
-      load_kv_f32<KC>(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+    const int k0 = t * TT, vb = t % 2, s = t % TSTAGES;
 
-    // S = Q K^T and dP = dO V^T: 64 query rows x TT keys
+    // partial S = Q K^T and dP = dO V^T over this block's columns
     float sbig[1][TT / 2], ssm[TT / 2], dpbig[4][TT / 2], dpsm[TT / 2];
     wgmma_fence();
     product_x3<32 * KC, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi[0],
@@ -1045,9 +1147,22 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     sum_terms(sbig, ssm, sacc);
     sum_terms(dpbig, dpsm, dp);
     __syncthreads();  // every warp is done with K and V split
+    if (t + 1 < ntiles) {
+      // K^T slot 1 - vb was read by tile t-1's dS K, waited for by all
+      const int s1 = (t + 1) % TSTAGES;
+      mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
+      split_kv_tile<KC>(sm, s1, 1 - vb);
+      fence_proxy_async();
+    }
+    exchange_partials(sacc, dp, sm.kraw[s][0], &sm.xfull[vb], (t / 2) & 1,
+                      peer);
+    __syncthreads();  // every thread has read the peer's partials
+    if (tid == 0 && t + TSTAGES < ntiles) {
+      fence_proxy_async();  // the peer's writes, then TMA's
+      load_kv_f32<KC>(sm, tk, tv, kvh, t + TSTAGES, s, col0);
+    }
 
-    // P = exp(scale S - LSE) and dS = P (dP - delta) under the masks, P =
-    // 0 where masked; interior tiles skip the mask
+    // P and dS under the masks, as in the width-128 kernel
     const bool interior = k0 + TT <= kl && q0 + WQ <= Tq &&
                           (!causal || k0 + TT - 1 <= q0 + offset);
 #pragma unroll
@@ -1064,31 +1179,205 @@ flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     uint32_t dshi[TT / 8][4], dslo[TT / 8][4];
     acc_to_tf32_split(dp, dshi, dslo);
 
-    // dQ += dS K, K^T staged keys contiguous
+    // dQ += dS K on this block's columns, K^T staged keys contiguous
     wgmma_fence();
     product_rs_x3(acc, dshi, dslo, sm.kthi[tregion<TT>(vb)] + tcol<TT>(vb),
                   sm.ktlo[tregion<TT>(vb)] + tcol<TT>(vb));
     wgmma_commit();
-    if (t + 1 < ntiles) {
-      // K^T slot 1 - vb was read by tile t-1's dS K, waited for by all
-      const int s1 = (t + 1) % TSTAGES;
-      mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
-      split_kv_tile<KC>(sm, s1, 1 - vb);
-      fence_proxy_async();
-    }
     wgmma_wait<0>();
     fence_regs(acc);
     keep_regs(dshi);
     keep_regs(dslo);
     if ((k0 + TT) % FLUSH_ROWS == 0 && t + 1 < ntiles) {
-      flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
+      flush_acc(out, q0, Tq, acc, scale, first, cols, dd);
       first = false;
     }
-    __syncthreads();  // tile t+1 split; every warp is done with K^T vb
   }
 
   // the last chain, x scale (a tile without keys writes zeros)
-  flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
+  flush_acc(out, q0, Tq, acc, scale, first, cols, dd);
+}
+
+// KC: the 32-column regions the products over D reduce, a compile-time
+// count (D / 32 unpadded; in the padded instances the regions that hold
+// columns below the true head dim, whose columns past it are TMA's zeros)
+template <int D, bool PADDED, int KC>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ klen,
+                           float* __restrict__ dq, int H, int Hkv, int Tq,
+                           int Tk, int Dt, int causal, float scale) {
+  if constexpr (D == 256) {
+    // a cluster of two blocks splitting D (dq_cluster_half): rank 0 takes
+    // columns 0-127, rank 1 the KC - 4 regions from 128 on; one fully
+    // unrolled body a rank
+    static_assert(KC >= 5 && KC <= 8 && (PADDED || KC == 8),
+                  "the regions of the second block");
+    const uint32_t rank = hopper::cluster_rank();
+    if constexpr (KC == 8) {
+      dq_cluster_half<4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dq, H, Hkv,
+                         Tq, Tk, PADDED ? Dt : D, causal, scale, rank);
+    } else if (rank == 0) {
+      dq_cluster_half<4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dq, H, Hkv,
+                         Tq, Tk, Dt, causal, scale, 0);
+    } else {
+      dq_cluster_half<KC - 4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dq, H,
+                              Hkv, Tq, Tk, Dt, causal, scale, 1);
+    }
+  } else {
+    using namespace hopper;
+    constexpr int NC = D / 32;  // 32-column regions of a row
+    constexpr int TT = ring_rows<D>();
+    extern __shared__ uint8_t smem_raw[];
+    DqTf32Smem<D>& sm = *reinterpret_cast<DqTf32Smem<D>*>(align_1024(smem_raw));
+
+    static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
+    const int tid = threadIdx.x;
+    const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
+    const int bh = blockIdx.x;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest tiles first
+    const int b = bh / H;
+    const int kvh = b * Hkv + (bh % H) / (H / Hkv);
+    const int kl = min(klen[b], Tk);
+    const int offset = Tk - Tq;
+    // keys any row of this tile may see, as in the forward
+    int kend = kl;
+    if (causal) kend = min(kend, max(0, min(q0 + WQ, Tq) + offset));
+    const int ntiles = (kend + TT - 1) / TT;
+
+    if (tid == 0) {
+      mbar_init(&sm.qbar, 1);
+      for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+      mbar_fence_init();
+      if (ntiles > 0) {
+        mbar_expect_tx(&sm.qbar, 2 * WQ * 32 * KC * sizeof(float));
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          tma_load_3d(sm.qhi[c], &tq, &sm.qbar, 32 * c, q0, bh);
+          tma_load_3d(sm.dohi[c], &tdo, &sm.qbar, 32 * c, q0, bh);
+        }
+        for (int s = 0; s < TSTAGES && s < ntiles; ++s)
+          load_kv_f32<KC>(sm, &tk, &tv, kvh, s, s);
+      }
+    }
+    // this thread's two rows of the tile (acc_row(i) is r0 + 8 ((i >> 1) &
+    // 1)): LSE in base 2 and delta, 0 past Tq
+    const int r0 = acc_row(0);
+    const float sl2 = scale * LOG2E;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + r0 + 8 * h;
+      const size_t row = (size_t)bh * Tq + qi;
+      lse2[h] = qi < Tq ? lse[row] * LOG2E : 0.f;
+      dl[h] = qi < Tq ? delta[row] : 0.f;
+    }
+    __syncthreads();
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    bool first = true;  // no chain added into dq yet
+
+    // Q, dO and tile 0 are split before the loop; tile t+1 is split while
+    // tile t's dS K runs on the tensor cores
+    if (ntiles > 0) {
+      mbar_wait(&sm.qbar, 0);
+      split_tf32<WQ * 8 * KC>(f4(sm.qhi[0]), f4(sm.qhi[0]), f4(sm.qlo[0]));
+      split_tf32<WQ * 8 * KC>(f4(sm.dohi[0]), f4(sm.dohi[0]), f4(sm.dolo[0]));
+      mbar_wait(&sm.full[0], 0);
+      split_kv_tile<KC>(sm, 0, 0);
+      fence_proxy_async();  // the split copies are read by wgmma
+    }
+    __syncthreads();
+    for (int t = 0; t < ntiles; ++t) {
+      const int k0 = t * TT, vb = t % 2;
+      // tile t's stage was split in the last pass: refill it
+      if (tid == 0 && t + TSTAGES < ntiles)
+        load_kv_f32<KC>(sm, &tk, &tv, kvh, t + TSTAGES, t % TSTAGES);
+
+      // S = Q K^T and dP = dO V^T: 64 query rows x TT keys
+      float sbig[1][TT / 2], ssm[TT / 2], dpbig[4][TT / 2], dpsm[TT / 2];
+      wgmma_fence();
+      product_x3<32 * KC, WQ>(sbig, ssm, sm.qhi, sm.qlo, sm.khi[0],
+                              sm.klo[0]);
+      product_x3<32 * KC, WQ>(dpbig, dpsm, sm.dohi, sm.dolo, sm.vhi[0],
+                              sm.vlo[0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      float sacc[TT / 2], dp[TT / 2];
+      sum_terms(sbig, ssm, sacc);
+      sum_terms(dpbig, dpsm, dp);
+      __syncthreads();  // every warp is done with K and V split
+
+      // P = exp(scale S - LSE) and dS = P (dP - delta) under the masks, P =
+      // 0 where masked; interior tiles skip the mask
+      const bool interior = k0 + TT <= kl && q0 + WQ <= Tq &&
+                            (!causal || k0 + TT - 1 <= q0 + offset);
+#pragma unroll
+      for (int i = 0; i < TT / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        bool valid = true;
+        if (!interior) {
+          const int ki = k0 + acc_col(i), qi = q0 + acc_row(i);
+          valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+        }
+        const float p = valid ? exp2f(sacc[i] * sl2 - lse2[h]) : 0.f;
+        dp[i] = valid ? p * (dp[i] - dl[h]) : 0.f;
+      }
+      uint32_t dshi[TT / 8][4], dslo[TT / 8][4];
+      acc_to_tf32_split(dp, dshi, dslo);
+
+      // dQ += dS K, K^T staged keys contiguous
+      wgmma_fence();
+      product_rs_x3(acc, dshi, dslo, sm.kthi[tregion<TT>(vb)] + tcol<TT>(vb),
+                    sm.ktlo[tregion<TT>(vb)] + tcol<TT>(vb));
+      wgmma_commit();
+      if (t + 1 < ntiles) {
+        // K^T slot 1 - vb was read by tile t-1's dS K, waited for by all
+        const int s1 = (t + 1) % TSTAGES;
+        mbar_wait(&sm.full[s1], ((t + 1) / TSTAGES) & 1);
+        split_kv_tile<KC>(sm, s1, 1 - vb);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      keep_regs(dshi);
+      keep_regs(dslo);
+      if ((k0 + TT) % FLUSH_ROWS == 0 && t + 1 < ntiles) {
+        flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
+        first = false;
+      }
+      __syncthreads();  // tile t+1 split; every warp is done with K^T vb
+    }
+
+    // the last chain, x scale (a tile without keys writes zeros)
+    flush_acc(dq + (size_t)bh * Tq * dd, q0, Tq, acc, scale, first, dd);
+  }
+}
+
+// a launch in clusters of two blocks along x (the grid's x is even)
+template <typename... Params, typename... Args>
+cudaError_t launch_pairs(void (*kernel)(Params...), dim3 grid, size_t smem,
+                         cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <int D, bool PADDED, int KC>
@@ -1104,15 +1393,27 @@ int launch_dq_tf32x3(const void* q, const void* k, const void* v,
   if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, TT);
   if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, TT);
   if (rc != 0) return rc;
-  const size_t smem = sizeof(DqTf32Smem<D>) + 1024;
+  // the width-256 instance lays each block of its cluster out as the
+  // width-128 one, with the peer's barriers
+  using Smem = std::conditional_t<D == 256, DqClusterSmem, DqTf32Smem<D>>;
+  const size_t smem = sizeof(Smem) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
-  flash_bwd_dq_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (float*)dq, H, Hkv, Tq, Tk, Dt, causal, scale);
+  if constexpr (D == 256) {
+    const dim3 grid(2 * B * H, (Tq + WQ - 1) / WQ);
+    e = launch_pairs(flash_bwd_dq_tf32x3_kernel<D, PADDED, KC>, grid, smem,
+                     stream, mq, mk, mv, mdo, (const float*)lse,
+                     (const float*)delta, (const int*)klen, (float*)dq, H,
+                     Hkv, Tq, Tk, Dt, causal, scale);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    const dim3 grid(B * H, (Tq + WQ - 1) / WQ);
+    flash_bwd_dq_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
+        mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+        (const int*)klen, (float*)dq, H, Hkv, Tq, Tk, Dt, causal, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1146,20 +1447,21 @@ __device__ __forceinline__ int qt_slot(int which, int vb) {
 }
 
 // thread 0: Q and dO of ring tile `pos` into stage s, their first KC
-// 32-column regions (as load_kv_f32)
+// 32-column regions from column col0 on (as load_kv_f32)
 template <int KC, int D>
 __device__ __forceinline__ void load_qdo_f32(DkvTf32Smem<D>& sm,
                                              const CUtensorMap* tq,
                                              const CUtensorMap* tdo,
-                                             RingPos pos, int s) {
+                                             RingPos pos, int s,
+                                             int col0 = 0) {
   constexpr int TT = ring_rows<D>();
   hopper::mbar_expect_tx(&sm.full[s], 2 * TT * 32 * KC * sizeof(float));
 #pragma unroll
   for (int c = 0; c < KC; ++c) {
-    hopper::tma_load_3d(sm.qraw[s][c], tq, &sm.full[s], 32 * c, pos.q0,
-                        pos.bh);
-    hopper::tma_load_3d(sm.doraw[s][c], tdo, &sm.full[s], 32 * c, pos.q0,
-                        pos.bh);
+    hopper::tma_load_3d(sm.qraw[s][c], tq, &sm.full[s], col0 + 32 * c,
+                        pos.q0, pos.bh);
+    hopper::tma_load_3d(sm.doraw[s][c], tdo, &sm.full[s], col0 + 32 * c,
+                        pos.q0, pos.bh);
   }
 }
 
@@ -1202,92 +1504,91 @@ __device__ __forceinline__ void split_qdo_tile(DkvTf32Smem<D>& sm, int s,
   if constexpr (WITH_T) split_qdo_t<KC>(sm, s, vb);
 }
 
-// KC as in flash_bwd_dq_tf32x3_kernel
-template <int D, bool PADDED, int KC>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
-                            const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            const __grid_constant__ CUtensorMap tdo,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            const int* __restrict__ klen,
-                            float* __restrict__ dk, float* __restrict__ dv,
-                            int H, int Hkv, int Tq, int Tk, int Dt,
-                            int causal, float scale) {
-  using namespace hopper;
-  constexpr int NC = D / 32;
-  constexpr int TT = ring_rows<D>();
-  // two transposed slots: tile it+1's Q^T, dO^T are written beside tile
-  // it's dV and dK products; one slot (D = 128): tile it's are written
-  // beside its own S^T and dP^T products, which do not read them
-  constexpr bool TWO_T = TT == 32;
-  extern __shared__ uint8_t smem_raw[];
-  DkvTf32Smem<D>& sm =
-      *reinterpret_cast<DkvTf32Smem<D>*>(align_1024(smem_raw));
+// The width-256 dK/dV: one block of a two-block cluster, rank r taking
+// columns col0 = 128 r on (KC regions), with the D = 128 layout
+// (DkvTf32Smem<128>, one transposed slot) and xfull as in dq_cluster_half.
+// A pass of ring tile it: S^T and dP^T over this block's columns, beside
+// them tile it's Q^T and dO^T transposed from its split (transpose_t: the
+// ring stage is then read no more); tile it+1 split with its LSE and
+// delta; the partials exchanged through ring stage it % 2; that stage
+// refilled; then P^T, dS^T, dV += P^T dO and dK += dS^T Q on this
+// block's columns.  Both blocks walk the same ring tiles, decided from
+// (b, hk, key tile) alone.
+struct DkvClusterSmem : DkvTf32Smem<128> {
+  uint64_t xfull[2];
+};
 
-  static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
+template <int KC>
+__device__ __forceinline__ void dkv_cluster_half(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ klen,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int Tq,
+    int Tk, int dd, int causal, float scale, uint32_t rank) {
+  using namespace hopper;
+  constexpr int TT = ring_rows<128>();
+  extern __shared__ uint8_t smem_raw[];
+  DkvClusterSmem& sm =
+      *reinterpret_cast<DkvClusterSmem*>(align_1024(smem_raw));
   const int tid = threadIdx.x;
-  const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
-  const int bkv = blockIdx.x;
+  const int col0 = 128 * rank;
+  const int cols = min(128, dd - col0);  // this block's columns
+  const uint32_t peer = rank ^ 1;
+  const int bkv = blockIdx.x / 2;
   const int k0 = blockIdx.y * WK;
   const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
   const int kl = min(klen[b], Tk);
   const int offset = Tk - Tq;
-  // the first query tile that sees this tile's first key (end-aligned
-  // causal); no work when every key of the tile is past k_len
   const int qt0 = causal ? max(0, k0 - offset) / TT : 0;
   const int nq = (Tq + TT - 1) / TT - qt0;
   const int total = (k0 < kl && nq > 0) ? g * nq : 0;
 
   if (tid == 0) {
     mbar_init(&sm.kvbar, 1);
-    for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+    for (int s = 0; s < TSTAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.xfull[s], 1);  // thread 0, with the peer's bytes
+    }
     mbar_fence_init();
     if (total > 0) {
       mbar_expect_tx(&sm.kvbar, 2 * WK * 32 * KC * sizeof(float));
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
-        tma_load_3d(sm.khi[c], &tk, &sm.kvbar, 32 * c, k0, bkv);
-        tma_load_3d(sm.vhi[c], &tv, &sm.kvbar, 32 * c, k0, bkv);
+        tma_load_3d(sm.khi[c], tk, &sm.kvbar, col0 + 32 * c, k0, bkv);
+        tma_load_3d(sm.vhi[c], tv, &sm.kvbar, col0 + 32 * c, k0, bkv);
       }
       for (int s = 0; s < TSTAGES && s < total; ++s)
-        load_qdo_f32<KC>(sm, &tq, &tdo,
-                         ring_pos(s, b, H, hk, g, qt0, nq, TT), s);
+        load_qdo_f32<KC>(sm, tq, tdo, ring_pos(s, b, H, hk, g, qt0, nq, TT),
+                         s, col0);
     }
   }
   __syncthreads();
 
   const float sl2 = scale * LOG2E;
-  float dka[D / 2], dva[D / 2];
+  float dka[64], dva[64];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
-  bool first = true;  // no chain added into dk, dv yet
-  float* const dkb = dk + (size_t)bkv * Tk * dd;
-  float* const dvb = dv + (size_t)bkv * Tk * dd;
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  bool first = true;
+  float* const dkb = dk + (size_t)bkv * Tk * dd + col0;
+  float* const dvb = dv + (size_t)bkv * Tk * dd + col0;
 
-  // K, V and ring tile 0 are split before the loop; tile it+1 is split
-  // while tile it's dV and dK products run on the tensor cores
   if (total > 0) {
     mbar_wait(&sm.kvbar, 0);
     split_tf32<WK * 8 * KC>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
     split_tf32<WK * 8 * KC>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
     mbar_wait(&sm.full[0], 0);
-    split_qdo_tile<KC, TWO_T>(sm, 0, 0,
+    split_qdo_tile<KC, false>(sm, 0, 0,
                               ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
                               delta, Tq);
     fence_proxy_async();
   }
-  __syncthreads();
+  // both blocks run, their barriers are set up, ring tile 0 is split
+  cluster_sync();
   for (int it = 0; it < total; ++it) {
     const int vb = it % 2, s = it % TSTAGES;
     const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, TT).q0;
-    // with two transposed slots, tile it's stage was read in the last pass
-    if (TWO_T && tid == 0 && it + TSTAGES < total)
-      load_qdo_f32<KC>(sm, &tq, &tdo,
-                       ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x TT query rows
+    // partial S^T = K Q^T and dP^T = V dO^T over this block's columns
     float stbig[1][TT / 2], stsm[TT / 2], dptbig[4][TT / 2], dptsm[TT / 2];
     wgmma_fence();
     product_x3<32 * KC, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi[0],
@@ -1295,23 +1596,38 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     product_x3<32 * KC, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi[0],
                             sm.dolo[0]);
     wgmma_commit();
-    if constexpr (!TWO_T) {
-      // tile it-1's dV and dK, which read the one slot, were waited for
-      split_qdo_t<KC>(sm, s, 0);
-      fence_proxy_async();
-    }
+    // Q^T beside dO^T in the one slot (read by tile it-1's dV and dK
+    // products, waited for by every warp)
+    transpose_t<32 * KC, TT>(sm.qhi[0], sm.thi[0], 0);
+    transpose_t<32 * KC, TT>(sm.qlo[0], sm.tlo[0], 0);
+    transpose_t<32 * KC, TT>(sm.dohi[0], sm.thi[0], 16);
+    transpose_t<32 * KC, TT>(sm.dolo[0], sm.tlo[0], 16);
+    fence_proxy_async();
     wgmma_wait<0>();
     float st[TT / 2], dpt[TT / 2];
     sum_terms(stbig, stsm, st);
     sum_terms(dptbig, dptsm, dpt);
-    __syncthreads();  // every warp is done with Q and dO split (one slot:
-                      // and has written Q^T and dO^T)
-    if (!TWO_T && tid == 0 && it + TSTAGES < total)
-      load_qdo_f32<KC>(sm, &tq, &tdo,
-                       ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
+    __syncthreads();  // every warp is done with Q and dO split and has
+                      // written Q^T and dO^T
+    if (it + 1 < total) {
+      const int s1 = (it + 1) % TSTAGES;
+      mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
+      split_qdo_tile<KC, false>(sm, s1, 1 - vb,
+                                ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
+                                lse, delta, Tq);
+      fence_proxy_async();
+    }
+    exchange_partials(st, dpt, sm.qraw[s][0], &sm.xfull[vb], (it / 2) & 1,
+                      peer);
+    __syncthreads();  // every thread has read the peer's partials
+    if (tid == 0 && it + TSTAGES < total) {
+      fence_proxy_async();  // the peer's writes, then TMA's
+      load_qdo_f32<KC>(sm, tq, tdo,
+                       ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s,
+                       col0);
+    }
 
-    // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
-    // under the masks, P = 0 where masked; interior tiles skip the mask
+    // P^T and dS^T under the masks, as in the width-128 kernel
     const bool interior = k0 + WK <= kl && q0 + TT <= Tq &&
                           (!causal || k0 + WK - 1 <= q0 + offset);
 #pragma unroll
@@ -1331,24 +1647,11 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     acc_to_tf32_split(st, phi, plo);
     acc_to_tf32_split(dpt, dshi, dslo);
 
-    // dV += P^T dO and dK += dS^T Q, dO^T and Q^T staged rows contiguous
-    const int sq = qt_slot<TT>(0, vb), sdo = qt_slot<TT>(1, vb);
+    // dV += P^T dO and dK += dS^T Q on this block's columns
     wgmma_fence();
-    product_rs_x3(dva, phi, plo, sm.thi[tregion<TT>(sdo)] + tcol<TT>(sdo),
-                  sm.tlo[tregion<TT>(sdo)] + tcol<TT>(sdo));
-    product_rs_x3(dka, dshi, dslo, sm.thi[tregion<TT>(sq)] + tcol<TT>(sq),
-                  sm.tlo[tregion<TT>(sq)] + tcol<TT>(sq));
+    product_rs_x3(dva, phi, plo, sm.thi[0] + 16, sm.tlo[0] + 16);
+    product_rs_x3(dka, dshi, dslo, sm.thi[0], sm.tlo[0]);
     wgmma_commit();
-    if (it + 1 < total) {
-      // Q and dO split were read by tile it's S^T and dP^T, waited for;
-      // with two slots, slot 1 - vb by tile it-1's products, waited for
-      const int s1 = (it + 1) % TSTAGES;
-      mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
-      split_qdo_tile<KC, TWO_T>(sm, s1, 1 - vb,
-                                ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
-                                lse, delta, Tq);
-      fence_proxy_async();
-    }
     wgmma_wait<0>();
     fence_regs(dva);
     fence_regs(dka);
@@ -1358,16 +1661,203 @@ flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     keep_regs(dslo);
     // a chain ends at every FLUSH_ROWS-th query row and with each head
     if (((q0 + TT) % FLUSH_ROWS == 0 || q0 + TT >= Tq) && it + 1 < total) {
-      flush_acc(dkb, k0, Tk, dka, scale, first, dd);
-      flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
+      flush_acc(dkb, k0, Tk, dka, scale, first, cols, dd);
+      flush_acc(dvb, k0, Tk, dva, 1.f, first, cols, dd);
       first = false;
     }
-    __syncthreads();  // tile it+1 split; every warp is done with slots vb
+    __syncthreads();  // every warp is done with Q^T and dO^T
   }
 
   // the last chain, dK x scale (a tile without work writes zeros)
-  flush_acc(dkb, k0, Tk, dka, scale, first, dd);
-  flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
+  flush_acc(dkb, k0, Tk, dka, scale, first, cols, dd);
+  flush_acc(dvb, k0, Tk, dva, 1.f, first, cols, dd);
+}
+
+// KC as in flash_bwd_dq_tf32x3_kernel
+template <int D, bool PADDED, int KC>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ klen,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Hkv, int Tq, int Tk, int Dt,
+                            int causal, float scale) {
+  if constexpr (D == 256) {
+    // a cluster of two blocks splitting D (dkv_cluster_half), as the dQ
+    // kernel's
+    static_assert(KC >= 5 && KC <= 8 && (PADDED || KC == 8),
+                  "the regions of the second block");
+    const uint32_t rank = hopper::cluster_rank();
+    if constexpr (KC == 8) {
+      dkv_cluster_half<4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk, dv, H,
+                          Hkv, Tq, Tk, PADDED ? Dt : D, causal, scale,
+                          rank);
+    } else if (rank == 0) {
+      dkv_cluster_half<4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk, dv, H,
+                          Hkv, Tq, Tk, Dt, causal, scale, 0);
+    } else {
+      dkv_cluster_half<KC - 4>(&tq, &tk, &tv, &tdo, lse, delta, klen, dk,
+                               dv, H, Hkv, Tq, Tk, Dt, causal, scale, 1);
+    }
+  } else {
+    using namespace hopper;
+    constexpr int NC = D / 32;
+    constexpr int TT = ring_rows<D>();
+    // two transposed slots: tile it+1's Q^T, dO^T are written beside tile
+    // it's dV and dK products; one slot (D = 128): tile it's are written
+    // beside its own S^T and dP^T products, which do not read them
+    constexpr bool TWO_T = TT == 32;
+    extern __shared__ uint8_t smem_raw[];
+    DkvTf32Smem<D>& sm =
+        *reinterpret_cast<DkvTf32Smem<D>*>(align_1024(smem_raw));
+
+    static_assert(PADDED ? KC <= NC : KC == NC, "regions of the products");
+    const int tid = threadIdx.x;
+    const int dd = PADDED ? Dt : D;       // the true head dim (row stride)
+    const int bkv = blockIdx.x;
+    const int k0 = blockIdx.y * WK;
+    const int b = bkv / Hkv, hk = bkv % Hkv, g = H / Hkv;
+    const int kl = min(klen[b], Tk);
+    const int offset = Tk - Tq;
+    // the first query tile that sees this tile's first key (end-aligned
+    // causal); no work when every key of the tile is past k_len
+    const int qt0 = causal ? max(0, k0 - offset) / TT : 0;
+    const int nq = (Tq + TT - 1) / TT - qt0;
+    const int total = (k0 < kl && nq > 0) ? g * nq : 0;
+
+    if (tid == 0) {
+      mbar_init(&sm.kvbar, 1);
+      for (int s = 0; s < TSTAGES; ++s) mbar_init(&sm.full[s], 1);
+      mbar_fence_init();
+      if (total > 0) {
+        mbar_expect_tx(&sm.kvbar, 2 * WK * 32 * KC * sizeof(float));
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          tma_load_3d(sm.khi[c], &tk, &sm.kvbar, 32 * c, k0, bkv);
+          tma_load_3d(sm.vhi[c], &tv, &sm.kvbar, 32 * c, k0, bkv);
+        }
+        for (int s = 0; s < TSTAGES && s < total; ++s)
+          load_qdo_f32<KC>(sm, &tq, &tdo,
+                           ring_pos(s, b, H, hk, g, qt0, nq, TT), s);
+      }
+    }
+    __syncthreads();
+
+    const float sl2 = scale * LOG2E;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    bool first = true;  // no chain added into dk, dv yet
+    float* const dkb = dk + (size_t)bkv * Tk * dd;
+    float* const dvb = dv + (size_t)bkv * Tk * dd;
+
+    // K, V and ring tile 0 are split before the loop; tile it+1 is split
+    // while tile it's dV and dK products run on the tensor cores
+    if (total > 0) {
+      mbar_wait(&sm.kvbar, 0);
+      split_tf32<WK * 8 * KC>(f4(sm.khi[0]), f4(sm.khi[0]), f4(sm.klo[0]));
+      split_tf32<WK * 8 * KC>(f4(sm.vhi[0]), f4(sm.vhi[0]), f4(sm.vlo[0]));
+      mbar_wait(&sm.full[0], 0);
+      split_qdo_tile<KC, TWO_T>(sm, 0, 0,
+                                ring_pos(0, b, H, hk, g, qt0, nq, TT), lse,
+                                delta, Tq);
+      fence_proxy_async();
+    }
+    __syncthreads();
+    for (int it = 0; it < total; ++it) {
+      const int vb = it % 2, s = it % TSTAGES;
+      const int q0 = ring_pos(it, b, H, hk, g, qt0, nq, TT).q0;
+      // with two transposed slots, tile it's stage was read in the last pass
+      if (TWO_T && tid == 0 && it + TSTAGES < total)
+        load_qdo_f32<KC>(sm, &tq, &tdo,
+                         ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x TT query rows
+      float stbig[1][TT / 2], stsm[TT / 2], dptbig[4][TT / 2], dptsm[TT / 2];
+      wgmma_fence();
+      product_x3<32 * KC, WK>(stbig, stsm, sm.khi, sm.klo, sm.qhi[0],
+                              sm.qlo[0]);
+      product_x3<32 * KC, WK>(dptbig, dptsm, sm.vhi, sm.vlo, sm.dohi[0],
+                              sm.dolo[0]);
+      wgmma_commit();
+      if constexpr (!TWO_T) {
+        // tile it-1's dV and dK, which read the one slot, were waited for
+        split_qdo_t<KC>(sm, s, 0);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      float st[TT / 2], dpt[TT / 2];
+      sum_terms(stbig, stsm, st);
+      sum_terms(dptbig, dptsm, dpt);
+      __syncthreads();  // every warp is done with Q and dO split (one slot:
+                        // and has written Q^T and dO^T)
+      if (!TWO_T && tid == 0 && it + TSTAGES < total)
+        load_qdo_f32<KC>(sm, &tq, &tdo,
+                         ring_pos(it + TSTAGES, b, H, hk, g, qt0, nq, TT), s);
+
+      // P^T = exp(scale S^T - LSE[col]) and dS^T = P^T (dP^T - delta[col])
+      // under the masks, P = 0 where masked; interior tiles skip the mask
+      const bool interior = k0 + WK <= kl && q0 + TT <= Tq &&
+                            (!causal || k0 + WK - 1 <= q0 + offset);
+#pragma unroll
+      for (int i = 0; i < TT / 2; ++i) {
+        const int qc = acc_col(i);
+        bool valid = true;
+        if (!interior) {
+          const int ki = k0 + acc_row(i), qi = q0 + qc;
+          valid = ki < kl && qi < Tq && (!causal || ki <= qi + offset);
+        }
+        const float p = valid ? exp2f(st[i] * sl2 - sm.lse2[vb][qc]) : 0.f;
+        dpt[i] = valid ? p * (dpt[i] - sm.delta[vb][qc]) : 0.f;
+        st[i] = p;
+      }
+      uint32_t phi[TT / 8][4], plo[TT / 8][4], dshi[TT / 8][4],
+          dslo[TT / 8][4];
+      acc_to_tf32_split(st, phi, plo);
+      acc_to_tf32_split(dpt, dshi, dslo);
+
+      // dV += P^T dO and dK += dS^T Q, dO^T and Q^T staged rows contiguous
+      const int sq = qt_slot<TT>(0, vb), sdo = qt_slot<TT>(1, vb);
+      wgmma_fence();
+      product_rs_x3(dva, phi, plo, sm.thi[tregion<TT>(sdo)] + tcol<TT>(sdo),
+                    sm.tlo[tregion<TT>(sdo)] + tcol<TT>(sdo));
+      product_rs_x3(dka, dshi, dslo, sm.thi[tregion<TT>(sq)] + tcol<TT>(sq),
+                    sm.tlo[tregion<TT>(sq)] + tcol<TT>(sq));
+      wgmma_commit();
+      if (it + 1 < total) {
+        // Q and dO split were read by tile it's S^T and dP^T, waited for;
+        // with two slots, slot 1 - vb by tile it-1's products, waited for
+        const int s1 = (it + 1) % TSTAGES;
+        mbar_wait(&sm.full[s1], ((it + 1) / TSTAGES) & 1);
+        split_qdo_tile<KC, TWO_T>(sm, s1, 1 - vb,
+                                  ring_pos(it + 1, b, H, hk, g, qt0, nq, TT),
+                                  lse, delta, Tq);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      keep_regs(phi);
+      keep_regs(plo);
+      keep_regs(dshi);
+      keep_regs(dslo);
+      // a chain ends at every FLUSH_ROWS-th query row and with each head
+      if (((q0 + TT) % FLUSH_ROWS == 0 || q0 + TT >= Tq) && it + 1 < total) {
+        flush_acc(dkb, k0, Tk, dka, scale, first, dd);
+        flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
+        first = false;
+      }
+      __syncthreads();  // tile it+1 split; every warp is done with slots vb
+    }
+
+    // the last chain, dK x scale (a tile without work writes zeros)
+    flush_acc(dkb, k0, Tk, dka, scale, first, dd);
+    flush_acc(dvb, k0, Tk, dva, 1.f, first, dd);
+  }
 }
 
 template <int D, bool PADDED, int KC>
@@ -1383,16 +1873,27 @@ int launch_dkv_tf32x3(const void* q, const void* k, const void* v,
   if (rc == 0) rc = hopper::map_f32_3d(&mk, k, B * Hkv, Tk, Dt, WK);
   if (rc == 0) rc = hopper::map_f32_3d(&mv, v, B * Hkv, Tk, Dt, WK);
   if (rc != 0) return rc;
-  const size_t smem = sizeof(DkvTf32Smem<D>) + 1024;
+  using Smem = std::conditional_t<D == 256, DkvClusterSmem,
+                                  DkvTf32Smem<D>>;
+  const size_t smem = sizeof(Smem) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
-  flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
-      (const int*)klen, (float*)dk, (float*)dv, H, Hkv, Tq, Tk, Dt, causal,
-      scale);
+  if constexpr (D == 256) {
+    const dim3 grid(2 * B * Hkv, (Tk + WK - 1) / WK);
+    e = launch_pairs(flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC>, grid, smem,
+                     stream, mq, mk, mv, mdo, (const float*)lse,
+                     (const float*)delta, (const int*)klen, (float*)dk,
+                     (float*)dv, H, Hkv, Tq, Tk, Dt, causal, scale);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    const dim3 grid(B * Hkv, (Tk + WK - 1) / WK);
+    flash_bwd_dkv_tf32x3_kernel<D, PADDED, KC><<<grid, NT, smem, stream>>>(
+        mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+        (const int*)klen, (float*)dk, (float*)dv, H, Hkv, Tq, Tk, Dt,
+        causal, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1416,9 +1917,9 @@ bool args_ok(int B, int H, int Hkv, int Tq, int Tk) {
 
 // q/dout/dq [B*H, Tq, D], k/v/dk/dv [B*Hkv, Tk, D], klen int32 [B], lse and
 // delta float32 [B*H, Tq]; dtype 0 = float32, 1 = bfloat16; any D % 8 ==
-// 0 up to 128, and in bf16 up to 256 (hopper::with_bwd_instance).  Each
-// returns the CUDA error of its launch (0 on success), -1 for arguments
-// the kernel does not take (float32 above 128 among them), or -2 when the
+// 0 up to 256 (hopper::with_bwd_instance; float32 above 128 launches
+// clusters of two blocks).  Each returns the CUDA error of its launch (0
+// on success), -1 for arguments the kernel does not take, or -2 when the
 // CUDA driver gives no TMA tensor map.
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* klen, const void* lse,
@@ -1430,18 +1931,13 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   return hopper::with_bwd_instance(D, dtype, [&](auto in) {
     using I = decltype(in);
-    if constexpr (I::kDP == 256)
-      return launch_dq_bf16<256, I::kPadded>(q, k, v, klen, lse, delta, dout,
-                                             dq, B, H, Hkv, Tq, Tk, D,
-                                             causal, scale, s);
-    else
-      return dtype == 0
-                 ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
-                       q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq,
-                       Tk, D, causal, scale, s)
-                 : launch_dq_bf16<I::kDP, I::kPadded>(
-                       q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq,
-                       Tk, D, causal, scale, s);
+    return dtype == 0
+               ? launch_dq_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
+                     D, causal, scale, s)
+               : launch_dq_bf16<I::kDP, I::kPadded>(
+                     q, k, v, klen, lse, delta, dout, dq, B, H, Hkv, Tq, Tk,
+                     D, causal, scale, s);
   });
 }
 
@@ -1455,18 +1951,13 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   return hopper::with_bwd_instance(D, dtype, [&](auto in) {
     using I = decltype(in);
-    if constexpr (I::kDP == 256)
-      return launch_dkv_bf16<256, I::kPadded>(q, k, v, klen, lse, delta,
-                                              dout, dk, dv, B, H, Hkv, Tq,
-                                              Tk, D, causal, scale, s);
-    else
-      return dtype == 0
-                 ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
-                       q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv,
-                       Tq, Tk, D, causal, scale, s)
-                 : launch_dkv_bf16<I::kDP, I::kPadded>(
-                       q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv,
-                       Tq, Tk, D, causal, scale, s);
+    return dtype == 0
+               ? launch_dkv_tf32x3<I::kDP, I::kPadded, I::kKC>(
+                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
+                     Tk, D, causal, scale, s)
+               : launch_dkv_bf16<I::kDP, I::kPadded>(
+                     q, k, v, klen, lse, delta, dout, dk, dv, B, H, Hkv, Tq,
+                     Tk, D, causal, scale, s);
   });
 }
 
@@ -1481,15 +1972,15 @@ extern "C" int pt_flash_bwd_occupancy(int D, int dtype, int kind, int* smem,
     using I = decltype(in);
     constexpr int DP = I::kDP, KC = I::kKC;
     constexpr bool P = I::kPadded;
-    if constexpr (DP != 256) {
-      if (dtype == 0)
-        return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<DP, P, KC>,
-                                     sizeof(DqTf32Smem<DP>) + 1024, smem,
-                                     blocks)
-                         : occupancy(flash_bwd_dkv_tf32x3_kernel<DP, P, KC>,
-                                     sizeof(DkvTf32Smem<DP>) + 1024, smem,
-                                     blocks);
-    }
+    using DqS = std::conditional_t<DP == 256, DqClusterSmem,
+                                   DqTf32Smem<DP>>;
+    using DkvS = std::conditional_t<DP == 256, DkvClusterSmem,
+                                    DkvTf32Smem<DP>>;
+    if (dtype == 0)
+      return kind == 0 ? occupancy(flash_bwd_dq_tf32x3_kernel<DP, P, KC>,
+                                   sizeof(DqS) + 1024, smem, blocks)
+                       : occupancy(flash_bwd_dkv_tf32x3_kernel<DP, P, KC>,
+                                   sizeof(DkvS) + 1024, smem, blocks);
     return kind == 0 ? occupancy(flash_bwd_dq_wgmma_kernel<DP, P>,
                                  sizeof(DqSmem<DP>) + 1024, smem, blocks)
                      : occupancy(flash_bwd_dkv_wgmma_kernel<DP, P>,

@@ -1,19 +1,17 @@
-// Flash attention on CUDA cores for the head dims the tensor-core kernels
-// do not take: forward (out, LSE), dQ and dK/dV, bf16 and float32, any
-// D % 8 == 0 up to 256.  The port runs only the float32 backward (dQ,
-// dK/dV), and only at 128 < D <= 256: every D % 8 == 0 up to 256 runs the
-// tensor-core forward of csrc/flash_fwd.cu (padded to 64, 128 or 256), and
-// the tensor-core backward of csrc/flash_bwd.cu in bf16 at every one up to
-// 256 and in float32 up to 128.  The entry points take every D all the
-// same, so chip_smoke.py times these kernels (the earlier design there)
-// beside the tensor-core kernels that replaced them: the forward at D = 96
-// and 256, the backward at D = 96, at the training llama's D = 128 and, in
-// bf16, at D = 256.
+// Flash attention on CUDA cores: forward (out, LSE), dQ and dK/dV, bf16
+// and float32, any D % 8 == 0 up to 256.  No path of the port runs these
+// kernels: every D % 8 == 0 up to 256 runs the tensor-core forward of
+// csrc/flash_fwd.cu and the tensor-core backward of csrc/flash_bwd.cu
+// (padded to 64, 128 or 256; the float32 backward above 128 in clusters
+// of two blocks that split D).  They stay built for timing only:
+// chip_smoke.py times them (the earlier design) beside the tensor-core
+// kernels that replaced them, the forward at D = 96 and 256, the backward
+// at D = 96, at the training llama's D = 128 and at D = 256, and the card
+// tests check them against the plain version.
 //
 // The JAX package tiles every D % 8 == 0 in Pallas (paddle_tpu/ops/
 // attention.py:304-307): _flash_kernel (:52, K1), _flash_dq_kernel (:125,
-// K2) and _flash_dkv_kernel (:220, K3) take any such D.  The port's
-// float32 (3xTF32) tensor-core backward is laid out for D up to 128.
+// K2) and _flash_dkv_kernel (:220, K3) take any such D.
 // Each kernel here is templated on a padded width DP in {32, 64, 128, 256}
 // and takes the true D at run time: the tiles hold DP columns, columns >= D
 // are loaded as zeros (so they add nothing to Q K^T or dO V^T) and never

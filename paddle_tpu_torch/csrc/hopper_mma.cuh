@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (csrc/flash_fwd.cu, csrc/flash_bwd.cu): wgmma on bf16 and on TF32 tiles
-// with float32 accumulators, mbarriers, and TMA tile copies.
+// with float32 accumulators, mbarriers, TMA tile copies, and the
+// distributed shared memory of a cluster of blocks.
 //
 // Tiles live in shared memory in the 128-byte swizzle (B128): a row of a
 // tile is 64 bf16 values (128 bytes), rows are 128 bytes apart, and 8 rows
@@ -149,15 +150,16 @@ int with_fwd_instance(int D, F&& f) {
 }
 
 // The backward's instances (csrc/flash_bwd.cu): with_instance's up to
-// 128, and above it, up to 256, the width DP = 256 in bf16 (dtype 1) only,
-// unpadded at D = 256 and padded at D = 136 .. 248 (the bf16 backward
-// stops its products over D at a run-time k16 step, so KC is not read);
-// -1 for a D or dtype the backward does not take (float32 above 128 runs
-// csrc/flash_cc.cu)
+// 128, and above it, up to 256, the width DP = 256, unpadded at D = 256
+// and padded at D = 136 .. 248: in bf16 (dtype 1) with KC 8 (the bf16
+// backward stops its products over D at a run-time k16 step, so KC is not
+// read), in float32 with_fwd_instance's KC = ceil(D / 32) (the cluster's
+// second block reduces KC - 4 regions); -1 for a D the backward does not
+// take
 template <typename F>
 int with_bwd_instance(int D, int dtype, F&& f) {
   if (D <= 128 || D > 256 || D % 8 != 0) return with_instance(D, f);
-  if (dtype != 1) return -1;
+  if (dtype != 1) return with_fwd_instance(D, f);
   if (D == 256) return f(Inst<256, false, 8>{});
   return f(Inst<256, true, 8>{});
 }
@@ -211,6 +213,71 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// ------------------------------------------- clusters of thread blocks
+//
+// A cluster's blocks run on neighbouring SMs and may read and write each
+// other's shared memory (distributed shared memory): mapa turns an address
+// of this block's shared memory into the same offset in block `rank`'s,
+// which st.async writes.  Every block of a cluster here lays its shared
+// memory out the same way, so the peer's copy of a buffer is at this
+// block's offset.
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: all writes before it, to
+// any block's shared memory, are seen by all reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of p's offset in block `rank`'s shared memory
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// an asynchronous 16-byte store into a peer's shared memory (addr and
+// bar from peer_addr) that completes its bytes on the peer's mbarrier
+// bar, as a TMA copy does: the sender does not wait for it, the peer
+// waits on bar (mbar_wait_cluster) after an arrival expecting the bytes
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait at the cluster's scope, for bytes the peers' stores complete
+// on this block's barrier; traps as mbar_wait does
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  int parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(smem_u32(bar)), "r"(parity)
@@ -725,6 +792,37 @@ __device__ __forceinline__ void split_t(const float* raw, float* thi,
       const float h = __uint_as_float(tf32_rna(xs[e]));
       thi[at] = h;
       tlo[at] = __uint_as_float(tf32_rna(xs[e] - h));
+    }
+  }
+}
+
+// split_t's transpose of a tile already split (src: its hi or its lo
+// regions, as split_tf32 writes them), copied without rounding: the same
+// bits as split_t's from the raw tile
+template <int D, int ROWS>
+__device__ __forceinline__ void transpose_t(const float* src, float* dst,
+                                            int col0) {
+  static_assert(ROWS == 32 || ROWS == 16, "one row a thread of a group");
+  constexpr int NG = kWarpgroup / ROWS;
+  constexpr int IT = D / 4 / NG;
+  const int t = threadIdx.x % kWarpgroup;
+  const int j = t % ROWS, grp = t / ROWS;
+  const int col = col0 + ((j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2));
+  float4 x[IT];
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int d4 = grp + NG * i;
+    const int c = d4 / 8, w = d4 % 8;
+    x[i] = *reinterpret_cast<const float4*>(src + c * ROWS * 32 + j * 32 +
+                                            ((w ^ (j & 7)) << 2));
+  }
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (grp + NG * i) + e;
+      dst[d * 32 + ((((col >> 2) ^ (d & 7)) << 2) | (col & 3))] = xs[e];
     }
   }
 }

@@ -29,10 +29,11 @@ at every multiple of 8 up to 256, bf16 and float32 (as 3xTF32) alike (D
 other than 64, 128 and 256 in the instance of padded width 64, 128 or
 256, TMA reading the columns past D as zeros); the backward
 (`bwd_tensor_core`) runs the tensor-core kernels at every multiple of 8
-up to 256 in bf16 (the same padded widths; at width 256 the dK/dV kernel
-computes dV and dK in blocks of their own) and up to 128 in float32,
-and the CUDA-core kernels of csrc/flash_cc.cu for float32 above 128, up
-to 256; a head dim off the multiples of 8 takes
+up to 256 too (the same padded widths; at width 256 the bf16 dK/dV
+kernel computes dV and dK in blocks of their own, and the float32 pair
+runs as clusters of two blocks, each taking 128 columns of D and adding
+its partial S and dP to the other's); no path runs the CUDA-core kernels
+of csrc/flash_cc.cu.  A head dim off the multiples of 8 takes
 `composed_attention`, the reference's composed path, on purpose and
 counted (`flash_attention`).
 """
@@ -44,21 +45,15 @@ from ..core.registry import register
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
-# the widest head dim of the float32 (3xTF32) tensor-core backward
-# (csrc/flash_bwd.cu); every multiple of 8 above it up to _MAX_D runs
-# csrc/flash_cc.cu's backward in float32
-_TF32X3_BWD_MAX_D = 128
 
 
 def bwd_tensor_core(D, dtype):
     """Whether the flash backward (dQ, dK/dV) at head dim D in `dtype` (a
-    torch dtype) is the tensor-core pair of csrc/flash_bwd.cu: bf16 at
-    every multiple of 8 up to _MAX_D, float32 up to 128, D other than 64,
-    128 and 256 in the instance of padded width 64, 128 or 256.  A float32
-    multiple of 8 above 128 runs the CUDA-core kernels of
-    csrc/flash_cc.cu."""
-    top = _MAX_D if dtype == torch.bfloat16 else _TF32X3_BWD_MAX_D
-    return D % 8 == 0 and 8 <= D <= top
+    torch dtype: bf16 directly, float32 as 3xTF32) is the tensor-core pair
+    of csrc/flash_bwd.cu: at every multiple of 8 up to _MAX_D, D other
+    than 64, 128 and 256 in the instance of padded width 64, 128 or 256
+    (float32 at width 256 in clusters of two blocks that split D)."""
+    return dtype in _DTYPE_CODE and D % 8 == 0 and 8 <= D <= _MAX_D
 
 
 def _ref_attention(q, k, v, causal, scale, k_len=None):
@@ -205,10 +200,7 @@ def _launch_bwd_dq(q, k, v, k_len, lse, delta, dout, causal, scale):
     Hkv, Tk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dq \
-            if bwd_tensor_core(D, q.dtype) \
-            else kernels.library().pt_flash_cc_bwd_dq
-        rc = entry(
+        rc = kernels.library().pt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
             B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
@@ -225,10 +217,7 @@ def _launch_bwd_dkv(q, k, v, k_len, lse, delta, dout, causal, scale):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        entry = kernels.library().pt_flash_bwd_dkv \
-            if bwd_tensor_core(D, q.dtype) \
-            else kernels.library().pt_flash_cc_bwd_dkv
-        rc = entry(
+        rc = kernels.library().pt_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_len.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Hkv, Tq, Tk, D, _DTYPE_CODE[q.dtype],
@@ -316,10 +305,9 @@ def flash_attention(q, k, v, causal=False, scale=None, k_len=None):
     """q: [B, H, Tq, D]; k/v: [B, Hkv, Tk, D]; k_len: optional int32 [B].
     Differentiable w.r.t. q, k and v.
 
-    The route by head dim, on every device: the forward on the tensor
-    cores at every multiple of 8 up to 256 (csrc/flash_fwd.cu), the
-    backward (`bwd_tensor_core`) there too in bf16, in float32 up to 128
-    and on the CUDA cores (csrc/flash_cc.cu) above, up to 256; D % 8 != 0,
+    The route by head dim, on every device: the forward and the backward
+    (`bwd_tensor_core`) on the tensor cores at every multiple of 8 up to
+    256 (csrc/flash_fwd.cu, csrc/flash_bwd.cu); D % 8 != 0,
     `composed_attention`, counted as
     `kernels.launches['flash_attention_composed']`, as the JAX package
     routes the shapes its Pallas kernel does not tile; a larger multiple

@@ -247,9 +247,10 @@ def _bwd_width(D):
     return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
-# bf16 at the head dims above 128 on the tensor-core backward's instances
-# of width 256: D = 256 unpadded, 136 (the last 64-column chunk wholly past
-# D, not loaded), 200 and 248 padded; causal and not, GQA and MQA, k_len 0
+# the head dims above 128 on the tensor-core backward's instances of
+# width 256: D = 256 unpadded, 136 (bf16: the last 64-column chunk wholly
+# past D, not loaded; float32: one 32-column region in the cluster's
+# second block), 200 and 248 padded; causal and not, GQA and MQA, k_len 0
 # and 1 rows, Tq < Tk, ragged last query and key tiles; against the plain
 # backward in float64
 _WIDE_SHAPES = {
@@ -267,38 +268,77 @@ def test_wide_bf16_backward_kernels_match_plain(cuda, D, shape):
                             exact64=True)
 
 
+@pytest.mark.parametrize('D,shape', [
+    (D, name) for D in (256, 136, 200, 248) for name in _WIDE_SHAPES])
+def test_wide_float32_backward_kernels_match_plain(cuda, D, shape):
+    """float32 there: 3xTF32 in clusters of two blocks, each reducing S
+    and dP over its half of D and adding the other's partial sums, held
+    to the unchanged float32 check against the float64 plain backward."""
+    _check_backward_kernels(torch.float32, D, *_WIDE_SHAPES[shape])
+
+
+# causal Tq < Tk and Tq = Tk with a k_len 0 batch row and a partial one:
+# blocks that skip leading tiles, blocks with no tile at all, blocks cut
+# short by k_len
+_SKIP_SHAPES = {
+    'tq_lt_tk_klen0': (True, 37, 300, 8, 2, [300, 0, 150]),
+    'causal_klen0': (True, 200, 200, 8, 1, [200, 0, 77]),
+}
+
+
+@pytest.mark.parametrize('D,shape', [(D, name) for D in (256, 136)
+                                     for name in _SKIP_SHAPES])
+def test_wide_float32_clusters_agree_on_the_tiles_they_skip(cuda, D, shape):
+    """The two blocks of a float32 cluster at width 256 must walk the same
+    tiles: a block that skips a tile, or has none, while its peer waits
+    for its partial sums would wait forever (the barrier waits trap after
+    seconds).  The shapes where blocks skip, run in a child process under
+    a time limit, so that a disagreement fails this test instead of
+    hanging a training step; the child holds the gradients to the float32
+    check as the other cases do."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ('import sys, torch; sys.path[:0] = [%r, %r]; '
+            'import test_torch_cuda_kernels as t; '
+            't._check_backward_kernels(torch.float32, %d, *%r)'
+            % (here, os.path.dirname(here), D, _SKIP_SHAPES[shape]))
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+
+
 @pytest.mark.parametrize('D', [136, 256])
 def test_wide_backward_raises_when_its_launch_fails(cuda, D):
-    """A bf16 backward at D > 128 whose launch the entry point refuses (q
-    two elements off the 16-byte alignment TMA needs: no tensor map)
-    raises and counts no launch, and float32 there is not the
-    tensor-core entry point's to take (it returns -1): no fallback to
-    another kernel or the plain version."""
+    """A backward at D > 128 whose launch the entry point refuses (q two
+    elements off the 16-byte alignment TMA needs: no tensor map) raises
+    and counts no launch, in bf16 and in float32 (whose instances of
+    width 256 launch clusters of two blocks): no fallback to another
+    kernel or the plain version."""
     g = torch.Generator(device='cuda').manual_seed(3)
     B, H, T = 1, 2, 16
     n = B * H * T * D
-    q = torch.zeros(n + 8, dtype=torch.bfloat16, device='cuda')[2:n + 2].view(
-        B, H, T, D)
-    k = _randn(g, B, H, T, D, dtype=torch.bfloat16)
-    out, lse = att.flash_forward(k, k, k, True)
-    before = dict(kernels.launches)
-    with pytest.raises(RuntimeError, match='flash_attention_bwd_dq kernel '
-                       'launch failed'):
-        att.flash_backward(q, k, k, None, out, lse, out, True)
-    for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
-        assert kernels.launches[name] == before[name]
-    f = k.float()
-    lse32 = att.flash_forward(f, f, f, True)[1]
-    kl = torch.full((B,), T, dtype=torch.int32, device='cuda')
-    dq = torch.empty_like(f)
-    rc = kernels.library().pt_flash_bwd_dq(
-        f.data_ptr(), f.data_ptr(), f.data_ptr(), kl.data_ptr(),
-        lse32.data_ptr(), lse32.data_ptr(), f.data_ptr(), dq.data_ptr(), B,
-        H, H, T, T, D, 0, 1, D ** -0.5,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == -1
-    with pytest.raises(RuntimeError, match='launch failed'):
-        kernels.check(rc, 'pt_flash_bwd_dq')
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(n + 8, dtype=dtype, device='cuda')[2:n + 2].view(
+            B, H, T, D)
+        k = _randn(g, B, H, T, D, dtype=dtype)
+        out, lse = att.flash_forward(k, k, k, True)
+        before = dict(kernels.launches)
+        with pytest.raises(RuntimeError, match='flash_attention_bwd_dq '
+                           'kernel launch failed'):
+            att.flash_backward(q, k, k, None, out, lse, out, True)
+        for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+            assert kernels.launches[name] == before[name], dtype
+        with pytest.raises(RuntimeError, match='flash_attention_bwd_dkv '
+                           'kernel launch failed'):
+            att._launch_bwd_dkv(q, k, k, torch.full((B,), T,
+                                                    dtype=torch.int32,
+                                                    device='cuda'),
+                                lse, att._bwd_delta(out, out), out, True,
+                                D ** -0.5)
+        assert kernels.launches['flash_attention_bwd_dkv'] == \
+            before['flash_attention_bwd_dkv'], dtype
 
 
 def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen,
@@ -321,17 +361,21 @@ def _check_backward_kernels(dtype, D, causal, Tq, Tk, H, Hkv, klen,
     names = {n.split('<')[0] for n in full}
     for name in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
         assert kernels.launches[name] == before[name] + runs
-    # the design each dtype and D runs: bf16 on wgmma at every D up to
-    # 256, float32 as 3xTF32 wgmma up to 128 (other D than 64, 128 and
-    # 256 padded) and on CUDA cores above (csrc/flash_cc.cu)
-    tc = att.bwd_tensor_core(D, dtype)
-    design = ('cc' if not tc else
-              'wgmma' if dtype == torch.bfloat16 else 'tf32x3')
+    # the design each dtype and D runs: bf16 on wgmma, float32 as 3xTF32
+    # wgmma, at every D up to 256 (other D than 64, 128 and 256 padded;
+    # float32 at width 256 in clusters of two blocks splitting D), never
+    # the CUDA-core kernels (csrc/flash_cc.cu)
+    assert att.bwd_tensor_core(D, dtype)
+    design = 'wgmma' if dtype == torch.bfloat16 else 'tf32x3'
     assert names == {'flash_bwd_dq_%s_kernel' % design,
                      'flash_bwd_dkv_%s_kernel' % design}, names
-    if tc and dtype == torch.bfloat16:
-        inst = '<%d, %s>' % (_bwd_width(D), str(D != _bwd_width(D)).lower())
-        assert full == {n + inst for n in names}, full
+    inst = '<%d, %s' % (_bwd_width(D), str(D != _bwd_width(D)).lower())
+    if dtype == torch.bfloat16:
+        assert full == {n + inst + '>' for n in names}, full
+    elif D > 128:
+        # and the 32-column regions the products over D reduce, KC 5-8
+        assert full == {n + inst + ', %d>' % -(-D // 32) for n in names}, \
+            full
     refs = att.flash_backward_reference(q, k, v, kl, out, lse, do, causal,
                                         D ** -0.5)
     # f32: other summation orders, and dS = P (dP - delta) cancels, so the
@@ -410,10 +454,10 @@ def _cancel_size(q, k, v, kl, out, lse, do, causal, scale):
 # the head dims other than 64 and 128: up to 128 the tensor-core forward
 # and backward in their padded instances (D = 16 and 32 in the one of
 # width 64, 96 in the one of width 128), and at D = 136 and 256 the
-# tensor-core instances of width 256, beside the CUDA-core backward of
-# csrc/flash_cc.cu in float32; causal and not, ragged k_len with a k_len
-# 0 row, GQA, Tq < Tk.  The CUDA-core backward, off the bf16 path above
-# 128, is driven through design='cc' (chip_smoke.py's _cc_bwd_launch)
+# tensor-core instances of width 256; causal and not, ragged k_len with a
+# k_len 0 row, GQA, Tq < Tk.  The CUDA-core backward of csrc/flash_cc.cu,
+# on no path, is driven directly above 128 (as chip_smoke.py's
+# _cc_bwd_launch times it)
 @pytest.mark.parametrize('dtype,D,causal,Tq,Tk,Hkv,klen', [
     (torch.float32, 16, True, 100, 100, 2, [100, 37]),
     (torch.bfloat16, 16, False, 70, 133, 4, [133, 0]),
@@ -463,8 +507,8 @@ def test_cuda_core_flash_kernels_match_plain(cuda, dtype, D, causal, Tq, Tk,
         assert not out[zero].any()
         assert not any(t[zero].any() for t in grads)
     if D > 128:
-        # the CUDA-core backward itself, driven directly (in bf16 the port
-        # routes these head dims to the tensor-core instances of width 256)
+        # the CUDA-core backward itself, driven directly (the port routes
+        # these head dims to the tensor-core instances of width 256)
         cc = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
         lib = kernels.library()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),

@@ -165,11 +165,12 @@ class _FakeLibrary:
 
 def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
     """The backward's tensor-core kernels take exactly the multiples of 8
-    from 8 to 128 in float32 and to 256 in bf16 (D other than 64, 128 and
-    256 in their padded instances); float32 runs the CUDA-core ones at the
-    multiples of 8 above 128, up to 256."""
-    for dtype, top in ((torch.float32, 128), (torch.bfloat16, 256)):
-        want = [D for D in range(1, 300) if D % 8 == 0 and D <= top]
+    from 8 to 256 in float32 and in bf16 (D other than 64, 128 and 256 in
+    their padded instances): up to 128 as before, and above it the
+    instances of width 256, float32 in clusters of two blocks that split
+    D.  No head dim is left to the CUDA-core kernels."""
+    for dtype in (torch.float32, torch.bfloat16):
+        want = [D for D in range(1, 300) if D % 8 == 0 and D <= 256]
         assert [D for D in range(1, 300)
                 if tatt.bwd_tensor_core(D, dtype)] == want
 
@@ -179,10 +180,10 @@ def test_tensor_core_kernels_take_the_multiples_of_8_up_to_128():
 def test_backward_routing_by_head_dim(D, monkeypatch):
     """The forward runs the tensor-core kernel (pt_flash_fwd) at every
     multiple of 8 up to 256, the backward the tensor-core kernels
-    (pt_flash_bwd_*) there too in bf16, in float32 up to 128 and the
-    CUDA-core kernels (pt_flash_cc_bwd_*) above; D other than 64, 128 and
-    256 in their padded instances.  The wrappers are driven with the
-    library and the CUDA stream stood in for."""
+    (pt_flash_bwd_*) there too, in float32 and bf16; D other than 64, 128
+    and 256 in their padded instances.  No wrapper calls the CUDA-core
+    kernels (pt_flash_cc_*).  The wrappers are driven with the library
+    and the CUDA stream stood in for."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import build
     monkeypatch.setattr(build, 'library', lambda: _FakeLibrary())
@@ -190,8 +191,7 @@ def test_backward_routing_by_head_dim(D, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda dev=None: type('S', (), {'cuda_stream': 0}))
     for dtype in (torch.float32, torch.bfloat16):
-        tc = tatt.bwd_tensor_core(D, dtype)
-        assert tc == (D <= 128 or dtype == torch.bfloat16)
+        assert tatt.bwd_tensor_core(D, dtype)
         fake = _FakeLibrary()
         monkeypatch.setattr(kernels, 'library', lambda: fake)
         q = torch.zeros(1, 2, 8, D, dtype=dtype)
@@ -200,9 +200,7 @@ def test_backward_routing_by_head_dim(D, monkeypatch):
         tatt._launch_flash(q, q, q, True, 0.1, kl)
         tatt._launch_flash_bwd(q, q, q, kl, q, lse, q, True, 0.1)
         assert fake.called == [
-            'pt_flash_fwd',
-            'pt_flash_bwd_dq' if tc else 'pt_flash_cc_bwd_dq',
-            'pt_flash_bwd_dkv' if tc else 'pt_flash_cc_bwd_dkv'], dtype
+            'pt_flash_fwd', 'pt_flash_bwd_dq', 'pt_flash_bwd_dkv'], dtype
 
 
 class _Null:

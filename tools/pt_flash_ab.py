@@ -1,4 +1,4 @@
-"""The bf16 flash kernels' times, tree against tree.
+"""The flash kernels' times, tree against tree.
 
     python3 tools/pt_flash_ab.py TREE [TREE ...]
 
@@ -7,11 +7,12 @@ for example the parent commit unpacked with `git archive` into a
 directory that `.gitignore` lists, and `.` for this one.  The trees run
 in the order given, each in a process of its own on the one card (give
 them as parent, change, change, parent to compare two on one card).  In
-each, the bf16 forward (`flash_forward`), dQ (`_launch_bwd_dq`) and dK/dV
+each, the forward (`flash_forward`), dQ (`_launch_bwd_dq`) and dK/dV
 (`_launch_bwd_dkv`) are timed with CUDA events (`chip_smoke.py`'s
 `time_ms`: 20 calls behind a spin kernel, after a warm-up) at the shapes
-of the flash training step (B 32, H 8, T 256, D 64) and of the bf16
-training llama (B 2, H 16 / 8, T 2048, D 128, causal), inputs from a CUDA
+of the flash training step (B 32, H 8, T 256, D 64, bf16), of the
+training llama (B 2, H 16 / 8, T 2048, D 128, causal; bf16 and float32)
+and at D = 256 (B 2, H 16 / 8, T 1024, causal, bf16), inputs from a CUDA
 generator seeded 11.  One JSON line per tree, then the card's name and
 power limit.  Needs a CUDA card.
 """
@@ -23,10 +24,12 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name: B, H, Hkv, T, D, causal
+# name: B, H, Hkv, T, D, causal, dtype
 SHAPES = {
-    'flash_step': (32, 8, 8, 256, 64, False),
-    'llama': (2, 16, 8, 2048, 128, True),
+    'flash_step': (32, 8, 8, 256, 64, False, 'bfloat16'),
+    'llama': (2, 16, 8, 2048, 128, True, 'bfloat16'),
+    'llama_f32': (2, 16, 8, 2048, 128, True, 'float32'),
+    'd256': (2, 16, 8, 1024, 256, True, 'bfloat16'),
 }
 
 
@@ -46,12 +49,12 @@ def one(tree):
     from paddle_tpu_torch.ops import attention as att
     time_ms = _smoke().time_ms
     res = {}
-    for name, (B, H, Hkv, T, D, causal) in SHAPES.items():
+    for name, (B, H, Hkv, T, D, causal, dtype) in SHAPES.items():
         g = torch.Generator(device='cuda').manual_seed(11)
 
         def randn(*shape):
             return torch.randn(*shape, generator=g, device='cuda').to(
-                torch.bfloat16)
+                getattr(torch, dtype))
         q, do = randn(B, H, T, D), randn(B, H, T, D)
         k, v = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
         kl = torch.full((B,), T, dtype=torch.int32, device='cuda')
@@ -69,7 +72,7 @@ def one(tree):
 
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == '--one':
-        print(json.dumps({'tree': sys.argv[2], 'bf16_ms': one(sys.argv[2]),
+        print(json.dumps({'tree': sys.argv[2], 'ms': one(sys.argv[2]),
                           'package': sys.modules[
                               'paddle_tpu_torch'].__file__}), flush=True)
         return 0

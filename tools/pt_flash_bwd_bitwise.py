@@ -18,8 +18,8 @@ line: for each case and tensor, whether the two files hold the same bits;
 differs.  The cases are the head dims 64 and 128 in both dtypes, at the
 paths' shapes (the flash training step's, the training llama's) and at
 ragged ones, and the other head dims (padded instances up to 128; above
-it the instances of width 256, and the float32 backward's CUDA-core
-kernels).
+it the instances of width 256, the float32 backward's as clusters of
+two blocks).
 Needs a CUDA card for `--save`.
 """
 import argparse
@@ -45,9 +45,9 @@ CASES = {
     'pad_f32_d120': (1, 4, 2, 97, 161, 120, False, [130], 'float32'),
     'pad_bf16_d16': (3, 8, 2, 100, 100, 16, True, [100, 0, 1], 'bfloat16'),
     'pad_bf16_d96': (2, 16, 8, 1024, 1024, 96, True, None, 'bfloat16'),
-    'cc_f32_d136': (2, 8, 2, 70, 90, 136, False, [90, 45], 'float32'),
-    'cc_f32_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'float32'),
-    'cc_bf16_d200': (2, 8, 1, 70, 90, 200, True, [90, 45], 'bfloat16'),
+    'wide_f32_d136': (2, 8, 2, 70, 90, 136, False, [90, 45], 'float32'),
+    'wide_f32_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'float32'),
+    'wide_bf16_d200': (2, 8, 1, 70, 90, 200, True, [90, 45], 'bfloat16'),
     'wide_bf16_d256': (2, 8, 2, 70, 70, 256, True, [70, 33], 'bfloat16'),
 }
 NAMES = ('out', 'lse', 'dq', 'dk', 'dv')
@@ -55,13 +55,13 @@ NAMES = ('out', 'lse', 'dq', 'dk', 'dv')
 
 def is_held(case, tensor):
     """Whether `tensor` of `case` must keep its bits: the forward at every
-    D, the float32 backward at every D and the bf16 backward up to D = 128
-    (the kernels they run are unchanged).  What may move: the bf16
+    D, the bf16 backward at every D and the float32 backward up to D = 128
+    (the kernels they run are unchanged).  What may move: the float32
     backward above 128, which runs new kernels (the tensor-core instances
-    of width 256 in place of the CUDA-core ones), and which the card
-    checks hold to the plain version instead."""
+    of width 256, clusters of two blocks, in place of the CUDA-core ones),
+    and which the card checks hold to the plain version instead."""
     _, _, _, _, _, D, _, _, dtype = CASES[case]
-    return tensor in ('out', 'lse') or D <= 128 or dtype == 'float32'
+    return tensor in ('out', 'lse') or D <= 128 or dtype == 'bfloat16'
 
 
 def save(root, path):
