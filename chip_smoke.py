@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Serve llama_1b (float32 and bf16, and as a streaming generation server)
 and llamas at Phi-3-mini's widths (head dim 96) and GPT-J-6B's (head dim
-256), train transformer-base and llama_1b through paddle_tpu_torch on one
-NVIDIA GPU, and hold each hand-written CUDA kernel against its plain
-PyTorch version.
+256), train transformer-base, llama_1b and ResNet-50 through
+paddle_tpu_torch on one NVIDIA GPU, and hold each hand-written CUDA kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
@@ -14,6 +14,7 @@ PyTorch version.
     python3 chip_smoke.py --phases card,kernels,serving_d256
     python3 chip_smoke.py --phases card,kernels,training_llama_d256
     python3 chip_smoke.py --phases card,training,nan_trip
+    python3 chip_smoke.py --phases card,kernels,training_resnet50,train_resnet_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -132,8 +133,9 @@ Phases, each printing JSON lines:
               SDPA call with the same mask at the decode and prefill
               shapes (timed only)
   gpu_vs_cpu  llama_1b widths, Phi-3-mini's (D = 96) and GPT-J-6B's (D =
-              256), 2 layers, max_len 512: one saved model each through
-              the port's Predictor on the card and on the CPU
+              256), 1 layer (cut from 2 for the time limit),
+              max_len 512: one saved model each through the port's
+              Predictor on the card and on the CPU
   generation_gpu_vs_cpu
               llama_1b width, 2 layers: a 64-token prompt and 16 greedy
               tokens through the paged runtime on the card and on the CPU
@@ -234,10 +236,34 @@ Phases, each printing JSON lines:
               (gptj_f32: within the float32 bounds above; a profiled step
               must run the width-256 3xTF32 dQ and dK/dV, no CUDA-core
               kernel)
+  training_resnet50
+              ResNet-50 as the reference's models/resnet.py::bench_program
+              builds it (224 x 224, 1000 classes, B = 128, full depth,
+              bf16 AMP: convolutions in bf16 whose outputs stay bf16,
+              batch-norm statistics in float32; Momentum lr 0.1, mu 0.9;
+              random weights from the startup's seed, a synthetic feed):
+              an interpreted step, the capture, 10 graph steps (images/s,
+              step ms median and range, model FLOP/s from the conv and fc
+              FLOPs x 3, losses finite), a profile of two graph steps by
+              group (convolutions and GEMMs, batch norm's float32 torch
+              ops, bf16 elementwise and pooling, casts, the feed's upload,
+              generated segments, K5, momentum_multi; device busy and
+              idle share), peak memory, launches a step (one
+              momentum_multi, on the profiler too, one K5), no plain
+              version on the card
+  train_resnet_gpu_vs_cpu
+              models/resnet.py::build at sizes the CPU runs quickly (the
+              CIFAR-10 ResNet-8 at 32 x 32, B 8; ResNet-50 at 64 x 64, 10
+              classes, B 4), 3 Momentum steps in float32 and under bf16
+              AMP on the card and on the CPU from one scope, cuDNN's TF32
+              flag at PyTorch's default: losses, parameters, velocities,
+              moving statistics and the for_test clone's predictions
+              within the bounds the phase derives
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
-train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu) run last, and that
-training_llama, training_llama_bf16 and training_llama_d256 run after
+train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu,
+train_resnet_gpu_vs_cpu) run last, and that training_llama,
+training_llama_bf16, training_llama_d256 and training_resnet50 run after
 training_composed.  No phase is cut in depth for time (the models at
 public widths are cut in depth, each as its phase says).
 The line before the last is the nvidia-smi line; the line before that
@@ -256,7 +282,8 @@ the tensor cores); with every phase run, a kernel or instance launched
 on none of its paths fails the script.  The last line
 is {"ok": true, "device": ...}.  Any failed check raises, so the script exits non-zero and prints no
 result; it refuses to run without a CUDA device.  Float32 matrix products
-and convolutions run in full float32 (TF32 off), set below.
+run in full float32 (TF32 off, set below); float32 convolutions do so by
+the conv op itself, whatever cuDNN's TF32 flag says.
 """
 import argparse
 import json
@@ -276,7 +303,8 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'train_gpu_vs_cpu', 'training_composed',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
           'training_llama', 'training_llama_bf16', 'training_llama_d256',
-          'train_llama_gpu_vs_cpu')
+          'train_llama_gpu_vs_cpu', 'training_resnet50',
+          'train_resnet_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -1047,6 +1075,91 @@ def adam_case(name, shapes, steps=3, timed=False):
     return row
 
 
+def resnet50_param_shapes():
+    """The 161 trainable tensor shapes of the ResNet-50 training program
+    (models/resnet.py::bench_program), from the port's layers."""
+    from paddle_tpu_torch.models import resnet
+    main = resnet.bench_program(**RESNET_CFG)[0]
+    return [tuple(p.shape) for p in main.all_parameters() if p.trainable]
+
+
+def momentum_case(name, shapes, nesterov, steps=3, timed=False):
+    """momentum_multi over the tensors of `shapes` against
+    momentum_reference on copies, `steps` steps with an LR tensor on the
+    device: bit for bit (the kernel rounds each operation as PyTorch's
+    elementwise kernels do, no FMA contraction)."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+    g = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    n, mu = len(shapes), 0.9
+
+    def rand(shape, s):
+        return s * torch.randn(shape, generator=g, device='cuda')
+    params = [rand(s, 0.05) for s in shapes]
+    vels = [rand(s, 1e-3) for s in shapes]
+    lr = [torch.full((1,), 0.1, device='cuda')] * n
+    ref = [[t.clone() for t in params], [t.clone() for t in vels]]
+    cache = {}
+    before = kernels.launches['momentum_multi']
+    for _ in range(steps):
+        grads = [rand(s, 1e-2) for s in shapes]
+        oo.momentum_multi(params, grads, vels, lr, mu, nesterov, cache=cache)
+        oo.momentum_reference(ref[0], grads, ref[1], lr, mu, nesterov)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(params + vels,
+                                                    ref[0] + ref[1]))
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        params + vels, ref[0] + ref[1]))
+    elems = int(sum(int(np.prod(s)) for s in shapes))
+    row = dict(phase='kernels', kernel='momentum_multi', case=name,
+               tensors=n, elements=elems, nesterov=nesterov, steps=steps,
+               launches=kernels.launches['momentum_multi'] - before,
+               bitwise=bitwise, max_abs_err=err, rtol=0.0, atol=0.0)
+    if timed:
+        grads = [rand(s, 1e-2) for s in shapes]
+        # p, g and v read, p and v written: 20 bytes an element
+        nbytes = 20 * elems
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        lib_params = [p.clone().requires_grad_(True) for p in params]
+        for p, gr in zip(lib_params, grads):
+            p.grad = gr
+        try:
+            lib = torch.optim.SGD(lib_params, lr=0.1, momentum=mu,
+                                  nesterov=nesterov, fused=True)
+            lib_is = 'torch.optim.SGD(momentum=0.9, fused=True).step()'
+        except (RuntimeError, TypeError, ValueError) as e:
+            lib = torch.optim.SGD(lib_params, lr=0.1, momentum=mu,
+                                  nesterov=nesterov, foreach=True)
+            lib_is = 'torch.optim.SGD(momentum=0.9, foreach=True).step() ' \
+                '(fused=True refused: %s)' % e
+        # the kernel alone, as a graph replay runs it: its two tables
+        # already on the device
+        table, step, n_chunks = oo._momentum_tables(params, grads, vels, lr,
+                                                    cache, None)
+        lib_fn = kernels.library().pt_momentum_multi
+
+        def launch():
+            kernels.check(lib_fn(table.data_ptr(), step.data_ptr(), n,
+                                 n_chunks, mu, int(nesterov),
+                                 torch.cuda.current_stream().cuda_stream),
+                          'momentum_multi')
+        row.update(
+            ms=time_ms(launch, 50),
+            plain_ms=time_ms(lambda: oo.momentum_reference(
+                ref[0], grads, ref[1], lr, mu, nesterov), 5),
+            library_ms=time_ms(lib.step, 20), library_is=lib_is,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            table_builds=cache.get('momentum_multi_tables'))
+        row['gbps'] = nbytes / row['ms'] / 1e6
+        row['bound_share'] = bound_ms / row['ms']
+    emit(**row)
+    require(bitwise and row['launches'] == steps, 'momentum_multi '
+            'disagrees with momentum_reference in case %s: %s'
+            % (name, row))
+    return row
+
+
 def llama_param_shapes():
     """The 147 parameter shapes of the training llama_1b program (no
     weights are made)."""
@@ -1235,7 +1348,8 @@ def path_segments():
     """Every generated segment the main paths run: the composed and the
     flash training steps (B=32, T=256, bf16 AMP), the flash step in
     float32, the training llama_1b (B=2, T=2048; float32, and the bf16
-    build before and after its first step), and the served llama_1b
+    build before and after its first step), the ResNet-50 AMP step (B=128,
+    224 x 224), and the served llama_1b
     decode program at each bucket (1, 2, 4 rows x 2048 tokens) in float32
     and with bf16 parameters: name -> (spec, sub-op types, paths)."""
     import paddle_tpu_torch as fluid
@@ -1260,6 +1374,11 @@ def path_segments():
         main, _, out = _llama_program(fluid, llama, dtype=dtype)
         found.append((path, _planned_specs(main, lfeed, [out['loss'].name],
                                            False, promoted=promoted)))
+    # the ResNet-50 AMP step at its bench shape
+    from paddle_tpu_torch.models import resnet
+    main, _, out, rfeed = resnet.bench_program(**RESNET_CFG)
+    found.append(('training_resnet50', _planned_specs(
+        main, rfeed, [out['loss'].name], True)))
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         out = llama.generation_program('llama_1b', mode='decode',
@@ -1689,6 +1808,14 @@ def phase_kernels():
     # and at its later steps: float32 state, the beta powers bf16
     adam_bf16_case('llama_147_later', llama_param_shapes(), state='float32')
     adam_bf16_case('ragged', [(1,), (7,), (32769,), (3, 33333)])
+    # K7's momentum instance at ResNet-50's 161 tensors, nesterov off (the
+    # training step's) and on, then ragged sizes and misaligned tensors
+    r50 = resnet50_param_shapes()
+    served['momentum_multi'] = momentum_case('resnet50_161', r50, False,
+                                             timed=True)
+    momentum_case('resnet50_161_nesterov', r50, True, timed=True)
+    momentum_case('ragged', [(1,), (7,), (4097,), (3, 3333), (5, 4)], False)
+    momentum_case('ragged_nesterov', [(1,), (4095,), (8193,)], True)
     # the composed attention's scores: [32, 8, 256, 256] float32
     served['softmax'] = softmax_case('path_f32', 65536, 256, 'float32',
                                      timed=True)
@@ -1802,10 +1929,12 @@ def profile_batch(pred, feed, n_layer, phase='serving',
                   design='fwd_tf32x3', instance=None):
     """Where one dispatched batch spends its time: torch.profiler over one
     interpreted Predictor.run (device time by kernel, grouped; the flash
-    kernels by design), beside the host wall time of three unprofiled
-    runs; every flash forward of the batch must be `design`, and with
-    `instance` (padded width, padded) that instance of it.  serve_modes
-    times and profiles the graph replays.  -> the emitted line."""
+    kernels by design; taken again, up to PROFILE_TRIES times, while it
+    shows fewer flash forwards than layers), beside the host wall time of
+    three unprofiled runs; every flash forward of the batch must be
+    `design`, and with `instance` (padded width, padded) that instance of
+    it.  serve_modes times and profiles the graph replays.  -> the
+    emitted line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1815,12 +1944,18 @@ def profile_batch(pred, feed, n_layer, phase='serving',
         t0 = time.perf_counter()
         run(feed)
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(feed)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+    # the profiler drops kernel events now and then, never adds one: a
+    # batch whose flash forwards it undercounts is profiled again
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(feed)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        flash = _flash_by_design(prof.key_averages())
+        if sum(c for _, c in flash.values()) >= n_layer:
+            break
     groups, instances = {}, {}
     top = []
     for e in prof.key_averages():
@@ -1848,8 +1983,7 @@ def profile_batch(pred, feed, n_layer, phase='serving',
         top.append((us / 1e3, name[:80], e.count))
     top.sort(reverse=True)
     busy = sum(groups.values())
-    flash = _flash_by_design(prof.key_averages())
-    res = dict(phase=phase, step='profile',
+    res = dict(phase=phase, step='profile', profile_tries=tries,
                rows=int(feed['tokens'].shape[0]),
                run_wall_ms=[w * 1e3 for w in walls],
                profiled_wall_ms=prof_wall * 1e3, device_ms_by_group=groups,
@@ -2257,7 +2391,7 @@ def _serve_widths(phase, smi, config, name, reduced, instance):
 
 def phase_gpu_vs_cpu():
     """One saved model through the port's Predictor on the card and on
-    the CPU, at 2 layers and max_len 512: llama_1b's widths (D = 128),
+    the CPU, at 1 layer and max_len 512: llama_1b's widths (D = 128),
     Phi-3-mini's (D = 96: the padded tensor-core forward on the card) and
     GPT-J-6B's (D = 256: the forward's instance of width 256)."""
     import torch
@@ -2269,7 +2403,7 @@ def phase_gpu_vs_cpu():
         with _model_dir() as d:
             cfg, n_params, _, _ = _build_and_save(
                 fluid, llama, d, ALL_FETCHES,
-                **dict(over, n_layer=2, max_len=512))
+                **dict(over, n_layer=1, max_len=512))
             gpu = fluid.inference.Predictor(d)
             conf = fluid.inference.AnalysisConfig(d)
             conf.disable_gpu()
@@ -2898,6 +3032,8 @@ def _group(name):
         return 'adam_multi_bf16'
     if 'adam_kernel' in name or 'adam_pows_kernel' in name:
         return 'adam_multi'
+    if 'momentum_kernel' in name:
+        return 'momentum_multi'
     if 'gather_rows' in name:
         return 'embedding_gather'
     if 'memcpy' in low or 'memset' in low:
@@ -2978,7 +3114,7 @@ def profile_step(exe, main, feed, fetch, phase='training'):
 KERNEL_GROUPS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'layer_norm', 'softmax',
                  'kernelgen_segment', 'adam_multi', 'adam_multi_bf16',
-                 'embedding_gather')
+                 'momentum_multi', 'embedding_gather')
 
 
 def _profiled(fn):
@@ -3421,6 +3557,7 @@ class PlainCalls(object):
                ('paddle_tpu_torch.ops.nn', 'layer_norm_reference'),
                ('paddle_tpu_torch.ops.fused', 'replay'),
                ('paddle_tpu_torch.ops.optimizer_ops', 'adam_reference'),
+               ('paddle_tpu_torch.ops.optimizer_ops', 'momentum_reference'),
                ('paddle_tpu_torch.ops.gather', 'embedding_gather_reference'),
                ('paddle_tpu_torch.ops.attention', '_ref_attention'),
                ('paddle_tpu_torch.ops.attention',
@@ -3977,11 +4114,12 @@ GPTJ_INSTANCES = {
                 'flash_bwd_dkv_tf32x3_kernel<256, false, 8>': 4}}
 
 
-def step_breakdown(fn, want=None):
-    """torch.profiler over fn(): (host wall ms, device busy ms, {_group:
-    device ms}, {flash kernel (_kernel_key): launches}).  With `want`
-    ({flash kernel: launches}) a trace whose flash kernels differ is taken
-    again, up to PROFILE_TRIES times (the profiler drops events)."""
+def step_breakdown(fn, want=None, grouping=None):
+    """torch.profiler over fn(): (host wall ms, device busy ms, {group:
+    device ms}, {flash kernel (_kernel_key): launches}), the groups by
+    `grouping` (default _group).  With `want` ({flash kernel: launches}) a
+    trace whose flash kernels differ is taken again, up to PROFILE_TRIES
+    times (the profiler drops events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3998,7 +4136,7 @@ def step_breakdown(fn, want=None):
             if e.device_type != DeviceType.CUDA:
                 continue
             if e.self_device_time_total:
-                g = _group(e.key)
+                g = (grouping or _group)(e.key)
                 groups[g] = groups.get(g, 0.0) + \
                     e.self_device_time_total / 1e3
             if 'flash_' in e.key:
@@ -4265,6 +4403,309 @@ def phase_train_llama_gpu_vs_cpu():
     return paths
 
 
+# ------------------------------------------------------- ResNet-50 (AMP)
+
+# the reference's ResNet-50 training step (paddle_tpu/models/resnet.py
+# bench_program, bench.py:91 bench_resnet50): B 128, 224 x 224, 1000
+# classes, depth 50, bf16 AMP, Momentum lr 0.1 mu 0.9
+RESNET_CFG = dict(B=128, side=224, classes=1000, depth=50)
+RESNET_GRAPH_STEPS = 10
+
+
+def _resnet_group(name):
+    """A profiler key's group in a ResNet step: the convolutions and the
+    fc GEMM (cuDNN, cuBLAS, their layout transposes), the float32
+    elementwise and reduction kernels (batch_norm's torch ops forward and
+    backward, and the loss's), the bf16 ones (the unfused relus, pooling,
+    residual adds in the backward), the casts, the feed's upload, and the
+    port's own kernels (_group)."""
+    low = name.lower()
+    own = _group(name)
+    if own in KERNEL_GROUPS:
+        return own
+    if 'memcpy htod' in low:
+        return 'feed_upload'
+    if 'copy_kernel' in low:
+        return 'casts_and_copies'
+    if any(t in low for t in ('xmma', 'cudnn', 'cask', 'cutlass', 'nvjet',
+                              'gemm', 'nchwtonhwc', 'nhwctonchw')):
+        return 'conv_and_gemm'
+    if 'bfloat16' in low:
+        return 'bf16_elementwise_and_pooling'
+    if 'elementwise' in low or 'reduce_kernel' in low:
+        return 'float32_elementwise_and_reductions'
+    return 'other'
+
+
+def _conv_fc_flops(main, B):
+    """Model FLOPs of one forward: 2 multiply-adds a weight a conv output
+    position, and the fc's, from the program's shapes."""
+    block = main.global_block()
+    flops = 0
+    for op in block.ops:
+        if op.type == 'conv2d':
+            out = block.var(op.output('Output')[0]).shape
+            w = block.var(op.input('Filter')[0]).shape
+            flops += 2 * B * int(np.prod(out[1:])) * int(np.prod(w[1:]))
+        elif op.type == 'mul':
+            x = block.var(op.input('X')[0]).shape
+            w = block.var(op.input('Y')[0]).shape
+            flops += 2 * B * int(np.prod(x[1:])) * int(w[1])
+    return flops
+
+
+def phase_training_resnet50(smi):
+    """ResNet-50 at the reference's bench shape trained through the
+    port's entry points: models/resnet.py::bench_program, Executor.run
+    through the PT_OPT rewriter, an interpreted first step, the capture,
+    RESNET_GRAPH_STEPS graph steps (images/s, step ms median and range,
+    model FLOP/s from the conv and fc FLOPs x 3), a profile of two graph
+    steps by group (device busy, idle share), peak memory, a finite loss,
+    the launches a step (one momentum_multi, one K5, the generated
+    segments) on the wrappers and on the profiler, no plain version on
+    the card.  -> launches a step."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import kernelgen
+    B = RESNET_CFG['B']
+    main, startup, out, feed = resnet.bench_program(**RESNET_CFG)
+    params = [p for p in main.all_parameters() if p.trainable]
+    flops = 3 * _conv_fc_flops(main, B)
+    fetch = [out['loss']]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+
+        def step():
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=fetch)[0][0]))
+            return (time.perf_counter() - t0) * 1e3
+
+        def two_steps():
+            for _ in range(2):
+                exe.run(main, feed=feed, fetch_list=fetch)
+        with PlainCalls() as plain:
+            first_ms = step()       # interpreted: builds the kernels
+            capture_ms = step()     # capture, then replay
+            kernels.reset_launches()
+            kernelgen.launches.clear()
+            graph_ms = [step() for _ in range(RESNET_GRAPH_STEPS)]
+            launches = {k: v / RESNET_GRAPH_STEPS
+                        for k, v in kernels.launches.items() if v}
+            seg = {k: v / RESNET_GRAPH_STEPS
+                   for k, v in kernelgen.launches.items()}
+            mem = _peak_memory()
+            (_, _, _, seen, groups), counted, tries = \
+                _profiled_launches(two_steps)
+            wall, busy, by_group, _ = step_breakdown(
+                two_steps, grouping=_resnet_group)
+    med = float(np.median(graph_ms))
+    emit(phase='training_resnet50', step='steps', config='resnet50',
+         cfg=RESNET_CFG, amp=True, optimizer='Momentum(lr=0.1, mu=0.9)',
+         trainable_tensors=len(params),
+         params=sum(int(np.prod(p.shape)) for p in params),
+         losses=losses, first_step_ms=first_ms, capture_step_ms=capture_ms,
+         graph_step_ms=graph_ms, median_graph_step_ms=med,
+         min_graph_step_ms=min(graph_ms), max_graph_step_ms=max(graph_ms),
+         images_per_s=B / med * 1e3, model_tflop_per_step=flops / 1e12,
+         model_tflops=flops / med / 1e9, launches_per_step=launches,
+         segment_launches_per_step=sum(seg.values()),
+         plain_calls_on_cuda=plain.counts, card=smi, **mem)
+    emit(phase='training_resnet50', step='graph_profile', steps=2,
+         profiled_wall_ms=wall, device_busy_ms=busy,
+         device_idle_share=(1 - busy / wall) if busy else None,
+         device_ms_by_group=by_group,
+         device_share_by_group={k: v / busy for k, v in by_group.items()},
+         device_events=seen, device_launches=groups,
+         counted_device_launches=counted, profile_tries=tries, card=smi)
+    require(len(params) == 161, 'ResNet-50 has %d trainable tensors, '
+            'expected 161' % len(params))
+    require(all(np.isfinite(losses)), 'non-finite ResNet-50 loss: %s'
+            % losses)
+    require(not plain.counts, 'plain versions ran on the card: %s'
+            % plain.counts)
+    require(launches.get('momentum_multi') == 1 and
+            launches.get('softmax') == 1 and
+            launches.get('kernelgen_segment', 0) >= 1,
+            'ResNet-50: launches a step %s, expected one momentum_multi, '
+            'one K5 and the generated segments' % launches)
+    require(groups.get('momentum_multi') == 2, 'ResNet-50: %s momentum '
+            'kernels on the profiler in two graph steps, expected 2'
+            % groups.get('momentum_multi'))
+    _seen_on_device('training_resnet50 graph', groups, counted)
+    launches.update(seg)
+    return launches
+
+
+def _resnet_program(fluid, resnet, amp, for_test=False, **kw):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = resnet.build(**kw)
+    test = main.clone(for_test=True)
+    main.set_amp(amp)
+    test.set_amp(amp)
+    return main, startup, out, test
+
+
+def _rel(a, b):
+    """||a - b|| / ||b|| over the concatenated arrays."""
+    a = np.concatenate([np.asarray(x, np.float64).ravel() for x in a])
+    b = np.concatenate([np.asarray(x, np.float64).ravel() for x in b])
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+# the GPU-vs-CPU ResNets: (name, build kwargs, B, whole runs held)
+RESNET_SMALL = (
+    ('cifar10_d8', dict(data_shape=(3, 32, 32), class_dim=10, depth=8,
+                        data_set='cifar10'), 8, True),
+    ('imagenet_d50', dict(data_shape=(3, 64, 64), class_dim=10, depth=50,
+                          lr=0.001), 8, False))
+RESNET_SMALL_STEPS = 3
+RESNET_KINDS = ('losses', 'params', 'velocities', 'moving', 'pred')
+
+
+def phase_train_resnet_gpu_vs_cpu():
+    """The port's models/resnet.py::build at sizes the CPU runs quickly
+    (RESNET_SMALL: the CIFAR-10 ResNet-8 at 32 x 32, B 8, and ResNet-50 at
+    64 x 64, 10 classes, B 8), RESNET_SMALL_STEPS Momentum steps in float32
+    and under bf16 AMP on the card and on the CPU from one scope
+    (convert.scope_from_numpy), with cuDNN's TF32 flag left at PyTorch's
+    default (True: the conv op computes float32 in float32 itself), then
+    the for_test clone's predictions.
+
+    ResNet-8's runs are held whole: the losses, parameters, velocities,
+    batch-norm moving statistics and predictions, each kind as a relative
+    L2 distance d over its tensors, against the size of the bf16 effect
+    itself, e_bf16 = d(CPU AMP, CPU float32):
+    - AMP, d(card AMP, CPU AMP) <= e_bf16: both round the same values to
+      bf16 (u = 2^-8) at the same places; they differ only where a
+      float32 value lies within its summation-order difference of a
+      rounding boundary, a share of the values, so their distance is
+      below that of either from float32.  And the card's AMP run must be
+      an AMP run: d(card AMP, card float32) within [1/2, 2] e_bf16;
+    - float32, d(card float32, CPU float32) <= 2^-8 e_bf16: the two
+      differ by the order of float32 sums (u = 2^-24; a sum of K terms
+      sqrt(K) u apart, K <= 2^13 here: the batch norm's N H W), where bf16
+      rounds every value once, so the ratio is sqrt(K) 2^-16 <= 2^-9.5;
+      the same network amplifies both alike.
+    ResNet-50 at 64 x 64 from random weights is chaotic beyond its first
+    step: two float32 runs whose first losses agree to 6e-6 part at the
+    second (2.71 and 2.67 on the card and the CPU, H100 80GB HBM3, 700 W),
+    and its AMP velocities differ from its float32 ones by 1.36 (L2,
+    relative: the phase's own e_bf16).
+    So only its first step is held: the float32 loss within 1e-4 relative
+    (ten times one deep float32 sum's order error, 2^-24 sqrt(2^15)), the
+    AMP loss within e_bf16 of the first loss; its other distances are
+    reported.  -> launches a step on the card, by run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.ops import kernelgen
+    feeds = {}
+    for name, kw, B, _ in RESNET_SMALL:
+        rng = np.random.RandomState(SEED)
+        feeds[name] = {
+            'data': rng.rand(B, *kw['data_shape']).astype('float32'),
+            'label': rng.randint(0, kw['class_dim'], (B, 1)).astype('int64')}
+        # every program of the phase planned first, so that one nvcc call
+        # builds all their generated kernels
+        for amp in (False, True):
+            main, _, out, test = _resnet_program(fluid, resnet, amp, **kw)
+            _planned_specs(main, feeds[name], [out['loss'].name], amp)
+            _planned_specs(test, feeds[name], [out['predict'].name], amp)
+    kernelgen.ensure_built()
+    paths = {}
+    for name, kw, B, whole in RESNET_SMALL:
+        feed = feeds[name]
+        res, init, t0 = {}, None, time.perf_counter()
+        for amp in (False, True):
+            main, startup, out, test = _resnet_program(fluid, resnet, amp,
+                                                       **kw)
+            if init is None:
+                gscope = fluid.Scope()
+                with fluid.scope_guard(gscope):
+                    fluid.Executor().run(startup)
+                init = {n: t.cpu().numpy() for n, t in gscope.vars.items()}
+            for dev in ('gpu', 'cpu'):
+                # copies: the runs update their scopes in place
+                scope = fluid.scope_from_numpy(
+                    {n: a.copy() for n, a in init.items()}, fluid.Scope(),
+                    'cuda' if dev == 'gpu' else 'cpu')
+                exe = fluid.Executor() if dev == 'gpu' else \
+                    fluid.Executor(fluid.CPUPlace())
+                if dev == 'gpu':
+                    kernels.reset_launches()
+                with fluid.scope_guard(scope):
+                    losses = [float(exe.run(main, feed=feed, fetch_list=[
+                        out['loss']])[0][0])
+                        for _ in range(RESNET_SMALL_STEPS)]
+                    if dev == 'gpu':
+                        paths['train_resnet_%s_%s' % (
+                            name, 'amp' if amp else 'f32')] = {
+                            k: v / RESNET_SMALL_STEPS
+                            for k, v in kernels.launches.items() if v}
+                    pred, = exe.run(test, feed=feed,
+                                    fetch_list=[out['predict']])
+                state = {n: t.float().cpu().numpy()
+                         for n, t in scope.vars.items()}
+                res[dev, amp] = dict(
+                    losses=[losses], pred=[pred],
+                    params=[state[p.name] for p in main.all_parameters()
+                            if p.trainable],
+                    velocities=[v for n, v in sorted(state.items())
+                                if n.endswith('_velocity_0')],
+                    moving=[state[p.name] for p in main.all_parameters()
+                            if not p.trainable])
+
+        def dist(a, b, kinds=RESNET_KINDS):
+            return {k: _rel(res[a][k], res[b][k]) for k in kinds}
+        e_bf16 = dist(('cpu', True), ('cpu', False))
+        e_amp = dist(('gpu', True), ('cpu', True))
+        e_f32 = dist(('gpu', False), ('cpu', False))
+        gpu_bf16 = dist(('gpu', True), ('gpu', False))
+        first = {k: res[k]['losses'][0][0] for k in res}
+        row = dict(phase='train_resnet_gpu_vs_cpu', config=name, cfg=kw,
+                   B=B, steps=RESNET_SMALL_STEPS, held='whole runs' if whole
+                   else 'the first step',
+                   cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                   gpu_losses_f32=res['gpu', False]['losses'][0],
+                   cpu_losses_f32=res['cpu', False]['losses'][0],
+                   gpu_losses_amp=res['gpu', True]['losses'][0],
+                   cpu_losses_amp=res['cpu', True]['losses'][0],
+                   e_bf16=e_bf16, e_amp=e_amp, e_f32=e_f32,
+                   gpu_amp_vs_f32=gpu_bf16, seconds=time.perf_counter() - t0)
+        emit(**row)
+        require(all(np.all(np.isfinite(np.concatenate(
+            [np.ravel(x) for x in r['losses'] + r['pred']])))
+            for r in res.values()), 'non-finite ResNet losses or '
+            'predictions (%s)' % name)
+        if whole:
+            for k in RESNET_KINDS:
+                require(e_amp[k] <= e_bf16[k] and
+                        0.5 * e_bf16[k] <= gpu_bf16[k] <= 2 * e_bf16[k] and
+                        e_f32[k] <= 2.0 ** -8 * e_bf16[k],
+                        'train_resnet_gpu_vs_cpu (%s, %s): %s'
+                        % (name, k, row))
+        else:
+            f32 = abs(first['gpu', False] - first['cpu', False])
+            amp = abs(first['gpu', True] - first['cpu', True])
+            bf16 = abs(first['cpu', True] - first['cpu', False])
+            require(f32 <= 1e-4 * abs(first['cpu', False]) and amp <= bf16,
+                    'train_resnet_gpu_vs_cpu (%s, first step): %s'
+                    % (name, row))
+    for p in paths.values():
+        require(p.get('momentum_multi') == 1, 'the small ResNets did not '
+                'run momentum_multi once a step on the card: %s' % paths)
+    return paths
+
 # ------------------------------------------------------------- main
 
 _REPLACES = {
@@ -4282,6 +4723,8 @@ _REPLACES = {
                    'paddle_tpu/ops/kernelgen/builder.py:795'),
     'adam_multi_bf16': ('paddle_tpu_torch/csrc/adam.cu',
                         'paddle_tpu/ops/kernelgen/builder.py:795'),
+    'momentum_multi': ('paddle_tpu_torch/csrc/momentum.cu',
+                       'paddle_tpu/ops/kernelgen/builder.py:795'),
     'softmax': ('paddle_tpu_torch/csrc/softmax.cu',
                 'paddle_tpu/ops/kernelgen/rules.py:291'),
 }
@@ -4365,7 +4808,6 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     import paddle_tpu_torch  # noqa: F401 - fails outside the repository
     from paddle_tpu_torch import kernels as kernels_py
@@ -4399,6 +4841,7 @@ def main(argv=None):
     llama_f32 = run('training_llama', phase_training_llama, smi)
     llama_bf16 = run('training_llama_bf16', phase_training_llama_bf16, smi)
     llama_d256 = run('training_llama_d256', phase_training_llama_d256, smi)
+    resnet50 = run('training_resnet50', phase_training_resnet50, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -4406,6 +4849,8 @@ def main(argv=None):
     run('train_gpu_vs_cpu', phase_train_gpu_vs_cpu)
     run('train_composed_gpu_vs_cpu', phase_train_composed_gpu_vs_cpu)
     llama_tiny = run('train_llama_gpu_vs_cpu', phase_train_llama_gpu_vs_cpu)
+    resnet_small = run('train_resnet_gpu_vs_cpu',
+                       phase_train_resnet_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -4441,7 +4886,11 @@ def main(argv=None):
                # per 4-row batch of the GPT-J-width llama (D = 256)
                'serving_d256_f32': served_d256.get('serving_d256_f32', {}),
                'serving_d256_bf16': served_d256.get('serving_d256_bf16',
-                                                    {})}
+                                                    {}),
+               # per step of the ResNet-50 AMP step (graph replays) and of
+               # the small ResNets on the card
+               'training_resnet50': resnet50}
+    by_path.update(resnet_small)
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -4454,12 +4903,13 @@ def main(argv=None):
                      if k not in kernels_py.launches})
     for path in ('training', 'training_composed'):
         launches.update(by_path[path])
-    # the kernels only the training llamas run (Adam's bf16 instance, the
-    # clip's segments, the AMP step's segments): per step of the float32
-    # llama path, else of the bf16 llama step, else of the GPT-J-width
-    # AMP step
+    # the kernels only the training llamas and the ResNet run (Adam's bf16
+    # instance, the clip's segments, the AMP step's segments, Momentum and
+    # the ResNet's segments): per step of the float32 llama path, else of
+    # the bf16 llama step, else of the GPT-J-width AMP step, else of the
+    # ResNet-50 AMP step
     for path in ('training_llama', 'training_llama_bf16',
-                 'training_llama_d256'):
+                 'training_llama_d256', 'training_resnet50'):
         for k, v in by_path[path].items():
             if v and not launches.get(k):
                 launches[k] = v

@@ -9,16 +9,21 @@ unfused ops would:
 - matrix-product ops (`_AMP_CAST_OPS`) get their float32 inputs cast to
   bf16, and their outputs cast back to float32 unless the op carries
   `amp_keep_bf16`;
+- convolutions (`_AMP_FLOW_OPS`) get their float32 inputs cast to bf16
+  too, and their outputs stay bf16, so the activations of a CNN flow in
+  bf16 through its batch norms, relus and residual adds (the reference's
+  `PT_AMP_FLOW` switch is not ported: its default, `conv`, is the policy);
 - an elementwise op with a bf16 input (`_AMP_MATCH`) casts its float32
   inputs down, so the logits projection's bias add follows the bf16
   logits and the cross-entropy reads bf16.
 """
 import torch
 
-__all__ = ['AMP_CAST_OPS', 'AMP_MATCH', 'amp_match_ins', 'amp_sub_ins',
-           'amp_sub_outs']
+__all__ = ['AMP_CAST_OPS', 'AMP_FLOW_OPS', 'AMP_MATCH', 'amp_match_ins',
+           'amp_sub_ins', 'amp_sub_outs']
 
 AMP_CAST_OPS = frozenset({'mul', 'matmul', 'flash_attention'})
+AMP_FLOW_OPS = frozenset({'conv2d'})
 AMP_MATCH = frozenset({'elementwise_add', 'elementwise_sub',
                        'elementwise_mul', 'elementwise_div',
                        'elementwise_max', 'elementwise_min'})
@@ -51,7 +56,7 @@ def amp_sub_ins(op_type, ins, amp):
     """The whole input policy of one op under `amp`."""
     if not amp:
         return ins
-    if op_type in AMP_CAST_OPS:
+    if op_type in AMP_CAST_OPS or op_type in AMP_FLOW_OPS:
         ins = _each(ins, lambda x: _cast(x, torch.bfloat16))
     return amp_match_ins(op_type, ins)
 

@@ -24,7 +24,8 @@ each differentiated parameter a leaf tensor sharing the scope's storage,
 takes `torch.autograd.grad` of the loss (the JAX package's `jax.vjp`), and
 runs the ops after it (the optimizer) under `torch.no_grad()`.  With the
 passes off (PT_OPT=0), a maximal run of consecutive in-place `adam` ops
-goes to one multi-tensor kernel launch (ops/optimizer_ops.py::adam_multi).
+goes to one multi-tensor kernel launch (ops/optimizer_ops.py::adam_multi),
+and so does one of `momentum` ops (`momentum_multi`).
 
 CUDA graphs (core/graphs.py) are the port's counterpart of the
 reference's one executable per launch signature.  On the card, with
@@ -171,18 +172,21 @@ def _plan(ops, keep):
     return live, needed, dead
 
 
-def _adam_run(ops, live, k):
-    """End (exclusive, in `live`) of the run of consecutive in-place adam
-    ops starting at live[k] that share beta1/beta2/epsilon, or k when
-    live[k] is no in-place adam op."""
-    from ..ops.optimizer_ops import adam_group_key
-    key = adam_group_key(ops[live[k]])
+def _optimizer_run(ops, live, k):
+    """(end, runner): the end (exclusive, in `live`) of the run of
+    consecutive in-place optimizer ops of live[k]'s type that share its
+    group key (adam: beta1/beta2/epsilon, momentum: mu/use_nesterov), and
+    the function that runs them as one multi-tensor launch; (k, None) when
+    live[k] is no in-place optimizer op the executor groups."""
+    from ..ops.optimizer_ops import GROUPS
+    key_of, runner = GROUPS.get(ops[live[k]].type, (None, None))
+    key = key_of(ops[live[k]]) if key_of else None
     if key is None:
-        return k
+        return k, None
     j = k
-    while j < len(live) and adam_group_key(ops[live[j]]) == key:
+    while j < len(live) and key_of(ops[live[j]]) == key:
         j += 1
-    return j
+    return j, runner
 
 
 def _raise_if_capturing(ectx, what, e):
@@ -203,15 +207,13 @@ def _exec_ops(ops, env, ectx, keep):
     while k < len(live):
         i = live[k]
         op = ops[i]
-        j = _adam_run(ops, live, k) if op.type == 'adam' else k
+        j, runner = _optimizer_run(ops, live, k)
         if j > k:
-            from ..ops.optimizer_ops import run_adam_group
             try:
-                run_adam_group([ops[live[x]] for x in range(k, j)], env,
-                               ectx)
+                runner([ops[live[x]] for x in range(k, j)], env, ectx)
             except Exception as e:
-                _raise_if_capturing(ectx, 'adam (%d ops from #%d)'
-                                    % (j - k, i), e)
+                _raise_if_capturing(ectx, '%s (%d ops from #%d)'
+                                    % (op.type, j - k, i), e)
                 raise
             for x in range(k, j):
                 for n in dead.get(live[x], ()):

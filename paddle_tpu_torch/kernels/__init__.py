@@ -19,7 +19,7 @@ __all__ = ['library', 'launches', 'reset_launches', 'check']
 launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'embedding_gather': 0,
             'layer_norm': 0, 'adam_multi': 0, 'adam_multi_bf16': 0,
-            'softmax': 0,
+            'momentum_multi': 0, 'softmax': 0,
             'kernelgen_segment': 0, 'flash_attention_composed': 0}
 
 

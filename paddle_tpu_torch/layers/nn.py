@@ -1,5 +1,5 @@
-"""fluid.layers.nn functions that the llama serving program and the
-transformer training program use.
+"""fluid.layers.nn functions that the llama serving program, the
+transformer training program and the ResNet training program use.
 
 Counterpart of paddle_tpu/layers/nn.py.  Each function emits the same op
 types, slots and attrs as the JAX package, so a model built through either
@@ -8,7 +8,8 @@ package serializes to the same desc.
 import numpy as np
 
 from ..core.layer_helper import LayerHelper
-from ..initializer import Constant, Xavier
+from ..initializer import Constant, Normal, Xavier
+from ..param_attr import ParamAttr
 
 __all__ = [
     'fc', 'embedding', 'transpose', 'reshape', 'squeeze', 'unsqueeze',
@@ -19,6 +20,7 @@ __all__ = [
     'rms_norm', 'rope', 'sample_tokens', 'layer_norm',
     'softmax_with_cross_entropy', 'add_position_encoding',
     'autoincreased_step_counter', 'softmax', 'dropout', 'matmul',
+    'conv2d', 'pool2d', 'batch_norm', 'cross_entropy', 'mean',
 ]
 
 
@@ -347,3 +349,108 @@ def sample_tokens(logits, temperature=0.0, top_k=0, seed=0, name=None):
                      attrs={'temperature': float(temperature),
                             'top_k': int(top_k), 'seed': int(seed)})
     return out
+
+
+# ------------------------------------------------------------------ conv
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """NCHW convolution; the filter draws from Normal(0, sqrt(2 / fan_in))
+    (ops/nn.py)."""
+    helper = LayerHelper('conv2d', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+
+    def pair(v):
+        return [v, v] if isinstance(v, int) else list(v)
+    filter_size = pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * _prod(filter_size)
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype,
+                                default_initializer=Normal(
+                                    0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='conv2d',
+                     inputs={'Input': input, 'Filter': w},
+                     outputs={'Output': pre_bias},
+                     attrs={'strides': pair(stride), 'paddings': pair(padding),
+                            'dilations': pair(dilation), 'groups': groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper('pool2d', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+
+    def pair(v):
+        return [v, v] if isinstance(v, int) else list(v)
+    helper.append_op(type='pool2d', inputs={'X': input}, outputs={'Out': out},
+                     attrs={'pooling_type': pool_type,
+                            'ksize': pair(pool_size),
+                            'strides': pair(pool_stride),
+                            'paddings': pair(pool_padding),
+                            'global_pooling': global_pooling,
+                            'ceil_mode': ceil_mode, 'exclusive': exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False, use_global_stats=False):
+    """Batch norm over every axis but the channel's: Scale (1) and Bias
+    (0) trained, the moving mean (0) and variance (1) persistable and
+    updated in place by the op (ops/nn.py)."""
+    helper = LayerHelper('batch_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channel_num = input.shape[1] if data_layout == 'NCHW' else \
+        input.shape[-1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(helper.param_attr, param_shape, dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(helper.bias_attr, param_shape, dtype,
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                  trainable=False), param_shape, dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                  trainable=False), param_shape, dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='batch_norm',
+                     inputs={'X': input, 'Scale': scale, 'Bias': bias,
+                             'Mean': mean, 'Variance': variance},
+                     outputs={'Y': out, 'MeanOut': mean,
+                              'VarianceOut': variance,
+                              'SavedMean': saved_mean,
+                              'SavedVariance': saved_var},
+                     attrs={'momentum': momentum, 'epsilon': epsilon,
+                            'is_test': is_test, 'data_layout': data_layout,
+                            'use_global_stats': use_global_stats})
+    return helper.append_activation(out)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of the label's probability in `input` (ops/loss.py)."""
+    return _simple('cross_entropy', input,
+                   {'soft_label': soft_label, 'ignore_index': ignore_index},
+                   outs=('Y',), extra_ins={'Label': label})
+
+
+def mean(x, name=None):
+    return _simple('mean', x, name=name)

@@ -1,2 +1,2 @@
 """Models built on the port's layers."""
-from . import llama, transformer  # noqa: F401
+from . import llama, resnet, transformer  # noqa: F401

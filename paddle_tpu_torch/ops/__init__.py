@@ -1,3 +1,3 @@
 """Op implementations; importing this package registers them all."""
 from . import (rand, tensor, math, nn, sampling, attention, loss,  # noqa: F401
-               optimizer_ops, fused)
+               metric, optimizer_ops, fused)

@@ -3,10 +3,10 @@
 Counterpart of paddle_tpu/ops/kernelgen/__init__.py.  On a CUDA tensor,
 ops/fused.py hands each fused group to `run_fused`, which runs its plan
 (builder.py): random draws, views and transposes, the dedicated kernels
-K5 / K6 / K1, `adam_multi`, and one generated kernel per segment.  There
-is no fallback on the card: a sub-op without a rule, or a shape a
-template cannot take, raises `KernelgenUnsupported` naming it, and a
-failing nvcc or launch raises.  The port has no `PT_KERNELGEN` switch;
+K5 / K6 / K1, `adam_multi`, `momentum_multi`, and one generated kernel per
+segment.  There is no fallback on the card: a sub-op without a rule, or a
+shape a template cannot take, raises `KernelgenUnsupported` naming it,
+and a failing nvcc or launch raises.  The port has no `PT_KERNELGEN` switch;
 `PT_OPT=0` (no fusion) is the only way to run unfused.
 
 The generated functions of every plan made so far that are not built yet
@@ -310,6 +310,24 @@ def _run_adam(st, mats, ctx):
             mats[mid] = cols[oslot[:-3]][k]
 
 
+def _run_momentum(st, mats, ctx):
+    from ..optimizer_ops import momentum_multi
+    _, gkey, ins, outs, in_place = st
+    cols = {slot: [mats[d[slot]] for d in ins]
+            for slot in ('Param', 'Grad', 'Velocity', 'LearningRate')}
+    # as in _run_adam: a column that is not in place gets a new tensor
+    for slot in ('Param', 'Velocity'):
+        cols[slot] = [t if ip else t.clone()
+                      for t, ip in zip(cols[slot], in_place)]
+    momentum_multi(cols['Param'], cols['Grad'], cols['Velocity'],
+                   cols['LearningRate'], *gkey,
+                   cache=getattr(ctx, 'cache', None),
+                   recorder=getattr(ctx, 'recorder', None))
+    for k, ob in enumerate(outs):
+        for oslot, mid in ob.items():
+            mats[mid] = cols[oslot[:-3]][k]
+
+
 def plan_of(attrs):
     """The plan the last `run_fused` of this fused op used."""
     return _LAST_PLAN.get(id(attrs))
@@ -368,6 +386,8 @@ def run_fused(ctx, xs, attrs, amp):
                 for mid, v in zip(binds, vals):
                     if mid is not None:
                         mats[mid] = v
+        elif kind == 'momentum':
+            _run_momentum(st, mats, ctx)
         else:
             _run_adam(st, mats, ctx)
     return [mats[m].detach() if stop and mats[m].requires_grad else mats[m]

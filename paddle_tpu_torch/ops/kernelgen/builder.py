@@ -21,6 +21,9 @@ transcription.  The sub-ops partition into steps:
 ``adam``
     Consecutive `adam` sub-ops with the same betas and epsilon: one
     `adam_multi` launch (csrc/adam.cu), in place.
+``momentum``
+    Consecutive `momentum` sub-ops with the same mu and use_nesterov: one
+    `momentum_multi` launch (csrc/momentum.cu), in place.
 ``kernel``
     A maximal run of `ew` and rng-body sub-ops: ONE generated
     `__global__` function (`_emit_segment`).
@@ -243,13 +246,13 @@ class Plan(object):
         self.finals = []
         self.final_stop = []
         self.n_kernels = self.n_dsteps = self.n_draws = 0
-        self.n_glue = self.n_adam = 0
+        self.n_glue = self.n_adam = self.n_momentum = 0
         self.kernels = []      # the generated functions' names, in order
 
     def counts(self):
         return {'kernels': self.n_kernels, 'dsteps': self.n_dsteps,
                 'draws': self.n_draws, 'glue': self.n_glue,
-                'adam': self.n_adam}
+                'adam': self.n_adam, 'momentum': self.n_momentum}
 
 
 _PLANS = {}
@@ -356,17 +359,18 @@ def _build_plan(attrs, in_avals, amp):
 
         # ------------------------------------------------ optimizer
         if rule.kind == 'optimizer':
+            in_slots, out_slots, group_key = _OPTIMIZERS[stype]
             j = i
-            gkey = _adam_key(sub)
-            while j < len(sub_ops) and sub_ops[j]['type'] == 'adam' and \
-                    _adam_key(sub_ops[j]) == gkey:
+            gkey = group_key(sub)
+            while j < len(sub_ops) and sub_ops[j]['type'] == stype and \
+                    group_key(sub_ops[j]) == gkey:
                 j += 1
             group = sub_ops[i:j]
             if any(loc[key_of(n)][0] == 'sym' for s in group
                    for ns in s['inputs'].values() for n in ns):
                 flush(i)
             ins = [{slot: as_mat(key_of(s['inputs'][slot][0]), stype)
-                    for slot in _ADAM_IN} for s in group]
+                    for slot in in_slots} for s in group]
             outs = []
             for gi, s in enumerate(group):
                 ob = {}
@@ -379,9 +383,12 @@ def _build_plan(attrs, in_avals, amp):
                     ob[slot] = mid
                 outs.append(ob)
             in_place = [all(s['outputs'].get(o) == s['inputs'].get(n)
-                            for o, n in _ADAM_OUT.items()) for s in group]
-            plan.steps.append(('adam', gkey, ins, outs, in_place))
-            plan.n_adam += 1
+                            for o, n in out_slots.items()) for s in group]
+            plan.steps.append((stype, gkey, ins, outs, in_place))
+            if stype == 'adam':
+                plan.n_adam += 1
+            else:
+                plan.n_momentum += 1
             i = j
             continue
 
@@ -580,6 +587,20 @@ def _adam_key(sub):
     a = sub['attrs']
     return (a.get('beta1', 0.9), a.get('beta2', 0.999),
             a.get('epsilon', 1e-8))
+
+
+def _momentum_key(sub):
+    a = sub['attrs']
+    return (a.get('mu', 0.9), bool(a.get('use_nesterov', False)))
+
+
+# the optimizer rules: op type -> (input slots, {output slot: the input
+# slot it updates}, the key a run of them shares)
+_OPTIMIZERS = {
+    'adam': (_ADAM_IN, _ADAM_OUT, _adam_key),
+    'momentum': (('Param', 'Grad', 'Velocity', 'LearningRate'),
+                 {'ParamOut': 'Param', 'VelocityOut': 'Velocity'},
+                 _momentum_key)}
 
 
 # ------------------------------------------------------ CUDA emission

@@ -295,3 +295,4 @@ _r('softmax', kind='row')
 _r('layer_norm', kind='row')
 _r('flash_attention', kind='attention')
 _r('adam', kind='optimizer')
+_r('momentum', kind='optimizer')

@@ -1,4 +1,5 @@
-"""Loss ops: softmax_with_cross_entropy for hard labels over the last axis.
+"""Loss ops: softmax_with_cross_entropy for hard labels over the last axis,
+and cross_entropy of probabilities.
 
 Counterpart of paddle_tpu/ops/loss.py (`_make_hard_ce`, :43-93).  The
 loss is a `torch.autograd.Function` with the reference's own backward:
@@ -13,10 +14,18 @@ loss is a `torch.autograd.Function` with the reference's own backward:
 The `Softmax` output is computed only when a later op reads it or the run
 fetches it (`ctx.wants`): otherwise every training step would build a
 float32 [B, T, V] tensor that the JAX package's DCE never builds.
+
+`cross_entropy` (the reference's :22-40) takes probabilities: `-log(p +
+1e-8)` of the label's entry in float32 whatever their dtype, zero on
+`ignore_index` rows, or `-sum(label * log(p + 1e-8))` with `soft_label`;
+plain torch ops, differentiated by autograd as the JAX package's are by
+its vjp.
 """
 import torch
 
 from ..core.registry import register
+
+_EPS = 1e-8
 
 
 def _target(logits, lab):
@@ -93,3 +102,17 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
     if ctx.wants('Softmax'):
         outs['Softmax'] = torch.softmax(logits.float(), dim=-1)
     return outs
+
+
+@register('cross_entropy')
+def cross_entropy(ctx, ins, attrs):
+    x, label = ins['X'].float(), ins['Label']
+    if attrs.get('soft_label', False):
+        return {'Y': -(label.float() * torch.log(x + _EPS)).sum(
+            dim=-1, keepdim=True)}
+    lab = label[..., 0] if label.ndim >= 2 and label.shape[-1] == 1 \
+        else label
+    lab = lab.unsqueeze(-1)
+    out = -torch.log(_target(x, lab) + _EPS)
+    ignore = attrs.get('ignore_index', -100)
+    return {'Y': torch.where(lab == ignore, torch.zeros_like(out), out)}

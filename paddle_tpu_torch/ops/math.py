@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
 `axis` broadcast rule, relu, square, sqrt, sign, swish, scale, clip,
-clip_by_norm, cast, increment, reduce_sum, sum, mul and matmul, each with
+clip_by_norm, cast, increment, reduce_sum, mean, sum, mul and matmul, each with
 the JAX impl's semantics on tensors.  A large
 matrix product stays `torch.matmul`, as the JAX package left it to XLA;
 float32 products run in full float32 (TF32 off, PyTorch's default).
@@ -152,6 +152,15 @@ def reduce_sum(ctx, ins, attrs):
     if out.ndim == 0:
         out = out.reshape(1)
     return {'Out': out}
+
+
+@register('mean')
+def mean(ctx, ins, attrs):
+    """The mean of every entry, shape [1] (jnp.mean: an integer input's
+    mean is float32)."""
+    x = ins['X']
+    return {'Out': (x if x.is_floating_point() else x.float()).mean()
+            .reshape(1)}
 
 
 @register('sum')

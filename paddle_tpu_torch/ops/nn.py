@@ -1,5 +1,6 @@
-"""Normalisation, position, softmax and dropout ops: rms_norm, rope,
-layer_norm, add_position_encoding, softmax and dropout.
+"""Normalisation, position, softmax, dropout, convolution and pooling ops:
+rms_norm, rope, layer_norm, add_position_encoding, softmax, dropout,
+conv2d, pool2d and batch_norm.
 
 Counterpart of paddle_tpu/ops/nn.py.  rms_norm and rope compute in float32
 and return the input dtype.  `layer_norm` is the JAX op's function, rows x
@@ -27,11 +28,30 @@ by 1 - p for `upscale_in_train`.  The mask is drawn as the JAX package
 draws it, outside any kernel (`jax.random.bernoulli` there, `bernoulli_`
 on the op's own `torch.Generator` here, on the device); the two packages'
 draws differ, as their generators do.
+
+`conv2d` is `F.conv2d` (cuDNN on the card), NCHW / OIHW, as the JAX
+package leaves its convolution to XLA (`lax.conv_general_dilated`) outside
+any kernel of its own.  A float32 convolution computes in float32 on the
+card whatever `torch.backends.cudnn.allow_tf32` says: the op turns cuDNN's
+TF32 off around its forward and its backward (`_Conv2d`).  `pool2d` pads
+explicitly as the JAX op does (`_pool`): -inf for max and 0 for avg on the
+low side, and on the high side under `ceil_mode` as far as the last window
+that starts inside the padded input needs, then pools without padding; avg
+divides the window sums by the count of real elements (`exclusive`) or by
+the window's size.  `batch_norm` is the JAX op's formula in torch ops:
+float32 one-pass statistics shifted by each channel's first element,
+`var = max(E[d^2] - E[d]^2, 0)`, Y in the input's dtype, and the moving
+statistics `momentum * old + (1 - momentum) * batch` with the biased
+variance, written in place into the persistable Mean and Variance (not
+`F.batch_norm`, whose momentum is the other way round and whose running
+variance is the unbiased one).
 """
+import contextlib
 import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 from ..core.registry import register
@@ -339,3 +359,149 @@ def dropout(ctx, ins, attrs):
     mask = dropout_mask(x.shape, x.dtype, x.device, p,
                         ctx.generator(attrs.get('seed', 0)))
     return {'Out': dropout_apply(x, mask, attrs), 'Mask': mask}
+
+
+# ------------------------------------------------------------ convolution
+
+def _pair(v):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) \
+        else (int(v), int(v))
+
+
+@contextlib.contextmanager
+def _cudnn_float32():
+    """cuDNN's TF32 off: a float32 convolution in float32, as the JAX
+    package's is."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+class _Conv2d(torch.autograd.Function):
+    """F.conv2d, forward and backward under `_cudnn_float32`: the
+    backward reads cuDNN's TF32 flag when it runs, outside the op."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+        with _cudnn_float32():
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        want = ctx.needs_input_grad
+        with _cudnn_float32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, list(stride), list(padding), list(dilation),
+                False, [0, 0], groups, [want[0], want[1], False])
+        return gx, gw, None, None, None, None
+
+
+def conv2d_nchw(x, w, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
+                groups=1):
+    """The convolution of `x` [N, C, H, W] with `w` [O, C / groups, kh, kw]
+    and symmetric zero padding."""
+    return _Conv2d.apply(x, w, _pair(strides), _pair(paddings),
+                         _pair(dilations), int(groups or 1))
+
+
+@register('conv2d')
+def conv2d(ctx, ins, attrs):
+    out = conv2d_nchw(ins['Input'], ins['Filter'],
+                      attrs.get('strides', [1, 1]),
+                      attrs.get('paddings', [0, 0]),
+                      attrs.get('dilations', [1, 1]),
+                      attrs.get('groups', 1))
+    if 'Bias' in ins:
+        out = out + ins['Bias'].reshape(1, -1, 1, 1)
+    return {'Output': out}
+
+
+# ---------------------------------------------------------------- pooling
+
+def _pool2d(x, ksize, strides, paddings, ptype='max', exclusive=True,
+                ceil_mode=False, global_pooling=False):
+    """The JAX op's `_pool` on [N, C, H, W]."""
+    if global_pooling:
+        if ptype == 'max':
+            return x.amax(dim=(2, 3), keepdim=True)
+        return x.mean(dim=(2, 3), keepdim=True)
+    ksize, strides, pads = _pair(ksize), _pair(strides), _pair(paddings)
+    hi = []
+    for i in range(2):
+        h = pads[i]
+        if ceil_mode:
+            size = x.shape[2 + i]
+            out = -(-(size + 2 * pads[i] - ksize[i]) // strides[i]) + 1
+            needed = (out - 1) * strides[i] + ksize[i] - size - pads[i]
+            h = max(pads[i], needed)
+        hi.append(h)
+    spec = (pads[1], hi[1], pads[0], hi[0])
+    if ptype == 'max':
+        return F.max_pool2d(F.pad(x, spec, value=float('-inf')), ksize,
+                            strides)
+    s = F.avg_pool2d(F.pad(x, spec), ksize, strides, divisor_override=1)
+    if exclusive:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        return s / F.avg_pool2d(F.pad(ones, spec), ksize, strides,
+                                divisor_override=1)
+    return s / float(ksize[0] * ksize[1])
+
+
+@register('pool2d')
+def pool2d(ctx, ins, attrs):
+    return {'Out': _pool2d(ins['X'], attrs.get('ksize', [2, 2]),
+                           attrs.get('strides', [1, 1]),
+                           attrs.get('paddings', [0, 0]),
+                           attrs.get('pooling_type', 'max'),
+                           attrs.get('exclusive', True),
+                           attrs.get('ceil_mode', False),
+                           attrs.get('global_pooling', False))}
+
+
+# ------------------------------------------------------------- batch norm
+
+@register('batch_norm')
+def batch_norm(ctx, ins, attrs):
+    x = ins['X']
+    scale, bias = ins['Scale'], ins['Bias']
+    mean, var = ins['Mean'], ins['Variance']
+    eps = attrs.get('epsilon', 1e-5)
+    momentum = attrs.get('momentum', 0.9)
+    ch = 1 if attrs.get('data_layout', 'NCHW') == 'NCHW' else x.ndim - 1
+    axes = tuple(i for i in range(x.ndim) if i != ch)
+    bshape = [1] * x.ndim
+    bshape[ch] = x.shape[ch]
+    xf = x.float()
+    if attrs.get('is_test', False) or attrs.get('use_global_stats', False):
+        y = (xf - mean.reshape(bshape)) * (
+            scale.reshape(bshape) * torch.rsqrt(var.reshape(bshape) + eps)) \
+            + bias.reshape(bshape)
+        return {'Y': y.to(x.dtype), 'MeanOut': mean, 'VarianceOut': var,
+                'SavedMean': mean, 'SavedVariance': var}
+    # one read of x for both sums, shifted by the channel's first element
+    # so that E[d^2] - E[d]^2 does not cancel when |mean| >> std; the shift
+    # is stop_gradient and cancels analytically
+    c = xf[tuple(slice(None) if i == ch else slice(0, 1)
+                 for i in range(x.ndim))].detach()
+    d = xf - c
+    md = d.mean(dim=axes, keepdim=True)
+    v = torch.clamp_min(d.square().mean(dim=axes, keepdim=True) -
+                        md.square(), 0.0)
+    m = (md + c).reshape(x.shape[ch])
+    v = v.reshape(x.shape[ch])
+    y = (d - md) * (scale.reshape(bshape) *
+                    torch.rsqrt(v.reshape(bshape) + eps)) + \
+        bias.reshape(bshape)
+    with torch.no_grad():
+        mean.copy_(momentum * mean + (1 - momentum) * m)
+        var.copy_(momentum * var + (1 - momentum) * v)
+    return {'Y': y.to(x.dtype), 'MeanOut': mean, 'VarianceOut': var,
+            'SavedMean': m, 'SavedVariance': v}

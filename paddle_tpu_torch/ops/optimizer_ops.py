@@ -1,4 +1,5 @@
-"""Optimizer update ops: `adam`, and the multi-tensor Adam kernels.
+"""Optimizer update ops: `adam` and `momentum`, and their multi-tensor
+kernels.
 
 Counterpart of paddle_tpu/ops/optimizer_ops.py.  The math is the
 reference's (:51-65):
@@ -26,6 +27,21 @@ read on the device, so a step needs no host sync.  The executor hands
 each maximal run of consecutive in-place `adam` ops to one `adam_multi`
 call (`run_adam_group`); the program still holds one `adam` op per
 parameter, as the JAX package's does.
+
+`momentum` is the reference's (:24-34), in float32:
+
+    v' = mu v + g        p' = p - lr (g + mu v')  (use_nesterov)
+                         p' = p - lr v'           (else)
+
+`momentum_multi` updates lists of parameters and velocities in place with
+one call: on CUDA tensors it launches csrc/momentum.cu, the momentum
+instance of the TPU's generated fused-segment kernel (`_compile_segment`
+with the `momentum` rule), for contiguous float32 tensors only (any other
+raises); on CPU tensors it runs `momentum_reference`, the per-tensor
+loop of the op.  Its pointer table is cached per executor as Adam's is,
+and LR is read on the device.  The executor hands each maximal run of
+consecutive in-place `momentum` ops sharing mu and use_nesterov to one
+`momentum_multi` call (`run_momentum_group`).
 """
 import numpy as np
 import torch
@@ -325,3 +341,148 @@ def adam(ctx, ins, attrs):
         *_attrs(attrs), recorder=getattr(ctx, 'recorder', None))
     return {'ParamOut': p, 'Moment1Out': m1, 'Moment2Out': m2,
             'Beta1PowOut': b1p, 'Beta2PowOut': b2p}
+
+
+# ---------------------------------------------------------------- momentum
+
+# elements per block of the kernel (csrc/momentum.cu CHUNK)
+_MOMENTUM_CHUNK = 4096
+
+
+def _momentum_one(p, g, v, lr, mu, nesterov):
+    """The `momentum` op's math on one tensor, one rounding an operation
+    -> (p', v'), new tensors."""
+    vn = mu * v + g
+    lr = lr.reshape(())
+    pn = p - lr * (g + mu * vn) if nesterov else p - lr * vn
+    return pn, vn
+
+
+def momentum_reference(params, grads, velocities, lrs, mu, nesterov):
+    """Plain version: the `momentum` op's math per tensor, written into
+    the params and velocities in place."""
+    for p, g, v, lr in zip(params, grads, velocities, lrs):
+        pn, vn = _momentum_one(p, g, v, lr, mu, nesterov)
+        p.copy_(pn)
+        v.copy_(vn)
+
+
+def _check_momentum(params, grads, velocities, lrs):
+    dev = params[0].device
+    for p, g, v, lr in zip(params, grads, velocities, lrs):
+        for t in (p, g, v):
+            if t.dtype != torch.float32 or t.device != dev or \
+                    not t.is_contiguous() or t.numel() != p.numel():
+                raise ValueError('momentum_multi kernel takes contiguous '
+                                 'float32 params, grads and velocities of '
+                                 'one size on one device')
+        if lr.dtype != torch.float32 or lr.device != dev or lr.numel() != 1:
+            raise ValueError('momentum_multi kernel takes a [1] float32 '
+                             'learning rate on the device')
+
+
+def _momentum_tables(params, grads, velocities, lrs, cache, recorder):
+    """The kernel's two int64 device tables, as `_tables` makes Adam's:
+    the state table (per tensor the param and velocity pointers and the
+    element count, then one entry per chunk, (tensor index << 32) | chunk
+    index), cached while its pointers hold, and the step table (per
+    tensor the grad and LR pointers), uploaded each step from pinned
+    memory; inside a CUDA graph entry both go through its `recorder`."""
+    dev = params[0].device
+    step_host = np.asarray([t.data_ptr() for pair in zip(grads, lrs)
+                            for t in pair], np.int64)
+
+    def state_host():
+        head = np.empty((len(params), 3), np.int64)
+        head[:, 0] = [p.data_ptr() for p in params]
+        head[:, 1] = [v.data_ptr() for v in velocities]
+        head[:, 2] = [p.numel() for p in params]
+        chunks = [(i << 32) | c for i, p in enumerate(params)
+                  for c in range((p.numel() + _MOMENTUM_CHUNK - 1) //
+                                 _MOMENTUM_CHUNK)]
+        return np.concatenate([head.reshape(-1),
+                               np.asarray(chunks, np.int64)])
+    if recorder is not None:
+        host = state_host()
+        return recorder.upload(host, dev), recorder.upload(step_host, dev), \
+            host.size - 3 * len(params)
+    key = tuple(t.data_ptr() for col in (params, velocities)
+                for t in col) + tuple(p.numel() for p in params)
+    hit = cache.get('momentum_multi') if cache is not None else None
+    if hit is not None and hit[0] == key:
+        table, n_chunks = hit[1], hit[2]
+    else:
+        host = state_host()
+        table, n_chunks = torch.from_numpy(host).to(dev), \
+            host.size - 3 * len(params)
+        if cache is not None:
+            cache['momentum_multi'] = (key, table, n_chunks)
+            cache['momentum_multi_tables'] = \
+                cache.get('momentum_multi_tables', 0) + 1
+    step = torch.from_numpy(step_host).pin_memory()
+    return table, step.to(dev, non_blocking=True), n_chunks
+
+
+def momentum_multi(params, grads, velocities, lrs, mu, nesterov,
+                   cache=None, recorder=None):
+    """Momentum over lists of tensors, params and velocities updated in
+    place.  `cache` (a dict kept across steps) holds the kernel's state
+    table; `recorder`, a CUDA graph entry's (core/graphs.py), makes the
+    host uploads."""
+    if not params:
+        return
+    if any(len(x) != len(params) for x in (grads, velocities, lrs)):
+        raise ValueError('momentum_multi: the tensor lists differ in length')
+    dev = params[0].device
+    if dev.type in ('cpu', 'meta'):
+        momentum_reference(params, grads, velocities, lrs, mu, nesterov)
+        return
+    if dev.type != 'cuda':
+        raise RuntimeError('momentum_multi: no kernel for device %s' % dev)
+    _check_momentum(params, grads, velocities, lrs)
+    table, step, n_chunks = _momentum_tables(params, grads, velocities, lrs,
+                                             cache, recorder)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernels.library().pt_momentum_multi(
+            table.data_ptr(), step.data_ptr(), len(params), n_chunks,
+            float(mu), int(bool(nesterov)), stream)
+    kernels.check(rc, 'momentum_multi')
+    kernels.launches['momentum_multi'] += 1
+
+
+def _momentum_attrs(attrs):
+    return attrs.get('mu', 0.9), bool(attrs.get('use_nesterov', False))
+
+
+def momentum_group_key(op):
+    """(mu, use_nesterov) of a `momentum` op whose outputs are its inputs
+    (the optimizer's in-place form), else None."""
+    if op.type != 'momentum' or op.input('Param') != op.output('ParamOut') \
+            or op.input('Velocity') != op.output('VelocityOut'):
+        return None
+    return _momentum_attrs(op.attrs)
+
+
+def run_momentum_group(ops, env, ectx):
+    """One `momentum_multi` call for consecutive in-place momentum ops
+    sharing mu and use_nesterov (momentum_group_key)."""
+    cols = [[env[op.input(slot)[0]] for op in ops] for slot in (
+        'Param', 'Grad', 'Velocity', 'LearningRate')]
+    momentum_multi(*cols, *_momentum_attrs(ops[0].attrs), cache=ectx.cache,
+                   recorder=ectx.recorder)
+
+
+# the optimizer ops the executor groups: op type -> (key, runner)
+GROUPS = {'adam': (adam_group_key, run_adam_group),
+          'momentum': (momentum_group_key, run_momentum_group)}
+
+
+@register('momentum')
+def momentum(ctx, ins, attrs):
+    """One op, functional: the update runs on copies of its state."""
+    p, v = ins['Param'].clone(), ins['Velocity'].clone()
+    momentum_multi([p], [ins['Grad']], [v], [ins['LearningRate']],
+                   *_momentum_attrs(attrs),
+                   recorder=getattr(ctx, 'recorder', None))
+    return {'ParamOut': p, 'VelocityOut': v}

@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/tensor.py: reshape, squeeze, unsqueeze,
 transpose, split, slice, lookup_table, fill_constant,
-fill_constant_batch_size_like, assign and assign_value.
+fill_constant_batch_size_like, assign, assign_value and top_k.
 """
 import numpy as np
 import torch
@@ -140,3 +140,15 @@ def assign_value(ctx, ins, attrs):
 @register('assign')
 def assign(ctx, ins, attrs):
     return {'Out': ins['X']}
+
+
+@register('top_k')
+def top_k(ctx, ins, attrs):
+    """The k largest entries of the last axis, largest first, a tie in the
+    lower index first (`lax.top_k`'s order: a stable descending sort, where
+    `torch.topk` leaves the order of ties open); indices int64, computed
+    as int32."""
+    k = int(attrs['k'])
+    vals, idx = torch.sort(ins['X'], dim=-1, descending=True, stable=True)
+    return {'Out': vals[..., :k],
+            'Indices': idx[..., :k].to(torch_dtype('int64'))}

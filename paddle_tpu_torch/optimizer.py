@@ -1,12 +1,12 @@
 """Optimizers: program transforms that append backward and update ops.
 
-Counterpart of paddle_tpu/optimizer.py; the training slice ports
-`Optimizer` and `AdamOptimizer` / `Adam`.  `minimize(loss)` appends the
-`__backward__` op (core/backward.py), the gradient clips (clip.py), the
-weight decay (regularizer.py) and one `adam` op per parameter, with the
-same accumulators, names and attrs as the JAX package.  The executor runs
-the consecutive `adam` ops as one multi-tensor kernel launch
-(ops/optimizer_ops.py).
+Counterpart of paddle_tpu/optimizer.py; the port has `Optimizer`,
+`AdamOptimizer` / `Adam` and `MomentumOptimizer` / `Momentum`.
+`minimize(loss)` appends the `__backward__` op (core/backward.py), the
+gradient clips (clip.py), the weight decay (regularizer.py) and one
+`adam` or `momentum` op per parameter, with the same accumulators, names
+and attrs as the JAX package.  The consecutive update ops run as one
+multi-tensor kernel launch (ops/optimizer_ops.py).
 """
 from .core import unique_name
 from .core.backward import append_backward
@@ -16,7 +16,8 @@ from .clip import append_gradient_clip_ops
 from .initializer import Constant
 from .regularizer import append_regularization_ops
 
-__all__ = ['Optimizer', 'Adam', 'AdamOptimizer']
+__all__ = ['Optimizer', 'Adam', 'AdamOptimizer', 'Momentum',
+           'MomentumOptimizer']
 
 
 class Optimizer(object):
@@ -163,4 +164,32 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super(MomentumOptimizer, self).__init__(learning_rate,
+                                                regularization, name)
+        self.type = 'momentum'
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator('velocity', p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator('velocity', param_and_grad[0])
+        return block.append_op(
+            type='momentum',
+            inputs={'Param': param_and_grad[0], 'Grad': param_and_grad[1],
+                    'Velocity': velocity,
+                    'LearningRate': self._create_param_lr(param_and_grad)},
+            outputs={'ParamOut': param_and_grad[0],
+                     'VelocityOut': velocity},
+            attrs={'mu': self._momentum,
+                   'use_nesterov': self._use_nesterov},
+            infer_shape=False)
+
+
 Adam = AdamOptimizer
+Momentum = MomentumOptimizer

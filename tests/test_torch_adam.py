@@ -128,6 +128,6 @@ def test_executor_groups_consecutive_in_place_adam_ops():
             attrs={'beta1': B1, 'beta2': b2, 'epsilon': EPS},
             infer_shape=False))
     live = list(range(len(ops)))
-    assert executor._adam_run(ops, live, 0) == 2
-    assert executor._adam_run(ops, live, 2) == 3
-    assert executor._adam_run(ops, live, 3) == 3
+    assert executor._optimizer_run(ops, live, 0)[0] == 2
+    assert executor._optimizer_run(ops, live, 2)[0] == 3
+    assert executor._optimizer_run(ops, live, 3) == (3, None)

@@ -745,6 +745,78 @@ def test_adam_multi_kernel_matches_plain_over_three_steps(cuda):
     torch.testing.assert_close(b1ps[0], torch.full_like(b1ps[0], 0.9 ** 4))
 
 
+@pytest.mark.parametrize('nesterov', [False, True])
+def test_momentum_multi_kernel_is_bitwise_the_plain_version(cuda, nesterov):
+    g = torch.Generator(device='cuda').manual_seed(6)
+    # a chunk and one more, ragged sizes, and tensors whose 16-byte
+    # alignment fails (views one element into a buffer)
+    shapes = [(1,), (7,), (oo._MOMENTUM_CHUNK + 1,), (3, 3333), (64, 1024)]
+    params = [0.05 * _randn(g, *s) for s in shapes]
+    vels = [1e-3 * _randn(g, *s) for s in shapes]
+    params.append(0.05 * _randn(g, 4098)[1:])   # 4 bytes off 16
+    vels.append(1e-3 * _randn(g, 4097))
+    lrs = [torch.full((1,), 0.1, device='cuda')] * len(params)
+    ref = [[t.clone() for t in params], [t.clone() for t in vels]]
+    cache = {}
+    before = kernels.launches['momentum_multi']
+    for _ in range(3):
+        grads = [1e-2 * _randn(g, *p.shape) for p in params]
+        oo.momentum_multi(params, grads, vels, lrs, 0.9, nesterov,
+                          cache=cache)
+        oo.momentum_reference(ref[0], grads, ref[1], lrs, 0.9, nesterov)
+    torch.cuda.synchronize()
+    assert kernels.launches['momentum_multi'] == before + 3
+    assert cache['momentum_multi_tables'] == 1
+    # the reference's roundings, no FMA contraction: bit for bit
+    for a, r in zip(params + vels, ref[0] + ref[1]):
+        assert torch.equal(a, r)
+
+
+def test_momentum_multi_raises_on_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(8, device='cuda', dtype=torch.bfloat16)
+    lr = torch.full((1,), 0.1, device='cuda')
+    with pytest.raises(ValueError, match='float32'):
+        oo.momentum_multi([p], [p.clone()], [p.clone()], [lr], 0.9, False)
+    q = torch.zeros(4, 4, device='cuda')
+    with pytest.raises(ValueError, match='contiguous'):
+        oo.momentum_multi([q.t()], [q], [q.clone()], [lr], 0.9, False)
+
+
+def test_float32_conv2d_is_float32_when_cudnn_may_use_tf32(cuda):
+    """The conv op turns cuDNN's TF32 off around its forward and backward.
+    With allow_tf32 = True its output and both gradients stay within
+    float32's error of a sum of K terms against float64: each addition
+    rounds its partial sum (of up to the result's magnitude M) by 2^-24,
+    so 8 sqrt(K) 2^-24 M, with K = 576 for the output and the input's
+    gradient and N H W = 6272 for the filter's.  TF32 rounds each input
+    to 10 bits: F.conv2d under the same flag misses the output's bound,
+    as a control."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    x = _randn(g, 8, 64, 28, 28)
+    w = 0.05 * _randn(g, 64, 64, 3, 3)
+    conv = torch.nn.functional.conv2d
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = tnn.conv2d_nchw(xr, wr, 1, 1)
+        gx, gw = torch.autograd.grad(y, [xr, wr], torch.ones_like(y))
+        assert torch.backends.cudnn.allow_tf32
+        y_tf32 = conv(x, w, None, 1, 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    x64, w64 = x.double().requires_grad_(True), w.double().requires_grad_(True)
+    y64 = conv(x64, w64, None, 1, 1)
+    want = (y64,) + torch.autograd.grad(y64, [x64, w64], torch.ones_like(y64))
+
+    def tol(ref, K):
+        return 8 * K ** 0.5 * 2.0 ** -24 * float(ref.abs().max())
+    for got, ref, K in zip((y, gx, gw), want, (576, 576, 6272)):
+        err = float((got.double() - ref).abs().max())
+        assert err <= tol(ref, K), (K, err, tol(ref, K))
+    assert float((y_tf32.double() - y64).abs().max()) > tol(y64, 576)
+
+
 @pytest.mark.parametrize('rows,cols,dtype,neg_inf_rows', [
     (65536, 256, torch.float32, 0),
     (300, 1000, torch.float32, 3),

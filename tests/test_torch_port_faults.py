@@ -4,7 +4,9 @@ generation (C2), the flash-attention route for head dims the kernels do
 not tile (C3), out-of-range hard labels (C4), `scale` on an integer
 tensor (C5), `create_paddle_predictor` (C6), `reduce_sum` over integers
 and bools (C8), a float-to-integer `cast` of NaN, infinities and values
-out of range (C9), and `squeeze` / `split`.
+out of range (C9), `squeeze` / `split`, and batch norm's moving
+statistics (the reference's momentum convention and biased variance,
+which `F.batch_norm` does not follow).
 
 C3's kernels (head dims 16, 32 and 96 on CUDA cores) are checked on the
 card in tests/test_torch_cuda_kernels.py; here the route of a head dim
@@ -397,3 +399,42 @@ def test_split_into_negative_sizes_raises_in_both():
     for fluid in (jf, tf):
         with pytest.raises(ValueError):
             _run_op(fluid, 'split', ins, attrs)
+
+
+def test_batch_norm_moving_statistics_follow_the_reference():
+    """MeanOut = m mean + (1 - m) batch_mean and VarianceOut = m var + (1 -
+    m) batch_var with the biased variance, as the JAX op computes them,
+    in place.
+    torch.nn.functional.batch_norm weighs the other way round (its
+    momentum is the new batch's share) and keeps the unbiased variance
+    (n / (n - 1)): a port through it would pass a loss check and drift
+    the moving statistics, which this test would catch."""
+    import jax.numpy as jnp
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+    rng = np.random.RandomState(0)
+    C = 3
+    ins = {'X': rng.randn(2, C, 3, 3).astype('float32') * 2 + 1,
+           'Scale': np.ones(C, 'float32'), 'Bias': np.zeros(C, 'float32'),
+           'Mean': rng.randn(C).astype('float32'),
+           'Variance': rng.rand(C).astype('float32') + 0.5}
+    attrs = {'momentum': 0.9, 'epsilon': 1e-5}
+    want = jreg.get_op('batch_norm').impl(
+        None, {k: jnp.asarray(v) for k, v in ins.items()}, attrs)
+    t = {k: torch.from_numpy(v.copy()) for k, v in ins.items()}
+    got = treg.get_op('batch_norm')(None, t, attrs)
+    for slot in ('MeanOut', 'VarianceOut'):
+        np.testing.assert_allclose(got[slot].numpy(), np.asarray(want[slot]),
+                                   rtol=1e-6, err_msg=slot)
+    # written in place into the persistable statistics
+    assert got['MeanOut'] is t['Mean'] and got['VarianceOut'] is \
+        t['Variance']
+    # what F.batch_norm would have written: far from the reference's
+    rm = torch.from_numpy(ins['Mean'].copy())
+    rv = torch.from_numpy(ins['Variance'].copy())
+    torch.nn.functional.batch_norm(torch.from_numpy(ins['X']), rm, rv,
+                                   training=True, momentum=0.9)
+    assert not np.allclose(rm.numpy(), np.asarray(want['MeanOut']),
+                           rtol=1e-3)
+    assert not np.allclose(rv.numpy(), np.asarray(want['VarianceOut']),
+                           rtol=1e-3)
