@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Serve llama_1b (float32 and bf16, and as a streaming generation server)
 and llamas at Phi-3-mini's widths (head dim 96) and GPT-J-6B's (head dim
-256), train transformer-base, llama_1b and ResNet-50 through
-paddle_tpu_torch on one NVIDIA GPU, and hold each hand-written CUDA kernel
-against its plain PyTorch version.
+256), train transformer-base, llama_1b, ResNet-50, SE-ResNeXt-50, VGG-16
+and the MNIST CNN through paddle_tpu_torch on one NVIDIA GPU, and hold
+each hand-written CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
@@ -15,6 +15,7 @@ against its plain PyTorch version.
     python3 chip_smoke.py --phases card,kernels,training_llama_d256
     python3 chip_smoke.py --phases card,training,nan_trip
     python3 chip_smoke.py --phases card,kernels,training_resnet50,train_resnet_gpu_vs_cpu
+    python3 chip_smoke.py --phases card,kernels,training_se_resnext50,training_vgg16,training_mnist,train_conv_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -254,17 +255,49 @@ Phases, each printing JSON lines:
   train_resnet_gpu_vs_cpu
               models/resnet.py::build at sizes the CPU runs quickly (the
               CIFAR-10 ResNet-8 at 32 x 32, B 8; ResNet-50 at 64 x 64, 10
-              classes, B 4), 3 Momentum steps in float32 and under bf16
+              classes, B 8), 3 Momentum steps (ResNet-50: 1, the step it
+              holds) in float32 and under bf16
               AMP on the card and on the CPU from one scope, cuDNN's TF32
               flag at PyTorch's default: losses, parameters, velocities,
               moving statistics and the for_test clone's predictions
               within the bounds the phase derives
+  training_se_resnext50
+              SE-ResNeXt-50 as the reference's models/se_resnext.py::build
+              makes it (224 x 224, 1000 classes, cardinality 32,
+              reduction 16, uncut), B 128, bf16 AMP, Momentum 0.9 on the
+              piecewise schedule with L2Decay(1e-4), dropout 0.5: the
+              steps, profile and checks of training_resnet50 (one
+              momentum_multi and one K5 a step), and the SE block's gate
+              (bias add + sigmoid), its mul(axis=0) + add + relu and the
+              schedule's less_than + cast among the launched segments
+  training_vgg16
+              VGG-16 with batch norm and dropout (models/vgg.py::build at
+              224 x 224, 1000 classes), B 64, bf16 AMP, Adam 1e-3: the
+              same steps and profile, one adam_multi and one K5 a step
+  training_mnist
+              the MNIST CNN (models/mnist.py::build), B 128, float32,
+              Adam: step ms and images/s (no profile)
+  train_conv_gpu_vs_cpu
+              the three at sizes the CPU runs quickly (MNIST full size,
+              VGG-16 at 32 x 32 with 10 classes, SE-ResNeXt-50 at 64 x 64),
+              every dropout at 0, 3 steps float32 and AMP on the card and
+              on the CPU from one scope, held as train_resnet_gpu_vs_cpu
+              holds its runs (VGG-16 and SE-ResNeXt-50 run and are held
+              at their first step); then
+              every learning-rate schedule computed inside the captured
+              graph: piecewise_decay(boundaries [3, 6]) with Momentum over
+              11 runs (9 graph replays), its rate each run equal to the
+              plain formula and the parameters after the last run equal
+              to the CPU's, each other schedule over 3 runs
+The kernels phase also holds one generated segment for each rule of the
+elementwise, comparison, logical and activation ops (RULE_CASES, 4 M
+values from RULE_SPECIALS and normal ones) against its plain op, timed.
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu,
-train_resnet_gpu_vs_cpu) run last, and that training_llama,
-training_llama_bf16, training_llama_d256 and training_resnet50 run after
-training_composed.  No phase is cut in depth for time (the models at
+train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu) run last, and that
+training_llama, training_llama_bf16, training_llama_d256 and the conv
+models' training phases run after training_composed.  No phase is cut in depth for time (the models at
 public widths are cut in depth, each as its phase says).
 The line before the last is the nvidia-smi line; the line before that
 lists every kernel, with its launches per step on its training path (the
@@ -304,7 +337,8 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'train_composed_gpu_vs_cpu', 'composed_opt_on_off', 'nan_trip',
           'training_llama', 'training_llama_bf16', 'training_llama_d256',
           'train_llama_gpu_vs_cpu', 'training_resnet50',
-          'train_resnet_gpu_vs_cpu')
+          'train_resnet_gpu_vs_cpu', 'training_se_resnext50',
+          'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -1379,6 +1413,11 @@ def path_segments():
     main, _, out, rfeed = resnet.bench_program(**RESNET_CFG)
     found.append(('training_resnet50', _planned_specs(
         main, rfeed, [out['loss'].name], True)))
+    # SE-ResNeXt-50, VGG-16 and MNIST at their configurations
+    for name in CONV_CFGS:
+        main, _, out, cfeed, amp = conv_program(name)
+        found.append(('training_' + name, _planned_specs(
+            main, cfeed, [out['loss'].name], amp)))
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         out = llama.generation_program('llama_1b', mode='decode',
@@ -1831,6 +1870,7 @@ def phase_kernels():
     from paddle_tpu_torch.ops import kernelgen
     t0 = time.perf_counter()
     specs = path_segments()
+    rules = rule_specs()
     kernelgen.ensure_built()
     log = kernelgen.build_stats['log']
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1843,6 +1883,10 @@ def phase_kernels():
                        if 'registers' in ln or 'spill' in ln}))
     for name, (spec, ops, paths) in sorted(specs.items()):
         served[name] = segment_case(spec, ops, paths)
+    # one segment a rule of the elementwise family (RULE_CASES), on no
+    # path of its own
+    for case, spec in rules.items():
+        rule_case(case, spec)
     return {'rows': served, 'instances': inst}
 
 
@@ -4454,27 +4498,84 @@ def _conv_fc_flops(main, B):
     return flops
 
 
-def phase_training_resnet50(smi):
-    """ResNet-50 at the reference's bench shape trained through the
-    port's entry points: models/resnet.py::bench_program, Executor.run
-    through the PT_OPT rewriter, an interpreted first step, the capture,
-    RESNET_GRAPH_STEPS graph steps (images/s, step ms median and range,
-    model FLOP/s from the conv and fc FLOPs x 3), a profile of two graph
-    steps by group (device busy, idle share), peak memory, a finite loss,
-    the launches a step (one momentum_multi, one K5, the generated
-    segments) on the wrappers and on the profiler, no plain version on
-    the card.  -> launches a step."""
+# --------------------------------- SE-ResNeXt-50, VGG-16 and the MNIST CNN
+
+# the configurations BASELINE.json names besides ResNet-50: the reference's
+# SE-ResNeXt-50 (models/se_resnext.py: cardinality 32, reduction 16;
+# Momentum 0.9 on piecewise_decay, L2Decay 1e-4, dropout 0.5) and VGG-16
+# with batch norm and dropout (models/vgg.py, Adam 1e-3), both at 224 x 224
+# with 1000 classes under bf16 AMP, and the MNIST CNN (models/mnist.py,
+# Adam 1e-3, float32), each uncut, with a synthetic feed from SEED
+CONV_CFGS = {
+    'se_resnext50': dict(module='se_resnext', B=128, amp=True,
+                         kw=dict(data_shape=(3, 224, 224), class_dim=1000,
+                                 depth=50),
+                         optimizer='Momentum(mu=0.9) on piecewise_decay('
+                         '[1000, 2000], [0.1, 0.01, 0.001]), L2Decay(1e-4)'),
+    'vgg16': dict(module='vgg', B=64, amp=True,
+                  kw=dict(data_shape=(3, 224, 224), class_dim=1000),
+                  optimizer='Adam(lr=1e-3)'),
+    'mnist': dict(module='mnist', B=128, amp=False, kw={},
+                  optimizer='Adam(lr=1e-3)'),
+}
+CONV_GRAPH_STEPS = 10
+
+
+def _no_dropout(main):
+    """Every dropout of `main` at dropout_prob 0 (the masks cannot differ
+    between two devices)."""
+    for op in main.global_block().ops:
+        if op.type == 'dropout':
+            op.attrs['dropout_prob'] = 0.0
+    main._bump()
+
+
+def conv_program(name, B=None, seed=SEED, dropout=True, **overrides):
+    """One of CONV_CFGS built through the port's models: (main, startup,
+    out, feed, amp) with AMP set as the config says and a synthetic feed
+    of B rows from `seed`."""
+    import importlib
+    import paddle_tpu_torch as fluid
+    cfg = CONV_CFGS[name]
+    mod = importlib.import_module('paddle_tpu_torch.models.' +
+                                  cfg['module'])
+    kw = dict(cfg['kw'], **overrides)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = mod.build(**kw)
+    main.set_amp(cfg['amp'])
+    if not dropout:
+        _no_dropout(main)
+    shape = out['feeds'][0].shape[1:]
+    classes = kw.get('class_dim', 10)
+    rng = np.random.RandomState(seed)
+    B = B or cfg['B']
+    feed = {out['feeds'][0].name: rng.rand(B, *shape).astype('float32'),
+            'label': rng.randint(0, classes, (B, 1)).astype('int64')}
+    return main, startup, out, feed, cfg['amp']
+
+
+def _conv_step_phase(phase, config, main, startup, out, feed, amp, smi,
+                     profile=True):
+    """Train `main` through the port's entry points: Executor.run through
+    the PT_OPT rewriter, an interpreted first step, the capture,
+    CONV_GRAPH_STEPS graph steps (images/s, step ms median and range,
+    model FLOP/s from the conv and fc FLOPs x 3, losses finite), peak
+    memory, launches a step on the wrappers, no plain version on the
+    card; with `profile` a profile of two graph steps by group (device
+    busy, idle share) and the launches on the profiler.  -> (launches a
+    step, generated launches a step by function, profiled groups)."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.ops import kernelgen
-    B = RESNET_CFG['B']
-    main, startup, out, feed = resnet.bench_program(**RESNET_CFG)
+    B = feed['label'].shape[0]
     params = [p for p in main.all_parameters() if p.trainable]
     flops = 3 * _conv_fc_flops(main, B)
     fetch = [out['loss']]
     scope, exe = fluid.Scope(), fluid.Executor()
+    groups = {}
     with fluid.scope_guard(scope):
         exe.run(startup)
         torch.cuda.synchronize()
@@ -4495,19 +4596,20 @@ def phase_training_resnet50(smi):
             capture_ms = step()     # capture, then replay
             kernels.reset_launches()
             kernelgen.launches.clear()
-            graph_ms = [step() for _ in range(RESNET_GRAPH_STEPS)]
-            launches = {k: v / RESNET_GRAPH_STEPS
+            graph_ms = [step() for _ in range(CONV_GRAPH_STEPS)]
+            launches = {k: v / CONV_GRAPH_STEPS
                         for k, v in kernels.launches.items() if v}
-            seg = {k: v / RESNET_GRAPH_STEPS
+            seg = {k: v / CONV_GRAPH_STEPS
                    for k, v in kernelgen.launches.items()}
             mem = _peak_memory()
-            (_, _, _, seen, groups), counted, tries = \
-                _profiled_launches(two_steps)
-            wall, busy, by_group, _ = step_breakdown(
-                two_steps, grouping=_resnet_group)
+            if profile:
+                (_, _, _, seen, groups), counted, tries = \
+                    _profiled_launches(two_steps)
+                wall, busy, by_group, _ = step_breakdown(
+                    two_steps, grouping=_resnet_group)
     med = float(np.median(graph_ms))
-    emit(phase='training_resnet50', step='steps', config='resnet50',
-         cfg=RESNET_CFG, amp=True, optimizer='Momentum(lr=0.1, mu=0.9)',
+    emit(phase=phase, step='steps', config=config, B=B, amp=amp,
+         feed_shape=list(next(iter(feed.values())).shape),
          trainable_tensors=len(params),
          params=sum(int(np.prod(p.shape)) for p in params),
          losses=losses, first_step_ms=first_ms, capture_step_ms=capture_ms,
@@ -4517,19 +4619,37 @@ def phase_training_resnet50(smi):
          model_tflops=flops / med / 1e9, launches_per_step=launches,
          segment_launches_per_step=sum(seg.values()),
          plain_calls_on_cuda=plain.counts, card=smi, **mem)
-    emit(phase='training_resnet50', step='graph_profile', steps=2,
-         profiled_wall_ms=wall, device_busy_ms=busy,
-         device_idle_share=(1 - busy / wall) if busy else None,
-         device_ms_by_group=by_group,
-         device_share_by_group={k: v / busy for k, v in by_group.items()},
-         device_events=seen, device_launches=groups,
-         counted_device_launches=counted, profile_tries=tries, card=smi)
-    require(len(params) == 161, 'ResNet-50 has %d trainable tensors, '
-            'expected 161' % len(params))
-    require(all(np.isfinite(losses)), 'non-finite ResNet-50 loss: %s'
-            % losses)
+    if profile:
+        emit(phase=phase, step='graph_profile', steps=2,
+             profiled_wall_ms=wall, device_busy_ms=busy,
+             device_idle_share=(1 - busy / wall) if busy else None,
+             device_ms_by_group=by_group,
+             device_share_by_group={k: v / busy for k, v in by_group.items()},
+             device_events=seen, device_launches=groups,
+             counted_device_launches=counted, profile_tries=tries, card=smi)
+        _seen_on_device(phase + ' graph', groups, counted)
+    require(all(np.isfinite(losses)), 'non-finite %s loss: %s'
+            % (config, losses))
     require(not plain.counts, 'plain versions ran on the card: %s'
             % plain.counts)
+    return launches, seg, groups
+
+
+def phase_training_resnet50(smi):
+    """ResNet-50 at the reference's bench shape trained through the
+    port's entry points: models/resnet.py::bench_program, then
+    _conv_step_phase (one momentum_multi, one K5 and the generated
+    segments a step, on the wrappers and on the profiler).  -> launches
+    a step."""
+    from paddle_tpu_torch.models import resnet
+    main, startup, out, feed = resnet.bench_program(**RESNET_CFG)
+    params = [p for p in main.all_parameters() if p.trainable]
+    require(len(params) == 161, 'ResNet-50 has %d trainable tensors, '
+            'expected 161' % len(params))
+    emit(phase='training_resnet50', step='config', config='resnet50',
+         cfg=RESNET_CFG, optimizer='Momentum(lr=0.1, mu=0.9)')
+    launches, seg, groups = _conv_step_phase(
+        'training_resnet50', 'resnet50', main, startup, out, feed, True, smi)
     require(launches.get('momentum_multi') == 1 and
             launches.get('softmax') == 1 and
             launches.get('kernelgen_segment', 0) >= 1,
@@ -4538,9 +4658,529 @@ def phase_training_resnet50(smi):
     require(groups.get('momentum_multi') == 2, 'ResNet-50: %s momentum '
             'kernels on the profiler in two graph steps, expected 2'
             % groups.get('momentum_multi'))
-    _seen_on_device('training_resnet50 graph', groups, counted)
     launches.update(seg)
     return launches
+
+
+def _conv_phase(phase, name, smi, want, profile=True, check=None):
+    """A CONV_CFGS model at its configuration through _conv_step_phase;
+    `want`: {kernel: launches a step}, each required on the wrappers (and
+    twice on the two profiled steps); `check(main, out, feed, seg)` adds the
+    model's own checks.  -> launches a step, the generated functions'
+    included."""
+    main, startup, out, feed, amp = conv_program(name)
+    emit(phase=phase, step='config', config=name, cfg={
+        k: v for k, v in CONV_CFGS[name].items() if k != 'module'})
+    launches, seg, groups = _conv_step_phase(phase, name, main, startup,
+                                             out, feed, amp, smi, profile)
+    for k, n in want.items():
+        require(launches.get(k) == n, '%s: %s launches a step of %s, '
+                'expected %s (%s)' % (name, launches.get(k), k, n,
+                                      launches))
+        # each launch is DEVICE_KERNELS kernels on the profiler
+        dev = 2 * n * DEVICE_KERNELS.get(k, 1)
+        if profile:
+            require(groups.get(k) == dev, '%s: %s %s kernels on the '
+                    'profiler in two graph steps, expected %d'
+                    % (name, groups.get(k), k, dev))
+    require(launches.get('kernelgen_segment', 0) >= 1, '%s: no generated '
+            'segment ran (%s)' % (name, launches))
+    if check:
+        check(main, out, feed, seg)
+    launches.update(seg)
+    return launches
+
+
+def _se_block_segments(main, out, feed, seg):
+    """The SE block's generated segments ran: its gate's bias add +
+    sigmoid, its scale, residual add and relu (the mul(axis=0) -> add ->
+    relu of every block with an identity shortcut), and the piecewise
+    schedule's comparisons (bool in registers, cast to float)."""
+    specs = _planned_specs(main, feed, [out['loss'].name], True)
+    ran = {ops for name, (_, ops) in specs.items() if seg.get(name)}
+    emit(phase='training_se_resnext50', step='segments',
+         functions=len(specs), launched=sorted(
+             o if len(o) < 100 else '%s... (%d ops)' % (o[:80], o.count('+')
+                                                       + 1) for o in ran))
+    for want in ('sigmoid', 'elementwise_mul+elementwise_add+relu',
+                 'less_than+cast'):
+        require(any(want in ops for ops in ran), 'SE-ResNeXt-50: no '
+                'launched segment holds %s (%s)' % (want, sorted(ran)))
+
+
+def phase_training_se_resnext50(smi):
+    """SE-ResNeXt-50 as the reference's models/se_resnext.py::build makes
+    it (224 x 224, 1000 classes, cardinality 32, reduction 16), B 128,
+    bf16 AMP, Momentum 0.9 on the piecewise schedule with L2Decay, dropout
+    0.5 in training: one momentum_multi and one K5 a step, and the SE
+    block's and the schedule's generated segments."""
+    return _conv_phase('training_se_resnext50', 'se_resnext50', smi,
+                       {'momentum_multi': 1, 'softmax': 1},
+                       check=_se_block_segments)
+
+
+def phase_training_vgg16(smi):
+    """VGG-16 with batch norm and dropout (models/vgg.py::build at 224 x
+    224, 1000 classes), B 64, bf16 AMP, Adam 1e-3: one adam_multi and one
+    K5 a step and the generated segments."""
+    return _conv_phase('training_vgg16', 'vgg16', smi,
+                       {'adam_multi': 1, 'softmax': 1})
+
+
+def phase_training_mnist(smi):
+    """The MNIST CNN (models/mnist.py::build), B 128, float32, Adam: step
+    ms and images/s (no profile: its step is small)."""
+    return _conv_phase('training_mnist', 'mnist', smi,
+                       {'adam_multi': 1, 'softmax': 1}, profile=False)
+
+
+# the plain formulas of the schedules (layers/learning_rate_scheduler.py,
+# in float64) at decay step k, and how each is built
+def _lr_formulas():
+    import math as m
+
+    def pw(k, b=(3, 6), v=(0.1, 0.01, 0.001)):
+        return next((v[i] for i, bi in enumerate(b) if k < bi), v[-1])
+
+    def poly(k, lr, ds, end, power, cycle):
+        if cycle:
+            dsv = ds * max(m.ceil(k / ds), 1)
+        else:
+            k, dsv = min(k, ds), ds
+        return (lr - end) * (1 - k / dsv) ** power + end
+    return {
+        'piecewise_decay': (lambda L: L.piecewise_decay(
+            [3, 6], [0.1, 0.01, 0.001]), pw),
+        'exponential_decay': (lambda L: L.exponential_decay(
+            0.1, 2, 0.5, staircase=True),
+            lambda k: 0.1 * 0.5 ** m.floor(k / 2)),
+        'natural_exp_decay': (lambda L: L.natural_exp_decay(0.1, 3, 0.4),
+                              lambda k: 0.1 * m.exp(-0.4 * k / 3)),
+        'inverse_time_decay': (lambda L: L.inverse_time_decay(0.1, 2, 0.5),
+                               lambda k: 0.1 / (1 + 0.5 * k / 2)),
+        'polynomial_decay': (lambda L: L.polynomial_decay(
+            0.1, 4, 0.001, power=2.0),
+            lambda k: poly(k, 0.1, 4, 0.001, 2.0, False)),
+        'polynomial_decay_cycle': (lambda L: L.polynomial_decay(
+            0.1, 2, 0.001, power=1.0, cycle=True),
+            lambda k: poly(k, 0.1, 2, 0.001, 1.0, True)),
+        'cosine_decay': (lambda L: L.cosine_decay(0.1, 2, 8),
+                         lambda k: 0.1 * 0.5 * (m.cos(m.floor(k / 2) *
+                                                      m.pi / 8) + 1)),
+        'linear_lr_warmup': (lambda L: L.linear_lr_warmup(0.1, 2, 0.01,
+                                                          0.05),
+                             lambda k: 0.01 + 0.04 * k / 2 if k < 2
+                             else 0.1),
+        'noam_decay': (lambda L: L.noam_decay(64, 2),
+                       lambda k: 64 ** -0.5 * min((k + 1) ** -0.5,
+                                                  2 ** -1.5 * (k + 1))),
+    }
+
+
+def _schedule_program(fluid, make_lr):
+    """A small float32 fc trained by Momentum 0.9 on the schedule
+    `make_lr(layers)` -> (main, startup, loss, lr)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name='x', shape=[16], dtype='float32')
+        h = fluid.layers.fc(x, 32, act='relu')
+        loss = fluid.layers.mean(fluid.layers.fc(h, 8))
+        lr = make_lr(fluid.layers)
+        fluid.optimizer.Momentum(learning_rate=lr,
+                                 momentum=0.9).minimize(loss)
+    return main, startup, loss, lr
+
+
+SCHEDULE_RUNS = 11    # an interpreted run, the capture, 9 graph replays
+LR_RTOL = 2e-6        # the schedule's float32 ops against float64
+
+
+def schedules_under_graphs():
+    """Each schedule computed inside the captured CUDA graph: the
+    piecewise one over SCHEDULE_RUNS runs (boundaries 3 and 6 crossed by
+    graph replays), its learning rate fetched each run equal to the plain
+    formula (LR_RTOL), and the parameters after the last run equal to the
+    CPU's after the same runs (relative L2 within 1e-5: float32 in both,
+    the rate the same); every other schedule over three runs (the third a
+    replay) against its formula.  -> {schedule: max relative error}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    rng = np.random.RandomState(SEED)
+    feed = {'x': rng.randn(8, 16).astype('float32')}
+    errs, progs = {}, {}
+    for name, (make, _) in _lr_formulas().items():
+        progs[name] = _schedule_program(fluid, make)
+        # one nvcc call for every schedule program's segments
+        _planned_specs(progs[name][0], feed, [progs[name][3].name], False)
+    kernelgen.ensure_built()
+    for name, (_, formula) in _lr_formulas().items():
+        runs = SCHEDULE_RUNS if name == 'piecewise_decay' else 3
+        main, startup, loss, lr = progs[name]
+        states, init = {}, None
+        for dev in ('gpu', 'cpu')[:2 if name == 'piecewise_decay' else 1]:
+            if dev == 'gpu':
+                scope, exe = fluid.Scope(), fluid.Executor()
+                with fluid.scope_guard(scope):
+                    exe.run(startup)
+                init = {n: t.cpu().numpy() for n, t in scope.vars.items()}
+            else:
+                scope = fluid.scope_from_numpy(init, fluid.Scope(), 'cpu')
+                exe = fluid.Executor(fluid.CPUPlace())
+            kernels.reset_launches()
+            with fluid.scope_guard(scope):
+                got = [float(exe.run(main, feed=feed, fetch_list=[lr])[0][0])
+                       for _ in range(runs)]
+            states[dev] = {n: t.float().cpu().numpy()
+                           for n, t in scope.vars.items()}
+            want = [formula(k) for k in range(runs)]
+            err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+            errs['%s_%s' % (name, dev)] = err
+            emit(phase='train_conv_gpu_vs_cpu', step='schedule',
+                 schedule=name, device=dev, runs=runs, lr=got, formula=want,
+                 max_rel_err=err, rtol=LR_RTOL,
+                 momentum_launches=kernels.launches.get('momentum_multi'))
+            require(err <= LR_RTOL, 'schedule %s on the %s: %s against %s'
+                    % (name, dev, got, want))
+        if name == 'piecewise_decay':
+            params = sorted(p.name for p in main.all_parameters())
+            d = _rel([states['gpu'][n] for n in params],
+                     [states['cpu'][n] for n in params])
+            errs['piecewise_params_gpu_vs_cpu'] = d
+            require(d <= 1e-5, 'piecewise schedule: parameters after %d '
+                    'runs %.3g apart on the card and the CPU' % (runs, d))
+    return errs
+
+
+# the conv models card vs CPU: (run name, CONV_CFGS name, build overrides,
+# B, whole runs held)
+CONV_SMALL = (
+    ('mnist', 'mnist', {}, 8, True),
+    ('vgg16_32', 'vgg16', dict(data_shape=(3, 32, 32), class_dim=10), 8,
+     False),
+    ('se_resnext50_64', 'se_resnext50',
+     dict(data_shape=(3, 64, 64), class_dim=10), 8, False))
+CONV_SMALL_STEPS = 3
+CONV_KINDS = ('losses', 'params', 'moments', 'moving', 'pred')
+
+
+def _conv_kinds(main, state):
+    """A scope's tensors by kind: trainable parameters, the optimizer's
+    moments or velocities, batch norm's moving statistics."""
+    ps = main.all_parameters()
+    return dict(
+        params=[state[p.name] for p in ps if p.trainable],
+        moments=[v for n, v in sorted(state.items())
+                 if '_moment' in n or '_velocity_' in n],
+        moving=[state[p.name] for p in ps if not p.trainable])
+
+
+def phase_train_conv_gpu_vs_cpu():
+    """The three conv models at sizes the CPU runs quickly (CONV_SMALL:
+    MNIST at full size, VGG-16 at 32 x 32 with 10 classes, the
+    reference's default build, SE-ResNeXt-50 at 64 x 64), every dropout
+    at 0 in the built program, CONV_SMALL_STEPS steps (one where only
+    the first step is held) in float32 and
+    under bf16 AMP on the card and on the CPU from one scope, then the
+    for_test clone's predictions; then schedules_under_graphs.
+
+    Whole runs are held as train_resnet_gpu_vs_cpu holds ResNet-8, each
+    kind a relative L2 distance d against the size of the bf16 effect,
+    e_bf16 = d(CPU AMP, CPU float32): d(card AMP, CPU AMP) <= e_bf16,
+    d(card AMP, card float32) within [1/2, 2] e_bf16, d(card float32, CPU
+    float32) <= 2^-8 e_bf16.  VGG-16 at 32 x 32 (13 batch norms, the last
+    over 8 rows at 1 x 1) and SE-ResNeXt-50 at 64 x 64 from random weights
+    part beyond their first step in float32 already (card runs: VGG's
+    third float32 losses 0.0723 and 0.0660), so they are held at their
+    first step, as ResNet-50 is there: the float32 loss within 1e-4
+    relative, the AMP loss within the larger of the two devices' own bf16
+    effects on it, |AMP - float32| (both AMP runs round the same float32
+    values; SE-ResNeXt-50 at B 4 parts further, so it runs at B 8); each
+    runs that one step.  -> launches a step on the card, by run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    progs = {}
+    for run, name, kw, B, _ in CONV_SMALL:
+        for amp in (False, True):
+            main, startup, out, feed, _ = conv_program(name, B=B,
+                                                       dropout=False, **kw)
+            main.set_amp(amp)
+            test = main.clone(for_test=True)
+            test.set_amp(amp)
+            progs[run, amp] = (main, startup, out, feed, test)
+            _planned_specs(main, feed, [out['loss'].name], amp)
+            _planned_specs(test, feed, [out['predict'].name], amp)
+    kernelgen.ensure_built()
+    paths = {}
+    for run, name, kw, B, whole in CONV_SMALL:
+        # a run held at its first step takes only that step
+        steps = CONV_SMALL_STEPS if whole else 1
+        res, init, t0 = {}, None, time.perf_counter()
+        for amp in (False, True):
+            main, startup, out, feed, test = progs[run, amp]
+            if init is None:
+                gscope = fluid.Scope()
+                with fluid.scope_guard(gscope):
+                    fluid.Executor().run(startup)
+                init = {n: t.cpu().numpy() for n, t in gscope.vars.items()}
+            for dev in ('gpu', 'cpu'):
+                scope = fluid.scope_from_numpy(
+                    {n: a.copy() for n, a in init.items()}, fluid.Scope(),
+                    'cuda' if dev == 'gpu' else 'cpu')
+                exe = fluid.Executor() if dev == 'gpu' else \
+                    fluid.Executor(fluid.CPUPlace())
+                if dev == 'gpu':
+                    kernels.reset_launches()
+                with fluid.scope_guard(scope):
+                    losses = [float(exe.run(main, feed=feed, fetch_list=[
+                        out['loss']])[0][0])
+                        for _ in range(steps)]
+                    if dev == 'gpu':
+                        paths['train_conv_%s_%s' % (
+                            run, 'amp' if amp else 'f32')] = {
+                            k: v / steps
+                            for k, v in kernels.launches.items() if v}
+                    pred, = exe.run(test, feed=feed,
+                                    fetch_list=[out['predict']])
+                state = {n: t.float().cpu().numpy()
+                         for n, t in scope.vars.items()}
+                res[dev, amp] = dict(losses=[losses], pred=[pred],
+                                     **_conv_kinds(main, state))
+
+        def dist(a, b):
+            return {k: _rel(res[a][k], res[b][k]) for k in CONV_KINDS
+                    if res[a][k]}
+        e_bf16 = dist(('cpu', True), ('cpu', False))
+        e_amp = dist(('gpu', True), ('cpu', True))
+        e_f32 = dist(('gpu', False), ('cpu', False))
+        gpu_bf16 = dist(('gpu', True), ('gpu', False))
+        first = {k: res[k]['losses'][0][0] for k in res}
+        row = dict(phase='train_conv_gpu_vs_cpu', config=run, model=name,
+                   cfg=kw, B=B, steps=steps,
+                   held='whole runs' if whole else 'the first step',
+                   gpu_losses_f32=res['gpu', False]['losses'][0],
+                   cpu_losses_f32=res['cpu', False]['losses'][0],
+                   gpu_losses_amp=res['gpu', True]['losses'][0],
+                   cpu_losses_amp=res['cpu', True]['losses'][0],
+                   e_bf16=e_bf16, e_amp=e_amp, e_f32=e_f32,
+                   gpu_amp_vs_f32=gpu_bf16, seconds=time.perf_counter() - t0)
+        emit(**row)
+        require(all(np.all(np.isfinite(np.concatenate(
+            [np.ravel(x) for x in r['losses'] + r['pred']])))
+            for r in res.values()), 'non-finite losses or predictions '
+            '(%s)' % run)
+        if whole:
+            for k in e_bf16:
+                require(e_amp[k] <= e_bf16[k] and
+                        0.5 * e_bf16[k] <= gpu_bf16[k] <= 2 * e_bf16[k] and
+                        e_f32[k] <= 2.0 ** -8 * e_bf16[k],
+                        'train_conv_gpu_vs_cpu (%s, %s): %s' % (run, k, row))
+        else:
+            f32 = abs(first['gpu', False] - first['cpu', False])
+            amp = abs(first['gpu', True] - first['cpu', True])
+            bf16 = max(abs(first[d, True] - first[d, False])
+                       for d in ('gpu', 'cpu'))
+            require(f32 <= 1e-4 * abs(first['cpu', False]) and amp <= bf16,
+                    'train_conv_gpu_vs_cpu (%s, first step): %s'
+                    % (run, row))
+    emit(phase='train_conv_gpu_vs_cpu', step='schedules',
+         max_rel_err=schedules_under_graphs(), cuda=torch.version.cuda)
+    for p in paths.values():
+        require(p.get('softmax') == 1, 'the small conv models did not run '
+                'K5 once a step on the card: %s' % paths)
+    return paths
+
+
+# one generated segment for each rule of the elementwise, comparison,
+# logical and activation ops, and of relu, clip, max and min: case ->
+# (op, attrs); binary ops take X and Y of one shape
+RULE_CASES = {
+    'elementwise_mod': ('elementwise_mod', {'axis': -1}),
+    'elementwise_floordiv': ('elementwise_floordiv', {'axis': -1}),
+    'less_than': ('less_than', {'axis': -1}),
+    'less_equal': ('less_equal', {'axis': -1}),
+    'greater_than': ('greater_than', {'axis': -1}),
+    'greater_equal': ('greater_equal', {'axis': -1}),
+    'equal': ('equal', {'axis': -1}),
+    'not_equal': ('not_equal', {'axis': -1}),
+    'logical_and': ('logical_and', {}), 'logical_or': ('logical_or', {}),
+    'logical_xor': ('logical_xor', {}), 'logical_not': ('logical_not', {}),
+    'relu6': ('relu6', {}), 'leaky_relu': ('leaky_relu', {'alpha': 0.1}),
+    'elu': ('elu', {'alpha': 0.7}), 'selu': ('selu', {}),
+    'brelu': ('brelu', {'t_min': -1.0, 't_max': 6.0}),
+    'soft_relu': ('soft_relu', {'threshold': 20.0}),
+    'hard_sigmoid': ('hard_sigmoid', {}), 'stanh': ('stanh', {}),
+    'pow': ('pow', {'factor': 1.7}), 'pow_sqrt': ('pow', {'factor': 0.5}),
+    'pow_rsqrt': ('pow', {'factor': -0.5}),
+    'pow_cube': ('pow', {'factor': 3.0}),
+    'thresholded_relu': ('thresholded_relu', {'threshold': 0.5}),
+    'hard_shrink': ('hard_shrink', {}), 'softshrink': ('softshrink', {}),
+    # C10's repaired rules: -0 < +0 in relu, clip, max and min
+    'relu': ('relu', {}), 'clip': ('clip', {'min': -0.5, 'max': 0.0}),
+    'elementwise_max': ('elementwise_max', {'axis': -1}),
+    'elementwise_min': ('elementwise_min', {'axis': -1}),
+}
+for _op in ('sigmoid', 'logsigmoid', 'tanh', 'tanh_shrink', 'exp', 'log',
+            'rsqrt', 'abs', 'ceil', 'floor', 'cos', 'sin', 'round',
+            'reciprocal', 'softplus', 'softsign', 'erf'):
+    RULE_CASES[_op] = (_op, {})
+RULE_N = 1 << 22
+_BINARY_RULES = ('elementwise_mod', 'elementwise_floordiv',
+                 'elementwise_max', 'elementwise_min', 'less_than',
+                 'less_equal', 'greater_than', 'greater_equal', 'equal',
+                 'not_equal', 'logical_and', 'logical_or', 'logical_xor')
+def _rule_library(case):
+    """The one PyTorch call that computes a rule case's function, where
+    there is one: (what it is, fn(*inputs)) or None."""
+    import torch
+    import torch.nn.functional as F
+    plain = {'elementwise_mod': torch.remainder,
+             'elementwise_floordiv': torch.floor_divide,
+             'less_than': torch.lt, 'less_equal': torch.le,
+             'greater_than': torch.gt, 'greater_equal': torch.ge,
+             'equal': torch.eq, 'not_equal': torch.ne,
+             'logical_and': torch.logical_and,
+             'logical_or': torch.logical_or,
+             'logical_xor': torch.logical_xor,
+             'logical_not': torch.logical_not, 'sigmoid': torch.sigmoid,
+             'logsigmoid': F.logsigmoid, 'tanh': torch.tanh,
+             'tanh_shrink': F.tanhshrink, 'exp': torch.exp,
+             'log': torch.log, 'rsqrt': torch.rsqrt, 'abs': torch.abs,
+             'ceil': torch.ceil, 'floor': torch.floor, 'cos': torch.cos,
+             'sin': torch.sin, 'round': torch.round,
+             'reciprocal': torch.reciprocal, 'softplus': F.softplus,
+             'softsign': F.softsign, 'erf': torch.erf, 'relu6': F.relu6,
+             'selu': F.selu, 'hard_shrink': F.hardshrink,
+             'softshrink': F.softshrink, 'relu': torch.relu,
+             'elementwise_max': torch.maximum,
+             'elementwise_min': torch.minimum}
+    if case in plain:
+        return plain[case].__name__, plain[case]
+    args = {'leaky_relu': (F.leaky_relu, 0.1), 'elu': (F.elu, 0.7),
+            'brelu': (F.hardtanh, -1.0, 6.0), 'pow': (torch.pow, 1.7),
+            'pow_sqrt': (torch.pow, 0.5), 'pow_rsqrt': (torch.pow, -0.5),
+            'pow_cube': (torch.pow, 3.0),
+            'thresholded_relu': (F.threshold, 0.5, 0.0),
+            'clip': (torch.clamp, -0.5, 0.0)}.get(case)
+    if args is None:
+        return None
+    return ('%s(x, %s)' % (args[0].__name__, ', '.join(map(str, args[1:]))),
+            lambda x: args[0](x, *args[1:]))
+
+
+# the values every rule case starts with, then normal values x 3
+RULE_SPECIALS = (float('nan'), float('inf'), float('-inf'), -0.0, 0.0, 0.5,
+                 -0.5, 1.5, -2.5, 2.5, 1e-30, -1e-30, 100.0, -100.0, 6.0,
+                 -1.0, 1.0, 3.0, -3.0, 0.25)
+
+
+def rule_fused_attrs(op, attrs):
+    """A fused_elementwise op of one sub-op (X [, Y] -> o)."""
+    ins = {'X': ['x'], 'Y': ['y']} if op in _BINARY_RULES else {'X': ['x']}
+    sub = {'type': op, 'inputs': ins, 'outputs': {'Out': ['o']},
+           'input_is_list': {k: False for k in ins},
+           'output_is_list': {'Out': False}, 'attrs': dict(attrs),
+           'stop_grad': []}
+    return {'sub_ops': [sub], 'arg_names': [v[0] for v in ins.values()],
+            'out_names': ['o'], 'fused_count': 1}
+
+
+def rule_specs(n=RULE_N):
+    """The generated segment of each RULE_CASES case at n float32 values:
+    case -> spec (planned, not built)."""
+    from paddle_tpu_torch.ops import kernelgen
+    out = {}
+    for case, (op, attrs) in RULE_CASES.items():
+        fa = rule_fused_attrs(op, attrs)
+        plan = kernelgen.plan_for(fa, tuple(((n,), 'float32')
+                                            for _ in fa['arg_names']), False)
+        kinds = [st[0] for st in plan.steps]
+        require(kinds == ['kernel'], 'rule %s planned as %s' % (case, kinds))
+        out[case] = plan.steps[0][1]
+    return out
+
+
+def _rule_inputs(case, n):
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(SEED + 19)
+    sp = torch.tensor(RULE_SPECIALS, device='cuda')
+    xs = []
+    for k in range(2 if RULE_CASES[case][0] in _BINARY_RULES else 1):
+        x = torch.randn(n, generator=g, device='cuda') * 3
+        # every pair of specials meets once in the binary ops
+        x[:sp.numel() ** 2] = sp.repeat_interleave(sp.numel()) if k == 0 \
+            else sp.repeat(sp.numel())
+        if k == 1:
+            # equal operands for the comparisons, in a quarter of the rest
+            eq = torch.rand(n, generator=g, device='cuda') < 0.25
+            eq[:sp.numel() ** 2] = False
+            x = torch.where(eq, xs[0], x)
+        xs.append(x.contiguous())
+    return xs
+
+
+def _same(a, b, rtol):
+    """Equal values (a zero's sign included), both NaN, or within rtol of
+    a nonzero b; bools equal."""
+    import torch
+    if a.dtype == torch.bool:
+        return a == b
+    a, b = a.float(), b.float()
+    return ((a == b) & (torch.signbit(a) == torch.signbit(b))) | \
+        (torch.isnan(a) & torch.isnan(b)) | \
+        ((b != 0) & ((a - b).abs() <= rtol * b.abs()))
+
+
+def rule_case(case, spec, n=RULE_N):
+    """One rule's segment against its plain version (the op's eager
+    PyTorch impl) on RULE_SPECIALS and normal values: equal up to 1e-6
+    relative where a libdevice function (expf, tanhf, erff, powf) may
+    round otherwise in torch's own build, NaN where it is NaN, the sign of
+    a zero kept; timed beside the plain version and the one PyTorch call
+    computing the same function (_rule_library), if it agrees on these
+    inputs."""
+    import torch
+    from paddle_tpu_torch.core.dtypes import torch_dtype
+    from paddle_tpu_torch.ops import kernelgen
+    ents = _rule_inputs(case, n)
+    with torch.no_grad():
+        out, = kernelgen._launch(spec, ents)
+        ref, = spec.replay(ents)
+        torch.cuda.synchronize()
+        ok = _same(out, ref, 1e-6)
+        bad = int((~ok).sum())
+        lib = _rule_library(case)
+        if lib and not bool(_same(lib[1](*ents), ref, 1e-6).all()):
+            lib = (lib[0] + ' differs from the plain op on these inputs',
+                   None)
+        nbytes = sum(t.numel() * t.element_size() for t in ents) + \
+            out.numel() * torch.empty((), dtype=torch_dtype(
+                spec.esc_aval[0][1])).element_size()
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        row = dict(phase='kernels', kernel='kernelgen_rule', case=case,
+                   op=RULE_CASES[case][0], attrs=RULE_CASES[case][1],
+                   name=spec.name, n=n, out_dtype=spec.esc_aval[0][1],
+                   mismatches=bad, max_abs_err=float(
+                       (out.float() - ref.float()).abs().nan_to_num(
+                           0.0, posinf=0.0).max()), rtol=1e-6,
+                   ms=time_ms(lambda: kernelgen._launch(spec, ents), 50),
+                   plain_ms=time_ms(lambda: spec.replay(ents), 20),
+                   library_is=lib[0] if lib else 'none',
+                   library_ms=time_ms(lambda: lib[1](*ents), 50)
+                   if lib and lib[1] else None, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes)
+    if bad:
+        idx = torch.nonzero(~ok)[:8, 0]
+        row['first_mismatches'] = [
+            [float(e[i]) for e in ents] + [float(out[i]), float(ref[i])]
+            for i in idx.tolist()]
+    emit(**row)
+    require(not bad, 'rule %s: its generated segment disagrees with the '
+            'plain op at %d values: %s' % (case, bad, row))
+    return row
 
 
 def _resnet_program(fluid, resnet, amp, for_test=False, **kw):
@@ -4574,7 +5214,8 @@ RESNET_KINDS = ('losses', 'params', 'velocities', 'moving', 'pred')
 def phase_train_resnet_gpu_vs_cpu():
     """The port's models/resnet.py::build at sizes the CPU runs quickly
     (RESNET_SMALL: the CIFAR-10 ResNet-8 at 32 x 32, B 8, and ResNet-50 at
-    64 x 64, 10 classes, B 8), RESNET_SMALL_STEPS Momentum steps in float32
+    64 x 64, 10 classes, B 8), RESNET_SMALL_STEPS Momentum steps (one for
+    ResNet-50, held at its first step) in float32
     and under bf16 AMP on the card and on the CPU from one scope
     (convert.scope_from_numpy), with cuDNN's TF32 flag left at PyTorch's
     default (True: the conv op computes float32 in float32 itself), then
@@ -4600,10 +5241,11 @@ def phase_train_resnet_gpu_vs_cpu():
     second (2.71 and 2.67 on the card and the CPU, H100 80GB HBM3, 700 W),
     and its AMP velocities differ from its float32 ones by 1.36 (L2,
     relative: the phase's own e_bf16).
-    So only its first step is held: the float32 loss within 1e-4 relative
-    (ten times one deep float32 sum's order error, 2^-24 sqrt(2^15)), the
-    AMP loss within e_bf16 of the first loss; its other distances are
-    reported.  -> launches a step on the card, by run."""
+    So it runs and holds its first step only: the float32 loss within
+    1e-4 relative (ten times one deep float32 sum's order error, 2^-24
+    sqrt(2^15)), the AMP loss within e_bf16 of the first loss; its other
+    distances after that step are reported.  -> launches a step on the
+    card, by run."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
@@ -4625,6 +5267,9 @@ def phase_train_resnet_gpu_vs_cpu():
     paths = {}
     for name, kw, B, whole in RESNET_SMALL:
         feed = feeds[name]
+        # a run held at its first step takes only that step (cut from 3
+        # for the script's time limit)
+        steps = RESNET_SMALL_STEPS if whole else 1
         res, init, t0 = {}, None, time.perf_counter()
         for amp in (False, True):
             main, startup, out, test = _resnet_program(fluid, resnet, amp,
@@ -4646,11 +5291,11 @@ def phase_train_resnet_gpu_vs_cpu():
                 with fluid.scope_guard(scope):
                     losses = [float(exe.run(main, feed=feed, fetch_list=[
                         out['loss']])[0][0])
-                        for _ in range(RESNET_SMALL_STEPS)]
+                        for _ in range(steps)]
                     if dev == 'gpu':
                         paths['train_resnet_%s_%s' % (
                             name, 'amp' if amp else 'f32')] = {
-                            k: v / RESNET_SMALL_STEPS
+                            k: v / steps
                             for k, v in kernels.launches.items() if v}
                     pred, = exe.run(test, feed=feed,
                                     fetch_list=[out['predict']])
@@ -4673,7 +5318,7 @@ def phase_train_resnet_gpu_vs_cpu():
         gpu_bf16 = dist(('gpu', True), ('gpu', False))
         first = {k: res[k]['losses'][0][0] for k in res}
         row = dict(phase='train_resnet_gpu_vs_cpu', config=name, cfg=kw,
-                   B=B, steps=RESNET_SMALL_STEPS, held='whole runs' if whole
+                   B=B, steps=steps, held='whole runs' if whole
                    else 'the first step',
                    cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
                    gpu_losses_f32=res['gpu', False]['losses'][0],
@@ -4842,6 +5487,9 @@ def main(argv=None):
     llama_bf16 = run('training_llama_bf16', phase_training_llama_bf16, smi)
     llama_d256 = run('training_llama_d256', phase_training_llama_d256, smi)
     resnet50 = run('training_resnet50', phase_training_resnet50, smi)
+    se50 = run('training_se_resnext50', phase_training_se_resnext50, smi)
+    vgg16 = run('training_vgg16', phase_training_vgg16, smi)
+    mnist = run('training_mnist', phase_training_mnist, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -4851,6 +5499,7 @@ def main(argv=None):
     llama_tiny = run('train_llama_gpu_vs_cpu', phase_train_llama_gpu_vs_cpu)
     resnet_small = run('train_resnet_gpu_vs_cpu',
                        phase_train_resnet_gpu_vs_cpu)
+    conv_small = run('train_conv_gpu_vs_cpu', phase_train_conv_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -4889,8 +5538,13 @@ def main(argv=None):
                                                     {}),
                # per step of the ResNet-50 AMP step (graph replays) and of
                # the small ResNets on the card
-               'training_resnet50': resnet50}
+               'training_resnet50': resnet50,
+               # per step of SE-ResNeXt-50 and VGG-16 (bf16 AMP) and of
+               # MNIST (float32), graph replays
+               'training_se_resnext50': se50, 'training_vgg16': vgg16,
+               'training_mnist': mnist}
     by_path.update(resnet_small)
+    by_path.update(conv_small)
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -4903,13 +5557,15 @@ def main(argv=None):
                      if k not in kernels_py.launches})
     for path in ('training', 'training_composed'):
         launches.update(by_path[path])
-    # the kernels only the training llamas and the ResNet run (Adam's bf16
-    # instance, the clip's segments, the AMP step's segments, Momentum and
-    # the ResNet's segments): per step of the float32 llama path, else of
-    # the bf16 llama step, else of the GPT-J-width AMP step, else of the
-    # ResNet-50 AMP step
+    # the kernels only the training llamas and the conv models run (Adam's
+    # bf16 instance, the clip's segments, the AMP step's segments, Momentum
+    # and the conv models' segments): per step of the float32 llama path,
+    # else of the bf16 llama step, else of the GPT-J-width AMP step, else
+    # of the ResNet-50, SE-ResNeXt-50, VGG-16 and MNIST steps
     for path in ('training_llama', 'training_llama_bf16',
-                 'training_llama_d256', 'training_resnet50'):
+                 'training_llama_d256', 'training_resnet50',
+                 'training_se_resnext50', 'training_vgg16',
+                 'training_mnist'):
         for k, v in by_path[path].items():
             if v and not launches.get(k):
                 launches[k] = v

@@ -32,7 +32,7 @@ from .data_feeder import FeedBucketer, FeedPrefetcher  # noqa: F401
 from .compiler import (CompiledProgram, BuildStrategy,  # noqa: F401
                        ExecutionStrategy)
 from . import (initializer, layers, io, inference, serving,  # noqa: F401
-               optimizer, models)
+               optimizer, nets, models)
 from . import regularizer, clip  # noqa: F401
 from .clip import set_gradient_clip  # noqa: F401
 from .core.backward import append_backward  # noqa: F401

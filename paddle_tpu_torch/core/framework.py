@@ -203,6 +203,38 @@ class Variable(object):
     def __neg__(self):
         return self._scale(-1.0, 0.0)
 
+    def _cmp(self, other, op_type):
+        blk = self._cur_block()
+        out = blk.create_var(dtype='bool')
+        other = other if isinstance(other, Variable) else \
+            _const_like(self, other)
+        blk.append_op(type=op_type, inputs={'X': self, 'Y': other},
+                      outputs={'Out': out}, attrs={})
+        return out
+
+    def __lt__(self, o):
+        return self._cmp(o, 'less_than')
+
+    def __le__(self, o):
+        return self._cmp(o, 'less_equal')
+
+    def __gt__(self, o):
+        return self._cmp(o, 'greater_than')
+
+    def __ge__(self, o):
+        return self._cmp(o, 'greater_equal')
+
+
+def _const_like(var, value):
+    """A [1] fill_constant of `value` in var's dtype, in var's block (the
+    reference's)."""
+    const = var.block.create_var(dtype=var.dtype)
+    var.block.append_op(type='fill_constant', inputs={},
+                        outputs={'Out': const},
+                        attrs={'shape': [1], 'value': float(value),
+                               'dtype': var.dtype})
+    return const
+
 
 class Parameter(Variable):
     """Trainable persistable variable."""

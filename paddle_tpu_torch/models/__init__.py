@@ -1,2 +1,3 @@
 """Models built on the port's layers."""
-from . import llama, resnet, transformer  # noqa: F401
+from . import (llama, mnist, resnet, se_resnext, transformer,  # noqa: F401
+               vgg)

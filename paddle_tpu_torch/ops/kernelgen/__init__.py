@@ -53,20 +53,67 @@ namespace {
 __device__ __forceinline__ float kg_rbf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// jnp.minimum / jnp.maximum (ops/math.py): NaN propagates, -0 < +0
 __device__ __forceinline__ float kg_nanmin(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
+  return (a != a || a < b || (a == b && signbit(a))) ? a : b;
 }
 __device__ __forceinline__ float kg_nanmax(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float kg_clamp(float a, float lo, float hi) {
-  return a != a ? a : fminf(fmaxf(a, lo), hi);
+  return (a != a || a > b || (a == b && signbit(b))) ? a : b;
 }
 __device__ __forceinline__ float kg_sign(float a) {
   return (a != a || a == 0.f) ? a : (a > 0.f ? 1.f : -1.f);
 }
+// F.threshold(a, 0, 0): -0 gives +0, NaN stays NaN
 __device__ __forceinline__ float kg_relu(float a) {
-  return a != a ? a : fmaxf(a, 0.f);
+  return (a > 0.f || a != a) ? a : 0.f;
+}
+// one torch operation's float32 result in the output's dtype
+template <bool BF>
+__device__ __forceinline__ float kg_r(float x) {
+  return BF ? kg_rbf(x) : x;
+}
+// jnp.maximum / jnp.minimum against a constant: NaN propagates, -0 < +0
+// (`eq`: an x equal to c, a zero of the other sign, is taken)
+__device__ __forceinline__ float kg_jmax(float x, float c, bool eq) {
+  return (x != x || x > c || (eq && x == c)) ? x : c;
+}
+__device__ __forceinline__ float kg_jmin(float x, float c, bool eq) {
+  return (x != x || x < c || (eq && x == c)) ? x : c;
+}
+// ops/math.py _mod and _floordiv (jnp.mod, jnp.floor_divide)
+template <bool BF>
+__device__ __forceinline__ float kg_mod(float x, float y) {
+  const float t = kg_r<BF>(fmodf(x, y));
+  return (t != 0.f && ((t < 0.f) != (y < 0.f))) ? kg_r<BF>(__fadd_rn(t, y))
+                                                 : t;
+}
+template <bool BF>
+__device__ __forceinline__ float kg_floordiv(float x, float y) {
+  const float mod = kg_r<BF>(fmodf(x, y));
+  const float div = kg_r<BF>(__fdiv_rn(kg_r<BF>(__fsub_rn(x, mod)), y));
+  const bool ind = mod != 0.f && kg_sign(y) != kg_sign(mod);
+  const float d = ind ? kg_r<BF>(__fsub_rn(div, 1.f)) : div;
+  const float t = truncf(d);
+  return fabsf(kg_r<BF>(__fsub_rn(d, t))) >= 0.5f
+             ? kg_r<BF>(__fadd_rn(t, kg_sign(d))) : t;
+}
+__device__ __forceinline__ int kg_imod(int x, int y) {
+  if (y == 0) y = 1;
+  const int t = x % y;
+  return (t != 0 && ((t < 0) != (y < 0))) ? t + y : t;
+}
+// XLA's integer division: x / 0 is -1 and x % 0 is x
+__device__ __forceinline__ int kg_ifloordiv(int x, int y) {
+  const int q = y == 0 ? -1 : x / y;
+  const int r = y == 0 ? x : x % y;
+  const int sx = (x > 0) - (x < 0), sy = (y > 0) - (y < 0);
+  return (sx != sy && r != 0) ? q - 1 : q;
+}
+// jax.nn.softplus: max(x, 0) + log1p(exp(-|x|)), each op rounded
+template <bool BF>
+__device__ __forceinline__ float kg_softplus(float x) {
+  return kg_r<BF>(__fadd_rn(kg_relu(x),
+                            kg_r<BF>(log1pf(kg_r<BF>(expf(-fabsf(x)))))));
 }
 
 __device__ __forceinline__ float kg_ld(const float* p, long long i) {
@@ -78,6 +125,9 @@ __device__ __forceinline__ float kg_ld(const __nv_bfloat16* p, long long i) {
 __device__ __forceinline__ int kg_ld(const int* p, long long i) {
   return p[i];
 }
+__device__ __forceinline__ bool kg_ld(const bool* p, long long i) {
+  return p[i];
+}
 __device__ __forceinline__ void kg_st(float* p, long long i, float v) {
   p[i] = v;
 }
@@ -86,6 +136,9 @@ __device__ __forceinline__ void kg_st(__nv_bfloat16* p, long long i,
   p[i] = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void kg_st(int* p, long long i, int v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void kg_st(bool* p, long long i, bool v) {
   p[i] = v;
 }
 

@@ -92,9 +92,12 @@ class KernelgenUnsupported(Exception):
 # pointers (its inputs and outputs); a longer run starts a new segment
 MAX_PTRS = 480
 THREADS = 256
-KERNEL_DTYPES = ('float32', 'bfloat16', 'int32')
-_C_MEM = {'float32': 'float', 'bfloat16': '__nv_bfloat16', 'int32': 'int'}
-_C_VAL = {'float32': 'float', 'bfloat16': 'float', 'int32': 'int'}
+# bool lives in `bool` registers and one byte of memory, as torch stores it
+KERNEL_DTYPES = ('float32', 'bfloat16', 'int32', 'bool')
+_C_MEM = {'float32': 'float', 'bfloat16': '__nv_bfloat16', 'int32': 'int',
+          'bool': 'bool'}
+_C_VAL = {'float32': 'float', 'bfloat16': 'float', 'int32': 'int',
+          'bool': 'bool'}
 _SKIP_ATTRS = ('op_role', 'rng_stream', 'recompute_id')
 
 

@@ -35,9 +35,12 @@ Kinds:
     consecutive in-place `adam` sub-ops with the same betas and epsilon
     -> one `adam_multi` call (csrc/adam.cu, K7's Adam instance).
 
+Bool values (the comparisons' and logical ops' outputs) live in `bool`
+registers and are stored as one byte, as torch stores them.
+
 Not carried over yet (ROADMAP): rules for the fusable ops the port does
-not register (the other activations, comparisons, `label_smooth`, the
-other optimizers).
+not register (`label_smooth`, `fill_zeros_like`, `flatten`,
+`truncated_gaussian_random`, the other optimizers).
 """
 import numpy as np
 import torch
@@ -81,8 +84,19 @@ def _f(e, dt):
     """Operand as a float32 compute value."""
     if dt in FLOAT_DTYPES:
         return e
-    if dt == 'int32':
+    if dt in ('int32', 'bool'):
         return '((float)(%s))' % e
+    raise Unsupported('dtype %s' % dt)
+
+
+def _truth(e, dt):
+    """A value as torch's logical ops read it: nonzero (NaN too) is true."""
+    if dt == 'bool':
+        return '(%s)' % e
+    if dt == 'int32':
+        return '((%s) != 0)' % e
+    if dt in FLOAT_DTYPES:
+        return '((%s) != 0.f)' % e
     raise Unsupported('dtype %s' % dt)
 
 
@@ -93,8 +107,10 @@ def to_dtype(e, frm, to):
     (cvt.rzi) saturates and takes NaN to 0."""
     if to == frm:
         return e
+    if to == 'bool':
+        return _truth(e, frm)
     if to == 'int32':
-        if frm in FLOAT_DTYPES:
+        if frm in FLOAT_DTYPES or frm == 'bool':
             return '((int)(%s))' % e
         raise Unsupported('cast %s -> %s' % (frm, to))
     if to == 'float32':
@@ -273,13 +289,203 @@ _r('relu', emit=_relu)
 _r('square', emit=_unary_float(lambda x, a: '__fmul_rn(%s, %s)' % (x, x)))
 _r('sqrt', emit=_unary_float(lambda x, a: '__fsqrt_rn(%s)' % x))
 _r('sign', emit=_sign)
-# torch.clamp with Python bounds: float32 bounds, NaN passes through
-_r('clip', emit=_unary_float(lambda x, a: 'kg_clamp(%s, %s, %s)' % (
-    x, float_lit(a['min']), float_lit(a['max']))))
+# ops/math.py clip: jnp.clip with float32 bounds, NaN passes through
+_r('clip', emit=_unary_float(lambda x, a: _jclip(x, a['min'], a['max'])))
 _r('swish', emit=_swish)
 _r('assign', emit=_assign)
 _r('fill_constant', emit=_fill)
 _r('fill_constant_batch_size_like', emit=_fill, shape_only=('Input',))
+
+
+# ------------------------------- mod, floordiv, comparisons, logical ops
+
+def _bf(dt):
+    # the template argument of the prelude's helpers that round each
+    # operation to bfloat16
+    return 'true' if dt == 'bfloat16' else 'false'
+
+
+def _divmod_rule(helper, ihelper):
+    # ops/math.py _mod / _floordiv: integers by XLA's conventions at 0,
+    # floats operation by operation in the output's dtype
+    def emit(ins, attrs, outs):
+        (x, dx), (y, dy) = ins['X'][0], ins['Y'][0]
+        od = outs['Out'][0]
+        if od == 'int32':
+            if dx != 'int32' or dy != 'int32':
+                raise Unsupported('integer %s on %s, %s' % (helper, dx, dy))
+            return {'Out': ['%s(%s, %s)' % (ihelper, x, y)]}
+        if od not in FLOAT_DTYPES:
+            raise Unsupported('%s to %s' % (helper, od))
+        return {'Out': ['%s<%s>(%s, %s)' % (helper, _bf(od), _f(x, dx),
+                                           _f(y, dy))]}
+    return emit
+
+
+_r('elementwise_mod', emit=_divmod_rule('kg_mod', 'kg_imod'), bcast_y=True)
+_r('elementwise_floordiv', emit=_divmod_rule('kg_floordiv', 'kg_ifloordiv'),
+   bcast_y=True)
+
+_CMP = {'less_than': '<', 'less_equal': '<=', 'greater_than': '>',
+        'greater_equal': '>=', 'equal': '==', 'not_equal': '!='}
+
+
+def _compare(name):
+    # torch's comparison after promotion: integers and bools as int,
+    # anything else as float (a bfloat16 value is exact in float)
+    def emit(ins, attrs, outs):
+        (x, dx), (y, dy) = ins['X'][0], ins['Y'][0]
+        if dx in ('int32', 'bool') and dy in ('int32', 'bool'):
+            x, y = '((int)(%s))' % x, '((int)(%s))' % y
+        else:
+            x, y = _f(x, dx), _f(y, dy)
+        return {'Out': ['((%s) %s (%s))' % (x, _CMP[name], y)]}
+    return emit
+
+
+for _name in _CMP:
+    _r(_name, emit=_compare(_name), bcast_y=True)
+
+_LOGICAL = {'logical_and': '(%s && %s)', 'logical_or': '(%s || %s)',
+            'logical_xor': '(%s != %s)'}
+
+
+def _logical(name):
+    def emit(ins, attrs, outs):
+        if name == 'logical_not':
+            return {'Out': ['(!%s)' % _truth(*ins['X'][0])]}
+        return {'Out': [_LOGICAL[name] % (_truth(*ins['X'][0]),
+                                          _truth(*ins['Y'][0]))]}
+    return emit
+
+
+for _name in list(_LOGICAL) + ['logical_not']:
+    _r(_name, emit=_logical(_name))
+
+
+# ------------------------------------------ the unary and activation family
+
+def _act(fn, int_ok=None):
+    """A float op as its plain impl in ops/math.py writes it: `fn(x, a,
+    R)` -> the C++ expression, `a` the attrs, `R` rounding one torch
+    operation's float32 result to the output's dtype."""
+    def emit(ins, attrs, outs):
+        x, dx = ins['X'][0]
+        od = outs['Out'][0]
+        if dx == 'int32' and int_ok:
+            return {'Out': [int_ok % x]}
+        if dx not in FLOAT_DTYPES:
+            raise Unsupported('float op on %s' % dx)
+        return {'Out': [fn(x, attrs, lambda e: _rnd(e, od), od)]}
+    return emit
+
+
+def _lit(v):
+    return float_lit(float(v))
+
+
+def _jclip(x, lo, hi):
+    # ops/math.py _clip: jnp.maximum then jnp.minimum, -0 < +0; the flag
+    # says whether an equal x (a signed zero) is taken
+    lo, hi = float(lo), float(hi)
+    return 'kg_jmin(kg_jmax(%s, %s, %s), %s, %s)' % (
+        x, _lit(lo), 'true' if np.signbit(lo) else 'false', _lit(hi),
+        'false' if np.signbit(hi) else 'true')
+
+
+def _elu_expr(x, a, R):
+    return '((%s) >= 0.f ? (%s) : %s)' % (x, x, R('__fmul_rn(%s, %s)' % (
+        _lit(a), R('__fsub_rn(%s, 1.0f)' % R('expf(%s)' % x)))))
+
+
+def _pow_expr(x, a, R, od):
+    # torch.pow(x, f) as PyTorch's CUDA kernel computes it (sqrt, rsqrt,
+    # reciprocal, x*x, x*x*x, 1/(x*x) for those exponents; powf with the
+    # exponent in x's dtype else), then ops/math.py's fixups
+    from ..math import pow_fixups
+    f = float(a.get('factor', 1.0))
+    if f == 0.5:
+        e = R('__fsqrt_rn(%s)' % x)
+    elif f == -0.5:
+        e = R('rsqrtf(%s)' % x)
+    elif f == -1.0:
+        e = R('__fdiv_rn(1.0f, %s)' % x)
+    elif f == 2.0:
+        e = R('__fmul_rn(%s, %s)' % (x, x))
+    elif f == 3.0:
+        e = R('__fmul_rn(%s, %s)' % (R('__fmul_rn(%s, %s)' % (x, x)), x))
+    elif f == -2.0:
+        if od != 'float32':
+            raise Unsupported('pow -2 on %s' % od)
+        e = '__fdiv_rn(1.0f, __fmul_rn(%s, %s))' % (x, x)
+    else:
+        if od == 'bfloat16':
+            f = float(torch.tensor(f).to(torch.bfloat16).float())
+        e = R('powf(%s, %s)' % (x, _lit(f)))
+    for at, v in pow_fixups(float(a.get('factor', 1.0))):
+        e = '((%s) == %s ? %s : %s)' % (x, _lit(at), _lit(v), e)
+    return e
+
+
+_ACTS = {
+    # one torch operation each, float32 math rounded once
+    'sigmoid': lambda x, a, R, od: R(
+        '__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-(%s))))' % x),
+    'tanh': lambda x, a, R, od: R('tanhf(%s)' % x),
+    'exp': lambda x, a, R, od: R('expf(%s)' % x),
+    'log': lambda x, a, R, od: R('logf(%s)' % x),
+    'rsqrt': lambda x, a, R, od: R('rsqrtf(%s)' % x),
+    'cos': lambda x, a, R, od: R('cosf(%s)' % x),
+    'sin': lambda x, a, R, od: R('sinf(%s)' % x),
+    'erf': lambda x, a, R, od: R('erff(%s)' % x),
+    'reciprocal': lambda x, a, R, od: R('__fdiv_rn(1.0f, %s)' % x),
+    'ceil': lambda x, a, R, od: 'ceilf(%s)' % x,
+    'floor': lambda x, a, R, od: 'floorf(%s)' % x,
+    # torch.round and jnp.round: half to even
+    'round': lambda x, a, R, od: 'rintf(%s)' % x,
+    # compositions, each torch operation rounded
+    'tanh_shrink': lambda x, a, R, od: R('__fsub_rn(%s, %s)' % (
+        x, R('tanhf(%s)' % x))),
+    'softplus': lambda x, a, R, od: 'kg_softplus<%s>(%s)' % (_bf(od), x),
+    'logsigmoid': lambda x, a, R, od: '(-kg_softplus<%s>(-(%s)))' % (
+        _bf(od), x),
+    'softsign': lambda x, a, R, od: R('__fdiv_rn(%s, %s)' % (
+        x, R('__fadd_rn(fabsf(%s), 1.0f)' % x))),
+    'relu6': lambda x, a, R, od: _jclip(x, 0.0, a.get('threshold', 6.0)),
+    'brelu': lambda x, a, R, od: _jclip(x, a.get('t_min', 0.0),
+                                        a.get('t_max', 24.0)),
+    'leaky_relu': lambda x, a, R, od: '((%s) >= 0.f ? (%s) : %s)' % (
+        x, x, R('__fmul_rn(%s, %s)' % (_lit(a.get('alpha', 0.02)), x))),
+    'elu': lambda x, a, R, od: _elu_expr(x, a.get('alpha', 1.0), R),
+    'selu': lambda x, a, R, od: R('__fmul_rn(%s, %s)' % (
+        _lit(a.get('scale', 1.0507009873554805)),
+        _elu_expr(x, a.get('alpha', 1.6732632423543772), R))),
+    'soft_relu': lambda x, a, R, od: R('log1pf(%s)' % R('expf(%s)' % _jclip(
+        x, -float(a.get('threshold', 40.0)),
+        float(a.get('threshold', 40.0))))),
+    'hard_sigmoid': lambda x, a, R, od: _jclip(R('__fadd_rn(%s, %s)' % (
+        R('__fmul_rn(%s, %s)' % (_lit(a.get('slope', 0.2)), x)),
+        _lit(a.get('offset', 0.5)))), 0.0, 1.0),
+    'stanh': lambda x, a, R, od: R('__fmul_rn(%s, %s)' % (
+        _lit(a.get('scale_b', 1.7159)), R('tanhf(%s)' % R(
+            '__fmul_rn(%s, %s)' % (_lit(a.get('scale_a', 2.0 / 3.0)),
+                                   x))))),
+    'pow': _pow_expr,
+    'thresholded_relu': lambda x, a, R, od: '((%s) > %s ? (%s) : 0.f)' % (
+        x, _lit(a.get('threshold', 1.0)), x),
+    'hard_shrink': lambda x, a, R, od: '(fabsf(%s) > %s ? (%s) : 0.f)' % (
+        x, _lit(a.get('threshold', 0.5)), x),
+    'softshrink': lambda x, a, R, od: (
+        '((%s) > %s ? %s : ((%s) < %s ? %s : 0.f))' % (
+            x, _lit(a.get('lambda', 0.5)), R('__fsub_rn(%s, %s)' % (
+                x, _lit(a.get('lambda', 0.5)))),
+            x, _lit(-a.get('lambda', 0.5)), R('__fadd_rn(%s, %s)' % (
+                x, _lit(a.get('lambda', 0.5)))))),
+}
+
+for _name, _fn in _ACTS.items():
+    _r(_name, emit=_act(_fn))
+_r('abs', emit=_act(lambda x, a, R, od: 'fabsf(%s)' % x, int_ok='abs(%s)'))
 
 # ------------------------------------------------------------ layout glue
 for _name in ('reshape', 'squeeze', 'unsqueeze', 'transpose'):

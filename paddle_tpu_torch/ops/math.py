@@ -1,14 +1,19 @@
 """Elementwise, activation and matrix-product ops.
 
 Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
-`axis` broadcast rule, relu, square, sqrt, sign, swish, scale, clip,
-clip_by_norm, cast, increment, reduce_sum, mean, sum, mul and matmul, each with
-the JAX impl's semantics on tensors.  A large
+`axis` broadcast rule (mod and floordiv too), the comparisons and logical
+ops, the unary and activation family, scale, clip, clip_by_norm, cast,
+increment, cumsum, reduce_sum, mean, sum, mul and matmul, each with the
+JAX impl's semantics on tensors, NaN, infinities and signed zeros
+included: where a torch function differs from the jnp one there (clamp
+at -0, pow's sqrt at -inf, softplus's threshold), the op is the jnp
+formula in torch operations.  A large
 matrix product stays `torch.matmul`, as the JAX package left it to XLA;
 float32 products run in full float32 (TF32 off, PyTorch's default).
 """
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import torch_dtype
 from ..core.registry import register
@@ -39,9 +44,99 @@ _ew('elementwise_add', torch.add)
 _ew('elementwise_sub', torch.sub)
 _ew('elementwise_mul', torch.mul)
 _ew('elementwise_div', torch.div)
-_ew('elementwise_max', torch.maximum)
-_ew('elementwise_min', torch.minimum)
+
+
+def _maximum(x, y):
+    """jnp.maximum, y a tensor or a Python float: NaN propagates and -0 <
+    +0 (torch.maximum and torch.clamp keep -0)."""
+    neg = torch.signbit(y) if isinstance(y, torch.Tensor) else \
+        bool(np.signbit(y))
+    return torch.where(torch.isnan(x) | (x > y) | ((x == y) & neg), x, y)
+
+
+def _minimum(x, y):
+    """jnp.minimum, as _maximum."""
+    return torch.where(torch.isnan(x) | (x < y) | ((x == y) &
+                                                   torch.signbit(x)), x, y)
+
+
+_ew('elementwise_max', _maximum)
+_ew('elementwise_min', _minimum)
 _ew('elementwise_pow', torch.pow)
+
+
+def _isign(x):
+    # lax.sign of integers
+    return (x > 0).to(x.dtype) - (x < 0).to(x.dtype)
+
+
+def _mod(x, y):
+    """jnp.mod: the remainder takes the divisor's sign (torch.remainder,
+    not torch.fmod); an integer divisor of 0 counts as 1."""
+    if not x.is_floating_point():
+        y = torch.where(y == 0, torch.ones_like(y), y)
+    t = torch.fmod(x, y)
+    return torch.where((t != 0) & ((t < 0) != (y < 0)), t + y, t)
+
+
+def _round_away(d):
+    # lax.round's default, half away from zero; a zero keeps its sign
+    r = torch.trunc(d)
+    return torch.where(torch.abs(d - r) >= 0.5, r + torch.sign(d), r)
+
+
+def _floordiv(x, y):
+    """jnp.floor_divide.  Floats: CPython's float_divmod as jnp writes it
+    (x / 0 is NaN, not torch's inf; 0 // negative is -0 where torch gives
+    +0).  Integers: XLA's truncating division, whose x / 0 is -1 and
+    x % 0 is x, then one less where the signs differ."""
+    if x.is_floating_point():
+        mod = torch.fmod(x, y)
+        div = (x - mod) / y
+        ind = (mod != 0) & (_sign(y) != _sign(mod))
+        return _round_away(torch.where(ind, div - 1, div))
+    zero = y == 0
+    ys = torch.where(zero, torch.ones_like(y), y)
+    q = torch.where(zero, torch.full_like(x, -1),
+                    torch.div(x, ys, rounding_mode='trunc'))
+    r = torch.where(zero, x, torch.fmod(x, ys))
+    return torch.where((_isign(x) != _isign(y)) & (r != 0), q - 1, q)
+
+
+_ew('elementwise_mod', _mod)
+_ew('elementwise_floordiv', _floordiv)
+
+
+def _cmp(name, fn):
+    @register(name)
+    def impl(ctx, ins, attrs):
+        x, y = ins['X'], ins['Y']
+        return {'Out': fn(x, _bcast_y(x, y, attrs.get('axis', -1)))}
+    return impl
+
+
+_cmp('less_than', torch.lt)
+_cmp('less_equal', torch.le)
+_cmp('greater_than', torch.gt)
+_cmp('greater_equal', torch.ge)
+_cmp('equal', torch.eq)
+_cmp('not_equal', torch.ne)
+
+
+def _logical(name, fn, binary=True):
+    # numpy broadcasting, no `axis` (as the reference's)
+    @register(name)
+    def impl(ctx, ins, attrs):
+        if binary:
+            return {'Out': fn(ins['X'], ins['Y'])}
+        return {'Out': fn(ins['X'])}
+    return impl
+
+
+_logical('logical_and', torch.logical_and)
+_logical('logical_or', torch.logical_or)
+_logical('logical_xor', torch.logical_xor)
+_logical('logical_not', torch.logical_not, binary=False)
 
 
 def _unary(name, fn):
@@ -56,14 +151,135 @@ def _sign(x):
     return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
 
 
+def _softplus(x):
+    # jax.nn.softplus, jnp.logaddexp(x, 0): max(x, 0) + log1p(exp(-|x|))
+    # at every x (F.softplus returns x above a threshold)
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _clip(x, lo, hi):
+    # jnp.clip: minimum(maximum(x, lo), hi)
+    return _minimum(_maximum(x, lo), hi)
+
+
 _unary('square', torch.square)
 _unary('sqrt', torch.sqrt)
 _unary('sign', _sign)
+_unary('sigmoid', torch.sigmoid)
+_unary('logsigmoid', lambda x: -_softplus(-x))
+_unary('tanh', torch.tanh)
+_unary('tanh_shrink', lambda x: x - torch.tanh(x))
+_unary('exp', torch.exp)
+_unary('log', torch.log)
+_unary('rsqrt', torch.rsqrt)
+_unary('abs', torch.abs)
+_unary('ceil', torch.ceil)
+_unary('floor', torch.floor)
+_unary('cos', torch.cos)
+_unary('sin', torch.sin)
+_unary('round', torch.round)        # half to even, as jnp.round
+_unary('reciprocal', torch.reciprocal)
+_unary('softplus', _softplus)
+_unary('softsign', lambda x: x / (torch.abs(x) + 1))
+_unary('erf', torch.erf)
+
+
+@register('relu6')
+def relu6(ctx, ins, attrs):
+    return {'Out': _clip(ins['X'], 0.0, float(attrs.get('threshold', 6.0)))}
+
+
+@register('leaky_relu')
+def leaky_relu(ctx, ins, attrs):
+    x = ins['X']
+    return {'Out': torch.where(x >= 0, x, attrs.get('alpha', 0.02) * x)}
+
+
+def _elu(x, a):
+    return torch.where(x >= 0, x, a * (torch.exp(x) - 1.0))
+
+
+@register('elu')
+def elu(ctx, ins, attrs):
+    return {'Out': _elu(ins['X'], attrs.get('alpha', 1.0))}
+
+
+@register('selu')
+def selu(ctx, ins, attrs):
+    return {'Out': attrs.get('scale', 1.0507009873554805) * _elu(
+        ins['X'], attrs.get('alpha', 1.6732632423543772))}
+
+
+@register('brelu')
+def brelu(ctx, ins, attrs):
+    return {'Out': _clip(ins['X'], float(attrs.get('t_min', 0.0)),
+                         float(attrs.get('t_max', 24.0)))}
+
+
+@register('soft_relu')
+def soft_relu(ctx, ins, attrs):
+    t = float(attrs.get('threshold', 40.0))
+    return {'Out': torch.log1p(torch.exp(_clip(ins['X'], -t, t)))}
+
+
+@register('hard_sigmoid')
+def hard_sigmoid(ctx, ins, attrs):
+    x = ins['X']
+    return {'Out': _clip(attrs.get('slope', 0.2) * x +
+                         attrs.get('offset', 0.5), 0.0, 1.0)}
+
+
+@register('stanh')
+def stanh(ctx, ins, attrs):
+    return {'Out': attrs.get('scale_b', 1.7159) * torch.tanh(
+        attrs.get('scale_a', 2.0 / 3.0) * ins['X'])}
+
+
+def pow_fixups(f):
+    """torch.pow(x, f) takes f = 0.5 and -0.5 as sqrt and rsqrt, which
+    differ from pow (jnp.power) at -inf and at -0: those entries, as
+    pow's IEEE special cases -> [(x, value)]."""
+    if f == 0.5:
+        return [(float('-inf'), float('inf')), (0.0, 0.0)]
+    if f == -0.5:
+        return [(float('-inf'), 0.0), (0.0, float('inf'))]
+    return []
+
+
+@register('pow')
+def pow_op(ctx, ins, attrs):
+    x, f = ins['X'], float(attrs.get('factor', 1.0))
+    out = torch.pow(x, f)
+    for at, v in pow_fixups(f):
+        out = torch.where(x == at, v, out)
+    return {'Out': out}
+
+
+@register('thresholded_relu')
+def thresholded_relu(ctx, ins, attrs):
+    x = ins['X']
+    return {'Out': torch.where(x > attrs.get('threshold', 1.0), x, 0.0)}
+
+
+@register('hard_shrink')
+def hard_shrink(ctx, ins, attrs):
+    x = ins['X']
+    return {'Out': torch.where(torch.abs(x) > attrs.get('threshold', 0.5),
+                               x, 0.0)}
+
+
+@register('softshrink')
+def softshrink(ctx, ins, attrs):
+    x, lam = ins['X'], attrs.get('lambda', 0.5)
+    return {'Out': torch.where(x > lam, x - lam,
+                               torch.where(x < -lam, x + lam, 0.0))}
 
 
 @register('relu')
 def relu(ctx, ins, attrs):
-    return {'Out': torch.relu(ins['X'])}
+    # jax.nn.relu, jnp.maximum(x, 0): -0 gives +0 (torch.relu keeps -0),
+    # NaN stays NaN; one kernel, as torch.relu
+    return {'Out': F.threshold(ins['X'], 0, 0)}
 
 
 @register('scale')
@@ -84,7 +300,8 @@ def scale(ctx, ins, attrs):
 
 @register('clip')
 def clip(ctx, ins, attrs):
-    return {'Out': torch.clamp(ins['X'], attrs['min'], attrs['max'])}
+    # jnp.clip (torch.clamp keeps -0 against a bound of +0)
+    return {'Out': _clip(ins['X'], float(attrs['min']), float(attrs['max']))}
 
 
 @register('clip_by_norm')
@@ -131,6 +348,27 @@ def increment(ctx, ins, attrs):
     # a new tensor each run, which a CUDA graph copies into the scope's
     # tensor at the end of its step (core/graphs.py)
     return {'Out': x + (step if x.is_floating_point() else int(step))}
+
+
+@register('cumsum')
+def cumsum(ctx, ins, attrs):
+    # jnp.cumsum: integers and bools sum in int32; `exclusive` subtracts
+    # x, `reverse` sums the flipped x (then `exclusive` again), in the
+    # reference's order
+    x = ins['X']
+    axis = attrs.get('axis', -1)
+    dt = None if x.is_floating_point() else torch.int32
+
+    def cs(v):
+        return torch.cumsum(v, dim=axis, dtype=dt)
+    out = cs(x)
+    if attrs.get('exclusive', False):
+        out = out - x
+    if attrs.get('reverse', False):
+        out = torch.flip(cs(torch.flip(x, [axis])), [axis])
+        if attrs.get('exclusive', False):
+            out = out - x
+    return {'Out': out}
 
 
 @register('reduce_sum')

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.ops import attention as att
@@ -903,6 +904,41 @@ SEGMENTS = {
         _sub('elementwise_mul', {'X': ['n'], 'Y': ['m']}, {'Out': ['o']},
              {'axis': -1})],
         {'x': (6, 33, 129), 'c': (129,)}, ['o', 'm'], False),
+    # SE-ResNeXt's gate and its scaled residual under AMP: the fc's bias
+    # add + sigmoid in float32, then mul(axis=0) of the bf16 block output
+    # by the gate, the bf16 shortcut added, relu (AMP: the names in bf16)
+    'se_gate_residual_amp': ([
+        _sub('elementwise_add', {'X': ['f'], 'Y': ['b']}, {'Out': ['a']},
+             {'axis': 1}),
+        _sub('sigmoid', {'X': ['a']}, {'Out': ['g']}),
+        _sub('elementwise_mul', {'X': ['x'], 'Y': ['g']}, {'Out': ['s']},
+             {'axis': 0}),
+        _sub('elementwise_add', {'X': ['r'], 'Y': ['s']}, {'Out': ['h']},
+             {'axis': -1}),
+        _sub('relu', {'X': ['h']}, {'Out': ['o']})],
+        {'f': (4, 64), 'b': (64,), 'x': (4, 64, 7, 7), 'r': (4, 64, 7, 7)},
+        ['o', 'g'], ('x', 'r')),
+    # piecewise_decay's chain on the step counter: bools in registers
+    'piecewise_schedule': ([
+        _sub('increment', {'X': ['n']}, {'Out': ['n']}, {'step': 1.0}),
+        _sub('cast', {'X': ['n']}, {'Out': ['t']}, {'out_dtype': 'float32'}),
+        _sub('fill_constant', {}, {'Out': ['b0']},
+             {'shape': [1], 'value': 3.0, 'dtype': 'float32'}),
+        _sub('less_than', {'X': ['t'], 'Y': ['b0']}, {'Out': ['l0']}),
+        _sub('cast', {'X': ['l0']}, {'Out': ['i0']},
+             {'out_dtype': 'float32'}),
+        _sub('scale', {'X': ['i0']}, {'Out': ['p0']}, {'scale': 0.1}),
+        _sub('fill_constant', {}, {'Out': ['b1']},
+             {'shape': [1], 'value': 6.0, 'dtype': 'float32'}),
+        _sub('less_than', {'X': ['t'], 'Y': ['b1']}, {'Out': ['l1']}),
+        _sub('cast', {'X': ['l1']}, {'Out': ['i1']},
+             {'out_dtype': 'float32'}),
+        _sub('elementwise_sub', {'X': ['i1'], 'Y': ['i0']}, {'Out': ['w']},
+             {'axis': -1}),
+        _sub('scale', {'X': ['w']}, {'Out': ['p1']}, {'scale': 0.01}),
+        _sub('elementwise_add', {'X': ['p0'], 'Y': ['p1']}, {'Out': ['o']},
+             {'axis': -1})],
+        {'n': (1,)}, ['o', 'n', 'l1'], False),
 }
 
 
@@ -915,9 +951,15 @@ def test_generated_segments_match_plain(cuda, name):
     subs, shapes, outs, amp = SEGMENTS[name]
     attrs = {'sub_ops': subs, 'arg_names': list(shapes), 'out_names': outs}
     g = torch.Generator(device='cuda').manual_seed(6)
-    xs = [_randn(g, *s) for s in shapes.values()]
+    # float inputs from a normal draw, the step counter an int32 in [0, 8)
+    xs = [_randn(g, *s) if n != 'n' else
+          torch.randint(0, 8, s, generator=g, device='cuda',
+                        dtype=torch.int32) for n, s in shapes.items()]
     if amp:
-        xs[0] = xs[0].to(torch.bfloat16)
+        bf16 = amp if isinstance(amp, tuple) else list(shapes)[:1]
+        xs = [x.to(torch.bfloat16) if n in bf16 else x
+              for n, x in zip(shapes, xs)]
+        amp = True
     leaves = [x.clone().requires_grad_(x.is_floating_point()) for x in xs]
     ectx = treg.ExecCtx('cuda', 7, 0, amp=amp)
     ctx = ectx.for_op(0, treg._SubOpShim('fused_elementwise', {}))
@@ -932,6 +974,9 @@ def test_generated_segments_match_plain(cuda, name):
     for a, r in zip(got, ref):
         assert a.dtype == r.dtype and a.shape == r.shape
         assert torch.equal(a, r)
+    if not any(r.requires_grad for r in ref):
+        return
+    got, ref = zip(*[(a, r) for a, r in zip(got, ref) if r.requires_grad])
     w = [torch.randn(r.shape, generator=g, device='cuda').to(r.dtype)
          for r in ref]
     ga_ = torch.autograd.grad(got, leaves, w, allow_unused=True)
@@ -1068,3 +1113,16 @@ def test_decode_window_on_the_card_matches_the_cpu_port(cuda):
             break
         assert stream_g[t] == stream_c[t], (t, stream_g, stream_c)
     assert t >= 4
+
+
+@pytest.mark.parametrize('case', sorted(chip_smoke.RULE_CASES))
+def test_rule_segment_matches_plain_on_special_values(cuda, case):
+    """One generated segment of each elementwise, comparison, logical and
+    activation rule against its plain op on NaN, +-inf, +-0 and the other
+    RULE_SPECIALS (every pair for the binary ops) and normal values:
+    chip_smoke.rule_case's check (the sign of a zero kept, NaN where NaN,
+    1e-6 relative where a libdevice function may round otherwise in
+    torch's build), at 2^14 values."""
+    spec = chip_smoke.rule_specs(1 << 14)[case]
+    row = chip_smoke.rule_case(case, spec, n=1 << 14)
+    assert row['mismatches'] == 0

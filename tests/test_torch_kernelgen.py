@@ -429,14 +429,16 @@ def test_every_registered_fusable_op_has_a_rule():
 
 
 def test_unsupported_sub_op_raises_naming_itself():
-    attrs = _attrs([_sub('sigmoid', {'X': ['x']}, {'Out': ['o']}),
+    # label_smooth is fusable but has no rule (nor a port op)
+    attrs = _attrs([_sub('label_smooth', {'X': ['x']}, {'Out': ['o']}),
                     _sub('relu', {'X': ['o']}, {'Out': ['p']})],
                    ['x'], ['p'])
-    assert tkg.unsupported_sub_ops(attrs) == ['sigmoid']
-    with pytest.raises(tkg.KernelgenUnsupported, match="'sigmoid'"):
+    assert tkg.unsupported_sub_ops(attrs) == ['label_smooth']
+    with pytest.raises(tkg.KernelgenUnsupported, match="'label_smooth'"):
         tkg.plan_for(attrs, (((4,), 'float32'),), False)
+    # float16 is no dtype of a generated kernel
     cast = _attrs([_sub('cast', {'X': ['x']}, {'Out': ['o']},
-                        {'out_dtype': 'bool'})], ['x'], ['o'])
+                        {'out_dtype': 'float16'})], ['x'], ['o'])
     with pytest.raises(tkg.KernelgenUnsupported, match="'cast'"):
         tkg.plan_for(cast, (((4,), 'float32'),), False)
 

@@ -4,7 +4,8 @@ generation (C2), the flash-attention route for head dims the kernels do
 not tile (C3), out-of-range hard labels (C4), `scale` on an integer
 tensor (C5), `create_paddle_predictor` (C6), `reduce_sum` over integers
 and bools (C8), a float-to-integer `cast` of NaN, infinities and values
-out of range (C9), `squeeze` / `split`, and batch norm's moving
+out of range (C9), signed zeros and NaN in relu, clip and the elementwise
+max and min (C10), `squeeze` / `split`, and batch norm's moving
 statistics (the reference's momentum convention and biased variance,
 which `F.batch_norm` does not follow).
 
@@ -12,6 +13,7 @@ C3's kernels (head dims 16, 32 and 96 on CUDA cores) are checked on the
 card in tests/test_torch_cuda_kernels.py; here the route of a head dim
 that is not a multiple of 8 is checked, which is the same on both
 devices."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -438,3 +440,33 @@ def test_batch_norm_moving_statistics_follow_the_reference():
                            rtol=1e-3)
     assert not np.allclose(rv.numpy(), np.asarray(want['VarianceOut']),
                            rtol=1e-3)
+
+
+_C10_X = np.array([-0.0, 0.0, np.nan, -1.5, 2.5, np.inf, -np.inf, 0.0,
+                   -0.0, np.nan, 1.0], np.float32)
+_C10_Y = np.array([0.0, -0.0, 1.0, np.nan, -0.0, -0.0, 0.0, 0.0, -0.0,
+                   np.nan, 1.0], np.float32)
+
+
+@pytest.mark.parametrize('op,attrs,binary', [
+    ('relu', {}, False), ('clip', {'min': 0.0, 'max': 2.0}, False),
+    ('clip', {'min': -1.0, 'max': -0.0}, False),
+    ('elementwise_max', {'axis': -1}, True),
+    ('elementwise_min', {'axis': -1}, True)],
+    ids=['relu', 'clip', 'clip_to_minus_zero', 'max', 'min'])
+def test_c10_signed_zeros_and_nan_as_jnp(op, attrs, binary):
+    """C10: relu kept -0 (torch.relu), clip kept -0 against a bound of +0
+    (torch.clamp), and elementwise_max / min took -0 for +0 (torch.maximum
+    / minimum); jnp's maximum and minimum order -0 below +0.  Bit for bit
+    the JAX ops, NaN where NaN."""
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+    ins = {'X': _C10_X, 'Y': _C10_Y} if binary else {'X': _C10_X}
+    want = np.asarray(jreg.get_op(op).impl(
+        None, {k: jnp.asarray(v) for k, v in ins.items()}, attrs)['Out'])
+    got = treg.get_op(op)(None, {k: torch.from_numpy(v.copy())
+                                 for k, v in ins.items()}, attrs)['Out']
+    got = got.numpy()
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), (op, got, want)
