@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Serve llama_1b (float32 and bf16, and as a streaming generation server)
 and llamas at Phi-3-mini's widths (head dim 96) and GPT-J-6B's (head dim
-256), train transformer-base, llama_1b, ResNet-50, SE-ResNeXt-50, VGG-16
-and the MNIST CNN through paddle_tpu_torch on one NVIDIA GPU, and hold
-each hand-written CUDA kernel against its plain PyTorch version.
+256), train transformer-base, llama_1b, ResNet-50, SE-ResNeXt-50, VGG-16,
+the MNIST CNN, DeepFM, Wide&Deep (under every optimizer) and word2vec
+through paddle_tpu_torch on one NVIDIA GPU, and hold each hand-written
+CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
@@ -16,6 +17,7 @@ each hand-written CUDA kernel against its plain PyTorch version.
     python3 chip_smoke.py --phases card,training,nan_trip
     python3 chip_smoke.py --phases card,kernels,training_resnet50,train_resnet_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,training_se_resnext50,training_vgg16,training_mnist,train_conv_gpu_vs_cpu
+    python3 chip_smoke.py --phases card,training_ctr,training_optimizers,training_word2vec,train_ctr_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -236,7 +238,8 @@ Phases, each printing JSON lines:
               tests/test_torch_llama_train.py derives, and in float32
               (gptj_f32: within the float32 bounds above; a profiled step
               must run the width-256 3xTF32 dQ and dK/dV, no CUDA-core
-              kernel)
+              kernel); the two GPT-J-width runs hold one step (cut from
+              two for the time limit)
   training_resnet50
               ResNet-50 as the reference's models/resnet.py::bench_program
               builds it (224 x 224, 1000 classes, B = 128, full depth,
@@ -289,16 +292,56 @@ Phases, each printing JSON lines:
               11 runs (9 graph replays), its rate each run equal to the
               plain formula and the parameters after the last run equal
               to the CPU's, each other schedule over 3 runs
+  training_ctr
+              PaddleRec CTR as BASELINE.json names it: DeepFM (Adam 1e-3)
+              and Wide&Deep (Adagrad 1e-2) as models/ctr.py builds them at
+              their own widths (26 slots, 13 dense features, embedding 8;
+              fc 400 x 3 and 256, 128, 64) with 1,000,001 vocabulary rows
+              (their vocab_size), B 2048 rows of synthetic_reader, float32:
+              an interpreted step, the capture, 10 graph steps (ms a step,
+              examples/s, losses finite), a profile of two graph steps by
+              group (idle share), peak memory; two K4 gathers and one
+              adam_multi / adagrad_multi a step, no plain version
+  training_optimizers
+              Wide&Deep at that size under SGD, Adagrad, DecayedAdagrad,
+              Adamax, Adadelta, RMSProp (plain and centered), Ftrl (at
+              lr_power -0.5 and -0.6), LarsMomentum, and ModelAverage over
+              SGD, each in a fresh scope: an interpreted step, the
+              capture, 3 graph steps; losses finite, each optimizer's
+              csrc/optim_multi.cu instance once a step (LarsMomentum,
+              plain torch ops as the reference leaves it to XLA, none);
+              ModelAverage's apply() writes sum / cnt, restore() the
+              trained values
+  training_word2vec
+              the book's word2vec (models/word2vec.py at its defaults:
+              dictionary 2073, embedding 32, hidden 256, 5-grams, SGD),
+              B 512: the steps and profile of training_ctr; four K4
+              gathers, one K5 and one sgd_multi a step
+  train_ctr_gpu_vs_cpu
+              DeepFM, Wide&Deep and fit_a_line at vocab 10,000, B 256,
+              and Wide&Deep under each optimizer of training_optimizers:
+              3 steps on the card and on the CPU from one state; losses
+              within 1e-5 relative, every parameter and optimizer state
+              within the L2 bound the phase derives and prints
 The kernels phase also holds one generated segment for each rule of the
 elementwise, comparison, logical and activation ops (RULE_CASES, 4 M
-values from RULE_SPECIALS and normal ones) against its plain op, timed.
+values from RULE_SPECIALS and normal ones) against its plain op, timed;
+each instance of csrc/optim_multi.cu (OPTIM_CASES) at Wide&Deep's 12
+tensors with 1,000,001 rows (its kernels-line row), at ResNet-50's 161
+and at ragged sizes, bit for bit (the pow instance within its bound),
+timed beside its plain version and torch's optimizer where one exists;
+K4 at the CTR tables (1 and 8 columns, 53,248 int64 ids) beside
+F.embedding.
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu,
-train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu) run last, and that
+train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu, train_ctr_gpu_vs_cpu)
+run last, and that
 training_llama, training_llama_bf16, training_llama_d256 and the conv
-models' training phases run after training_composed.  No phase is cut in depth for time (the models at
-public widths are cut in depth, each as its phase says).
+models' training phases run after training_composed.  For the time
+limit some card-vs-CPU runs hold fewer steps (VGG-16, SE-ResNeXt-50 and
+ResNet-50 one, the GPT-J-width llama one), each as its phase says; the
+models at public widths are cut in depth, each as its phase says.
 The line before the last is the nvidia-smi line; the line before that
 lists every kernel, with its launches per step on its training path (the
 composed one for K5, its generated segments, K4, K6 and Adam; the flash
@@ -338,7 +381,9 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'training_llama', 'training_llama_bf16', 'training_llama_d256',
           'train_llama_gpu_vs_cpu', 'training_resnet50',
           'train_resnet_gpu_vs_cpu', 'training_se_resnext50',
-          'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu')
+          'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu',
+          'training_ctr', 'training_optimizers', 'training_word2vec',
+          'train_ctr_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -1194,6 +1239,215 @@ def momentum_case(name, shapes, nesterov, steps=3, timed=False):
     return row
 
 
+# bytes a kernel instance of csrc/optim_multi.cu moves per element: p and g
+# read, p written, and each state array read and written
+OPTIM_BYTES = {'sgd': 12, 'adagrad': 20, 'decayed_adagrad': 20,
+               'adamax': 28, 'adadelta': 28, 'rmsprop': 28, 'ftrl': 28,
+               'ftrl_pow': 28, 'rmsprop_centered': 36}
+# the instances: name -> (op type, attrs); the kernels phase runs each at
+# ResNet-50's and at Wide&Deep's (CTR_VOCAB) parameter shapes
+OPTIM_CASES = {
+    'sgd': ('sgd', {}),
+    'adagrad': ('adagrad', {'epsilon': 1e-6}),
+    'decayed_adagrad': ('decayed_adagrad', {'decay': 0.95, 'epsilon': 1e-6}),
+    'adamax': ('adamax', {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8}),
+    'adadelta': ('adadelta', {'rho': 0.95, 'epsilon': 1e-6}),
+    'rmsprop': ('rmsprop', {'decay': 0.95, 'epsilon': 1e-6,
+                            'momentum': 0.9}),
+    'rmsprop_centered': ('rmsprop', {'decay': 0.95, 'epsilon': 1e-6,
+                                     'momentum': 0.9, 'centered': True}),
+    'ftrl': ('ftrl', {'l1': 1e-4, 'l2': 1e-3}),
+    'ftrl_pow': ('ftrl', {'l1': 1e-4, 'l2': 1e-3, 'lr_power': -0.6}),
+}
+
+
+def optim_state(op_type, key, shapes, g):
+    """(params, state arrays by slot, scalars) of `op_type` at `shapes`,
+    on the card from generator `g`: params 0.05 N(0, 1), the state arrays
+    1e-3 |N(0, 1)| (a signed moment or linear accumulator where the update
+    takes no root of it; centered rmsprop's mean square above its mean
+    grad squared), adamax's Beta1Pow 0.9^3."""
+    import torch
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+
+    def rand(shape, s):
+        return s * torch.randn(shape, generator=g, device='cuda')
+    params = [rand(s, 0.05) for s in shapes]
+    slots = oo.array_slots(op_type, key)
+    arrays = [[rand(s, 1e-3).abs() for s in shapes] for _ in slots]
+    for i, slot in enumerate(slots):
+        if slot in ('Moment', 'LinearAccumulator') and \
+                op_type in ('rmsprop', 'ftrl'):
+            arrays[i] = [t * torch.sign(rand(t.shape, 1.0)) for t in
+                         arrays[i]]
+    if 'MeanGrad' in slots:
+        mg = [rand(s, 1e-2) for s in shapes]
+        arrays[2] = mg
+        arrays[0] = [m * m + a for m, a in zip(mg, arrays[0])]
+    scalars = [torch.full((1,), 0.9 ** 3, device='cuda') for _ in shapes] \
+        if op_type == 'adamax' else None
+    return params, arrays, scalars
+
+
+def _optim_library(kind, key, params, grads, lr):
+    """(torch optimizer over copies of `params` with `grads` set, what it
+    is, whether it computes the reference's function) for the instance
+    `kind`, or (None, why, None) where torch has no such optimizer."""
+    import torch
+    o = torch.optim
+    lp = [p.clone().requires_grad_(True) for p in params]
+    for p, gr in zip(lp, grads):
+        p.grad = gr
+    if kind == 'sgd':
+        try:
+            return (o.SGD(lp, lr=lr, fused=True),
+                    'torch.optim.SGD(fused=True).step()',
+                    'the same function, p - lr g')
+        except (RuntimeError, TypeError, ValueError):
+            return (o.SGD(lp, lr=lr, foreach=True),
+                    'torch.optim.SGD(foreach=True).step()',
+                    'the same function, p - lr g')
+    if kind == 'adagrad':
+        return (o.Adagrad(lp, lr=lr, eps=key[0], foreach=True),
+                'torch.optim.Adagrad(foreach=True).step()',
+                'the same function, m + g^2, p - lr g / (sqrt(m) + eps)')
+    if kind == 'decayed_adagrad':
+        return (o.RMSprop(lp, lr=lr, alpha=key[0], eps=key[1], momentum=0,
+                          foreach=True),
+                'torch.optim.RMSprop(alpha=decay, momentum=0, '
+                'foreach=True).step()',
+                'the same function, d m + (1 - d) g^2, p - lr g / '
+                '(sqrt(m) + eps)')
+    if kind == 'adamax':
+        return (o.Adamax(lp, lr=lr, betas=key[:2], eps=key[2], foreach=True),
+                'torch.optim.Adamax(foreach=True).step()',
+                'a different function: u = max(b2 u, |g| + eps), eps inside '
+                'the max, not added to u')
+    if kind == 'adadelta':
+        return (o.Adadelta(lp, lr=1.0, rho=key[0], eps=key[1], foreach=True),
+                'torch.optim.Adadelta(lr=1, foreach=True).step()',
+                'the same function at lr 1 (the reference\'s has no lr), '
+                'its root taken of numerator and denominator apart')
+    if kind in ('rmsprop', 'rmsprop_centered'):
+        return (o.RMSprop(lp, lr=lr, alpha=key[0], eps=key[1],
+                          momentum=key[2], centered=key[3], foreach=True),
+                'torch.optim.RMSprop(momentum=%g, centered=%s, '
+                'foreach=True).step()' % (key[2], key[3]),
+                'a different function: eps added after the root, and lr '
+                'applied after the momentum (v = mu v + g / (sqrt(s) + '
+                'eps), p - lr v)')
+    return None, 'torch has no FTRL optimizer', None
+
+
+def optim_case(name, case, shapes, steps=3, timed=False):
+    """optim_multi of OPTIM_CASES[case] over tensors of `shapes` against
+    optim_reference on copies, `steps` steps with an LR tensor on the
+    device, each step from the same inputs: bit for bit (the kernel
+    rounds each operation as PyTorch's elementwise kernels do, no FMA
+    contraction), the pow instance (ftrl_pow) within
+    optimizer_ops.ftrl_pow_bound.  Timed: the kernel alone (its tables on
+    the device), the plain version, the library call (_optim_library) and
+    the bound (OPTIM_BYTES an element at HBM_BPS)."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+    op_type, attrs = OPTIM_CASES[case]
+    key = oo.optim_key(op_type, attrs)
+    kind = oo._kind(op_type, key)
+    counter = kind + '_multi'
+    g = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    params, arrays, scalars = optim_state(op_type, key, shapes, g)
+    n = len(params)
+    lrs = None if op_type == 'adadelta' else \
+        [torch.full((1,), 0.01, device='cuda')] * n
+    cache = {}
+    before = kernels.launches[counter]
+    bitwise, within, err, share = True, True, 0.0, 0.0
+    for _ in range(steps):
+        grads = [1e-2 * torch.randn(p.shape, generator=g, device='cuda')
+                 for p in params]
+        ins = [t.clone() for t in params], [[t.clone() for t in c]
+                                            for c in arrays]
+        ref = [t.clone() for t in params], [[t.clone() for t in c]
+                                            for c in arrays]
+        oo.optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
+                       cache=cache)
+        oo.optim_reference(op_type, ref[0], grads, ref[1], scalars, lrs,
+                           key)
+        torch.cuda.synchronize()
+        outs = params + [t for c in arrays for t in c]
+        refs = ref[0] + [t for c in ref[1] for t in c]
+        err = max([err] + [float((a - b).abs().max())
+                           for a, b in zip(outs, refs)])
+        bitwise &= all(torch.equal(a, b) for a, b in zip(outs, refs))
+        if kind == 'ftrl_pow':
+            for i in range(n):
+                bp, bz = oo.ftrl_pow_bound(ins[0][i], grads[i], ins[1][0][i],
+                                           ins[1][1][i], lrs[i], key)
+                for a, b, bd in ((params[i], ref[0][i], bp),
+                                 (arrays[1][i], ref[1][1][i], bz)):
+                    d = (a.double() - b.double()).abs()
+                    within &= bool((d <= bd).all())
+                    share = max(share, float((d / bd.clamp_min(1e-300))
+                                             .max()))
+                within &= bool(torch.equal(arrays[0][i], ref[1][0][i]))
+            # each step from the same inputs
+            for a, b in zip(outs, refs):
+                a.copy_(b)
+    elems = int(sum(int(np.prod(s)) for s in shapes))
+    row = dict(phase='kernels', kernel='optim_multi', instance=kind,
+               case=name, tensors=n, elements=elems, key=list(key),
+               steps=steps, launches=kernels.launches[counter] - before,
+               bitwise=bitwise, max_abs_err=err,
+               rtol=0.0, atol=0.0)
+    if kind == 'ftrl_pow':
+        row.update(held='ftrl_pow_bound (POW_ULPS %d)' % oo.POW_ULPS,
+                   within_bound=within, max_share_of_bound=share)
+    if timed:
+        grads = [1e-2 * torch.randn(p.shape, generator=g, device='cuda')
+                 for p in params]
+        nbytes = OPTIM_BYTES[kind] * elems
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        lib, lib_is, lib_same = _optim_library(kind, key, params, grads,
+                                               0.01)
+        # the kernel alone, as a graph replay runs it: its two tables
+        # already on the device
+        table, step, n_chunks = oo._optim_tables(kind, params, grads, arrays,
+                                                 scalars, lrs, cache, None)
+        consts = oo._optim_consts(op_type, key)
+        lib_fn, kid = kernels.library().pt_optim_multi, oo._KINDS.index(kind)
+
+        def launch():
+            kernels.check(lib_fn(kid, table.data_ptr(), step.data_ptr(), n,
+                                 n_chunks, *consts,
+                                 torch.cuda.current_stream().cuda_stream),
+                          counter)
+        row.update(
+            ms=time_ms(launch, 50),
+            plain_ms=time_ms(lambda: oo.optim_reference(
+                op_type, ref[0], grads, ref[1], scalars, lrs, key), 3),
+            library_ms=time_ms(lib.step, 20) if lib else None,
+            library_is=lib_is, library_computes=lib_same,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            bytes_per_element=OPTIM_BYTES[kind],
+            table_builds=cache.get(counter + '_tables'))
+        row['gbps'] = nbytes / row['ms'] / 1e6
+        row['bound_share'] = bound_ms / row['ms']
+    emit(**row)
+    require((within if kind == 'ftrl_pow' else bitwise) and
+            row['launches'] == steps, 'optim_multi (%s) disagrees with '
+            'optim_reference in case %s: %s' % (kind, name, row))
+    return row
+
+
+def ctr_param_shapes(model='wide_deep', vocab=None):
+    """The trainable tensor shapes of a CTR training program at the
+    builders' widths and `vocab` (CTR_VOCAB) rows (no weights are
+    made)."""
+    main = ctr_program(model, vocab=vocab or CTR_VOCAB, B=1)[0]
+    return [tuple(p.shape) for p in main.all_parameters() if p.trainable]
+
+
 def llama_param_shapes():
     """The 147 parameter shapes of the training llama_1b program (no
     weights are made)."""
@@ -1855,6 +2109,22 @@ def phase_kernels():
     momentum_case('resnet50_161_nesterov', r50, True, timed=True)
     momentum_case('ragged', [(1,), (7,), (4097,), (3, 3333), (5, 4)], False)
     momentum_case('ragged_nesterov', [(1,), (4095,), (8193,)], True)
+    # K7's other instances (csrc/optim_multi.cu) at Wide&Deep's tensors
+    # with CTR_VOCAB rows (training_optimizers' path: the kernels line's
+    # rows) and at ResNet-50's 161, then ragged sizes
+    ctr = ctr_param_shapes()
+    for case in sorted(OPTIM_CASES):
+        served[case + '_multi'] = optim_case('wide_deep_%d' % len(ctr),
+                                             case, ctr, timed=True)
+        optim_case('resnet50_161', case, r50, timed=True)
+        optim_case('ragged', case, [(1,), (7,), (4097,), (3, 3333), (5, 4)])
+    # K4 at the CTR tables: 1 and 8 columns, 1,000,001 rows, B 2048 x 26
+    # int64 ids (training_ctr's lookups)
+    inst_gather = {}
+    for D in (1, 8):
+        inst_gather['ctr_d%d' % D] = gather_case(
+            'ctr_d%d' % D, CTR_VOCAB, D, CTR_B * 26, 'float32', ids64=True,
+            timed=True)
     # the composed attention's scores: [32, 8, 256, 256] float32
     served['softmax'] = softmax_case('path_f32', 65536, 256, 'float32',
                                      timed=True)
@@ -1887,7 +2157,7 @@ def phase_kernels():
     # path of its own
     for case, spec in rules.items():
         rule_case(case, spec)
-    return {'rows': served, 'instances': inst}
+    return {'rows': served, 'instances': inst, 'gather_ctr': inst_gather}
 
 
 # ------------------------------------------------------------- phase 3
@@ -3078,6 +3348,11 @@ def _group(name):
         return 'adam_multi'
     if 'momentum_kernel' in name:
         return 'momentum_multi'
+    if 'optim_kernel' in name:
+        # csrc/optim_multi.cu's instances, by update functor
+        for functor, group in OPTIM_FUNCTORS:
+            if functor in name:
+                return group
     if 'gather_rows' in name:
         return 'embedding_gather'
     if 'memcpy' in low or 'memset' in low:
@@ -3155,10 +3430,20 @@ def profile_step(exe, main, feed, fetch, phase='training'):
 
 # the kernel groups (_group) of the hand-written and generated kernels: a
 # profile counts their device launches beside the wrappers' counts
+# csrc/optim_multi.cu's update functors, as the profiler names them in
+# optim_kernel<...>, and the instance each is
+OPTIM_FUNCTORS = (('Sgd', 'sgd_multi'), ('Adagrad<false>', 'adagrad_multi'),
+                  ('Adagrad<true>', 'decayed_adagrad_multi'),
+                  ('Adamax', 'adamax_multi'), ('Adadelta', 'adadelta_multi'),
+                  ('Rmsprop<false>', 'rmsprop_multi'),
+                  ('Rmsprop<true>', 'rmsprop_centered_multi'),
+                  ('Ftrl<false>', 'ftrl_multi'),
+                  ('Ftrl<true>', 'ftrl_pow_multi'))
 KERNEL_GROUPS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'layer_norm', 'softmax',
                  'kernelgen_segment', 'adam_multi', 'adam_multi_bf16',
-                 'momentum_multi', 'embedding_gather')
+                 'momentum_multi', 'embedding_gather') + tuple(
+                     g for _, g in OPTIM_FUNCTORS)
 
 
 def _profiled(fn):
@@ -3602,6 +3887,7 @@ class PlainCalls(object):
                ('paddle_tpu_torch.ops.fused', 'replay'),
                ('paddle_tpu_torch.ops.optimizer_ops', 'adam_reference'),
                ('paddle_tpu_torch.ops.optimizer_ops', 'momentum_reference'),
+               ('paddle_tpu_torch.ops.optimizer_ops', 'optim_reference'),
                ('paddle_tpu_torch.ops.gather', 'embedding_gather_reference'),
                ('paddle_tpu_torch.ops.attention', '_ref_attention'),
                ('paddle_tpu_torch.ops.attention',
@@ -4310,10 +4596,12 @@ def phase_train_llama_gpu_vs_cpu():
     backward's padded instances of width 64 on the card) in float32 and
     from build(dtype='bfloat16'); and GPT-J-6B's widths (D = 256) cut to
     1 layer at T = 128 under bf16 AMP (gptj_amp: the instances of width
-    256 on the card) and in float32 (gptj_f32: a third step on the card,
-    profiled, must launch the width-256 3xTF32 dQ and dK/dV, the
-    clusters of two blocks, and no CUDA-core kernel).  -> {path:
-    launches a step on the card} for the runs but llama_1b_2l."""
+    256 on the card) and in float32 (gptj_f32: a further step on the
+    card, profiled, must launch the width-256 3xTF32 dQ and dK/dV, the
+    clusters of two blocks, and no CUDA-core kernel); the two GPT-J-width
+    runs hold one step (their CPU steps took ~30 s each; cut from two for
+    the time limit), the others two.  -> {path: launches a step on the
+    card} for the runs but llama_1b_2l."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
@@ -4346,6 +4634,7 @@ def phase_train_llama_gpu_vs_cpu():
         fluid.scope_from_numpy({n: t.cpu() for n, t in gpu.vars.items()},
                                cpu, 'cpu')
         res = {}
+        steps = 1 if name.startswith('gptj') else 2
         for dev, scope, exe in (('gpu', gpu, gexe), ('cpu', cpu, cexe)):
             t0 = time.perf_counter()
             if dev == 'gpu':
@@ -4354,10 +4643,10 @@ def phase_train_llama_gpu_vs_cpu():
                 runs = [exe.run(main, feed=feed,
                                 fetch_list=[out['loss'], gnorm,
                                             out['logits']])
-                        for _ in range(2)]
+                        for _ in range(steps)]
             if dev == 'gpu':
                 paths['train_llama_' + name] = {
-                    k: v / 2 for k, v in kernels.launches.items() if v}
+                    k: v / steps for k, v in kernels.launches.items() if v}
             if dev == 'cpu':
                 max_logit = float(np.abs(runs[0][2]).max())
             res[dev] = ([float(r[0][0]) for r in runs],
@@ -4366,7 +4655,7 @@ def phase_train_llama_gpu_vs_cpu():
                          for w in watch},
                         time.perf_counter() - t0)
         lr = 3e-4
-        p_atol = 2.01 * 2 * lr
+        p_atol = 2.01 * steps * lr
         loss_err = [abs(a - b) / abs(b)
                     for a, b in zip(res['gpu'][0], res['cpu'][0])]
         norm_err = [abs(a - b) / abs(b)
@@ -4424,8 +4713,9 @@ def phase_train_llama_gpu_vs_cpu():
                        loss_abs_err=abs_err)
             ok = max(abs_err) <= loss_tol and norm_err[0] <= norm_rtol and p_ok
         if name == 'gptj_f32':
-            # the kernels of a third step on the card, after the compared
-            # two: the float32 flash at width 256, all on tensor cores
+            # the kernels of a further step on the card, after the
+            # compared one: the float32 flash at width 256, all on tensor
+            # cores
             want = {k: 1 for k in GPTJ_INSTANCES['float32']}
             with fluid.scope_guard(gpu):
                 flash = step_breakdown(lambda: gexe.run(
@@ -4557,20 +4847,22 @@ def conv_program(name, B=None, seed=SEED, dropout=True, **overrides):
 
 
 def _conv_step_phase(phase, config, main, startup, out, feed, amp, smi,
-                     profile=True):
+                     profile=True, per_s='images_per_s'):
     """Train `main` through the port's entry points: Executor.run through
     the PT_OPT rewriter, an interpreted first step, the capture,
     CONV_GRAPH_STEPS graph steps (images/s, step ms median and range,
     model FLOP/s from the conv and fc FLOPs x 3, losses finite), peak
     memory, launches a step on the wrappers, no plain version on the
     card; with `profile` a profile of two graph steps by group (device
-    busy, idle share) and the launches on the profiler.  -> (launches a
-    step, generated launches a step by function, profiled groups)."""
+    busy, idle share) and the launches on the profiler; `per_s` names the
+    rows a second (images, or examples for the CTR models and word2vec).
+    -> (launches a step, generated launches a step by function, profiled
+    groups)."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.ops import kernelgen
-    B = feed['label'].shape[0]
+    B = next(iter(feed.values())).shape[0]
     params = [p for p in main.all_parameters() if p.trainable]
     flops = 3 * _conv_fc_flops(main, B)
     fetch = [out['loss']]
@@ -4615,7 +4907,7 @@ def _conv_step_phase(phase, config, main, startup, out, feed, amp, smi,
          losses=losses, first_step_ms=first_ms, capture_step_ms=capture_ms,
          graph_step_ms=graph_ms, median_graph_step_ms=med,
          min_graph_step_ms=min(graph_ms), max_graph_step_ms=max(graph_ms),
-         images_per_s=B / med * 1e3, model_tflop_per_step=flops / 1e12,
+         model_tflop_per_step=flops / 1e12, **{per_s: B / med * 1e3},
          model_tflops=flops / med / 1e9, launches_per_step=launches,
          segment_launches_per_step=sum(seg.values()),
          plain_calls_on_cuda=plain.counts, card=smi, **mem)
@@ -4812,8 +5104,10 @@ def schedules_under_graphs():
     errs, progs = {}, {}
     for name, (make, _) in _lr_formulas().items():
         progs[name] = _schedule_program(fluid, make)
-        # one nvcc call for every schedule program's segments
+        # one nvcc call for every schedule program's segments, its
+        # startup's too
         _planned_specs(progs[name][0], feed, [progs[name][3].name], False)
+        _planned_specs(progs[name][1], {}, [], False)
     kernelgen.ensure_built()
     for name, (_, formula) in _lr_formulas().items():
         runs = SCHEDULE_RUNS if name == 'piecewise_decay' else 3
@@ -4913,6 +5207,7 @@ def phase_train_conv_gpu_vs_cpu():
             progs[run, amp] = (main, startup, out, feed, test)
             _planned_specs(main, feed, [out['loss'].name], amp)
             _planned_specs(test, feed, [out['predict'].name], amp)
+            _planned_specs(startup, {}, [], False)
     kernelgen.ensure_built()
     paths = {}
     for run, name, kw, B, whole in CONV_SMALL:
@@ -5260,9 +5555,11 @@ def phase_train_resnet_gpu_vs_cpu():
         # every program of the phase planned first, so that one nvcc call
         # builds all their generated kernels
         for amp in (False, True):
-            main, _, out, test = _resnet_program(fluid, resnet, amp, **kw)
+            main, startup, out, test = _resnet_program(fluid, resnet, amp,
+                                                       **kw)
             _planned_specs(main, feeds[name], [out['loss'].name], amp)
             _planned_specs(test, feeds[name], [out['predict'].name], amp)
+            _planned_specs(startup, {}, [], False)
     kernelgen.ensure_built()
     paths = {}
     for name, kw, B, whole in RESNET_SMALL:
@@ -5351,6 +5648,371 @@ def phase_train_resnet_gpu_vs_cpu():
                 'run momentum_multi once a step on the card: %s' % paths)
     return paths
 
+# ---------------------------------- CTR, word2vec and the other optimizers
+
+# PaddleRec CTR as BASELINE.json names it, at models/ctr.py's own widths
+# (26 slots, 13 dense features, embedding 8; DeepFM's fc (400, 400, 400)
+# with Adam 1e-3, Wide&Deep's (256, 128, 64) with Adagrad 1e-2) and a
+# vocabulary of 1,000,001 rows (the builders' vocab_size), so that the
+# tables and their optimizer state are real bytes on the card; B 2048
+# rows of the reference's synthetic_reader from SEED
+CTR_VOCAB = 1000001
+CTR_B = 2048
+# the book's word2vec (models/word2vec.py at its defaults: dictionary
+# 2073, embedding 32, hidden 256, 5-grams, SGD 1e-3), B 512
+W2V_B = 512
+# training_optimizers: Wide&Deep under each optimizer, this many graph
+# steps after the interpreted step and the capture
+OPT_STEPS = 3
+
+
+def _model_average(fluid, loss):
+    """SGD 1e-2, then ModelAverage(0.15) over every parameter."""
+    for p in loss.block.program.all_parameters():
+        p.do_model_average = True
+    fluid.optimizer.SGD(learning_rate=1e-2).minimize(loss)
+    return fluid.optimizer.ModelAverage(0.15)
+
+
+def _minimize(make):
+    def run(fluid, loss):
+        opt = make(fluid.optimizer)
+        opt.minimize(loss)
+        return opt
+    return run
+
+
+# the optimizers training_optimizers and train_ctr_gpu_vs_cpu run
+# Wide&Deep under: name -> (minimize(fluid, loss) -> optimizer, the
+# optim_multi instance it launches once a step, or None)
+OPT_RUNS = {
+    'SGD': (_minimize(lambda o: o.SGD(learning_rate=1e-2)), 'sgd_multi'),
+    'Adagrad': (_minimize(lambda o: o.Adagrad(learning_rate=1e-2)),
+                'adagrad_multi'),
+    'DecayedAdagrad': (_minimize(lambda o: o.DecayedAdagrad(
+        learning_rate=1e-2)), 'decayed_adagrad_multi'),
+    'Adamax': (_minimize(lambda o: o.Adamax(learning_rate=1e-3)),
+               'adamax_multi'),
+    'Adadelta': (_minimize(lambda o: o.Adadelta(learning_rate=1.0)),
+                 'adadelta_multi'),
+    'RMSProp': (_minimize(lambda o: o.RMSProp(learning_rate=1e-3,
+                                              momentum=0.9)),
+                'rmsprop_multi'),
+    'RMSPropCentered': (_minimize(lambda o: o.RMSProp(
+        learning_rate=1e-3, momentum=0.9, centered=True)),
+        'rmsprop_centered_multi'),
+    'Ftrl': (_minimize(lambda o: o.Ftrl(learning_rate=1e-2, l1=1e-4,
+                                        l2=1e-3)), 'ftrl_multi'),
+    'FtrlPow': (_minimize(lambda o: o.Ftrl(learning_rate=1e-2, l1=1e-4,
+                                           l2=1e-3, lr_power=-0.6)),
+                'ftrl_pow_multi'),
+    'LarsMomentum': (_minimize(lambda o: o.LarsMomentum(
+        learning_rate=1e-2, momentum=0.9)), None),
+    'ModelAverage': (_model_average, 'sgd_multi'),
+}
+
+
+def ctr_program(model, vocab=CTR_VOCAB, B=CTR_B, seed=SEED, minimize=None,
+                **kw):
+    """models/ctr.py's `model` through the port's layers with its own
+    optimizer, or under `minimize(fluid, loss)`: (main, startup, out,
+    feed), out['optimizer'] the optimizer; the feed B rows of
+    synthetic_reader(seed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ctr
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = getattr(ctr, model)(vocab_size=vocab,
+                                  is_train=minimize is None, **kw)
+        if minimize is not None:
+            out['optimizer'] = minimize(fluid, out['loss'])
+    rows = list(ctr.synthetic_reader(n=B, vocab_size=vocab, seed=seed)())
+    feed = {'dense_input': np.stack([r[0] for r in rows]),
+            'sparse_input': np.stack([r[1] for r in rows]),
+            'label': np.asarray([r[2] for r in rows], 'int64')}
+    return main, startup, out, feed
+
+
+def w2v_program(B=W2V_B, seed=SEED):
+    """models/word2vec.py::build at its defaults and B rows of 5-grams
+    drawn from `seed`: (main, startup, out, feed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import word2vec
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = word2vec.build()
+    rng = np.random.RandomState(seed)
+    feed = {v.name: rng.randint(0, 2073, (B, 1)).astype('int64')
+            for v in out['feeds']}
+    return main, startup, out, feed
+
+
+def line_program(B, seed=SEED):
+    """models/simple.py::fit_a_line and B rows of y = 0.1 sum(x)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import simple
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = simple.fit_a_line()
+    x = np.random.RandomState(seed).randn(B, 13).astype('float32')
+    return main, startup, out, {'x': x, 'y': (0.1 * x.sum(
+        1, keepdims=True)).astype('float32')}
+
+
+def phase_training_ctr(smi):
+    """DeepFM with Adam and Wide&Deep with Adagrad at CTR_VOCAB rows, B
+    CTR_B, float32, through _conv_step_phase (an interpreted step, the
+    capture, graph steps, a profile by group; ms a step, examples/s, the
+    idle share, peak memory): two K4 gathers, one adam_multi (DeepFM) or
+    adagrad_multi (Wide&Deep) and the generated segments a step.  ->
+    {path: launches a step}."""
+    paths = {}
+    for model, opt, want in (
+            ('deepfm', 'Adam(lr=1e-3)', 'adam_multi'),
+            ('wide_deep', 'Adagrad(lr=1e-2)', 'adagrad_multi')):
+        main, startup, out, feed = ctr_program(model)
+        params = [p for p in main.all_parameters() if p.trainable]
+        emit(phase='training_ctr', step='config', config=model,
+             vocab=CTR_VOCAB, B=CTR_B, optimizer=opt,
+             entries=sum(int(np.prod(p.shape)) for p in params))
+        launches, seg, groups = _conv_step_phase(
+            'training_ctr', model, main, startup, out, feed, False, smi,
+            per_s='examples_per_s')
+        require(launches.get('embedding_gather') == 2 and
+                launches.get(want) == 1 and
+                launches.get('kernelgen_segment', 0) >= 1,
+                '%s: launches a step %s, expected two K4 gathers, one %s '
+                'and the generated segments' % (model, launches, want))
+        require(groups.get(want) == 2 * DEVICE_KERNELS.get(want, 1),
+                '%s: %s %s kernels on the profiler in two graph steps'
+                % (model, groups.get(want), want))
+        launches.update(seg)
+        paths['training_ctr_' + model] = launches
+    return paths
+
+
+def phase_training_optimizers(smi):
+    """Wide&Deep at CTR_VOCAB rows, B CTR_B, under each of OPT_RUNS in a
+    fresh scope: an interpreted step, the capture, OPT_STEPS graph steps
+    (losses finite, step ms, launches a step: the optimizer's optim_multi
+    instance once a step, LarsMomentum none), no plain version on the
+    card; ModelAverage's apply() puts sum / cnt into every parameter and
+    restore() the trained values back.  All programs are planned first,
+    so their generated segments, their startups' too, build in one nvcc
+    call.  -> {path: launches a step}."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    progs = {}
+    for name, (make, _) in OPT_RUNS.items():
+        progs[name] = ctr_program('wide_deep', minimize=make)
+        main, startup, out, feed = progs[name]
+        _planned_specs(main, feed, [out['loss'].name], False)
+        _planned_specs(startup, {}, [], False)
+    t0 = time.perf_counter()
+    kernelgen.ensure_built()
+    emit(phase='training_optimizers', step='build',
+         seconds=time.perf_counter() - t0)
+    paths = {}
+    for name, (make, want) in OPT_RUNS.items():
+        main, startup, out, feed = progs[name]
+        scope, exe = fluid.Scope(), fluid.Executor()
+        fetch = [out['loss']]
+        with fluid.scope_guard(scope), PlainCalls() as plain:
+            exe.run(startup)
+            losses, ms = [], []
+            for i in range(2 + OPT_STEPS):
+                if i == 2:
+                    kernels.reset_launches()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=fetch)[0][0]))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            launches = {k: v / OPT_STEPS for k, v in kernels.launches.items()
+                        if v}
+            averaged = None
+            if name == 'ModelAverage':
+                avg = out['optimizer']
+                trained = {p: scope.vars[p].clone() for p in avg._avg_vars}
+                with avg.apply(exe):
+                    averaged = max(
+                        float((scope.vars[p] - scope.vars[acc.name] /
+                               scope.vars[cnt.name].clamp_min(1.0))
+                              .abs().max())
+                        for p, (acc, cnt) in avg._avg_vars.items())
+                require(all(torch.equal(scope.vars[p], t)
+                            for p, t in trained.items()),
+                        'ModelAverage.restore() left other values')
+        emit(phase='training_optimizers', optimizer=name, steps=OPT_STEPS,
+             losses=losses, first_step_ms=ms[0], capture_step_ms=ms[1],
+             graph_step_ms=ms[2:], median_graph_step_ms=float(
+                 np.median(ms[2:])), launches_per_step=launches,
+             plain_calls_on_cuda=plain.counts,
+             model_average_max_abs_err=averaged, card=smi)
+        require(all(np.isfinite(losses)), 'non-finite %s loss: %s'
+                % (name, losses))
+        require(not plain.counts, 'plain versions ran on the card: %s'
+                % plain.counts)
+        optim = {k: v for k, v in launches.items()
+                 if k in kernels.launches and k.endswith('_multi')}
+        require(optim == ({want: 1} if want else {}), '%s: optimizer '
+                'kernels a step %s, expected %s once' % (name, optim, want))
+        require(averaged is None or averaged == 0.0, 'ModelAverage.apply() '
+                'wrote other values than sum / cnt: %s' % averaged)
+        paths['training_optimizers_' + name] = launches
+    return paths
+
+
+def phase_training_word2vec(smi):
+    """word2vec at its defaults (the book's imikolov model), SGD, B
+    W2V_B, float32, through _conv_step_phase: four K4 gathers of the
+    shared table, one K5 (the softmax fc), one sgd_multi and the
+    generated segments a step.  -> launches a step."""
+    main, startup, out, feed = w2v_program()
+    emit(phase='training_word2vec', step='config', B=W2V_B,
+         cfg=dict(dict_size=2073, embed_size=32, hidden_size=256, n=5),
+         optimizer='SGD(lr=1e-3)')
+    launches, seg, _ = _conv_step_phase(
+        'training_word2vec', 'word2vec', main, startup, out, feed, False,
+        smi, per_s='examples_per_s')
+    require(launches.get('embedding_gather') == 4 and
+            launches.get('softmax') == 1 and
+            launches.get('sgd_multi') == 1,
+            'word2vec: launches a step %s, expected four K4 gathers, one '
+            'K5 and one sgd_multi' % launches)
+    launches.update(seg)
+    return launches
+
+
+# train_ctr_gpu_vs_cpu: vocabulary, rows, steps
+CTR_SMALL_VOCAB = 10000
+CTR_SMALL_B = 256
+CTR_SMALL_STEPS = 3
+
+
+def _ctr_small_runs():
+    """run -> (main, startup, out, feed): DeepFM (Adam), Wide&Deep
+    (Adagrad) and fit_a_line (SGD) at their own optimizers, and Wide&Deep
+    under each of OPT_RUNS, at CTR_SMALL_VOCAB rows and CTR_SMALL_B."""
+    runs = {m: ctr_program(m, vocab=CTR_SMALL_VOCAB, B=CTR_SMALL_B)
+            for m in ('deepfm', 'wide_deep')}
+    runs['fit_a_line'] = line_program(CTR_SMALL_B)
+    for name, (make, _) in OPT_RUNS.items():
+        runs['wide_deep_' + name] = ctr_program(
+            'wide_deep', vocab=CTR_SMALL_VOCAB, B=CTR_SMALL_B, minimize=make)
+    return runs
+
+
+def phase_train_ctr_gpu_vs_cpu():
+    """Each of _ctr_small_runs, CTR_SMALL_STEPS steps on the card and on
+    the CPU from one startup state.  Losses within 1e-5 relative.  Each
+    persistable X (parameters and optimizer state) within a bound derived
+    from the CPU run: ||X_card - X_cpu||_2 <= 1e-5 (||X||_2 + sqrt(n)
+    max|X|) + 2 S sqrt(n_loose) CTR_SMALL_STEPS.  The first term is the
+    float32 difference of two summation orders (the backward's GEMMs)
+    carried through a well-conditioned update, as the CPU tests hold the
+    port against the JAX package (rtol 1e-5, atol 1e-5 of the largest
+    entry); the second covers the entries the normalising optimizers
+    (Adam, Adagrad, RMSProp, ...) may step apart, by up to the largest
+    step S any entry of X took in one CPU step, in both directions: those
+    whose CPU gradient fell below 1% of its tensor's largest, but not to
+    0, at some step (n_loose of them; the state of a parameter takes its
+    mask; SGD, LarsMomentum, ModelAverage and the other persistables have
+    none).  Prints each run's bound terms and its largest share of the
+    bound.  -> launches a step on the card, by run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    runs = _ctr_small_runs()
+    for main, startup, out, feed in runs.values():
+        _planned_specs(main, feed, [out['loss'].name], False)
+        _planned_specs(startup, {}, [], False)
+    kernelgen.ensure_built()
+    linear = ('fit_a_line', 'wide_deep_SGD', 'wide_deep_LarsMomentum',
+              'wide_deep_ModelAverage')
+    paths = {}
+    for run, (main, startup, out, feed) in runs.items():
+        t0 = time.perf_counter()
+        gscope = fluid.Scope()
+        with fluid.scope_guard(gscope):
+            fluid.Executor().run(startup)
+        init = {n: t.cpu().numpy() for n, t in gscope.vars.items()}
+        params = [p.name for p in main.all_parameters() if p.trainable]
+        res = {}
+        for dev in ('gpu', 'cpu'):
+            scope = fluid.scope_from_numpy(
+                {n: a.copy() for n, a in init.items()}, fluid.Scope(),
+                'cuda' if dev == 'gpu' else 'cpu')
+            exe = fluid.Executor() if dev == 'gpu' else \
+                fluid.Executor(fluid.CPUPlace())
+            if dev == 'gpu':
+                kernels.reset_launches()
+            fetch = [out['loss']] + ([p + '@GRAD' for p in params]
+                                     if dev == 'cpu' else [])
+            losses, loose, step = [], {p: None for p in params}, {}
+            with fluid.scope_guard(scope):
+                for _ in range(CTR_SMALL_STEPS):
+                    prev = {n: t.clone() for n, t in scope.vars.items()}
+                    got = exe.run(main, feed=feed, fetch_list=fetch)
+                    losses.append(float(got[0][0]))
+                    for p, gr in zip(params, got[1:]):
+                        gr = np.abs(np.asarray(gr))
+                        small = (gr > 0) & (gr < 1e-2 * gr.max())
+                        loose[p] = small if loose[p] is None else \
+                            loose[p] | small
+                    for n, t in scope.vars.items():
+                        if n in prev and t.is_floating_point():
+                            d = float((t.double() - prev[n].double()).abs()
+                                      .max()) if t.numel() else 0.0
+                            step[n] = max(step.get(n, 0.0), d)
+            if dev == 'gpu':
+                paths['train_ctr_' + run] = {
+                    k: v / CTR_SMALL_STEPS
+                    for k, v in kernels.launches.items() if v}
+            res[dev] = dict(losses=losses, loose=loose, step=step, state={
+                n: t.double().cpu().numpy() for n, t in scope.vars.items()
+                if t.is_floating_point()})
+        worst, terms = 0.0, {}
+        for n, want in res['cpu']['state'].items():
+            got = res['gpu']['state'][n]
+            owner = next((p for p in params if n == p or
+                          n.startswith(p + '_')), None)
+            n_loose = 0
+            if owner is not None and run not in linear:
+                n_loose = int(res['cpu']['loose'][owner].sum())
+            bound = 1e-5 * (np.linalg.norm(want) + np.sqrt(want.size) *
+                            np.abs(want).max()) + 2 * res['cpu']['step'].get(
+                n, 0.0) * np.sqrt(n_loose) * CTR_SMALL_STEPS
+            d = float(np.linalg.norm(got - want))
+            share = d / bound if bound > 0 else (0.0 if d == 0 else np.inf)
+            if share > worst:
+                worst = share
+            terms[n] = dict(dist=d, bound=bound, n_loose=n_loose,
+                            step=res['cpu']['step'].get(n, 0.0))
+        gl, cl = res['gpu']['losses'], res['cpu']['losses']
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        emit(phase='train_ctr_gpu_vs_cpu', run=run, steps=CTR_SMALL_STEPS,
+             vocab=CTR_SMALL_VOCAB, B=CTR_SMALL_B, gpu_losses=gl,
+             cpu_losses=cl, loss_max_rel=loss_rel,
+             worst_share_of_bound=worst,
+             worst_tensor=max(terms, key=lambda k: terms[k]['dist'] /
+                              max(terms[k]['bound'], 1e-300)),
+             bound_terms={k: v for k, v in terms.items()
+                          if v['n_loose'] or v['dist']},
+             seconds=time.perf_counter() - t0)
+        require(all(np.isfinite(gl + cl)) and loss_rel <= 1e-5,
+                'train_ctr_gpu_vs_cpu (%s): losses %s vs %s' % (run, gl, cl))
+        require(worst <= 1.0, 'train_ctr_gpu_vs_cpu (%s): a tensor past '
+                'its bound (%.3g of it)' % (run, worst))
+    return paths
+
+
 # ------------------------------------------------------------- main
 
 _REPLACES = {
@@ -5373,6 +6035,9 @@ _REPLACES = {
     'softmax': ('paddle_tpu_torch/csrc/softmax.cu',
                 'paddle_tpu/ops/kernelgen/rules.py:291'),
 }
+_REPLACES.update({k + '_multi': ('paddle_tpu_torch/csrc/optim_multi.cu',
+                                 'paddle_tpu/ops/kernelgen/builder.py:929')
+                  for k in OPTIM_CASES})
 # the instances of K1-K3, by the key phase_kernels files them under:
 # (dtype, design, source, the paths that run it)
 _PADDED_DESIGN = (
@@ -5490,6 +6155,9 @@ def main(argv=None):
     se50 = run('training_se_resnext50', phase_training_se_resnext50, smi)
     vgg16 = run('training_vgg16', phase_training_vgg16, smi)
     mnist = run('training_mnist', phase_training_mnist, smi)
+    ctr = run('training_ctr', phase_training_ctr, smi)
+    optimizers = run('training_optimizers', phase_training_optimizers, smi)
+    w2v = run('training_word2vec', phase_training_word2vec, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -5500,6 +6168,7 @@ def main(argv=None):
     resnet_small = run('train_resnet_gpu_vs_cpu',
                        phase_train_resnet_gpu_vs_cpu)
     conv_small = run('train_conv_gpu_vs_cpu', phase_train_conv_gpu_vs_cpu)
+    ctr_small = run('train_ctr_gpu_vs_cpu', phase_train_ctr_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -5542,9 +6211,16 @@ def main(argv=None):
                # per step of SE-ResNeXt-50 and VGG-16 (bf16 AMP) and of
                # MNIST (float32), graph replays
                'training_se_resnext50': se50, 'training_vgg16': vgg16,
-               'training_mnist': mnist}
+               'training_mnist': mnist,
+               # per step of word2vec (graph replays)
+               'training_word2vec': w2v}
     by_path.update(resnet_small)
     by_path.update(conv_small)
+    # per step of DeepFM and Wide&Deep (graph replays), of Wide&Deep under
+    # each optimizer, and of the small runs on the card
+    by_path.update(ctr)
+    by_path.update(optimizers)
+    by_path.update(ctr_small)
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -5562,10 +6238,13 @@ def main(argv=None):
     # and the conv models' segments): per step of the float32 llama path,
     # else of the bf16 llama step, else of the GPT-J-width AMP step, else
     # of the ResNet-50, SE-ResNeXt-50, VGG-16 and MNIST steps
+    # the K7 instances of csrc/optim_multi.cu: per step of Wide&Deep
+    # under each optimizer (adagrad's per step of training_ctr's)
     for path in ('training_llama', 'training_llama_bf16',
                  'training_llama_d256', 'training_resnet50',
                  'training_se_resnext50', 'training_vgg16',
-                 'training_mnist'):
+                 'training_mnist', 'training_ctr_wide_deep') + tuple(
+                     'training_optimizers_' + n for n in OPT_RUNS):
         for k, v in by_path[path].items():
             if v and not launches.get(k):
                 launches[k] = v
@@ -5605,6 +6284,16 @@ def main(argv=None):
             launches_by_path=path_counts(name))
         if name not in _REPLACES:
             row.update(ops=res['ops'], paths=res['paths'])
+        if res.get('kernel') == 'optim_multi':
+            row.update(kernel='optim_multi', instance=res['instance'],
+                       case=res['case'], library_is=res['library_is'],
+                       library_computes=res['library_computes'])
+        if name == 'embedding_gather' and kern.get('gather_ctr'):
+            row['ctr_cases'] = {
+                k: {f: r[f] for f in ('V', 'D', 'N', 'ms', 'plain_ms',
+                                      'library_ms', 'bound_ms',
+                                      'flushed_ms', 'library_flushed_ms')}
+                for k, r in kern['gather_ctr'].items()}
         if name in kern['instances']:
             row['instances'] = []
             for key, r in sorted(kern['instances'][name].items()):

@@ -25,7 +25,9 @@ takes `torch.autograd.grad` of the loss (the JAX package's `jax.vjp`), and
 runs the ops after it (the optimizer) under `torch.no_grad()`.  With the
 passes off (PT_OPT=0), a maximal run of consecutive in-place `adam` ops
 goes to one multi-tensor kernel launch (ops/optimizer_ops.py::adam_multi),
-and so does one of `momentum` ops (`momentum_multi`).
+and so does one of `momentum` ops (`momentum_multi`) and one of each
+other update op of ops/optimizer_ops.py GROUPS (`optim_multi`: sgd,
+adagrad, decayed_adagrad, adamax, adadelta, rmsprop, ftrl).
 
 CUDA graphs (core/graphs.py) are the port's counterpart of the
 reference's one executable per launch signature.  On the card, with
@@ -175,16 +177,25 @@ def _plan(ops, keep):
 def _optimizer_run(ops, live, k):
     """(end, runner): the end (exclusive, in `live`) of the run of
     consecutive in-place optimizer ops of live[k]'s type that share its
-    group key (adam: beta1/beta2/epsilon, momentum: mu/use_nesterov), and
-    the function that runs them as one multi-tensor launch; (k, None) when
-    live[k] is no in-place optimizer op the executor groups."""
-    from ..ops.optimizer_ops import GROUPS
+    group key (every attribute the update reads: adam's betas and
+    epsilon, momentum's mu and use_nesterov, ...; ops/optimizer_ops.py
+    GROUPS), and the function that runs them as one multi-tensor launch;
+    (k, None) when live[k] is no in-place optimizer op the executor
+    groups.  An adamax run steps over the `scale` ops that bump its own
+    ops' Beta1Pow (adamax_bump); the runner runs them after the launch."""
+    from ..ops.optimizer_ops import GROUPS, adamax_bump
     key_of, runner = GROUPS.get(ops[live[k]].type, (None, None))
     key = key_of(ops[live[k]]) if key_of else None
     if key is None:
         return k, None
-    j = k
-    while j < len(live) and key_of(ops[live[j]]) == key:
+    j, run = k, []
+    while j < len(live):
+        op = ops[live[j]]
+        if key_of(op) == key:
+            run.append(op)
+        elif not (op.type == 'scale' and run[0].type == 'adamax' and
+                  adamax_bump(op, run)):
+            break
         j += 1
     return j, runner
 

@@ -1,15 +1,20 @@
 """Parameter initializers — emit init ops into the startup program.
 
 Counterpart of paddle_tpu/initializer.py (Constant, Uniform, Normal,
-Xavier).  The ops they emit are the JAX package's; the draws come from a
-torch.Generator (ops/rand.py), so the values differ between the packages.
+TruncatedNormal, Xavier, MSRA, Bilinear, NumpyArray).  The ops they emit
+are the JAX package's; the draws come from a torch.Generator
+(ops/rand.py), so the random values differ between the packages, while
+Bilinear and NumpyArray (an `assign_value` of the array) are exact.
 """
 import numpy as np
 
 from .core.framework import default_startup_program
 
-__all__ = ['Constant', 'Uniform', 'Normal', 'Xavier', 'ConstantInitializer',
-           'UniformInitializer', 'NormalInitializer', 'XavierInitializer']
+__all__ = ['Constant', 'Uniform', 'Normal', 'TruncatedNormal', 'Xavier',
+           'Bilinear', 'MSRA', 'ConstantInitializer', 'UniformInitializer',
+           'NormalInitializer', 'TruncatedNormalInitializer',
+           'XavierInitializer', 'BilinearInitializer', 'MSRAInitializer',
+           'NumpyArrayInitializer']
 
 
 class Initializer(object):
@@ -64,6 +69,19 @@ class NormalInitializer(Initializer):
                             'dtype': var.dtype})
 
 
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block=None):
+        sb = self._startup_var(var)
+        sb.append_op(type='truncated_gaussian_random', inputs={},
+                     outputs={'Out': sb.vars[var.name]},
+                     attrs={'shape': list(var.shape), 'mean': self.loc,
+                            'std': self.scale, 'seed': self.seed,
+                            'dtype': var.dtype})
+
+
 def _fans(var):
     shape = var.shape
     if len(shape) == 2:
@@ -93,7 +111,56 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block=None):
+        fan_in, _ = _fans(var)
+        fan_in = self.fan_in if self.fan_in is not None else fan_in
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fan_in))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = float(np.sqrt(2.0 / fan_in))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class BilinearInitializer(Initializer):
+    """Bilinear upsampling kernel for a conv_transpose weight [C_out, C_in,
+    kh, kw], as the reference builds it."""
+
+    def __call__(self, var, block=None):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError('Bilinear init needs a 4-D conv weight')
+        c_out, c_in, kh, kw = shape
+        f = np.ceil(kw / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        w = np.zeros(shape, dtype='float32')
+        og = np.ogrid[:kh, :kw]
+        filt = (1 - abs(og[0] / f - c)) * (1 - abs(og[1] / f - c))
+        w[range(c_out), range(c_in) if c_in == c_out else 0] = filt
+        NumpyArrayInitializer(w)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block=None):
+        sb = self._startup_var(var)
+        sb.append_op(type='assign_value', inputs={},
+                     outputs={'Out': sb.vars[var.name]},
+                     attrs={'shape': list(self.value.shape),
+                            'values': self.value.reshape(-1).tolist(),
+                            'dtype': var.dtype})
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

@@ -21,6 +21,10 @@ launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'layer_norm': 0, 'adam_multi': 0, 'adam_multi_bf16': 0,
             'momentum_multi': 0, 'softmax': 0,
             'kernelgen_segment': 0, 'flash_attention_composed': 0}
+# csrc/optim_multi.cu: one counter an instance (ops/optimizer_ops.py _KINDS)
+launches.update({k + '_multi': 0 for k in (
+    'sgd', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta', 'rmsprop',
+    'rmsprop_centered', 'ftrl', 'ftrl_pow')})
 
 
 def reset_launches():

@@ -178,6 +178,8 @@ def _bind(lib):
     lib.pt_adam_multi_bf16.restype = i
     lib.pt_momentum_multi.argtypes = [p, p, i, i, f, i, p]
     lib.pt_momentum_multi.restype = i
+    lib.pt_optim_multi.argtypes = [i, p, p, i, i, f, f, f, f, p]
+    lib.pt_optim_multi.restype = i
     lib.pt_softmax.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.pt_softmax.restype = i
     lib.pt_error_string.argtypes = [i]

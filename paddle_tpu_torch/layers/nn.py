@@ -21,6 +21,7 @@ __all__ = [
     'softmax_with_cross_entropy', 'add_position_encoding',
     'autoincreased_step_counter', 'softmax', 'dropout', 'matmul',
     'conv2d', 'pool2d', 'batch_norm', 'cross_entropy', 'mean',
+    'sigmoid_cross_entropy_with_logits', 'square_error_cost',
 ]
 
 
@@ -454,3 +455,14 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
 
 def mean(x, name=None):
     return _simple('mean', x, name=name)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    return _simple('sigmoid_cross_entropy_with_logits', x,
+                   {'ignore_index': ignore_index, 'normalize': normalize},
+                   name, extra_ins={'Label': label})
+
+
+def square_error_cost(input, label):
+    return _simple('square_error_cost', input, extra_ins={'Y': label})

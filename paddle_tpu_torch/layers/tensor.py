@@ -1,8 +1,9 @@
 """Tensor creation layers the training slice uses.
 
-Counterpart of paddle_tpu/layers/tensor.py: create_global_var, cast,
-sums, assign (of a Variable, or of a numpy array as `assign_value`),
-fill_constant and fill_constant_batch_size_like.
+Counterpart of paddle_tpu/layers/tensor.py: create_parameter,
+create_global_var, cast,
+concat, sums, assign (of a Variable, or of a numpy array as
+`assign_value`), fill_constant and fill_constant_batch_size_like.
 """
 import numpy as np
 
@@ -11,8 +12,19 @@ from ..core.dtypes import dtype_str
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 
-__all__ = ['create_global_var', 'cast', 'sums', 'assign', 'fill_constant',
-           'fill_constant_batch_size_like']
+__all__ = ['create_parameter', 'create_global_var', 'cast', 'concat', 'sums', 'assign',
+           'fill_constant', 'fill_constant_batch_size_like']
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+    helper = LayerHelper('create_parameter', name=name)
+    attr = ParamAttr._to_attr(attr)
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -32,6 +44,14 @@ def cast(x, dtype):
     helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
                      attrs={'in_dtype': x.dtype,
                             'out_dtype': dtype_str(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper('concat', name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type='concat', inputs={'X': list(input)},
+                     outputs={'Out': out}, attrs={'axis': axis})
     return out
 
 

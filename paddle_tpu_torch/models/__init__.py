@@ -1,3 +1,3 @@
 """Models built on the port's layers."""
-from . import (llama, mnist, resnet, se_resnext, transformer,  # noqa: F401
-               vgg)
+from . import (ctr, llama, mnist, resnet, se_resnext, simple,  # noqa: F401
+               transformer, vgg, word2vec)

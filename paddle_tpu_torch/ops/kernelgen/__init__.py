@@ -3,8 +3,8 @@
 Counterpart of paddle_tpu/ops/kernelgen/__init__.py.  On a CUDA tensor,
 ops/fused.py hands each fused group to `run_fused`, which runs its plan
 (builder.py): random draws, views and transposes, the dedicated kernels
-K5 / K6 / K1, `adam_multi`, `momentum_multi`, and one generated kernel per
-segment.  There is no fallback on the card: a sub-op without a rule, or a
+K5 / K6 / K1, `adam_multi`, `momentum_multi`, `optim_multi` (the other
+update ops), and one generated kernel per segment.  There is no fallback on the card: a sub-op without a rule, or a
 shape a template cannot take, raises `KernelgenUnsupported` naming it,
 and a failing nvcc or launch raises.  The port has no `PT_KERNELGEN` switch;
 `PT_OPT=0` (no fusion) is the only way to run unfused.
@@ -381,6 +381,29 @@ def _run_momentum(st, mats, ctx):
             mats[mid] = cols[oslot[:-3]][k]
 
 
+def _run_optim(st, mats, ctx):
+    from ..optimizer_ops import OPTIM_SLOTS, array_slots, optim_multi
+    stype, key, ins, outs, in_place = st
+    slots = array_slots(stype, key)
+    scalar = OPTIM_SLOTS[stype][2]
+
+    def col(slot):
+        return [mats[d[slot]] for d in ins]
+    # as in _run_adam: a column that is not in place gets a new tensor
+    written = {slot: [t if ip else t.clone()
+                      for t, ip in zip(col(slot), in_place)]
+               for slot in ('Param',) + slots}
+    optim_multi(stype, written['Param'], col('Grad'),
+                [written[s] for s in slots], col(scalar) if scalar else None,
+                None if stype == 'adadelta' else col('LearningRate'), key,
+                cache=getattr(ctx, 'cache', None),
+                recorder=getattr(ctx, 'recorder', None))
+    aliases = OPTIM_SLOTS[stype][1]
+    for k, ob in enumerate(outs):
+        for oslot, mid in ob.items():
+            mats[mid] = written[aliases[oslot]][k]
+
+
 def plan_of(attrs):
     """The plan the last `run_fused` of this fused op used."""
     return _LAST_PLAN.get(id(attrs))
@@ -441,7 +464,9 @@ def run_fused(ctx, xs, attrs, amp):
                         mats[mid] = v
         elif kind == 'momentum':
             _run_momentum(st, mats, ctx)
-        else:
+        elif kind == 'adam':
             _run_adam(st, mats, ctx)
+        else:
+            _run_optim(st, mats, ctx)
     return [mats[m].detach() if stop and mats[m].requires_grad else mats[m]
             for m, stop in zip(plan.finals, plan.final_stop)]

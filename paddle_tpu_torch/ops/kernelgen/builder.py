@@ -24,6 +24,15 @@ transcription.  The sub-ops partition into steps:
 ``momentum``
     Consecutive `momentum` sub-ops with the same mu and use_nesterov: one
     `momentum_multi` launch (csrc/momentum.cu), in place.
+``sgd``, ``adagrad``, ``decayed_adagrad``, ``adamax``, ``adadelta``, ``rmsprop``, ``ftrl``
+    Consecutive sub-ops of one of these types sharing every attribute the
+    update reads (ops/optimizer_ops.py `optim_key`: rmsprop's `centered`,
+    ftrl's l1, l2 and lr_power, ...): one `optim_multi` launch
+    (csrc/optim_multi.cu, the type's instance), in place.  An adamax run
+    holds across the `scale` sub-ops AdamaxOptimizer appends after each
+    adamax op to bump its Beta1Pow: the plan moves those bumps after the
+    run (`_hoist_adamax_bumps`; each adamax op reads its own power before
+    its bump, and nothing else reads it), where they form a kernel step.
 ``kernel``
     A maximal run of `ew` and rng-body sub-ops: ONE generated
     `__global__` function (`_emit_segment`).
@@ -73,6 +82,7 @@ import torch
 from ...core.amp import amp_match_ins, amp_sub_ins
 from ...core.dtypes import dtype_str, torch_dtype
 from ...core.registry import InferCtx, get_op
+from ..optimizer_ops import OPTIM_SLOTS, optim_key
 
 __all__ = ['KernelgenUnsupported', 'plan_for', 'clear_plans', 'avals_of']
 
@@ -185,15 +195,15 @@ def _index_expr(eff, out):
     return ' + '.join(reversed(terms)) if terms else '0'
 
 
-def _abstract_replay(attrs, in_avals, amp):
+def _abstract_replay(sub_ops, arg_names, in_avals, amp):
     """Per sub-op: (post-AMP input dtypes by slot, {name: (shape, dtype)}
     of every value it writes), from the plain sub-ops on meta tensors."""
     from ..fused import run_sub_op
     env = {n: torch.empty(s, dtype=torch_dtype(d), device='meta')
-           for n, (s, d) in zip(attrs['arg_names'], in_avals)}
+           for n, (s, d) in zip(arg_names, in_avals)}
     ctx = InferCtx(amp=amp)
     recs = []
-    for sub in attrs['sub_ops']:
+    for sub in sub_ops:
         ins = {}
         for slot, names in sub['inputs'].items():
             vals = [env[n] for n in names]
@@ -250,12 +260,17 @@ class Plan(object):
         self.final_stop = []
         self.n_kernels = self.n_dsteps = self.n_draws = 0
         self.n_glue = self.n_adam = self.n_momentum = 0
+        self.n_optim = {}      # optim_multi steps by op type
         self.kernels = []      # the generated functions' names, in order
 
     def counts(self):
-        return {'kernels': self.n_kernels, 'dsteps': self.n_dsteps,
-                'draws': self.n_draws, 'glue': self.n_glue,
-                'adam': self.n_adam, 'momentum': self.n_momentum}
+        """Steps by kind; the optim_multi types only where the plan has
+        one."""
+        c = {'kernels': self.n_kernels, 'dsteps': self.n_dsteps,
+             'draws': self.n_draws, 'glue': self.n_glue,
+             'adam': self.n_adam, 'momentum': self.n_momentum}
+        c.update(self.n_optim)
+        return c
 
 
 _PLANS = {}
@@ -283,15 +298,48 @@ def _check_dtype(stype, dt):
                                    % dt)
 
 
+def _hoist_adamax_bumps(sub_ops):
+    """The order the plan takes the sub-ops in: positions, with each run
+    of adamax sub-ops sharing their key put before the `scale` sub-ops
+    between them that bump their Beta1Pow in place (each scale writes one
+    run member's own power, which no other sub-op of the run reads)."""
+    order, i, n = [], 0, len(sub_ops)
+    while i < n:
+        if sub_ops[i]['type'] != 'adamax':
+            order.append(i)
+            i += 1
+            continue
+        key = _optim_key(sub_ops[i])
+        ups, bumps, pows, j = [], [], set(), i
+        while j < n:
+            s = sub_ops[j]
+            if s['type'] == 'adamax' and _optim_key(s) == key and \
+                    s['inputs']['Beta1Pow'][0] not in pows:
+                ups.append(j)
+                pows.add(s['inputs']['Beta1Pow'][0])
+            elif s['type'] == 'scale' and \
+                    s['inputs']['X'] == s['outputs']['Out'] and \
+                    s['inputs']['X'][0] in pows:
+                bumps.append(j)
+            else:
+                break
+            j += 1
+        order += ups + bumps
+        i = j
+    return order
+
+
 def _build_plan(attrs, in_avals, amp):
     from .rules import KERNEL_RULES
-    sub_ops = attrs['sub_ops']
+    # positions into attrs['sub_ops']: draw and dstep steps name theirs
+    order = _hoist_adamax_bumps(attrs['sub_ops'])
+    sub_ops = [attrs['sub_ops'][o] for o in order]
     arg_names = list(attrs['arg_names'])
     out_names = list(attrs['out_names'])
     for sub in sub_ops:
         if sub['type'] not in KERNEL_RULES:
             raise KernelgenUnsupported(sub['type'], 'no KERNEL_RULES entry')
-    recs = _abstract_replay(attrs, in_avals, amp)
+    recs = _abstract_replay(sub_ops, arg_names, in_avals, amp)
 
     # ---- usage pre-pass: value versions and their last readers
     cur = {n: 0 for n in arg_names}
@@ -362,7 +410,7 @@ def _build_plan(attrs, in_avals, amp):
 
         # ------------------------------------------------ optimizer
         if rule.kind == 'optimizer':
-            in_slots, out_slots, group_key = _OPTIMIZERS[stype]
+            out_slots, group_key = _OPTIMIZERS[stype]
             j = i
             gkey = group_key(sub)
             while j < len(sub_ops) and sub_ops[j]['type'] == stype and \
@@ -372,8 +420,8 @@ def _build_plan(attrs, in_avals, amp):
             if any(loc[key_of(n)][0] == 'sym' for s in group
                    for ns in s['inputs'].values() for n in ns):
                 flush(i)
-            ins = [{slot: as_mat(key_of(s['inputs'][slot][0]), stype)
-                    for slot in in_slots} for s in group]
+            ins = [{slot: as_mat(key_of(names[0]), stype)
+                    for slot, names in s['inputs'].items()} for s in group]
             outs = []
             for gi, s in enumerate(group):
                 ob = {}
@@ -386,12 +434,15 @@ def _build_plan(attrs, in_avals, amp):
                     ob[slot] = mid
                 outs.append(ob)
             in_place = [all(s['outputs'].get(o) == s['inputs'].get(n)
-                            for o, n in out_slots.items()) for s in group]
+                            for o, n in out_slots.items()
+                            if n in s['inputs']) for s in group]
             plan.steps.append((stype, gkey, ins, outs, in_place))
             if stype == 'adam':
                 plan.n_adam += 1
-            else:
+            elif stype == 'momentum':
                 plan.n_momentum += 1
+            else:
+                plan.n_optim[stype] = plan.n_optim.get(stype, 0) + 1
             i = j
             continue
 
@@ -431,7 +482,7 @@ def _build_plan(attrs, in_avals, amp):
             out_name = sub['outputs']['Out'][0]
             shape, dt = written[out_name]
             mid = new_mid()
-            plan.steps.append(('draw', mid, i, None))
+            plan.steps.append(('draw', mid, order[i], None))
             plan.n_draws += 1
             k = bind(out_name, shape, dt)
             loc[k] = ('mat', mid)
@@ -457,7 +508,7 @@ def _build_plan(attrs, in_avals, amp):
                     loc[k] = ('mat', mid)
                     binds.append(mid)
                 out_bind[slot] = binds
-            plan.steps.append(('dstep', i, in_mids, out_bind))
+            plan.steps.append(('dstep', order[i], in_mids, out_bind))
             plan.n_dsteps += 1
             i += 1
             continue
@@ -544,7 +595,7 @@ def _build_plan(attrs, in_avals, amp):
         for slot in draws:
             xs_, xdt = aval[key_of(sub['inputs']['X'][0])]
             mid = new_mid()
-            plan.steps.append(('draw', mid, i, (xs_, xdt)))
+            plan.steps.append(('draw', mid, order[i], (xs_, xdt)))
             plan.n_draws += 1
             kind = 'tile' if _size(xs_) > 1 else 'scalar'
             in_ops[slot] = [(('ref', s.entry(mid, kind, xdt, None, xs_),
@@ -579,8 +630,6 @@ def _build_plan(attrs, in_avals, amp):
     return plan
 
 
-_ADAM_IN = ('Param', 'Grad', 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow',
-            'LearningRate')
 _ADAM_OUT = {'ParamOut': 'Param', 'Moment1Out': 'Moment1',
              'Moment2Out': 'Moment2', 'Beta1PowOut': 'Beta1Pow',
              'Beta2PowOut': 'Beta2Pow'}
@@ -597,13 +646,19 @@ def _momentum_key(sub):
     return (a.get('mu', 0.9), bool(a.get('use_nesterov', False)))
 
 
-# the optimizer rules: op type -> (input slots, {output slot: the input
-# slot it updates}, the key a run of them shares)
+def _optim_key(sub):
+    return optim_key(sub['type'], sub['attrs'])
+
+
+# the optimizer rules: op type -> ({output slot: the input slot it
+# updates}, the key a run of them shares); a step takes every input slot
+# of its sub-ops
 _OPTIMIZERS = {
-    'adam': (_ADAM_IN, _ADAM_OUT, _adam_key),
-    'momentum': (('Param', 'Grad', 'Velocity', 'LearningRate'),
-                 {'ParamOut': 'Param', 'VelocityOut': 'Velocity'},
+    'adam': (_ADAM_OUT, _adam_key),
+    'momentum': ({'ParamOut': 'Param', 'VelocityOut': 'Velocity'},
                  _momentum_key)}
+_OPTIMIZERS.update({t: (spec[1], _optim_key)
+                    for t, spec in OPTIM_SLOTS.items()})
 
 
 # ------------------------------------------------------ CUDA emission

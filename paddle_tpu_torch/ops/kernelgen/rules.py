@@ -33,14 +33,17 @@ Kinds:
     flash_attention -> K1 (csrc/flash_fwd.cu), the registered op.
 ``optimizer``
     consecutive in-place `adam` sub-ops with the same betas and epsilon
-    -> one `adam_multi` call (csrc/adam.cu, K7's Adam instance).
+    -> one `adam_multi` call (csrc/adam.cu, K7's Adam instance); of
+    `momentum` -> `momentum_multi` (csrc/momentum.cu); of `sgd`,
+    `adagrad`, `decayed_adagrad`, `adamax`, `adadelta`, `rmsprop` or
+    `ftrl` sharing their attributes -> one `optim_multi` call
+    (csrc/optim_multi.cu, that type's instance).
 
 Bool values (the comparisons' and logical ops' outputs) live in `bool`
 registers and are stored as one byte, as torch stores them.
 
 Not carried over yet (ROADMAP): rules for the fusable ops the port does
-not register (`label_smooth`, `fill_zeros_like`, `flatten`,
-`truncated_gaussian_random`, the other optimizers).
+not register (`label_smooth`, `fill_zeros_like`, `flatten`).
 """
 import numpy as np
 import torch
@@ -493,12 +496,14 @@ for _name in ('reshape', 'squeeze', 'unsqueeze', 'transpose'):
 
 # ------------------------------------------------------------- rng rules
 _r('dropout', kind='rng', emit=_dropout)
-for _name in ('uniform_random', 'gaussian_random'):
+for _name in ('uniform_random', 'gaussian_random',
+              'truncated_gaussian_random'):
     _r(_name, kind='rng')
 
 # --------------------------------------- dedicated kernels between segments
 _r('softmax', kind='row')
 _r('layer_norm', kind='row')
 _r('flash_attention', kind='attention')
-_r('adam', kind='optimizer')
-_r('momentum', kind='optimizer')
+for _name in ('adam', 'momentum', 'sgd', 'adagrad', 'decayed_adagrad',
+              'adamax', 'adadelta', 'rmsprop', 'ftrl'):
+    _r(_name, kind='optimizer')

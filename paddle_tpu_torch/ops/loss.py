@@ -20,6 +20,12 @@ float32 [B, T, V] tensor that the JAX package's DCE never builds.
 `ignore_index` rows, or `-sum(label * log(p + 1e-8))` with `soft_label`;
 plain torch ops, differentiated by autograd as the JAX package's are by
 its vjp.
+
+`sigmoid_cross_entropy_with_logits` (the reference's :215-224) is the
+stable form `max(x, 0) - x z + log1p(exp(-|x|))`, zero where the label is
+`ignore_index`, divided by the count of other labels (at least 1) with
+`normalize`; `square_error_cost` (:145) is `(x - y)^2`.  Both are plain
+torch ops under autograd.
 """
 import torch
 
@@ -116,3 +122,23 @@ def cross_entropy(ctx, ins, attrs):
     out = -torch.log(_target(x, lab) + _EPS)
     ignore = attrs.get('ignore_index', -100)
     return {'Y': torch.where(lab == ignore, torch.zeros_like(out), out)}
+
+
+@register('sigmoid_cross_entropy_with_logits')
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    x, label = ins['X'], ins['Label']
+    ignore = attrs.get('ignore_index', -100)
+    loss = torch.clamp_min(x, 0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    kept = label != ignore
+    loss = torch.where(kept, loss, torch.zeros_like(loss))
+    if attrs.get('normalize', False):
+        cnt = torch.sum(kept.to(x.dtype))
+        loss = loss / torch.clamp_min(cnt, 1.0)
+    return {'Out': loss}
+
+
+@register('square_error_cost')
+def square_error_cost(ctx, ins, attrs):
+    d = ins['X'] - ins['Y']
+    return {'Out': d * d}

@@ -1,5 +1,6 @@
-"""Optimizer update ops: `adam` and `momentum`, and their multi-tensor
-kernels.
+"""Optimizer update ops and their multi-tensor kernels: `adam`,
+`momentum`, `sgd`, `adagrad`, `decayed_adagrad`, `adamax`, `adadelta`,
+`rmsprop`, `ftrl`, and `lars_momentum` (no kernel).
 
 Counterpart of paddle_tpu/ops/optimizer_ops.py.  The math is the
 reference's (:51-65):
@@ -42,12 +43,31 @@ loop of the op.  Its pointer table is cached per executor as Adam's is,
 and LR is read on the device.  The executor hands each maximal run of
 consecutive in-place `momentum` ops sharing mu and use_nesterov to one
 `momentum_multi` call (`run_momentum_group`).
+
+`sgd`, `adagrad`, `decayed_adagrad`, `adamax`, `adadelta`, `rmsprop`
+(plain and `centered`) and `ftrl` are the reference's (:19-163), float32,
+one rounding an operation in its order (`_optim_one`); a Python constant
+such as 1 - rho or l1 + 1e-10 is computed in double and meets the arrays
+as float32, as jnp's weak types do.  `optim_reference` is the per-tensor
+loop, `optim_multi` (and `<op>_multi`, `<op>_reference` for each) the
+entry: on CUDA tensors it launches csrc/optim_multi.cu's instance for the
+op and its key (`optim_key`: every attribute the update reads), for
+contiguous float32 tensors only; on CPU tensors the plain version.  Ftrl
+at lr_power -0.5 takes square roots; at any other power pow, which no
+implementation rounds correctly, so that instance is held to
+`ftrl_pow_bound`.  The executor and the kernel generator hand each run of
+consecutive in-place ops of one type and key to one call
+(`run_optim_group`); an adamax run also holds the `scale` ops that bump
+its own ops' Beta1Pow (`adamax_bump`), run after the launch.
+`lars_momentum` stays plain torch ops, one op a tensor, its norms
+sqrt(sum(square(x))): the reference leaves it to XLA, outside its fused
+kernels.
 """
 import numpy as np
 import torch
 
 from .. import kernels
-from ..core.registry import register
+from ..core.registry import get_op, register
 
 _IN_PLACE = (('Param', 'ParamOut'), ('Moment1', 'Moment1Out'),
              ('Moment2', 'Moment2Out'), ('Beta1Pow', 'Beta1PowOut'),
@@ -473,11 +493,6 @@ def run_momentum_group(ops, env, ectx):
                    recorder=ectx.recorder)
 
 
-# the optimizer ops the executor groups: op type -> (key, runner)
-GROUPS = {'adam': (adam_group_key, run_adam_group),
-          'momentum': (momentum_group_key, run_momentum_group)}
-
-
 @register('momentum')
 def momentum(ctx, ins, attrs):
     """One op, functional: the update runs on copies of its state."""
@@ -486,3 +501,450 @@ def momentum(ctx, ins, attrs):
                    *_momentum_attrs(attrs),
                    recorder=getattr(ctx, 'recorder', None))
     return {'ParamOut': p, 'VelocityOut': v}
+
+
+# ------------------------------------- the other in-place update ops
+
+# elements per block of the kernel (csrc/optim_multi.cu CHUNK)
+_OPTIM_CHUNK = 4096
+# per tensor in the state table: param, three state arrays, the element
+# count (csrc/optim_multi.cu HEAD)
+_OPTIM_HEAD = 5
+# op type -> (the state slots it updates in place, {output slot: the input
+# slot it updates}, the [1] input it only reads); rmsprop's `MeanGrad`
+# only when `centered` (array_slots)
+OPTIM_SLOTS = {
+    'sgd': ((), {'ParamOut': 'Param'}, None),
+    'adagrad': (('Moment',), {'ParamOut': 'Param', 'MomentOut': 'Moment'},
+                None),
+    'decayed_adagrad': (('Moment',), {'ParamOut': 'Param',
+                                      'MomentOut': 'Moment'}, None),
+    'adamax': (('Moment', 'InfNorm'),
+               {'ParamOut': 'Param', 'MomentOut': 'Moment',
+                'InfNormOut': 'InfNorm'}, 'Beta1Pow'),
+    'adadelta': (('AvgSquaredGrad', 'AvgSquaredUpdate'),
+                 {'ParamOut': 'Param', 'AvgSquaredGradOut': 'AvgSquaredGrad',
+                  'AvgSquaredUpdateOut': 'AvgSquaredUpdate'}, None),
+    'rmsprop': (('MeanSquare', 'Moment', 'MeanGrad'),
+                {'ParamOut': 'Param', 'MeanSquareOut': 'MeanSquare',
+                 'MomentOut': 'Moment', 'MeanGradOut': 'MeanGrad'}, None),
+    'ftrl': (('SquaredAccumulator', 'LinearAccumulator'),
+             {'ParamOut': 'Param', 'SquaredAccumOut': 'SquaredAccumulator',
+              'LinearAccumOut': 'LinearAccumulator'}, None),
+}
+# the kernel's instances (csrc/optim_multi.cu Kind): the launch counter of
+# each is its name
+_KINDS = ('sgd', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
+          'rmsprop', 'rmsprop_centered', 'ftrl', 'ftrl_pow')
+
+
+# op type -> the attributes its update reads, with the reference's defaults
+_ATTRS = {
+    'sgd': (),
+    'adagrad': (('epsilon', 1e-6),),
+    'decayed_adagrad': (('decay', 0.95), ('epsilon', 1e-6)),
+    'adamax': (('beta1', 0.9), ('beta2', 0.999), ('epsilon', 1e-8)),
+    'adadelta': (('rho', 0.95), ('epsilon', 1e-6)),
+    'rmsprop': (('decay', 0.95), ('epsilon', 1e-6), ('momentum', 0.0),
+                ('centered', False)),
+    'ftrl': (('l1', 0.0), ('l2', 0.0), ('lr_power', -0.5)),
+}
+
+
+def optim_key(op_type, attrs):
+    """The attributes the `op_type` update reads (_ATTRS), as one tuple:
+    what a run of such ops shares."""
+    return tuple(attrs.get(k, d) for k, d in _ATTRS[op_type])
+
+
+def array_slots(op_type, key):
+    slots = OPTIM_SLOTS[op_type][0]
+    if op_type == 'rmsprop' and not key[3]:
+        return slots[:2]
+    return slots
+
+
+def _kind(op_type, key):
+    if op_type == 'rmsprop' and key[3]:
+        return 'rmsprop_centered'
+    if op_type == 'ftrl' and key[2] != -0.5:
+        return 'ftrl_pow'
+    return op_type
+
+
+def _optim_one(op_type, key, p, g, arrays, scalar, lr):
+    """The `op_type` op's math on one float32 tensor, one rounding an
+    operation in the reference's order (paddle_tpu/ops/optimizer_ops.py);
+    a Python constant, such as 1 - rho, is computed in double and meets
+    the tensor as float32, as jnp's weak types do.  -> (p', arrays'),
+    new tensors."""
+    lr = lr.reshape(()) if lr is not None else None
+    if op_type == 'sgd':
+        return p - lr * g, ()
+    if op_type in ('adagrad', 'decayed_adagrad'):
+        m, = arrays
+        if op_type == 'adagrad':
+            mn = m + g * g
+        else:
+            mn = key[0] * m + (1 - key[0]) * (g * g)
+        return p - lr * g / (torch.sqrt(mn) + key[-1]), (mn,)
+    if op_type == 'adamax':
+        b1, b2, eps = key
+        m, u = arrays
+        mn = b1 * m + (1 - b1) * g
+        un = torch.maximum(b2 * u, g.abs())
+        return p - (lr / (1 - scalar.reshape(()))) * mn / (un + eps), \
+            (mn, un)
+    if op_type == 'adadelta':
+        rho, eps = key
+        ag, au = arrays
+        gn = rho * ag + (1 - rho) * (g * g)
+        upd = -torch.sqrt((au + eps) / (gn + eps)) * g
+        return p + upd, (gn, rho * au + (1 - rho) * (upd * upd))
+    if op_type == 'rmsprop':
+        rho, eps, mu, centered = key
+        ms, mom = arrays[:2]
+        msn = rho * ms + (1 - rho) * (g * g)
+        if centered:
+            mgn = rho * arrays[2] + (1 - rho) * g
+            momn = mu * mom + lr * g / torch.sqrt(msn - mgn * mgn + eps)
+            return p - momn, (msn, momn, mgn)
+        momn = mu * mom + lr * g / torch.sqrt(msn + eps)
+        return p - momn, (msn, momn)
+    if op_type == 'ftrl':
+        l1, l2, power = key[0] + 1e-10, key[1] + 1e-10, key[2]
+        sq, lin = arrays
+        nsq = sq + g * g
+        if power == -0.5:
+            a, b = torch.sqrt(nsq), torch.sqrt(sq)
+        else:
+            a, b = torch.pow(nsq, -power), torch.pow(sq, -power)
+        sigma = (a - b) / lr
+        nlin = lin + g - sigma * p
+        denom = l2 + a / lr
+        pn = torch.where(nlin.abs() > l1, (l1 * torch.sign(nlin) - nlin) /
+                         denom, torch.zeros_like(p))
+        return pn, (nsq, nlin)
+    raise KeyError(op_type)
+
+
+# ulps a float32 pow of any implementation the port is held against may be
+# off the exact value: CUDA's powf, PyTorch's CPU pow (7.3 ulps measured at
+# exponent 0.6) and XLA's CPU pow (0.5 ulps)
+POW_ULPS = 16
+
+
+def ftrl_pow_bound(p, g, sq, lin, lr, key):
+    """The bound the ftrl instance with lr_power != -0.5 is held to: per
+    element, (|dp'|, |dz'|) that two implementations may differ by when
+    each computes the `ftrl` op from the same float32 inputs with a pow
+    within POW_ULPS ulps (the squared accumulator has no pow: it agrees
+    bit for bit).  With u = 2^-24, K = POW_ULPS, a = n'^e, b = n^e, sigma
+    = (a - b) / lr, den = l2 + a / lr and p' the update, each pow differs
+    by 4 K u |.| between the two, each rounding by 2 u |.|, so
+      |d sigma| <= Es = (4 K + 6) u (|a| + |b|) / lr
+      |dz'|    <= Ez = |p| Es + 4 u (|z| + |g| + |sigma p|)
+      |d den|  <= Ed = (4 K + 2) u |a| / lr + 2 u |den|
+      |dp'|    <= (Ez + |p'| Ed) / den + 4 u |p'|
+    (a branch that flips, |z'| within Ez of l1, moves p' by at most
+    Ez / den); both doubled.  Computed in float64 from the inputs."""
+    f = [t.detach().double() for t in (p, g, sq, lin)]
+    p, g, sq, lin = f
+    lr = float(lr.reshape(()))
+    l1, l2, e = (float(np.float32(v)) for v in _optim_consts('ftrl', key)[:3])
+    u, k = 2.0 ** -24, POW_ULPS
+    nsq = sq + g * g
+    a, b = nsq ** e, sq ** e
+    sigma = (a - b) / lr
+    z = lin + g - sigma * p
+    den = l2 + a / lr
+    pn = torch.where(z.abs() > l1, (l1 * torch.sign(z) - z) / den,
+                     torch.zeros_like(z))
+    es = (4 * k + 6) * u * (a.abs() + b.abs()) / lr
+    ez = p.abs() * es + 4 * u * (lin.abs() + g.abs() + (sigma * p).abs())
+    ed = (4 * k + 2) * u * a.abs() / lr + 2 * u * den.abs()
+    ep = (ez + pn.abs() * ed) / den.abs() + 4 * u * pn.abs()
+    return 2 * ep, 2 * ez
+
+
+def optim_reference(op_type, params, grads, arrays, scalars, lrs, key):
+    """Plain version: the `op_type` op's math per tensor, written into the
+    params and the state arrays in place.  `arrays`: one list of tensors a
+    slot of array_slots(op_type, key); `scalars`: adamax's Beta1Pow list
+    (read only), else None; `lrs`: None for adadelta, which has none."""
+    for i, (p, g) in enumerate(zip(params, grads)):
+        pn, new = _optim_one(op_type, key, p, g, [col[i] for col in arrays],
+                             scalars[i] if scalars is not None else None,
+                             lrs[i] if lrs is not None else None)
+        p.copy_(pn)
+        for col, t in zip(arrays, new):
+            col[i].copy_(t)
+
+
+def _optim_consts(op_type, key):
+    """The kernel's float32 constants c0..c3, each computed on the host in
+    double, as the reference's Python scalars are, and rounded to float32
+    where it meets the arrays (csrc/optim_multi.cu reads them in this
+    order)."""
+    if op_type == 'sgd':
+        c = []
+    elif op_type == 'adagrad':
+        c = [key[0]]
+    elif op_type == 'decayed_adagrad':
+        c = [key[0], 1 - key[0], key[1]]
+    elif op_type == 'adamax':
+        c = [key[0], 1 - key[0], key[1], key[2]]
+    elif op_type == 'adadelta':
+        c = [key[0], 1 - key[0], key[1]]
+    elif op_type == 'rmsprop':
+        c = [key[0], 1 - key[0], key[1], key[2]]
+    else:
+        c = [key[0] + 1e-10, key[1] + 1e-10, -key[2]]
+    return [float(np.float32(v)) for v in c] + [0.0] * (4 - len(c))
+
+
+def _check_optim(op_type, params, grads, arrays, scalars, lrs):
+    dev = params[0].device
+    for i, p in enumerate(params):
+        for t in [p, grads[i]] + [col[i] for col in arrays]:
+            if t.dtype != torch.float32 or t.device != dev or \
+                    not t.is_contiguous() or t.numel() != p.numel():
+                raise ValueError('%s_multi kernel takes contiguous float32 '
+                                 'params, grads and state of one size on '
+                                 'one device' % op_type)
+        for col in (scalars, lrs):
+            if col is not None and (col[i].dtype != torch.float32 or
+                                    col[i].device != dev or
+                                    col[i].numel() != 1):
+                raise ValueError('%s_multi kernel takes [1] float32 '
+                                 'learning rates and powers on the device'
+                                 % op_type)
+
+
+def _optim_tables(kind, params, grads, arrays, scalars, lrs, cache,
+                  recorder):
+    """The kernel's two int64 device tables, as `_momentum_tables` makes
+    them: the state table (per tensor _OPTIM_HEAD entries: the param's
+    and up to three state arrays' pointers, 0 where the instance has
+    none, and the element count; then one entry per chunk, (tensor index
+    << 32) | chunk index), cached while its pointers hold, and the step
+    table (per tensor the grad, LR and scalar input's pointers, 0 where
+    there is none: adamax's Beta1Pow is bumped into a new tensor each step
+    on the fused path), uploaded each step from pinned memory; inside a
+    CUDA graph entry both go through its `recorder`."""
+    dev = params[0].device
+    n = len(params)
+    step_host = np.zeros((n, 3), np.int64)
+    for c, col in enumerate((grads, lrs, scalars)):
+        if col is not None:
+            step_host[:, c] = [t.data_ptr() for t in col]
+    step_host = step_host.reshape(-1)
+    cols = [params] + list(arrays) + [None] * (3 - len(arrays))
+
+    def state_host():
+        head = np.zeros((n, _OPTIM_HEAD), np.int64)
+        for c, col in enumerate(cols):
+            if col is not None:
+                head[:, c] = [t.data_ptr() for t in col]
+        head[:, _OPTIM_HEAD - 1] = [p.numel() for p in params]
+        chunks = [(i << 32) | c for i, p in enumerate(params)
+                  for c in range((p.numel() + _OPTIM_CHUNK - 1) //
+                                 _OPTIM_CHUNK)]
+        return np.concatenate([head.reshape(-1),
+                               np.asarray(chunks, np.int64)])
+    if recorder is not None:
+        host = state_host()
+        return recorder.upload(host, dev), recorder.upload(step_host, dev), \
+            host.size - _OPTIM_HEAD * n
+    key = tuple(t.data_ptr() for col in cols if col is not None
+                for t in col) + tuple(p.numel() for p in params)
+    name = kind + '_multi'
+    hit = cache.get(name) if cache is not None else None
+    if hit is not None and hit[0] == key:
+        table, n_chunks = hit[1], hit[2]
+    else:
+        host = state_host()
+        table, n_chunks = torch.from_numpy(host).to(dev), \
+            host.size - _OPTIM_HEAD * n
+        if cache is not None:
+            cache[name] = (key, table, n_chunks)
+            cache[name + '_tables'] = cache.get(name + '_tables', 0) + 1
+    step = torch.from_numpy(step_host).pin_memory()
+    return table, step.to(dev, non_blocking=True), n_chunks
+
+
+def _launch_optim(op_type, key, params, grads, arrays, scalars, lrs, cache,
+                  recorder):
+    kind = _kind(op_type, key)
+    table, step, n_chunks = _optim_tables(kind, params, grads, arrays,
+                                          scalars, lrs, cache, recorder)
+    dev = params[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernels.library().pt_optim_multi(
+            _KINDS.index(kind), table.data_ptr(), step.data_ptr(),
+            len(params), n_chunks, *_optim_consts(op_type, key), stream)
+    kernels.check(rc, kind + '_multi')
+    kernels.launches[kind + '_multi'] += 1
+
+
+def optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
+                cache=None, recorder=None):
+    """The `op_type` update over lists of tensors, params and state arrays
+    updated in place (arguments as `optim_reference` takes them).  On CUDA
+    tensors it launches csrc/optim_multi.cu's instance for `op_type` and
+    `key`, for contiguous float32 tensors only (any other raises); on CPU
+    tensors it runs `optim_reference`.  `cache` (a dict kept across
+    steps) holds the kernel's state table; `recorder`, a CUDA graph
+    entry's (core/graphs.py), makes the host uploads."""
+    if not params:
+        return
+    cols = [grads] + list(arrays) + [c for c in (scalars, lrs)
+                                     if c is not None]
+    if len(arrays) != len(array_slots(op_type, key)) or \
+            any(len(x) != len(params) for x in cols) or \
+            (scalars is None) != (OPTIM_SLOTS[op_type][2] is None) or \
+            (lrs is None) != (op_type == 'adadelta'):
+        raise ValueError('%s_multi: the tensor lists differ in length or '
+                         'number' % op_type)
+    dev = params[0].device
+    if dev.type in ('cpu', 'meta'):
+        optim_reference(op_type, params, grads, arrays, scalars, lrs, key)
+        return
+    if dev.type != 'cuda':
+        raise RuntimeError('%s_multi: no kernel for device %s'
+                           % (op_type, dev))
+    _check_optim(op_type, params, grads, arrays, scalars, lrs)
+    _launch_optim(op_type, key, params, grads, arrays, scalars, lrs, cache,
+                  recorder)
+
+
+def _entries(op_type):
+    """(`<op_type>_reference`, `<op_type>_multi`): optim_reference and
+    optim_multi for one op type."""
+    def reference(params, grads, arrays, scalars, lrs, key):
+        optim_reference(op_type, params, grads, arrays, scalars, lrs, key)
+
+    def multi(params, grads, arrays, scalars, lrs, key, cache=None,
+              recorder=None):
+        optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
+                    cache, recorder)
+    reference.__name__ = op_type + '_reference'
+    multi.__name__ = op_type + '_multi'
+    reference.__doc__ = 'optim_reference for `%s`.' % op_type
+    multi.__doc__ = 'optim_multi for `%s`.' % op_type
+    return reference, multi
+
+
+sgd_reference, sgd_multi = _entries('sgd')
+adagrad_reference, adagrad_multi = _entries('adagrad')
+decayed_adagrad_reference, decayed_adagrad_multi = \
+    _entries('decayed_adagrad')
+adamax_reference, adamax_multi = _entries('adamax')
+adadelta_reference, adadelta_multi = _entries('adadelta')
+rmsprop_reference, rmsprop_multi = _entries('rmsprop')
+ftrl_reference, ftrl_multi = _entries('ftrl')
+
+
+def _op_cols(op_type, key, ops, env):
+    """(params, grads, arrays, scalars, lrs) of a run of `op_type` ops
+    from `env`."""
+    def col(slot):
+        return [env[op.input(slot)[0]] for op in ops]
+    scalar = OPTIM_SLOTS[op_type][2]
+    return (col('Param'), col('Grad'),
+            [col(s) for s in array_slots(op_type, key)],
+            col(scalar) if scalar else None,
+            None if op_type == 'adadelta' else col('LearningRate'))
+
+
+def optim_group_key(op):
+    """optim_key of an update op of OPTIM_SLOTS whose outputs are its
+    inputs (the optimizer's in-place form), else None."""
+    if op.type not in OPTIM_SLOTS:
+        return None
+    key = optim_key(op.type, op.attrs)
+    outs = OPTIM_SLOTS[op.type][1]
+    slots = ('Param',) + array_slots(op.type, key)
+    if any(not op.input(i) or op.input(i) != op.output(o)
+           for o, i in outs.items() if i in slots):
+        return None
+    return (op.type,) + key
+
+
+def adamax_bump(op, adamaxes):
+    """Whether `op` is the `scale` AdamaxOptimizer appends after an adamax
+    op of `adamaxes`: it writes that op's Beta1Pow in place, which only
+    that op reads."""
+    if op.type != 'scale' or op.input('X') != op.output('Out'):
+        return False
+    return any(op.input('X') == a.input('Beta1Pow') for a in adamaxes)
+
+
+def run_optim_group(ops, env, ectx):
+    """One optim_multi call for consecutive in-place update ops of one
+    type sharing their key (optim_group_key); an adamax run also holds
+    its ops' Beta1Pow bumps (adamax_bump), which run after the launch:
+    each adamax op reads its own power before its bump, as in the
+    program."""
+    updates = [op for op in ops if op.type != 'scale']
+    op_type = updates[0].type
+    key = optim_key(op_type, updates[0].attrs)
+    optim_multi(op_type, *_op_cols(op_type, key, updates, env), key,
+                cache=ectx.cache, recorder=ectx.recorder)
+    for op in ops:
+        if op.type == 'scale':
+            pow_ = env[op.input('X')[0]]
+            pow_.copy_(get_op('scale')(ectx, {'X': pow_}, op.attrs)['Out'])
+
+
+def _optim_op(op_type):
+    def impl(ctx, ins, attrs):
+        """One op, functional: the update runs on copies of its state."""
+        key = optim_key(op_type, attrs)
+        slots = array_slots(op_type, key)
+        p = ins['Param'].clone()
+        arrays = [[ins[s].clone()] for s in slots]
+        scalar = OPTIM_SLOTS[op_type][2]
+        optim_multi(op_type, [p], [ins['Grad']], arrays,
+                    [ins[scalar]] if scalar else None,
+                    None if op_type == 'adadelta' else
+                    [ins['LearningRate']], key,
+                    recorder=getattr(ctx, 'recorder', None))
+        outs = {'ParamOut': p}
+        for o, i in OPTIM_SLOTS[op_type][1].items():
+            if i in slots:
+                outs[o] = arrays[slots.index(i)][0]
+        return outs
+    impl.__name__ = op_type
+    return impl
+
+
+for _t in OPTIM_SLOTS:
+    register(_t)(_optim_op(_t))
+
+
+@register('lars_momentum')
+def lars_momentum(ctx, ins, attrs):
+    """The reference's (paddle_tpu/ops/optimizer_ops.py:37-48), one op a
+    tensor in plain torch ops (no kernel: XLA computes it there, the
+    fuse pass leaves it out), the norms as sqrt(sum(square(x)))."""
+    p, g, v = ins['Param'], ins['Grad'], ins['Velocity']
+    mu = attrs.get('mu', 0.9)
+    coeff = attrs.get('lars_coeff', 0.001)
+    decay = attrs.get('lars_weight_decay', 0.0005)
+    lr = ins['LearningRate'].reshape(())
+    pn = torch.sqrt(torch.sum(torch.square(p)))
+    gn = torch.sqrt(torch.sum(torch.square(g)))
+    local_lr = lr * coeff * pn / (gn + decay * pn + 1e-12)
+    vn = mu * v + local_lr * (g + decay * p)
+    return {'ParamOut': p - vn, 'VelocityOut': vn}
+
+
+# the optimizer ops the executor groups: op type -> (key, runner).  A key
+# holds every attribute the update reads; a run of one type sharing its
+# key is one multi-tensor launch, an adamax run across its Beta1Pow bumps
+# (adamax_bump).  ops/kernelgen's plan makes the same runs.
+GROUPS = {'adam': (adam_group_key, run_adam_group),
+          'momentum': (momentum_group_key, run_momentum_group)}
+GROUPS.update({t: (optim_group_key, run_optim_group) for t in OPTIM_SLOTS})

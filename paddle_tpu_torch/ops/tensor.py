@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/tensor.py: reshape, squeeze, unsqueeze,
 transpose, split, slice, lookup_table, fill_constant,
-fill_constant_batch_size_like, assign, assign_value and top_k.
+fill_constant_batch_size_like, assign, assign_value, top_k and concat.
 """
 import numpy as np
 import torch
@@ -152,3 +152,12 @@ def top_k(ctx, ins, attrs):
     vals, idx = torch.sort(ins['X'], dim=-1, descending=True, stable=True)
     return {'Out': vals[..., :k],
             'Indices': idx[..., :k].to(torch_dtype('int64'))}
+
+
+@register('concat')
+def concat(ctx, ins, attrs):
+    """jnp.concatenate of the `X` list along `axis`; its gradient comes
+    from autograd."""
+    xs = ins['X']
+    xs = xs if isinstance(xs, (list, tuple)) else [xs]
+    return {'Out': torch.cat(list(xs), dim=attrs.get('axis', 0))}

@@ -783,6 +783,87 @@ def test_momentum_multi_raises_on_what_the_kernel_does_not_take(cuda):
         oo.momentum_multi([q.t()], [q], [q.clone()], [lr], 0.9, False)
 
 
+# the instances of csrc/optim_multi.cu: (op type, attrs)
+OPTIM_CASES = {
+    'sgd': ('sgd', {}),
+    'adagrad': ('adagrad', {'epsilon': 1e-6}),
+    'decayed_adagrad': ('decayed_adagrad', {'decay': 0.95, 'epsilon': 1e-6}),
+    'adamax': ('adamax', {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8}),
+    'adadelta': ('adadelta', {'rho': 0.95, 'epsilon': 1e-6}),
+    'rmsprop': ('rmsprop', {'decay': 0.95, 'epsilon': 1e-6,
+                            'momentum': 0.9}),
+    'rmsprop_centered': ('rmsprop', {'decay': 0.95, 'epsilon': 1e-6,
+                                     'momentum': 0.9, 'centered': True}),
+    'ftrl': ('ftrl', {'l1': 1e-4, 'l2': 1e-3}),
+    'ftrl_pow': ('ftrl', {'l1': 1e-4, 'l2': 1e-3, 'lr_power': -0.6}),
+}
+
+
+@pytest.mark.parametrize('case', sorted(OPTIM_CASES))
+def test_optim_multi_kernel_is_the_plain_version(cuda, case):
+    """Three steps of each instance against optim_reference on copies:
+    bit for bit (the reference's roundings, no FMA contraction), and the
+    pow instance within ftrl_pow_bound, each step from the same inputs;
+    ragged sizes and a tensor 4 bytes off 16-byte alignment."""
+    op_type, attrs = OPTIM_CASES[case]
+    key = oo.optim_key(op_type, attrs)
+    shapes = [(1,), (7,), (oo._OPTIM_CHUNK + 1,), (3, 3333), (64, 1024),
+              (4097,)]
+    g = torch.Generator(device='cuda').manual_seed(8)
+    params, arrays, scalars = chip_smoke.optim_state(op_type, key, shapes, g)
+    # the last param 4 bytes off 16-byte alignment
+    buf = torch.empty(4098, device='cuda')
+    buf[1:].copy_(params[-1])
+    params[-1] = buf[1:]
+    lrs = None if op_type == 'adadelta' else \
+        [torch.full((1,), 0.1, device='cuda')] * len(params)
+    cache = {}
+    name = oo._kind(op_type, key) + '_multi'
+    before = kernels.launches[name]
+    for _ in range(3):
+        grads = [1e-2 * _randn(g, *p.shape) for p in params]
+        ref = ([p.clone() for p in params], [[t.clone() for t in col]
+                                              for col in arrays])
+        ins = [t.clone() for t in params], [[t.clone() for t in col]
+                                             for col in arrays]
+        oo.optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
+                       cache=cache)
+        oo.optim_reference(op_type, ref[0], grads, ref[1], scalars, lrs, key)
+        torch.cuda.synchronize()
+        if case == 'ftrl_pow':
+            for i, (a, r) in enumerate(zip(params, ref[0])):
+                bp, bz = oo.ftrl_pow_bound(ins[0][i], grads[i],
+                                           ins[1][0][i], ins[1][1][i],
+                                           lrs[i], key)
+                assert ((a.double() - r.double()).abs() <= bp).all()
+                assert ((arrays[1][i].double() - ref[1][1][i].double())
+                        .abs() <= bz).all()
+                assert torch.equal(arrays[0][i], ref[1][0][i])
+        else:
+            for a, r in zip(params + [t for c in arrays for t in c],
+                            ref[0] + [t for c in ref[1] for t in c]):
+                assert torch.equal(a, r)
+        # carry the plain version's state, so each step starts equal
+        for a, r in zip(params + [t for c in arrays for t in c],
+                        ref[0] + [t for c in ref[1] for t in c]):
+            a.copy_(r)
+    assert kernels.launches[name] == before + 3
+    assert cache[name + '_tables'] == 1
+
+
+def test_optim_multi_raises_on_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(8, device='cuda', dtype=torch.bfloat16)
+    lr = torch.full((1,), 0.1, device='cuda')
+    with pytest.raises(ValueError, match='float32'):
+        oo.adagrad_multi([p], [p.clone()], [[p.clone()]], None, [lr],
+                         (1e-6,))
+    q = torch.zeros(4, 4, device='cuda')
+    with pytest.raises(ValueError, match='contiguous'):
+        oo.sgd_multi([q.t()], [q], [], None, [lr], ())
+    with pytest.raises(ValueError, match='one device'):
+        oo.sgd_multi([q], [q.cpu()], [], None, [lr], ())
+
+
 def test_float32_conv2d_is_float32_when_cudnn_may_use_tf32(cuda):
     """The conv op turns cuDNN's TF32 off around its forward and backward.
     With allow_tf32 = True its output and both gradients stay within
