@@ -364,6 +364,7 @@ the conv op itself, whatever cuDNN's TF32 flag says.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -383,7 +384,7 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'train_resnet_gpu_vs_cpu', 'training_se_resnext50',
           'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu',
           'training_ctr', 'training_optimizers', 'training_word2vec',
-          'train_ctr_gpu_vs_cpu')
+          'train_ctr_gpu_vs_cpu', 'train_c11_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -818,15 +819,16 @@ def fwd_kernels_profiled(run, dtype, D):
     from the profiler (names up to their arguments, template arguments
     included): one launch of the design the port routes (dtype, D) to, a
     tensor-core kernel in the instance of D's width.  A trace without it
-    is taken again, up to PROFILE_TRIES times.  Each trace runs a short
-    spin kernel ahead of run(): in two card runs a lone short forward
-    (Tq 37 x Tk 161) left three traces in a row without it.  -> (kernels,
-    the traces taken)."""
+    is taken again, up to PROFILE_TRIES times.  Each trace starts on an
+    idle card and runs a short spin kernel ahead of run(): in two card
+    runs a lone short forward (Tq 37 x Tk 161) left three traces in a row
+    without it.  -> (kernels, the traces taken)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     got = {}
     for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(100000)
             run()
@@ -1440,6 +1442,143 @@ def optim_case(name, case, shapes, steps=3, timed=False):
     return row
 
 
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def optim_bf16_case(name, case, shapes, timed=False):
+    """C11's bf16 instances: `case` 'momentum' (csrc/momentum.cu
+    momentum_bf16_kernel) or one of OPTIM_CASES (csrc/optim_multi.cu
+    optim_bf16_kernel) over tensors of `shapes` with the param, grad and
+    state (and adamax's Beta1Pow) bf16 and the learning rate float32, one
+    step, against the plain version on copies: the outputs in jnp's
+    promoted dtypes (the param float32), bit for bit (the pow instance
+    within optimizer_ops.ftrl_pow_bound).  Timed: the kernel alone (its
+    tables on the device), the plain version and the bound (each input
+    read once at its dtype, each output written once at its dtype, at
+    HBM_BPS); no library call: torch's optimizers keep a bf16 parameter
+    bf16, a different function."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import optimizer_ops as oo
+    bf = torch.bfloat16
+    g = torch.Generator(device='cuda').manual_seed(SEED + 13)
+    if case == 'momentum':
+        kind, counter = 'momentum', 'momentum_multi_bf16'
+        params = [(0.05 * torch.randn(s, generator=g, device='cuda'))
+                  .to(bf) for s in shapes]
+        arrays = [[(1e-3 * torch.randn(s, generator=g, device='cuda'))
+                   .to(bf) for s in shapes]]
+        scalars, key = None, None
+    else:
+        op_type, attrs = OPTIM_CASES[case]
+        key = oo.optim_key(op_type, attrs)
+        kind = oo._kind(op_type, key)
+        counter = kind + '_multi_bf16'
+        params, arrays, scalars = optim_state(op_type, key, shapes, g)
+        params = [t.to(bf) for t in params]
+        arrays = [[t.to(bf) for t in col] for col in arrays]
+        scalars = scalars and [t.to(bf) for t in scalars]
+    grads = [(1e-2 * torch.randn(p.shape, generator=g, device='cuda'))
+             .to(bf) for p in params]
+    lrs = None if case == 'adadelta' else \
+        [torch.full((1,), 0.01, device='cuda')] * len(params)
+    ins = [t.clone() for t in params], [[t.clone() for t in c]
+                                        for c in arrays]
+
+    def run(multi, ps, arrs):
+        if case == 'momentum':
+            f = oo.momentum_multi if multi else oo.momentum_reference
+            pn, vn = f(ps, grads, arrs[0], lrs, 0.9, False)
+            return pn, [vn]
+        f = oo.optim_multi if multi else oo.optim_reference
+        return f(op_type, ps, grads, arrs, scalars, lrs, key)
+    before = kernels.launches[counter]
+    got = run(True, params, arrays)
+    want = run(False, [t.clone() for t in ins[0]],
+               [[t.clone() for t in c] for c in ins[1]])
+    torch.cuda.synchronize()
+    outs = got[0] + [t for c in got[1] for t in c]
+    refs = want[0] + [t for c in want[1] for t in c]
+    dtypes_equal = [t.dtype for t in outs] == [t.dtype for t in refs]
+    # equal, NaN where NaN (centered rmsprop's root of a bf16 mean square
+    # that rounding took below its mean grad squared)
+    bitwise = dtypes_equal and all(
+        bool(((a == b) | (a.isnan() & b.isnan())).all())
+        for a, b in zip(outs, refs))
+    err = max(float((a.double() - b.double()).nan_to_num().abs().max())
+              for a, b in zip(outs, refs))
+    nans = sum(int(t.isnan().sum()) for t in refs)
+    within, share = bitwise, 0.0
+    if kind == 'ftrl_pow':
+        within = dtypes_equal
+        for i in range(len(params)):
+            bp, bz = oo.ftrl_pow_bound(ins[0][i], grads[i], ins[1][0][i],
+                                       ins[1][1][i], lrs[i], key)
+            for a, b, bd in ((got[0][i], want[0][i], bp),
+                             (got[1][1][i], want[1][1][i], bz)):
+                d = (a.double() - b.double()).abs()
+                within &= bool((d <= bd).all())
+                share = max(share, float((d / bd.clamp_min(1e-300)).max()))
+            within &= bool(torch.equal(got[1][0][i], want[1][0][i]))
+    elems = int(sum(int(np.prod(s)) for s in shapes))
+    row = dict(phase='kernels', kernel=counter, instance=kind, case=name,
+               tensors=len(shapes), elements=elems,
+               in_dtypes='bf16 param, grad and state, float32 lr',
+               out_dtypes=sorted({str(t.dtype) for t in outs}),
+               launches=kernels.launches[counter] - before,
+               dtypes_equal=dtypes_equal, bitwise=bitwise,
+               nan_in_plain=nans, max_abs_err=err, rtol=0.0, atol=0.0)
+    if kind == 'ftrl_pow':
+        row.update(held='ftrl_pow_bound (POW_ULPS %d, bf16 state)'
+                   % oo.POW_ULPS, within_bound=within,
+                   max_share_of_bound=share)
+    if timed:
+        nbytes = _nbytes(params + grads + [t for c in arrays for t in c]) + \
+            _nbytes(outs)
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        lib = kernels.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        # the kernel alone, as a graph replay runs it: its tables on the
+        # device, writing the outputs of the timed call's tables
+        if case == 'momentum':
+            table, step, n_chunks, _, flags = oo._momentum_bf16_tables(
+                params, grads, arrays[0], lrs, False, None)
+
+            def launch():
+                kernels.check(lib.pt_momentum_multi_bf16(
+                    table.data_ptr(), step.data_ptr(), len(params),
+                    n_chunks, 0.9, oo._bf16_const(0.9), 0, flags, stream),
+                    counter)
+        else:
+            table, step, n_chunks, _, flags = oo._optim_bf16_tables(
+                op_type, key, params, grads, arrays, scalars, lrs, None)
+            consts = oo._optim_consts(op_type, key) + \
+                oo._optim_consts(op_type, key, bf)
+            kid = oo._KINDS.index(kind)
+
+            def launch():
+                kernels.check(lib.pt_optim_multi_bf16(
+                    kid, table.data_ptr(), step.data_ptr(), len(params),
+                    n_chunks, *consts, flags, stream), counter)
+        row.update(
+            ms=time_ms(launch, 50),
+            plain_ms=time_ms(lambda: run(False, [t.clone() for t in ins[0]],
+                                         [[t.clone() for t in c]
+                                          for c in ins[1]]), 3),
+            library_ms=None,
+            library_is='none: torch\'s optimizers keep a bf16 parameter '
+            'and its state bf16 (the reference promotes the parameter to '
+            'float32), a different function',
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        row['gbps'] = nbytes / row['ms'] / 1e6
+        row['bound_share'] = bound_ms / row['ms']
+    emit(**row)
+    require(within and row['launches'] == 1, '%s disagrees with its plain '
+            'version in case %s: %s' % (counter, name, row))
+    return row
+
+
 def ctr_param_shapes(model='wide_deep', vocab=None):
     """The trainable tensor shapes of a CTR training program at the
     builders' widths and `vocab` (CTR_VOCAB) rows (no weights are
@@ -1595,12 +1734,13 @@ def _meta_env(main, feed, bf16=False):
 
 
 def _planned_specs(main, feed, fetch_names, amp, bf16=False,
-                   promoted=False):
+                   promoted=False, dtypes=None):
     """The generated segments `main` runs at `feed`'s shapes, from the
     executor's planning pass on meta tensors: name -> (spec, sub-op
     types).  `bf16`: with bf16 parameters (enable_bf16).  `promoted`:
     the bf16 llama build after its first step, every bf16 persistable
-    float32 but the beta powers."""
+    float32 but the beta powers.  `dtypes`: {persistable: torch dtype}
+    that a scope holds at a later step."""
     import torch
     from paddle_tpu_torch.core import executor as ex, passes
     from paddle_tpu_torch.ops import kernelgen
@@ -1611,6 +1751,9 @@ def _planned_specs(main, feed, fetch_names, amp, bf16=False,
             if t.dtype == torch.bfloat16 and '_pow_acc' not in n:
                 env[n] = torch.empty(t.shape, dtype=torch.float32,
                                      device='meta')
+    for n, d in (dtypes or {}).items():
+        if n in env:
+            env[n] = torch.empty(env[n].shape, dtype=d, device='meta')
     seen, real = [], kernelgen.plan_for
 
     def spy(attrs, avals, amp_):
@@ -1771,6 +1914,17 @@ def segment_case(spec, ops, paths, timed=True):
                        'of ops, which no one PyTorch call computes',
                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
             row['gbps'] = nbytes / row['ms'] / 1e6
+            row['share_of_bound'] = bound_ms / row['ms']
+        # the tile table (builder.Layout): blocks, threads, and per group
+        # its size, vector width, tiles, and whether
+        # these inputs' and outputs' pointers took the 16-byte path
+        lay = spec.layout
+        ptrs = [t.data_ptr() for t in ents] + [o.data_ptr() for o in outs]
+        row.update(tiles=lay.grid, threads=lay.threads,
+                   streaming=lay.streaming, vector_by_group=[
+                       dict(n=g['n'], v=g['v'], tiles=g['tiles'],
+                            vec=vec) for g, vec in zip(
+                           lay.groups, kernelgen.vector_groups(spec, ptrs))])
     emit(**row)
     require(all(o for _, o in errs), 'generated segment %s disagrees with '
             'its plain replay: %s' % (spec.name, row))
@@ -2118,6 +2272,18 @@ def phase_kernels():
                                              case, ctr, timed=True)
         optim_case('resnet50_161', case, r50, timed=True)
         optim_case('ragged', case, [(1,), (7,), (4097,), (3, 3333), (5, 4)])
+    # C11's bf16 instances of csrc/momentum.cu and csrc/optim_multi.cu:
+    # bf16 param, grad and state, at Wide&Deep's tensors (the optim rows
+    # of the kernels line) and ResNet-50's 161 (momentum's row), then
+    # ragged sizes
+    for case in ['momentum'] + sorted(OPTIM_CASES):
+        name = 'momentum_multi_bf16' if case == 'momentum' else \
+            case + '_multi_bf16'
+        w = optim_bf16_case('wide_deep_%d' % len(ctr), case, ctr,
+                            timed=True)
+        r = optim_bf16_case('resnet50_161', case, r50, timed=True)
+        served[name] = r if case == 'momentum' else w
+        optim_bf16_case('ragged', case, [(1,), (7,), (4097,), (3, 3333)])
     # K4 at the CTR tables: 1 and 8 columns, 1,000,001 rows, B 2048 x 26
     # int64 ids (training_ctr's lookups)
     inst_gather = {}
@@ -3348,11 +3514,13 @@ def _group(name):
         return 'adam_multi'
     if 'momentum_kernel' in name:
         return 'momentum_multi'
-    if 'optim_kernel' in name:
+    if 'momentum_bf16_kernel' in name:
+        return 'momentum_multi_bf16'
+    m = _OPTIM_KERNEL.search(name)
+    if m and (m.group(2), m.group(3) or '') in OPTIM_FUNCTORS:
         # csrc/optim_multi.cu's instances, by update functor
-        for functor, group in OPTIM_FUNCTORS:
-            if functor in name:
-                return group
+        return OPTIM_FUNCTORS[m.group(2), m.group(3) or ''] + (
+            '_bf16' if m.group(1) else '')
     if 'gather_rows' in name:
         return 'embedding_gather'
     if 'memcpy' in low or 'memset' in low:
@@ -3432,18 +3600,25 @@ def profile_step(exe, main, feed, fetch, phase='training'):
 # profile counts their device launches beside the wrappers' counts
 # csrc/optim_multi.cu's update functors, as the profiler names them in
 # optim_kernel<...>, and the instance each is
-OPTIM_FUNCTORS = (('Sgd', 'sgd_multi'), ('Adagrad<false>', 'adagrad_multi'),
-                  ('Adagrad<true>', 'decayed_adagrad_multi'),
-                  ('Adamax', 'adamax_multi'), ('Adadelta', 'adadelta_multi'),
-                  ('Rmsprop<false>', 'rmsprop_multi'),
-                  ('Rmsprop<true>', 'rmsprop_centered_multi'),
-                  ('Ftrl<false>', 'ftrl_multi'),
-                  ('Ftrl<true>', 'ftrl_pow_multi'))
+OPTIM_FUNCTORS = {('Sgd', ''): 'sgd_multi', ('Adagrad', 'false'):
+                  'adagrad_multi', ('Adagrad', 'true'): 'decayed_adagrad_multi',
+                  ('Adamax', ''): 'adamax_multi',
+                  ('Adadelta', ''): 'adadelta_multi',
+                  ('Rmsprop', 'false'): 'rmsprop_multi',
+                  ('Rmsprop', 'true'): 'rmsprop_centered_multi',
+                  ('Ftrl', 'false'): 'ftrl_multi',
+                  ('Ftrl', 'true'): 'ftrl_pow_multi'}
+# optim_kernel<Functor<float[, flag]>> and its bf16 instance
+# optim_bf16_kernel<Functor<jnp::J[, flag]>>
+_OPTIM_KERNEL = re.compile(r'optim(_bf16)?_kernel<.*?(\w+)<(?:float|jnp::J)'
+                           r'(?:, (true|false))?>')
 KERNEL_GROUPS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'layer_norm', 'softmax',
                  'kernelgen_segment', 'adam_multi', 'adam_multi_bf16',
-                 'momentum_multi', 'embedding_gather') + tuple(
-                     g for _, g in OPTIM_FUNCTORS)
+                 'momentum_multi', 'momentum_multi_bf16',
+                 'embedding_gather') + tuple(
+                     g + s for g in OPTIM_FUNCTORS.values()
+                     for s in ('', '_bf16'))
 
 
 def _profiled(fn):
@@ -6013,6 +6188,139 @@ def phase_train_ctr_gpu_vs_cpu():
     return paths
 
 
+# C11's program: a [C11_N] bf16 parameter, two steps under each update op
+C11_N = 4100
+C11_RUNS = {
+    'sgd': (lambda o: o.SGD(learning_rate=0.1), 'sgd_multi_bf16'),
+    'momentum': (lambda o: o.Momentum(learning_rate=0.1, momentum=0.9),
+                 'momentum_multi_bf16'),
+    'momentum_nesterov': (lambda o: o.Momentum(
+        learning_rate=0.1, momentum=0.9, use_nesterov=True),
+        'momentum_multi_bf16'),
+    'lars_momentum': (lambda o: o.LarsMomentum(learning_rate=0.1,
+                                               momentum=0.9), None),
+    'adagrad': (lambda o: o.Adagrad(learning_rate=0.1),
+                'adagrad_multi_bf16'),
+    'decayed_adagrad': (lambda o: o.DecayedAdagrad(learning_rate=0.1),
+                        'decayed_adagrad_multi_bf16'),
+    'adamax': (lambda o: o.Adamax(learning_rate=0.01), 'adamax_multi_bf16'),
+    'adadelta': (lambda o: o.Adadelta(learning_rate=1.0),
+                 'adadelta_multi_bf16'),
+    'rmsprop': (lambda o: o.RMSProp(learning_rate=0.01, momentum=0.9),
+                'rmsprop_multi_bf16'),
+    'rmsprop_centered': (lambda o: o.RMSProp(
+        learning_rate=0.01, momentum=0.9, centered=True),
+        'rmsprop_centered_multi_bf16'),
+    'ftrl': (lambda o: o.Ftrl(learning_rate=0.1, l1=1e-4, l2=1e-3),
+             'ftrl_multi_bf16'),
+    'ftrl_pow': (lambda o: o.Ftrl(learning_rate=0.1, l1=1e-4, l2=1e-3,
+                                  lr_power=-0.6), 'ftrl_pow_multi_bf16'),
+}
+
+
+def c11_program(make_opt, n=C11_N):
+    """The program that showed C11, widened: a [n] bf16 parameter w
+    (Constant 0.5), loss = mean(cast(cast(x, bf16) * w, float32)), and
+    `make_opt`'s update.  -> (main, startup, loss, the two steps'
+    feeds: x from 0.5 + U(0, 1), then twice that)."""
+    import paddle_tpu_torch as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data('x', shape=[n], dtype='float32',
+                              append_batch_size=False)
+        w = fluid.layers.create_parameter(
+            [n], 'bfloat16', name='w',
+            default_initializer=fluid.initializer.Constant(0.5))
+        y = fluid.layers.elementwise_mul(fluid.layers.cast(x, 'bfloat16'), w)
+        loss = fluid.layers.mean(fluid.layers.cast(y, 'float32'))
+        make_opt(fluid.optimizer).minimize(loss)
+    x1 = (0.5 + np.random.RandomState(SEED).rand(n)).astype('float32')
+    return main, startup, loss, [{'x': x1}, {'x': 2 * x1}]
+
+
+def phase_train_c11_gpu_vs_cpu():
+    """C11 on the card: the program of c11_program under each update op of
+    C11_RUNS, two steps on the card and on the CPU, each from its own
+    startup (constants): every persistable's dtype after each step the
+    CPU's (the parameter float32, as jnp promotes it), and its value
+    within 2^-7 of the change the step made and one unit of its dtype
+    (PyTorch's CPU sqrt is not correctly rounded; ftrl at lr_power -0.6
+    computes pow, which no implementation rounds correctly: 2^-4); the
+    update op's bf16 instance launched on the card (LarsMomentum: plain
+    torch ops, none), no plain version on the card.  The card's plans of
+    both steps (the bf16 parameter, then the promoted state) are made
+    and built before the first step.  -> the card's launches over the
+    two steps, by run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    runs = {k: c11_program(make) for k, (make, _) in C11_RUNS.items()}
+    cpu = {}
+    for run, (main, startup, loss, feeds) in runs.items():
+        scope, exe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            states = [{n: t.clone() for n, t in scope.vars.items()}]
+            for feed in feeds:
+                exe.run(main, feed=feed, fetch_list=[loss])
+                states.append({n: t.clone() for n, t in scope.vars.items()})
+        cpu[run] = states
+        for st, feed in zip(states, feeds):
+            _planned_specs(main, feed, [loss.name], False, dtypes={
+                n: t.dtype for n, t in st.items()})
+        _planned_specs(startup, {}, [], False)
+    kernelgen.ensure_built()
+    paths = {}
+    for run, (main, startup, loss, feeds) in runs.items():
+        t0 = time.perf_counter()
+        scope, exe = fluid.Scope(), fluid.Executor()
+        kernels.reset_launches()
+        worst, dtypes = 0.0, {}
+        with fluid.scope_guard(scope), PlainCalls() as plain:
+            exe.run(startup)
+            for k, feed in enumerate(feeds):
+                exe.run(main, feed=feed, fetch_list=[loss])
+                torch.cuda.synchronize()
+                before, after = cpu[run][k], cpu[run][k + 1]
+                for n, want in after.items():
+                    got = scope.vars[n]
+                    dtypes[n] = str(got.dtype).replace('torch.', '')
+                    require(got.dtype == want.dtype, 'C11 %s step %d: %s is '
+                            '%s on the card, %s on the CPU' % (
+                                run, k + 1, n, got.dtype, want.dtype))
+                    w = want.double()
+                    unit = torch.finfo(want.dtype).eps * w.abs().clamp_min(
+                        torch.finfo(want.dtype).tiny)
+                    rel = 2.0 ** (-4 if run == 'ftrl_pow' else -7)
+                    tol = rel * (w - before[n].double()).abs() + unit
+                    g = got.double().cpu()
+                    # NaN where NaN; a NaN on one side only fails
+                    d = (g - w).abs().masked_fill(g.isnan() & w.isnan(), 0)
+                    worst = max(worst, float(torch.nan_to_num(
+                        d / tol, nan=float('inf')).max()))
+        launched = {k: v for k, v in kernels.launches.items() if v}
+        paths['train_c11_' + run] = launched
+        want_kernel = C11_RUNS[run][1]
+        emit(phase='train_c11_gpu_vs_cpu', run=run, n=C11_N, steps=2,
+             dtypes_after=dtypes, worst_share_of_tolerance=worst,
+             launches=launched, plain_calls_on_cuda=plain.counts,
+             seconds=time.perf_counter() - t0)
+        require(worst <= 1.0, 'C11 %s: the card and the CPU differ past '
+                'the tolerance (%.3g of it)' % (run, worst))
+        # adadelta's update has no learning rate: a bf16 parameter stays
+        # bf16, as in the reference
+        want_w = 'bfloat16' if run == 'adadelta' else 'float32'
+        require(dtypes['w'] == want_w, 'C11 %s: the parameter is %s'
+                % (run, dtypes['w']))
+        require(want_kernel is None or launched.get(want_kernel, 0) >= 1,
+                'C11 %s: %s never launched (%s)' % (run, want_kernel,
+                                                    launched))
+        require(not plain.counts, 'C11 %s: plain versions ran on the card: '
+                '%s' % (run, plain.counts))
+    return paths
+
+
 # ------------------------------------------------------------- main
 
 _REPLACES = {
@@ -6038,6 +6346,9 @@ _REPLACES = {
 _REPLACES.update({k + '_multi': ('paddle_tpu_torch/csrc/optim_multi.cu',
                                  'paddle_tpu/ops/kernelgen/builder.py:929')
                   for k in OPTIM_CASES})
+# C11's bf16 instances
+_REPLACES.update({k + '_bf16': v for k, v in list(_REPLACES.items())
+                  if k == 'momentum_multi' or k[:-6] in OPTIM_CASES})
 # the instances of K1-K3, by the key phase_kernels files them under:
 # (dtype, design, source, the paths that run it)
 _PADDED_DESIGN = (
@@ -6169,6 +6480,7 @@ def main(argv=None):
                        phase_train_resnet_gpu_vs_cpu)
     conv_small = run('train_conv_gpu_vs_cpu', phase_train_conv_gpu_vs_cpu)
     ctr_small = run('train_ctr_gpu_vs_cpu', phase_train_ctr_gpu_vs_cpu)
+    c11 = run('train_c11_gpu_vs_cpu', phase_train_c11_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -6221,6 +6533,8 @@ def main(argv=None):
     by_path.update(ctr)
     by_path.update(optimizers)
     by_path.update(ctr_small)
+    # C11's bf16 instances: over the two steps of each C11 run on the card
+    by_path.update(c11)
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -6244,8 +6558,10 @@ def main(argv=None):
                  'training_llama_d256', 'training_resnet50',
                  'training_se_resnext50', 'training_vgg16',
                  'training_mnist', 'training_ctr_wide_deep') + tuple(
-                     'training_optimizers_' + n for n in OPT_RUNS):
-        for k, v in by_path[path].items():
+                     'training_optimizers_' + n for n in OPT_RUNS) + tuple(
+                     'train_c11_' + n for n in C11_RUNS
+                     if 'train_c11_' + n in c11):
+        for k, v in by_path.get(path, {}).items():
             if v and not launches.get(k):
                 launches[k] = v
     # the float32 instances of K1-K3: K1 per served run (serving), K2 and
@@ -6288,6 +6604,11 @@ def main(argv=None):
             row.update(kernel='optim_multi', instance=res['instance'],
                        case=res['case'], library_is=res['library_is'],
                        library_computes=res['library_computes'])
+        if 'in_dtypes' in res:
+            # C11's bf16 instances (optim_bf16_case)
+            row.update(instance=res['instance'] + ' bf16', case=res['case'],
+                       in_dtypes=res['in_dtypes'],
+                       library_is=res['library_is'])
         if name == 'embedding_gather' and kern.get('gather_ctr'):
             row['ctr_cases'] = {
                 k: {f: r[f] for f in ('V', 'D', 'N', 'ms', 'plain_ms',

@@ -315,7 +315,7 @@ def _plan_kernels(ops, env, amp):
     """Run `ops` on `meta` tensors shaped like `env`'s, so that each
     fused_elementwise op builds its generated-kernel plan for the card
     (ops/fused.py): all of them are known before the first launch, which
-    compiles their sources in one nvcc call.  `__backward__` only gives
+    compiles their sources in one build.  `__backward__` only gives
     each gradient its parameter's shape."""
     menv = {n: _meta(t) for n, t in env.items()}
     for op in ops:

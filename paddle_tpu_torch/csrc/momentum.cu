@@ -34,18 +34,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "jnp_dtypes.cuh"
+
 namespace {
+
+using namespace jnp;
 
 constexpr int CHUNK = 4096;  // elements per block (ops/optimizer_ops.py)
 constexpr int THREADS = 256;
 
+// T float: the float32 instance's IEEE operations; T J: jnp's dtypes
+template <class T>
 struct Update {
-  float mu, lr;
+  T lr;
+  W mu;
   bool nesterov;
-  __device__ __forceinline__ void step(float& p, float g, float& v) const {
-    v = __fadd_rn(__fmul_rn(mu, v), g);
-    const float d = nesterov ? __fadd_rn(g, __fmul_rn(mu, v)) : v;
-    p = __fsub_rn(p, __fmul_rn(lr, d));
+  __device__ __forceinline__ void step(T& p, T g, T& v) const {
+    v = add(mul(wk(mu, v), v), g);
+    const T d = nesterov ? add(g, mul(wk(mu, v), v)) : v;
+    p = sub(p, mul(lr, d));
   }
 };
 
@@ -60,7 +67,8 @@ momentum_kernel(const long long* __restrict__ table,
   float* v = (float*)t[1];
   const long long n = t[2];
   const float* g = (const float*)step[2 * ti];
-  const Update u{mu, *(const float*)step[2 * ti + 1], nesterov != 0};
+  const Update<float> u{*(const float*)step[2 * ti + 1], W{mu, mu},
+                        nesterov != 0};
   const long long start = (entry & 0xffffffffLL) * CHUNK;
   const long long end = min(n, start + CHUNK);
   long long i = start + threadIdx.x;
@@ -88,6 +96,53 @@ momentum_kernel(const long long* __restrict__ table,
   }
 }
 
+// ------------------------------------------------- any operand in bf16
+//
+// momentum_bf16_kernel: the instance for tensors of which any of the
+// param, the grad or the velocity is bf16, adam_bf16_kernel's design
+// (adam.cu).  It computes in float32 and rounds where the reference's jnp
+// rounds (jnp_dtypes.cuh): each operation to its operands' promoted dtype,
+// mu first to the dtype of the array it meets:
+//
+//   v' = R_C(R_V(R_V(mu) v) + g)           C = promote(V, G)
+//   p' = p - lr R_C(g + R_C(R_C(mu) v'))   (nesterov; float32)
+//   p' = p - lr v'                         (else; float32)
+//
+// The float32 learning rate makes p' float32 whatever p's dtype, so p'
+// and a promoted velocity go to new tensors (the table's out pointers),
+// as the reference's outputs take the new dtype; an output of its input's
+// dtype is its input.  The table has 5 entries a tensor: p, v, the
+// element count, the out pointers of p and v; then the chunks as above.
+// The dtypes are flags of the launch (one launch per combination): bit 0
+// p, 1 g, 2 v, 3 p out, 4 v out bf16.  Element-wise loads and stores.
+
+__global__ void __launch_bounds__(THREADS)
+momentum_bf16_kernel(const long long* __restrict__ table,
+                     const long long* __restrict__ step, int n_tensors,
+                     W mu, int nesterov, unsigned flags) {
+  const long long entry = table[5 * (long long)n_tensors + blockIdx.x];
+  const long long ti = entry >> 32;
+  const long long* t = table + 5 * ti;
+  const void* p = (const void*)t[0];
+  const void* v = (const void*)t[1];
+  const long long n = t[2];
+  void* po = (void*)t[3];
+  void* vo = (void*)t[4];
+  const void* g = (const void*)step[2 * ti];
+  const bool fp = flags & 1, fg = flags & 2, fv = flags & 4,
+             fpo = flags & 8, fvo = flags & 16;
+  const Update<J> u{J{*(const float*)step[2 * ti + 1], false}, mu,
+                    nesterov != 0};
+  const long long start = (entry & 0xffffffffLL) * CHUNK;
+  const long long end = min(n, start + CHUNK);
+  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
+    J pe = val(p, i, fp), ve = val(v, i, fv);
+    u.step(pe, val(g, i, fg), ve);
+    jnp::st(po, i, pe.v, fpo);
+    jnp::st(vo, i, ve.v, fvo);
+  }
+}
+
 }  // namespace
 
 // table, step: the int64 device tables above; mu is the op's attribute
@@ -101,5 +156,19 @@ extern "C" int pt_momentum_multi(const void* table, const void* step,
   momentum_kernel<<<n_chunks, THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)table, (const long long*)step, n_tensors, mu,
       nesterov);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 instance (momentum_bf16_kernel): table with 5 entries a
+// tensor, step as above; mu_f and mu_h the attribute rounded to float32
+// and to bf16; flags as above.  Returns as pt_momentum_multi.
+extern "C" int pt_momentum_multi_bf16(const void* table, const void* step,
+                                      int n_tensors, int n_chunks,
+                                      float mu_f, float mu_h, int nesterov,
+                                      int flags, void* stream) {
+  if (n_tensors < 1 || n_chunks < 1) return -1;
+  momentum_bf16_kernel<<<n_chunks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const long long*)table, (const long long*)step, n_tensors,
+      W{mu_f, mu_h}, nesterov, (unsigned)flags);
   return (int)cudaGetLastError();
 }

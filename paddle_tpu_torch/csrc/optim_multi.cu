@@ -55,145 +55,165 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "jnp_dtypes.cuh"
+
 namespace {
+
+using namespace jnp;
 
 constexpr int CHUNK = 4096;  // elements per block (ops/optimizer_ops.py)
 constexpr int THREADS = 256;
 constexpr int HEAD = 5;      // state table entries per tensor
 constexpr int STEP = 3;      // step table entries per tensor
 
-__device__ __forceinline__ float rd(const long long p) {
-  return *(const float*)p;
-}
-__device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
-// jnp.maximum: NaN propagates
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
+// the instance's constants c0..c3, each rounded to float32 and to bf16
 struct Consts {
-  float c0, c1, c2, c3;
+  W c0, c1, c2, c3;
 };
 
+// The update functors, on T float (the float32 instances' IEEE
+// operations) or T J (jnp's dtypes, the bf16 instances): `prep` takes the
+// learning rate and the scalar input (adamax's Beta1Pow) as values of T.
+template <class T>
 struct Sgd {
   static constexpr int NS = 0;
-  float lr;
-  __device__ void prep(const long long* st, const Consts&) { lr = rd(st[1]); }
-  __device__ void step(float& p, float g, float&, float&, float&) const {
-    p = __fsub_rn(p, __fmul_rn(lr, g));
+  T lr;
+  __device__ void prep(T lr_, T, const Consts&) { lr = lr_; }
+  __device__ void step(T& p, T g, T&, T&, T&) const {
+    p = sub(p, mul(lr, g));
   }
 };
 
 // adagrad (DECAYED false: c0 eps) and decayed_adagrad (c0 decay,
 // c1 1 - decay, c2 eps)
-template <bool DECAYED>
+template <class T, bool DECAYED>
 struct Adagrad {
   static constexpr int NS = 1;
-  float lr, d, omd, eps;
-  __device__ void prep(const long long* st, const Consts& c) {
-    lr = rd(st[1]);
+  T lr;
+  W d, omd, eps;
+  __device__ void prep(T lr_, T, const Consts& c) {
+    lr = lr_;
     d = c.c0;
     omd = c.c1;
     eps = DECAYED ? c.c2 : c.c0;
   }
-  __device__ void step(float& p, float g, float& m, float&, float&) const {
-    m = DECAYED ? __fadd_rn(__fmul_rn(d, m), __fmul_rn(omd, sq(g)))
-                : __fadd_rn(m, sq(g));
-    p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, g),
-                               __fadd_rn(__fsqrt_rn(m), eps)));
+  __device__ void step(T& p, T g, T& m, T&, T&) const {
+    const T gg = mul(g, g);
+    m = DECAYED ? add(mul(wk(d, m), m), mul(wk(omd, gg), gg)) : add(m, gg);
+    const T s = sqrt_(m);
+    p = sub(p, div(mul(lr, g), add(s, wk(eps, s))));
   }
 };
+template <class T>
+using Adagrad0 = Adagrad<T, false>;
+template <class T>
+using Adagrad1 = Adagrad<T, true>;
 
 // c0 beta1, c1 1 - beta1, c2 beta2, c3 eps
+template <class T>
 struct Adamax {
   static constexpr int NS = 2;
-  float lr_t, b1, omb1, b2, eps;
-  __device__ void prep(const long long* st, const Consts& c) {
-    lr_t = __fdiv_rn(rd(st[1]), __fsub_rn(1.f, rd(st[2])));
+  T lr_t;
+  W b1, omb1, b2, eps;
+  __device__ void prep(T lr, T b1p, const Consts& c) {
+    lr_t = div(lr, sub(wk(W{1.f, 1.f}, b1p), b1p));
     b1 = c.c0;
     omb1 = c.c1;
     b2 = c.c2;
     eps = c.c3;
   }
-  __device__ void step(float& p, float g, float& m, float& u, float&) const {
-    m = __fadd_rn(__fmul_rn(b1, m), __fmul_rn(omb1, g));
-    u = nanmax(__fmul_rn(b2, u), fabsf(g));
-    p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr_t, m), __fadd_rn(u, eps)));
+  __device__ void step(T& p, T g, T& m, T& u, T&) const {
+    m = add(mul(wk(b1, m), m), mul(wk(omb1, g), g));
+    u = max_(mul(wk(b2, u), u), abs_(g));
+    p = sub(p, div(mul(lr_t, m), add(u, wk(eps, u))));
   }
 };
 
 // c0 rho, c1 1 - rho, c2 eps
+template <class T>
 struct Adadelta {
   static constexpr int NS = 2;
-  float rho, omr, eps;
-  __device__ void prep(const long long*, const Consts& c) {
+  W rho, omr, eps;
+  __device__ void prep(T, T, const Consts& c) {
     rho = c.c0;
     omr = c.c1;
     eps = c.c2;
   }
-  __device__ void step(float& p, float g, float& ag, float& au,
-                       float&) const {
-    ag = __fadd_rn(__fmul_rn(rho, ag), __fmul_rn(omr, sq(g)));
-    const float x = -__fmul_rn(
-        __fsqrt_rn(__fdiv_rn(__fadd_rn(au, eps), __fadd_rn(ag, eps))), g);
-    au = __fadd_rn(__fmul_rn(rho, au), __fmul_rn(omr, sq(x)));
-    p = __fadd_rn(p, x);
+  __device__ void step(T& p, T g, T& ag, T& au, T&) const {
+    const T gg = mul(g, g);
+    ag = add(mul(wk(rho, ag), ag), mul(wk(omr, gg), gg));
+    const T x = mul(neg(sqrt_(div(add(au, wk(eps, au)),
+                                  add(ag, wk(eps, ag))))), g);
+    const T xx = mul(x, x);
+    au = add(mul(wk(rho, au), au), mul(wk(omr, xx), xx));
+    p = add(p, x);
   }
 };
 
 // c0 rho, c1 1 - rho, c2 eps, c3 momentum; states mean square, moment and
 // (CENTERED) mean grad
-template <bool CENTERED>
+template <class T, bool CENTERED>
 struct Rmsprop {
   static constexpr int NS = CENTERED ? 3 : 2;
-  float lr, rho, omr, eps, mu;
-  __device__ void prep(const long long* st, const Consts& c) {
-    lr = rd(st[1]);
+  T lr;
+  W rho, omr, eps, mu;
+  __device__ void prep(T lr_, T, const Consts& c) {
+    lr = lr_;
     rho = c.c0;
     omr = c.c1;
     eps = c.c2;
     mu = c.c3;
   }
-  __device__ void step(float& p, float g, float& ms, float& mom,
-                       float& mg) const {
-    ms = __fadd_rn(__fmul_rn(rho, ms), __fmul_rn(omr, sq(g)));
-    float den = ms;
+  __device__ void step(T& p, T g, T& ms, T& mom, T& mg) const {
+    const T gg = mul(g, g);
+    ms = add(mul(wk(rho, ms), ms), mul(wk(omr, gg), gg));
+    T den = ms;
     if (CENTERED) {
-      mg = __fadd_rn(__fmul_rn(rho, mg), __fmul_rn(omr, g));
-      den = __fsub_rn(ms, sq(mg));
+      mg = add(mul(wk(rho, mg), mg), mul(wk(omr, g), g));
+      den = sub(ms, mul(mg, mg));
     }
-    mom = __fadd_rn(__fmul_rn(mu, mom),
-                    __fdiv_rn(__fmul_rn(lr, g), __fsqrt_rn(__fadd_rn(den, eps))));
-    p = __fsub_rn(p, mom);
+    mom = add(mul(wk(mu, mom), mom),
+              div(mul(lr, g), sqrt_(add(den, wk(eps, den)))));
+    p = sub(p, mom);
   }
 };
+template <class T>
+using Rmsprop0 = Rmsprop<T, false>;
+template <class T>
+using Rmsprop1 = Rmsprop<T, true>;
 
 // c0 l1 + 1e-10, c1 l2 + 1e-10, c2 -lr_power (POW only)
-template <bool POW>
+template <class T, bool POW>
 struct Ftrl {
   static constexpr int NS = 2;
-  float lr, l1, l2, e;
-  __device__ void prep(const long long* st, const Consts& c) {
-    lr = rd(st[1]);
+  T lr;
+  W l1, l2, e;
+  __device__ void prep(T lr_, T, const Consts& c) {
+    lr = lr_;
     l1 = c.c0;
     l2 = c.c1;
     e = c.c2;
   }
-  __device__ float root(float x) const {
-    return POW ? powf(x, e) : __fsqrt_rn(x);
-  }
-  __device__ void step(float& p, float g, float& n, float& z, float&) const {
-    const float nn = __fadd_rn(n, sq(g));
-    const float a = root(nn);
-    const float sigma = __fdiv_rn(__fsub_rn(a, root(n)), lr);
-    z = __fsub_rn(__fadd_rn(z, g), __fmul_rn(sigma, p));
-    const float den = __fadd_rn(l2, __fdiv_rn(a, lr));
-    p = fabsf(z) > l1
-            ? __fdiv_rn(__fsub_rn(z > 0.f ? l1 : -l1, z), den)
-            : 0.f;
+  __device__ T root(T x) const { return POW ? pow_(x, wk(e, x)) : sqrt_(x); }
+  __device__ void step(T& p, T g, T& n, T& z, T&) const {
+    const T nn = add(n, mul(g, g));
+    const T a = root(nn);
+    const T sigma = div(sub(a, root(n)), lr);
+    z = sub(add(z, g), mul(sigma, p));
+    const T al = div(a, lr);
+    const T den = add(wk(l2, al), al);
+    // jnp.where(|z'| > l1, (l1 sign(z') - z') / den, zeros_like(p))
+    const T l1z = wk(l1, z);
+    p = where_(fabsf(value(z)) > value(l1z),
+               div(sub(value(z) > 0.f ? l1z : neg(l1z), z), den),
+               wk(W{0.f, 0.f}, p));
     n = nn;
   }
 };
+template <class T>
+using Ftrl0 = Ftrl<T, false>;
+template <class T>
+using Ftrl1 = Ftrl<T, true>;
 
 template <class Op>
 __global__ void __launch_bounds__(THREADS)
@@ -207,9 +227,11 @@ optim_kernel(const long long* __restrict__ table,
   float* s1 = (float*)t[2];
   float* s2 = (float*)t[3];
   const long long n = t[4];
-  const float* g = (const float*)step[STEP * ti];
+  const long long* st = step + STEP * ti;
+  const float* g = (const float*)st[0];
   Op op;
-  op.prep(step + STEP * ti, c);
+  op.prep(st[1] ? *(const float*)st[1] : 0.f,
+          st[2] ? *(const float*)st[2] : 0.f, c);
   const long long start = (entry & 0xffffffffLL) * CHUNK;
   const long long end = min(n, start + CHUNK);
   long long i = start + threadIdx.x;
@@ -250,12 +272,82 @@ optim_kernel(const long long* __restrict__ table,
   }
 }
 
+// ------------------------------------------------- any operand in bf16
+//
+// optim_bf16_kernel: the instance for tensors of which any of the param,
+// the grad, the state arrays or adamax's Beta1Pow is bf16, adam.cu's
+// adam_bf16_kernel design.  The same functor on J values (jnp_dtypes.cuh):
+// each operation rounded to its operands' promoted dtype, each constant
+// first to the dtype of the array it meets.  The float32 learning rate
+// makes p' float32 wherever it enters the update (all but adadelta), and
+// rmsprop's moment and ftrl's linear accumulator float32 with it; each
+// output whose dtype is not its input's goes to a new tensor (the table's
+// out pointers: ops/optimizer_ops.py _optim_dtypes gives the dtypes).
+// The table has 2 HEAD - 1 entries a tensor: the param and three state
+// pointers, the element count, the out pointers of the param and the
+// three states; then the chunks as above.  Flags (one launch per dtype
+// combination): bit 0 param, 1 grad, 2-4 states, 5 Beta1Pow, 6 param out,
+// 7-9 state outs bf16.  Element-wise loads and stores.
+
 template <class Op>
-int launch(const void* table, const void* step, int n_tensors, int n_chunks,
-           Consts c, cudaStream_t stream) {
-  optim_kernel<Op><<<n_chunks, THREADS, 0, stream>>>(
-      (const long long*)table, (const long long*)step, n_tensors, c);
+__global__ void __launch_bounds__(THREADS)
+optim_bf16_kernel(const long long* __restrict__ table,
+                  const long long* __restrict__ step, int n_tensors,
+                  Consts c, unsigned f) {
+  constexpr int H = 2 * HEAD - 1;
+  const long long entry = table[H * (long long)n_tensors + blockIdx.x];
+  const long long ti = entry >> 32;
+  const long long* t = table + H * ti;
+  const long long n = t[HEAD - 1];
+  const long long* st = step + STEP * ti;
+  const void* g = (const void*)st[0];
+  Op op;
+  op.prep(J{st[1] ? *(const float*)st[1] : 0.f, false},
+          st[2] ? val((const void*)st[2], 0, f & 32) : J{0.f, false}, c);
+  const long long start = (entry & 0xffffffffLL) * CHUNK;
+  const long long end = min(n, start + CHUNK);
+  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
+    J pe = val((const void*)t[0], i, f & 1);
+    J a = Op::NS > 0 ? val((const void*)t[1], i, f & 4) : J{0.f, false};
+    J b = Op::NS > 1 ? val((const void*)t[2], i, f & 8) : J{0.f, false};
+    J d = Op::NS > 2 ? val((const void*)t[3], i, f & 16) : J{0.f, false};
+    op.step(pe, val(g, i, f & 2), a, b, d);
+    jnp::st((void*)t[HEAD], i, pe.v, f & 64);
+    if (Op::NS > 0) jnp::st((void*)t[HEAD + 1], i, a.v, f & 128);
+    if (Op::NS > 1) jnp::st((void*)t[HEAD + 2], i, b.v, f & 256);
+    if (Op::NS > 2) jnp::st((void*)t[HEAD + 3], i, d.v, f & 512);
+  }
+}
+
+template <template <class> class Op>
+int launch(bool bf16, const void* table, const void* step, int n_tensors,
+           int n_chunks, Consts c, unsigned flags, cudaStream_t stream) {
+  if (bf16)
+    optim_bf16_kernel<Op<J>><<<n_chunks, THREADS, 0, stream>>>(
+        (const long long*)table, (const long long*)step, n_tensors, c,
+        flags);
+  else
+    optim_kernel<Op<float>><<<n_chunks, THREADS, 0, stream>>>(
+        (const long long*)table, (const long long*)step, n_tensors, c);
   return (int)cudaGetLastError();
+}
+
+int dispatch(int kind, bool bf16, const void* table, const void* step,
+             int n_tensors, int n_chunks, Consts c, unsigned flags,
+             cudaStream_t s) {
+  if (n_tensors < 1 || n_chunks < 1) return -1;
+  switch (kind) {
+    case 0: return launch<Sgd>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 1: return launch<Adagrad0>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 2: return launch<Adagrad1>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 3: return launch<Adamax>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 4: return launch<Adadelta>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 5: return launch<Rmsprop0>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 6: return launch<Rmsprop1>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 7: return launch<Ftrl0>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    case 8: return launch<Ftrl1>(bf16, table, step, n_tensors, n_chunks, c, flags, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -269,19 +361,22 @@ int launch(const void* table, const void* step, int n_tensors, int n_chunks,
 extern "C" int pt_optim_multi(int kind, const void* table, const void* step,
                               int n_tensors, int n_chunks, float c0, float c1,
                               float c2, float c3, void* stream) {
-  if (n_tensors < 1 || n_chunks < 1) return -1;
-  const Consts c{c0, c1, c2, c3};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
-    case 0: return launch<Sgd>(table, step, n_tensors, n_chunks, c, s);
-    case 1: return launch<Adagrad<false>>(table, step, n_tensors, n_chunks, c, s);
-    case 2: return launch<Adagrad<true>>(table, step, n_tensors, n_chunks, c, s);
-    case 3: return launch<Adamax>(table, step, n_tensors, n_chunks, c, s);
-    case 4: return launch<Adadelta>(table, step, n_tensors, n_chunks, c, s);
-    case 5: return launch<Rmsprop<false>>(table, step, n_tensors, n_chunks, c, s);
-    case 6: return launch<Rmsprop<true>>(table, step, n_tensors, n_chunks, c, s);
-    case 7: return launch<Ftrl<false>>(table, step, n_tensors, n_chunks, c, s);
-    case 8: return launch<Ftrl<true>>(table, step, n_tensors, n_chunks, c, s);
-    default: return -1;
-  }
+  const Consts c{W{c0, c0}, W{c1, c1}, W{c2, c2}, W{c3, c3}};
+  return dispatch(kind, false, table, step, n_tensors, n_chunks, c, 0u,
+                  (cudaStream_t)stream);
+}
+
+// The bf16 instances (optim_bf16_kernel): kind as above, table with
+// 2 HEAD - 1 entries a tensor, step as above, c0..c3 the constants
+// rounded to float32 and h0..h3 the same rounded to bf16, flags as above.
+// Returns as pt_optim_multi.
+extern "C" int pt_optim_multi_bf16(int kind, const void* table,
+                                   const void* step, int n_tensors,
+                                   int n_chunks, float c0, float c1,
+                                   float c2, float c3, float h0, float h1,
+                                   float h2, float h3, int flags,
+                                   void* stream) {
+  const Consts c{W{c0, h0}, W{c1, h1}, W{c2, h2}, W{c3, h3}};
+  return dispatch(kind, true, table, step, n_tensors, n_chunks, c,
+                  (unsigned)flags, (cudaStream_t)stream);
 }

@@ -19,12 +19,14 @@ __all__ = ['library', 'launches', 'reset_launches', 'check']
 launches = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'embedding_gather': 0,
             'layer_norm': 0, 'adam_multi': 0, 'adam_multi_bf16': 0,
-            'momentum_multi': 0, 'softmax': 0,
+            'momentum_multi': 0, 'momentum_multi_bf16': 0, 'softmax': 0,
             'kernelgen_segment': 0, 'flash_attention_composed': 0}
-# csrc/optim_multi.cu: one counter an instance (ops/optimizer_ops.py _KINDS)
-launches.update({k + '_multi': 0 for k in (
+# csrc/optim_multi.cu: one counter an instance (ops/optimizer_ops.py
+# _KINDS), its float32 one and its bf16 one
+launches.update({k + s: 0 for k in (
     'sgd', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta', 'rmsprop',
-    'rmsprop_centered', 'ftrl', 'ftrl_pow')})
+    'rmsprop_centered', 'ftrl', 'ftrl_pow') for s in ('_multi',
+                                                      '_multi_bf16')})
 
 
 def reset_launches():

@@ -7,11 +7,11 @@ so a changed source rebuilds and an unchanged one loads at once.  The
 sources compile in parallel, one `nvcc` per file, and link once.  A
 failing `nvcc` raises with its output.
 
-`build_generated(source)` is the second path: the CUDA C++ the kernel
-generator (ops/kernelgen) wrote for one program's fused segments, one
-file under `_build/kernelgen/`, compiled and linked by one `nvcc` call
-with the same ARCH and FLAGS, named by a hash of the source, the flags
-and the `csrc` digest.
+`build_generated(sources)` is the second path: the CUDA C++ the kernel
+generator (ops/kernelgen) wrote for a program's fused segments, in a few
+translation units compiled in parallel (one `nvcc` each, the same ARCH
+and FLAGS) and linked into one library under `_build/kernelgen/`, named
+by a hash of the sources, the flags and the `csrc` digest.
 
     python -m paddle_tpu_torch.kernels.build     # build, print the log
 """
@@ -107,11 +107,15 @@ def build():
     return lib_path
 
 
-def build_generated(source):
-    """Compile one generated CUDA source into a shared library (one nvcc
-    call, cached by hash); -> (library path, nvcc output, seconds spent
-    compiling, 0.0 when the library was there)."""
-    h = hashlib.sha256(source.encode())
+def build_generated(sources):
+    """Compile generated CUDA sources (one, or a list of whole
+    translation units) into one shared library, cached by hash: one nvcc
+    a source, all started together, then one link.  -> (library path,
+    nvcc output, seconds spent compiling, 0.0 when the library was
+    there)."""
+    if isinstance(sources, str):
+        sources = [sources]
+    h = hashlib.sha256('\0'.join(sources).encode())
     h.update(_digest().encode())
     tag = h.hexdigest()[:16]
     out_dir = os.path.join(BUILD_DIR, 'kernelgen')
@@ -120,22 +124,40 @@ def build_generated(source):
         return lib_path, '', 0.0
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, 'kernelgen_%s.cu' % tag)
-    with open(src + '.tmp', 'w') as f:
-        f.write(source)
-    os.replace(src + '.tmp', src)
-    tmp_lib = lib_path + '.%d.tmp' % os.getpid()
+    work = tempfile.mkdtemp(prefix='kg_%s_' % tag, dir=out_dir)
     t0 = time.time()
-    res = subprocess.run([nvcc] + ARCH + FLAGS + ['-shared', '-o', tmp_lib,
-                                                  src],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    seconds = time.time() - t0
-    log = res.stdout.decode(errors='replace')
-    if res.returncode != 0:
-        raise RuntimeError('nvcc failed on the generated kernels %s:\n%s'
-                           % (src, log))
-    os.replace(tmp_lib, lib_path)
-    return lib_path, log, seconds
+    try:
+        procs = []
+        for k, source in enumerate(sources):
+            # the sources stay beside the library, for reading
+            src = os.path.join(out_dir, 'kernelgen_%s_%d.cu' % (tag, k))
+            with open(src + '.tmp', 'w') as f:
+                f.write(source)
+            os.replace(src + '.tmp', src)
+            obj = os.path.join(work, os.path.basename(src) + '.o')
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc] + ARCH + FLAGS + ['-c', src, '-o', obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, obj, p in procs:
+            logs.append(p.communicate()[0].decode(errors='replace'))
+            if p.returncode != 0:
+                failed.append(src)
+        log = '\n'.join(logs)
+        if failed:
+            raise RuntimeError('nvcc failed on the generated kernels %s:\n%s'
+                               % (', '.join(failed), log))
+        tmp_lib = os.path.join(work, 'lib.so')
+        res = subprocess.run([nvcc] + ARCH + ['-shared', '-o', tmp_lib] +
+                             [obj for _, obj, _ in procs],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if res.returncode != 0:
+            raise RuntimeError('nvcc link of the generated kernels failed:\n%s'
+                               % res.stdout.decode(errors='replace'))
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path, log, time.time() - t0
 
 
 def build_log():
@@ -178,8 +200,12 @@ def _bind(lib):
     lib.pt_adam_multi_bf16.restype = i
     lib.pt_momentum_multi.argtypes = [p, p, i, i, f, i, p]
     lib.pt_momentum_multi.restype = i
+    lib.pt_momentum_multi_bf16.argtypes = [p, p, i, i, f, f, i, i, p]
+    lib.pt_momentum_multi_bf16.restype = i
     lib.pt_optim_multi.argtypes = [i, p, p, i, i, f, f, f, f, p]
     lib.pt_optim_multi.restype = i
+    lib.pt_optim_multi_bf16.argtypes = [i, p, p, i, i] + [f] * 8 + [i, p]
+    lib.pt_optim_multi_bf16.restype = i
     lib.pt_softmax.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.pt_softmax.restype = i
     lib.pt_error_string.argtypes = [i]

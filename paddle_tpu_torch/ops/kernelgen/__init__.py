@@ -10,8 +10,8 @@ and a failing nvcc or launch raises.  The port has no `PT_KERNELGEN` switch;
 `PT_OPT=0` (no fusion) is the only way to run unfused.
 
 The generated functions of every plan made so far that are not built yet
-compile together, in one nvcc call, at the first launch that needs one
-of them (`ensure_built`); the executor's planning pass makes all of a
+compile together, in up to 8 nvcc calls run in parallel and one link,
+at the first launch that needs one of them (`ensure_built`); the executor's planning pass makes all of a
 program's plans before its first launch.  `launches` counts the
 launches of each generated function; `build_stats` the builds.
 
@@ -34,7 +34,7 @@ from .builder import (SOURCES, KernelgenUnsupported, avals_of, clear_plans,
 __all__ = ['KERNEL_RULES', 'KernelgenUnsupported', 'run_fused', 'plan_for',
            'clear_plan_cache', 'avals_of', 'unsupported_sub_ops',
            'ensure_built', 'generated_source', 'launches', 'build_stats',
-           'plan_of']
+           'plan_of', 'vector_groups']
 
 # launches of each generated function, by name
 launches = {}
@@ -142,60 +142,146 @@ __device__ __forceinline__ void kg_st(bool* p, long long i, bool v) {
   p[i] = v;
 }
 
-// V consecutive elements from i: one 128-bit access for four float32 or
-// int32 values, 64 bits for four bfloat16 (the launcher checks alignment)
-template <int V, typename M, typename R>
-__device__ __forceinline__ void kg_ldv(R (&d)[V], const M* p, long long i) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) d[j] = kg_ld(p, i + j);
-}
-template <>
-__device__ __forceinline__ void kg_ldv<4, float, float>(float (&d)[4],
-                                                        const float* p,
-                                                        long long i) {
-  const float4 t = *reinterpret_cast<const float4*>(p + i);
-  d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
-}
-template <>
-__device__ __forceinline__ void kg_ldv<4, int, int>(int (&d)[4],
-                                                    const int* p,
-                                                    long long i) {
-  const int4 t = *reinterpret_cast<const int4*>(p + i);
-  d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
-}
-template <>
-__device__ __forceinline__ void kg_ldv<4, __nv_bfloat16, float>(
-    float (&d)[4], const __nv_bfloat16* p, long long i) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p + i);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
-  d[0] = __bfloat162float(h[0]); d[1] = __bfloat162float(h[1]);
-  d[2] = __bfloat162float(h[2]); d[3] = __bfloat162float(h[3]);
+// a broadcast operand's element; F false: nothing for a vector's lanes
+// past its group's end
+template <bool F, typename M>
+__device__ __forceinline__ auto kg_ldb(const M* p, long long i, bool ok)
+    -> decltype(kg_ld(p, i)) {
+  return F || ok ? kg_ld(p, i) : decltype(kg_ld(p, i))();
 }
 
-template <int V, typename M, typename R>
-__device__ __forceinline__ void kg_stv(M* p, long long i, const R (&v)[V]) {
+// 16 bytes of memory as four 32-bit words: PER elements of M, each
+// element k converted to and from its register type
+template <typename M>
+struct kg_mem;
+template <>
+struct kg_mem<float> {
+  static constexpr int PER = 4;
+  static __device__ __forceinline__ float get(const unsigned (&w)[4],
+                                              int k) {
+    return __uint_as_float(w[k]);
+  }
+  static __device__ __forceinline__ void put(unsigned (&w)[4], int k,
+                                             float v) {
+    w[k] = __float_as_uint(v);
+  }
+};
+template <>
+struct kg_mem<int> {
+  static constexpr int PER = 4;
+  static __device__ __forceinline__ int get(const unsigned (&w)[4], int k) {
+    return (int)w[k];
+  }
+  static __device__ __forceinline__ void put(unsigned (&w)[4], int k,
+                                             int v) {
+    w[k] = (unsigned)v;
+  }
+};
+template <>
+struct kg_mem<__nv_bfloat16> {
+  static constexpr int PER = 8;
+  static __device__ __forceinline__ float get(const unsigned (&w)[4],
+                                              int k) {
+    return __uint_as_float((k & 1 ? w[k >> 1] >> 16 : w[k >> 1]) << 16);
+  }
+  static __device__ __forceinline__ void put(unsigned (&w)[4], int k,
+                                             float v) {
+    const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    w[k >> 1] = k & 1 ? (w[k >> 1] & 0xffffu) | (h << 16) : h;
+  }
+};
+template <>
+struct kg_mem<bool> {
+  static constexpr int PER = 16;
+  static __device__ __forceinline__ bool get(const unsigned (&w)[4], int k) {
+    return (w[k >> 2] >> (8 * (k & 3))) & 0xffu;
+  }
+  static __device__ __forceinline__ void put(unsigned (&w)[4], int k,
+                                             bool v) {
+    const unsigned b = (unsigned)v << (8 * (k & 3));
+    w[k >> 2] = (k & 3) ? w[k >> 2] | b : b;
+  }
+};
+
+// one access of B bytes (4, 8 or 16): its type, and its 32-bit words
+template <int B>
+struct kg_acc;
+template <>
+struct kg_acc<16> {
+  typedef uint4 T;
+  static __device__ __forceinline__ void words(const T& t,
+                                               unsigned (&w)[4]) {
+    w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+  }
+  static __device__ __forceinline__ T make(const unsigned (&w)[4]) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <>
+struct kg_acc<8> {
+  typedef uint2 T;
+  static __device__ __forceinline__ void words(const T& t,
+                                               unsigned (&w)[4]) {
+    w[0] = t.x; w[1] = t.y;
+  }
+  static __device__ __forceinline__ T make(const unsigned (&w)[4]) {
+    return make_uint2(w[0], w[1]);
+  }
+};
+template <>
+struct kg_acc<4> {
+  typedef unsigned T;
+  static __device__ __forceinline__ void words(const T& t,
+                                               unsigned (&w)[4]) {
+    w[0] = t;
+  }
+  static __device__ __forceinline__ T make(const unsigned (&w)[4]) {
+    return w[0];
+  }
+};
+
+// V consecutive elements from i.  F: all V in range and the pointer
+// 16-byte aligned, one access of V elements (V is 16 bytes of the group's
+// widest operand, so a narrower one's access is 4 or 8 bytes, each
+// warp-contiguous); otherwise the nv (0..V) in range one at a time.  CS:
+// streaming (__ldcs / __stcs)
+template <int V, bool CS, bool F, typename M, typename R>
+__device__ __forceinline__ void kg_ldv(R (&d)[V], const M* p, long long i,
+                                       int nv) {
+  constexpr int B = V * (16 / kg_mem<M>::PER);
+  typedef typename kg_acc<B>::T T;
+  if (F) {
+    const T* q = reinterpret_cast<const T*>(p + i);
+    const T t = CS ? __ldcs(q) : *q;
+    unsigned w[4];
+    kg_acc<B>::words(t, w);
 #pragma unroll
-  for (int j = 0; j < V; ++j) kg_st(p, i + j, v[j]);
+    for (int k = 0; k < V; ++k) d[k] = kg_mem<M>::get(w, k);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) d[j] = j < nv ? kg_ld(p, i + j) : R();
+  }
 }
-template <>
-__device__ __forceinline__ void kg_stv<4, float, float>(float* p,
-                                                        long long i,
-                                                        const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p + i) = make_float4(v[0], v[1], v[2], v[3]);
-}
-template <>
-__device__ __forceinline__ void kg_stv<4, int, int>(int* p, long long i,
-                                                    const int (&v)[4]) {
-  *reinterpret_cast<int4*>(p + i) = make_int4(v[0], v[1], v[2], v[3]);
-}
-template <>
-__device__ __forceinline__ void kg_stv<4, __nv_bfloat16, float>(
-    __nv_bfloat16* p, long long i, const float (&v)[4]) {
-  uint2 t;
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
-  h[0] = __float2bfloat16_rn(v[0]); h[1] = __float2bfloat16_rn(v[1]);
-  h[2] = __float2bfloat16_rn(v[2]); h[3] = __float2bfloat16_rn(v[3]);
-  *reinterpret_cast<uint2*>(p + i) = t;
+template <int V, bool CS, bool F, typename M, typename R>
+__device__ __forceinline__ void kg_stv(M* p, long long i, const R (&v)[V],
+                                       int nv) {
+  constexpr int B = V * (16 / kg_mem<M>::PER);
+  typedef typename kg_acc<B>::T T;
+  if (F) {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int k = 0; k < V; ++k) kg_mem<M>::put(w, k, v[k]);
+    T* q = reinterpret_cast<T*>(p + i);
+    const T t = kg_acc<B>::make(w);
+    if (CS)
+      __stcs(q, t);
+    else
+      *q = t;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (j < nv) kg_st(p, i + j, v[j]);
+  }
 }
 
 }  // namespace
@@ -236,20 +322,24 @@ def generated_source(names=None):
 
 
 def ensure_built():
-    """Compile every planned generated function not built yet (one nvcc
-    call) and bind its launcher."""
+    """Compile every planned generated function not built yet (one
+    build_generated: up to 8 nvcc calls in parallel, one link) and bind
+    its launcher."""
     with _lock:
         pending = sorted(n for n in SOURCES if n not in _FUNCS)
         if not pending:
             return
         from ...kernels.build import build_generated
-        path, log, seconds = build_generated(generated_source(pending))
+        # up to 8 translation units, compiled in parallel; the split
+        # depends on the sources alone, so the library's cache key does
+        n = max(1, min(8, len(pending) // 4))
+        path, log, seconds = build_generated(
+            [generated_source(pending[k::n]) for k in range(n)])
         lib = ctypes.CDLL(path)
         _LIBS.append(lib)
         for n in pending:
             fn = getattr(lib, n + '_launch')
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _FUNCS[n] = fn
         build_stats['builds'] += 1
@@ -274,19 +364,17 @@ def _launch(spec, ents):
                              'got %s on %s' % (spec.name, dt, dev, e.dtype,
                                                e.device))
     ptrs = [t.data_ptr() for t in ents] + [o.data_ptr() for o in outs]
-    # the vector width follows the pointers' alignment: a CUDA graph
-    # (core/graphs.py) fixes both at its capture
-    vec = 4 if spec.vec4_sizes and all(
-        ptrs[ix] % (4 * ents[ix].element_size()) == 0
-        for ix in spec.direct) and all(
-        ptrs[len(ents) + j] % (4 * outs[j].element_size()) == 0
-        for j in spec.out_flat) else 1
     arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+    mask = (ctypes.c_ulonglong * max(1, (len(spec.layout.groups) + 63) //
+                                     64))()
+    for gi, g in enumerate(vector_groups(spec, ptrs)):
+        if g:
+            mask[gi >> 6] |= 1 << (gi & 63)
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            rc = _call(spec, arr, vec, dev)
+            rc = _call(spec, arr, mask, dev)
     else:
-        rc = _call(spec, arr, vec, dev)
+        rc = _call(spec, arr, mask, dev)
     kernels.check(rc, spec.name)
     # a replay runs none of this: core/graphs.py credits its capture's
     # counts once a replay
@@ -295,10 +383,20 @@ def _launch(spec, ents):
     return outs
 
 
-def _call(spec, arr, vec, dev):
+def vector_groups(spec, ptrs):
+    """Whether each group of a segment (spec.layout.groups, in order)
+    runs its 16-byte vector path: every one of its flat pointers
+    (`ptrs`, the launch's inputs then outputs) 16-byte aligned.  A CUDA
+    graph (core/graphs.py) fixes the answer at its capture, with the
+    addresses."""
+    return [all(ptrs[ix] % 16 == 0 for ix in g['ptrs'])
+            for g in spec.layout.groups]
+
+
+def _call(spec, arr, mask, dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return _FUNCS[spec.name](ctypes.cast(arr, ctypes.c_void_p), spec.n_max,
-                             vec, stream)
+    return _FUNCS[spec.name](ctypes.cast(arr, ctypes.c_void_p),
+                             ctypes.cast(mask, ctypes.c_void_p), stream)
 
 
 class _SegmentFn(torch.autograd.Function):
@@ -372,13 +470,15 @@ def _run_momentum(st, mats, ctx):
     for slot in ('Param', 'Velocity'):
         cols[slot] = [t if ip else t.clone()
                       for t, ip in zip(cols[slot], in_place)]
-    momentum_multi(cols['Param'], cols['Grad'], cols['Velocity'],
-                   cols['LearningRate'], *gkey,
-                   cache=getattr(ctx, 'cache', None),
-                   recorder=getattr(ctx, 'recorder', None))
+    # each the tensor updated in place, or a new one where jnp promotes
+    # its dtype
+    new = dict(zip(('Param', 'Velocity'), momentum_multi(
+        cols['Param'], cols['Grad'], cols['Velocity'], cols['LearningRate'],
+        *gkey, cache=getattr(ctx, 'cache', None),
+        recorder=getattr(ctx, 'recorder', None))))
     for k, ob in enumerate(outs):
         for oslot, mid in ob.items():
-            mats[mid] = cols[oslot[:-3]][k]
+            mats[mid] = new[oslot[:-3]][k]
 
 
 def _run_optim(st, mats, ctx):
@@ -393,15 +493,17 @@ def _run_optim(st, mats, ctx):
     written = {slot: [t if ip else t.clone()
                       for t, ip in zip(col(slot), in_place)]
                for slot in ('Param',) + slots}
-    optim_multi(stype, written['Param'], col('Grad'),
-                [written[s] for s in slots], col(scalar) if scalar else None,
-                None if stype == 'adadelta' else col('LearningRate'), key,
-                cache=getattr(ctx, 'cache', None),
-                recorder=getattr(ctx, 'recorder', None))
+    params, arrays = optim_multi(
+        stype, written['Param'], col('Grad'), [written[s] for s in slots],
+        col(scalar) if scalar else None,
+        None if stype == 'adadelta' else col('LearningRate'), key,
+        cache=getattr(ctx, 'cache', None),
+        recorder=getattr(ctx, 'recorder', None))
+    new = dict(zip(slots, arrays), Param=params)
     aliases = OPTIM_SLOTS[stype][1]
     for k, ob in enumerate(outs):
         for oslot, mid in ob.items():
-            mats[mid] = written[aliases[oslot]][k]
+            mats[mid] = new[aliases[oslot]][k]
 
 
 def plan_of(attrs):

@@ -37,18 +37,29 @@ transcription.  The sub-ops partition into steps:
     A maximal run of `ew` and rng-body sub-ops: ONE generated
     `__global__` function (`_emit_segment`).
 
-A generated kernel, for Hopper:
+A generated kernel, for Hopper (`Layout`, `_emit_segment`):
 
-* one thread per output element (V = 4 consecutive elements per thread,
-  with 128-bit loads and stores of float32, when every flat-indexed
-  operand and output is 16-byte aligned and every size divides by 4;
-  else V = 1), one pass over the largest group, no grid-stride loop (a
-  loop keeps every pointer live across it: a global-norm clip's segment
-  holds ~300 and spilled them);
-* values are grouped by flat element count N_g; an op of group g runs
-  under `i < N_g`; size-1 values are computed first by every thread
-  and stored by thread 0, so a scalar chain (the noam learning rate, a
-  clip's global norm) costs nothing to broadcast;
+* values are grouped by flat element count N_g; each group's tile count
+  T_g = ceil(N_g / tile_g) and first block are baked into the source, and
+  the grid is their sum: block b runs one tile of the one group whose
+  blocks hold b (an unrolled comparison chain), so no block runs two
+  groups and only that group's pointers are live in it (a loop over
+  every group kept ~300 pointers of a global-norm clip live and
+  spilled them);
+* a thread runs V consecutive elements of its tile: 16 bytes of the
+  group's widest operand (4 float32 or int32, 8 bf16, 16 bool), its
+  narrower operands in 4- or 8-byte accesses, every access
+  warp-contiguous, where the group's pointers are 16-byte aligned (a
+  bit of the launch's mask, which a CUDA graph fixes at its capture)
+  and the whole vector lies in the group; element by element otherwise
+  (a second copy of the group's body), so only the group that does not
+  divide runs a scalar remainder, in its last tile;
+* 256 threads a block where the largest group fills 256 threads of
+  every SM, else 128; a segment that moves 40-256 MiB (STREAM_BYTES)
+  reads and writes with the streaming hints (`__ldcs` / `__stcs`);
+* size-1 values are computed first by every thread and stored by block
+  0's thread 0, so a scalar chain (the noam learning rate, a clip's
+  global norm) costs nothing to broadcast;
 * a broadcast operand (the (2048,) FFN bias, the [B, 1, 1, T] padding
   mask against [B, H, T, T] scores) is read at an index computed from
   the output's multi-index, with shapes and strides baked into the
@@ -63,8 +74,9 @@ A generated kernel, for Hopper:
   produces before the next sub-op reads it (rules.py), so a generated
   kernel computes what the unfused ops compute.
 
-All functions of the plans a program needs go into one .cu file,
-compiled by one nvcc call (kernels/build.py `build_generated`).
+All functions of the plans a program needs build together: a few .cu
+files compiled by parallel nvcc calls, linked into one library
+(kernels/build.py `build_generated`).
 
 Autograd: each kernel step is a `torch.autograd.Function` whose backward
 replays that segment's sub-ops with their plain torch impls under
@@ -101,7 +113,6 @@ class KernelgenUnsupported(Exception):
 # kernel parameters are at most 4 KB: a segment passes at most this many
 # pointers (its inputs and outputs); a longer run starts a new segment
 MAX_PTRS = 480
-THREADS = 256
 # bool lives in `bool` registers and one byte of memory, as torch stores it
 KERNEL_DTYPES = ('float32', 'bfloat16', 'int32', 'bool')
 _C_MEM = {'float32': 'float', 'bfloat16': '__nv_bfloat16', 'int32': 'int',
@@ -664,8 +675,8 @@ _OPTIMIZERS.update({t: (spec[1], _optim_key)
 # ------------------------------------------------------ CUDA emission
 
 class _KernelSpec(object):
-    """One generated segment: its source, its pointers, and how to replay
-    it in plain PyTorch for the backward."""
+    """One generated segment: its source, its pointers, its tile table,
+    and how to replay it in plain PyTorch for the backward."""
 
     def __init__(self, s, esc, out_mids, amp):
         self.entries = list(s.entries)
@@ -679,17 +690,9 @@ class _KernelSpec(object):
         self.ops = s.ops
         self.keys = dict(s.keys)
         self.esc = list(esc)
-        body = _emit_segment(s, esc)
+        body, self.layout = _emit_segment(s, esc)
         self.name = 'kg_' + hashlib.sha256(body.encode()).hexdigest()[:16]
         SOURCES.setdefault(self.name, body.replace('@NAME@', self.name))
-        # flat-indexed pointers: what V = 4 needs aligned
-        self.direct = [ix for ix, e in enumerate(self.entries)
-                       if e[1] == 'tile']
-        self.out_flat = [j for j, (shape, _) in enumerate(self.esc_aval)
-                         if _size(shape) > 1]
-        # V = 4 needs every group's size to divide by 4 (and alignment,
-        # checked at each launch)
-        self.vec4_sizes = all(g % 4 == 0 for g in self.groups)
 
     def replay(self, entry_vals):
         """The segment's outputs from its entries, through the sub-ops'
@@ -745,8 +748,52 @@ def _c_ptr(dt, const):
     return '%s%s*' % ('const ' if const else '', _C_MEM[dt])
 
 
+# bytes of an element of each kernel dtype in memory
+_SIZE = {'float32': 4, 'bfloat16': 2, 'int32': 4, 'bool': 1}
+# The layout assumes an H100 SXM's 132 streaming multiprocessors.
+SMS = 132
+# A segment that moves more than STREAM_BYTES[0] and at most
+# STREAM_BYTES[1] reads and writes with the streaming hints (__ldcs /
+# __stcs: each element is touched once, keep L2 for others).  A smaller
+# one, which the 50 MB L2 holds, leaves its outputs there for the next
+# kernel; on a larger one, of which L2 keeps nothing, the hints cost
+# 1.5-2.5% (the single-group bf16 streams of 294 MB and more on an H100).
+STREAM_BYTES = (40 << 20, 256 << 20)
+
+
+class Layout(object):
+    """A generated segment's tile table, baked into its source.
+
+    `threads` a block (256 when the largest group has a vector for each
+    of 256 threads of every SM, else 128), `streaming` (STREAM_BYTES),
+    `grid` blocks, and per group, in the order of the source (largest
+    first), a dict: `n` its flat size, `v` its vector width (16 bytes of
+    its widest operand: 4 float32 or int32, 8 bf16, 16 bool), `tile` =
+    threads v elements, `tiles`, `start` its first block, and `ptrs`: the
+    pointers (the kernel's argument indices) its vector path needs
+    16-byte aligned.  Block b runs tile b - start of the one group with
+    start <= b < start + tiles.  `groups`: (flat size, widest element
+    bytes, pointers) a group."""
+
+    def __init__(self, groups, nbytes):
+        vs = [16 // hi for _, hi, _ in groups]
+        vecs = [-(-g[0] // v) for g, v in zip(groups, vs)]
+        self.threads = 256 if vecs and max(vecs) >= 256 * SMS else 128
+        self.streaming = STREAM_BYTES[0] < nbytes <= STREAM_BYTES[1]
+        self.groups = []
+        start = 0
+        for (n, _, ptrs), v in zip(groups, vs):
+            tile = self.threads * v
+            tiles = -(-n // tile)
+            self.groups.append(dict(n=n, v=v, tile=tile, tiles=tiles,
+                                    start=start, ptrs=sorted(ptrs)))
+            start += tiles
+        self.grid = max(start, 1)
+
+
 def _emit_segment(s, esc):
-    """CUDA C++ of one segment, its name left as @NAME@."""
+    """CUDA C++ of one segment, its name left as @NAME@ -> (source,
+    Layout)."""
     from .rules import Unsupported, to_dtype
     n_in = len(s.entries)
     ptrs = [(e[2], True) for e in s.entries] + \
@@ -761,41 +808,59 @@ def _emit_segment(s, esc):
             reg[k] = 'R%d' % len(reg)
         return reg[k]
 
-    # One pass, no grid-stride loop (a loop would keep every pointer live
-    # across it).  Size-1 ops come first; then each group under one
-    # `base < N_g` test, the largest first.  Groups are independent: an op
-    # reads values of its own size or of size 1 (_build_plan flushes
-    # before any other read).  In a group every element a thread holds is
-    # in range (V = 4 only when every N_g divides by 4).  Each op takes
-    # its pointers and loads its flat operands where it first reads them
-    # and stores what escapes right after it, so a thread holds about one
-    # op's registers at a time.
-    pre, by_g, named, loaded = [], {}, {}, set()
+    # Size-1 ops come first: every block computes them, block 0's thread 0
+    # stores them.  Then each group (its ops read values of its own size
+    # or of size 1: _build_plan flushes before any other read) is one
+    # branch, run by its own tiles only: a block runs one tile of one
+    # group, so only that group's pointers are live in it.  A thread of
+    # a tile runs one vector of V elements; each op loads its flat
+    # operands where it first reads them and stores what escapes right
+    # after it, so a thread holds about one op's registers at a time.
+    # The group's body is written twice: for a whole vector on aligned
+    # pointers (F: one access an operand, no bounds), and element by
+    # element for a vector past the group's end (its last tile) or a
+    # group whose pointers are not all 16-byte aligned (the launch's
+    # `vec` bit).
+    pre, by_g, decl, loaded = [], {}, {}, set()
+    g_ptrs = {}                # group size -> its flat pointers
+    for ix, e in enumerate(s.entries):
+        if e[1] == 'tile':
+            g_ptrs.setdefault(_size(s.entry_shape[ix]), set()).add(ix)
+    for j, k in enumerate(esc):
+        n = _size(s.key_aval[k][0])
+        if n > 1:
+            g_ptrs.setdefault(n, set()).add(n_in + j)
 
-    def ptr(k, dst, ind):
-        # declared where first used in its block: outputs are new tensors
-        # (kernelgen._launch), so no pointer aliases one that is written
-        seen = named.setdefault(id(dst), set())
-        if k not in seen:
-            seen.add(k)
+    def ptr(k, g):
+        # declared once in its group's scope (or the size-1 part):
+        # outputs are new tensors (kernelgen._launch), so no pointer
+        # aliases one that is written
+        dst, ind = (decl.setdefault(g, {}), '    ') if g > 1 else \
+            (decl.setdefault(1, {}), '  ')
+        if k not in dst:
             c = _c_ptr(*ptrs[k])
-            dst.append('%s%s __restrict__ P%d = (%s)a.p[%d];'
-                       % (ind, c, k, c, k))
+            dst[k] = '%s%s __restrict__ P%d = (%s)a.p[%d];' % (ind, c, k, c,
+                                                                k)
+            if g == 1:
+                pre.append(dst[k])
         return 'P%d' % k
 
     for ix, (mid, kind, dt, idx) in enumerate(s.entries):
         if kind == 'scalar':
             pre.append('  const %s S%d = kg_ld(%s, 0);'
-                       % (_C_VAL[dt], ix, ptr(ix, pre, '  ')))
+                       % (_C_VAL[dt], ix, ptr(ix, 1)))
     for sub, rule, in_ops, out_keys, g, _ in s.ops:
-        dst = pre if g == 1 else by_g.setdefault(g, [])
-        ind = '  ' if g == 1 else '    '
+        flat = g > 1
+        dst = by_g.setdefault(g, []) if flat else pre
+        ind = '      ' if flat else '  '
+        at = '[j]' if flat else '[0]'
         ins = {}
         for slot, ods in in_ops.items():
             exprs = []
             for od, dt, _ in ods:
                 if od[0] == 'sym':
-                    e = '%s[j]' % reg_of(od[1])
+                    one = _size(s.key_aval[od[1]][0]) == 1
+                    e = reg_of(od[1]) + ('[0]' if one else at)
                     frm = od[2]
                 else:
                     ix = od[1]
@@ -804,14 +869,22 @@ def _emit_segment(s, esc):
                         e = 'E%d[j]' % ix
                         if ix not in loaded:
                             loaded.add(ix)
-                            p = ptr(ix, dst, ind)
                             dst += ['%s%s E%d[V];' % (ind, _C_VAL[frm], ix),
-                                    '%skg_ldv<V>(E%d, %s, base);'
-                                    % (ind, ix, p)]
+                                    '%skg_ldv<V, CS, F>(E%d, %s, b0, nv);'
+                                    % (ind, ix, ptr(ix, g))]
                     elif kind == 'scalar':
                         e = 'S%d' % ix
+                    elif flat:
+                        # a vector past the group's end reads nothing;
+                        # the index in 32 bits where the group fits (a
+                        # 64-bit division by a constant costs several
+                        # times a 32-bit one)
+                        if g < 2 ** 31:
+                            idx = re.sub(r'\bi\b', 'i32',
+                                         idx.replace('LL', 'u'))
+                        e = 'kg_ldb<F>(%s, %s, j < nv)' % (ptr(ix, g), idx)
                     else:
-                        e = 'kg_ld(%s, %s)' % (ptr(ix, dst, ind), idx)
+                        e = 'kg_ld(%s, %s)' % (ptr(ix, g), idx)
                 if frm != dt:
                     # the AMP match policy casts this operand first
                     e = to_dtype(e, frm, dt)
@@ -826,52 +899,91 @@ def _emit_segment(s, esc):
         stmts = []
         for slot, ks in out_keys.items():
             for k, e in zip(ks, res[slot]):
-                dst.append('%s%s %s[V];' % (ind, _C_VAL[s.key_aval[k][1]],
-                                            reg_of(k)))
-                stmts.append('%s[j] = %s;' % (reg_of(k), e))
-        dst += ['#pragma unroll', '%sfor (int j = 0; j < V; ++j) {' % ind]
-        if re.search(r'\bi\b', ' '.join(stmts)):
-            # the flat index a broadcast operand's index expression reads
-            dst.append('%s  const long long i = base + j;' % ind)
-        dst += ['%s  %s  // %s' % (ind, ' '.join(stmts), sub['type']),
-                '%s}' % ind]
+                dst.append('%s%s %s%s;' % (ind, _C_VAL[s.key_aval[k][1]],
+                                           reg_of(k),
+                                           '[V]' if flat else '[1]'))
+                stmts.append('%s%s = %s;' % (reg_of(k), at, e))
+        uses_i = re.search(r'\bi\b', ' '.join(stmts))
+        if flat:
+            dst += ['#pragma unroll', '%sfor (int j = 0; j < V; ++j) {' % ind]
+            if uses_i:
+                # the flat index a broadcast operand's index expression
+                # reads
+                dst.append('%s  const long long i = b0 + j;' % ind)
+            if re.search(r'\bi32\b', ' '.join(stmts)):
+                dst.append('%s  const unsigned i32 = (unsigned)(b0 + j);'
+                           % ind)
+            dst += ['%s  %s  // %s' % (ind, ' '.join(stmts), sub['type']),
+                    '%s}' % ind]
+        else:
+            if uses_i:
+                dst.append('  { const long long i = 0;')
+            dst.append('  %s  // %s' % (' '.join(stmts), sub['type']))
+            if uses_i:
+                dst.append('  }')
         for ks in out_keys.values():
             for k in ks:
                 for j in esc_of.get(k, ()):
-                    p = ptr(n_in + j, dst, ind)
-                    if g > 1:
-                        dst.append('%skg_stv<V>(%s, base, %s);'
+                    p = ptr(n_in + j, g)
+                    if flat:
+                        dst.append('%skg_stv<V, CS, F>(%s, b0, %s, nv);'
                                    % (ind, p, reg_of(k)))
                     else:
                         dst.append('  if (blockIdx.x == 0 && threadIdx.x == '
                                    '0) kg_st(%s, 0, %s[0]);' % (p, reg_of(k)))
 
-    lines = ['struct @NAME@_args { void* p[%d]; };' % max(len(ptrs), 1),
-             'template <int V>',
-             '__global__ void __launch_bounds__(%d)' % THREADS,
+    order = sorted(by_g, reverse=True)
+    spec = []
+    for g in order:
+        dts = [ptrs[ix][0] for ix in g_ptrs.get(g, ())] or ['float32']
+        spec.append((g, max(_SIZE[d] for d in dts), g_ptrs.get(g, ())))
+    nbytes = sum(_size(shape) * _SIZE[e[2]] for shape, e in
+                 zip(s.entry_shape, s.entries)) + \
+        sum(_size(s.key_aval[k][0]) * _SIZE[s.key_aval[k][1]] for k in esc)
+    lay = Layout(spec, nbytes)
+    n_words = max(1, (len(order) + 63) // 64)
+    lines = ['struct @NAME@_args { void* p[%d]; unsigned long long vec[%d]; };'
+             % (max(len(ptrs), 1), n_words),
+             '__global__ void __launch_bounds__(%d)' % lay.threads,
              '@NAME@(@NAME@_args a) {',
-             '  const long long base = ((long long)blockIdx.x * blockDim.x'
-             ' + threadIdx.x) * V;',
-             '  (void)base;']
+             '  constexpr bool CS = %s;  // streaming loads and stores'
+             % ('true' if lay.streaming else 'false'),
+             '  (void)CS;',
+             '  const unsigned b = blockIdx.x;',
+             '  (void)b;']
     lines += pre
-    for g in sorted(by_g, reverse=True):
-        lines += ['  if (base < %dLL) {' % g] + by_g[g] + ['  }']
+    for gi, (g, lg) in enumerate(zip(order, lay.groups)):
+        lines += [
+            '  %sif (b < %du) {  // group %d: N %d, V %d, %d tiles from %d'
+            % ('} else ' if gi else '', lg['start'] + lg['tiles'], gi, g,
+               lg['v'], lg['tiles'], lg['start']),
+            '    constexpr int V = %d;' % lg['v'],
+            '    const long long b0 = (long long)(b - %du) * %dLL + '
+            '(long long)threadIdx.x * V;' % (lg['start'], lg['tile'])]
+        lines += [decl[g][k] for k in sorted(decl.get(g, ()))]
+        lines += [
+            '    if (((a.vec[%d] >> %d) & 1ULL) && b0 + V <= %dLL) {'
+            % (gi >> 6, gi & 63, g),
+            '      constexpr bool F = true;  // a whole aligned vector',
+            '      constexpr int nv = V;']
+        lines += by_g[g]
+        lines += [
+            '    } else {',
+            '      constexpr bool F = false;  // element by element',
+            '      const long long r = %dLL - b0;' % g,
+            '      const int nv = r <= 0 ? 0 : (r >= V ? V : (int)r);']
+        lines += by_g[g]
+        lines += ['    }']
+    if order:
+        lines.append('  }')
     lines += ['}', '',
               'extern "C" int @NAME@_launch(void* const* ptrs, '
-              'long long n_max, int vec, void* stream) {',
+              'const unsigned long long* vec, void* stream) {',
               '  @NAME@_args a;',
               '  for (int k = 0; k < %d; ++k) a.p[k] = ptrs[k];' % len(ptrs),
-              '  const long long per = (long long)%d * (vec == 4 ? 4 : 1);'
-              % THREADS,
-              '  long long blocks = (n_max + per - 1) / per;',
-              '  if (blocks < 1) blocks = 1;',
-              '  cudaStream_t s = (cudaStream_t)stream;',
-              '  if (vec == 4)',
-              '    @NAME@<4><<<(unsigned)blocks, %d, 0, s>>>(a);'
-              % THREADS,
-              '  else',
-              '    @NAME@<1><<<(unsigned)blocks, %d, 0, s>>>(a);'
-              % THREADS,
+              '  for (int k = 0; k < %d; ++k) a.vec[k] = vec[k];' % n_words,
+              '  @NAME@<<<%du, %d, 0, (cudaStream_t)stream>>>(a);'
+              % (lay.grid, lay.threads),
               '  return (int)cudaGetLastError();',
               '}', '']
-    return '\n'.join(lines)
+    return '\n'.join(lines), lay

@@ -29,32 +29,34 @@ each maximal run of consecutive in-place `adam` ops to one `adam_multi`
 call (`run_adam_group`); the program still holds one `adam` op per
 parameter, as the JAX package's does.
 
-`momentum` is the reference's (:24-34), in float32:
+`momentum` is the reference's (:24-34):
 
     v' = mu v + g        p' = p - lr (g + mu v')  (use_nesterov)
                          p' = p - lr v'           (else)
 
-`momentum_multi` updates lists of parameters and velocities in place with
-one call: on CUDA tensors it launches csrc/momentum.cu, the momentum
-instance of the TPU's generated fused-segment kernel (`_compile_segment`
-with the `momentum` rule), for contiguous float32 tensors only (any other
-raises); on CPU tensors it runs `momentum_reference`, the per-tensor
-loop of the op.  Its pointer table is cached per executor as Adam's is,
-and LR is read on the device.  The executor hands each maximal run of
-consecutive in-place `momentum` ops sharing mu and use_nesterov to one
-`momentum_multi` call (`run_momentum_group`).
+`momentum_multi` updates lists of parameters and velocities with one
+call per dtype combination: on CUDA tensors it launches csrc/momentum.cu,
+the momentum instance of the TPU's generated fused-segment kernel
+(`_compile_segment` with the `momentum` rule): `momentum_kernel` for
+all-float32 tensors, in place, and `momentum_bf16_kernel` for a mix
+with a bf16 among them; on CPU tensors it runs `momentum_reference`,
+the per-tensor loop of the op.  Its float32 pointer table is cached per
+executor as Adam's is, and LR is read on the device.  The executor
+hands each maximal run of consecutive in-place `momentum` ops sharing mu
+and use_nesterov to one `momentum_multi` call (`run_momentum_group`).
 
 `sgd`, `adagrad`, `decayed_adagrad`, `adamax`, `adadelta`, `rmsprop`
-(plain and `centered`) and `ftrl` are the reference's (:19-163), float32,
-one rounding an operation in its order (`_optim_one`); a Python constant
-such as 1 - rho or l1 + 1e-10 is computed in double and meets the arrays
-as float32, as jnp's weak types do.  `optim_reference` is the per-tensor
-loop, `optim_multi` (and `<op>_multi`, `<op>_reference` for each) the
-entry: on CUDA tensors it launches csrc/optim_multi.cu's instance for the
-op and its key (`optim_key`: every attribute the update reads), for
-contiguous float32 tensors only; on CPU tensors the plain version.  Ftrl
-at lr_power -0.5 takes square roots; at any other power pow, which no
-implementation rounds correctly, so that instance is held to
+(plain and `centered`) and `ftrl` are the reference's (:19-163), one
+rounding an operation in its order (`_optim_one`); a Python constant
+such as 1 - rho or l1 + 1e-10 is computed in double and meets an array
+in its dtype, as jnp's weak types do.  `optim_reference` is the
+per-tensor loop, `optim_multi` (and `<op>_multi`, `<op>_reference` for
+each) the entry: on CUDA tensors it launches csrc/optim_multi.cu's
+instance for the op and its key (`optim_key`: every attribute the
+update reads), float32 (`optim_kernel<Op>`) or with a bf16 among the
+tensors (`optim_bf16_kernel<Op>`); on CPU tensors the plain version.
+Ftrl at lr_power -0.5 takes square roots; at any other power pow, which
+no implementation rounds correctly, so that instance is held to
 `ftrl_pow_bound`.  The executor and the kernel generator hand each run of
 consecutive in-place ops of one type and key to one call
 (`run_optim_group`); an adamax run also holds the `scale` ops that bump
@@ -62,7 +64,15 @@ its own ops' Beta1Pow (`adamax_bump`), run after the launch.
 `lars_momentum` stays plain torch ops, one op a tensor, its norms
 sqrt(sum(square(x))): the reference leaves it to XLA, outside its fused
 kernels.
+
+Every update has jnp's dtypes, as Adam's: the float32 learning rate (and
+Beta1Pow) meets the arrays at their rank (`_dims`: torch's 0-dim rule
+would leave a bf16 array bf16, where jnp promotes it), so a bf16
+parameter comes out float32 (adadelta's, which has no rate, stays bf16),
+and each state array in the promoted dtype of what it is updated from.
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -80,6 +90,14 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 def _scalar(v, t):
     """A Python scalar as jnp meets it with array `t`: in t's dtype."""
     return torch.tensor(v, dtype=t.dtype, device=t.device)
+
+
+def _weak(v, t):
+    """`_scalar`, but the Python float itself where `t` is float32: torch
+    rounds a Python float that meets a float32 tensor to float32, as jnp
+    does, and keeps it in float32 where it meets a bf16 one, where jnp
+    rounds it to bf16."""
+    return v if t.dtype == torch.float32 else _scalar(v, t)
 
 
 def _adam_one(p, g, m1, m2, b1p, b2p, lr, beta1, beta2, epsilon):
@@ -369,36 +387,61 @@ def adam(ctx, ins, attrs):
 _MOMENTUM_CHUNK = 4096
 
 
+def _dims(lr, p):
+    """A [1] learning rate (or power) shaped to broadcast against `p` with
+    as many dimensions: jnp promotes a float32 array that meets a bf16 one
+    whatever its rank, torch only one of at least the other's rank (a
+    0-dim float32 tensor leaves a bf16 tensor bf16)."""
+    return lr.reshape((1,) * p.dim())
+
+
 def _momentum_one(p, g, v, lr, mu, nesterov):
-    """The `momentum` op's math on one tensor, one rounding an operation
-    -> (p', v'), new tensors."""
-    vn = mu * v + g
-    lr = lr.reshape(())
-    pn = p - lr * (g + mu * vn) if nesterov else p - lr * vn
-    return pn, vn
+    """The `momentum` op's math on one tensor, jnp's dtypes and roundings
+    (each operation in its operands' promoted dtype, `mu` first in the
+    dtype of the array it meets) -> (p', v'), new tensors."""
+    vn = _weak(mu, v) * v + g
+    lr = _dims(lr, p)
+    if nesterov:
+        return p - lr * (g + _weak(mu, vn) * vn), vn
+    return p - lr * vn, vn
 
 
 def momentum_reference(params, grads, velocities, lrs, mu, nesterov):
-    """Plain version: the `momentum` op's math per tensor, written into
-    the params and velocities in place."""
+    """Plain version: the `momentum` op's math per tensor.  -> (params,
+    velocities) after the step: each the input tensor, updated in place,
+    or a new tensor where jnp promotes its dtype (a bf16 param comes out
+    float32: the learning rate is float32)."""
+    outs = ([], [])
     for p, g, v, lr in zip(params, grads, velocities, lrs):
         pn, vn = _momentum_one(p, g, v, lr, mu, nesterov)
-        p.copy_(pn)
-        v.copy_(vn)
+        outs[0].append(_into(p, pn))
+        outs[1].append(_into(v, vn))
+    return outs
+
+
+@functools.lru_cache(maxsize=None)
+def _momentum_dtypes(dts, nesterov):
+    """(param out, velocity out) dtypes of the update of (param, grad,
+    velocity, lr) dtypes `dts`: the plain version on meta tensors."""
+    p, g, v, lr = (torch.empty((1,), dtype=d, device='meta') for d in dts)
+    return tuple(t.dtype for t in _momentum_one(p, g, v, lr, 0.9, nesterov))
 
 
 def _check_momentum(params, grads, velocities, lrs):
     dev = params[0].device
     for p, g, v, lr in zip(params, grads, velocities, lrs):
         for t in (p, g, v):
-            if t.dtype != torch.float32 or t.device != dev or \
+            if t.dtype not in _KERNEL_DTYPES or t.device != dev or \
                     not t.is_contiguous() or t.numel() != p.numel():
-                raise ValueError('momentum_multi kernel takes contiguous '
-                                 'float32 params, grads and velocities of '
-                                 'one size on one device')
+                raise ValueError('momentum_multi kernels take contiguous '
+                                 'float32 or bf16 params, grads and '
+                                 'velocities of one size on one device, '
+                                 'got %s, %s and %s'
+                                 % (p.dtype, g.dtype, v.dtype))
         if lr.dtype != torch.float32 or lr.device != dev or lr.numel() != 1:
-            raise ValueError('momentum_multi kernel takes a [1] float32 '
-                             'learning rate on the device')
+            raise ValueError('momentum_multi kernels take a [1] float32 '
+                             'learning rate on the device, got %s'
+                             % lr.dtype)
 
 
 def _momentum_tables(params, grads, velocities, lrs, cache, recorder):
@@ -426,7 +469,7 @@ def _momentum_tables(params, grads, velocities, lrs, cache, recorder):
         host = state_host()
         return recorder.upload(host, dev), recorder.upload(step_host, dev), \
             host.size - 3 * len(params)
-    key = tuple(t.data_ptr() for col in (params, velocities)
+    key = tuple((t.data_ptr(), t.dtype) for col in (params, velocities)
                 for t in col) + tuple(p.numel() for p in params)
     hit = cache.get('momentum_multi') if cache is not None else None
     if hit is not None and hit[0] == key:
@@ -443,23 +486,11 @@ def _momentum_tables(params, grads, velocities, lrs, cache, recorder):
     return table, step.to(dev, non_blocking=True), n_chunks
 
 
-def momentum_multi(params, grads, velocities, lrs, mu, nesterov,
-                   cache=None, recorder=None):
-    """Momentum over lists of tensors, params and velocities updated in
-    place.  `cache` (a dict kept across steps) holds the kernel's state
-    table; `recorder`, a CUDA graph entry's (core/graphs.py), makes the
-    host uploads."""
-    if not params:
-        return
-    if any(len(x) != len(params) for x in (grads, velocities, lrs)):
-        raise ValueError('momentum_multi: the tensor lists differ in length')
+def _launch_momentum(params, grads, velocities, lrs, mu, nesterov, cache,
+                     recorder):
+    """The all-float32 instance: csrc/momentum.cu momentum_kernel, in
+    place."""
     dev = params[0].device
-    if dev.type in ('cpu', 'meta'):
-        momentum_reference(params, grads, velocities, lrs, mu, nesterov)
-        return
-    if dev.type != 'cuda':
-        raise RuntimeError('momentum_multi: no kernel for device %s' % dev)
-    _check_momentum(params, grads, velocities, lrs)
     table, step, n_chunks = _momentum_tables(params, grads, velocities, lrs,
                                              cache, recorder)
     with torch.cuda.device(dev):
@@ -469,6 +500,123 @@ def momentum_multi(params, grads, velocities, lrs, mu, nesterov,
             float(mu), int(bool(nesterov)), stream)
     kernels.check(rc, 'momentum_multi')
     kernels.launches['momentum_multi'] += 1
+    return list(params), list(velocities)
+
+
+def _upload(host, dev, recorder):
+    """An int64 table to the device: through a CUDA graph entry's
+    `recorder` inside one, else a copy."""
+    if recorder is not None:
+        return recorder.upload(host, dev)
+    return torch.from_numpy(host).to(dev)
+
+
+def _bf16_const(c):
+    """A Python constant as jnp meets a bf16 array: rounded to bf16 (as
+    `_scalar` rounds it), as a float."""
+    return float(torch.tensor(c, dtype=torch.bfloat16))
+
+
+def _momentum_bf16_tables(params, grads, velocities, lrs, nesterov,
+                          recorder):
+    """The bf16 instance's outputs and tables -> (table, step, n_chunks,
+    (params out, velocities out), flags): the outputs in the dtypes the
+    plain version gives them (`_momentum_dtypes`: the param float32, the
+    velocity promote(v, g)), new tensors where that is not their input's
+    dtype; the state table per tensor p, v, the element count and the
+    out pointers of p and v, then the chunks; the step table as
+    `_momentum_tables`'."""
+    dev = params[0].device
+    bf = torch.bfloat16
+    p_dt, v_dt = _momentum_dtypes((params[0].dtype, grads[0].dtype,
+                                   velocities[0].dtype, torch.float32),
+                                  bool(nesterov))
+    outs = ([p if p.dtype == p_dt else
+             torch.empty(p.shape, dtype=p_dt, device=dev) for p in params],
+            [v if v.dtype == v_dt else
+             torch.empty(v.shape, dtype=v_dt, device=dev)
+             for v in velocities])
+    head = np.empty((len(params), 5), np.int64)
+    head[:, 0] = [p.data_ptr() for p in params]
+    head[:, 1] = [v.data_ptr() for v in velocities]
+    head[:, 2] = [p.numel() for p in params]
+    head[:, 3] = [p.data_ptr() for p in outs[0]]
+    head[:, 4] = [v.data_ptr() for v in outs[1]]
+    chunks = [(i << 32) | c for i, p in enumerate(params)
+              for c in range((p.numel() + _MOMENTUM_CHUNK - 1) //
+                             _MOMENTUM_CHUNK)]
+    host = np.concatenate([head.reshape(-1), np.asarray(chunks, np.int64)])
+    step_host = np.asarray([t.data_ptr() for pair in zip(grads, lrs)
+                            for t in pair], np.int64)
+    flags = sum(b << k for k, b in enumerate((
+        params[0].dtype == bf, grads[0].dtype == bf,
+        velocities[0].dtype == bf, p_dt == bf, v_dt == bf)))
+    return _upload(host, dev, recorder), _upload(step_host, dev, recorder), \
+        len(chunks), outs, flags
+
+
+def _launch_momentum_bf16(params, grads, velocities, lrs, mu, nesterov,
+                          recorder):
+    """The instance for one dtype combination with a bf16 among the
+    params, grads and velocities: csrc/momentum.cu momentum_bf16_kernel,
+    into the outputs of `_momentum_bf16_tables`."""
+    dev = params[0].device
+    table, step, n_chunks, outs, flags = _momentum_bf16_tables(
+        params, grads, velocities, lrs, nesterov, recorder)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernels.library().pt_momentum_multi_bf16(
+            table.data_ptr(), step.data_ptr(), len(params), n_chunks,
+            float(mu), _bf16_const(mu), int(bool(nesterov)), flags, stream)
+    kernels.check(rc, 'momentum_multi_bf16')
+    kernels.launches['momentum_multi_bf16'] += 1
+    return outs
+
+
+def _by_dtypes(n, *cols):
+    """Tensor indices grouped by the dtypes of `cols` (lists of n tensors,
+    or None) at each index: {dtypes: [indices]}, in first-seen order."""
+    groups = {}
+    for i in range(n):
+        groups.setdefault(tuple(c[i].dtype for c in cols if c is not None),
+                          []).append(i)
+    return groups
+
+
+def momentum_multi(params, grads, velocities, lrs, mu, nesterov,
+                   cache=None, recorder=None):
+    """Momentum over lists of tensors.  -> (params, velocities) after the
+    step: each the input tensor, updated in place, or a new tensor where
+    jnp promotes its dtype.  On CUDA tensors one launch per dtype
+    combination: csrc/momentum.cu's float32 instance for the all-float32
+    tensors, its bf16 instance for each other combination; on CPU tensors
+    `momentum_reference`.  `cache` (a dict kept across steps) holds the
+    float32 kernel's state table; `recorder`, a CUDA graph entry's
+    (core/graphs.py), makes the host uploads."""
+    if not params:
+        return [], []
+    if any(len(x) != len(params) for x in (grads, velocities, lrs)):
+        raise ValueError('momentum_multi: the tensor lists differ in length')
+    dev = params[0].device
+    if dev.type in ('cpu', 'meta'):
+        return momentum_reference(params, grads, velocities, lrs, mu,
+                                  nesterov)
+    if dev.type != 'cuda':
+        raise RuntimeError('momentum_multi: no kernel for device %s' % dev)
+    _check_momentum(params, grads, velocities, lrs)
+    outs = ([None] * len(params), [None] * len(params))
+    for dts, idx in _by_dtypes(len(params), params, grads,
+                               velocities).items():
+        sub = [[col[i] for i in idx] for col in (params, grads, velocities,
+                                                 lrs)]
+        if all(d == torch.float32 for d in dts):
+            got = _launch_momentum(*sub, mu, nesterov, cache, recorder)
+        else:
+            got = _launch_momentum_bf16(*sub, mu, nesterov, recorder)
+        for out, col in zip(outs, got):
+            for i, t in zip(idx, col):
+                out[i] = t
+    return outs
 
 
 def _momentum_attrs(attrs):
@@ -486,20 +634,24 @@ def momentum_group_key(op):
 
 def run_momentum_group(ops, env, ectx):
     """One `momentum_multi` call for consecutive in-place momentum ops
-    sharing mu and use_nesterov (momentum_group_key)."""
+    sharing mu and use_nesterov (momentum_group_key); a param or velocity
+    whose dtype jnp promotes is bound anew under its name."""
     cols = [[env[op.input(slot)[0]] for op in ops] for slot in (
         'Param', 'Grad', 'Velocity', 'LearningRate')]
-    momentum_multi(*cols, *_momentum_attrs(ops[0].attrs), cache=ectx.cache,
-                   recorder=ectx.recorder)
+    outs = momentum_multi(*cols, *_momentum_attrs(ops[0].attrs),
+                          cache=ectx.cache, recorder=ectx.recorder)
+    for slot, col in zip(('ParamOut', 'VelocityOut'), outs):
+        for op, t in zip(ops, col):
+            env[op.output(slot)[0]] = t
 
 
 @register('momentum')
 def momentum(ctx, ins, attrs):
     """One op, functional: the update runs on copies of its state."""
-    p, v = ins['Param'].clone(), ins['Velocity'].clone()
-    momentum_multi([p], [ins['Grad']], [v], [ins['LearningRate']],
-                   *_momentum_attrs(attrs),
-                   recorder=getattr(ctx, 'recorder', None))
+    (p,), (v,) = momentum_multi(
+        [ins['Param'].clone()], [ins['Grad']], [ins['Velocity'].clone()],
+        [ins['LearningRate']], *_momentum_attrs(attrs),
+        recorder=getattr(ctx, 'recorder', None))
     return {'ParamOut': p, 'VelocityOut': v}
 
 
@@ -573,44 +725,52 @@ def _kind(op_type, key):
 
 
 def _optim_one(op_type, key, p, g, arrays, scalar, lr):
-    """The `op_type` op's math on one float32 tensor, one rounding an
-    operation in the reference's order (paddle_tpu/ops/optimizer_ops.py);
-    a Python constant, such as 1 - rho, is computed in double and meets
-    the tensor as float32, as jnp's weak types do.  -> (p', arrays'),
-    new tensors."""
-    lr = lr.reshape(()) if lr is not None else None
+    """The `op_type` op's math on one tensor, jnp's dtypes and roundings
+    in the reference's order (paddle_tpu/ops/optimizer_ops.py): each
+    operation in its operands' promoted dtype, the float32 learning rate
+    and Beta1Pow as arrays of p's rank (`_dims`); a Python constant, such
+    as 1 - rho, computed in double and met as jnp's weak types meet an
+    array, in its dtype (`_weak`).  -> (p', arrays'), new tensors."""
+    w = _weak
+    lr = _dims(lr, p) if lr is not None else None
     if op_type == 'sgd':
         return p - lr * g, ()
     if op_type in ('adagrad', 'decayed_adagrad'):
         m, = arrays
+        gg = g * g
         if op_type == 'adagrad':
-            mn = m + g * g
+            mn = m + gg
         else:
-            mn = key[0] * m + (1 - key[0]) * (g * g)
-        return p - lr * g / (torch.sqrt(mn) + key[-1]), (mn,)
+            mn = w(key[0], m) * m + w(1 - key[0], gg) * gg
+        sq = torch.sqrt(mn)
+        return p - lr * g / (sq + w(key[-1], sq)), (mn,)
     if op_type == 'adamax':
         b1, b2, eps = key
         m, u = arrays
-        mn = b1 * m + (1 - b1) * g
-        un = torch.maximum(b2 * u, g.abs())
-        return p - (lr / (1 - scalar.reshape(()))) * mn / (un + eps), \
-            (mn, un)
+        mn = w(b1, m) * m + w(1 - b1, g) * g
+        un = torch.maximum(w(b2, u) * u, g.abs())
+        bp = _dims(scalar, p)
+        return p - (lr / (1 - bp)) * mn / (un + w(eps, un)), (mn, un)
     if op_type == 'adadelta':
         rho, eps = key
         ag, au = arrays
-        gn = rho * ag + (1 - rho) * (g * g)
-        upd = -torch.sqrt((au + eps) / (gn + eps)) * g
-        return p + upd, (gn, rho * au + (1 - rho) * (upd * upd))
+        gg = g * g
+        gn = w(rho, ag) * ag + w(1 - rho, gg) * gg
+        upd = -torch.sqrt((au + w(eps, au)) / (gn + w(eps, gn))) * g
+        uu = upd * upd
+        return p + upd, (gn, w(rho, au) * au + w(1 - rho, uu) * uu)
     if op_type == 'rmsprop':
         rho, eps, mu, centered = key
         ms, mom = arrays[:2]
-        msn = rho * ms + (1 - rho) * (g * g)
+        gg = g * g
+        msn = w(rho, ms) * ms + w(1 - rho, gg) * gg
+        den = msn
         if centered:
-            mgn = rho * arrays[2] + (1 - rho) * g
-            momn = mu * mom + lr * g / torch.sqrt(msn - mgn * mgn + eps)
-            return p - momn, (msn, momn, mgn)
-        momn = mu * mom + lr * g / torch.sqrt(msn + eps)
-        return p - momn, (msn, momn)
+            mg = arrays[2]
+            mgn = w(rho, mg) * mg + w(1 - rho, g) * g
+            den = msn - mgn * mgn
+        momn = w(mu, mom) * mom + lr * g / torch.sqrt(den + w(eps, den))
+        return p - momn, (msn, momn, mgn) if centered else (msn, momn)
     if op_type == 'ftrl':
         l1, l2, power = key[0] + 1e-10, key[1] + 1e-10, key[2]
         sq, lin = arrays
@@ -618,12 +778,14 @@ def _optim_one(op_type, key, p, g, arrays, scalar, lr):
         if power == -0.5:
             a, b = torch.sqrt(nsq), torch.sqrt(sq)
         else:
-            a, b = torch.pow(nsq, -power), torch.pow(sq, -power)
+            a, b = torch.pow(nsq, w(-power, nsq)), torch.pow(sq, w(-power, sq))
         sigma = (a - b) / lr
         nlin = lin + g - sigma * p
-        denom = l2 + a / lr
-        pn = torch.where(nlin.abs() > l1, (l1 * torch.sign(nlin) - nlin) /
-                         denom, torch.zeros_like(p))
+        al = a / lr
+        denom = w(l2, al) + al
+        s = torch.sign(nlin)
+        pn = torch.where(nlin.abs() > w(l1, nlin),
+                         (w(l1, s) * s - nlin) / denom, torch.zeros_like(p))
         return pn, (nsq, nlin)
     raise KeyError(op_type)
 
@@ -637,22 +799,29 @@ POW_ULPS = 16
 def ftrl_pow_bound(p, g, sq, lin, lr, key):
     """The bound the ftrl instance with lr_power != -0.5 is held to: per
     element, (|dp'|, |dz'|) that two implementations may differ by when
-    each computes the `ftrl` op from the same float32 inputs with a pow
-    within POW_ULPS ulps (the squared accumulator has no pow: it agrees
-    bit for bit).  With u = 2^-24, K = POW_ULPS, a = n'^e, b = n^e, sigma
-    = (a - b) / lr, den = l2 + a / lr and p' the update, each pow differs
-    by 4 K u |.| between the two, each rounding by 2 u |.|, so
-      |d sigma| <= Es = (4 K + 6) u (|a| + |b|) / lr
+    each computes the `ftrl` op from the same inputs with a pow within
+    POW_ULPS ulps of float32 (the squared accumulator has no pow: it
+    agrees bit for bit).  With u = 2^-24, K = POW_ULPS, a = n'^e, b = n^e,
+    sigma = (a - b) / lr, den = l2 + a / lr and p' the update, each pow
+    differs by 4 K u |.| between the two, each rounding by 2 u |.|, so
+      |d sigma| <= Es = ((4 K + 6) u + 3 r) (|a| + |b|) / lr
       |dz'|    <= Ez = |p| Es + 4 u (|z| + |g| + |sigma p|)
-      |d den|  <= Ed = (4 K + 2) u |a| / lr + 2 u |den|
+      |d den|  <= Ed = ((4 K + 2) u + r) |a| / lr + 2 u |den|
       |dp'|    <= (Ez + |p'| Ed) / den + 4 u |p'|
-    (a branch that flips, |z'| within Ez of l1, moves p' by at most
-    Ez / den); both doubled.  Computed in float64 from the inputs."""
+    where r = 0, or 2^-7 when the squared accumulator and the grad are
+    bf16: a and b, their difference too, are then rounded to bf16, and a
+    pow that differs in its last float32 bits may round to a neighbouring
+    bf16 value (z' and p' are float32: the learning rate is).  A branch
+    that flips, |z'| within Ez of l1, moves p' by at most Ez / den; both
+    doubled.  Computed in float64 from the inputs."""
+    bf = torch.promote_types(sq.dtype, g.dtype) == torch.bfloat16
     f = [t.detach().double() for t in (p, g, sq, lin)]
     p, g, sq, lin = f
     lr = float(lr.reshape(()))
     l1, l2, e = (float(np.float32(v)) for v in _optim_consts('ftrl', key)[:3])
-    u, k = 2.0 ** -24, POW_ULPS
+    if bf:
+        e = _bf16_const(-key[2])
+    u, k, r = 2.0 ** -24, POW_ULPS, 2.0 ** -7 if bf else 0.0
     nsq = sq + g * g
     a, b = nsq ** e, sq ** e
     sigma = (a - b) / lr
@@ -660,32 +829,38 @@ def ftrl_pow_bound(p, g, sq, lin, lr, key):
     den = l2 + a / lr
     pn = torch.where(z.abs() > l1, (l1 * torch.sign(z) - z) / den,
                      torch.zeros_like(z))
-    es = (4 * k + 6) * u * (a.abs() + b.abs()) / lr
+    es = ((4 * k + 6) * u + 3 * r) * (a.abs() + b.abs()) / lr
     ez = p.abs() * es + 4 * u * (lin.abs() + g.abs() + (sigma * p).abs())
-    ed = (4 * k + 2) * u * a.abs() / lr + 2 * u * den.abs()
+    ed = ((4 * k + 2) * u + r) * a.abs() / lr + 2 * u * den.abs()
     ep = (ez + pn.abs() * ed) / den.abs() + 4 * u * pn.abs()
     return 2 * ep, 2 * ez
 
 
 def optim_reference(op_type, params, grads, arrays, scalars, lrs, key):
-    """Plain version: the `op_type` op's math per tensor, written into the
-    params and the state arrays in place.  `arrays`: one list of tensors a
-    slot of array_slots(op_type, key); `scalars`: adamax's Beta1Pow list
-    (read only), else None; `lrs`: None for adadelta, which has none."""
+    """Plain version: the `op_type` op's math per tensor.  `arrays`: one
+    list of tensors a slot of array_slots(op_type, key); `scalars`:
+    adamax's Beta1Pow list (read only), else None; `lrs`: None for
+    adadelta, which has none.  -> (params, arrays) after the step: each
+    the input tensor, updated in place, or a new tensor where jnp promotes
+    its dtype."""
+    outs = ([], [[] for _ in arrays])
     for i, (p, g) in enumerate(zip(params, grads)):
         pn, new = _optim_one(op_type, key, p, g, [col[i] for col in arrays],
                              scalars[i] if scalars is not None else None,
                              lrs[i] if lrs is not None else None)
-        p.copy_(pn)
-        for col, t in zip(arrays, new):
-            col[i].copy_(t)
+        outs[0].append(_into(p, pn))
+        for out, col, t in zip(outs[1], arrays, new):
+            out.append(_into(col[i], t))
+    return outs
 
 
-def _optim_consts(op_type, key):
-    """The kernel's float32 constants c0..c3, each computed on the host in
-    double, as the reference's Python scalars are, and rounded to float32
-    where it meets the arrays (csrc/optim_multi.cu reads them in this
-    order)."""
+def _optim_consts(op_type, key, dtype=torch.float32):
+    """The kernel's constants c0..c3, each computed on the host in double,
+    as the reference's Python scalars are, and rounded to `dtype`, as
+    jnp's weak types round them where they meet an array of that dtype
+    (csrc/optim_multi.cu reads them in this order; its bf16 instance
+    takes both roundings and picks by the dtype of the array each
+    meets)."""
     if op_type == 'sgd':
         c = []
     elif op_type == 'adagrad':
@@ -700,25 +875,44 @@ def _optim_consts(op_type, key):
         c = [key[0], 1 - key[0], key[1], key[2]]
     else:
         c = [key[0] + 1e-10, key[1] + 1e-10, -key[2]]
-    return [float(np.float32(v)) for v in c] + [0.0] * (4 - len(c))
+    rnd = _bf16_const if dtype == torch.bfloat16 else \
+        (lambda v: float(np.float32(v)))
+    return [rnd(v) for v in c] + [0.0] * (4 - len(c))
+
+
+@functools.lru_cache(maxsize=None)
+def _optim_dtypes(op_type, key, dts):
+    """(param out, state outs...) dtypes of the `op_type` update of
+    (param, grad, state arrays..., scalar or None, lr or None) dtypes
+    `dts`: the plain version on meta tensors."""
+    def meta(d):
+        return None if d is None else \
+            torch.empty((1,), dtype=d, device='meta')
+    p, g, *rest = (meta(d) for d in dts)
+    arrays, scalar, lr = rest[:-2], rest[-2], rest[-1]
+    pn, new = _optim_one(op_type, key, p, g, arrays, scalar, lr)
+    return (pn.dtype,) + tuple(t.dtype for t in new)
 
 
 def _check_optim(op_type, params, grads, arrays, scalars, lrs):
     dev = params[0].device
     for i, p in enumerate(params):
-        for t in [p, grads[i]] + [col[i] for col in arrays]:
-            if t.dtype != torch.float32 or t.device != dev or \
+        ts = [p, grads[i]] + [col[i] for col in arrays]
+        for t in ts:
+            if t.dtype not in _KERNEL_DTYPES or t.device != dev or \
                     not t.is_contiguous() or t.numel() != p.numel():
-                raise ValueError('%s_multi kernel takes contiguous float32 '
-                                 'params, grads and state of one size on '
-                                 'one device' % op_type)
-        for col in (scalars, lrs):
-            if col is not None and (col[i].dtype != torch.float32 or
+                raise ValueError('%s_multi kernels take contiguous float32 '
+                                 'or bf16 params, grads and state of one '
+                                 'size on one device, got %s'
+                                 % (op_type, [str(t.dtype) for t in ts]))
+        for col, dts in ((scalars, _KERNEL_DTYPES), (lrs, (torch.float32,))):
+            if col is not None and (col[i].dtype not in dts or
                                     col[i].device != dev or
                                     col[i].numel() != 1):
-                raise ValueError('%s_multi kernel takes [1] float32 '
-                                 'learning rates and powers on the device'
-                                 % op_type)
+                raise ValueError('%s_multi kernels take [1] float32 '
+                                 'learning rates and [1] float32 or bf16 '
+                                 'powers on the device, got %s'
+                                 % (op_type, col[i].dtype))
 
 
 def _optim_tables(kind, params, grads, arrays, scalars, lrs, cache,
@@ -756,7 +950,7 @@ def _optim_tables(kind, params, grads, arrays, scalars, lrs, cache,
         host = state_host()
         return recorder.upload(host, dev), recorder.upload(step_host, dev), \
             host.size - _OPTIM_HEAD * n
-    key = tuple(t.data_ptr() for col in cols if col is not None
+    key = tuple((t.data_ptr(), t.dtype) for col in cols if col is not None
                 for t in col) + tuple(p.numel() for p in params)
     name = kind + '_multi'
     hit = cache.get(name) if cache is not None else None
@@ -775,6 +969,8 @@ def _optim_tables(kind, params, grads, arrays, scalars, lrs, cache,
 
 def _launch_optim(op_type, key, params, grads, arrays, scalars, lrs, cache,
                   recorder):
+    """The all-float32 instance of csrc/optim_multi.cu for `op_type` and
+    `key`, in place."""
     kind = _kind(op_type, key)
     table, step, n_chunks = _optim_tables(kind, params, grads, arrays,
                                           scalars, lrs, cache, recorder)
@@ -786,19 +982,86 @@ def _launch_optim(op_type, key, params, grads, arrays, scalars, lrs, cache,
             len(params), n_chunks, *_optim_consts(op_type, key), stream)
     kernels.check(rc, kind + '_multi')
     kernels.launches[kind + '_multi'] += 1
+    return list(params), [list(col) for col in arrays]
+
+
+def _optim_bf16_tables(op_type, key, params, grads, arrays, scalars, lrs,
+                       recorder):
+    """The bf16 instance's outputs and tables -> (table, step, n_chunks,
+    (params out, arrays out), flags): the outputs in the dtypes the plain
+    version gives them (`_optim_dtypes`), new tensors where that is not
+    their input's dtype."""
+    dev = params[0].device
+    n = len(params)
+    bf = torch.bfloat16
+    ins = [params[0], grads[0]] + [col[0] for col in arrays]
+    dts = tuple(t.dtype for t in ins) + (
+        scalars[0].dtype if scalars is not None else None,
+        torch.float32 if lrs is not None else None)
+    out_dts = _optim_dtypes(op_type, key, dts)
+    outs = [[t if t.dtype == d else torch.empty(t.shape, dtype=d, device=dev)
+             for t in col] for col, d in zip([params] + list(arrays),
+                                             out_dts)]
+    # per tensor: param and three state pointers, the element count, the
+    # four out pointers (0 where the instance has fewer arrays)
+    head = np.zeros((n, 2 * _OPTIM_HEAD - 1), np.int64)
+    for c, col in enumerate([params] + list(arrays)):
+        head[:, c] = [t.data_ptr() for t in col]
+    head[:, _OPTIM_HEAD - 1] = [p.numel() for p in params]
+    for c, col in enumerate(outs):
+        head[:, _OPTIM_HEAD + c] = [t.data_ptr() for t in col]
+    chunks = [(i << 32) | c for i, p in enumerate(params)
+              for c in range((p.numel() + _OPTIM_CHUNK - 1) // _OPTIM_CHUNK)]
+    host = np.concatenate([head.reshape(-1), np.asarray(chunks, np.int64)])
+    step_host = np.zeros((n, 3), np.int64)
+    for c, col in enumerate((grads, lrs, scalars)):
+        if col is not None:
+            step_host[:, c] = [t.data_ptr() for t in col]
+    # bits 0-4: param, grad, state 0-2 bf16; 5: the power; 6-9: the
+    # param's and the states' outputs
+    in_bf = [t.dtype == bf for t in ins] + [False] * (3 - len(arrays))
+    out_bf = [d == bf for d in out_dts] + [False] * (3 - len(arrays))
+    flags = sum(int(b) << k for k, b in enumerate(
+        in_bf + [dts[-2] == bf] + out_bf))
+    return _upload(host, dev, recorder), \
+        _upload(step_host.reshape(-1), dev, recorder), len(chunks), \
+        (outs[0], outs[1:]), flags
+
+
+def _launch_optim_bf16(op_type, key, params, grads, arrays, scalars, lrs,
+                       recorder):
+    """The instance of csrc/optim_multi.cu for `op_type` and `key` and one
+    dtype combination with a bf16 among the params, grads, state arrays
+    and powers (optim_bf16_kernel), into the outputs of
+    `_optim_bf16_tables`."""
+    kind = _kind(op_type, key)
+    dev = params[0].device
+    table, step, n_chunks, outs, flags = _optim_bf16_tables(
+        op_type, key, params, grads, arrays, scalars, lrs, recorder)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = kernels.library().pt_optim_multi_bf16(
+            _KINDS.index(kind), table.data_ptr(), step.data_ptr(),
+            len(params), n_chunks, *_optim_consts(op_type, key),
+            *_optim_consts(op_type, key, torch.bfloat16), flags, stream)
+    kernels.check(rc, kind + '_multi_bf16')
+    kernels.launches[kind + '_multi_bf16'] += 1
+    return outs
 
 
 def optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
                 cache=None, recorder=None):
-    """The `op_type` update over lists of tensors, params and state arrays
-    updated in place (arguments as `optim_reference` takes them).  On CUDA
-    tensors it launches csrc/optim_multi.cu's instance for `op_type` and
-    `key`, for contiguous float32 tensors only (any other raises); on CPU
-    tensors it runs `optim_reference`.  `cache` (a dict kept across
-    steps) holds the kernel's state table; `recorder`, a CUDA graph
-    entry's (core/graphs.py), makes the host uploads."""
+    """The `op_type` update over lists of tensors (arguments as
+    `optim_reference` takes them).  -> (params, arrays) after the step:
+    each the input tensor, updated in place, or a new tensor where jnp
+    promotes its dtype.  On CUDA tensors one launch per dtype combination
+    of csrc/optim_multi.cu's instance for `op_type` and `key`: the
+    float32 one for the all-float32 tensors, the bf16 one for each other
+    combination; on CPU tensors `optim_reference`.  `cache` (a dict kept
+    across steps) holds the float32 kernel's state table; `recorder`, a
+    CUDA graph entry's (core/graphs.py), makes the host uploads."""
     if not params:
-        return
+        return [], [[] for _ in arrays]
     cols = [grads] + list(arrays) + [c for c in (scalars, lrs)
                                      if c is not None]
     if len(arrays) != len(array_slots(op_type, key)) or \
@@ -809,26 +1072,40 @@ def optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
                          'number' % op_type)
     dev = params[0].device
     if dev.type in ('cpu', 'meta'):
-        optim_reference(op_type, params, grads, arrays, scalars, lrs, key)
-        return
+        return optim_reference(op_type, params, grads, arrays, scalars, lrs,
+                               key)
     if dev.type != 'cuda':
         raise RuntimeError('%s_multi: no kernel for device %s'
                            % (op_type, dev))
     _check_optim(op_type, params, grads, arrays, scalars, lrs)
-    _launch_optim(op_type, key, params, grads, arrays, scalars, lrs, cache,
-                  recorder)
+    outs = ([None] * len(params), [[None] * len(params) for _ in arrays])
+    for dts, idx in _by_dtypes(len(params), params, grads, *arrays,
+                               scalars).items():
+        def sub(col):
+            return None if col is None else [col[i] for i in idx]
+        args = (sub(params), sub(grads), [sub(c) for c in arrays],
+                sub(scalars), sub(lrs))
+        if all(d == torch.float32 for d in dts):
+            got = _launch_optim(op_type, key, *args, cache, recorder)
+        else:
+            got = _launch_optim_bf16(op_type, key, *args, recorder)
+        for out, col in zip([outs[0]] + outs[1], [got[0]] + list(got[1])):
+            for i, t in zip(idx, col):
+                out[i] = t
+    return outs
 
 
 def _entries(op_type):
     """(`<op_type>_reference`, `<op_type>_multi`): optim_reference and
     optim_multi for one op type."""
     def reference(params, grads, arrays, scalars, lrs, key):
-        optim_reference(op_type, params, grads, arrays, scalars, lrs, key)
+        return optim_reference(op_type, params, grads, arrays, scalars, lrs,
+                               key)
 
     def multi(params, grads, arrays, scalars, lrs, key, cache=None,
               recorder=None):
-        optim_multi(op_type, params, grads, arrays, scalars, lrs, key,
-                    cache, recorder)
+        return optim_multi(op_type, params, grads, arrays, scalars, lrs,
+                           key, cache, recorder)
     reference.__name__ = op_type + '_reference'
     multi.__name__ = op_type + '_multi'
     reference.__doc__ = 'optim_reference for `%s`.' % op_type
@@ -883,15 +1160,23 @@ def adamax_bump(op, adamaxes):
 
 def run_optim_group(ops, env, ectx):
     """One optim_multi call for consecutive in-place update ops of one
-    type sharing their key (optim_group_key); an adamax run also holds
-    its ops' Beta1Pow bumps (adamax_bump), which run after the launch:
-    each adamax op reads its own power before its bump, as in the
+    type sharing their key (optim_group_key); a param or state array
+    whose dtype jnp promotes is bound anew under its name.  An adamax run
+    also holds its ops' Beta1Pow bumps (adamax_bump), which run after the
+    launch: each adamax op reads its own power before its bump, as in the
     program."""
     updates = [op for op in ops if op.type != 'scale']
     op_type = updates[0].type
     key = optim_key(op_type, updates[0].attrs)
-    optim_multi(op_type, *_op_cols(op_type, key, updates, env), key,
-                cache=ectx.cache, recorder=ectx.recorder)
+    params, arrays = optim_multi(op_type, *_op_cols(op_type, key, updates,
+                                                    env), key,
+                                 cache=ectx.cache, recorder=ectx.recorder)
+    slots = array_slots(op_type, key)
+    for o, i in OPTIM_SLOTS[op_type][1].items():
+        if i == 'Param' or i in slots:
+            col = params if i == 'Param' else arrays[slots.index(i)]
+            for op, t in zip(updates, col):
+                env[op.output(o)[0]] = t
     for op in ops:
         if op.type == 'scale':
             pow_ = env[op.input('X')[0]]
@@ -903,14 +1188,13 @@ def _optim_op(op_type):
         """One op, functional: the update runs on copies of its state."""
         key = optim_key(op_type, attrs)
         slots = array_slots(op_type, key)
-        p = ins['Param'].clone()
-        arrays = [[ins[s].clone()] for s in slots]
         scalar = OPTIM_SLOTS[op_type][2]
-        optim_multi(op_type, [p], [ins['Grad']], arrays,
-                    [ins[scalar]] if scalar else None,
-                    None if op_type == 'adadelta' else
-                    [ins['LearningRate']], key,
-                    recorder=getattr(ctx, 'recorder', None))
+        (p,), arrays = optim_multi(
+            op_type, [ins['Param'].clone()], [ins['Grad']],
+            [[ins[s].clone()] for s in slots],
+            [ins[scalar]] if scalar else None,
+            None if op_type == 'adadelta' else [ins['LearningRate']], key,
+            recorder=getattr(ctx, 'recorder', None))
         outs = {'ParamOut': p}
         for o, i in OPTIM_SLOTS[op_type][1].items():
             if i in slots:
@@ -928,16 +1212,21 @@ for _t in OPTIM_SLOTS:
 def lars_momentum(ctx, ins, attrs):
     """The reference's (paddle_tpu/ops/optimizer_ops.py:37-48), one op a
     tensor in plain torch ops (no kernel: XLA computes it there, the
-    fuse pass leaves it out), the norms as sqrt(sum(square(x)))."""
+    fuse pass leaves it out), the norms as sqrt(sum(square(x))), with
+    jnp's dtypes: the learning rate and the norms as arrays of p's rank
+    (`_dims`), so the float32 rate promotes a bf16 update to float32, and
+    each Python constant in the dtype of the array it meets (`_weak`)."""
     p, g, v = ins['Param'], ins['Grad'], ins['Velocity']
+    w = _weak
     mu = attrs.get('mu', 0.9)
     coeff = attrs.get('lars_coeff', 0.001)
     decay = attrs.get('lars_weight_decay', 0.0005)
-    lr = ins['LearningRate'].reshape(())
-    pn = torch.sqrt(torch.sum(torch.square(p)))
-    gn = torch.sqrt(torch.sum(torch.square(g)))
-    local_lr = lr * coeff * pn / (gn + decay * pn + 1e-12)
-    vn = mu * v + local_lr * (g + decay * p)
+    lr = _dims(ins['LearningRate'], p)
+    pn = _dims(torch.sqrt(torch.sum(torch.square(p))), p)
+    gn = _dims(torch.sqrt(torch.sum(torch.square(g))), p)
+    den = gn + w(decay, pn) * pn
+    local_lr = lr * w(coeff, lr) * pn / (den + w(1e-12, den))
+    vn = w(mu, v) * v + local_lr * (g + w(decay, p) * p)
     return {'ParamOut': p - vn, 'VelocityOut': vn}
 
 

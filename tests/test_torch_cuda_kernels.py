@@ -774,10 +774,16 @@ def test_momentum_multi_kernel_is_bitwise_the_plain_version(cuda, nesterov):
 
 
 def test_momentum_multi_raises_on_what_the_kernel_does_not_take(cuda):
-    p = torch.zeros(8, device='cuda', dtype=torch.bfloat16)
+    # no instance takes float16, or a bf16 learning rate; the message
+    # names the dtypes
+    p = torch.zeros(8, device='cuda', dtype=torch.float16)
     lr = torch.full((1,), 0.1, device='cuda')
-    with pytest.raises(ValueError, match='float32'):
+    with pytest.raises(ValueError, match='float32.*float16'):
         oo.momentum_multi([p], [p.clone()], [p.clone()], [lr], 0.9, False)
+    b = torch.zeros(8, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='bfloat16'):
+        oo.momentum_multi([b], [b.clone()], [b.clone()],
+                          [lr.to(torch.bfloat16)], 0.9, False)
     q = torch.zeros(4, 4, device='cuda')
     with pytest.raises(ValueError, match='contiguous'):
         oo.momentum_multi([q.t()], [q], [q.clone()], [lr], 0.9, False)
@@ -852,9 +858,10 @@ def test_optim_multi_kernel_is_the_plain_version(cuda, case):
 
 
 def test_optim_multi_raises_on_what_the_kernel_does_not_take(cuda):
-    p = torch.zeros(8, device='cuda', dtype=torch.bfloat16)
+    # no instance takes float16; the message names the dtypes
+    p = torch.zeros(8, device='cuda', dtype=torch.float16)
     lr = torch.full((1,), 0.1, device='cuda')
-    with pytest.raises(ValueError, match='float32'):
+    with pytest.raises(ValueError, match='float32.*float16'):
         oo.adagrad_multi([p], [p.clone()], [[p.clone()]], None, [lr],
                          (1e-6,))
     q = torch.zeros(4, 4, device='cuda')
@@ -862,6 +869,160 @@ def test_optim_multi_raises_on_what_the_kernel_does_not_take(cuda):
         oo.sgd_multi([q.t()], [q], [], None, [lr], ())
     with pytest.raises(ValueError, match='one device'):
         oo.sgd_multi([q], [q.cpu()], [], None, [lr], ())
+
+
+# the bf16 instances' dtype mixes: (param, grad, state); the learning
+# rate float32.  A bf16 param's first step (all bf16), its second (the
+# param float32, the state bf16), and a float32 param under a bf16 grad.
+BF16_MIXES = [(torch.bfloat16, torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.float32, torch.bfloat16),
+              (torch.float32, torch.bfloat16, torch.float32)]
+
+
+def _bf16_shapes():
+    # a chunk and one more, and ragged sizes
+    return [(1,), (7,), (oo._OPTIM_CHUNK + 1,), (3, 3333), (64, 1024)]
+
+
+@pytest.mark.parametrize('nesterov', [False, True])
+@pytest.mark.parametrize('mix', range(len(BF16_MIXES)))
+def test_momentum_bf16_instance_is_bitwise_the_plain_version(cuda, mix,
+                                                             nesterov):
+    """C11 on the card: momentum_bf16_kernel against momentum_reference on
+    copies, the outputs in jnp's promoted dtypes (the param float32),
+    bit for bit."""
+    p_dt, g_dt, v_dt = BF16_MIXES[mix]
+    g = torch.Generator(device='cuda').manual_seed(6)
+    shapes = _bf16_shapes()
+    params = [(0.05 * _randn(g, *s)).to(p_dt) for s in shapes]
+    vels = [(1e-3 * _randn(g, *s)).to(v_dt) for s in shapes]
+    grads = [(1e-2 * _randn(g, *s)).to(g_dt) for s in shapes]
+    lrs = [torch.full((1,), 0.1, device='cuda')] * len(shapes)
+    ref = [[t.clone() for t in params], [t.clone() for t in vels]]
+    before = kernels.launches['momentum_multi_bf16']
+    got = oo.momentum_multi(params, grads, vels, lrs, 0.9, nesterov)
+    want = oo.momentum_reference(ref[0], grads, ref[1], lrs, 0.9, nesterov)
+    torch.cuda.synchronize()
+    assert kernels.launches['momentum_multi_bf16'] == before + 1
+    assert all(t.dtype == torch.float32 for t in got[0])
+    for col, wcol in zip(got, want):
+        for a, r in zip(col, wcol):
+            assert a.dtype == r.dtype and torch.equal(a, r)
+
+
+@pytest.mark.parametrize('mix', range(len(BF16_MIXES)))
+@pytest.mark.parametrize('case', sorted(OPTIM_CASES))
+def test_optim_bf16_instance_is_the_plain_version(cuda, case, mix):
+    """C11 on the card: each instance's optim_bf16_kernel against
+    optim_reference on copies, the outputs in jnp's promoted dtypes, bit
+    for bit; the pow instance's param and linear accumulator within
+    ftrl_pow_bound.  adamax's Beta1Pow in the state's dtype."""
+    p_dt, g_dt, s_dt = BF16_MIXES[mix]
+    op_type, attrs = OPTIM_CASES[case]
+    key = oo.optim_key(op_type, attrs)
+    g = torch.Generator(device='cuda').manual_seed(8)
+    params, arrays, scalars = chip_smoke.optim_state(op_type, key,
+                                                     _bf16_shapes(), g)
+    params = [t.to(p_dt) for t in params]
+    arrays = [[t.to(s_dt) for t in col] for col in arrays]
+    scalars = scalars and [t.to(s_dt) for t in scalars]
+    grads = [(1e-2 * _randn(g, *p.shape)).to(g_dt) for p in params]
+    lrs = None if op_type == 'adadelta' else \
+        [torch.full((1,), 0.1, device='cuda')] * len(params)
+    ins = [t.clone() for t in params], [[t.clone() for t in c]
+                                        for c in arrays]
+    # sgd has no state: its mix without a bf16 param or grad is the
+    # float32 instance's
+    bf = any(t.dtype == torch.bfloat16 for t in params + grads +
+             [t for c in arrays for t in c] + (scalars or []))
+    name = oo._kind(op_type, key) + ('_multi_bf16' if bf else '_multi')
+    before = kernels.launches[name]
+    got = oo.optim_multi(op_type, params, grads, arrays, scalars, lrs, key)
+    want = oo.optim_reference(op_type, [t.clone() for t in ins[0]], grads,
+                              [[t.clone() for t in c] for c in ins[1]],
+                              scalars, lrs, key)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    outs = got[0] + [t for c in got[1] for t in c]
+    refs = want[0] + [t for c in want[1] for t in c]
+    assert [t.dtype for t in outs] == [t.dtype for t in refs]
+    if case != 'ftrl_pow':
+        # NaN where NaN: centered rmsprop's root of a bf16 mean square
+        # that rounding took below its mean grad squared
+        for a, r in zip(outs, refs):
+            assert ((a == r) | (a.isnan() & r.isnan())).all()
+        return
+    for i in range(len(params)):
+        bp, bz = oo.ftrl_pow_bound(ins[0][i], grads[i], ins[1][0][i],
+                                   ins[1][1][i], lrs[i], key)
+        assert ((got[0][i].double() - want[0][i].double()).abs()
+                <= bp).all()
+        assert ((got[1][1][i].double() - want[1][1][i].double()).abs()
+                <= bz).all()
+        assert torch.equal(got[1][0][i], want[1][0][i])
+
+
+def _se_like_segment(sizes, dtypes):
+    """One generated segment like SE-ResNeXt-50's L2Decay: per parameter
+    p_k of sizes[k] and dtypes[k], d_k = scale(p_k, 1e-4) and
+    g2_k = g_k + d_k; parameters of one size share a group."""
+    subs, args, outs = [], [], []
+    for k in range(len(sizes)):
+        subs += [
+            {'type': 'scale', 'inputs': {'X': ['p%d' % k]},
+             'outputs': {'Out': ['d%d' % k]}, 'input_is_list': {'X': False},
+             'output_is_list': {'Out': False}, 'stop_grad': [],
+             'attrs': {'scale': 1e-4, 'bias': 0.0,
+                       'bias_after_scale': True}},
+            {'type': 'elementwise_add',
+             'inputs': {'X': ['g%d' % k], 'Y': ['d%d' % k]},
+             'outputs': {'Out': ['o%d' % k]},
+             'input_is_list': {'X': False, 'Y': False},
+             'output_is_list': {'Out': False}, 'stop_grad': [],
+             'attrs': {'axis': -1}}]
+        args += ['p%d' % k, 'g%d' % k]
+        outs.append('o%d' % k)
+    attrs = {'sub_ops': subs, 'arg_names': args, 'out_names': outs,
+             'fused_count': len(subs)}
+    avals = tuple(((n,), d) for n, d in zip(sizes, dtypes) for _ in (0, 1))
+    plan = kernelgen.plan_for(attrs, avals, False)
+    specs = [st[1] for st in plan.steps if st[0] == 'kernel']
+    assert len(specs) == 1
+    return specs[0]
+
+
+@pytest.mark.parametrize('misalign', [False, True])
+def test_multi_group_segment_is_its_replay(cuda, misalign):
+    """A segment of groups of many sizes (SE-ResNeXt-50's decay: 64-entry
+    batch-norm scales to 2.4 M-entry conv weights, none but some dividing
+    by 4 or 8), float32 and bf16, each group on its own tiles: bit for
+    bit its plain replay; with one input 4 bytes off 16-byte alignment,
+    only its group leaves the vector path."""
+    sizes = [64, 64, 1000, 1003, 2048, 4099, 36864, 36864, 262144,
+             2359296, 7, 4100, 33333]
+    dtypes = ['float32'] * 10 + ['bfloat16'] * 3
+    spec = _se_like_segment(sizes, dtypes)
+    g = torch.Generator(device='cuda').manual_seed(9)
+    ents = [(torch.rand(shape, generator=g, device='cuda') + 0.5).to(
+        getattr(torch, dt)) for shape, dt in spec.entry_avals]
+    if misalign:
+        buf = torch.empty(ents[3].numel() + 1, device='cuda',
+                          dtype=ents[3].dtype)
+        buf[1:].copy_(ents[3])
+        ents[3] = buf[1:]
+    before = kernels.launches['kernelgen_segment']
+    outs = kernelgen._launch(spec, ents)
+    refs = spec.replay(ents)
+    torch.cuda.synchronize()
+    assert kernels.launches['kernelgen_segment'] == before + 1
+    for o, r in zip(outs, refs):
+        assert o.dtype == r.dtype and torch.equal(o, r.reshape(o.shape))
+    ptrs = [t.data_ptr() for t in ents] + [o.data_ptr() for o in outs]
+    vec = kernelgen.vector_groups(spec, ptrs)
+    off = [gi for gi, grp in enumerate(spec.layout.groups)
+           if 3 in grp['ptrs']]
+    assert vec == [not (misalign and gi in off)
+                   for gi in range(len(vec))]
 
 
 def test_float32_conv2d_is_float32_when_cudnn_may_use_tf32(cuda):

@@ -23,6 +23,12 @@
   identical segments of every layer, broadcast index maps that address
   what numpy broadcasting addresses; every fusable op the port registers
   has a rule; an unsupported sub-op raises naming itself.
+- The tile table baked into a segment's source (builder.Layout): read
+  back from the source of a segment with groups of sizes that divide by
+  neither 4 nor 8, over float32, bf16 and bool operands, and each
+  block's (group, tile) emulated: every element of every group is run
+  exactly once, each group at the vector width of 16 bytes of its
+  widest operand.
 """
 import os
 import re
@@ -404,7 +410,7 @@ def test_generated_source_is_deterministic_and_shared_across_layers():
     # segments of the layers share one function
     assert len(set(names)) < len(names)
     assert len(set(names)) == first.count('extern "C" int ')
-    assert '__fadd_rn' in first and 'kg_ldv<V>' in first
+    assert '__fadd_rn' in first and 'kg_ldv<V, CS, F>' in first
 
 
 @pytest.mark.parametrize('eff,out', [
@@ -452,3 +458,110 @@ def test_no_card_no_build(monkeypatch):
         pytest.skip('this machine has the CUDA toolkit')
     with pytest.raises(RuntimeError, match='nvcc'):
         build.build_generated('// nothing\n')
+
+
+# ---------------------------------------------------- the tile table
+
+def _multi_group_segment():
+    """One segment of five groups, none of a size that divides by 4 or 8
+    but the first, over float32, bf16 and bool operands, with a size-1
+    chain: float32 add + relu at 40,000 (and an add of the size-1 value),
+    a bf16 mul at 1,003, a float32 less_than (a bool out) at 37, an
+    int32 add at 4,099, a logical_not of a bool at 777."""
+    subs = [
+        _sub('elementwise_add', {'X': ['a'], 'Y': ['b']}, {'Out': ['c']}),
+        _sub('relu', {'X': ['c']}, {'Out': ['d']}),
+        _sub('elementwise_mul', {'X': ['e'], 'Y': ['f']}, {'Out': ['h']}),
+        _sub('less_than', {'X': ['k'], 'Y': ['m']}, {'Out': ['q']}),
+        _sub('scale', {'X': ['s']}, {'Out': ['t']}, {'scale': 2.0}),
+        _sub('elementwise_add', {'X': ['a2'], 'Y': ['t']}, {'Out': ['c2']}),
+        _sub('elementwise_add', {'X': ['i1'], 'Y': ['i2']}, {'Out': ['i3']}),
+        _sub('logical_not', {'X': ['l1']}, {'Out': ['l2']}),
+    ]
+    args = ['a', 'b', 'e', 'f', 'k', 'm', 's', 'a2', 'i1', 'i2', 'l1']
+    avals = (((40000,), 'float32'),) * 2 + (((1003,), 'bfloat16'),) * 2 + \
+        (((37,), 'float32'),) * 2 + (((1,), 'float32'),
+                                      ((40000,), 'float32')) + \
+        (((4099,), 'int32'),) * 2 + (((777,), 'bool'),)
+    attrs = _attrs(subs, args, ['d', 'h', 'q', 't', 'c2', 'i3', 'l2'])
+    plan = tkg.plan_for(attrs, avals, False)
+    specs = [st[1] for st in plan.steps if st[0] == 'kernel']
+    assert len(specs) == 1
+    return specs[0]
+
+
+def _read_tile_table(src):
+    """(threads, grid, [(N, V, end block, first block, tile elements)])
+    from a segment's generated source."""
+    grid, threads = map(int, re.search(r'<<<(\d+)u, (\d+), 0', src).groups())
+    heads = re.findall(
+        r'if \(b < (\d+)u\) \{  // group \d+: N (\d+), V (\d+),', src)
+    bases = re.findall(r'b0 = \(long long\)\(b - (\d+)u\) \* (\d+)LL', src)
+    assert len(heads) == len(bases)
+    return threads, grid, [(int(n), int(v), int(end), int(s), int(t))
+                           for (end, n, v), (s, t) in zip(heads, bases)]
+
+
+def test_the_tile_table_runs_every_element_of_every_group_once():
+    """Each block b takes the first group whose end block exceeds it and
+    runs its tile b - first: thread x's vector starts at (b - first)
+    tile + x V and holds min(V, N - start) elements."""
+    spec = _multi_group_segment()
+    src = tkg.generated_source([spec.name])
+    threads, grid, table = _read_tile_table(src)
+    assert threads == spec.layout.threads
+    assert [g[0] for g in table] == sorted(spec.groups, reverse=True)
+    runs = {n: np.zeros(n, np.int64) for n, *_ in table}
+    x = np.arange(threads)
+    for b in range(grid):
+        n, v, end, first, tile = next(g for g in table if b < g[2])
+        assert first <= b and tile == threads * v
+        start = (b - first) * tile + x * v
+        for j in range(v):
+            idx = start + j
+            np.add.at(runs[n], idx[idx < n], 1)
+    for n, hits in runs.items():
+        assert (hits == 1).all(), (n, hits.min(), hits.max())
+    # no block is idle beyond a group's last tile, and the grid is the sum
+    assert table[-1][2] == grid == sum(g['tiles'] for g in
+                                       spec.layout.groups)
+
+
+def test_each_group_takes_the_vector_width_of_its_widest_operand():
+    """16 bytes of the widest operand a vector: 4 for the float32 and
+    int32 groups and for the float32 comparison with a bool out (its bool
+    in 4-byte accesses), 8 for the bf16 one, 16 for the bool one; the
+    vector path's pointers are the group's own flat ones."""
+    spec = _multi_group_segment()
+    widths = {g['n']: g['v'] for g in spec.layout.groups}
+    assert widths == {40000: 4, 4099: 4, 1003: 8, 37: 4, 777: 16}
+    assert tbuilder.Layout([(37, 4, ())], 0).groups[0]['v'] == 4
+    assert tbuilder.Layout([(37, 2, ())], 0).groups[0]['v'] == 8
+    sizes = [tbuilder._size(s) for s, _ in spec.entry_avals] + \
+        [tbuilder._size(s) for s, _ in spec.esc_aval]
+    for g in spec.layout.groups:
+        assert {sizes[ix] for ix in g['ptrs']} == {g['n']}
+    # the launch's vector bits: aligned pointers take the vector path,
+    # one pointer off 16 bytes takes its group (and only it) off
+    n = len(sizes)
+    ptrs = [4096 * (k + 1) for k in range(n)]
+    assert tkg.vector_groups(spec, ptrs) == [True] * len(spec.layout.groups)
+    off = spec.layout.groups[1]['ptrs'][0]
+    ptrs[off] += 4
+    assert tkg.vector_groups(spec, ptrs) == [
+        gi != 1 for gi in range(len(spec.layout.groups))]
+
+
+def test_threads_and_vectors_a_thread_follow_the_sizes():
+    """A large float32 group runs 256 threads, a small segment 128; a
+    segment in STREAM_BYTES' range streams, one past it does not; a
+    thread runs one vector, and a group's tiles follow the one before
+    it."""
+    lay = tbuilder.Layout([(4 << 20, 4, ())], 48 << 20)
+    assert (lay.threads, lay.groups[0]['tile'], lay.streaming) == \
+        (256, 1024, True)
+    assert not tbuilder.Layout([(64 << 20, 4, ())], 512 << 20).streaming
+    lay = tbuilder.Layout([(64, 4, ()), (1000, 4, ())], 8000)
+    assert lay.threads == 128 and not lay.streaming
+    assert [g['tiles'] for g in lay.groups] == [1, 2]
+    assert [g['start'] for g in lay.groups] == [0, 1] and lay.grid == 3
