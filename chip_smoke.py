@@ -2,9 +2,10 @@
 """Serve llama_1b (float32 and bf16, and as a streaming generation server)
 and llamas at Phi-3-mini's widths (head dim 96) and GPT-J-6B's (head dim
 256), train transformer-base, llama_1b, ResNet-50, SE-ResNeXt-50, VGG-16,
-the MNIST CNN, DeepFM, Wide&Deep (under every optimizer) and word2vec
-through paddle_tpu_torch on one NVIDIA GPU, and hold each hand-written
-CUDA kernel against its plain PyTorch version.
+the MNIST CNN, DeepFM, Wide&Deep (under every optimizer), word2vec and
+the stacked dynamic-LSTM LM (ragged LoD feeds) through paddle_tpu_torch
+on one NVIDIA GPU, and hold each hand-written CUDA kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py                      # all phases, one card
     python3 chip_smoke.py --phases card,kernels
@@ -18,6 +19,7 @@ CUDA kernel against its plain PyTorch version.
     python3 chip_smoke.py --phases card,kernels,training_resnet50,train_resnet_gpu_vs_cpu
     python3 chip_smoke.py --phases card,kernels,training_se_resnext50,training_vgg16,training_mnist,train_conv_gpu_vs_cpu
     python3 chip_smoke.py --phases card,training_ctr,training_optimizers,training_word2vec,train_ctr_gpu_vs_cpu
+    python3 chip_smoke.py --phases card,training_stacked_lstm,train_seq_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -93,10 +95,10 @@ Phases, each printing JSON lines:
   serving_d96 a llama at Phi-3-mini's widths (d_model 3072, 32 heads
               and 32 KV heads, so D = 96, FFN 8192, vocab 32064, rope
               theta 10000; microsoft/Phi-3-mini-4k-instruct), max_len
-              2048, cut to 8 of its 32 layers (1.1 B parameters, random
+              2048, cut to 4 of its 32 layers (0.65 B parameters, random
               weights from a seed), built, saved and loaded by Predictor
               in float32 and with enable_bf16: one profiled 4-row batch
-              of 2048 tokens in each (batch ms, flash ms), whose 8 flash
+              of 2048 tokens in each (batch ms, flash ms), whose 4 flash
               forwards must all be the padded tensor-core kernel of width
               128 (fwd_tf32x3, fwd_wgmma); bf16 within the bf16 bound of
               float32
@@ -323,6 +325,26 @@ Phases, each printing JSON lines:
               3 steps on the card and on the CPU from one state; losses
               within 1e-5 relative, every parameter and optimizer state
               within the L2 bound the phase derives and prints
+  training_stacked_lstm
+              models/stacked_lstm.py at its defaults (dict 5147, emb and
+              hid 512, 3 layers, layers 2 and 3 alternately reversed,
+              Adam 0.002), B 32 synthetic reviews of 32-512 tokens (cut
+              from the benchmark's IMDB lengths for the time limit) fed
+              through DataFeeder (a LoDTensor) and FeedBucketer (T
+              bucketed: 512): an interpreted step, the capture, 10 graph
+              steps on one batch (ms, examples/s, real tokens/s), two
+              batches of other lengths replaying the one graph, a profile
+              of two graph steps by group, peak memory; the fixed batch's
+              loss falls; one K4, one K5 and one adam_multi a step
+  train_seq_gpu_vs_cpu
+              the LM at emb and hid 64 (dict 5147, 3 layers, B 8, 3-40
+              tokens: three steps, a fourth batch of the same T bucket
+              with other lengths, a dense array into the lod var) and
+              the recommender at its defaults (MovieLens widths, B 256,
+              three SGD steps) on the card and on the CPU from one
+              state: losses within 1e-5 relative, parameters within 2.01
+              x the summed lr; the LM's predict saved and run by
+              Predictor on a LoDTensor, card against CPU
 The kernels phase also holds one generated segment for each rule of the
 elementwise, comparison, logical and activation ops (RULE_CASES, 4 M
 values from RULE_SPECIALS and normal ones) against its plain op, timed;
@@ -330,13 +352,15 @@ each instance of csrc/optim_multi.cu (OPTIM_CASES) at Wide&Deep's 12
 tensors with 1,000,001 rows (its kernels-line row), at ResNet-50's 161
 and at ragged sizes, bit for bit (the pow instance within its bound),
 timed beside its plain version and torch's optimizer where one exists;
-K4 at the CTR tables (1 and 8 columns, 53,248 int64 ids) beside
-F.embedding.
+K4 at the CTR tables (1 and 8 columns, 53,248 int64 ids) and at the
+sequence models' lookups beside F.embedding; and (C12) the bf16 segment
+of each rule whose Python constants meet the tensor (C12_RULE_CASES) on
+every bf16 bit pattern, bit for bit its plain op.
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu,
-train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu, train_ctr_gpu_vs_cpu)
-run last, and that
+train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu, train_ctr_gpu_vs_cpu,
+train_c11_gpu_vs_cpu, train_seq_gpu_vs_cpu) run last, and that
 training_llama, training_llama_bf16, training_llama_d256 and the conv
 models' training phases run after training_composed.  For the time
 limit some card-vs-CPU runs hold fewer steps (VGG-16, SE-ResNeXt-50 and
@@ -384,7 +408,8 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'train_resnet_gpu_vs_cpu', 'training_se_resnext50',
           'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu',
           'training_ctr', 'training_optimizers', 'training_word2vec',
-          'train_ctr_gpu_vs_cpu', 'train_c11_gpu_vs_cpu')
+          'train_ctr_gpu_vs_cpu', 'train_c11_gpu_vs_cpu',
+          'training_stacked_lstm', 'train_seq_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -1780,7 +1805,7 @@ def path_segments():
     flash training steps (B=32, T=256, bf16 AMP), the flash step in
     float32, the training llama_1b (B=2, T=2048; float32, and the bf16
     build before and after its first step), the ResNet-50 AMP step (B=128,
-    224 x 224), and the served llama_1b
+    224 x 224), the stacked-LSTM LM (B 32, T 512), and the served llama_1b
     decode program at each bucket (1, 2, 4 rows x 2048 tokens) in float32
     and with bf16 parameters: name -> (spec, sub-op types, paths)."""
     import paddle_tpu_torch as fluid
@@ -1815,6 +1840,14 @@ def path_segments():
         main, _, out, cfeed, amp = conv_program(name)
         found.append(('training_' + name, _planned_specs(
             main, cfeed, [out['loss'].name], amp)))
+    # the stacked-LSTM LM at its T bucket of 512
+    from paddle_tpu_torch.core.executor import normalize_feed
+    main, _, out, feeder, bucketer = sl_program()
+    sfeed = sl_feed(feeder, bucketer, review_rows(
+        np.random.RandomState(SEED), SL_B, (SL_LEN[1], SL_LEN[1]), SL_VOCAB))
+    found.append(('training_stacked_lstm', _planned_specs(
+        main, normalize_feed(main.global_block(), sfeed),
+        [out['loss'].name], False)))
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         out = llama.generation_program('llama_1b', mode='decode',
@@ -2291,6 +2324,16 @@ def phase_kernels():
         inst_gather['ctr_d%d' % D] = gather_case(
             'ctr_d%d' % D, CTR_VOCAB, D, CTR_B * 26, 'float32', ids64=True,
             timed=True)
+    # K4 at the sequence models' lookups: the LM's [32, 512] int64 ids
+    # into its [5147, 512] table, the recommender's titles (B 256 x 15
+    # ids into [5175, 32])
+    gather_seq = {
+        'stacked_lstm': gather_case('stacked_lstm', SL_VOCAB, SL_EMB,
+                                    SL_B * SL_LEN[1], 'float32', ids64=True,
+                                    timed=True),
+        'recommender_title': gather_case('recommender_title', 5175, 32,
+                                         RC_B * RC_TITLE[1], 'float32',
+                                         ids64=True, timed=True)}
     # the composed attention's scores: [32, 8, 256, 256] float32
     served['softmax'] = softmax_case('path_f32', 65536, 256, 'float32',
                                      timed=True)
@@ -2307,6 +2350,7 @@ def phase_kernels():
     t0 = time.perf_counter()
     specs = path_segments()
     rules = rule_specs()
+    rules_bf16 = rule_specs_bf16()
     kernelgen.ensure_built()
     log = kernelgen.build_stats['log']
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2323,7 +2367,12 @@ def phase_kernels():
     # path of its own
     for case, spec in rules.items():
         rule_case(case, spec)
-    return {'rows': served, 'instances': inst, 'gather_ctr': inst_gather}
+    # C12: each rule whose constants meet the tensor, its bf16 segment on
+    # every bf16 value, bit for bit its plain op
+    for case, spec in rules_bf16.items():
+        rule_case_bf16(case, spec)
+    return {'rows': served, 'instances': inst, 'gather_ctr': inst_gather,
+            'gather_seq': gather_seq}
 
 
 # ------------------------------------------------------------- phase 3
@@ -2766,8 +2815,8 @@ def _serve(phase, smi, bf16):
 
 # Phi-3-mini's widths (microsoft/Phi-3-mini-4k-instruct config.json:
 # hidden 3072, 32 heads and 32 KV heads, so D = 96, FFN 8192, vocab 32064,
-# rope theta 10000) on the llama architecture, cut to 8 of its 32 layers
-D96_CFG = dict(vocab=32064, d_model=3072, n_layer=8, n_head=32,
+# rope theta 10000) on the llama architecture, cut to 4 of its 32 layers
+D96_CFG = dict(vocab=32064, d_model=3072, n_layer=4, n_head=32,
                n_kv_head=32, d_ffn=8192, theta=10000.0, max_len=2048)
 # GPT-J-6B's widths (EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head
 # 16, so D = 256; n_inner null, so the FFN is 4 x 4096; vocab_size 50400,
@@ -2787,13 +2836,14 @@ GPTJ_REDUCED = [
 def phase_serving_d96(smi):
     """The served llama at a head dim other than 64 and 128 (Phi-3-mini's
     widths, D = 96), float32 and enable_bf16: one profiled 4-row batch of
-    2048 tokens each, whose 8 flash forwards must be the padded
+    2048 tokens each, whose 4 flash forwards must be the padded
     tensor-core kernel of width 128; bf16 within the bf16 bound of
     float32.  -> {path: launches a batch}."""
     return _serve_widths(
         'serving_d96', smi, D96_CFG, 'phi3_mini_widths',
-        'n_layer 32 -> 8 (the save, the load and the script within the '
-        'time limit)', (_padded_width(96), True))
+        'n_layer 32 -> 4 (the save, the load and the script within the '
+        'time limit; 8 until the sequence phases came)',
+        (_padded_width(96), True))
 
 
 def phase_serving_d256(smi):
@@ -4809,7 +4859,9 @@ def phase_train_llama_gpu_vs_cpu():
         fluid.scope_from_numpy({n: t.cpu() for n, t in gpu.vars.items()},
                                cpu, 'cpu')
         res = {}
-        steps = 1 if name.startswith('gptj') else 2
+        # one step where the CPU's take ~7-20 s each (for the time limit)
+        steps = 1 if name.startswith('gptj') or name == 'llama_1b_2l' \
+            else 2
         for dev, scope, exe in (('gpu', gpu, gexe), ('cpu', cpu, cexe)):
             t0 = time.perf_counter()
             if dev == 'gpu':
@@ -5653,6 +5705,78 @@ def rule_case(case, spec, n=RULE_N):
     return row
 
 
+# C12's rule cases: each op that takes a Python constant, with constants
+# bf16 does not hold (jnp rounds them to bf16 first, as weak types)
+C12_RULE_CASES = {
+    'relu6': ('relu6', {'threshold': 5.3}),
+    'leaky_relu': ('leaky_relu', {'alpha': 0.3}),
+    'elu': ('elu', {'alpha': 0.7}), 'selu': ('selu', {}),
+    'brelu': ('brelu', {'t_min': -1.3, 't_max': 5.3}),
+    'soft_relu': ('soft_relu', {'threshold': 3.3}),
+    'hard_sigmoid': ('hard_sigmoid', {}), 'stanh': ('stanh', {}),
+    'pow': ('pow', {'factor': 1.3}),
+    'thresholded_relu': ('thresholded_relu', {'threshold': 1.006}),
+    'hard_shrink': ('hard_shrink', {'threshold': 0.3}),
+    'softshrink': ('softshrink', {'lambda': 0.3}),
+    'scale': ('scale', {'scale': 0.3, 'bias': 0.1}),
+    'scale_bias_first': ('scale', {'scale': 0.3, 'bias': 0.1,
+                                   'bias_after_scale': False}),
+    'swish': ('swish', {'beta': 0.3}),
+    'clip': ('clip', {'min': -1.3, 'max': 2.3}),
+    'increment': ('increment', {'step': 0.1}),
+    'dropout_test': ('dropout', {'dropout_prob': 0.3, 'is_test': True}),
+    'sigmoid': ('sigmoid', {}),
+}
+C12_N = 1 << 20
+
+
+def rule_specs_bf16(n=C12_N):
+    """The generated bf16 segment of each C12_RULE_CASES case at n values:
+    case -> spec (planned, not built)."""
+    from paddle_tpu_torch.ops import kernelgen
+    out = {}
+    for case, (op, attrs) in C12_RULE_CASES.items():
+        plan = kernelgen.plan_for(rule_fused_attrs(op, attrs),
+                                  (((n,), 'bfloat16'),), False)
+        kinds = [st[0] for st in plan.steps]
+        require(kinds == ['kernel'], 'bf16 rule %s planned as %s'
+                % (case, kinds))
+        out[case] = plan.steps[0][1]
+    return out
+
+
+def rule_case_bf16(case, spec, n=C12_N):
+    """One C12 rule's bf16 segment on every bf16 bit pattern (subnormals,
+    +-0, +-inf, NaNs and each constant's neighbours), then normal values,
+    against its plain op on the card: the same bits (any NaN as NaN)."""
+    import torch
+    from paddle_tpu_torch.ops import kernelgen
+    g = torch.Generator(device='cuda').manual_seed(SEED + 22)
+    x = (torch.randn(n, generator=g, device='cuda') * 3).to(torch.bfloat16)
+    x[:1 << 16] = torch.arange(1 << 16, dtype=torch.int32,
+                               device='cuda').to(torch.int16).view(
+                                   torch.bfloat16)
+    with torch.no_grad():
+        out, = kernelgen._launch(spec, [x])
+        ref, = spec.replay([x])
+        torch.cuda.synchronize()
+    same = (out.view(torch.int16) == ref.view(torch.int16)) | (
+        torch.isnan(out.float()) & torch.isnan(ref.float()))
+    bad = int((~same).sum())
+    row = dict(phase='kernels', kernel='kernelgen_rule_bf16', case=case,
+               op=C12_RULE_CASES[case][0], attrs=C12_RULE_CASES[case][1],
+               name=spec.name, n=n, out_dtype=spec.esc_aval[0][1],
+               mismatches=bad, bit_for_bit=not bad)
+    if bad:
+        idx = torch.nonzero(~same)[:8, 0]
+        row['first_mismatches'] = [[float(x[i]), float(out[i]),
+                                    float(ref[i])] for i in idx.tolist()]
+    emit(**row)
+    require(not bad, 'bf16 rule %s: its generated segment differs from the '
+            'plain op at %d values: %s' % (case, bad, row))
+    return row
+
+
 def _resnet_program(fluid, resnet, amp, for_test=False, **kw):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
@@ -6413,6 +6537,417 @@ SEGMENT_SOURCE = ('paddle_tpu_torch/ops/kernelgen/builder.py',
                   'paddle_tpu/ops/kernelgen/builder.py:795')
 
 
+# ------------------------------------------------- the sequence models
+
+# the stacked dynamic-LSTM LM at models/stacked_lstm.py's defaults: dict
+# 5147, emb and hid 512, 3 layers, 2 classes, Adam 0.002; B reviews of
+# SL_LEN tokens (uniform), bucketed on T by FeedBucketer
+SL_VOCAB, SL_EMB = 5147, 512
+SL_B = 32
+SL_LEN = (32, 512)
+SL_STEPS = 10
+# the recommender at models/simple.py's defaults, B rows; categories and
+# title words a movie (uniform)
+RC_B = 256
+RC_CATS = (1, 6)
+RC_TITLE = (1, 15)
+
+
+def review_rows(rng, B, lens, vocab):
+    """B synthetic IMDB-like reviews as DataFeeder rows (word ids, label):
+    lengths uniform in `lens`, ids and labels from `rng`."""
+    rows = []
+    for _ in range(B):
+        n = int(rng.randint(lens[0], lens[1] + 1))
+        rows.append((rng.randint(0, vocab, n).astype('int64'),
+                     [int(rng.randint(0, 2))]))
+    return rows
+
+
+def sl_program(seed=SEED, **kw):
+    """models/stacked_lstm.build(**kw) through the port: (main, startup,
+    out, DataFeeder, FeedBucketer on the words' T)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import stacked_lstm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = stacked_lstm.build(**kw)
+    feeder = fluid.DataFeeder(out['feeds'], program=main)
+    return main, startup, out, feeder, fluid.FeedBucketer(
+        seq_names=('words',))
+
+
+def sl_feed(feeder, bucketer, rows):
+    """Reader rows -> the bucketed feed: a LoDTensor padded on T to its
+    boundary, its lengths the reviews'."""
+    feed, n = bucketer.bucket_feed(feeder.feed(rows))
+    require(n == len(rows), 'the bucketer padded the batch: %d' % n)
+    return feed
+
+
+def rc_program(B=RC_B, seed=SEED, n_steps=1):
+    """models/simple.py::recommender at its defaults (MovieLens-1M: 6041
+    users, 3953 movies, 18 categories, title vocabulary 5175, dim 32,
+    SGD 1e-3): (main, startup, out, feeds), n_steps bucketed feeds of B
+    rows drawn from `seed`."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import simple
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = simple.recommender()
+    feeder = fluid.DataFeeder(out['feeds'], program=main)
+    bucketer = fluid.FeedBucketer(seq_names=('category_id', 'movie_title'))
+    rng = np.random.RandomState(seed)
+    feeds = []
+    for _ in range(n_steps):
+        rows = [(rng.randint(0, 6041), rng.randint(0, 2), rng.randint(0, 7),
+                 rng.randint(0, 21), rng.randint(0, 3953),
+                 rng.randint(0, 18, rng.randint(RC_CATS[0], RC_CATS[1] + 1)),
+                 rng.randint(0, 5175, rng.randint(RC_TITLE[0],
+                                                  RC_TITLE[1] + 1)),
+                 [rng.rand() * 5]) for _ in range(B)]
+        feeds.append(bucketer.bucket_feed(feeder.feed(rows))[0])
+    return main, startup, out, feeds
+
+
+def _seq_group(name):
+    """A profiler key's group in a stacked-LSTM step: the port's kernels
+    (_group: K4, K5, K7's Adam and segments), the GEMMs (the
+    projections and each step's h W, forward and backward), the
+    elementwise functors the LSTM cell runs step by step (sigmoid, tanh,
+    mul, add, sub, where and their backwards, the stacks and flips), the
+    copies, the rest (the reductions: bias gradients, pooling, loss)."""
+    own = _group(name)
+    if own in KERNEL_GROUPS:
+        return own
+    low = name.lower()
+    if 'memcpy' in low or 'memset' in low:
+        return 'copies'
+    if any(t in low for t in ('gemm', 'cutlass', 'sm90_', 'xmma', 'cublas',
+                              'nvjet')):
+        return 'gemm'
+    if any(t in low for t in ('sigmoid', 'tanh', 'mulfunctor', 'add',
+                              'sub', 'where', 'catarray', 'flip',
+                              'copy_kernel', 'fill')):
+        return 'recurrence_elementwise'
+    return 'other'
+
+
+def _seq_profile(fn):
+    """One torch.profiler trace of fn() for both readings a LM step
+    needs: (host wall ms, device busy ms, {_seq_group: device ms}, device
+    events, {KERNEL_GROUPS group: device launches}, the wrappers' counts
+    over the window, tries).  A window of two steps: a one-step trace lost
+    its first kernel (K4) in three tries of three.  Taken again, up to
+    PROFILE_TRIES times, while a counted group is missing or over its
+    count on the device (the profiler drops events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import kernels
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counted = {k: (v - before.get(k, 0)) * DEVICE_KERNELS.get(k, 1)
+                   for k, v in kernels.launches.items()
+                   if k in KERNEL_GROUPS and v != before.get(k, 0)}
+        by_group, groups, seen = {}, {}, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            g = _group(e.key)
+            if g in KERNEL_GROUPS:
+                groups[g] = groups.get(g, 0) + e.count
+            if e.self_device_time_total:
+                k = _seq_group(e.key)
+                by_group[k] = by_group.get(k, 0.0) + \
+                    e.self_device_time_total / 1e3
+                seen += e.count
+        if all(0 < groups.get(g, 0) <= counted.get(g, 0)
+               for g in set(groups) | set(counted)):
+            break
+    return wall, sum(by_group.values()), by_group, seen, groups, counted, \
+        tries
+
+
+def phase_training_stacked_lstm(smi):
+    """The stacked dynamic-LSTM LM at full width (dict 5147, emb and hid
+    512, 3 layers, layers 2 and 3 alternating is_reverse), B SL_B
+    reviews of SL_LEN tokens fed through DataFeeder (a LoDTensor) and
+    FeedBucketer (T bucketed: every batch here falls in the 512 bucket),
+    Adam (csrc/adam.cu): an interpreted first step, the capture, SL_STEPS
+    graph steps on one fixed batch (ms median and range, examples/s, real
+    tokens/s: the sum of the lengths), then two batches of other lengths
+    in the same bucket (replays of the one graph); a profile of a graph
+    steps by group (_seq_profile: device busy, idle share, the launches
+    on the profiler), peak memory,
+    the captured graphs, launches a step.  Gates: finite losses, the
+    fixed batch's loss below its first after the timed steps, K4, K5 and
+    one adam_multi a step, no plain version on the card.  -> launches a
+    step."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    main, startup, out, feeder, bucketer = sl_program()
+    rng = np.random.RandomState(SEED)
+    fixed = review_rows(rng, SL_B, SL_LEN, SL_VOCAB)
+    others = [review_rows(rng, SL_B, SL_LEN, SL_VOCAB) for _ in range(2)]
+    feed = sl_feed(feeder, bucketer, fixed)
+    T = feed['words'].padded.shape[1]
+    tokens = int(feed['words'].lengths.sum())
+    params = [p for p in main.all_parameters() if p.trainable]
+    emit(phase='training_stacked_lstm', step='config', B=SL_B,
+         cfg=dict(dict_dim=SL_VOCAB, emb_dim=SL_EMB, hid_dim=512,
+                  stacked_num=3, class_dim=2), optimizer='Adam(lr=0.002)',
+         lengths=list(SL_LEN), T_bucket=T, real_tokens=tokens,
+         params=sum(int(np.prod(p.shape)) for p in params),
+         reduced='review lengths 32-512 tokens (uniform) for the time limit')
+    fetch = [out['loss']]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope), PlainCalls() as plain:
+        exe.run(startup)
+        torch.cuda.synchronize()
+        # the earlier phases' cached blocks out of this phase's reading
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+
+        def step(f):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=f,
+                                        fetch_list=fetch)[0][0]))
+            return (time.perf_counter() - t0) * 1e3
+        first_ms = step(feed)       # interpreted: builds the kernels
+        capture_ms = step(feed)     # capture, then replay
+        kernels.reset_launches()
+        kernelgen.launches.clear()
+        graph_ms = [step(feed) for _ in range(SL_STEPS)]
+        launches = {k: v / SL_STEPS for k, v in kernels.launches.items()
+                    if v}
+        seg = {k: v / SL_STEPS for k, v in kernelgen.launches.items()}
+        step(feed)
+        last = losses[-1]
+        other_feeds = [sl_feed(feeder, bucketer, r) for r in others]
+        other_ms = [step(f) for f in other_feeds]
+        mem = _peak_memory()
+        entries = [e for e in exe._graphs.entries.values()
+                   if e.graph is not None]
+
+        wall, busy, by_group, seen, groups, counted, tries = _seq_profile(
+            lambda: [exe.run(main, feed=feed, fetch_list=fetch)
+                     for _ in range(2)])
+    med = float(np.median(graph_ms))
+    emit(phase='training_stacked_lstm', step='steps', B=SL_B, T_bucket=T,
+         losses=losses, first_step_ms=first_ms, capture_step_ms=capture_ms,
+         capture_s=[e.capture_s for e in entries],
+         captured_graphs=len(entries), graph_step_ms=graph_ms,
+         median_graph_step_ms=med, min_graph_step_ms=min(graph_ms),
+         max_graph_step_ms=max(graph_ms), examples_per_s=SL_B / med * 1e3,
+         real_tokens_per_s=tokens / med * 1e3,
+         padded_tokens_per_s=SL_B * T / med * 1e3,
+         other_batches=dict(T=[f['words'].padded.shape[1]
+                               for f in other_feeds],
+                            real_tokens=[int(f['words'].lengths.sum())
+                                         for f in other_feeds],
+                            step_ms=other_ms),
+         launches_per_step=launches,
+         segment_launches_per_step=sum(seg.values()),
+         plain_calls_on_cuda=plain.counts, card=smi, **mem)
+    emit(phase='training_stacked_lstm', step='graph_profile', steps=2,
+         profiled_wall_ms=wall, device_busy_ms=busy,
+         device_idle_share=(1 - busy / wall) if busy else None,
+         device_ms_by_group=by_group,
+         device_share_by_group={k: v / busy for k, v in by_group.items()},
+         device_events=seen, device_launches=groups,
+         counted_device_launches=counted, profile_tries=tries, card=smi)
+    _seen_on_device('training_stacked_lstm graph', groups, counted)
+    require(all(np.isfinite(losses)), 'non-finite stacked_lstm loss: %s'
+            % losses)
+    require(last < losses[0], 'stacked_lstm: the fixed batch\'s loss %s '
+            'after %d steps is not below its first, %s'
+            % (last, SL_STEPS + 2, losses[0]))
+    require(len(entries) == 1 and all(
+        f['words'].padded.shape[1] == T for f in other_feeds),
+            'stacked_lstm: %d graphs for one T bucket' % len(entries))
+    require(not plain.counts, 'plain versions ran on the card: %s'
+            % plain.counts)
+    require(launches.get('embedding_gather') == 1 and
+            launches.get('softmax') == 1 and
+            launches.get('adam_multi') == 1 and
+            launches.get('kernelgen_segment', 0) >= 1,
+            'stacked_lstm: launches a step %s, expected one K4, one K5, one '
+            'adam_multi and the generated segments' % launches)
+    launches.update(seg)
+    return launches
+
+
+# train_seq_gpu_vs_cpu: the LM at narrow widths
+SEQ_SMALL = dict(dict_dim=SL_VOCAB, emb_dim=64, hid_dim=64, stacked_num=3)
+SEQ_SMALL_B = 8
+SEQ_SMALL_LEN = (3, 40)
+SEQ_SMALL_LR = 0.002
+RC_SMALL_STEPS = 3
+
+
+def _seq_small_feeds(feeder, bucketer, rng):
+    """The LM's card-vs-CPU feeds: three batches of SEQ_SMALL_LEN
+    reviews, then one more with other lengths in the bucket of the last
+    (so the second, third and fourth run one graph's replays, the lengths
+    a feed of each), then a dense [B, T, 1] array of that bucket into the
+    lod var (full lengths synthesized) -> (feeds, what each is)."""
+    feeds = []
+    while len(feeds) < 4:
+        f = sl_feed(feeder, bucketer, review_rows(
+            rng, SEQ_SMALL_B, SEQ_SMALL_LEN, SL_VOCAB))
+        # the bucket of 48: reviews of 33-40 tokens at the longest
+        if f['words'].padded.shape[1] == 48 and all(
+                not np.array_equal(f['words'].lengths, g['words'].lengths)
+                for g in feeds):
+            feeds.append(f)
+    dense = {'words': rng.randint(0, SL_VOCAB, (SEQ_SMALL_B, 48, 1))
+             .astype('int64'),
+             'label': rng.randint(0, 2, (SEQ_SMALL_B, 1)).astype('int64')}
+    return feeds + [dense], ['lod'] * 4 + ['dense']
+
+
+def phase_train_seq_gpu_vs_cpu():
+    """The sequence models on the card against Executor(CPUPlace()) from
+    one startup state (weights carried across by scope_from_numpy): the
+    LM at SEQ_SMALL (dict 5147, emb and hid 64, 3 layers), B 8, Adam,
+    over _seq_small_feeds (three steps, a fourth batch of the same T
+    bucket with other lengths, a dense array into the lod var); the
+    recommender at its defaults, B RC_B, RC_SMALL_STEPS SGD steps.  Each
+    loss within 1e-5 relative; every parameter within 2.01 x the summed
+    learning rate (each entry moves at most lr a step under Adam, PERF.md
+    section 2).  Then the LM's `predict` saved by save_inference_model,
+    loaded by Predictor on the card and on the CPU, run on a LoDTensor
+    feed twice (interpreted, then the graph): the loaded program reads
+    the lengths companion, the card within 1e-4 of the largest output of
+    the CPU.  -> launches a step on the card, by run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    paths = {}
+    rng = np.random.RandomState(SEED + 2)
+    main, startup, out, feeder, bucketer = sl_program(
+        lr=SEQ_SMALL_LR, **SEQ_SMALL)
+    lm_feeds, kinds = _seq_small_feeds(feeder, bucketer, rng)
+    rmain, rstartup, rout, rc_feeds = rc_program(n_steps=RC_SMALL_STEPS)
+    from paddle_tpu_torch.core.executor import normalize_feed as norm
+    for m, s, o, f in ((main, startup, out, lm_feeds[0]),
+                       (rmain, rstartup, rout, rc_feeds[0])):
+        _planned_specs(m, norm(m.global_block(), f), [o['loss'].name],
+                       False)
+        _planned_specs(s, {}, [], False)
+    kernelgen.ensure_built()
+    scopes = {}
+    for run, (m, s, o, feeds, lr) in (
+            ('stacked_lstm', (main, startup, out, lm_feeds, SEQ_SMALL_LR)),
+            ('recommender', (rmain, rstartup, rout, rc_feeds, 1e-3))):
+        t0 = time.perf_counter()
+        gscope = fluid.Scope()
+        with fluid.scope_guard(gscope):
+            fluid.Executor().run(s)
+        init = {n: t.cpu().numpy() for n, t in gscope.vars.items()}
+        params = [p.name for p in m.all_parameters() if p.trainable]
+        res = {}
+        for dev in ('gpu', 'cpu'):
+            scope = fluid.scope_from_numpy(
+                {n: a.copy() for n, a in init.items()}, fluid.Scope(),
+                'cuda' if dev == 'gpu' else 'cpu')
+            exe = fluid.Executor() if dev == 'gpu' else \
+                fluid.Executor(fluid.CPUPlace())
+            if dev == 'gpu':
+                kernels.reset_launches()
+            losses = []
+            with fluid.scope_guard(scope), PlainCalls() as plain:
+                for f in feeds:
+                    losses.append(float(exe.run(
+                        m, feed=f, fetch_list=[o['loss']])[0][0]))
+            if dev == 'gpu':
+                paths['train_seq_' + run] = {
+                    k: v / len(feeds) for k, v in kernels.launches.items()
+                    if v}
+                graphs = len([e for e in exe._graphs.entries.values()
+                              if e.graph is not None])
+                require(not plain.counts, 'plain versions ran on the card: '
+                        '%s' % plain.counts)
+            res[dev] = dict(losses=losses, params={
+                p: scope.vars[p].double().cpu().numpy() for p in params})
+            scopes[run, dev] = scope
+        gl, cl = res['gpu']['losses'], res['cpu']['losses']
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        bound = 2.01 * lr * len(feeds)
+        dist = max(float(np.abs(res['gpu']['params'][p] -
+                                res['cpu']['params'][p]).max())
+                   for p in params)
+        emit(phase='train_seq_gpu_vs_cpu', run=run, steps=len(feeds),
+             feeds=kinds if run == 'stacked_lstm' else ['lod'] * len(feeds),
+             T=[(f['words'] if run == 'stacked_lstm' else
+                 f['movie_title']).shape[1] for f in feeds],
+             lengths=[getattr(f.get('words'), 'lengths', np.zeros(0))
+                      .tolist() for f in feeds],
+             gpu_losses=gl, cpu_losses=cl, loss_max_rel=loss_rel,
+             param_max_abs_diff=dist, param_bound=bound,
+             captured_graphs=graphs, launches_per_step=paths[
+                 'train_seq_' + run], seconds=time.perf_counter() - t0)
+        require(all(np.isfinite(gl + cl)) and loss_rel <= 1e-5,
+                'train_seq_gpu_vs_cpu (%s): losses %s vs %s' % (run, gl, cl))
+        require(dist <= bound, 'train_seq_gpu_vs_cpu (%s): a parameter '
+                '%.3g apart, bound %.3g' % (run, dist, bound))
+    want = {'stacked_lstm': ('adam_multi', 1), 'recommender':
+            ('sgd_multi', 1)}
+    for run, (k, n) in want.items():
+        got = paths['train_seq_' + run]
+        require(got.get(k) == n and got.get('embedding_gather') == (
+            1 if run == 'stacked_lstm' else 7) and
+            got.get('kernelgen_segment', 0) >= 1 and
+            (run != 'stacked_lstm' or got.get('softmax') == 1),
+            '%s: launches a step %s' % (run, got))
+    # the LM's predict through save_inference_model and the Predictor
+    test = main.clone(for_test=True)
+    pfeed = {'words': fluid.create_lod_tensor(
+        [rng.randint(0, SL_VOCAB, (n, 1)) for n in (17, 3, 40, 9)])}
+    outs = {}
+    with tempfile.TemporaryDirectory(prefix='seq_predict_') as d:
+        with fluid.scope_guard(scopes['stacked_lstm', 'gpu']):
+            fluid.io.save_inference_model(d, ['words'], [out['predict']],
+                                          fluid.Executor(),
+                                          main_program=test)
+        for dev in ('gpu', 'cpu'):
+            cfg = fluid.inference.AnalysisConfig(d)
+            if dev == 'cpu':
+                cfg.disable_gpu()
+            pred = fluid.inference.Predictor(cfg)
+            blk = pred._program.global_block()
+            lstm_len = [op.inputs.get('Length') for op in blk.ops
+                        if op.type == 'lstm']
+            require(blk.var('words').lod_length_name == 'words@LENGTH' and
+                    lstm_len and all(x == ['words@LENGTH']
+                                     for x in lstm_len),
+                    'the loaded program does not read the lengths: %s'
+                    % lstm_len)
+            outs[dev] = [pred.run(pfeed)[0] for _ in range(2)]
+    ref = outs['cpu'][0]
+    err = max(float(np.abs(o - ref).max()) for o in outs['gpu'])
+    tol = 1e-4 * float(np.abs(ref).max())
+    emit(phase='train_seq_gpu_vs_cpu', run='predictor', feed='LoDTensor',
+         lengths=pfeed['words'].lengths.tolist(), max_abs_err=err, tol=tol)
+    require(err <= tol, 'the LoD Predictor on the card: %.3g from the CPU, '
+            'bound %.3g' % (err, tol))
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -6445,6 +6980,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         res = fn(*a)
         took[name] = time.perf_counter() - t0
+        emit(phase='script', step='phase_done', name=name,
+             seconds=took[name])
         return res
 
     smi = run('card', phase_card) or smi_line()
@@ -6469,6 +7006,7 @@ def main(argv=None):
     ctr = run('training_ctr', phase_training_ctr, smi)
     optimizers = run('training_optimizers', phase_training_optimizers, smi)
     w2v = run('training_word2vec', phase_training_word2vec, smi)
+    seq_lm = run('training_stacked_lstm', phase_training_stacked_lstm, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -6481,6 +7019,7 @@ def main(argv=None):
     conv_small = run('train_conv_gpu_vs_cpu', phase_train_conv_gpu_vs_cpu)
     ctr_small = run('train_ctr_gpu_vs_cpu', phase_train_ctr_gpu_vs_cpu)
     c11 = run('train_c11_gpu_vs_cpu', phase_train_c11_gpu_vs_cpu)
+    seq_small = run('train_seq_gpu_vs_cpu', phase_train_seq_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -6525,7 +7064,9 @@ def main(argv=None):
                'training_se_resnext50': se50, 'training_vgg16': vgg16,
                'training_mnist': mnist,
                # per step of word2vec (graph replays)
-               'training_word2vec': w2v}
+               'training_word2vec': w2v,
+               # per step of the stacked-LSTM LM (graph replays)
+               'training_stacked_lstm': seq_lm}
     by_path.update(resnet_small)
     by_path.update(conv_small)
     # per step of DeepFM and Wide&Deep (graph replays), of Wide&Deep under
@@ -6535,6 +7076,8 @@ def main(argv=None):
     by_path.update(ctr_small)
     # C11's bf16 instances: over the two steps of each C11 run on the card
     by_path.update(c11)
+    # per step of the LM and the recommender on the card against the CPU
+    by_path.update(seq_small)
     # the main path's launches: per step of the composed training path for
     # the kernels it runs, per step of the flash training path for K1-K3
     # and its own generated segments, per served run for the serving-only
@@ -6609,12 +7152,15 @@ def main(argv=None):
             row.update(instance=res['instance'] + ' bf16', case=res['case'],
                        in_dtypes=res['in_dtypes'],
                        library_is=res['library_is'])
-        if name == 'embedding_gather' and kern.get('gather_ctr'):
-            row['ctr_cases'] = {
-                k: {f: r[f] for f in ('V', 'D', 'N', 'ms', 'plain_ms',
-                                      'library_ms', 'bound_ms',
-                                      'flushed_ms', 'library_flushed_ms')}
-                for k, r in kern['gather_ctr'].items()}
+        for key, cases in (('ctr_cases', 'gather_ctr'),
+                           ('seq_cases', 'gather_seq')):
+            if name == 'embedding_gather' and kern.get(cases):
+                row[key] = {
+                    k: {f: r[f] for f in ('V', 'D', 'N', 'ms', 'plain_ms',
+                                          'library_ms', 'bound_ms',
+                                          'flushed_ms',
+                                          'library_flushed_ms')}
+                    for k, r in kern[cases].items()}
         if name in kern['instances']:
             row['instances'] = []
             for key, r in sorted(kern['instances'][name].items()):

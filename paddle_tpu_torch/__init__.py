@@ -19,7 +19,9 @@ step — `models.transformer.build` (`append_backward`, Adam with
 `Executor.run(main, feed, fetch_list=[loss])` — and the executor's
 runtime: `Executor.run_steps`, `check_nan` with its deferred verdict,
 `as_futures`, `CompiledProgram` and `FeedPrefetcher`, each launch
-signature on the card replayed as a captured CUDA graph.
+signature on the card replayed as a captured CUDA graph.  Ragged
+sequences feed as LoDTensors (padded data plus `<name>@LENGTH`,
+core/lod.py) into the sequence ops and RNNs (ops/sequence.py).
 """
 from .core import unique_name  # noqa: F401
 from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
@@ -28,7 +30,11 @@ from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
 from .core.executor import (Executor, Scope, scope_guard,  # noqa: F401
                             global_scope)
 from .param_attr import ParamAttr  # noqa: F401
-from .data_feeder import FeedBucketer, FeedPrefetcher  # noqa: F401
+from .data_feeder import (FeedBucketer, FeedPrefetcher,  # noqa: F401
+                          DataFeeder)
+from .core.lod import (LoDTensor, create_lod_tensor,  # noqa: F401
+                       create_random_int_lodtensor)
+from .core import lod as lod_tensor  # noqa: F401
 from .compiler import (CompiledProgram, BuildStrategy,  # noqa: F401
                        ExecutionStrategy)
 from . import (initializer, layers, io, inference, serving,  # noqa: F401

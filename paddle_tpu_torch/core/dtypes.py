@@ -8,7 +8,7 @@ ids and tokens carry the same dtype in both packages.
 import numpy as np
 import torch
 
-__all__ = ['convert_dtype', 'dtype_str', 'torch_dtype', 'NARROW']
+__all__ = ['convert_dtype', 'dtype_str', 'torch_dtype', 'weak', 'NARROW']
 
 _STR2TORCH = {
     'float32': torch.float32,
@@ -61,3 +61,16 @@ def torch_dtype(dtype):
     name = dtype_str(dtype)
     return _STR2TORCH[NARROW.get(name, name)]
 
+
+
+def weak(v, t):
+    """A Python scalar `v` as jnp takes it where it meets the tensor `t`
+    (a weak type): rounded to t's dtype where that is a float narrower
+    than float32, and returned as the Python float of the rounded value
+    (exact in t's dtype, so torch's float32 arithmetic on it computes
+    what jnp's bf16 arithmetic does; no tensor, so a CUDA graph capture
+    takes it).  Anywhere else `v` itself: torch rounds a Python float
+    that meets a float32 tensor to float32, as jnp does."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(float(v), dtype=t.dtype))
+    return v

@@ -535,14 +535,9 @@ class Executor(object):
         return counter
 
     # ------------------------------------------------------------ feeds
-    def _feed_tensors(self, block, feed):
+    def _feed_tensors(self, block, feed, stacked=False):
         out = {}
-        for name, value in (feed or {}).items():
-            if not block.has_var(name):
-                raise KeyError(
-                    'feed var "%s" is not a variable of this program; data '
-                    'vars: %s' % (name, sorted(n for n, v in block.vars.items()
-                                                if v.is_data)))
+        for name, value in normalize_feed(block, feed, stacked).items():
             out[name] = to_device(value, block.var(name).dtype, self.device)
         return out
 
@@ -614,7 +609,7 @@ class Executor(object):
             if steps is None:
                 raise ValueError(
                     'run_steps with a pre-stacked feed dict needs steps=K')
-            feeds = self._feed_tensors(block, feed_list)
+            feeds = self._feed_tensors(block, feed_list, stacked=True)
             for k, v in feeds.items():
                 if v.dim() == 0 or v.shape[0] != steps:
                     raise ValueError(
@@ -635,9 +630,10 @@ class Executor(object):
                 if set(f) != names:
                     raise ValueError('per-step feeds disagree on keys: '
                                      '%s vs %s' % (sorted(names), sorted(f)))
+            per_step = [normalize_feed(block, f) for f in per_step]
             feeds = self._feed_tensors(block, {
                 k: np.stack([_host(f[k]) for f in per_step])
-                for k in per_step[0]})
+                for k in per_step[0]}, stacked=True)
         return self._run_impl(program, feeds, fetch_list, scope,
                               return_numpy, use_program_cache, int(steps),
                               as_futures)
@@ -819,6 +815,39 @@ class Executor(object):
                 'step in: %s. Typical causes: exploding gradients (try '
                 'gradient clipping or a lower LR), log/div of zero, or '
                 'uninitialized feeds.' % ', '.join(bad))
+
+
+def normalize_feed(block, feed, stacked=False):
+    """One feed dict -> {name: value}, as the JAX package's
+    `_normalize_feed`: a LoDTensor (core/lod.py) feeds its padded data and
+    `<name>@LENGTH` (and `<name>@OUTERLEN` where the block has it); a
+    dense array fed into a lod var gets full lengths (its axis 1; axis 2
+    when `stacked`, a run_steps feed with a leading step axis)."""
+    from .lod import LENGTH_SUFFIX, OUTER_SUFFIX, LoDTensor
+    out = {}
+    for name, value in (feed or {}).items():
+        if not block.has_var(name):
+            raise KeyError(
+                'feed var "%s" is not a variable of this program; data '
+                'vars: %s' % (name, sorted(n for n, v in block.vars.items()
+                                            if v.is_data)))
+        if isinstance(value, LoDTensor):
+            out[name] = value.padded
+            out[name + LENGTH_SUFFIX] = value.lengths
+            if value.outer_lengths is not None and \
+                    block.has_var(name + OUTER_SUFFIX):
+                out[name + OUTER_SUFFIX] = value.outer_lengths
+        else:
+            out[name] = value
+    for name in list(out):
+        lname = name + LENGTH_SUFFIX
+        if block.has_var(name) and block.var(name).lod_level > 0 and \
+                lname not in out and block.has_var(lname):
+            shape = tuple(out[name].shape)
+            lead, t = (shape[:2], shape[2]) if stacked else \
+                (shape[:1], shape[1])
+            out[lname] = np.full(lead, t, dtype=np.int32)
+    return out
 
 
 def _host(v):

@@ -523,6 +523,10 @@ class Program(object):
                                   stop_gradient=v.stop_gradient,
                                   is_data=v.is_data, type=v.type)
                 nv.sharding = copy.deepcopy(v.sharding)
+                # a ragged var's lengths companion (layers/io.py data)
+                for attr in ('lod_length_name', 'lod_outer_length_name'):
+                    if getattr(v, attr, None):
+                        setattr(nv, attr, getattr(v, attr))
                 nb.vars[name] = nv
             for op in b.ops:
                 role = op.attrs.get('op_role', OpRole.Forward)

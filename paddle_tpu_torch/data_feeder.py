@@ -1,13 +1,15 @@
-"""FeedBucketer (pad feeds onto a few fixed batch sizes) and
-FeedPrefetcher (stack K feeds on a worker thread for `run_steps`).
+"""FeedBucketer (pad feeds onto a few fixed batch sizes and sequence
+lengths), FeedPrefetcher (stack K feeds on a worker thread for
+`run_steps`) and DataFeeder (rows of a reader -> a feed dict).
 
-Counterpart of paddle_tpu/data_feeder.py::FeedBucketer, as the serving
-engine uses it: every coalesced batch is padded up to a bucket boundary,
-so the device sees a handful of batch shapes; and of its FeedPrefetcher,
-without the reference's spans, gauges, fault sites and retry policy (its
-observability, testing/faults and core/retry are not ported).  Not
-ported yet: the validity-mask feed, sequence-dim padding, LoDTensor
-feeds, PT_BUCKETS, the metrics gauges and DataFeeder.
+Counterpart of paddle_tpu/data_feeder.py's three: every coalesced batch
+is padded up to a bucket boundary, and a sequence feed named in
+`seq_names` along its time axis too, so the device sees a handful of
+shapes (one CUDA graph each); LoDTensor feeds (core/lod.py) keep their
+lengths, so sequence ops mask the padding.  Without the reference's
+spans, gauges, fault sites and retry policy (its observability,
+testing/faults and core/retry are not ported).  Not ported yet: the
+validity-mask feed and PT_BUCKETS.
 """
 import queue
 import threading
@@ -15,7 +17,11 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ['FeedBucketer', 'FeedPrefetcher']
+from .core.dtypes import convert_dtype
+from .core.framework import Variable, default_main_program
+from .core.lod import LoDTensor, create_lod_tensor
+
+__all__ = ['FeedBucketer', 'FeedPrefetcher', 'DataFeeder']
 
 
 def _default_boundaries():
@@ -27,16 +33,28 @@ def _default_boundaries():
     return bounds
 
 
+def _leading_dim(v):
+    if isinstance(v, LoDTensor):
+        return v.padded.shape[0]
+    return v.shape[0] if v.ndim else None
+
+
 class FeedBucketer(object):
     """Pad the leading batch dim of every batched feed up to the smallest
     boundary >= the true batch by repeating the last row, so pad rows stay
-    well-defined for every op."""
+    well-defined for every op; a LoDTensor's lengths are edge-replicated
+    the same way (a zero-length pad row would NaN length-normalizing
+    sequence ops).  Feeds named in `seq_names` get axis 1 padded with
+    zeros up to a boundary too: their lengths (a LoDTensor's, or the
+    `@LENGTH` feed) already mark the padding, which every sequence op
+    masks."""
 
-    def __init__(self, boundaries=None):
+    def __init__(self, boundaries=None, seq_names=()):
         self.boundaries = sorted(int(b) for b in
                                  (boundaries or _default_boundaries()))
         if not self.boundaries or self.boundaries[0] < 1:
             raise ValueError('bucket boundaries must be positive ints')
+        self.seq_names = tuple(seq_names)
 
     def boundary(self, n):
         """Smallest boundary >= n; beyond the largest, the next multiple
@@ -50,21 +68,49 @@ class FeedBucketer(object):
         top = self.boundaries[-1]
         return ((n + top - 1) // top) * top
 
+    @staticmethod
+    def _pad_axis(arr, axis, target):
+        gap = target - arr.shape[axis]
+        if gap <= 0:
+            return arr
+        widths = [(0, 0)] * arr.ndim
+        widths[axis] = (0, gap)
+        if axis == 0 and arr.shape[0] > 0:
+            return np.pad(arr, widths, mode='edge')
+        return np.pad(arr, widths, mode='constant')
+
     def bucket_feed(self, feed):
         """One feed dict -> (padded feed dict, true batch size).  Arrays
-        whose leading dim is not the batch pass through unpadded."""
-        arrays = {k: np.asarray(v) for k, v in feed.items()}
-        dims = [a.shape[0] for a in arrays.values() if a.ndim]
+        whose leading dim is not the batch pass through unpadded, and so
+        does a two-level LoDTensor (its rows are inner sequences)."""
+        arrays = {k: (v if isinstance(v, LoDTensor) else np.asarray(v))
+                  for k, v in feed.items()}
+        dims = [d for d in (_leading_dim(v) for v in arrays.values())
+                if d is not None]
         if not dims:
             raise ValueError('bucket_feed needs at least one batched feed')
         batch = dims[0]
         target = self.boundary(batch)
         out = {}
-        for k, a in arrays.items():
-            if a.ndim and a.shape[0] == batch and target > batch:
-                widths = [(0, target - batch)] + [(0, 0)] * (a.ndim - 1)
-                a = np.pad(a, widths, mode='edge')
-            out[k] = a
+        for k, v in arrays.items():
+            if isinstance(v, LoDTensor):
+                if v.outer_lengths is not None:
+                    out[k] = v
+                    continue
+                padded, lengths = v.padded, v.lengths
+                if padded.shape[0] == batch:
+                    padded = self._pad_axis(padded, 0, target)
+                    lengths = self._pad_axis(lengths, 0, target)
+                if k in self.seq_names:
+                    padded = self._pad_axis(padded, 1,
+                                            self.boundary(padded.shape[1]))
+                out[k] = LoDTensor(padded, lengths)
+                continue
+            if v.ndim and v.shape[0] == batch:
+                v = self._pad_axis(v, 0, target)
+            if k in self.seq_names and v.ndim >= 2:
+                v = self._pad_axis(v, 1, self.boundary(v.shape[1]))
+            out[k] = v
         return out, batch
 
     def wrap(self, feeds):
@@ -226,3 +272,52 @@ class FeedPrefetcher(object):
             except queue.Empty:
                 break
         self._thread.join(timeout=5.0)
+
+
+class DataFeeder(object):
+    """Rows of a reader -> one feed dict of `feed_list`'s vars: a dense
+    slot stacks its elements, each reshaped to the slot's shape; a ragged
+    slot (lod_level > 0) becomes a LoDTensor of its sequences, padded to
+    the batch's longest (counterpart of paddle_tpu/data_feeder.py
+    DataFeeder)."""
+
+    def __init__(self, feed_list, place=None, program=None):
+        self.feed_dtypes, self.feed_names = [], []
+        self.feed_shapes, self.feed_lod_level = [], []
+        if program is None:
+            program = default_main_program()
+        for var in feed_list:
+            if isinstance(var, str):
+                var = program.global_block().var(var)
+            if not isinstance(var, Variable):
+                raise TypeError('feed_list should hold Variables')
+            self.feed_dtypes.append(var.dtype)
+            self.feed_names.append(var.name)
+            self.feed_lod_level.append(var.lod_level)
+            # strip the batch (and, for a lod var, the time) dim
+            self.feed_shapes.append(
+                var.shape[2:] if var.lod_level > 0 else var.shape[1:])
+        self.place = place
+
+    def feed(self, iterable):
+        rows = list(iterable)
+        feed = {}
+        for i, name in enumerate(self.feed_names):
+            dtype = convert_dtype(self.feed_dtypes[i])
+            shape = self.feed_shapes[i]
+            col = [row[i] for row in rows]
+            if self.feed_lod_level[i] > 0:
+                seqs = [np.asarray(c, dtype=dtype) for c in col]
+                seqs = [s.reshape(len(s), *shape) if shape else
+                        s.reshape(len(s), 1) for s in
+                        (s.reshape(-1) if s.ndim == 1 else s for s in seqs)]
+                feed[name] = create_lod_tensor(seqs)
+            else:
+                tshape = tuple(int(abs(d)) for d in shape)
+                # each element reshapes to the slot shape on its own: rows
+                # may arrive flat or already shaped
+                elems = [np.asarray(c, dtype=dtype).reshape(tshape)
+                         for c in col]
+                feed[name] = (np.stack(elems) if elems else
+                              np.zeros((0,) + tshape, dtype))
+        return feed

@@ -27,7 +27,8 @@ import threading
 import torch
 
 from . import io as fluid_io
-from .core.executor import Executor, Scope, scope_guard, to_device, to_numpy
+from .core.executor import (Executor, Scope, normalize_feed, scope_guard,
+                            to_device, to_numpy)
 from .core.framework import CPUPlace, CUDAPlace, require_cuda
 
 __all__ = ['AnalysisConfig', 'Predictor', 'create_paddle_predictor']
@@ -104,7 +105,7 @@ class Predictor(object):
             feeds = dict(zip(self._feed_names, feeds))
         block = self._program.global_block()
         feeds = {n: to_device(v, block.var(n).dtype, self.device)
-                 for n, v in feeds.items()}
+                 for n, v in normalize_feed(block, feeds).items()}
         with self._run_lock:
             out = self._exe.run(self._program, feed=feeds,
                                 fetch_list=self._fetch_names,

@@ -1,5 +1,7 @@
 """fluid.layers.nn functions that the llama serving program, the
-transformer training program and the ResNet training program use.
+transformer training program, the conv models and the sequence models
+use.  Sequence layers take padded [B, T, ...] vars with an int32
+`<name>@LENGTH` companion (layers/io.py data(lod_level > 0)).
 
 Counterpart of paddle_tpu/layers/nn.py.  Each function emits the same op
 types, slots and attrs as the JAX package, so a model built through either
@@ -7,7 +9,9 @@ package serializes to the same desc.
 """
 import numpy as np
 
+from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
+from ..core.lod import LENGTH_SUFFIX
 from ..initializer import Constant, Normal, Xavier
 from ..param_attr import ParamAttr
 
@@ -22,6 +26,9 @@ __all__ = [
     'autoincreased_step_counter', 'softmax', 'dropout', 'matmul',
     'conv2d', 'pool2d', 'batch_norm', 'cross_entropy', 'mean',
     'sigmoid_cross_entropy_with_logits', 'square_error_cost',
+    'dynamic_lstm', 'dynamic_gru', 'cos_sim', 'sequence_conv',
+    'sequence_pool', 'sequence_first_step', 'sequence_last_step',
+    'sequence_softmax',
 ]
 
 
@@ -29,24 +36,59 @@ def _prod(xs):
     return int(np.prod([int(x) for x in xs])) if len(xs) else 1
 
 
+def _copy_lod(x, out):
+    """`out` carries x's LoD level and lengths companion."""
+    if isinstance(x, Variable) and x.lod_level > 0:
+        out.lod_level = x.lod_level
+        out.lod_length_name = getattr(x, 'lod_length_name', None)
+
+
+def _len_var(x):
+    """The companion int32 lengths Variable of a lod var, or None."""
+    name = getattr(x, 'lod_length_name', None)
+    if name is None and x.lod_level > 0:
+        name = x.name + LENGTH_SUFFIX
+    if name is None:
+        return None
+    try:
+        return x.block.var(name)
+    except (KeyError, ValueError):
+        return None
+
+
+def _seq_inputs(x, extra=None):
+    ins = {'X': x}
+    lv = _len_var(x)
+    if lv is not None:
+        ins['Length'] = lv
+    if extra:
+        ins.update(extra)
+    return ins
+
+
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None, amp_keep_bf16=False):
-    """y = act(x W + b).  On [B, T, D] input the weight applies per token."""
+    """y = act(x W + b).  On a padded sequence [B, T, D] (a lod input)
+    the weight applies per token: `num_flatten_dims` counts one more."""
     helper = LayerHelper('fc', input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     dtype = helper.input_dtype()
     inputs = helper.multiple_input()
     param_attrs = helper.multiple_param_attr(len(inputs))
     mul_results = []
+    ncd_final = num_flatten_dims
     for input_var, p_attr in zip(inputs, param_attrs):
-        param_shape = [_prod(input_var.shape[num_flatten_dims:]), size]
+        ncd = num_flatten_dims + (1 if input_var.lod_level > 0 else 0)
+        ncd_final = ncd
+        param_shape = [_prod(input_var.shape[ncd:]), size]
         w = helper.create_parameter(p_attr, param_shape, dtype)
         tmp = helper.create_variable_for_type_inference(dtype)
         helper.append_op(type='mul', inputs={'X': input_var, 'Y': w},
                          outputs={'Out': tmp},
-                         attrs={'x_num_col_dims': num_flatten_dims,
+                         attrs={'x_num_col_dims': ncd,
                                 'y_num_col_dims': 1,
                                 'amp_keep_bf16': amp_keep_bf16})
+        _copy_lod(input_var, tmp)
         mul_results.append(tmp)
     if len(mul_results) == 1:
         pre_bias = mul_results[0]
@@ -54,8 +96,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
         pre_bias = helper.create_variable_for_type_inference(dtype)
         helper.append_op(type='sum', inputs={'X': mul_results},
                          outputs={'Out': pre_bias}, attrs={})
-    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
-    return helper.append_activation(pre_act)
+        _copy_lod(inputs[0], pre_bias)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=ncd_final)
+    _copy_lod(inputs[0], pre_act)
+    out = helper.append_activation(pre_act)
+    _copy_lod(inputs[0], out)
+    return out
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
@@ -72,7 +118,73 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      outputs={'Out': out},
                      attrs={'padding_idx': padding_idx,
                             'is_sparse': is_sparse})
+    _copy_lod(input, out)
     return out
+
+
+# ------------------------------------------------------------------ RNN
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation='sigmoid', cell_activation='tanh',
+                 candidate_activation='tanh', dtype='float32', name=None):
+    """The `lstm` op over a pre-projected [B, T, 4D] input (size = 4 D):
+    Weight [D, 4D], Bias [1, 4D] or, with peepholes, [1, 7D]; gate layout
+    [i, f, g, o] (ops/sequence.py).  -> (hidden, cell), [B, T, D] each."""
+    helper = LayerHelper('lstm', param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    D = size // 4
+    weight = helper.create_parameter(helper.param_attr, [D, 4 * D], dtype)
+    bias_size = [1, 7 * D] if use_peepholes else [1, 4 * D]
+    bias = helper.create_parameter(helper.bias_attr, bias_size, dtype,
+                                   is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    ins = {'Input': input, 'Weight': weight, 'Bias': bias}
+    lv = _len_var(input)
+    if lv is not None:
+        ins['Length'] = lv
+    if h_0 is not None:
+        ins['H0'] = h_0
+    if c_0 is not None:
+        ins['C0'] = c_0
+    helper.append_op(type='lstm', inputs=ins,
+                     outputs={'Hidden': hidden, 'Cell': cell},
+                     attrs={'use_peepholes': use_peepholes,
+                            'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'cell_activation': cell_activation,
+                            'candidate_activation': candidate_activation})
+    _copy_lod(input, hidden)
+    _copy_lod(input, cell)
+    return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation='sigmoid',
+                candidate_activation='tanh', h_0=None, name=None):
+    """The `gru` op over a pre-projected [B, T, 3D] input (size = D):
+    Weight [D, 3D] as [update | reset | candidate], Bias [1, 3D]."""
+    helper = LayerHelper('gru', param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dtype = input.dtype
+    weight = helper.create_parameter(helper.param_attr, [size, 3 * size],
+                                     dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, 3 * size], dtype,
+                                   is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    ins = {'Input': input, 'Weight': weight, 'Bias': bias}
+    lv = _len_var(input)
+    if lv is not None:
+        ins['Length'] = lv
+    if h_0 is not None:
+        ins['H0'] = h_0
+    helper.append_op(type='gru', inputs=ins, outputs={'Hidden': hidden},
+                     attrs={'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'activation': candidate_activation})
+    _copy_lod(input, hidden)
+    return hidden
 
 
 def _simple(op_type, x, attrs=None, name=None, outs=('Out',),
@@ -466,3 +578,66 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
 
 def square_error_cost(input, label):
     return _simple('square_error_cost', input, extra_ins={'Y': label})
+
+
+def cos_sim(X, Y):
+    """Cosine similarity of the rows of X and Y, [N, 1] (ops/math.py)."""
+    return _simple('cos_sim', X, outs=('Out', 'XNorm', 'YNorm'),
+                   extra_ins={'Y': Y})[0]
+
+
+# ------------------------------------------------------- sequence family
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    """A context window of `filter_size` tokens centred on each token
+    (contextStart -(filter_size // 2)), times a [filter_size D,
+    num_filters] filter, plus bias and act."""
+    helper = LayerHelper('sequence_conv', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='sequence_conv',
+                     inputs=_seq_inputs(input, {'Filter': w}),
+                     outputs={'Out': out},
+                     attrs={'contextStride': filter_stride,
+                            'contextStart': -int(filter_size // 2),
+                            'contextLength': filter_size})
+    _copy_lod(input, out)
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    _copy_lod(input, pre_act)
+    res = helper.append_activation(pre_act)
+    _copy_lod(input, res)
+    return res
+
+
+def sequence_pool(input, pool_type, is_test=False):
+    """Each sequence pooled over its valid tokens: sum, average, sqrt,
+    max, last or first."""
+    helper = LayerHelper('sequence_pool')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='sequence_pool', inputs=_seq_inputs(input),
+                     outputs={'Out': out},
+                     attrs={'pooltype': pool_type.upper(),
+                            'is_test': is_test})
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, 'first')
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, 'last')
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    helper = LayerHelper('sequence_softmax', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='sequence_softmax', inputs=_seq_inputs(input),
+                     outputs={'Out': out}, attrs={})
+    _copy_lod(input, out)
+    return out

@@ -1,10 +1,11 @@
 """Generated wrappers for simple unary ops.
 
 Counterpart of paddle_tpu/layers/ops.py (`_make_unary`): every name of
-the reference's `__all__`.  Ragged (LoD) inputs are not ported, so no
-wrapper carries a LoD level.
+the reference's `__all__`.  The unary wrappers carry a ragged input's LoD
+level and lengths companion to their output, as the reference's do.
 """
 from ..core.layer_helper import LayerHelper
+from .nn import _copy_lod
 
 __all__ = [
     'sigmoid', 'logsigmoid', 'exp', 'tanh', 'tanh_shrink', 'softshrink',
@@ -20,6 +21,7 @@ def _make_unary(op_type):
         out = helper.create_variable_for_type_inference(x.dtype)
         helper.append_op(type=op_type, inputs={'X': x},
                          outputs={'Out': out}, attrs={})
+        _copy_lod(x, out)
         return out
     func.__name__ = op_type
     func.__doc__ = 'Elementwise %s.' % op_type

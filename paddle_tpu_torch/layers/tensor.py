@@ -11,6 +11,7 @@ from ..core import unique_name
 from ..core.dtypes import dtype_str
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
+from .nn import _copy_lod
 
 __all__ = ['create_parameter', 'create_global_var', 'cast', 'concat', 'sums', 'assign',
            'fill_constant', 'fill_constant_batch_size_like']
@@ -44,6 +45,7 @@ def cast(x, dtype):
     helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
                      attrs={'in_dtype': x.dtype,
                             'out_dtype': dtype_str(dtype)})
+    _copy_lod(x, out)
     return out
 
 
@@ -52,6 +54,7 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(input[0].dtype)
     helper.append_op(type='concat', inputs={'X': list(input)},
                      outputs={'Out': out}, attrs={'axis': axis})
+    _copy_lod(input[0], out)
     return out
 
 

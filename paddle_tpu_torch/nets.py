@@ -1,14 +1,13 @@
 """Composite network helpers.
 
 Counterpart of paddle_tpu/nets.py: `simple_img_conv_pool`,
-`img_conv_group`, `glu` and `scaled_dot_product_attention`, op for op.
-`sequence_conv_pool` needs ragged (LoD) sequences, which the port does
-not have yet.
+`img_conv_group`, `sequence_conv_pool`, `glu` and
+`scaled_dot_product_attention`, op for op.
 """
 from . import layers
 
-__all__ = ['simple_img_conv_pool', 'glu', 'scaled_dot_product_attention',
-           'img_conv_group']
+__all__ = ['simple_img_conv_pool', 'sequence_conv_pool', 'glu',
+           'scaled_dot_product_attention', 'img_conv_group']
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -25,6 +24,14 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          pool_padding=pool_padding,
                          global_pooling=global_pooling)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act='sigmoid', pool_type='max'):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,

@@ -83,6 +83,20 @@ def float_lit(v):
     return '__int_as_float(0x%08x)' % bits
 
 
+def _weak(v, dt):
+    """A Python constant as it meets a value of dtype `dt`: rounded to
+    bfloat16 first where `dt` is bfloat16, as jnp rounds a weak-typed
+    scalar (core/dtypes.py `weak`, ROADMAP C12)."""
+    if dt == 'bfloat16':
+        return float(torch.tensor(float(v), dtype=torch.bfloat16))
+    return float(v)
+
+
+def wlit(v, dt):
+    """`_weak(v, dt)` as a literal."""
+    return float_lit(_weak(v, dt))
+
+
 def _f(e, dt):
     """Operand as a float32 compute value."""
     if dt in FLOAT_DTYPES:
@@ -190,7 +204,7 @@ def _scale(ins, attrs, outs):
     # (x + b) * s), then .to(x.dtype)
     x, dx = ins['X'][0]
     md = _scalar_dt(dx)
-    s = float_lit(attrs.get('scale', 1.0))
+    s = wlit(attrs.get('scale', 1.0), md)
     b = float_lit(torch.tensor(attrs.get('bias', 0.0)).to(
         getattr(torch, dx)).item())
     xf = _f(x, dx)
@@ -215,7 +229,7 @@ def _increment(ins, attrs, outs):
     if dx == 'int32':
         return {'Out': ['(%s + (%d))' % (x, int(step))]}
     return {'Out': [_rnd('__fadd_rn(%s, %s)' % (_f(x, dx),
-                                                 float_lit(step)), dx)]}
+                                                 wlit(step, dx)), dx)]}
 
 
 def _relu(ins, attrs, outs):
@@ -225,14 +239,24 @@ def _relu(ins, attrs, outs):
     return {'Out': ['kg_relu(%s)' % _f(x, dx)]}
 
 
+def _sigmoid_expr(x, dt):
+    # ops/math.py _sigmoid: one operation in float32; in bfloat16 jnp's
+    # three, exp(-x), 1 + e and 1 / s, each rounded
+    if dt == 'bfloat16':
+        e = _rnd('expf(-(%s))' % x, dt)
+        return _rnd('__fdiv_rn(1.0f, %s)' % _rnd(
+            '__fadd_rn(1.0f, %s)' % e, dt), dt)
+    return _rnd('__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-(%s))))' % x, dt)
+
+
 def _swish(ins, attrs, outs):
-    # ops/math.py swish: x * sigmoid(beta * x), three PyTorch operations
+    # ops/math.py swish: x * sigmoid(beta * x)
     x, dx = ins['X'][0]
     if dx not in FLOAT_DTYPES:
         raise Unsupported('swish on %s' % dx)
-    t = _rnd('__fmul_rn(%s, %s)' % (float_lit(attrs.get('beta', 1.0)), x),
+    t = _rnd('__fmul_rn(%s, %s)' % (wlit(attrs.get('beta', 1.0), dx), x),
              dx)
-    sg = _rnd('__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-(%s))))' % t, dx)
+    sg = _sigmoid_expr(t, dx)
     return {'Out': [_rnd('__fmul_rn(%s, %s)' % (x, sg), dx)]}
 
 
@@ -243,7 +267,7 @@ def _unary_float(fn):
         x, dx = ins['X'][0]
         if dx not in FLOAT_DTYPES:
             raise Unsupported('float op on %s' % dx)
-        return {'Out': [_rnd(fn(x, attrs), outs['Out'][0])]}
+        return {'Out': [_rnd(fn(x, attrs, dx), outs['Out'][0])]}
     return emit
 
 
@@ -273,14 +297,15 @@ def _dropout(ins, attrs, outs):
     impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
     if attrs.get('is_test', False):
         out = x if impl != 'downgrade_in_infer' else \
-            _rnd('__fmul_rn(%s, %s)' % (x, float_lit(1.0 - p)), dx)
+            _rnd('__fmul_rn(%s, %s)' % (x, wlit(1.0 - p, dx)), dx)
         return {'Out': [out], 'Mask': [float_lit(1.0)]}
     m, _ = ins['Mask'][0]
     out = _rnd('__fmul_rn(%s, %s)' % (x, m), dx)
     if impl == 'upscale_in_train' and p < 1.0:
-        # x / (1 - p) with a Python scalar divisor: PyTorch's CUDA kernel
-        # multiplies by the float32 reciprocal of float32(1 - p)
-        inv = np.float32(1.0) / np.float32(1.0 - p)
+        # x / (1 - p) with a Python scalar divisor, (1 - p) rounded to
+        # x's dtype first: PyTorch's CUDA kernel multiplies by its float32
+        # reciprocal
+        inv = np.float32(1.0) / np.float32(_weak(1.0 - p, dx))
         out = _rnd('__fmul_rn(%s, %s)' % (out, float_lit(inv)), dx)
     return {'Out': [out]}
 
@@ -289,11 +314,13 @@ _r('scale', emit=_scale)
 _r('cast', emit=_cast)
 _r('increment', emit=_increment)
 _r('relu', emit=_relu)
-_r('square', emit=_unary_float(lambda x, a: '__fmul_rn(%s, %s)' % (x, x)))
-_r('sqrt', emit=_unary_float(lambda x, a: '__fsqrt_rn(%s)' % x))
+_r('square', emit=_unary_float(lambda x, a, dt: '__fmul_rn(%s, %s)' % (
+    x, x)))
+_r('sqrt', emit=_unary_float(lambda x, a, dt: '__fsqrt_rn(%s)' % x))
 _r('sign', emit=_sign)
-# ops/math.py clip: jnp.clip with float32 bounds, NaN passes through
-_r('clip', emit=_unary_float(lambda x, a: _jclip(x, a['min'], a['max'])))
+# ops/math.py clip: jnp.clip, the bounds in x's dtype, NaN passes through
+_r('clip', emit=_unary_float(lambda x, a, dt: _jclip(x, a['min'],
+                                                     a['max'], dt)))
 _r('swish', emit=_swish)
 _r('assign', emit=_assign)
 _r('fill_constant', emit=_fill)
@@ -387,18 +414,19 @@ def _lit(v):
     return float_lit(float(v))
 
 
-def _jclip(x, lo, hi):
+def _jclip(x, lo, hi, dt='float32'):
     # ops/math.py _clip: jnp.maximum then jnp.minimum, -0 < +0; the flag
-    # says whether an equal x (a signed zero) is taken
-    lo, hi = float(lo), float(hi)
+    # says whether an equal x (a signed zero) is taken; the bounds in
+    # x's dtype `dt`
+    lo, hi = _weak(lo, dt), _weak(hi, dt)
     return 'kg_jmin(kg_jmax(%s, %s, %s), %s, %s)' % (
         x, _lit(lo), 'true' if np.signbit(lo) else 'false', _lit(hi),
         'false' if np.signbit(hi) else 'true')
 
 
-def _elu_expr(x, a, R):
+def _elu_expr(x, a, R, od):
     return '((%s) >= 0.f ? (%s) : %s)' % (x, x, R('__fmul_rn(%s, %s)' % (
-        _lit(a), R('__fsub_rn(%s, 1.0f)' % R('expf(%s)' % x)))))
+        wlit(a, od), R('__fsub_rn(%s, 1.0f)' % R('expf(%s)' % x)))))
 
 
 def _pow_expr(x, a, R, od):
@@ -422,9 +450,7 @@ def _pow_expr(x, a, R, od):
             raise Unsupported('pow -2 on %s' % od)
         e = '__fdiv_rn(1.0f, __fmul_rn(%s, %s))' % (x, x)
     else:
-        if od == 'bfloat16':
-            f = float(torch.tensor(f).to(torch.bfloat16).float())
-        e = R('powf(%s, %s)' % (x, _lit(f)))
+        e = R('powf(%s, %s)' % (x, wlit(f, od)))
     for at, v in pow_fixups(float(a.get('factor', 1.0))):
         e = '((%s) == %s ? %s : %s)' % (x, _lit(at), _lit(v), e)
     return e
@@ -432,8 +458,7 @@ def _pow_expr(x, a, R, od):
 
 _ACTS = {
     # one torch operation each, float32 math rounded once
-    'sigmoid': lambda x, a, R, od: R(
-        '__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-(%s))))' % x),
+    'sigmoid': lambda x, a, R, od: _sigmoid_expr(x, od),
     'tanh': lambda x, a, R, od: R('tanhf(%s)' % x),
     'exp': lambda x, a, R, od: R('expf(%s)' % x),
     'log': lambda x, a, R, od: R('logf(%s)' % x),
@@ -446,7 +471,8 @@ _ACTS = {
     'floor': lambda x, a, R, od: 'floorf(%s)' % x,
     # torch.round and jnp.round: half to even
     'round': lambda x, a, R, od: 'rintf(%s)' % x,
-    # compositions, each torch operation rounded
+    # compositions, each torch operation rounded, each Python constant
+    # in x's dtype (`wlit`)
     'tanh_shrink': lambda x, a, R, od: R('__fsub_rn(%s, %s)' % (
         x, R('tanhf(%s)' % x))),
     'softplus': lambda x, a, R, od: 'kg_softplus<%s>(%s)' % (_bf(od), x),
@@ -454,36 +480,37 @@ _ACTS = {
         _bf(od), x),
     'softsign': lambda x, a, R, od: R('__fdiv_rn(%s, %s)' % (
         x, R('__fadd_rn(fabsf(%s), 1.0f)' % x))),
-    'relu6': lambda x, a, R, od: _jclip(x, 0.0, a.get('threshold', 6.0)),
+    'relu6': lambda x, a, R, od: _jclip(x, 0.0, a.get('threshold', 6.0),
+                                        od),
     'brelu': lambda x, a, R, od: _jclip(x, a.get('t_min', 0.0),
-                                        a.get('t_max', 24.0)),
+                                        a.get('t_max', 24.0), od),
     'leaky_relu': lambda x, a, R, od: '((%s) >= 0.f ? (%s) : %s)' % (
-        x, x, R('__fmul_rn(%s, %s)' % (_lit(a.get('alpha', 0.02)), x))),
-    'elu': lambda x, a, R, od: _elu_expr(x, a.get('alpha', 1.0), R),
+        x, x, R('__fmul_rn(%s, %s)' % (wlit(a.get('alpha', 0.02), od), x))),
+    'elu': lambda x, a, R, od: _elu_expr(x, a.get('alpha', 1.0), R, od),
     'selu': lambda x, a, R, od: R('__fmul_rn(%s, %s)' % (
-        _lit(a.get('scale', 1.0507009873554805)),
-        _elu_expr(x, a.get('alpha', 1.6732632423543772), R))),
+        wlit(a.get('scale', 1.0507009873554805), od),
+        _elu_expr(x, a.get('alpha', 1.6732632423543772), R, od))),
     'soft_relu': lambda x, a, R, od: R('log1pf(%s)' % R('expf(%s)' % _jclip(
         x, -float(a.get('threshold', 40.0)),
-        float(a.get('threshold', 40.0))))),
+        float(a.get('threshold', 40.0)), od))),
     'hard_sigmoid': lambda x, a, R, od: _jclip(R('__fadd_rn(%s, %s)' % (
-        R('__fmul_rn(%s, %s)' % (_lit(a.get('slope', 0.2)), x)),
-        _lit(a.get('offset', 0.5)))), 0.0, 1.0),
+        R('__fmul_rn(%s, %s)' % (wlit(a.get('slope', 0.2), od), x)),
+        wlit(a.get('offset', 0.5), od))), 0.0, 1.0),
     'stanh': lambda x, a, R, od: R('__fmul_rn(%s, %s)' % (
-        _lit(a.get('scale_b', 1.7159)), R('tanhf(%s)' % R(
-            '__fmul_rn(%s, %s)' % (_lit(a.get('scale_a', 2.0 / 3.0)),
+        wlit(a.get('scale_b', 1.7159), od), R('tanhf(%s)' % R(
+            '__fmul_rn(%s, %s)' % (wlit(a.get('scale_a', 2.0 / 3.0), od),
                                    x))))),
     'pow': _pow_expr,
     'thresholded_relu': lambda x, a, R, od: '((%s) > %s ? (%s) : 0.f)' % (
-        x, _lit(a.get('threshold', 1.0)), x),
+        x, wlit(a.get('threshold', 1.0), od), x),
     'hard_shrink': lambda x, a, R, od: '(fabsf(%s) > %s ? (%s) : 0.f)' % (
-        x, _lit(a.get('threshold', 0.5)), x),
+        x, wlit(a.get('threshold', 0.5), od), x),
     'softshrink': lambda x, a, R, od: (
         '((%s) > %s ? %s : ((%s) < %s ? %s : 0.f))' % (
-            x, _lit(a.get('lambda', 0.5)), R('__fsub_rn(%s, %s)' % (
-                x, _lit(a.get('lambda', 0.5)))),
-            x, _lit(-a.get('lambda', 0.5)), R('__fadd_rn(%s, %s)' % (
-                x, _lit(a.get('lambda', 0.5)))))),
+            x, wlit(a.get('lambda', 0.5), od), R('__fsub_rn(%s, %s)' % (
+                x, wlit(a.get('lambda', 0.5), od))),
+            x, wlit(-a.get('lambda', 0.5), od), R('__fadd_rn(%s, %s)' % (
+                x, wlit(a.get('lambda', 0.5), od))))),
 }
 
 for _name, _fn in _ACTS.items():

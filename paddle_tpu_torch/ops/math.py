@@ -3,9 +3,9 @@
 Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
 `axis` broadcast rule (mod and floordiv too), the comparisons and logical
 ops, the unary and activation family, scale, clip, clip_by_norm, cast,
-increment, cumsum, reduce_sum, mean, sum, mul and matmul, each with the
-JAX impl's semantics on tensors, NaN, infinities and signed zeros
-included: where a torch function differs from the jnp one there (clamp
+increment, cumsum, reduce_sum, mean, sum, cos_sim, mul and matmul, each
+with the JAX impl's semantics on tensors, NaN, infinities and signed
+zeros included: where a torch function differs from the jnp one there (clamp
 at -0, pow's sqrt at -inf, softplus's threshold), the op is the jnp
 formula in torch operations.  A large
 matrix product stays `torch.matmul`, as the JAX package left it to XLA;
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.dtypes import torch_dtype
+from ..core.dtypes import torch_dtype, weak
 from ..core.registry import register
 
 
@@ -157,6 +157,15 @@ def _softplus(x):
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def _sigmoid(x):
+    """jax.nn.sigmoid: one operation in float32; on a bf16 tensor jnp's
+    three, exp(-x), 1 + e and 1 / s, each rounded to bf16 (torch.sigmoid
+    rounds once)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def _clip(x, lo, hi):
     # jnp.clip: minimum(maximum(x, lo), hi)
     return _minimum(_maximum(x, lo), hi)
@@ -165,7 +174,7 @@ def _clip(x, lo, hi):
 _unary('square', torch.square)
 _unary('sqrt', torch.sqrt)
 _unary('sign', _sign)
-_unary('sigmoid', torch.sigmoid)
+_unary('sigmoid', _sigmoid)
 _unary('logsigmoid', lambda x: -_softplus(-x))
 _unary('tanh', torch.tanh)
 _unary('tanh_shrink', lambda x: x - torch.tanh(x))
@@ -184,19 +193,25 @@ _unary('softsign', lambda x: x / (torch.abs(x) + 1))
 _unary('erf', torch.erf)
 
 
+# Each Python constant below meets its tensor as jnp meets a weak-typed
+# scalar: rounded to the tensor's dtype first (`weak`, ROADMAP C12)
+
 @register('relu6')
 def relu6(ctx, ins, attrs):
-    return {'Out': _clip(ins['X'], 0.0, float(attrs.get('threshold', 6.0)))}
+    x = ins['X']
+    return {'Out': _clip(x, 0.0, weak(float(attrs.get('threshold', 6.0)),
+                                      x))}
 
 
 @register('leaky_relu')
 def leaky_relu(ctx, ins, attrs):
     x = ins['X']
-    return {'Out': torch.where(x >= 0, x, attrs.get('alpha', 0.02) * x)}
+    return {'Out': torch.where(x >= 0, x,
+                               weak(attrs.get('alpha', 0.02), x) * x)}
 
 
 def _elu(x, a):
-    return torch.where(x >= 0, x, a * (torch.exp(x) - 1.0))
+    return torch.where(x >= 0, x, weak(a, x) * (torch.exp(x) - 1.0))
 
 
 @register('elu')
@@ -206,33 +221,38 @@ def elu(ctx, ins, attrs):
 
 @register('selu')
 def selu(ctx, ins, attrs):
-    return {'Out': attrs.get('scale', 1.0507009873554805) * _elu(
-        ins['X'], attrs.get('alpha', 1.6732632423543772))}
+    x = ins['X']
+    return {'Out': weak(attrs.get('scale', 1.0507009873554805), x) * _elu(
+        x, attrs.get('alpha', 1.6732632423543772))}
 
 
 @register('brelu')
 def brelu(ctx, ins, attrs):
-    return {'Out': _clip(ins['X'], float(attrs.get('t_min', 0.0)),
-                         float(attrs.get('t_max', 24.0)))}
+    x = ins['X']
+    return {'Out': _clip(x, weak(float(attrs.get('t_min', 0.0)), x),
+                         weak(float(attrs.get('t_max', 24.0)), x))}
 
 
 @register('soft_relu')
 def soft_relu(ctx, ins, attrs):
+    x = ins['X']
     t = float(attrs.get('threshold', 40.0))
-    return {'Out': torch.log1p(torch.exp(_clip(ins['X'], -t, t)))}
+    return {'Out': torch.log1p(torch.exp(_clip(x, weak(-t, x),
+                                               weak(t, x))))}
 
 
 @register('hard_sigmoid')
 def hard_sigmoid(ctx, ins, attrs):
     x = ins['X']
-    return {'Out': _clip(attrs.get('slope', 0.2) * x +
-                         attrs.get('offset', 0.5), 0.0, 1.0)}
+    return {'Out': _clip(weak(attrs.get('slope', 0.2), x) * x +
+                         weak(attrs.get('offset', 0.5), x), 0.0, 1.0)}
 
 
 @register('stanh')
 def stanh(ctx, ins, attrs):
-    return {'Out': attrs.get('scale_b', 1.7159) * torch.tanh(
-        attrs.get('scale_a', 2.0 / 3.0) * ins['X'])}
+    x = ins['X']
+    return {'Out': weak(attrs.get('scale_b', 1.7159), x) * torch.tanh(
+        weak(attrs.get('scale_a', 2.0 / 3.0), x) * x)}
 
 
 def pow_fixups(f):
@@ -249,7 +269,7 @@ def pow_fixups(f):
 @register('pow')
 def pow_op(ctx, ins, attrs):
     x, f = ins['X'], float(attrs.get('factor', 1.0))
-    out = torch.pow(x, f)
+    out = torch.pow(x, weak(f, x))
     for at, v in pow_fixups(f):
         out = torch.where(x == at, v, out)
     return {'Out': out}
@@ -258,19 +278,21 @@ def pow_op(ctx, ins, attrs):
 @register('thresholded_relu')
 def thresholded_relu(ctx, ins, attrs):
     x = ins['X']
-    return {'Out': torch.where(x > attrs.get('threshold', 1.0), x, 0.0)}
+    return {'Out': torch.where(x > weak(attrs.get('threshold', 1.0), x),
+                               x, 0.0)}
 
 
 @register('hard_shrink')
 def hard_shrink(ctx, ins, attrs):
     x = ins['X']
-    return {'Out': torch.where(torch.abs(x) > attrs.get('threshold', 0.5),
-                               x, 0.0)}
+    return {'Out': torch.where(
+        torch.abs(x) > weak(attrs.get('threshold', 0.5), x), x, 0.0)}
 
 
 @register('softshrink')
 def softshrink(ctx, ins, attrs):
-    x, lam = ins['X'], attrs.get('lambda', 0.5)
+    x = ins['X']
+    lam = weak(attrs.get('lambda', 0.5), x)
     return {'Out': torch.where(x > lam, x - lam,
                                torch.where(x < -lam, x + lam, 0.0))}
 
@@ -284,9 +306,9 @@ def relu(ctx, ins, attrs):
 
 @register('scale')
 def scale(ctx, ins, attrs):
-    s = attrs.get('scale', 1.0)
-    b = attrs.get('bias', 0.0)
     x = ins['X']
+    s = weak(attrs.get('scale', 1.0), x)
+    b = attrs.get('bias', 0.0)
     # the bias takes x's dtype first, as jnp.asarray(b, x.dtype) does: an
     # int32 x with bias 1.5 adds 1
     b = torch.tensor(b).to(x.dtype).item()
@@ -301,7 +323,9 @@ def scale(ctx, ins, attrs):
 @register('clip')
 def clip(ctx, ins, attrs):
     # jnp.clip (torch.clamp keeps -0 against a bound of +0)
-    return {'Out': _clip(ins['X'], float(attrs['min']), float(attrs['max']))}
+    x = ins['X']
+    return {'Out': _clip(x, weak(float(attrs['min']), x),
+                         weak(float(attrs['max']), x))}
 
 
 @register('clip_by_norm')
@@ -347,7 +371,8 @@ def increment(ctx, ins, attrs):
     # the step converts to x's dtype first, as jnp.asarray(step, x.dtype);
     # a new tensor each run, which a CUDA graph copies into the scope's
     # tensor at the end of its step (core/graphs.py)
-    return {'Out': x + (step if x.is_floating_point() else int(step))}
+    return {'Out': x + (weak(step, x) if x.is_floating_point()
+                        else int(step))}
 
 
 @register('cumsum')
@@ -412,10 +437,21 @@ def sum_op(ctx, ins, attrs):
     return {'Out': out}
 
 
+@register('cos_sim')
+def cos_sim(ctx, ins, attrs):
+    # sum(x y) / (|x| |y| + 1e-12) over the last axis, keepdim
+    x, y = ins['X'], ins['Y']
+    xn = torch.sqrt(torch.sum(x * x, -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, -1, keepdim=True))
+    den = xn * yn
+    out = torch.sum(x * y, -1, keepdim=True) / (den + weak(1e-12, den))
+    return {'Out': out, 'XNorm': xn, 'YNorm': yn}
+
+
 @register('swish')
 def swish(ctx, ins, attrs):
     x = ins['X']
-    return {'Out': x * torch.sigmoid(attrs.get('beta', 1.0) * x)}
+    return {'Out': x * _sigmoid(weak(attrs.get('beta', 1.0), x) * x)}
 
 
 def _promote(x, y):

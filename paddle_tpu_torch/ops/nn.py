@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..core.registry import register
+from ..core.dtypes import weak
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -342,7 +343,7 @@ def dropout_apply(x, mask, attrs):
     out = x * mask
     if attrs.get('dropout_implementation',
                  'downgrade_in_infer') == 'upscale_in_train' and p < 1.0:
-        out = out / (1.0 - p)
+        out = out / weak(1.0 - p, out)
     return out
 
 
@@ -352,7 +353,7 @@ def dropout(ctx, ins, attrs):
     p = attrs.get('dropout_prob', 0.5)
     if attrs.get('is_test', False):
         impl = attrs.get('dropout_implementation', 'downgrade_in_infer')
-        out = x * (1.0 - p) if impl == 'downgrade_in_infer' else x
+        out = x * weak(1.0 - p, x) if impl == 'downgrade_in_infer' else x
         return {'Out': out, 'Mask': torch.ones_like(x)}
     # under a CUDA graph ctx.generator is one the capture registered,
     # seeded before each replay as this run would seed it (core/graphs.py)

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core.dtypes import weak
 from ..core.registry import get_op, register
 
 _IN_PLACE = (('Param', 'ParamOut'), ('Moment1', 'Moment1Out'),
@@ -90,14 +91,6 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 def _scalar(v, t):
     """A Python scalar as jnp meets it with array `t`: in t's dtype."""
     return torch.tensor(v, dtype=t.dtype, device=t.device)
-
-
-def _weak(v, t):
-    """`_scalar`, but the Python float itself where `t` is float32: torch
-    rounds a Python float that meets a float32 tensor to float32, as jnp
-    does, and keeps it in float32 where it meets a bf16 one, where jnp
-    rounds it to bf16."""
-    return v if t.dtype == torch.float32 else _scalar(v, t)
 
 
 def _adam_one(p, g, m1, m2, b1p, b2p, lr, beta1, beta2, epsilon):
@@ -399,10 +392,10 @@ def _momentum_one(p, g, v, lr, mu, nesterov):
     """The `momentum` op's math on one tensor, jnp's dtypes and roundings
     (each operation in its operands' promoted dtype, `mu` first in the
     dtype of the array it meets) -> (p', v'), new tensors."""
-    vn = _weak(mu, v) * v + g
+    vn = weak(mu, v) * v + g
     lr = _dims(lr, p)
     if nesterov:
-        return p - lr * (g + _weak(mu, vn) * vn), vn
+        return p - lr * (g + weak(mu, vn) * vn), vn
     return p - lr * vn, vn
 
 
@@ -730,8 +723,8 @@ def _optim_one(op_type, key, p, g, arrays, scalar, lr):
     operation in its operands' promoted dtype, the float32 learning rate
     and Beta1Pow as arrays of p's rank (`_dims`); a Python constant, such
     as 1 - rho, computed in double and met as jnp's weak types meet an
-    array, in its dtype (`_weak`).  -> (p', arrays'), new tensors."""
-    w = _weak
+    array, in its dtype (`weak`).  -> (p', arrays'), new tensors."""
+    w = weak
     lr = _dims(lr, p) if lr is not None else None
     if op_type == 'sgd':
         return p - lr * g, ()
@@ -1215,9 +1208,9 @@ def lars_momentum(ctx, ins, attrs):
     fuse pass leaves it out), the norms as sqrt(sum(square(x))), with
     jnp's dtypes: the learning rate and the norms as arrays of p's rank
     (`_dims`), so the float32 rate promotes a bf16 update to float32, and
-    each Python constant in the dtype of the array it meets (`_weak`)."""
+    each Python constant in the dtype of the array it meets (`weak`)."""
     p, g, v = ins['Param'], ins['Grad'], ins['Velocity']
-    w = _weak
+    w = weak
     mu = attrs.get('mu', 0.9)
     coeff = attrs.get('lars_coeff', 0.001)
     decay = attrs.get('lars_weight_decay', 0.0005)

@@ -146,9 +146,20 @@ def test_nets_helper_matches_the_reference(which):
 
 
 def test_sequence_conv_pool_is_left_out():
-    assert 'sequence_conv_pool' not in tf.nets.__all__
-    assert set(tf.nets.__all__) == set(jf.nets.__all__) - {
-        'sequence_conv_pool'}
+    """Not left out since the port has LoD: `nets.__all__` is the
+    reference's, `sequence_conv_pool` included, and it builds the
+    reference's ops on a ragged input."""
+    assert set(tf.nets.__all__) == set(jf.nets.__all__)
+    types = []
+    for fluid in (jf, tf):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            x = fluid.layers.data('x', shape=[4], dtype='float32',
+                                  lod_level=1)
+            fluid.nets.sequence_conv_pool(x, num_filters=3, filter_size=3)
+        types.append([op.type for op in main.global_block().ops])
+    assert types[0] == types[1] == ['sequence_conv', 'elementwise_add',
+                                    'sigmoid', 'sequence_pool']
 
 
 # ------------------------------------------------------------ the models

@@ -1368,3 +1368,68 @@ def test_rule_segment_matches_plain_on_special_values(cuda, case):
     spec = chip_smoke.rule_specs(1 << 14)[case]
     row = chip_smoke.rule_case(case, spec, n=1 << 14)
     assert row['mismatches'] == 0
+
+
+# ---------------------------------------------------------------- C12
+
+@pytest.mark.parametrize('case', sorted(chip_smoke.C12_RULE_CASES))
+def test_c12_bf16_rule_segment_is_its_plain_op_bit_for_bit(cuda, case):
+    """Each kernel rule whose Python constants meet a bf16 tensor: its
+    bf16 segment on every bf16 bit pattern (subnormals, +-0, +-inf, NaNs,
+    each constant's neighbours) against the plain op, the same bits
+    (chip_smoke.rule_case_bf16), at 2^17 values."""
+    spec = chip_smoke.rule_specs_bf16(1 << 17)[case]
+    row = chip_smoke.rule_case_bf16(case, spec, n=1 << 17)
+    assert row['mismatches'] == 0
+
+
+# ------------------------------------------------------ the sequence ops
+
+def test_lstm_on_the_card_matches_the_cpu(cuda):
+    """The lstm op (a loop of torch ops over T: cuBLAS GEMMs, elementwise
+    kernels) on the card against the CPU, forward and gradients, with
+    peepholes and reversed: within 1e-5 of the largest value."""
+    from paddle_tpu_torch.ops import sequence  # noqa: F401 - registers
+    gen = torch.Generator(device='cpu').manual_seed(3)
+    D, B, T = 16, 5, 9
+    ins = {'Input': torch.randn(B, T, 4 * D, generator=gen),
+           'Weight': torch.randn(D, 4 * D, generator=gen) * 0.3,
+           'Bias': torch.randn(1, 7 * D, generator=gen) * 0.3,
+           'Length': torch.tensor([9, 1, 4, 7, 9], dtype=torch.int32)}
+    attrs = {'use_peepholes': True, 'is_reverse': True}
+    w = torch.randn(B, T, D, generator=gen)
+    res = {}
+    for dev in ('cpu', 'cuda'):
+        xs = {k: v.detach().clone().to(dev).requires_grad_(
+            v.is_floating_point()) for k, v in ins.items()}
+        out = treg.get_op('lstm')(None, xs, attrs)
+        (out['Hidden'] * w.to(dev)).sum().backward()
+        res[dev] = [out['Hidden'], out['Cell']] + [
+            xs[k].grad for k in ('Input', 'Weight', 'Bias')]
+    for a, b in zip(res['cuda'], res['cpu']):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_one_graph_serves_batches_of_other_lengths(cuda):
+    """A small stacked-LSTM LM on the card: the CUDA graph captured for
+    one T bucket replays batches whose lengths differ (the lengths are a
+    feed copied in before each replay), each step equal to the
+    interpreter's (use_program_cache=False) from the same state."""
+    import paddle_tpu_torch as fluid
+    main, startup, out, feeder, bucketer = chip_smoke.sl_program(
+        dict_dim=100, emb_dim=16, hid_dim=16)
+    rng = np.random.RandomState(5)
+    feeds = [chip_smoke.sl_feed(feeder, bucketer, chip_smoke.review_rows(
+        rng, 8, (20, 24), 100)) for _ in range(4)]
+    assert len({f['words'].padded.shape[1] for f in feeds}) == 1
+    res = {}
+    for graphed in (True, False):
+        scope, exe = fluid.Scope(), fluid.Executor()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            res[graphed] = [exe.run(main, feed=f, fetch_list=[out['loss']],
+                                    use_program_cache=graphed)[0]
+                            for f in feeds]
+    for a, b in zip(res[True], res[False]):
+        np.testing.assert_allclose(a, b, rtol=1e-6)

@@ -9,7 +9,10 @@ max and min (C10), `squeeze` / `split`, batch norm's moving
 statistics (the reference's momentum convention and biased variance,
 which `F.batch_norm` does not follow), and the in-place optimizer
 updates on bf16 state (C11: the float32 learning rate promotes, as in
-jnp, where torch's 0-dim rule kept bf16).
+jnp, where torch's 0-dim rule kept bf16), and the Python constants that
+meet a bf16 tensor in the activations, scale, clip, increment and
+dropout, and in their kernel rules (C12: rounded to bf16 first, as jnp
+rounds a weak-typed scalar).
 
 C3's kernels (head dims 16, 32 and 96 on CUDA cores) are checked on the
 card in tests/test_torch_cuda_kernels.py; here the route of a head dim
@@ -736,3 +739,148 @@ def test_c11_the_plan_step_binds_the_promoted_outputs(case, monkeypatch):
     assert torch.float32 in [t.dtype for t in got]
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- C12
+
+# Each op that takes a Python constant, with constants that bf16 does not
+# hold exactly (jnp rounds them to bf16 first, as weak types)
+_C12_CASES = {
+    'relu6': ('relu6', {'threshold': 5.3}),
+    'leaky_relu': ('leaky_relu', {'alpha': 0.3}),
+    'elu': ('elu', {'alpha': 0.7}),
+    'selu': ('selu', {}),
+    'brelu': ('brelu', {'t_min': -1.3, 't_max': 5.3}),
+    'soft_relu': ('soft_relu', {'threshold': 3.3}),
+    'hard_sigmoid': ('hard_sigmoid', {}),
+    'stanh': ('stanh', {}),
+    'pow': ('pow', {'factor': 1.3}),
+    'thresholded_relu': ('thresholded_relu', {'threshold': 1.006}),
+    'hard_shrink': ('hard_shrink', {'threshold': 0.3}),
+    'softshrink': ('softshrink', {'lambda': 0.3}),
+    'scale': ('scale', {'scale': 0.3, 'bias': 0.1}),
+    'scale_bias_first': ('scale', {'scale': 0.3, 'bias': 0.1,
+                                   'bias_after_scale': False}),
+    'swish': ('swish', {'beta': 0.3}),
+    'clip': ('clip', {'min': -1.3, 'max': 2.3}),
+    # the sweep's sites: increment's step, dropout's test-time scale and
+    # its upscale divisor, the sigmoid (jnp's three bf16 operations)
+    'increment': ('increment', {'step': 0.1}),
+    'dropout_test': ('dropout', {'dropout_prob': 0.3, 'is_test': True}),
+    'dropout_upscale_test': ('dropout', {
+        'dropout_prob': 0.3, 'is_test': True,
+        'dropout_implementation': 'upscale_in_train'}),
+    'sigmoid': ('sigmoid', {}),
+}
+
+
+def _every_bf16():
+    """Every bf16 value but the subnormals (XLA on the CPU reads them as
+    0; the card keeps them): +-0, +-inf, NaNs and every threshold's
+    neighbours included, as uint16 bits."""
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    exp = (bits >> 7) & 0xff
+    return bits[(exp != 0) | ((bits & 0x7f) == 0)]
+
+
+def _bf16_bits(out):
+    """A bf16 result as uint16 bits, every NaN as one pattern."""
+    import ml_dtypes
+    b = np.asarray(out).view(np.uint16).copy()
+    b[np.isnan(b.view(ml_dtypes.bfloat16).astype(np.float32))] = 0x7fc0
+    return b
+
+
+@pytest.mark.parametrize('case', sorted(_C12_CASES))
+def test_c12_bf16_op_matches_the_jax_op_bit_for_bit(case):
+    """The op on every bf16 value (normal, zero, infinite, NaN) against the
+    JAX op: each Python constant meets the tensor as jnp's weak type,
+    rounded to bf16 first, so every result is the same bf16."""
+    import ml_dtypes
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+    op, attrs = _C12_CASES[case]
+    bits = _every_bf16()
+    want = jreg.get_op(op).impl(None, {'X': jnp.asarray(
+        bits.view(ml_dtypes.bfloat16))}, attrs)['Out']
+    # XLA on the CPU flushes float32 subnormals, intermediate ones too:
+    # torch does as well while this is set, on the thread that sets it,
+    # so on one thread (the card keeps them)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    assert torch.set_flush_denormal(True)
+    try:
+        got = treg.get_op(op)(None, {'X': torch.from_numpy(
+            bits.view(np.int16)).view(torch.bfloat16)}, attrs)['Out']
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(threads)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got = _bf16_bits(got.view(torch.int16).numpy())
+    want = _bf16_bits(np.asarray(want))
+    bad = np.nonzero(got != want)[0]
+    assert bad.size == 0, [(float(bits[i:i + 1].view(ml_dtypes.bfloat16)[0]),
+                            hex(got[i]), hex(want[i])) for i in bad[:6]]
+
+
+@pytest.mark.parametrize('case', sorted(_C12_CASES))
+def test_c12_float32_results_are_unchanged(case, monkeypatch):
+    """On float32 the rounding is the identity: the op equals itself with
+    every constant left as the Python float, bit for bit."""
+    from paddle_tpu_torch.core import registry as treg
+    from paddle_tpu_torch.ops import math as tmath, nn as tnn, sequence
+    op, attrs = _C12_CASES[case]
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(np.concatenate([
+        (rng.randn(4096) * 4).astype('float32'),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 5.3, 1.006, -1.3, 0.3,
+                  -0.3, 2.3, 3.3], 'float32')]))
+    got = treg.get_op(op)(None, {'X': x}, attrs)['Out']
+    for mod in (tmath, tnn, sequence):
+        monkeypatch.setattr(mod, 'weak', lambda v, t: v)
+    want = treg.get_op(op)(None, {'X': x}, attrs)['Out']
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _c12_rule_source(op, attrs, dtype):
+    from paddle_tpu_torch.ops import kernelgen as tkg
+    sub = {'type': op, 'inputs': {'X': ['x']}, 'outputs': {'Out': ['o']},
+           'input_is_list': {'X': False}, 'output_is_list': {'Out': False},
+           'attrs': dict(attrs), 'stop_grad': []}
+    fa = {'sub_ops': [sub], 'arg_names': ['x'], 'out_names': ['o'],
+          'fused_count': 1}
+    tkg.clear_plan_cache()
+    plan = tkg.plan_for(fa, (((5, 8), dtype),), False)
+    assert [s[0] for s in plan.steps] == ['kernel']
+    return tkg.generated_source([plan.steps[0][1].name])
+
+
+_C12_RULE_CONSTANTS = {
+    'relu6': [5.3], 'leaky_relu': [0.3], 'elu': [0.7],
+    'selu': [1.0507009873554805, 1.6732632423543772],
+    'brelu': [-1.3, 5.3], 'soft_relu': [3.3, -3.3],
+    'hard_sigmoid': [0.2], 'stanh': [1.7159, 2.0 / 3.0], 'pow': [1.3],
+    'thresholded_relu': [1.006], 'hard_shrink': [0.3],
+    'softshrink': [0.3, -0.3], 'scale': [0.3], 'scale_bias_first': [0.3],
+    'swish': [0.3], 'clip': [-1.3, 2.3], 'increment': [0.1],
+    'dropout_test': [0.7],
+}
+
+
+@pytest.mark.parametrize('case', sorted(_C12_RULE_CONSTANTS))
+def test_c12_rule_writes_each_constant_in_the_tensors_dtype(case):
+    """The generated segment of each touched kernel rule carries the
+    bf16-rounded constant into a bf16 segment's CUDA source, and the
+    float32 constant, as before, into a float32 one (the card holds
+    each segment to its plain op bit for bit: chip_smoke.py's kernels
+    phase, `kernelgen_rule_bf16`)."""
+    from paddle_tpu_torch.ops.kernelgen.rules import float_lit
+    op, attrs = _C12_CASES[case]
+    for v in _C12_RULE_CONSTANTS[case]:
+        r = float(torch.tensor(v, dtype=torch.bfloat16))
+        assert r != float(np.float32(v))
+        bf16 = _c12_rule_source(op, attrs, 'bfloat16')
+        f32 = _c12_rule_source(op, attrs, 'float32')
+        assert float_lit(r) in bf16 and float_lit(v) not in bf16, v
+        assert float_lit(v) in f32 and float_lit(r) not in f32, v
