@@ -20,6 +20,7 @@ plain PyTorch version.
     python3 chip_smoke.py --phases card,kernels,training_se_resnext50,training_vgg16,training_mnist,train_conv_gpu_vs_cpu
     python3 chip_smoke.py --phases card,training_ctr,training_optimizers,training_word2vec,train_ctr_gpu_vs_cpu
     python3 chip_smoke.py --phases card,training_stacked_lstm,train_seq_gpu_vs_cpu
+    python3 chip_smoke.py --phases training_recompute,training_fluid_loss,ops_gpu_vs_cpu
 
 Every program runs through the PT_OPT passes (on by default): their fused
 groups run as generated CUDA kernels (paddle_tpu_torch/ops/kernelgen),
@@ -229,7 +230,7 @@ Phases, each printing JSON lines:
               backward as clusters of two blocks)
   train_llama_gpu_vs_cpu
               two steps from the same weights on the card and on the CPU:
-              llama_1b widths cut to 2 layers, B = 2, T = 256, float32
+              llama_1b widths cut to 1 layer, B = 2, T = 256, float32
               (losses within 1e-5 relative, parameters within 2.01 x the
               summed lr, the clip's global norm within 1e-5 relative);
               the tiny config (D = 16: the tensor-core forward's and
@@ -345,6 +346,26 @@ Phases, each printing JSON lines:
               state: losses within 1e-5 relative, parameters within 2.01
               x the summed lr; the LM's predict saved and run by
               Predictor on a LoDTensor, card against CPU
+  training_recompute
+              transformer-base (B 32, T 256, bf16 AMP) at COMPOSED_CFG
+              (dropout 0.1, composed attention) and at BENCH_CFG (flash),
+              each as the plain program and with its forward in one
+              recompute_scope(), from one seed and one state: 3 steps each
+              (step 1's loss bit for bit, losses and parameters within 1e-5
+              relative plus 2.01 x the summed lr), the recompute's graph
+              step bit for bit its interpreted one, step ms, peak memory
+              and launches a step of each (K5 and K1 twice the plain
+              program's)
+  training_fluid_loss
+              transformer-base at BENCH_CFG minimizing Fluid's own
+              one_hot -> label_smooth -> soft-label cross-entropy, the
+              model's closed form fetched beside it (the two within the
+              derived (V + 8) 2^-24 bound), step ms, peak memory and
+              label_smooth's generated segment launched once a step
+  ops_gpu_vs_cpu
+              every dense op of GVC_OPS on the card against the CPU,
+              bit for bit where exact, else within its stated tolerance;
+              tests/test_recompute.py's program card against CPU
 The kernels phase also holds one generated segment for each rule of the
 elementwise, comparison, logical and activation ops (RULE_CASES, 4 M
 values from RULE_SPECIALS and normal ones) against its plain op, timed;
@@ -355,12 +376,14 @@ timed beside its plain version and torch's optimizer where one exists;
 K4 at the CTR tables (1 and 8 columns, 53,248 int64 ids) and at the
 sequence models' lookups beside F.embedding; and (C12) the bf16 segment
 of each rule whose Python constants meet the tensor (C12_RULE_CASES) on
-every bf16 bit pattern, bit for bit its plain op.
+every bf16 bit pattern, bit for bit its plain op; and the
+segments of the label_smooth, fill_zeros_like and flatten rules
+(A10_RULE_CASES), a kernelgen_rule and a kernelgen_rule_bf16 line each.
 The phases run in that order, except that the ones that also compute on
 the CPU (gpu_vs_cpu, generation_gpu_vs_cpu, train_gpu_vs_cpu,
 train_composed_gpu_vs_cpu, train_llama_gpu_vs_cpu,
 train_resnet_gpu_vs_cpu, train_conv_gpu_vs_cpu, train_ctr_gpu_vs_cpu,
-train_c11_gpu_vs_cpu, train_seq_gpu_vs_cpu) run last, and that
+train_c11_gpu_vs_cpu, train_seq_gpu_vs_cpu, ops_gpu_vs_cpu) run last, and that
 training_llama, training_llama_bf16, training_llama_d256 and the conv
 models' training phases run after training_composed.  For the time
 limit some card-vs-CPU runs hold fewer steps (VGG-16, SE-ResNeXt-50 and
@@ -409,7 +432,8 @@ PHASES = ('card', 'kernels', 'serving', 'serving_bf16', 'serving_d96',
           'training_vgg16', 'training_mnist', 'train_conv_gpu_vs_cpu',
           'training_ctr', 'training_optimizers', 'training_word2vec',
           'train_ctr_gpu_vs_cpu', 'train_c11_gpu_vs_cpu',
-          'training_stacked_lstm', 'train_seq_gpu_vs_cpu')
+          'training_stacked_lstm', 'train_seq_gpu_vs_cpu',
+          'training_recompute', 'training_fluid_loss', 'ops_gpu_vs_cpu')
 SEED = 1234
 SERVED_FETCHES = ('last_logits', 'next_token')
 BUCKETS = (1, 2, 4)
@@ -2351,6 +2375,8 @@ def phase_kernels():
     specs = path_segments()
     rules = rule_specs()
     rules_bf16 = rule_specs_bf16()
+    rules_a10 = {dt: a10_rule_specs(dt, n) for dt, n in
+                 (('float32', RULE_N), ('bfloat16', C12_N))}
     kernelgen.ensure_built()
     log = kernelgen.build_stats['log']
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2371,6 +2397,11 @@ def phase_kernels():
     # every bf16 value, bit for bit its plain op
     for case, spec in rules_bf16.items():
         rule_case_bf16(case, spec)
+    # the rules of label_smooth, fill_zeros_like and flatten, a
+    # kernelgen_rule and a kernelgen_rule_bf16 line each
+    for dt, n in (('float32', RULE_N), ('bfloat16', C12_N)):
+        for case, spec in rules_a10[dt].items():
+            a10_rule_case(case, spec, dt, n)
     return {'rows': served, 'instances': inst, 'gather_ctr': inst_gather,
             'gather_seq': gather_seq}
 
@@ -5777,6 +5808,137 @@ def rule_case_bf16(case, spec, n=C12_N):
     return row
 
 
+# the rules of label_smooth, fill_zeros_like and flatten, each a
+# one-segment sub-program: case -> (sub-ops, argument names, shapes of
+# the arguments, in elements: RULE_N values in all, the prior one row)
+def _rule_sub(type, inputs, outputs, attrs=None):
+    return {'type': type, 'inputs': {k: list(v) for k, v in inputs.items()},
+            'outputs': {k: list(v) for k, v in outputs.items()},
+            'input_is_list': {k: False for k in inputs},
+            'output_is_list': {k: False for k in outputs},
+            'attrs': dict(attrs or {}), 'stop_grad': []}
+
+
+A10_RULE_V = 1024
+A10_RULE_CASES = {
+    'label_smooth': (
+        [_rule_sub('label_smooth', {'X': ['x']}, {'Out': ['o']},
+                   {'epsilon': 0.1})], ['x'], ['rows']),
+    'label_smooth_prior': (
+        [_rule_sub('label_smooth', {'X': ['x'], 'PriorDist': ['p']},
+                   {'Out': ['o']}, {'epsilon': 0.3})], ['x', 'p'],
+        ['rows', 'row']),
+    'fill_zeros_like': (
+        [_rule_sub('fill_zeros_like', {'X': ['x']}, {'Out': ['o']})],
+        ['x'], ['rows']),
+    # flatten between two kernel ops: a flat alias inside the segment
+    'flatten': (
+        [_rule_sub('scale', {'X': ['x']}, {'Out': ['s']}, {'scale': 3.0}),
+         _rule_sub('flatten', {'X': ['s']}, {'Out': ['f']}, {'axis': 1}),
+         _rule_sub('scale', {'X': ['f']}, {'Out': ['o']}, {'scale': 0.5})],
+        ['x'], ['rows3']),
+}
+
+
+def _a10_shape(kind, n):
+    rows = n // A10_RULE_V
+    return {'rows': (rows, A10_RULE_V), 'row': (A10_RULE_V,),
+            'rows3': (rows, 32, A10_RULE_V // 32)}[kind]
+
+
+def a10_rule_specs(dtype, n):
+    """The generated segment of each A10_RULE_CASES case in `dtype` at n
+    values: case -> spec (planned, not built)."""
+    from paddle_tpu_torch.ops import kernelgen
+    out = {}
+    for case, (subs, args, kinds) in A10_RULE_CASES.items():
+        fa = {'sub_ops': subs, 'arg_names': args, 'out_names': ['o'],
+              'fused_count': len(subs)}
+        plan = kernelgen.plan_for(fa, tuple((_a10_shape(k, n), dtype)
+                                            for k in kinds), False)
+        kinds_ = [st[0] for st in plan.steps]
+        require(kinds_ == ['kernel'], 'rule %s (%s) planned as %s'
+                % (case, dtype, kinds_))
+        out[case] = plan.steps[0][1]
+    return out
+
+
+def a10_rule_case(case, spec, dtype, n):
+    """One new rule's segment against its plain op on the card, bit for
+    bit (each is IEEE multiplies and adds, or a constant): float32 on
+    normal values and RULE_SPECIALS, timed beside its plain replay and a
+    PyTorch call of the same function (torch.lerp for label_smooth,
+    zeros_like, mul by 1.5) where it agrees; bf16 on every bf16 bit
+    pattern, then normal values."""
+    import torch
+    from paddle_tpu_torch.ops import kernelgen
+    subs, args, kinds = A10_RULE_CASES[case]
+    g = torch.Generator(device='cuda').manual_seed(SEED + 23)
+    ents = []
+    for k in kinds:
+        shape = _a10_shape(k, n)
+        x = torch.rand(shape, generator=g, device='cuda') if k != 'rows3' \
+            else torch.randn(shape, generator=g, device='cuda') * 3
+        flat = x.view(-1)
+        if dtype == 'float32' and k != 'row':
+            flat[:len(RULE_SPECIALS)] = torch.tensor(RULE_SPECIALS,
+                                                     device='cuda')
+        x = x.to(getattr(torch, dtype))
+        if dtype == 'bfloat16' and k != 'row':
+            x.view(-1)[:1 << 16] = torch.arange(
+                1 << 16, dtype=torch.int32, device='cuda').to(
+                    torch.int16).view(torch.bfloat16)
+        ents.append(x.contiguous())
+    # the segment's entries (fill_zeros_like reads X's shape only: none)
+    launched = ents[:len(spec.entry_avals)]
+    with torch.no_grad():
+        out, = kernelgen._launch(spec, launched)
+        ref, = spec.replay(launched)
+        torch.cuda.synchronize()
+    iv = torch.int16 if dtype == 'bfloat16' else torch.int32
+    ref = ref.reshape(out.shape).to(out.device)
+    same = (out.view(iv) == ref.view(iv)) | (
+        torch.isnan(out.float()) & torch.isnan(ref.float()))
+    bad = int((~same).sum())
+    if dtype == 'bfloat16':
+        row = dict(phase='kernels', kernel='kernelgen_rule_bf16', case=case,
+                   ops=[s_['type'] for s_ in subs], name=spec.name, n=n,
+                   out_dtype=spec.esc_aval[0][1], mismatches=bad,
+                   bit_for_bit=not bad)
+    else:
+        eps = subs[0]['attrs'].get('epsilon', 0.0)
+        lib = {'label_smooth': ('torch.lerp', lambda x: torch.lerp(
+                   x, torch.full_like(x, eps / x.shape[-1]), eps)),
+               'label_smooth_prior': ('torch.lerp', lambda x, p: torch.lerp(
+                   x, p.expand_as(x), eps)),
+               'fill_zeros_like': ('torch.zeros_like', torch.zeros_like),
+               'flatten': ('torch.mul', lambda x: torch.mul(
+                   x, 1.5).reshape(x.shape[0], -1))}[case]
+        lib_ok = bool(_same(lib[1](*ents).reshape(ref.shape), ref,
+                            1e-6).all())
+        nbytes = sum(t.numel() * t.element_size() for t in launched) + \
+            out.numel() * out.element_size()
+        bound_ms, bound_by = _bound(0.0, nbytes, 'float32')
+        row = dict(phase='kernels', kernel='kernelgen_rule', case=case,
+                   ops=[s_['type'] for s_ in subs], name=spec.name, n=n,
+                   out_dtype=spec.esc_aval[0][1], mismatches=bad,
+                   max_abs_err=float((out.float() - ref.float()).abs()
+                                     .nan_to_num(0.0, 0.0, 0.0).max()),
+                   rtol=0.0,
+                   ms=time_ms(lambda: kernelgen._launch(spec, launched),
+                              50),
+                   plain_ms=time_ms(lambda: spec.replay(launched), 20),
+                   library_is=lib[0] if lib_ok else
+                   lib[0] + ' differs from the plain op on these inputs',
+                   library_ms=time_ms(lambda: lib[1](*ents), 50)
+                   if lib_ok else None, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes)
+    emit(**row)
+    require(not bad, 'rule %s (%s): its generated segment differs from the '
+            'plain op at %d values: %s' % (case, dtype, bad, row))
+    return row
+
+
 def _resnet_program(fluid, resnet, amp, for_test=False, **kw):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
@@ -6948,6 +7110,698 @@ def phase_train_seq_gpu_vs_cpu():
     return paths
 
 
+# --------------------------------------- recompute and Fluid's own loss
+
+RECOMPUTE_STEPS = 3   # steps of each program compared in training_recompute
+RECOMPUTE_TIMED = 5   # graph replays timed after them
+
+
+def _remat_program(fluid, tr, cfg, remat, chain=False):
+    """transformer-base at `cfg` with models/transformer.py::build's Adam
+    on noam_decay (scale 2.0, warmup 8000), under bf16 AMP; its forward
+    (`transformer`) built inside one recompute_scope() when `remat`.  With
+    `chain` it minimizes Fluid's own loss on the logits: one_hot(lbl) ->
+    label_smooth(0.1) -> softmax_with_cross_entropy(soft_label=True),
+    under the model's pad mask and token mean (the token weights 1 - pad
+    as one `scale` next to the smoothing, so that the rewriter fuses the
+    two into one generated segment).  -> (main, startup, loss minimized,
+    the model's fused closed-form loss, probes): with `chain`, `probes`
+    maps 'chain' and 'closed' to their unmasked per-token losses and each
+    planted fault ('eps_0.09': the chain smoothing by 0.09, 'unsmoothed':
+    the chain on the bare one_hot) to its (per-token, mean) losses.  The
+    faults are built after the optimizer, so a run that does not fetch
+    them prunes them (dce) and runs the program as it was."""
+    import contextlib
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    probes = {}
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        with (fluid.recompute_scope() if remat else
+              contextlib.nullcontext()):
+            out = tr.transformer(label_smooth_eps=0.1, **cfg)
+        loss = out['loss']
+        if chain:
+            lbl, trg_pad = out['feeds'][2], out['feeds'][4]
+            soft = layers.label_smooth(
+                layers.one_hot(lbl, cfg['trg_vocab']), epsilon=0.1)
+            w = layers.scale(trg_pad, scale=-1.0, bias=1.0)
+            tok = layers.softmax_with_cross_entropy(
+                out['logits'], soft, soft_label=True)
+            per_tok = layers.elementwise_mul(
+                layers.squeeze(tok, axes=[2]), w)
+            loss = layers.elementwise_div(layers.reduce_sum(per_tok),
+                                          layers.reduce_sum(w))
+            blk = main.global_block()
+            closed, = [op.outputs['Loss'][0] for op in blk.ops
+                       if op.type == 'softmax_with_cross_entropy' and
+                       op.attrs.get('label_smooth_eps')]
+            probes.update(chain=tok, closed=blk.var(closed))
+
+            def chain_loss(eps):
+                soft = layers.one_hot(lbl, cfg['trg_vocab'])
+                if eps:
+                    soft = layers.label_smooth(soft, epsilon=eps)
+                tok = layers.softmax_with_cross_entropy(
+                    out['logits'], soft, soft_label=True)
+                per_tok = layers.elementwise_mul(
+                    layers.squeeze(tok, axes=[2]), w)
+                return tok, layers.elementwise_div(
+                    layers.reduce_sum(per_tok), layers.reduce_sum(w))
+        lr = layers.scale(layers.noam_decay(cfg['d_model'], 8000),
+                          scale=2.0)
+        fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
+                             epsilon=1e-9).minimize(loss)
+        if chain:
+            probes.update({'eps_0.09': chain_loss(0.09),
+                           'unsmoothed': chain_loss(0.0)})
+    main.set_amp(True)
+    return main, startup, loss, out['loss'], probes
+
+
+def _noam_lrs(steps, d_model=512, warmup=8000, scale=2.0):
+    return [scale * d_model ** -0.5 * min(t ** -0.5, t * warmup ** -1.5)
+            for t in range(1, steps + 1)]
+
+
+def _live_peak(snapshot):
+    """The most bytes the captured step's own tensors held at once: each
+    allocation the recorded run made in a CUDA graph's private pool, its
+    requested size from its alloc to its free (the allocator's trace,
+    torch.cuda.memory._snapshot).  Left out: what the run allocated
+    outside the capture, the same in every program but the state of each
+    generator the capture registers (one a random draw, 16 bytes).  The
+    allocator's own peak counts blocks, which it may leave up to 1 MiB
+    larger than the tensor in them, as the order of earlier allocations
+    decides."""
+    import torch
+    pools = [(seg['address'], seg['address'] + seg['total_size'])
+             for seg in snapshot['segments']
+             if tuple(seg['segment_pool_id']) != (0, 0)]
+    require(pools, 'the captured run allocated in no graph pool')
+    live, cur, best = {}, 0, 0
+    for ev in snapshot['device_traces'][torch.cuda.current_device()]:
+        if ev['action'] == 'alloc' and any(lo <= ev['addr'] < hi
+                                           for lo, hi in pools):
+            live[ev['addr']] = ev['size']
+            cur += ev['size']
+            best = max(best, cur)
+        elif ev['action'] == 'free_requested' and ev['addr'] in live:
+            cur -= live.pop(ev['addr'])
+    return best
+
+
+def _train_steps(exe, main, feed, fetch, steps):
+    """`steps` runs of main (the first interpreted on the side stream, the
+    second captured, the rest replays) -> (fetches by step, peak bytes
+    allocated in each run above the bytes allocated before it, the live
+    tensors' peak bytes in the captured run (`_live_peak`), launches a
+    step by kernel, generated-segment launches a step by function)."""
+    import torch
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.ops import kernelgen
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    kernelgen.launches.clear()
+    outs, peaks, live = [], [], None
+    for k in range(steps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if k == 1:
+            torch.cuda.memory._record_memory_history(max_entries=1 << 20)
+        outs.append([np.asarray(v) for v in exe.run(main, feed=feed,
+                                                    fetch_list=fetch)])
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        if k == 1:
+            live = _live_peak(torch.cuda.memory._snapshot())
+            torch.cuda.memory._record_memory_history(enabled=None)
+    per = {k: v / steps for k, v in kernels.launches.items() if v}
+    seg = {k: v / steps for k, v in kernelgen.launches.items() if v}
+    return outs, peaks, live, per, seg
+
+
+def _free(scope, exe):
+    """Give an executor's CUDA graphs and a scope's tensors back to the
+    card: a graph entry and its executor refer to each other, so only a
+    collection frees the graphs' private pools."""
+    import gc
+    import torch
+    exe.close()
+    scope.vars.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_replays(exe, main, feed, fetch, n=RECOMPUTE_TIMED):
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_training_recompute(smi):
+    """transformer-base at full width and depth under bf16 AMP, B 32, T
+    256, at COMPOSED_CFG (dropout 0.1, composed attention: the dropout
+    masks must replay, K5, K6 and the dropout segments run again in the
+    backward) and at BENCH_CFG (flash, dropout 0: K1 runs again in the
+    backward): at each, the plain program and the one whose forward is
+    built inside one recompute_scope(), from one seed and the same
+    weights, RECOMPUTE_STEPS steps each (interpreted, captured, replayed).
+    Step 1's loss is bit for bit the plain program's; the losses after
+    within 1e-5 relative and every parameter within 1e-5 relative plus
+    2.01 x the summed learning rates (an Adam update moves an entry by
+    about lr whatever its gradient, so float noise in a gradient may move
+    it either way); the recompute's graph step equals its interpreted step
+    bit for bit (bitwise_paths, one step); the peak memory of the
+    recompute's interpreted and captured step is no higher than the plain
+    program's (the interpreted step's as the allocator counts it, the
+    captured step's as its live tensors' bytes, `_live_peak`: the
+    allocator's count of a captured step moves by a few hundred KiB with
+    the order its blocks were carved in).  Printed beside the card: step
+    ms of RECOMPUTE_TIMED replays, those peaks, launches a step (K1 twice
+    the plain program's at BENCH_CFG, K5 twice at COMPOSED_CFG).  ->
+    launches a step of the recompute programs, by path."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    B, T = 32, BENCH_CFG['max_len']
+    feed = tr.synthetic_batch(np.random.RandomState(0), B, T,
+                              BENCH_CFG['trg_vocab'])
+    paths = {}
+    lr_atol = 2.01 * sum(_noam_lrs(RECOMPUTE_STEPS))
+    for name, cfg, twice in (('composed', COMPOSED_CFG, 'softmax'),
+                             ('flash', BENCH_CFG, 'flash_attention_fwd')):
+        t0 = time.perf_counter()
+        init, res = None, {}
+        for remat in (False, True):
+            main, startup, loss, _, _ = _remat_program(fluid, tr, cfg, remat)
+            scope, exe = fluid.Scope(), fluid.Executor()
+            with fluid.scope_guard(scope):
+                if init is None:
+                    exe.run(startup)
+                    init = {n: t.clone() for n, t in scope.vars.items()}
+                else:
+                    for n, t in init.items():
+                        scope.vars[n] = t.clone()
+                outs, peaks, live, per, seg = _train_steps(
+                    exe, main, feed, [loss], RECOMPUTE_STEPS)
+                params = {p.name: scope.vars[p.name].detach().clone()
+                          for p in main.all_parameters()}
+                ms = _timed_replays(exe, main, feed, [loss])
+                if remat:
+                    bitwise_paths('training_recompute', exe, main, scope,
+                                  feed, [loss], n=1)
+            res[remat] = dict(losses=[float(o[0].reshape(-1)[0])
+                                      for o in outs], peaks=peaks, live=live,
+                              per=per,
+                              seg=seg, params=params, ms=ms)
+            _free(scope, exe)
+            del scope, exe
+        plain, rem = res[False], res[True]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(rem['losses'], plain['losses']))
+        p_err, p_ok, bitwise = 0.0, True, True
+        for n, t in rem['params'].items():
+            d = (t.float() - plain['params'][n].float()).abs()
+            p_err = max(p_err, float(d.max()))
+            p_ok &= bool((d <= 1e-5 * plain['params'][n].float().abs() +
+                          lr_atol).all())
+            bitwise &= bool(torch.equal(t, plain['params'][n]))
+        emit(phase='training_recompute', config=name, cfg=cfg, amp=True,
+             B=B, T=T, steps=RECOMPUTE_STEPS,
+             plain_losses=plain['losses'], recompute_losses=rem['losses'],
+             step1_bitwise=rem['losses'][0] == plain['losses'][0],
+             loss_max_rel=loss_rel, param_max_abs_diff=p_err,
+             param_atol=lr_atol, param_rtol=1e-5, params_bitwise=bitwise,
+             plain_step_ms=plain['ms'], recompute_step_ms=rem['ms'],
+             plain_median_step_ms=float(np.median(plain['ms'])),
+             recompute_median_step_ms=float(np.median(rem['ms'])),
+             plain_peak_gb_interpreted=plain['peaks'][0] / 1e9,
+             recompute_peak_gb_interpreted=rem['peaks'][0] / 1e9,
+             plain_peak_gb_capture=plain['peaks'][1] / 1e9,
+             recompute_peak_gb_capture=rem['peaks'][1] / 1e9,
+             peak_bytes=dict(plain=plain['peaks'][:2],
+                             recompute=rem['peaks'][:2]),
+             live_peak_bytes_capture=dict(plain=plain['live'],
+                                          recompute=rem['live']),
+             plain_launches_per_step=plain['per'],
+             recompute_launches_per_step=rem['per'],
+             plain_segment_launches_per_step=sum(plain['seg'].values()),
+             recompute_segment_launches_per_step=sum(rem['seg'].values()),
+             seconds=time.perf_counter() - t0, card=smi)
+        require(all(np.isfinite(plain['losses'] + rem['losses'])),
+                'training_recompute (%s): non-finite loss' % name)
+        require(rem['losses'][0] == plain['losses'][0],
+                'training_recompute (%s): step 1 loss %r, plain %r'
+                % (name, rem['losses'][0], plain['losses'][0]))
+        require(loss_rel <= 1e-5, 'training_recompute (%s): losses %s vs '
+                '%s' % (name, rem['losses'], plain['losses']))
+        require(p_ok, 'training_recompute (%s): a parameter %.3g apart '
+                '(bound 1e-5 relative + %.3g)' % (name, p_err, lr_atol))
+        require(rem['peaks'][0] <= plain['peaks'][0] and
+                rem['live'] <= plain['live'],
+                'training_recompute (%s): peak bytes of the interpreted step '
+                '%d, plain %d; live peak bytes of the captured step %d, plain '
+                '%d' % (name, rem['peaks'][0], plain['peaks'][0], rem['live'],
+                        plain['live']))
+        require(rem['per'].get(twice) == 2 * plain['per'].get(twice, 0) > 0,
+                'training_recompute (%s): %s launches a step %s, plain %s'
+                % (name, twice, rem['per'].get(twice),
+                   plain['per'].get(twice)))
+        paths['training_recompute_' + name] = dict(rem['per'], **rem['seg'])
+    return paths
+
+
+def _segments_with(main, fetch_names, op_type):
+    """Names of the generated functions, among the plans the fused ops of
+    main's optimized twin used, whose segment runs an `op_type` sub-op."""
+    from paddle_tpu_torch.core import passes
+    from paddle_tpu_torch.ops import kernelgen
+    opt, _ = passes.maybe_optimize(main, fetch_names)
+    names = []
+    for op in opt.global_block().ops:
+        if op.type != 'fused_elementwise':
+            continue
+        plan = kernelgen.plan_of(op.attrs)
+        for st in (plan.steps if plan is not None else ()):
+            if st[0] == 'kernel' and any(sub['type'] == op_type
+                                         for sub, *_ in st[1].ops):
+                names.append(st[1].name)
+    return names
+
+
+def phase_training_fluid_loss(smi):
+    """transformer-base at BENCH_CFG (flash, dropout 0: both losses see
+    the same logits), bf16 AMP, B 32, T 256, minimizing Fluid's own
+    `one_hot -> label_smooth -> softmax_with_cross_entropy(soft_label)`
+    chain on the logits, the model's fused closed form fetched beside it:
+    RECOMPUTE_STEPS steps, then RECOMPUTE_TIMED timed replays, then one
+    run that fetches the per-token losses and the planted faults
+    (`_remat_program`'s probes).
+
+    Per token, the chain sums V = 32000 terms soft_j (-logp_j) of one
+    sign and the closed form a mean of V terms -logp_j: each float32 sum
+    rounds V times, each rounding within 2^-24 of the partial sum, so its
+    error has a standard deviation of at most sqrt(V / 3) 2^-24 of the
+    token's loss, and the two forms' difference at most sqrt(2 V / 3)
+    2^-24.  The limits: the token mean within sqrt(V) 2^-24 relative
+    (1.07e-5; the mean of 8000 tokens' errors shrinks further), each real
+    token within 8 sqrt(V) 2^-24 relative (9.8 standard deviations).  A
+    fault moves a token by eps |logp_true - mean_j logp_j| or, for the
+    chain at 0.09, by 0.01 of it: the run reads both faults and fails
+    unless each token check sees both and the mean check sees the
+    unsmoothed one.  Printed: step ms, peak memory of the interpreted and
+    the captured step (the chain holds [B, T, V] float32 buffers the
+    closed form never builds), and label_smooth's generated segment with
+    its launches a step.  -> its launches a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    B, T, V = 32, BENCH_CFG['max_len'], BENCH_CFG['trg_vocab']
+    feed = tr.synthetic_batch(np.random.RandomState(0), B, T, V)
+    feed['trg_pad'][5, 180:] = 1.0      # a ragged row: the mask matters
+    main, startup, loss, fused, probes = _remat_program(
+        fluid, tr, BENCH_CFG, False, chain=True)
+    faults = ('eps_0.09', 'unsmoothed')
+    probe_fetch = [loss, fused, probes['chain'], probes['closed']] + [
+        v for f in faults for v in probes[f]]
+    scope, exe = fluid.Scope(), fluid.Executor()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        outs, peaks, _, per, seg = _train_steps(
+            exe, main, feed, [loss, fused], RECOMPUTE_STEPS)
+        ms = _timed_replays(exe, main, feed, [loss, fused])
+        got = [np.asarray(v, 'float64') for v in exe.run(
+            main, feed=feed, fetch_list=probe_fetch)]
+    smooth = _segments_with(main, [loss.name, fused.name], 'label_smooth')
+    chain = [float(o[0].reshape(-1)[0]) for o in outs]
+    closed = [float(o[1].reshape(-1)[0]) for o in outs]
+    rel = np.sqrt(V) * 2.0 ** -24
+    bound = [rel * abs(c) for c in chain]
+    diff = [abs(a - b) for a, b in zip(chain, closed)]
+    real = feed['trg_pad'].reshape(-1) == 0
+    ref_tok = got[3].reshape(-1)[real]
+
+    def tok_rel(t):
+        return float((np.abs(t.reshape(-1)[real] - ref_tok) /
+                      np.abs(ref_tok)).max())
+    ref_mean = float(got[1].reshape(-1)[0])
+    readings = {'sound': dict(mean_rel=abs(float(got[0].reshape(-1)[0]) -
+                                           ref_mean) / abs(ref_mean),
+                              token_max_rel=tok_rel(got[2]))}
+    for k, f in enumerate(faults):
+        readings[f] = dict(
+            mean_rel=abs(float(got[5 + 2 * k].reshape(-1)[0]) - ref_mean) /
+            abs(ref_mean), token_max_rel=tok_rel(got[4 + 2 * k]))
+    emit(phase='training_fluid_loss', config='transformer-base',
+         cfg=BENCH_CFG, amp=True, B=B, T=T, steps=RECOMPUTE_STEPS,
+         chain_losses=chain, closed_form_losses=closed, abs_diff=diff,
+         bound=bound, mean_rtol=rel, token_rtol=8 * rel, readings=readings,
+         step_ms=ms, median_step_ms=float(np.median(ms)),
+         peak_gb_interpreted=peaks[0] / 1e9, peak_gb_capture=peaks[1] / 1e9,
+         launches_per_step=per, label_smooth_segments=smooth,
+         label_smooth_segment_launches_per_step={
+             n: seg.get(n, 0) for n in smooth}, card=smi)
+    _free(scope, exe)
+    del scope, exe
+    require(all(np.isfinite(chain + closed)) and all(
+        np.isfinite(g).all() for g in got),
+            'training_fluid_loss: non-finite loss')
+    require(all(d <= b for d, b in zip(diff, bound)) and
+            readings['sound']['mean_rel'] <= rel,
+            'training_fluid_loss: the chain %s against the closed form %s, '
+            'bound %s; %s' % (chain, closed, bound, readings['sound']))
+    require(readings['sound']['token_max_rel'] <= 8 * rel,
+            'training_fluid_loss: a token\'s chain loss %.3g relative from '
+            'the closed form, bound %.3g' % (
+                readings['sound']['token_max_rel'], 8 * rel))
+    require(all(readings[f]['token_max_rel'] > 8 * rel for f in faults) and
+            readings['unsmoothed']['mean_rel'] > rel,
+            'training_fluid_loss: a planted fault passes the checks: %s'
+            % readings)
+    require(smooth and all(seg.get(n, 0) >= 1 for n in smooth),
+            'training_fluid_loss: label_smooth ran in no generated segment: '
+            '%s, %s' % (smooth, seg))
+    return dict(per, **seg)
+
+
+class _OpCtx(object):
+    """A port op context on one device, its draws from one fixed seed."""
+    recomputing = False
+
+    def __init__(self, device):
+        import torch
+        self.device = torch.device(device)
+
+    def generator(self, seed=0):
+        import torch
+        return torch.Generator(device=self.device).manual_seed(5)
+
+    def wants(self, slot):
+        return True
+
+    def upload(self, host):
+        import torch
+        return torch.from_numpy(host).to(self.device)
+
+
+def _r(rng, *shape, scale=1.0):
+    return (rng.randn(*shape) * scale).astype('float32')
+
+
+def _specials(rng, *shape):
+    x = _r(rng, *shape)
+    x.reshape(-1)[:8] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 2.0, -3.0, 2.0]
+    return x
+
+
+# the dense ops on the card against the port's CPU run at small sizes:
+# name -> (op, inputs(rng), attrs, tolerance: 'exact', or a fraction of
+# the CPU output's largest magnitude where cuDNN's or a reduction's order
+# differs from the CPU's)
+GVC_OPS = {
+    'sce_soft': ('softmax_with_cross_entropy', lambda r: {
+        'Logits': _r(r, 4, 6, 9, scale=3),
+        'Label': np.full((4, 6, 9), 1 / 9.0, 'float32')},
+        {'soft_label': True}, 1e-6),
+    'sce_axis1_smooth': ('softmax_with_cross_entropy', lambda r: {
+        'Logits': _r(r, 3, 9, 4, scale=3), 'Label': r.randint(
+            -2, 11, (3, 1, 4)).astype('int32')},
+        {'axis': 1, 'label_smooth_eps': 0.1, 'ignore_index': 10}, 1e-6),
+    'reduce_mean': ('reduce_mean', lambda r: {'X': _r(r, 8, 300)},
+                    {'dim': [1]}, 1e-6),
+    'reduce_max': ('reduce_max', lambda r: {'X': _specials(r, 6, 50)},
+                   {'dim': [1]}, 'exact'),
+    'reduce_min': ('reduce_min', lambda r: {'X': _r(r, 6, 50)},
+                   {'reduce_all': True}, 'exact'),
+    'reduce_prod': ('reduce_prod', lambda r: {'X': 1 + 0.01 * _r(r, 5, 40)},
+                    {'dim': [1]}, 1e-6),
+    'reduce_prod_int': ('reduce_prod', lambda r: {
+        'X': r.randint(-3, 4, (4, 9)).astype('int32')}, {'dim': [1]},
+        'exact'),
+    'reduce_all': ('reduce_all', lambda r: {'X': r.rand(5, 7) > 0.2},
+                   {'dim': [1]}, 'exact'),
+    'reduce_any': ('reduce_any', lambda r: {'X': _specials(r, 5, 7)},
+                   {'dim': [0], 'keep_dim': True}, 'exact'),
+    'prelu': ('prelu', lambda r: {'X': _specials(r, 2, 3, 4, 4),
+                                  'Alpha': _r(r, 3)}, {'mode': 'channel'},
+              'exact'),
+    'l2_normalize': ('l2_normalize', lambda r: {'X': _r(r, 6, 33)},
+                     {'axis': 1}, 1e-6),
+    'isfinite': ('isfinite', lambda r: {'X': _specials(r, 4, 4)}, {},
+                 'exact'),
+    'has_nan': ('has_nan', lambda r: {'X': _r(r, 4, 4)}, {}, 'exact'),
+    'maxout': ('maxout', lambda r: {'X': _r(r, 2, 6, 5, 5)}, {'groups': 2},
+               'exact'),
+    'flatten': ('flatten', lambda r: {'X': _r(r, 2, 3, 4)}, {'axis': 2},
+                'exact'),
+    'stack': ('stack', lambda r: {'X': [_r(r, 3, 4), _r(r, 3, 4)]},
+              {'axis': 1}, 'exact'),
+    'unstack': ('unstack', lambda r: {'X': _r(r, 3, 4)}, {'axis': 1},
+                'exact'),
+    'expand': ('expand', lambda r: {'X': _r(r, 2, 3)},
+               {'expand_times': [3, 2]}, 'exact'),
+    'expand_as': ('expand_as', lambda r: {'X': _r(r, 1, 3), 'target_tensor':
+                                          _r(r, 4, 6)}, {}, 'exact'),
+    'strided_slice': ('strided_slice', lambda r: {'Input': _r(r, 9, 8)},
+                      {'axes': [0, 1], 'starts': [-1, 1], 'ends': [0, 8],
+                       'strides': [-2, 3]}, 'exact'),
+    'gather': ('gather', lambda r: {'X': _r(r, 6, 3), 'Index': np.array(
+        [5, -1, 7, 0, -9], 'int32')}, {}, 'exact'),
+    'scatter': ('scatter', lambda r: {'X': _r(r, 6, 3), 'Ids': np.array(
+        [1, -2, 9], 'int32'), 'Updates': _r(r, 3, 3)}, {}, 'exact'),
+    'scatter_add': ('scatter', lambda r: {'X': _r(r, 6, 3), 'Ids': np.array(
+        [1, 4, 9], 'int32'), 'Updates': _r(r, 3, 3)}, {'overwrite': False},
+        'exact'),
+    'gather_nd': ('gather_nd', lambda r: {'X': _r(r, 4, 5), 'Index':
+                                          np.array([[1, 2], [7, -1],
+                                                    [-6, 0]], 'int32')},
+                  {}, 'exact'),
+    'pad': ('pad', lambda r: {'X': _r(r, 2, 3)},
+            {'paddings': [1, 2, 0, 1], 'pad_value': 0.5}, 'exact'),
+    'pad2d_reflect': ('pad2d', lambda r: {'X': _r(r, 2, 3, 5, 6)},
+                      {'paddings': [1, 2, 2, 1], 'mode': 'reflect'},
+                      'exact'),
+    'pad2d_edge_nhwc': ('pad2d', lambda r: {'X': _r(r, 2, 5, 6, 3)},
+                        {'paddings': [2, 0, 1, 3], 'mode': 'edge',
+                         'data_format': 'NHWC'}, 'exact'),
+    'pad_constant_like': ('pad_constant_like', lambda r: {
+        'X': _r(r, 4, 5), 'Y': _r(r, 2, 3)}, {'pad_value': 1.5}, 'exact'),
+    'one_hot': ('one_hot', lambda r: {'X': r.randint(-1, 9, (5, 7, 1))
+                                      .astype('int32')}, {'depth': 8},
+                'exact'),
+    'label_smooth': ('label_smooth', lambda r: {'X': r.rand(5, 31).astype(
+        'float32')}, {'epsilon': 0.1}, 'exact'),
+    'label_smooth_prior': ('label_smooth', lambda r: {
+        'X': r.rand(5, 31).astype('float32'),
+        'PriorDist': r.rand(31).astype('float32')}, {'epsilon': 0.2},
+        'exact'),
+    'fill_zeros_like': ('fill_zeros_like', lambda r: {'X': _r(r, 3, 5)}, {},
+                        'exact'),
+    'shape': ('shape', lambda r: {'Input': _r(r, 2, 7, 3)}, {}, 'exact'),
+    'arg_max': ('arg_max', lambda r: {'X': np.round(_specials(r, 4, 9))},
+                {'axis': 1}, 'exact'),
+    'arg_min': ('arg_min', lambda r: {'X': np.round(_r(r, 4, 9))},
+                {'axis': 0}, 'exact'),
+    'argsort': ('argsort', lambda r: {'X': np.round(_r(r, 4, 33))},
+                {'axis': -1}, 'exact'),
+    'reverse': ('reverse', lambda r: {'X': _r(r, 3, 4, 5)},
+                {'axis': [0, 2]}, 'exact'),
+    'multiplex': ('multiplex', lambda r: {'X': [_r(r, 4, 3), _r(r, 4, 3)],
+                                          'Ids': np.array([[1], [0], [3],
+                                                           [-1]], 'int32')},
+                  {}, 'exact'),
+    'space_to_depth': ('space_to_depth', lambda r: {'X': _r(r, 2, 3, 4, 6)},
+                       {'blocksize': 2}, 'exact'),
+    'shuffle_channel': ('shuffle_channel', lambda r: {'X': _r(r, 2, 6, 3,
+                                                                3)},
+                        {'group': 2}, 'exact'),
+    'smooth_l1_loss': ('smooth_l1_loss', lambda r: {'X': _r(r, 6, 5),
+                                                    'Y': _r(r, 6, 5)},
+                       {'sigma': 1.5}, 1e-6),
+    'huber_loss': ('huber_loss', lambda r: {'X': _r(r, 8, 1, scale=2),
+                                            'Y': _r(r, 8, 1)},
+                   {'delta': 0.7}, 1e-6),
+    'log_loss': ('log_loss', lambda r: {
+        'Predicted': r.rand(8, 1).astype('float32'),
+        'Labels': (r.rand(8, 1) > 0.5).astype('float32')}, {}, 1e-6),
+    'rank_loss': ('rank_loss', lambda r: {
+        'Label': (r.rand(8, 1) > 0.5).astype('float32'), 'Left': _r(r, 8, 1),
+        'Right': _r(r, 8, 1)}, {}, 1e-6),
+    'margin_rank_loss': ('margin_rank_loss', lambda r: {
+        'Label': np.sign(_r(r, 8, 1)), 'X1': _r(r, 8, 1), 'X2': _r(r, 8, 1)},
+        {'margin': 0.1}, 1e-6),
+    'bpr_loss': ('bpr_loss', lambda r: {'X': _r(r, 6, 7), 'Label':
+                                        r.randint(0, 7, (6, 1)).astype(
+                                            'int32')}, {}, 1e-6),
+    'kldiv_loss': ('kldiv_loss', lambda r: {
+        'X': np.log(r.rand(5, 8).astype('float32') + 0.1),
+        'Target': r.rand(5, 8).astype('float32')},
+        {'reduction': 'batchmean'}, 1e-6),
+    'conv3d': ('conv3d', lambda r: {'Input': _r(r, 2, 4, 6, 7, 6),
+                                    'Filter': _r(r, 6, 2, 3, 3, 3)},
+               {'paddings': [1, 1, 1], 'strides': [1, 2, 1], 'groups': 2},
+               1e-5),
+    'conv2d_transpose': ('conv2d_transpose', lambda r: {
+        'Input': _r(r, 2, 6, 7, 8), 'Filter': _r(r, 6, 2, 3, 3)},
+        {'strides': [2, 2], 'paddings': [1, 1], 'groups': 3}, 1e-5),
+    'conv3d_transpose': ('conv3d_transpose', lambda r: {
+        'Input': _r(r, 1, 4, 4, 5, 4), 'Filter': _r(r, 4, 3, 2, 3, 2)},
+        {'strides': [2, 1, 2], 'paddings': [0, 1, 0]}, 1e-5),
+    'pool3d_max': ('pool3d', lambda r: {'X': _specials(r, 2, 3, 6, 7, 5)},
+                   {'ksize': [2, 3, 2], 'strides': [2, 2, 2],
+                    'paddings': [1, 1, 0], 'ceil_mode': True}, 'exact'),
+    'pool3d_avg': ('pool3d', lambda r: {'X': _r(r, 2, 3, 6, 7, 5)},
+                   {'ksize': [3, 3, 3], 'strides': [1, 2, 2],
+                    'paddings': [1, 1, 1], 'pooling_type': 'avg'}, 1e-6),
+    'adaptive_pool2d': ('adaptive_pool2d', lambda r: {'X': _r(r, 2, 3, 8,
+                                                              6)},
+                        {'ksize': [4, 3], 'pooling_type': 'avg'}, 1e-6),
+    'adaptive_pool3d': ('adaptive_pool3d', lambda r: {'X': _r(r, 1, 2, 4, 6,
+                                                              4)},
+                        {'ksize': 2}, 'exact'),
+    'group_norm': ('group_norm', lambda r: {
+        'X': _r(r, 2, 8, 5, 5, scale=3) + 1, 'Scale': _r(r, 8),
+        'Bias': _r(r, 8)}, {'groups': 4}, 1e-5),
+    'log_softmax': ('log_softmax', lambda r: {'X': _r(r, 7, 33, scale=4)},
+                    {'axis': -1}, 1e-6),
+    'lrn': ('lrn', lambda r: {'X': _r(r, 2, 9, 4, 4)},
+            {'n': 5, 'k': 1.0, 'alpha': 1e-2, 'beta': 0.75}, 1e-6),
+    'bilinear_ac': ('bilinear_interp', lambda r: {'X': _r(r, 2, 3, 6, 7)},
+                    {'out_h': 11, 'out_w': 5, 'align_corners': True}, 1e-6),
+    'bilinear_half_down': ('bilinear_interp', lambda r: {
+        'X': _r(r, 2, 3, 9, 8)}, {'out_h': 4, 'out_w': 3,
+                                  'align_corners': False}, 1e-5),
+    'nearest_ac': ('nearest_interp', lambda r: {'X': _r(r, 2, 3, 6, 7)},
+                   {'out_h': 11, 'out_w': 4, 'align_corners': True},
+                   'exact'),
+    'nearest_half': ('nearest_interp', lambda r: {'X': _r(r, 2, 3, 6, 7)},
+                     {'out_h': 9, 'out_w': 3, 'align_corners': False},
+                     'exact'),
+    'affine_channel': ('affine_channel', lambda r: {
+        'X': _r(r, 2, 3, 4, 4), 'Scale': _r(r, 3), 'Bias': _r(r, 3)}, {},
+        'exact'),
+}
+
+
+def _gvc_same(g, c, tol):
+    """-> (max abs difference, ok): bit for bit (NaN as NaN, the sign of a
+    zero kept) when `tol` is 'exact', else within tol x max |c|."""
+    import torch
+    g = g.detach().cpu()
+    c = c.detach()
+    if g.shape != c.shape or g.dtype != c.dtype:
+        return float('inf'), False
+    if g.dtype == torch.bool or not g.is_floating_point():
+        return float((g.long() - c.long()).abs().max()) if g.numel() \
+            else 0.0, bool(torch.equal(g, c))
+    err = float((g.float() - c.float()).abs().nan_to_num(0.0, 0.0, 0.0)
+                .max()) if g.numel() else 0.0
+    if tol == 'exact':
+        same = ((g == c) & (torch.signbit(g) == torch.signbit(c))) | (
+            torch.isnan(g) & torch.isnan(c))
+        return err, bool(same.all())
+    return err, err <= tol * float(c.float().abs().nan_to_num(0.0).max())
+
+
+def gvc_case(name):
+    """GVC_OPS[name] on the card and on the CPU from its seed -> {output
+    (slot, with the list index of a list slot): (max abs difference,
+    ok)}."""
+    import torch
+    from paddle_tpu_torch.core import registry
+    op, make, attrs, tol = GVC_OPS[name]
+    ins = make(np.random.RandomState(sum(map(ord, name))))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        t = {k: [torch.from_numpy(a).to(dev) for a in v]
+             if isinstance(v, list) else torch.from_numpy(
+                 np.ascontiguousarray(v)).to(dev)
+             for k, v in ins.items()}
+        out[dev] = registry.get_op(op)(_OpCtx(dev), t, attrs)
+    errs = {}
+    for slot, c in out['cpu'].items():
+        g = out['cuda'][slot]
+        for k, (gv, cv) in enumerate(zip(g, c) if isinstance(c, list)
+                                     else [(g, c)]):
+            errs['%s%s' % (slot, k if isinstance(c, list) else '')] = \
+                _gvc_same(gv, cv, tol)
+    return errs
+
+
+def _mlp_remat(fluid):
+    """tests/test_recompute.py's program: three fc + relu layers in one
+    recompute_scope, an fc head, the mean squared error, SGD 0.01."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data('x', shape=[8], dtype='float32')
+        y = layers.data('y', shape=[1], dtype='float32')
+        h = x
+        with fluid.recompute_scope():
+            for i in range(3):
+                h = layers.fc(h, 16, act='relu',
+                              param_attr=fluid.ParamAttr(name='w%d' % i),
+                              bias_attr=False)
+        pred = layers.fc(h, 1, param_attr=fluid.ParamAttr(name='wout'),
+                         bias_attr=False)
+        loss = layers.reduce_mean(layers.square(pred - y))
+        fluid.optimizer.SGDOptimizer(0.01).minimize(loss)
+    return main, startup, loss
+
+
+def phase_ops_gpu_vs_cpu():
+    """Every dense op of GVC_OPS (the soft-label and any-axis
+    cross-entropy, the reductions, the tensor, math, loss and nn ops) on
+    the card against the port's CPU run on the same inputs: bit for bit
+    where the op is exact, within the stated fraction of the largest
+    magnitude where cuDNN's or a reduction's order differs; then
+    tests/test_recompute.py's program (a recompute_scope over three fc
+    layers, SGD) five steps on the card and on the CPU from one state,
+    losses within 1e-5 relative."""
+    import paddle_tpu_torch as fluid
+    rows, bad = {}, []
+    for name, (op, _, _, tol) in sorted(GVC_OPS.items()):
+        errs = gvc_case(name)
+        rows[name] = dict(op=op, tol=tol, max_abs_err={
+            k: e for k, (e, _) in errs.items()})
+        if not all(ok for _, ok in errs.values()):
+            bad.append((name, errs))
+    # test_recompute's program, card against CPU
+    main, startup, loss = _mlp_remat(fluid)
+    rng = np.random.RandomState(0)
+    xb = rng.rand(16, 8).astype('float32')
+    feed = {'x': xb, 'y': xb.sum(1, keepdims=True)}
+    gpu = fluid.Scope()
+    with fluid.scope_guard(gpu):
+        fluid.Executor().run(startup)
+    cpu = fluid.scope_from_numpy({n: t.cpu().numpy()
+                                  for n, t in gpu.vars.items()},
+                                 fluid.Scope(), 'cpu')
+    losses = {}
+    for dev, scope, exe in (('gpu', gpu, fluid.Executor()),
+                            ('cpu', cpu, fluid.Executor(fluid.CPUPlace()))):
+        with fluid.scope_guard(scope):
+            losses[dev] = [float(exe.run(main, feed=feed,
+                                         fetch_list=[loss])[0][0])
+                           for _ in range(5)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses['gpu'],
+                                                  losses['cpu']))
+    emit(phase='ops_gpu_vs_cpu', ops=rows, failed=[n for n, _ in bad],
+         recompute_program=dict(gpu_losses=losses['gpu'],
+                                cpu_losses=losses['cpu'],
+                                loss_max_rel=rel, loss_rtol=1e-5))
+    require(not bad, 'ops_gpu_vs_cpu: the card differs from the CPU: %s'
+            % bad)
+    require(rel <= 1e-5 and losses['gpu'][-1] < losses['gpu'][0],
+            'ops_gpu_vs_cpu: the recompute program %s on the card, %s on '
+            'the CPU' % (losses['gpu'], losses['cpu']))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -7007,6 +7861,8 @@ def main(argv=None):
     optimizers = run('training_optimizers', phase_training_optimizers, smi)
     w2v = run('training_word2vec', phase_training_word2vec, smi)
     seq_lm = run('training_stacked_lstm', phase_training_stacked_lstm, smi)
+    remat = run('training_recompute', phase_training_recompute, smi)
+    fluid_loss = run('training_fluid_loss', phase_training_fluid_loss, smi)
     run('composed_opt_on_off', phase_composed_opt_on_off)
     run('nan_trip', phase_nan_trip, smi)
     run('gpu_vs_cpu', phase_gpu_vs_cpu)
@@ -7020,6 +7876,7 @@ def main(argv=None):
     ctr_small = run('train_ctr_gpu_vs_cpu', phase_train_ctr_gpu_vs_cpu)
     c11 = run('train_c11_gpu_vs_cpu', phase_train_c11_gpu_vs_cpu)
     seq_small = run('train_seq_gpu_vs_cpu', phase_train_seq_gpu_vs_cpu)
+    run('ops_gpu_vs_cpu', phase_ops_gpu_vs_cpu)
     emit(phase='script', seconds_by_phase=took,
          seconds=sum(took.values()))
 
@@ -7066,7 +7923,12 @@ def main(argv=None):
                # per step of word2vec (graph replays)
                'training_word2vec': w2v,
                # per step of the stacked-LSTM LM (graph replays)
-               'training_stacked_lstm': seq_lm}
+               'training_stacked_lstm': seq_lm,
+               # per step of transformer-base trained on Fluid's own
+               # one_hot -> label_smooth -> soft-label loss
+               'training_fluid_loss': fluid_loss}
+    # per step of the recompute programs (composed and flash)
+    by_path.update(remat)
     by_path.update(resnet_small)
     by_path.update(conv_small)
     # per step of DeepFM and Wide&Deep (graph replays), of Wide&Deep under

@@ -21,12 +21,16 @@ runtime: `Executor.run_steps`, `check_nan` with its deferred verdict,
 `as_futures`, `CompiledProgram` and `FeedPrefetcher`, each launch
 signature on the card replayed as a captured CUDA graph.  Ragged
 sequences feed as LoDTensors (padded data plus `<name>@LENGTH`,
-core/lod.py) into the sequence ops and RNNs (ops/sequence.py).
+core/lod.py) into the sequence ops and RNNs (ops/sequence.py).  Ops
+built inside `recompute_scope()` are rematerialized in the backward
+(`torch.utils.checkpoint`); `recompute(fn)` does the same for a callable
+on tensors.
 """
 from .core import unique_name  # noqa: F401
 from .core.framework import (Program, Block, Operator, Variable,  # noqa: F401
                              Parameter, program_guard, default_main_program,
-                             default_startup_program, CPUPlace, CUDAPlace)
+                             default_startup_program, CPUPlace, CUDAPlace,
+                             recompute_scope)
 from .core.executor import (Executor, Scope, scope_guard,  # noqa: F401
                             global_scope)
 from .param_attr import ParamAttr  # noqa: F401
@@ -43,3 +47,18 @@ from . import regularizer, clip  # noqa: F401
 from .clip import set_gradient_clip  # noqa: F401
 from .core.backward import append_backward  # noqa: F401
 from .convert import scope_from_numpy, persistable_names  # noqa: F401
+
+
+def recompute(fn, **kwargs):
+    """`fn` (a callable on tensors) under `torch.utils.checkpoint` (its
+    options in `kwargs`; `use_reentrant=False` unless given): its
+    activations are not kept for the backward, which runs it again.
+    Programs use `recompute_scope()`."""
+    import functools
+    import torch.utils.checkpoint as cp
+    kwargs.setdefault('use_reentrant', False)
+
+    @functools.wraps(fn)
+    def wrapped(*xs, **kw):
+        return cp.checkpoint(fn, *xs, **dict(kwargs, **kw))
+    return wrapped

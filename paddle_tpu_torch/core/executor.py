@@ -53,8 +53,12 @@ computed inside the step (so inside the graph), after the write-back;
 it is read every `nan_poll` steps (core/async_runtime.py) and a trip
 names the culprits (`_raise_non_finite`).
 
-Not ported yet: control flow, recompute scopes, the compile cache's disk
-tier, the lint gate, `mesh=` (ROADMAP A7).
+A contiguous run of live ops that share a `recompute_id`
+(`framework.recompute_scope`) runs as one group under
+`torch.utils.checkpoint` when autograd records it (`_run_group`).
+
+Not ported yet: control flow, the compile cache's disk tier, the lint
+gate, `mesh=` (ROADMAP A7).
 """
 import contextlib
 import itertools
@@ -211,13 +215,21 @@ def _raise_if_capturing(ectx, what, e):
 
 
 def _exec_ops(ops, env, ectx, keep):
-    amp = ectx.amp
     live, wanted, dead = _plan(ops, keep)
     grad_mode = torch.is_grad_enabled()
     k = 0
     while k < len(live):
         i = live[k]
         op = ops[i]
+        rid = op.attrs.get('recompute_id')
+        if rid is not None and grad_mode:
+            j = k
+            while j < len(live) and \
+                    ops[live[j]].attrs.get('recompute_id') == rid:
+                j += 1
+            _run_group(ops, live[k:j], env, ectx, wanted, dead)
+            k = j
+            continue
         j, runner = _optimizer_run(ops, live, k)
         if j > k:
             try:
@@ -231,36 +243,108 @@ def _exec_ops(ops, env, ectx, keep):
                     env.pop(n, None)
             k = j
             continue
-        impl = registry.get_op(op.type)
-        ins = {}
-        for slot, names in op.inputs.items():
-            vals = [env[n] for n in names]
-            ins[slot] = vals if op.input_is_list[slot] else vals[0]
-        ins = amp_sub_ins(op.type, ins, amp)
-        try:
-            outs = impl(ectx.for_op(i, op, wanted), ins, op.attrs) or {}
-        except Exception as e:
-            _raise_if_capturing(ectx, '#%d "%s"' % (i, op.type), e)
-            raise
-        outs = amp_sub_outs(op.type, op.attrs, outs, amp)
-        for slot, names in op.outputs.items():
-            vals = outs.get(slot)
-            if vals is None:
-                continue
-            vals = vals if isinstance(vals, (list, tuple)) else [vals]
-            for name, val in zip(names, vals):
-                if val is None:
-                    continue
-                if grad_mode and val.requires_grad:
-                    # lax.stop_gradient on stop_gradient vars, as the
-                    # JAX package's trace loop does
-                    var = op.block._find_var_recursive(name)
-                    if var is not None and var.stop_gradient:
-                        val = val.detach()
-                env[name] = val
+        _run_op(op, i, env, ectx, wanted, grad_mode)
         for n in dead.get(i, ()):
             env.pop(n, None)
         k += 1
+
+
+def _run_op(op, i, env, ectx, wanted, grad_mode):
+    """One op (position `i`) over `env`: its impl on its AMP-cast inputs,
+    its outputs bound into `env`."""
+    amp = ectx.amp
+    impl = registry.get_op(op.type)
+    ins = {}
+    for slot, names in op.inputs.items():
+        vals = [env[n] for n in names]
+        ins[slot] = vals if op.input_is_list[slot] else vals[0]
+    ins = amp_sub_ins(op.type, ins, amp)
+    try:
+        outs = impl(ectx.for_op(i, op, wanted), ins, op.attrs) or {}
+    except Exception as e:
+        _raise_if_capturing(ectx, '#%d "%s"' % (i, op.type), e)
+        raise
+    outs = amp_sub_outs(op.type, op.attrs, outs, amp)
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        vals = vals if isinstance(vals, (list, tuple)) else [vals]
+        for name, val in zip(names, vals):
+            if val is None:
+                continue
+            if grad_mode and val.requires_grad:
+                # lax.stop_gradient on stop_gradient vars, as the
+                # JAX package's trace loop does
+                var = op.block._find_var_recursive(name)
+                if var is not None and var.stop_gradient:
+                    val = val.detach()
+            env[name] = val
+
+
+def _run_group(ops, idxs, env, ectx, wanted, dead):
+    """The live ops at `idxs`, which share a recompute_id, as one group
+    under `torch.utils.checkpoint` (the reference's `jax.checkpoint`
+    group): its reads from outside go in, the values read after it (or
+    kept) come out, and what the backward needs of the rest is computed
+    again from the inputs instead of kept.  Inside the group, in the
+    forward and in the recompute, each value is dropped after its last
+    reader (`dead`), as the plain loop drops it: the group holds no more
+    than the plain program does.
+
+    The recompute runs each op as the forward ran it, at its own position
+    `i`, so each draws from the generator of its own stream and run
+    (`ctx.generator`: seeded afresh at every call, or under a CUDA graph
+    the generator the capture registered for that request, seeded before
+    each replay; core/graphs.py) and a dropout mask comes out the same.
+    torch's default generators are not used by any op, so the checkpoint
+    saves no RNG state (`preserve_rng_state=False`: that state cannot be
+    read under a capture).  The recompute runs the whole group, not
+    stopping early at the last value the backward needs: the same ops a
+    step on every path (early stopping ends a recompute by raising an
+    exception through the ops, which a capture would take for a failure).
+    While the recompute runs, `ctx.recomputing` is true: an op that
+    writes a persistable in place (batch_norm's moving statistics) writes
+    it once, in the forward."""
+    import torch.utils.checkpoint as checkpoint
+    group = [ops[i] for i in idxs]
+    reads, produced, writes = [], set(), []
+    for op in group:
+        for n in op.input_names():
+            if n not in produced and n not in reads:
+                reads.append(n)
+        for n in op.output_names():
+            produced.add(n)
+            if n not in writes:
+                writes.append(n)
+    internal = set()
+    for i in idxs:
+        internal.update(dead.get(i, ()))
+    outs = [n for n in writes if n not in internal]
+    ext = [n for n in reads if n in env]
+    calls = [0]
+
+    def fn(*vals):
+        genv = dict(zip(ext, vals))
+        recomputing = calls[0] > 0
+        calls[0] += 1
+        ectx.recomputing = recomputing
+        try:
+            for i, op in zip(idxs, group):
+                _run_op(op, i, genv, ectx, wanted, True)
+                for n in dead.get(i, ()):
+                    genv.pop(n, None)
+        finally:
+            ectx.recomputing = False
+        return tuple(genv[n] for n in outs)
+
+    with checkpoint.set_checkpoint_early_stop(False):
+        res = checkpoint.checkpoint(fn, *[env[n] for n in ext],
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+    env.update(zip(outs, res))
+    for n in internal:
+        env.pop(n, None)
 
 
 def _run_backward(ops, bw_idx, env, ectx, keep):

@@ -8,12 +8,14 @@ runs are batch dims (-1), exactly as the JAX package does with
 `jax.eval_shape`.
 
 The port carries what the serving and training slices need: Variable's
-arithmetic operators (the LR schedules use them), op roles, bf16 AMP and
-the version counter the rewriter's memo keys on (`Program._version`,
-bumped by `append_op`, `create_var`, `create_parameter` and `set_amp`);
-no imperative mode, no recompute scopes, and no lint.  Sharding specs,
-the mesh, the device limit and the KV plan ride along as opaque JSON so a
-desc survives a round trip through the port.
+arithmetic operators (the LR schedules use them), op roles, recompute
+scopes (`recompute_scope`: the ops built inside carry a `recompute_id`
+attr, and the executor runs each contiguous run of them as one
+checkpointed group), bf16 AMP and the version counter the rewriter's
+memo keys on (`Program._version`, bumped by `append_op`, `create_var`,
+`create_parameter` and `set_amp`); no imperative mode and no lint.
+Sharding specs, the mesh, the device limit and the KV plan ride along as
+opaque JSON so a desc survives a round trip through the port.
 """
 import contextlib
 import copy
@@ -30,7 +32,7 @@ __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter', 'program_guard',
     'default_main_program', 'default_startup_program', 'switch_main_program',
     'switch_startup_program', 'CPUPlace', 'CUDAPlace', 'OpRole',
-    'op_role_guard',
+    'op_role_guard', 'recompute_scope',
 ]
 
 # ---------------------------------------------------------------- places
@@ -94,6 +96,27 @@ def op_role_guard(role):
         yield
     finally:
         _current_role.pop()
+
+
+# recompute (rematerialization) scopes: ops appended inside carry a
+# recompute_id attr; the executor runs each contiguous tagged run under
+# torch.utils.checkpoint (core/executor.py `_run_group`)
+_recompute_stack = []
+_recompute_counter = [0]
+
+
+@contextlib.contextmanager
+def recompute_scope(name=None):
+    """Mark the ops built inside for rematerialization: their activations
+    are not kept for the backward, which runs their forward again (the
+    reference's `jax.checkpoint` groups)."""
+    _recompute_counter[0] += 1
+    rid = name or 'remat_%d' % _recompute_counter[0]
+    _recompute_stack.append(rid)
+    try:
+        yield
+    finally:
+        _recompute_stack.pop()
 
 
 # ---------------------------------------------------------------- Variable
@@ -284,6 +307,8 @@ class Operator(object):
         self.source_loc = _capture_source_loc()
         self.attrs = dict(attrs or {})
         self.attrs.setdefault('op_role', _current_role[-1])
+        if _recompute_stack:
+            self.attrs.setdefault('recompute_id', _recompute_stack[-1])
         self.inputs = {}        # slot -> list[str]
         self.outputs = {}       # slot -> list[str]
         self.input_is_list = {}

@@ -26,8 +26,11 @@ position in the block.  Every op and every run draws its own stream.
 graph entry's recorder, `ctx.recorder`, core/graphs.py).
 `ctx.sub_ctx(sub)` is the context of one sub-op of a `fused_elementwise`
 op: it draws from that sub-op's own pinned stream.  `ctx.amp` says whether
-the program runs under bf16 AMP.  The streams are not JAX's threefry
-streams: the two packages agree on everything but random draws.
+the program runs under bf16 AMP.  `ctx.recomputing` is true while the
+backward runs a recompute group's forward again (core/executor.py
+`_run_group`): an op that writes a persistable in place skips it then.
+The streams are not JAX's threefry streams: the two packages agree on
+everything but random draws.
 """
 import torch
 
@@ -96,6 +99,7 @@ class InferCtx(object):
     is_infer = True
     device = torch.device('meta')
     recorder = None
+    recomputing = False
 
     def __init__(self, op=None, amp=False, plan_device=None):
         self.op = op
@@ -129,6 +133,8 @@ class ExecCtx(object):
         # None, or a CUDA graph entry's recorder (core/graphs.py): it hands
         # out the generators a capture registers and makes the host uploads
         self.recorder = recorder
+        # set by core/executor.py _run_group while a group runs again
+        self.recomputing = False
 
     def upload(self, host):
         """A host numpy array as a tensor on the device: through the CUDA
@@ -186,6 +192,10 @@ class OpCtx(object):
     @property
     def recorder(self):
         return self._exec.recorder
+
+    @property
+    def recomputing(self):
+        return self._exec.recomputing
 
     def upload(self, host):
         return self._exec.upload(host)

@@ -627,7 +627,7 @@ def _build_plan(attrs, in_avals, amp):
                 s.key_aval[k] = written[n]
                 loc[k] = ('sym', s)
                 out_keys.setdefault(slot, []).append(k)
-        shape_only = {slot: aval[key_of(sub['inputs'][slot][0])][0]
+        shape_only = {slot: aval[key_of(sub['inputs'][slot][0])]
                       for slot in rule.shape_only if sub['inputs'].get(slot)}
         s.ops.append((sub, rule, in_ops, out_keys, g, shape_only))
         i += 1
@@ -710,8 +710,9 @@ class _KernelSpec(object):
             for slot, ods in in_ops.items():
                 vs = [get(od, shape) for od, _, shape in ods]
                 ins[slot] = vs if sub['input_is_list'].get(slot) else vs[0]
-            for slot, shape in shape_only.items():
-                ins[slot] = torch.empty(shape, device='meta')
+            for slot, (shape, dt) in shape_only.items():
+                ins[slot] = torch.empty(shape, dtype=torch_dtype(dt),
+                                        device='meta')
             if self.amp:
                 ins = amp_match_ins(sub['type'], ins)
             if 'Mask' in ins:
@@ -892,8 +893,10 @@ def _emit_segment(s, esc):
             ins[slot] = exprs
         outs = {slot: [s.key_aval[k][1] for k in ks]
                 for slot, ks in out_keys.items()}
+        shapes = {slot: [shape for _, _, shape in ods]
+                  for slot, ods in in_ops.items()}
         try:
-            res = rule.emit(ins, sub['attrs'], outs)
+            res = rule.emit(ins, sub['attrs'], outs, shapes)
         except Unsupported as e:
             raise KernelgenUnsupported(sub['type'], str(e))
         stmts = []

@@ -42,8 +42,7 @@ Kinds:
 Bool values (the comparisons' and logical ops' outputs) live in `bool`
 registers and are stored as one byte, as torch stores them.
 
-Not carried over yet (ROADMAP): rules for the fusable ops the port does
-not register (`label_smooth`, `fill_zeros_like`, `flatten`).
+Every op of the reference's fusable set has a rule.
 """
 import numpy as np
 import torch
@@ -58,7 +57,9 @@ class KRule(object):
 
     def __init__(self, kind='ew', emit=None, bcast_y=False, shape_only=()):
         self.kind = kind              # ew|layout|rng|row|attention|optimizer
-        self.emit = emit              # ew / rng: operand exprs -> outputs
+        # ew / rng: (operand exprs, attrs, output dtypes, {slot: [operand
+        # shape, ...]}) -> output exprs
+        self.emit = emit
         self.bcast_y = bcast_y        # binary op with _bcast_y(Y, axis)
         self.shape_only = shape_only  # slots read for shape, not data
 
@@ -184,7 +185,7 @@ _I_BIN = {'elementwise_add': '(%s + %s)',
 
 
 def _binary(name):
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         (x, dx), (y, dy) = ins['X'][0], ins['Y'][0]
         od = outs['Out'][0]
         if od == 'int32':
@@ -199,7 +200,7 @@ for _name in _F_BIN:
     _r(_name, emit=_binary(_name), bcast_y=True)
 
 
-def _scale(ins, attrs, outs):
+def _scale(ins, attrs, outs, shapes):
     # ops/math.py scale: the bias in x's dtype first, x * s + b (or
     # (x + b) * s), then .to(x.dtype)
     x, dx = ins['X'][0]
@@ -217,12 +218,12 @@ def _scale(ins, attrs, outs):
     return {'Out': [to_dtype(t, md, outs['Out'][0])]}
 
 
-def _cast(ins, attrs, outs):
+def _cast(ins, attrs, outs, shapes):
     x, dx = ins['X'][0]
     return {'Out': [to_dtype(x, dx, outs['Out'][0])]}
 
 
-def _increment(ins, attrs, outs):
+def _increment(ins, attrs, outs, shapes):
     # the step converts to x's dtype first (ops/math.py increment)
     x, dx = ins['X'][0]
     step = attrs.get('step', 1.0)
@@ -232,7 +233,7 @@ def _increment(ins, attrs, outs):
                                                  wlit(step, dx)), dx)]}
 
 
-def _relu(ins, attrs, outs):
+def _relu(ins, attrs, outs, shapes):
     x, dx = ins['X'][0]
     if dx == 'int32':
         return {'Out': ['max(%s, 0)' % x]}
@@ -249,7 +250,7 @@ def _sigmoid_expr(x, dt):
     return _rnd('__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-(%s))))' % x, dt)
 
 
-def _swish(ins, attrs, outs):
+def _swish(ins, attrs, outs, shapes):
     # ops/math.py swish: x * sigmoid(beta * x)
     x, dx = ins['X'][0]
     if dx not in FLOAT_DTYPES:
@@ -263,7 +264,7 @@ def _swish(ins, attrs, outs):
 def _unary_float(fn):
     # one PyTorch operation of a float tensor: float32 math, rounded to
     # the output's dtype
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         x, dx = ins['X'][0]
         if dx not in FLOAT_DTYPES:
             raise Unsupported('float op on %s' % dx)
@@ -271,7 +272,7 @@ def _unary_float(fn):
     return emit
 
 
-def _sign(ins, attrs, outs):
+def _sign(ins, attrs, outs, shapes):
     # ops/math.py _sign: NaN and zeros pass through, else +-1
     x, dx = ins['X'][0]
     if dx == 'int32':
@@ -279,15 +280,41 @@ def _sign(ins, attrs, outs):
     return {'Out': ['kg_sign(%s)' % _f(x, dx)]}
 
 
-def _assign(ins, attrs, outs):
+def _assign(ins, attrs, outs, shapes):
     return {'Out': [ins['X'][0][0]]}
 
 
-def _fill(ins, attrs, outs):
+def _fill(ins, attrs, outs, shapes):
     return {'Out': [_const(attrs['value'], attrs.get('dtype', 'float32'))]}
 
 
-def _dropout(ins, attrs, outs):
+def _zeros(ins, attrs, outs, shapes):
+    # ops/tensor.py fill_zeros_like: zeros of X's shape and dtype
+    od = outs['Out'][0]
+    return {'Out': ['false' if od == 'bool' else _const(0.0, od)]}
+
+
+def _label_smooth(ins, attrs, outs, shapes):
+    """ops/tensor.py label_smooth: x * (1 - eps) in x's dtype, then
+    + eps / V (V the last dim of X) or + PriorDist * eps in PriorDist's
+    dtype, each constant rounded as `weak` rounds it; the sum in the
+    output's dtype."""
+    x, dx = ins['X'][0]
+    eps = attrs.get('epsilon', 0.0)
+    md = _scalar_dt(dx)
+    kept = _rnd('__fmul_rn(%s, %s)' % (_f(x, dx), wlit(1 - eps, md)), md)
+    od = outs['Out'][0]
+    if ins.get('PriorDist'):
+        p, dp = ins['PriorDist'][0]
+        pd = _scalar_dt(dp)
+        pe = _rnd('__fmul_rn(%s, %s)' % (_f(p, dp), wlit(eps, pd)), pd)
+        return {'Out': [_rnd('__fadd_rn(%s, %s)' % (kept, pe), od)]}
+    V = shapes['X'][0][-1]
+    return {'Out': [_rnd('__fadd_rn(%s, %s)' % (kept, wlit(eps / V, md)),
+                         od)]}
+
+
+def _dropout(ins, attrs, outs, shapes):
     """ops/nn.py dropout: training reads the drawn mask (operand
     `Mask`); at test time x * (1 - p) or x, and a mask of ones."""
     x, dx = ins['X'][0]
@@ -325,6 +352,8 @@ _r('swish', emit=_swish)
 _r('assign', emit=_assign)
 _r('fill_constant', emit=_fill)
 _r('fill_constant_batch_size_like', emit=_fill, shape_only=('Input',))
+_r('fill_zeros_like', emit=_zeros, shape_only=('X',))
+_r('label_smooth', emit=_label_smooth)
 
 
 # ------------------------------- mod, floordiv, comparisons, logical ops
@@ -338,7 +367,7 @@ def _bf(dt):
 def _divmod_rule(helper, ihelper):
     # ops/math.py _mod / _floordiv: integers by XLA's conventions at 0,
     # floats operation by operation in the output's dtype
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         (x, dx), (y, dy) = ins['X'][0], ins['Y'][0]
         od = outs['Out'][0]
         if od == 'int32':
@@ -363,7 +392,7 @@ _CMP = {'less_than': '<', 'less_equal': '<=', 'greater_than': '>',
 def _compare(name):
     # torch's comparison after promotion: integers and bools as int,
     # anything else as float (a bfloat16 value is exact in float)
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         (x, dx), (y, dy) = ins['X'][0], ins['Y'][0]
         if dx in ('int32', 'bool') and dy in ('int32', 'bool'):
             x, y = '((int)(%s))' % x, '((int)(%s))' % y
@@ -381,7 +410,7 @@ _LOGICAL = {'logical_and': '(%s && %s)', 'logical_or': '(%s || %s)',
 
 
 def _logical(name):
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         if name == 'logical_not':
             return {'Out': ['(!%s)' % _truth(*ins['X'][0])]}
         return {'Out': [_LOGICAL[name] % (_truth(*ins['X'][0]),
@@ -399,7 +428,7 @@ def _act(fn, int_ok=None):
     """A float op as its plain impl in ops/math.py writes it: `fn(x, a,
     R)` -> the C++ expression, `a` the attrs, `R` rounding one torch
     operation's float32 result to the output's dtype."""
-    def emit(ins, attrs, outs):
+    def emit(ins, attrs, outs, shapes):
         x, dx = ins['X'][0]
         od = outs['Out'][0]
         if dx == 'int32' and int_ok:
@@ -518,7 +547,7 @@ for _name, _fn in _ACTS.items():
 _r('abs', emit=_act(lambda x, a, R, od: 'fabsf(%s)' % x, int_ok='abs(%s)'))
 
 # ------------------------------------------------------------ layout glue
-for _name in ('reshape', 'squeeze', 'unsqueeze', 'transpose'):
+for _name in ('reshape', 'squeeze', 'unsqueeze', 'transpose', 'flatten'):
     _r(_name, kind='layout')
 
 # ------------------------------------------------------------- rng rules

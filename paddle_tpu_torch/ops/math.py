@@ -2,8 +2,10 @@
 
 Counterpart of paddle_tpu/ops/math.py: the elementwise ops with the fluid
 `axis` broadcast rule (mod and floordiv too), the comparisons and logical
-ops, the unary and activation family, scale, clip, clip_by_norm, cast,
-increment, cumsum, reduce_sum, mean, sum, cos_sim, mul and matmul, each
+ops, the unary and activation family, prelu, scale, clip, clip_by_norm,
+cast, increment, cumsum, the reductions (reduce_sum, _mean, _max, _min,
+_prod, _all, _any), mean, sum, cos_sim, l2_normalize, isfinite, has_inf,
+has_nan, maxout, mul and matmul, each
 with the JAX impl's semantics on tensors, NaN, infinities and signed
 zeros included: where a torch function differs from the jnp one there (clamp
 at -0, pow's sqrt at -inf, softplus's threshold), the op is the jnp
@@ -396,25 +398,80 @@ def cumsum(ctx, ins, attrs):
     return {'Out': out}
 
 
-@register('reduce_sum')
-def reduce_sum(ctx, ins, attrs):
-    x = ins['X']
-    keep = attrs.get('keep_dim', False)
-    # integers and bools sum in int32, as jnp.sum does (torch.sum widens
-    # them to int64; jnp's uint32 for a uint8 input has no torch sum)
-    dt = None if x.is_floating_point() or x.is_complex() else torch.int32
-    if attrs.get('reduce_all', False):
-        out = x.sum(dtype=dt)
-        if keep:
-            out = out.reshape([1] * x.ndim)
-    else:
-        dim = attrs.get('dim', [0])
-        dim = [dim] if isinstance(dim, int) else list(dim)
-        out = x.sum(dim=tuple(d % x.ndim for d in dim), keepdim=keep,
-                    dtype=dt)
-    if out.ndim == 0:
-        out = out.reshape(1)
-    return {'Out': out}
+def _int32_acc(x):
+    """The dtype jnp.sum and jnp.prod accumulate `x` in: integers and
+    bools in int32 (torch widens them to int64; jnp's uint32 for a uint8
+    input has no torch sum), None for floats (their own dtype)."""
+    return None if x.is_floating_point() or x.is_complex() else torch.int32
+
+
+def _mean(x, dim, keepdim):
+    # jnp.mean: integers and bools average in float32; a half-width float
+    # sums and divides in float32, then rounds once
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.float().mean(dim=dim, keepdim=keepdim).to(x.dtype)
+    return (x if x.is_floating_point() else x.float()).mean(
+        dim=dim, keepdim=keepdim)
+
+
+def _prod(x, dim, keepdim):
+    dt = _int32_acc(x)
+    if dim is None:
+        return x.prod(dtype=dt)
+    out = x
+    for d in sorted(dim, reverse=True):   # torch.prod takes one dim
+        out = out.prod(dim=d, keepdim=keepdim, dtype=dt)
+    return out
+
+
+def _truthy(x):
+    # jnp.all / jnp.any read nonzero (NaN too) as true
+    return x if x.dtype == torch.bool else x != 0
+
+
+_REDUCERS = {
+    'reduce_sum': lambda x, dim, keep: x.sum(dtype=_int32_acc(x)) if
+    dim is None else x.sum(dim=dim, keepdim=keep, dtype=_int32_acc(x)),
+    'reduce_mean': _mean,
+    # amax / amin propagate NaN and split the gradient among ties evenly,
+    # as jnp.max / jnp.min do
+    'reduce_max': lambda x, dim, keep: x.amax() if dim is None else
+    x.amax(dim=dim, keepdim=keep),
+    'reduce_min': lambda x, dim, keep: x.amin() if dim is None else
+    x.amin(dim=dim, keepdim=keep),
+    'reduce_prod': _prod,
+    'reduce_all': lambda x, dim, keep: _truthy(x).all() if dim is None
+    else _truthy(x).all(dim=dim, keepdim=keep),
+    'reduce_any': lambda x, dim, keep: _truthy(x).any() if dim is None
+    else _truthy(x).any(dim=dim, keepdim=keep),
+}
+
+
+def _reduce(name):
+    fn = _REDUCERS[name]
+
+    @register(name)
+    def impl(ctx, ins, attrs):
+        """jnp's reduction over `dim` (or every axis with `reduce_all`),
+        `keep_dim` keeping the reduced axes; a 0-d result as shape [1]."""
+        x = ins['X']
+        keep = attrs.get('keep_dim', False)
+        if attrs.get('reduce_all', False):
+            out = fn(x, None, keep)
+            if keep:
+                out = out.reshape([1] * x.ndim)
+        else:
+            dim = attrs.get('dim', [0])
+            dim = [dim] if isinstance(dim, int) else list(dim)
+            out = fn(x, tuple(d % x.ndim for d in dim), keep)
+        if out.ndim == 0:
+            out = out.reshape(1)
+        return {'Out': out}
+    return impl
+
+
+for _name in _REDUCERS:
+    _reduce(_name)
 
 
 @register('mean')
@@ -491,3 +548,50 @@ def mul(ctx, ins, attrs):
     x2, y2 = _promote(x.reshape(int(np.prod(xs[:xn])), -1),
                       y.reshape(int(np.prod(ys[:yn])), -1))
     return {'Out': torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
+
+
+@register('prelu')
+def prelu(ctx, ins, attrs):
+    # alpha one value ('all'), one a channel ('channel', axis 1) or one an
+    # element of x's trailing shape ('element')
+    x, alpha = ins['X'], ins['Alpha']
+    mode = attrs.get('mode', 'all')
+    if mode == 'channel':
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    elif mode == 'all':
+        alpha = alpha.reshape((1,) * x.ndim)
+    return {'Out': torch.where(x >= 0, x, alpha * x)}
+
+
+@register('l2_normalize')
+def l2_normalize(ctx, ins, attrs):
+    # x / max(sqrt(sum(x^2, axis)), epsilon)
+    x = ins['X']
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get('axis', -1),
+                                keepdim=True))
+    norm = _maximum(norm, weak(attrs.get('epsilon', 1e-12), norm))
+    return {'Out': x / norm, 'Norm': norm}
+
+
+@register('isfinite')
+def isfinite(ctx, ins, attrs):
+    return {'Out': torch.isfinite(ins['X']).all().reshape(1)}
+
+
+@register('has_inf')
+def has_inf(ctx, ins, attrs):
+    return {'Out': torch.isinf(ins['X']).any().reshape(1)}
+
+
+@register('has_nan')
+def has_nan(ctx, ins, attrs):
+    return {'Out': torch.isnan(ins['X']).any().reshape(1)}
+
+
+@register('maxout')
+def maxout(ctx, ins, attrs):
+    # NCHW: the max over each run of `groups` consecutive channels
+    x = ins['X']
+    g = attrs['groups']
+    n, c, h, w = x.shape
+    return {'Out': x.reshape(n, c // g, g, h, w).amax(dim=2)}

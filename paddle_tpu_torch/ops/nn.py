@@ -1,6 +1,8 @@
-"""Normalisation, position, softmax, dropout, convolution and pooling ops:
-rms_norm, rope, layer_norm, add_position_encoding, softmax, dropout,
-conv2d, pool2d and batch_norm.
+"""Normalisation, position, softmax, dropout, convolution, pooling and
+resize ops: rms_norm, rope, layer_norm, add_position_encoding, softmax,
+log_softmax, dropout, conv2d, conv3d, conv2d_transpose, conv3d_transpose,
+pool2d, pool3d, adaptive_pool2d, adaptive_pool3d, batch_norm, group_norm,
+lrn, bilinear_interp, nearest_interp and affine_channel.
 
 Counterpart of paddle_tpu/ops/nn.py.  rms_norm and rope compute in float32
 and return the input dtype.  `layer_norm` is the JAX op's function, rows x
@@ -29,11 +31,14 @@ draws it, outside any kernel (`jax.random.bernoulli` there, `bernoulli_`
 on the op's own `torch.Generator` here, on the device); the two packages'
 draws differ, as their generators do.
 
-`conv2d` is `F.conv2d` (cuDNN on the card), NCHW / OIHW, as the JAX
-package leaves its convolution to XLA (`lax.conv_general_dilated`) outside
-any kernel of its own.  A float32 convolution computes in float32 on the
-card whatever `torch.backends.cudnn.allow_tf32` says: the op turns cuDNN's
-TF32 off around its forward and its backward (`_Conv2d`).  `pool2d` pads
+The convolutions are aten's (cuDNN on the card), NCHW / OIHW and NCDHW /
+OIDHW, the transposed ones as the gradient of a convolution with the
+reference's [in, out / groups, *k] filter, as the JAX package leaves them
+to XLA (`lax.conv_general_dilated`) outside any kernel of its own.  A
+float32 convolution computes in float32 on the card whatever
+`torch.backends.cudnn.allow_tf32` says: the op turns cuDNN's TF32 off
+around its forward and its backward (`_Conv`).  The pools (2-d, 3-d and
+adaptive with even windows) pad
 explicitly as the JAX op does (`_pool`): -inf for max and 0 for avg on the
 low side, and on the high side under `ceil_mode` as far as the last window
 that starts inside the padded input needs, then pools without padding; avg
@@ -364,11 +369,6 @@ def dropout(ctx, ins, attrs):
 
 # ------------------------------------------------------------ convolution
 
-def _pair(v):
-    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) \
-        else (int(v), int(v))
-
-
 @contextlib.contextmanager
 def _cudnn_float32():
     """cuDNN's TF32 off: a float32 convolution in float32, as the JAX
@@ -381,35 +381,53 @@ def _cudnn_float32():
         torch.backends.cudnn.allow_tf32 = old
 
 
-class _Conv2d(torch.autograd.Function):
-    """F.conv2d, forward and backward under `_cudnn_float32`: the
+class _Conv(torch.autograd.Function):
+    """aten's convolution (cuDNN on the card; `transposed` the gradient-
+    of-conv form), forward and backward under `_cudnn_float32`: the
     backward reads cuDNN's TF32 flag when it runs, outside the op."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, dilation, groups):
+    def forward(ctx, x, w, stride, padding, dilation, groups, transposed):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, padding, dilation, groups)
+        ctx.conf = (stride, padding, dilation, groups, transposed)
         with _cudnn_float32():
-            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+            return torch.ops.aten.convolution(
+                x, w, None, list(stride), list(padding), list(dilation),
+                transposed, [0] * len(stride), groups)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        stride, padding, dilation, groups = ctx.conf
+        stride, padding, dilation, groups, transposed = ctx.conf
         want = ctx.needs_input_grad
         with _cudnn_float32():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, list(stride), list(padding), list(dilation),
-                False, [0, 0], groups, [want[0], want[1], False])
-        return gx, gw, None, None, None, None
+                transposed, [0] * len(stride), groups,
+                [want[0], want[1], False])
+        return gx, gw, None, None, None, None, None
+
+
+def _tuple(v, nd):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) \
+        else (int(v),) * nd
+
+
+def conv_nd(x, w, strides, paddings, dilations, groups=1, transposed=False):
+    """The convolution of `x` [N, C, *S] with `w` [O, C / groups, *k]
+    (transposed: `w` [C, O / groups, *k], the gradient of that
+    convolution) and symmetric zero padding."""
+    nd = x.ndim - 2
+    return _Conv.apply(x, w, _tuple(strides, nd), _tuple(paddings, nd),
+                       _tuple(dilations, nd), int(groups or 1),
+                       bool(transposed))
 
 
 def conv2d_nchw(x, w, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
                 groups=1):
     """The convolution of `x` [N, C, H, W] with `w` [O, C / groups, kh, kw]
     and symmetric zero padding."""
-    return _Conv2d.apply(x, w, _pair(strides), _pair(paddings),
-                         _pair(dilations), int(groups or 1))
+    return conv_nd(x, w, strides, paddings, dilations, groups)
 
 
 @register('conv2d')
@@ -424,47 +442,95 @@ def conv2d(ctx, ins, attrs):
     return {'Output': out}
 
 
+def _conv_op(name, nd, transposed):
+    @register(name)
+    def impl(ctx, ins, attrs):
+        return {'Output': conv_nd(
+            ins['Input'], ins['Filter'], attrs.get('strides', [1] * nd),
+            attrs.get('paddings', [0] * nd), attrs.get('dilations', [1] * nd),
+            attrs.get('groups', 1), transposed)}
+    return impl
+
+
+_conv_op('conv3d', 3, False)
+_conv_op('conv2d_transpose', 2, True)
+_conv_op('conv3d_transpose', 3, True)
+
+
 # ---------------------------------------------------------------- pooling
 
-def _pool2d(x, ksize, strides, paddings, ptype='max', exclusive=True,
-                ceil_mode=False, global_pooling=False):
-    """The JAX op's `_pool` on [N, C, H, W]."""
+_POOLS = {2: (F.max_pool2d, F.avg_pool2d), 3: (F.max_pool3d, F.avg_pool3d)}
+
+
+def _pool(x, ksize, strides, paddings, ptype='max', exclusive=True,
+          ceil_mode=False, global_pooling=False, nd=2):
+    """The JAX op's `_pool` on [N, C, *S], nd = len(S) spatial axes."""
+    axes = tuple(range(2, 2 + nd))
     if global_pooling:
         if ptype == 'max':
-            return x.amax(dim=(2, 3), keepdim=True)
-        return x.mean(dim=(2, 3), keepdim=True)
-    ksize, strides, pads = _pair(ksize), _pair(strides), _pair(paddings)
-    hi = []
-    for i in range(2):
+            return x.amax(dim=axes, keepdim=True)
+        return x.mean(dim=axes, keepdim=True)
+    ksize, strides, pads = (_tuple(ksize, nd), _tuple(strides, nd),
+                            _tuple(paddings, nd))
+    spec = []
+    for i in range(nd - 1, -1, -1):
         h = pads[i]
         if ceil_mode:
             size = x.shape[2 + i]
             out = -(-(size + 2 * pads[i] - ksize[i]) // strides[i]) + 1
             needed = (out - 1) * strides[i] + ksize[i] - size - pads[i]
             h = max(pads[i], needed)
-        hi.append(h)
-    spec = (pads[1], hi[1], pads[0], hi[0])
+        spec += [pads[i], h]
+    maxp, avgp = _POOLS[nd]
     if ptype == 'max':
-        return F.max_pool2d(F.pad(x, spec, value=float('-inf')), ksize,
-                            strides)
-    s = F.avg_pool2d(F.pad(x, spec), ksize, strides, divisor_override=1)
+        return maxp(F.pad(x, spec, value=float('-inf')), ksize, strides)
+    s = avgp(F.pad(x, spec), ksize, strides, divisor_override=1)
     if exclusive:
         ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                           device=x.device)
-        return s / F.avg_pool2d(F.pad(ones, spec), ksize, strides,
-                                divisor_override=1)
-    return s / float(ksize[0] * ksize[1])
+        return s / avgp(F.pad(ones, spec), ksize, strides,
+                        divisor_override=1)
+    return s / float(np.prod(ksize))
 
 
-@register('pool2d')
-def pool2d(ctx, ins, attrs):
-    return {'Out': _pool2d(ins['X'], attrs.get('ksize', [2, 2]),
-                           attrs.get('strides', [1, 1]),
-                           attrs.get('paddings', [0, 0]),
-                           attrs.get('pooling_type', 'max'),
-                           attrs.get('exclusive', True),
-                           attrs.get('ceil_mode', False),
-                           attrs.get('global_pooling', False))}
+def _pool_op(name, nd):
+    @register(name)
+    def impl(ctx, ins, attrs):
+        return {'Out': _pool(ins['X'], attrs.get('ksize', [2] * nd),
+                             attrs.get('strides', [1] * nd),
+                             attrs.get('paddings', [0] * nd),
+                             attrs.get('pooling_type', 'max'),
+                             attrs.get('exclusive', True),
+                             attrs.get('ceil_mode', False),
+                             attrs.get('global_pooling', False), nd)}
+    return impl
+
+
+_pool_op('pool2d', 2)
+_pool_op('pool3d', 3)
+
+
+def _adaptive_op(name, nd):
+    @register(name)
+    def impl(ctx, ins, attrs):
+        """Even windows, as the JAX op takes them: each spatial size must
+        divide by its output size."""
+        x = ins['X']
+        out = _tuple(attrs['ksize'], nd)
+        ks = []
+        for s_, o in zip(x.shape[2:2 + nd], out):
+            if s_ % o:
+                raise ValueError('%s: size %d does not divide into %d '
+                                 'windows' % (name, s_, o))
+            ks.append(s_ // o)
+        return {'Out': _pool(x, ks, ks, [0] * nd,
+                             attrs.get('pooling_type', 'max'), True, False,
+                             False, nd)}
+    return impl
+
+
+_adaptive_op('adaptive_pool2d', 2)
+_adaptive_op('adaptive_pool3d', 3)
 
 
 # ------------------------------------------------------------- batch norm
@@ -501,8 +567,118 @@ def batch_norm(ctx, ins, attrs):
     y = (d - md) * (scale.reshape(bshape) *
                     torch.rsqrt(v.reshape(bshape) + eps)) + \
         bias.reshape(bshape)
-    with torch.no_grad():
-        mean.copy_(momentum * mean + (1 - momentum) * m)
-        var.copy_(momentum * var + (1 - momentum) * v)
+    if not getattr(ctx, 'recomputing', False):
+        # once a step: not again when a recompute group runs it again
+        with torch.no_grad():
+            mean.copy_(momentum * mean + (1 - momentum) * m)
+            var.copy_(momentum * var + (1 - momentum) * v)
     return {'Y': y.to(x.dtype), 'MeanOut': mean, 'VarianceOut': var,
             'SavedMean': m, 'SavedVariance': v}
+
+
+# ------------------------------------------- the other norms and resizes
+
+@register('group_norm')
+def group_norm(ctx, ins, attrs):
+    # two-pass float32 statistics over each group of C / groups channels,
+    # Y in x's dtype, Mean / Variance [N, groups]
+    x = ins['X']
+    g = attrs.get('groups', 1)
+    eps = attrs.get('epsilon', 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:])).float()
+    axes = tuple(range(2, xg.ndim))
+    m = xg.mean(dim=axes, keepdim=True)
+    v = torch.square(xg - m).mean(dim=axes, keepdim=True)
+    y = ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.ndim - 2)
+    if ins.get('Scale') is not None:
+        y = y * ins['Scale'].reshape(bshape)
+    if ins.get('Bias') is not None:
+        y = y + ins['Bias'].reshape(bshape)
+    return {'Y': y.to(x.dtype), 'Mean': m.reshape(n, g),
+            'Variance': v.reshape(n, g)}
+
+
+@register('log_softmax')
+def log_softmax(ctx, ins, attrs):
+    x = ins['X']
+    return {'Out': torch.log_softmax(x.float(), dim=attrs.get('axis', -1))
+            .to(x.dtype)}
+
+
+@register('lrn')
+def lrn(ctx, ins, attrs):
+    """x / (k + alpha sum_n x^2)^beta over n neighbouring channels, the
+    window sum added left to right as the JAX op adds it."""
+    x = ins['X']
+    n = attrs.get('n', 5)
+    half = n // 2
+    sq = torch.square(x)
+    pad = F.pad(sq, (0, 0, 0, 0, half, half))
+    C = x.shape[1]
+    acc = pad[:, 0:C]
+    for i in range(1, n):
+        acc = acc + pad[:, i:i + C]
+    mid = weak(attrs.get('k', 2.0), acc) + weak(attrs.get('alpha', 1e-4),
+                                                acc) * acc
+    return {'Out': x / torch.pow(mid, weak(attrs.get('beta', 0.75), mid)),
+            'MidOut': mid}
+
+
+def _resize(x, out_h, out_w, method, align_corners):
+    """The JAX op's `_resize` on [N, C, H, W].  align_corners: source
+    coordinate i (in - 1) / (out - 1); nearest rounds it half to even,
+    bilinear blends the four neighbours in x's dtype.  Otherwise
+    `jax.image.resize`'s half-pixel sampling (nearest-exact; bilinear
+    with its antialiasing triangle kernel when shrinking)."""
+    n, c, h, w = x.shape
+    if not align_corners:
+        if method == 'nearest':
+            return F.interpolate(x, (out_h, out_w), mode='nearest-exact')
+        return F.interpolate(x, (out_h, out_w), mode='bilinear',
+                             align_corners=False, antialias=True)
+
+    def coords(out_size, in_size):
+        if out_size == 1:
+            return torch.zeros(1, device=x.device)
+        return torch.arange(out_size, device=x.device, dtype=torch.int32) * \
+            float((in_size - 1) / (out_size - 1))
+
+    ys, xs = coords(out_h, h), coords(out_w, w)
+    if method == 'nearest':
+        yi, xi = torch.round(ys).long(), torch.round(xs).long()
+        return x[:, :, yi][:, :, :, xi]
+    y0 = torch.floor(ys).long().clamp(0, h - 1)
+    x0 = torch.floor(xs).long().clamp(0, w - 1)
+    y1 = torch.clamp_max(y0 + 1, h - 1)
+    x1 = torch.clamp_max(x0 + 1, w - 1)
+    wy = (ys - y0).reshape(1, 1, -1, 1).to(x.dtype)
+    wx = (xs - x0).reshape(1, 1, 1, -1).to(x.dtype)
+    tl = x[:, :, y0][:, :, :, x0]
+    tr = x[:, :, y0][:, :, :, x1]
+    bl = x[:, :, y1][:, :, :, x0]
+    br = x[:, :, y1][:, :, :, x1]
+    top = tl * (1 - wx) + tr * wx
+    bot = bl * (1 - wx) + br * wx
+    return top * (1 - wy) + bot * wy
+
+
+@register('bilinear_interp')
+def bilinear_interp(ctx, ins, attrs):
+    return {'Out': _resize(ins['X'], attrs['out_h'], attrs['out_w'],
+                           'bilinear', attrs.get('align_corners', True))}
+
+
+@register('nearest_interp')
+def nearest_interp(ctx, ins, attrs):
+    return {'Out': _resize(ins['X'], attrs['out_h'], attrs['out_w'],
+                           'nearest', attrs.get('align_corners', True))}
+
+
+@register('affine_channel')
+def affine_channel(ctx, ins, attrs):
+    x = ins['X']
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    return {'Out': x * ins['Scale'].reshape(bshape) +
+            ins['Bias'].reshape(bshape)}

@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu.core import registry as jreg
 from paddle_tpu_torch.ops import optimizer_ops as oo
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 # sizes 1 and 7, one not a multiple of the kernel's chunk, a 2-D one
 SHAPES = [(1,), (7,), (oo._CHUNK + 1,), (3, 50)]

@@ -16,6 +16,7 @@ import paddle_tpu_torch as tf
 from paddle_tpu.core import async_runtime as jasync
 from paddle_tpu_torch.core import async_runtime as tasync
 from paddle_tpu_torch.core import executor as texec
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture(autouse=True)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -46,6 +46,7 @@ import paddle_tpu_torch as tf
 from paddle_tpu.models import mnist as jmnist, se_resnext as jse, vgg as jvgg
 from paddle_tpu_torch.models import (mnist as tmnist, se_resnext as tse,
                                      vgg as tvgg)
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 B = 4
 
@@ -227,6 +228,17 @@ def _dist(a, b, names):
     return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
 
 
+_PAIRS = {}
+
+
+def _pair(which, amp):
+    """The _Pair of `which` at `amp`, built once for the tests that use it
+    (the float32 one also by the AMP test's float32 effect)."""
+    if (which, amp) not in _PAIRS:
+        _PAIRS[which, amp] = _Pair(which, amp)
+    return _PAIRS[which, amp]
+
+
 class _Pair(object):
     """One model in both packages at one precision, and a step of each
     from a given state on a given feed -> (loss, state after)."""
@@ -235,19 +247,27 @@ class _Pair(object):
         self.j = _model(jf, which, amp)
         self.t = _model(tf, which, amp)
         assert _desc(tf, self.t[0]) == _desc(jf, self.j[0])
+        # one executor a package: a step's state comes in a new scope, and
+        # the compiled step (keyed by program and feeds, not the scope) is
+        # reused; no dropout draws, so the run counters change nothing
+        self.jexe, self.texe = jf.Executor(), tf.Executor(tf.CPUPlace())
+        self._init = None
 
     def init(self):
-        scope = jf.Scope()
-        with jf.scope_guard(scope):
-            jf.Executor().run(self.j[1])
-        return {n: np.asarray(v).copy() for n, v in scope.vars.items()}
+        if self._init is None:
+            scope = jf.Scope()
+            with jf.scope_guard(scope):
+                jf.Executor().run(self.j[1])
+            self._init = {n: np.asarray(v).copy()
+                          for n, v in scope.vars.items()}
+        return self._init
 
     def jax_step(self, state, feed):
         scope = jf.Scope()
         scope.vars.update({n: a.copy() for n, a in state.items()})
         with jf.scope_guard(scope):
-            loss, = jf.Executor().run(self.j[0], feed=feed,
-                                      fetch_list=[self.j[2]])
+            loss, = self.jexe.run(self.j[0], feed=feed,
+                                  fetch_list=[self.j[2]])
         return float(loss[0]), {n: np.asarray(v).astype(np.float64)
                                 for n, v in scope.vars.items()}
 
@@ -255,8 +275,8 @@ class _Pair(object):
         scope = tf.scope_from_numpy({n: a.copy() for n, a in state.items()},
                                     tf.Scope(), 'cpu')
         with tf.scope_guard(scope):
-            loss, = tf.Executor(tf.CPUPlace()).run(
-                self.t[0], feed=feed, fetch_list=[self.t[2]])
+            loss, = self.texe.run(self.t[0], feed=feed,
+                                  fetch_list=[self.t[2]])
         return float(loss[0]), {n: v.double().numpy()
                                 for n, v in scope.vars.items()}
 
@@ -281,7 +301,7 @@ def _common(state, new):
 
 @pytest.mark.parametrize('which', sorted(MODELS))
 def test_three_f32_steps_match_the_jax_package(which):
-    pair = _Pair(which, False)
+    pair = _pair(which, False)
     feed, moved = _feeds(which)
     state = pair.init()
     kinds = _kinds(state)
@@ -306,7 +326,7 @@ def test_three_f32_steps_match_the_jax_package(which):
 
 @pytest.mark.parametrize('which', sorted(MODELS))
 def test_three_amp_steps_match_the_jax_package(which):
-    amp, f32 = _Pair(which, True), _Pair(which, False)
+    amp, f32 = _pair(which, True), _pair(which, False)
     feed, _ = _feeds(which)
     state = amp.init()
     kinds = _kinds(state)

@@ -22,6 +22,7 @@ import paddle_tpu_torch as tf
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.ops import kernelgen
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 pytestmark = pytest.mark.cuda
 

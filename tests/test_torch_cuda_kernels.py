@@ -23,6 +23,7 @@ from paddle_tpu_torch.ops import gather as ga
 from paddle_tpu_torch.ops import kernelgen
 from paddle_tpu_torch.ops import nn as tnn
 from paddle_tpu_torch.ops import optimizer_ops as oo
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 pytestmark = pytest.mark.cuda
 
@@ -1433,3 +1434,74 @@ def test_one_graph_serves_batches_of_other_lengths(cuda):
                             for f in feeds]
     for a, b in zip(res[True], res[False]):
         np.testing.assert_allclose(a, b, rtol=1e-6)
+
+
+# ------------------------------------ recompute and the dense rules
+
+@pytest.mark.parametrize('dropout,use_flash', [(0.1, False), (0.0, True)])
+def test_recompute_graph_step_equals_the_plain_one(cuda, dropout, use_flash):
+    """A small transformer (2 + 2 layers, d_model 64) under bf16 AMP, its
+    forward in one recompute_scope, against the same program without it,
+    from one state: three steps (interpreted, captured, replayed) give
+    the plain program's losses and parameters bit for bit (the dropout
+    masks replay in the backward, inside the graph too), and the
+    recompute's graph step equals its interpreted step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = dict(src_vocab=128, trg_vocab=128, max_len=32, n_layer=2,
+               n_head=4, d_model=64, d_inner=128, dropout=dropout,
+               use_flash=use_flash)
+    feed = tr.synthetic_batch(np.random.RandomState(4), 4, 32, 128)
+    res, init = {}, None
+    for remat in (False, True):
+        main, startup, loss, _, _ = chip_smoke._remat_program(
+            fluid, tr, cfg, remat)
+        scope, exe = fluid.Scope(), fluid.Executor()
+        with fluid.scope_guard(scope):
+            if init is None:
+                exe.run(startup)
+                init = {n: t.clone() for n, t in scope.vars.items()}
+            else:
+                for n, t in init.items():
+                    scope.vars[n] = t.clone()
+            losses = [exe.run(main, feed=feed, fetch_list=[loss])[0]
+                      for _ in range(3)]
+            res[remat] = (losses, {p.name: scope.vars[p.name].clone()
+                                   for p in main.all_parameters()})
+            if remat:
+                snap = {n: t.clone() for n, t in scope.vars.items()}
+                state = exe.rng_state()
+                eager = exe.run(main, feed=feed, fetch_list=[loss],
+                                use_program_cache=False)[0]
+                after = {n: t.clone() for n, t in scope.vars.items()}
+                for n, t in snap.items():
+                    scope.vars[n].copy_(t)
+                exe.set_rng_state(state)
+                graph = exe.run(main, feed=feed, fetch_list=[loss])[0]
+                assert np.array_equal(eager, graph)
+                for n, t in after.items():
+                    assert torch.equal(scope.vars[n], t), n
+    for a, b in zip(res[True][0], res[False][0]):
+        assert np.array_equal(a, b)
+    for n, t in res[True][1].items():
+        assert torch.equal(t, res[False][1][n]), n
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('case', sorted(chip_smoke.A10_RULE_CASES))
+def test_new_rule_segments_are_their_plain_ops(cuda, case, dtype):
+    """label_smooth (with and without a prior), fill_zeros_like and
+    flatten's segment against the plain ops, bit for bit: float32 on
+    RULE_SPECIALS and normal values, bf16 on every bit pattern
+    (chip_smoke.a10_rule_case), at 2^17 values."""
+    spec = chip_smoke.a10_rule_specs(dtype, 1 << 17)[case]
+    row = chip_smoke.a10_rule_case(case, spec, dtype, 1 << 17)
+    assert row['mismatches'] == 0
+
+
+@pytest.mark.parametrize('name', sorted(chip_smoke.GVC_OPS))
+def test_dense_op_on_the_card_matches_the_cpu(cuda, name):
+    """Each dense op on the card against the port's CPU run
+    (chip_smoke.GVC_OPS: bit for bit where exact, else its tolerance)."""
+    for slot, (err, ok) in chip_smoke.gvc_case(name).items():
+        assert ok, (slot, err)

@@ -39,6 +39,7 @@ import paddle_tpu_torch as tf
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.layers import ops as tops
 from paddle_tpu_torch.ops import kernelgen as tkg
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture(autouse=True)

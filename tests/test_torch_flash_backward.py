@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 ATOL = 5e-4
 

@@ -33,6 +33,7 @@ import torch
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 TK = 32      # keys per tile up to D = 128
 WIDE_TK = 16  # keys per tile at width 256

@@ -42,6 +42,7 @@ import torch
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 WK = 64      # keys per tile (both kernels)
 BQ = 64      # query rows per forward tile, and per backward ring tile
@@ -332,23 +333,42 @@ BWD_IDS = ['path', 'causal_klen', 'gqa', 'tq_lt_tk', 'klen_d128', 'klen0',
            'd256_gqa_klen01', 'd136_tq_lt_tk_klen01', 'd200_mqa_ragged']
 
 
+# case -> what its dK/dV and dQ tests share: the inputs, the emulated
+# forward's out and LSE, the plain backward and the JAX kernels' (in
+# interpret mode, most of a case's time), computed once; no test writes
+# them
+_BWD_BASES = {}
+
+
+def _bwd_base(case):
+    key = repr(case)
+    if key not in _BWD_BASES:
+        B, H, Hkv, Tq, Tk, D, causal, klen, seed = case
+        q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, seed)
+        scale = D ** -0.5
+        # the forward's out and LSE, as the kernels see them
+        out, lse = emulate_forward(q, k, v, kl, causal, scale)
+        refs = tatt.flash_backward_reference(q, k, v, kl, out, lse, do,
+                                             causal, scale)
+        jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
+                                lse.shape + (8,))
+        jgrads = jatt._flash_backward(
+            _jnp(q), _jnp(k), _jnp(v), jnp.asarray(kl.numpy()), _jnp(out),
+            jlse, _jnp(do), causal, scale, _block(Tq), _block(Tk),
+            interpret=True)
+        jgrads = [torch.from_numpy(np.array(j.astype(jnp.float32)))
+                  for j in jgrads]
+        _BWD_BASES[key] = ((q, k, v, do, kl), scale, out, lse, refs, jgrads)
+    return _BWD_BASES[key]
+
+
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
 def test_dkv_emulation_within_the_card_tolerance(case):
-    B, H, Hkv, Tq, Tk, D, causal, klen, seed = case
-    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, seed)
-    scale = D ** -0.5
-    # the forward's out and LSE, as the kernels see them
-    out, lse = emulate_forward(q, k, v, kl, causal, scale)
+    causal, klen = case[6], case[7]
+    (q, k, v, do, kl), scale, out, lse, (_, rk, rv), (_, jdk, jdv) = \
+        _bwd_base(case)
     dk, dv = emulate_dkv(q, k, v, kl, out, lse, do, causal, scale)
-    _, rk, rv = tatt.flash_backward_reference(q, k, v, kl, out, lse, do,
-                                              causal, scale)
-    jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
-                            lse.shape + (8,))
-    _, jdk, jdv = jatt._flash_backward(
-        _jnp(q), _jnp(k), _jnp(v), jnp.asarray(kl.numpy()), _jnp(out), jlse,
-        _jnp(do), causal, scale, _block(Tq), _block(Tk), interpret=True)
     for name, a, r, j in (('dk', dk, rk, jdk), ('dv', dv, rv, jdv)):
-        j = torch.from_numpy(np.array(j.astype(jnp.float32)))
         for what, ref in (('plain', r.float()), ('jax', j)):
             _close(a, ref, BWD_RTOL, BWD_AREL * float(ref.abs().max()),
                    '%s %s' % (name, what))
@@ -358,19 +378,10 @@ def test_dkv_emulation_within_the_card_tolerance(case):
 
 @pytest.mark.parametrize('case', BWD_CASES, ids=BWD_IDS)
 def test_dq_emulation_within_the_card_tolerance(case):
-    B, H, Hkv, Tq, Tk, D, causal, klen, seed = case
-    q, k, v, do, kl = _inputs(B, H, Hkv, Tq, Tk, D, klen, seed)
-    scale = D ** -0.5
-    out, lse = emulate_forward(q, k, v, kl, causal, scale)
+    causal, klen = case[6], case[7]
+    (q, k, v, do, kl), scale, out, lse, (rq, _, _), (jdq, _, _) = \
+        _bwd_base(case)
     dq = emulate_dq(q, k, v, kl, out, lse, do, causal, scale)
-    rq, _, _ = tatt.flash_backward_reference(q, k, v, kl, out, lse, do,
-                                             causal, scale)
-    jlse = jnp.broadcast_to(jnp.asarray(lse.numpy())[..., None],
-                            lse.shape + (8,))
-    jdq, _, _ = jatt._flash_backward(
-        _jnp(q), _jnp(k), _jnp(v), jnp.asarray(kl.numpy()), _jnp(out), jlse,
-        _jnp(do), causal, scale, _block(Tq), _block(Tk), interpret=True)
-    jdq = torch.from_numpy(np.array(jdq.astype(jnp.float32)))
     for what, ref in (('plain', rq.float()), ('jax', jdq)):
         _close(dq, ref, BWD_RTOL, BWD_AREL * float(ref.abs().max()),
                'dq %s' % what)

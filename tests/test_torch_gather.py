@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import gather as jgather
 from paddle_tpu_torch.ops import gather as tgather
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture

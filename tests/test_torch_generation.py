@@ -32,6 +32,7 @@ from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import sampling as tsamp
 from paddle_tpu_torch.serving import generation as tgen
 from paddle_tpu_torch.serving.generation import decode as tdec
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 CFG = dict(vocab=64, d_model=32, n_layer=2, n_head=4, n_kv_head=2,
            d_ffn=64, theta=10000.0, max_len=32)

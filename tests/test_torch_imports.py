@@ -4,6 +4,7 @@ import ast
 import os
 
 import pytest
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = ('jax', 'jaxlib', 'paddle_tpu')

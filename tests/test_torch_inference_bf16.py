@@ -31,6 +31,7 @@ import paddle_tpu as jf
 from paddle_tpu.models import llama as jllama
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.models import llama as tllama
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 R_PER_LAYER = 12
 

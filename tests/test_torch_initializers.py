@@ -15,6 +15,7 @@ import torch
 
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.core.registry import ExecCtx, get_op
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 # the std of a standard normal truncated to [-2, 2]
 TRUNC_STD = math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi) /

@@ -51,6 +51,7 @@ from paddle_tpu_torch.models import transformer as ttr
 from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch.ops import kernelgen as tkg
 from paddle_tpu_torch.ops.kernelgen import builder as tbuilder
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 SMALL = dict(src_vocab=128, trg_vocab=128, max_len=16, n_layer=2, n_head=4,
              d_model=64, d_inner=128, dropout=0.1, use_flash=False)
@@ -435,12 +436,13 @@ def test_every_registered_fusable_op_has_a_rule():
 
 
 def test_unsupported_sub_op_raises_naming_itself():
-    # label_smooth is fusable but has no rule (nor a port op)
-    attrs = _attrs([_sub('label_smooth', {'X': ['x']}, {'Out': ['o']}),
+    # every fusable op has a rule: a sub-op of another type (top_k, which
+    # the fuse pass never fuses) stands for one without
+    attrs = _attrs([_sub('top_k', {'X': ['x']}, {'Out': ['o']}, {'k': 1}),
                     _sub('relu', {'X': ['o']}, {'Out': ['p']})],
                    ['x'], ['p'])
-    assert tkg.unsupported_sub_ops(attrs) == ['label_smooth']
-    with pytest.raises(tkg.KernelgenUnsupported, match="'label_smooth'"):
+    assert tkg.unsupported_sub_ops(attrs) == ['top_k']
+    with pytest.raises(tkg.KernelgenUnsupported, match="'top_k'"):
         tkg.plan_for(attrs, (((4,), 'float32'),), False)
     # float16 is no dtype of a generated kernel
     cast = _attrs([_sub('cast', {'X': ['x']}, {'Out': ['o']},

@@ -16,6 +16,7 @@ from paddle_tpu.core import registry as jreg
 from paddle_tpu.ops.kernelgen import rules as jrules
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.ops import nn as tnn
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

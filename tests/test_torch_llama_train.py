@@ -65,6 +65,7 @@ import paddle_tpu as jf
 from paddle_tpu.models import llama as jllama
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.models import llama as tllama
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 D64 = dict(vocab=256, d_model=256, n_layer=2, n_head=4, n_kv_head=2,
            d_ffn=512, theta=10000.0, max_len=32)

@@ -22,6 +22,7 @@ import torch
 
 import paddle_tpu as jf
 import paddle_tpu_torch as tf
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture(autouse=True)

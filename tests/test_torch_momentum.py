@@ -22,6 +22,7 @@ from paddle_tpu_torch.core import executor as texec
 from paddle_tpu_torch.core.registry import ExecCtx
 from paddle_tpu_torch.ops import kernelgen as tkg
 from paddle_tpu_torch.ops import optimizer_ops as oo
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 SHAPES = [(1,), (7,), (oo._MOMENTUM_CHUNK + 1,), (3, 50)]
 MU = 0.9

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from paddle_tpu.core import registry as jreg
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.dtypes import dtype_str, torch_dtype
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 _JCTX = types.SimpleNamespace(mesh=None)

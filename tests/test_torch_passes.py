@@ -21,6 +21,7 @@ import paddle_tpu_torch as tf
 from paddle_tpu_torch.core import passes as tpasses
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.models import transformer as ttr
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 SMALL = dict(src_vocab=128, trg_vocab=128, max_len=16, n_layer=2, n_head=4,
              d_model=64, d_inner=128)

@@ -27,6 +27,7 @@ import paddle_tpu as jf
 import paddle_tpu_torch as tf
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.models import llama as tllama
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture(autouse=True)

@@ -25,6 +25,7 @@ import torch
 import paddle_tpu as jf
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.core import executor as texec
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ import pytest
 
 import paddle_tpu as jf
 import paddle_tpu_torch as tf
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 RTOL = 1e-5
 LSTM_LR = 0.002

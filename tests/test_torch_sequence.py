@@ -28,6 +28,7 @@ import paddle_tpu as jf
 from paddle_tpu.core import registry as jreg
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.core.registry import get_op
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 RTOL = 1e-5
 

@@ -10,6 +10,7 @@ import pytest
 
 from paddle_tpu_torch.data_feeder import FeedBucketer
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine, TokenBucket
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 class GatedBackend(object):

@@ -17,6 +17,7 @@ import torch
 
 from paddle_tpu.core import registry as jreg
 from paddle_tpu_torch.ops import nn as tnn
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 
 def _jax_softmax(x, axis, dtype):

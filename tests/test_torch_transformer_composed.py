@@ -25,6 +25,7 @@ import paddle_tpu as jf
 from paddle_tpu.models import transformer as jtr
 import paddle_tpu_torch as tf
 from paddle_tpu_torch.models import transformer as ttr
+import _torch_threads  # noqa: F401,E402  (xdist: torch threads)
 
 SMALL = dict(src_vocab=128, trg_vocab=128, max_len=16, n_layer=2, n_head=4,
              d_model=64, d_inner=128, use_flash=False)
